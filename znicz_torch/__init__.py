@@ -1,0 +1,16 @@
+"""znicz_torch: the PyTorch/CUDA port of znicz_tpu.
+
+The package stands beside ``znicz_tpu`` (the JAX reference) and imports
+nothing from it and nothing of JAX.  It keeps the reference's module
+names, unit names (``fwd_{kind}_{i}``), NHWC activations and weight
+layouts, so each module here has an obvious counterpart there.
+
+This slice serves: ``samples.alexnet.AlexNetWorkflow`` builds the model,
+``serving.model.ModelRunner`` freezes it on the device and
+``serving.frontend.InferenceServer`` batches requests into it.  The
+conv-block, bias+ReLU and LRN stages run through kernels written for
+Hopper (``csrc/``), each with a plain PyTorch twin used on CPU tensors.
+
+Entry points run on ``cuda:0`` unless the caller passes
+``device="cpu"``; without a GPU and without that argument they raise.
+"""

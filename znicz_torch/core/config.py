@@ -1,0 +1,171 @@
+"""Global dotted config tree — the port's own copy of
+``znicz_tpu/core/config.py`` (``Config``, ``root``, ``apply_overrides``).
+
+A global attribute tree ``root`` that sample configs mutate
+(``root.alexnet.dropout = 0.5``) and that dotted ``key.path=value``
+overrides reach.  The port's tree is a separate object from the
+reference's: a knob set on one is not seen by the other.
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Any, Dict, Iterator, Tuple
+
+
+class Config:
+    """An attribute tree node.  Accessing an unknown attribute creates a
+    child ``Config``, so configs can be assigned deeply without
+    pre-declaration::
+
+        root.alexnet.loader.minibatch_size = 60
+    """
+
+    def __init__(self, path: str = "") -> None:
+        object.__setattr__(self, "_path", path)
+        object.__setattr__(self, "_children", {})
+
+    # -- tree access ---------------------------------------------------------
+
+    def __getattr__(self, name: str) -> Any:
+        if name.startswith("_"):
+            raise AttributeError(name)
+        children = object.__getattribute__(self, "_children")
+        if name not in children:
+            children[name] = Config(self._join(name))
+        return children[name]
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if name.startswith("_"):
+            object.__setattr__(self, name, value)
+            return
+        if isinstance(value, dict):
+            node = Config(self._join(name))
+            node.update(value)
+            value = node
+        self._children[name] = value
+
+    def __delattr__(self, name: str) -> None:
+        self._children.pop(name, None)
+
+    def _join(self, name: str) -> str:
+        return f"{self._path}.{name}" if self._path else name
+
+    # -- dict-ish API --------------------------------------------------------
+
+    def update(self, values: Dict[str, Any]) -> "Config":
+        """Recursively merge a plain dict into this subtree."""
+        for key, value in values.items():
+            if isinstance(value, dict):
+                child = getattr(self, key)
+                if not isinstance(child, Config):
+                    child = Config(self._join(key))
+                    self._children[key] = child
+                child.update(value)
+            else:
+                setattr(self, key, value)
+        return self
+
+    def defaults(self, values: Dict[str, Any]) -> "Config":
+        """Like update(), but existing leaves win — sample modules use this
+        so user overrides set before import are not clobbered."""
+        for key, value in values.items():
+            existing = self._children.get(key)
+            # an empty node is what a mere read autovivifies: absent
+            is_vacant = (existing is None or
+                         (isinstance(existing, Config) and not existing))
+            if isinstance(value, dict):
+                if existing is not None and isinstance(existing, Config):
+                    existing.defaults(value)
+                elif is_vacant:
+                    setattr(self, key, value)
+            elif is_vacant:
+                setattr(self, key, value)
+        return self
+
+    def get(self, name: str, default: Any = None) -> Any:
+        """A leaf value, or ``default`` if absent or still a bare node."""
+        value = self._children.get(name, default)
+        if isinstance(value, Config) and not value._children:
+            return default
+        return value
+
+    def items(self) -> Iterator[Tuple[str, Any]]:
+        return iter(self._children.items())
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._children
+
+    def __bool__(self) -> bool:
+        return bool(self._children)
+
+    def to_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for key, value in self._children.items():
+            out[key] = value.to_dict() if isinstance(value, Config) else value
+        return out
+
+    def __repr__(self) -> str:
+        return f"Config({self._path!r}: {self.to_dict()!r})"
+
+    # -- dotted-path access (overrides) --------------------------------------
+
+    def set_by_path(self, dotted: str, value: Any) -> None:
+        parts = dotted.split(".")
+        node: Config = self
+        for part in parts[:-1]:
+            node = getattr(node, part)
+            if not isinstance(node, Config):
+                raise KeyError(f"{dotted}: {part} is a leaf, not a subtree")
+        setattr(node, parts[-1], value)
+
+    def get_by_path(self, dotted: str, default: Any = None) -> Any:
+        parts = dotted.split(".")
+        node: Any = self
+        for part in parts[:-1]:
+            if not isinstance(node, Config):
+                return default
+            node = node._children.get(part)
+        if not isinstance(node, Config):
+            return default
+        return node.get(parts[-1], default)
+
+
+def parse_override(arg: str) -> Tuple[str, Any]:
+    """Parse one override ``a.b.c=value``; value via literal_eval with a
+    string fallback."""
+    if "=" not in arg:
+        raise ValueError(f"override must look like key.path=value, got {arg!r}")
+    key, raw = arg.split("=", 1)
+    key = key.strip()
+    if key.startswith("root."):
+        key = key[len("root."):]
+    try:
+        value = ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        value = raw
+    return key, value
+
+
+def apply_overrides(cfg: "Config", args: list[str]) -> None:
+    for arg in args:
+        key, value = parse_override(arg)
+        cfg.set_by_path(key, value)
+
+
+#: The port's global config tree.
+root = Config("root")
+
+root.common.engine.seed = 1013
+
+#: Every ``root.common.engine.*`` knob the port reads, with the reference's
+#: names and documented defaults (the read sites keep their own defaults;
+#: this table declares, it does not apply).
+ENGINE_DEFAULTS = {
+    "seed": 1013,
+    "fused_elementwise": False,   # conv1/conv2 block kernel (K1)
+    "fused_tail": False,          # conv3-5 bias+ReLU kernel (K2), FC epilogue
+    "lrn_pow": False,             # plain pow instead of the rsqrt form
+    "lrn_autodiff": False,        # shifted-slices LRN formulation
+    "pallas_lrn": False,          # standalone LRN kernel (K3)
+}
