@@ -1,10 +1,11 @@
 """The port stands alone: no file of ``znicz_torch/`` and no line of
 ``chip_smoke.py`` imports JAX or the JAX package; the port serves a batch
-in a process where ``jax`` was never imported; and an entry point asked
-for the card on a machine without one raises instead of dropping to the
-CPU."""
+and trains (``python -m znicz_torch alexnet``'s ``main``) in a process
+where ``jax`` was never imported; and an entry point asked for the card
+on a machine without one raises instead of dropping to the CPU."""
 
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -94,3 +95,42 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+TINY_ALEXNET = ["root.alexnet.loader.image_size=67",
+                "root.alexnet.loader.n_train=12",
+                "root.alexnet.loader.n_valid=4",
+                "root.alexnet.loader.minibatch_size=4",
+                "root.alexnet.loader.n_classes=10",
+                "root.alexnet.decision.max_epochs=2"]
+
+
+def test_port_trains_without_jax_in_the_process():
+    code = (
+        "import json, sys\n"
+        "from znicz_torch.__main__ import main\n"
+        f"assert main(['alexnet', '--device', 'cpu', *{TINY_ALEXNET!r}]) "
+        "== 0\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'znicz_tpu')]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["device"] == "cpu" and res["epochs"] == 2
+    assert res["train_steps"] == 5                # 3 + 2 (last tail skipped)
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    from znicz_torch.__main__ import main
+    from znicz_torch.samples import alexnet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        alexnet.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        alexnet.training_workflow()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["alexnet", *TINY_ALEXNET])
+    assert torch.backends.cudnn.deterministic

@@ -16,12 +16,13 @@ import pytest
 SAMPLE = (31, 31, 3)
 
 
-def tiny_layers(pool1=None, n_classes=10):
+def tiny_layers(pool1=None, n_classes=10, gd=None):
     """AlexNet's shape at toy widths on a 31x31x3 input: conv1 3x3/s2 ->
     15x15 and conv2 -> 7x7, both pooled 3x3/s2 exactly; conv3-5 at 3x3;
     a final exactly tiling pool to 1x1; fc6/fc7 with dropout; softmax.
-    conv2 has an odd channel count (13)."""
-    gd = {"learning_rate": 0.01}
+    conv2 has an odd channel count (13).  ``gd`` is every weighted
+    layer's "<-" (default: learning rate 0.01)."""
+    gd = gd or {"learning_rate": 0.01}
     return [
         {"type": "conv_strict_relu",
          "->": {"n_kernels": 8, "kx": 3, "ky": 3, "sliding": (2, 2)},

@@ -29,7 +29,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 #: library name -> source file in ``csrc/``
 SOURCES = {"fused_block": "fused_block.cu",
            "bias_relu": "bias_relu.cu",
-           "lrn": "lrn.cu"}
+           "lrn": "lrn.cu",
+           "fused_block_bwd": "fused_block_bwd.cu",
+           "bias_relu_bwd": "bias_relu_bwd.cu",
+           "lrn_bwd": "lrn_bwd.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -37,7 +40,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 
-#: C functions of each library: name -> argtypes (every restype is int)
+#: C functions of each library: name -> argtypes.  The first is the
+#: launch function; every restype is int unless :data:`RESTYPES` says
+#: otherwise
 SIGNATURES = {
     "fused_block": {
         "znicz_fused_block_fwd":
@@ -45,7 +50,21 @@ SIGNATURES = {
         "znicz_fused_block_smem_limit": [_I]},
     "bias_relu": {"znicz_bias_relu_fwd": [_P, _P, _P, _LL, _I, _I, _P]},
     "lrn": {"znicz_lrn_fwd": [_P, _P, _LL, _I, _I, _F, _F, _F, _I, _P]},
+    "fused_block_bwd": {
+        "znicz_fused_block_bwd":
+            [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I] * 6 + [_P],
+        "znicz_fused_block_bwd_plan":
+            [_I] * 11 + [ctypes.POINTER(_LL)]},
+    "bias_relu_bwd": {
+        "znicz_bias_relu_bwd": [_P] * 6 + [_LL, _I, _I, _P],
+        "znicz_bias_relu_bwd_blocks": [_LL, ctypes.POINTER(_I)]},
+    "lrn_bwd": {
+        "znicz_lrn_bwd": [_P, _P, _P, _LL, _I, _I] + [_F] * 4 + [_I, _P]},
 }
+
+#: restypes of the C functions that do not return an int
+RESTYPES = {"znicz_fused_block_bwd_plan": _LL,
+            "znicz_bias_relu_bwd_blocks": _LL}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -65,8 +84,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / SOURCES[name]).read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's path, named by a hash of its source, the shared
+    headers it may include and the flags."""
+    blob = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(blob + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -102,7 +125,7 @@ def build_all() -> Dict[str, str]:
                 for fn_name, argtypes in SIGNATURES[name].items():
                     fn = getattr(lib, fn_name)
                     fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
+                    fn.restype = RESTYPES.get(fn_name, ctypes.c_int)
                 lib.znicz_error_string.argtypes = [ctypes.c_int]
                 lib.znicz_error_string.restype = ctypes.c_char_p
                 _libs[name] = lib

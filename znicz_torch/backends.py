@@ -9,7 +9,10 @@ own.
 Float32 parity: PyTorch runs float32 convolutions through cuDNN in TF32
 by default, which keeps about three decimal digits.  The reference
 computes in full float32, so resolving a device turns TF32 off for both
-convolutions and matrix products.
+convolutions and matrix products.  It also restricts cuDNN to its
+deterministic algorithms: some backward-filter algorithms sum in a
+different order from run to run, and over a few train steps that spread
+alone grew as large as the difference between two routings (PERF.md).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     CUDA device is wanted and none is available."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda:0" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -1,7 +1,15 @@
-"""Dropout (port of ``znicz_tpu/dropout.py``).  Serving runs the eval
-forward, which is the identity; masks come with the training slice."""
+"""Dropout (port of ``znicz_tpu/dropout.py``).
+
+The eval forward is the identity.  In training the fused trainer
+multiplies by :meth:`DropoutForward.make_mask`: an inverted-scale
+Bernoulli mask (keep probability ``1 - ratio``, survivors scaled by
+``1/(1 - ratio)``), drawn from a ``torch.Generator`` (Philox on a GPU).
+The reference draws the same distribution from threefry keys, so the two
+packages' masks differ unless a test injects the reference's."""
 
 from __future__ import annotations
+
+import torch
 
 from znicz_torch.forward import ForwardModule
 
@@ -16,3 +24,12 @@ class DropoutForward(ForwardModule):
 
     def forward(self, x):
         return x
+
+    @staticmethod
+    def make_mask(generator: torch.Generator, shape, ratio: float):
+        """``(uniform < keep) / keep`` as float32 on the generator's
+        device."""
+        keep = 1.0 - float(ratio)
+        u = torch.rand(tuple(shape), generator=generator,
+                       device=generator.device)
+        return (u < keep).to(torch.float32) / keep

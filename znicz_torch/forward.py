@@ -1,11 +1,14 @@
 """The base of the port's forward modules.
 
-Only what serving needs of the reference's ``nn_units.ForwardBase``: the
+What the fused trainer needs of the reference's ``nn_units.ForwardBase``: the
 unit name, the ``include_bias`` and ``weights_transposed`` keywords of
 the layer dicts, and the reference's default weight init — uniform over
 ±sqrt(3/fan_in) (standard deviation 1/sqrt(fan_in)), biases 0.  Random
 numbers come from an explicit ``torch.Generator``; they are not the
 reference's numbers (``weights.params_from_jax`` carries those over).
+Parameters are built without gradients, so a served or inspected
+module records no graph; the fused trainer turns gradients on for the
+parameters it trains.
 
 A module is built in two steps, as the reference's units are initialised
 from a live input shape: construct it from the layer dict, then

@@ -1,4 +1,4 @@
-"""Local response normalisation forward (port of ``LRNormalizerForward``
+"""Local response normalisation (port of ``LRNormalizerForward``
 in ``znicz_tpu/lrn.py``).
 
 ``y = x / (k + alpha * sum_{j in window(c)} x_j^2) ^ beta`` over a window
@@ -6,12 +6,13 @@ of ``n`` adjacent channels centred on c; defaults alpha=1e-4, beta=0.75,
 n=5, k=2.  The same knobs as the reference pick the formulation, read at
 call time:
 
-  - ``root.common.engine.pallas_lrn``: the standalone LRN kernel (K3,
-    ``ops.lrn.lrn``), ``pow`` formulation;
+  - ``root.common.engine.pallas_lrn``: the standalone LRN kernels (K3
+    forward, K3b backward, ``ops.lrn.lrn``), ``pow`` formulation;
   - otherwise, for an odd window, the composed ``lrn_ref`` with
-    ``s^-0.75`` in the rsqrt form (``lrn_pow`` forces plain ``pow``);
+    ``s^-0.75`` in the rsqrt form (``lrn_pow`` forces plain ``pow``) and
+    the closed-form backward;
   - ``lrn_autodiff`` or an even window: the shifted-slices formulation
-    ``x / pow(k + alpha * acc, beta)``.
+    ``x / pow(k + alpha * acc, beta)``, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -31,10 +32,37 @@ def _inv_pow(s, beta: float):
     return torch.pow(s, -beta)
 
 
+class _LRNRef(torch.autograd.Function):
+    """The composed LRN of an odd window with the reference's closed-form
+    vjp (``znicz_tpu/lrn.py:68-94``): ``x`` is the only residual, ``s``
+    is recomputed in the backward, and
+
+        dx = dy * s^-beta - 2*alpha*beta * x * W_n(dy * x * (s^-beta / s))
+
+    Plain PyTorch: the reference's is an XLA custom vjp, not a kernel."""
+
+    @staticmethod
+    def forward(ctx, x, n, alpha, beta, k):
+        ctx.save_for_backward(x)
+        ctx.hypers = (n, alpha, beta, k)
+        s = k + alpha * lrn_ops.windowed_channel_sum(x * x, n)
+        return x * _inv_pow(s, beta)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, = ctx.saved_tensors
+        n, alpha, beta, k = ctx.hypers
+        s = k + alpha * lrn_ops.windowed_channel_sum(x * x, n)
+        r = _inv_pow(s, beta)
+        t = dy * x * (r / s)
+        dx = dy * r - (2.0 * alpha * beta) * x * \
+            lrn_ops.windowed_channel_sum(t, n)
+        return dx, None, None, None, None
+
+
 def lrn_ref(x, n: int, alpha: float, beta: float, k: float):
-    """The composed LRN of an odd window."""
-    s = k + alpha * lrn_ops.windowed_channel_sum(x * x, n)
-    return x * _inv_pow(s, beta)
+    """The composed LRN of an odd window, with its closed-form backward."""
+    return _LRNRef.apply(x, int(n), float(alpha), float(beta), float(k))
 
 
 class LRNormalizerForward(ForwardModule):

@@ -1,15 +1,21 @@
-"""Declarative model assembly (port of the layer-spec half of
-``znicz_tpu/standard_workflow.py``).
+"""Declarative model assembly (port of ``znicz_tpu/standard_workflow.py``,
+without the unit graph).
 
 Builds the forward modules from the reference's ``layers`` list::
 
     {"type": "conv_strict_relu", "->": {"n_kernels": 96, ...}, "<-": {...}}
 
-``"->"`` holds the forward module's keywords; ``"<-"`` (the gradient
-descent unit's) is kept for the training slice and ignored here.  Module
-``i`` is named ``fwd_{type}_{i}``, as the reference names its units, so
-parameter trees carry over by name.  Only the layer kinds AlexNet uses
-are ported.
+``"->"`` holds the forward module's keywords; ``"<-"`` the gradient
+descent hyperparameters of that layer, kept in ``workflow.gds`` (a
+:class:`nn_units.GradientDescent` per weighted module, keyed by the
+module's name as ``FusedTrainer.gd_of`` is).  Module ``i`` is named
+``fwd_{type}_{i}``, as the reference names its units, so parameter trees
+carry over by name.  Only the layer kinds AlexNet uses are ported.
+
+For training, pass a ``loader`` (initialised here, its data put on the
+workflow's device; the sample shape then defaults to the loader's), the
+loss (``"softmax"``, the one ported) and the Decision's config.  A
+workflow built without a loader serves only.
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ from torch import nn
 
 from znicz_torch.backends import DeviceLike, resolve_device
 from znicz_torch.core.config import root
+from znicz_torch.decision import DecisionGD
+from znicz_torch.evaluator import EvaluatorSoftmax
+from znicz_torch.nn_units import GradientDescent
 
 
 def _registry() -> Dict[str, Type]:
@@ -47,14 +56,28 @@ class StandardWorkflow(nn.Module):
     ``dtype`` is the staging dtype of requests; a uint8 input is decoded
     on the device as ``u8 * scale + shift``."""
 
-    def __init__(self, layers: Sequence[dict], sample_shape: Sequence[int],
+    def __init__(self, layers: Sequence[dict],
+                 sample_shape: Optional[Sequence[int]] = None,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None,
                  name: str = "StandardWorkflow", dtype=np.float32,
-                 scale: float = 1.0, shift: float = 0.0):
+                 scale: float = 1.0, shift: float = 0.0, loader=None,
+                 loss_function: str = "softmax",
+                 decision_config: Optional[dict] = None):
         super().__init__()
         self.device = resolve_device(device)
         self.name = name
+        if loss_function != "softmax":
+            raise ValueError(f"loss_function {loss_function!r}: only "
+                             f"'softmax' is ported")
+        self.loss_function = loss_function
+        self.loader = loader
+        if loader is not None:
+            loader.initialize(self.device)
+            if sample_shape is None:
+                sample_shape = loader.sample_shape
+        if sample_shape is None:
+            raise ValueError("a workflow without a loader needs sample_shape")
         self.layers_config: List[dict] = list(layers)
         self.sample_shape: Tuple[int, ...] = tuple(int(d)
                                                    for d in sample_shape)
@@ -66,6 +89,7 @@ class StandardWorkflow(nn.Module):
             generator.manual_seed(int(root.common.engine.get("seed", 1013)))
         reg = _registry()
         forwards = []
+        self.gds: Dict[str, GradientDescent] = {}
         shape = (1,) + self.sample_shape
         for i, layer in enumerate(self.layers_config):
             kind = layer["type"]
@@ -77,6 +101,11 @@ class StandardWorkflow(nn.Module):
             fwd.layer_kind = kind
             shape = fwd.build(shape, generator, self.device)
             forwards.append(fwd)
+            if fwd.has_weights:
+                self.gds[fwd.name] = GradientDescent(fwd.name,
+                                                     **layer.get("<-", {}))
         self.forwards = nn.ModuleList(forwards)
         self.output_sample_shape: Tuple[int, ...] = tuple(shape[1:])
-
+        self.evaluator = EvaluatorSoftmax(name="evaluator")
+        self.decision = DecisionGD(name="decision",
+                                   **dict(decision_config or {}))
