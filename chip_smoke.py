@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      on the card, at the shapes AlexNet's forward gives it at batch 128:
      error against the stated tolerance, kernel / plain / library time,
      and the least time the card could take (bytes over 3.35 TB/s or
-     operations over the float32 rate, whichever is larger);
+     operations over the float32 rate, whichever is larger); K1 must be
+     bit-exact, and is also run bit-exact at the small shapes, pools and
+     LRN constants of ``K1_PATHS``, which take its scalar and its float4
+     staging path, each pooling branch and both forms of s^-beta;
   3. full-width AlexNet (227x227x3, 96/256/384/384/256/4096/4096, 1000
      classes, seeded random weights) behind ``InferenceServer``
      (max_batch 128) with ``fused_elementwise`` and ``fused_tail`` on:
@@ -37,10 +40,16 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
 The last lines are the ``kernels`` JSON object and then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero before printing any result.
+
+    python3 chip_smoke.py --only fused_block_fwd[,...]
+
+runs phases 1 and 2 for the named kernels alone (and ``K1_PATHS`` when
+K1 is named); it prints the ``kernels`` object and no ``ok`` line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -100,6 +109,17 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def warm_clocks(torch, seconds: float = 0.5) -> None:
+    """Keep the card busy for ``seconds`` so that the timings after it do
+    not catch its clocks ramping up."""
+    a = torch.randn((4096, 4096), device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            a @ a
+        torch.cuda.synchronize()
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -200,6 +220,7 @@ def check_kernels(torch, names):
     batch-128 shapes.  Returns {kernel: accumulated JSON row}."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     n, alpha, beta, k, pool = 5, 1e-4, 0.75, 2.0, (3, 3, 2, 2)
+    warm_clocks(torch)
     rows = {}
     for name in names:
         source, replaces, shapes = KERNELS[name]
@@ -251,8 +272,10 @@ def check_kernels(torch, names):
                 f"bound_us={b_ms * 1e3:.2f} ({b_by}, {nbytes / 1e6:.1f} MB)"
                 + (" library_ms=none" if t_l is None else
                    f" library_ms={t_l:.4f} library_err={lib_err:.3e}")
+                + (f" plan={k1_plan(x, b)}" if name == "fused_block_fwd"
+                   else "")
                 + f" -> {'ok' if ok else 'FAIL'}")
-            if not ok:
+            if not ok or (name == "fused_block_fwd" and max_err != 0.0):
                 raise AssertionError(f"{name}[{layer}] disagrees with its "
                                      f"plain version: {max_err:.3e}")
             row["max_abs_err"] = max(row["max_abs_err"], max_err)
@@ -266,6 +289,74 @@ def check_kernels(torch, names):
             torch.cuda.empty_cache()
         rows[name] = row
     return rows
+
+
+def k1_plan(x, b, n=5, pool=(3, 3, 2, 2)):
+    from znicz_torch.fused_block import fwd_plan_for
+
+    p = fwd_plan_for(x, b, n, pool)
+    return (f"{'float4+bulk' if p.vec else 'scalar+cp.async'}/"
+            f"strips={p.n_strips}/stages={p.stages}/smem={p.smem}/"
+            f"blocks_per_sm={p.blocks_per_sm}")
+
+
+#: K1 beyond AlexNet's case, each bit-exact against its plain version:
+#: (what it takes, shape, pool, n, alpha, beta, k, input scale, whether
+#: its planner must pick the float4 path).  beta 0.6 takes powf on both
+#: sides (PyTorch's pow special-cases -0.5); the x100 input with k 1e-3
+#: spreads s over about 20 binades through the rsqrt/sqrt fast path
+K1_PATHS = [
+    ("scalar, C%4!=0", (5, 27, 27, 33), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0,
+     2.0, False),
+    ("scalar, even window", (4, 27, 27, 64), (3, 3, 2, 2), 4, 1e-4, 0.75,
+     2.0, 2.0, False),
+    ("scalar, powf", (3, 13, 13, 33), (3, 3, 2, 2), 5, 1e-4, 0.6, 2.0, 2.0,
+     False),
+    ("float4, short strips", (3, 13, 13, 20), (3, 3, 2, 2), 5, 1e-4, 0.75,
+     2.0, 2.0, True),
+    ("float4, pool 2x2/2", (4, 26, 26, 32), (2, 2, 2, 2), 5, 1e-4, 0.75,
+     2.0, 2.0, True),
+    ("float4, pool 4x4/2", (4, 12, 12, 32), (4, 4, 2, 2), 3, 1e-4, 0.75,
+     2.0, 2.0, True),
+    ("float4, pool 1x1/4", (4, 9, 9, 24), (1, 1, 4, 4), 7, 1e-4, 0.75, 2.0,
+     2.0, True),
+    ("float4, powf", (4, 27, 27, 64), (3, 3, 2, 2), 5, 1e-4, 0.6, 2.0, 2.0,
+     True),
+    ("float4, s over 20 binades", (4, 27, 27, 64), (3, 3, 2, 2), 5, 1e-2,
+     0.75, 1e-3, 100.0, True),
+]
+
+
+def check_k1_paths(torch):
+    """K1 at each case of :data:`K1_PATHS`, bit-exact against its plain
+    version; reported on their own lines, outside the AlexNet row."""
+    from znicz_torch.fused_block import (fused_block_fwd, fused_block_plain,
+                                         fwd_plan_for)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    for label, shape, pool, n, alpha, beta, k, scale, vec in K1_PATHS:
+        x = torch.randn(shape, generator=gen, device="cuda") * scale
+        b = torch.randn(shape[-1:], generator=gen, device="cuda") * 0.1
+        if fwd_plan_for(x, b, n, pool).vec != vec:
+            raise AssertionError(f"K1 {label}: planner took the wrong "
+                                 f"path: {k1_plan(x, b, n, pool)}")
+
+        def kern():
+            return fused_block_fwd(x, b, n, alpha, beta, k, pool)
+
+        got, want = kern(), fused_block_plain(x, b, n, alpha, beta, k, pool)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = got.shape == want.shape and err == 0.0 and bool(
+            torch.isfinite(got).all())
+        log(f"[kernel] fused_block_fwd[{label}] shape={shape} pool={pool} "
+            f"n={n} alpha={alpha:g} beta={beta:g} k={k:g} x*{scale:g} "
+            f"plan={k1_plan(x, b, n, pool)} max_abs_err={err:.3e} "
+            f"(bit-exact required) ms={cuda_ms(torch, kern):.4f} "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K1 {label} disagrees with its plain "
+                                 f"version: {err:.3e}")
 
 
 def make_requests(n_requests: int = 64):
@@ -468,7 +559,12 @@ def train_phase(torch, card):
     return {label: launches for label, (_, _, launches) in runs.items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernels: run phases 1-2 for them "
+                         "alone")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -496,10 +592,23 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
+    # K1's ptxas report: per instantiation, registers, spills, static smem
+    for line in build_logs.get("fused_block", "").splitlines():
+        if "entry function" in line or "spill" in line or "Used" in line:
+            log(f"[build] K1 ptxas: {line.strip()}")
+
+    if args.only:
+        names = args.only.split(",")
+        rows = check_kernels(torch, names)
+        if "fused_block_fwd" in names:
+            check_k1_paths(torch)
+        print(json.dumps({"kernels": list(rows.values())}), flush=True)
+        return 0
 
     # -- phase 2: forward kernels against their plain versions --------------
     rows = check_kernels(torch, ["fused_block_fwd", "bias_relu_fwd",
                                  "lrn_fwd"])
+    check_k1_paths(torch)
 
     # -- phase 3/4: the served path -----------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(SEED)

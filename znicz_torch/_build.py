@@ -46,7 +46,7 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 SIGNATURES = {
     "fused_block": {
         "znicz_fused_block_fwd":
-            [_P] * 3 + [_I] * 7 + [_F] * 3 + [_I] * 6 + [_P],
+            [_P] * 3 + [_I] * 7 + [_F] * 3 + [_I] * 10 + [_P],
         "znicz_fused_block_smem_limit": [_I]},
     "bias_relu": {"znicz_bias_relu_fwd": [_P, _P, _P, _LL, _I, _I, _P]},
     "lrn": {"znicz_lrn_fwd": [_P, _P, _LL, _I, _I, _F, _F, _F, _I, _P]},

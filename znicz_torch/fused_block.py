@@ -33,6 +33,7 @@ loss head).  Both are off by default.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -173,29 +174,121 @@ def _smem_limit(dev: int) -> int:
     return _build.entry("fused_block", "znicz_fused_block_smem_limit")(dev)
 
 
+#: channel windows K1's float4 path unrolls (``csrc/fused_block.cu``);
+#: any other window takes the scalar path
+_FWD_VEC_WINDOWS = (1, 3, 5, 7, 9)
+#: most input rows K1 keeps in its shared-memory ring
+_FWD_MAX_STAGES = 3
+#: K1's threads per block, and an SM's most resident threads
+_FWD_THREADS, _SM_THREADS = 512, 2048
+#: shared memory an SM holds beyond one block's opt-in limit: the 1 KB
+#: the card reserves for each block (232,448 + 1,024 = 228 KB on Hopper)
+_SMEM_RESERVED = 1024
+
+
+class FwdPlan(NamedTuple):
+    """K1's schedule for one shape: block ``(b, j)`` of the ``B *
+    n_strips`` grid owns strip ``j`` of image ``b`` (:func:`_fwd_strip`)."""
+
+    n_strips: int       # strips per image
+    stages: int         # input rows in the shared-memory ring
+    smem: int           # dynamic shared memory per block, bytes
+    vec: bool           # float4 channels and bulk-async rows, else scalar
+    #                     channels and 4-byte cp.async
+    blocks_per_sm: int  # resident blocks per SM that ``smem`` allows
+
+
+def _fwd_smem(W, C, OW, ky, sy, stages) -> int:
+    """K1's shared memory: 128 bytes of mbarriers, ``stages`` input rows
+    and one normalised row (each padded to 128 bytes), and ceil(ky/sy)
+    pooled rows of running maxima.  The kernel lays them out in that
+    order and takes this size as given."""
+    row = -(-W * C * 4 // 128) * 128
+    return 128 + (stages + 1) * row + -(-ky // sy) * OW * C * 4
+
+
+def _fwd_strip(oh, n_strips, j, ky, sy):
+    """Strip ``j``'s pooled rows ``[oy0, oy1)`` and the input rows ``[r0,
+    r1)`` they read, halo included: the kernel's own arithmetic."""
+    oy0, oy1 = j * oh // n_strips, (j + 1) * oh // n_strips
+    return oy0, oy1, oy0 * sy, (oy1 - 1) * sy + ky
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_plan(B, H, W, C, pool, smem_limit, n=5, aligned=True,
+              n_sms=132) -> FwdPlan:
+    """K1's schedule: the most ring stages (up to 3) that leave two blocks
+    on an SM, else the most that fit one; then the most strips per image
+    whose ``B * n_strips`` blocks are all resident at once on ``n_sms``
+    SMs (at least one): no tail wave, and the fewest halo rows read
+    twice.  The float4 path needs C % 4 == 0, 16-byte aligned operands
+    (``aligned``) and a window in :data:`_FWD_VEC_WINDOWS`.  Raises
+    ``ValueError`` when C > 1024 or one ring stage does not fit
+    ``smem_limit``."""
+    ky, kx, sy, sx = pool
+    oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
+    if C > 1024:
+        raise ValueError(f"fused_block kernel: C {C} > 1024")
+    vec = bool(aligned) and C % 4 == 0 and int(n) in _FWD_VEC_WINDOWS
+
+    def per_sm(smem):
+        return min(_SM_THREADS // _FWD_THREADS,
+                   (smem_limit + _SMEM_RESERVED) // (smem + _SMEM_RESERVED))
+
+    fitting = [s for s in range(_FWD_MAX_STAGES, 0, -1)
+               if _fwd_smem(W, C, ow, ky, sy, s) <= smem_limit]
+    if not fitting:
+        raise ValueError(
+            f"fused_block kernel: a ring of {W}x{C} float rows needs "
+            f"{_fwd_smem(W, C, ow, ky, sy, 1)} bytes of shared memory, "
+            f"one block may have {smem_limit}")
+    stages = next((s for s in fitting
+                   if per_sm(_fwd_smem(W, C, ow, ky, sy, s)) >= 2),
+                  fitting[0])
+    occupancy = per_sm(_fwd_smem(W, C, ow, ky, sy, stages))
+    n_strips = max(1, min(oh, n_sms * occupancy // max(B, 1)))
+    longest = (-(-oh // n_strips) - 1) * sy + ky
+    stages = min(stages, longest)
+    smem = _fwd_smem(W, C, ow, ky, sy, stages)
+    return FwdPlan(n_strips, stages, smem, vec, per_sm(smem))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(dev: int) -> Tuple[int, int]:
+    """(one block's opt-in shared memory, SMs) of CUDA device ``dev``."""
+    return (_smem_limit(dev),
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def fwd_plan_for(x, bias, n=5, pool=(3, 3, 2, 2)) -> FwdPlan:
+    """The :class:`FwdPlan` K1 runs for CUDA tensors ``x``, ``bias``."""
+    B, H, W, C = x.shape
+    aligned = x.data_ptr() % 16 == 0 and bias.data_ptr() % 16 == 0
+    smem_limit, n_sms = _device_limits(x.device.index)
+    return _fwd_plan(B, H, W, C, _tiling_pool(x, pool), smem_limit, int(n),
+                     aligned, n_sms)
+
+
 def fused_block_fwd(x, bias, n=5, alpha=1e-4, beta=0.75, k=2.0,
                     pool=(3, 3, 2, 2)):
     """K1: fused bias+StrictRELU+LRN+maxpool over the RAW conv output
     ``x`` (B, H, W, C).  ``pool`` = (ky, kx, sy, sx) must tile (H, W)
-    exactly.  CPU tensors take :func:`fused_block_plain`."""
-    ky, kx, sy, sx = _tiling_pool(x, pool)
-    B, H, W, C = x.shape
+    exactly.  CPU tensors take :func:`fused_block_plain`; CUDA tensors
+    launch K1 on :func:`_fwd_plan`'s schedule or raise."""
+    pool = _tiling_pool(x, pool)
     if _all_cpu(x, bias):
-        return fused_block_plain(x, bias, n, alpha, beta, k,
-                                 (ky, kx, sy, sx))
+        return fused_block_plain(x, bias, n, alpha, beta, k, pool)
     _check_kernel_operands("fused_block_fwd", x, bias)
-    dev = x.device.index
-    limit = _smem_limit(dev)
-    if C > 1024 or ky * W * C * 4 > limit:
-        raise ValueError(
-            f"fused_block kernel: {ky} rows of {W}x{C} floats do not fit "
-            f"one block's shared memory ({limit} bytes) or C > 1024")
+    plan = fwd_plan_for(x, bias, n, pool)
+    ky, kx, sy, sx = pool
+    B, H, W, C = x.shape
     oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
     out = torch.empty((B, oh, ow, C), dtype=x.dtype, device=x.device)
     rc = _build.entry("fused_block")(
         x.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, C, oh, ow,
         int(n), float(alpha), float(beta), float(k), ky, kx, sy, sx,
-        int(float(beta) == 0.75), dev, _build.stream_of(x))
+        int(float(beta) == 0.75), plan.n_strips, plan.stages, plan.smem,
+        int(plan.vec), x.device.index, _build.stream_of(x))
     _build.check(rc, "fused_block")
     fused_block_fwd.launches += 1
     return out
