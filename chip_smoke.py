@@ -26,7 +26,10 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      launches and 5 bias+ReLU launches per dispatch;
   5. each backward kernel (K1b, K2b, K3b) against its plain version at
      the batch-128 shapes of the AlexNet train step, as in phase 2, with
-     the bias gradient held to a tolerance relative to its sums;
+     the bias gradient held to a tolerance relative to its sums; K1b's dx
+     must be bit-exact, also at the shapes, pools, LRN constants and tied
+     inputs of ``K1B_PATHS``, which take its scalar and float4 paths,
+     strips and column tiles;
   6. full-width AlexNet trained by ``FusedTrainer.run()`` (the port's
      ``samples/alexnet.py``: 227x227x3, batch 128, 256 train + 128 valid
      images, 2 epochs, 1000 classes) three times from the same weights and
@@ -44,7 +47,8 @@ exits non-zero before printing any result.
     python3 chip_smoke.py --only fused_block_fwd[,...]
 
 runs phases 1 and 2 for the named kernels alone (and ``K1_PATHS`` when
-K1 is named); it prints the ``kernels`` object and no ``ok`` line.
+K1 is named, ``K1B_PATHS`` when K1b is); it prints the ``kernels``
+object and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -239,14 +243,7 @@ def check_kernels(torch, names):
             db_note, db_ok = "", True
             if isinstance(got, tuple):          # backward: (dx, db)
                 (got, got_db), (want, want_db) = got, want
-                scale = want.abs().sum(dim=tuple(range(want.ndim - 1)))
-                db_err = (got_db - want_db).abs()
-                db_ok = bool((db_err <= DB_RTOL * scale).all()) and bool(
-                    torch.isfinite(got_db).all())
-                db_note = (f" db_max_abs_err={float(db_err.max()):.3e} "
-                           f"db_max_rel_to_sum="
-                           f"{float((db_err / scale.clamp_min(1e-30)).max()):.3e}"
-                           f" db_tol=|d|<={DB_RTOL:g}*sum|dx|")
+                db_ok, db_note = db_check(torch, got_db, want_db, want)
             if got.shape != want.shape:
                 raise AssertionError(f"{name}[{layer}]: shape "
                                      f"{tuple(got.shape)} vs plain "
@@ -273,9 +270,10 @@ def check_kernels(torch, names):
                 + (" library_ms=none" if t_l is None else
                    f" library_ms={t_l:.4f} library_err={lib_err:.3e}")
                 + (f" plan={k1_plan(x, b)}" if name == "fused_block_fwd"
-                   else "")
+                   else f" plan={k1b_plan(x, b)}"
+                   if name == "fused_block_bwd" else "")
                 + f" -> {'ok' if ok else 'FAIL'}")
-            if not ok or (name == "fused_block_fwd" and max_err != 0.0):
+            if not ok or (name in BIT_EXACT and max_err != 0.0):
                 raise AssertionError(f"{name}[{layer}] disagrees with its "
                                      f"plain version: {max_err:.3e}")
             row["max_abs_err"] = max(row["max_abs_err"], max_err)
@@ -289,6 +287,23 @@ def check_kernels(torch, names):
             torch.cuda.empty_cache()
         rows[name] = row
     return rows
+
+
+#: kernels whose output (dx for K1b) must equal the plain version's bits
+BIT_EXACT = ("fused_block_fwd", "fused_block_bwd")
+
+
+def db_check(torch, got_db, want_db, want_dx):
+    """(ok, note) of a bias gradient against the plain version's: per
+    channel |d| <= DB_RTOL * sum|dx|, and finite."""
+    scale = want_dx.abs().sum(dim=tuple(range(want_dx.ndim - 1)))
+    db_err = (got_db - want_db).abs()
+    ok = bool((db_err <= DB_RTOL * scale).all()) and bool(
+        torch.isfinite(got_db).all())
+    rel = float((db_err / scale.clamp_min(1e-30)).max())
+    return ok, (f" db_max_abs_err={float(db_err.max()):.3e} "
+                f"db_max_rel_to_sum={rel:.3e} "
+                f"db_tol=|d|<={DB_RTOL:g}*sum|dx|")
 
 
 def k1_plan(x, b, n=5, pool=(3, 3, 2, 2)):
@@ -356,6 +371,110 @@ def check_k1_paths(torch):
             f"-> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K1 {label} disagrees with its plain "
+                                 f"version: {err:.3e}")
+
+
+def k1b_plan(x, b, n=5, pool=(3, 3, 2, 2), dp=None):
+    from znicz_torch.fused_block import bwd_plan_for
+
+    p = bwd_plan_for(x, b, n, pool, dp)
+    return (f"{'float4+bulk' if p.vec else 'scalar+cp.async'}/"
+            f"strips={p.n_strips}/ctiles={p.n_ctiles}/stages={p.stages}/"
+            f"smem={p.smem}/blocks_per_sm={p.blocks_per_sm}")
+
+
+def tie_heavy(torch, shape, gen):
+    """Each image a channel vector scaled by 1 or 2 per pixel and rounded
+    to quarters, so that pixels of one scale have equal y and windows tie
+    on non-zero maxima; image 0 is spatially constant (every window a
+    full tie)."""
+    B, H, W, C = shape
+    scale = 1.0 + torch.randint(0, 2, (B, H, W, 1), generator=gen,
+                                device="cuda").float()
+    scale[0] = 1.0
+    chan = torch.randn((B, 1, 1, C), generator=gen, device="cuda")
+    return torch.round(chan * scale * 4.0) / 4.0
+
+
+#: K1b beyond AlexNet's case, each bit-exact on dx against its plain
+#: version (db within DB_RTOL): (what it takes, shape, pool, n, alpha,
+#: beta, k, input scale or "ties", whether its planner must pick the
+#: float4 path).  As K1_PATHS; the later cases cut strips and column
+#: tiles together at conv2's width, tie non-zero maxima, give a thread
+#: two channels (C > 512 on the scalar path) and several pooled columns
+#: (C 1024), whose second pooling phase recomputes its horizontal maxima
+K1B_PATHS = [
+    ("scalar, C%4!=0", (5, 27, 27, 33), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0,
+     2.0, False),
+    ("scalar, even window", (4, 27, 27, 64), (3, 3, 2, 2), 4, 1e-4, 0.75,
+     2.0, 2.0, False),
+    ("scalar, powf", (3, 13, 13, 33), (3, 3, 2, 2), 5, 1e-4, 0.6, 2.0, 2.0,
+     False),
+    ("float4, short strips", (3, 13, 13, 20), (3, 3, 2, 2), 5, 1e-4, 0.75,
+     2.0, 2.0, True),
+    ("float4, pool 2x2/2", (4, 26, 26, 32), (2, 2, 2, 2), 5, 1e-4, 0.75,
+     2.0, 2.0, True),
+    ("float4, pool 4x4/2", (4, 12, 12, 32), (4, 4, 2, 2), 3, 1e-4, 0.75,
+     2.0, 2.0, True),
+    ("float4, pool 1x1/4", (4, 9, 9, 24), (1, 1, 4, 4), 7, 1e-4, 0.75, 2.0,
+     2.0, True),
+    ("float4, powf", (4, 27, 27, 64), (3, 3, 2, 2), 5, 1e-4, 0.6, 2.0, 2.0,
+     True),
+    ("float4, s over 20 binades", (4, 27, 27, 64), (3, 3, 2, 2), 5, 1e-2,
+     0.75, 1e-3, 100.0, True),
+    ("float4, strips x column tiles", (4, 27, 27, 256), (3, 3, 2, 2), 5,
+     1e-4, 0.75, 2.0, 2.0, True),
+    ("float4, ties", (8, 27, 27, 64), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0,
+     "ties", True),
+    ("scalar, ties", (8, 27, 27, 33), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0,
+     "ties", False),
+    ("scalar, two channels a thread", (2, 9, 9, 601), (3, 3, 2, 2), 5,
+     1e-4, 0.75, 2.0, 2.0, False),
+    ("float4, C 1024, several pooled columns a thread", (2, 7, 9, 1024),
+     (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0, True),
+]
+
+
+def check_k1b_paths(torch):
+    """K1b at each case of :data:`K1B_PATHS`: dx bit-exact and db within
+    DB_RTOL of its plain version; reported on their own lines, outside
+    the AlexNet row."""
+    from znicz_torch.fused_block import (bwd_plan_for, fused_block_bwd,
+                                         fused_block_bwd_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for label, shape, pool, n, alpha, beta, k, scale, vec in K1B_PATHS:
+        x = tie_heavy(torch, shape, gen) if scale == "ties" else \
+            torch.randn(shape, generator=gen, device="cuda") * scale
+        b = torch.zeros(shape[-1:], device="cuda") if scale == "ties" \
+            else torch.randn(shape[-1:], generator=gen, device="cuda") * 0.1
+        ky, kx, sy, sx = pool
+        dp = torch.randn((shape[0], (shape[1] - ky) // sy + 1,
+                          (shape[2] - kx) // sx + 1, shape[3]),
+                         generator=gen, device="cuda")
+        plan = k1b_plan(x, b, n, pool, dp)
+        if bwd_plan_for(x, b, n, pool, dp).vec != vec:
+            raise AssertionError(f"K1b {label}: planner took the wrong "
+                                 f"path: {plan}")
+
+        def kern():
+            return fused_block_bwd(x, b, dp, n, alpha, beta, k, pool)
+
+        (got, got_db) = kern()
+        want, want_db = fused_block_bwd_plain(x, b, dp, n, alpha, beta, k,
+                                              pool)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        db_ok, db_note = db_check(torch, got_db, want_db, want)
+        ok = got.shape == want.shape and err == 0.0 and db_ok and bool(
+            torch.isfinite(got).all())
+        log(f"[kernel] fused_block_bwd[{label}] shape={shape} pool={pool} "
+            f"n={n} alpha={alpha:g} beta={beta:g} k={k:g} x*{scale} "
+            f"plan={plan} max_abs_err={err:.3e} (bit-exact required)"
+            f"{db_note} ms={cuda_ms(torch, kern):.4f} "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K1b {label} disagrees with its plain "
                                  f"version: {err:.3e}")
 
 
@@ -592,16 +711,20 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
-    # K1's ptxas report: per instantiation, registers, spills, static smem
-    for line in build_logs.get("fused_block", "").splitlines():
-        if "entry function" in line or "spill" in line or "Used" in line:
-            log(f"[build] K1 ptxas: {line.strip()}")
+    # K1's and K1b's ptxas reports: per instantiation, registers, spills,
+    # static smem
+    for lib, tag in (("fused_block", "K1"), ("fused_block_bwd", "K1b")):
+        for line in build_logs.get(lib, "").splitlines():
+            if "entry function" in line or "spill" in line or "Used" in line:
+                log(f"[build] {tag} ptxas: {line.strip()}")
 
     if args.only:
         names = args.only.split(",")
         rows = check_kernels(torch, names)
         if "fused_block_fwd" in names:
             check_k1_paths(torch)
+        if "fused_block_bwd" in names:
+            check_k1b_paths(torch)
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -669,6 +792,7 @@ def main(argv=None) -> int:
     # -- phase 5: backward kernels against their plain versions -------------
     rows.update(check_kernels(torch, ["fused_block_bwd", "bias_relu_bwd",
                                       "lrn_bwd"]))
+    check_k1b_paths(torch)
 
     # -- phase 6: the training path -----------------------------------------
     for label, launches in train_phase(torch, card).items():

@@ -52,9 +52,7 @@ SIGNATURES = {
     "lrn": {"znicz_lrn_fwd": [_P, _P, _LL, _I, _I, _F, _F, _F, _I, _P]},
     "fused_block_bwd": {
         "znicz_fused_block_bwd":
-            [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I] * 6 + [_P],
-        "znicz_fused_block_bwd_plan":
-            [_I] * 11 + [ctypes.POINTER(_LL)]},
+            [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I] * 11 + [_P]},
     "bias_relu_bwd": {
         "znicz_bias_relu_bwd": [_P] * 6 + [_LL, _I, _I, _P],
         "znicz_bias_relu_bwd_blocks": [_LL, ctypes.POINTER(_I)]},
@@ -63,8 +61,7 @@ SIGNATURES = {
 }
 
 #: restypes of the C functions that do not return an int
-RESTYPES = {"znicz_fused_block_bwd_plan": _LL,
-            "znicz_bias_relu_bwd_blocks": _LL}
+RESTYPES = {"znicz_bias_relu_bwd_blocks": _LL}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -298,11 +298,163 @@ def fused_block_fwd(x, bias, n=5, alpha=1e-4, beta=0.75, k=2.0,
 fused_block_fwd.launches = 0
 
 
+#: most resident K1b blocks an SM holds: its launch bounds give each of
+#: the 512 threads up to 64 registers, so two blocks fill the register file
+_BWD_BLOCKS_PER_SM = 2
+
+
+class BwdPlan(NamedTuple):
+    """K1b's schedule for one shape: block ``(b, j, t)`` of the ``B *
+    n_strips * n_ctiles`` grid owns the rectangle of ``dx`` made of strip
+    ``j`` of image ``b``'s rows and tile ``t`` of its columns
+    (:func:`_bwd_span` along each axis)."""
+
+    n_strips: int       # strips of input rows per image
+    n_ctiles: int       # tiles of input columns per strip
+    stages: int         # input rows in the shared-memory ring
+    smem: int           # dynamic shared memory per block, bytes
+    vec: bool           # float4 channels and bulk-async rows, else scalar
+    #                     channels and 4-byte cp.async
+    blocks_per_sm: int  # resident blocks per SM that ``smem`` allows
+
+
+class Span(NamedTuple):
+    """Part of one axis of a K1b block (rows or columns)."""
+
+    y0: int   # the input rows (columns) whose dx it owns: [y0, y1)
+    y1: int
+    o0: int   # the pooled rows whose windows reach them: [o0, o1)
+    o1: int
+    r0: int   # the input rows those windows and the owned rows read:
+    r1: int   # [r0, r1), the halo included
+
+
+def _bwd_span(n_out, n_in, k, s, parts, j) -> Span:
+    """Part ``j`` of ``parts`` along one axis of ``n_in`` inputs pooled
+    by a window of ``k`` at stride ``s`` into ``n_out``: the parts split
+    the ceil(n_in / s) bands of ``s`` inputs evenly, so each owns whole
+    bands.  The kernel's own arithmetic."""
+    nb = -(-n_in // s)
+    m0, m1 = j * nb // parts, (j + 1) * nb // parts
+    y0, y1 = m0 * s, min(m1 * s, n_in)
+    o0 = max(0, -(-(y0 - k + 1) // s))
+    o1 = min(m1, n_out)
+    return Span(y0, y1, o0, o1, o0 * s, max(y1, (o1 - 1) * s + k))
+
+
+def _bwd_gather_row(m, H, oh, ky, sy):
+    """The input row after which K1b gathers band ``m`` (input rows [m*sy,
+    (m+1)*sy)): the last row of the last pooled row that covers it, or
+    its own last row if that comes later."""
+    return max(min(m, oh - 1) * sy + ky - 1, min((m + 1) * sy, H) - 1)
+
+
+def _bwd_hold(ky, sy):
+    """Input rows K1b holds for a gather: a band and the rows up to its
+    gather row."""
+    return max(ky, sy)
+
+
+def _bwd_pool_slots(ky, sy):
+    """Pooled rows K1b keeps at once: those that rows not yet gathered
+    need, and the one a new input row starts."""
+    return max(1, (2 * ky - 2) // sy)
+
+
+def _bwd_groups(C, vec):
+    """Pixels K1b handles at a time: ``_FWD_THREADS`` threads over one
+    pixel's channel groups (float4 or single channels)."""
+    return _FWD_THREADS // min(C // 4 if vec else C, _FWD_THREADS)
+
+
+def _bwd_smem(wt, owt, C, ky, sy, stages, vec) -> int:
+    """K1b's shared memory for a tile of ``wt`` input and ``owt`` pooled
+    columns: 128 bytes of mbarriers, ``stages`` input rows and one
+    normalised row, the running maxima and then ``g`` of
+    :func:`_bwd_pool_slots` pooled rows (each, and each array, padded to
+    128 bytes), and one row of C floats per pixel in flight for the LRN
+    backward's window.  The kernel lays them out in that order and takes
+    this size as given."""
+    def pad(nbytes):
+        return -(-nbytes // 128) * 128
+
+    return (128 + (stages + 1) * pad(wt * C * 4)
+            + 2 * pad(_bwd_pool_slots(ky, sy) * owt * C * 4)
+            + pad(_bwd_groups(C, vec) * C * 4))
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_plan(B, H, W, C, pool, smem_limit, n=5, aligned=True,
+              n_sms=132) -> BwdPlan:
+    """K1b's schedule: the fewest column tiles, and then the most ring
+    stages (two or one beyond the rows a gather holds), that keep two
+    blocks on an SM while every block is resident at once; else one
+    block an SM, in one wave if the layout fits; else the fewest tiles
+    that fit one block.  Then as many strips per image as keep the grid
+    in one wave (at least one).  The float4 path needs C % 4 == 0,
+    16-byte aligned operands and a window in :data:`_FWD_VEC_WINDOWS`.
+    Raises ``ValueError`` when C > 1024 or no layout fits ``smem_limit``."""
+    ky, kx, sy, sx = pool
+    oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
+    if C > 1024:
+        raise ValueError(f"fused_block_bwd kernel: C {C} > 1024")
+    vec = bool(aligned) and C % 4 == 0 and int(n) in _FWD_VEC_WINDOWS
+    hold = _bwd_hold(ky, sy)
+    nbx = -(-W // sx)
+
+    def per_sm(smem):
+        return min(_BWD_BLOCKS_PER_SM,
+                   (smem_limit + _SMEM_RESERVED) // (smem + _SMEM_RESERVED))
+
+    def layout(n_ctiles, stages):
+        tiles = [_bwd_span(ow, W, kx, sx, n_ctiles, t)
+                 for t in range(n_ctiles)]
+        return _bwd_smem(max(t.r1 - t.r0 for t in tiles),
+                         max(t.o1 - t.o0 for t in tiles), C, ky, sy,
+                         stages, vec)
+
+    choice = None
+    for occupancy, one_wave in ((2, True), (1, True), (1, False)):
+        for n_ctiles in range(1, nbx + 1):
+            if one_wave and n_ctiles > 1 \
+                    and B * n_ctiles > n_sms * occupancy:
+                break
+            sizes = [(s, layout(n_ctiles, s)) for s in (hold + 2, hold + 1)]
+            found = next(((s, smem) for s, smem in sizes
+                          if per_sm(smem) >= occupancy), None)
+            if found is not None:
+                choice = (n_ctiles, *found)
+                break
+        if choice is not None:
+            break
+    if choice is None:
+        raise ValueError(
+            f"fused_block_bwd kernel: a ring of {hold + 1} rows of {W}x{C} "
+            f"floats needs {layout(nbx, hold + 1)} bytes of shared memory "
+            f"in its narrowest tiles, one block may have {smem_limit}")
+    n_ctiles, stages, smem = choice
+    slots = n_sms * per_sm(smem)
+    n_strips = max(1, min(-(-H // sy), slots // max(B * n_ctiles, 1)))
+    return BwdPlan(n_strips, n_ctiles, stages, smem, vec, per_sm(smem))
+
+
+def bwd_plan_for(x, bias, n=5, pool=(3, 3, 2, 2), dp=None) -> BwdPlan:
+    """The :class:`BwdPlan` K1b runs for CUDA tensors ``x``, ``bias`` (and
+    the cotangent ``dp``, whose alignment counts too)."""
+    B, H, W, C = x.shape
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (x, bias, dp) if t is not None)
+    smem_limit, n_sms = _device_limits(x.device.index)
+    return _bwd_plan(B, H, W, C, _tiling_pool(x, pool), smem_limit, int(n),
+                     aligned, n_sms)
+
+
 def fused_block_bwd(x, bias, dp, n=5, alpha=1e-4, beta=0.75, k=2.0,
                     pool=(3, 3, 2, 2)):
     """K1b: ``(dx, db)`` of :func:`fused_block_fwd` for the pooled
     cotangent ``dp``, recomputing the forward from ``(x, bias)``.  CPU
-    tensors take :func:`fused_block_bwd_plain`."""
+    tensors take :func:`fused_block_bwd_plain`; CUDA tensors launch K1b
+    on :func:`_bwd_plan`'s schedule or raise."""
     ky, kx, sy, sx = _tiling_pool(x, pool)
     B, H, W, C = x.shape
     oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
@@ -313,23 +465,18 @@ def fused_block_bwd(x, bias, dp, n=5, alpha=1e-4, beta=0.75, k=2.0,
         return fused_block_bwd_plain(x, bias, dp, n, alpha, beta, k,
                                      (ky, kx, sy, sx))
     _check_kernel_operands("fused_block_bwd", x, bias, dp)
-    dev = x.device.index
-    smem = ctypes.c_longlong(0)
-    rows = _build.entry("fused_block_bwd", "znicz_fused_block_bwd_plan")(
-        B, H, W, C, oh, ow, int(n), ky, kx, sy, sx, ctypes.byref(smem))
-    limit = _smem_limit(dev)
-    if C > 1024 or smem.value > limit:
-        raise ValueError(
-            f"fused_block_bwd kernel: {smem.value} bytes of shared memory "
-            f"exceed one block's {limit}, or C > 1024")
+    plan = bwd_plan_for(x, bias, n, (ky, kx, sy, sx), dp)
     dx = torch.empty_like(x)
     db = torch.empty((C,), dtype=x.dtype, device=x.device)
-    partial = torch.empty((max(rows, 1), C), dtype=x.dtype, device=x.device)
+    partial = torch.empty((max(B * plan.n_strips * plan.n_ctiles, 1), C),
+                          dtype=x.dtype, device=x.device)
     rc = _build.entry("fused_block_bwd")(
         x.data_ptr(), bias.data_ptr(), dp.data_ptr(), dx.data_ptr(),
         db.data_ptr(), partial.data_ptr(), B, H, W, C, oh, ow, int(n),
         float(alpha), float(beta), float(k), float(2.0 * alpha * beta),
-        ky, kx, sy, sx, int(float(beta) == 0.75), dev, _build.stream_of(x))
+        ky, kx, sy, sx, int(float(beta) == 0.75), plan.n_strips,
+        plan.n_ctiles, plan.stages, plan.smem, int(plan.vec),
+        x.device.index, _build.stream_of(x))
     _build.check(rc, "fused_block_bwd")
     fused_block_bwd.launches += 1
     return dx, db
