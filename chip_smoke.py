@@ -10,11 +10,13 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
   2. each forward kernel (K1, K2, K3) against its plain PyTorch version
      on the card, at the shapes AlexNet's forward gives it at batch 128:
      error against the stated tolerance, kernel / plain / library time,
-     and the least time the card could take (bytes over 3.35 TB/s or
-     operations over the float32 rate, whichever is larger); K1 must be
-     bit-exact, and is also run bit-exact at the small shapes, pools and
-     LRN constants of ``K1_PATHS``, which take its scalar and its float4
-     staging path, each pooling branch and both forms of s^-beta;
+     the wrapper's host time per call, and the least time the card could
+     take (bytes over 3.35 TB/s or operations over the float32 rate,
+     whichever is larger); K1 and K3 must be bit-exact, and are also run
+     bit-exact at the small shapes, pools and LRN constants of
+     ``K1_PATHS`` and ``K3_PATHS``, which take their scalar and float4
+     paths, each pooling branch, odd and even windows and both forms of
+     s^-beta;
   3. full-width AlexNet (227x227x3, 96/256/384/384/256/4096/4096, 1000
      classes, seeded random weights) behind ``InferenceServer``
      (max_batch 128) with ``fused_elementwise`` and ``fused_tail`` on:
@@ -26,10 +28,11 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      launches and 5 bias+ReLU launches per dispatch;
   5. each backward kernel (K1b, K2b, K3b) against its plain version at
      the batch-128 shapes of the AlexNet train step, as in phase 2, with
-     the bias gradient held to a tolerance relative to its sums; K1b's dx
-     must be bit-exact, also at the shapes, pools, LRN constants and tied
-     inputs of ``K1B_PATHS``, which take its scalar and float4 paths,
-     strips and column tiles;
+     the bias gradient held to a tolerance relative to its sums; every
+     dx must be bit-exact, also at the cases of ``K1B_PATHS`` (scalar and
+     float4 paths, strips, column tiles, tied inputs), ``K2B_PATHS``
+     (channel counts from 1 to 1536, one row, unaligned operands; db the
+     same bits on a second launch) and ``K3B_PATHS`` (an even window);
   6. full-width AlexNet trained by ``FusedTrainer.run()`` (the port's
      ``samples/alexnet.py``: 227x227x3, batch 128, 256 train + 128 valid
      images, 2 epochs, 1000 classes) three times from the same weights and
@@ -46,8 +49,9 @@ exits non-zero before printing any result.
 
     python3 chip_smoke.py --only fused_block_fwd[,...]
 
-runs phases 1 and 2 for the named kernels alone (and ``K1_PATHS`` when
-K1 is named, ``K1B_PATHS`` when K1b is); it prints the ``kernels``
+runs phases 1 and 2 for the named kernels alone, with the ``*_PATHS``
+cases of each kernel named (``fused_block_fwd``, ``fused_block_bwd``,
+``lrn_fwd``, ``bias_relu_bwd``, ``lrn_bwd``); it prints the ``kernels``
 object and no ``ok`` line.
 """
 
@@ -99,20 +103,30 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms, from CUDA events around
-    ``iters`` launches after ``warmup``."""
+def time_kernel(torch, fn, iters: int = 20, warmup: int = 3):
+    """(mean device time of ``fn`` in ms, from CUDA events around
+    ``iters`` launches after ``warmup``; mean host time of one call in
+    us, from the host clock around the same ``iters`` enqueues, before
+    the synchronise).  A host time above the device time means the host
+    paces the calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host = time.perf_counter() - t0
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / iters
+    return a.elapsed_time(b) / iters, host / iters * 1e6
+
+
+def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` in ms (:func:`time_kernel`)."""
+    return time_kernel(torch, fn, iters, warmup)[0]
 
 
 def warm_clocks(torch, seconds: float = 0.5) -> None:
@@ -231,7 +245,7 @@ def check_kernels(torch, names):
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
                "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "bound_by": "bytes", "library_ms": None}
+               "bound_by": "bytes", "library_ms": None, "host_us": 0.0}
         for layer, (hw, c) in shapes.items():
             x = torch.randn((BATCH, hw, hw, c), generator=gen,
                             device="cuda") * 2.0
@@ -244,6 +258,10 @@ def check_kernels(torch, names):
             if isinstance(got, tuple):          # backward: (dx, db)
                 (got, got_db), (want, want_db) = got, want
                 db_ok, db_note = db_check(torch, got_db, want_db, want)
+                if name == "bias_relu_bwd":
+                    again = deterministic_db(torch, kern, got_db)
+                    db_ok = db_ok and again
+                    db_note += f" db_same_bits_twice={again}"
             if got.shape != want.shape:
                 raise AssertionError(f"{name}[{layer}]: shape "
                                      f"{tuple(got.shape)} vs plain "
@@ -258,26 +276,25 @@ def check_kernels(torch, names):
             if lib is not None:
                 lib_err = float((lib() - want).abs().max())
             del got, want
-            t_k = cuda_ms(torch, kern)
+            t_k, host_us = time_kernel(torch, kern)
             t_p = cuda_ms(torch, plain, iters=5, warmup=1)
             t_l = None if lib is None else cuda_ms(torch, lib)
             b_ms, b_by = bound_ms(nbytes, ops)
             log(f"[kernel] {name}[{layer}] shape={tuple(x.shape)} "
                 f"max_abs_err={max_err:.3e} max_rel_err={rel:.3e} "
                 f"tol=|d|<={KERNEL_ATOL:g}+{KERNEL_RTOL:g}|plain|{db_note} "
-                f"ms={t_k:.4f} plain_ms={t_p:.4f} "
+                f"ms={t_k:.4f} host_us={host_us:.1f} plain_ms={t_p:.4f} "
                 f"bound_us={b_ms * 1e3:.2f} ({b_by}, {nbytes / 1e6:.1f} MB)"
                 + (" library_ms=none" if t_l is None else
                    f" library_ms={t_l:.4f} library_err={lib_err:.3e}")
-                + (f" plan={k1_plan(x, b)}" if name == "fused_block_fwd"
-                   else f" plan={k1b_plan(x, b)}"
-                   if name == "fused_block_bwd" else "")
+                + (f" plan={PLANS[name](x, b)}" if name in PLANS else "")
                 + f" -> {'ok' if ok else 'FAIL'}")
             if not ok or (name in BIT_EXACT and max_err != 0.0):
                 raise AssertionError(f"{name}[{layer}] disagrees with its "
                                      f"plain version: {max_err:.3e}")
             row["max_abs_err"] = max(row["max_abs_err"], max_err)
             row["ms"] += t_k
+            row["host_us"] += host_us
             row["plain_ms"] += t_p
             row["bound_ms"] += b_ms
             row["bound_by"] = b_by
@@ -289,8 +306,24 @@ def check_kernels(torch, names):
     return rows
 
 
-#: kernels whose output (dx for K1b) must equal the plain version's bits
-BIT_EXACT = ("fused_block_fwd", "fused_block_bwd")
+#: kernels whose output (dx for a backward) must equal the plain version's
+#: bits
+BIT_EXACT = ("fused_block_fwd", "fused_block_bwd", "lrn_fwd",
+             "bias_relu_bwd", "lrn_bwd")
+
+
+def same_bits(torch, a, b) -> bool:
+    """Whether float32 tensors ``a`` and ``b`` hold the same bits, signed
+    zeros and NaNs included."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def deterministic_db(torch, kern, db) -> bool:
+    """Whether a second launch of ``kern`` gives ``db``'s bits again."""
+    _, again = kern()
+    torch.cuda.synchronize()
+    return same_bits(torch, again, db)
 
 
 def db_check(torch, got_db, want_db, want_dx):
@@ -381,6 +414,194 @@ def k1b_plan(x, b, n=5, pool=(3, 3, 2, 2), dp=None):
     return (f"{'float4+bulk' if p.vec else 'scalar+cp.async'}/"
             f"strips={p.n_strips}/ctiles={p.n_ctiles}/stages={p.stages}/"
             f"smem={p.smem}/blocks_per_sm={p.blocks_per_sm}")
+
+
+def k3_plan(x, b=None, n=5):
+    from znicz_torch.ops.lrn import fwd_plan_for
+
+    p = fwd_plan_for(x, n)
+    return (f"{'float4' if p.vec else 'scalar'}/threads_per_row="
+            f"{p.threads_per_row}/rows={p.rows}/blocks={p.blocks}/"
+            f"groups_per_block={p.groups_per_block}/stages={p.stages}/"
+            f"smem={p.smem}/blocks_per_sm={p.blocks_per_sm}/window="
+            f"{p.lo}+{p.taps}")
+
+
+def k2b_plan(x, b, dp=None):
+    from znicz_torch.fused_block import bias_relu_bwd_plan_for
+
+    p = bias_relu_bwd_plan_for(x, b, x if dp is None else dp)
+    return (f"{'float4' if p.vec else 'scalar'}/threads_per_row="
+            f"{p.threads_per_row}/rows={p.rows}/chunks={p.chunks}/"
+            f"row_blocks={p.row_blocks}/splits={p.splits}/smem={p.smem}")
+
+
+#: kernel -> its plan as printed on its ``[kernel]`` lines
+PLANS = {"fused_block_fwd": k1_plan, "fused_block_bwd": k1b_plan,
+         "lrn_fwd": k3_plan, "bias_relu_bwd": k2b_plan}
+
+
+def unaligned(torch, t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary: operands like it take the kernels' scalar paths."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+#: K3 beyond AlexNet's case, each bit-exact against its plain version:
+#: (what it takes, shape, n, alpha, beta, k, input scale, whether its
+#: planner must pick the float4 path, whether x lies off a 16-byte
+#: boundary).  n 5 on the float4 path is unrolled, every other window
+#: loops over its taps; beta 0.6 takes powf on both sides; 23328 rows are
+#: no multiple of conv1's 21-row groups and give each block two groups
+#: through its ring; C 4000 gives a thread four float4 units and a block
+#: more than 48 KB of shared memory
+K3_PATHS = [
+    ("float4, C 96", (4, 13, 13, 96), 5, 1e-4, 0.75, 2.0, 2.0, True, False),
+    ("float4, C 256", (4, 13, 13, 256), 5, 1e-4, 0.75, 2.0, 2.0, True,
+     False),
+    ("scalar, C 33", (5, 9, 9, 33), 5, 1e-4, 0.75, 2.0, 2.0, False, False),
+    ("float4, even window n 4", (4, 9, 9, 64), 4, 1e-4, 0.75, 2.0, 2.0,
+     True, False),
+    ("float4, even window n 2", (4, 9, 9, 64), 2, 1e-4, 0.75, 2.0, 2.0,
+     True, False),
+    ("float4, n 1", (3, 9, 9, 32), 1, 1e-4, 0.75, 2.0, 2.0, True, False),
+    ("float4, n 7", (3, 9, 9, 32), 7, 1e-4, 0.75, 2.0, 2.0, True, False),
+    ("scalar, C 3 < n 5", (6, 9, 9, 3), 5, 1e-4, 0.75, 2.0, 2.0, False,
+     False),
+    ("float4, powf beta 0.6", (4, 13, 13, 96), 5, 1e-4, 0.6, 2.0, 2.0,
+     True, False),
+    ("float4, s over 20 binades", (4, 13, 13, 96), 5, 1e-2, 0.75, 1e-3,
+     100.0, True, False),
+    ("float4, C 1024", (2, 7, 7, 1024), 5, 1e-4, 0.75, 2.0, 2.0, True,
+     False),
+    ("float4, two groups a block, ragged last group", (32, 27, 27, 96), 5,
+     1e-4, 0.75, 2.0, 2.0, True, False),
+    ("scalar, unaligned operand", (4, 9, 9, 64), 5, 1e-4, 0.75, 2.0, 2.0,
+     False, True),
+    ("float4, C 4000, four units a thread, past 48 KB", (2, 3, 5, 4000), 5,
+     1e-4, 0.75, 2.0, 2.0, True, False),
+]
+
+
+def check_k3_paths(torch):
+    """K3 at each case of :data:`K3_PATHS`, bit-exact against its plain
+    version; reported on their own lines, outside the AlexNet row."""
+    from znicz_torch.ops.lrn import fwd_plan_for, lrn_fwd, lrn_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for label, shape, n, alpha, beta, k, scale, vec, off in K3_PATHS:
+        x = torch.randn(shape, generator=gen, device="cuda") * scale
+        if off:
+            x = unaligned(torch, x)
+        plan = k3_plan(x, n=n)
+        if fwd_plan_for(x, n).vec != vec:
+            raise AssertionError(f"K3 {label}: planner took the wrong "
+                                 f"path: {plan}")
+
+        def kern():
+            return lrn_fwd(x, n, alpha, beta, k)
+
+        got, want = kern(), lrn_plain(x, n, alpha, beta, k)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = same_bits(torch, got, want) and bool(torch.isfinite(got).all())
+        log(f"[kernel] lrn_fwd[{label}] shape={shape} n={n} "
+            f"alpha={alpha:g} beta={beta:g} k={k:g} x*{scale:g} plan={plan} "
+            f"max_abs_err={err:.3e} (bit-exact required) "
+            f"ms={cuda_ms(torch, kern):.4f} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K3 {label} disagrees with its plain "
+                                 f"version: {err:.3e}")
+
+
+#: K3b beyond AlexNet's case: (what it takes, shape, n), dx bit-exact
+K3B_PATHS = [("even window n 4", (4, 13, 13, 64), 4)]
+
+
+def check_k3b_paths(torch):
+    """K3b at each case of :data:`K3B_PATHS`, dx bit-exact against its
+    plain version."""
+    from znicz_torch.ops.lrn import lrn_bwd, lrn_bwd_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for label, shape, n in K3B_PATHS:
+        x = torch.clamp_min(torch.randn(shape, generator=gen, device="cuda")
+                            * 2.0, 0.0)
+        dy = torch.randn(shape, generator=gen, device="cuda")
+        got = lrn_bwd(x, dy, n)
+        want = lrn_bwd_plain(x, dy, n)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = same_bits(torch, got, want) and bool(torch.isfinite(got).all())
+        log(f"[kernel] lrn_bwd[{label}] shape={shape} n={n} "
+            f"max_abs_err={err:.3e} (bit-exact required) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K3b {label} disagrees with its plain "
+                                 f"version: {err:.3e}")
+
+
+#: K2b beyond AlexNet's case, dx bit-exact (signed zeros included), db
+#: within DB_RTOL and the same bits on a second launch: (what it takes,
+#: shape, whether its planner must pick the float4 path, whether x lies
+#: off a 16-byte boundary).  C 1536 is past the old kernel's 1024 limit;
+#: its unaligned twin takes three channel chunks
+K2B_PATHS = [
+    ("float4, C 96", (4, 13, 13, 96), True, False),
+    ("float4, C 256", (4, 13, 13, 256), True, False),
+    ("float4, C 384", (4, 13, 13, 384), True, False),
+    ("scalar, C 33", (5, 9, 9, 33), False, False),
+    ("scalar, C 1", (3, 17, 17, 1), False, False),
+    ("float4, C 1536", (2, 9, 9, 1536), True, False),
+    ("scalar, C 1536, three chunks", (2, 9, 9, 1536), False, True),
+    ("float4, one row", (1, 1, 1, 256), True, False),
+    ("scalar, unaligned operand", (4, 9, 9, 64), False, True),
+]
+
+
+def check_k2b_paths(torch):
+    """K2b at each case of :data:`K2B_PATHS`; x = -b at a quarter of the
+    elements shuts the strict gate exactly."""
+    from znicz_torch.fused_block import (bias_relu_bwd,
+                                         bias_relu_bwd_plain,
+                                         bias_relu_bwd_plan_for)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for label, shape, vec, off in K2B_PATHS:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        b = torch.randn(shape[-1:], generator=gen, device="cuda") * 0.3
+        shut = torch.rand(shape, generator=gen, device="cuda") < 0.25
+        x = torch.where(shut, -b.expand(shape), x)
+        dp = torch.randn(shape, generator=gen, device="cuda")
+        if off:
+            x = unaligned(torch, x)
+        plan = k2b_plan(x, b, dp)
+        if bias_relu_bwd_plan_for(x, b, dp).vec != vec:
+            raise AssertionError(f"K2b {label}: planner took the wrong "
+                                 f"path: {plan}")
+
+        def kern():
+            return bias_relu_bwd(x, b, dp)
+
+        got, got_db = kern()
+        want, want_db = bias_relu_bwd_plain(x, b, dp)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        db_ok, db_note = db_check(torch, got_db, want_db, want)
+        again = deterministic_db(torch, kern, got_db)
+        ok = same_bits(torch, got, want) and db_ok and again
+        log(f"[kernel] bias_relu_bwd[{label}] shape={shape} plan={plan} "
+            f"max_abs_err={err:.3e} (bit-exact required){db_note} "
+            f"db_same_bits_twice={again} ms={cuda_ms(torch, kern):.4f} "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2b {label} disagrees with its plain "
+                                 f"version: {err:.3e}, db ok {db_ok}, "
+                                 f"deterministic {again}")
 
 
 def tie_heavy(torch, shape, gen):
@@ -589,8 +810,7 @@ def train_phase(torch, card):
     root.alexnet.decision.max_epochs = TRAIN_EPOCHS
     prng.reset(SEED)
     t0 = time.perf_counter()
-    wf = training_workflow(
-        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    wf = training_workflow()
     ldr = wf.loader
     log(f"[train] AlexNet {wf.sample_shape} -> {wf.output_sample_shape}, "
         f"{ldr.class_lengths[2]} train + {ldr.class_lengths[1]} valid "
@@ -691,6 +911,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from znicz_torch import _build
+    from znicz_torch.core import prng
     from znicz_torch.samples.alexnet import AlexNetWorkflow
     from znicz_torch.serving.model import ModelRunner
 
@@ -725,6 +946,12 @@ def main(argv=None) -> int:
             check_k1_paths(torch)
         if "fused_block_bwd" in names:
             check_k1b_paths(torch)
+        if "lrn_fwd" in names:
+            check_k3_paths(torch)
+        if "bias_relu_bwd" in names:
+            check_k2b_paths(torch)
+        if "lrn_bwd" in names:
+            check_k3b_paths(torch)
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -732,11 +959,15 @@ def main(argv=None) -> int:
     rows = check_kernels(torch, ["fused_block_fwd", "bias_relu_fwd",
                                  "lrn_fwd"])
     check_k1_paths(torch)
+    check_k3_paths(torch)
+    # hand the paths' cached blocks back, so that the timed phases start
+    # with the allocator as the AlexNet-shape checks leave it
+    torch.cuda.empty_cache()
 
     # -- phase 3/4: the served path -----------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    wf = AlexNetWorkflow(sample_shape=(227, 227, 3), n_classes=1000,
-                         generator=gen)
+    prng.reset(SEED)
+    wf = AlexNetWorkflow(sample_shape=(227, 227, 3), n_classes=1000)
     with torch.no_grad():
         for f in wf.forwards:
             if f.bias is not None:
@@ -793,6 +1024,9 @@ def main(argv=None) -> int:
     rows.update(check_kernels(torch, ["fused_block_bwd", "bias_relu_bwd",
                                       "lrn_bwd"]))
     check_k1b_paths(torch)
+    check_k2b_paths(torch)
+    check_k3b_paths(torch)
+    torch.cuda.empty_cache()
 
     # -- phase 6: the training path -----------------------------------------
     for label, launches in train_phase(torch, card).items():

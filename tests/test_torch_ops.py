@@ -134,7 +134,7 @@ def test_conv_matches_reference(kw, in_shape):
     from znicz_tpu.conv import ConvStrictRELU as JConv
 
     mod = ConvStrictRELU(name="c", **kw)
-    mod.build(in_shape, torch.Generator(), torch.device("cpu"))
+    mod.build(in_shape, torch.device("cpu"))
     w = _rand(tuple(mod.weights.shape), 11, 0.3)
     b = _rand(tuple(mod.bias.shape), 12, 0.1)
     _load(mod, w, b)
@@ -159,7 +159,7 @@ def test_all2all_matches_reference(cls, transposed):
     in_shape = (3, 3, 3, 4)                    # NHWC, flattened H,W,C
     mod = getattr(tmod, cls)(name="f", output_sample_shape=7,
                              weights_transposed=transposed)
-    mod.build(in_shape, torch.Generator(), torch.device("cpu"))
+    mod.build(in_shape, torch.device("cpu"))
     w = _rand(tuple(mod.weights.shape), 21, 0.2)
     b = _rand((7,), 22, 0.1)
     _load(mod, w, b)
@@ -183,7 +183,7 @@ def test_max_pooling_matches_reference(kw, in_shape, exact):
     from znicz_tpu.pooling import MaxPooling as JPool
 
     mod = MaxPooling(name="p", **kw)
-    out_shape = mod.build(in_shape, torch.Generator(), torch.device("cpu"))
+    out_shape = mod.build(in_shape, torch.device("cpu"))
     ref = JPool(None, name="p", **kw)
     ref.input = Array(np.zeros(in_shape, np.float32))
     assert mod.exact_tiling() == ref.exact_tiling() == exact

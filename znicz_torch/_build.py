@@ -15,13 +15,14 @@ Every C entry point launches on the stream it is given and returns
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -41,27 +42,26 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 
 #: C functions of each library: name -> argtypes.  The first is the
-#: launch function; every restype is int unless :data:`RESTYPES` says
-#: otherwise
+#: launch function; every restype is int
 SIGNATURES = {
     "fused_block": {
         "znicz_fused_block_fwd":
             [_P] * 3 + [_I] * 7 + [_F] * 3 + [_I] * 10 + [_P],
         "znicz_fused_block_smem_limit": [_I]},
     "bias_relu": {"znicz_bias_relu_fwd": [_P, _P, _P, _LL, _I, _I, _P]},
-    "lrn": {"znicz_lrn_fwd": [_P, _P, _LL, _I, _I, _F, _F, _F, _I, _P]},
+    "lrn": {"znicz_lrn_fwd":
+            [_P, _P, _LL, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _LL]
+            + [_I] * 5 + [_P]},
     "fused_block_bwd": {
         "znicz_fused_block_bwd":
             [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I] * 11 + [_P]},
     "bias_relu_bwd": {
-        "znicz_bias_relu_bwd": [_P] * 6 + [_LL, _I, _I, _P],
-        "znicz_bias_relu_bwd_blocks": [_LL, ctypes.POINTER(_I)]},
+        "znicz_bias_relu_bwd": [_P] * 7 + [_LL] + [_I] * 8 + [_P]},
     "lrn_bwd": {
-        "znicz_lrn_bwd": [_P, _P, _P, _LL, _I, _I] + [_F] * 4 + [_I, _P]},
+        "znicz_lrn_bwd": [_P, _P, _P, _LL, _I, _I, _I] + [_F] * 4
+        + [_I, _P]},
 }
 
-#: restypes of the C functions that do not return an int
-RESTYPES = {"znicz_bias_relu_bwd_blocks": _LL}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -122,7 +122,7 @@ def build_all() -> Dict[str, str]:
                 for fn_name, argtypes in SIGNATURES[name].items():
                     fn = getattr(lib, fn_name)
                     fn.argtypes = argtypes
-                    fn.restype = RESTYPES.get(fn_name, ctypes.c_int)
+                    fn.restype = ctypes.c_int
                 lib.znicz_error_string.argtypes = [ctypes.c_int]
                 lib.znicz_error_string.restype = ctypes.c_char_p
                 _libs[name] = lib
@@ -145,6 +145,28 @@ def check(rc: int, name: str) -> None:
         msg = _libs[name].znicz_error_string(rc).decode()
         fn_name = next(iter(SIGNATURES[name]))
         raise RuntimeError(f"{fn_name}: CUDA error {rc} ({msg})")
+
+
+#: an SM's most resident threads on Hopper, and the shared memory it
+#: reserves for each resident block (232,448 + 1,024 bytes = 228 KB an SM)
+SM_THREADS, SMEM_RESERVED = 2048, 1024
+
+
+def resident_blocks(threads: int, smem: int, smem_limit: int) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes of shared memory
+    that fit one SM whose blocks may opt into ``smem_limit`` bytes."""
+    return min(SM_THREADS // threads,
+               (smem_limit + SMEM_RESERVED) // (smem + SMEM_RESERVED))
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(dev: int) -> Tuple[int, int]:
+    """(one block's opt-in shared memory in bytes, SMs) of CUDA device
+    ``dev``: what the kernels' planners size their launches by."""
+    import torch
+
+    smem = entry("fused_block", "znicz_fused_block_smem_limit")(dev)
+    return smem, torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def stream_of(t) -> int:

@@ -15,63 +15,181 @@
 //
 // Design: the TPU kernel takes one image per grid step and adds its
 // column sums into db in scratch, relying on the TPU's in-order grid.
-// Here a block owns a run of whole pixel rows (each row a pixel's C
-// channels); its 8 warps take every 8th row, lanes over channels, so a
-// warp reads 128 contiguous bytes at a time.  Each lane keeps the running
-// sums of its channels in registers; the block adds its warps' sums in a
-// fixed order and writes one row of partials, and column_sum.cuh adds the
-// rows.  The number of rows per block depends on the shape only, so db
-// is the same on every run.
+// Here the Python planner (fused_block._bias_relu_bwd_plan) fixes, from
+// the shape alone, which rows each block sums and in what order, so db
+// has the same bits on every run.
+//  - A thread owns one unit of channels: four (float4 path: 16-byte loads
+//    of x and dp, a 16-byte store of dx) or one (scalar path: C % 4 != 0
+//    or an unaligned operand).  Its bias and its running column sums stay
+//    in registers.  tpr threads take a pixel row of one channel chunk
+//    (gridDim.y chunks cover any C), r rows are in flight a block, and the
+//    row loop is unrolled four deep, so each thread has eight loads in
+//    flight.
+//  - Block (i, j) walks rows [i*rows/nb, (i+1)*rows/nb) of chunk j; its
+//    thread of row slot ty takes every r-th row from ty, in order.  The
+//    block adds its r row slots in order in shared memory (r x chunk
+//    floats) and writes one row of partials.
+//  - The last block to finish, found by an integer ticket (atomicAdd
+//    after __threadfence, no float atomics), adds the partial rows in
+//    order: `splits` threads a unit each sum a fixed run of rows with
+//    coalesced loads, then one thread a unit adds the runs in order.  It
+//    resets the ticket for the next launch.  One launch in all.
+//  - dx = __fmul_rn(dp, gate ? 1 : 0), the plain version's multiply, so
+//    dx is bit-identical, signed zeros and NaNs included.
 
 #include <cuda_runtime.h>
-
-#include "column_sum.cuh"
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPerLane = 32;  // channels per lane: C <= 1024
+constexpr int kMaxThreads = 512;
+constexpr int kUnroll = 4;
 
-__global__ void __launch_bounds__(kThreads)
-bias_relu_bwd_kernel(const float* __restrict__ x,
-                     const float* __restrict__ b,
+struct Plan {
+  long long rows;
+  int C, tpr, r, chunks, row_blocks, splits;
+};
+
+template <int V>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+};
+template <>
+struct Vec<1> {
+  using T = float;
+};
+
+__device__ __forceinline__ float gate(float x, float b, float d) {
+  return __fmul_rn(d, __fadd_rn(x, b) > 0.0f ? 1.0f : 0.0f);
+}
+
+__device__ __forceinline__ float4 gate(float4 x, float4 b, float4 d) {
+  return make_float4(gate(x.x, b.x, d.x), gate(x.y, b.y, d.y),
+                     gate(x.z, b.z, d.z), gate(x.w, b.w, d.w));
+}
+
+__device__ __forceinline__ void add(float* acc, float v) {
+  acc[0] = __fadd_rn(acc[0], v);
+}
+
+__device__ __forceinline__ void add(float* acc, float4 v) {
+  acc[0] = __fadd_rn(acc[0], v.x);
+  acc[1] = __fadd_rn(acc[1], v.y);
+  acc[2] = __fadd_rn(acc[2], v.z);
+  acc[3] = __fadd_rn(acc[3], v.w);
+}
+
+// V: channels a unit (4 or 1).
+template <int V>
+__global__ void __launch_bounds__(kMaxThreads)
+bias_relu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ b,
                      const float* __restrict__ dp, float* __restrict__ dx,
-                     float* __restrict__ partial, long long rows, int C,
-                     int rows_per_block) {
-  __shared__ float red[kWarps * 32 * kMaxPerLane];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
-  long long r1 = r0 + rows_per_block;
-  if (r1 > rows) r1 = rows;
-  float acc[kMaxPerLane];
+                     float* __restrict__ db, float* __restrict__ partial,
+                     unsigned* __restrict__ ticket, const Plan p) {
+  using T = typename Vec<V>::T;
+  extern __shared__ __align__(16) float red[];  // r x tpr*V, then splits x C
+  __shared__ bool last;
+  const int ty = threadIdx.x / p.tpr;            // row slot, fixed
+  const int t = threadIdx.x - ty * p.tpr;
+  const int units = p.C / V;
+  const int unit = blockIdx.y * p.tpr + t;
+  const bool on = unit < units;
+  const long long r0 = (long long)blockIdx.x * p.rows / p.row_blocks;
+  const long long r1 = (long long)(blockIdx.x + 1) * p.rows / p.row_blocks;
+  float acc[V];
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) acc[j] = 0.0f;
-  for (long long r = r0 + warp; r < r1; r += kWarps) {
-    const long long base = r * C;
+  for (int j = 0; j < V; ++j) acc[j] = 0.0f;
+  if (on) {
+    const T bv = __ldg(reinterpret_cast<const T*>(b) + unit);
+    const T* xs = reinterpret_cast<const T*>(x) + unit;
+    const T* ds = reinterpret_cast<const T*>(dp) + unit;
+    T* out = reinterpret_cast<T*>(dx) + unit;
+    const long long step = (long long)p.r * units;  // r rows, in units
+    long long row = r0 + ty;
+    for (; row + (kUnroll - 1) * p.r < r1; row += kUnroll * p.r) {
+      const long long at = row * units;
+      T xv[kUnroll], dv[kUnroll];
 #pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
-      const int c = lane + 32 * j;
-      if (c < C) {
-        const float a = __fadd_rn(x[base + c], __ldg(b + c));
-        const float d = __fmul_rn(dp[base + c], a > 0.0f ? 1.0f : 0.0f);
-        dx[base + c] = d;
-        acc[j] = __fadd_rn(acc[j], d);
+      for (int u = 0; u < kUnroll; ++u) {
+        xv[u] = __ldg(xs + at + u * step);
+        dv[u] = __ldg(ds + at + u * step);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const T d = gate(xv[u], bv, dv[u]);
+        out[at + u * step] = d;
+        add(acc, d);
       }
     }
+    for (; row < r1; row += p.r) {
+      const long long at = row * units;
+      const T d = gate(__ldg(xs + at), bv, __ldg(ds + at));
+      out[at] = d;
+      add(acc, d);
+    }
   }
+  // the block's partial row: its row slots added in order
+  const int width = p.tpr * V;                   // floats of a chunk
+  if (on) {
 #pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) {
-    const int c = lane + 32 * j;
-    if (c < C) red[warp * C + c] = acc[j];
+    for (int j = 0; j < V; ++j) red[ty * width + t * V + j] = acc[j];
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
+  const int c0 = blockIdx.y * width;
+  for (int col = threadIdx.x; col < width && c0 + col < p.C;
+       col += blockDim.x) {
     float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, red[w * C + c]);
-    partial[(long long)blockIdx.x * C + c] = s;
+    for (int k = 0; k < p.r; ++k) s = __fadd_rn(s, red[k * width + col]);
+    partial[(long long)blockIdx.x * p.C + c0 + col] = s;
   }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block: db from the partial rows, in order
+  const T* part = reinterpret_cast<const T*>(partial);
+  T* out = reinterpret_cast<T*>(db);
+  if (p.splits == 1) {
+    for (int u = threadIdx.x; u < units; u += blockDim.x) {
+      float s[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[j] = 0.0f;
+      for (int i = 0; i < p.row_blocks; ++i)
+        add(s, __ldcg(part + (long long)i * units + u));
+      if constexpr (V == 4) {
+        out[u] = make_float4(s[0], s[1], s[2], s[3]);
+      } else {
+        out[u] = s[0];
+      }
+    }
+  } else {
+    if ((int)threadIdx.x < p.splits * units) {
+      const int k = threadIdx.x / units;
+      const int u = threadIdx.x - k * units;
+      const int i0 = (int)((long long)k * p.row_blocks / p.splits);
+      const int i1 = (int)((long long)(k + 1) * p.row_blocks / p.splits);
+      float s[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[j] = 0.0f;
+      for (int i = i0; i < i1; ++i)
+        add(s, __ldcg(part + (long long)i * units + u));
+#pragma unroll
+      for (int j = 0; j < V; ++j) red[k * p.C + u * V + j] = s[j];
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < p.C; c += blockDim.x) {
+      float s = 0.0f;
+      for (int k = 0; k < p.splits; ++k) s = __fadd_rn(s, red[k * p.C + c]);
+      db[c] = s;
+    }
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 }  // namespace
@@ -80,34 +198,44 @@ extern "C" const char* znicz_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// The number of partial rows (blocks) the launch writes for these
-// shapes, and the rows per block: the caller allocates partial as
-// (blocks, C) floats.
-extern "C" long long znicz_bias_relu_bwd_blocks(long long rows,
-                                                int* rows_per_block) {
-  long long rpb = (rows + 1023) / 1024;
-  if (rpb < kWarps) rpb = kWarps;
-  rpb = (rpb + kWarps - 1) / kWarps * kWarps;
-  *rows_per_block = (int)rpb;
-  return (rows + rpb - 1) / rpb;
-}
-
-// rows = elements / C; partial holds znicz_bias_relu_bwd_blocks(rows) * C
-// floats.  Returns cudaGetLastError() after both launches.
+// rows = elements / C.  partial holds row_blocks * C floats and ticket one
+// unsigned int, 0 on entry and left 0.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a plan this file does not take: the
+// caller (fused_block._bias_relu_bwd_plan) chooses vec (C % 4 == 0 and
+// every operand 16-byte aligned), tpr threads a row of a channel chunk and
+// r rows (tpr * r <= 512), chunks covering C, row_blocks >= 1, and splits
+// (splits * units <= tpr * r, or 1).
 extern "C" int znicz_bias_relu_bwd(const float* x, const float* b,
                                    const float* dp, float* dx, float* db,
-                                   float* partial, long long rows, int C,
-                                   int device, void* stream) {
+                                   float* partial, unsigned* ticket,
+                                   long long rows, int C, int vec, int tpr,
+                                   int r, int chunks, int row_blocks,
+                                   int splits, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (C > 32 * kMaxPerLane || C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const int V = vec ? 4 : 1;
+  const int threads = tpr * r;
+  const long long units = C / V;
+  const bool aligned = ((uintptr_t)x | (uintptr_t)b | (uintptr_t)dp |
+                        (uintptr_t)dx | (uintptr_t)db |
+                        (uintptr_t)partial) % 16 == 0;
+  if (C < 1 || tpr < 1 || r < 1 || threads > kMaxThreads || chunks < 1 ||
+      (long long)chunks * tpr < units ||
+      (long long)(chunks - 1) * tpr >= units || row_blocks < 1 ||
+      splits < 1 || (splits > 1 && splits * units > threads) ||
+      (vec && (C % 4 != 0 || !aligned)))
+    return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaMemsetAsync(db, 0, C * sizeof(float), s);
-  int rpb = 0;
-  const long long blocks = znicz_bias_relu_bwd_blocks(rows, &rpb);
-  bias_relu_bwd_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      x, b, dp, dx, partial, rows, C, rpb);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_column_sum(partial, (int)blocks, C, db, s);
+  const size_t smem = (size_t)threads * V * sizeof(float);
+  const dim3 grid((unsigned)row_blocks, (unsigned)chunks);
+  const Plan p{rows, C, tpr, r, chunks, row_blocks, splits};
+  if (vec) {
+    bias_relu_bwd_kernel<4><<<grid, threads, smem, s>>>(x, b, dp, dx, db,
+                                                        partial, ticket, p);
+  } else {
+    bias_relu_bwd_kernel<1><<<grid, threads, smem, s>>>(x, b, dp, dx, db,
+                                                        partial, ticket, p);
+  }
+  return (int)cudaGetLastError();
 }

@@ -4,8 +4,9 @@
 //   s  = k + alpha * W_n(x*x);  sb = powf(s, -beta)
 //   t  = ((dy * x) * sb) / s
 //   dx = dy * sb - (c2 * x) * W_n(t),   c2 = 2 * alpha * beta
-// with W_n the n-channel window summed from offset -n/2 to +n/2 in that
-// order, zero past the channel ends.
+// with W_n the n-channel window summed over the offsets lo .. lo+taps-1
+// (lo = -(n/2), taps = n, from ops/lrn.window_offsets) in that order, zero
+// past the channel ends.
 //
 // Replaces: znicz_tpu/ops/lrn_pallas.py _bwd_kernel (:86), tiled by
 // _pallas_2d (:97) under lrn's custom vjp (:149-156).  Same association
@@ -33,9 +34,9 @@ constexpr int kThreads = 256;
 constexpr int kTileFloats = 4096;  // per buffer
 
 __device__ __forceinline__ float window_sum(const float* row, int c, int C,
-                                            int half, bool square) {
+                                            int lo, int taps, bool square) {
   float acc = 0.0f;
-  for (int o = -half; o <= half; ++o) {
+  for (int o = lo; o < lo + taps; ++o) {
     const int cc = c + o;
     if (cc >= 0 && cc < C) {
       const float v = square ? __fmul_rn(row[cc], row[cc]) : row[cc];
@@ -48,8 +49,8 @@ __device__ __forceinline__ float window_sum(const float* row, int c, int C,
 __global__ void __launch_bounds__(kThreads)
 lrn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                float* __restrict__ dx, long long rows, int C,
-               int rows_per_block, int n, float alpha, float beta, float k,
-               float c2) {
+               int rows_per_block, int lo, int taps, float alpha, float beta,
+               float k, float c2) {
   extern __shared__ float smem[];
   float* xs = smem;                                  // rows_per_block * C
   float* ds = smem + (size_t)rows_per_block * C;     // dy, then dy * sb
@@ -64,13 +65,12 @@ lrn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     ds[i] = dy[base + i];
   }
   __syncthreads();
-  const int half = n / 2;
   for (int i = threadIdx.x; i < len; i += blockDim.x) {
     const int c = i % C;
     const float xv = xs[i];
     const float s = __fadd_rn(k, __fmul_rn(alpha,
                                            window_sum(xs + (i - c), c, C,
-                                                      half, true)));
+                                                      lo, taps, true)));
     const float sb = powf(s, -beta);
     const float d = ds[i];
     ts[i] = __fdiv_rn(__fmul_rn(__fmul_rn(d, xv), sb), s);
@@ -79,7 +79,7 @@ lrn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   __syncthreads();
   for (int i = threadIdx.x; i < len; i += blockDim.x) {
     const int c = i % C;
-    const float w = window_sum(ts + (i - c), c, C, half, false);
+    const float w = window_sum(ts + (i - c), c, C, lo, taps, false);
     dx[base + i] = __fsub_rn(ds[i], __fmul_rn(__fmul_rn(c2, xs[i]), w));
   }
 }
@@ -93,18 +93,19 @@ extern "C" const char* znicz_error_string(int e) {
 // rows = elements / C.  Returns cudaGetLastError().  The caller keeps
 // 3 * C * 4 bytes within 48 KB.
 extern "C" int znicz_lrn_bwd(const float* x, const float* dy, float* dx,
-                             long long rows, int C, int n, float alpha,
-                             float beta, float k, float c2, int device,
-                             void* stream) {
+                             long long rows, int C, int lo, int taps,
+                             float alpha, float beta, float k, float c2,
+                             int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (rows == 0) return 0;
+  if (lo > 0 || taps < 1) return (int)cudaErrorInvalidValue;
   int rows_per_block = kTileFloats / C;
   if (rows_per_block < 1) rows_per_block = 1;
   const size_t smem = (size_t)3 * rows_per_block * C * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
   lrn_bwd_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, dy, dx, rows, C, rows_per_block, n, alpha, beta, k, c2);
+      x, dy, dx, rows, C, rows_per_block, lo, taps, alpha, beta, k, c2);
   return (int)cudaGetLastError();
 }

@@ -32,7 +32,6 @@ loss head).  Both are off by default.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -170,20 +169,13 @@ def _tiling_pool(x, pool):
     return ky, kx, sy, sx
 
 
-def _smem_limit(dev: int) -> int:
-    return _build.entry("fused_block", "znicz_fused_block_smem_limit")(dev)
-
-
 #: channel windows K1's float4 path unrolls (``csrc/fused_block.cu``);
 #: any other window takes the scalar path
 _FWD_VEC_WINDOWS = (1, 3, 5, 7, 9)
 #: most input rows K1 keeps in its shared-memory ring
 _FWD_MAX_STAGES = 3
-#: K1's threads per block, and an SM's most resident threads
-_FWD_THREADS, _SM_THREADS = 512, 2048
-#: shared memory an SM holds beyond one block's opt-in limit: the 1 KB
-#: the card reserves for each block (232,448 + 1,024 = 228 KB on Hopper)
-_SMEM_RESERVED = 1024
+#: K1's threads per block
+_FWD_THREADS = 512
 
 
 class FwdPlan(NamedTuple):
@@ -232,8 +224,7 @@ def _fwd_plan(B, H, W, C, pool, smem_limit, n=5, aligned=True,
     vec = bool(aligned) and C % 4 == 0 and int(n) in _FWD_VEC_WINDOWS
 
     def per_sm(smem):
-        return min(_SM_THREADS // _FWD_THREADS,
-                   (smem_limit + _SMEM_RESERVED) // (smem + _SMEM_RESERVED))
+        return _build.resident_blocks(_FWD_THREADS, smem, smem_limit)
 
     fitting = [s for s in range(_FWD_MAX_STAGES, 0, -1)
                if _fwd_smem(W, C, ow, ky, sy, s) <= smem_limit]
@@ -253,18 +244,11 @@ def _fwd_plan(B, H, W, C, pool, smem_limit, n=5, aligned=True,
     return FwdPlan(n_strips, stages, smem, vec, per_sm(smem))
 
 
-@functools.lru_cache(maxsize=None)
-def _device_limits(dev: int) -> Tuple[int, int]:
-    """(one block's opt-in shared memory, SMs) of CUDA device ``dev``."""
-    return (_smem_limit(dev),
-            torch.cuda.get_device_properties(dev).multi_processor_count)
-
-
 def fwd_plan_for(x, bias, n=5, pool=(3, 3, 2, 2)) -> FwdPlan:
     """The :class:`FwdPlan` K1 runs for CUDA tensors ``x``, ``bias``."""
     B, H, W, C = x.shape
     aligned = x.data_ptr() % 16 == 0 and bias.data_ptr() % 16 == 0
-    smem_limit, n_sms = _device_limits(x.device.index)
+    smem_limit, n_sms = _build.device_limits(x.device.index)
     return _fwd_plan(B, H, W, C, _tiling_pool(x, pool), smem_limit, int(n),
                      aligned, n_sms)
 
@@ -404,7 +388,8 @@ def _bwd_plan(B, H, W, C, pool, smem_limit, n=5, aligned=True,
 
     def per_sm(smem):
         return min(_BWD_BLOCKS_PER_SM,
-                   (smem_limit + _SMEM_RESERVED) // (smem + _SMEM_RESERVED))
+                   (smem_limit + _build.SMEM_RESERVED)
+                   // (smem + _build.SMEM_RESERVED))
 
     def layout(n_ctiles, stages):
         tiles = [_bwd_span(ow, W, kx, sx, n_ctiles, t)
@@ -444,7 +429,7 @@ def bwd_plan_for(x, bias, n=5, pool=(3, 3, 2, 2), dp=None) -> BwdPlan:
     B, H, W, C = x.shape
     aligned = all(t.data_ptr() % 16 == 0
                   for t in (x, bias, dp) if t is not None)
-    smem_limit, n_sms = _device_limits(x.device.index)
+    smem_limit, n_sms = _build.device_limits(x.device.index)
     return _bwd_plan(B, H, W, C, _tiling_pool(x, pool), smem_limit, int(n),
                      aligned, n_sms)
 
@@ -547,10 +532,82 @@ def bias_relu_fwd(x, bias):
 bias_relu_fwd.launches = 0
 
 
+#: most threads a K2b block has (``kMaxThreads`` in
+#: ``csrc/bias_relu_bwd.cu``) and the blocks it plans for each SM
+_BR_THREADS, _BR_BLOCKS_PER_SM = 512, 2
+
+
+class BiasReluBwdPlan(NamedTuple):
+    """K2b's launch for one shape: block ``(i, j)`` of the ``row_blocks x
+    chunks`` grid walks rows :func:`_br_rows` ``(i)`` of channel chunk
+    ``j``, ``rows`` of them in flight, ``threads_per_row`` threads a row."""
+
+    vec: bool              # four channels a unit and 16-byte accesses, else one
+    threads_per_row: int   # units of one channel chunk
+    rows: int              # pixel rows in flight in a block
+    chunks: int            # channel chunks
+    row_blocks: int        # blocks along the rows: partial rows of db
+    splits: int            # threads a unit that add the partial rows
+    smem: int              # dynamic shared memory per block, bytes
+
+
+def _br_rows(rows, row_blocks, i):
+    """Rows ``[r0, r1)`` that K2b's block row ``i`` sums: the kernel's own
+    arithmetic."""
+    return i * rows // row_blocks, (i + 1) * rows // row_blocks
+
+
+@functools.lru_cache(maxsize=64)
+def _bias_relu_bwd_plan(rows, C, aligned=True, n_sms=132) -> BiasReluBwdPlan:
+    """K2b's launch, a function of the shape alone, so db sums in one order
+    on every run: a unit of four channels (C % 4 == 0 and 16-byte aligned
+    operands, ``aligned``) or of one; as few channel chunks of at most 512
+    units as cover C, split evenly; as many rows in flight as fill 512
+    threads; two blocks an SM in all, each an equal run of rows; and as
+    many threads a unit for the final sum as the block has."""
+    vec = bool(aligned) and C % 4 == 0
+    units = C // 4 if vec else C
+    chunks = -(-units // _BR_THREADS)
+    tpr = -(-units // chunks)
+    r = max(1, _BR_THREADS // tpr)
+    row_blocks = max(1, min(-(-rows // r),
+                            n_sms * _BR_BLOCKS_PER_SM // chunks))
+    splits = max(1, min(tpr * r // units, row_blocks))
+    return BiasReluBwdPlan(vec, tpr, r, chunks, row_blocks, splits,
+                           tpr * r * (4 if vec else 1) * 4)
+
+
+#: (device, stream) -> (partial rows, ticket) of K2b's launches there: the
+#: ticket is zeroed once and every launch leaves it zero
+_BR_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _br_workspace(device, stream: int, floats: int):
+    key = (device.index, stream)
+    ws = _BR_WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < floats:
+        ticket = ws[1] if ws is not None else \
+            torch.zeros((1,), dtype=torch.int32, device=device)
+        ws = _BR_WORKSPACE[key] = (
+            torch.empty((floats,), dtype=torch.float32, device=device),
+            ticket)
+    return ws
+
+
+def bias_relu_bwd_plan_for(x, bias, dp) -> BiasReluBwdPlan:
+    """The :class:`BiasReluBwdPlan` K2b runs for CUDA tensors ``x``,
+    ``bias``, ``dp``."""
+    C = int(x.shape[-1])
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, bias, dp))
+    return _bias_relu_bwd_plan(x.numel() // C, C, aligned,
+                               _build.device_limits(x.device.index)[1])
+
+
 def bias_relu_bwd(x, bias, dp):
     """K2b: ``(dx, db)`` of :func:`bias_relu_fwd` for the cotangent
     ``dp``, the gate recomputed from ``(x, bias)``.  CPU tensors take
-    :func:`bias_relu_bwd_plain`."""
+    :func:`bias_relu_bwd_plain`; CUDA tensors launch K2b on
+    :func:`_bias_relu_bwd_plan`'s launch or raise."""
     if x.ndim != 4 or dp.shape != x.shape:
         raise ValueError(f"bias_relu_bwd: x {tuple(x.shape)} and dp "
                          f"{tuple(dp.shape)} must be the same NHWC shape")
@@ -558,20 +615,16 @@ def bias_relu_bwd(x, bias, dp):
         return bias_relu_bwd_plain(x, bias, dp)
     _check_kernel_operands("bias_relu_bwd", x, bias, dp)
     C = int(x.shape[-1])
-    rows = x.numel() // C
-    rpb = ctypes.c_int(0)
-    blocks = _build.entry("bias_relu_bwd", "znicz_bias_relu_bwd_blocks")(
-        rows, ctypes.byref(rpb))
-    if C > 1024:
-        raise ValueError(f"bias_relu_bwd kernel: C {C} > 1024")
+    p = bias_relu_bwd_plan_for(x, bias, dp)
+    stream = _build.stream_of(x)
+    partial, ticket = _br_workspace(x.device, stream, p.row_blocks * C)
     dx = torch.empty_like(x)
     db = torch.empty((C,), dtype=x.dtype, device=x.device)
-    partial = torch.empty((max(blocks, 1), C), dtype=x.dtype,
-                          device=x.device)
     rc = _build.entry("bias_relu_bwd")(
         x.data_ptr(), bias.data_ptr(), dp.data_ptr(), dx.data_ptr(),
-        db.data_ptr(), partial.data_ptr(), rows, C, x.device.index,
-        _build.stream_of(x))
+        db.data_ptr(), partial.data_ptr(), ticket.data_ptr(), x.numel() // C,
+        C, int(p.vec), p.threads_per_row, p.rows, p.chunks, p.row_blocks,
+        p.splits, x.device.index, stream)
     _build.check(rc, "bias_relu_bwd")
     bias_relu_bwd.launches += 1
     return dx, db

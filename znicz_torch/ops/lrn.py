@@ -9,25 +9,38 @@ op with the reference's custom vjp.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA one, or raises; it counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``.  K3's launch is planned here (:func:`_fwd_plan`);
+both kernels take the window as :func:`window_offsets` gives it.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from znicz_torch import _build
 
 
+def window_offsets(n: int) -> Tuple[int, int]:
+    """``(lo, taps)``: the n-channel window takes the offsets ``lo .. lo +
+    taps - 1``, ``lo = -(n // 2)``, in that order — for an even n one
+    more below the centre than above, as the reference's shifts."""
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"LRN window {n} < 1")
+    return -(n // 2), n
+
+
 def windowed_channel_sum(t, n: int):
     """Sum over the n-channel window centred on the LAST axis (zero past
-    the ends), added offset by offset from -n//2 to +n//2 — the reference's
-    shift order, which the kernels repeat."""
-    half = n // 2
+    the ends), added offset by offset in :func:`window_offsets`' order —
+    the reference's shift order, which the kernels repeat."""
+    lo, taps = window_offsets(n)
     C = t.shape[-1]
     acc = None
-    for j in range(n):
-        o = j - half                    # acc_c += t_{c+o}
+    for o in range(lo, lo + taps):      # acc_c += t_{c+o}
         if o == 0:
             part = t
         else:
@@ -82,22 +95,99 @@ def _check(name, *tensors):
                              f"{t.device} and {tuple(x.shape)} on {x.device}")
 
 
+#: threads a K3 block may have (``kMaxThreads`` in ``csrc/lrn.cu``)
+_FWD_THREADS = 256
+#: units (float4s, or channels) a K3 thread takes of a row where the row
+#: has that many: two halve the threads and barriers a row costs
+_FWD_UNITS = 2
+#: most groups in each K3 thread's cp.async ring (``kMaxStages``)
+_FWD_MAX_STAGES = 2
+
+
+class FwdPlan(NamedTuple):
+    """K3's launch for one shape: block ``b`` walks groups ``[b *
+    groups_per_block, (b + 1) * groups_per_block)`` of ``rows`` pixel rows,
+    ``threads_per_row`` threads a row (``csrc/lrn.cu``)."""
+
+    vec: bool              # four channels a unit and 16-byte copies, else one
+    threads_per_row: int
+    rows: int              # pixel rows a group
+    blocks: int
+    groups_per_block: int
+    stages: int            # groups in each thread's cp.async ring
+    pad: int               # zeros before a row of squares
+    stride: int            # floats of a row of squares, pads included
+    smem: int              # dynamic shared memory per block, bytes
+    lo: int                # first window offset
+    taps: int
+    blocks_per_sm: int     # resident blocks per SM
+
+
+def _fwd_smem(rows, C, stride, stages) -> int:
+    """K3's shared memory: ``stages`` ring slots of ``rows`` x C floats,
+    then two buffers of ``rows`` rows of squares.  The kernel lays them
+    out in that order and takes this size as given."""
+    return 4 * (stages * rows * C + 2 * rows * stride)
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_plan(rows, C, n=5, aligned=True, smem_limit=232448,
+              n_sms=132) -> FwdPlan:
+    """K3's launch: a unit of four channels (C % 4 == 0 and 16-byte aligned
+    operands, ``aligned``) or of one; two units a thread, up to 256
+    threads a row and as many rows a group as fill 256 threads; rows of
+    squares padded to the window (to 16 bytes); the deepest ring (up to
+    2 groups) that fits ``smem_limit``; then as many blocks as are
+    resident at once on ``n_sms`` SMs, each walking an equal run of
+    groups.  Raises ``ValueError`` when one group does not fit
+    ``smem_limit``."""
+    lo, taps = window_offsets(n)
+    vec = bool(aligned) and C % 4 == 0
+    units = C // 4 if vec else C
+    tpr = min(-(-units // _FWD_UNITS), _FWD_THREADS)
+    r = max(1, _FWD_THREADS // tpr)
+    pad = -(lo // 4) * 4                      # -lo rounded up to 4
+    stride = pad + C + -(-(lo + taps - 1) // 4) * 4
+    fitting = [s for s in range(_FWD_MAX_STAGES, 0, -1)
+               if _fwd_smem(r, C, stride, s) <= smem_limit]
+    if not fitting:
+        raise ValueError(
+            f"lrn kernel: a row of {C} floats needs "
+            f"{_fwd_smem(r, C, stride, 1)} bytes of shared memory, one "
+            f"block may have {smem_limit}")
+    stages = fitting[0]
+    smem = _fwd_smem(r, C, stride, stages)
+    per_sm = _build.resident_blocks(tpr * r, smem, smem_limit)
+    groups = -(-rows // r)
+    per_block = max(1, -(-groups // (n_sms * per_sm)))
+    return FwdPlan(vec, tpr, r, -(-groups // per_block), per_block, stages,
+                   pad, stride, smem, lo, taps, per_sm)
+
+
+def fwd_plan_for(x, n: int = 5) -> FwdPlan:
+    """The :class:`FwdPlan` K3 runs for the CUDA tensor ``x``."""
+    C = int(x.shape[-1])
+    smem_limit, n_sms = _build.device_limits(x.device.index)
+    return _fwd_plan(x.numel() // C, C, int(n), x.data_ptr() % 16 == 0,
+                     smem_limit, n_sms)
+
+
 def lrn_fwd(x, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
             k: float = 2.0):
     """Standalone LRN forward over the last axis.  A CPU tensor takes
-    :func:`lrn_plain`; a CUDA tensor launches K3 or raises."""
+    :func:`lrn_plain`; a CUDA tensor launches K3 on :func:`_fwd_plan`'s
+    launch or raises."""
     if x.device.type == "cpu":
         return lrn_plain(x, n, alpha, beta, k)
     _check("lrn_fwd", x)
-    C = int(x.shape[-1])
-    if C * 4 > 48 * 1024:
-        raise ValueError(f"lrn kernel: {C} channels exceed one block's "
-                         f"static shared memory")
+    p = fwd_plan_for(x, n)
     y = torch.empty_like(x)
+    C = int(x.shape[-1])
     rc = _build.entry("lrn")(
-        x.data_ptr(), y.data_ptr(), x.numel() // C, C, int(n),
-        float(alpha), float(beta), float(k), x.device.index,
-        _build.stream_of(x))
+        x.data_ptr(), y.data_ptr(), x.numel() // C, C, p.lo, p.taps,
+        float(alpha), float(beta), float(k), int(p.vec), p.threads_per_row,
+        p.rows, p.stages, p.groups_per_block, p.blocks, p.pad, p.stride,
+        p.smem, x.device.index, _build.stream_of(x))
     _build.check(rc, "lrn")
     lrn_fwd.launches += 1
     return y
@@ -120,9 +210,10 @@ def lrn_bwd(x, dy, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
         raise ValueError(f"lrn_bwd kernel: {C} channels exceed one block's "
                          f"static shared memory")
     dx = torch.empty_like(x)
+    lo, taps = window_offsets(n)
     rc = _build.entry("lrn_bwd")(
-        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.numel() // C, C,
-        int(n), float(alpha), float(beta), float(k),
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.numel() // C, C, lo,
+        taps, float(alpha), float(beta), float(k),
         float(2.0 * alpha * beta), x.device.index, _build.stream_of(x))
     _build.check(rc, "lrn_bwd")
     lrn_bwd.launches += 1

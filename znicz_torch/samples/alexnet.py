@@ -17,7 +17,6 @@ import logging
 from typing import Optional, Sequence
 
 import numpy as np
-import torch
 
 from znicz_torch import datasets
 from znicz_torch.backends import DeviceLike
@@ -105,20 +104,16 @@ class AlexNetWorkflow(StandardWorkflow):
 
     def __init__(self, sample_shape: Optional[Sequence[int]] = (227, 227, 3),
                  n_classes: Optional[int] = None, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None, loader=None,
-                 decision_config: Optional[dict] = None):
+                 loader=None, decision_config: Optional[dict] = None):
         if n_classes is None:
             n_classes = int(root.alexnet.loader.get("n_classes", 100))
         super().__init__(make_layers(int(n_classes)), sample_shape,
-                         device=device, generator=generator,
-                         name="AlexNetWorkflow", loader=loader,
+                         device=device, name="AlexNetWorkflow", loader=loader,
                          loss_function="softmax",
                          decision_config=decision_config)
 
 
-def training_workflow(device: DeviceLike = None,
-                      generator: Optional[torch.Generator] = None) \
-        -> AlexNetWorkflow:
+def training_workflow(device: DeviceLike = None) -> AlexNetWorkflow:
     """The trainable AlexNet of the ``root.alexnet`` config: its loader
     (data resident on ``device``), sample shape and class count from the
     loader config, and the Decision's ``max_epochs``/``fail_iterations``."""
@@ -127,7 +122,6 @@ def training_workflow(device: DeviceLike = None,
     return AlexNetWorkflow(
         sample_shape=(size, size, 3),
         n_classes=int(cfg.loader.get("n_classes", 100)), device=device,
-        generator=generator,
         loader=AlexNetLoader(
             minibatch_size=int(cfg.loader.get("minibatch_size"))),
         decision_config={

@@ -23,11 +23,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
-import torch
 from torch import nn
 
 from znicz_torch.backends import DeviceLike, resolve_device
-from znicz_torch.core.config import root
 from znicz_torch.decision import DecisionGD
 from znicz_torch.evaluator import EvaluatorSoftmax
 from znicz_torch.nn_units import GradientDescent
@@ -49,8 +47,9 @@ def _registry() -> Dict[str, Type]:
 class StandardWorkflow(nn.Module):
     """The forward modules of a ``layers`` list, built for
     ``sample_shape`` (one sample, NHWC without the batch axis) on
-    ``device``.  Parameters are random from ``generator`` (default: seeded
-    from ``root.common.engine.seed``) until a trained tree is loaded
+    ``device``.  Parameters are filled as the reference fills them, each
+    unit from its named ``core.prng`` stream (seeded from
+    ``root.common.engine.seed``), until a trained tree is loaded
     (``weights.params_from_jax``).
 
     ``dtype`` is the staging dtype of requests; a uint8 input is decoded
@@ -59,7 +58,6 @@ class StandardWorkflow(nn.Module):
     def __init__(self, layers: Sequence[dict],
                  sample_shape: Optional[Sequence[int]] = None,
                  device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None,
                  name: str = "StandardWorkflow", dtype=np.float32,
                  scale: float = 1.0, shift: float = 0.0, loader=None,
                  loss_function: str = "softmax",
@@ -84,9 +82,6 @@ class StandardWorkflow(nn.Module):
         self.dtype = np.dtype(dtype)
         self.scale = float(scale)
         self.shift = float(shift)
-        if generator is None:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(int(root.common.engine.get("seed", 1013)))
         reg = _registry()
         forwards = []
         self.gds: Dict[str, GradientDescent] = {}
@@ -99,7 +94,7 @@ class StandardWorkflow(nn.Module):
             fwd = reg[kind](name=f"fwd_{kind}_{i}", **layer.get("->", {}))
             fwd.layer_index = i
             fwd.layer_kind = kind
-            shape = fwd.build(shape, generator, self.device)
+            shape = fwd.build(shape, self.device)
             forwards.append(fwd)
             if fwd.has_weights:
                 self.gds[fwd.name] = GradientDescent(fwd.name,
