@@ -32,7 +32,10 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      dx must be bit-exact, also at the cases of ``K1B_PATHS`` (scalar and
      float4 paths, strips, column tiles, tied inputs), ``K2B_PATHS``
      (channel counts from 1 to 1536, one row, unaligned operands; db the
-     same bits on a second launch) and ``K3B_PATHS`` (an even window);
+     same bits on a second launch) and ``K3B_PATHS`` (as ``K3_PATHS``,
+     plus rows that keep x and dy * sb in the ring and dy with signed
+     zeros); K3b's library yardstick is the autograd backward of
+     ``F.local_response_norm``;
   6. full-width AlexNet trained by ``FusedTrainer.run()`` (the port's
      ``samples/alexnet.py``: 227x227x3, batch 128, 256 train + 128 valid
      images, 2 epochs, 1000 classes) three times from the same weights and
@@ -228,9 +231,16 @@ def _case(torch, name, x, b, gen, n, alpha, beta, k, pool):
                 .permute(0, 2, 3, 1),
                 4 * 2 * r.numel(), r.numel() * (n + 5))
     dy = torch.randn(r.shape, generator=gen, device="cuda")
+    # the library's backward alone: autograd through F.local_response_norm
+    # on the NCHW view, its graph built once here and kept
+    rn = r.permute(0, 3, 1, 2).detach().requires_grad_(True)
+    yn = F.local_response_norm(rn, n, alpha * n, beta, k)
+    dyn = dy.permute(0, 3, 1, 2)
     return (lambda: lrn_bwd(r, dy, n, alpha, beta, k),
             lambda: lrn_bwd_plain(r, dy, n, alpha, beta, k),
-            None, 4 * 3 * r.numel(), r.numel() * (3 * n + 14))
+            lambda: torch.autograd.grad(yn, rn, dyn, retain_graph=True)[0]
+            .permute(0, 2, 3, 1),
+            4 * 3 * r.numel(), r.numel() * (3 * n + 14))
 
 
 def check_kernels(torch, names):
@@ -427,6 +437,19 @@ def k3_plan(x, b=None, n=5):
             f"{p.lo}+{p.taps}")
 
 
+def k3b_plan(x, b=None, n=5, dy=None):
+    from znicz_torch.ops.lrn import bwd_plan_for
+
+    p = bwd_plan_for(x, x if dy is None else dy, n)
+    units = x.shape[-1] // 4 if p.vec else x.shape[-1]
+    return (f"{'float4' if p.vec else 'scalar'}/threads_per_row="
+            f"{p.threads_per_row}/rows={p.rows}/blocks={p.blocks}/"
+            f"groups_per_block={p.groups_per_block}/stages={p.stages}/"
+            f"smem={p.smem}/blocks_per_sm={p.blocks_per_sm}/window="
+            f"{p.lo}+{p.taps}/units_per_thread="
+            f"{-(-units // p.threads_per_row)}")
+
+
 def k2b_plan(x, b, dp=None):
     from znicz_torch.fused_block import bias_relu_bwd_plan_for
 
@@ -438,7 +461,7 @@ def k2b_plan(x, b, dp=None):
 
 #: kernel -> its plan as printed on its ``[kernel]`` lines
 PLANS = {"fused_block_fwd": k1_plan, "fused_block_bwd": k1b_plan,
-         "lrn_fwd": k3_plan, "bias_relu_bwd": k2b_plan}
+         "lrn_fwd": k3_plan, "bias_relu_bwd": k2b_plan, "lrn_bwd": k3b_plan}
 
 
 def unaligned(torch, t):
@@ -518,28 +541,90 @@ def check_k3_paths(torch):
                                  f"version: {err:.3e}")
 
 
-#: K3b beyond AlexNet's case: (what it takes, shape, n), dx bit-exact
-K3B_PATHS = [("even window n 4", (4, 13, 13, 64), 4)]
+#: K3b beyond AlexNet's case, dx bit-exact (signed zeros included)
+#: against its plain version: (what it takes, shape, n, alpha, beta, k,
+#: input scale, whether its planner must pick the float4 path, the operand
+#: that lies off a 16-byte boundary, whether x is mostly zeros and dy holds
+#: +0s and -0s).  x is ReLU output, as on the main path.  As K3_PATHS;
+#: besides, rows of C 601 (scalar) and C 4000 (float4) give a thread more
+#: than two units, so it keeps x and dy * sb in the ring, not in registers;
+#: the zero-heavy cases give windows of t that are all -0 (n 1: t itself)
+K3B_PATHS = [
+    ("float4, C 96", (4, 13, 13, 96), 5, 1e-4, 0.75, 2.0, 2.0, True, "",
+     False),
+    ("float4, C 256", (4, 13, 13, 256), 5, 1e-4, 0.75, 2.0, 2.0, True, "",
+     False),
+    ("scalar, C 33", (5, 9, 9, 33), 5, 1e-4, 0.75, 2.0, 2.0, False, "",
+     False),
+    ("float4, even window n 4", (4, 13, 13, 64), 4, 1e-4, 0.75, 2.0, 2.0,
+     True, "", False),
+    ("float4, even window n 2", (4, 9, 9, 64), 2, 1e-4, 0.75, 2.0, 2.0,
+     True, "", False),
+    ("float4, n 1", (3, 9, 9, 32), 1, 1e-4, 0.75, 2.0, 2.0, True, "",
+     False),
+    ("float4, n 7", (3, 9, 9, 32), 7, 1e-4, 0.75, 2.0, 2.0, True, "",
+     False),
+    ("scalar, C 3 < n 5", (6, 9, 9, 3), 5, 1e-4, 0.75, 2.0, 2.0, False, "",
+     False),
+    ("float4, powf beta 0.6", (4, 13, 13, 96), 5, 1e-4, 0.6, 2.0, 2.0,
+     True, "", False),
+    ("float4, s over 20 binades", (4, 13, 13, 96), 5, 1e-2, 0.75, 1e-3,
+     100.0, True, "", False),
+    ("float4, C 1024", (2, 7, 7, 1024), 5, 1e-4, 0.75, 2.0, 2.0, True, "",
+     False),
+    ("float4, several groups a block, ragged last group", (32, 27, 27, 96),
+     5, 1e-4, 0.75, 2.0, 2.0, True, "", False),
+    ("scalar, unaligned x", (4, 9, 9, 64), 5, 1e-4, 0.75, 2.0, 2.0, False,
+     "x", False),
+    ("scalar, unaligned dy", (4, 9, 9, 64), 5, 1e-4, 0.75, 2.0, 2.0, False,
+     "dy", False),
+    ("scalar, C 601, three units a thread in the ring", (2, 9, 9, 601), 5,
+     1e-4, 0.75, 2.0, 2.0, False, "", False),
+    ("float4, C 4000, four units a thread in the ring, past 48 KB",
+     (2, 3, 5, 4000), 5, 1e-4, 0.75, 2.0, 2.0, True, "", False),
+    ("float4, zero-heavy x, +-0 in dy", (4, 13, 13, 96), 5, 1e-4, 0.75, 2.0,
+     2.0, True, "", True),
+    ("float4, n 1, zero-heavy x, +-0 in dy", (3, 9, 9, 32), 1, 1e-4, 0.75,
+     2.0, 2.0, True, "", True),
+]
 
 
 def check_k3b_paths(torch):
     """K3b at each case of :data:`K3B_PATHS`, dx bit-exact against its
-    plain version."""
-    from znicz_torch.ops.lrn import lrn_bwd, lrn_bwd_plain
+    plain version; reported on their own lines, outside the AlexNet row."""
+    from znicz_torch.ops.lrn import bwd_plan_for, lrn_bwd, lrn_bwd_plain
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    for label, shape, n in K3B_PATHS:
-        x = torch.clamp_min(torch.randn(shape, generator=gen, device="cuda")
-                            * 2.0, 0.0)
+    for (label, shape, n, alpha, beta, k, scale, vec, off,
+         zeros) in K3B_PATHS:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x = torch.clamp_min((x - 0.8 if zeros else x) * scale, 0.0)
         dy = torch.randn(shape, generator=gen, device="cuda")
-        got = lrn_bwd(x, dy, n)
-        want = lrn_bwd_plain(x, dy, n)
+        if zeros:                       # a quarter +0, a quarter -0
+            u = torch.rand(shape, generator=gen, device="cuda")
+            z = torch.zeros_like(dy)
+            dy = torch.where(u < 0.25, z, torch.where(u < 0.5, -z, dy))
+        if off == "x":
+            x = unaligned(torch, x)
+        elif off == "dy":
+            dy = unaligned(torch, dy)
+        plan = k3b_plan(x, n=n, dy=dy)
+        if bwd_plan_for(x, dy, n).vec != vec:
+            raise AssertionError(f"K3b {label}: planner took the wrong "
+                                 f"path: {plan}")
+
+        def kern():
+            return lrn_bwd(x, dy, n, alpha, beta, k)
+
+        got, want = kern(), lrn_bwd_plain(x, dy, n, alpha, beta, k)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         ok = same_bits(torch, got, want) and bool(torch.isfinite(got).all())
+        neg0 = int(((want == 0) & torch.signbit(want)).sum())
         log(f"[kernel] lrn_bwd[{label}] shape={shape} n={n} "
-            f"max_abs_err={err:.3e} (bit-exact required) -> "
-            f"{'ok' if ok else 'FAIL'}")
+            f"alpha={alpha:g} beta={beta:g} k={k:g} x*{scale:g} plan={plan} "
+            f"max_abs_err={err:.3e} (bit-exact required, dx -0s {neg0}) "
+            f"ms={cuda_ms(torch, kern):.4f} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K3b {label} disagrees with its plain "
                                  f"version: {err:.3e}")
@@ -932,9 +1017,10 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
-    # K1's and K1b's ptxas reports: per instantiation, registers, spills,
-    # static smem
-    for lib, tag in (("fused_block", "K1"), ("fused_block_bwd", "K1b")):
+    # K1's, K1b's and K3b's ptxas reports: per instantiation, registers,
+    # spills, static smem
+    for lib, tag in (("fused_block", "K1"), ("fused_block_bwd", "K1b"),
+                     ("lrn_bwd", "K3b")):
         for line in build_logs.get(lib, "").splitlines():
             if "entry function" in line or "spill" in line or "Used" in line:
                 log(f"[build] {tag} ptxas: {line.strip()}")

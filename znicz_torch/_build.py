@@ -59,7 +59,7 @@ SIGNATURES = {
         "znicz_bias_relu_bwd": [_P] * 7 + [_LL] + [_I] * 8 + [_P]},
     "lrn_bwd": {
         "znicz_lrn_bwd": [_P, _P, _P, _LL, _I, _I, _I] + [_F] * 4
-        + [_I, _P]},
+        + [_I] * 4 + [_LL] + [_I] * 5 + [_P]},
 }
 
 

@@ -12,76 +12,321 @@
 // _pallas_2d (:97) under lrn's custom vjp (:149-156).  Same association
 // of every product and quotient; each is rounded on its own
 // (__fmul_rn/__fdiv_rn/__fadd_rn/__fsub_rn), so nvcc does not contract
-// them into FMAs the reference does not do.
+// them into FMAs the reference does not do.  Each window sum starts from
+// its first tap, as lrn_bwd_plain's does, not from +0: a window of -0s
+// sums to -0, and dx keeps the plain version's signed zeros.
 //
 // Bound on an H100 SXM: memory.  Reads x and dy once, writes dx once;
-// about 2n + 12 operations and one powf per element.  At AlexNet's conv1
-// (B=128, 55x55x96) that is 446 MB, or 133 us at 3.35 TB/s.
+// about 2n + 12 operations, one powf and one division per element.  At
+// AlexNet's conv1 (B=128, 55x55x96) that is 446 MB, or 133 us at
+// 3.35 TB/s.  It runs at about half that bound (PERF.md): each powf and
+// each IEEE division is a chain of special-case branches of its own, so a
+// thread's elements do not interleave, and the pace is that of those
+// chains.  A third ring slot, a fifth block an SM, a strided walk of the
+// groups and streaming stores did not move it; at beta = 0.75 (AlexNet's)
+// the exponent is a constant of the code, so that nvcc folds powf's
+// branches on it: the same powf, the same bits, fewer instructions.
 //
-// Design: K3's rows x C tiling.  One block owns a run of whole rows (a
-// contiguous piece of memory).  It stages x and dy into shared memory
-// with coalesced loads; pass 1 computes each element's t (which needs the
-// x window of its row) into a third buffer and replaces its own dy by
-// dy * sb; pass 2 takes the t window from shared memory and writes dx.
-// Three buffers of 4096 floats, 48 KB, fit without an opt-in.
+// Design: K3's (csrc/lrn.cu).  The Python planner (ops/lrn._bwd_plan)
+// chooses everything below; the entry point takes its plan as given and
+// checks it.
+//  - A thread owns units of one pixel row, tpr apart: a unit is four
+//    consecutive channels (the float4 path) or one (the scalar path:
+//    C % 4 != 0 or an unaligned operand), two a thread where the row has
+//    them.  `r` pixel rows make a group, a contiguous run of memory; a
+//    block walks a contiguous run of groups.  The mapping is fixed, so no
+//    thread divides per element.
+//  - Loads overlap compute.  Each thread copies its own units of x and dy
+//    of the next stages-1 groups into a ring in shared memory with
+//    cp.async (16 bytes, or 4 on the scalar path) while it computes the
+//    current group.  A thread reads back only what it copied, so the
+//    ring needs no barrier.
+//  - Pass 1: each x is squared once into a row of squares padded with
+//    zeros as far as the window reaches; after a barrier each channel's
+//    window is summed from that row with no bounds checks (at n = 5 on
+//    the float4 path, unrolled from three 16-byte reads), then s, sb and
+//    t; t goes into a second padded row.  Pass 2, after a second barrier,
+//    sums the t windows the same way and writes dx.  The +0 pads are
+//    exact: the plain version adds a +0 for every tap past a channel end.
+//  - One row of squares and one of t suffice: the barrier after t is
+//    written orders every read of the squares before the next group's
+//    squares, and the barrier after the squares orders every read of t
+//    before the next group's t.  So each pass costs one barrier a group.
+//  - A thread with at most kRegUnits units keeps x and dy * sb in
+//    registers across the barriers; with more (rows past 512 units) it
+//    writes dy * sb over its own dy in the ring and reads both back.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileFloats = 4096;  // per buffer
+constexpr int kMaxThreads = 256;
+constexpr int kMaxStages = 2;
+constexpr int kRegUnits = 2;
 
-__device__ __forceinline__ float window_sum(const float* row, int c, int C,
-                                            int lo, int taps, bool square) {
-  float acc = 0.0f;
-  for (int o = lo; o < lo + taps; ++o) {
-    const int cc = c + o;
-    if (cc >= 0 && cc < C) {
-      const float v = square ? __fmul_rn(row[cc], row[cc]) : row[cc];
-      acc = __fadd_rn(acc, v);
-    }
-  }
-  return acc;
+struct Plan {
+  long long rows;              // pixel rows of the tensor
+  long long groups;            // groups of `r` rows
+  long long groups_per_block;
+  int C, lo, taps;
+  int tpr;                     // threads a row
+  int r;                       // rows a group
+  int stages;                  // ring slots of each thread
+  int pad, stride;             // rows of squares and of t: zeros before, floats
+  float alpha, beta, k, c2;
+};
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int V>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  if constexpr (V == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     saddr(dst)),
+                 "l"((uint64_t)src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(saddr(dst)),
+                 "l"((uint64_t)src)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most `pending` (0 or 1) of this thread's cp.async groups
+// are open.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending == 0) {
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load(float (&v)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// acc[j] = W_n of channel c+j, `w` pointing at channel c of a padded row:
+// taps lo .. lo+taps-1 added in order, starting from the first.
+template <int V, int N>
+__device__ __forceinline__ void window(float (&acc)[V], const float* w,
+                                       const Plan& p) {
+  if constexpr (N == 5) {
+    // V == 4: channels c-4 .. c+7; channel c+j sums q[2+j] .. q[6+j]
+    const float4 a = *reinterpret_cast<const float4*>(w - 4);
+    const float4 b = *reinterpret_cast<const float4*>(w);
+    const float4 d = *reinterpret_cast<const float4*>(w + 4);
+    const float q[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                         b.z, b.w, d.x, d.y, d.z, d.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float s = q[2 + j];
+#pragma unroll
+      for (int o = 1; o < 5; ++o) s = __fadd_rn(s, q[2 + j + o]);
+      acc[j] = s;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float* tap = w + j + p.lo;
+      float s = tap[0];
+      for (int o = 1; o < p.taps; ++o) s = __fadd_rn(s, tap[o]);
+      acc[j] = s;
+    }
+  }
+}
+
+// Copy this thread's units of x and dy of row `row` into its ring slot
+// (x at `slot`, dy `dy_at` floats further).
+template <int V>
+__device__ __forceinline__ void load_group(const float* x, const float* dy,
+                                           float* slot, size_t dy_at,
+                                           long long row, int c0, int step,
+                                           const Plan& p) {
+  if (row < p.rows) {
+    const long long at = row * p.C;
+    for (int c = c0; c < p.C; c += step) {
+      cp_async<V>(slot + c, x + at + c);
+      cp_async<V>(slot + dy_at + c, dy + at + c);
+    }
+  }
+  cp_async_commit();
+}
+
+// V: channels a unit (4 or 1).  N: the window when it is unrolled (5 on the
+// float4 path), else 0 and the window runs over p.lo .. p.lo+p.taps-1.
+// U: units a thread keeps in registers (kRegUnits), or 0 to keep them in
+// the ring.  B: beta is the constant 0.75 (the unrolled register path
+// only).
+template <int V, int N, int U, bool B>
+__global__ void __launch_bounds__(kMaxThreads)
 lrn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-               float* __restrict__ dx, long long rows, int C,
-               int rows_per_block, int lo, int taps, float alpha, float beta,
-               float k, float c2) {
-  extern __shared__ float smem[];
-  float* xs = smem;                                  // rows_per_block * C
-  float* ds = smem + (size_t)rows_per_block * C;     // dy, then dy * sb
-  float* ts = ds + (size_t)rows_per_block * C;       // t
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
-  const long long left = rows - r0;
-  const int nr = left < rows_per_block ? (int)left : rows_per_block;
-  const int len = nr * C;
-  const long long base = r0 * C;
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    xs[i] = x[base + i];
-    ds[i] = dy[base + i];
+               float* __restrict__ dx, const Plan p) {
+  extern __shared__ __align__(16) float smem[];
+  const int row_in_group = threadIdx.x / p.tpr;   // fixed for the block
+  const int t = threadIdx.x - row_in_group * p.tpr;
+  const size_t rows_floats = (size_t)p.r * p.C;   // a slot's x, then its dy
+  float* ring = smem + (size_t)row_in_group * p.C;
+  float* sq = smem + 2 * (size_t)p.stages * rows_floats +
+              (size_t)row_in_group * p.stride;
+  float* tw = sq + (size_t)p.r * p.stride;
+  // the pads of this row of squares and of t; the data between them is
+  // written every group, the pads never
+  for (int e = t; e < p.stride - p.C; e += p.tpr) {
+    const int at = e < p.pad ? e : p.C + e;
+    sq[at] = 0.0f;
+    tw[at] = 0.0f;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    const int c = i % C;
-    const float xv = xs[i];
-    const float s = __fadd_rn(k, __fmul_rn(alpha,
-                                           window_sum(xs + (i - c), c, C,
-                                                      lo, taps, true)));
-    const float sb = powf(s, -beta);
-    const float d = ds[i];
-    ts[i] = __fdiv_rn(__fmul_rn(__fmul_rn(d, xv), sb), s);
-    ds[i] = __fmul_rn(d, sb);
+  float* sr = sq + p.pad;                          // channel 0 of each row
+  float* tr = tw + p.pad;
+  const long long g0 = (long long)blockIdx.x * p.groups_per_block;
+  long long g1 = g0 + p.groups_per_block;
+  if (g1 > p.groups) g1 = p.groups;
+  const int G = (int)(g1 - g0);                    // the same for the block
+  const int c0 = t * V, step = p.tpr * V;
+  // units of this thread: U where the plan gives it at most U, else all
+  const int nu = U > 0 ? U : (p.C - c0 + step - 1) / step;
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < G) {
+      load_group<V>(x, dy, ring + 2 * s * rows_floats, rows_floats,
+                    (g0 + s) * p.r + row_in_group, c0, step, p);
+    } else {
+      cp_async_commit();
+    }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    const int c = i % C;
-    const float w = window_sum(ts + (i - c), c, C, lo, taps, false);
-    dx[base + i] = __fsub_rn(ds[i], __fmul_rn(__fmul_rn(c2, xs[i]), w));
+  int slot = 0;                                    // ring slot of group i
+  int fill = p.stages - 1;                         // ring slot of i+stages-1
+  float xr[U > 0 ? U : 1][V];                      // x of each unit
+  float gr[U > 0 ? U : 1][V];                      // dy * sb of each unit
+  for (int i = 0; i < G; ++i) {
+    if (i + p.stages - 1 < G) {
+      load_group<V>(x, dy, ring + 2 * fill * rows_floats, rows_floats,
+                    (g0 + i + p.stages - 1) * p.r + row_in_group, c0, step,
+                    p);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait(p.stages - 1);
+    const long long row = (g0 + i) * p.r + row_in_group;
+    const bool live = row < p.rows;
+    float* xs = ring + 2 * slot * rows_floats;
+    float* ds = xs + rows_floats;
+    if (live) {
+#pragma unroll
+      for (int u = 0; u < nu; ++u) {
+        const int c = c0 + u * step;
+        if (c < p.C) {
+          float v[V], q[V];
+          load<V>(v, xs + c);
+#pragma unroll
+          for (int j = 0; j < V; ++j) q[j] = __fmul_rn(v[j], v[j]);
+          store<V>(sr + c, q);
+          if constexpr (U > 0) {
+#pragma unroll
+            for (int j = 0; j < V; ++j) xr[u][j] = v[j];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int u = 0; u < nu; ++u) {
+        const int c = c0 + u * step;
+        if (c < p.C) {
+          float acc[V], v[V], d[V], tv[V], g[V];
+          window<V, N>(acc, sr + c, p);
+          if constexpr (U > 0) {
+#pragma unroll
+            for (int j = 0; j < V; ++j) v[j] = xr[u][j];
+          } else {
+            load<V>(v, xs + c);
+          }
+          load<V>(d, ds + c);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float s = __fadd_rn(p.k, __fmul_rn(p.alpha, acc[j]));
+            const float sb = powf(s, B ? -0.75f : -p.beta);
+            tv[j] = __fdiv_rn(__fmul_rn(__fmul_rn(d[j], v[j]), sb), s);
+            g[j] = __fmul_rn(d[j], sb);
+          }
+          store<V>(tr + c, tv);
+          if constexpr (U > 0) {
+#pragma unroll
+            for (int j = 0; j < V; ++j) gr[u][j] = g[j];
+          } else {
+            store<V>(ds + c, g);                   // over this thread's dy
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (live) {
+      float* dst = dx + row * p.C;
+#pragma unroll
+      for (int u = 0; u < nu; ++u) {
+        const int c = c0 + u * step;
+        if (c < p.C) {
+          float acc[V], v[V], g[V], out[V];
+          window<V, N>(acc, tr + c, p);
+          if constexpr (U > 0) {
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+              v[j] = xr[u][j];
+              g[j] = gr[u][j];
+            }
+          } else {
+            load<V>(v, xs + c);
+            load<V>(g, ds + c);
+          }
+#pragma unroll
+          for (int j = 0; j < V; ++j)
+            out[j] = __fsub_rn(g[j], __fmul_rn(__fmul_rn(p.c2, v[j]), acc[j]));
+          store<V>(dst + c, out);
+        }
+      }
+    }
+    slot = slot + 1 == p.stages ? 0 : slot + 1;
+    fill = fill + 1 == p.stages ? 0 : fill + 1;
   }
+}
+
+using Kernel = void (*)(const float*, const float*, float*, const Plan);
+
+template <int U>
+Kernel pick(bool vec, bool unrolled, bool beta_075) {
+  if constexpr (U > 0) {
+    if (unrolled && beta_075) return lrn_bwd_kernel<4, 5, U, true>;
+  }
+  if (unrolled) return lrn_bwd_kernel<4, 5, U, false>;
+  return vec ? lrn_bwd_kernel<4, 0, U, false>
+             : lrn_bwd_kernel<1, 0, U, false>;
 }
 
 }  // namespace
@@ -90,22 +335,55 @@ extern "C" const char* znicz_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// rows = elements / C.  Returns cudaGetLastError().  The caller keeps
-// 3 * C * 4 bytes within 48 KB.
+// rows = elements / C.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a plan this file does not take: the caller
+// (ops/lrn._bwd_plan) chooses vec (C % 4 == 0, x, dy and dx 16-byte
+// aligned), tpr threads a row and r rows a group (tpr * r <= 256), stages
+// (1..2), the groups of each block and the blocks, the rows of squares
+// and of t (pad zeros before their C floats, stride floats in all,
+// reaching the window and, on the float4 path, 16-byte aligned) and
+// smem, the bytes of that layout (ops/lrn._bwd_smem).
 extern "C" int znicz_lrn_bwd(const float* x, const float* dy, float* dx,
                              long long rows, int C, int lo, int taps,
                              float alpha, float beta, float k, float c2,
-                             int device, void* stream) {
+                             int vec, int tpr, int r, int stages,
+                             long long groups_per_block, int blocks, int pad,
+                             int stride, int smem, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  const int V = vec ? 4 : 1;
+  const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)dy % 16 == 0) &&
+                       ((uintptr_t)dx % 16 == 0);
+  const int right = stride - pad - C;
+  const long long groups = r > 0 ? (rows + r - 1) / r : 0;
+  const long long need =
+      4LL * (2LL * stages * r * C + 2LL * r * stride);
+  if (C < 1 || taps < 1 || lo > 0 || tpr < 1 || r < 1 ||
+      tpr * r > kMaxThreads || (long long)tpr * V > C + V - 1 || stages < 1 ||
+      stages > kMaxStages || pad < -lo || right < lo + taps - 1 ||
+      smem < need || groups_per_block < 1 || blocks < 0 ||
+      (long long)blocks * groups_per_block < groups ||
+      (vec && (C % 4 != 0 || !aligned || pad % 4 != 0 || stride % 4 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const bool unrolled = vec && taps == 5 && lo == -2 && pad >= 4 && right >= 4;
+  const bool b075 = beta == 0.75f;
+  const Kernel fn = (C / V + tpr - 1) / tpr <= kRegUnits
+                        ? pick<kRegUnits>(vec, unrolled, b075)
+                        : pick<0>(vec, unrolled, b075);
   if (rows == 0) return 0;
-  if (lo > 0 || taps < 1) return (int)cudaErrorInvalidValue;
-  int rows_per_block = kTileFloats / C;
-  if (rows_per_block < 1) rows_per_block = 1;
-  const size_t smem = (size_t)3 * rows_per_block * C * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  lrn_bwd_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, dy, dx, rows, C, rows_per_block, lo, taps, alpha, beta, k, c2);
+  if (smem > 48 * 1024) {
+    int optin = 0;
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (e != cudaSuccess) return (int)e;
+    if (smem > optin) return (int)cudaErrorInvalidValue;
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const Plan p{rows, groups, groups_per_block, C,   lo,     taps,  tpr, r,
+               stages, pad,  stride,          alpha, beta, k,    c2};
+  fn<<<(unsigned)blocks, tpr * r, (size_t)smem, (cudaStream_t)stream>>>(
+      x, dy, dx, p);
   return (int)cudaGetLastError();
 }

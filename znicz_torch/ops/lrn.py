@@ -9,8 +9,9 @@ op with the reference's custom vjp.
 
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA one, or raises; it counts its launches in
-``<wrapper>.launches``.  K3's launch is planned here (:func:`_fwd_plan`);
-both kernels take the window as :func:`window_offsets` gives it.
+``<wrapper>.launches``.  Both kernels' launches are planned here
+(:func:`_fwd_plan`, :func:`_bwd_plan`), and both take the window as
+:func:`window_offsets` gives it.
 """
 
 from __future__ import annotations
@@ -95,19 +96,21 @@ def _check(name, *tensors):
                              f"{t.device} and {tuple(x.shape)} on {x.device}")
 
 
-#: threads a K3 block may have (``kMaxThreads`` in ``csrc/lrn.cu``)
-_FWD_THREADS = 256
-#: units (float4s, or channels) a K3 thread takes of a row where the row
-#: has that many: two halve the threads and barriers a row costs
-_FWD_UNITS = 2
-#: most groups in each K3 thread's cp.async ring (``kMaxStages``)
-_FWD_MAX_STAGES = 2
+#: threads a K3 or K3b block may have (``kMaxThreads`` in ``csrc/lrn.cu``
+#: and ``csrc/lrn_bwd.cu``)
+_THREADS = 256
+#: units (float4s, or channels) a thread takes of a row where the row has
+#: that many: two halve the threads and barriers a row costs
+_UNITS = 2
+#: most groups in each thread's cp.async ring (``kMaxStages``)
+_MAX_STAGES = 2
 
 
-class FwdPlan(NamedTuple):
-    """K3's launch for one shape: block ``b`` walks groups ``[b *
+class LrnPlan(NamedTuple):
+    """K3's or K3b's launch for one shape: block ``b`` walks groups ``[b *
     groups_per_block, (b + 1) * groups_per_block)`` of ``rows`` pixel rows,
-    ``threads_per_row`` threads a row (``csrc/lrn.cu``)."""
+    ``threads_per_row`` threads a row (``csrc/lrn.cu``,
+    ``csrc/lrn_bwd.cu``)."""
 
     vec: bool              # four channels a unit and 16-byte copies, else one
     threads_per_row: int
@@ -115,8 +118,8 @@ class FwdPlan(NamedTuple):
     blocks: int
     groups_per_block: int
     stages: int            # groups in each thread's cp.async ring
-    pad: int               # zeros before a row of squares
-    stride: int            # floats of a row of squares, pads included
+    pad: int               # zeros before a padded row (of squares, of t)
+    stride: int            # floats of a padded row, pads included
     smem: int              # dynamic shared memory per block, bytes
     lo: int                # first window offset
     taps: int
@@ -130,46 +133,78 @@ def _fwd_smem(rows, C, stride, stages) -> int:
     return 4 * (stages * rows * C + 2 * rows * stride)
 
 
-@functools.lru_cache(maxsize=64)
-def _fwd_plan(rows, C, n=5, aligned=True, smem_limit=232448,
-              n_sms=132) -> FwdPlan:
-    """K3's launch: a unit of four channels (C % 4 == 0 and 16-byte aligned
-    operands, ``aligned``) or of one; two units a thread, up to 256
-    threads a row and as many rows a group as fill 256 threads; rows of
-    squares padded to the window (to 16 bytes); the deepest ring (up to
-    2 groups) that fits ``smem_limit``; then as many blocks as are
+def _bwd_smem(rows, C, stride, stages) -> int:
+    """K3b's shared memory: ``stages`` ring slots, each ``rows`` x C floats
+    of x then as many of dy, then ``rows`` rows of squares and ``rows``
+    rows of t.  The kernel lays them out in that order and takes this size
+    as given."""
+    return 4 * (2 * stages * rows * C + 2 * rows * stride)
+
+
+def _plan(kernel, smem_of, rows, C, n, aligned, smem_limit, n_sms) -> LrnPlan:
+    """The launch both LRN kernels share: a unit of four channels (C % 4 ==
+    0 and 16-byte aligned operands, ``aligned``) or of one; two units a
+    thread, up to 256 threads a row and as many rows a group as fill 256
+    threads; padded rows reaching the window (to 16 bytes); the deepest
+    ring (up to 2 groups) whose layout, ``smem_of(rows, C, stride,
+    stages)`` bytes, fits ``smem_limit``; then as many blocks as are
     resident at once on ``n_sms`` SMs, each walking an equal run of
-    groups.  Raises ``ValueError`` when one group does not fit
-    ``smem_limit``."""
+    groups.  Raises ``ValueError`` when one group does not fit."""
     lo, taps = window_offsets(n)
     vec = bool(aligned) and C % 4 == 0
     units = C // 4 if vec else C
-    tpr = min(-(-units // _FWD_UNITS), _FWD_THREADS)
-    r = max(1, _FWD_THREADS // tpr)
+    tpr = min(-(-units // _UNITS), _THREADS)
+    r = max(1, _THREADS // tpr)
     pad = -(lo // 4) * 4                      # -lo rounded up to 4
     stride = pad + C + -(-(lo + taps - 1) // 4) * 4
-    fitting = [s for s in range(_FWD_MAX_STAGES, 0, -1)
-               if _fwd_smem(r, C, stride, s) <= smem_limit]
+    fitting = [s for s in range(_MAX_STAGES, 0, -1)
+               if smem_of(r, C, stride, s) <= smem_limit]
     if not fitting:
         raise ValueError(
-            f"lrn kernel: a row of {C} floats needs "
-            f"{_fwd_smem(r, C, stride, 1)} bytes of shared memory, one "
+            f"{kernel} kernel: a row of {C} floats needs "
+            f"{smem_of(r, C, stride, 1)} bytes of shared memory, one "
             f"block may have {smem_limit}")
     stages = fitting[0]
-    smem = _fwd_smem(r, C, stride, stages)
+    smem = smem_of(r, C, stride, stages)
     per_sm = _build.resident_blocks(tpr * r, smem, smem_limit)
     groups = -(-rows // r)
     per_block = max(1, -(-groups // (n_sms * per_sm)))
-    return FwdPlan(vec, tpr, r, -(-groups // per_block), per_block, stages,
+    return LrnPlan(vec, tpr, r, -(-groups // per_block), per_block, stages,
                    pad, stride, smem, lo, taps, per_sm)
 
 
-def fwd_plan_for(x, n: int = 5) -> FwdPlan:
-    """The :class:`FwdPlan` K3 runs for the CUDA tensor ``x``."""
+@functools.lru_cache(maxsize=64)
+def _fwd_plan(rows, C, n=5, aligned=True, smem_limit=232448,
+              n_sms=132) -> LrnPlan:
+    """K3's launch (:func:`_plan`, laid out by :func:`_fwd_smem`)."""
+    return _plan("lrn", _fwd_smem, rows, C, n, aligned, smem_limit, n_sms)
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_plan(rows, C, n=5, aligned=True, smem_limit=232448,
+              n_sms=132) -> LrnPlan:
+    """K3b's launch (:func:`_plan`, laid out by :func:`_bwd_smem`).  A
+    thread of a row past 512 units (more than two a thread) keeps x and
+    dy * sb in the ring instead of in registers."""
+    return _plan("lrn_bwd", _bwd_smem, rows, C, n, aligned, smem_limit,
+                 n_sms)
+
+
+def fwd_plan_for(x, n: int = 5) -> LrnPlan:
+    """The :class:`LrnPlan` K3 runs for the CUDA tensor ``x``."""
     C = int(x.shape[-1])
     smem_limit, n_sms = _build.device_limits(x.device.index)
     return _fwd_plan(x.numel() // C, C, int(n), x.data_ptr() % 16 == 0,
                      smem_limit, n_sms)
+
+
+def bwd_plan_for(x, dy, n: int = 5) -> LrnPlan:
+    """The :class:`LrnPlan` K3b runs for the CUDA tensors ``x`` and ``dy``
+    (``dx`` is allocated aligned)."""
+    C = int(x.shape[-1])
+    smem_limit, n_sms = _build.device_limits(x.device.index)
+    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    return _bwd_plan(x.numel() // C, C, int(n), aligned, smem_limit, n_sms)
 
 
 def lrn_fwd(x, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
@@ -201,20 +236,19 @@ def lrn_bwd(x, dy, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
             k: float = 2.0):
     """Standalone LRN backward: ``dx`` for the forward's input ``x`` and
     the output cotangent ``dy``.  CPU tensors take :func:`lrn_bwd_plain`;
-    CUDA tensors launch K3b or raise."""
+    CUDA tensors launch K3b on :func:`_bwd_plan`'s launch or raise."""
     if x.device.type == "cpu" and dy.device.type == "cpu":
         return lrn_bwd_plain(x, dy, n, alpha, beta, k)
     _check("lrn_bwd", x, dy)
-    C = int(x.shape[-1])
-    if 3 * C * 4 > 48 * 1024:
-        raise ValueError(f"lrn_bwd kernel: {C} channels exceed one block's "
-                         f"static shared memory")
+    p = bwd_plan_for(x, dy, n)
     dx = torch.empty_like(x)
-    lo, taps = window_offsets(n)
+    C = int(x.shape[-1])
     rc = _build.entry("lrn_bwd")(
-        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.numel() // C, C, lo,
-        taps, float(alpha), float(beta), float(k),
-        float(2.0 * alpha * beta), x.device.index, _build.stream_of(x))
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.numel() // C, C, p.lo,
+        p.taps, float(alpha), float(beta), float(k),
+        float(2.0 * alpha * beta), int(p.vec), p.threads_per_row, p.rows,
+        p.stages, p.groups_per_block, p.blocks, p.pad, p.stride, p.smem,
+        x.device.index, _build.stream_of(x))
     _build.check(rc, "lrn_bwd")
     lrn_bwd.launches += 1
     return dx
