@@ -42,6 +42,8 @@ def _imported_names(tree):
 def test_no_port_file_imports_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 15
+    for sample in ("alexnet", "mnist", "cifar"):
+        assert REPO / "znicz_torch" / "samples" / f"{sample}.py" in files
     offenders = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -134,3 +136,20 @@ def test_training_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["alexnet", *TINY_ALEXNET])
     assert torch.backends.cudnn.deterministic
+
+
+@pytest.mark.parametrize("sample,cls", [("mnist", "MnistWorkflow"),
+                                        ("cifar", "CifarWorkflow")])
+def test_sample_entry_points_raise_without_a_card(sample, cls, monkeypatch):
+    import importlib
+
+    from znicz_torch.__main__ import main
+
+    mod = importlib.import_module(f"znicz_torch.samples.{sample}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(mod, cls)()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([sample])

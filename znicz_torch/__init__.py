@@ -5,11 +5,13 @@ nothing from it and nothing of JAX.  It keeps the reference's module
 names, unit names (``fwd_{kind}_{i}``), NHWC activations and weight
 layouts, so each module here has an obvious counterpart there.
 
-This slice serves: ``samples.alexnet.AlexNetWorkflow`` builds the model,
-``serving.model.ModelRunner`` freezes it on the device and
-``serving.frontend.InferenceServer`` batches requests into it.  The
-conv-block, bias+ReLU and LRN stages run through kernels written for
-Hopper (``csrc/``), each with a plain PyTorch twin used on CPU tensors.
+It serves and trains: ``samples.alexnet.AlexNetWorkflow`` builds the
+model, ``serving.model.ModelRunner`` freezes it on the device and
+``serving.frontend.InferenceServer`` batches requests into it;
+``python -m znicz_torch {alexnet,mnist,cifar}`` trains a sample with
+``parallel.fused.FusedTrainer``.  The conv-block, bias+ReLU and LRN
+stages run through kernels written for Hopper (``csrc/``), each with a
+plain PyTorch twin used on CPU tensors.
 
 Entry points run on ``cuda:0`` unless the caller passes
 ``device="cpu"``; without a GPU and without that argument they raise.

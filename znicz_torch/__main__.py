@@ -1,12 +1,15 @@
 """Train a sample workflow (port of the sample-run path of
 ``znicz_tpu/launcher.py``):
 
-    python -m znicz_torch alexnet [root.x.y=value ...] [--device cpu]
+    python -m znicz_torch {alexnet,mnist,cifar} [root.x.y=value ...]
+                          [--device cpu] [--seed N]
 
 Dotted overrides are applied to the port's config tree before the sample
 module is imported, so its defaults do not clobber them.  The sample's
 ``run(device)`` trains on ``cuda:0`` unless ``--device`` names another
-device; without a GPU it raises.
+device; without a GPU it raises.  The last line of the output is one
+JSON object with the run's finals; ``final_train_loss`` and
+``valid_err_pct`` are the names ``bench.py`` gives them.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import sys
 from znicz_torch.core import prng
 from znicz_torch.core.config import apply_overrides, root
 
-SAMPLES = ("alexnet",)
+SAMPLES = ("alexnet", "mnist", "cifar")
 
 
 def main(argv=None) -> int:
@@ -49,6 +52,7 @@ def main(argv=None) -> int:
         "epochs": int(d.epoch_number) + 1,
         "valid_err_pct": (d.epoch_metrics[1] or {}).get("err_pct"),
         "train_loss": (d.epoch_metrics[2] or {}).get("loss"),
+        "final_train_loss": (d.epoch_metrics[2] or {}).get("loss"),
         "train_steps": wf.trainer.stats["train_steps"],
         "img_per_sec": wf.trainer.stats["img_per_sec"],
         "warm_img_per_sec": wf.trainer.stats["warm_img_per_sec"]}))

@@ -41,8 +41,22 @@ class All2All(ForwardModule):
         return y.reshape((x.shape[0],) + self.output_sample_shape)
 
 
+class All2AllTanh(All2All):
+    ACTIVATION = staticmethod(activations.tanh_scaled)
+
+
+class All2AllRELU(All2All):
+    """The reference's "RELU": softplus ``log(1 + e^x)``."""
+
+    ACTIVATION = staticmethod(activations.relu_log)
+
+
 class All2AllStrictRELU(All2All):
     ACTIVATION = staticmethod(activations.strict_relu)
+
+
+class All2AllSigmoid(All2All):
+    ACTIVATION = staticmethod(activations.sigmoid)
 
 
 class All2AllSoftmax(All2All):

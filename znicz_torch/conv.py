@@ -74,5 +74,15 @@ class Conv(ForwardModule):
         return type(self).ACTIVATION(y)
 
 
+class ConvTanh(Conv):
+    ACTIVATION = staticmethod(activations.tanh_scaled)
+
+
+class ConvRELU(Conv):
+    """The reference's "RELU": softplus ``log(1 + e^x)``."""
+
+    ACTIVATION = staticmethod(activations.relu_log)
+
+
 class ConvStrictRELU(Conv):
     ACTIVATION = staticmethod(activations.strict_relu)

@@ -25,8 +25,15 @@ def relu_log(x):
     return F.softplus(x)
 
 
+#: a 0-dim CPU zero: a scalar operand on any device, with no fill launch
+_ZERO = torch.zeros(())
+
+
 def strict_relu(x):
-    return torch.clamp_min(x, 0.0)
+    """``max(x, 0)``; at x == 0 the gradient is halved between the two
+    arguments, as ``jnp.maximum``'s is (``clamp_min`` would pass all of
+    it)."""
+    return torch.maximum(x, _ZERO)
 
 
 def sigmoid(x):

@@ -1,16 +1,22 @@
-"""Max pooling over NHWC (port of ``MaxPooling`` in
-``znicz_tpu/pooling.py``).
+"""Pooling over NHWC (port of ``MaxPooling``, ``MaxAbsPooling`` and
+``AvgPooling`` in ``znicz_tpu/pooling.py``).
 
 The reference's geometry: ``sliding`` defaults to the kernel size,
 partial windows at the right/bottom edges are kept, and the plane is
-padded with -inf up to ``(oh-1)*sy + ky`` rows and ``(ow-1)*sx + kx``
-columns, exactly as its ``reduce_window`` pads.
+padded up to ``(oh-1)*sy + ky`` rows and ``(ow-1)*sx + kx`` columns,
+exactly as its ``reduce_window`` pads: with -inf for a maximum, +inf for
+a minimum and 0 for a sum.  ``AvgPooling`` divides each window's sum by
+its count of real elements, not by ky*kx.  Gradients are autograd's of
+the same formulation; a maximum's goes to the first of tied elements in
+window order, as XLA's ``select_and_scatter`` sends it.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
+import torch
 import torch.nn.functional as F
 
 from znicz_torch.forward import ForwardModule
@@ -23,7 +29,7 @@ def pool_output_hw(h: int, w: int, ky: int, kx: int,
             max(1, -(-max(w - kx, 0) // sx) + 1))
 
 
-class MaxPooling(ForwardModule):
+class PoolingBase(ForwardModule):
     def __init__(self, name=None, kx=2, ky=2, sliding=None, **kwargs):
         super().__init__(name=name, **kwargs)
         self.kx = int(kx)
@@ -47,11 +53,62 @@ class MaxPooling(ForwardModule):
         _, h, w, _ = self.in_shape
         return self._padded_hw(h, w) == (h, w)
 
-    def forward(self, x):
+    def _padded(self, x, value: float):
+        """The NCHW view of the NHWC ``x``, padded with ``value`` at the
+        right and bottom up to the extent the windows cover."""
         _, h, w, _ = x.shape
         ph, pw = self._padded_hw(h, w)
         xn = x.permute(0, 3, 1, 2)
         if (ph, pw) != (h, w):
-            xn = F.pad(xn, (0, pw - w, 0, ph - h), value=float("-inf"))
-        y = F.max_pool2d(xn, (self.ky, self.kx), stride=self.sliding)
+            xn = F.pad(xn, (0, pw - w, 0, ph - h), value=value)
+        return xn
+
+    def _max(self, x):
+        """Each window's maximum, NCHW."""
+        return F.max_pool2d(self._padded(x, float("-inf")),
+                            (self.ky, self.kx), stride=self.sliding)
+
+    @staticmethod
+    def _nhwc(y):
         return y.permute(0, 2, 3, 1).contiguous()
+
+
+class MaxPooling(PoolingBase):
+    def forward(self, x):
+        return self._nhwc(self._max(x))
+
+
+class MaxAbsPooling(PoolingBase):
+    """The signed value of larger magnitude in each window: ``min`` where
+    ``-min > max``, else ``max`` (on an exact tie the maximum wins)."""
+
+    def forward(self, x):
+        mx = self._max(x)
+        mn = -self._max(-x)
+        return self._nhwc(torch.where(-mn > mx, mn, mx))
+
+
+class AvgPooling(PoolingBase):
+    def __init__(self, name=None, **kwargs):
+        super().__init__(name=name, **kwargs)
+        self._counts = None          # window_counts() on the last device
+
+    def window_counts(self) -> np.ndarray:
+        """(OH, OW) count of real (non-pad) elements in each window of the
+        built input plane."""
+        _, h, w, _ = self.in_shape
+        oh, ow = pool_output_hw(h, w, self.ky, self.kx, self.sliding)
+        sy, sx = self.sliding
+        rows = np.minimum(np.arange(oh) * sy + self.ky, h) - np.arange(oh) * sy
+        cols = np.minimum(np.arange(ow) * sx + self.kx, w) - np.arange(ow) * sx
+        return np.outer(rows, cols).astype(np.float32)
+
+    def _counts_on(self, device) -> torch.Tensor:
+        if self._counts is None or self._counts.device != device:
+            self._counts = torch.from_numpy(self.window_counts()).to(device)
+        return self._counts
+
+    def forward(self, x):
+        s = F.avg_pool2d(self._padded(x, 0.0), (self.ky, self.kx),
+                         stride=self.sliding, divisor_override=1)
+        return self._nhwc(s / self._counts_on(x.device))

@@ -13,7 +13,6 @@ classes, or ``root.alexnet.loader.data_path``'s .npz) through
 
 from __future__ import annotations
 
-import logging
 from typing import Optional, Sequence
 
 import numpy as np
@@ -22,6 +21,7 @@ from znicz_torch import datasets
 from znicz_torch.backends import DeviceLike
 from znicz_torch.core.config import root
 from znicz_torch.loader.fullbatch import FullBatchLoader
+from znicz_torch.samples import train
 from znicz_torch.standard_workflow import StandardWorkflow
 
 root.alexnet.defaults({
@@ -132,14 +132,4 @@ def training_workflow(device: DeviceLike = None) -> AlexNetWorkflow:
 def run(device: DeviceLike = None) -> AlexNetWorkflow:
     """Build :func:`training_workflow` on ``device`` and train it with
     ``FusedTrainer`` until the Decision completes."""
-    from znicz_torch.parallel.fused import FusedTrainer
-
-    wf = training_workflow(device)
-    trainer = FusedTrainer(wf)
-    trainer.run()
-    wf.trainer = trainer
-    logging.getLogger("znicz_torch.alexnet").info(
-        "trained %d steps, %.1f images/s (%.1f after the first step)",
-        trainer.stats["train_steps"], trainer.stats["img_per_sec"],
-        trainer.stats["warm_img_per_sec"])
-    return wf
+    return train(training_workflow(device), "alexnet")

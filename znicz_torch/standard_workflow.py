@@ -9,8 +9,11 @@ Builds the forward modules from the reference's ``layers`` list::
 descent hyperparameters of that layer, kept in ``workflow.gds`` (a
 :class:`nn_units.GradientDescent` per weighted module, keyed by the
 module's name as ``FusedTrainer.gd_of`` is).  Module ``i`` is named
-``fwd_{type}_{i}``, as the reference names its units, so parameter trees
-carry over by name.  Only the layer kinds AlexNet uses are ported.
+``fwd_{type}_{i}`` (:meth:`StandardWorkflow.module_name`), as the
+reference names its units, so parameter trees carry over by name.  The
+layer kinds of the AlexNet, MNIST and CIFAR10 samples and their plain
+and activation siblings are ported: the fully-connected and convolution
+kinds, max, max-abs and average pooling, LRN and dropout.
 
 For training, pass a ``loader`` (initialised here, its data put on the
 workflow's device; the sample shape then defaults to the loader's), the
@@ -35,12 +38,21 @@ def _registry() -> Dict[str, Type]:
     from znicz_torch import all2all, conv, dropout, lrn, pooling
 
     return {
-        "conv_strict_relu": conv.ConvStrictRELU,
-        "norm": lrn.LRNormalizerForward,
-        "max_pooling": pooling.MaxPooling,
+        "all2all": all2all.All2All,
+        "all2all_tanh": all2all.All2AllTanh,
+        "all2all_relu": all2all.All2AllRELU,
         "all2all_strict_relu": all2all.All2AllStrictRELU,
-        "dropout": dropout.DropoutForward,
+        "all2all_sigmoid": all2all.All2AllSigmoid,
         "softmax": all2all.All2AllSoftmax,
+        "conv": conv.Conv,
+        "conv_tanh": conv.ConvTanh,
+        "conv_relu": conv.ConvRELU,
+        "conv_strict_relu": conv.ConvStrictRELU,
+        "max_pooling": pooling.MaxPooling,
+        "maxabs_pooling": pooling.MaxAbsPooling,
+        "avg_pooling": pooling.AvgPooling,
+        "norm": lrn.LRNormalizerForward,
+        "dropout": dropout.DropoutForward,
     }
 
 
@@ -91,7 +103,8 @@ class StandardWorkflow(nn.Module):
             if kind not in reg:
                 raise ValueError(f"unknown layer type {kind!r} "
                                  f"(known: {sorted(reg)})")
-            fwd = reg[kind](name=f"fwd_{kind}_{i}", **layer.get("->", {}))
+            fwd = reg[kind](name=self.module_name(i, kind),
+                            **layer.get("->", {}))
             fwd.layer_index = i
             fwd.layer_kind = kind
             shape = fwd.build(shape, self.device)
@@ -104,3 +117,8 @@ class StandardWorkflow(nn.Module):
         self.evaluator = EvaluatorSoftmax(name="evaluator")
         self.decision = DecisionGD(name="decision",
                                    **dict(decision_config or {}))
+
+    def module_name(self, i: int, kind: str) -> str:
+        """The name of module ``i`` of type ``kind``: the unit name under
+        which the reference draws its weights and keys its trees."""
+        return f"fwd_{kind}_{i}"
