@@ -60,18 +60,39 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      launch; each run's first 8 train losses must match the port's CPU
      run of them within rtol 1e-4; each final must lie inside its
      ``ANCHOR_BANDS`` entry, but for CIFAR10's valid error, whose
-     misses are printed and not raised (``DRIFTS``).
+     misses are printed and not raised (``DRIFTS``).  These runs, like
+     phase 6's, drive ``FusedTrainer`` explicitly;
+  9. ``units``, the unit-at-a-time engine (the default of the MNIST and
+     CIFAR10 samples' ``run()``), every named stream reset to 1013:
+     MNIST, CIFAR10 composed and CIFAR10 under ``pallas_lrn``, each
+     through its workflow and ``samples.train`` with the engine left to
+     its default; each run's first 8 train losses against the port's own
+     CPU unit-engine run within rtol 1e-4, its finals against
+     ``ANCHOR_BANDS`` under the ``DRIFTS`` rule, K3 launched by the LRN
+     units (twice per train step: the forward unit and the GD unit's
+     recomputed forward, once per eval step) and K3b by the LRN GD unit
+     once per train step, no other kernel; the images/s of each next to
+     a ``FusedTrainer`` run of the same sample; MNIST's best snapshot
+     reloaded into a fresh workflow on the card, bit-equal.  Then
+     full-width AlexNet (phase 6's configuration) for its 3 train steps
+     on the unit engine under ``pallas_lrn``, its dropout masks those of
+     a composed ``FusedTrainer`` run from the same seed: losses within
+     rtol 1e-3 of that run, final weights within its weight band, K3 and
+     K3b counted against the LRN units' firings.
 
-The last lines are the ``kernels`` JSON object and then
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script
-exits non-zero before printing any result.
+Snapshots go to a temporary directory, removed at the end; the AlexNet
+runs write none (their snapshotter is gated off: a full-width snapshot
+is 0.5 GB of gzip).  The last lines are the ``kernels`` JSON object and
+then ``{"ok": true, "device": {...}}``.  Without a CUDA device the
+script exits non-zero before printing any result.
 
     python3 chip_smoke.py --only fused_block_fwd[,...]
 
 runs phases 1 and 2 for the named kernels alone, with the ``*_PATHS``
 cases of each kernel named (``fused_block_fwd``, ``fused_block_bwd``,
-``lrn_fwd``, ``bias_relu_bwd``, ``lrn_bwd``), and phases 7 and 8 for
-``anchors``; it prints the ``kernels`` object and no ``ok`` line.
+``lrn_fwd``, ``bias_relu_bwd``, ``lrn_bwd``), phases 7 and 8 for
+``anchors`` and phase 9 for ``units``; it prints the ``kernels`` object
+and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -79,8 +100,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import Future
@@ -923,7 +946,7 @@ def train_phase(torch, card):
     root.alexnet.decision.max_epochs = TRAIN_EPOCHS
     prng.reset(SEED)
     t0 = time.perf_counter()
-    wf = training_workflow()
+    wf = no_snapshots(training_workflow())
     ldr = wf.loader
     log(f"[train] AlexNet {wf.sample_shape} -> {wf.output_sample_shape}, "
         f"{ldr.class_lengths[2]} train + {ldr.class_lengths[1]} valid "
@@ -1078,8 +1101,8 @@ def cpu_steps(sample, n):
 
 def anchors_phase(torch, card, trace_path=""):
     """The MNIST and CIFAR10 anchors at their default configurations,
-    each trained through its sample's workflow and ``samples.train`` (the
-    two halves of its ``run()``) after every named stream is reset to
+    each trained through its sample's workflow and ``samples.train`` with
+    ``FusedTrainer`` (``fused=True``) after every named stream is reset to
     ``ANCHOR_SEED``: CIFAR10 under each routing of ``ANCHOR_RUNS``.  Each
     kernel's launches must be its count per step times the steps; the
     first ``STEP_CHECK`` train losses must match the port's CPU run of
@@ -1110,7 +1133,7 @@ def anchors_phase(torch, card, trace_path=""):
             {"valid_err_pct": d.epoch_metrics[1]["err_pct"],
              "valid_loss": d.epoch_metrics[1]["loss"],
              "train_loss": d.epoch_metrics[2]["loss"]}))
-        train(wf, sample)
+        train(wf, sample, fused=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in ctrs.items()}
@@ -1172,6 +1195,282 @@ def anchors_phase(torch, card, trace_path=""):
     return runs
 
 
+def no_snapshots(wf):
+    """Gate ``wf``'s snapshotter off (both engines skip a gated one) and
+    return ``wf``: a full-width AlexNet snapshot is 0.5 GB of gzip."""
+    from znicz_torch.core.mutable import Bool
+
+    wf.snapshotter.gate_skip = Bool(True)
+    return wf
+
+
+#: unit-engine run -> (sample, BASELINE config, knobs)
+UNIT_RUNS = {
+    "mnist": ("mnist", 0, {}),
+    "cifar": ("cifar", 1, {}),
+    "cifar:pallas_lrn": ("cifar", 1, {"pallas_lrn": True}),
+}
+
+
+def lrn_unit_launches(wf):
+    """(K3, K3b) launches the LRN units of ``wf`` made on the unit engine
+    under ``pallas_lrn``: K3 in each forward firing and in each GD
+    firing's recomputed forward, K3b in each GD firing."""
+    from znicz_torch.lrn import LRNormalizerBackward
+
+    gds = [g for g in wf.gd_units if isinstance(g, LRNormalizerBackward)]
+    return (sum(g.forward.run_count + g.run_count for g in gds),
+            sum(g.run_count for g in gds))
+
+
+def cpu_unit_steps(sample, n):
+    """The first ``n`` train losses of ``sample``'s default run on the
+    port's unit engine on the CPU (the plain twins), seeded as the card's
+    runs are and under the knobs set now; the graph is stopped once the
+    Decision has seen ``n`` of them."""
+    import importlib
+
+    from znicz_torch.core import prng
+    from znicz_torch.core.units import TrivialUnit
+
+    class StopAfter(TrivialUnit):
+        def run(self):
+            if len(self.workflow.decision.train_losses) >= n:
+                self.workflow.stop()
+
+    mod = importlib.import_module(f"znicz_torch.samples.{sample}")
+    prng.reset(ANCHOR_SEED)
+    wf = getattr(mod, ANCHOR_WORKFLOWS[sample])(device="cpu")
+    StopAfter(wf, name="stop_after").link_from(wf.decision)
+    wf.run()
+    return wf.decision.train_losses[:n]
+
+
+def units_phase(torch, card):
+    """Phase 9, the unit engine: the ``UNIT_RUNS`` of MNIST and CIFAR10
+    at their defaults, the images/s of ``FusedTrainer`` beside each
+    sample's, MNIST's best snapshot reloaded on the card, and AlexNet at
+    full width (:func:`alexnet_units`).  Returns {run: {kernel:
+    launches}}."""
+    import importlib
+
+    from znicz_torch.core import prng
+    from znicz_torch.core.config import root
+    from znicz_torch.samples import train
+    from znicz_torch.snapshotter import Snapshotter, restore
+    from znicz_torch.weights import params_to_numpy
+
+    if root.common.engine.get("fused", False):
+        raise AssertionError("root.common.engine.fused is set: the samples "
+                             "would not take the unit engine")
+    ctrs = counters()
+    runs, speed = {}, {}
+    for label, (sample, config, knobs) in UNIT_RUNS.items():
+        mod = importlib.import_module(f"znicz_torch.samples.{sample}")
+        prng.reset(ANCHOR_SEED)
+        for key, val in knobs.items():
+            setattr(root.common.engine, key, val)
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+        t0 = time.perf_counter()
+        wf = getattr(mod, ANCHOR_WORKFLOWS[sample])()
+        train(wf, sample)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in ctrs.items()}
+        if hasattr(wf, "trainer"):
+            raise AssertionError(f"[units:{label}] trained on FusedTrainer")
+        losses = list(wf.decision.train_losses)
+        cpu = cpu_unit_steps(sample, STEP_CHECK)
+        for key in knobs:
+            setattr(root.common.engine, key, False)
+        d, st = wf.decision, wf.train_stats
+        finals = {"final_train_loss": d.epoch_metrics[2]["loss"],
+                  "valid_err_pct": d.epoch_metrics[1]["err_pct"]}
+        bands = {m: {"value": finals[m], "center": c, "band": h,
+                     "ok": abs(finals[m] - c) <= h}
+                 for m, (c, h) in ANCHOR_BANDS[config].items()}
+        step_err = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu))
+        k3, k3b = lrn_unit_launches(wf) if knobs else (0, 0)
+        expect = {"lrn_fwd": k3, "lrn_bwd": k3b}
+        log(f"[units:{label}] {card}: {json.dumps(finals)} bands "
+            f"{json.dumps(bands)}; {int(d.epoch_number) + 1} epochs, "
+            f"{st['train_steps']} train steps on {wf.device}; run() "
+            f"{wall:.2f}s, images/s={st['img_per_sec']:.1f} (after the "
+            f"first epoch {st['warm_img_per_sec']:.1f}); "
+            f"launches={launches}")
+        log(f"[units:{label}] first {STEP_CHECK} train losses vs the port's "
+            f"unit engine on the CPU: max rel {step_err:.3e} (tol "
+            f"{STEP_RTOL:g}); unit timing:\n{wf.print_stats()}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"[units:{label}] non-finite loss")
+        for name in ctrs:
+            if launches[name] != expect.get(name, 0):
+                raise AssertionError(
+                    f"[units:{label}] {name}: {launches[name]} launches, "
+                    f"expected {expect.get(name, 0)} from the LRN units' "
+                    f"firings")
+        if knobs and not (k3 and k3b):
+            raise AssertionError(f"[units:{label}] no LRN unit fired")
+        if step_err > STEP_RTOL:
+            raise AssertionError(f"[units:{label}] the card leaves the "
+                                 f"CPU's first {STEP_CHECK} steps: "
+                                 f"{step_err:.3e}")
+        missed = {m: b for m, b in bands.items() if not b["ok"]}
+        for m, b in missed.items():
+            log(f"[units:{label}] MISS: {m} {b['value']} outside "
+                f"{b['center']} +- {b['band']} (BASELINE config {config})"
+                + (", a drift recorded in ROADMAP.md C"
+                   if (sample, m) in DRIFTS else ""))
+        fatal = {m: b for m, b in missed.items() if (sample, m) not in DRIFTS}
+        if fatal:
+            raise AssertionError(f"[units:{label}] outside the band of "
+                                 f"BASELINE config {config}: {fatal}")
+        runs[label] = launches
+        if sample == "mnist":
+            path = wf.snapshotter.destination
+            if not path or not os.path.isfile(path) or \
+                    not path.endswith("mnist_best.pickle.gz"):
+                raise AssertionError(f"[units:mnist] no best snapshot: "
+                                     f"{path}")
+            snap = Snapshotter.load(path)
+            fresh = mod.MnistWorkflow()
+            restore(fresh, snap)
+            got = params_to_numpy(fresh)
+            same = all(np.array_equal(got[u][k], v)
+                       for u, leaves in snap["units"].items()
+                       for k, v in leaves.items())
+            log(f"[units:mnist] snapshot {os.path.basename(path)} (epoch "
+                f"{snap['epoch']}, best {snap['metric']}) reloaded on "
+                f"{fresh.device}: weights bit-equal={same}")
+            if not same or sorted(got) != sorted(snap["units"]):
+                raise AssertionError("[units:mnist] the reloaded snapshot's "
+                                     "weights differ")
+            del fresh
+        if not knobs:
+            speed[sample] = st["img_per_sec"], st["warm_img_per_sec"]
+        del wf
+        torch.cuda.empty_cache()
+    for sample, (unit_ips, unit_warm) in speed.items():
+        mod = importlib.import_module(f"znicz_torch.samples.{sample}")
+        prng.reset(ANCHOR_SEED)
+        wf = train(getattr(mod, ANCHOR_WORKFLOWS[sample])(), sample,
+                   fused=True)
+        st = wf.train_stats
+        log(f"[units:speed] {sample} {card}: unit engine images/s="
+            f"{unit_ips:.1f} (after the first epoch {unit_warm:.1f}); "
+            f"FusedTrainer images/s={st['img_per_sec']:.1f} (after each "
+            f"kind's first call {st['warm_img_per_sec']:.1f})")
+        del wf
+        torch.cuda.empty_cache()
+    runs["alexnet"] = alexnet_units(torch, card)
+    return runs
+
+
+def alexnet_units(torch, card):
+    """Full-width AlexNet (phase 6's configuration) trained on the unit
+    engine under ``pallas_lrn`` through ``samples.train(fused=False)``,
+    the two halves of ``samples.alexnet.run(fused=False)``, against a
+    composed ``FusedTrainer`` run from the same seed whose dropout masks
+    its dropout units take.  Returns {kernel: launches}."""
+    from znicz_torch.core import prng
+    from znicz_torch.core.config import root
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.samples import train
+    from znicz_torch.samples.alexnet import training_workflow
+
+    root.alexnet.loader.update(TRAIN_CFG)
+    root.alexnet.decision.max_epochs = TRAIN_EPOCHS
+    prng.reset(SEED)
+    ref = no_snapshots(training_workflow())
+    trainer = FusedTrainer(ref)
+    trainer.run()
+    ref_losses = list(trainer.train_losses)
+    ref_final = {name: {k: p.detach().clone() for k, p in leaves.items()}
+                 for name, leaves in trainer.extract_params().items()}
+    del ref
+    torch.cuda.empty_cache()
+
+    prng.reset(SEED)
+    wf = no_snapshots(training_workflow())
+    for unit in wf.forward_units:
+        if hasattr(unit, "mask_fn"):
+            unit.mask_fn = (lambda step, shape, ratio,
+                            i=unit.module.layer_index:
+                            trainer.default_mask(step, i, shape, ratio))
+    ctrs = counters()
+    root.common.engine.pallas_lrn = True
+    try:
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+        t0 = time.perf_counter()
+        train(wf, "alexnet", fused=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in ctrs.items()}
+    finally:
+        root.common.engine.pallas_lrn = False
+    losses, st = list(wf.decision.train_losses), wf.train_stats
+    k3, k3b = lrn_unit_launches(wf)
+
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    w_err, w_worst = 0.0, ""
+    for f in wf.forwards:
+        if not f.has_weights:
+            continue
+        for k, want in ref_final[f.name].items():
+            got = getattr(f, k).detach()
+            e = float(((got - want).abs()
+                       / (W_ATOL + W_RTOL * want.abs())).max())
+            if e > w_err:
+                w_err, w_worst = e, f"{f.name}.{k}"
+    log(f"[units:alexnet] {card}: {st['train_steps']} train steps on the "
+        f"unit engine under pallas_lrn in {wall:.2f}s, images/s="
+        f"{st['img_per_sec']:.1f}; losses {['%.6f' % v for v in losses]}; "
+        f"vs the composed FusedTrainer run: losses max rel {l_err:.3e} "
+        f"(tol {LOSS_RTOL:g}), final weights max |d|/({W_ATOL:g}+"
+        f"{W_RTOL:g}|w|) = {w_err:.3f} at {w_worst} (tol 1); "
+        f"launches={launches}, LRN unit firings give K3 {k3}, K3b {k3b}; "
+        f"unit timing:\n{wf.print_stats()}")
+    if not all(np.isfinite(losses)) or len(losses) != len(ref_losses):
+        raise AssertionError(f"[units:alexnet] losses {losses} against "
+                             f"{ref_losses}")
+    if st["train_steps"] != 3 or l_err > LOSS_RTOL or w_err > 1.0:
+        raise AssertionError(f"[units:alexnet] leaves the composed run's "
+                             f"band: {st['train_steps']} steps, losses "
+                             f"{l_err:.3e}, weights {w_err:.3f}")
+    expect = {"lrn_fwd": k3, "lrn_bwd": k3b}
+    if not (k3 and k3b) or any(launches[name] != expect.get(name, 0)
+                               for name in ctrs):
+        raise AssertionError(f"[units:alexnet] launches {launches}, "
+                             f"expected {expect} and no other kernel")
+
+    def lap():
+        """One train minibatch's units, as the graph fires them."""
+        for unit in wf.forward_units:
+            unit.run()
+        wf.evaluator.run()
+        for gd in wf.gd_units:
+            gd.run()
+
+    # after the checks, since it trains on: the device time of one train
+    # lap on the loader's last minibatch (the evaluator's read-back
+    # included), beside the composed fused step
+    root.common.engine.pallas_lrn = True
+    try:
+        lap_ms = cuda_ms(torch, lap, iters=5, warmup=1)
+    finally:
+        root.common.engine.pallas_lrn = False
+    idx = np.arange(BATCH)
+    fused_ms = cuda_ms(torch, lambda: trainer.train_step(idx, BATCH, 0),
+                       iters=5, warmup=1)
+    log(f"[units:alexnet] {card}: one train lap {lap_ms:.3f} ms on the "
+        f"device; the composed FusedTrainer train step {fused_ms:.3f} ms")
+    del wf, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
 def cifar_rows(torch, rows):
     """K2, K2b, K3 and K3b at CIFAR10's shapes (``CIFAR_SHAPES``) against
     their plain versions, as at AlexNet's; their times and bounds go into
@@ -1189,7 +1488,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
                     help="comma-separated kernels: run phases 1-2 for them "
-                         "alone; 'anchors': phases 7-8")
+                         "alone; 'anchors': phases 7-8; 'units': phase 9")
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -1200,6 +1499,17 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from znicz_torch.core.config import root
+
+    snapshots = tempfile.mkdtemp(prefix="chip_smoke_snapshots_")
+    root.common.dirs.snapshots = snapshots
+    try:
+        return run_phases(torch, args)
+    finally:
+        shutil.rmtree(snapshots, ignore_errors=True)
+
+
+def run_phases(torch, args) -> int:
     from znicz_torch import _build
     from znicz_torch.core import prng
     from znicz_torch.samples.alexnet import AlexNetWorkflow
@@ -1232,8 +1542,10 @@ def main(argv=None) -> int:
 
     if args.only:
         names = args.only.split(",")
-        anchors = "anchors" in names
-        names = [name for name in names if name != "anchors"]
+        anchors, units = "anchors" in names, "units" in names
+        names = [name for name in names if name not in ("anchors", "units")]
+        if units:
+            names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
         if "fused_block_fwd" in names:
             check_k1_paths(torch)
@@ -1253,6 +1565,12 @@ def main(argv=None) -> int:
                     if count:
                         rows[name].setdefault("launches_by_path", {})[
                             f"anchor:{label}"] = count
+        if units:
+            for label, launches in units_phase(torch, card).items():
+                for name, count in launches.items():
+                    if count:
+                        rows[name].setdefault("launches_by_path", {})[
+                            f"units:{label}"] = count
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -1344,6 +1662,13 @@ def main(argv=None) -> int:
         for name, count in launches.items():
             if ANCHOR_RUNS[label][3].get(name):
                 by_path[name][f"anchor:{label}"] = count
+    torch.cuda.empty_cache()
+
+    # -- phase 9: the unit-at-a-time engine ---------------------------------
+    for label, launches in units_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][f"units:{label}"] = count
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

@@ -107,11 +107,12 @@ TINY_ALEXNET = ["root.alexnet.loader.image_size=67",
                 "root.alexnet.decision.max_epochs=2"]
 
 
-def test_port_trains_without_jax_in_the_process():
+def test_port_trains_without_jax_in_the_process(tmp_path):
+    args = TINY_ALEXNET + [f"root.common.dirs.snapshots={tmp_path}"]
     code = (
         "import json, sys\n"
         "from znicz_torch.__main__ import main\n"
-        f"assert main(['alexnet', '--device', 'cpu', *{TINY_ALEXNET!r}]) "
+        f"assert main(['alexnet', '--device', 'cpu', *{args!r}]) "
         "== 0\n"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'znicz_tpu')]\n"

@@ -305,12 +305,15 @@ def jax_sample(sample, tmp_path):
     return wf
 
 
-def port_sample(sample):
-    """The port's sample workflow on the CPU after ``prng.reset(1013)``."""
+def port_sample(sample, tmp_path):
+    """The port's sample workflow on the CPU after ``prng.reset(1013)``,
+    its snapshots going to ``tmp_path``."""
     import importlib
 
     from znicz_torch.core import prng
+    from znicz_torch.core.config import root as troot
 
+    troot.common.dirs.snapshots = str(tmp_path)
     mod = importlib.import_module(f"znicz_torch.samples.{sample}")
     prng.reset(1013)
     return getattr(mod, WORKFLOWS[sample])(device="cpu")
@@ -339,7 +342,7 @@ def test_sample_starts_bit_equal(sample, names, tmp_path):
 
     with sample_config(sample, **SMALL[sample]):
         jwf = jax_sample(sample, tmp_path)
-        twf = port_sample(sample)
+        twf = port_sample(sample, tmp_path)
     np.testing.assert_array_equal(twf.loader.original_data,
                                   np.asarray(jwf.loader.original_data.mem))
     np.testing.assert_array_equal(twf.loader.original_labels,

@@ -50,7 +50,7 @@ def _train_both(sample, routing, tmp_path):
 
     with sample_config(sample, **REDUCED[sample]), knobs(**ROUTINGS[routing]):
         jwf = jax_sample(sample, tmp_path)
-        twf = port_sample(sample)
+        twf = port_sample(sample, tmp_path)
         jt = JTrainer(jwf)
         j_losses = []
         feed = jt._feed_decision
@@ -104,7 +104,7 @@ def test_cifar_plans_match_reference(knob_set, tmp_path):
 
     with sample_config("cifar", **REDUCED["cifar"]):
         jwf = jax_sample("cifar", tmp_path)
-        twf = port_sample("cifar")
+        twf = port_sample("cifar", tmp_path)
     with knobs(**knob_set):
         t_blocks = plan_fused_blocks(twf.forwards)
         j_blocks = jfb.plan_fused_blocks(jwf.forwards)
@@ -129,7 +129,8 @@ STEP_CALLS = {
 
 
 @pytest.mark.parametrize("routing", list(STEP_CALLS))
-def test_cifar_train_step_calls_the_routings_kernels(routing, monkeypatch):
+def test_cifar_train_step_calls_the_routings_kernels(routing, monkeypatch,
+                                                     tmp_path):
     """The CPU twin of the card's launch counts: spies on the wrappers
     count what one train step at batch 50 calls (the card counts the same
     calls as launches); K1 and K1b are never called."""
@@ -150,21 +151,22 @@ def test_cifar_train_step_calls_the_routings_kernels(routing, monkeypatch):
         monkeypatch.setattr(mod, name, spy)
     knob_set, want = STEP_CALLS[routing]
     with sample_config("cifar", **REDUCED["cifar"]), knobs(**knob_set):
-        twf = port_sample("cifar")
+        twf = port_sample("cifar", tmp_path)
         t = FusedTrainer(twf)
         loss, _, _ = t.train_step(np.arange(50), 50, 0)
     assert np.isfinite(float(loss))
     assert calls == want
 
 
-def test_mnist_anchor_on_the_cpu():
+def test_mnist_anchor_on_the_cpu(tmp_path):
     """The full default MNIST run (4000/800 images, batch 60, 5 epochs:
-    334 updates) through the command line lands inside the anchor bands
-    the reference recorded."""
+    334 updates) through the command line and ``FusedTrainer`` lands
+    inside the anchor bands the reference recorded."""
     from bench import ANCHOR_BANDS
 
     out = subprocess.run(
-        [sys.executable, "-m", "znicz_torch", "mnist", "--device", "cpu"],
+        [sys.executable, "-m", "znicz_torch", "mnist", "--device", "cpu",
+         "--fused", f"root.common.dirs.snapshots={tmp_path}"],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])

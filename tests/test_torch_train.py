@@ -315,7 +315,10 @@ def test_run_end_to_end_matches_reference(tmp_path):
     from znicz_tpu.core.config import root as jroot
     from znicz_tpu.parallel.fused import FusedTrainer as JTrainer
 
+    from znicz_torch.core.config import root as troot
+
     jroot.common.dirs.snapshots = str(tmp_path)
+    troot.common.dirs.snapshots = str(tmp_path)
     jwf = _tiny_alexstyle_workflow()
     twf = _alexstyle_port(jwf)
     j_losses, t_losses = [], []

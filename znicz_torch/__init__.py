@@ -8,8 +8,11 @@ layouts, so each module here has an obvious counterpart there.
 It serves and trains: ``samples.alexnet.AlexNetWorkflow`` builds the
 model, ``serving.model.ModelRunner`` freezes it on the device and
 ``serving.frontend.InferenceServer`` batches requests into it;
-``python -m znicz_torch {alexnet,mnist,cifar}`` trains a sample with
-``parallel.fused.FusedTrainer``.  The conv-block, bias+ReLU and LRN
+``python -m znicz_torch {alexnet,mnist,cifar}`` trains a sample through
+``engine.train``: on the unit-at-a-time graph (``core.workflow``, the
+reference's default, which MNIST and CIFAR10 take) or with
+``parallel.fused.FusedTrainer`` (``--fused``, AlexNet's default).  The
+conv-block, bias+ReLU and LRN
 stages run through kernels written for Hopper (``csrc/``), each with a
 plain PyTorch twin used on CPU tensors.
 

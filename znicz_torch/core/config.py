@@ -157,6 +157,7 @@ def apply_overrides(cfg: "Config", args: list[str]) -> None:
 root = Config("root")
 
 root.common.engine.seed = 1013
+root.common.dirs.snapshots = "snapshots"
 
 #: Every ``root.common.engine.*`` knob the port reads, with the reference's
 #: names and documented defaults (the read sites keep their own defaults;
@@ -168,4 +169,7 @@ ENGINE_DEFAULTS = {
     "lrn_pow": False,             # plain pow instead of the rsqrt form
     "lrn_autodiff": False,        # shifted-slices LRN formulation
     "pallas_lrn": False,          # standalone LRN kernel (K3)
+    "fused": False,               # FusedTrainer instead of the unit engine
+    "mode": "",                   # "master"/"slave": not ported (A.3)
+    "snapshot_min_interval_s": 0.0,   # least seconds between best saves
 }

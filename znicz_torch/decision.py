@@ -1,12 +1,21 @@
 """Training control (port of ``DecisionBase``/``DecisionGD`` in
-``znicz_tpu/decision.py``, without the unit engine and telemetry).
+``znicz_tpu/decision.py``; its telemetry gauges wait for the telemetry
+port).
 
-Fed once per minibatch.  Accumulates per-class epoch statistics (loss,
-n_err, err%, confusion); at the epoch's end (the loader's TRAIN tail) it
-tracks the best validation error, sets ``improved``, and sets
-``complete`` when ``epoch_number + 1 >= max_epochs`` or validation has
-not improved for ``fail_iterations`` epochs.  ``gd_skip`` — whether this
-minibatch's update is skipped — is ``klass != TRAIN or complete``.
+A unit run once per minibatch, after the evaluator.  Its inputs are
+linked from the loader (``minibatch_class``, ``last_minibatch``,
+``class_ended``, ``epoch_number``, ``class_lengths``,
+``minibatch_size``) and the evaluator (``minibatch_loss``,
+``minibatch_n_err``, ``confusion_matrix``); ``FusedTrainer`` sets them
+itself.  It accumulates per-class epoch statistics (loss, n_err, err%,
+confusion); at the epoch's end (the loader's TRAIN tail) it tracks the
+best validation error, sets ``improved``, and sets ``complete`` when
+``epoch_number + 1 >= max_epochs`` or validation has not improved for
+``fail_iterations`` epochs.  ``gd_skip`` — whether this minibatch's
+update is skipped — is ``klass != TRAIN or complete``.  ``complete``,
+``improved``, ``epoch_ended`` and ``gd_skip`` are ``Bool``s: the graph's
+gates are expressions over them.  ``train_losses`` keeps every TRAIN
+minibatch's loss, in order.
 """
 
 from __future__ import annotations
@@ -16,22 +25,25 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from znicz_torch.core.mutable import Bool
+from znicz_torch.core.units import Unit
 from znicz_torch.loader.base import TEST, TRAIN, VALID
+from znicz_torch.memory import Array
 
 CLASS_NAMES = ("test", "valid", "train")
 log = logging.getLogger("znicz_torch.decision")
 
 
-class DecisionBase:
-    def __init__(self, name: str = "decision", max_epochs: int = 10,
-                 fail_iterations: int = 0):
-        self.name = name
+class DecisionBase(Unit):
+    def __init__(self, workflow=None, name: str = "decision",
+                 max_epochs: int = 10, fail_iterations: int = 0, **kwargs):
+        super().__init__(workflow=workflow, name=name, **kwargs)
         self.max_epochs = max_epochs
         self.fail_iterations = fail_iterations
-        self.complete = False
-        self.improved = False
-        self.epoch_ended = False
-        self.gd_skip = False
+        self.complete = Bool(False)
+        self.improved = Bool(False)
+        self.epoch_ended = Bool(False)
+        self.gd_skip = Bool(False)
         # fed from the loader
         self.minibatch_class = TRAIN
         self.last_minibatch = False
@@ -47,6 +59,7 @@ class DecisionBase:
         self.best_epoch = -1
         self._fails = 0
         self.on_epoch_end: List[Callable] = []    # callbacks(decision)
+        self.train_losses: List[float] = []
 
     def _accumulate(self, klass: int) -> None:
         self._acc_loss[klass] += float(self.minibatch_loss)
@@ -69,7 +82,9 @@ class DecisionBase:
     def run(self) -> None:
         klass = int(self.minibatch_class)
         self._accumulate(klass)
-        self.epoch_ended = False
+        if klass == TRAIN:
+            self.train_losses.append(float(self.minibatch_loss))
+        self.epoch_ended.set(False)
         if self.class_ended:
             self.epoch_metrics[klass] = self._summarize(klass)
         if self.last_minibatch:            # end of TRAIN == end of epoch
@@ -77,22 +92,22 @@ class DecisionBase:
             if metric < self.best_metric - 1e-12:
                 self.best_metric = metric
                 self.best_epoch = int(self.epoch_number)
-                self.improved = True
+                self.improved.set(True)
                 self._fails = 0
             else:
-                self.improved = False
+                self.improved.set(False)
                 self._fails += 1
-            self.complete = bool(
+            self.complete.set(
                 self.epoch_number + 1 >= self.max_epochs or
                 (self.fail_iterations and
                  self._fails >= self.fail_iterations))
-            self.epoch_ended = True
+            self.epoch_ended.set(True)
             self._log_epoch()
             for cb in self.on_epoch_end:
                 cb(self)
             for k in (TEST, VALID, TRAIN):
                 self._reset_class(k)
-        self.gd_skip = klass != TRAIN or self.complete
+        self.gd_skip.set(klass != TRAIN or bool(self.complete))
 
     def _summarize(self, klass: int):
         return {"loss": self._class_metric(klass)}
@@ -106,18 +121,19 @@ class DecisionBase:
                     f"{key}={val:.6g}" for key, val in m.items()
                     if isinstance(val, (int, float))))
         log.info("epoch %d  %s%s", self.epoch_number, "  ".join(parts),
-                 "  *" if self.improved else "")
+                 "  *" if bool(self.improved) else "")
 
 
 class DecisionGD(DecisionBase):
     """Classification: n_err, err% and confusion per class; improvement
     is judged on the validation error count."""
 
-    def __init__(self, name: str = "decision", **kwargs):
-        super().__init__(name=name, **kwargs)
+    def __init__(self, workflow=None, name: str = "decision", **kwargs):
+        super().__init__(workflow=workflow, name=name, **kwargs)
         self.minibatch_n_err = 0
         self.minibatch_size = 0
         self.confusion_matrix = None
+        self.max_err_output_sum = 0.0
         self._acc_n_err = [0, 0, 0]
         self._acc_samples = [0, 0, 0]
         self._acc_confusion: List[Optional[object]] = [None, None, None]
@@ -127,6 +143,8 @@ class DecisionGD(DecisionBase):
         self._acc_n_err[klass] += int(self.minibatch_n_err)
         self._acc_samples[klass] += int(self.minibatch_size)
         conf = self.confusion_matrix
+        if isinstance(conf, Array):           # the unit path's evaluator
+            conf = conf.devmem
         # None: already summed with an earlier minibatch; size <= 1: off
         if conf is not None and conf.numel() > 1:
             acc = self._acc_confusion[klass]

@@ -1,0 +1,92 @@
+"""Engine selection for a built workflow (port of ``znicz_tpu/engine.py``'s
+local branch): the unit-at-a-time graph engine (``Workflow.run``), the
+reference's default, or ``FusedTrainer``, chosen by
+``root.common.engine.fused`` (``python -m znicz_torch --fused``) or by the
+caller's ``fused``.
+
+:func:`train` also measures the run.  ``workflow.train_stats`` gets
+``train_steps`` (updates applied), ``img_per_sec`` (TRAIN images served
+over the wall time of the run, the device synchronised at its end) and
+``warm_img_per_sec``: for ``FusedTrainer`` after each kind of step's
+first call (``FusedTrainer.stats``); for the unit engine after the first
+epoch's end.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from znicz_torch.core.config import root
+from znicz_torch.loader.base import TRAIN
+
+
+def wants_fused() -> bool:
+    return bool(root.common.engine.get("fused", False))
+
+
+def _fused_capable(workflow, fused: bool) -> bool:
+    """The fused trainer applies: asked for, and the graph has the
+    ``StandardWorkflow`` shape it needs."""
+    return fused and all(getattr(workflow, a, None) is not None
+                         for a in ("forwards", "gds", "loader", "decision"))
+
+
+def train(workflow, fused: Optional[bool] = None):
+    """Train ``workflow`` until its Decision completes, with
+    ``FusedTrainer`` when ``fused`` (default: :func:`wants_fused`) and
+    the graph allows it, else with the unit graph.  Returns the stats
+    dict also kept as ``workflow.train_stats``.  The master and slave
+    roles (``root.common.engine.mode``) are not ported (queue A.3)."""
+    mode = root.common.engine.get("mode", "")
+    if mode in ("master", "slave"):
+        raise NotImplementedError(
+            f"--{mode} is not ported yet (ROADMAP queue A.3, the "
+            f"distributed training plane)")
+    if _fused_capable(workflow, wants_fused() if fused is None else fused):
+        from znicz_torch.parallel.fused import FusedTrainer
+
+        trainer = FusedTrainer(workflow)
+        trainer.run()
+        workflow.trainer = trainer
+        stats = {k: trainer.stats[k] for k in
+                 ("train_steps", "img_per_sec", "warm_img_per_sec")}
+    else:
+        stats = _run_units(workflow)
+    workflow.train_stats = stats
+    return stats
+
+
+def _run_units(workflow):
+    """``workflow.run()`` with its TRAIN images, updates (the first GD
+    unit's firings) and wall time."""
+    loader, decision = workflow.loader, workflow.decision
+    first_gd = workflow.gd_units[0]
+
+    def count():
+        return loader.class_samples_served[TRAIN], first_gd.run_count
+
+    epoch_end = []
+
+    def mark(_):
+        if not epoch_end:
+            epoch_end.append((time.perf_counter(), count()[0]))
+
+    (images0, steps0), t0 = count(), time.perf_counter()
+    decision.on_epoch_end.append(mark)
+    try:
+        workflow.run()
+        if workflow.device.type == "cuda":
+            torch.cuda.synchronize(workflow.device)
+    finally:
+        decision.on_epoch_end.remove(mark)
+    t1 = time.perf_counter()
+    images, steps = count()
+    warm = 0.0
+    if epoch_end and t1 > epoch_end[0][0]:
+        warm = (images - epoch_end[0][1]) / (t1 - epoch_end[0][0])
+    return {"train_steps": steps - steps0,
+            "img_per_sec": (images - images0) / max(t1 - t0, 1e-9),
+            "warm_img_per_sec": warm}

@@ -1,27 +1,87 @@
-"""The softmax evaluator's metrics (port of the parts of
-``EvaluatorSoftmax`` in ``znicz_tpu/evaluator.py`` that the fused trainer
-reads).
+"""The softmax evaluator (port of ``EvaluatorSoftmax`` in
+``znicz_tpu/evaluator.py``).
 
-The fused trainer computes the loss, ``n_err`` and the confusion counts
-from the logits in its own loss head, as the reference's does; an
-:class:`EvaluatorSoftmax` on a workflow selects that softmax loss and says
-whether the confusion counts are collected.  The unit-at-a-time
-evaluator, which seeds a GD chain with ``err_output``, comes with the
-unit engine.
+As a unit of the unit engine it reads the softmax head's ``output``
+(probabilities), the minibatch ``labels`` and ``batch_size`` (the count
+of real rows), and gives, with the reference's reductions:
+
+  - ``err_output = (probs - onehot(labels)) * valid / batch_size``, the
+    cross-entropy cotangent at the logits, which seeds the GD chain;
+  - ``loss``: the mean of ``-log(max(p_label, tiny))`` over the real rows;
+  - ``n_err``, ``confusion_matrix`` (:func:`confusion`, the one home of
+    the counting) and ``max_err_output_sum``.
+
+The three scalars come back to the host in one read a minibatch: the
+Decision needs them.  ``FusedTrainer`` computes the same metrics from
+the logits in its own loss head; there the evaluator only selects the
+softmax loss and says whether the confusion counts are collected.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
+
+from znicz_torch.core.units import Unit
+from znicz_torch.memory import Array
 
 
-class EvaluatorSoftmax:
-    def __init__(self, name: str = "evaluator", compute_confusion=None):
-        self.name = name
+class EvaluatorSoftmax(Unit):
+    #: heads wider than this collect no confusion matrix unless
+    #: ``compute_confusion`` is set
+    CONFUSION_AUTO_LIMIT = 128
+
+    def __init__(self, workflow=None, name: str = "evaluator",
+                 compute_confusion=None, n_classes: int = 0, **kwargs):
+        super().__init__(workflow=workflow, name=name, **kwargs)
+        self.output: Optional[Array] = None      # linked: the softmax head
+        self.labels: Optional[Array] = None      # linked: minibatch_labels
+        self.batch_size = 0                      # linked: minibatch_size
+        self.n_classes = int(n_classes)
         self.compute_confusion = compute_confusion
         #: whether the user pinned compute_confusion (the fused trainer
         #: collects it unless it was explicitly turned off)
         self.confusion_explicit = compute_confusion is not None
+        self.err_output = Array()
+        self.confusion_matrix = Array()
+        self.n_err = 0
+        self.loss = 0.0
+        self.max_err_output_sum = 0.0
+
+    def initialize(self, device=None, **kwargs):
+        super().initialize(**kwargs)
+        self.err_output.initialize(device)
+        self.confusion_matrix.initialize(device)
+
+    def run(self):
+        probs = self.output.devmem
+        labels = self.labels.devmem.long()
+        n_classes = self.n_classes or int(probs.shape[-1])
+        if self.compute_confusion is None:
+            self.compute_confusion = n_classes <= self.CONFUSION_AUTO_LIMIT
+        bs = int(self.batch_size)
+        denom = max(bs, 1)
+        with torch.no_grad():
+            valid = torch.arange(probs.shape[0], device=probs.device) < bs
+            onehot = F.one_hot(labels, n_classes).to(probs.dtype)
+            err = (probs - onehot) * valid[:, None] / denom
+            pred = torch.argmax(probs, dim=-1)
+            n_err = torch.sum((pred != labels) & valid)
+            tiny = torch.finfo(probs.dtype).tiny
+            ce = -torch.log(torch.clamp_min(
+                torch.gather(probs, 1, labels[:, None])[:, 0], tiny))
+            loss = torch.sum(torch.where(valid, ce, 0.0)) / denom
+            conf = confusion(pred, labels, valid,
+                             n_classes if self.compute_confusion else 0)
+            mes = torch.max(torch.sum(torch.abs(err), dim=-1))
+        self.err_output.devmem = err
+        self.confusion_matrix.devmem = conf
+        loss, n_err, mes = torch.stack(
+            [loss.double(), n_err.double(), mes.double()]).tolist()
+        self.loss, self.n_err = loss, int(n_err)
+        self.max_err_output_sum = mes
 
 
 def confusion(pred, labels, valid, n_classes: int):

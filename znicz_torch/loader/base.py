@@ -1,5 +1,5 @@
-"""The loader's epoch/minibatch index state machine (port of
-``znicz_tpu/loader/base.py``, without the unit engine).
+"""Loader: the epoch/minibatch index state machine as a unit (port of
+``znicz_tpu/loader/base.py``).
 
   - three sample classes TEST=0, VALID=1, TRAIN=2 with ``class_lengths``;
     one epoch is one pass over test, then valid, then train;
@@ -12,8 +12,11 @@
   - ``last_minibatch`` marks the end of an epoch, ``class_ended`` the end
     of a class; ``epoch_number`` increments when the next epoch begins.
 
-The fused trainer consumes indices only and gathers rows on the device
-(``FullBatchLoader.gather``), so nothing here fills minibatch buffers.
+Each ``run()`` advances to the next minibatch and, unless
+``indices_only`` is set (the fused trainer gathers rows itself), fills
+``minibatch_data`` and ``minibatch_labels`` (``memory.Array``s) on the
+device (:meth:`fill_minibatch`).  ``minibatch_indices`` stays a numpy
+row.
 """
 
 from __future__ import annotations
@@ -23,23 +26,32 @@ from typing import List, Optional
 import numpy as np
 
 from znicz_torch.core import prng
+from znicz_torch.core.units import Unit
+from znicz_torch.memory import Array
 
 TEST, VALID, TRAIN = 0, 1, 2
 
 
-class Loader:
-    def __init__(self, name: str = "loader", minibatch_size: int = 100,
-                 shuffle: bool = True):
-        self.name = name
+class Loader(Unit):
+    def __init__(self, workflow=None, name: str = "loader",
+                 minibatch_size: int = 100, shuffle: bool = True, **kwargs):
+        super().__init__(workflow=workflow, name=name, **kwargs)
         self.max_minibatch_size = int(minibatch_size)
         self.shuffle = bool(shuffle)
         self.class_lengths: List[int] = [0, 0, 0]
+        self.minibatch_data = Array()
+        self.minibatch_labels = Array()
         self.minibatch_indices = np.zeros(0, np.int32)
         self.minibatch_size = 0
         self.minibatch_class = TRAIN
         self.last_minibatch = False
         self.class_ended = False
         self.epoch_number = 0
+        self.samples_served = 0
+        #: samples served per class since construction (run statistics)
+        self.class_samples_served = [0, 0, 0]
+        #: advance the indices only; the fused trainer gathers the rows
+        self.indices_only = False
         self._shuffled_indices: Optional[np.ndarray] = None
         self._pos = 0
 
@@ -65,7 +77,13 @@ class Loader:
         """Set ``class_lengths`` and the data.  Subclasses override."""
         raise NotImplementedError
 
-    def initialize(self, device=None) -> None:
+    def fill_minibatch(self) -> None:
+        """Fill ``minibatch_data``/``minibatch_labels`` for the current
+        ``minibatch_indices``.  Subclasses override."""
+        raise NotImplementedError
+
+    def initialize(self, device=None, **kwargs) -> None:
+        super().initialize(**kwargs)
         self.load_data()
         if self.total_samples == 0:
             raise ValueError(f"{self.name}: empty dataset")
@@ -73,6 +91,8 @@ class Loader:
             raise ValueError(f"{self.name}: no TRAIN samples")
         self._shuffled_indices = np.arange(self.total_samples, dtype=np.int32)
         self.minibatch_indices = np.zeros(self.max_minibatch_size, np.int32)
+        for arr in (self.minibatch_data, self.minibatch_labels):
+            arr.initialize(device)
         self._shuffle_train()
 
     def _shuffle_train(self) -> None:
@@ -91,6 +111,7 @@ class Loader:
         self.class_ended = False
         self.minibatch_size = 0
         self.minibatch_class = TRAIN
+        self.samples_served = 0
         self._shuffled_indices = np.arange(self.total_samples, dtype=np.int32)
         self._shuffle_train()
 
@@ -116,3 +137,7 @@ class Loader:
         self.class_ended = (end == class_end)
         self.last_minibatch = (end == self.total_samples)
         self._pos = end
+        self.samples_served += count
+        self.class_samples_served[klass] += count
+        if not self.indices_only:
+            self.fill_minibatch()

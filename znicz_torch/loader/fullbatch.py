@@ -5,7 +5,8 @@ Subclasses set ``original_data`` / ``original_labels`` (numpy,
 sample-major) in ``load_data``, or callers set them before
 ``initialize``.  ``initialize(device)`` copies both to the device once;
 :meth:`gather` takes a minibatch's rows there, as the reference's
-``jnp.take`` does.
+``jnp.take`` does, and :meth:`fill_minibatch` puts them in the
+minibatch Arrays.
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ from znicz_torch.loader.base import Loader
 
 
 class FullBatchLoader(Loader):
-    def __init__(self, name: str = "loader", minibatch_size: int = 100,
-                 shuffle: bool = True):
-        super().__init__(name=name, minibatch_size=minibatch_size,
-                         shuffle=shuffle)
+    def __init__(self, workflow=None, name: str = "loader",
+                 minibatch_size: int = 100, shuffle: bool = True, **kwargs):
+        super().__init__(workflow=workflow, name=name,
+                         minibatch_size=minibatch_size, shuffle=shuffle,
+                         **kwargs)
         self.original_data: Optional[np.ndarray] = None
         self.original_labels: Optional[np.ndarray] = None
         #: device copies, set by initialize
@@ -39,8 +41,8 @@ class FullBatchLoader(Loader):
     def sample_shape(self) -> Tuple[int, ...]:
         return tuple(int(d) for d in self.original_data.shape[1:])
 
-    def initialize(self, device=None) -> None:
-        super().initialize(device)
+    def initialize(self, device=None, **kwargs) -> None:
+        super().initialize(device=device, **kwargs)
         dev = torch.device("cpu" if device is None else device)
         self.data = torch.from_numpy(
             np.ascontiguousarray(self.original_data)).to(dev)
@@ -55,3 +57,9 @@ class FullBatchLoader(Loader):
         return (self.data.index_select(0, idx),
                 None if self.labels is None
                 else self.labels.index_select(0, idx))
+
+    def fill_minibatch(self) -> None:
+        data, labels = self.gather(self.minibatch_indices)
+        self.minibatch_data.devmem = data
+        if labels is not None:
+            self.minibatch_labels.devmem = labels

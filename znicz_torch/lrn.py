@@ -13,6 +13,12 @@ call time:
     the closed-form backward;
   - ``lrn_autodiff`` or an even window: the shifted-slices formulation
     ``x / pow(k + alpha * acc, beta)``, differentiated by autograd.
+
+On the unit engine the forward unit (``nn_units.ForwardBase``) runs this
+module once a minibatch, and :class:`LRNormalizerBackward` takes its vjp
+from the detached input, which runs the forward again: under
+``pallas_lrn`` a train step launches K3 twice and K3b once per LRN
+layer, an eval step K3 once.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 
 from znicz_torch.core.config import root
 from znicz_torch.forward import ForwardModule
+from znicz_torch.nn_units import GradientDescentBase
 from znicz_torch.ops import lrn as lrn_ops
 
 
@@ -97,3 +104,8 @@ class LRNormalizerForward(ForwardModule):
         for j in range(self.n):
             acc = acc + padded[..., j:j + x.shape[-1]]
         return x / torch.pow(self.k + self.alpha * acc, self.beta)
+
+
+class LRNormalizerBackward(GradientDescentBase):
+    """The LRN's backward unit: the vjp of the module, so K3b under
+    ``pallas_lrn``.  No parameters, so ``apply_gradient`` is off."""

@@ -1,11 +1,26 @@
-"""The gradient-descent update rule and hyperparameters (port of
-``_decay_grad``, ``sgd_update`` and the ``GradientDescentBase`` fields of
-``znicz_tpu/nn_units.py``).
+"""The gradient-descent update rule, its hyperparameters, and the unit
+faces of the modules (port of ``znicz_tpu/nn_units.py``).
 
 :func:`sgd_update` is the single home of the update rule: SGD with
 momentum, an L1/L2 weight-decay mix and max-abs gradient clipping.  The
 hyperparameters are float32 on both sides, and the arithmetic is done in
 the reference's order, scalar factors first.
+
+The unit engine's two bases:
+
+  - :class:`ForwardBase` is the unit of one built ``ForwardModule``: it
+    holds the module (whose parameters both engines train), reads
+    ``input`` and writes ``output`` as ``memory.Array``s.  Its forward
+    runs under ``torch.no_grad()``, so no minibatch builds a graph there.
+  - :class:`GradientDescentBase` is the backward twin of a forward unit:
+    it takes ``err_output``, gives ``err_input`` (unless
+    ``need_err_input`` is off) and, when ``apply_gradient`` is set,
+    updates the forward's parameters in place.  It is a
+    :class:`GradientDescent`, so its hyperparameters and ``velocities``
+    are the ones ``FusedTrainer`` reads.  The gradient is the vjp of the
+    forward, recomputed here from the forward's detached input by
+    ``torch.autograd.grad``, as the reference's ``jax.vjp`` recomputes it:
+    no graph spans two units.
 """
 
 from __future__ import annotations
@@ -14,6 +29,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from znicz_torch.core.units import Unit
+from znicz_torch.memory import Array
 
 _F = np.float32
 
@@ -83,3 +101,98 @@ class GradientDescent:
             weights_decay=wdb if is_bias else wd, l1_vs_l2=l1l2,
             momentum=momb if is_bias else mom, clip=clip)
         return w_new
+
+
+def params_of(module) -> Dict[str, torch.Tensor]:
+    """``{"weights": ..., "bias": ...}`` of a module with weights (no
+    bias leaf without ``include_bias``); ``{}`` for one without."""
+    if not module.has_weights:
+        return {}
+    out = {"weights": module.weights}
+    if module.include_bias:
+        out["bias"] = module.bias
+    return out
+
+
+class ForwardBase(Unit):
+    """The unit of a built ``ForwardModule`` (``module``), named after it:
+    ``output = module(input)``."""
+
+    def __init__(self, workflow=None, name=None, module=None, **kwargs):
+        super().__init__(workflow=workflow, name=name or module.name,
+                         **kwargs)
+        self.module = module
+        self.input: Optional[Array] = None      # linked from upstream
+        self.output = Array()
+
+    @property
+    def has_weights(self) -> bool:
+        return self.module.has_weights
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return params_of(self.module)
+
+    def initialize(self, device=None, **kwargs):
+        super().initialize(**kwargs)
+        self.output.initialize(device)
+
+    def run(self):
+        with torch.no_grad():
+            self.output.devmem = self.module(self.input.devmem)
+
+
+class GradientDescentBase(Unit, GradientDescent):
+    """The backward unit of ``forward`` (a :class:`ForwardBase`), with the
+    reference's hyperparameter names and defaults (:class:`GradientDescent`)
+    and its ``apply_gradient`` (default: whether the forward has
+    parameters) and ``need_err_input`` switches."""
+
+    def __init__(self, workflow=None, name=None, forward=None,
+                 apply_gradient: Optional[bool] = None,
+                 need_err_input: bool = True, **hypers):
+        Unit.__init__(self, workflow=workflow, name=name)
+        GradientDescent.__init__(self, forward.name, **hypers)
+        self.forward = forward
+        self.err_output: Optional[Array] = None  # linked from downstream
+        self.err_input = Array()
+        self.apply_gradient = bool(forward.has_weights
+                                   if apply_gradient is None
+                                   else apply_gradient)
+        self.need_err_input = bool(need_err_input)
+
+    def initialize(self, device=None, **kwargs):
+        super().initialize(**kwargs)
+        self.err_input.initialize(device)
+        self.init_velocities()
+
+    def init_velocities(self) -> None:
+        """A zero velocity for every parameter of the forward without
+        one."""
+        for k, p in self.forward.params().items():
+            if k not in self.velocities:
+                self.velocities[k] = torch.zeros_like(p.detach())
+
+    def backward_apply(self, x):
+        """The function whose vjp is this unit's backward: the forward
+        module's."""
+        return self.forward.module(x)
+
+    def run(self):
+        params = self.forward.params() if self.apply_gradient else {}
+        if not params and not self.need_err_input:
+            return
+        x = self.forward.input.devmem.detach()
+        with torch.enable_grad():
+            x.requires_grad_(self.need_err_input)
+            for p in params.values():
+                p.requires_grad_(True)
+            wrt = ([x] if self.need_err_input else []) + list(params.values())
+            grads = list(torch.autograd.grad(self.backward_apply(x), wrt,
+                                             self.err_output.devmem))
+        if self.need_err_input:
+            self.err_input.devmem = grads.pop(0)
+        if params:
+            self.init_velocities()
+            with torch.no_grad():
+                for (k, p), g in zip(params.items(), grads):
+                    p.copy_(self.update(k, p, g))

@@ -20,7 +20,10 @@ parameter with the bias/weight hyperparameter split, as the reference's
 dispatch per minibatch, no scans — with the reference's epoch-tail rule:
 on the last TRAIN minibatch of an epoch, an eval step replays the train
 forward with that step's dropout masks, the Decision rules on its
-metrics, and the update is applied only if ``gd_skip`` stays open.
+metrics, and the update is applied only if ``gd_skip`` stays open.  A
+workflow's ``lr_adjust`` unit advances after each applied update, and at
+each epoch's end (after the tail's update) its ``snapshotter`` runs, as
+the reference's epoch hook runs it.
 
 **Dropout masks.**  ``mask_fn(step, index, shape, ratio)`` supplies the
 mask of forwards index ``index`` at train step ``step``; by default it
@@ -47,6 +50,7 @@ from znicz_torch.fused_block import (fused_bias_relu, fused_block,
                                      fused_fc_epilogue, fused_softmax_xent,
                                      plan_fused_blocks, plan_fused_tail)
 from znicz_torch.loader.base import TRAIN
+from znicz_torch.nn_units import params_of
 from znicz_torch.ops.linear import linear
 
 MaskFn = Callable[[int, int, tuple, float], torch.Tensor]
@@ -74,9 +78,8 @@ class FusedTrainer:
         self._decode_params = (float(getattr(workflow, "scale", 1.0)),
                                float(getattr(workflow, "shift", 0.0)))
         self.mask_fn: MaskFn = mask_fn or self.default_mask
+        self.lr_adjust = getattr(workflow, "lr_adjust", None)
         self.steps_done = 0
-        #: losses of every TRAIN minibatch fed to the Decision, in order
-        self.train_losses = []
         #: ``img_per_sec`` counts every step; ``warm_*`` leave out the
         #: first call of each kind (train, tail, eval), which pays the
         #: kernel builds and cuDNN's algorithm search
@@ -85,6 +88,11 @@ class FusedTrainer:
                       "warm_img_per_sec": 0.0}
         self._seen_kinds = set()
 
+    @property
+    def train_losses(self):
+        """Losses of every TRAIN minibatch fed to the Decision, in order."""
+        return self.decision.train_losses
+
     # -- state -----------------------------------------------------------------
 
     def _weighted(self):
@@ -92,10 +100,7 @@ class FusedTrainer:
 
     @staticmethod
     def _params_of(f) -> Dict[str, torch.Tensor]:
-        out = {"weights": f.weights}
-        if f.include_bias:
-            out["bias"] = f.bias
-        return out
+        return params_of(f)
 
     def extract_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """``{module name: {"weights": tensor, "bias": tensor}}``, the live
@@ -257,8 +262,6 @@ class FusedTrainer:
         d.minibatch_loss = float(loss)
         d.minibatch_n_err = int(n_err)
         d.confusion_matrix = conf
-        if mb["class"] == TRAIN:
-            self.train_losses.append(d.minibatch_loss)
         d.run()
 
     def _advance(self):
@@ -283,6 +286,18 @@ class FusedTrainer:
                 st["warm_img_per_sec"] = st["warm_images"] / st["warm_wall_s"]
         self._seen_kinds.add(kind)
 
+    def _advance_lr(self) -> None:
+        if self.lr_adjust is not None:
+            self.lr_adjust.run()
+
+    def _epoch_end(self) -> None:
+        """The workflow's snapshotter, unless it is gated off."""
+        snap = getattr(self.workflow, "snapshotter", None)
+        if snap is not None and not bool(snap.gate_skip):
+            snap.epoch_number = self.decision.epoch_number
+            snap.improved = self.decision.improved
+            snap.run()
+
     def run(self) -> None:
         """Train until the Decision completes.  Every step reads its
         metrics back to the host, which synchronises with the device, so
@@ -290,6 +305,13 @@ class FusedTrainer:
         if self.loader is None:
             raise ValueError("the workflow has no loader to train from")
         self._init_velocities()
+        indices_only, self.loader.indices_only = self.loader.indices_only, True
+        try:
+            self._run()
+        finally:
+            self.loader.indices_only = indices_only
+
+    def _run(self) -> None:
         decision = self.decision
         while not decision.complete:
             mb = self._advance()
@@ -297,6 +319,7 @@ class FusedTrainer:
             if mb["class"] == TRAIN and not mb["last_minibatch"]:
                 metrics = self.train_step(mb["idx"], mb["size"],
                                           self.steps_done)
+                self._advance_lr()
                 self.steps_done += 1
                 self._feed_decision(mb, metrics)
                 self._account("train", mb["size"], t0)
@@ -308,9 +331,12 @@ class FusedTrainer:
                 self._feed_decision(mb, metrics)
                 if not decision.gd_skip:
                     self.train_step(mb["idx"], mb["size"], self.steps_done)
+                    self._advance_lr()
                 self.steps_done += 1
                 self._account("tail", mb["size"], t0)
             else:
                 metrics = self.eval_step(mb["idx"], mb["size"])
                 self._feed_decision(mb, metrics)
                 self._account("eval", 0, t0)
+            if bool(decision.epoch_ended):
+                self._epoch_end()

@@ -9,6 +9,14 @@ a minimum and 0 for a sum.  ``AvgPooling`` divides each window's sum by
 its count of real elements, not by ky*kx.  Gradients are autograd's of
 the same formulation; a maximum's goes to the first of tied elements in
 window order, as XLA's ``select_and_scatter`` sends it.
+
+The unit engine's max pooling (:class:`MaxPoolingUnit`) takes the
+reference's unit path instead: it gathers every window
+(:meth:`PoolingBase.windows`), picks the first element of largest value
+(``MaxPooling``) or largest magnitude (``MaxAbsPooling``, whose pad is 0
+there, so a tie of ``x`` and ``-x`` goes to the first, not to the
+positive), and records that offset for its GD unit's scatter
+(:meth:`PoolingBase.scatter_at_offsets`).
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from znicz_torch.forward import ForwardModule
+from znicz_torch.memory import Array
+from znicz_torch.nn_units import ForwardBase
 
 
 def pool_output_hw(h: int, w: int, ky: int, kx: int,
@@ -72,10 +82,49 @@ class PoolingBase(ForwardModule):
     def _nhwc(y):
         return y.permute(0, 2, 3, 1).contiguous()
 
+    def windows(self, x, value: float):
+        """(B, OH, OW, C, ky*kx) view of every window of the NHWC ``x``,
+        padded with ``value``; the last axis runs over (ky, kx) in row
+        order, the offset convention of the reference's unit path."""
+        _, h, w, _ = x.shape
+        ph, pw = self._padded_hw(h, w)
+        if (ph, pw) != (h, w):
+            x = F.pad(x, (0, 0, 0, pw - w, 0, ph - h), value=value)
+        sy, sx = self.sliding
+        win = x.unfold(1, self.ky, sy).unfold(2, self.kx, sx)
+        return win.reshape(tuple(win.shape[:4]) + (self.ky * self.kx,))
+
+    def scatter_at_offsets(self, values, offsets, in_shape):
+        """An ``in_shape`` tensor with each of ``values`` (output-shaped)
+        added at its window's recorded offset.  One masked strided add
+        per window position, in (ky, kx) order: no atomics, the same sum
+        order on every device."""
+        b, h, w, c = in_shape
+        ph, pw = self._padded_hw(h, w)
+        oh, ow = values.shape[1], values.shape[2]
+        sy, sx = self.sliding
+        out = values.new_zeros((b, ph, pw, c))
+        for i in range(self.ky):
+            for j in range(self.kx):
+                part = torch.where(offsets == i * self.kx + j, values, 0.0)
+                out[:, i:i + (oh - 1) * sy + 1:sy,
+                    j:j + (ow - 1) * sx + 1:sx] += part
+        return out[:, :h, :w].contiguous()
+
+    def _pick(self, win, key):
+        """(output, offsets): the first window element of largest
+        ``key(win)``."""
+        off = torch.argmax(key(win), dim=-1)
+        return torch.gather(win, -1, off.unsqueeze(-1)).squeeze(-1), off
+
 
 class MaxPooling(PoolingBase):
     def forward(self, x):
         return self._nhwc(self._max(x))
+
+    def select(self, x):
+        """The unit path's (output, offsets)."""
+        return self._pick(self.windows(x, float("-inf")), lambda w: w)
 
 
 class MaxAbsPooling(PoolingBase):
@@ -86,6 +135,11 @@ class MaxAbsPooling(PoolingBase):
         mx = self._max(x)
         mn = -self._max(-x)
         return self._nhwc(torch.where(-mn > mx, mn, mx))
+
+    def select(self, x):
+        """The unit path's (output, offsets): pad 0, first of largest
+        magnitude."""
+        return self._pick(self.windows(x, 0.0), torch.abs)
 
 
 class AvgPooling(PoolingBase):
@@ -112,3 +166,24 @@ class AvgPooling(PoolingBase):
         s = F.avg_pool2d(self._padded(x, 0.0), (self.ky, self.kx),
                          stride=self.sliding, divisor_override=1)
         return self._nhwc(s / self._counts_on(x.device))
+
+
+class MaxPoolingUnit(ForwardBase):
+    """The unit of a ``MaxPooling`` or ``MaxAbsPooling`` module: its
+    output is the module's ``select``, whose offsets it records in
+    ``input_offset`` for the GD unit."""
+
+    def __init__(self, workflow=None, name=None, module=None, **kwargs):
+        super().__init__(workflow=workflow, name=name, module=module,
+                         **kwargs)
+        self.input_offset = Array()
+
+    def initialize(self, device=None, **kwargs):
+        super().initialize(device=device, **kwargs)
+        self.input_offset.initialize(device)
+
+    def run(self):
+        with torch.no_grad():
+            y, off = self.module.select(self.input.devmem)
+        self.output.devmem = y
+        self.input_offset.devmem = off

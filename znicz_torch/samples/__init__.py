@@ -1,23 +1,35 @@
 """Sample models of the port: ``alexnet``, ``mnist`` and ``cifar``, each
 with the reference sample's defaults and a ``run(device)`` that trains
-it with ``FusedTrainer``."""
+it as the reference's does: MNIST and CIFAR10 through ``engine.train``
+(the unit graph unless ``root.common.engine.fused``), AlexNet through
+``FusedTrainer`` unless ``run(fused=False)``."""
 
 from __future__ import annotations
 
 import logging
+from typing import Optional
 
 
-def train(wf, sample: str):
-    """Train the built workflow ``wf`` with ``FusedTrainer`` until its
-    Decision completes; the trainer is kept as ``wf.trainer``.  Returns
-    ``wf``."""
-    from znicz_torch.parallel.fused import FusedTrainer
+def train(wf, sample: str, fused: Optional[bool] = None):
+    """Train the built workflow ``wf`` with ``engine.train`` until its
+    Decision completes (``fused`` as there), log its unit timing and
+    speed, and return ``wf``; the stats are kept as ``wf.train_stats``,
+    the fused trainer, when it ran, as ``wf.trainer``."""
+    from znicz_torch import engine
 
-    trainer = FusedTrainer(wf)
-    trainer.run()
-    wf.trainer = trainer
+    stats = engine.train(wf, fused)
+    wf.print_stats()
     logging.getLogger(f"znicz_torch.{sample}").info(
-        "trained %d steps, %.1f images/s (%.1f after the first step)",
-        trainer.stats["train_steps"], trainer.stats["img_per_sec"],
-        trainer.stats["warm_img_per_sec"])
+        "trained %d steps, %.1f images/s (%.1f warm)",
+        stats["train_steps"], stats["img_per_sec"],
+        stats["warm_img_per_sec"])
+    return wf
+
+
+def restore_snapshot(wf, path: str):
+    """Resume ``wf`` from the snapshot file at ``path`` (the command
+    line's ``--snapshot``); returns ``wf``."""
+    from znicz_torch.snapshotter import Snapshotter, restore
+
+    restore(wf, Snapshotter.load(path))
     return wf

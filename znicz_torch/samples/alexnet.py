@@ -8,7 +8,10 @@ entry.  Serving needs no loader: :class:`AlexNetWorkflow` takes the
 sample shape and the class count directly.  Training builds it with
 :class:`AlexNetLoader` (the reference's procedural 227x227 texture
 classes, or ``root.alexnet.loader.data_path``'s .npz) through
-:func:`training_workflow`; :func:`run` trains it with ``FusedTrainer``.
+:func:`training_workflow`; :func:`run` trains it with ``FusedTrainer``,
+as the reference's ``run`` does, or with the unit engine under
+``fused=False``.  Its snapshotter is best-only
+(``alexnet_best.pickle.gz``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ root.alexnet.defaults({
     "weights_decay": 0.0005,
     "dropout": 0.5,
     "decision": {"max_epochs": 3, "fail_iterations": 0},
+    "snapshotter": {"prefix": "alexnet", "interval": 0},
 })
 
 
@@ -104,19 +108,22 @@ class AlexNetWorkflow(StandardWorkflow):
 
     def __init__(self, sample_shape: Optional[Sequence[int]] = (227, 227, 3),
                  n_classes: Optional[int] = None, device: DeviceLike = None,
-                 loader=None, decision_config: Optional[dict] = None):
+                 loader=None, decision_config: Optional[dict] = None,
+                 snapshotter_config: Optional[dict] = None):
         if n_classes is None:
             n_classes = int(root.alexnet.loader.get("n_classes", 100))
         super().__init__(make_layers(int(n_classes)), sample_shape,
                          device=device, name="AlexNetWorkflow", loader=loader,
                          loss_function="softmax",
-                         decision_config=decision_config)
+                         decision_config=decision_config,
+                         snapshotter_config=snapshotter_config)
 
 
 def training_workflow(device: DeviceLike = None) -> AlexNetWorkflow:
     """The trainable AlexNet of the ``root.alexnet`` config: its loader
     (data resident on ``device``), sample shape and class count from the
-    loader config, and the Decision's ``max_epochs``/``fail_iterations``."""
+    loader config, the Decision's ``max_epochs``/``fail_iterations`` and
+    the snapshotter's ``prefix``/``interval``."""
     cfg = root.alexnet
     size = int(cfg.loader.get("image_size", 227))
     return AlexNetWorkflow(
@@ -126,10 +133,14 @@ def training_workflow(device: DeviceLike = None) -> AlexNetWorkflow:
             minibatch_size=int(cfg.loader.get("minibatch_size"))),
         decision_config={
             "max_epochs": int(cfg.decision.get("max_epochs")),
-            "fail_iterations": int(cfg.decision.get("fail_iterations"))})
+            "fail_iterations": int(cfg.decision.get("fail_iterations"))},
+        snapshotter_config={
+            "prefix": cfg.snapshotter.get("prefix"),
+            "interval": int(cfg.snapshotter.get("interval", 0))})
 
 
-def run(device: DeviceLike = None) -> AlexNetWorkflow:
-    """Build :func:`training_workflow` on ``device`` and train it with
-    ``FusedTrainer`` until the Decision completes."""
-    return train(training_workflow(device), "alexnet")
+def run(device: DeviceLike = None, fused: bool = True) -> AlexNetWorkflow:
+    """Build :func:`training_workflow` on ``device`` and train it until
+    the Decision completes: with ``FusedTrainer``, or with the unit
+    engine when ``fused`` is False."""
+    return train(training_workflow(device), "alexnet", fused=fused)

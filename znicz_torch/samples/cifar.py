@@ -8,7 +8,9 @@ the procedural 32x32x3 textures of ``datasets.tinyimages`` (or
 ``root.cifar.loader.data_path``'s .npz), NHWC, ordered [test | valid |
 train].  Under ``fused_tail`` the three convolutions take the bias+ReLU
 kernels; under ``pallas_lrn`` the LRN takes the standalone LRN kernels.
-It follows a pool, so no conv block fuses.
+It follows a pool, so no conv block fuses.  On the unit engine (the
+default of :func:`run`) only ``pallas_lrn`` routes: the LRN units launch
+K3 and K3b.  The snapshotter is best-only (``cifar_best.pickle.gz``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from znicz_torch import datasets
 from znicz_torch.backends import DeviceLike
 from znicz_torch.core.config import root
 from znicz_torch.loader.fullbatch import FullBatchLoader
-from znicz_torch.samples import train
+from znicz_torch.samples import restore_snapshot, train
 from znicz_torch.standard_workflow import StandardWorkflow
 
 root.cifar.defaults({
@@ -27,6 +29,7 @@ root.cifar.defaults({
     "gradient_moment": 0.9,
     "weights_decay": 0.0001,
     "decision": {"max_epochs": 12, "fail_iterations": 0},
+    "snapshotter": {"prefix": "cifar", "interval": 0},
 })
 
 
@@ -72,9 +75,10 @@ def make_layers():
 
 
 class CifarWorkflow(StandardWorkflow):
-    """The convnet of ``root.cifar`` with its loader on ``device``."""
+    """The convnet of ``root.cifar`` with its loader on ``device``;
+    ``kwargs`` go to ``StandardWorkflow`` (e.g. ``lr_adjust_config``)."""
 
-    def __init__(self, device: DeviceLike = None):
+    def __init__(self, device: DeviceLike = None, **kwargs):
         cfg = root.cifar
         super().__init__(
             make_layers(), device=device, name="CifarWorkflow",
@@ -83,10 +87,18 @@ class CifarWorkflow(StandardWorkflow):
             loss_function="softmax",
             decision_config={
                 "max_epochs": int(cfg.decision.get("max_epochs")),
-                "fail_iterations": int(cfg.decision.get("fail_iterations"))})
+                "fail_iterations": int(cfg.decision.get("fail_iterations"))},
+            snapshotter_config={
+                "prefix": cfg.snapshotter.get("prefix"),
+                "interval": int(cfg.snapshotter.get("interval", 0))},
+            **kwargs)
 
 
-def run(device: DeviceLike = None) -> CifarWorkflow:
-    """Build :class:`CifarWorkflow` on ``device`` and train it with
-    ``FusedTrainer`` until the Decision completes."""
-    return train(CifarWorkflow(device), "cifar")
+def run(device: DeviceLike = None, snapshot: str = "") -> CifarWorkflow:
+    """Build :class:`CifarWorkflow` on ``device``, resume it from
+    ``snapshot`` if one is named, and train it with ``engine.train``
+    until the Decision completes."""
+    wf = CifarWorkflow(device)
+    if snapshot:
+        restore_snapshot(wf, snapshot)
+    return train(wf, "cifar")

@@ -45,7 +45,7 @@ class ModelRunner:
     forward on the workflow's device."""
 
     def __init__(self, workflow):
-        self.workflow = workflow.eval()
+        self.workflow = workflow
         self.device: torch.device = workflow.device
         self._trainer = FusedTrainer(workflow)
         #: per-sample input shape the service accepts

@@ -1,0 +1,233 @@
+"""Snapshotter: best-on-validation and periodic checkpoints, host-pickle
+format (port of ``znicz_tpu/snapshotter.py``'s ``collect``,
+``collect_meta``, ``restore``, ``restore_inference``, ``Snapshotter``,
+``write_host_pickle`` and ``atomic_write_bytes``).
+
+A snapshot is the reference's plain dict, gzip-pickled, with numpy
+leaves and no torch object::
+
+    {"units": {forward unit: {"weights": ndarray, "bias": ndarray}},
+     "velocities": {GD unit name: {param: ndarray}},
+     "loader": {...}, "decision": {...}, "prng": {stream: state},
+     "epoch": N, "metric": x, "time": t, "config": {...}}
+
+so a file the port writes restores into the reference's workflow of the
+same unit names, and the reverse.  The reference's async writer, its
+orbax format and multi-host saves are not ported (queues A.1.5, A.3).
+"""
+
+from __future__ import annotations
+
+import gzip
+import os
+import pickle
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from znicz_torch.core.config import root
+from znicz_torch.core.units import Unit
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def collect(workflow) -> Dict:
+    """The snapshot dict of ``workflow``'s units: forward parameters,
+    GD velocities (zeros before the first update), and
+    :func:`collect_meta`'s metadata."""
+    from znicz_torch.nn_units import ForwardBase, GradientDescentBase
+
+    snap = collect_meta(workflow)
+    for unit in workflow:
+        if isinstance(unit, ForwardBase) and unit.has_weights:
+            snap["units"][unit.name] = {k: _numpy(p) for k, p
+                                        in unit.params().items()}
+        elif isinstance(unit, GradientDescentBase):
+            unit.init_velocities()
+            snap["velocities"][unit.name] = {
+                k: _numpy(v) for k, v in unit.velocities.items()}
+    return snap
+
+
+def collect_meta(workflow) -> Dict:
+    """The non-array half of a snapshot: the loader's position and TRAIN
+    order, the Decision's best metric, every named prng stream's state."""
+    from znicz_torch.core import prng
+    from znicz_torch.decision import DecisionBase
+    from znicz_torch.loader.base import Loader
+
+    snap: Dict = {"units": {}, "velocities": {}, "loader": {},
+                  "decision": {}, "prng": {}, "time": time.time()}
+    for unit in workflow:
+        if isinstance(unit, Loader):
+            snap["loader"] = {
+                "epoch_number": unit.epoch_number,
+                "samples_served": unit.samples_served,
+                # epoch_number advances lazily: a boundary snapshot keeps
+                # the tail state so a resumed loader starts the next epoch
+                "last_minibatch": bool(unit.last_minibatch),
+            }
+            if unit._shuffled_indices is not None:
+                snap["loader"]["shuffled_indices"] = \
+                    np.array(unit._shuffled_indices)
+        elif isinstance(unit, DecisionBase):
+            snap["decision"] = {"best_metric": unit.best_metric,
+                                "best_epoch": unit.best_epoch,
+                                "fails": unit._fails}
+            snap["epoch"] = int(unit.epoch_number)
+            snap["metric"] = float(unit.best_metric)
+    snap["prng"] = {name: s.state.bit_generator.state
+                    for name, s in prng._streams.items()}
+    return snap
+
+
+def _assign(param: torch.Tensor, value) -> None:
+    with torch.no_grad():
+        param.copy_(torch.from_numpy(np.array(value, np.float32)))
+
+
+def restore(workflow, snap: Dict) -> None:
+    """Apply a snapshot dict onto a built workflow, in place."""
+    from znicz_torch.core import prng
+    from znicz_torch.decision import DecisionBase
+    from znicz_torch.loader.base import Loader
+    from znicz_torch.nn_units import ForwardBase, GradientDescentBase
+
+    for unit in workflow:
+        if isinstance(unit, ForwardBase) and unit.name in snap["units"]:
+            for k, p in unit.params().items():
+                _assign(p, snap["units"][unit.name][k])
+        elif isinstance(unit, GradientDescentBase) and \
+                unit.name in snap.get("velocities", {}):
+            unit.init_velocities()
+            for k, v in unit.velocities.items():
+                _assign(v, snap["velocities"][unit.name][k])
+        elif isinstance(unit, Loader) and snap.get("loader"):
+            unit.epoch_number = snap["loader"]["epoch_number"]
+            unit.samples_served = snap["loader"].get("samples_served", 0)
+            unit.last_minibatch = snap["loader"].get("last_minibatch",
+                                                     False)
+            order = snap["loader"].get("shuffled_indices")
+            if order is not None:
+                unit._shuffled_indices = np.asarray(order, np.int32).copy()
+        elif isinstance(unit, DecisionBase) and snap.get("decision"):
+            unit.best_metric = snap["decision"]["best_metric"]
+            unit.best_epoch = snap["decision"]["best_epoch"]
+            unit._fails = snap["decision"]["fails"]
+    for name, state in snap.get("prng", {}).items():
+        prng.get(name).state.bit_generator.state = state
+
+
+def restore_inference(workflow, snap: Dict) -> None:
+    """Apply only the forward parameters (the serving load).  Raises when
+    the snapshot does not cover every forward module with weights."""
+    units = snap.get("units") or {}
+    missing = [f.name for f in workflow.forwards
+               if f.has_weights and f.name not in units]
+    if missing:
+        raise ValueError(
+            f"snapshot has no params for weighted forward(s) {missing}; "
+            f"it covers {sorted(units)}")
+    from znicz_torch.nn_units import params_of
+
+    for f in workflow.forwards:
+        for k, p in params_of(f).items():
+            _assign(p, units[f.name][k])
+
+
+class Snapshotter(Unit):
+    """Writes snapshots at epoch ends.  Gate it with
+    ``~decision.epoch_ended`` and give it ``improved`` and
+    ``epoch_number`` from the decision; then
+
+      - validation improved      -> ``<prefix>_best`` (at most once in
+        ``min_save_interval_s`` seconds);
+      - every ``interval`` epochs -> ``<prefix>_epoch_<N>`` (0 = off).
+    """
+
+    def __init__(self, workflow=None, name: str = "snapshotter",
+                 prefix: str = "wf", directory: Optional[str] = None,
+                 interval: int = 0,
+                 min_save_interval_s: Optional[float] = None, **kwargs):
+        super().__init__(workflow=workflow, name=name, **kwargs)
+        self.prefix = prefix
+        self.directory = (directory if directory is not None
+                          else root.common.dirs.get("snapshots",
+                                                    "snapshots"))
+        self.interval = int(interval)              # 0 = best-only
+        self.min_save_interval_s = float(
+            min_save_interval_s if min_save_interval_s is not None
+            else root.common.engine.get("snapshot_min_interval_s", 0.0))
+        self._last_best_save_t = -1e18
+        self._last_saved_epoch = -1
+        self.destination: Optional[str] = None     # the last path written
+        self.improved = False                      # linked from decision
+        self.epoch_number = 0                      # linked from decision
+
+    def snapshot_path(self, tag: str) -> str:
+        return os.path.join(self.directory, f"{self.prefix}_{tag}.pickle.gz")
+
+    def save(self, tag: str) -> str:
+        os.makedirs(self.directory, exist_ok=True)
+        path = self.snapshot_path(tag)
+        snap = collect(self.workflow)
+        snap["config"] = root.to_dict()
+        write_host_pickle(path, snap)
+        self.destination = path
+        self.info("snapshot -> %s", path)
+        return path
+
+    def _interval_due(self, epoch: int) -> bool:
+        return bool(self.interval and epoch != self._last_saved_epoch and
+                    (epoch + 1) % self.interval == 0)
+
+    def _best_due(self, improved) -> bool:
+        return bool(improved) and (
+            time.time() - self._last_best_save_t
+            >= self.min_save_interval_s)
+
+    def run(self):
+        if self._best_due(self.improved):
+            self._last_best_save_t = time.time()
+            self.save("best")
+        epoch = int(self.epoch_number)
+        if self._interval_due(epoch):
+            self.save(f"epoch_{epoch}")
+            self._last_saved_epoch = epoch
+
+    @staticmethod
+    def load(path: str) -> Dict:
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rb") as f:
+            return pickle.load(f)
+
+
+def write_host_pickle(path: str, snap: Dict, compression: str = "gz") -> None:
+    """Write ``snap`` to a temporary file and rename it over ``path``, so a
+    crash mid-write never truncates the previous checkpoint."""
+    tmp = path + ".tmp"
+    opener = gzip.open if compression == "gz" else open
+    try:
+        with opener(tmp, "wb") as f:
+            pickle.dump(snap, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def atomic_write_bytes(path: str, data: bytes) -> None:
+    """Atomic byte-blob write (temp file named after the pid, then
+    rename)."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
