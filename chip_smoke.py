@@ -78,7 +78,25 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      on the unit engine under ``pallas_lrn``, its dropout masks those of
      a composed ``FusedTrainer`` run from the same seed: losses within
      rtol 1e-3 of that run, final weights within its weight band, K3 and
-     K3b counted against the LRN units' firings.
+     K3b counted against the LRN units' firings;
+ 10. ``bf16``, training with ``compute_dtype`` bf16: the bf16 operand
+     variants of K1, K1b, K2 and K2b against their plain versions (float32
+     arithmetic on the widened operands, rounded once) at AlexNet's
+     batch-128 shapes and at the cases of ``BF16_PATHS`` (odd C, C not a
+     multiple of 8, one row, unaligned operands, pools 3x3/2, 2x2/2,
+     4x4/2 and 1x1/4, windows 1, 4, 5 and 7, powf, tied maxima): every
+     output and dx bit-exact, db within DB_RTOL of the float32 sums and
+     the same bits on a second launch, with bounds counting 2 bytes a bf16
+     element and 4 a db float; full-width AlexNet (phase 6's
+     configuration) trained 3 steps from the same weights and masks in
+     float32 (composed, ``fused``) and in bf16 (composed, ``fused``,
+     ``fused`` with ``state_dtype`` and with ``master_dtype`` bf16):
+     every loss finite, each bf16 ``fused`` run within rtol 5e-2 of the
+     bf16 composed run, exactly 2/2/3/3 bf16 K1/K1b/K2/K2b launches a
+     train step (2/0/3/0 an eval step) and no float32 kernel launch, the
+     stored velocity and parameter dtypes asserted, each train step's
+     device time printed beside the float32 one; MNIST at its defaults on
+     ``FusedTrainer`` in bf16, its finals against the float32 run's.
 
 Snapshots go to a temporary directory, removed at the end; the AlexNet
 runs write none (their snapshotter is gated off: a full-width snapshot
@@ -91,8 +109,8 @@ script exits non-zero before printing any result.
 runs phases 1 and 2 for the named kernels alone, with the ``*_PATHS``
 cases of each kernel named (``fused_block_fwd``, ``fused_block_bwd``,
 ``lrn_fwd``, ``bias_relu_bwd``, ``lrn_bwd``), phases 7 and 8 for
-``anchors`` and phase 9 for ``units``; it prints the ``kernels`` object
-and no ``ok`` line.
+``anchors``, phase 9 for ``units`` and phase 10 for ``bf16``; it prints
+the ``kernels`` object and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -209,19 +227,35 @@ KERNELS = {
     "lrn_bwd": ("znicz_torch/csrc/lrn_bwd.cu",
                 "znicz_tpu/ops/lrn_pallas.py:86",
                 {"conv1": (55, 96), "conv2": (27, 256)}),
+    # the bf16 operand variants (phase 10): compute_dtype bf16 under
+    # ``fused``, which runs the bias+ReLU kernels at conv3-5 only
+    "fused_block_bf16_fwd": ("znicz_torch/csrc/fused_block.cu",
+                             "znicz_tpu/pallas_fused_block.py:112",
+                             {"conv1": (55, 96), "conv2": (27, 256)}),
+    "bias_relu_bf16_fwd": ("znicz_torch/csrc/bias_relu.cu",
+                           "znicz_tpu/pallas_fused_block.py:392",
+                           {"conv3": (13, 384), "conv4": (13, 384),
+                            "conv5": (13, 256)}),
+    "fused_block_bf16_bwd": ("znicz_torch/csrc/fused_block_bwd.cu",
+                             "znicz_tpu/pallas_fused_block.py:125",
+                             {"conv1": (55, 96), "conv2": (27, 256)}),
+    "bias_relu_bf16_bwd": ("znicz_torch/csrc/bias_relu_bwd.cu",
+                           "znicz_tpu/pallas_fused_block.py:400",
+                           {"conv3": (13, 384), "conv4": (13, 384),
+                            "conv5": (13, 256)}),
 }
+#: the bf16 operand variants, checked and run in phase 10
+BF16_KERNELS = ("fused_block_bf16_fwd", "bias_relu_bf16_fwd",
+                "fused_block_bf16_bwd", "bias_relu_bf16_bwd")
 
 
 def counters():
     """kernel name -> its wrapper (whose ``.launches`` counts it)."""
-    from znicz_torch.fused_block import (bias_relu_bwd, bias_relu_fwd,
-                                         fused_block_bwd, fused_block_fwd)
-    from znicz_torch.ops.lrn import lrn_bwd, lrn_fwd
+    from znicz_torch import fused_block
+    from znicz_torch.ops import lrn
 
-    return {"fused_block_fwd": fused_block_fwd,
-            "bias_relu_fwd": bias_relu_fwd, "lrn_fwd": lrn_fwd,
-            "fused_block_bwd": fused_block_bwd,
-            "bias_relu_bwd": bias_relu_bwd, "lrn_bwd": lrn_bwd}
+    return {name: getattr(lrn if name.startswith("lrn") else fused_block,
+                          name) for name in KERNELS}
 
 
 def _case(torch, name, x, b, gen, n, alpha, beta, k, pool):
@@ -240,6 +274,9 @@ def _case(torch, name, x, b, gen, n, alpha, beta, k, pool):
     c = x.shape[-1]
     hw = x.shape[1]
     pooled = (x.shape[0], (hw - 3) // 2 + 1, (hw - 3) // 2 + 1, c)
+    if name in BF16_KERNELS:
+        return _bf16_case(torch, name, x, b, gen, n, alpha, beta, k, pool,
+                          pooled)
     if name == "fused_block_fwd":
         out = BATCH * pooled[1] * pooled[2] * c
         return (lambda: fused_block_fwd(x, b, n, alpha, beta, k, pool),
@@ -282,6 +319,39 @@ def _case(torch, name, x, b, gen, n, alpha, beta, k, pool):
             4 * 3 * r.numel(), r.numel() * (3 * n + 14))
 
 
+def _bf16_case(torch, name, x, b, gen, n, alpha, beta, k, pool, pooled):
+    """:func:`_case` for a bf16 variant: ``x`` and ``b`` (and the
+    cotangent) rounded to bf16; 2 bytes a bf16 element, 4 a db float."""
+    from znicz_torch import fused_block as fb
+
+    x, b = x.to(torch.bfloat16), b.to(torch.bfloat16)
+    c = x.shape[-1]
+    if name == "fused_block_bf16_fwd":
+        out = BATCH * pooled[1] * pooled[2] * c
+        return (lambda: fb.fused_block_bf16_fwd(x, b, n, alpha, beta, k,
+                                                pool),
+                lambda: fb.fused_block_plain(x, b, n, alpha, beta, k, pool),
+                None, 2 * (x.numel() + c + out),
+                x.numel() * (n + 8) + out * 8)
+    if name == "bias_relu_bf16_fwd":
+        return (lambda: fb.bias_relu_bf16_fwd(x, b),
+                lambda: fb.bias_relu_plain(x, b),
+                None, 2 * (2 * x.numel() + c), 2 * x.numel())
+    if name == "fused_block_bf16_bwd":
+        dp = torch.randn(pooled, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        return (lambda: fb.fused_block_bf16_bwd(x, b, dp, n, alpha, beta, k,
+                                                pool),
+                lambda: fb.fused_block_bwd_plain(x, b, dp, n, alpha, beta, k,
+                                                 pool),
+                None, 2 * (2 * x.numel() + dp.numel() + c) + 4 * c,
+                x.numel() * (3 * n + 20) + dp.numel() * 18)
+    dp = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    return (lambda: fb.bias_relu_bf16_bwd(x, b, dp),
+            lambda: fb.bias_relu_bwd_plain(x, b, dp),
+            None, 2 * (3 * x.numel() + c) + 4 * c, 4 * x.numel())
+
+
 def check_kernels(torch, names, shapes=None, batch=BATCH):
     """Each kernel of ``names`` against its plain version at AlexNet's
     batch-128 shapes, or at ``shapes[name]`` ({layer: (plane, channels)})
@@ -309,20 +379,24 @@ def check_kernels(torch, names, shapes=None, batch=BATCH):
             if isinstance(got, tuple):          # backward: (dx, db)
                 (got, got_db), (want, want_db) = got, want
                 db_ok, db_note = db_check(torch, got_db, want_db, want)
-                if name == "bias_relu_bwd":
+                if name in ("bias_relu_bwd",) + BF16_KERNELS:
                     again = deterministic_db(torch, kern, got_db)
                     db_ok = db_ok and again
                     db_note += f" db_same_bits_twice={again}"
-            if got.shape != want.shape:
-                raise AssertionError(f"{name}[{layer}]: shape "
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name}[{layer}]: {got.dtype} "
                                      f"{tuple(got.shape)} vs plain "
-                                     f"{tuple(want.shape)}")
-            err = (got - want).abs()
-            limit = KERNEL_ATOL + KERNEL_RTOL * want.abs()
+                                     f"{want.dtype} {tuple(want.shape)}")
+            err = (got.float() - want.float()).abs()
+            limit = KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
             max_err = float(err.max())
-            rel = float((err / want.abs().clamp_min(1e-30)).max())
+            rel = float((err / want.float().abs().clamp_min(1e-30)).max())
             ok = bool((err <= limit).all()) and bool(
                 torch.isfinite(got).all()) and db_ok
+            if name in BF16_KERNELS:
+                bits = same_bits(torch, got, want)
+                ok = ok and bits
+                db_note += f" same_bits={bits}"
             lib_err = None
             if lib is not None:
                 lib_err = float((lib() - want).abs().max())
@@ -360,14 +434,16 @@ def check_kernels(torch, names, shapes=None, batch=BATCH):
 #: kernels whose output (dx for a backward) must equal the plain version's
 #: bits
 BIT_EXACT = ("fused_block_fwd", "fused_block_bwd", "lrn_fwd",
-             "bias_relu_bwd", "lrn_bwd")
+             "bias_relu_bwd", "lrn_bwd") + BF16_KERNELS
 
 
 def same_bits(torch, a, b) -> bool:
-    """Whether float32 tensors ``a`` and ``b`` hold the same bits, signed
-    zeros and NaNs included."""
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
+    """Whether float32 or bf16 tensors ``a`` and ``b`` hold the same bits,
+    signed zeros and NaNs included."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = torch.int32 if a.element_size() == 4 else torch.int16
+    return torch.equal(a.view(view), b.view(view))
 
 
 def deterministic_db(torch, kern, db) -> bool:
@@ -380,7 +456,7 @@ def deterministic_db(torch, kern, db) -> bool:
 def db_check(torch, got_db, want_db, want_dx):
     """(ok, note) of a bias gradient against the plain version's: per
     channel |d| <= DB_RTOL * sum|dx|, and finite."""
-    scale = want_dx.abs().sum(dim=tuple(range(want_dx.ndim - 1)))
+    scale = want_dx.float().abs().sum(dim=tuple(range(want_dx.ndim - 1)))
     db_err = (got_db - want_db).abs()
     ok = bool((db_err <= DB_RTOL * scale).all()) and bool(
         torch.isfinite(got_db).all())
@@ -505,13 +581,14 @@ PLANS = {"fused_block_fwd": k1_plan, "fused_block_bwd": k1b_plan,
          "lrn_fwd": k3_plan, "bias_relu_bwd": k2b_plan, "lrn_bwd": k3b_plan}
 
 
-def unaligned(torch, t):
-    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
-    boundary: operands like it take the kernels' scalar paths."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    out = buf[1:].view(t.shape)
+def unaligned(torch, t, offset: int = 4):
+    """A contiguous copy of ``t`` whose data starts ``offset`` bytes past a
+    16-byte boundary: operands like it take the kernels' scalar paths."""
+    shift = offset // t.element_size()
+    buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    out = buf[shift:].view(t.shape)
     out.copy_(t)
-    assert out.data_ptr() % 16 == 4
+    assert out.data_ptr() % 16 == offset
     return out
 
 
@@ -1471,6 +1548,322 @@ def alexnet_units(torch, card):
     return launches
 
 
+#: the bf16 variants beyond AlexNet's case (phase 10), each output and dx
+#: bit-exact against its plain version, db within DB_RTOL and the same
+#: bits twice: kernel -> [(what it takes, shape, pool, n, alpha, beta, k,
+#: input scale or "ties", whether x lies 2 bytes past a 16-byte
+#: boundary)].  The bias+ReLU cases shut a quarter of the gates exactly
+#: (x = -b)
+_BF16_BLOCK_PATHS = [
+    ("odd C 33", (5, 27, 27, 33), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0,
+     False),
+    ("C 20, not a multiple of 8", (3, 13, 13, 20), (3, 3, 2, 2), 5, 1e-4,
+     0.75, 2.0, 2.0, False),
+    ("even window 4", (4, 27, 27, 64), (3, 3, 2, 2), 4, 1e-4, 0.75, 2.0, 2.0,
+     False),
+    ("pool 2x2/2", (4, 26, 26, 32), (2, 2, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0,
+     False),
+    ("pool 4x4/2, window 1", (4, 12, 12, 32), (4, 4, 2, 2), 1, 1e-4, 0.75,
+     2.0, 2.0, False),
+    ("pool 1x1/4, window 7", (4, 9, 9, 24), (1, 1, 4, 4), 7, 1e-4, 0.75,
+     2.0, 2.0, False),
+    ("powf", (3, 13, 13, 33), (3, 3, 2, 2), 5, 1e-4, 0.6, 2.0, 2.0, False),
+    ("s over 20 binades", (4, 27, 27, 64), (3, 3, 2, 2), 5, 1e-2, 0.75, 1e-3,
+     100.0, False),
+    ("one pooled row", (1, 3, 3, 8), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0,
+     False),
+    ("unaligned operand", (4, 9, 9, 64), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0,
+     2.0, True),
+    ("ties", (8, 27, 27, 64), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, "ties",
+     False),
+    ("ties, odd C", (8, 27, 27, 33), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0,
+     "ties", False),
+    ("C 601", (2, 9, 9, 601), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0, False),
+    ("C 1024", (2, 7, 9, 1024), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0,
+     False),
+]
+_BF16_RELU_PATHS = [
+    (label, shape, None, 0, 0.0, 0.0, 0.0, 1.0, off)
+    for label, shape, off in (
+        ("C 1", (3, 17, 17, 1), False), ("odd C 33", (5, 9, 9, 33), False),
+        ("C 20, not a multiple of 8", (4, 9, 9, 20), False),
+        ("C 384", (4, 13, 13, 384), False),
+        ("C 1536, two chunks", (2, 9, 9, 1536), False),
+        ("one row", (1, 1, 1, 256), False),
+        ("unaligned operand", (4, 9, 9, 64), True),
+        ("CIFAR10's conv1, C 16", (100, 32, 32, 16), False))]
+BF16_PATHS = {"fused_block_bf16_fwd": _BF16_BLOCK_PATHS,
+              "fused_block_bf16_bwd": _BF16_BLOCK_PATHS,
+              "bias_relu_bf16_fwd": _BF16_RELU_PATHS,
+              "bias_relu_bf16_bwd": _BF16_RELU_PATHS}
+
+
+def check_bf16_paths(torch):
+    """Each bf16 variant at each case of :data:`BF16_PATHS`: output and dx
+    bit-exact against the plain version, db (float32) within DB_RTOL of
+    it and the same bits on a second launch; reported on their own
+    lines, outside the AlexNet rows."""
+    from znicz_torch import fused_block as fb
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    for name, cases in BF16_PATHS.items():
+        for label, shape, pool, n, alpha, beta, k, scale, off in cases:
+            if scale == "ties":
+                x = tie_heavy(torch, shape, gen)
+                b = torch.zeros(shape[-1:], device="cuda")
+            else:
+                x = torch.randn(shape, generator=gen, device="cuda") * scale
+                b = torch.randn(shape[-1:], generator=gen,
+                                device="cuda") * 0.3
+            x, b = x.to(bf16), b.to(bf16)
+            if pool is None:
+                shut = torch.rand(shape, generator=gen, device="cuda") < 0.25
+                x = torch.where(shut, -b.expand(shape), x)
+                dp_shape = shape
+            else:
+                ky, kx, sy, sx = pool
+                dp_shape = (shape[0], (shape[1] - ky) // sy + 1,
+                            (shape[2] - kx) // sx + 1, shape[3])
+            dp = torch.randn(dp_shape, generator=gen, device="cuda").to(bf16)
+            if off:
+                x = unaligned(torch, x, 2)
+            hyp = (n, alpha, beta, k, pool)
+            kern, plain = {
+                "fused_block_bf16_fwd": (
+                    lambda: fb.fused_block_bf16_fwd(x, b, *hyp),
+                    lambda: fb.fused_block_plain(x, b, *hyp)),
+                "fused_block_bf16_bwd": (
+                    lambda: fb.fused_block_bf16_bwd(x, b, dp, *hyp),
+                    lambda: fb.fused_block_bwd_plain(x, b, dp, *hyp)),
+                "bias_relu_bf16_fwd": (
+                    lambda: fb.bias_relu_bf16_fwd(x, b),
+                    lambda: fb.bias_relu_plain(x, b)),
+                "bias_relu_bf16_bwd": (
+                    lambda: fb.bias_relu_bf16_bwd(x, b, dp),
+                    lambda: fb.bias_relu_bwd_plain(x, b, dp)),
+            }[name]
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            db_ok, note = True, ""
+            if isinstance(got, tuple):
+                (got, got_db), (want, want_db) = got, want
+                db_ok, note = db_check(torch, got_db, want_db, want)
+                again = deterministic_db(torch, kern, got_db)
+                db_ok = db_ok and again and got_db.dtype == torch.float32
+                note += f" db_same_bits_twice={again}"
+            err = float((got.float() - want.float()).abs().max())
+            ok = same_bits(torch, got, want) and db_ok and bool(
+                torch.isfinite(got).all())
+            log(f"[kernel] {name}[{label}] shape={shape} pool={pool} n={n} "
+                f"alpha={alpha:g} beta={beta:g} k={k:g} x*{scale} "
+                f"max_abs_err={err:.3e} (same bits required){note} "
+                f"ms={cuda_ms(torch, kern):.4f} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} {label} disagrees with its "
+                                     f"plain version: {err:.3e}")
+
+
+#: the engine's precision knobs and their defaults
+DTYPE_KNOBS = {"compute_dtype": None, "state_dtype": "float32",
+               "master_dtype": "float32"}
+FUSED_KNOBS = {"fused_elementwise": True, "fused_tail": True}
+_BF16_FUSED_COUNTS = {"fused_block_bf16_fwd": (2, 2),
+                      "fused_block_bf16_bwd": (2, 0),
+                      "bias_relu_bf16_fwd": (3, 3),
+                      "bias_relu_bf16_bwd": (3, 0)}
+#: phase 10's AlexNet runs: routing -> (knobs, {kernel: (launches per
+#: train step, per eval step)}, stored dtypes of (parameters, velocities))
+BF16_ROUTINGS = {
+    "f32:composed": ({}, {}, ("float32", "float32")),
+    "f32:fused": (FUSED_KNOBS, TRAIN_ROUTINGS["fused"][1],
+                  ("float32", "float32")),
+    "bf16:composed": ({"compute_dtype": "bf16"}, {},
+                      ("float32", "float32")),
+    "bf16:fused": ({"compute_dtype": "bf16", **FUSED_KNOBS},
+                   _BF16_FUSED_COUNTS, ("float32", "float32")),
+    "bf16:fused+state_dtype": (
+        {"compute_dtype": "bf16", "state_dtype": "bfloat16", **FUSED_KNOBS},
+        _BF16_FUSED_COUNTS, ("float32", "bfloat16")),
+    "bf16:fused+master_dtype": (
+        {"compute_dtype": "bf16", "master_dtype": "bfloat16",
+         **FUSED_KNOBS}, _BF16_FUSED_COUNTS, ("bfloat16", "float32")),
+}
+#: a bf16 routing's per-step losses against the bf16 composed run's: the
+#: band of the reference's own bf16 routing tests
+#: (tests/test_fused_block_pallas.py:251-266, tests/test_fused_tail.py)
+BF16_LOSS_RTOL = 5e-2
+
+
+def set_knobs(knobs):
+    """Set ``root.common.engine`` knobs; returns a function that puts
+    them back to their defaults (False, or :data:`DTYPE_KNOBS`')."""
+    from znicz_torch.core.config import root
+
+    for key, val in knobs.items():
+        setattr(root.common.engine, key, val)
+
+    def reset():
+        for key in knobs:
+            setattr(root.common.engine, key, DTYPE_KNOBS.get(key, False))
+
+    return reset
+
+
+def bf16_train(torch, card):
+    """Phase 10's AlexNet runs (:data:`BF16_ROUTINGS`): full-width AlexNet
+    (phase 6's configuration), ``FusedTrainer.run()`` from the same
+    weights, shuffles and dropout masks under each routing.  Returns
+    {routing: {kernel: launches}}."""
+    from torch import nn
+
+    from znicz_torch.core import prng
+    from znicz_torch.core.config import root
+    from znicz_torch.decision import DecisionGD
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.samples.alexnet import training_workflow
+
+    root.alexnet.loader.update(TRAIN_CFG)
+    root.alexnet.decision.max_epochs = TRAIN_EPOCHS
+    prng.reset(SEED)
+    wf = no_snapshots(training_workflow())
+    start = {f.name: {k: p.detach().clone()
+                      for k, p in FusedTrainer._params_of(f).items()}
+             for f in wf.forwards if f.has_weights}
+    ctrs = counters()
+    runs = {}
+    for label, (knobs, expect, stored) in BF16_ROUTINGS.items():
+        prng.reset(SEED)                        # same shuffles, same masks
+        wf.loader.reset()
+        for f in wf.forwards:                   # fresh float32 parameters
+            for k, w in start.get(f.name, {}).items():
+                setattr(f, k, nn.Parameter(w.clone(), requires_grad=False))
+        for gd in wf.gds.values():
+            gd.velocities = {}
+        wf.decision = DecisionGD(max_epochs=TRAIN_EPOCHS, fail_iterations=0)
+        reset = set_knobs(knobs)
+        try:
+            trainer = FusedTrainer(wf)
+            for fn in ctrs.values():            # the main path starts here
+                fn.launches = 0
+            t0 = time.perf_counter()
+            trainer.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in ctrs.items()}
+            st = trainer.stats
+            n_train, n_eval = st["train_steps"], st["eval_steps"]
+            losses = list(trainer.train_losses)
+            dtypes = (
+                {str(p.dtype).split(".")[-1]
+                 for ps in trainer.extract_params().values()
+                 for p in ps.values()},
+                {str(v.dtype).split(".")[-1]
+                 for vs in trainer.extract_velocities().values()
+                 for v in vs.values()})
+            idx = np.arange(BATCH)
+            step_ms = cuda_ms(torch,
+                              lambda: trainer.train_step(idx, BATCH, 0),
+                              iters=5, warmup=1)
+        finally:
+            reset()
+        log(f"[bf16:{label}] {n_train} train steps + {n_eval} eval steps "
+            f"in {wall:.2f}s; losses {['%.6f' % v for v in losses]}; "
+            f"stored dtypes: parameters {sorted(dtypes[0])}, velocities "
+            f"{sorted(dtypes[1])}")
+        log(f"[bf16:{label}] {card}: one train step {step_ms:.3f} ms on "
+            f"the device ({BATCH / step_ms * 1e3:.0f} images/s); "
+            f"images/s={st['img_per_sec']:.1f} (after the first step of "
+            f"each kind {st['warm_img_per_sec']:.1f}); launches={launches}")
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"[bf16:{label}] non-finite loss: {losses}")
+        if dtypes != ({stored[0]}, {stored[1]}):
+            raise AssertionError(f"[bf16:{label}] stored dtypes {dtypes}, "
+                                 f"expected {stored}")
+        for name, fn in ctrs.items():
+            per_train, per_eval = expect.get(name, (0, 0))
+            want = per_train * n_train + per_eval * n_eval
+            if launches[name] != want:
+                raise AssertionError(
+                    f"[bf16:{label}] {name}: {launches[name]} launches for "
+                    f"{n_train} train + {n_eval} eval steps, expected {want}")
+        runs[label] = (losses, launches, step_ms)
+    def max_rel(losses, ref):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+
+    f32_base = runs["f32:composed"][0]
+    for label, (losses, _, _) in runs.items():
+        f32 = label.startswith("f32")
+        ref = f32_base if f32 else runs["bf16:composed"][0]
+        l_err = max_rel(losses, ref)
+        tol = LOSS_RTOL if f32 else BF16_LOSS_RTOL
+        log(f"[bf16:{label}] losses vs {'f32' if f32 else 'bf16'}:composed:"
+            f" max rel {l_err:.3e} (tol {tol:g}); vs f32:composed: max rel "
+            f"{max_rel(losses, f32_base):.3e}")
+        if len(losses) != len(ref) or l_err > tol:
+            raise AssertionError(f"[bf16:{label}] leaves the band: "
+                                 f"{l_err:.3e}")
+    log(f"[bf16:step] {card}: one AlexNet train step, batch {BATCH}, ms on "
+        f"the device: " + ", ".join(f"{label} {ms:.3f}"
+                                    for label, (_, _, ms) in runs.items()))
+    del wf
+    torch.cuda.empty_cache()
+    return {label: launches for label, (_, launches, _) in runs.items()}
+
+
+def bf16_mnist(torch, card):
+    """MNIST at its defaults (BASELINE config 0) on ``FusedTrainer``,
+    float32 and then bf16, every named stream reset to ``ANCHOR_SEED``
+    before each: the bf16 run's final train loss within rtol
+    BF16_LOSS_RTOL of the float32 run's, and its valid error within that
+    rtol or one valid image (a count of whole images)."""
+    from znicz_torch.core import prng
+    from znicz_torch.samples import mnist, train
+
+    finals = {}
+    for label, knobs in (("f32", {}), ("bf16", {"compute_dtype": "bf16"})):
+        prng.reset(ANCHOR_SEED)
+        reset = set_knobs(knobs)
+        try:
+            wf = train(mnist.MnistWorkflow(), "mnist", fused=True)
+            dtype = wf.trainer.compute_dtype
+        finally:
+            reset()
+        d = wf.decision
+        finals[label] = (d.epoch_metrics[2]["loss"],
+                         d.epoch_metrics[1]["err_pct"],
+                         wf.loader.class_lengths[1])
+        log(f"[bf16:mnist:{label}] {card}: compute {dtype}: "
+            f"final_train_loss={finals[label][0]:.9f} "
+            f"valid_err_pct={finals[label][1]} images/s="
+            f"{wf.train_stats['img_per_sec']:.1f}")
+        del wf
+    (l32, e32, n_valid), (l16, e16, _) = finals["f32"], finals["bf16"]
+    one_image = 100.0 / max(n_valid, 1)
+    l_err = abs(l16 - l32) / abs(l32)
+    ok = l_err <= BF16_LOSS_RTOL and abs(e16 - e32) <= max(
+        BF16_LOSS_RTOL * abs(e32), one_image)
+    log(f"[bf16:mnist] bf16 vs f32: train loss rel {l_err:.3e} (tol "
+        f"{BF16_LOSS_RTOL:g}), valid err {e16} vs {e32} (tol "
+        f"{BF16_LOSS_RTOL:g} rel or one image, {one_image:g}%) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok or not np.isfinite(l16):
+        raise AssertionError(f"[bf16:mnist] bf16 leaves the float32 run: "
+                             f"{finals}")
+
+
+def bf16_phase(torch, card):
+    """Phase 10: the bf16 variants against their plain versions, then
+    :func:`bf16_train` and :func:`bf16_mnist`.  Returns ({kernel: JSON
+    row}, {routing: {kernel: launches}})."""
+    rows = check_kernels(torch, list(BF16_KERNELS))
+    check_bf16_paths(torch)
+    torch.cuda.empty_cache()
+    runs = bf16_train(torch, card)
+    bf16_mnist(torch, card)
+    return rows, runs
+
+
 def cifar_rows(torch, rows):
     """K2, K2b, K3 and K3b at CIFAR10's shapes (``CIFAR_SHAPES``) against
     their plain versions, as at AlexNet's; their times and bounds go into
@@ -1488,7 +1881,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
                     help="comma-separated kernels: run phases 1-2 for them "
-                         "alone; 'anchors': phases 7-8; 'units': phase 9")
+                         "alone; 'anchors': phases 7-8; 'units': phase 9; "
+                         "'bf16': phase 10")
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -1543,7 +1937,9 @@ def run_phases(torch, args) -> int:
     if args.only:
         names = args.only.split(",")
         anchors, units = "anchors" in names, "units" in names
-        names = [name for name in names if name not in ("anchors", "units")]
+        bf16 = "bf16" in names
+        names = [name for name in names
+                 if name not in ("anchors", "units", "bf16")]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -1571,6 +1967,14 @@ def run_phases(torch, args) -> int:
                     if count:
                         rows[name].setdefault("launches_by_path", {})[
                             f"units:{label}"] = count
+        if bf16:
+            bf16_rows, runs = bf16_phase(torch, card)
+            rows.update(bf16_rows)
+            for label, launches in runs.items():
+                for name, count in launches.items():
+                    if count:
+                        rows.setdefault(name, {"name": name}).setdefault(
+                            "launches_by_path", {})[f"train:{label}"] = count
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -1669,6 +2073,15 @@ def run_phases(torch, args) -> int:
         for name, count in launches.items():
             if count:
                 by_path[name][f"units:{label}"] = count
+    torch.cuda.empty_cache()
+
+    # -- phase 10: bf16 training ---------------------------------------------
+    bf16_rows, runs = bf16_phase(torch, card)
+    rows.update(bf16_rows)
+    for label, launches in runs.items():
+        for name, count in launches.items():
+            if count and label.startswith("bf16"):
+                by_path[name][f"train:{label}"] = count
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

@@ -147,8 +147,9 @@ def test_cli_trains_on_the_engine_asked_for(flag, tmp_path):
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert set(res) == {"workflow", "device", "epochs", "valid_err_pct",
                         "train_loss", "final_train_loss", "train_steps",
-                        "img_per_sec", "warm_img_per_sec"}
+                        "img_per_sec", "warm_img_per_sec", "compute_dtype"}
     assert res["epochs"] == 2 and res["train_steps"] == 9
+    assert res["compute_dtype"] == "float32"
     assert res["img_per_sec"] > 0 and np.isfinite(res["final_train_loss"])
     assert ("gd1 " in out.stderr) == (flag == "unit")   # the unit table
     assert (tmp_path / "mnist_best.pickle.gz").is_file()

@@ -14,7 +14,11 @@ engine unless ``--fused`` (``root.common.engine.fused``) asks for
 sample does.  ``--snapshot`` resumes a sample that takes one (MNIST,
 CIFAR10) from a snapshot file.  The last line of the output is one JSON
 object with the run's finals; ``final_train_loss`` and ``valid_err_pct``
-are the names ``bench.py`` gives them.
+are the names ``bench.py`` gives them, and ``compute_dtype`` the dtype
+the train steps computed in.  The precision knobs are dotted overrides,
+as in the reference: ``root.common.engine.compute_dtype=bf16`` (or
+``precision``), ``state_dtype=bfloat16`` and ``master_dtype=bfloat16``
+(``FusedTrainer`` only).
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ def main(argv=None) -> int:
         kwargs["snapshot"] = args.snapshot
     wf = mod.run(device=args.device, **kwargs)
     d, stats = wf.decision, wf.train_stats
+    trainer = getattr(wf, "trainer", None)
     print(json.dumps({
         "workflow": args.workflow, "device": str(wf.device),
         "epochs": int(d.epoch_number) + 1,
@@ -73,7 +78,11 @@ def main(argv=None) -> int:
         "final_train_loss": (d.epoch_metrics[2] or {}).get("loss"),
         "train_steps": stats["train_steps"],
         "img_per_sec": stats["img_per_sec"],
-        "warm_img_per_sec": stats["warm_img_per_sec"]}))
+        "warm_img_per_sec": stats["warm_img_per_sec"],
+        # the unit engine computes in float32 whatever compute_dtype says,
+        # as the reference's does
+        "compute_dtype": (str(trainer.compute_dtype).split(".")[-1]
+                          if trainer is not None else "float32")}))
     return 0
 
 

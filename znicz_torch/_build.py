@@ -42,21 +42,29 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 
 #: C functions of each library: name -> argtypes.  The first is the
-#: launch function; every restype is int
+#: float32 launch function, the ``*_bf16_*`` ones launch the bf16 operand
+#: variants; every restype is int
 SIGNATURES = {
     "fused_block": {
         "znicz_fused_block_fwd":
             [_P] * 3 + [_I] * 7 + [_F] * 3 + [_I] * 10 + [_P],
-        "znicz_fused_block_smem_limit": [_I]},
-    "bias_relu": {"znicz_bias_relu_fwd": [_P, _P, _P, _LL, _I, _I, _P]},
+        "znicz_fused_block_smem_limit": [_I],
+        "znicz_fused_block_bf16_fwd":
+            [_P] * 3 + [_I] * 7 + [_F] * 3 + [_I] * 6 + [_P]},
+    "bias_relu": {"znicz_bias_relu_fwd": [_P, _P, _P, _LL, _I, _I, _P],
+                  "znicz_bias_relu_bf16_fwd":
+                      [_P, _P, _P, _LL, _I, _I, _P]},
     "lrn": {"znicz_lrn_fwd":
             [_P, _P, _LL, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _LL]
             + [_I] * 5 + [_P]},
     "fused_block_bwd": {
         "znicz_fused_block_bwd":
-            [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I] * 11 + [_P]},
+            [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I] * 11 + [_P],
+        "znicz_fused_block_bf16_bwd":
+            [_P] * 8 + [_I] * 7 + [_F] * 4 + [_I] * 8 + [_P]},
     "bias_relu_bwd": {
-        "znicz_bias_relu_bwd": [_P] * 7 + [_LL] + [_I] * 8 + [_P]},
+        "znicz_bias_relu_bwd": [_P] * 7 + [_LL] + [_I] * 8 + [_P],
+        "znicz_bias_relu_bf16_bwd": [_P] * 6 + [_LL] + [_I] * 5 + [_P]},
     "lrn_bwd": {
         "znicz_lrn_bwd": [_P, _P, _P, _LL, _I, _I, _I] + [_F] * 4
         + [_I] * 4 + [_LL] + [_I] * 5 + [_P]},
@@ -138,12 +146,12 @@ def entry(name: str, fn_name: str = ""):
     return getattr(_libs[name], fn_name or next(iter(SIGNATURES[name])))
 
 
-def check(rc: int, name: str) -> None:
-    """Raise if the launch function of library ``name`` reported a CUDA
-    error."""
+def check(rc: int, name: str, fn_name: str = "") -> None:
+    """Raise if C function ``fn_name`` of library ``name`` (its launch
+    function by default) reported a CUDA error."""
     if rc != 0:
         msg = _libs[name].znicz_error_string(rc).decode()
-        fn_name = next(iter(SIGNATURES[name]))
+        fn_name = fn_name or next(iter(SIGNATURES[name]))
         raise RuntimeError(f"{fn_name}: CUDA error {rc} ({msg})")
 
 

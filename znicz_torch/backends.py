@@ -13,6 +13,9 @@ convolutions and matrix products.  It also restricts cuDNN to its
 deterministic algorithms: some backward-filter algorithms sum in a
 different order from run to run, and over a few train steps that spread
 alone grew as large as the difference between two routings (PERF.md).
+bf16 matrix products keep float32 sums (no reduced-precision split-K
+reduction in cuBLAS), as the reference's bf16 products accumulate in
+float32 and round once.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     CUDA device is wanted and none is available."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda:0" if device is None else device)
     if dev.type == "cuda":

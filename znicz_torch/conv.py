@@ -4,7 +4,8 @@ NHWC activations, weights ``(n_kernels, ky, kx, channels)``, ``sliding``
 (stride) and 4-sided ``padding`` (left, top, right, bottom).  The
 convolution is ``F.conv2d`` on channels_last views of the NHWC tensors,
 as the reference's is one ``lax.conv_general_dilated`` outside any
-kernel of its own.
+kernel of its own.  bf16 operands keep a bf16 output, as the
+reference's do (``conv.py:63-72``).
 """
 
 from __future__ import annotations

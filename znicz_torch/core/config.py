@@ -164,6 +164,10 @@ root.common.dirs.snapshots = "snapshots"
 #: this table declares, it does not apply).
 ENGINE_DEFAULTS = {
     "seed": 1013,
+    "precision": "float32",       # legacy alias of compute_dtype
+    "compute_dtype": None,        # "float32" | "bf16"/"bfloat16"
+    "master_dtype": "float32",    # bf16-stored parameters (FusedTrainer)
+    "state_dtype": "float32",     # velocity storage ("bfloat16")
     "fused_elementwise": False,   # conv1/conv2 block kernel (K1)
     "fused_tail": False,          # conv3-5 bias+ReLU kernel (K2), FC epilogue
     "lrn_pow": False,             # plain pow instead of the rsqrt form

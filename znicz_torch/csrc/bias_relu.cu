@@ -17,6 +17,7 @@
 // grid is capped at a few blocks per SM so each thread streams several
 // vectors.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,5 +83,48 @@ extern "C" int znicz_bias_relu_fwd(const float* x, const float* b, float* y,
     bias_relu_scalar_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(x, b, y, n,
                                                                   C);
   }
+  return (int)cudaGetLastError();
+}
+
+// K2 for bf16 operands: the same grid-stride walk, one element a thread,
+// y = max(x + b, 0) in float32 on the widened operands, rounded to bf16
+// once at the store (__float2bfloat16_rn, round to nearest even), as the
+// TPU kernel computes bf16 operands in float32.  A simple kernel beside
+// the float32 one, with 2-byte accesses.
+
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+bias_relu_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ b,
+                      __nv_bfloat16* __restrict__ y, long long n, int C) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    y[i] = __float2bfloat16_rn(fmaxf(
+        __fadd_rn(__bfloat162float(x[i]), __bfloat162float(b[(int)(i % C)])),
+        0.0f));
+  }
+}
+
+}  // namespace
+
+extern "C" int znicz_bias_relu_bf16_fwd(const void* x, const void* b, void* y,
+                                        long long n, int C, int device,
+                                        void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (C < 1) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  int sms = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > (long long)sms * kBlocksPerSm)
+    blocks = (long long)sms * kBlocksPerSm;
+  bias_relu_bf16_kernel<<<(unsigned)blocks, kThreads, 0,
+                          (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)b, (__nv_bfloat16*)y, n,
+      C);
   return (int)cudaGetLastError();
 }

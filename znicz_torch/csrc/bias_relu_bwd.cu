@@ -37,8 +37,11 @@
 //  - dx = __fmul_rn(dp, gate ? 1 : 0), the plain version's multiply, so
 //    dx is bit-identical, signed zeros and NaNs included.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "column_sum.cuh"
 
 namespace {
 
@@ -238,4 +241,83 @@ extern "C" int znicz_bias_relu_bwd(const float* x, const float* b,
                                                         partial, ticket, p);
   }
   return (int)cudaGetLastError();
+}
+
+// K2b for bf16 operands (x, b, dp; dx bf16, db float32): a simple kernel
+// beside the float32 one, and column_sum.cuh.  dx = dp * [x + b > 0] in
+// float32 on the widened operands (__fmul_rn(dp, gate ? 1 : 0), signed
+// zeros kept), rounded to bf16 once at the store.  Block (i, j) of the
+// row_blocks x chunks grid walks rows [i*rows/row_blocks,
+// (i+1)*rows/row_blocks) of channel chunk j, `slots` rows at a time, one
+// thread a channel; each thread sums its dx in order, the block adds its
+// slots in order into one row of partials, and column_sum.cuh adds the
+// rows: the same db bits on every run, no atomics.
+
+namespace {
+
+constexpr int kBf16Threads = 256;
+
+__global__ void __launch_bounds__(kBf16Threads)
+bias_relu_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ b,
+                          const __nv_bfloat16* __restrict__ dp,
+                          __nv_bfloat16* __restrict__ dx,
+                          float* __restrict__ partial, long long rows, int C,
+                          int tpc) {
+  extern __shared__ float red[];              // slots x tpc
+  const int slots = blockDim.x / tpc;
+  const int slot = threadIdx.x / tpc;
+  const int t = threadIdx.x - slot * tpc;
+  const int c = blockIdx.y * tpc + t;
+  const long long r0 = blockIdx.x * rows / gridDim.x;
+  const long long r1 = (blockIdx.x + 1) * rows / gridDim.x;
+  float acc = 0.0f;
+  if (c < C) {
+    const float bc = __bfloat162float(b[c]);
+    for (long long r = r0 + slot; r < r1; r += slots) {
+      const long long i = r * C + c;
+      const float d = __fmul_rn(
+          __bfloat162float(dp[i]),
+          __fadd_rn(__bfloat162float(x[i]), bc) > 0.0f ? 1.0f : 0.0f);
+      dx[i] = __float2bfloat16_rn(d);
+      acc = __fadd_rn(acc, d);
+    }
+  }
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  if (slot == 0 && c < C) {
+    float s = 0.0f;
+    for (int k = 0; k < slots; ++k) s = __fadd_rn(s, red[k * tpc + t]);
+    partial[(long long)blockIdx.x * C + c] = s;
+  }
+}
+
+}  // namespace
+
+// rows = elements / C; partial holds row_blocks * C floats.  tpc threads
+// take a row of a channel chunk (a multiple of 32, at most 256), chunks of
+// tpc channels cover C, row_blocks >= 1 (fused_block._bf16_relu_plan).
+// Returns cudaGetLastError() after both launches, or
+// cudaErrorInvalidValue for a plan this file does not take.
+extern "C" int znicz_bias_relu_bf16_bwd(const void* x, const void* b,
+                                        const void* dp, void* dx, float* db,
+                                        float* partial, long long rows, int C,
+                                        int tpc, int chunks, int row_blocks,
+                                        int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C < 1 || tpc < 32 || tpc % 32 != 0 || tpc > kBf16Threads ||
+      chunks < 1 || (long long)chunks * tpc < C || row_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaMemsetAsync(db, 0, C * sizeof(float), s);
+  const int slots = kBf16Threads / tpc;
+  bias_relu_bwd_bf16_kernel<<<dim3((unsigned)row_blocks, (unsigned)chunks),
+                              slots * tpc, (size_t)slots * tpc * sizeof(float),
+                              s>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)b,
+      (const __nv_bfloat16*)dp, (__nv_bfloat16*)dx, partial, rows, C, tpc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_column_sum(partial, row_blocks, C, db, s);
 }

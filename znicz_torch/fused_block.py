@@ -23,6 +23,15 @@ backward versions write the reference's backward out op by op: its
 equal split of ``dp`` among tied maxima and its strict ReLU gate
 ``a > 0`` are not what autograd of the plain forward would give.
 
+bf16 operands (``compute_dtype`` bf16) go to the bf16 wrappers
+(``*_bf16_fwd``, ``*_bf16_bwd``), which launch the bf16 entry points of
+the same CUDA sources and count their own launches.  As the TPU kernels
+do, they compute in float32 and round the output and dx once to bf16;
+the plain versions do the same for any operand dtype.  The bias
+gradient comes out of a kernel in float32, and ``fused_block_bwd`` and
+``bias_relu_bwd`` cast it to the bias's dtype, as the reference's
+``_call_bwd`` does.
+
 The planners decide where the fused stages engage, on the same knobs as
 the reference: ``root.common.engine.fused_elementwise`` (blocks; stepped
 aside for by the LRN-formulation knobs ``lrn_pow``/``lrn_autodiff``/
@@ -62,14 +71,14 @@ class FusedTailSpec(NamedTuple):
     dropout_index: int = -1    # forwards index of the absorbed dropout
 
 
-def _check_kernel_operands(name, x, bias, *others):
-    """Raise unless ``x`` is a contiguous float32 NHWC CUDA tensor with a
-    matching bias, and every tensor of ``others`` is a contiguous float32
-    tensor on the same device."""
+def _check_kernel_operands(name, x, bias, *others, dtype=torch.float32):
+    """Raise unless ``x`` is a contiguous NHWC CUDA tensor of ``dtype``
+    with a matching bias, and every tensor of ``others`` is a contiguous
+    tensor of ``dtype`` on the same device."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise TypeError(f"{name} kernel takes float32, got {x.dtype}/"
+    if x.dtype != dtype or bias.dtype != dtype:
+        raise TypeError(f"{name} kernel takes {dtype}, got {x.dtype}/"
                         f"{bias.dtype}")
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError(f"{name} kernel takes a contiguous NHWC tensor, "
@@ -79,9 +88,9 @@ def _check_kernel_operands(name, x, bias, *others):
                          f"{bias.device} does not match {tuple(x.shape)} "
                          f"on {x.device}")
     for t in others:
-        if t.dtype != torch.float32 or not t.is_contiguous() \
+        if t.dtype != dtype or not t.is_contiguous() \
                 or t.device != x.device:
-            raise ValueError(f"{name} kernel takes contiguous float32 "
+            raise ValueError(f"{name} kernel takes contiguous {dtype} "
                              f"operands on {x.device}, got {t.dtype} on "
                              f"{t.device}")
 
@@ -115,7 +124,11 @@ def fused_block_plain(x, bias, n=5, alpha=1e-4, beta=0.75, k=2.0,
                       pool=(3, 3, 2, 2)):
     """The plain version of K1, the reference kernel's arithmetic op by
     op: ``r = relu(x + b)``, ``y = r * inv_pow_rsqrt(k + alpha *
-    W_n(r*r))``, then the max over the ky*kx strided windows."""
+    W_n(r*r))``, then the max over the ky*kx strided windows.  In float32
+    whatever the operands' dtype, as the TPU kernel computes: bf16
+    operands are widened and the result rounded once to ``x``'s dtype."""
+    dtype = x.dtype
+    x, bias = x.float(), bias.float()
     ky, kx, sy, sx = pool
     _, H, W, _ = x.shape
     oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
@@ -123,7 +136,7 @@ def fused_block_plain(x, bias, n=5, alpha=1e-4, beta=0.75, k=2.0,
     p = None
     for win in _pool_windows(r * sb, ky, kx, sy, sx, oh, ow):
         p = win if p is None else torch.maximum(p, win)
-    return p
+    return p.to(dtype)
 
 
 def fused_block_bwd_plain(x, bias, dp, n=5, alpha=1e-4, beta=0.75, k=2.0,
@@ -133,7 +146,11 @@ def fused_block_bwd_plain(x, bias, dp, n=5, alpha=1e-4, beta=0.75, k=2.0,
     dp / nt`` split equally among a window's tied maxima and scattered
     back window offset by offset (i outer, j inner); the closed-form LRN
     backward ``dr = dy*sb - (2 alpha beta)*r*W_n(dy*r*(sb/s))``; the
-    strict gate ``a > 0``.  Returns ``(dx, db)``."""
+    strict gate ``a > 0``.  Returns ``(dx, db)``: in float32 whatever
+    the operands' dtype, as the TPU kernel computes, dx rounded once to
+    ``x``'s dtype and db float32."""
+    dtype = x.dtype
+    x, bias, dp = x.float(), bias.float(), dp.float()
     ky, kx, sy, sx = pool
     _, H, W, _ = x.shape
     oh, ow = dp.shape[1], dp.shape[2]
@@ -158,7 +175,7 @@ def fused_block_bwd_plain(x, bias, dp, n=5, alpha=1e-4, beta=0.75, k=2.0,
     t = dy * r * (sb / s)
     dr = dy * sb - (2.0 * alpha * beta) * r * windowed_channel_sum(t, n)
     da = dr * (a > 0.0).to(x.dtype)
-    return da, torch.sum(da, dim=(0, 1, 2))
+    return da.to(dtype), torch.sum(da, dim=(0, 1, 2))
 
 
 def _tiling_pool(x, pool):
@@ -258,8 +275,11 @@ def fused_block_fwd(x, bias, n=5, alpha=1e-4, beta=0.75, k=2.0,
     """K1: fused bias+StrictRELU+LRN+maxpool over the RAW conv output
     ``x`` (B, H, W, C).  ``pool`` = (ky, kx, sy, sx) must tile (H, W)
     exactly.  CPU tensors take :func:`fused_block_plain`; CUDA tensors
-    launch K1 on :func:`_fwd_plan`'s schedule or raise."""
+    launch K1 on :func:`_fwd_plan`'s schedule or raise; bf16 operands
+    go to :func:`fused_block_bf16_fwd`."""
     pool = _tiling_pool(x, pool)
+    if x.dtype == torch.bfloat16:
+        return fused_block_bf16_fwd(x, bias, n, alpha, beta, k, pool)
     if _all_cpu(x, bias):
         return fused_block_plain(x, bias, n, alpha, beta, k, pool)
     _check_kernel_operands("fused_block_fwd", x, bias)
@@ -280,6 +300,35 @@ def fused_block_fwd(x, bias, n=5, alpha=1e-4, beta=0.75, k=2.0,
 
 #: K1 launches since the count was last reset
 fused_block_fwd.launches = 0
+
+
+def fused_block_bf16_fwd(x, bias, n=5, alpha=1e-4, beta=0.75, k=2.0,
+                         pool=(3, 3, 2, 2)):
+    """K1 for bf16 operands (``csrc/fused_block.cu``,
+    ``znicz_fused_block_bf16_fwd``): :func:`fused_block_fwd`'s function
+    computed in float32 and rounded once to bf16.  CPU tensors take
+    :func:`fused_block_plain`; CUDA tensors launch the kernel or raise."""
+    pool = _tiling_pool(x, pool)
+    if _all_cpu(x, bias):
+        return fused_block_plain(x, bias, n, alpha, beta, k, pool)
+    _check_kernel_operands("fused_block_bf16_fwd", x, bias,
+                           dtype=torch.bfloat16)
+    ky, kx, sy, sx = pool
+    B, H, W, C = x.shape
+    oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
+    out = torch.empty((B, oh, ow, C), dtype=x.dtype, device=x.device)
+    fn = "znicz_fused_block_bf16_fwd"
+    rc = _build.entry("fused_block", fn)(
+        x.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, C, oh, ow,
+        int(n), float(alpha), float(beta), float(k), ky, kx, sy, sx,
+        int(float(beta) == 0.75), x.device.index, _build.stream_of(x))
+    _build.check(rc, "fused_block", fn)
+    fused_block_bf16_fwd.launches += 1
+    return out
+
+
+#: bf16 K1 launches since the count was last reset
+fused_block_bf16_fwd.launches = 0
 
 
 #: most resident K1b blocks an SM holds: its launch bounds give each of
@@ -439,16 +488,22 @@ def fused_block_bwd(x, bias, dp, n=5, alpha=1e-4, beta=0.75, k=2.0,
     """K1b: ``(dx, db)`` of :func:`fused_block_fwd` for the pooled
     cotangent ``dp``, recomputing the forward from ``(x, bias)``.  CPU
     tensors take :func:`fused_block_bwd_plain`; CUDA tensors launch K1b
-    on :func:`_bwd_plan`'s schedule or raise."""
+    on :func:`_bwd_plan`'s schedule or raise; bf16 operands go to
+    :func:`fused_block_bf16_bwd`.  db comes back in the bias's dtype."""
     ky, kx, sy, sx = _tiling_pool(x, pool)
     B, H, W, C = x.shape
     oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
     if tuple(dp.shape) != (B, oh, ow, C):
         raise ValueError(f"fused_block_bwd: dp {tuple(dp.shape)}, expected "
                          f"{(B, oh, ow, C)}")
+    if x.dtype == torch.bfloat16:
+        dx, db = fused_block_bf16_bwd(x, bias, dp, n, alpha, beta, k,
+                                      (ky, kx, sy, sx))
+        return dx, db.to(bias.dtype)
     if _all_cpu(x, bias, dp):
-        return fused_block_bwd_plain(x, bias, dp, n, alpha, beta, k,
-                                     (ky, kx, sy, sx))
+        dx, db = fused_block_bwd_plain(x, bias, dp, n, alpha, beta, k,
+                                       (ky, kx, sy, sx))
+        return dx, db.to(bias.dtype)
     _check_kernel_operands("fused_block_bwd", x, bias, dp)
     plan = bwd_plan_for(x, bias, n, (ky, kx, sy, sx), dp)
     dx = torch.empty_like(x)
@@ -469,6 +524,75 @@ def fused_block_bwd(x, bias, dp, n=5, alpha=1e-4, beta=0.75, k=2.0,
 
 #: K1b launches since the count was last reset
 fused_block_bwd.launches = 0
+
+#: threads a bf16 K1b or K2b block has (``kBf16Threads`` in
+#: ``csrc/fused_block_bwd.cu`` and ``csrc/bias_relu_bwd.cu``), the blocks
+#: their planners give each SM, and the channels a bf16 K1b thread takes
+_BF16_THREADS, _BF16_BLOCKS_PER_SM, _BF16_GROUPS = 256, 8, 4
+
+
+def _bf16_channel_threads(C: int) -> int:
+    """Threads over ``C`` channels, in whole warps, at most a block."""
+    return min(-(-C // 32) * 32, _BF16_THREADS)
+
+
+@functools.lru_cache(maxsize=64)
+def _bf16_bwd_plan(pixels: int, C: int, n_sms: int = 132) -> Tuple[int, int]:
+    """The bf16 K1b's launch, a function of the shape alone so that db
+    sums in one order on every run: ``(tpc, blocks)``, ``tpc`` threads a
+    pixel over its channels (each thread at most four channels) and
+    ``blocks`` blocks over the ``pixels`` NHWC pixels.  Raises
+    ``ValueError`` when C > 1024."""
+    tpc = _bf16_channel_threads(C)
+    if tpc * _BF16_GROUPS < C:
+        raise ValueError(f"fused_block_bf16_bwd kernel: C {C} > "
+                         f"{_BF16_THREADS * _BF16_GROUPS}")
+    slots = _BF16_THREADS // tpc
+    return tpc, max(1, min(-(-pixels // slots), n_sms * _BF16_BLOCKS_PER_SM))
+
+
+def fused_block_bf16_bwd(x, bias, dp, n=5, alpha=1e-4, beta=0.75, k=2.0,
+                         pool=(3, 3, 2, 2)):
+    """K1b for bf16 operands (``csrc/fused_block_bwd.cu``,
+    ``znicz_fused_block_bf16_bwd``): ``(dx, db)`` of :func:`fused_block_bwd`
+    computed in float32, dx rounded once to bf16 and db float32, as the TPU
+    kernel writes it (:func:`fused_block_bwd` casts it to the bias's
+    dtype).  CPU tensors take :func:`fused_block_bwd_plain`; CUDA tensors
+    launch the kernel or raise."""
+    ky, kx, sy, sx = _tiling_pool(x, pool)
+    B, H, W, C = x.shape
+    oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
+    if tuple(dp.shape) != (B, oh, ow, C):
+        raise ValueError(f"fused_block_bf16_bwd: dp {tuple(dp.shape)}, "
+                         f"expected {(B, oh, ow, C)}")
+    if _all_cpu(x, bias, dp):
+        return fused_block_bwd_plain(x, bias, dp, n, alpha, beta, k,
+                                     (ky, kx, sy, sx))
+    _check_kernel_operands("fused_block_bf16_bwd", x, bias, dp,
+                           dtype=torch.bfloat16)
+    tpc, blocks = _bf16_bwd_plan(B * H * W, C,
+                                 _build.device_limits(x.device.index)[1])
+    f32 = {"dtype": torch.float32, "device": x.device}
+    dx = torch.empty_like(x)
+    db = torch.empty((C,), **f32)
+    pm = torch.empty(tuple(dp.shape), **f32)
+    pg = torch.empty(tuple(dp.shape), **f32)
+    partial = torch.empty((blocks, C), **f32)
+    fn = "znicz_fused_block_bf16_bwd"
+    rc = _build.entry("fused_block_bwd", fn)(
+        x.data_ptr(), bias.data_ptr(), dp.data_ptr(), dx.data_ptr(),
+        db.data_ptr(), pm.data_ptr(), pg.data_ptr(), partial.data_ptr(), B,
+        H, W, C, oh, ow, int(n), float(alpha), float(beta), float(k),
+        float(2.0 * alpha * beta), ky, kx, sy, sx,
+        int(float(beta) == 0.75), tpc, blocks, x.device.index,
+        _build.stream_of(x))
+    _build.check(rc, "fused_block_bwd", fn)
+    fused_block_bf16_bwd.launches += 1
+    return dx, db
+
+
+#: bf16 K1b launches since the count was last reset
+fused_block_bf16_bwd.launches = 0
 
 
 class _FusedBlock(torch.autograd.Function):
@@ -500,22 +624,28 @@ def fused_block(x, bias, n=5, alpha=1e-4, beta=0.75, k=2.0,
 
 
 def bias_relu_plain(x, bias):
-    """The plain version of K2: ``relu(x + b)``."""
-    return torch.clamp_min(x + bias, 0.0)
+    """The plain version of K2: ``relu(x + b)``, in float32 whatever the
+    operands' dtype and rounded once to ``x``'s dtype."""
+    return torch.clamp_min(x.float() + bias.float(), 0.0).to(x.dtype)
 
 
 def bias_relu_bwd_plain(x, bias, dp):
     """The plain version of K2b: ``dx = dp * [x + b > 0]`` and ``db``,
-    the sum of ``dx`` over every leading axis.  Returns ``(dx, db)``."""
-    da = dp * ((x + bias) > 0.0).to(dp.dtype)
-    return da, torch.sum(da, dim=tuple(range(da.ndim - 1)))
+    the sum of ``dx`` over every leading axis, in float32 whatever the
+    operands' dtype.  Returns ``(dx, db)``: dx rounded once to ``x``'s
+    dtype, db float32."""
+    da = dp.float() * ((x.float() + bias.float()) > 0.0).to(torch.float32)
+    return da.to(x.dtype), torch.sum(da, dim=tuple(range(da.ndim - 1)))
 
 
 def bias_relu_fwd(x, bias):
     """K2: fused bias+StrictRELU over a (B, H, W, C) conv output.  CPU
-    tensors take :func:`bias_relu_plain`."""
+    tensors take :func:`bias_relu_plain`; bf16 operands go to
+    :func:`bias_relu_bf16_fwd`."""
     if x.ndim != 4:
         raise ValueError(f"fused_bias_relu expects NHWC, got {x.shape}")
+    if x.dtype == torch.bfloat16:
+        return bias_relu_bf16_fwd(x, bias)
     if _all_cpu(x, bias):
         return bias_relu_plain(x, bias)
     _check_kernel_operands("bias_relu_fwd", x, bias)
@@ -530,6 +660,31 @@ def bias_relu_fwd(x, bias):
 
 #: K2 launches since the count was last reset
 bias_relu_fwd.launches = 0
+
+
+def bias_relu_bf16_fwd(x, bias):
+    """K2 for bf16 operands (``csrc/bias_relu.cu``,
+    ``znicz_bias_relu_bf16_fwd``): ``relu(x + b)`` in float32, rounded
+    once to bf16.  CPU tensors take :func:`bias_relu_plain`; CUDA tensors
+    launch the kernel or raise."""
+    if x.ndim != 4:
+        raise ValueError(f"fused_bias_relu expects NHWC, got {x.shape}")
+    if _all_cpu(x, bias):
+        return bias_relu_plain(x, bias)
+    _check_kernel_operands("bias_relu_bf16_fwd", x, bias,
+                           dtype=torch.bfloat16)
+    y = torch.empty_like(x)
+    fn = "znicz_bias_relu_bf16_fwd"
+    rc = _build.entry("bias_relu", fn)(
+        x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel(),
+        int(x.shape[-1]), x.device.index, _build.stream_of(x))
+    _build.check(rc, "bias_relu", fn)
+    bias_relu_bf16_fwd.launches += 1
+    return y
+
+
+#: bf16 K2 launches since the count was last reset
+bias_relu_bf16_fwd.launches = 0
 
 
 #: most threads a K2b block has (``kMaxThreads`` in
@@ -607,12 +762,17 @@ def bias_relu_bwd(x, bias, dp):
     """K2b: ``(dx, db)`` of :func:`bias_relu_fwd` for the cotangent
     ``dp``, the gate recomputed from ``(x, bias)``.  CPU tensors take
     :func:`bias_relu_bwd_plain`; CUDA tensors launch K2b on
-    :func:`_bias_relu_bwd_plan`'s launch or raise."""
+    :func:`_bias_relu_bwd_plan`'s launch or raise; bf16 operands go to
+    :func:`bias_relu_bf16_bwd`.  db comes back in the bias's dtype."""
     if x.ndim != 4 or dp.shape != x.shape:
         raise ValueError(f"bias_relu_bwd: x {tuple(x.shape)} and dp "
                          f"{tuple(dp.shape)} must be the same NHWC shape")
+    if x.dtype == torch.bfloat16:
+        dx, db = bias_relu_bf16_bwd(x, bias, dp)
+        return dx, db.to(bias.dtype)
     if _all_cpu(x, bias, dp):
-        return bias_relu_bwd_plain(x, bias, dp)
+        dx, db = bias_relu_bwd_plain(x, bias, dp)
+        return dx, db.to(bias.dtype)
     _check_kernel_operands("bias_relu_bwd", x, bias, dp)
     C = int(x.shape[-1])
     p = bias_relu_bwd_plan_for(x, bias, dp)
@@ -632,6 +792,55 @@ def bias_relu_bwd(x, bias, dp):
 
 #: K2b launches since the count was last reset
 bias_relu_bwd.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _bf16_relu_plan(rows: int, C: int,
+                    n_sms: int = 132) -> Tuple[int, int, int]:
+    """The bf16 K2b's launch, a function of the shape alone so that db
+    sums in one order on every run: ``(tpc, chunks, row_blocks)``, as few
+    chunks of at most a block's threads as cover C, split evenly, ``tpc``
+    threads a row of a chunk, and ``row_blocks`` blocks along the rows."""
+    chunks = -(-C // _BF16_THREADS)
+    tpc = _bf16_channel_threads(-(-C // chunks))
+    slots = _BF16_THREADS // tpc
+    return tpc, chunks, max(1, min(-(-rows // slots),
+                                   n_sms * _BF16_BLOCKS_PER_SM // chunks))
+
+
+def bias_relu_bf16_bwd(x, bias, dp):
+    """K2b for bf16 operands (``csrc/bias_relu_bwd.cu``,
+    ``znicz_bias_relu_bf16_bwd``): ``(dx, db)`` of :func:`bias_relu_bwd`
+    in float32, dx rounded once to bf16 and db float32 (:func:`bias_relu_bwd`
+    casts it to the bias's dtype).  CPU tensors take
+    :func:`bias_relu_bwd_plain`; CUDA tensors launch the kernel or raise."""
+    if x.ndim != 4 or dp.shape != x.shape:
+        raise ValueError(f"bias_relu_bf16_bwd: x {tuple(x.shape)} and dp "
+                         f"{tuple(dp.shape)} must be the same NHWC shape")
+    if _all_cpu(x, bias, dp):
+        return bias_relu_bwd_plain(x, bias, dp)
+    _check_kernel_operands("bias_relu_bf16_bwd", x, bias, dp,
+                           dtype=torch.bfloat16)
+    C = int(x.shape[-1])
+    rows = x.numel() // C
+    tpc, chunks, row_blocks = _bf16_relu_plan(
+        rows, C, _build.device_limits(x.device.index)[1])
+    dx = torch.empty_like(x)
+    db = torch.empty((C,), dtype=torch.float32, device=x.device)
+    partial = torch.empty((row_blocks, C), dtype=torch.float32,
+                          device=x.device)
+    fn = "znicz_bias_relu_bf16_bwd"
+    rc = _build.entry("bias_relu_bwd", fn)(
+        x.data_ptr(), bias.data_ptr(), dp.data_ptr(), dx.data_ptr(),
+        db.data_ptr(), partial.data_ptr(), rows, C, tpc, chunks, row_blocks,
+        x.device.index, _build.stream_of(x))
+    _build.check(rc, "bias_relu_bwd", fn)
+    bias_relu_bf16_bwd.launches += 1
+    return dx, db
+
+
+#: bf16 K2b launches since the count was last reset
+bias_relu_bf16_bwd.launches = 0
 
 
 class _BiasRelu(torch.autograd.Function):
@@ -661,7 +870,9 @@ def fused_bias_relu(x, bias):
 class _FcEpilogue(torch.autograd.Function):
     """``relu(y + b)`` times an optional dropout mask.  The residual is
     ``(y, bias)``; the backward recomputes the gate and calls
-    ``mask_of`` again for the mask (``pallas_fused_block.py:493-534``)."""
+    ``mask_of`` again for the mask (``pallas_fused_block.py:493-534``).
+    The reference's dtypes: a bf16 ``y`` times the float32 mask is
+    float32; the gradients come back in ``y``'s and ``bias``'s dtypes."""
 
     @staticmethod
     def forward(ctx, y, bias, mask_of):
@@ -675,8 +886,10 @@ class _FcEpilogue(torch.autograd.Function):
         y, bias = ctx.saved_tensors
         da = g * ((y + bias) > 0.0).to(g.dtype)
         if ctx.mask_of is not None:
-            da = da * ctx.mask_of()
-        return da, torch.sum(da, dim=tuple(range(da.ndim - 1))), None
+            da = da * ctx.mask_of().to(g.dtype)
+        return (da.to(y.dtype),
+                torch.sum(da, dim=tuple(range(da.ndim - 1))).to(bias.dtype),
+                None)
 
 
 def fused_fc_epilogue(y, bias, mask_of: Optional[Callable] = None):

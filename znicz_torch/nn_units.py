@@ -44,15 +44,35 @@ def _decay_grad(w, weights_decay, l1_vs_l2):
                                        + float(_F(1.0) - l1) * w)
 
 
+def state_dtype() -> torch.dtype:
+    """The velocities' storage dtype, ``root.common.engine.state_dtype``:
+    ``"float32"`` (default) or ``"bfloat16"``, which rounds each stored
+    velocity to bf16 once a step while the update arithmetic stays
+    float32 (:func:`sgd_update`).  Any other value raises."""
+    from znicz_torch.core.config import root
+
+    name = root.common.engine.get("state_dtype", "float32")
+    if name == "float32":
+        return torch.float32
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(
+        f"root.common.engine.state_dtype={name!r}: must be 'float32' or "
+        "'bfloat16'")
+
+
 def sgd_update(w, g, v, *, lr, weights_decay, l1_vs_l2, momentum, clip):
     """One update of weight ``w`` with gradient ``g`` and velocity ``v``;
-    returns ``(w_new, v_new)``.  Inputs are not modified."""
+    returns ``(w_new, v_new)``.  Inputs are not modified.  ``v`` may be
+    stored in a narrower dtype (:func:`state_dtype`): the arithmetic runs
+    in ``w``'s dtype, the new weight takes the unrounded velocity, and the
+    new velocity is returned in ``v``'s own dtype."""
     clip = _F(clip)
     if clip > 0.0:
         g = torch.clamp(g, -float(clip), float(clip))
     g = g + _decay_grad(w, weights_decay, l1_vs_l2)
-    v_new = float(_F(momentum)) * v - float(_F(lr)) * g
-    return w + v_new, v_new
+    v_new = float(_F(momentum)) * v.to(w.dtype) - float(_F(lr)) * g
+    return w + v_new, v_new.to(v.dtype)
 
 
 class GradientDescent:
@@ -170,7 +190,8 @@ class GradientDescentBase(Unit, GradientDescent):
         one."""
         for k, p in self.forward.params().items():
             if k not in self.velocities:
-                self.velocities[k] = torch.zeros_like(p.detach())
+                self.velocities[k] = torch.zeros_like(p.detach(),
+                                                      dtype=state_dtype())
 
     def backward_apply(self, x):
         """The function whose vjp is this unit's backward: the forward

@@ -1,5 +1,8 @@
 """Dense op (port of ``znicz_tpu/ops/linear.py``): a plain ``torch.matmul``,
-as the reference leaves its ``jnp.dot`` to XLA."""
+as the reference leaves its ``jnp.dot`` to XLA.  bf16 operands keep a bf16
+output (float32 sums inside: ``backends.resolve_device`` turns cuBLAS's
+reduced-precision bf16 reduction off), as the reference's bf16 products
+do, so that the cotangents keep the operands' dtype."""
 
 from __future__ import annotations
 

@@ -25,6 +25,20 @@ workflow's ``lr_adjust`` unit advances after each applied update, and at
 each epoch's end (after the tail's update) its ``snapshotter`` runs, as
 the reference's epoch hook runs it.
 
+**Mixed precision** (the reference's ``compute_dtype``, ``master_dtype``
+and ``state_dtype`` knobs).  Under ``compute_dtype`` bf16 each step reads
+every float32 parameter as its bf16 cast (the reference's ``cparams``;
+gradients reach the stored parameters through the cast), casts the input
+and then the activation entering every module to bf16, and casts the
+logits to float32 before the loss.  Convolutions and products of bf16
+operands give bf16; a bf16 activation times a float32 dropout mask is
+float32 until the next module's cast.  Under ``master_dtype`` "bfloat16"
+the parameters are stored bf16 from the first train step on and updated
+in float32; under ``state_dtype`` "bfloat16" the velocities are
+(``nn_units.sgd_update``).  ``forward_pass`` itself casts nothing:
+serving stays float32.  No ``torch.autocast``: its per-op lists keep some
+ops in float32 where the reference does not.
+
 **Dropout masks.**  ``mask_fn(step, index, shape, ratio)`` supplies the
 mask of forwards index ``index`` at train step ``step``; by default it
 draws :meth:`DropoutForward.make_mask` from the ``fused_trainer`` stream's
@@ -36,10 +50,12 @@ through this seam.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from znicz_torch.all2all import All2AllSoftmax
 from znicz_torch.core import prng
@@ -50,10 +66,36 @@ from znicz_torch.fused_block import (fused_bias_relu, fused_block,
                                      fused_fc_epilogue, fused_softmax_xent,
                                      plan_fused_blocks, plan_fused_tail)
 from znicz_torch.loader.base import TRAIN
-from znicz_torch.nn_units import params_of
+from znicz_torch.nn_units import params_of, state_dtype
 from znicz_torch.ops.linear import linear
 
 MaskFn = Callable[[int, int, tuple, float], torch.Tensor]
+
+
+def compute_dtype() -> torch.dtype:
+    """``root.common.engine.compute_dtype`` ("float32", "bf16" or
+    "bfloat16"), or the legacy ``precision`` when it is unset, as a torch
+    dtype.  Any other value raises."""
+    eng = root.common.engine
+    cd = eng.get("compute_dtype", None)
+    if cd is None:
+        cd = eng.get("precision", "float32")
+    cd = {"bf16": "bfloat16"}.get(str(cd), str(cd))
+    if cd not in ("float32", "bfloat16"):
+        raise ValueError(f"root.common.engine.compute_dtype={cd!r}: must be "
+                         "'float32' or 'bf16'/'bfloat16'")
+    return torch.float32 if cd == "float32" else torch.bfloat16
+
+
+def master_dtype() -> Optional[torch.dtype]:
+    """``torch.bfloat16`` under ``root.common.engine.master_dtype``
+    "bfloat16" (parameters stored bf16), None under "float32".  Any other
+    value raises."""
+    md = str(root.common.engine.get("master_dtype", "float32"))
+    if md not in ("float32", "bfloat16"):
+        raise ValueError(f"root.common.engine.master_dtype={md!r}: must be "
+                         "'float32' or 'bfloat16'")
+    return None if md == "float32" else torch.bfloat16
 
 
 class FusedTrainer:
@@ -87,6 +129,15 @@ class FusedTrainer:
                       "wall_s": 0.0, "img_per_sec": 0.0, "warm_images": 0, "warm_wall_s": 0.0,
                       "warm_img_per_sec": 0.0}
         self._seen_kinds = set()
+        self.compute_dtype = compute_dtype()
+        self.master_dtype = master_dtype()
+        state_dtype()                       # a bad spelling raises here
+        if self.compute_dtype == torch.bfloat16 and \
+                bool(root.common.engine.get("pallas_lrn", False)):
+            raise NotImplementedError(
+                "pallas_lrn under compute_dtype bf16: the standalone LRN "
+                "kernels K3/K3b compute in the operand dtype and have no "
+                "bf16 variant yet (ROADMAP queue B)")
 
     @property
     def train_losses(self):
@@ -120,17 +171,47 @@ class FusedTrainer:
                 for f in self._weighted() if f.name in self.gd_of}
 
     def _init_velocities(self) -> None:
-        """Zero momentum for every parameter that has none yet, and
-        gradients on for every parameter."""
+        """Zero momentum (in :func:`state_dtype`) for every parameter that
+        has none yet, gradients on for every parameter, and the
+        parameters stored in ``master_dtype`` when it is set."""
         for f in self._weighted():
             gd = self.gd_of.get(f.name)
             if gd is None:
                 raise ValueError(f"{f.name} has no gradient-descent "
                                  f"hyperparameters")
             for k, p in self._params_of(f).items():
+                if self.master_dtype is not None \
+                        and p.dtype != self.master_dtype:
+                    p = nn.Parameter(p.detach().to(self.master_dtype))
+                    setattr(f, k, p)
                 p.requires_grad_(True)
                 if k not in gd.velocities:
-                    gd.velocities[k] = torch.zeros_like(p.detach())
+                    gd.velocities[k] = torch.zeros_like(p.detach(),
+                                                        dtype=state_dtype())
+
+    def _cast(self, t):
+        """A float32 tensor cast to the compute dtype; others as they
+        are."""
+        return t.to(self.compute_dtype) if t.dtype == torch.float32 else t
+
+    @contextlib.contextmanager
+    def _compute_params(self):
+        """Within it, each parameter stored in another dtype than the
+        compute dtype reads as its cast to it (the reference's
+        ``cparams``; under float32 compute, bf16-stored parameters widen as
+        jax promotes them), autograd reaching the stored one through the
+        cast."""
+        swapped = []
+        try:
+            for f in self._weighted():
+                for k, p in self._params_of(f).items():
+                    if p.dtype != self.compute_dtype:
+                        f._parameters[k] = p.to(self.compute_dtype)
+                        swapped.append((f, k, p))
+            yield
+        finally:
+            for f, k, p in swapped:
+                f._parameters[k] = p
 
     # -- the forward -----------------------------------------------------------
 
@@ -147,10 +228,12 @@ class FusedTrainer:
             data = data.to(torch.float32) * scale + shift
         return data
 
-    def forward_pass(self, x, train: bool = False, step: int = 0):
+    def forward_pass(self, x, train: bool = False, step: int = 0,
+                     cast: Optional[Callable] = None):
         """The last module's output (LOGITS for a softmax head) for an
         NHWC batch ``x``; ``train`` applies the dropout masks of train
-        step ``step``."""
+        step ``step``; ``cast`` re-casts the activation entering every
+        module (mixed precision)."""
         plan = plan_fused_blocks(self.forwards)
         tail_plan = plan_fused_tail(self.forwards, plan)
         h = x
@@ -158,6 +241,8 @@ class FusedTrainer:
         i = 0
         while i < len(self.forwards):
             f = self.forwards[i]
+            if cast is not None:
+                h = cast(h)
             blk = plan.get(i)
             if blk is not None:
                 h = fused_block(f.apply_linear(h), f.bias, blk.n, blk.alpha,
@@ -199,8 +284,13 @@ class FusedTrainer:
                          train: bool):
         """``(loss, (loss, n_err, confusion))`` of a minibatch whose first
         ``batch_size`` rows are valid; the loss is the mean softmax-CE of
-        those rows, through the fused head under ``fused_tail``."""
-        logits = self.forward_pass(data, train, step).float()
+        those rows, through the fused head under ``fused_tail``.  The
+        forward runs in the compute dtype, the loss in float32."""
+        cast = None if self.compute_dtype == torch.float32 else self._cast
+        with self._compute_params():
+            if cast is not None:
+                data = cast(data)
+            logits = self.forward_pass(data, train, step, cast).float()
         n = logits.shape[0]
         valid = torch.arange(n, device=logits.device) < batch_size
         denom = max(int(batch_size), 1)
@@ -233,7 +323,10 @@ class FusedTrainer:
         grads = torch.autograd.grad(loss, [p for _, _, p in leaves])
         with torch.no_grad():
             for (name, k, p), g in zip(leaves, grads):
-                p.copy_(self.gd_of[name].update(k, p, g))
+                # float32 arithmetic; a bf16-stored parameter is widened,
+                # updated and rounded back by the copy
+                w = p if self.master_dtype is None else p.float()
+                p.copy_(self.gd_of[name].update(k, w, g.float()))
         self.stats["train_steps"] += 1
         return metrics
 

@@ -11,7 +11,11 @@ classes, or ``root.alexnet.loader.data_path``'s .npz) through
 :func:`training_workflow`; :func:`run` trains it with ``FusedTrainer``,
 as the reference's ``run`` does, or with the unit engine under
 ``fused=False``.  Its snapshotter is best-only
-(``alexnet_best.pickle.gz``).
+(``alexnet_best.pickle.gz``).  The reference's headline configuration
+trains in bf16: ``root.common.engine.compute_dtype=bf16`` (with
+``state_dtype=bfloat16`` for bf16 velocities) reaches ``FusedTrainer``
+through the config tree; under ``fused_elementwise`` and ``fused_tail``
+its conv stack then runs the bf16 variants of K1, K1b, K2 and K2b.
 """
 
 from __future__ import annotations

@@ -12,8 +12,13 @@ leaves and no torch object::
      "epoch": N, "metric": x, "time": t, "config": {...}}
 
 so a file the port writes restores into the reference's workflow of the
-same unit names, and the reverse.  The reference's async writer, its
-orbax format and multi-host saves are not ported (queues A.1.5, A.3).
+same unit names, and the reverse.  Leaves are written float32 whatever
+the live dtype (bf16 velocities under ``state_dtype``, bf16 parameters
+under ``master_dtype``) and cast to the live dtype on restore.  A
+reference snapshot saved under bf16 state holds ``ml_dtypes`` bf16
+arrays and loads only where that package is installed.  The reference's
+async writer, its orbax format and multi-host saves are not ported
+(queues A.1.5, A.3).
 """
 
 from __future__ import annotations
@@ -32,7 +37,10 @@ from znicz_torch.core.units import Unit
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy().copy()
+    """A float32 host copy: a bf16 velocity (``state_dtype``) or
+    parameter (``master_dtype``) widens exactly, and the pickle needs no
+    bf16 numpy type."""
+    return t.detach().float().cpu().numpy().copy()
 
 
 def collect(workflow) -> Dict:
@@ -86,6 +94,9 @@ def collect_meta(workflow) -> Dict:
 
 
 def _assign(param: torch.Tensor, value) -> None:
+    """Copy a snapshot leaf into ``param``, cast to the live dtype (a
+    float32 leaf into a bf16 velocity rounds to nearest even), as the
+    reference's restore casts it."""
     with torch.no_grad():
         param.copy_(torch.from_numpy(np.array(value, np.float32)))
 

@@ -8,7 +8,8 @@ package, ``{unit_name: {"weights": array, "bias": array}}`` with numpy
 tree (the same layout) into the momentum state.  The reverse,
 :func:`params_to_numpy` and :func:`velocities_to_numpy`, gives numpy
 trees in that layout, so both packages can start a step from one state
-and be compared after it.  The
+and be compared after it.  Leaves load into the live tensors' dtypes and
+come back as float32 (a bf16 velocity or parameter widens exactly).  The
 two packages store every tensor in the same layout (conv weights
 ``(K, ky, kx, C)``, FC weights ``(out, in)`` or ``(in, out)`` with
 ``weights_transposed``), so nothing is transposed on the way.
@@ -20,6 +21,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from znicz_torch.nn_units import state_dtype
 
 
 def _targets(workflow, velocities: bool):
@@ -35,7 +38,8 @@ def _targets(workflow, velocities: bool):
             vel = workflow.gds[f.name].velocities
             for key, param in leaves.items():
                 if key not in vel:
-                    vel[key] = torch.zeros_like(param.detach())
+                    vel[key] = torch.zeros_like(param.detach(),
+                                                dtype=state_dtype())
             leaves = {key: vel[key] for key in leaves}
         out[f.name] = leaves
     return out
@@ -75,7 +79,8 @@ def velocities_from_jax(tree: Mapping[str, Mapping[str, object]], workflow):
 
 
 def _to_numpy(workflow, velocities: bool):
-    return {name: {key: t.detach().cpu().numpy().copy()
+    """float32 leaves: a bf16-stored tensor is widened, exactly."""
+    return {name: {key: t.detach().float().cpu().numpy().copy()
                    for key, t in leaves.items()}
             for name, leaves in _targets(workflow, velocities).items()}
 
