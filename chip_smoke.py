@@ -87,16 +87,27 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      4x4/2 and 1x1/4, windows 1, 4, 5 and 7, powf, tied maxima): every
      output and dx bit-exact, db within DB_RTOL of the float32 sums and
      the same bits on a second launch, with bounds counting 2 bytes a bf16
-     element and 4 a db float; full-width AlexNet (phase 6's
-     configuration) trained 3 steps from the same weights and masks in
-     float32 (composed, ``fused``) and in bf16 (composed, ``fused``,
-     ``fused`` with ``state_dtype`` and with ``master_dtype`` bf16):
-     every loss finite, each bf16 ``fused`` run within rtol 5e-2 of the
-     bf16 composed run, exactly 2/2/3/3 bf16 K1/K1b/K2/K2b launches a
-     train step (2/0/3/0 an eval step) and no float32 kernel launch, the
-     stored velocity and parameter dtypes asserted, each train step's
-     device time printed beside the float32 one; MNIST at its defaults on
-     ``FusedTrainer`` in bf16, its finals against the float32 run's.
+     element and 4 a db float; the bf16 K3 and K3b (every operation in
+     bf16, as the reference's LRN kernels compute) at AlexNet's shapes and
+     the cases of ``BF16_LRN_PATHS``, y and dx bit-exact and the same bits
+     twice, timed against ``F.local_response_norm`` in bf16 and its
+     autograd backward; the bf16 K2, K2b, K3 and K3b at CIFAR10's shapes;
+     full-width AlexNet (phase 6's configuration) trained 3 steps from the
+     same weights and masks in float32 (composed, ``fused``) and in bf16
+     (composed, ``fused``, ``fused`` with ``state_dtype`` and with
+     ``master_dtype`` bf16, ``pallas_lrn`` + ``fused_tail``): every loss
+     finite, each bf16 kernel routing within rtol 5e-2 of the bf16
+     composed run, exactly 2/2/3/3 bf16 K1/K1b/K2/K2b launches a train
+     step (2/0/3/0 an eval step) under ``fused`` and 2/2/5/5 bf16
+     K3/K3b/K2/K2b (2/0/5/0) under ``pallas_lrn``, no float32 kernel
+     launch, the stored velocity and parameter dtypes asserted, each train
+     step's device time printed beside the float32 one; MNIST at its
+     defaults on ``FusedTrainer`` in bf16, its finals against the float32
+     run's; CIFAR10 at its defaults on ``FusedTrainer`` in bf16 under
+     ``pallas_lrn`` + ``fused_tail``: every loss finite, the first 8
+     within rtol 5e-2 of the port's CPU run, bf16 K3/K3b once and K2/K2b
+     three times a train step, its finals printed beside phase 8's
+     float32 ``pallas_lrn`` finals.
 
 Snapshots go to a temporary directory, removed at the end; the AlexNet
 runs write none (their snapshotter is gated off: a full-width snapshot
@@ -108,7 +119,8 @@ script exits non-zero before printing any result.
 
 runs phases 1 and 2 for the named kernels alone, with the ``*_PATHS``
 cases of each kernel named (``fused_block_fwd``, ``fused_block_bwd``,
-``lrn_fwd``, ``bias_relu_bwd``, ``lrn_bwd``), phases 7 and 8 for
+``lrn_fwd``, ``bias_relu_bwd``, ``lrn_bwd``, ``lrn_bf16_fwd``,
+``lrn_bf16_bwd``), phases 7 and 8 for
 ``anchors``, phase 9 for ``units`` and phase 10 for ``bf16``; it prints
 the ``kernels`` object and no ``ok`` line.
 """
@@ -228,25 +240,30 @@ KERNELS = {
                 "znicz_tpu/ops/lrn_pallas.py:86",
                 {"conv1": (55, 96), "conv2": (27, 256)}),
     # the bf16 operand variants (phase 10): compute_dtype bf16 under
-    # ``fused``, which runs the bias+ReLU kernels at conv3-5 only
+    # ``fused`` runs the bias+ReLU kernels at conv3-5, under
+    # ``pallas_lrn`` at conv1-5, with the standalone LRN kernels
     "fused_block_bf16_fwd": ("znicz_torch/csrc/fused_block.cu",
                              "znicz_tpu/pallas_fused_block.py:112",
                              {"conv1": (55, 96), "conv2": (27, 256)}),
     "bias_relu_bf16_fwd": ("znicz_torch/csrc/bias_relu.cu",
                            "znicz_tpu/pallas_fused_block.py:392",
-                           {"conv3": (13, 384), "conv4": (13, 384),
-                            "conv5": (13, 256)}),
+                           BIAS_RELU_LAYERS),
+    "lrn_bf16_fwd": ("znicz_torch/csrc/lrn.cu",
+                     "znicz_tpu/ops/lrn_pallas.py:78",
+                     {"conv1": (55, 96), "conv2": (27, 256)}),
     "fused_block_bf16_bwd": ("znicz_torch/csrc/fused_block_bwd.cu",
                              "znicz_tpu/pallas_fused_block.py:125",
                              {"conv1": (55, 96), "conv2": (27, 256)}),
     "bias_relu_bf16_bwd": ("znicz_torch/csrc/bias_relu_bwd.cu",
                            "znicz_tpu/pallas_fused_block.py:400",
-                           {"conv3": (13, 384), "conv4": (13, 384),
-                            "conv5": (13, 256)}),
+                           BIAS_RELU_LAYERS),
+    "lrn_bf16_bwd": ("znicz_torch/csrc/lrn_bwd.cu",
+                     "znicz_tpu/ops/lrn_pallas.py:86",
+                     {"conv1": (55, 96), "conv2": (27, 256)}),
 }
 #: the bf16 operand variants, checked and run in phase 10
-BF16_KERNELS = ("fused_block_bf16_fwd", "bias_relu_bf16_fwd",
-                "fused_block_bf16_bwd", "bias_relu_bf16_bwd")
+BF16_KERNELS = ("fused_block_bf16_fwd", "bias_relu_bf16_fwd", "lrn_bf16_fwd",
+                "fused_block_bf16_bwd", "bias_relu_bf16_bwd", "lrn_bf16_bwd")
 
 
 def counters():
@@ -321,11 +338,35 @@ def _case(torch, name, x, b, gen, n, alpha, beta, k, pool):
 
 def _bf16_case(torch, name, x, b, gen, n, alpha, beta, k, pool, pooled):
     """:func:`_case` for a bf16 variant: ``x`` and ``b`` (and the
-    cotangent) rounded to bf16; 2 bytes a bf16 element, 4 a db float."""
+    cotangent) rounded to bf16; 2 bytes a bf16 element, 4 a db float.
+    The LRN kernels' library yardsticks are ``F.local_response_norm`` and
+    its autograd backward in bf16."""
+    import torch.nn.functional as F
+
     from znicz_torch import fused_block as fb
+    from znicz_torch.ops import lrn
 
     x, b = x.to(torch.bfloat16), b.to(torch.bfloat16)
     c = x.shape[-1]
+    if name.startswith("lrn"):
+        r = torch.clamp_min(x, 0.0)             # LRN reads ReLU output
+        rn = r.permute(0, 3, 1, 2)
+        if name == "lrn_bf16_fwd":
+            return (lambda: lrn.lrn_bf16_fwd(r, n, alpha, beta, k),
+                    lambda: lrn.lrn_plain(r, n, alpha, beta, k),
+                    lambda: F.local_response_norm(rn, n, alpha * n, beta, k)
+                    .permute(0, 2, 3, 1),
+                    2 * 2 * r.numel(), r.numel() * (n + 5))
+        dy = torch.randn(r.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        rn = rn.detach().requires_grad_(True)
+        yn = F.local_response_norm(rn, n, alpha * n, beta, k)
+        dyn = dy.permute(0, 3, 1, 2)
+        return (lambda: lrn.lrn_bf16_bwd(r, dy, n, alpha, beta, k),
+                lambda: lrn.lrn_bwd_plain(r, dy, n, alpha, beta, k),
+                lambda: torch.autograd.grad(yn, rn, dyn, retain_graph=True)[0]
+                .permute(0, 2, 3, 1),
+                2 * 3 * r.numel(), r.numel() * (3 * n + 14))
     if name == "fused_block_bf16_fwd":
         out = BATCH * pooled[1] * pooled[2] * c
         return (lambda: fb.fused_block_bf16_fwd(x, b, n, alpha, beta, k,
@@ -397,6 +438,10 @@ def check_kernels(torch, names, shapes=None, batch=BATCH):
                 bits = same_bits(torch, got, want)
                 ok = ok and bits
                 db_note += f" same_bits={bits}"
+            if name in BF16_LRN:
+                again = same_bits(torch, kern(), got)
+                ok = ok and again
+                db_note += f" same_bits_twice={again}"
             lib_err = None
             if lib is not None:
                 lib_err = float((lib() - want).abs().max())
@@ -431,6 +476,8 @@ def check_kernels(torch, names, shapes=None, batch=BATCH):
     return rows
 
 
+#: the bf16 LRN kernels, which compute in bf16 as the reference's do
+BF16_LRN = ("lrn_bf16_fwd", "lrn_bf16_bwd")
 #: kernels whose output (dx for a backward) must equal the plain version's
 #: bits
 BIT_EXACT = ("fused_block_fwd", "fused_block_bwd", "lrn_fwd",
@@ -1153,6 +1200,10 @@ ANCHOR_RUNS = {
 }
 
 
+#: each anchor run's finals, for phase 10's CIFAR10 run to print beside
+ANCHOR_FINALS = {}
+
+
 def cpu_steps(sample, n):
     """The first ``n`` train losses of ``sample``'s default run on the
     CPU (the plain twins), seeded as the anchor runs are and under the
@@ -1262,6 +1313,7 @@ def anchors_phase(torch, card, trace_path=""):
             raise AssertionError(f"[anchor:{label}] outside the band of "
                                  f"BASELINE config {config}: {fatal}")
         runs[label] = launches
+        ANCHOR_FINALS[label] = finals
         del wf
         torch.cuda.empty_cache()
     if trace_path:
@@ -1664,6 +1716,84 @@ def check_bf16_paths(torch):
                                      f"plain version: {err:.3e}")
 
 
+#: the bf16 K3 and K3b beyond AlexNet's case, y and dx bit-exact against
+#: their plain versions, the same bits on a second launch: (what it takes,
+#: shape, n, alpha, beta, k, input scale, the operand that lies 2 bytes
+#: past a 16-byte boundary, whether x is mostly zeros and dy holds +0s and
+#: -0s).  x is ReLU output, as on the main path.  beta 0.5 takes torch.pow's
+#: rsqrt case on the card, beta 0.6 rounds -beta to bf16 (-0.6015625)
+BF16_LRN_PATHS = [
+    ("odd C 33", (5, 9, 9, 33), 5, 1e-4, 0.75, 2.0, 2.0, "", False),
+    ("C 20, not a multiple of 8", (4, 9, 9, 20), 5, 1e-4, 0.75, 2.0, 2.0, "",
+     False),
+    ("CIFAR10's norm, C 16", (100, 16, 16, 16), 5, 1e-4, 0.75, 2.0, 2.0, "",
+     False),
+    ("even window 4", (4, 9, 9, 64), 4, 1e-4, 0.75, 2.0, 2.0, "", False),
+    ("window 1", (3, 9, 9, 32), 1, 1e-4, 0.75, 2.0, 2.0, "", False),
+    ("window 7", (3, 9, 9, 32), 7, 1e-4, 0.75, 2.0, 2.0, "", False),
+    ("beta 0.6, powf", (4, 13, 13, 96), 5, 1e-4, 0.6, 2.0, 2.0, "", False),
+    ("beta 0.5, rsqrt", (4, 13, 13, 96), 5, 1e-4, 0.5, 2.0, 2.0, "", False),
+    ("alpha 1e-2, k 1e-3, x*100", (4, 13, 13, 96), 5, 1e-2, 0.75, 1e-3,
+     100.0, "", False),
+    ("C 1024", (2, 7, 7, 1024), 5, 1e-4, 0.75, 2.0, 2.0, "", False),
+    ("C 4097, one row a block", (2, 3, 5, 4097), 5, 1e-4, 0.75, 2.0, 2.0, "",
+     False),
+    ("x 2 bytes past 16", (4, 9, 9, 64), 5, 1e-4, 0.75, 2.0, 2.0, "x",
+     False),
+    ("dy 2 bytes past 16", (4, 9, 9, 64), 5, 1e-4, 0.75, 2.0, 2.0, "dy",
+     False),
+    ("one row", (1, 1, 1, 256), 5, 1e-4, 0.75, 2.0, 2.0, "", False),
+    ("zero-heavy x, +-0 in dy", (4, 13, 13, 96), 5, 1e-4, 0.75, 2.0, 2.0, "",
+     True),
+    ("window 1, zero-heavy x, +-0 in dy", (3, 9, 9, 32), 1, 1e-4, 0.75, 2.0,
+     2.0, "", True),
+]
+
+
+def check_bf16_lrn_paths(torch):
+    """The bf16 K3 and K3b at each case of :data:`BF16_LRN_PATHS`: y and dx
+    bit-exact against the plain versions (signed zeros included), the same
+    bits on a second launch; reported on their own lines."""
+    from znicz_torch.ops.lrn import (lrn_bf16_bwd, lrn_bf16_fwd,
+                                     lrn_bwd_plain, lrn_plain)
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    for label, shape, n, alpha, beta, k, scale, off, zeros in BF16_LRN_PATHS:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x = torch.clamp_min((x - 0.8 if zeros else x) * scale, 0.0).to(bf16)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(bf16)
+        if zeros:                       # a quarter +0, a quarter -0
+            u = torch.rand(shape, generator=gen, device="cuda")
+            z = torch.zeros_like(dy)
+            dy = torch.where(u < 0.25, z, torch.where(u < 0.5, -z, dy))
+        if off == "x":
+            x = unaligned(torch, x, 2)
+        elif off == "dy":
+            dy = unaligned(torch, dy, 2)
+        hyp = (n, alpha, beta, k)
+        for name, kern, plain in (
+                ("lrn_bf16_fwd", lambda: lrn_bf16_fwd(x, *hyp),
+                 lambda: lrn_plain(x, *hyp)),
+                ("lrn_bf16_bwd", lambda: lrn_bf16_bwd(x, dy, *hyp),
+                 lambda: lrn_bwd_plain(x, dy, *hyp))):
+            got, want = kern(), plain()
+            again = kern()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            ok = (same_bits(torch, got, want) and same_bits(torch, again, got)
+                  and bool(torch.isfinite(got).all()))
+            neg0 = int(((want == 0) & torch.signbit(want)).sum())
+            log(f"[kernel] {name}[{label}] shape={shape} n={n} "
+                f"alpha={alpha:g} beta={beta:g} k={k:g} x*{scale:g} "
+                f"max_abs_err={err:.3e} (same bits required, twice; -0s "
+                f"{neg0}) ms={cuda_ms(torch, kern):.4f} -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} {label} disagrees with its "
+                                     f"plain version: {err:.3e}")
+
+
 #: the engine's precision knobs and their defaults
 DTYPE_KNOBS = {"compute_dtype": None, "state_dtype": "float32",
                "master_dtype": "float32"}
@@ -1688,6 +1818,11 @@ BF16_ROUTINGS = {
     "bf16:fused+master_dtype": (
         {"compute_dtype": "bf16", "master_dtype": "bfloat16",
          **FUSED_KNOBS}, _BF16_FUSED_COUNTS, ("bfloat16", "float32")),
+    "bf16:pallas_lrn": (
+        {"compute_dtype": "bf16", "pallas_lrn": True, "fused_tail": True},
+        {"lrn_bf16_fwd": (2, 2), "lrn_bf16_bwd": (2, 0),
+         "bias_relu_bf16_fwd": (5, 5), "bias_relu_bf16_bwd": (5, 0)},
+        ("float32", "float32")),
 }
 #: a bf16 routing's per-step losses against the bf16 composed run's: the
 #: band of the reference's own bf16 routing tests
@@ -1852,24 +1987,104 @@ def bf16_mnist(torch, card):
                              f"{finals}")
 
 
+#: phase 10's CIFAR10 run: knobs and {kernel: (launches per train step,
+#: per eval step)}; its one LRN follows a pool, so no block kernel fuses
+BF16_CIFAR = ({"compute_dtype": "bf16", "pallas_lrn": True,
+               "fused_tail": True},
+              {"bias_relu_bf16_fwd": (3, 3), "bias_relu_bf16_bwd": (3, 0),
+               "lrn_bf16_fwd": (1, 1), "lrn_bf16_bwd": (1, 0)})
+#: the bf16 variants at CIFAR10's batch-100 shapes, as CIFAR_SHAPES
+CIFAR_BF16_SHAPES = {"bias_relu_bf16_fwd": CIFAR_LAYERS,
+                     "bias_relu_bf16_bwd": CIFAR_LAYERS,
+                     "lrn_bf16_fwd": {"norm": (16, 16)},
+                     "lrn_bf16_bwd": {"norm": (16, 16)}}
+
+
+def bf16_cifar(torch, card):
+    """CIFAR10 at its defaults (BASELINE config 1) on ``FusedTrainer``
+    under :data:`BF16_CIFAR`'s knobs, every named stream reset to
+    ``ANCHOR_SEED``: every loss finite, the first ``STEP_CHECK`` train
+    losses within BF16_LOSS_RTOL of the port's CPU run of the same
+    configuration, each kernel launched exactly its count per step; the
+    finals printed beside phase 8's float32 ``pallas_lrn`` run's, a miss
+    of ``ANCHOR_BANDS[1]`` printed as a drift (the band is the float32
+    reference's), not raised.  Returns {kernel: launches}."""
+    from znicz_torch.core import prng
+    from znicz_torch.samples import cifar, train
+
+    knobs, expect = BF16_CIFAR
+    ctrs = counters()
+    prng.reset(ANCHOR_SEED)
+    reset = set_knobs(knobs)
+    try:
+        wf = cifar.CifarWorkflow()
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+        t0 = time.perf_counter()
+        train(wf, "cifar", fused=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in ctrs.items()}
+        dtype = wf.trainer.compute_dtype
+        cpu = cpu_steps("cifar", STEP_CHECK)
+    finally:
+        reset()
+    d, st = wf.decision, wf.trainer.stats
+    losses = list(wf.trainer.train_losses)
+    finals = {"final_train_loss": d.epoch_metrics[2]["loss"],
+              "valid_err_pct": d.epoch_metrics[1]["err_pct"]}
+    n_train, n_eval = st["train_steps"], st["eval_steps"]
+    step_err = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu))
+    log(f"[bf16:cifar] {card}: compute {dtype}: {json.dumps(finals)}; "
+        f"float32 pallas_lrn (phase 8): "
+        f"{json.dumps(ANCHOR_FINALS.get('cifar:pallas_lrn', 'not run'))}; "
+        f"{n_train} train steps + {n_eval} eval steps, run() {wall:.2f}s, "
+        f"images/s={st['img_per_sec']:.1f} (after the first call of each "
+        f"kind {st['warm_img_per_sec']:.1f}); launches={launches}")
+    log(f"[bf16:cifar] first {STEP_CHECK} train losses vs the port on the "
+        f"CPU: max rel {step_err:.3e} (tol {BF16_LOSS_RTOL:g})")
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"[bf16:cifar] non-finite loss: {losses}")
+    for name in ctrs:
+        per_train, per_eval = expect.get(name, (0, 0))
+        want = per_train * n_train + per_eval * n_eval
+        if launches[name] != want:
+            raise AssertionError(
+                f"[bf16:cifar] {name}: {launches[name]} launches for "
+                f"{n_train} train + {n_eval} eval steps, expected {want}")
+    if step_err > BF16_LOSS_RTOL:
+        raise AssertionError(f"[bf16:cifar] the card leaves the CPU's first "
+                             f"{STEP_CHECK} steps: {step_err:.3e}")
+    for m, (c, h) in ANCHOR_BANDS[1].items():
+        if abs(finals[m] - c) > h:
+            log(f"[bf16:cifar] MISS: {m} {finals[m]} outside {c} +- {h} "
+                f"(BASELINE config 1, a float32 band), a drift")
+    del wf
+    torch.cuda.empty_cache()
+    return launches
+
+
 def bf16_phase(torch, card):
-    """Phase 10: the bf16 variants against their plain versions, then
-    :func:`bf16_train` and :func:`bf16_mnist`.  Returns ({kernel: JSON
-    row}, {routing: {kernel: launches}})."""
+    """Phase 10: the bf16 variants against their plain versions, at
+    AlexNet's and CIFAR10's shapes and the ``*_PATHS`` cases, then
+    :func:`bf16_train`, :func:`bf16_mnist` and :func:`bf16_cifar`.
+    Returns ({kernel: JSON row}, {routing: {kernel: launches}})."""
     rows = check_kernels(torch, list(BF16_KERNELS))
     check_bf16_paths(torch)
+    check_bf16_lrn_paths(torch)
+    cifar_rows(torch, rows, CIFAR_BF16_SHAPES)
     torch.cuda.empty_cache()
     runs = bf16_train(torch, card)
     bf16_mnist(torch, card)
+    runs["bf16:cifar"] = bf16_cifar(torch, card)
     return rows, runs
 
 
-def cifar_rows(torch, rows):
-    """K2, K2b, K3 and K3b at CIFAR10's shapes (``CIFAR_SHAPES``) against
-    their plain versions, as at AlexNet's; their times and bounds go into
-    each kernel's row as ``"cifar"``."""
-    names = list(CIFAR_SHAPES)
-    for name, row in check_kernels(torch, names, CIFAR_SHAPES,
+def cifar_rows(torch, rows, shapes=CIFAR_SHAPES):
+    """K2, K2b, K3 and K3b (or the kernels of ``shapes``) at CIFAR10's
+    shapes against their plain versions, as at AlexNet's; their times and
+    bounds go into each kernel's row as ``"cifar"``."""
+    for name, row in check_kernels(torch, list(shapes), shapes,
                                    CIFAR_BATCH).items():
         rows.setdefault(name, {"name": name})["cifar"] = {
             key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
@@ -1953,6 +2168,8 @@ def run_phases(torch, args) -> int:
             check_k2b_paths(torch)
         if "lrn_bwd" in names:
             check_k3b_paths(torch)
+        if set(BF16_LRN) & set(names):
+            check_bf16_lrn_paths(torch)
         if anchors:
             cifar_rows(torch, rows)
             for label, launches in anchors_phase(torch, card,

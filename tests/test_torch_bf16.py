@@ -261,6 +261,103 @@ def test_modules_keep_bf16_and_a_dropout_mask_widens():
     assert dy.dtype == db.dtype == torch.bfloat16
 
 
+#: the standalone LRN in bf16, (shape, n, alpha, beta, k, input scale):
+#: AlexNet's conv2 width at n 5; an even window; beta 0.6 (pow of a
+#: rounded exponent) and 0.5; s over many binades; CIFAR10's C 16; n 1
+LRN_BF16_CASES = [((8, 13, 13, 96), 5, 1e-4, 0.75, 2.0, 2.0),
+                  ((4, 9, 9, 64), 4, 1e-4, 0.75, 2.0, 2.0),
+                  ((4, 9, 9, 96), 5, 1e-4, 0.6, 2.0, 2.0),
+                  ((4, 9, 9, 96), 5, 1e-4, 0.5, 2.0, 2.0),
+                  ((4, 9, 9, 96), 5, 1e-2, 0.75, 1e-3, 100.0),
+                  ((10, 16, 16, 16), 5, 1e-4, 0.75, 2.0, 2.0),
+                  ((3, 9, 9, 32), 1, 1e-4, 0.75, 2.0, 2.0)]
+
+
+def _lrn_operands(shape, scale, seed):
+    """ReLU output x (zeros included, so t holds signed zeros) and dy,
+    as ml_dtypes bf16 arrays and as the bf16 tensors of the same bits."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(seed)
+    x = np.maximum(rng.normal(size=shape) * scale, 0).astype(
+        ml_dtypes.bfloat16)
+    dy = rng.normal(size=shape).astype(ml_dtypes.bfloat16)
+    return x, dy, *(torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+                    for a in (x, dy))
+
+
+def _bits(t):
+    return t.view(torch.int16).numpy()
+
+
+@pytest.mark.parametrize("shape,n,alpha,beta,k,scale", LRN_BF16_CASES)
+def test_bf16_lrn_plain_is_the_reference_bit_for_bit(shape, n, alpha, beta,
+                                                     k, scale):
+    """The plain versions of the bf16 K3 and K3b (every operation rounded
+    to bf16, the constants first) give the bits of the reference's
+    ``lrn_pallas.lrn`` forward and vjp, its kernels in interpret mode, in
+    every element, signed zeros included."""
+    import jax
+
+    from znicz_torch.ops.lrn import lrn_bwd_plain, lrn_plain
+    from znicz_tpu.ops.lrn_pallas import lrn as jax_lrn
+
+    x, dy, tx, tdy = _lrn_operands(shape, scale, sum(shape) + n)
+    y, vjp = jax.vjp(lambda v: jax_lrn(v, n, alpha, beta, k), x)
+    dx, = vjp(dy)
+    assert y.dtype == dx.dtype == np.dtype(dy.dtype)
+    np.testing.assert_array_equal(_bits(lrn_plain(tx, n, alpha, beta, k)),
+                                  np.asarray(y).view(np.int16))
+    np.testing.assert_array_equal(
+        _bits(lrn_bwd_plain(tx, tdy, n, alpha, beta, k)),
+        np.asarray(dx).view(np.int16))
+
+
+@pytest.mark.parametrize("n,beta", [(5, 0.75), (4, 0.6), (1, 0.5)])
+def test_float32_lrn_plain_keeps_its_bits(n, beta):
+    """Rounding the constants to the operand dtype changes no float32 bit:
+    the plain versions equal the formulation with the unrounded Python
+    constants, which PyTorch casts to float32 itself."""
+    from znicz_torch.ops.lrn import (lrn_bwd_plain, lrn_plain,
+                                     windowed_channel_sum)
+
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(np.maximum(rng.normal(size=(3, 7, 7, 40)) * 2, 0)
+                         .astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(3, 7, 7, 40)).astype(np.float32))
+    alpha, k = 1e-4, 2.0
+    s = k + alpha * windowed_channel_sum(x * x, n)
+    sb = torch.pow(s, -beta)
+    want_dx = dy * sb - (2.0 * alpha * beta) * x * windowed_channel_sum(
+        dy * x * sb / s, n)
+    assert torch.equal(lrn_plain(x, n, alpha, beta, k).view(torch.int32),
+                       (x * sb).view(torch.int32))
+    assert torch.equal(
+        lrn_bwd_plain(x, dy, n, alpha, beta, k).view(torch.int32),
+        want_dx.view(torch.int32))
+
+
+def test_lrn_wrappers_take_the_bf16_plain_versions_on_the_cpu():
+    """``lrn_fwd``, ``lrn_bwd`` and the op ``lrn`` on CPU bf16 tensors give
+    the plain versions' bits, dx in x's dtype, and launch no kernel."""
+    from znicz_torch.ops import lrn as ops
+
+    *_, tx, tdy = _lrn_operands((2, 5, 5, 24), 2.0, 7)
+    counts = [ops.lrn_fwd.launches, ops.lrn_bwd.launches,
+              ops.lrn_bf16_fwd.launches, ops.lrn_bf16_bwd.launches]
+    y = ops.lrn_fwd(tx)
+    dx = ops.lrn_bwd(tx, tdy)
+    assert y.dtype == dx.dtype == torch.bfloat16
+    assert np.array_equal(_bits(y), _bits(ops.lrn_plain(tx)))
+    assert np.array_equal(_bits(dx), _bits(ops.lrn_bwd_plain(tx, tdy)))
+    xg = tx.clone().requires_grad_(True)
+    got, = torch.autograd.grad(ops.lrn(xg), xg, tdy)
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(_bits(got), _bits(dx))
+    assert counts == [ops.lrn_fwd.launches, ops.lrn_bwd.launches,
+                      ops.lrn_bf16_fwd.launches, ops.lrn_bf16_bwd.launches]
+
+
 @pytest.mark.parametrize("mom,clip", [(0.9, 0.0), (0.5, 0.05)])
 def test_sgd_update_with_a_bf16_velocity_is_the_references(mom, clip):
     import jax.numpy as jnp
@@ -292,8 +389,9 @@ def test_sgd_update_with_a_bf16_velocity_is_the_references(mom, clip):
 
 
 @pytest.mark.parametrize("routing", [
-    {}, {"fused_elementwise": True, "fused_tail": True}],
-    ids=["composed", "fused"])
+    {}, {"fused_elementwise": True, "fused_tail": True},
+    {"pallas_lrn": True, "fused_tail": True}],
+    ids=["composed", "fused", "pallas_lrn"])
 def test_bf16_train_steps_match_the_reference(routing):
     """Three train steps of the tiny AlexNet in bf16 from the reference's
     parameters with its dropout masks: per-step losses within rtol 5e-2
@@ -484,15 +582,25 @@ def test_bf16_state_snapshot_restores_in_both_packages(reference_state,
 # -- refusals and ignores ------------------------------------------------------
 
 
-def test_pallas_lrn_is_refused_under_bf16():
+def test_float32_pallas_lrn_still_trains(tiny_reference):
+    """The float32 half of the old bf16 refusal test: ``FusedTrainer``
+    constructs under float32 ``pallas_lrn`` and takes a train step whose
+    LRN layers compute in float32."""
+    from znicz_torch.lrn import LRNormalizerForward
     from znicz_torch.parallel.fused import FusedTrainer
 
-    twf = _tiny_port()
-    with dtype_knobs(compute_dtype="bf16"), knobs(pallas_lrn=True):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
-            FusedTrainer(twf)
+    twf = _port_workflow(tiny_reference, tiny_layers())
+    seen = []
+    for f in twf.forwards:
+        if isinstance(f, LRNormalizerForward):
+            f.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
     with knobs(pallas_lrn=True):
-        FusedTrainer(twf)               # float32 pallas_lrn is untouched
+        t = FusedTrainer(twf, mask_fn=_jax_masks())
+        assert t.compute_dtype == torch.float32
+        idx, bs = STEPS[0]
+        loss, _, _ = t.train_step(np.array(idx), bs, 0)
+    assert np.isfinite(float(loss))
+    assert seen == [torch.float32] * 2
 
 
 def test_the_unit_engine_ignores_compute_dtype(tmp_path):

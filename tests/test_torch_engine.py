@@ -15,7 +15,9 @@
     ``run()`` fused unless ``fused=False``, ``--master``/``--slave``
     refused;
   - snapshots: one the port writes restores in the reference's workflow,
-    and one the reference writes in the port's, bit for bit; the serving
+    and one the reference writes in the port's, bit for bit, also one
+    the reference writes under bf16 state, loaded with ``ml_dtypes``
+    blocked; the serving
     load (``restore_inference``) takes the forward parameters alone;
   - MNIST resumed from its best snapshot (after ``tests/test_mnist.py``'s
     resume test);
@@ -204,7 +206,7 @@ def test_master_and_slave_are_not_ported(mode, tmp_path):
         wf = port_sample("mnist", tmp_path)
     troot.common.engine.mode = mode
     try:
-        with pytest.raises(NotImplementedError, match="A.3"):
+        with pytest.raises(NotImplementedError, match="A.7"):
             engine.train(wf)
     finally:
         troot.common.engine.mode = ""
@@ -257,6 +259,54 @@ def test_snapshots_cross_load(direction, tmp_path):
             trestore(fresh, TSnap.load(path))
             _assert_same_state(trained, fresh)
     assert path.endswith("mnist_final.pickle.gz")
+
+
+def test_reference_bf16_state_snapshot_loads_without_ml_dtypes(
+        monkeypatch, tmp_path):
+    """A snapshot the reference writes under ``state_dtype`` bfloat16
+    pickles its velocities as ``ml_dtypes`` bf16 arrays.  With
+    ``ml_dtypes`` blocked, the port loads them as float32 leaves of the
+    same values, bit for bit, and restores them into a fresh port
+    workflow; every other leaf loads as it was written."""
+    import ml_dtypes
+
+    from znicz_torch.snapshotter import Snapshotter as TSnap
+    from znicz_torch.snapshotter import restore as trestore
+    from znicz_tpu.core.config import root as jroot
+    from znicz_tpu.snapshotter import Snapshotter as JSnap
+
+    jroot.common.engine.state_dtype = "bfloat16"
+    try:
+        with sample_config("mnist", **REDUCED["mnist"]):
+            trained = jax_sample("mnist", tmp_path)
+            trained.run()
+            path = trained.snapshotter.save("final")
+            fresh = port_sample("mnist", tmp_path / "port")
+    finally:
+        jroot.common.engine.state_dtype = "float32"
+    want = JSnap.load(path)
+    leaves = [v for vs in want["velocities"].values() for v in vs.values()]
+    assert leaves and {v.dtype for v in leaves} == {
+        np.dtype(ml_dtypes.bfloat16)}
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "ml_dtypes", None)    # import fails
+        got = TSnap.load(path)
+    for name, vs in want["velocities"].items():
+        for k, v in vs.items():
+            leaf = got["velocities"][name][k]
+            assert leaf.dtype == np.float32
+            np.testing.assert_array_equal(
+                leaf.view(np.uint32), v.astype(np.float32).view(np.uint32))
+    for name, ps in want["units"].items():
+        for k, v in ps.items():
+            assert got["units"][name][k].dtype == v.dtype
+            np.testing.assert_array_equal(got["units"][name][k], v)
+    assert got["loader"].keys() == want["loader"].keys()
+    trestore(fresh, got)
+    for gd in fresh.gd_units:
+        for k, v in gd.velocities.items():
+            np.testing.assert_array_equal(
+                v.numpy(), want["velocities"][gd.name][k].astype(np.float32))
 
 
 def test_mnist_resumes_from_its_best_snapshot(tmp_path):

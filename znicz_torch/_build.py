@@ -56,7 +56,9 @@ SIGNATURES = {
                       [_P, _P, _P, _LL, _I, _I, _P]},
     "lrn": {"znicz_lrn_fwd":
             [_P, _P, _LL, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _LL]
-            + [_I] * 5 + [_P]},
+            + [_I] * 5 + [_P],
+            "znicz_lrn_bf16_fwd":
+            [_P, _P, _LL] + [_I] * 4 + [_F] * 3 + [_I, _I, _P]},
     "fused_block_bwd": {
         "znicz_fused_block_bwd":
             [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I] * 11 + [_P],
@@ -67,7 +69,9 @@ SIGNATURES = {
         "znicz_bias_relu_bf16_bwd": [_P] * 6 + [_LL] + [_I] * 5 + [_P]},
     "lrn_bwd": {
         "znicz_lrn_bwd": [_P, _P, _P, _LL, _I, _I, _I] + [_F] * 4
-        + [_I] * 4 + [_LL] + [_I] * 5 + [_P]},
+        + [_I] * 4 + [_LL] + [_I] * 5 + [_P],
+        "znicz_lrn_bf16_bwd":
+            [_P] * 3 + [_LL] + [_I] * 4 + [_F] * 4 + [_I, _I, _P]},
 }
 
 

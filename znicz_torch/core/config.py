@@ -174,6 +174,58 @@ ENGINE_DEFAULTS = {
     "lrn_autodiff": False,        # shifted-slices LRN formulation
     "pallas_lrn": False,          # standalone LRN kernel (K3)
     "fused": False,               # FusedTrainer instead of the unit engine
-    "mode": "",                   # "master"/"slave": not ported (A.3)
+    "pool_bwd": "sas",            # "mask": ties share a max pool's gradient
     "snapshot_min_interval_s": 0.0,   # least seconds between best saves
 }
+
+#: The reference's other ``root.common.engine.*`` knobs
+#: (``znicz_tpu/core/config.py`` ENGINE_DEFAULTS), which the port does not
+#: read yet: knob (dotted below the engine) -> (the reference's default,
+#: the ROADMAP item that ports it).  :func:`check_engine_knobs` refuses
+#: each set away from its default.
+UNPORTED_ENGINE_KNOBS = {
+    # A.4, the train loop's speed levers: compiled steps, scans, the deep
+    # pipeline, remat, snapshots, loading and staging, sharding
+    **{key: (default, "A.4") for key, default in (
+        ("backend", "auto"), ("fuse", True), ("remat", False),
+        ("scan_chunk", 8), ("pipeline_depth", 1), ("async_snapshot", True),
+        ("snapshot_format", "pickle"), ("snapshot_sharded", False),
+        ("prefetch_segments", 2), ("decode_workers", None),
+        ("stream_budget_mb", None), ("native_shuffle", False),
+        ("async_staging", True), ("staging_donate", True),
+        ("xla_latency_hiding", False), ("train_shard", False),
+        ("mesh.data", 1), ("mesh.model", 1))},
+    # A.7, the distributed training plane
+    **{key: (default, "A.7") for key, default in (
+        ("mode", ""), ("master_bind", "tcp://*:5570"), ("master_resume", ""),
+        ("slave_endpoint", None), ("job_segment", 1), ("job_prefetch", True),
+        ("job_timeout_mult", 8.0), ("slave_ttl", 60.0),
+        ("slave_reconnects", 8), ("slave_backoff_base", 0.25),
+        ("slave_backoff_cap", 5.0), ("slave_breaker_failures", 4),
+        ("ingress_rate_limit", 0.0), ("ingress_rate_burst", 0.0),
+        ("job_deadline", True), ("obs_slo_apply_progress", 0.99),
+        ("obs_slo_fast_window_s", 60.0), ("obs_slo_slow_window_s", 600.0),
+        ("quarantine_norm_mult", 25.0), ("master_snapshot_s", 10.0),
+        ("wire_dtype", "float32"), ("wire_compress", "none"),
+        ("tree_fanout", 2), ("relay_flush_s", 0.05), ("relay_child_ttl", 30.0),
+        ("min_slaves", 0), ("staleness_bound", 0),
+        ("staleness_weight", False), ("elastic_rehome", False))},
+    # A.8, sequence workloads
+    "seq_parallel": (0, "A.8"),
+}
+
+_UNSET = object()
+
+
+def check_engine_knobs() -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP item for the first
+    knob of :data:`UNPORTED_ENGINE_KNOBS` set away from the reference's
+    default: the port would otherwise train as if it were unset."""
+    eng = root.common.engine
+    for key, (default, item) in UNPORTED_ENGINE_KNOBS.items():
+        value = eng.get_by_path(key, _UNSET)
+        if value is not _UNSET and value != default:
+            raise NotImplementedError(
+                f"root.common.engine.{key}={value!r} is not ported yet "
+                f"(ROADMAP queue {item}); the port runs as at its default "
+                f"{default!r}")

@@ -41,6 +41,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "lrn_bf16.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 256;
@@ -267,5 +269,66 @@ extern "C" int znicz_lrn_fwd(const float* x, float* y, long long rows, int C,
                r,    stages, pad,              stride, alpha, beta, k};
   fn<<<(unsigned)blocks, tpr * r, (size_t)smem, (cudaStream_t)stream>>>(x, y,
                                                                         p);
+  return (int)cudaGetLastError();
+}
+
+// K3 for bf16 operands: y = x * (k + alpha * W_n(x*x))^nb in the operand
+// dtype, every operation rounded to bf16 (csrc/lrn_bf16.cuh, which also
+// says how a block walks its rows).  A simple kernel: one pass squares the
+// block's rows into shared memory, a second sums each window from there.
+// Its bound is memory: 2 bytes of x read and 2 of y written an element,
+// 0.073 ms at AlexNet's conv1 and conv2 outputs (B=128) at 3.35 TB/s.
+
+namespace {
+
+__global__ void __launch_bounds__(lrnbf16::kThreads)
+lrn_bf16_fwd_kernel(const __nv_bfloat16* __restrict__ x,
+                    __nv_bfloat16* __restrict__ y, long long rows, int C,
+                    int lo, int taps, int r, float alpha, float k, float nb) {
+  extern __shared__ __align__(16) unsigned char lrn_bf16_smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(lrn_bf16_smem);
+  __nv_bfloat16* sq = xs + (size_t)r * C;
+  const long long row0 = (long long)blockIdx.x * r;
+  const long long left = rows - row0;
+  const int n = (int)(left < r ? left : r) * C;
+  const __nv_bfloat16* src = x + row0 * C;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const __nv_bfloat16 v = src[e];
+    const float f = __bfloat162float(v);
+    xs[e] = v;
+    sq[e] = __float2bfloat16_rn(__fmul_rn(f, f));
+  }
+  __syncthreads();
+  __nv_bfloat16* dst = y + row0 * C;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int c = e % C;
+    float s;
+    const float sb = lrnbf16::inv_pow_of(
+        lrnbf16::window(sq + (e - c), c, C, lo, taps), alpha, k, nb, s);
+    dst[e] = __float2bfloat16_rn(__fmul_rn(lrnbf16::ld(xs + e), sb));
+  }
+}
+
+}  // namespace
+
+// rows = elements / C; alpha, k and nb (= -beta) already rounded to bf16;
+// r rows a block and smem bytes of shared memory (two bf16 arrays of r*C
+// values), from ops/lrn._bf16_plan.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a plan this kernel does not take.
+extern "C" int znicz_lrn_bf16_fwd(const void* x, void* y, long long rows,
+                                  int C, int lo, int taps, int r, float alpha,
+                                  float k, float nb, int smem, int device,
+                                  void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = lrnbf16::blocks_for(rows, C, lo, taps, r, smem, 2);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
+  e = lrnbf16::allow_smem(lrn_bf16_fwd_kernel, smem, device);
+  if (e != cudaSuccess) return (int)e;
+  lrn_bf16_fwd_kernel<<<(unsigned)blocks, lrnbf16::kThreads, (size_t)smem,
+                        (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (__nv_bfloat16*)y, rows, C, lo, taps, r, alpha,
+      k, nb);
   return (int)cudaGetLastError();
 }

@@ -60,6 +60,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "lrn_bf16.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 256;
@@ -385,5 +387,92 @@ extern "C" int znicz_lrn_bwd(const float* x, const float* dy, float* dx,
                stages, pad,  stride,          alpha, beta, k,    c2};
   fn<<<(unsigned)blocks, tpr * r, (size_t)smem, (cudaStream_t)stream>>>(
       x, dy, dx, p);
+  return (int)cudaGetLastError();
+}
+
+// K3b for bf16 operands, in the operand dtype, every operation rounded to
+// bf16 (csrc/lrn_bf16.cuh, which also says how a block walks its rows):
+//   s = k + alpha * W_n(x*x);  sb = s^nb;  t = ((dy * x) * sb) / s
+//   dx = dy * sb - (c2 * x) * W_n(t)
+// with nb = -beta and c2 = 2*alpha*beta rounded to bf16.  A simple kernel
+// in three passes over the block's rows in shared memory: x, dy and x*x;
+// s, sb and t; dx.  Its bound is memory: 2 bytes of x and of dy read and 2
+// of dx written an element, 0.109 ms at AlexNet's conv1 and conv2 outputs
+// (B=128) at 3.35 TB/s.
+
+namespace {
+
+__global__ void __launch_bounds__(lrnbf16::kThreads)
+lrn_bf16_bwd_kernel(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ dy,
+                    __nv_bfloat16* __restrict__ dx, long long rows, int C,
+                    int lo, int taps, int r, float alpha, float k, float nb,
+                    float c2) {
+  extern __shared__ __align__(16) unsigned char lrn_bf16_smem[];
+  const size_t tile = (size_t)r * C;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(lrn_bf16_smem);
+  __nv_bfloat16* gs = xs + tile;        // dy
+  __nv_bfloat16* sq = gs + tile;        // x*x
+  __nv_bfloat16* ts = sq + tile;        // t
+  __nv_bfloat16* sbs = ts + tile;       // sb
+  const long long row0 = (long long)blockIdx.x * r;
+  const long long left = rows - row0;
+  const int n = (int)(left < r ? left : r) * C;
+  const __nv_bfloat16* xsrc = x + row0 * C;
+  const __nv_bfloat16* gsrc = dy + row0 * C;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const __nv_bfloat16 v = xsrc[e];
+    const float f = __bfloat162float(v);
+    xs[e] = v;
+    gs[e] = gsrc[e];
+    sq[e] = __float2bfloat16_rn(__fmul_rn(f, f));
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int c = e % C;
+    float s;
+    const float sb = lrnbf16::inv_pow_of(
+        lrnbf16::window(sq + (e - c), c, C, lo, taps), alpha, k, nb, s);
+    const float g = lrnbf16::ld(gs + e), v = lrnbf16::ld(xs + e);
+    const float t = __fdiv_rn(
+        lrnbf16::rb(__fmul_rn(lrnbf16::rb(__fmul_rn(g, v)), sb)), s);
+    ts[e] = __float2bfloat16_rn(t);
+    sbs[e] = __float2bfloat16_rn(sb);
+  }
+  __syncthreads();
+  __nv_bfloat16* dst = dx + row0 * C;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int c = e % C;
+    const float wt = lrnbf16::window(ts + (e - c), c, C, lo, taps);
+    const float g = lrnbf16::ld(gs + e), v = lrnbf16::ld(xs + e);
+    const float a = lrnbf16::rb(__fmul_rn(g, lrnbf16::ld(sbs + e)));
+    const float b = lrnbf16::rb(__fmul_rn(lrnbf16::rb(__fmul_rn(c2, v)), wt));
+    dst[e] = __float2bfloat16_rn(__fsub_rn(a, b));
+  }
+}
+
+}  // namespace
+
+// rows = elements / C; alpha, k, nb (= -beta) and c2 (= 2*alpha*beta)
+// already rounded to bf16; r rows a block and smem bytes of shared memory
+// (five bf16 arrays of r*C values), from ops/lrn._bf16_plan.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a plan
+// this kernel does not take.
+extern "C" int znicz_lrn_bf16_bwd(const void* x, const void* dy, void* dx,
+                                  long long rows, int C, int lo, int taps,
+                                  int r, float alpha, float k, float nb,
+                                  float c2, int smem, int device,
+                                  void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = lrnbf16::blocks_for(rows, C, lo, taps, r, smem, 5);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
+  e = lrnbf16::allow_smem(lrn_bf16_bwd_kernel, smem, device);
+  if (e != cudaSuccess) return (int)e;
+  lrn_bf16_bwd_kernel<<<(unsigned)blocks, lrnbf16::kThreads, (size_t)smem,
+                        (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)dy, (__nv_bfloat16*)dx,
+      rows, C, lo, taps, r, alpha, k, nb, c2);
   return (int)cudaGetLastError();
 }

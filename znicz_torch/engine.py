@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from znicz_torch.core.config import root
+from znicz_torch.core.config import check_engine_knobs, root
 from znicz_torch.loader.base import TRAIN
 
 
@@ -38,13 +38,10 @@ def train(workflow, fused: Optional[bool] = None):
     """Train ``workflow`` until its Decision completes, with
     ``FusedTrainer`` when ``fused`` (default: :func:`wants_fused`) and
     the graph allows it, else with the unit graph.  Returns the stats
-    dict also kept as ``workflow.train_stats``.  The master and slave
-    roles (``root.common.engine.mode``) are not ported (queue A.3)."""
-    mode = root.common.engine.get("mode", "")
-    if mode in ("master", "slave"):
-        raise NotImplementedError(
-            f"--{mode} is not ported yet (ROADMAP queue A.3, the "
-            f"distributed training plane)")
+    dict also kept as ``workflow.train_stats``.  A reference knob the
+    port does not read yet, such as the master and slave roles
+    (``root.common.engine.mode``), raises (:func:`check_engine_knobs`)."""
+    check_engine_knobs()
     if _fused_capable(workflow, wants_fused() if fused is None else fused):
         from znicz_torch.parallel.fused import FusedTrainer
 

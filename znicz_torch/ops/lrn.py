@@ -1,8 +1,10 @@
 """Across-channel LRN (port of ``znicz_tpu/ops/lrn_pallas.py``): the
 order-sensitive pieces shared with the fused block, the plain versions of
 the standalone LRN's forward and backward, the wrappers of their kernels
-K3 (``csrc/lrn.cu``) and K3b (``csrc/lrn_bwd.cu``), and :func:`lrn`, the
-op with the reference's custom vjp.
+K3 (``csrc/lrn.cu``) and K3b (``csrc/lrn_bwd.cu``) and of their bf16
+operand variants, and :func:`lrn`, the op with the reference's custom vjp.
+Like the reference's kernels, both compute in the operand dtype: on bf16
+operands every operation rounds to bf16.
 
     y  = x * s^-beta,  s = k + alpha * W_n(x^2)
     dx = dy * s^-beta - 2*alpha*beta * x * W_n(((dy * x) * s^-beta) / s)
@@ -63,32 +65,52 @@ def inv_pow_rsqrt(s, beta: float):
     return torch.pow(s, -beta)
 
 
+def operand_constants(dtype, *values):
+    """``values`` as a ``dtype`` operand's arithmetic takes them: JAX
+    rounds a Python constant to a bf16 operand's dtype before it touches
+    the operand (weak typing), where PyTorch would use it unrounded in
+    float32, so for a dtype narrower than float32 they are rounded to it.
+    float32 and wider take them as given, and keep their bits (PyTorch's
+    CPU ``pow`` takes a float32 tensor's exponent in double)."""
+    if torch.finfo(dtype).bits >= 32:
+        return [float(v) for v in values]
+    return [float(torch.tensor(v, dtype=dtype)) for v in values]
+
+
 def lrn_plain(x, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
               k: float = 2.0):
     """The plain version of K3: ``x * pow(s, -beta)``, with ``pow`` (the
-    standalone kernel's own formulation, not the rsqrt form)."""
-    s = k + alpha * windowed_channel_sum(x * x, n)
-    return x * torch.pow(s, -beta)
+    standalone kernel's own formulation, not the rsqrt form), every
+    operation in the operand dtype, as the reference kernel computes: for
+    bf16 each product, sum and power rounds to bf16, with alpha, k and
+    -beta rounded first (:func:`operand_constants`)."""
+    a, kk, nb = operand_constants(x.dtype, alpha, k, -beta)
+    s = kk + a * windowed_channel_sum(x * x, n)
+    return x * torch.pow(s, nb)
 
 
 def lrn_bwd_plain(x, dy, n: int = 5, alpha: float = 1e-4,
                   beta: float = 0.75, k: float = 2.0):
     """The plain version of K3b, the reference kernel's arithmetic op by
-    op: ``s`` recomputed from ``x``, ``t = dy * x * sb / s`` (left to
-    right), ``dx = dy * sb - (2 alpha beta) * x * W_n(t)``."""
-    s = k + alpha * windowed_channel_sum(x * x, n)
-    sb = torch.pow(s, -beta)
+    op in the operands' dtype: ``s`` recomputed from ``x``, ``t = dy * x *
+    sb / s`` (left to right), ``dx = dy * sb - (2 alpha beta) * x *
+    W_n(t)``, the constants rounded as in :func:`lrn_plain`."""
+    a, kk, nb, c2 = operand_constants(torch.promote_types(x.dtype,
+                                                          dy.dtype),
+                                      alpha, k, -beta, 2.0 * alpha * beta)
+    s = kk + a * windowed_channel_sum(x * x, n)
+    sb = torch.pow(s, nb)
     t = dy * x * sb / s
-    return dy * sb - (2.0 * alpha * beta) * x * windowed_channel_sum(t, n)
+    return dy * sb - c2 * x * windowed_channel_sum(t, n)
 
 
-def _check(name, *tensors):
+def _check(name, *tensors, dtype=torch.float32):
     x = tensors[0]
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} kernel takes float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} kernel takes {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel takes contiguous tensors")
         if t.shape != x.shape or t.device != x.device:
@@ -211,7 +233,9 @@ def lrn_fwd(x, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
             k: float = 2.0):
     """Standalone LRN forward over the last axis.  A CPU tensor takes
     :func:`lrn_plain`; a CUDA tensor launches K3 on :func:`_fwd_plan`'s
-    launch or raises."""
+    launch or raises; bf16 operands go to :func:`lrn_bf16_fwd`."""
+    if x.dtype == torch.bfloat16:
+        return lrn_bf16_fwd(x, n, alpha, beta, k)
     if x.device.type == "cpu":
         return lrn_plain(x, n, alpha, beta, k)
     _check("lrn_fwd", x)
@@ -236,7 +260,10 @@ def lrn_bwd(x, dy, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
             k: float = 2.0):
     """Standalone LRN backward: ``dx`` for the forward's input ``x`` and
     the output cotangent ``dy``.  CPU tensors take :func:`lrn_bwd_plain`;
-    CUDA tensors launch K3b on :func:`_bwd_plan`'s launch or raise."""
+    CUDA tensors launch K3b on :func:`_bwd_plan`'s launch or raise; bf16
+    operands go to :func:`lrn_bf16_bwd`."""
+    if x.dtype == torch.bfloat16:
+        return lrn_bf16_bwd(x, dy, n, alpha, beta, k)
     if x.device.type == "cpu" and dy.device.type == "cpu":
         return lrn_bwd_plain(x, dy, n, alpha, beta, k)
     _check("lrn_bwd", x, dy)
@@ -258,6 +285,80 @@ def lrn_bwd(x, dy, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
 lrn_bwd.launches = 0
 
 
+#: elements of the (rows, C) view a bf16 K3 or K3b block takes: whole
+#: rows, at least one
+_BF16_TILE = 2048
+
+
+def _bf16_plan(C: int, arrays: int, smem_limit: int) -> Tuple[int, int]:
+    """``(rows a block, shared memory in bytes)`` of a bf16 K3 (``arrays``
+    2: x and x*x) or K3b (5: x, dy, x*x, t and sb) launch over rows of C
+    channels, each array r*C bf16 values (``csrc/lrn_bf16.cuh``).  Raises
+    ``ValueError`` when one row does not fit ``smem_limit``."""
+    r = max(1, _BF16_TILE // C)
+    smem = 2 * arrays * r * C
+    if smem > smem_limit:
+        raise ValueError(f"bf16 LRN kernel: a row of {C} channels needs "
+                         f"{smem} bytes of shared memory, one block may "
+                         f"have {smem_limit}")
+    return r, smem
+
+
+def lrn_bf16_fwd(x, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
+                 k: float = 2.0):
+    """K3 for bf16 operands (``csrc/lrn.cu``, ``znicz_lrn_bf16_fwd``):
+    :func:`lrn_plain`'s operations in bf16, each rounded, with its
+    constants.  A CPU tensor takes :func:`lrn_plain`; a CUDA tensor
+    launches the kernel or raises."""
+    if x.device.type == "cpu":
+        return lrn_plain(x, n, alpha, beta, k)
+    _check("lrn_bf16_fwd", x, dtype=torch.bfloat16)
+    C = int(x.shape[-1])
+    lo, taps = window_offsets(n)
+    r, smem = _bf16_plan(C, 2, _build.device_limits(x.device.index)[0])
+    a, kk, nb = operand_constants(torch.bfloat16, alpha, k, -beta)
+    y = torch.empty_like(x)
+    fn = "znicz_lrn_bf16_fwd"
+    rc = _build.entry("lrn", fn)(
+        x.data_ptr(), y.data_ptr(), x.numel() // C, C, lo, taps, r, a, kk,
+        nb, smem, x.device.index, _build.stream_of(x))
+    _build.check(rc, "lrn", fn)
+    lrn_bf16_fwd.launches += 1
+    return y
+
+
+#: bf16 K3 launches since the count was last reset
+lrn_bf16_fwd.launches = 0
+
+
+def lrn_bf16_bwd(x, dy, n: int = 5, alpha: float = 1e-4,
+                 beta: float = 0.75, k: float = 2.0):
+    """K3b for bf16 operands (``csrc/lrn_bwd.cu``, ``znicz_lrn_bf16_bwd``):
+    :func:`lrn_bwd_plain`'s operations in bf16, each rounded, with its
+    constants.  CPU tensors take :func:`lrn_bwd_plain`; CUDA tensors
+    launch the kernel or raise."""
+    if x.device.type == "cpu" and dy.device.type == "cpu":
+        return lrn_bwd_plain(x, dy, n, alpha, beta, k)
+    _check("lrn_bf16_bwd", x, dy, dtype=torch.bfloat16)
+    C = int(x.shape[-1])
+    lo, taps = window_offsets(n)
+    r, smem = _bf16_plan(C, 5, _build.device_limits(x.device.index)[0])
+    a, kk, nb, c2 = operand_constants(torch.bfloat16, alpha, k, -beta,
+                                      2.0 * alpha * beta)
+    dx = torch.empty_like(x)
+    fn = "znicz_lrn_bf16_bwd"
+    rc = _build.entry("lrn_bwd", fn)(
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.numel() // C, C, lo,
+        taps, r, a, kk, nb, c2, smem, x.device.index, _build.stream_of(x))
+    _build.check(rc, "lrn_bwd", fn)
+    lrn_bf16_bwd.launches += 1
+    return dx
+
+
+#: bf16 K3b launches since the count was last reset
+lrn_bf16_bwd.launches = 0
+
+
 class _LRN(torch.autograd.Function):
     """The reference's custom vjp: ``x`` is the only residual; the
     backward recomputes ``s`` from it."""
@@ -271,7 +372,7 @@ class _LRN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, = ctx.saved_tensors
-        return (lrn_bwd(x, dy.contiguous(), *ctx.hypers),
+        return (lrn_bwd(x, dy.contiguous(), *ctx.hypers).to(x.dtype),
                 None, None, None, None)
 
 

@@ -59,7 +59,7 @@ from torch import nn
 
 from znicz_torch.all2all import All2AllSoftmax
 from znicz_torch.core import prng
-from znicz_torch.core.config import root
+from znicz_torch.core.config import check_engine_knobs, root
 from znicz_torch.dropout import DropoutForward
 from znicz_torch.evaluator import EvaluatorSoftmax, confusion
 from znicz_torch.fused_block import (fused_bias_relu, fused_block,
@@ -132,12 +132,7 @@ class FusedTrainer:
         self.compute_dtype = compute_dtype()
         self.master_dtype = master_dtype()
         state_dtype()                       # a bad spelling raises here
-        if self.compute_dtype == torch.bfloat16 and \
-                bool(root.common.engine.get("pallas_lrn", False)):
-            raise NotImplementedError(
-                "pallas_lrn under compute_dtype bf16: the standalone LRN "
-                "kernels K3/K3b compute in the operand dtype and have no "
-                "bf16 variant yet (ROADMAP queue B)")
+        check_engine_knobs()
 
     @property
     def train_losses(self):

@@ -8,7 +8,9 @@ exactly as its ``reduce_window`` pads: with -inf for a maximum, +inf for
 a minimum and 0 for a sum.  ``AvgPooling`` divides each window's sum by
 its count of real elements, not by ky*kx.  Gradients are autograd's of
 the same formulation; a maximum's goes to the first of tied elements in
-window order, as XLA's ``select_and_scatter`` sends it.
+window order, as XLA's ``select_and_scatter`` sends it, unless
+``root.common.engine.pool_bwd`` is "mask", which splits it equally among
+them, as the reference's opt-in masked backward does.
 
 The unit engine's max pooling (:class:`MaxPoolingUnit`) takes the
 reference's unit path instead: it gathers every window
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from znicz_torch.core.config import root
 from znicz_torch.forward import ForwardModule
 from znicz_torch.memory import Array
 from znicz_torch.nn_units import ForwardBase
@@ -118,8 +121,55 @@ class PoolingBase(ForwardModule):
         return torch.gather(win, -1, off.unsqueeze(-1)).squeeze(-1), off
 
 
+class _MaskedMaxPool(torch.autograd.Function):
+    """A max pool whose backward splits each window's gradient equally
+    among its tied maxima, op by op as the reference's ``_masked_maxpool``
+    (``znicz_tpu/pooling.py``): the tie masks ``x == y`` of the padded
+    window positions in (ky, kx) order, their count ``nt`` summed in that
+    order, ``g / nt``, and each position's share added back into a zero
+    plane of the padded input in the same order."""
+
+    @staticmethod
+    def forward(ctx, x, pool):
+        y = pool._nhwc(pool._max(x))
+        ctx.save_for_backward(x, y)
+        ctx.pool = pool
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        pool = ctx.pool
+        b, h, w, c = x.shape
+        oh, ow = y.shape[1], y.shape[2]
+        ph, pw = pool._padded_hw(h, w)
+        sy, sx = pool.sliding
+        xp = F.pad(x, (0, 0, 0, pw - w, 0, ph - h), value=float("-inf"))
+        at = [(slice(None), slice(i, i + (oh - 1) * sy + 1, sy),
+               slice(j, j + (ow - 1) * sx + 1, sx))
+              for i in range(pool.ky) for j in range(pool.kx)]
+        masks = [(xp[ix] == y).to(g.dtype) for ix in at]
+        nt = masks[0]
+        for m in masks[1:]:
+            nt = nt + m
+        inv = g / nt
+        dxp = None
+        for ix, m in zip(at, masks):
+            part = g.new_zeros((b, ph, pw, c))
+            part[ix] = inv * m
+            dxp = part if dxp is None else dxp + part
+        return dxp[:, :h, :w].to(x.dtype), None
+
+
 class MaxPooling(PoolingBase):
+    """Under ``root.common.engine.pool_bwd = "mask"`` its gradient splits
+    among tied maxima (:class:`_MaskedMaxPool`), as the reference's does;
+    the unit engine's GD unit scatters to the recorded offsets either
+    way, as the reference's ``GDMaxPooling`` does."""
+
     def forward(self, x):
+        if str(root.common.engine.get("pool_bwd", "sas")) == "mask":
+            return _MaskedMaxPool.apply(x, self)
         return self._nhwc(self._max(x))
 
     def select(self, x):

@@ -16,9 +16,10 @@ same unit names, and the reverse.  Leaves are written float32 whatever
 the live dtype (bf16 velocities under ``state_dtype``, bf16 parameters
 under ``master_dtype``) and cast to the live dtype on restore.  A
 reference snapshot saved under bf16 state holds ``ml_dtypes`` bf16
-arrays and loads only where that package is installed.  The reference's
+arrays; :meth:`Snapshotter.load` reads them without that package, as
+float32 leaves of the same values.  The reference's
 async writer, its orbax format and multi-host saves are not ported
-(queues A.1.5, A.3).
+(ROADMAP queues A.4, A.7).
 """
 
 from __future__ import annotations
@@ -212,9 +213,41 @@ class Snapshotter(Unit):
 
     @staticmethod
     def load(path: str) -> Dict:
+        """The snapshot at ``path``; ``ml_dtypes`` bf16 leaves (the
+        reference's velocities under bf16 state) come back as float32
+        leaves of the same values, whether that package is installed or
+        not."""
         opener = gzip.open if path.endswith(".gz") else open
         with opener(path, "rb") as f:
-            return pickle.load(f)
+            unpickler = _Unpickler(f)
+            snap = unpickler.load()
+        return _widen_bf16(snap) if unpickler.read_bf16 else snap
+
+
+class _Unpickler(pickle.Unpickler):
+    """Reads the class ``ml_dtypes.bfloat16`` as ``np.uint16``, so that an
+    ``ml_dtypes`` bf16 array unpickles as a uint16 array of its bits;
+    ``read_bf16`` says whether one did."""
+
+    def __init__(self, f):
+        super().__init__(f)
+        self.read_bf16 = False
+
+    def find_class(self, module, name):
+        if (module, name) == ("ml_dtypes", "bfloat16"):
+            self.read_bf16 = True
+            return np.uint16
+        return super().find_class(module, name)
+
+
+def _widen_bf16(tree):
+    """``tree`` with every uint16 array (the bits of a bf16 one: the
+    reference writes no uint16 leaf) widened exactly to float32."""
+    if isinstance(tree, dict):
+        return {k: _widen_bf16(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.dtype == np.uint16:
+        return (tree.astype(np.uint32) << 16).view(np.float32)
+    return tree
 
 
 def write_host_pickle(path: str, snap: Dict, compression: str = "gz") -> None:
