@@ -84,10 +84,17 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      arithmetic on the widened operands, rounded once) at AlexNet's
      batch-128 shapes and at the cases of ``BF16_PATHS`` (odd C, C not a
      multiple of 8, one row, unaligned operands, pools 3x3/2, 2x2/2,
-     4x4/2 and 1x1/4, windows 1, 4, 5 and 7, powf, tied maxima): every
-     output and dx bit-exact, db within DB_RTOL of the float32 sums and
-     the same bits on a second launch, with bounds counting 2 bytes a bf16
-     element and 4 a db float; the bf16 K3 and K3b (every operation in
+     4x4/2 and 1x1/4, windows 1, 3, 4, 5, 7 and 9, powf, tied maxima,
+     short strips, strips x column tiles): every output and dx bit-exact
+     and the same bits on a second launch, db within DB_RTOL of the
+     float32 sums and the same bits on a second launch, with bounds
+     counting 2 bytes a bf16 element and 4 a db float.  The bf16 K1 and
+     K1b run the float32 ring kernels on bf16 rows where their planners
+     take the shape, the simple kernels elsewhere: each case asserts
+     which, AlexNet's shapes must take the ring (their rows print the
+     plan and time the simple kernels beside it, ``simple_ms``) and the
+     AlexNet bf16 training runs must launch no simple kernel; the bf16
+     K3 and K3b (every operation in
      bf16, as the reference's LRN kernels compute) at AlexNet's shapes and
      the cases of ``BF16_LRN_PATHS``, y and dx bit-exact and the same bits
      twice, timed against ``F.local_response_norm`` in bf16 and its
@@ -120,7 +127,9 @@ script exits non-zero before printing any result.
 runs phases 1 and 2 for the named kernels alone, with the ``*_PATHS``
 cases of each kernel named (``fused_block_fwd``, ``fused_block_bwd``,
 ``lrn_fwd``, ``bias_relu_bwd``, ``lrn_bwd``, ``lrn_bf16_fwd``,
-``lrn_bf16_bwd``), phases 7 and 8 for
+``lrn_bf16_bwd``, and the ``BF16_PATHS`` kernels: ``fused_block_bf16_fwd``,
+``fused_block_bf16_bwd``, ``bias_relu_bf16_fwd``, ``bias_relu_bf16_bwd``),
+phases 7 and 8 for
 ``anchors``, phase 9 for ``units`` and phase 10 for ``bf16``; it prints
 the ``kernels`` object and no ``ok`` line.
 """
@@ -369,8 +378,14 @@ def _bf16_case(torch, name, x, b, gen, n, alpha, beta, k, pool, pooled):
                 2 * 3 * r.numel(), r.numel() * (3 * n + 14))
     if name == "fused_block_bf16_fwd":
         out = BATCH * pooled[1] * pooled[2] * c
-        return (lambda: fb.fused_block_bf16_fwd(x, b, n, alpha, beta, k,
-                                                pool),
+
+        def kern():
+            return fb.fused_block_bf16_fwd(x, b, n, alpha, beta, k, pool)
+
+        # the "before" column: the simple kernel on the same operands
+        kern.simple = lambda: fb._bf16_fwd_launch(x, b, n, alpha, beta, k,
+                                                  pool, None)
+        return (kern,
                 lambda: fb.fused_block_plain(x, b, n, alpha, beta, k, pool),
                 None, 2 * (x.numel() + c + out),
                 x.numel() * (n + 8) + out * 8)
@@ -381,8 +396,13 @@ def _bf16_case(torch, name, x, b, gen, n, alpha, beta, k, pool, pooled):
     if name == "fused_block_bf16_bwd":
         dp = torch.randn(pooled, generator=gen, device="cuda").to(
             torch.bfloat16)
-        return (lambda: fb.fused_block_bf16_bwd(x, b, dp, n, alpha, beta, k,
-                                                pool),
+
+        def kern():
+            return fb.fused_block_bf16_bwd(x, b, dp, n, alpha, beta, k, pool)
+
+        kern.simple = lambda: fb._bf16_bwd_launch(x, b, dp, n, alpha, beta,
+                                                  k, pool, None)
+        return (kern,
                 lambda: fb.fused_block_bwd_plain(x, b, dp, n, alpha, beta, k,
                                                  pool),
                 None, 2 * (2 * x.numel() + dp.numel() + c) + 4 * c,
@@ -414,6 +434,9 @@ def check_kernels(torch, names, shapes=None, batch=BATCH):
             b = torch.randn((c,), generator=gen, device="cuda") * 0.1
             kern, plain, lib, nbytes, ops = _case(torch, name, x, b, gen, n,
                                                   alpha, beta, k, pool)
+            if name in BF16_RING and PLANS[name](x, b) == "simple":
+                raise AssertionError(f"{name}[{layer}]: the planner took "
+                                     f"the simple kernel")
             got, want = kern(), plain()
             torch.cuda.synchronize()
             db_note, db_ok = "", True
@@ -438,10 +461,21 @@ def check_kernels(torch, names, shapes=None, batch=BATCH):
                 bits = same_bits(torch, got, want)
                 ok = ok and bits
                 db_note += f" same_bits={bits}"
-            if name in BF16_LRN:
-                again = same_bits(torch, kern(), got)
+            if name in BF16_LRN + BF16_RING:
+                again = kern()
+                again = same_bits(torch, again[0] if isinstance(again, tuple)
+                                  else again, got)
                 ok = ok and again
                 db_note += f" same_bits_twice={again}"
+            simple, t_s = getattr(kern, "simple", None), None
+            if simple is not None:              # the simple kernel, timed
+                first = simple()
+                first = first[0] if isinstance(first, tuple) else first
+                bits = same_bits(torch, first, want)
+                ok = ok and bits
+                t_s = cuda_ms(torch, simple)
+                db_note += f" simple_same_bits={bits} simple_ms={t_s:.4f}"
+                del first
             lib_err = None
             if lib is not None:
                 lib_err = float((lib() - want).abs().max())
@@ -470,7 +504,9 @@ def check_kernels(torch, names, shapes=None, batch=BATCH):
             row["bound_by"] = b_by
             if t_l is not None:
                 row["library_ms"] = (row["library_ms"] or 0.0) + t_l
-            del x, b, kern, plain, lib
+            if t_s is not None:
+                row["simple_ms"] = row.get("simple_ms", 0.0) + t_s
+            del x, b, kern, plain, lib, simple
             torch.cuda.empty_cache()
         rows[name] = row
     return rows
@@ -478,6 +514,10 @@ def check_kernels(torch, names, shapes=None, batch=BATCH):
 
 #: the bf16 LRN kernels, which compute in bf16 as the reference's do
 BF16_LRN = ("lrn_bf16_fwd", "lrn_bf16_bwd")
+#: the bf16 K1 and K1b, which run the float32 ring kernels on bf16 rows
+#: where their planners take the shape, and the simple kernels
+#: elsewhere; at AlexNet's shapes the ring must run
+BF16_RING = ("fused_block_bf16_fwd", "fused_block_bf16_bwd")
 #: kernels whose output (dx for a backward) must equal the plain version's
 #: bits
 BIT_EXACT = ("fused_block_fwd", "fused_block_bwd", "lrn_fwd",
@@ -590,6 +630,27 @@ def k1b_plan(x, b, n=5, pool=(3, 3, 2, 2), dp=None):
             f"smem={p.smem}/blocks_per_sm={p.blocks_per_sm}")
 
 
+def k1_bf16_plan(x, b, n=5, pool=(3, 3, 2, 2)):
+    from znicz_torch.fused_block import bf16_fwd_plan_for
+
+    p = bf16_fwd_plan_for(x, b, n, pool)
+    if p is None:
+        return "simple"
+    return (f"ring:bf16x4+bulk/strips={p.n_strips}/stages={p.stages}/"
+            f"smem={p.smem}/blocks_per_sm={p.blocks_per_sm}")
+
+
+def k1b_bf16_plan(x, b, n=5, pool=(3, 3, 2, 2), dp=None):
+    from znicz_torch.fused_block import bf16_bwd_plan_for
+
+    p = bf16_bwd_plan_for(x, b, n, pool, dp)
+    if p is None:
+        return "simple"
+    return (f"ring:bf16x4+bulk/strips={p.n_strips}/ctiles={p.n_ctiles}/"
+            f"stages={p.stages}/smem={p.smem}/"
+            f"blocks_per_sm={p.blocks_per_sm}")
+
+
 def k3_plan(x, b=None, n=5):
     from znicz_torch.ops.lrn import fwd_plan_for
 
@@ -625,7 +686,9 @@ def k2b_plan(x, b, dp=None):
 
 #: kernel -> its plan as printed on its ``[kernel]`` lines
 PLANS = {"fused_block_fwd": k1_plan, "fused_block_bwd": k1b_plan,
-         "lrn_fwd": k3_plan, "bias_relu_bwd": k2b_plan, "lrn_bwd": k3b_plan}
+         "lrn_fwd": k3_plan, "bias_relu_bwd": k2b_plan, "lrn_bwd": k3b_plan,
+         "fused_block_bf16_fwd": k1_bf16_plan,
+         "fused_block_bf16_bwd": k1b_bf16_plan}
 
 
 def unaligned(torch, t, offset: int = 4):
@@ -1601,41 +1664,60 @@ def alexnet_units(torch, card):
 
 
 #: the bf16 variants beyond AlexNet's case (phase 10), each output and dx
-#: bit-exact against its plain version, db within DB_RTOL and the same
-#: bits twice: kernel -> [(what it takes, shape, pool, n, alpha, beta, k,
-#: input scale or "ties", whether x lies 2 bytes past a 16-byte
-#: boundary)].  The bias+ReLU cases shut a quarter of the gates exactly
-#: (x = -b)
+#: bit-exact against its plain version and the same bits twice, db within
+#: DB_RTOL and the same bits twice: kernel -> [(what it takes, shape, pool,
+#: n, alpha, beta, k, input scale or "ties", whether x lies 2 bytes past a
+#: 16-byte boundary, whether the bf16 K1/K1b planners must take the ring
+#: kernels (else the simple ones; None for bias+ReLU))].  The
+#: bias+ReLU cases shut a quarter of the gates exactly (x = -b).  The
+#: "ring" cases are the bf16 counterparts of K1_PATHS' and K1B_PATHS'
+#: group-path cases, C 16 or 32 where those have C 20
 _BF16_BLOCK_PATHS = [
     ("odd C 33", (5, 27, 27, 33), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0,
-     False),
+     False, False),
     ("C 20, not a multiple of 8", (3, 13, 13, 20), (3, 3, 2, 2), 5, 1e-4,
-     0.75, 2.0, 2.0, False),
+     0.75, 2.0, 2.0, False, False),
     ("even window 4", (4, 27, 27, 64), (3, 3, 2, 2), 4, 1e-4, 0.75, 2.0, 2.0,
-     False),
+     False, False),
     ("pool 2x2/2", (4, 26, 26, 32), (2, 2, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0,
-     False),
+     False, True),
     ("pool 4x4/2, window 1", (4, 12, 12, 32), (4, 4, 2, 2), 1, 1e-4, 0.75,
-     2.0, 2.0, False),
+     2.0, 2.0, False, True),
     ("pool 1x1/4, window 7", (4, 9, 9, 24), (1, 1, 4, 4), 7, 1e-4, 0.75,
-     2.0, 2.0, False),
-    ("powf", (3, 13, 13, 33), (3, 3, 2, 2), 5, 1e-4, 0.6, 2.0, 2.0, False),
+     2.0, 2.0, False, True),
+    ("powf", (3, 13, 13, 33), (3, 3, 2, 2), 5, 1e-4, 0.6, 2.0, 2.0, False,
+     False),
     ("s over 20 binades", (4, 27, 27, 64), (3, 3, 2, 2), 5, 1e-2, 0.75, 1e-3,
-     100.0, False),
+     100.0, False, True),
     ("one pooled row", (1, 3, 3, 8), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0,
-     False),
+     False, True),
     ("unaligned operand", (4, 9, 9, 64), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0,
-     2.0, True),
+     2.0, True, False),
     ("ties", (8, 27, 27, 64), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, "ties",
-     False),
+     False, True),
     ("ties, odd C", (8, 27, 27, 33), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0,
-     "ties", False),
-    ("C 601", (2, 9, 9, 601), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0, False),
-    ("C 1024", (2, 7, 9, 1024), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0,
+     "ties", False, False),
+    ("C 601", (2, 9, 9, 601), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0, False,
      False),
+    ("C 1024", (2, 7, 9, 1024), (3, 3, 2, 2), 5, 1e-4, 0.75, 2.0, 2.0,
+     False, True),
+    ("ring, short strips", (3, 13, 13, 16), (3, 3, 2, 2), 5, 1e-4, 0.75,
+     2.0, 2.0, False, True),
+    ("ring, pool 4x4/2, window 3", (4, 12, 12, 32), (4, 4, 2, 2), 3, 1e-4,
+     0.75, 2.0, 2.0, False, True),
+    ("ring, window 9", (4, 13, 13, 32), (3, 3, 2, 2), 9, 1e-4, 0.75, 2.0,
+     2.0, False, True),
+    ("ring, powf", (4, 27, 27, 64), (3, 3, 2, 2), 5, 1e-4, 0.6, 2.0, 2.0,
+     False, True),
+    ("ring, strips x column tiles", (4, 27, 27, 256), (3, 3, 2, 2), 5, 1e-4,
+     0.75, 2.0, 2.0, False, True),
+    ("ring, ties at conv2's width", (8, 27, 27, 256), (3, 3, 2, 2), 5, 1e-4,
+     0.75, 2.0, "ties", False, True),
+    ("ring, conv1's width, one image", (1, 55, 55, 96), (3, 3, 2, 2), 5,
+     1e-4, 0.75, 2.0, 2.0, False, True),
 ]
 _BF16_RELU_PATHS = [
-    (label, shape, None, 0, 0.0, 0.0, 0.0, 1.0, off)
+    (label, shape, None, 0, 0.0, 0.0, 0.0, 1.0, off, None)
     for label, shape, off in (
         ("C 1", (3, 17, 17, 1), False), ("odd C 33", (5, 9, 9, 33), False),
         ("C 20, not a multiple of 8", (4, 9, 9, 20), False),
@@ -1650,17 +1732,20 @@ BF16_PATHS = {"fused_block_bf16_fwd": _BF16_BLOCK_PATHS,
               "bias_relu_bf16_bwd": _BF16_RELU_PATHS}
 
 
-def check_bf16_paths(torch):
-    """Each bf16 variant at each case of :data:`BF16_PATHS`: output and dx
-    bit-exact against the plain version, db (float32) within DB_RTOL of
-    it and the same bits on a second launch; reported on their own
-    lines, outside the AlexNet rows."""
+def check_bf16_paths(torch, names=tuple(BF16_PATHS)):
+    """Each bf16 variant of ``names`` at each case of :data:`BF16_PATHS`:
+    output and dx bit-exact against the plain version and the same bits on
+    a second launch, db (float32) within DB_RTOL of it and the same bits
+    on a second launch, the bf16 K1/K1b on the path the case names;
+    reported on their own lines, outside the AlexNet rows."""
     from znicz_torch import fused_block as fb
 
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     for name, cases in BF16_PATHS.items():
-        for label, shape, pool, n, alpha, beta, k, scale, off in cases:
+        if name not in names:
+            continue
+        for label, shape, pool, n, alpha, beta, k, scale, off, ring in cases:
             if scale == "ties":
                 x = tie_heavy(torch, shape, gen)
                 b = torch.zeros(shape[-1:], device="cuda")
@@ -1695,22 +1780,36 @@ def check_bf16_paths(torch):
                     lambda: fb.bias_relu_bf16_bwd(x, b, dp),
                     lambda: fb.bias_relu_bwd_plain(x, b, dp)),
             }[name]
+            plan = ""
+            if name in BF16_RING:
+                plan = (k1_bf16_plan(x, b, n, pool) if name.endswith("fwd")
+                        else k1b_bf16_plan(x, b, n, pool, dp))
+                if (plan != "simple") != ring:
+                    raise AssertionError(f"{name} {label}: planner took the "
+                                         f"wrong path: {plan}")
+                plan = f" plan={plan}"
             got, want = kern(), plain()
             torch.cuda.synchronize()
             db_ok, note = True, ""
             if isinstance(got, tuple):
                 (got, got_db), (want, want_db) = got, want
                 db_ok, note = db_check(torch, got_db, want_db, want)
-                again = deterministic_db(torch, kern, got_db)
-                db_ok = db_ok and again and got_db.dtype == torch.float32
-                note += f" db_same_bits_twice={again}"
+                again, again_db = kern()
+                torch.cuda.synchronize()
+                twice = same_bits(torch, again_db, got_db)
+                db_ok = db_ok and twice and got_db.dtype == torch.float32
+                note += f" db_same_bits_twice={twice}"
+            else:
+                again = kern()
+            twice = same_bits(torch, again, got)
             err = float((got.float() - want.float()).abs().max())
-            ok = same_bits(torch, got, want) and db_ok and bool(
+            ok = same_bits(torch, got, want) and twice and db_ok and bool(
                 torch.isfinite(got).all())
             log(f"[kernel] {name}[{label}] shape={shape} pool={pool} n={n} "
-                f"alpha={alpha:g} beta={beta:g} k={k:g} x*{scale} "
-                f"max_abs_err={err:.3e} (same bits required){note} "
-                f"ms={cuda_ms(torch, kern):.4f} -> {'ok' if ok else 'FAIL'}")
+                f"alpha={alpha:g} beta={beta:g} k={k:g} x*{scale}{plan} "
+                f"max_abs_err={err:.3e} (same bits required, twice: "
+                f"{twice}){note} ms={cuda_ms(torch, kern):.4f} -> "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name} {label} disagrees with its "
                                      f"plain version: {err:.3e}")
@@ -1881,11 +1980,14 @@ def bf16_train(torch, card):
             trainer = FusedTrainer(wf)
             for fn in ctrs.values():            # the main path starts here
                 fn.launches = 0
+            for name in BF16_RING:
+                ctrs[name].simple_launches = 0
             t0 = time.perf_counter()
             trainer.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {name: fn.launches for name, fn in ctrs.items()}
+            simple = {name: ctrs[name].simple_launches for name in BF16_RING}
             st = trainer.stats
             n_train, n_eval = st["train_steps"], st["eval_steps"]
             losses = list(trainer.train_losses)
@@ -1915,6 +2017,9 @@ def bf16_train(torch, card):
         if dtypes != ({stored[0]}, {stored[1]}):
             raise AssertionError(f"[bf16:{label}] stored dtypes {dtypes}, "
                                  f"expected {stored}")
+        if any(simple.values()):                # AlexNet's shapes: the ring
+            raise AssertionError(f"[bf16:{label}] the simple bf16 K1/K1b "
+                                 f"ran: {simple}")
         for name, fn in ctrs.items():
             per_train, per_eval = expect.get(name, (0, 0))
             want = per_train * n_train + per_eval * n_eval
@@ -2168,6 +2273,8 @@ def run_phases(torch, args) -> int:
             check_k2b_paths(torch)
         if "lrn_bwd" in names:
             check_k3b_paths(torch)
+        if set(BF16_PATHS) & set(names):
+            check_bf16_paths(torch, names)
         if set(BF16_LRN) & set(names):
             check_bf16_lrn_paths(torch)
         if anchors:

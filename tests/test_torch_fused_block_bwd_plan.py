@@ -11,7 +11,11 @@ pooled once into a running (max, tie count), each band of rows gathered
 once its last pooled row is done, window offset (i, j) by (i, j) — gives
 exactly what ``fused_block_bwd_plain`` gives on ``dx``, and what the
 reference's Pallas kernel (interpret mode) gives within the tolerances
-of ``tests/test_torch_ops.py``."""
+of ``tests/test_torch_ops.py``.  The bf16 K1b runs the same schedule on
+2-byte ring rows (``fused_block._bf16_bwd_plan``) where the shape
+allows it: the walk on bf16 operands, rows and dp widened at the read,
+everything derived float32 and dx rounded once, gives the bits of
+``fused_block_bwd_plain`` on them."""
 
 import numpy as np
 import pytest
@@ -39,6 +43,13 @@ def _plan(shape, pool, limit=SMEM_LIMIT, **kw):
 
     B, H, W, C = shape
     return _bwd_plan(B, H, W, C, pool, limit, **kw)
+
+
+def _bf16_plan(shape, pool, limit=SMEM_LIMIT, **kw):
+    from znicz_torch.fused_block import _bf16_bwd_plan
+
+    B, H, W, C = shape
+    return _bf16_bwd_plan(B, H, W, C, pool, limit, **kw)
 
 
 def _out_hw(H, W, pool):
@@ -174,16 +185,19 @@ def test_plan_falls_back_to_one_block_an_sm():
 
 
 def _walk(x, bias, dp, n, alpha, beta, k, pool, plan):
-    """K1b's schedule op by op.  Per rectangle: input rows enter a ring of
-    ``plan.stages`` slots in order, a slot refilled only once its row is
-    released (after its normalising if the block does not own it, after
-    its band's gather if it does); each row is biased, ReLU'd and
-    normalised once; its kx/sx horizontal (max, tie count) is folded into
+    """K1b's schedule op by op.  Per rectangle: input rows (of ``x``'s
+    dtype) enter a ring of ``plan.stages`` slots in order, a slot refilled
+    only once its row is released (after its normalising if the block does
+    not own it, after its band's gather if it does); each row is widened
+    to float32, biased, ReLU'd and normalised once; its kx/sx horizontal
+    (max, tie count) is folded into
     each pooled row it reaches — continuing and completing rows first,
     then, after any gather, a row it starts — one of ``_bwd_pool_slots``
     slots; a completed pooled row turns its count into ``g = dp / nt``; a
     band of sy rows is gathered after :func:`_bwd_gather_row`: dy from
-    the windows i outer, j inner, then the LRN backward and the gate."""
+    the windows i outer, j inner, then the LRN backward and the gate; dx
+    is stored rounded once to ``x``'s dtype, db summed from the float32
+    values before that rounding."""
     from znicz_torch.fused_block import (_bwd_gather_row, _bwd_pool_slots,
                                          _bwd_span, _relu_lrn)
     from znicz_torch.ops.lrn import windowed_channel_sum
@@ -194,6 +208,8 @@ def _walk(x, bias, dp, n, alpha, beta, k, pool, plan):
     nps = _bwd_pool_slots(ky, sy)
     c2 = 2.0 * alpha * beta
     dx = torch.full_like(x, float("nan"))
+    da_all = torch.full(x.shape, float("nan"))     # dx before rounding
+    bias = bias.float()
     stores = np.zeros((B, H, W), int)
     reads = 0
     for b in range(B):
@@ -255,13 +271,14 @@ def _walk(x, bias, dp, n, alpha, beta, k, pool, plan):
                                 m == pm, pn + cnt, pn))
                             slots[oy % nps] = [oy, torch.maximum(pm, m), pn]
                         if d == ky - 1:
-                            slots[oy % nps][2] = dp[b, oy, X.o0:X.o1] \
+                            slots[oy % nps][2] = \
+                                dp[b, oy, X.o0:X.o1].float() \
                                 / slots[oy % nps][2]
 
                 def gather(m):
                     nonlocal reads
                     for y in range(m * sy, min((m + 1) * sy, R.y1)):
-                        row = row_of(y)[X.y0 - X.r0:X.y1 - X.r0]
+                        row = row_of(y)[X.y0 - X.r0:X.y1 - X.r0].float()
                         a, r_, s_, sb = _relu_lrn(row, bias, n, alpha, beta,
                                                   k)
                         yv = r_ * sb
@@ -281,7 +298,9 @@ def _walk(x, bias, dp, n, alpha, beta, k, pool, plan):
                                 oy, i = oy - 1, i + sy
                         t = dy * r_ * (sb / s_)
                         dr = dy * sb - c2 * r_ * windowed_channel_sum(t, n)
-                        dx[b, y, X.y0:X.y1] = dr * (a > 0.0).to(x.dtype)
+                        da = dr * (a > 0.0).to(row.dtype)
+                        da_all[b, y, X.y0:X.y1] = da
+                        dx[b, y, X.y0:X.y1] = da
                         stores[b, y, X.y0:X.y1] += 1
 
                 issue(R.r0 - 1)
@@ -292,8 +311,8 @@ def _walk(x, bias, dp, n, alpha, beta, k, pool, plan):
                         if (hi + 1) * sy <= r and hi + 1 < R.o1:
                             hi += 1
                     reads += 1
-                    _, rr, _, sb = _relu_lrn(row_of(r), bias, n, alpha, beta,
-                                             k)
+                    _, rr, _, sb = _relu_lrn(row_of(r).float(), bias, n,
+                                             alpha, beta, k)
                     ybuf = rr * sb           # row r normalised, once
                     issue(r)
                     fold(r, ybuf, False)
@@ -308,7 +327,7 @@ def _walk(x, bias, dp, n, alpha, beta, k, pool, plan):
                     fold(r, ybuf, True)
                 assert mg * sy >= R.y1 and state["next"] == R.r1
     assert (stores == 1).all()
-    return dx, dx.sum(dim=(0, 1, 2)), reads
+    return dx, da_all.sum(dim=(0, 1, 2)), reads
 
 
 SHAPES = [((2, 13, 13, 20), (3, 3, 2, 2)), ((2, 15, 15, 33), (3, 3, 2, 2)),
@@ -354,6 +373,147 @@ def test_schedule_walk_matches_plain_and_reference(shape, pool, tied, cut):
     np.testing.assert_allclose(db.numpy(), np.asarray(gb), **DB_TOL)
     # each input row read once per column tile, plus the halo rows of
     # every strip boundary
+    B, H = shape[:2]
+    rows = sum(s.r1 - s.r0 for s in _spans(oh, H, ky, sy, plan.n_strips))
+    assert reads == B * plan.n_ctiles * rows
+    if tied:
+        assert (want_dx == 0).any()               # ReLU zeros reached dx
+
+
+# -- the bf16 K1b: the same ring on 2-byte rows --------------------------------
+
+
+@pytest.mark.parametrize("layer", sorted(ALEXNET))
+def test_bf16_plan_at_alexnet_shapes(layer):
+    """AlexNet's bf16 operands take the ring on 2-byte rows, planned by
+    the float32 rules on the smaller rows: two blocks an SM, one wave,
+    the layout of half-width ring rows beside the float32 row buffer,
+    maxima, g and t."""
+    from znicz_torch.fused_block import _bwd_smem
+
+    shape = ALEXNET[layer]
+    pool = (3, 3, 2, 2)
+    plan = _bf16_plan(shape, pool)
+    assert plan is not None and plan.vec
+    _check_plan(shape, pool, plan)
+    assert plan.blocks_per_sm == 2 and plan.smem <= SMEM_LIMIT
+    assert shape[0] * plan.n_strips * plan.n_ctiles <= 132 * 2
+    W, C = shape[2], shape[3]
+    tiles = _spans((W - 3) // 2 + 1, W, 3, 2, plan.n_ctiles)
+    wt = max(t.r1 - t.r0 for t in tiles)
+    owt = max(t.o1 - t.o0 for t in tiles)
+    assert plan.smem == _bwd_smem(wt, owt, C, 3, 2, plan.stages, True, 2)
+    assert 2 * (plan.smem + 1024) <= SMEM_LIMIT + 1024
+    # the rules' choice on half-width rows: conv1 whole rows in two strips,
+    # conv2 two column tiles with a ring one row deeper than float32's
+    f32 = _plan(shape, pool)
+    if layer == "conv1":
+        assert (plan.n_strips, plan.n_ctiles, plan.stages) == (2, 1, 4)
+    else:
+        assert (plan.n_strips, plan.n_ctiles) == (f32.n_strips, f32.n_ctiles)
+        assert plan.stages == f32.stages + 1
+
+
+@pytest.mark.parametrize("why,shape,kw", [
+    ("C % 8 != 0", (2, 9, 9, 20), {}),
+    ("odd C", (2, 9, 9, 13), {}),
+    ("2-byte offset", (2, 9, 9, 16), {"aligned": False}),
+    ("even window", (2, 9, 9, 16), {"n": 4}),
+    ("wide window", (2, 9, 9, 16), {"n": 11}),
+    ("C > 1024", (1, 7, 7, 1032), {}),
+])
+def test_bf16_plan_takes_the_simple_kernels(why, shape, kw):
+    assert _bf16_plan(shape, (3, 3, 2, 2), **kw) is None, why
+
+
+def test_bf16_plan_takes_the_simple_kernels_where_no_layout_fits():
+    assert _bf16_plan((2, 27, 27, 256), (3, 3, 2, 2), 20000) is None
+    assert _bf16_plan((2, 27, 27, 256), (3, 3, 2, 2), 40000) is not None
+
+
+def _rounds_within(ref, value, tol):
+    """Assert that each element of ``ref`` (the reference's bf16 result)
+    is the bf16 rounding of a value within ``tol`` of the float32
+    ``value`` (the plain version's before its one rounding).  Both
+    packages compute in float32 within the tolerance and round once to
+    bf16; where that band holds a rounding boundary, either neighbour is
+    the right answer, elsewhere only the one."""
+    ref = torch.from_numpy(np.asarray(ref, np.float32))
+    span = tol["atol"] + tol["rtol"] * value.abs()
+    lo = (value - span).to(torch.bfloat16).float()
+    hi = (value + span).to(torch.bfloat16).float()
+    bad = ~((lo <= ref) & (ref <= hi))
+    assert not bad.any(), (f"{int(bad.sum())} of {ref.numel()}: reference "
+                           f"{ref[bad][:4]}, plain before rounding "
+                           f"{value[bad][:4]}")
+
+
+#: (shape, pool, cut): the float32 walk's shapes with C % 8 == 0, C 16 or
+#: 32 in place of C 12, 20 and 33, each under one of the three cuts
+BF16_SHAPES = [((2, 13, 13, 16), (3, 3, 2, 2), "tiles"),
+               ((2, 15, 15, 32), (3, 3, 2, 2), "strips"),
+               ((2, 13, 13, 96), (3, 3, 2, 2), "one_block"),
+               ((2, 12, 12, 32), (2, 2, 2, 2), "tiles"),
+               ((2, 12, 12, 8), (4, 4, 2, 2), "strips"),
+               ((2, 9, 9, 16), (1, 1, 4, 4), "one_block"),
+               ((2, 9, 9, 8), (3, 3, 1, 1), "tiles"),
+               ((2, 11, 11, 8), (5, 5, 2, 2), "strips")]
+
+
+@pytest.mark.parametrize("shape,pool,cut", BF16_SHAPES, ids=[
+    "c16_h13", "c32_h15", "c96_h13", "c32_pool2", "c8_pool4x4s2",
+    "c16_pool1x1s4", "c8_pool3x3s1", "c8_pool5x5s2"])
+@pytest.mark.parametrize("tied", [False, True], ids=["rand", "ties"])
+def test_bf16_schedule_walk_matches_plain_and_reference(shape, pool, cut,
+                                                        tied):
+    """The walk on bf16 operands (2-byte ring rows and dp widened at the
+    read, dx rounded once, db from the unrounded values) has the dx bits
+    of ``fused_block_bwd_plain`` on them and its db within DB_TOL, and
+    the reference's interpret-mode kernel on the same bf16 inputs is
+    within the kernel tolerances of the plain version before its one
+    rounding (:func:`_rounds_within`)."""
+    import jax
+    import jax.numpy as jnp
+
+    from znicz_torch.fused_block import BwdPlan, fused_block_bwd_plain
+    from znicz_tpu.pallas_fused_block import fused_block as jax_fused_block
+
+    bf16 = torch.bfloat16
+    x = _tied(shape, 211) if tied else _rand(shape, 211, 2.0)
+    b = np.zeros(shape[-1], np.float32) if tied \
+        else _rand(shape[-1:], 212, 0.1)
+    oh, ow = _out_hw(shape[1], shape[2], pool)
+    dp = _rand((shape[0], oh, ow, shape[3]), 213)
+    tx, tb, tdp = (torch.from_numpy(a).to(bf16) for a in (x, b, dp))
+    jx, jb, jdp = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                   for t in (tx, tb, tdp))
+    ky, kx, sy, sx = pool
+    plan = _bf16_plan(shape, pool, n_sms={"one_block": 1, "strips": 132,
+                                          "tiles": 1}[cut])
+    assert plan is not None and plan.vec
+    if cut == "tiles":        # column tiles as a tight limit would cut them
+        plan = BwdPlan(2, min(3, -(-shape[2] // sx)), plan.stages,
+                       plan.smem, plan.vec, 1)
+    dx, db, reads = _walk(tx, tb, tdp, N, ALPHA, BETA, K, pool, plan)
+    want_dx, want_db = fused_block_bwd_plain(tx, tb, tdp, N, ALPHA, BETA, K,
+                                             pool)
+    assert dx.dtype == want_dx.dtype == bf16
+    assert db.dtype == want_db.dtype == torch.float32
+    assert torch.equal(dx.view(torch.int16), want_dx.view(torch.int16))
+    np.testing.assert_allclose(db.numpy(), want_db.numpy(), **DB_TOL)
+    _, vjp = jax.vjp(
+        lambda xx, bb: jax_fused_block(xx, bb, N, ALPHA, BETA, K, pool),
+        jx, jb)
+    gx, gb = vjp(jdp)
+    # the reference rounds dx and db (to the bias's dtype, in its
+    # _call_bwd) once from float32
+    assert gx.dtype == gb.dtype == jnp.bfloat16
+    dx32, db32 = fused_block_bwd_plain(tx.float(), tb.float(), tdp.float(),
+                                       N, ALPHA, BETA, K, pool)
+    assert torch.equal(dx32.to(bf16).view(torch.int16),
+                       dx.view(torch.int16))
+    _rounds_within(gx, dx32, KERNEL_TOL)
+    _rounds_within(gb, db32, DB_TOL)
     B, H = shape[:2]
     rows = sum(s.r1 - s.r0 for s in _spans(oh, H, ky, sy, plan.n_strips))
     assert reads == B * plan.n_ctiles * rows

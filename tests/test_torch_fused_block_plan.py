@@ -8,7 +8,10 @@ schedule — strip by strip, row through the ring, bias+ReLU+LRN once per
 input row, the horizontal max folded into a running vertical max —
 gives exactly what ``fused_block_plain`` gives, and what the reference's
 Pallas kernel (interpret mode) gives within the kernel tolerance of
-``tests/test_torch_ops.py``."""
+``tests/test_torch_ops.py``.  The bf16 K1 runs the same schedule on
+2-byte ring rows (``fused_block._bf16_fwd_plan``) where the shape allows
+it: the walk on bf16 operands, rows widened at the read and the output
+rounded once, gives the bits of ``fused_block_plain`` on them."""
 
 import numpy as np
 import pytest
@@ -30,6 +33,13 @@ def _plan(shape, pool, **kw):
 
     B, H, W, C = shape
     return _fwd_plan(B, H, W, C, pool, SMEM_LIMIT, **kw)
+
+
+def _bf16_plan(shape, pool, **kw):
+    from znicz_torch.fused_block import _bf16_fwd_plan
+
+    B, H, W, C = shape
+    return _bf16_fwd_plan(B, H, W, C, pool, kw.pop("limit", SMEM_LIMIT), **kw)
 
 
 def _out_hw(H, W, pool):
@@ -133,18 +143,19 @@ def test_plan_shrinks_the_ring_before_giving_up_a_block():
 
 
 def _walk(x, bias, n, alpha, beta, k, pool, plan):
-    """K1's schedule op by op: per strip, input rows enter a ring of
-    ``plan.stages`` slots in order; each row is biased, ReLU'd and
-    normalised once, its kx/sx horizontal max folded into the running
-    max of each pooled row it reaches, one of ceil(ky/sy) slots; a pooled
-    row is stored when its last input row is done."""
+    """K1's schedule op by op: per strip, input rows (of ``x``'s dtype)
+    enter a ring of ``plan.stages`` slots in order; each row is widened
+    to float32, biased, ReLU'd and normalised once, its kx/sx horizontal
+    max folded into the float32 running max of each pooled row it
+    reaches, one of ceil(ky/sy) slots; a pooled row is stored, rounded
+    once to ``x``'s dtype, when its last input row is done."""
     from znicz_torch.fused_block import _fwd_strip, _relu_lrn
 
     ky, kx, sy, sx = pool
     B, H, W, C = x.shape
     oh, ow = _out_hw(H, W, pool)
     nacc = -(-ky // sy)
-    out = torch.full((B, oh, ow, C), float("nan"))
+    out = torch.full((B, oh, ow, C), float("nan"), dtype=x.dtype)
     stores = np.zeros((B, oh), int)
     reads = 0
     for b in range(B):
@@ -159,7 +170,8 @@ def _walk(x, bias, n, alpha, beta, k, pool, plan):
                 got_r, row = ring[i % plan.stages]
                 assert got_r == r
                 reads += 1
-                _, rr, _, sb = _relu_lrn(row, bias, n, alpha, beta, k)
+                _, rr, _, sb = _relu_lrn(row.float(), bias.float(), n,
+                                         alpha, beta, k)
                 y = rr * sb                                   # (W, C)
                 if r + plan.stages < r1:
                     ring[i % plan.stages] = (r + plan.stages,
@@ -208,6 +220,85 @@ def test_schedule_walk_matches_plain_and_reference(shape, pool, tied, n_sms):
     ref = jax_fused_block(jx, jb, N, ALPHA, BETA, K, pool)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **KERNEL_TOL)
     # each input row read once, plus the ky - sy halo rows per boundary
+    ky, _, sy, _ = pool
+    B, H = shape[:2]
+    assert reads == B * (H + (plan.n_strips - 1) * (ky - sy))
+
+
+# -- the bf16 K1: the same ring on 2-byte rows ---------------------------------
+
+
+@pytest.mark.parametrize("layer", sorted(ALEXNET))
+def test_bf16_plan_at_alexnet_shapes(layer):
+    """AlexNet's bf16 operands take the ring on 2-byte rows: two blocks an
+    SM, one wave, the layout of half-width ring rows beside the float32
+    row buffer and maxima."""
+    from znicz_torch.fused_block import _fwd_smem
+
+    shape = ALEXNET[layer]
+    plan = _bf16_plan(shape, (3, 3, 2, 2))
+    assert plan is not None and plan.vec
+    _check_cover(shape, (3, 3, 2, 2), plan)
+    assert plan.smem <= SMEM_LIMIT and plan.blocks_per_sm == 2
+    slots = 132 * plan.blocks_per_sm
+    assert shape[0] * plan.n_strips <= slots < shape[0] * (plan.n_strips + 1)
+    W, C = shape[2], shape[3]
+    ow = (W - 3) // 2 + 1
+    assert plan.smem == _fwd_smem(W, C, ow, 3, 2, plan.stages, 2) \
+        == 128 + plan.stages * -(-W * C * 2 // 128) * 128 \
+        + -(-W * C * 4 // 128) * 128 + 2 * ow * C * 4
+    # half-width rows: a ring at least as deep as float32's, in less room
+    f32 = _plan(shape, (3, 3, 2, 2))
+    assert plan.stages >= f32.stages and plan.smem < f32.smem
+
+
+@pytest.mark.parametrize("why,shape,kw", [
+    ("C % 8 != 0", (2, 9, 9, 20), {}),
+    ("odd C", (2, 9, 9, 13), {}),
+    ("2-byte offset", (2, 9, 9, 16), {"aligned": False}),
+    ("even window", (2, 9, 9, 16), {"n": 4}),
+    ("wide window", (2, 9, 9, 16), {"n": 11}),
+    ("C > 1024", (1, 7, 7, 1032), {}),
+    ("ring row too wide", (1, 7, 8000, 16), {}),
+])
+def test_bf16_plan_takes_the_simple_kernel(why, shape, kw):
+    assert _bf16_plan(shape, (3, 3, 2, 2), **kw) is None, why
+
+
+@pytest.mark.parametrize("shape,pool", [
+    ((2, 13, 13, 32), (3, 3, 2, 2)),
+    ((2, 27, 27, 16), (3, 3, 2, 2)),
+    ((2, 13, 13, 96), (3, 3, 2, 2)),
+    ((2, 12, 12, 16), (2, 2, 2, 2)),
+    ((2, 12, 12, 96), (2, 2, 2, 2)),
+], ids=["c32_h13", "c16_h27", "c96_h13", "c16_h12_pool2", "c96_h12_pool2"])
+@pytest.mark.parametrize("tied", [False, True], ids=["rand", "ties"])
+def test_bf16_schedule_walk_matches_plain_and_reference(shape, pool, tied):
+    """The walk on bf16 operands (2-byte ring rows widened at the read,
+    the output rounded once) has the bits of ``fused_block_plain`` on
+    them, and matches the reference's interpret-mode kernel on the same
+    bf16 inputs within the kernel tolerance."""
+    import jax.numpy as jnp
+
+    from znicz_torch.fused_block import fused_block_plain
+    from znicz_tpu.pallas_fused_block import fused_block as jax_fused_block
+
+    bf16 = torch.bfloat16
+    x = _tied(shape, 111) if tied else _rand(shape, 111, 2.0)
+    b = np.zeros(shape[-1], np.float32) if tied \
+        else _rand(shape[-1:], 112, 0.1)
+    tx, tb = (torch.from_numpy(a).to(bf16) for a in (x, b))
+    jx, jb = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tx, tb))
+    # short strips at conv1's width, long ones elsewhere
+    plan = _bf16_plan(shape, pool, n_sms=132 if shape[1] == 27 else 1)
+    assert plan is not None and plan.vec
+    got, reads = _walk(tx, tb, N, ALPHA, BETA, K, pool, plan)
+    want = fused_block_plain(tx, tb, N, ALPHA, BETA, K, pool)
+    assert got.dtype == want.dtype == bf16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    ref = jax_fused_block(jx, jb, N, ALPHA, BETA, K, pool)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               **KERNEL_TOL)
     ky, _, sy, _ = pool
     B, H = shape[:2]
     assert reads == B * (H + (plan.n_strips - 1) * (ky - sy))

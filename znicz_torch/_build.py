@@ -43,14 +43,17 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 
 #: C functions of each library: name -> argtypes.  The first is the
 #: float32 launch function, the ``*_bf16_*`` ones launch the bf16 operand
-#: variants; every restype is int
+#: variants (``*_bf16_ring_*`` the float32 ring kernels on bf16 rows);
+#: every restype is int
 SIGNATURES = {
     "fused_block": {
         "znicz_fused_block_fwd":
             [_P] * 3 + [_I] * 7 + [_F] * 3 + [_I] * 10 + [_P],
         "znicz_fused_block_smem_limit": [_I],
         "znicz_fused_block_bf16_fwd":
-            [_P] * 3 + [_I] * 7 + [_F] * 3 + [_I] * 6 + [_P]},
+            [_P] * 3 + [_I] * 7 + [_F] * 3 + [_I] * 6 + [_P],
+        "znicz_fused_block_bf16_ring_fwd":
+            [_P] * 3 + [_I] * 7 + [_F] * 3 + [_I] * 9 + [_P]},
     "bias_relu": {"znicz_bias_relu_fwd": [_P, _P, _P, _LL, _I, _I, _P],
                   "znicz_bias_relu_bf16_fwd":
                       [_P, _P, _P, _LL, _I, _I, _P]},
@@ -63,7 +66,9 @@ SIGNATURES = {
         "znicz_fused_block_bwd":
             [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I] * 11 + [_P],
         "znicz_fused_block_bf16_bwd":
-            [_P] * 8 + [_I] * 7 + [_F] * 4 + [_I] * 8 + [_P]},
+            [_P] * 8 + [_I] * 7 + [_F] * 4 + [_I] * 8 + [_P],
+        "znicz_fused_block_bf16_ring_bwd":
+            [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I] * 10 + [_P]},
     "bias_relu_bwd": {
         "znicz_bias_relu_bwd": [_P] * 7 + [_LL] + [_I] * 8 + [_P],
         "znicz_bias_relu_bf16_bwd": [_P] * 6 + [_LL] + [_I] * 5 + [_P]},

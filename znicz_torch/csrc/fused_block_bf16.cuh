@@ -1,4 +1,6 @@
-// The bf16 operand variants of K1 and K1b share this arithmetic: bf16
+// The bf16 operand variants of K1 and K1b share this header.  The simple
+// kernels (for the shapes the ring kernels do not take) share this
+// arithmetic: bf16
 // loads widened to float32, then the float32 plain version's operations
 // in its order (fused_block.fused_block_plain, fused_block_bwd_plain),
 // each rounded on its own, so nvcc contracts nothing into an FMA:
@@ -18,6 +20,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace bf16k {
 
@@ -69,6 +72,46 @@ __device__ __forceinline__ float y_at(const __nv_bfloat16* pix,
   float r, s, sb;
   lrn_at(pix, bias, c, p, r, s, sb);
   return __fmul_rn(r, sb);
+}
+
+// The ring kernels (K1, K1b) on float or bf16 rows: channel group q (4
+// channels) of a row, widened to float32 by one 16- or 8-byte load (ld4
+// from shared or global memory, ldg4 from global memory through the
+// read-only path); group or channel i of `out` stored, float32 as it is,
+// bf16 rounded to nearest even once, 8 bytes for a group.
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 ld4(const float* p, int q) {
+  return reinterpret_cast<const float4*>(p)[q];
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p, int q) {
+  return widen4(reinterpret_cast<const uint2*>(p)[q]);
+}
+__device__ __forceinline__ float4 ldg4(const float* p, long long q) {
+  return __ldg(reinterpret_cast<const float4*>(p) + q);
+}
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p, long long q) {
+  return widen4(__ldg(reinterpret_cast<const uint2*>(p) + q));
+}
+__device__ __forceinline__ void put(float* out, long long i, float4 v) {
+  reinterpret_cast<float4*>(out)[i] = v;
+}
+__device__ __forceinline__ void put(float* out, long long i, float v) {
+  out[i] = v;
+}
+__device__ __forceinline__ void put(__nv_bfloat16* out, long long i,
+                                    float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  reinterpret_cast<uint2*>(out)[i] = u;
 }
 
 constexpr int kMaxWindow = 16;   // window inputs window_max keeps

@@ -193,6 +193,9 @@ _FWD_VEC_WINDOWS = (1, 3, 5, 7, 9)
 _FWD_MAX_STAGES = 3
 #: K1's threads per block
 _FWD_THREADS = 512
+#: most resident K1 blocks an SM holds: its launch bounds give each of the
+#: 512 threads up to 64 registers, so two blocks fill the register file
+_FWD_BLOCKS_PER_SM = 2
 
 
 class FwdPlan(NamedTuple):
@@ -202,18 +205,23 @@ class FwdPlan(NamedTuple):
     n_strips: int       # strips per image
     stages: int         # input rows in the shared-memory ring
     smem: int           # dynamic shared memory per block, bytes
-    vec: bool           # float4 channels and bulk-async rows, else scalar
-    #                     channels and 4-byte cp.async
+    vec: bool           # groups of 4 channels and bulk-async rows, else
+    #                     scalar channels and 4-byte cp.async
     blocks_per_sm: int  # resident blocks per SM that ``smem`` allows
 
 
-def _fwd_smem(W, C, OW, ky, sy, stages) -> int:
+def _pad128(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def _fwd_smem(W, C, OW, ky, sy, stages, esize=4) -> int:
     """K1's shared memory: 128 bytes of mbarriers, ``stages`` input rows
-    and one normalised row (each padded to 128 bytes), and ceil(ky/sy)
-    pooled rows of running maxima.  The kernel lays them out in that
-    order and takes this size as given."""
-    row = -(-W * C * 4 // 128) * 128
-    return 128 + (stages + 1) * row + -(-ky // sy) * OW * C * 4
+    of ``esize``-byte operands, one normalised float32 row (each padded to
+    128 bytes), and ceil(ky/sy) pooled rows of float32 running maxima.
+    The kernel lays them out in that order and takes this size as
+    given."""
+    return (128 + stages * _pad128(W * C * esize) + _pad128(W * C * 4)
+            + -(-ky // sy) * OW * C * 4)
 
 
 def _fwd_strip(oh, n_strips, j, ky, sy):
@@ -225,12 +233,14 @@ def _fwd_strip(oh, n_strips, j, ky, sy):
 
 @functools.lru_cache(maxsize=64)
 def _fwd_plan(B, H, W, C, pool, smem_limit, n=5, aligned=True,
-              n_sms=132) -> FwdPlan:
-    """K1's schedule: the most ring stages (up to 3) that leave two blocks
-    on an SM, else the most that fit one; then the most strips per image
-    whose ``B * n_strips`` blocks are all resident at once on ``n_sms``
-    SMs (at least one): no tail wave, and the fewest halo rows read
-    twice.  The float4 path needs C % 4 == 0, 16-byte aligned operands
+              n_sms=132, esize=4) -> FwdPlan:
+    """K1's schedule for operands of ``esize`` bytes (4 float32, 2 bf16):
+    the most ring stages (up to 3) that leave two blocks on an SM, else
+    the most that fit one; then the most strips per image whose ``B *
+    n_strips`` blocks are all resident at once on ``n_sms`` SMs (at least
+    one): no tail wave, and the fewest halo rows read twice.  The group
+    path needs the channels in whole 16-byte units (C % 4 == 0 for
+    float32, C % 8 == 0 for bf16), 16-byte aligned operands
     (``aligned``) and a window in :data:`_FWD_VEC_WINDOWS`.  Raises
     ``ValueError`` when C > 1024 or one ring stage does not fit
     ``smem_limit``."""
@@ -238,26 +248,29 @@ def _fwd_plan(B, H, W, C, pool, smem_limit, n=5, aligned=True,
     oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
     if C > 1024:
         raise ValueError(f"fused_block kernel: C {C} > 1024")
-    vec = bool(aligned) and C % 4 == 0 and int(n) in _FWD_VEC_WINDOWS
+    vec = bool(aligned) and C % (16 // esize) == 0 \
+        and int(n) in _FWD_VEC_WINDOWS
+
+    def size(stages):
+        return _fwd_smem(W, C, ow, ky, sy, stages, esize)
 
     def per_sm(smem):
-        return _build.resident_blocks(_FWD_THREADS, smem, smem_limit)
+        return min(_FWD_BLOCKS_PER_SM,
+                   _build.resident_blocks(_FWD_THREADS, smem, smem_limit))
 
     fitting = [s for s in range(_FWD_MAX_STAGES, 0, -1)
-               if _fwd_smem(W, C, ow, ky, sy, s) <= smem_limit]
+               if size(s) <= smem_limit]
     if not fitting:
         raise ValueError(
-            f"fused_block kernel: a ring of {W}x{C} float rows needs "
-            f"{_fwd_smem(W, C, ow, ky, sy, 1)} bytes of shared memory, "
-            f"one block may have {smem_limit}")
-    stages = next((s for s in fitting
-                   if per_sm(_fwd_smem(W, C, ow, ky, sy, s)) >= 2),
-                  fitting[0])
-    occupancy = per_sm(_fwd_smem(W, C, ow, ky, sy, stages))
+            f"fused_block kernel: a ring of {W}x{C} rows of {esize}-byte "
+            f"operands needs {size(1)} bytes of shared memory, one block "
+            f"may have {smem_limit}")
+    stages = next((s for s in fitting if per_sm(size(s)) >= 2), fitting[0])
+    occupancy = per_sm(size(stages))
     n_strips = max(1, min(oh, n_sms * occupancy // max(B, 1)))
     longest = (-(-oh // n_strips) - 1) * sy + ky
     stages = min(stages, longest)
-    smem = _fwd_smem(W, C, ow, ky, sy, stages)
+    smem = size(stages)
     return FwdPlan(n_strips, stages, smem, vec, per_sm(smem))
 
 
@@ -302,33 +315,80 @@ def fused_block_fwd(x, bias, n=5, alpha=1e-4, beta=0.75, k=2.0,
 fused_block_fwd.launches = 0
 
 
+@functools.lru_cache(maxsize=64)
+def _bf16_fwd_plan(B, H, W, C, pool, smem_limit, n=5, aligned=True,
+                   n_sms=132) -> Optional[FwdPlan]:
+    """The bf16 K1's schedule: :func:`_fwd_plan` on 2-byte ring rows
+    where the group path takes the shape, else ``None``, and the simple
+    kernel (one thread a pooled output) runs it: C % 8 != 0, an operand
+    not 16-byte aligned, a window outside :data:`_FWD_VEC_WINDOWS`,
+    C > 1024, or a ring row that does not fit ``smem_limit``."""
+    ky, kx, sy, sx = pool
+    _, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
+    if not (aligned and C % 8 == 0 and C <= 1024
+            and int(n) in _FWD_VEC_WINDOWS) \
+            or _fwd_smem(W, C, ow, ky, sy, 1, 2) > smem_limit:
+        return None
+    return _fwd_plan(B, H, W, C, pool, smem_limit, n, aligned, n_sms, 2)
+
+
+def bf16_fwd_plan_for(x, bias, n=5, pool=(3, 3, 2, 2)) -> Optional[FwdPlan]:
+    """The :class:`FwdPlan` the bf16 K1 runs for CUDA tensors ``x``,
+    ``bias``, or ``None`` for the simple kernel."""
+    B, H, W, C = x.shape
+    aligned = x.data_ptr() % 16 == 0 and bias.data_ptr() % 16 == 0
+    smem_limit, n_sms = _build.device_limits(x.device.index)
+    return _bf16_fwd_plan(B, H, W, C, _tiling_pool(x, pool), smem_limit,
+                          int(n), aligned, n_sms)
+
+
+def _bf16_fwd_launch(x, bias, n, alpha, beta, k, pool, plan):
+    """Launch the bf16 K1 on ``plan``: the ring kernel, or the simple
+    kernel for ``None``."""
+    ky, kx, sy, sx = pool
+    B, H, W, C = x.shape
+    oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
+    out = torch.empty((B, oh, ow, C), dtype=x.dtype, device=x.device)
+    args = (x.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, C, oh,
+            ow, int(n), float(alpha), float(beta), float(k), ky, kx, sy, sx,
+            int(float(beta) == 0.75))
+    if plan is None:
+        fn = "znicz_fused_block_bf16_fwd"
+        rc = _build.entry("fused_block", fn)(
+            *args, x.device.index, _build.stream_of(x))
+    else:
+        fn = "znicz_fused_block_bf16_ring_fwd"
+        rc = _build.entry("fused_block", fn)(
+            *args, plan.n_strips, plan.stages, plan.smem, x.device.index,
+            _build.stream_of(x))
+    _build.check(rc, "fused_block", fn)
+    return out
+
+
 def fused_block_bf16_fwd(x, bias, n=5, alpha=1e-4, beta=0.75, k=2.0,
                          pool=(3, 3, 2, 2)):
-    """K1 for bf16 operands (``csrc/fused_block.cu``,
-    ``znicz_fused_block_bf16_fwd``): :func:`fused_block_fwd`'s function
-    computed in float32 and rounded once to bf16.  CPU tensors take
-    :func:`fused_block_plain`; CUDA tensors launch the kernel or raise."""
+    """K1 for bf16 operands (``csrc/fused_block.cu``):
+    :func:`fused_block_fwd`'s function computed in float32 and rounded
+    once to bf16.  CPU tensors take :func:`fused_block_plain`; CUDA
+    tensors launch, on :func:`_bf16_fwd_plan`'s choice, the float32 ring
+    kernel on bf16 rows (``znicz_fused_block_bf16_ring_fwd``) or the
+    simple kernel (``znicz_fused_block_bf16_fwd``), or raise."""
     pool = _tiling_pool(x, pool)
     if _all_cpu(x, bias):
         return fused_block_plain(x, bias, n, alpha, beta, k, pool)
     _check_kernel_operands("fused_block_bf16_fwd", x, bias,
                            dtype=torch.bfloat16)
-    ky, kx, sy, sx = pool
-    B, H, W, C = x.shape
-    oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
-    out = torch.empty((B, oh, ow, C), dtype=x.dtype, device=x.device)
-    fn = "znicz_fused_block_bf16_fwd"
-    rc = _build.entry("fused_block", fn)(
-        x.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, C, oh, ow,
-        int(n), float(alpha), float(beta), float(k), ky, kx, sy, sx,
-        int(float(beta) == 0.75), x.device.index, _build.stream_of(x))
-    _build.check(rc, "fused_block", fn)
+    plan = bf16_fwd_plan_for(x, bias, n, pool)
+    out = _bf16_fwd_launch(x, bias, n, alpha, beta, k, pool, plan)
     fused_block_bf16_fwd.launches += 1
+    fused_block_bf16_fwd.simple_launches += plan is None
     return out
 
 
-#: bf16 K1 launches since the count was last reset
+#: bf16 K1 launches since the count was last reset, and those of them that
+#: ran the simple kernel
 fused_block_bf16_fwd.launches = 0
+fused_block_bf16_fwd.simple_launches = 0
 
 
 #: most resident K1b blocks an SM holds: its launch bounds give each of
@@ -346,8 +406,8 @@ class BwdPlan(NamedTuple):
     n_ctiles: int       # tiles of input columns per strip
     stages: int         # input rows in the shared-memory ring
     smem: int           # dynamic shared memory per block, bytes
-    vec: bool           # float4 channels and bulk-async rows, else scalar
-    #                     channels and 4-byte cp.async
+    vec: bool           # groups of 4 channels and bulk-async rows, else
+    #                     scalar channels and 4-byte cp.async
     blocks_per_sm: int  # resident blocks per SM that ``smem`` allows
 
 
@@ -400,38 +460,38 @@ def _bwd_groups(C, vec):
     return _FWD_THREADS // min(C // 4 if vec else C, _FWD_THREADS)
 
 
-def _bwd_smem(wt, owt, C, ky, sy, stages, vec) -> int:
+def _bwd_smem(wt, owt, C, ky, sy, stages, vec, esize=4) -> int:
     """K1b's shared memory for a tile of ``wt`` input and ``owt`` pooled
-    columns: 128 bytes of mbarriers, ``stages`` input rows and one
-    normalised row, the running maxima and then ``g`` of
-    :func:`_bwd_pool_slots` pooled rows (each, and each array, padded to
-    128 bytes), and one row of C floats per pixel in flight for the LRN
-    backward's window.  The kernel lays them out in that order and takes
-    this size as given."""
-    def pad(nbytes):
-        return -(-nbytes // 128) * 128
-
-    return (128 + (stages + 1) * pad(wt * C * 4)
-            + 2 * pad(_bwd_pool_slots(ky, sy) * owt * C * 4)
-            + pad(_bwd_groups(C, vec) * C * 4))
+    columns: 128 bytes of mbarriers, ``stages`` input rows of
+    ``esize``-byte operands and one normalised float32 row, the float32
+    running maxima and then ``g`` of :func:`_bwd_pool_slots` pooled rows
+    (each, and each array, padded to 128 bytes), and one row of C floats
+    per pixel in flight for the LRN backward's window.  The kernel lays
+    them out in that order and takes this size as given."""
+    return (128 + stages * _pad128(wt * C * esize) + _pad128(wt * C * 4)
+            + 2 * _pad128(_bwd_pool_slots(ky, sy) * owt * C * 4)
+            + _pad128(_bwd_groups(C, vec) * C * 4))
 
 
 @functools.lru_cache(maxsize=64)
 def _bwd_plan(B, H, W, C, pool, smem_limit, n=5, aligned=True,
-              n_sms=132) -> BwdPlan:
-    """K1b's schedule: the fewest column tiles, and then the most ring
-    stages (two or one beyond the rows a gather holds), that keep two
-    blocks on an SM while every block is resident at once; else one
-    block an SM, in one wave if the layout fits; else the fewest tiles
-    that fit one block.  Then as many strips per image as keep the grid
-    in one wave (at least one).  The float4 path needs C % 4 == 0,
-    16-byte aligned operands and a window in :data:`_FWD_VEC_WINDOWS`.
-    Raises ``ValueError`` when C > 1024 or no layout fits ``smem_limit``."""
+              n_sms=132, esize=4) -> BwdPlan:
+    """K1b's schedule for operands of ``esize`` bytes (4 float32, 2
+    bf16): the fewest column tiles, and then the most ring stages (two or
+    one beyond the rows a gather holds), that keep two blocks on an SM
+    while every block is resident at once; else one block an SM, in one
+    wave if the layout fits; else the fewest tiles that fit one block.
+    Then as many strips per image as keep the grid in one wave (at least
+    one).  The group path needs the channels in whole 16-byte units (C %
+    4 == 0 for float32, C % 8 == 0 for bf16), 16-byte aligned operands
+    and a window in :data:`_FWD_VEC_WINDOWS`.  Raises ``ValueError`` when
+    C > 1024 or no layout fits ``smem_limit``."""
     ky, kx, sy, sx = pool
     oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
     if C > 1024:
         raise ValueError(f"fused_block_bwd kernel: C {C} > 1024")
-    vec = bool(aligned) and C % 4 == 0 and int(n) in _FWD_VEC_WINDOWS
+    vec = bool(aligned) and C % (16 // esize) == 0 \
+        and int(n) in _FWD_VEC_WINDOWS
     hold = _bwd_hold(ky, sy)
     nbx = -(-W // sx)
 
@@ -445,7 +505,7 @@ def _bwd_plan(B, H, W, C, pool, smem_limit, n=5, aligned=True,
                  for t in range(n_ctiles)]
         return _bwd_smem(max(t.r1 - t.r0 for t in tiles),
                          max(t.o1 - t.o0 for t in tiles), C, ky, sy,
-                         stages, vec)
+                         stages, vec, esize)
 
     choice = None
     for occupancy, one_wave in ((2, True), (1, True), (1, False)):
@@ -464,8 +524,9 @@ def _bwd_plan(B, H, W, C, pool, smem_limit, n=5, aligned=True,
     if choice is None:
         raise ValueError(
             f"fused_block_bwd kernel: a ring of {hold + 1} rows of {W}x{C} "
-            f"floats needs {layout(nbx, hold + 1)} bytes of shared memory "
-            f"in its narrowest tiles, one block may have {smem_limit}")
+            f"{esize}-byte operands needs {layout(nbx, hold + 1)} bytes of "
+            f"shared memory in its narrowest tiles, one block may have "
+            f"{smem_limit}")
     n_ctiles, stages, smem = choice
     slots = n_sms * per_sm(smem)
     n_strips = max(1, min(-(-H // sy), slots // max(B * n_ctiles, 1)))
@@ -525,9 +586,10 @@ def fused_block_bwd(x, bias, dp, n=5, alpha=1e-4, beta=0.75, k=2.0,
 #: K1b launches since the count was last reset
 fused_block_bwd.launches = 0
 
-#: threads a bf16 K1b or K2b block has (``kBf16Threads`` in
+#: threads a bf16 K2b block or simple K1b block has (``kBf16Threads`` in
 #: ``csrc/fused_block_bwd.cu`` and ``csrc/bias_relu_bwd.cu``), the blocks
-#: their planners give each SM, and the channels a bf16 K1b thread takes
+#: their planners give each SM, and the channels a simple bf16 K1b thread
+#: takes
 _BF16_THREADS, _BF16_BLOCKS_PER_SM, _BF16_GROUPS = 256, 8, 4
 
 
@@ -537,11 +599,12 @@ def _bf16_channel_threads(C: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _bf16_bwd_plan(pixels: int, C: int, n_sms: int = 132) -> Tuple[int, int]:
-    """The bf16 K1b's launch, a function of the shape alone so that db
-    sums in one order on every run: ``(tpc, blocks)``, ``tpc`` threads a
-    pixel over its channels (each thread at most four channels) and
-    ``blocks`` blocks over the ``pixels`` NHWC pixels.  Raises
+def _bf16_simple_bwd_plan(pixels: int, C: int,
+                          n_sms: int = 132) -> Tuple[int, int]:
+    """The simple bf16 K1b's launch, a function of the shape alone so
+    that db sums in one order on every run: ``(tpc, blocks)``, ``tpc``
+    threads a pixel over its channels (each thread at most four channels)
+    and ``blocks`` blocks over the ``pixels`` NHWC pixels.  Raises
     ``ValueError`` when C > 1024."""
     tpc = _bf16_channel_threads(C)
     if tpc * _BF16_GROUPS < C:
@@ -551,14 +614,88 @@ def _bf16_bwd_plan(pixels: int, C: int, n_sms: int = 132) -> Tuple[int, int]:
     return tpc, max(1, min(-(-pixels // slots), n_sms * _BF16_BLOCKS_PER_SM))
 
 
+@functools.lru_cache(maxsize=64)
+def _bf16_bwd_plan(B, H, W, C, pool, smem_limit, n=5, aligned=True,
+                        n_sms=132) -> Optional[BwdPlan]:
+    """The bf16 K1b's schedule: :func:`_bwd_plan` on 2-byte ring rows
+    where the group path takes the shape, else ``None``, and the simple
+    kernels run it: C % 8 != 0, an operand not 16-byte aligned, a window
+    outside :data:`_FWD_VEC_WINDOWS`, C > 1024, or a layout that does not
+    fit ``smem_limit`` in the narrowest tiles."""
+    ky, kx, sy, sx = pool
+    _, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
+    if not (aligned and C % 8 == 0 and C <= 1024
+            and int(n) in _FWD_VEC_WINDOWS):
+        return None
+    nbx = -(-W // sx)
+    tiles = [_bwd_span(ow, W, kx, sx, nbx, t) for t in range(nbx)]
+    if _bwd_smem(max(t.r1 - t.r0 for t in tiles),
+                 max(t.o1 - t.o0 for t in tiles), C, ky, sy,
+                 _bwd_hold(ky, sy) + 1, True, 2) > smem_limit:
+        return None
+    return _bwd_plan(B, H, W, C, pool, smem_limit, n, aligned, n_sms, 2)
+
+
+def bf16_bwd_plan_for(x, bias, n=5, pool=(3, 3, 2, 2),
+                      dp=None) -> Optional[BwdPlan]:
+    """The :class:`BwdPlan` the bf16 K1b runs for CUDA tensors ``x``,
+    ``bias`` (and ``dp``, whose alignment counts too), or ``None`` for the
+    simple kernels."""
+    B, H, W, C = x.shape
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (x, bias, dp) if t is not None)
+    smem_limit, n_sms = _build.device_limits(x.device.index)
+    return _bf16_bwd_plan(B, H, W, C, _tiling_pool(x, pool), smem_limit,
+                               int(n), aligned, n_sms)
+
+
+def _bf16_bwd_launch(x, bias, dp, n, alpha, beta, k, pool, plan):
+    """Launch the bf16 K1b on ``plan``: the ring kernel and the column
+    sum, or for ``None`` the simple kernels (a pool pass into float32
+    scratch ``pm``/``pg``, a gather pass, the column sum)."""
+    ky, kx, sy, sx = pool
+    B, H, W, C = x.shape
+    oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
+    f32 = {"dtype": torch.float32, "device": x.device}
+    dx = torch.empty_like(x)
+    db = torch.empty((C,), **f32)
+    hyper = (B, H, W, C, oh, ow, int(n), float(alpha), float(beta), float(k),
+             float(2.0 * alpha * beta), ky, kx, sy, sx,
+             int(float(beta) == 0.75))
+    if plan is None:
+        tpc, blocks = _bf16_simple_bwd_plan(B * H * W, C,
+                                     _build.device_limits(x.device.index)[1])
+        pm = torch.empty(tuple(dp.shape), **f32)
+        pg = torch.empty(tuple(dp.shape), **f32)
+        partial = torch.empty((blocks, C), **f32)
+        fn = "znicz_fused_block_bf16_bwd"
+        rc = _build.entry("fused_block_bwd", fn)(
+            x.data_ptr(), bias.data_ptr(), dp.data_ptr(), dx.data_ptr(),
+            db.data_ptr(), pm.data_ptr(), pg.data_ptr(), partial.data_ptr(),
+            *hyper, tpc, blocks, x.device.index, _build.stream_of(x))
+    else:
+        partial = torch.empty((max(B * plan.n_strips * plan.n_ctiles, 1), C),
+                              **f32)
+        fn = "znicz_fused_block_bf16_ring_bwd"
+        rc = _build.entry("fused_block_bwd", fn)(
+            x.data_ptr(), bias.data_ptr(), dp.data_ptr(), dx.data_ptr(),
+            db.data_ptr(), partial.data_ptr(), *hyper, plan.n_strips,
+            plan.n_ctiles, plan.stages, plan.smem, x.device.index,
+            _build.stream_of(x))
+    _build.check(rc, "fused_block_bwd", fn)
+    return dx, db
+
+
 def fused_block_bf16_bwd(x, bias, dp, n=5, alpha=1e-4, beta=0.75, k=2.0,
                          pool=(3, 3, 2, 2)):
-    """K1b for bf16 operands (``csrc/fused_block_bwd.cu``,
-    ``znicz_fused_block_bf16_bwd``): ``(dx, db)`` of :func:`fused_block_bwd`
-    computed in float32, dx rounded once to bf16 and db float32, as the TPU
-    kernel writes it (:func:`fused_block_bwd` casts it to the bias's
-    dtype).  CPU tensors take :func:`fused_block_bwd_plain`; CUDA tensors
-    launch the kernel or raise."""
+    """K1b for bf16 operands (``csrc/fused_block_bwd.cu``): ``(dx, db)``
+    of :func:`fused_block_bwd` computed in float32, dx rounded once to
+    bf16 and db float32, as the TPU kernel writes it
+    (:func:`fused_block_bwd` casts it to the bias's dtype).  CPU tensors
+    take :func:`fused_block_bwd_plain`; CUDA tensors launch, on
+    :func:`_bf16_bwd_plan`'s choice, the float32 ring kernel on bf16
+    rows (``znicz_fused_block_bf16_ring_bwd``) or the simple kernels
+    (``znicz_fused_block_bf16_bwd``), or raise."""
     ky, kx, sy, sx = _tiling_pool(x, pool)
     B, H, W, C = x.shape
     oh, ow = _pool_out_hw(H, W, ky, kx, sy, sx)
@@ -570,29 +707,18 @@ def fused_block_bf16_bwd(x, bias, dp, n=5, alpha=1e-4, beta=0.75, k=2.0,
                                      (ky, kx, sy, sx))
     _check_kernel_operands("fused_block_bf16_bwd", x, bias, dp,
                            dtype=torch.bfloat16)
-    tpc, blocks = _bf16_bwd_plan(B * H * W, C,
-                                 _build.device_limits(x.device.index)[1])
-    f32 = {"dtype": torch.float32, "device": x.device}
-    dx = torch.empty_like(x)
-    db = torch.empty((C,), **f32)
-    pm = torch.empty(tuple(dp.shape), **f32)
-    pg = torch.empty(tuple(dp.shape), **f32)
-    partial = torch.empty((blocks, C), **f32)
-    fn = "znicz_fused_block_bf16_bwd"
-    rc = _build.entry("fused_block_bwd", fn)(
-        x.data_ptr(), bias.data_ptr(), dp.data_ptr(), dx.data_ptr(),
-        db.data_ptr(), pm.data_ptr(), pg.data_ptr(), partial.data_ptr(), B,
-        H, W, C, oh, ow, int(n), float(alpha), float(beta), float(k),
-        float(2.0 * alpha * beta), ky, kx, sy, sx,
-        int(float(beta) == 0.75), tpc, blocks, x.device.index,
-        _build.stream_of(x))
-    _build.check(rc, "fused_block_bwd", fn)
+    pool = (ky, kx, sy, sx)
+    plan = bf16_bwd_plan_for(x, bias, n, pool, dp)
+    dx, db = _bf16_bwd_launch(x, bias, dp, n, alpha, beta, k, pool, plan)
     fused_block_bf16_bwd.launches += 1
+    fused_block_bf16_bwd.simple_launches += plan is None
     return dx, db
 
 
-#: bf16 K1b launches since the count was last reset
+#: bf16 K1b launches since the count was last reset, and those of them
+#: that ran the simple kernels
 fused_block_bf16_bwd.launches = 0
+fused_block_bf16_bwd.simple_launches = 0
 
 
 class _FusedBlock(torch.autograd.Function):
