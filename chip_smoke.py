@@ -94,11 +94,16 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      which, AlexNet's shapes must take the ring (their rows print the
      plan and time the simple kernels beside it, ``simple_ms``) and the
      AlexNet bf16 training runs must launch no simple kernel; the bf16
-     K3 and K3b (every operation in
-     bf16, as the reference's LRN kernels compute) at AlexNet's shapes and
-     the cases of ``BF16_LRN_PATHS``, y and dx bit-exact and the same bits
-     twice, timed against ``F.local_response_norm`` in bf16 and its
-     autograd backward; the bf16 K2, K2b, K3 and K3b at CIFAR10's shapes;
+     K3 and K3b (every operation in bf16, as the reference's LRN kernels
+     compute) run the float32 K3's and K3b's ring design on 8-channel
+     units where their planners take the shape, the simple kernels
+     elsewhere, as the bf16 K1 and K1b do (AlexNet's and CIFAR10's shapes
+     must take the ring, with ``simple_ms`` beside), at AlexNet's shapes
+     and the cases of ``BF16_LRN_PATHS`` (each asserting its path), y and
+     dx bit-exact and the same bits twice, the ring's table of powers
+     against ``torch.pow`` for every bf16 value, timed against
+     ``F.local_response_norm`` in bf16 and its autograd backward; the bf16
+     K2, K2b, K3 and K3b at CIFAR10's shapes;
      full-width AlexNet (phase 6's configuration) trained 3 steps from the
      same weights and masks in float32 (composed, ``fused``) and in bf16
      (composed, ``fused``, ``fused`` with ``state_dtype`` and with
@@ -113,8 +118,8 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      run's; CIFAR10 at its defaults on ``FusedTrainer`` in bf16 under
      ``pallas_lrn`` + ``fused_tail``: every loss finite, the first 8
      within rtol 5e-2 of the port's CPU run, bf16 K3/K3b once and K2/K2b
-     three times a train step, its finals printed beside phase 8's
-     float32 ``pallas_lrn`` finals.
+     three times a train step, no simple bf16 K3 or K3b, its finals
+     printed beside phase 8's float32 ``pallas_lrn`` finals.
 
 Snapshots go to a temporary directory, removed at the end; the AlexNet
 runs write none (their snapshotter is gated off: a full-width snapshot
@@ -361,8 +366,13 @@ def _bf16_case(torch, name, x, b, gen, n, alpha, beta, k, pool, pooled):
         r = torch.clamp_min(x, 0.0)             # LRN reads ReLU output
         rn = r.permute(0, 3, 1, 2)
         if name == "lrn_bf16_fwd":
-            return (lambda: lrn.lrn_bf16_fwd(r, n, alpha, beta, k),
-                    lambda: lrn.lrn_plain(r, n, alpha, beta, k),
+            def kern():
+                return lrn.lrn_bf16_fwd(r, n, alpha, beta, k)
+
+            # the "before" column: the simple kernel, same operands
+            kern.simple = lambda: lrn._bf16_fwd_launch(r, n, alpha, beta, k,
+                                                       None)
+            return (kern, lambda: lrn.lrn_plain(r, n, alpha, beta, k),
                     lambda: F.local_response_norm(rn, n, alpha * n, beta, k)
                     .permute(0, 2, 3, 1),
                     2 * 2 * r.numel(), r.numel() * (n + 5))
@@ -371,8 +381,13 @@ def _bf16_case(torch, name, x, b, gen, n, alpha, beta, k, pool, pooled):
         rn = rn.detach().requires_grad_(True)
         yn = F.local_response_norm(rn, n, alpha * n, beta, k)
         dyn = dy.permute(0, 3, 1, 2)
-        return (lambda: lrn.lrn_bf16_bwd(r, dy, n, alpha, beta, k),
-                lambda: lrn.lrn_bwd_plain(r, dy, n, alpha, beta, k),
+
+        def kern():
+            return lrn.lrn_bf16_bwd(r, dy, n, alpha, beta, k)
+
+        kern.simple = lambda: lrn._bf16_bwd_launch(r, dy, n, alpha, beta, k,
+                                                   None)
+        return (kern, lambda: lrn.lrn_bwd_plain(r, dy, n, alpha, beta, k),
                 lambda: torch.autograd.grad(yn, rn, dyn, retain_graph=True)[0]
                 .permute(0, 2, 3, 1),
                 2 * 3 * r.numel(), r.numel() * (3 * n + 14))
@@ -514,10 +529,13 @@ def check_kernels(torch, names, shapes=None, batch=BATCH):
 
 #: the bf16 LRN kernels, which compute in bf16 as the reference's do
 BF16_LRN = ("lrn_bf16_fwd", "lrn_bf16_bwd")
-#: the bf16 K1 and K1b, which run the float32 ring kernels on bf16 rows
-#: where their planners take the shape, and the simple kernels
-#: elsewhere; at AlexNet's shapes the ring must run
-BF16_RING = ("fused_block_bf16_fwd", "fused_block_bf16_bwd")
+#: the bf16 K1 and K1b, which run the float32 ring kernels on bf16 rows,
+#: and the bf16 K3 and K3b, which run the float32 K3's and K3b's ring
+#: design on 8-channel units, where their planners take the shape, and
+#: the simple kernels elsewhere; at AlexNet's (and CIFAR10's) shapes the
+#: ring must run
+BF16_RING = ("fused_block_bf16_fwd", "fused_block_bf16_bwd", "lrn_bf16_fwd",
+             "lrn_bf16_bwd")
 #: kernels whose output (dx for a backward) must equal the plain version's
 #: bits
 BIT_EXACT = ("fused_block_fwd", "fused_block_bwd", "lrn_fwd",
@@ -675,6 +693,27 @@ def k3b_plan(x, b=None, n=5, dy=None):
             f"{-(-units // p.threads_per_row)}")
 
 
+def k3_bf16_plan(x, b=None, n=5):
+    from znicz_torch.ops.lrn import bf16_fwd_plan_for
+
+    return _bf16_lrn_plan(bf16_fwd_plan_for(x, n))
+
+
+def k3b_bf16_plan(x, b=None, n=5, dy=None):
+    from znicz_torch.ops.lrn import bf16_bwd_plan_for
+
+    return _bf16_lrn_plan(bf16_bwd_plan_for(x, x if dy is None else dy, n))
+
+
+def _bf16_lrn_plan(p):
+    if p is None:
+        return "simple"
+    return (f"ring:bf16x8/threads_per_row={p.threads_per_row}/rows={p.rows}/"
+            f"blocks={p.blocks}/groups_per_block={p.groups_per_block}/"
+            f"stages={p.stages}/smem={p.smem}/blocks_per_sm="
+            f"{p.blocks_per_sm}/window={p.lo}+{p.taps}")
+
+
 def k2b_plan(x, b, dp=None):
     from znicz_torch.fused_block import bias_relu_bwd_plan_for
 
@@ -688,7 +727,8 @@ def k2b_plan(x, b, dp=None):
 PLANS = {"fused_block_fwd": k1_plan, "fused_block_bwd": k1b_plan,
          "lrn_fwd": k3_plan, "bias_relu_bwd": k2b_plan, "lrn_bwd": k3b_plan,
          "fused_block_bf16_fwd": k1_bf16_plan,
-         "fused_block_bf16_bwd": k1b_bf16_plan}
+         "fused_block_bf16_bwd": k1b_bf16_plan, "lrn_bf16_fwd": k3_bf16_plan,
+         "lrn_bf16_bwd": k3b_bf16_plan}
 
 
 def unaligned(torch, t, offset: int = 4):
@@ -1815,50 +1855,109 @@ def check_bf16_paths(torch, names=tuple(BF16_PATHS)):
                                      f"plain version: {err:.3e}")
 
 
+#: which kernel the bf16 K3 and K3b planners must choose at a case of
+#: :data:`BF16_LRN_PATHS`: (K3 on the ring, K3b on the ring)
+RING, SIMPLE = (True, True), (False, False)
 #: the bf16 K3 and K3b beyond AlexNet's case, y and dx bit-exact against
 #: their plain versions, the same bits on a second launch: (what it takes,
 #: shape, n, alpha, beta, k, input scale, the operand that lies 2 bytes
 #: past a 16-byte boundary, whether x is mostly zeros and dy holds +0s and
-#: -0s).  x is ReLU output, as on the main path.  beta 0.5 takes torch.pow's
-#: rsqrt case on the card, beta 0.6 rounds -beta to bf16 (-0.6015625)
+#: -0s, the kernels the planners must choose).  x is ReLU output, as on the
+#: main path.  beta 0.5, 1 and 2 take torch.pow's rsqrt, reciprocal and
+#: 1/(s*s) cases on the card, beta 0.6 rounds -beta to bf16 (-0.6015625);
+#: x*1e-20 makes the squares bf16 subnormals, x*1e-39 x itself and y.  The
+#: ring's edges: one unit (C 8), an odd unit count (C 24), the widest row
+#: (C 4096) and one past it, a last group one row long (43 rows, 42 a
+#: group at C 96), windows 1, 4 and 7 (the general path), signed zeros
 BF16_LRN_PATHS = [
-    ("odd C 33", (5, 9, 9, 33), 5, 1e-4, 0.75, 2.0, 2.0, "", False),
+    ("odd C 33", (5, 9, 9, 33), 5, 1e-4, 0.75, 2.0, 2.0, "", False, SIMPLE),
     ("C 20, not a multiple of 8", (4, 9, 9, 20), 5, 1e-4, 0.75, 2.0, 2.0, "",
-     False),
+     False, SIMPLE),
     ("CIFAR10's norm, C 16", (100, 16, 16, 16), 5, 1e-4, 0.75, 2.0, 2.0, "",
-     False),
-    ("even window 4", (4, 9, 9, 64), 4, 1e-4, 0.75, 2.0, 2.0, "", False),
-    ("window 1", (3, 9, 9, 32), 1, 1e-4, 0.75, 2.0, 2.0, "", False),
-    ("window 7", (3, 9, 9, 32), 7, 1e-4, 0.75, 2.0, 2.0, "", False),
-    ("beta 0.6, powf", (4, 13, 13, 96), 5, 1e-4, 0.6, 2.0, 2.0, "", False),
-    ("beta 0.5, rsqrt", (4, 13, 13, 96), 5, 1e-4, 0.5, 2.0, 2.0, "", False),
+     False, RING),
+    ("even window 4", (4, 9, 9, 64), 4, 1e-4, 0.75, 2.0, 2.0, "", False,
+     RING),
+    ("window 1", (3, 9, 9, 32), 1, 1e-4, 0.75, 2.0, 2.0, "", False, RING),
+    ("window 7", (3, 9, 9, 32), 7, 1e-4, 0.75, 2.0, 2.0, "", False, RING),
+    ("beta 0.6, powf", (4, 13, 13, 96), 5, 1e-4, 0.6, 2.0, 2.0, "", False,
+     RING),
+    ("beta 0.5, rsqrt", (4, 13, 13, 96), 5, 1e-4, 0.5, 2.0, 2.0, "", False,
+     RING),
     ("alpha 1e-2, k 1e-3, x*100", (4, 13, 13, 96), 5, 1e-2, 0.75, 1e-3,
-     100.0, "", False),
-    ("C 1024", (2, 7, 7, 1024), 5, 1e-4, 0.75, 2.0, 2.0, "", False),
+     100.0, "", False, RING),
+    ("C 1024", (2, 7, 7, 1024), 5, 1e-4, 0.75, 2.0, 2.0, "", False, RING),
     ("C 4097, one row a block", (2, 3, 5, 4097), 5, 1e-4, 0.75, 2.0, 2.0, "",
-     False),
+     False, SIMPLE),
     ("x 2 bytes past 16", (4, 9, 9, 64), 5, 1e-4, 0.75, 2.0, 2.0, "x",
-     False),
+     False, SIMPLE),
     ("dy 2 bytes past 16", (4, 9, 9, 64), 5, 1e-4, 0.75, 2.0, 2.0, "dy",
-     False),
-    ("one row", (1, 1, 1, 256), 5, 1e-4, 0.75, 2.0, 2.0, "", False),
+     False, (True, False)),
+    ("one row", (1, 1, 1, 256), 5, 1e-4, 0.75, 2.0, 2.0, "", False, RING),
     ("zero-heavy x, +-0 in dy", (4, 13, 13, 96), 5, 1e-4, 0.75, 2.0, 2.0, "",
-     True),
+     True, RING),
     ("window 1, zero-heavy x, +-0 in dy", (3, 9, 9, 32), 1, 1e-4, 0.75, 2.0,
-     2.0, "", True),
+     2.0, "", True, RING),
+    ("C 8, one unit", (4, 9, 9, 8), 5, 1e-4, 0.75, 2.0, 2.0, "", False,
+     RING),
+    ("C 24, an odd unit count", (4, 9, 9, 24), 5, 1e-4, 0.75, 2.0, 2.0, "",
+     False, RING),
+    ("C 4096, the widest ring row", (2, 3, 5, 4096), 5, 1e-4, 0.75, 2.0,
+     2.0, "", False, RING),
+    ("C 4104, past the ring's width", (2, 3, 3, 4104), 5, 1e-4, 0.75, 2.0,
+     2.0, "", False, SIMPLE),
+    ("43 rows, the last group one row", (1, 1, 43, 96), 5, 1e-4, 0.75, 2.0,
+     2.0, "", False, RING),
+    ("x*1e-20, subnormal squares", (4, 9, 9, 96), 5, 1e-4, 0.75, 2.0, 1e-20,
+     "", False, RING),
+    ("x*1e-39, subnormal x and y", (4, 9, 9, 96), 5, 1e-4, 0.75, 2.0, 1e-39,
+     "", False, RING),
+    ("beta 1, reciprocal", (4, 13, 13, 96), 5, 1e-4, 1.0, 2.0, 2.0, "",
+     False, RING),
+    ("beta 2, 1/(s*s)", (4, 13, 13, 96), 5, 1e-4, 2.0, 2.0, 2.0, "", False,
+     RING),
+    ("window 4 at conv1's C 96", (4, 13, 13, 96), 4, 1e-4, 0.75, 2.0, 2.0,
+     "", False, RING),
+    ("window 7 at conv2's C 256, zero-heavy x, +-0 in dy", (2, 13, 13, 256),
+     7, 1e-4, 0.75, 2.0, 2.0, "", True, RING),
 ]
 
 
+def check_bf16_pow_tables(torch):
+    """The bf16 ring kernels' tables of powers against ``torch.pow`` on the
+    card, for every bf16 s and each beta of :data:`BF16_LRN_PATHS`: the
+    same bits wherever the power is a number, NaN where it is NaN."""
+    from znicz_torch.ops.lrn import bf16_pow_table, operand_constants
+
+    every = torch.arange(65536, dtype=torch.int32, device="cuda").to(
+        torch.int16).view(torch.bfloat16)
+    for beta in sorted({case[4] for case in BF16_LRN_PATHS}):
+        nb, = operand_constants(torch.bfloat16, -beta)
+        got, want = bf16_pow_table(every.device, nb), torch.pow(every, nb)
+        nan = torch.isnan(want)
+        ok = bool((torch.isnan(got) == nan).all()) and torch.equal(
+            got.view(torch.int16)[~nan], want.view(torch.int16)[~nan])
+        log(f"[kernel] bf16 pow table nb={nb:g}: {int((~nan).sum())} "
+            f"powers the same bits as torch.pow, {int(nan.sum())} NaN "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the bf16 pow table at nb={nb:g} "
+                                 f"disagrees with torch.pow")
+
+
 def check_bf16_lrn_paths(torch):
-    """The bf16 K3 and K3b at each case of :data:`BF16_LRN_PATHS`: y and dx
-    bit-exact against the plain versions (signed zeros included), the same
-    bits on a second launch; reported on their own lines."""
+    """The bf16 K3 and K3b at each case of :data:`BF16_LRN_PATHS`: the
+    planners' choice of kernel, y and dx bit-exact against the plain
+    versions (signed zeros included), the same bits on a second launch;
+    reported on their own lines with the kernel's time; first the tables
+    of powers (:func:`check_bf16_pow_tables`)."""
     from znicz_torch.ops.lrn import (lrn_bf16_bwd, lrn_bf16_fwd,
                                      lrn_bwd_plain, lrn_plain)
 
+    check_bf16_pow_tables(torch)
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    for label, shape, n, alpha, beta, k, scale, off, zeros in BF16_LRN_PATHS:
+    for (label, shape, n, alpha, beta, k, scale, off, zeros,
+         ring) in BF16_LRN_PATHS:
         x = torch.randn(shape, generator=gen, device="cuda")
         x = torch.clamp_min((x - 0.8 if zeros else x) * scale, 0.0).to(bf16)
         dy = torch.randn(shape, generator=gen, device="cuda").to(bf16)
@@ -1871,11 +1970,16 @@ def check_bf16_lrn_paths(torch):
         elif off == "dy":
             dy = unaligned(torch, dy, 2)
         hyp = (n, alpha, beta, k)
-        for name, kern, plain in (
+        for name, kern, plain, plan, on_ring in (
                 ("lrn_bf16_fwd", lambda: lrn_bf16_fwd(x, *hyp),
-                 lambda: lrn_plain(x, *hyp)),
+                 lambda: lrn_plain(x, *hyp), k3_bf16_plan(x, None, n),
+                 ring[0]),
                 ("lrn_bf16_bwd", lambda: lrn_bf16_bwd(x, dy, *hyp),
-                 lambda: lrn_bwd_plain(x, dy, *hyp))):
+                 lambda: lrn_bwd_plain(x, dy, *hyp),
+                 k3b_bf16_plan(x, None, n, dy), ring[1])):
+            if (plan != "simple") != on_ring:
+                raise AssertionError(f"{name} {label}: planner took the "
+                                     f"wrong kernel: {plan}")
             got, want = kern(), plain()
             again = kern()
             torch.cuda.synchronize()
@@ -1883,10 +1987,13 @@ def check_bf16_lrn_paths(torch):
             ok = (same_bits(torch, got, want) and same_bits(torch, again, got)
                   and bool(torch.isfinite(got).all()))
             neg0 = int(((want == 0) & torch.signbit(want)).sum())
+            sub = int(((want != 0) & (want.float().abs() < 1.1754944e-38))
+                      .sum())
             log(f"[kernel] {name}[{label}] shape={shape} n={n} "
                 f"alpha={alpha:g} beta={beta:g} k={k:g} x*{scale:g} "
-                f"max_abs_err={err:.3e} (same bits required, twice; -0s "
-                f"{neg0}) ms={cuda_ms(torch, kern):.4f} -> "
+                f"plan={plan} max_abs_err={err:.3e} (same bits required, "
+                f"twice; -0s {neg0}, subnormals {sub}) "
+                f"ms={cuda_ms(torch, kern):.4f} -> "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name} {label} disagrees with its "
@@ -2125,11 +2232,14 @@ def bf16_cifar(torch, card):
         wf = cifar.CifarWorkflow()
         for fn in ctrs.values():                # the main path starts here
             fn.launches = 0
+        for name in BF16_LRN:
+            ctrs[name].simple_launches = 0
         t0 = time.perf_counter()
         train(wf, "cifar", fused=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in ctrs.items()}
+        simple = {name: ctrs[name].simple_launches for name in BF16_LRN}
         dtype = wf.trainer.compute_dtype
         cpu = cpu_steps("cifar", STEP_CHECK)
     finally:
@@ -2150,6 +2260,9 @@ def bf16_cifar(torch, card):
         f"CPU: max rel {step_err:.3e} (tol {BF16_LOSS_RTOL:g})")
     if not losses or not all(np.isfinite(losses)):
         raise AssertionError(f"[bf16:cifar] non-finite loss: {losses}")
+    if any(simple.values()):                    # C 16: the ring
+        raise AssertionError(f"[bf16:cifar] the simple bf16 K3/K3b ran: "
+                             f"{simple}")
     for name in ctrs:
         per_train, per_eval = expect.get(name, (0, 0))
         want = per_train * n_train + per_eval * n_eval
@@ -2188,13 +2301,14 @@ def bf16_phase(torch, card):
 def cifar_rows(torch, rows, shapes=CIFAR_SHAPES):
     """K2, K2b, K3 and K3b (or the kernels of ``shapes``) at CIFAR10's
     shapes against their plain versions, as at AlexNet's; their times and
-    bounds go into each kernel's row as ``"cifar"``."""
+    bounds (and a ring kernel's ``simple_ms``) go into each kernel's row
+    as ``"cifar"``."""
     for name, row in check_kernels(torch, list(shapes), shapes,
                                    CIFAR_BATCH).items():
         rows.setdefault(name, {"name": name})["cifar"] = {
             key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
-                                      "host_us")}
+                                      "host_us", "simple_ms") if key in row}
 
 
 def main(argv=None) -> int:
@@ -2246,10 +2360,10 @@ def run_phases(torch, args) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
-    # K1's, K1b's and K3b's ptxas reports: per instantiation, registers,
-    # spills, static smem
+    # K1's, K1b's, K3's and K3b's ptxas reports: per instantiation,
+    # registers, spills, static smem
     for lib, tag in (("fused_block", "K1"), ("fused_block_bwd", "K1b"),
-                     ("lrn_bwd", "K3b")):
+                     ("lrn", "K3"), ("lrn_bwd", "K3b")):
         for line in build_logs.get(lib, "").splitlines():
             if "entry function" in line or "spill" in line or "Used" in line:
                 log(f"[build] {tag} ptxas: {line.strip()}")

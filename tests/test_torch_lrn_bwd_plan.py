@@ -9,12 +9,25 @@ does not fit.  A plain-PyTorch walk of the kernel's arithmetic — squares
 and t in rows padded with +0 to the plan's width, taps from ``lo`` in
 order, each window started from its first tap — gives exactly the bits
 of ``lrn_bwd_plain``, signed zeros included, on mostly-zero x (ReLU
-output) and dy holding +0s and -0s."""
+output) and dy holding +0s and -0s.
+
+The bf16 K3b runs the same design on 8-channel (16-byte) units where
+``ops/lrn._bf16_bwd_plan`` takes the shape, else the simple kernel: its
+plan is checked as the bf16 K3's is (``test_torch_lrn_plan.py``), and a
+walk of its three passes on bf16 tensors — squares and t in +0-padded
+bf16 rows read as the kernel reads their words, each window from its
+first tap, s^nb from the table of powers, every operation rounded to
+bf16 — gives the bits of
+``lrn_bwd_plain`` and of the reference's interpret-mode vjp."""
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+
+from test_torch_bf16 import LRN_BF16_CASES, _lrn_operands
+from test_torch_lrn_plan import (BF16_MAIN, _check_bf16_cover, _padded,
+                                 _pow_table, _read, _units, _window8, _words)
 
 #: one Hopper block's opt-in shared memory (H100: 227 KB)
 SMEM_LIMIT = 232448
@@ -166,3 +179,103 @@ def test_window_started_from_zero_loses_signed_zeros():
         assert torch.equal(_bits(_walk(x, dy, p, ALPHA, 0.75, K)), want)
         assert not torch.equal(
             _bits(_walk(x, dy, p, ALPHA, 0.75, K, first_tap=False)), want)
+
+
+# -- the bf16 K3b's ring: the same design on 8-channel units ------------------
+
+
+@pytest.mark.parametrize("layer", sorted(BF16_MAIN))
+def test_bf16_plan_takes_the_ring_at_main_path_shapes(layer):
+    """AlexNet's conv1 and conv2 and CIFAR10's C 16 take the ring, with
+    K3's rows, groups and pads (K3b's slots hold x and dy)."""
+    from znicz_torch.ops.lrn import _bf16_bwd_plan, _bwd_smem
+
+    rows, C = BF16_MAIN[layer]
+    p = _bf16_bwd_plan(rows, C, 5, True, SMEM_LIMIT, 132)
+    assert p is not None
+    _check_bf16_cover(rows, C, p, _bwd_smem)
+    assert (p.threads_per_row, p.rows) == {96: (6, 42), 256: (16, 16),
+                                           16: (1, 256)}[C]
+    assert (p.pad, p.stride - p.pad - C, p.lo, p.taps) == (8, 8, -2, 5)
+    assert p.stages == 2
+
+
+@pytest.mark.parametrize("rows,C,n", [
+    (43, 96, 5), (7, 8, 1), (97, 24, 4), (21, 1024, 7), (3, 4096, 5),
+    (1, 256, 2), (50, 32, 3), (50, 32, 6),
+])
+def test_bf16_plan_covers_ragged_shapes(rows, C, n):
+    from znicz_torch.ops.lrn import _bf16_bwd_plan, _bwd_smem
+
+    for n_sms in (1, 7, 132, 1000):
+        p = _bf16_bwd_plan(rows, C, n, True, SMEM_LIMIT, n_sms)
+        assert p is not None
+        _check_bf16_cover(rows, C, p, _bwd_smem, n_sms)
+
+
+@pytest.mark.parametrize("why,C,aligned,limit", [
+    ("C % 8 != 0", 20, True, SMEM_LIMIT),
+    ("odd C", 601, True, SMEM_LIMIT),
+    ("an operand 2 bytes past 16", 64, False, SMEM_LIMIT),
+    ("a row past 4096 channels", 4104, True, SMEM_LIMIT),
+    ("no group fits", 1024, True, 8192),
+])
+def test_bf16_plan_takes_the_simple_kernel(why, C, aligned, limit):
+    from znicz_torch.ops.lrn import _bf16_bwd_plan
+
+    assert _bf16_bwd_plan(40, C, 5, aligned, limit) is None, why
+
+
+def _bf16_bwd_walk(x, dy, n, alpha, beta, k, p):
+    """The bf16 K3b ring kernel's three passes as planned, on the CPU:
+    squares into a +0-padded row; per unit its windows, s, sb (read from
+    the table of powers), t (into a second padded row) and dy * sb; per
+    unit the windows of t and dx.  Every operation is a bf16 one
+    (rounded), in the kernel's order."""
+    from znicz_torch.ops.lrn import operand_constants
+
+    a, kk, nb, c2 = operand_constants(torch.bfloat16, alpha, k, -beta,
+                                      2.0 * alpha * beta)
+    table = _pow_table(nb)
+    C = x.shape[-1]
+    xs, ds = x.reshape(-1, C), dy.reshape(-1, C)
+    w = _words(_padded(xs * xs, p))
+    t = torch.full_like(xs, float("nan"))
+    g = torch.full_like(xs, float("nan"))
+    for c in _units(C, p):
+        s = kk + a * _window8(w, p.pad + c, p.lo, p.taps)
+        sb = _read(table, s)
+        d, v = ds[:, c:c + 8], xs[:, c:c + 8]
+        t[:, c:c + 8] = ((d * v) * sb) / s
+        g[:, c:c + 8] = d * sb
+    tw = _words(_padded(t, p))
+    dx = torch.full_like(xs, float("nan"))
+    for c in _units(C, p):
+        wt = _window8(tw, p.pad + c, p.lo, p.taps)
+        dx[:, c:c + 8] = g[:, c:c + 8] - (c2 * xs[:, c:c + 8]) * wt
+    return dx.view(x.shape)
+
+
+@pytest.mark.parametrize("shape,n,alpha,beta,k,scale", LRN_BF16_CASES)
+def test_bf16_ring_walk_matches_plain_and_reference(shape, n, alpha, beta, k,
+                                                    scale):
+    """The walk of the bf16 K3b's ring gives the bits of ``lrn_bwd_plain``
+    on bf16 tensors and of the reference's ``lrn_pallas.lrn`` vjp (its
+    kernels in interpret mode) on the same inputs, signed zeros
+    included."""
+    import jax
+
+    from znicz_torch.ops.lrn import _bf16_bwd_plan, lrn_bwd_plain
+    from znicz_tpu.ops.lrn_pallas import lrn as jax_lrn
+
+    x, dy, tx, tdy = _lrn_operands(shape, scale, sum(shape) + n)
+    C = shape[-1]
+    p = _bf16_bwd_plan(tx.numel() // C, C, n, True, SMEM_LIMIT)
+    assert p is not None
+    got = _bf16_bwd_walk(tx, tdy, n, alpha, beta, k, p)
+    assert got.dtype == torch.bfloat16
+    bits = got.view(torch.int16).numpy()
+    np.testing.assert_array_equal(bits, lrn_bwd_plain(
+        tx, tdy, n, alpha, beta, k).view(torch.int16).numpy())
+    _, vjp = jax.vjp(lambda v: jax_lrn(v, n, alpha, beta, k), x)
+    np.testing.assert_array_equal(bits, np.asarray(vjp(dy)[0]).view(np.int16))

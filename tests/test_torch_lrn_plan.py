@@ -9,11 +9,23 @@ reference's ``windowed_channel_sum``; the plan's blocks, groups and
 units own every row and channel once, its rows of squares reach the
 window, and its shared memory fits one Hopper block; and a plain-PyTorch
 walk of the kernel's arithmetic (squares in a padded row, taps in order)
-gives exactly what ``lrn_plain`` gives."""
+gives exactly what ``lrn_plain`` gives.
+
+The bf16 K3 runs the same design on 8-channel (16-byte) units where
+``ops/lrn._bf16_fwd_plan`` takes the shape, else the simple kernel: its
+plan is checked the same way, and a walk of its arithmetic on bf16
+tensors — squares written into a +0-padded bf16 row, each window summed
+from its first tap, in order, from that row's 32-bit words as the kernel
+reads them (the odd taps as ``__byte_perm`` halves of two words), s^nb
+read from a table of every bf16 s's power, every operation rounded to
+bf16 — gives the bits of ``lrn_plain`` and of the reference's
+interpret-mode ``lrn_pallas.lrn``."""
 
 import numpy as np
 import pytest
 import torch
+
+from test_torch_bf16 import LRN_BF16_CASES, _lrn_operands
 
 #: one Hopper block's opt-in shared memory (H100: 227 KB)
 SMEM_LIMIT = 232448
@@ -140,3 +152,241 @@ def test_kernel_walk_matches_plain(shape, n, beta, aligned):
                                        p.stride - p.pad - C))
     got = x * torch.pow(2.0 + 1e-4 * acc, -beta)
     assert torch.equal(got, lrn_plain(x, n, 1e-4, beta, 2.0))
+
+
+# -- the bf16 K3's ring: the same design on 8-channel units -------------------
+
+#: bf16 shapes on the main path: AlexNet's conv1 and conv2 outputs (batch
+#: 128) and CIFAR10's norm (batch 100), as (rows, C)
+BF16_MAIN = dict(ALEXNET, cifar=(100 * 16 * 16, 16))
+
+
+def _check_bf16_cover(rows, C, p, smem_of, n_sms=132):
+    """The ring plan of a bf16 kernel: blocks walk equal runs of groups
+    that own every row once; the threads of a row own every 8-channel unit
+    once, at most two each; the padded rows reach the window, rounded up to
+    16 bytes and no further; the layout is ``smem_of``'s at 2 bytes an
+    element and fits; every block is resident at once."""
+    from znicz_torch import _build
+    from znicz_torch.ops.lrn import _BF16_RING_BLOCKS_PER_SM
+
+    units = C // 8
+    assert p.vec and C % 8 == 0
+    assert p.threads_per_row * p.rows <= 256
+    assert 1 <= p.threads_per_row <= units
+    owned = [u for t in range(p.threads_per_row)
+             for u in range(t, units, p.threads_per_row)]
+    assert sorted(owned) == list(range(units))
+    assert -(-units // p.threads_per_row) <= 2
+    groups = -(-rows // p.rows)
+    walked = [g for b in range(p.blocks)
+              for g in range(b * p.groups_per_block,
+                             min((b + 1) * p.groups_per_block, groups))]
+    assert walked == list(range(groups))
+    assert (p.blocks - 1) * p.groups_per_block < groups
+    assert 1 <= p.stages <= 2
+    assert p.smem == smem_of(p.rows, C, p.stride, p.stages, esize=2) \
+        <= SMEM_LIMIT
+    assert p.blocks_per_sm == min(_BF16_RING_BLOCKS_PER_SM,
+                                  _build.resident_blocks(
+                                      p.threads_per_row * p.rows, p.smem,
+                                      SMEM_LIMIT)) >= 1
+    assert p.blocks <= n_sms * p.blocks_per_sm
+    right = p.stride - p.pad - C
+    assert p.pad % 8 == 0 and p.stride % 8 == 0
+    assert -p.lo <= p.pad < -p.lo + 8
+    assert p.lo + p.taps - 1 <= right < p.lo + p.taps - 1 + 8
+
+
+@pytest.mark.parametrize("layer", sorted(BF16_MAIN))
+def test_bf16_plan_takes_the_ring_at_main_path_shapes(layer):
+    """AlexNet's conv1 (12 units: 6 threads a row, 42 rows a group) and
+    conv2 (32: 16 x 16) and CIFAR10's C 16 (2: one thread a row, 256 rows)
+    take the ring; n = 5 is unrolled from pads of 8 channels."""
+    from znicz_torch.ops.lrn import _bf16_fwd_plan, _fwd_smem
+
+    rows, C = BF16_MAIN[layer]
+    p = _bf16_fwd_plan(rows, C, 5, True, SMEM_LIMIT, 132)
+    assert p is not None
+    _check_bf16_cover(rows, C, p, _fwd_smem)
+    assert (p.threads_per_row, p.rows) == {96: (6, 42), 256: (16, 16),
+                                           16: (1, 256)}[C]
+    assert (p.pad, p.stride - p.pad - C, p.lo, p.taps) == (8, 8, -2, 5)
+    assert p.stages == 2
+
+
+@pytest.mark.parametrize("n", range(1, 8))
+@pytest.mark.parametrize("C", [8, 24, 96])
+def test_bf16_plan_rows_reach_the_window(n, C):
+    from znicz_torch.ops.lrn import _bf16_fwd_plan, _fwd_smem, \
+        window_offsets
+
+    p = _bf16_fwd_plan(50, C, n, True, SMEM_LIMIT)
+    assert (p.lo, p.taps) == window_offsets(n)
+    _check_bf16_cover(50, C, p, _fwd_smem)
+
+
+@pytest.mark.parametrize("rows,C,n", [
+    (43, 96, 5),              # one row past a group of 42
+    (7, 8, 5),                # one unit, part of one group
+    (97, 24, 5),              # an odd unit count: 2 threads, 2 + 1 units
+    (21, 1024, 7),            # 64 threads a row
+    (3, 4096, 5),             # the widest row: 256 threads of two units
+    (1, 256, 5),              # one row
+])
+def test_bf16_plan_covers_ragged_shapes(rows, C, n):
+    from znicz_torch.ops.lrn import _bf16_fwd_plan, _fwd_smem
+
+    for n_sms in (1, 7, 132, 1000):
+        p = _bf16_fwd_plan(rows, C, n, True, SMEM_LIMIT, n_sms)
+        assert p is not None
+        _check_bf16_cover(rows, C, p, _fwd_smem, n_sms)
+
+
+@pytest.mark.parametrize("why,C,aligned,limit", [
+    ("C % 8 != 0", 20, True, SMEM_LIMIT),
+    ("odd C", 33, True, SMEM_LIMIT),
+    ("an operand 2 bytes past 16", 64, False, SMEM_LIMIT),
+    ("a row past 4096 channels", 4104, True, SMEM_LIMIT),
+    ("no group fits", 1024, True, 4096),
+])
+def test_bf16_plan_takes_the_simple_kernel(why, C, aligned, limit):
+    from znicz_torch.ops.lrn import _bf16_fwd_plan
+
+    assert _bf16_fwd_plan(40, C, 5, aligned, limit) is None, why
+
+
+def _byte_perm(a, b, sel):
+    """``__byte_perm(a, b, sel)`` on numpy words: byte i of the result is
+    byte ``sel``'s nibble i of the eight bytes of a (0-3) and b (4-7)."""
+    src = a.astype(np.uint64) | (b.astype(np.uint64) << np.uint64(32))
+    out = np.zeros_like(src)
+    for i in range(4):
+        pick = np.uint64((sel >> (4 * i)) & 7)
+        out |= ((src >> (np.uint64(8) * pick)) & np.uint64(0xff)) \
+            << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def _words(row):
+    """A padded bf16 row (R, stride) as its 32-bit words (R, stride / 2),
+    the lower channel in the low half, as the kernel reads shared
+    memory."""
+    h = row.contiguous().view(torch.int16).numpy().view(np.uint16)
+    return h[:, 0::2].astype(np.uint32) | (h[:, 1::2].astype(np.uint32)
+                                           << np.uint32(16))
+
+
+def _lanes(w):
+    """Words (R,) as their two bf16 lanes (R, 2)."""
+    h = np.stack([w & 0xffff, w >> 16], -1).astype(np.uint16)
+    return torch.from_numpy(h.view(np.int16)).view(torch.bfloat16)
+
+
+def _pair_at(w, e):
+    """Lanes at channels e, e+1 of a padded row of words (``pair_at``)."""
+    q = e >> 1
+    assert 0 <= e and q + (e & 1) < w.shape[1], "a tap past the padded row"
+    return _lanes(_byte_perm(w[:, q], w[:, q + 1], 0x5432) if e & 1
+                  else w[:, q])
+
+
+def _window8(w, e0, lo, taps):
+    """``window8``: W_n of channels c .. c+7 (c at element e0 of the
+    padded row of words ``w``), (R, 8) bf16, each pair summed from its
+    first tap in order, each add rounded.  n = 5 reads channels c-2 ..
+    c+9 as six words and takes the odd taps as halves of two; any other
+    window reads each tap as a pair."""
+    out = []
+    if (lo, taps) == (-2, 5):
+        q = e0 >> 1
+        assert e0 % 2 == 0 and q >= 1 and q + 4 < w.shape[1]
+        v = [w[:, q - 1 + j] for j in range(6)]
+        for m in range(4):
+            s = _lanes(v[m])
+            s = s + _lanes(_byte_perm(v[m], v[m + 1], 0x5432))
+            s = s + _lanes(v[m + 1])
+            s = s + _lanes(_byte_perm(v[m + 1], v[m + 2], 0x5432))
+            out.append(s + _lanes(v[m + 2]))
+    else:
+        for m in range(4):
+            e = e0 + 2 * m + lo
+            s = _pair_at(w, e)
+            for o in range(1, taps):
+                s = s + _pair_at(w, e + o)
+            out.append(s)
+    return torch.cat(out, -1)
+
+
+def _padded(v, p):
+    """``v`` (R, C) written into rows padded with +0 to the plan's
+    layout."""
+    row = torch.zeros((v.shape[0], p.stride), dtype=v.dtype)
+    row[:, p.pad:p.pad + v.shape[1]] = v
+    return row
+
+
+def _units(C, p):
+    """Every thread's units of a row, as the channel each starts at."""
+    return [c for t in range(p.threads_per_row)
+            for c in range(8 * t, C, 8 * p.threads_per_row)]
+
+
+def _pow_table(nb):
+    """The ring kernels' table of powers, on the CPU: ``torch.pow(s, nb)``
+    of the bf16 value s whose bits are i, for every i of 16 bits."""
+    every = torch.arange(65536, dtype=torch.int32).to(torch.int16)
+    return torch.pow(every.view(torch.bfloat16), nb)
+
+
+def _read(table, s):
+    """``inv_pow2``'s reads: each lane's bits index the table."""
+    return table[s.view(torch.int16).long() & 0xffff]
+
+
+def _bf16_fwd_walk(x, n, alpha, beta, k, p):
+    """The bf16 K3 ring kernel's arithmetic as planned, on the CPU: squares
+    into a +0-padded row, then per unit its windows, s, sb (read from the
+    table of powers) and y, every operation a bf16 one (rounded)."""
+    from znicz_torch.ops.lrn import operand_constants
+
+    a, kk, nb = operand_constants(torch.bfloat16, alpha, k, -beta)
+    table = _pow_table(nb)
+    C = x.shape[-1]
+    rows = x.reshape(-1, C)
+    w = _words(_padded(rows * rows, p))
+    y = torch.full_like(rows, float("nan"))
+    for c in _units(C, p):
+        acc = _window8(w, p.pad + c, p.lo, p.taps)
+        sb = _read(table, kk + a * acc)
+        y[:, c:c + 8] = rows[:, c:c + 8] * sb
+    return y.view(x.shape)
+
+
+def test_byte_perm_takes_the_high_half_then_the_low():
+    """Selector 0x5432 gives the high lane of a then the low lane of b."""
+    a, b = np.array([0x22221111], np.uint32), np.array([0x44443333],
+                                                        np.uint32)
+    assert _byte_perm(a, b, 0x5432)[0] == 0x33332222
+
+
+@pytest.mark.parametrize("shape,n,alpha,beta,k,scale", LRN_BF16_CASES)
+def test_bf16_ring_walk_matches_plain_and_reference(shape, n, alpha, beta, k,
+                                                    scale):
+    """The walk of the bf16 K3's ring gives the bits of ``lrn_plain`` on
+    bf16 tensors and of the reference's ``lrn_pallas.lrn`` (its kernel in
+    interpret mode) on the same inputs, in every element."""
+    from znicz_torch.ops.lrn import _bf16_fwd_plan, lrn_plain
+    from znicz_tpu.ops.lrn_pallas import lrn as jax_lrn
+
+    x, _, tx, _ = _lrn_operands(shape, scale, sum(shape) + n)
+    C = shape[-1]
+    p = _bf16_fwd_plan(tx.numel() // C, C, n, True, SMEM_LIMIT)
+    assert p is not None
+    got = _bf16_fwd_walk(tx, n, alpha, beta, k, p)
+    assert got.dtype == torch.bfloat16
+    bits = got.view(torch.int16).numpy()
+    np.testing.assert_array_equal(
+        bits, lrn_plain(tx, n, alpha, beta, k).view(torch.int16).numpy())
+    np.testing.assert_array_equal(
+        bits, np.asarray(jax_lrn(x, n, alpha, beta, k)).view(np.int16))

@@ -43,8 +43,8 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 
 #: C functions of each library: name -> argtypes.  The first is the
 #: float32 launch function, the ``*_bf16_*`` ones launch the bf16 operand
-#: variants (``*_bf16_ring_*`` the float32 ring kernels on bf16 rows);
-#: every restype is int
+#: variants (``*_bf16_ring_*`` the float32 kernels' ring design on bf16
+#: rows); every restype is int
 SIGNATURES = {
     "fused_block": {
         "znicz_fused_block_fwd":
@@ -61,7 +61,11 @@ SIGNATURES = {
             [_P, _P, _LL, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _LL]
             + [_I] * 5 + [_P],
             "znicz_lrn_bf16_fwd":
-            [_P, _P, _LL] + [_I] * 4 + [_F] * 3 + [_I, _I, _P]},
+            [_P, _P, _LL] + [_I] * 4 + [_F] * 3 + [_I, _I, _P],
+            "znicz_lrn_bf16_ring_fwd":
+            [_P] * 3 + [_LL] + [_I] * 3 + [_F] * 2 + [_I] * 3 + [_LL]
+            + [_I] * 5 + [_P],
+            "znicz_lrn_bf16_pow_table": [_P, _F, _I, _P]},
     "fused_block_bwd": {
         "znicz_fused_block_bwd":
             [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I] * 11 + [_P],
@@ -76,7 +80,10 @@ SIGNATURES = {
         "znicz_lrn_bwd": [_P, _P, _P, _LL, _I, _I, _I] + [_F] * 4
         + [_I] * 4 + [_LL] + [_I] * 5 + [_P],
         "znicz_lrn_bf16_bwd":
-            [_P] * 3 + [_LL] + [_I] * 4 + [_F] * 4 + [_I, _I, _P]},
+            [_P] * 3 + [_LL] + [_I] * 4 + [_F] * 4 + [_I, _I, _P],
+        "znicz_lrn_bf16_ring_bwd":
+            [_P] * 4 + [_LL] + [_I] * 3 + [_F] * 3 + [_I] * 3 + [_LL]
+            + [_I] * 5 + [_P]},
 }
 
 

@@ -313,8 +313,9 @@ lrn_bf16_fwd_kernel(const __nv_bfloat16* __restrict__ x,
 
 // rows = elements / C; alpha, k and nb (= -beta) already rounded to bf16;
 // r rows a block and smem bytes of shared memory (two bf16 arrays of r*C
-// values), from ops/lrn._bf16_plan.  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a plan this kernel does not take.
+// values), from ops/lrn._bf16_simple_plan.  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a plan this kernel does
+// not take.
 extern "C" int znicz_lrn_bf16_fwd(const void* x, void* y, long long rows,
                                   int C, int lo, int taps, int r, float alpha,
                                   float k, float nb, int smem, int device,
@@ -330,5 +331,157 @@ extern "C" int znicz_lrn_bf16_fwd(const void* x, void* y, long long rows,
                         (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (__nv_bfloat16*)y, rows, C, lo, taps, r, alpha,
       k, nb);
+  return (int)cudaGetLastError();
+}
+
+// K3 for bf16 operands on K3's ring design (above), in 16-byte units of
+// eight channels, with the simple kernel's arithmetic in packed bf16x2
+// (csrc/lrn_bf16.cuh): y = x * (k + alpha * W_n(x*x))^nb, every operation
+// rounded to bf16, so y has the simple kernel's and lrn_plain's bits.
+//  - A thread squares its units once (mul.rn.bf16x2) into a row of bf16
+//    squares padded with +0, keeping x in registers; after one barrier it
+//    sums each pair of channels' window from that row, then s, sb = s^nb
+//    (from the table of powers, csrc/lrn_bf16.cuh) and y.  Rows of
+//    squares alternate between two buffers: one barrier a group.
+//  - Each window starts from its first tap (for squares, +0 or -0 alike).
+// Bound on an H100 SXM: memory, 2 bytes of x read and 2 of y written an
+// element (0.073 ms at AlexNet's conv1 and conv2 outputs, B=128); about
+// n + 4 bf16x2 operations and two table reads an element pair.
+
+namespace lrnbf16 {   // its helpers' names, not the float32 kernels'
+
+template <int N>
+__global__ void __launch_bounds__(kThreads, kRingBlocksPerSm)
+lrn_bf16_ring_fwd_kernel(const __nv_bfloat16* __restrict__ x,
+                         __nv_bfloat16* __restrict__ y,
+                         const uint16_t* __restrict__ sbt, const RingPlan p) {
+  extern __shared__ __align__(16) unsigned char lrn_bf16_smem[];
+  uint16_t* base = reinterpret_cast<uint16_t*>(lrn_bf16_smem);
+  const int row_in_group = threadIdx.x / p.tpr;   // fixed for the block
+  const int t = threadIdx.x - row_in_group * p.tpr;
+  const size_t slot_elems = (size_t)p.r * p.C;
+  uint16_t* ring = base + (size_t)row_in_group * p.C;
+  uint16_t* sq = base + (size_t)p.stages * slot_elems +
+                 (size_t)row_in_group * p.stride;
+  const size_t sq_buffer = (size_t)p.r * p.stride;
+  zero_pads(sq, t, p);
+  zero_pads(sq + sq_buffer, t, p);
+  const long long g0 = (long long)blockIdx.x * p.groups_per_block;
+  long long g1 = g0 + p.groups_per_block;
+  if (g1 > p.groups) g1 = p.groups;
+  const int G = (int)(g1 - g0);                    // the same for the block
+  const int c0 = t * 8, step = p.tpr * 8;
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < G) {
+      load_units<1>(x, nullptr, ring + s * slot_elems, 0,
+                    (g0 + s) * p.r + row_in_group, c0, step, p);
+    } else {
+      cp_async_commit();
+    }
+  }
+  int slot = 0;                                    // ring slot of group i
+  int fill = p.stages - 1;                         // ring slot of i+stages-1
+  for (int i = 0; i < G; ++i) {
+    if (i + p.stages - 1 < G) {
+      load_units<1>(x, nullptr, ring + fill * slot_elems, 0,
+                    (g0 + i + p.stages - 1) * p.r + row_in_group, c0, step,
+                    p);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait(p.stages - 1);
+    const long long row = (g0 + i) * p.r + row_in_group;
+    const bool live = row < p.rows;
+    const uint16_t* xs = ring + slot * slot_elems;
+    uint16_t* sr = sq + (i & 1) * sq_buffer;       // the padded row
+    uint32_t xw[kRingUnits][4];
+    if (live) {
+#pragma unroll
+      for (int u = 0; u < kRingUnits; ++u) {
+        const int c = c0 + u * step;
+        if (c < p.C) {
+          words(xw[u], ld16(xs + c));
+          uint32_t q[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) q[m] = mul2(xw[u][m], xw[u][m]);
+          st16(sr + p.pad + c, q);
+        }
+      }
+    }
+    __syncthreads();
+    if (live) {
+      __nv_bfloat16* dst = y + row * p.C;
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(sr);
+#pragma unroll
+      for (int u = 0; u < kRingUnits; ++u) {
+        const int c = c0 + u * step;
+        if (c < p.C) {
+          uint32_t acc[4], out[4];
+          window8<N>(acc, w, p.pad + c, p.lo, p.taps);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            uint32_t s;
+            out[m] = mul2(xw[u][m], inv_pow2(acc[m], p, sbt, s));
+          }
+          st16(dst + c, out);
+        }
+      }
+    }
+    slot = slot + 1 == p.stages ? 0 : slot + 1;
+    fill = fill + 1 == p.stages ? 0 : fill + 1;
+  }
+}
+
+}  // namespace lrnbf16
+
+// rows = elements / C; alpha and k already rounded to bf16; pow_table the
+// 65536 bf16 powers s^nb from znicz_lrn_bf16_pow_table, nb = -beta
+// rounded to bf16; the launch from ops/lrn._bf16_fwd_plan: tpr threads a
+// row and r rows a group (tpr * r <= 256, at most two 8-channel units a
+// thread), stages (1..2), the groups of each block and the blocks, the two
+// buffers of padded rows of squares (pad zeros before their C values,
+// stride values in all, 16-byte multiples reaching the window) and smem,
+// the bytes of that layout.  Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for a plan, operand or constant the kernel does
+// not take (C % 8 != 0, an operand not 16-byte aligned).
+extern "C" int znicz_lrn_bf16_ring_fwd(const void* x, void* y,
+                                       const void* pow_table, long long rows,
+                                       int C, int lo, int taps, float alpha,
+                                       float k, int tpr, int r,
+                                       int stages, long long groups_per_block,
+                                       int blocks, int pad, int stride,
+                                       int smem, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  lrnbf16::RingPlan p;
+  if (!lrnbf16::ring_plan(p, rows, C, lo, taps, alpha, k, 0.0f, tpr, r,
+                          stages, groups_per_block, blocks, pad, stride, smem,
+                          1) ||
+      (uintptr_t)x % 16 != 0 || (uintptr_t)y % 16 != 0 ||
+      pow_table == nullptr || (uintptr_t)pow_table % 2 != 0)
+    return (int)cudaErrorInvalidValue;
+  void (*fn)(const __nv_bfloat16*, __nv_bfloat16*, const uint16_t*,
+             const lrnbf16::RingPlan) = lrnbf16::lrn_bf16_ring_fwd_kernel<0>;
+  if (taps == 5 && lo == -2) fn = lrnbf16::lrn_bf16_ring_fwd_kernel<5>;
+  if (rows == 0) return 0;
+  e = lrnbf16::allow_smem(fn, smem, device);
+  if (e != cudaSuccess) return (int)e;
+  fn<<<(unsigned)blocks, tpr * r, (size_t)smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (__nv_bfloat16*)y,
+      (const uint16_t*)pow_table, p);
+  return (int)cudaGetLastError();
+}
+
+// Fill pow_table (65536 bf16 values) with the power s^nb of every bf16 s,
+// as pow_bf16 computes it: the table the bf16 ring kernels (K3 here, K3b
+// in csrc/lrn_bwd.cu) read.  nb already rounded to bf16.
+extern "C" int znicz_lrn_bf16_pow_table(void* pow_table, float nb, int device,
+                                        void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (pow_table == nullptr || (uintptr_t)pow_table % 2 != 0)
+    return (int)cudaErrorInvalidValue;
+  lrnbf16::pow_table_kernel<<<256, 256, 0, (cudaStream_t)stream>>>(
+      (uint16_t*)pow_table, nb);
   return (int)cudaGetLastError();
 }

@@ -455,9 +455,9 @@ lrn_bf16_bwd_kernel(const __nv_bfloat16* __restrict__ x,
 
 // rows = elements / C; alpha, k, nb (= -beta) and c2 (= 2*alpha*beta)
 // already rounded to bf16; r rows a block and smem bytes of shared memory
-// (five bf16 arrays of r*C values), from ops/lrn._bf16_plan.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a plan
-// this kernel does not take.
+// (five bf16 arrays of r*C values), from ops/lrn._bf16_simple_plan.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for a plan this kernel does not take.
 extern "C" int znicz_lrn_bf16_bwd(const void* x, const void* dy, void* dx,
                                   long long rows, int C, int lo, int taps,
                                   int r, float alpha, float k, float nb,
@@ -474,5 +474,177 @@ extern "C" int znicz_lrn_bf16_bwd(const void* x, const void* dy, void* dx,
                         (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)dy, (__nv_bfloat16*)dx,
       rows, C, lo, taps, r, alpha, k, nb, c2);
+  return (int)cudaGetLastError();
+}
+
+// K3b for bf16 operands on K3b's ring design (above), in 16-byte units of
+// eight channels, with the simple kernel's arithmetic in packed bf16x2
+// (csrc/lrn_bf16.cuh), every operation rounded to bf16, so dx has the
+// simple kernel's and lrn_bwd_plain's bits, signed zeros included:
+//   s = k + alpha * W_n(x*x);  sb = s^nb;  t = ((dy * x) * sb) / s
+//   dx = dy * sb - (c2 * x) * W_n(t)
+//  - Pass 1 squares a thread's units into a row padded with +0, keeping x
+//    in registers.  Pass 2, after a barrier: the windows of squares, s, sb
+//    (from the table of powers, csrc/lrn_bf16.cuh), t (a float32 division
+//    of the widened lanes, then one rounding: bf16 has no division) into
+//    a second padded row, and dy * sb kept in registers.  Pass 3, after
+//    a second barrier: the windows of t, dx.  One row of squares and one
+//    of t suffice, as for the float32 kernel.
+//  - Each window of t starts from its first tap, not from +0: a window of
+//    -0s sums to -0, and the +0 pads add exactly where lrn_bwd_plain adds
+//    its zero parts.
+// Bound on an H100 SXM: memory, 2 bytes of x and of dy read and 2 of dx
+// written an element (0.109 ms at AlexNet's conv1 and conv2, B=128); about
+// 2n + 8 bf16x2 operations and two table reads an element pair, one
+// division an element.
+
+namespace lrnbf16 {   // its helpers' names, not the float32 kernels'
+
+template <int N>
+__global__ void __launch_bounds__(kThreads, kRingBlocksPerSm)
+lrn_bf16_ring_bwd_kernel(const __nv_bfloat16* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ dy,
+                         __nv_bfloat16* __restrict__ dx,
+                         const uint16_t* __restrict__ sbt, const RingPlan p) {
+  extern __shared__ __align__(16) unsigned char lrn_bf16_smem[];
+  uint16_t* base = reinterpret_cast<uint16_t*>(lrn_bf16_smem);
+  const int row_in_group = threadIdx.x / p.tpr;   // fixed for the block
+  const int t = threadIdx.x - row_in_group * p.tpr;
+  const size_t rows_elems = (size_t)p.r * p.C;    // a slot's x, then its dy
+  uint16_t* ring = base + (size_t)row_in_group * p.C;
+  uint16_t* sq = base + 2 * (size_t)p.stages * rows_elems +
+                 (size_t)row_in_group * p.stride;
+  uint16_t* tw = sq + (size_t)p.r * p.stride;
+  zero_pads(sq, t, p);
+  zero_pads(tw, t, p);
+  const uint32_t* sqw = reinterpret_cast<const uint32_t*>(sq);
+  const uint32_t* tww = reinterpret_cast<const uint32_t*>(tw);
+  const long long g0 = (long long)blockIdx.x * p.groups_per_block;
+  long long g1 = g0 + p.groups_per_block;
+  if (g1 > p.groups) g1 = p.groups;
+  const int G = (int)(g1 - g0);                    // the same for the block
+  const int c0 = t * 8, step = p.tpr * 8;
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < G) {
+      load_units<2>(x, dy, ring + 2 * s * rows_elems, rows_elems,
+                    (g0 + s) * p.r + row_in_group, c0, step, p);
+    } else {
+      cp_async_commit();
+    }
+  }
+  int slot = 0;                                    // ring slot of group i
+  int fill = p.stages - 1;                         // ring slot of i+stages-1
+  for (int i = 0; i < G; ++i) {
+    if (i + p.stages - 1 < G) {
+      load_units<2>(x, dy, ring + 2 * fill * rows_elems, rows_elems,
+                    (g0 + i + p.stages - 1) * p.r + row_in_group, c0, step,
+                    p);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait(p.stages - 1);
+    const long long row = (g0 + i) * p.r + row_in_group;
+    const bool live = row < p.rows;
+    const uint16_t* xs = ring + 2 * slot * rows_elems;
+    const uint16_t* ds = xs + rows_elems;
+    uint32_t xw[kRingUnits][4];                    // x of each unit
+    uint32_t gw[kRingUnits][4];                    // dy * sb of each unit
+    if (live) {
+#pragma unroll
+      for (int u = 0; u < kRingUnits; ++u) {
+        const int c = c0 + u * step;
+        if (c < p.C) {
+          words(xw[u], ld16(xs + c));
+          uint32_t q[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) q[m] = mul2(xw[u][m], xw[u][m]);
+          st16(sq + p.pad + c, q);
+        }
+      }
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int u = 0; u < kRingUnits; ++u) {
+        const int c = c0 + u * step;
+        if (c < p.C) {
+          uint32_t acc[4], d[4], tv[4];
+          window8<N>(acc, sqw, p.pad + c, p.lo, p.taps);
+          words(d, ld16(ds + c));
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            uint32_t s;
+            const uint32_t sb = inv_pow2(acc[m], p, sbt, s);
+            const uint32_t a = mul2(mul2(d[m], xw[u][m]), sb);
+            tv[m] = pack(__fdiv_rn(lo_of(a), lo_of(s)),
+                         __fdiv_rn(hi_of(a), hi_of(s)));
+            gw[u][m] = mul2(d[m], sb);
+          }
+          st16(tw + p.pad + c, tv);
+        }
+      }
+    }
+    __syncthreads();
+    if (live) {
+      __nv_bfloat16* dst = dx + row * p.C;
+#pragma unroll
+      for (int u = 0; u < kRingUnits; ++u) {
+        const int c = c0 + u * step;
+        if (c < p.C) {
+          uint32_t acc[4], out[4];
+          window8<N>(acc, tww, p.pad + c, p.lo, p.taps);
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            out[m] = sub2(gw[u][m], mul2(mul2(p.c2, xw[u][m]), acc[m]));
+          st16(dst + c, out);
+        }
+      }
+    }
+    slot = slot + 1 == p.stages ? 0 : slot + 1;
+    fill = fill + 1 == p.stages ? 0 : fill + 1;
+  }
+}
+
+}  // namespace lrnbf16
+
+// rows = elements / C; alpha, k and c2 (= 2*alpha*beta) already rounded to
+// bf16; pow_table the 65536 bf16 powers s^nb from znicz_lrn_bf16_pow_table
+// (csrc/lrn.cu), nb = -beta rounded to bf16; the launch from
+// ops/lrn._bf16_bwd_plan: tpr threads a row and r rows a group (tpr * r <=
+// 256, at most two 8-channel units a thread), stages (1..2), the groups of
+// each block and the blocks, the padded rows of squares and of t (pad
+// zeros before their C values, stride values in all, 16-byte multiples
+// reaching the window) and smem, the bytes of that layout.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// plan, operand or constant the kernel does not take (C % 8 != 0, an
+// operand not 16-byte aligned).
+extern "C" int znicz_lrn_bf16_ring_bwd(const void* x, const void* dy, void* dx,
+                                       const void* pow_table, long long rows,
+                                       int C, int lo, int taps, float alpha,
+                                       float k, float c2, int tpr, int r,
+                                       int stages, long long groups_per_block,
+                                       int blocks,
+                                       int pad, int stride, int smem,
+                                       int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  lrnbf16::RingPlan p;
+  if (!lrnbf16::ring_plan(p, rows, C, lo, taps, alpha, k, c2, tpr, r,
+                          stages, groups_per_block, blocks, pad, stride, smem,
+                          2) ||
+      (uintptr_t)x % 16 != 0 || (uintptr_t)dy % 16 != 0 ||
+      (uintptr_t)dx % 16 != 0 || pow_table == nullptr ||
+      (uintptr_t)pow_table % 2 != 0)
+    return (int)cudaErrorInvalidValue;
+  void (*fn)(const __nv_bfloat16*, const __nv_bfloat16*, __nv_bfloat16*,
+             const uint16_t*, const lrnbf16::RingPlan) =
+      lrnbf16::lrn_bf16_ring_bwd_kernel<0>;
+  if (taps == 5 && lo == -2) fn = lrnbf16::lrn_bf16_ring_bwd_kernel<5>;
+  if (rows == 0) return 0;
+  e = lrnbf16::allow_smem(fn, smem, device);
+  if (e != cudaSuccess) return (int)e;
+  fn<<<(unsigned)blocks, tpr * r, (size_t)smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)dy, (__nv_bfloat16*)dx,
+      (const uint16_t*)pow_table, p);
   return (int)cudaGetLastError();
 }

@@ -12,14 +12,17 @@ operands every operation rounds to bf16.
 Each wrapper takes its plain version for a CPU tensor and launches its
 kernel for a CUDA one, or raises; it counts its launches in
 ``<wrapper>.launches``.  Both kernels' launches are planned here
-(:func:`_fwd_plan`, :func:`_bwd_plan`), and both take the window as
-:func:`window_offsets` gives it.
+(:func:`_fwd_plan`, :func:`_bwd_plan`; for bf16 operands
+:func:`_bf16_fwd_plan` and :func:`_bf16_bwd_plan`, the same design on
+8-channel units, or the simple kernels, counted apart in
+``.simple_launches``), and both take the window as :func:`window_offsets`
+gives it.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -121,11 +124,20 @@ def _check(name, *tensors, dtype=torch.float32):
 #: threads a K3 or K3b block may have (``kMaxThreads`` in ``csrc/lrn.cu``
 #: and ``csrc/lrn_bwd.cu``)
 _THREADS = 256
-#: units (float4s, or channels) a thread takes of a row where the row has
+#: units (16 bytes, or channels) a thread takes of a row where the row has
 #: that many: two halve the threads and barriers a row costs
 _UNITS = 2
 #: most groups in each thread's cp.async ring (``kMaxStages``)
 _MAX_STAGES = 2
+#: channels of a 16-byte unit: float32 (K3, K3b) and bf16 (their ring
+#: variants)
+_F32_UNIT, _BF16_UNIT = 4, 8
+#: the widest row the bf16 ring kernels take: two units a thread, 256
+#: threads a row (``kRingUnits`` in ``csrc/lrn_bf16.cuh``)
+_BF16_RING_MAX_C = _BF16_UNIT * _UNITS * _THREADS
+#: resident blocks an SM the bf16 ring kernels' launch bounds promise
+#: (``kRingBlocksPerSm``): their registers, not their shared memory, cap it
+_BF16_RING_BLOCKS_PER_SM = 4
 
 
 class LrnPlan(NamedTuple):
@@ -134,51 +146,53 @@ class LrnPlan(NamedTuple):
     ``threads_per_row`` threads a row (``csrc/lrn.cu``,
     ``csrc/lrn_bwd.cu``)."""
 
-    vec: bool              # four channels a unit and 16-byte copies, else one
+    vec: bool              # 16-byte units and copies, else one channel
     threads_per_row: int
     rows: int              # pixel rows a group
     blocks: int
     groups_per_block: int
     stages: int            # groups in each thread's cp.async ring
     pad: int               # zeros before a padded row (of squares, of t)
-    stride: int            # floats of a padded row, pads included
+    stride: int            # elements of a padded row, pads included
     smem: int              # dynamic shared memory per block, bytes
     lo: int                # first window offset
     taps: int
     blocks_per_sm: int     # resident blocks per SM
 
 
-def _fwd_smem(rows, C, stride, stages) -> int:
-    """K3's shared memory: ``stages`` ring slots of ``rows`` x C floats,
-    then two buffers of ``rows`` rows of squares.  The kernel lays them
-    out in that order and takes this size as given."""
-    return 4 * (stages * rows * C + 2 * rows * stride)
+def _fwd_smem(rows, C, stride, stages, esize=4) -> int:
+    """K3's shared memory: ``stages`` ring slots of ``rows`` x C elements
+    of ``esize`` bytes, then two buffers of ``rows`` rows of squares.  The
+    kernel lays them out in that order and takes this size as given."""
+    return esize * (stages * rows * C + 2 * rows * stride)
 
 
-def _bwd_smem(rows, C, stride, stages) -> int:
-    """K3b's shared memory: ``stages`` ring slots, each ``rows`` x C floats
-    of x then as many of dy, then ``rows`` rows of squares and ``rows``
-    rows of t.  The kernel lays them out in that order and takes this size
-    as given."""
-    return 4 * (2 * stages * rows * C + 2 * rows * stride)
+def _bwd_smem(rows, C, stride, stages, esize=4) -> int:
+    """K3b's shared memory: ``stages`` ring slots, each ``rows`` x C
+    elements of ``esize`` bytes of x then as many of dy, then ``rows`` rows
+    of squares and ``rows`` rows of t.  The kernel lays them out in that
+    order and takes this size as given."""
+    return esize * (2 * stages * rows * C + 2 * rows * stride)
 
 
-def _plan(kernel, smem_of, rows, C, n, aligned, smem_limit, n_sms) -> LrnPlan:
-    """The launch both LRN kernels share: a unit of four channels (C % 4 ==
-    0 and 16-byte aligned operands, ``aligned``) or of one; two units a
-    thread, up to 256 threads a row and as many rows a group as fill 256
-    threads; padded rows reaching the window (to 16 bytes); the deepest
-    ring (up to 2 groups) whose layout, ``smem_of(rows, C, stride,
-    stages)`` bytes, fits ``smem_limit``; then as many blocks as are
-    resident at once on ``n_sms`` SMs, each walking an equal run of
-    groups.  Raises ``ValueError`` when one group does not fit."""
+def _plan(kernel, smem_of, rows, C, n, aligned, smem_limit, n_sms,
+          unit=_F32_UNIT, max_per_sm=None) -> LrnPlan:
+    """The launch both LRN kernels share: a unit of ``unit`` channels, 16
+    bytes (C % unit == 0 and 16-byte aligned operands, ``aligned``), or of
+    one; two units a thread, up to 256 threads a row and as many rows a
+    group as fill 256 threads; padded rows reaching the window (to 16
+    bytes); the deepest ring (up to 2 groups) whose layout,
+    ``smem_of(rows, C, stride, stages)`` bytes, fits ``smem_limit``; then
+    as many blocks as are resident at once on ``n_sms`` SMs (at most
+    ``max_per_sm`` an SM), each walking an equal run of groups.  Raises
+    ``ValueError`` when one group does not fit."""
     lo, taps = window_offsets(n)
-    vec = bool(aligned) and C % 4 == 0
-    units = C // 4 if vec else C
+    vec = bool(aligned) and C % unit == 0
+    units = C // unit if vec else C
     tpr = min(-(-units // _UNITS), _THREADS)
     r = max(1, _THREADS // tpr)
-    pad = -(lo // 4) * 4                      # -lo rounded up to 4
-    stride = pad + C + -(-(lo + taps - 1) // 4) * 4
+    pad = -(lo // unit) * unit                # -lo rounded up to a unit
+    stride = pad + C + -(-(lo + taps - 1) // unit) * unit
     fitting = [s for s in range(_MAX_STAGES, 0, -1)
                if smem_of(r, C, stride, s) <= smem_limit]
     if not fitting:
@@ -189,6 +203,8 @@ def _plan(kernel, smem_of, rows, C, n, aligned, smem_limit, n_sms) -> LrnPlan:
     stages = fitting[0]
     smem = smem_of(r, C, stride, stages)
     per_sm = _build.resident_blocks(tpr * r, smem, smem_limit)
+    if max_per_sm is not None:
+        per_sm = min(per_sm, max_per_sm)
     groups = -(-rows // r)
     per_block = max(1, -(-groups // (n_sms * per_sm)))
     return LrnPlan(vec, tpr, r, -(-groups // per_block), per_block, stages,
@@ -285,16 +301,17 @@ def lrn_bwd(x, dy, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
 lrn_bwd.launches = 0
 
 
-#: elements of the (rows, C) view a bf16 K3 or K3b block takes: whole
-#: rows, at least one
+#: elements of the (rows, C) view a simple bf16 K3 or K3b block takes:
+#: whole rows, at least one
 _BF16_TILE = 2048
 
 
-def _bf16_plan(C: int, arrays: int, smem_limit: int) -> Tuple[int, int]:
-    """``(rows a block, shared memory in bytes)`` of a bf16 K3 (``arrays``
-    2: x and x*x) or K3b (5: x, dy, x*x, t and sb) launch over rows of C
-    channels, each array r*C bf16 values (``csrc/lrn_bf16.cuh``).  Raises
-    ``ValueError`` when one row does not fit ``smem_limit``."""
+def _bf16_simple_plan(C: int, arrays: int,
+                      smem_limit: int) -> Tuple[int, int]:
+    """``(rows a block, shared memory in bytes)`` of a simple bf16 K3
+    (``arrays`` 2: x and x*x) or K3b (5: x, dy, x*x, t and sb) launch over
+    rows of C channels, each array r*C bf16 values (``csrc/lrn_bf16.cuh``).
+    Raises ``ValueError`` when one row does not fit ``smem_limit``."""
     r = max(1, _BF16_TILE // C)
     smem = 2 * arrays * r * C
     if smem > smem_limit:
@@ -304,59 +321,183 @@ def _bf16_plan(C: int, arrays: int, smem_limit: int) -> Tuple[int, int]:
     return r, smem
 
 
-def lrn_bf16_fwd(x, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
-                 k: float = 2.0):
-    """K3 for bf16 operands (``csrc/lrn.cu``, ``znicz_lrn_bf16_fwd``):
-    :func:`lrn_plain`'s operations in bf16, each rounded, with its
-    constants.  A CPU tensor takes :func:`lrn_plain`; a CUDA tensor
-    launches the kernel or raises."""
-    if x.device.type == "cpu":
-        return lrn_plain(x, n, alpha, beta, k)
-    _check("lrn_bf16_fwd", x, dtype=torch.bfloat16)
+def _bf16_ring(kernel, smem_of, rows, C, n, aligned, smem_limit,
+               n_sms) -> Optional[LrnPlan]:
+    """:func:`_plan` on 8-channel (16-byte) units of bf16 rows, laid out by
+    ``smem_of`` at 2 bytes an element, at most
+    :data:`_BF16_RING_BLOCKS_PER_SM` blocks an SM; or ``None``, and the
+    simple kernel runs, for C % 8 != 0, an operand not 16-byte aligned, a
+    row wider than :data:`_BF16_RING_MAX_C` or a group that does not fit
+    ``smem_limit``."""
+    if not (aligned and C % _BF16_UNIT == 0 and C <= _BF16_RING_MAX_C):
+        return None
+    try:
+        return _plan(kernel, functools.partial(smem_of, esize=2), rows, C,
+                     n, True, smem_limit, n_sms, _BF16_UNIT,
+                     _BF16_RING_BLOCKS_PER_SM)
+    except ValueError:
+        return None
+
+
+@functools.lru_cache(maxsize=64)
+def _bf16_fwd_plan(rows, C, n=5, aligned=True, smem_limit=232448,
+                   n_sms=132) -> Optional[LrnPlan]:
+    """The bf16 K3's ring launch (:func:`_bf16_ring`, laid out by
+    :func:`_fwd_smem`), or ``None`` for the simple kernel."""
+    return _bf16_ring("lrn", _fwd_smem, rows, C, n, aligned, smem_limit,
+                      n_sms)
+
+
+@functools.lru_cache(maxsize=64)
+def _bf16_bwd_plan(rows, C, n=5, aligned=True, smem_limit=232448,
+                   n_sms=132) -> Optional[LrnPlan]:
+    """The bf16 K3b's ring launch (:func:`_bf16_ring`, laid out by
+    :func:`_bwd_smem`), or ``None`` for the simple kernel."""
+    return _bf16_ring("lrn_bwd", _bwd_smem, rows, C, n, aligned, smem_limit,
+                      n_sms)
+
+
+def bf16_fwd_plan_for(x, n: int = 5) -> Optional[LrnPlan]:
+    """The :class:`LrnPlan` the bf16 K3 runs for the CUDA tensor ``x``, or
+    ``None`` for the simple kernel."""
     C = int(x.shape[-1])
-    lo, taps = window_offsets(n)
-    r, smem = _bf16_plan(C, 2, _build.device_limits(x.device.index)[0])
+    smem_limit, n_sms = _build.device_limits(x.device.index)
+    return _bf16_fwd_plan(x.numel() // C, C, int(n), x.data_ptr() % 16 == 0,
+                          smem_limit, n_sms)
+
+
+def bf16_bwd_plan_for(x, dy, n: int = 5) -> Optional[LrnPlan]:
+    """The :class:`LrnPlan` the bf16 K3b runs for the CUDA tensors ``x``
+    and ``dy`` (``dx`` is allocated aligned), or ``None`` for the simple
+    kernel."""
+    C = int(x.shape[-1])
+    smem_limit, n_sms = _build.device_limits(x.device.index)
+    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    return _bf16_bwd_plan(x.numel() // C, C, int(n), aligned, smem_limit,
+                          n_sms)
+
+
+#: (device index, nb) -> the bf16 ring kernels' table of powers
+_POW_TABLES = {}
+
+
+def bf16_pow_table(device, nb: float):
+    """The table the bf16 ring kernels read s^nb from on CUDA ``device``:
+    the 65536 bf16 powers of every bf16 s (its bits the index), filled
+    once for each ``nb`` (-beta rounded to bf16) by ``pow_bf16`` itself in
+    ``znicz_lrn_bf16_pow_table`` (``csrc/lrn.cu``) and kept."""
+    key = (device.index, nb)
+    table = _POW_TABLES.get(key)
+    if table is None:
+        table = torch.empty(65536, dtype=torch.bfloat16, device=device)
+        fn = "znicz_lrn_bf16_pow_table"
+        rc = _build.entry("lrn", fn)(table.data_ptr(), nb, device.index,
+                                     _build.stream_of(table))
+        _build.check(rc, "lrn", fn)
+        _POW_TABLES[key] = table
+    return table
+
+
+def _bf16_fwd_launch(x, n, alpha, beta, k, plan):
+    """Launch the bf16 K3 on ``plan``: the ring kernel, or the simple
+    kernel for ``None``."""
+    C = int(x.shape[-1])
     a, kk, nb = operand_constants(torch.bfloat16, alpha, k, -beta)
     y = torch.empty_like(x)
-    fn = "znicz_lrn_bf16_fwd"
-    rc = _build.entry("lrn", fn)(
-        x.data_ptr(), y.data_ptr(), x.numel() // C, C, lo, taps, r, a, kk,
-        nb, smem, x.device.index, _build.stream_of(x))
+    ptrs, shape = (x.data_ptr(), y.data_ptr()), (x.numel() // C, C)
+    if plan is None:
+        lo, taps = window_offsets(n)
+        r, smem = _bf16_simple_plan(C, 2,
+                                    _build.device_limits(x.device.index)[0])
+        fn = "znicz_lrn_bf16_fwd"
+        rc = _build.entry("lrn", fn)(*ptrs, *shape, lo, taps, r, a, kk, nb,
+                                     smem, x.device.index,
+                                     _build.stream_of(x))
+    else:
+        fn = "znicz_lrn_bf16_ring_fwd"
+        rc = _build.entry("lrn", fn)(
+            *ptrs, bf16_pow_table(x.device, nb).data_ptr(), *shape, plan.lo,
+            plan.taps, a, kk, plan.threads_per_row, plan.rows, plan.stages,
+            plan.groups_per_block, plan.blocks, plan.pad, plan.stride,
+            plan.smem, x.device.index, _build.stream_of(x))
     _build.check(rc, "lrn", fn)
-    lrn_bf16_fwd.launches += 1
     return y
 
 
-#: bf16 K3 launches since the count was last reset
+def lrn_bf16_fwd(x, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
+                 k: float = 2.0):
+    """K3 for bf16 operands (``csrc/lrn.cu``): :func:`lrn_plain`'s
+    operations in bf16, each rounded, with its constants.  A CPU tensor
+    takes :func:`lrn_plain`; a CUDA tensor launches, on
+    :func:`_bf16_fwd_plan`'s choice, K3's ring design on 8-channel units
+    (``znicz_lrn_bf16_ring_fwd``) or the simple kernel
+    (``znicz_lrn_bf16_fwd``), or raises."""
+    if x.device.type == "cpu":
+        return lrn_plain(x, n, alpha, beta, k)
+    _check("lrn_bf16_fwd", x, dtype=torch.bfloat16)
+    plan = bf16_fwd_plan_for(x, n)
+    y = _bf16_fwd_launch(x, n, alpha, beta, k, plan)
+    lrn_bf16_fwd.launches += 1
+    lrn_bf16_fwd.simple_launches += plan is None
+    return y
+
+
+#: bf16 K3 launches since the count was last reset, and those of them that
+#: ran the simple kernel
 lrn_bf16_fwd.launches = 0
+lrn_bf16_fwd.simple_launches = 0
+
+
+def _bf16_bwd_launch(x, dy, n, alpha, beta, k, plan):
+    """Launch the bf16 K3b on ``plan``: the ring kernel, or the simple
+    kernel for ``None``."""
+    C = int(x.shape[-1])
+    a, kk, nb, c2 = operand_constants(torch.bfloat16, alpha, k, -beta,
+                                      2.0 * alpha * beta)
+    dx = torch.empty_like(x)
+    ptrs = (x.data_ptr(), dy.data_ptr(), dx.data_ptr())
+    shape = (x.numel() // C, C)
+    if plan is None:
+        lo, taps = window_offsets(n)
+        r, smem = _bf16_simple_plan(C, 5,
+                                    _build.device_limits(x.device.index)[0])
+        fn = "znicz_lrn_bf16_bwd"
+        rc = _build.entry("lrn_bwd", fn)(
+            *ptrs, *shape, lo, taps, r, a, kk, nb, c2, smem, x.device.index,
+            _build.stream_of(x))
+    else:
+        fn = "znicz_lrn_bf16_ring_bwd"
+        rc = _build.entry("lrn_bwd", fn)(
+            *ptrs, bf16_pow_table(x.device, nb).data_ptr(), *shape, plan.lo,
+            plan.taps, a, kk, c2, plan.threads_per_row, plan.rows,
+            plan.stages, plan.groups_per_block, plan.blocks, plan.pad,
+            plan.stride, plan.smem, x.device.index, _build.stream_of(x))
+    _build.check(rc, "lrn_bwd", fn)
+    return dx
 
 
 def lrn_bf16_bwd(x, dy, n: int = 5, alpha: float = 1e-4,
                  beta: float = 0.75, k: float = 2.0):
-    """K3b for bf16 operands (``csrc/lrn_bwd.cu``, ``znicz_lrn_bf16_bwd``):
-    :func:`lrn_bwd_plain`'s operations in bf16, each rounded, with its
-    constants.  CPU tensors take :func:`lrn_bwd_plain`; CUDA tensors
-    launch the kernel or raise."""
+    """K3b for bf16 operands (``csrc/lrn_bwd.cu``): :func:`lrn_bwd_plain`'s
+    operations in bf16, each rounded, with its constants.  CPU tensors
+    take :func:`lrn_bwd_plain`; CUDA tensors launch, on
+    :func:`_bf16_bwd_plan`'s choice, K3b's ring design on 8-channel units
+    (``znicz_lrn_bf16_ring_bwd``) or the simple kernel
+    (``znicz_lrn_bf16_bwd``), or raise."""
     if x.device.type == "cpu" and dy.device.type == "cpu":
         return lrn_bwd_plain(x, dy, n, alpha, beta, k)
     _check("lrn_bf16_bwd", x, dy, dtype=torch.bfloat16)
-    C = int(x.shape[-1])
-    lo, taps = window_offsets(n)
-    r, smem = _bf16_plan(C, 5, _build.device_limits(x.device.index)[0])
-    a, kk, nb, c2 = operand_constants(torch.bfloat16, alpha, k, -beta,
-                                      2.0 * alpha * beta)
-    dx = torch.empty_like(x)
-    fn = "znicz_lrn_bf16_bwd"
-    rc = _build.entry("lrn_bwd", fn)(
-        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.numel() // C, C, lo,
-        taps, r, a, kk, nb, c2, smem, x.device.index, _build.stream_of(x))
-    _build.check(rc, "lrn_bwd", fn)
+    plan = bf16_bwd_plan_for(x, dy, n)
+    dx = _bf16_bwd_launch(x, dy, n, alpha, beta, k, plan)
     lrn_bf16_bwd.launches += 1
+    lrn_bf16_bwd.simple_launches += plan is None
     return dx
 
 
-#: bf16 K3b launches since the count was last reset
+#: bf16 K3b launches since the count was last reset, and those of them
+#: that ran the simple kernel
 lrn_bf16_bwd.launches = 0
+lrn_bf16_bwd.simple_launches = 0
 
 
 class _LRN(torch.autograd.Function):
