@@ -52,7 +52,10 @@ def main(argv=None) -> int:
                          "unit-at-a-time engine")
     ap.add_argument("--snapshot", default="",
                     help="resume from a snapshot file")
-    args = ap.parse_args(argv)
+    # intermixed: overrides may follow the options on every Python 3.12
+    # (older argparse leaves a "*" positional empty once an option has
+    # come between it and the sample's name)
+    args = ap.parse_intermixed_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     if args.overrides:

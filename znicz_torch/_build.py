@@ -44,7 +44,8 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 #: C functions of each library: name -> argtypes.  The first is the
 #: float32 launch function, the ``*_bf16_*`` ones launch the bf16 operand
 #: variants (``*_bf16_ring_*`` the float32 kernels' ring design on bf16
-#: rows); every restype is int
+#: rows, ``*_bf16_vec_*`` the float32 bias+ReLU kernels' design on 16-byte
+#: units of eight bf16); every restype is int
 SIGNATURES = {
     "fused_block": {
         "znicz_fused_block_fwd":
@@ -56,6 +57,8 @@ SIGNATURES = {
             [_P] * 3 + [_I] * 7 + [_F] * 3 + [_I] * 9 + [_P]},
     "bias_relu": {"znicz_bias_relu_fwd": [_P, _P, _P, _LL, _I, _I, _P],
                   "znicz_bias_relu_bf16_fwd":
+                      [_P, _P, _P, _LL, _I, _I, _P],
+                  "znicz_bias_relu_bf16_vec_fwd":
                       [_P, _P, _P, _LL, _I, _I, _P]},
     "lrn": {"znicz_lrn_fwd":
             [_P, _P, _LL, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _LL]
@@ -75,7 +78,8 @@ SIGNATURES = {
             [_P] * 6 + [_I] * 7 + [_F] * 4 + [_I] * 10 + [_P]},
     "bias_relu_bwd": {
         "znicz_bias_relu_bwd": [_P] * 7 + [_LL] + [_I] * 8 + [_P],
-        "znicz_bias_relu_bf16_bwd": [_P] * 6 + [_LL] + [_I] * 5 + [_P]},
+        "znicz_bias_relu_bf16_bwd": [_P] * 6 + [_LL] + [_I] * 5 + [_P],
+        "znicz_bias_relu_bf16_vec_bwd": [_P] * 7 + [_LL] + [_I] * 7 + [_P]},
     "lrn_bwd": {
         "znicz_lrn_bwd": [_P, _P, _P, _LL, _I, _I, _I] + [_F] * 4
         + [_I] * 4 + [_LL] + [_I] * 5 + [_P],

@@ -586,7 +586,7 @@ def fused_block_bwd(x, bias, dp, n=5, alpha=1e-4, beta=0.75, k=2.0,
 #: K1b launches since the count was last reset
 fused_block_bwd.launches = 0
 
-#: threads a bf16 K2b block or simple K1b block has (``kBf16Threads`` in
+#: threads a simple bf16 K2b or K1b block has (``kBf16Threads`` in
 #: ``csrc/fused_block_bwd.cu`` and ``csrc/bias_relu_bwd.cu``), the blocks
 #: their planners give each SM, and the channels a simple bf16 K1b thread
 #: takes
@@ -788,29 +788,55 @@ def bias_relu_fwd(x, bias):
 bias_relu_fwd.launches = 0
 
 
+def _aligned16(*tensors) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _bf16_relu_fwd_route(C: int, aligned: bool) -> str:
+    """The bf16 K2's kernel for ``C`` channels: ``"bf16x8"``, the float32
+    K2's design on 16-byte units of eight bf16
+    (``znicz_bias_relu_bf16_vec_fwd``), where C % 8 == 0 and x and b are
+    16-byte aligned (``aligned``; y is the wrapper's own), else
+    ``"simple"``, the kernel of one element a thread
+    (``znicz_bias_relu_bf16_fwd``)."""
+    return "bf16x8" if aligned and C % 8 == 0 else "simple"
+
+
+def _bf16_relu_fwd_launch(x, bias, route):
+    """Launch the bf16 K2 on ``route`` (:func:`_bf16_relu_fwd_route`)."""
+    y = torch.empty_like(x)
+    fn = ("znicz_bias_relu_bf16_vec_fwd" if route == "bf16x8"
+          else "znicz_bias_relu_bf16_fwd")
+    rc = _build.entry("bias_relu", fn)(
+        x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel(),
+        int(x.shape[-1]), x.device.index, _build.stream_of(x))
+    _build.check(rc, "bias_relu", fn)
+    return y
+
+
 def bias_relu_bf16_fwd(x, bias):
-    """K2 for bf16 operands (``csrc/bias_relu.cu``,
-    ``znicz_bias_relu_bf16_fwd``): ``relu(x + b)`` in float32, rounded
-    once to bf16.  CPU tensors take :func:`bias_relu_plain`; CUDA tensors
-    launch the kernel or raise."""
+    """K2 for bf16 operands (``csrc/bias_relu.cu``): ``relu(x + b)`` in
+    float32, rounded once to bf16.  CPU tensors take
+    :func:`bias_relu_plain`; CUDA tensors launch the kernel
+    :func:`_bf16_relu_fwd_route` names, or raise."""
     if x.ndim != 4:
         raise ValueError(f"fused_bias_relu expects NHWC, got {x.shape}")
     if _all_cpu(x, bias):
         return bias_relu_plain(x, bias)
     _check_kernel_operands("bias_relu_bf16_fwd", x, bias,
                            dtype=torch.bfloat16)
-    y = torch.empty_like(x)
-    fn = "znicz_bias_relu_bf16_fwd"
-    rc = _build.entry("bias_relu", fn)(
-        x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel(),
-        int(x.shape[-1]), x.device.index, _build.stream_of(x))
-    _build.check(rc, "bias_relu", fn)
+    route = _bf16_relu_fwd_route(int(x.shape[-1]), _aligned16(x, bias))
+    y = _bf16_relu_fwd_launch(x, bias, route)
     bias_relu_bf16_fwd.launches += 1
+    bias_relu_bf16_fwd.simple_launches += route == "simple"
     return y
 
 
-#: bf16 K2 launches since the count was last reset
+#: bf16 K2 launches since the count was last reset, and those of them that
+#: ran the simple kernel
 bias_relu_bf16_fwd.launches = 0
+bias_relu_bf16_fwd.simple_launches = 0
 
 
 #: most threads a K2b block has (``kMaxThreads`` in
@@ -823,13 +849,14 @@ class BiasReluBwdPlan(NamedTuple):
     chunks`` grid walks rows :func:`_br_rows` ``(i)`` of channel chunk
     ``j``, ``rows`` of them in flight, ``threads_per_row`` threads a row."""
 
-    vec: bool              # four channels a unit and 16-byte accesses, else one
+    vec: bool              # units of `width` channels, 16-byte accesses
     threads_per_row: int   # units of one channel chunk
     rows: int              # pixel rows in flight in a block
     chunks: int            # channel chunks
     row_blocks: int        # blocks along the rows: partial rows of db
     splits: int            # threads a unit that add the partial rows
     smem: int              # dynamic shared memory per block, bytes
+    width: int             # channels a unit: 4 float32 or 8 bf16, else 1
 
 
 def _br_rows(rows, row_blocks, i):
@@ -839,15 +866,18 @@ def _br_rows(rows, row_blocks, i):
 
 
 @functools.lru_cache(maxsize=64)
-def _bias_relu_bwd_plan(rows, C, aligned=True, n_sms=132) -> BiasReluBwdPlan:
+def _bias_relu_bwd_plan(rows, C, aligned=True, n_sms=132,
+                        width=4) -> BiasReluBwdPlan:
     """K2b's launch, a function of the shape alone, so db sums in one order
-    on every run: a unit of four channels (C % 4 == 0 and 16-byte aligned
-    operands, ``aligned``) or of one; as few channel chunks of at most 512
-    units as cover C, split evenly; as many rows in flight as fill 512
-    threads; two blocks an SM in all, each an equal run of rows; and as
-    many threads a unit for the final sum as the block has."""
-    vec = bool(aligned) and C % 4 == 0
-    units = C // 4 if vec else C
+    on every run: a unit of ``width`` channels (four float32 or eight bf16:
+    C % width == 0 and 16-byte aligned operands, ``aligned``) or of one;
+    as few channel chunks of at most 512 units as cover C, split evenly;
+    as many rows in flight as fill 512 threads; two blocks an SM in all,
+    each an equal run of rows; and as many threads a unit for the final
+    sum as the block has."""
+    vec = bool(aligned) and C % width == 0
+    w = width if vec else 1
+    units = C // w
     chunks = -(-units // _BR_THREADS)
     tpr = -(-units // chunks)
     r = max(1, _BR_THREADS // tpr)
@@ -855,7 +885,7 @@ def _bias_relu_bwd_plan(rows, C, aligned=True, n_sms=132) -> BiasReluBwdPlan:
                             n_sms * _BR_BLOCKS_PER_SM // chunks))
     splits = max(1, min(tpr * r // units, row_blocks))
     return BiasReluBwdPlan(vec, tpr, r, chunks, row_blocks, splits,
-                           tpr * r * (4 if vec else 1) * 4)
+                           tpr * r * w * 4, w)
 
 
 #: (device, stream) -> (partial rows, ticket) of K2b's launches there: the
@@ -879,8 +909,7 @@ def bias_relu_bwd_plan_for(x, bias, dp) -> BiasReluBwdPlan:
     """The :class:`BiasReluBwdPlan` K2b runs for CUDA tensors ``x``,
     ``bias``, ``dp``."""
     C = int(x.shape[-1])
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, bias, dp))
-    return _bias_relu_bwd_plan(x.numel() // C, C, aligned,
+    return _bias_relu_bwd_plan(x.numel() // C, C, _aligned16(x, bias, dp),
                                _build.device_limits(x.device.index)[1])
 
 
@@ -921,12 +950,13 @@ bias_relu_bwd.launches = 0
 
 
 @functools.lru_cache(maxsize=64)
-def _bf16_relu_plan(rows: int, C: int,
-                    n_sms: int = 132) -> Tuple[int, int, int]:
-    """The bf16 K2b's launch, a function of the shape alone so that db
-    sums in one order on every run: ``(tpc, chunks, row_blocks)``, as few
-    chunks of at most a block's threads as cover C, split evenly, ``tpc``
-    threads a row of a chunk, and ``row_blocks`` blocks along the rows."""
+def _bf16_simple_relu_plan(rows: int, C: int,
+                           n_sms: int = 132) -> Tuple[int, int, int]:
+    """The simple bf16 K2b's launch, a function of the shape alone so that
+    db sums in one order on every run: ``(tpc, chunks, row_blocks)``, as
+    few chunks of at most a block's threads as cover C, split evenly,
+    ``tpc`` threads a row of a chunk, and ``row_blocks`` blocks along the
+    rows."""
     chunks = -(-C // _BF16_THREADS)
     tpc = _bf16_channel_threads(-(-C // chunks))
     slots = _BF16_THREADS // tpc
@@ -934,12 +964,65 @@ def _bf16_relu_plan(rows: int, C: int,
                                    n_sms * _BF16_BLOCKS_PER_SM // chunks))
 
 
+@functools.lru_cache(maxsize=64)
+def _bf16_relu_bwd_plan(rows: int, C: int, aligned: bool = True,
+                        n_sms: int = 132) -> Optional[BiasReluBwdPlan]:
+    """The bf16 K2b's launch: the float32 K2b's plan
+    (:func:`_bias_relu_bwd_plan`) on 16-byte units of eight bf16 channels
+    (``znicz_bias_relu_bf16_vec_bwd``) where C % 8 == 0 and x, b and dp are
+    16-byte aligned (``aligned``; dx, db and the partial rows are the
+    wrapper's own), else ``None``: the simple kernel and the column sum
+    (``znicz_bias_relu_bf16_bwd``, :func:`_bf16_simple_relu_plan`)."""
+    if not aligned or C % 8:
+        return None
+    return _bias_relu_bwd_plan(rows, C, True, n_sms, 8)
+
+
+def bf16_relu_bwd_plan_for(x, bias, dp) -> Optional[BiasReluBwdPlan]:
+    """The plan the bf16 K2b runs for CUDA tensors ``x``, ``bias``, ``dp``
+    (:func:`_bf16_relu_bwd_plan`; ``None`` for the simple kernel)."""
+    C = int(x.shape[-1])
+    return _bf16_relu_bwd_plan(x.numel() // C, C, _aligned16(x, bias, dp),
+                               _build.device_limits(x.device.index)[1])
+
+
+def _bf16_relu_bwd_launch(x, bias, dp, plan):
+    """Launch the bf16 K2b on ``plan``: the 16-byte kernel, or the simple
+    kernel and the column sum for ``None``.  Both take their partial rows
+    from :func:`_br_workspace`."""
+    C = int(x.shape[-1])
+    rows = x.numel() // C
+    stream = _build.stream_of(x)
+    dx = torch.empty_like(x)
+    db = torch.empty((C,), dtype=torch.float32, device=x.device)
+    if plan is None:
+        tpc, chunks, row_blocks = _bf16_simple_relu_plan(
+            rows, C, _build.device_limits(x.device.index)[1])
+        partial, _ = _br_workspace(x.device, stream, row_blocks * C)
+        fn = "znicz_bias_relu_bf16_bwd"
+        rc = _build.entry("bias_relu_bwd", fn)(
+            x.data_ptr(), bias.data_ptr(), dp.data_ptr(), dx.data_ptr(),
+            db.data_ptr(), partial.data_ptr(), rows, C, tpc, chunks,
+            row_blocks, x.device.index, stream)
+    else:
+        partial, ticket = _br_workspace(x.device, stream,
+                                        plan.row_blocks * C)
+        fn = "znicz_bias_relu_bf16_vec_bwd"
+        rc = _build.entry("bias_relu_bwd", fn)(
+            x.data_ptr(), bias.data_ptr(), dp.data_ptr(), dx.data_ptr(),
+            db.data_ptr(), partial.data_ptr(), ticket.data_ptr(), rows, C,
+            plan.threads_per_row, plan.rows, plan.chunks, plan.row_blocks,
+            plan.splits, x.device.index, stream)
+    _build.check(rc, "bias_relu_bwd", fn)
+    return dx, db
+
+
 def bias_relu_bf16_bwd(x, bias, dp):
-    """K2b for bf16 operands (``csrc/bias_relu_bwd.cu``,
-    ``znicz_bias_relu_bf16_bwd``): ``(dx, db)`` of :func:`bias_relu_bwd`
-    in float32, dx rounded once to bf16 and db float32 (:func:`bias_relu_bwd`
-    casts it to the bias's dtype).  CPU tensors take
-    :func:`bias_relu_bwd_plain`; CUDA tensors launch the kernel or raise."""
+    """K2b for bf16 operands (``csrc/bias_relu_bwd.cu``): ``(dx, db)`` of
+    :func:`bias_relu_bwd` in float32, dx rounded once to bf16 and db
+    float32 (:func:`bias_relu_bwd` casts it to the bias's dtype).  CPU
+    tensors take :func:`bias_relu_bwd_plain`; CUDA tensors launch the
+    kernel :func:`_bf16_relu_bwd_plan` chooses, or raise."""
     if x.ndim != 4 or dp.shape != x.shape:
         raise ValueError(f"bias_relu_bf16_bwd: x {tuple(x.shape)} and dp "
                          f"{tuple(dp.shape)} must be the same NHWC shape")
@@ -947,26 +1030,17 @@ def bias_relu_bf16_bwd(x, bias, dp):
         return bias_relu_bwd_plain(x, bias, dp)
     _check_kernel_operands("bias_relu_bf16_bwd", x, bias, dp,
                            dtype=torch.bfloat16)
-    C = int(x.shape[-1])
-    rows = x.numel() // C
-    tpc, chunks, row_blocks = _bf16_relu_plan(
-        rows, C, _build.device_limits(x.device.index)[1])
-    dx = torch.empty_like(x)
-    db = torch.empty((C,), dtype=torch.float32, device=x.device)
-    partial = torch.empty((row_blocks, C), dtype=torch.float32,
-                          device=x.device)
-    fn = "znicz_bias_relu_bf16_bwd"
-    rc = _build.entry("bias_relu_bwd", fn)(
-        x.data_ptr(), bias.data_ptr(), dp.data_ptr(), dx.data_ptr(),
-        db.data_ptr(), partial.data_ptr(), rows, C, tpc, chunks, row_blocks,
-        x.device.index, _build.stream_of(x))
-    _build.check(rc, "bias_relu_bwd", fn)
+    plan = bf16_relu_bwd_plan_for(x, bias, dp)
+    dx, db = _bf16_relu_bwd_launch(x, bias, dp, plan)
     bias_relu_bf16_bwd.launches += 1
+    bias_relu_bf16_bwd.simple_launches += plan is None
     return dx, db
 
 
-#: bf16 K2b launches since the count was last reset
+#: bf16 K2b launches since the count was last reset, and those of them
+#: that ran the simple kernel
 bias_relu_bf16_bwd.launches = 0
+bias_relu_bf16_bwd.simple_launches = 0
 
 
 class _BiasRelu(torch.autograd.Function):
