@@ -1,7 +1,8 @@
 """Train a sample workflow (port of the sample-run path of
 ``znicz_tpu/launcher.py``):
 
-    python -m znicz_torch {alexnet,mnist,cifar} [root.x.y=value ...]
+    python -m znicz_torch {alexnet,mnist,cifar,mnist_ae,kohonen}
+                          [root.x.y=value ...]
                           [--device cpu] [--seed N] [--fused]
                           [--snapshot PATH]
 
@@ -11,14 +12,17 @@ module is imported, so its defaults do not clobber them.  The sample's
 device; without a GPU it raises.  MNIST and CIFAR10 train on the unit
 engine unless ``--fused`` (``root.common.engine.fused``) asks for
 ``FusedTrainer``; AlexNet trains on ``FusedTrainer``, as the reference's
-sample does.  ``--snapshot`` resumes a sample that takes one (MNIST,
-CIFAR10) from a snapshot file.  The last line of the output is one JSON
-object with the run's finals; ``final_train_loss`` and ``valid_err_pct``
-are the names ``bench.py`` gives them, and ``compute_dtype`` the dtype
-the train steps computed in.  The precision knobs are dotted overrides,
-as in the reference: ``root.common.engine.compute_dtype=bf16`` (or
-``precision``), ``state_dtype=bfloat16`` and ``master_dtype=bfloat16``
-(``FusedTrainer`` only).
+sample does; MnistAE (tied weights) and Kohonen (no GD chain) train on
+the unit engine always.  ``--snapshot`` resumes a sample that takes one
+(MNIST, CIFAR10, MnistAE) from a snapshot file.  The last line of the
+output is one JSON object with the run's finals under the names
+``bench.py`` gives them: ``final_train_loss`` and ``valid_err_pct`` for
+the classifiers, ``final_train_mse`` and ``valid_mse`` for MnistAE,
+``final_qerror`` and ``first_qerror`` for Kohonen; ``compute_dtype`` is
+the dtype the train steps computed in.  The precision knobs are dotted
+overrides, as in the reference: ``root.common.engine.compute_dtype=bf16``
+(or ``precision``), ``state_dtype=bfloat16`` and
+``master_dtype=bfloat16`` (``FusedTrainer`` only).
 """
 
 from __future__ import annotations
@@ -33,7 +37,25 @@ import sys
 from znicz_torch.core import prng
 from znicz_torch.core.config import apply_overrides, root
 
-SAMPLES = ("alexnet", "mnist", "cifar")
+SAMPLES = ("alexnet", "mnist", "cifar", "mnist_ae", "kohonen")
+
+
+def finals(sample: str, wf) -> dict:
+    """The run's last-epoch finals, as ``bench.py`` names them."""
+    d = wf.decision
+    if sample == "kohonen":
+        return {"epochs": len(d.epoch_qerror),
+                "final_qerror": d.epoch_qerror[-1],
+                "first_qerror": d.epoch_qerror[0]}
+    train, valid = d.epoch_metrics[2] or {}, d.epoch_metrics[1] or {}
+    if sample == "mnist_ae":
+        return {"epochs": int(d.epoch_number) + 1,
+                "final_train_mse": train.get("loss"),
+                "valid_mse": valid.get("loss")}
+    return {"epochs": int(d.epoch_number) + 1,
+            "valid_err_pct": valid.get("err_pct"),
+            "train_loss": train.get("loss"),
+            "final_train_loss": train.get("loss")}
 
 
 def main(argv=None) -> int:
@@ -71,21 +93,20 @@ def main(argv=None) -> int:
             ap.error(f"{args.workflow} does not resume from a snapshot")
         kwargs["snapshot"] = args.snapshot
     wf = mod.run(device=args.device, **kwargs)
-    d, stats = wf.decision, wf.train_stats
-    trainer = getattr(wf, "trainer", None)
+    stats = wf.train_stats
+    # the fused trainer, when it ran (the SOM's own unit is named trainer
+    # too, and has no compute_dtype)
+    dtype = getattr(getattr(wf, "trainer", None), "compute_dtype", None)
     print(json.dumps({
         "workflow": args.workflow, "device": str(wf.device),
-        "epochs": int(d.epoch_number) + 1,
-        "valid_err_pct": (d.epoch_metrics[1] or {}).get("err_pct"),
-        "train_loss": (d.epoch_metrics[2] or {}).get("loss"),
-        "final_train_loss": (d.epoch_metrics[2] or {}).get("loss"),
+        **finals(args.workflow, wf),
         "train_steps": stats["train_steps"],
         "img_per_sec": stats["img_per_sec"],
         "warm_img_per_sec": stats["warm_img_per_sec"],
         # the unit engine computes in float32 whatever compute_dtype says,
         # as the reference's does
-        "compute_dtype": (str(trainer.compute_dtype).split(".")[-1]
-                          if trainer is not None else "float32")}))
+        "compute_dtype": (str(dtype).split(".")[-1]
+                          if dtype is not None else "float32")}))
     return 0
 
 

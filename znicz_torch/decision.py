@@ -1,6 +1,6 @@
-"""Training control (port of ``DecisionBase``/``DecisionGD`` in
-``znicz_tpu/decision.py``; its telemetry gauges wait for the telemetry
-port).
+"""Training control (port of ``DecisionBase``, ``DecisionGD`` and
+``DecisionMSE`` in ``znicz_tpu/decision.py``; its telemetry gauges wait
+for the telemetry port).
 
 A unit run once per minibatch, after the evaluator.  Its inputs are
 linked from the loader (``minibatch_class``, ``last_minibatch``,
@@ -8,8 +8,9 @@ linked from the loader (``minibatch_class``, ``last_minibatch``,
 ``minibatch_size``) and the evaluator (``minibatch_loss``,
 ``minibatch_n_err``, ``confusion_matrix``); ``FusedTrainer`` sets them
 itself.  It accumulates per-class epoch statistics (loss, n_err, err%,
-confusion); at the epoch's end (the loader's TRAIN tail) it tracks the
-best validation error, sets ``improved``, and sets ``complete`` when
+confusion; the mean loss alone for ``DecisionMSE``); at the epoch's end
+(the loader's TRAIN tail) it tracks the best validation error (mean
+loss for ``DecisionMSE``), sets ``improved``, and sets ``complete`` when
 ``epoch_number + 1 >= max_epochs`` or validation has not improved for
 ``fail_iterations`` epochs.  ``gd_skip`` — whether this minibatch's
 update is skipped — is ``klass != TRAIN or complete``.  ``complete``,
@@ -167,3 +168,12 @@ class DecisionGD(DecisionBase):
                 "n_err": self._acc_n_err[klass],
                 "err_pct": 100.0 * self._acc_n_err[klass] / n,
                 "confusion": self._acc_confusion[klass]}
+
+
+class DecisionMSE(DecisionBase):
+    """Regression and autoencoders: improvement is judged on the
+    validation mean loss."""
+
+    def _summarize(self, klass: int):
+        return {"loss": self._class_metric(klass),
+                "mse": self._class_metric(klass)}

@@ -9,11 +9,18 @@ caller's ``fused``.
 over the wall time of the run, the device synchronised at its end) and
 ``warm_img_per_sec``: for ``FusedTrainer`` after each kind of step's
 first call (``FusedTrainer.stats``); for the unit engine after the first
-epoch's end.
+epoch's end.  On the unit engine the updates are the firings of the head
+of the GD chain, or of the first unit with ``apply_gradient`` set in a
+graph wired by hand (MnistAE's ``gd_deconv``, the SOM's trainer).
+
+A graph the fused trainer cannot run (tied weights:
+``FusedUnsupportedError``) trains on the unit engine on the same device,
+with a warning, as the reference's does; any other error propagates.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Optional
 
@@ -21,6 +28,8 @@ import torch
 
 from znicz_torch.core.config import check_engine_knobs, root
 from znicz_torch.loader.base import TRAIN
+
+log = logging.getLogger("znicz_torch.engine")
 
 
 def wants_fused() -> bool:
@@ -42,10 +51,17 @@ def train(workflow, fused: Optional[bool] = None):
     port does not read yet, such as the master and slave roles
     (``root.common.engine.mode``), raises (:func:`check_engine_knobs`)."""
     check_engine_knobs()
+    trainer = None
     if _fused_capable(workflow, wants_fused() if fused is None else fused):
-        from znicz_torch.parallel.fused import FusedTrainer
+        from znicz_torch.parallel.fused import (FusedTrainer,
+                                                FusedUnsupportedError)
 
-        trainer = FusedTrainer(workflow)
+        try:
+            trainer = FusedTrainer(workflow)
+        except FusedUnsupportedError as exc:
+            log.warning("the fused trainer cannot run %s (%s); training on "
+                        "the unit engine", workflow.name, exc)
+    if trainer is not None:
         trainer.run()
         workflow.trainer = trainer
         stats = {k: trainer.stats[k] for k in
@@ -56,14 +72,27 @@ def train(workflow, fused: Optional[bool] = None):
     return stats
 
 
+def update_unit(workflow):
+    """The unit whose firings are the run's updates: the head of the GD
+    chain (``gd_units``), else the first unit with ``apply_gradient`` set
+    (a GD unit that updates parameters, or the SOM's trainer)."""
+    chain = getattr(workflow, "gd_units", None)
+    if chain:
+        return chain[0]
+    for unit in workflow:
+        if getattr(unit, "apply_gradient", False):
+            return unit
+    raise ValueError(f"{workflow.name}: no unit applies an update")
+
+
 def _run_units(workflow):
-    """``workflow.run()`` with its TRAIN images, updates (the first GD
-    unit's firings) and wall time."""
+    """``workflow.run()`` with its TRAIN images, updates
+    (:func:`update_unit`'s firings) and wall time."""
     loader, decision = workflow.loader, workflow.decision
-    first_gd = workflow.gd_units[0]
+    updater = update_unit(workflow)
 
     def count():
-        return loader.class_samples_served[TRAIN], first_gd.run_count
+        return loader.class_samples_served[TRAIN], updater.run_count
 
     epoch_end = []
 

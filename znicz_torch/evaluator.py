@@ -1,4 +1,4 @@
-"""The softmax evaluator (port of ``EvaluatorSoftmax`` in
+"""The evaluators (port of ``EvaluatorSoftmax`` and ``EvaluatorMSE`` in
 ``znicz_tpu/evaluator.py``).
 
 As a unit of the unit engine it reads the softmax head's ``output``
@@ -15,6 +15,13 @@ The three scalars come back to the host in one read a minibatch: the
 Decision needs them.  ``FusedTrainer`` computes the same metrics from
 the logits in its own loss head; there the evaluator only selects the
 softmax loss and says whether the confusion counts are collected.
+
+:class:`EvaluatorMSE` reads the regression head's ``output`` and the
+minibatch ``target`` (the loader's ``minibatch_targets``) and gives
+``err_output = (y - t) * valid / batch_size``, the per-sample squared
+error ``mse`` and ``loss = 0.5 * sum(se) / batch_size``; with ``labels``
+linked and ``class_targets`` set, ``n_err`` counts the real rows whose
+nearest class target (L2) is not their label.
 """
 
 from __future__ import annotations
@@ -28,7 +35,24 @@ from znicz_torch.core.units import Unit
 from znicz_torch.memory import Array
 
 
-class EvaluatorSoftmax(Unit):
+class EvaluatorBase(Unit):
+    """What both losses share: the linked head ``output`` and
+    ``batch_size`` (the count of real rows), and the ``err_output``
+    cotangent and ``loss`` they give."""
+
+    def __init__(self, workflow=None, name: str = "evaluator", **kwargs):
+        super().__init__(workflow=workflow, name=name, **kwargs)
+        self.output: Optional[Array] = None      # linked: the head
+        self.batch_size = 0                      # linked: minibatch_size
+        self.err_output = Array()
+        self.loss = 0.0
+
+    def initialize(self, device=None, **kwargs):
+        super().initialize(**kwargs)
+        self.err_output.initialize(device)
+
+
+class EvaluatorSoftmax(EvaluatorBase):
     #: heads wider than this collect no confusion matrix unless
     #: ``compute_confusion`` is set
     CONFUSION_AUTO_LIMIT = 128
@@ -36,23 +60,18 @@ class EvaluatorSoftmax(Unit):
     def __init__(self, workflow=None, name: str = "evaluator",
                  compute_confusion=None, n_classes: int = 0, **kwargs):
         super().__init__(workflow=workflow, name=name, **kwargs)
-        self.output: Optional[Array] = None      # linked: the softmax head
         self.labels: Optional[Array] = None      # linked: minibatch_labels
-        self.batch_size = 0                      # linked: minibatch_size
         self.n_classes = int(n_classes)
         self.compute_confusion = compute_confusion
         #: whether the user pinned compute_confusion (the fused trainer
         #: collects it unless it was explicitly turned off)
         self.confusion_explicit = compute_confusion is not None
-        self.err_output = Array()
         self.confusion_matrix = Array()
         self.n_err = 0
-        self.loss = 0.0
         self.max_err_output_sum = 0.0
 
     def initialize(self, device=None, **kwargs):
-        super().initialize(**kwargs)
-        self.err_output.initialize(device)
+        super().initialize(device=device, **kwargs)
         self.confusion_matrix.initialize(device)
 
     def run(self):
@@ -82,6 +101,48 @@ class EvaluatorSoftmax(Unit):
             [loss.double(), n_err.double(), mes.double()]).tolist()
         self.loss, self.n_err = loss, int(n_err)
         self.max_err_output_sum = mes
+
+
+class EvaluatorMSE(EvaluatorBase):
+    def __init__(self, workflow=None, name: str = "evaluator", **kwargs):
+        super().__init__(workflow=workflow, name=name, **kwargs)
+        self.target: Optional[Array] = None      # linked: minibatch_targets
+        self.mse = Array()                       # per-sample ||y - t||^2
+        #: the classification-through-regression mode: link ``labels`` and
+        #: set ``class_targets`` (n_classes, *sample_shape)
+        self.labels: Optional[Array] = None
+        self.class_targets = Array()
+        self.n_err = 0
+
+    def initialize(self, device=None, **kwargs):
+        super().initialize(device=device, **kwargs)
+        self.mse.initialize(device)
+        self.class_targets.initialize(device)
+
+    def run(self):
+        out = self.output.devmem
+        n = out.shape[0]
+        bs = int(self.batch_size)
+        denom = max(bs, 1)
+        with torch.no_grad():
+            y = out.reshape(n, -1)
+            valid = torch.arange(n, device=out.device) < bs
+            diff = (y - self.target.devmem.reshape(n, -1)) * valid[:, None]
+            se = torch.sum(torch.square(diff), dim=-1)
+            loss = 0.5 * torch.sum(se) / denom
+            scalars = [loss.double()]
+            if self.labels is not None and self.class_targets:
+                ct = self.class_targets.devmem
+                d = torch.sum(torch.square(
+                    y[:, None, :] - ct.reshape(1, ct.shape[0], -1)), dim=-1)
+                wrong = (torch.argmin(d, dim=-1) != self.labels.devmem) & valid
+                scalars.append(torch.sum(wrong).double())
+        self.err_output.devmem = (diff / denom).reshape(out.shape)
+        self.mse.devmem = se
+        scalars = torch.stack(scalars).tolist()
+        self.loss = scalars[0]
+        if len(scalars) > 1:
+            self.n_err = int(scalars[1])
 
 
 def confusion(pred, labels, valid, n_classes: int):

@@ -3,10 +3,15 @@ gathered by index (port of ``znicz_tpu/loader/fullbatch.py``).
 
 Subclasses set ``original_data`` / ``original_labels`` (numpy,
 sample-major) in ``load_data``, or callers set them before
-``initialize``.  ``initialize(device)`` copies both to the device once;
+``initialize``.  ``initialize(device)`` copies both to the device once and sizes
+``minibatch_data`` as the reference's ``create_minibatch_data`` does
+(zeros of one full minibatch), so a unit linked to it knows the sample
+shape before the first fill;
 :meth:`gather` takes a minibatch's rows there, as the reference's
 ``jnp.take`` does, and :meth:`fill_minibatch` puts them in the
-minibatch Arrays.
+minibatch Arrays.  :class:`FullBatchLoaderMSE` adds per-sample regression
+targets (``original_targets``), gathered into ``minibatch_targets``; an
+autoencoder's are its input data (``targets_from_data``).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from znicz_torch.loader.base import Loader
+from znicz_torch.memory import Array
 
 
 class FullBatchLoader(Loader):
@@ -49,6 +55,8 @@ class FullBatchLoader(Loader):
         if self.original_labels is not None:
             self.labels = torch.from_numpy(np.ascontiguousarray(
                 self.original_labels, np.int64)).to(dev)
+        self.minibatch_data.mem = np.zeros(
+            (self.max_minibatch_size,) + self.sample_shape, np.float32)
 
     def gather(self, idx) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(data rows, label rows) for the index row ``idx`` (numpy or a
@@ -63,3 +71,45 @@ class FullBatchLoader(Loader):
         self.minibatch_data.devmem = data
         if labels is not None:
             self.minibatch_labels.devmem = labels
+
+
+class FullBatchLoaderMSE(FullBatchLoader):
+    """A full-batch loader with regression targets: ``original_targets``
+    (numpy, sample-major, set in ``load_data`` or before ``initialize``),
+    or the data itself under ``targets_from_data``, which then shares the
+    data's device copy."""
+
+    def __init__(self, workflow=None, name: str = "loader",
+                 targets_from_data: bool = False, **kwargs):
+        super().__init__(workflow=workflow, name=name, **kwargs)
+        self.targets_from_data = bool(targets_from_data)
+        self.original_targets: Optional[np.ndarray] = None
+        self.minibatch_targets = Array()
+        self.targets: Optional[torch.Tensor] = None   # the device copy
+
+    def load_data(self) -> None:
+        super().load_data()
+        if self.original_targets is None:
+            if not self.targets_from_data:
+                raise ValueError(
+                    f"{self.name}: original_targets not set "
+                    "(pass targets_from_data=True for autoencoders)")
+            self.original_targets = self.original_data
+
+    def initialize(self, device=None, **kwargs) -> None:
+        super().initialize(device=device, **kwargs)
+        self.minibatch_targets.initialize(device)
+        self.targets = (self.data if self.original_targets is
+                        self.original_data else torch.from_numpy(
+                            np.ascontiguousarray(self.original_targets,
+                                                 np.float32))
+                        .to(self.data.device))
+
+    def fill_minibatch(self) -> None:
+        super().fill_minibatch()
+        if self.targets is self.data:       # the rows just gathered
+            self.minibatch_targets.devmem = self.minibatch_data.devmem
+            return
+        idx = torch.as_tensor(np.asarray(self.minibatch_indices, np.int64))
+        self.minibatch_targets.devmem = self.targets.index_select(
+            0, idx.to(self.targets.device))

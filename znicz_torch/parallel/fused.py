@@ -98,6 +98,12 @@ def master_dtype() -> Optional[torch.dtype]:
     return None if md == "float32" else torch.bfloat16
 
 
+class FusedUnsupportedError(ValueError):
+    """The workflow's graph cannot run on the fused trainer (tied
+    weights).  ``engine.train`` catches exactly this to train on the unit
+    engine instead; any other error propagates."""
+
+
 class FusedTrainer:
     """Train and run a built ``StandardWorkflow`` (its ``forwards``,
     ``gds``, ``loader``, ``evaluator`` and ``decision``) on its device.  A
@@ -111,6 +117,16 @@ class FusedTrainer:
         self.loader = getattr(workflow, "loader", None)
         self.decision = getattr(workflow, "decision", None)
         self.gd_of = dict(getattr(workflow, "gds", {}))
+        # one tensor in two modules would need a joint update the fused
+        # step does not make: refused, as the reference refuses it
+        seen = {}
+        for f in self.forwards:
+            for k, p in params_of(f).items():
+                if id(p) in seen:
+                    raise FusedUnsupportedError(
+                        f"fused trainer does not support tied weights "
+                        f"({f.name}.{k} shares {seen[id(p)]})")
+                seen[id(p)] = f"{f.name}.{k}"
         ev = getattr(workflow, "evaluator", None)
         if ev is not None and not isinstance(ev, EvaluatorSoftmax):
             raise ValueError("only the softmax loss is ported")

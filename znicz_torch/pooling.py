@@ -18,7 +18,9 @@ reference's unit path instead: it gathers every window
 (``MaxPooling``) or largest magnitude (``MaxAbsPooling``, whose pad is 0
 there, so a tie of ``x`` and ``-x`` goes to the first, not to the
 positive), and records that offset for its GD unit's scatter
-(:meth:`PoolingBase.scatter_at_offsets`).
+(:meth:`PoolingBase.scatter_at_offsets`), which a Depooling's forward
+reuses; its exact adjoint, :meth:`PoolingBase.gather_at_offsets`, is the
+Depooling's backward.
 """
 
 from __future__ import annotations
@@ -113,6 +115,25 @@ class PoolingBase(ForwardModule):
                 out[:, i:i + (oh - 1) * sy + 1:sy,
                     j:j + (ow - 1) * sx + 1:sx] += part
         return out[:, :h, :w].contiguous()
+
+    def gather_at_offsets(self, full, offsets):
+        """An output-shaped tensor of the input-shaped ``full``'s elements
+        at the recorded offsets: the exact adjoint of
+        :meth:`scatter_at_offsets` (Depooling's backward).  Each element
+        is selected, never summed, so its bits are kept."""
+        _, h, w, _ = full.shape
+        ph, pw = self._padded_hw(h, w)
+        if (ph, pw) != (h, w):
+            full = F.pad(full, (0, 0, 0, pw - w, 0, ph - h))
+        oh, ow = offsets.shape[1], offsets.shape[2]
+        sy, sx = self.sliding
+        out = full.new_zeros(tuple(offsets.shape))
+        for i in range(self.ky):
+            for j in range(self.kx):
+                at = full[:, i:i + (oh - 1) * sy + 1:sy,
+                          j:j + (ow - 1) * sx + 1:sx]
+                out = torch.where(offsets == i * self.kx + j, at, out)
+        return out
 
     def _pick(self, win, key):
         """(output, offsets): the first window element of largest

@@ -11,7 +11,12 @@ descent hyperparameters of that layer.  Module ``i`` is named
 reference names its units, so parameter trees carry over by name.  The
 layer kinds of the AlexNet, MNIST and CIFAR10 samples and their plain
 and activation siblings are ported: the fully-connected and convolution
-kinds, max, max-abs and average pooling, LRN and dropout.
+kinds, max, max-abs and average pooling, LRN and dropout; and MnistAE's
+deconvolutions (plain, tanh, sigmoid) and depooling.
+
+``loss_function`` is ``"softmax"`` (``EvaluatorSoftmax`` on the loader's
+labels, ``DecisionGD``) or ``"mse"`` (``EvaluatorMSE`` on its
+``minibatch_targets``, ``DecisionMSE``).
 
 Every module gets a forward unit (``nn_units.ForwardBase`` or its
 kind's subclass) that holds it, and a GD unit ``gd_{type}_{i}``
@@ -42,15 +47,15 @@ import numpy as np
 
 from znicz_torch.backends import DeviceLike, resolve_device
 from znicz_torch.core.workflow import Repeater, Workflow
-from znicz_torch.decision import DecisionGD
-from znicz_torch.evaluator import EvaluatorSoftmax
+from znicz_torch.decision import DecisionGD, DecisionMSE
+from znicz_torch.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from znicz_torch.snapshotter import Snapshotter
 
 
 def _registry() -> Dict[str, Tuple[Type, Type, Type]]:
     """kind -> (module class, forward unit class, GD unit class)."""
-    from znicz_torch import (all2all, conv, dropout, gd, gd_conv,
-                             gd_pooling, lrn, pooling)
+    from znicz_torch import (all2all, conv, deconv, depooling, dropout, gd,
+                             gd_conv, gd_deconv, gd_pooling, lrn, pooling)
     from znicz_torch.nn_units import ForwardBase as unit
 
     return {
@@ -74,6 +79,11 @@ def _registry() -> Dict[str, Tuple[Type, Type, Type]]:
         "norm": (lrn.LRNormalizerForward, unit, lrn.LRNormalizerBackward),
         "dropout": (dropout.DropoutForward, dropout.DropoutUnit,
                     dropout.DropoutBackward),
+        "deconv": (deconv.Deconv, unit, gd_deconv.GDDeconv),
+        "deconv_tanh": (deconv.DeconvTanh, unit, gd_deconv.GDDeconvTanh),
+        "deconv_sigmoid": (deconv.DeconvSigmoid, unit,
+                           gd_deconv.GDDeconvSigmoid),
+        "depooling": (depooling.Depooling, unit, depooling.GDDepooling),
     }
 
 
@@ -103,9 +113,9 @@ class StandardWorkflowBase(Workflow):
                  lr_adjust_config: Optional[dict] = None):
         super().__init__(name=name)
         self.device = resolve_device(device)
-        if loss_function != "softmax":
-            raise ValueError(f"loss_function {loss_function!r}: only "
-                             f"'softmax' is ported")
+        if loss_function not in ("softmax", "mse"):
+            raise ValueError(f"unknown loss {loss_function!r} ('softmax' "
+                             f"or 'mse')")
         self.loss_function = loss_function
         self.loader = loader
         if loader is not None:
@@ -122,9 +132,11 @@ class StandardWorkflowBase(Workflow):
         self.scale = float(scale)
         self.shift = float(shift)
         self.build_forwards()
-        self.evaluator = EvaluatorSoftmax(self, name="evaluator")
-        self.decision = DecisionGD(self, name="decision",
-                                   **dict(decision_config or {}))
+        mse = loss_function == "mse"
+        self.evaluator = (EvaluatorMSE if mse else EvaluatorSoftmax)(
+            self, name="evaluator")
+        self.decision = (DecisionMSE if mse else DecisionGD)(
+            self, name="decision", **dict(decision_config or {}))
         self.snapshotter = Snapshotter(self, name="snapshotter",
                                        **dict(snapshotter_config or {}))
         self.build_gds()
@@ -220,7 +232,12 @@ class StandardWorkflow(StandardWorkflowBase):
 
     def link_evaluator(self):
         last = self.forward_units[-1]
-        self.evaluator.link_attrs(self.loader, ("labels", "minibatch_labels"))
+        if self.loss_function == "mse":
+            self.evaluator.link_attrs(self.loader,
+                                      ("target", "minibatch_targets"))
+        else:
+            self.evaluator.link_attrs(self.loader,
+                                      ("labels", "minibatch_labels"))
         self.evaluator.link_from(last)
         self.evaluator.link_attrs(last, "output")
         self.evaluator.link_attrs(self.loader,
@@ -231,10 +248,11 @@ class StandardWorkflow(StandardWorkflowBase):
         self.decision.link_attrs(
             self.loader, "minibatch_class", "last_minibatch", "class_ended",
             "epoch_number", "class_lengths", "minibatch_size")
-        self.decision.link_attrs(
-            self.evaluator, ("minibatch_loss", "loss"),
-            ("minibatch_n_err", "n_err"), "confusion_matrix",
-            "max_err_output_sum")
+        self.decision.link_attrs(self.evaluator, ("minibatch_loss", "loss"))
+        if self.loss_function == "softmax":
+            self.decision.link_attrs(
+                self.evaluator, ("minibatch_n_err", "n_err"),
+                "confusion_matrix", "max_err_output_sum")
 
     def link_snapshotter(self):
         self.snapshotter.link_from(self.decision)

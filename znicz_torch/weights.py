@@ -13,6 +13,12 @@ come back as float32 (a bf16 velocity or parameter widens exactly).  The
 two packages store every tensor in the same layout (conv weights
 ``(K, ky, kx, C)``, FC weights ``(out, in)`` or ``(in, out)`` with
 ``weights_transposed``), so nothing is transposed on the way.
+
+The trees cover every unit with parameters, by unit name: a
+``StandardWorkflow``'s forward units and the units of a graph wired by
+hand, such as MnistAE's ``conv`` and ``deconv``, whose ``weights`` are
+one tensor (both leaves load into it, and must agree), and the SOM's
+``trainer``.
 """
 
 from __future__ import annotations
@@ -22,26 +28,33 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from znicz_torch.nn_units import state_dtype
+from znicz_torch.nn_units import GradientDescentBase, state_dtype
 
 
 def _targets(workflow, velocities: bool):
-    """module name -> {leaf: live tensor} for every module with weights."""
+    """unit name -> {leaf: live tensor} for every unit with parameters
+    (each unit whose ``params()`` is not empty, so a hand-wired graph is
+    covered as a ``StandardWorkflow`` is); with ``velocities``, the
+    momentum state that the GD unit of each of them keeps (a unit that
+    updates its own parameters, as the SOM's trainer, keeps none).  A
+    tied parameter is one tensor under both names."""
+    gd_of = {u.forward.name: u for u in workflow
+             if isinstance(u, GradientDescentBase)}
     out = {}
-    for f in workflow.forwards:
-        if not f.has_weights:
+    for unit in workflow:
+        leaves = unit.params() if hasattr(unit, "params") else {}
+        if not leaves:
             continue
-        leaves = {"weights": f.weights}
-        if f.include_bias:
-            leaves["bias"] = f.bias
         if velocities:
-            vel = workflow.gds[f.name].velocities
+            if unit.name not in gd_of:
+                continue
+            vel = gd_of[unit.name].velocities
             for key, param in leaves.items():
                 if key not in vel:
                     vel[key] = torch.zeros_like(param.detach(),
                                                 dtype=state_dtype())
             leaves = {key: vel[key] for key in leaves}
-        out[f.name] = leaves
+        out[unit.name] = leaves
     return out
 
 
@@ -50,6 +63,7 @@ def _load(tree, workflow, velocities: bool):
     if set(tree) != set(mods):
         raise KeyError(f"parameter tree names {sorted(tree)} do not match "
                        f"the modules with weights {sorted(mods)}")
+    loaded = {}                  # id(tensor) -> the leaf first copied in
     with torch.no_grad():
         for name, leaves in tree.items():
             want = mods[name]
@@ -61,6 +75,10 @@ def _load(tree, workflow, velocities: bool):
                 if tuple(src.shape) != tuple(dst.shape):
                     raise ValueError(f"{name}.{key}: shape {src.shape}, "
                                      f"expected {tuple(dst.shape)}")
+                first = loaded.setdefault(id(dst), (f"{name}.{key}", src))
+                if first[1] is not src and not np.array_equal(first[1], src):
+                    raise ValueError(f"{name}.{key} is tied to {first[0]} "
+                                     "but the tree gives it other values")
                 dst.copy_(torch.from_numpy(src))
     return workflow
 
