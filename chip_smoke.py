@@ -134,8 +134,28 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      velocity and the dataset on the card; MnistAE's ``conv.weights``
      and ``deconv.weights`` one tensor after training; no kernel
      launched (neither path reaches one); the images/s (points/s) and
-     the wall time of each run beside the card's name and power limit.
+     the wall time of each run beside the card's name and power limit;
+ 12. ``kinds``, the layer kinds ported last: full-width AlexNet (phase
+     6's configuration) built from plain ``conv`` + ``activation_str``
+     layers, loaded with the ``conv_strict_relu`` model's weights and
+     trained 3 steps with its dropout masks under composed, ``fused``,
+     ``pallas_lrn`` and bf16 ``fused``, beside that model under the same
+     routing: under the kernel routings the planners' span-4 and span-2
+     matches must give the same launch counts (2/2/3/3 K1/K1b/K2/K2b, or
+     2/2/5/5 K3/K3b/K2/K2b, a train step) and the same losses and final
+     weights bit for bit, under composed the phase 6 bands; each train
+     step's device time beside the ``conv_strict_relu`` one.  A narrow
+     conv -> tanh -> stochastic pooling -> softmax net on digit glyphs, on
+     the unit engine and on ``FusedTrainer``, replaying the offsets its
+     CPU run drew: the first 8 losses within rtol 1e-4 of that run; the
+     default Philox sampler's chi-square at a fixed seed; the fused
+     select's backward the same bits twice.  ``wine`` at its defaults on
+     both engines: the first 8 losses within rtol 1e-4 of the port's CPU
+     run, the normalised dataset on the card, the finals beside the
+     reference's CPU finals, rows/s and wall time.  None of the
+     stochastic or wine runs launches a kernel.
 
+A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
 runs write none (their snapshotter is gated off: a full-width snapshot
 is 0.5 GB of gzip).  The last lines are the ``kernels`` JSON object and
@@ -150,9 +170,9 @@ cases of each kernel named (``fused_block_fwd``, ``fused_block_bwd``,
 ``lrn_bf16_bwd``, and the ``BF16_PATHS`` kernels: ``fused_block_bf16_fwd``,
 ``fused_block_bf16_bwd``, ``bias_relu_bf16_fwd``, ``bias_relu_bf16_bwd``),
 phases 7 and 8 for
-``anchors``, phase 9 for ``units``, phase 10 for ``bf16`` and phase 11
-for ``mnist_ae`` and ``kohonen`` (each alone or both); it prints the
-``kernels`` object and no ``ok`` line.
+``anchors``, phase 9 for ``units``, phase 10 for ``bf16``, phase 11
+for ``mnist_ae`` and ``kohonen`` (each alone or both) and phase 12 for
+``kinds``; it prints the ``kernels`` object and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -2585,13 +2605,385 @@ def ae_som_phase(torch, card, samples=tuple(AE_SOM_RUNS)):
     return runs
 
 
+# -- phase 12: the layer kinds ported last ------------------------------------
+
+
+def plain_conv(layers):
+    """``layers`` with each ``conv_strict_relu`` as a plain ``conv`` (the
+    same keywords) followed by an ``activation_str`` layer."""
+    out = []
+    for layer in layers:
+        if layer["type"] == "conv_strict_relu":
+            out.append({**layer, "type": "conv"})
+            out.append({"type": "activation_str"})
+        else:
+            out.append(layer)
+    return out
+
+
+#: phase 12's AlexNet routings: label -> (knobs, {kernel: (launches per
+#: train step, per eval step)}), those of the ``conv_strict_relu`` model
+KIND_ROUTINGS = {
+    "composed": ({}, {}),
+    "fused": TRAIN_ROUTINGS["fused"],
+    "pallas_lrn": TRAIN_ROUTINGS["pallas_lrn"],
+    "bf16:fused": ({"compute_dtype": "bf16", **FUSED_KNOBS},
+                   _BF16_FUSED_COUNTS),
+}
+
+
+def alexnet_run(torch, wf, start, knobs, mask_fn=None):
+    """``FusedTrainer.run()`` of ``wf`` (phase 6's configuration) from the
+    parameters ``start`` (a list in the order of ``wf``'s weighted
+    modules), every named stream reset to SEED, under ``knobs``; returns
+    (losses, final parameters in that order, launches, train steps, eval
+    steps, one train step's device ms)."""
+    from torch import nn
+
+    from znicz_torch.core import prng
+    from znicz_torch.decision import DecisionGD
+    from znicz_torch.parallel.fused import FusedTrainer
+
+    prng.reset(SEED)
+    wf.loader.reset()
+    weighted = [f for f in wf.forwards if f.has_weights]
+    for f, leaves in zip(weighted, start):
+        for k, w in leaves.items():
+            setattr(f, k, nn.Parameter(w.clone(), requires_grad=False))
+    for gd in wf.gds.values():
+        gd.velocities = {}
+    wf.decision = DecisionGD(max_epochs=TRAIN_EPOCHS, fail_iterations=0)
+    ctrs = counters()
+    reset = set_knobs(knobs)
+    try:
+        trainer = FusedTrainer(wf, mask_fn=mask_fn)
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+        trainer.run()
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in ctrs.items()}
+        steps = (trainer.stats["train_steps"], trainer.stats["eval_steps"])
+        final = [{k: p.detach().clone() for k, p in f_params.items()}
+                 for f_params in (FusedTrainer._params_of(f)
+                                  for f in weighted)]
+        idx = np.arange(BATCH)
+        step_ms = cuda_ms(torch, lambda: trainer.train_step(idx, BATCH, 0),
+                          iters=5, warmup=1)
+    finally:
+        reset()
+    return (list(trainer.train_losses), final, launches, *steps, step_ms)
+
+
+def kinds_alexnet(torch, card):
+    """Phase 12's AlexNet: phase 6's configuration built from plain
+    ``conv`` + ``activation_str`` layers, loaded with the
+    ``conv_strict_relu`` model's weights and trained with its dropout
+    masks (looked up by its layer indices) under each of
+    :data:`KIND_ROUTINGS`, beside that model under the same routing: under
+    the kernel routings the same losses and final weights bit for bit and
+    the same launch counts, under composed within LOSS_RTOL and the weight
+    band.  Returns {routing: {kernel: launches}} of the plain model."""
+    from znicz_torch.core import prng
+    from znicz_torch.core.config import root
+    from znicz_torch.loader.fullbatch import FullBatchLoader
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.samples.alexnet import make_layers, training_workflow
+    from znicz_torch.standard_workflow import StandardWorkflow
+
+    root.alexnet.loader.update(TRAIN_CFG)
+    root.alexnet.decision.max_epochs = TRAIN_EPOCHS
+    prng.reset(SEED)
+    base = no_snapshots(training_workflow())
+    ldr = FullBatchLoader(minibatch_size=BATCH)
+    ldr.original_data = base.loader.original_data
+    ldr.original_labels = base.loader.original_labels
+    ldr.class_lengths = list(base.loader.class_lengths)
+    layers = plain_conv(make_layers(TRAIN_CFG["n_classes"]))
+    plain = no_snapshots(StandardWorkflow(
+        layers, name="PlainConvAlexNet", loader=ldr,
+        decision_config={"max_epochs": TRAIN_EPOCHS, "fail_iterations": 0}))
+    kinds = [f.layer_kind for f in plain.forwards]
+    log(f"[kinds:alexnet] {len(kinds)} layers: {kinds}")
+    start = [{k: p.detach().clone()
+              for k, p in FusedTrainer._params_of(f).items()}
+             for f in base.forwards if f.has_weights]
+    # the plain model's layer index -> the conv_strict_relu model's
+    remap = {i: j for j, i in enumerate(
+        i for i, kind in enumerate(kinds) if kind != "activation_str")}
+    masks = FusedTrainer(base)
+
+    def mask_fn(step, index, shape, ratio):
+        return masks.default_mask(step, remap[index], shape, ratio)
+
+    runs = {}
+    for label, (knobs, expect) in KIND_ROUTINGS.items():
+        ref = alexnet_run(torch, base, start, knobs)
+        got = alexnet_run(torch, plain, start, knobs, mask_fn)
+        losses, final, launches, n_train, n_eval, step_ms = got
+        same = (losses == ref[0] and all(
+            torch.equal(a[k], b[k]) for a, b in zip(final, ref[1])
+            for k in a))
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0]))
+        w_err = max(float(((a[k] - b[k]).abs()
+                           / (W_ATOL + W_RTOL * b[k].abs())).max())
+                    for a, b in zip(final, ref[1]) for k in a)
+        log(f"[kinds:alexnet:{label}] {n_train} train + {n_eval} eval steps;"
+            f" losses {['%.6f' % v for v in losses]}; vs conv_strict_relu: "
+            f"bit-equal {same}, losses max rel {l_err:.3e}, weights max "
+            f"|d|/({W_ATOL:g}+{W_RTOL:g}|w|) {w_err:.3f}; launches "
+            f"{ {k: v for k, v in launches.items() if v} } (conv_strict_relu"
+            f" { {k: v for k, v in ref[2].items() if v} })")
+        log(f"[kinds:alexnet:{label}] {card}: one train step {step_ms:.3f} "
+            f"ms on the device (conv_strict_relu {ref[5]:.3f} ms)")
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"[kinds:{label}] non-finite loss")
+        for name in launches:
+            per_train, per_eval = expect.get(name, (0, 0))
+            want = per_train * n_train + per_eval * n_eval
+            if launches[name] != want or ref[2][name] != want:
+                raise AssertionError(
+                    f"[kinds:{label}] {name}: {launches[name]} launches "
+                    f"(conv_strict_relu {ref[2][name]}) for {n_train} train"
+                    f" + {n_eval} eval steps, expected {want}")
+        if expect and not same:
+            raise AssertionError(f"[kinds:{label}] the plain-conv model "
+                                 f"leaves the conv_strict_relu model's bits")
+        if len(losses) != len(ref[0]) or l_err > LOSS_RTOL or w_err > 1.0:
+            raise AssertionError(f"[kinds:{label}] leaves the band: losses "
+                                 f"{l_err:.3e}, weights {w_err:.3f}")
+        runs[label] = launches
+    del base, plain, masks
+    torch.cuda.empty_cache()
+    return runs
+
+
+#: phase 12's stochastic pooling net: 28x28 digit glyphs, a narrow conv,
+#: tanh, an overlapping 3x3/2 stochastic pool, softmax; 600 train and 200
+#: valid rows in minibatches of 60, 2 epochs
+STOCH_ROWS, STOCH_BATCH, STOCH_EPOCHS = (200, 600), 60, 2
+STOCH_LAYERS = [
+    {"type": "conv", "->": {"n_kernels": 8, "kx": 5, "ky": 5},
+     "<-": {"learning_rate": 0.05, "gradient_moment": 0.9}},
+    {"type": "activation_tanh"},
+    {"type": "stochastic_pooling", "->": {"kx": 3, "ky": 3,
+                                          "sliding": (2, 2)}},
+    {"type": "softmax", "->": {"output_sample_shape": 10},
+     "<-": {"learning_rate": 0.05, "gradient_moment": 0.9}},
+]
+#: the default sampler's chi-square at a fixed seed: 0.1% point of
+#: chi-square with 3 degrees of freedom
+CHI2_LIMIT = 16.27
+
+
+def stochastic_workflow(device):
+    """The stochastic pooling net on ``device``, every named stream reset
+    to ANCHOR_SEED first."""
+    from znicz_torch import datasets
+    from znicz_torch.core import prng
+    from znicz_torch.loader.fullbatch import FullBatchLoader
+    from znicz_torch.standard_workflow import StandardWorkflow
+
+    prng.reset(ANCHOR_SEED)
+    ldr = FullBatchLoader(minibatch_size=STOCH_BATCH)
+    n = sum(STOCH_ROWS)
+    data, labels = datasets.digits(n)
+    ldr.original_data = data.reshape(n, 28, 28, 1)
+    ldr.original_labels = labels
+    ldr.class_lengths = [0, *STOCH_ROWS]
+    return no_snapshots(StandardWorkflow(
+        STOCH_LAYERS, device=device, name="StochasticNet", loader=ldr,
+        decision_config={"max_epochs": STOCH_EPOCHS,
+                         "fail_iterations": 0}))
+
+
+def _recorded(record, replay):
+    """A maker of offset seams around a ``default`` draw: with ``replay``
+    (a dict) the seam returns the offsets recorded under the same
+    arguments (all but the probabilities), moved to the probabilities'
+    device; else it draws with ``default`` and records them in
+    ``record`` on the host."""
+    def seam(default):
+        def fn(*args):
+            key, probs = args[:-1], args[-1]
+            if replay is not None:
+                return replay[key].to(probs.device)
+            off = default(*args)
+            record[key] = off.cpu()
+            return off
+        return fn
+    return seam
+
+
+def stochastic_runs(torch, card):
+    """Phase 12's stochastic pooling: the net on the CPU and then on the
+    card, on the unit engine and on ``FusedTrainer``, the card replaying
+    the offsets the CPU run drew; the first STEP_CHECK losses within
+    STEP_RTOL; no kernel launched.  Then the default sampler's chi-square
+    on the card, and the fused select's backward twice, the same bits."""
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.pooling import StochasticPooling, StochasticPoolingUnit
+    from znicz_torch.samples import train
+
+    ctrs = counters()
+    for fused in (False, True):
+        label = "fused" if fused else "units"
+        losses, record = {}, {}
+        for device in ("cpu", None):
+            wf = stochastic_workflow(device)
+            seam = _recorded(record, record if device is None else None)
+            if fused:
+                trainer = FusedTrainer(wf)
+                trainer.offset_fn = seam(trainer.default_offsets)
+            else:
+                for u in wf.forward_units:
+                    if isinstance(u, StochasticPoolingUnit):
+                        u.offset_fn = seam(u.default_offsets)
+            for fn in ctrs.values():            # the main path starts here
+                fn.launches = 0
+            t0 = time.perf_counter()
+            if fused:
+                trainer.run()
+                wf.train_stats = {k: trainer.stats[k] for k in
+                                  ("train_steps", "img_per_sec")}
+            else:
+                train(wf, "stochastic", fused=False)
+            if device is None:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            losses[device] = list(wf.decision.train_losses)
+        launches = {k: v for k, v in ctrs.items() if v.launches}
+        card_l, cpu_l = losses[None][:STEP_CHECK], losses["cpu"][:STEP_CHECK]
+        err = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+        log(f"[kinds:stochastic:{label}] {card}: {len(losses[None])} train "
+            f"losses on {wf.device}, the last {losses[None][-1]:.6f} (CPU "
+            f"{losses['cpu'][-1]:.6f}); first {STEP_CHECK} vs the CPU run: "
+            f"max rel {err:.3e} (tol {STEP_RTOL:g}); {len(record)} offset "
+            f"draws replayed; valid err% "
+            f"{wf.decision.epoch_metrics[1]['err_pct']}; run() {wall:.2f}s, "
+            f"images/s={wf.train_stats['img_per_sec']:.1f}")
+        if len(card_l) != STEP_CHECK or not all(np.isfinite(losses[None])):
+            raise AssertionError(f"[kinds:stochastic:{label}] losses "
+                                 f"{losses[None]}")
+        if err > STEP_RTOL:
+            raise AssertionError(f"[kinds:stochastic:{label}] the card "
+                                 f"leaves the CPU's losses: {err:.3e}")
+        if launches:
+            raise AssertionError(f"[kinds:stochastic:{label}] a kernel "
+                                 f"launched: {sorted(launches)}")
+    from znicz_torch.core import prng
+
+    p = torch.tensor([0.1, 0.0, 0.2, 0.3, 0.0, 0.4], device="cuda")
+    n = 1 << 20
+    gen = prng.get("sampler").torch_generator(0, 0, "cuda")
+    off = StochasticPooling.sample_offsets(p.repeat(n, 1), gen)
+    counts = torch.bincount(off, minlength=6).cpu().numpy()
+    want = p.cpu().numpy()[[0, 2, 3, 5]] * n
+    chi2 = float((((counts[[0, 2, 3, 5]] - want) ** 2) / want).sum())
+    log(f"[kinds:stochastic] the default sampler (Philox) over {n} windows: "
+        f"counts {counts.tolist()}, chi-square {chi2:.3f} (limit "
+        f"{CHI2_LIMIT}, 3 degrees of freedom)")
+    if chi2 >= CHI2_LIMIT or counts[1] or counts[4]:
+        raise AssertionError(f"[kinds:stochastic] the sampler leaves its "
+                             f"probabilities: {counts}, {chi2:.3f}")
+    pool = StochasticPooling(name="sp", kx=3, ky=3, sliding=(2, 2))
+    pool.build((STOCH_BATCH, 24, 24, 8), torch.device("cuda"))
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(STOCH_BATCH, 24, 24, 8, device="cuda", generator=g)
+    x.requires_grad_(True)
+    off = pool.sample_offsets(pool.probabilities(
+        pool.windows(x.detach(), 0.0)), g)
+    dy = torch.randn(pool.output_shape_for(tuple(x.shape)), device="cuda",
+                     generator=g)
+    dxs = [torch.autograd.grad(pool.select_sampled(x, off), x, dy)[0]
+           for _ in range(2)]
+    same = same_bits(torch, dxs[0], dxs[1])
+    log(f"[kinds:stochastic] fused select backward at ({STOCH_BATCH}, 24, "
+        f"24, 8) 3x3/2: the same bits twice {same}")
+    if not same:
+        raise AssertionError("[kinds:stochastic] the select's backward is "
+                             "not deterministic")
+
+
+#: the reference's wine finals at seed 1013 on the CPU (``python -m
+#: znicz_tpu wine``'s last epoch line: epoch 19, valid err_pct 0, train
+#: loss 0.00575249)
+WINE_REF_FINALS = {"valid_err_pct": 0.0, "final_train_loss": 0.00575249}
+
+
+def wine_runs(torch, card):
+    """Phase 12's ``wine`` at its defaults, every named stream reset to
+    ANCHOR_SEED, on the unit engine and on ``FusedTrainer``: the first
+    STEP_CHECK losses within STEP_RTOL of the port's CPU run, the
+    normalised dataset on the card and equal to the CPU's, no kernel
+    launched."""
+    from znicz_torch.__main__ import finals as sample_finals
+    from znicz_torch.core import prng
+    from znicz_torch.samples import train
+    from znicz_torch.samples.wine import WineWorkflow
+
+    ctrs = counters()
+    for fused in (False, True):
+        label = "fused" if fused else "units"
+        out = {}
+        for device in ("cpu", None):
+            prng.reset(ANCHOR_SEED)
+            for fn in ctrs.values():            # the main path starts here
+                fn.launches = 0
+            t0 = time.perf_counter()
+            wf = WineWorkflow(device)
+            data = wf.loader.data
+            train(wf, "wine", fused=fused)
+            if device is None:
+                torch.cuda.synchronize()
+            out[device] = (wf, data, time.perf_counter() - t0)
+        wf, data, wall = out[None]
+        cpu_wf, cpu_data, _ = out["cpu"]
+        launches = {k: v.launches for k, v in ctrs.items() if v.launches}
+        steps = wf.decision.train_losses[:STEP_CHECK]
+        cpu = cpu_wf.decision.train_losses[:STEP_CHECK]
+        err = max(abs(a - b) / abs(b) for a, b in zip(steps, cpu))
+        same_data = bool(torch.equal(data.cpu(), cpu_data))
+        fin = sample_finals("wine", wf)
+        log(f"[kinds:wine:{label}] {card}: {json.dumps(fin)} (the "
+            f"reference's CPU finals {json.dumps(WINE_REF_FINALS)}, the "
+            f"port's CPU {json.dumps(sample_finals('wine', cpu_wf))}); "
+            f"{wf.train_stats['train_steps']} updates; run() {wall:.2f}s, "
+            f"rows/s={wf.train_stats['img_per_sec']:.1f}; first "
+            f"{STEP_CHECK} losses vs the CPU: max rel {err:.3e} (tol "
+            f"{STEP_RTOL:g}); dataset {tuple(data.shape)} on {data.device}, "
+            f"normalised, equal to the CPU's {same_data}")
+        if data.device.type != "cuda" or not same_data:
+            raise AssertionError(f"[kinds:wine:{label}] the normalised "
+                                 f"dataset is not the CPU's on the card")
+        if len(steps) != STEP_CHECK or err > STEP_RTOL:
+            raise AssertionError(f"[kinds:wine:{label}] the card leaves "
+                                 f"the CPU's losses: {err:.3e}")
+        if launches:
+            raise AssertionError(f"[kinds:wine:{label}] a kernel launched: "
+                                 f"{launches}")
+
+
+def kinds_phase(torch, card):
+    """Phase 12: the plain-conv AlexNet, stochastic pooling and ``wine``.
+    Returns {routing: {kernel: launches}} of the plain-conv AlexNet."""
+    t0 = time.perf_counter()
+    runs = kinds_alexnet(torch, card)
+    t1 = time.perf_counter()
+    stochastic_runs(torch, card)
+    t2 = time.perf_counter()
+    wine_runs(torch, card)
+    log(f"[kinds] {card}: AlexNet {t1 - t0:.2f}s, stochastic pooling "
+        f"{t2 - t1:.2f}s, wine {time.perf_counter() - t2:.2f}s")
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
                     help="comma-separated kernels: run phases 1-2 for them "
                          "alone; 'anchors': phases 7-8; 'units': phase 9; "
                          "'bf16': phase 10; 'mnist_ae', 'kohonen': phase "
-                         "11 for that sample")
+                         "11 for that sample; 'kinds': phase 12")
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -2617,6 +3009,12 @@ def run_phases(torch, args) -> int:
     from znicz_torch.core import prng
     from znicz_torch.samples.alexnet import AlexNetWorkflow
     from znicz_torch.serving.model import ModelRunner
+
+    start = time.perf_counter()
+
+    def lap(done: str) -> None:
+        log(f"[clock] {done} done {time.perf_counter() - start:.1f}s after "
+            f"the start")
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2647,10 +3045,10 @@ def run_phases(torch, args) -> int:
     if args.only:
         names = args.only.split(",")
         anchors, units = "anchors" in names, "units" in names
-        bf16 = "bf16" in names
+        bf16, kinds = "bf16" in names, "kinds" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
-        names = [name for name in names
-                 if name not in ("anchors", "units", "bf16", *AE_SOM_RUNS)]
+        names = [name for name in names if name not in
+                 ("anchors", "units", "bf16", "kinds", *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -2692,8 +3090,16 @@ def run_phases(torch, args) -> int:
                             "launches_by_path", {})[f"train:{label}"] = count
         if ae_som:
             ae_som_phase(torch, card, ae_som)
+        if kinds:
+            for label, launches in kinds_phase(torch, card).items():
+                for name, count in launches.items():
+                    if count:
+                        rows.setdefault(name, {"name": name}).setdefault(
+                            "launches_by_path", {})[f"kinds:{label}"] = count
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
+
+    lap("phase 1")
 
     # -- phase 2: forward kernels against their plain versions --------------
     rows = check_kernels(torch, ["fused_block_fwd", "bias_relu_fwd",
@@ -2703,6 +3109,8 @@ def run_phases(torch, args) -> int:
     # hand the paths' cached blocks back, so that the timed phases start
     # with the allocator as the AlexNet-shape checks leave it
     torch.cuda.empty_cache()
+
+    lap("phase 2")
 
     # -- phase 3/4: the served path -----------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2760,6 +3168,8 @@ def run_phases(torch, args) -> int:
     del wf, ref_runner, refs, requests
     torch.cuda.empty_cache()
 
+    lap("phases 3/4")
+
     # -- phase 5: backward kernels against their plain versions -------------
     rows.update(check_kernels(torch, ["fused_block_bwd", "bias_relu_bwd",
                                       "lrn_bwd"]))
@@ -2768,6 +3178,8 @@ def run_phases(torch, args) -> int:
     check_k3b_paths(torch)
     torch.cuda.empty_cache()
 
+    lap("phase 5")
+
     # -- phase 6: the training path -----------------------------------------
     for label, launches in train_phase(torch, card).items():
         for name, count in launches.items():
@@ -2775,8 +3187,12 @@ def run_phases(torch, args) -> int:
                 by_path[name][f"train:{label}"] = count
     torch.cuda.empty_cache()
 
+    lap("phase 6")
+
     # -- phase 7: K2, K2b, K3, K3b at CIFAR10's shapes ----------------------
     cifar_rows(torch, rows)
+
+    lap("phase 7")
 
     # -- phase 8: the MNIST and CIFAR10 anchors ------------------------------
     for label, launches in anchors_phase(torch, card, args.trace).items():
@@ -2785,12 +3201,16 @@ def run_phases(torch, args) -> int:
                 by_path[name][f"anchor:{label}"] = count
     torch.cuda.empty_cache()
 
+    lap("phase 8")
+
     # -- phase 9: the unit-at-a-time engine ---------------------------------
     for label, launches in units_phase(torch, card).items():
         for name, count in launches.items():
             if count:
                 by_path[name][f"units:{label}"] = count
     torch.cuda.empty_cache()
+
+    lap("phase 9")
 
     # -- phase 10: bf16 training ---------------------------------------------
     bf16_rows, runs = bf16_phase(torch, card)
@@ -2801,8 +3221,21 @@ def run_phases(torch, args) -> int:
                 by_path[name][f"train:{label}"] = count
     torch.cuda.empty_cache()
 
+    lap("phase 10")
+
     # -- phase 11: MnistAE and Kohonen on the unit engine --------------------
     ae_som_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    lap("phase 11")
+
+    # -- phase 12: the layer kinds ported last -------------------------------
+    for label, launches in kinds_phase(torch, card).items():
+        for name, count in launches.items():
+            if KIND_ROUTINGS[label][1].get(name):
+                by_path[name][f"kinds:{label}"] = count
+
+    lap("phase 12")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

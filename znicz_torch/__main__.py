@@ -1,7 +1,7 @@
 """Train a sample workflow (port of the sample-run path of
 ``znicz_tpu/launcher.py``):
 
-    python -m znicz_torch {alexnet,mnist,cifar,mnist_ae,kohonen}
+    python -m znicz_torch {alexnet,mnist,cifar,mnist_ae,kohonen,wine}
                           [root.x.y=value ...]
                           [--device cpu] [--seed N] [--fused]
                           [--snapshot PATH]
@@ -9,12 +9,12 @@
 Dotted overrides are applied to the port's config tree before the sample
 module is imported, so its defaults do not clobber them.  The sample's
 ``run(device)`` trains on ``cuda:0`` unless ``--device`` names another
-device; without a GPU it raises.  MNIST and CIFAR10 train on the unit
-engine unless ``--fused`` (``root.common.engine.fused``) asks for
+device; without a GPU it raises.  MNIST, CIFAR10 and Wine train on the
+unit engine unless ``--fused`` (``root.common.engine.fused``) asks for
 ``FusedTrainer``; AlexNet trains on ``FusedTrainer``, as the reference's
 sample does; MnistAE (tied weights) and Kohonen (no GD chain) train on
 the unit engine always.  ``--snapshot`` resumes a sample that takes one
-(MNIST, CIFAR10, MnistAE) from a snapshot file.  The last line of the
+(MNIST, CIFAR10, MnistAE, Wine) from a snapshot file.  The last line of the
 output is one JSON object with the run's finals under the names
 ``bench.py`` gives them: ``final_train_loss`` and ``valid_err_pct`` for
 the classifiers, ``final_train_mse`` and ``valid_mse`` for MnistAE,
@@ -37,7 +37,7 @@ import sys
 from znicz_torch.core import prng
 from znicz_torch.core.config import apply_overrides, root
 
-SAMPLES = ("alexnet", "mnist", "cifar", "mnist_ae", "kohonen")
+SAMPLES = ("alexnet", "mnist", "cifar", "mnist_ae", "kohonen", "wine")
 
 
 def finals(sample: str, wf) -> dict:

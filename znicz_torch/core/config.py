@@ -229,3 +229,15 @@ def check_engine_knobs() -> None:
                 f"root.common.engine.{key}={value!r} is not ported yet "
                 f"(ROADMAP queue {item}); the port runs as at its default "
                 f"{default!r}")
+
+
+def refuse_keyword(owner: str, key: str, value, accepted, item: str) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP item ``item`` when the
+    reference keyword ``key`` of ``owner`` is set to a value outside
+    ``accepted`` (the reference's default and the values that behave as
+    it), as :func:`check_engine_knobs` refuses an engine knob: the port
+    would otherwise run as if it were unset."""
+    if value not in accepted:
+        raise NotImplementedError(
+            f"{owner}({key}={value!r}) is not ported yet (ROADMAP queue "
+            f"{item}); the port runs as at {accepted[0]!r}")

@@ -1134,30 +1134,41 @@ def fused_softmax_xent(logits, labels, valid, denom: float):
 
 
 def match_fused_block(forwards: Sequence, i: int) -> Optional[FusedBlockSpec]:
-    """The FusedBlockSpec for ConvStrictRELU(+bias) -> LRN (odd window) ->
-    exactly tiling MaxPooling starting at ``forwards[i]``, or None."""
+    """The FusedBlockSpec for a conv block starting at ``forwards[i]``, or
+    None: ConvStrictRELU(+bias) -> LRN (odd window) -> exactly tiling
+    MaxPooling (span 3), or a plain Conv(+bias) -> standalone StrictRELU
+    activation -> LRN -> MaxPooling (span 4)."""
+    from znicz_torch.activation import is_strict_relu_unit
     from znicz_torch.conv import Conv
     from znicz_torch.lrn import LRNormalizerForward
     from znicz_torch.ops import activations
     from znicz_torch.pooling import MaxPooling
 
     conv = forwards[i]
-    if not isinstance(conv, Conv) or not conv.include_bias \
-            or conv.ACTIVATION is not activations.strict_relu:
+    if not isinstance(conv, Conv) or not conv.include_bias:
         return None
-    if i + 2 >= len(forwards):
+    j = i + 1
+    if conv.ACTIVATION is activations.strict_relu:
+        pass
+    elif conv.ACTIVATION is activations.identity and j < len(forwards) \
+            and is_strict_relu_unit(forwards[j]):
+        j += 1
+    else:
         return None
-    lrn_u, pool_u = forwards[i + 1], forwards[i + 2]
+    if j + 1 >= len(forwards):
+        return None
+    lrn_u, pool_u = forwards[j], forwards[j + 1]
     if not isinstance(lrn_u, LRNormalizerForward):
         return None
     hypers = lrn_u.fused_block_hypers
     if hypers is None:
         return None
+    # exactly this class: max-abs, stochastic and average pools differ
     if type(pool_u) is not MaxPooling or not pool_u.exact_tiling():
         return None
     n, alpha, beta, k = hypers
     sy, sx = pool_u.sliding
-    return FusedBlockSpec(span=3, n=n, alpha=alpha, beta=beta, k=k,
+    return FusedBlockSpec(span=j + 2 - i, n=n, alpha=alpha, beta=beta, k=k,
                           pool=(pool_u.ky, pool_u.kx, sy, sx))
 
 
@@ -1184,14 +1195,21 @@ def plan_fused_blocks(forwards: Sequence) -> Dict[int, FusedBlockSpec]:
 
 def match_conv_bias_relu(forwards: Sequence, i: int) \
         -> Optional[FusedTailSpec]:
-    """ConvStrictRELU(+bias) with no LRN/pool requirement: conv3-5."""
+    """Conv(+bias) with a StrictRELU, in its class (span 1) or as a
+    standalone activation after a plain Conv (span 2), with no LRN/pool
+    requirement: conv3-5."""
+    from znicz_torch.activation import is_strict_relu_unit
     from znicz_torch.conv import Conv
     from znicz_torch.ops import activations
 
     conv = forwards[i]
-    if isinstance(conv, Conv) and conv.include_bias \
-            and conv.ACTIVATION is activations.strict_relu:
+    if not isinstance(conv, Conv) or not conv.include_bias:
+        return None
+    if conv.ACTIVATION is activations.strict_relu:
         return FusedTailSpec("conv_bias_relu", 1)
+    if conv.ACTIVATION is activations.identity and i + 1 < len(forwards) \
+            and is_strict_relu_unit(forwards[i + 1]):
+        return FusedTailSpec("conv_bias_relu", 2)
     return None
 
 

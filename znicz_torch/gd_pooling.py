@@ -1,9 +1,11 @@
 """Pooling backward units (port of ``znicz_tpu/gd_pooling.py``).
 
-``GDMaxPooling`` and ``GDMaxAbsPooling`` send ``err_output`` to the input
-positions the forward unit recorded (``pooling.MaxPoolingUnit``'s
-``input_offset``); ``GDAvgPooling`` is the vjp of the forward average.
-Pooling has no parameters, so ``apply_gradient`` is off.
+``GDMaxPooling``, ``GDMaxAbsPooling``, ``GDStochasticPooling`` and
+``GDStochasticAbsPooling`` send ``err_output`` to the input positions the
+forward unit recorded (``pooling.MaxPoolingUnit``'s and
+``pooling.StochasticPoolingUnit``'s ``input_offset``); ``GDAvgPooling``
+is the vjp of the forward average.  Pooling has no parameters, so
+``apply_gradient`` is off.
 """
 
 from __future__ import annotations
@@ -41,4 +43,12 @@ class GDMaxPooling(GDMaxPoolingBase):
 
 
 class GDMaxAbsPooling(GDMaxPoolingBase):
+    pass
+
+
+class GDStochasticPooling(GDMaxPoolingBase):
+    pass
+
+
+class GDStochasticAbsPooling(GDMaxPoolingBase):
     pass

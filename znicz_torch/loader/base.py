@@ -9,6 +9,10 @@
   - only the TRAIN segment is reshuffled, once per epoch, from the seeded
     ``loader`` prng stream — the reference's stream, so the order is the
     reference's bit for bit;
+  - with ``balance_classes`` each epoch's TRAIN segment is then
+    resampled from the ``loader.balance`` stream so that every label
+    gets an equal share of the slots (:meth:`Loader._balance_train`), for
+    a subclass that knows its labels (:meth:`Loader.train_labels`);
   - ``last_minibatch`` marks the end of an epoch, ``class_ended`` the end
     of a class; ``epoch_number`` increments when the next epoch begins.
 
@@ -17,6 +21,9 @@ Each ``run()`` advances to the next minibatch and, unless
 ``minibatch_data`` and ``minibatch_labels`` (``memory.Array``s) on the
 device (:meth:`fill_minibatch`).  ``minibatch_indices`` stays a numpy
 row.
+
+The reference's ``native_shuffle`` (its C++ xorshift128+ shuffler) is not
+ported: set to True it raises ``NotImplementedError`` (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import List, Optional
 import numpy as np
 
 from znicz_torch.core import prng
+from znicz_torch.core.config import refuse_keyword
 from znicz_torch.core.units import Unit
 from znicz_torch.memory import Array
 
@@ -34,10 +42,15 @@ TEST, VALID, TRAIN = 0, 1, 2
 
 class Loader(Unit):
     def __init__(self, workflow=None, name: str = "loader",
-                 minibatch_size: int = 100, shuffle: bool = True, **kwargs):
+                 minibatch_size: int = 100, shuffle: bool = True,
+                 balance_classes: bool = False, native_shuffle=None,
+                 **kwargs):
         super().__init__(workflow=workflow, name=name, **kwargs)
+        refuse_keyword("Loader", "native_shuffle", native_shuffle,
+                       (None, False), "A.9")
         self.max_minibatch_size = int(minibatch_size)
         self.shuffle = bool(shuffle)
+        self.balance_classes = bool(balance_classes)
         self.class_lengths: List[int] = [0, 0, 0]
         self.minibatch_data = Array()
         self.minibatch_labels = Array()
@@ -101,6 +114,41 @@ class Loader(Unit):
             seg = self._shuffled_indices[start:]
             perm = prng.get("loader").permutation(len(seg))
             self._shuffled_indices[start:] = seg[perm]
+        self._balance_train(start)
+
+    def train_labels(self):
+        """Labels indexable by sample index, for ``balance_classes``;
+        None here (a subclass that knows its labels overrides it)."""
+        return None
+
+    def _balance_train(self, start: int) -> None:
+        """With ``balance_classes``, fill the TRAIN segment (from offset
+        ``start``) afresh from the whole TRAIN population: the slots are a
+        permutation split into one equal block per label, each block
+        drawn with replacement from that label's samples, all from the
+        ``loader.balance`` stream in the reference's order of draws."""
+        if not self.balance_classes:
+            return
+        labels = self.train_labels()
+        if labels is None:
+            return
+        population = np.arange(start, self.total_samples,
+                               dtype=self._shuffled_indices.dtype)
+        lab = np.asarray(labels)[population]
+        rng = prng.get("loader.balance").state
+        classes = np.unique(lab)
+        n = len(population)
+        members = {c: population[lab == c] for c in classes}
+        slots = rng.permutation(n)
+        out = np.empty(n, population.dtype)
+        i = 0
+        for c, block in zip(classes,
+                            np.array_split(np.arange(n), len(classes))):
+            k = len(block)
+            pick = members[c][rng.integers(0, len(members[c]), size=k)]
+            out[slots[i:i + k]] = pick
+            i += k
+        self._shuffled_indices[start:] = out
 
     def reset(self) -> None:
         """Restart from epoch 0 with a fresh TRAIN shuffle (from the

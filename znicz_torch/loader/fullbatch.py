@@ -12,6 +12,11 @@ shape before the first fill;
 minibatch Arrays.  :class:`FullBatchLoaderMSE` adds per-sample regression
 targets (``original_targets``), gathered into ``minibatch_targets``; an
 autoencoder's are its input data (``targets_from_data``).
+
+A ``normalizer`` (``znicz_torch.normalization``) is fitted on the TRAIN
+rows of ``original_data`` and applied to the whole array in place by
+``load_data``, before the device copy, as the reference's does; its
+state goes into snapshots (``snapshotter.collect_meta``).
 """
 
 from __future__ import annotations
@@ -27,10 +32,12 @@ from znicz_torch.memory import Array
 
 class FullBatchLoader(Loader):
     def __init__(self, workflow=None, name: str = "loader",
-                 minibatch_size: int = 100, shuffle: bool = True, **kwargs):
+                 minibatch_size: int = 100, shuffle: bool = True,
+                 normalizer=None, **kwargs):
         super().__init__(workflow=workflow, name=name,
                          minibatch_size=minibatch_size, shuffle=shuffle,
                          **kwargs)
+        self.normalizer = normalizer
         self.original_data: Optional[np.ndarray] = None
         self.original_labels: Optional[np.ndarray] = None
         #: device copies, set by initialize
@@ -42,6 +49,13 @@ class FullBatchLoader(Loader):
             raise ValueError(f"{self.name}: original_data not set")
         if sum(self.class_lengths) == 0:
             self.class_lengths = [0, 0, len(self.original_data)]
+        if self.normalizer is not None:
+            data = self.original_data
+            self.normalizer.fit(data[self.class_end_offsets[1]:])
+            self.normalizer.apply_inplace(data)
+
+    def train_labels(self):
+        return self.original_labels
 
     @property
     def sample_shape(self) -> Tuple[int, ...]:

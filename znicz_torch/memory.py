@@ -13,7 +13,7 @@ coherent:
     device when the host is newer);
   - assigning ``devmem`` adopts a computed tensor as the newer half.
 
-The reference's cross-host sharded arrays are not ported (queue A.3).
+The reference's cross-host sharded arrays are not ported (queue A.7).
 """
 
 from __future__ import annotations

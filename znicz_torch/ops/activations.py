@@ -5,7 +5,10 @@
   - ``relu_log``    — the reference's "RELU": softplus ``log(1 + e^x)``;
   - ``strict_relu`` — ``max(0, x)``;
   - ``sigmoid``, ``log_act`` (``log(x + sqrt(x^2 + 1))``), ``sincos``
-    (even elements sin, odd cos), ``softmax`` over the last axis.
+    (even elements sin, odd cos), ``softmax`` over the last axis;
+  - ``tanhlog`` — ``tanh_scaled`` inside |x| < 10, the log tail
+    ``sign(x) * (1.7159 + log(max(|x| - 9, 1)))`` outside (the reference
+    keeps it in ``znicz_tpu/activation.py`` as ``_tanhlog``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ def relu_log(x):
 
 #: a 0-dim CPU zero: a scalar operand on any device, with no fill launch
 _ZERO = torch.zeros(())
+_ONE = torch.ones(())
 
 
 def strict_relu(x):
@@ -40,14 +44,42 @@ def sigmoid(x):
     return torch.sigmoid(x)
 
 
+class _Sqrt(torch.autograd.Function):
+    """``sqrt`` whose gradient is ``g * (0.5 / sqrt(x))``, jax's rule
+    (autograd's ``g / (2 * sqrt(x))`` rounds differently)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.sqrt(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (0.5 / s)
+
+
 def log_act(x):
-    return torch.log(x + torch.sqrt(x * x + 1.0))
+    """``log(x + sqrt(x^2 + 1))``.  For x < 0 the sum cancels, and its
+    gradient with it: each operation's vjp is the reference's, so that
+    the cancellation meets the same roundings."""
+    return torch.log(x + _Sqrt.apply(torch.square(x) + 1.0))
 
 
 def sincos(x):
     flat = x.reshape(-1)
     even = torch.arange(flat.shape[0], device=x.device) % 2 == 0
     return torch.where(even, torch.sin(flat), torch.cos(flat)).reshape(x.shape)
+
+
+def tanhlog(x):
+    """The reference's TanhLog: ``tanh_scaled`` for |x| < 10, the log tail
+    outside; at |x| == 10 the ``max`` ties and, as ``jnp.maximum``'s, its
+    gradient splits in half."""
+    tail = torch.sign(x) * (TANH_A + torch.log(
+        torch.maximum(torch.abs(x) - 9.0, _ONE)))
+    return torch.where(torch.abs(x) < 10.0, tanh_scaled(x), tail)
 
 
 def softmax(x):

@@ -5,9 +5,11 @@ train and eval steps, and a sequential epoch loop).
 The forward composes the modules' own forwards, except where the
 planners route a span through a fused stage: with
 ``root.common.engine.fused_elementwise`` each conv1/conv2-style block
-(ConvStrictRELU -> LRN -> exactly tiling MaxPooling) runs as the raw
-convolution plus the block kernels (K1 forward, K1b backward); with
-``fused_tail`` each remaining ConvStrictRELU runs as the raw convolution
+(ConvStrictRELU, or a plain Conv and a StrictRELU activation layer ->
+LRN -> exactly tiling MaxPooling) runs as the raw convolution plus the
+block kernels (K1 forward, K1b backward); with ``fused_tail`` each
+remaining ConvStrictRELU (or Conv + StrictRELU layer) runs as the raw
+convolution
 plus the bias+ReLU kernels (K2, K2b), each All2AllStrictRELU(+dropout)
 as the raw product plus the FC epilogue, and the loss as the fused
 softmax-CE head.  ``pallas_lrn`` sends the LRN modules through K3/K3b.
@@ -46,6 +48,16 @@ generator for (step, index) on the workflow's device, so the same
 (step, index) always gives the same mask — the FC epilogue's backward
 regenerates it instead of keeping it.  Tests pass the reference's masks
 through this seam.
+
+**Stochastic pooling.**  In a train step (and the epoch tail's replay) a
+stochastic pooling module outputs the element at offsets sampled from
+its window probabilities, ``offset_fn(step, index, probs)``, whose
+gradient is scattered back to those positions
+(``pooling._StochasticSelect``); by default the offsets are drawn with
+:meth:`StochasticPoolingBase.sample_offsets` from the same generator as
+a mask of that (step, index).  In evaluation, and in serving, the module
+outputs its expectation.  Tests pass the reference's offsets through
+this seam.
 """
 
 from __future__ import annotations
@@ -68,8 +80,10 @@ from znicz_torch.fused_block import (fused_bias_relu, fused_block,
 from znicz_torch.loader.base import TRAIN
 from znicz_torch.nn_units import params_of, state_dtype
 from znicz_torch.ops.linear import linear
+from znicz_torch.pooling import StochasticPoolingBase
 
 MaskFn = Callable[[int, int, tuple, float], torch.Tensor]
+OffsetFn = Callable[[int, int, torch.Tensor], torch.Tensor]
 
 
 def compute_dtype() -> torch.dtype:
@@ -110,7 +124,8 @@ class FusedTrainer:
     workflow built without a loader can only run :meth:`forward_pass`
     (serving)."""
 
-    def __init__(self, workflow, mask_fn: Optional[MaskFn] = None):
+    def __init__(self, workflow, mask_fn: Optional[MaskFn] = None,
+                 offset_fn: Optional[OffsetFn] = None):
         self.workflow = workflow
         self.forwards = list(workflow.forwards)
         self.device = workflow.device
@@ -136,6 +151,7 @@ class FusedTrainer:
         self._decode_params = (float(getattr(workflow, "scale", 1.0)),
                                float(getattr(workflow, "shift", 0.0)))
         self.mask_fn: MaskFn = mask_fn or self.default_mask
+        self.offset_fn: OffsetFn = offset_fn or self.default_offsets
         self.lr_adjust = getattr(workflow, "lr_adjust", None)
         self.steps_done = 0
         #: ``img_per_sec`` counts every step; ``warm_*`` leave out the
@@ -231,6 +247,11 @@ class FusedTrainer:
                                                         self.device)
         return DropoutForward.make_mask(gen, shape, ratio)
 
+    def default_offsets(self, step: int, index: int, probs):
+        gen = prng.get("fused_trainer").torch_generator(step, index,
+                                                        self.device)
+        return StochasticPoolingBase.sample_offsets(probs, gen)
+
     def _decode(self, data):
         """uint8 data decodes to ``u8 * scale + shift`` on the device; any
         other dtype passes through."""
@@ -280,6 +301,11 @@ class FusedTrainer:
                 if train:
                     h = h * self.mask_fn(step, i, tuple(h.shape),
                                          f.dropout_ratio)
+            elif isinstance(f, StochasticPoolingBase) and train:
+                with torch.no_grad():
+                    probs = f.probabilities(f.windows(h, f.PAD_VALUE))
+                off = self.offset_fn(step, i, probs)
+                h = f.select_sampled(h, off.to(h.device))
             elif f is last and isinstance(f, All2AllSoftmax):
                 h = linear(h, f.weights, f.bias,
                            weights_transposed=f.weights_transposed)

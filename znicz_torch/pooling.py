@@ -1,5 +1,6 @@
-"""Pooling over NHWC (port of ``MaxPooling``, ``MaxAbsPooling`` and
-``AvgPooling`` in ``znicz_tpu/pooling.py``).
+"""Pooling over NHWC (port of ``MaxPooling``, ``MaxAbsPooling``,
+``AvgPooling``, ``StochasticPooling`` and ``StochasticAbsPooling`` in
+``znicz_tpu/pooling.py``).
 
 The reference's geometry: ``sliding`` defaults to the kernel size,
 partial windows at the right/bottom edges are kept, and the plane is
@@ -21,18 +22,35 @@ positive), and records that offset for its GD unit's scatter
 (:meth:`PoolingBase.scatter_at_offsets`), which a Depooling's forward
 reuses; its exact adjoint, :meth:`PoolingBase.gather_at_offsets`, is the
 Depooling's backward.
+
+Stochastic pooling (pad 0) weighs each window's elements by ``max(x, 0)``
+(``StochasticPooling``) or ``|x|`` (``StochasticAbsPooling``).  In
+training it outputs the element at a position sampled with probability
+proportional to its weight (an all-zero window picks position 0); in
+evaluation, and as the module's own forward, the probability-weighted
+mean ``sum(win * (p / total))``, with the offsets of the heaviest
+element.  The draw is the reference's Gumbel-max over ``log(p)``
+(:meth:`StochasticPoolingBase.sample_offsets`), from a
+``torch.Generator`` (Philox on a GPU) where the reference draws from
+threefry keys, so the offsets differ unless a test injects the
+reference's through the ``offset_fn`` seam of
+:class:`StochasticPoolingUnit` or of ``FusedTrainer``.  The gradient of a
+sampled output is :class:`_StochasticSelect`'s: ``scatter_at_offsets``,
+masked strided adds, with no atomics where windows overlap.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from znicz_torch.core import prng
 from znicz_torch.core.config import root
 from znicz_torch.forward import ForwardModule
+from znicz_torch.loader.base import TRAIN
 from znicz_torch.memory import Array
 from znicz_torch.nn_units import ForwardBase
 
@@ -256,5 +274,123 @@ class MaxPoolingUnit(ForwardBase):
     def run(self):
         with torch.no_grad():
             y, off = self.module.select(self.input.devmem)
+        self.output.devmem = y
+        self.input_offset.devmem = off
+
+
+class _StochasticSelect(torch.autograd.Function):
+    """The element of each window at ``offsets``, whose backward is
+    :meth:`PoolingBase.scatter_at_offsets`: the gradient of the sampled
+    output goes to its input position, summed in window order where
+    windows overlap, the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, pool):
+        ctx.save_for_backward(offsets)
+        ctx.pool, ctx.in_shape = pool, tuple(x.shape)
+        win = pool.windows(x, pool.PAD_VALUE)
+        return torch.gather(win, -1, offsets.unsqueeze(-1)).squeeze(-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        offsets, = ctx.saved_tensors
+        return (ctx.pool.scatter_at_offsets(g, offsets, ctx.in_shape),
+                None, None)
+
+
+class StochasticPoolingBase(PoolingBase):
+    PAD_VALUE = 0.0
+
+    def weights_from(self, win):
+        """The sampling weight of each window element."""
+        raise NotImplementedError
+
+    def probabilities(self, win):
+        """Each window's weights over their sum, as the reference divides
+        them (``p / max(total, 1e-30)``); an all-zero window is one-hot
+        at position 0."""
+        p = self.weights_from(win)
+        total = torch.sum(p, dim=-1, keepdim=True)
+        first = torch.zeros_like(p)
+        first[..., 0] = 1.0
+        return torch.where(total > 0, p / torch.clamp_min(total, 1e-30),
+                           first)
+
+    @staticmethod
+    def sample_offsets(probs, generator: torch.Generator):
+        """One position per window drawn with ``probs`` (the last axis):
+        the reference's ``jax.random.categorical`` formulation, the
+        first argmax of ``log(max(probs, 1e-30))`` plus Gumbel noise,
+        the noise from ``generator`` on its device."""
+        u = torch.rand(tuple(probs.shape), generator=generator,
+                       device=generator.device, dtype=torch.float32)
+        tiny = torch.finfo(torch.float32).tiny
+        gumbel = -torch.log(-torch.log(torch.clamp(u, tiny, 1.0)))
+        logits = torch.log(torch.clamp_min(probs.float(), 1e-30))
+        return torch.argmax(logits + gumbel, dim=-1)
+
+    def select_sampled(self, x, offsets):
+        """The output of training: the element at ``offsets`` of each
+        window, its gradient scattered back to it."""
+        return _StochasticSelect.apply(x, offsets, self)
+
+    def select_expected(self, x):
+        """(output, offsets) of evaluation: the probability-weighted mean,
+        and the offsets of each window's first heaviest element."""
+        win = self.windows(x, self.PAD_VALUE)
+        p = self.weights_from(win)
+        total = torch.clamp_min(torch.sum(p, dim=-1, keepdim=True), 1e-30)
+        return (torch.sum(win * (p / total), dim=-1),
+                torch.argmax(p, dim=-1))
+
+    def forward(self, x):
+        return self.select_expected(x)[0]
+
+
+class StochasticPooling(StochasticPoolingBase):
+    """Positions sampled in proportion to ``max(x, 0)``."""
+
+    def weights_from(self, win):
+        return torch.clamp_min(win, 0.0)
+
+
+class StochasticAbsPooling(StochasticPoolingBase):
+    """Positions sampled in proportion to ``|x|``."""
+
+    def weights_from(self, win):
+        return torch.abs(win)
+
+
+class StochasticPoolingUnit(MaxPoolingUnit):
+    """The unit of a stochastic pooling module.  On a TRAIN minibatch
+    (``minibatch_class`` is linked from the loader) its output is the
+    sampled select, the offsets from ``offset_fn(step, probs)``, ``step``
+    counting the unit's TRAIN minibatches; by default they are drawn from
+    the unit's own ``core.prng`` stream as a ``torch.Generator``
+    (:meth:`default_offsets`).  On the others, the expectation.  Either
+    way it records the offsets for its GD unit."""
+
+    def __init__(self, workflow=None, name=None, module=None, **kwargs):
+        super().__init__(workflow=workflow, name=name, module=module,
+                         **kwargs)
+        self.minibatch_class = TRAIN
+        self.offset_fn: Optional[Callable] = None
+        self._step_counter = 0
+
+    def default_offsets(self, step: int, probs):
+        gen = prng.get(self.name).torch_generator(step, 0, probs.device)
+        return StochasticPoolingBase.sample_offsets(probs, gen)
+
+    def run(self):
+        x, mod = self.input.devmem, self.module
+        with torch.no_grad():
+            if int(self.minibatch_class) == TRAIN:
+                probs = mod.probabilities(mod.windows(x, mod.PAD_VALUE))
+                off = (self.offset_fn or self.default_offsets)(
+                    self._step_counter, probs).to(x.device)
+                self._step_counter += 1
+                y = mod.select_sampled(x, off)
+            else:
+                y, off = mod.select_expected(x)
         self.output.devmem = y
         self.input_offset.devmem = off

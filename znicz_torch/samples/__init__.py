@@ -1,7 +1,7 @@
 """Sample models of the port: ``alexnet``, ``mnist``, ``cifar``,
-``mnist_ae`` and ``kohonen``, each with the reference sample's defaults
-and a ``run(device)`` that trains it as the reference's does: MNIST and
-CIFAR10 through ``engine.train`` (the unit graph unless
+``mnist_ae``, ``kohonen`` and ``wine``, each with the reference sample's
+defaults and a ``run(device)`` that trains it as the reference's does:
+MNIST, CIFAR10 and Wine through ``engine.train`` (the unit graph unless
 ``root.common.engine.fused``), AlexNet through ``FusedTrainer`` unless
 ``run(fused=False)``, MnistAE and Kohonen on the unit graph, the only
 engine their graphs take."""

@@ -17,9 +17,12 @@ the live dtype (bf16 velocities under ``state_dtype``, bf16 parameters
 under ``master_dtype``) and cast to the live dtype on restore.  A
 reference snapshot saved under bf16 state holds ``ml_dtypes`` bf16
 arrays; :meth:`Snapshotter.load` reads them without that package, as
-float32 leaves of the same values.  The reference's
-async writer, its orbax format and multi-host saves are not ported
-(ROADMAP queues A.4, A.7).
+float32 leaves of the same values.  A loader's ``normalizer`` state
+rides in ``snap["loader"]["normalizer"]``, as the reference's does.  The
+reference's async writer, its orbax format and multi-host saves are not
+ported (ROADMAP queues A.4, A.7): :class:`Snapshotter` refuses
+``compression`` other than "gz", ``format`` other than "pickle" and
+``sharded=True``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from znicz_torch.core.config import root
+from znicz_torch.core.config import refuse_keyword, root
 from znicz_torch.core.units import Unit
 
 
@@ -83,6 +86,9 @@ def collect_meta(workflow) -> Dict:
             if unit._shuffled_indices is not None:
                 snap["loader"]["shuffled_indices"] = \
                     np.array(unit._shuffled_indices)
+            norm = getattr(unit, "normalizer", None)
+            if norm is not None:
+                snap["loader"]["normalizer"] = norm.state()
         elif isinstance(unit, DecisionBase):
             snap["decision"] = {"best_metric": unit.best_metric,
                                 "best_epoch": unit.best_epoch,
@@ -126,6 +132,9 @@ def restore(workflow, snap: Dict) -> None:
             order = snap["loader"].get("shuffled_indices")
             if order is not None:
                 unit._shuffled_indices = np.asarray(order, np.int32).copy()
+            norm = getattr(unit, "normalizer", None)
+            if norm is not None and "normalizer" in snap["loader"]:
+                norm.restore(snap["loader"]["normalizer"])
         elif isinstance(unit, DecisionBase) and snap.get("decision"):
             unit.best_metric = snap["decision"]["best_metric"]
             unit.best_epoch = snap["decision"]["best_epoch"]
@@ -164,8 +173,14 @@ class Snapshotter(Unit):
     def __init__(self, workflow=None, name: str = "snapshotter",
                  prefix: str = "wf", directory: Optional[str] = None,
                  interval: int = 0,
-                 min_save_interval_s: Optional[float] = None, **kwargs):
+                 min_save_interval_s: Optional[float] = None,
+                 compression: str = "gz", format: str = "pickle",
+                 sharded: bool = False, **kwargs):
         super().__init__(workflow=workflow, name=name, **kwargs)
+        for key, value, accepted in (("compression", compression, ("gz",)),
+                                     ("format", format, ("pickle",)),
+                                     ("sharded", sharded, (False,))):
+            refuse_keyword("Snapshotter", key, value, accepted, "A.4")
         self.prefix = prefix
         self.directory = (directory if directory is not None
                           else root.common.dirs.get("snapshots",

@@ -8,11 +8,13 @@ Builds the forward modules from the reference's ``layers`` list::
 ``"->"`` holds the forward module's keywords; ``"<-"`` the gradient
 descent hyperparameters of that layer.  Module ``i`` is named
 ``fwd_{type}_{i}`` (:meth:`StandardWorkflowBase.module_name`), as the
-reference names its units, so parameter trees carry over by name.  The
-layer kinds of the AlexNet, MNIST and CIFAR10 samples and their plain
-and activation siblings are ported: the fully-connected and convolution
-kinds, max, max-abs and average pooling, LRN and dropout; and MnistAE's
-deconvolutions (plain, tanh, sigmoid) and depooling.
+reference names its units, so parameter trees carry over by name.  Every
+kind of the reference's registry is ported but ``attention`` (ROADMAP
+A.8): the fully-connected and convolution kinds with their activations,
+``resizable_all2all``, max, max-abs, average and stochastic pooling
+(plain and abs), LRN, dropout, ``cutter``, the seven standalone
+``activation_*`` kinds, and MnistAE's deconvolutions (plain, tanh,
+sigmoid) and depooling.
 
 ``loss_function`` is ``"softmax"`` (``EvaluatorSoftmax`` on the loader's
 labels, ``DecisionGD``) or ``"mse"`` (``EvaluatorMSE`` on its
@@ -35,7 +37,8 @@ is linked as the reference links it (:meth:`StandardWorkflow.link_graph`):
 
 ``decision.gd_skip`` gates every GD (and ``lr_adjust``),
 ``~decision.epoch_ended`` the snapshotter, ``~decision.complete`` the
-end point; dropout units get the loader's ``minibatch_class``.  A
+end point; dropout and stochastic pooling units get the loader's
+``minibatch_class``.  A
 workflow built without a loader serves only.
 """
 
@@ -54,8 +57,10 @@ from znicz_torch.snapshotter import Snapshotter
 
 def _registry() -> Dict[str, Tuple[Type, Type, Type]]:
     """kind -> (module class, forward unit class, GD unit class)."""
-    from znicz_torch import (all2all, conv, deconv, depooling, dropout, gd,
-                             gd_conv, gd_deconv, gd_pooling, lrn, pooling)
+    from znicz_torch import activation as act
+    from znicz_torch import (all2all, conv, cutter, deconv, depooling,
+                             dropout, gd, gd_conv, gd_deconv, gd_pooling,
+                             lrn, pooling, resizable_all2all)
     from znicz_torch.nn_units import ForwardBase as unit
 
     return {
@@ -76,19 +81,40 @@ def _registry() -> Dict[str, Tuple[Type, Type, Type]]:
         "maxabs_pooling": (pooling.MaxAbsPooling, pooling.MaxPoolingUnit,
                            gd_pooling.GDMaxAbsPooling),
         "avg_pooling": (pooling.AvgPooling, unit, gd_pooling.GDAvgPooling),
+        "stochastic_pooling": (pooling.StochasticPooling,
+                               pooling.StochasticPoolingUnit,
+                               gd_pooling.GDStochasticPooling),
+        "stochastic_abs_pooling": (pooling.StochasticAbsPooling,
+                                   pooling.StochasticPoolingUnit,
+                                   gd_pooling.GDStochasticAbsPooling),
         "norm": (lrn.LRNormalizerForward, unit, lrn.LRNormalizerBackward),
         "dropout": (dropout.DropoutForward, dropout.DropoutUnit,
                     dropout.DropoutBackward),
+        "cutter": (cutter.Cutter, unit, cutter.GDCutter),
+        "activation_tanh": (act.ForwardTanh, unit, act.BackwardTanh),
+        "activation_sigmoid": (act.ForwardSigmoid, unit,
+                               act.BackwardSigmoid),
+        "activation_relu": (act.ForwardRELU, unit, act.BackwardRELU),
+        "activation_str": (act.ForwardStrictRELU, unit,
+                           act.BackwardStrictRELU),
+        "activation_log": (act.ForwardLog, unit, act.BackwardLog),
+        "activation_sincos": (act.ForwardSinCos, unit, act.BackwardSinCos),
+        "activation_tanhlog": (act.ForwardTanhLog, unit,
+                               act.BackwardTanhLog),
         "deconv": (deconv.Deconv, unit, gd_deconv.GDDeconv),
         "deconv_tanh": (deconv.DeconvTanh, unit, gd_deconv.GDDeconvTanh),
         "deconv_sigmoid": (deconv.DeconvSigmoid, unit,
                            gd_deconv.GDDeconvSigmoid),
         "depooling": (depooling.Depooling, unit, depooling.GDDepooling),
+        "resizable_all2all": (resizable_all2all.ResizableAll2All,
+                              resizable_all2all.ResizableAll2AllUnit,
+                              gd.GradientDescent),
     }
 
 
 #: kinds whose train/eval behaviour follows the minibatch class
-_MODE_SWITCHED = ("dropout",)
+_MODE_SWITCHED = ("dropout", "stochastic_pooling",
+                  "stochastic_abs_pooling")
 
 
 class StandardWorkflowBase(Workflow):
