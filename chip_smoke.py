@@ -153,7 +153,27 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      both engines: the first 8 losses within rtol 1e-4 of the port's CPU
      run, the normalised dataset on the card, the finals beside the
      reference's CPU finals, rows/s and wall time.  None of the
-     stochastic or wine runs launches a kernel.
+     stochastic or wine runs launches a kernel;
+ 13. ``samples``, the last procedural samples and the host runtime: the
+     host runtime built with g++ from ``znicz_torch/csrc/host``, its
+     ``XorShift128P(1013)`` draws and shuffle against ``NATIVE_PINS``
+     (the values ``tests/test_torch_native.py`` pins); K2 and K2b, float32
+     and bf16, at Kanji's (batch 128: (B,24,24,16), (B,12,12,32)) and
+     YaleFaces' (batch 32: (B,32,32,8), (B,16,16,16)) conv outputs against
+     their plain versions, as in phase 7, the rows under ``"kanji"`` and
+     ``"yale"`` (the ``K2B_PATHS`` and ``BF16_PATHS`` cases at those
+     shapes assert the float4 and 16-byte paths); then Kanji (4096 + 512
+     glyphs, 64 classes, batch 128, 8 epochs), VideoAE (2000 + 400
+     frames, batch 100, 20 epochs) and YaleFaces (8 subjects x 16 + 4
+     images written as PNG files into the temporary directory, 32x32,
+     batch 32, 10 epochs; PIL decodes them) at their defaults, every
+     named stream reset to 1013, on the unit engine and on
+     ``FusedTrainer`` (Kanji and YaleFaces under ``fused_tail`` in float32
+     and in bf16): exactly 2 K2 and 2 K2b a train step and 2 K2 an eval
+     step under ``fused_tail`` (no simple bf16 kernel), no kernel
+     elsewhere, every loss finite, the first 8 train losses within rtol
+     1e-4 (5e-2 in bf16) of the port's CPU run on the same engine, the
+     finals beside the reference's CPU finals, images/s and wall time.
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
@@ -171,8 +191,9 @@ cases of each kernel named (``fused_block_fwd``, ``fused_block_bwd``,
 ``fused_block_bf16_bwd``, ``bias_relu_bf16_fwd``, ``bias_relu_bf16_bwd``),
 phases 7 and 8 for
 ``anchors``, phase 9 for ``units``, phase 10 for ``bf16``, phase 11
-for ``mnist_ae`` and ``kohonen`` (each alone or both) and phase 12 for
-``kinds``; it prints the ``kernels`` object and no ``ok`` line.
+for ``mnist_ae`` and ``kohonen`` (each alone or both), phase 12 for
+``kinds`` and phase 13 for ``samples``; it prints the ``kernels`` object
+and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -1057,7 +1078,8 @@ def check_k3b_paths(torch):
 #: shape, whether its planner must pick the float4 path, whether x lies
 #: off a 16-byte boundary).  C 1536 is past the old kernel's 1024 limit;
 #: its unaligned twin takes three channel chunks; CIFAR10's three
-#: convolutions have C 16 and 32 at a batch of 100
+#: convolutions have C 16 and 32 at a batch of 100, Kanji's C 16 and 32 at
+#: 128, YaleFaces' C 8 and 16 at 32
 K2B_PATHS = [
     ("float4, C 96", (4, 13, 13, 96), True, False),
     ("float4, C 256", (4, 13, 13, 256), True, False),
@@ -1071,6 +1093,10 @@ K2B_PATHS = [
     ("float4, CIFAR10's conv1, C 16", (100, 32, 32, 16), True, False),
     ("float4, CIFAR10's conv2, C 32", (100, 16, 16, 32), True, False),
     ("float4, CIFAR10's conv3, C 32", (100, 8, 8, 32), True, False),
+    ("float4, Kanji's conv1, C 16", (128, 24, 24, 16), True, False),
+    ("float4, Kanji's conv2, C 32", (128, 12, 12, 32), True, False),
+    ("float4, YaleFaces' conv1, C 8", (32, 32, 32, 8), True, False),
+    ("float4, YaleFaces' conv2, C 16", (32, 16, 16, 16), True, False),
 ]
 
 
@@ -1422,7 +1448,18 @@ ANCHOR_BANDS = {
 ANCHOR_SEED = 1013
 ANCHOR_WORKFLOWS = {"mnist": "MnistWorkflow", "cifar": "CifarWorkflow",
                     "mnist_ae": "MnistAEWorkflow",
-                    "kohonen": "KohonenWorkflow"}
+                    "kohonen": "KohonenWorkflow", "kanji": "KanjiWorkflow",
+                    "video_ae": "VideoAEWorkflow",
+                    "yale_faces": "YaleFacesWorkflow"}
+
+
+def sample_workflow(sample, device=None):
+    """``sample``'s workflow class of ``ANCHOR_WORKFLOWS`` built on
+    ``device`` (the card by default)."""
+    import importlib
+
+    mod = importlib.import_module(f"znicz_torch.samples.{sample}")
+    return getattr(mod, ANCHOR_WORKFLOWS[sample])(device=device)
 #: the card's first STEP_CHECK train losses of each anchor run against the
 #: port's CPU run of them (plain twins), as |card - cpu| <= STEP_RTOL *
 #: |cpu|, the rtol the CPU parity tests hold the port's train steps to
@@ -1464,26 +1501,25 @@ ANCHOR_FINALS = {}
 
 
 def cpu_steps(sample, n):
-    """The first ``n`` train losses of ``sample``'s default run on the
-    CPU (the plain twins), seeded as the anchor runs are and under the
-    knobs set now."""
-    import importlib
-
+    """The first ``n`` train losses of ``sample``'s default run on
+    ``FusedTrainer`` on the CPU (the plain twins), epoch tails included,
+    seeded as the card's runs are and under the knobs set now; the run
+    stops once the Decision has seen ``n`` of them."""
     from znicz_torch.core import prng
-    from znicz_torch.loader.base import TRAIN
     from znicz_torch.parallel.fused import FusedTrainer
 
-    mod = importlib.import_module(f"znicz_torch.samples.{sample}")
     prng.reset(ANCHOR_SEED)
-    wf = getattr(mod, ANCHOR_WORKFLOWS[sample])(device="cpu")
-    trainer, ldr, losses = FusedTrainer(wf), wf.loader, []
-    while len(losses) < n:
-        ldr.run()
-        if ldr.minibatch_class == TRAIN and not ldr.last_minibatch:
-            loss, _, _ = trainer.train_step(ldr.minibatch_indices,
-                                            ldr.minibatch_size, len(losses))
-            losses.append(float(loss))
-    return losses
+    wf = sample_workflow(sample, "cpu")
+    d, run = wf.decision, wf.decision.run
+
+    def run_until():
+        run()
+        if len(d.train_losses) >= n:
+            d.complete.set(True)
+
+    d.run = run_until
+    FusedTrainer(wf).run()
+    return d.train_losses[:n]
 
 
 def anchors_phase(torch, card, trace_path=""):
@@ -1616,8 +1652,6 @@ def cpu_unit_steps(sample, n):
     port's unit engine on the CPU (the plain twins), seeded as the card's
     runs are and under the knobs set now; the graph is stopped once the
     Decision has seen ``n`` of them."""
-    import importlib
-
     from znicz_torch.core import prng
     from znicz_torch.core.units import TrivialUnit
 
@@ -1626,9 +1660,8 @@ def cpu_unit_steps(sample, n):
             if len(self.workflow.decision.train_losses) >= n:
                 self.workflow.stop()
 
-    mod = importlib.import_module(f"znicz_torch.samples.{sample}")
     prng.reset(ANCHOR_SEED)
-    wf = getattr(mod, ANCHOR_WORKFLOWS[sample])(device="cpu")
+    wf = sample_workflow(sample, "cpu")
     StopAfter(wf, name="stop_after").link_from(wf.decision)
     wf.run()
     return wf.decision.train_losses[:n]
@@ -1931,6 +1964,10 @@ _BF16_RELU_PATHS = [
         ("one row, C 256", (1, 1, 1, 256), 1.0, False, True),
         ("unaligned operand", (4, 9, 9, 64), 1.0, True, False),
         ("CIFAR10's conv1, C 16", (100, 32, 32, 16), 1.0, False, True),
+        ("Kanji's conv1, C 16", (128, 24, 24, 16), 1.0, False, True),
+        ("Kanji's conv2, C 32", (128, 12, 12, 32), 1.0, False, True),
+        ("YaleFaces' conv1, C 8", (32, 32, 32, 8), 1.0, False, True),
+        ("YaleFaces' conv2, C 16", (32, 16, 16, 16), 1.0, False, True),
         ("C 8, one unit", (4, 9, 9, 8), 1.0, False, True),
         ("C 24, an odd unit count", (4, 9, 9, 24), 1.0, False, True),
         ("C 8192, two chunks of units", (2, 5, 7, 8192), 1.0, False, True),
@@ -2482,14 +2519,15 @@ def bf16_phase(torch, card):
     return rows, runs
 
 
-def cifar_rows(torch, rows, shapes=CIFAR_SHAPES):
+def cifar_rows(torch, rows, shapes=CIFAR_SHAPES, tag="cifar",
+               batch=CIFAR_BATCH):
     """K2, K2b, K3 and K3b (or the kernels of ``shapes``) at CIFAR10's
-    shapes against their plain versions, as at AlexNet's; their times and
-    bounds (and a ring kernel's ``simple_ms``) go into each kernel's row
-    as ``"cifar"``."""
+    shapes (or at ``shapes`` and ``batch``) against their plain versions,
+    as at AlexNet's; their times and bounds (and a ring kernel's
+    ``simple_ms``) go into each kernel's row under ``tag``."""
     for name, row in check_kernels(torch, list(shapes), shapes,
-                                   CIFAR_BATCH).items():
-        rows.setdefault(name, {"name": name})["cifar"] = {
+                                   batch).items():
+        rows.setdefault(name, {"name": name})[tag] = {
             key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
                                       "host_us", "device_ms", "simple_ms",
@@ -2977,13 +3015,191 @@ def kinds_phase(torch, card):
     return runs
 
 
+# -- phase 13: Kanji, VideoAE, YaleFaces and the host runtime ----------------
+
+#: XorShift128P(1013)'s first 16 uniforms in [0, 1), and its shuffle of
+#: arange(1000) as int32 (the first 8 and the sha256 of its bytes): the
+#: values tests/test_torch_native.py pins on the CPU
+NATIVE_PINS = {
+    "seed": 1013,
+    "uniform": [
+        0.8475832343101501, 0.1285988837480545, 0.14996427297592163,
+        0.4142548143863678, 0.8048638105392456, 0.12118154764175415,
+        0.9533067941665649, 0.3582358658313751, 0.44586315751075745,
+        0.31895825266838074, 0.2598508894443512, 0.7621958255767822,
+        0.7675018310546875, 0.9624818563461304, 0.45829910039901733,
+        0.37678441405296326],
+    "shuffle_head": [134, 720, 975, 392, 259, 467, 339, 25],
+    "shuffle_sha256":
+        "a19974db28f8eb1626ca826d07f4ebae770872d575a51a9374b22af9a788e582"}
+#: the reference's finals at seed 1013 on the CPU, unit engine, defaults
+#: (``python -m znicz_tpu <sample>``'s last epoch line)
+SAMPLE_REF_FINALS = {
+    "kanji": {"valid_err_pct": 0.0, "final_train_loss": 0.00220895},
+    "video_ae": {"final_train_mse": 0.40523, "valid_mse": 0.521656},
+    "yale_faces": {"valid_err_pct": 59.375, "final_train_loss": 1.7338},
+}
+#: K2 and K2b at Kanji's (batch 128) and YaleFaces' (batch 32) conv
+#: outputs: tag -> (batch, {layer: (plane, channels)})
+SAMPLE_SHAPES = {"kanji": (128, {"conv1": (24, 16), "conv2": (12, 32)}),
+                 "yale": (32, {"conv1": (32, 8), "conv2": (16, 16)})}
+_TAIL = {"bias_relu_fwd": (2, 2), "bias_relu_bwd": (2, 0)}
+_TAIL_BF16 = {"bias_relu_bf16_fwd": (2, 2), "bias_relu_bf16_bwd": (2, 0)}
+_BF16 = {"compute_dtype": "bf16", "fused_tail": True}
+#: phase 13's runs: label -> (sample, on FusedTrainer, knobs, {kernel:
+#: (launches per train step, per eval step)}); every kernel not named
+#: launches 0 times.  Kanji's and YaleFaces' two convolutions take K2/K2b
+#: under ``fused_tail``; VideoAE's two products reach no kernel
+SAMPLE_RUNS = {
+    "kanji:units": ("kanji", False, {}, {}),
+    "kanji:fused_tail": ("kanji", True, {"fused_tail": True}, _TAIL),
+    "kanji:bf16:fused_tail": ("kanji", True, _BF16, _TAIL_BF16),
+    "video_ae:units": ("video_ae", False, {}, {}),
+    "video_ae:fused": ("video_ae", True, {}, {}),
+    "yale_faces:units": ("yale_faces", False, {}, {}),
+    "yale_faces:fused_tail": ("yale_faces", True, {"fused_tail": True},
+                              _TAIL),
+    "yale_faces:bf16:fused_tail": ("yale_faces", True, _BF16, _TAIL_BF16),
+}
+
+
+def native_check(card):
+    """The host runtime built with g++ from ``znicz_torch/csrc/host``:
+    XorShift128P(1013)'s draws against :data:`NATIVE_PINS`."""
+    import hashlib
+
+    from znicz_torch import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    built = time.perf_counter() - t0
+    u = np.zeros(16, np.float32)
+    native.XorShift128P(NATIVE_PINS["seed"]).fill_uniform(u, 0.0, 1.0)
+    p = np.arange(1000, dtype=np.int32)
+    native.XorShift128P(NATIVE_PINS["seed"]).shuffle(p)
+    digest = hashlib.sha256(p.tobytes()).hexdigest()
+    ok = ([float(v) for v in u] == NATIVE_PINS["uniform"]
+          and p[:8].tolist() == NATIVE_PINS["shuffle_head"]
+          and digest == NATIVE_PINS["shuffle_sha256"])
+    log(f"[samples:native] {card}: {path.name} built in {built:.2f}s; "
+        f"XorShift128P({NATIVE_PINS['seed']}) uniforms "
+        f"{[round(float(v), 6) for v in u[:4]]}..., shuffle of arange(1000) "
+        f"{p[:8].tolist()}... sha256 {digest[:16]}: the pinned values "
+        f"{ok}")
+    if not ok:
+        raise AssertionError("[samples:native] the host runtime's draws "
+                             "differ from the pinned ones")
+
+
+def sample_run(torch, card, label):
+    """One run of :data:`SAMPLE_RUNS` at the sample's defaults, every named
+    stream reset to ANCHOR_SEED: launches against the counts per step (no
+    simple bf16 kernel), every loss finite, the first STEP_CHECK train
+    losses within STEP_RTOL (BF16_LOSS_RTOL in bf16) of the port's CPU run
+    on the same engine.  Returns (finals, {kernel: launches})."""
+    from znicz_torch.__main__ import finals as sample_finals
+    from znicz_torch.samples import train
+
+    sample, fused, knobs, expect = SAMPLE_RUNS[label]
+    ctrs = counters()
+    reset = set_knobs(knobs)
+    try:
+        from znicz_torch.core import prng
+
+        prng.reset(ANCHOR_SEED)
+        wf = sample_workflow(sample)
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+        for name in BF16_VEC:
+            ctrs[name].simple_launches = 0
+        t0 = time.perf_counter()
+        train(wf, sample, fused=fused)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in ctrs.items()}
+        simple = {name: ctrs[name].simple_launches for name in BF16_VEC}
+        cpu = (cpu_steps if fused else cpu_unit_steps)(sample, STEP_CHECK)
+    finally:
+        reset()
+    d, st = wf.decision, wf.train_stats
+    trainer = getattr(wf, "trainer", None)
+    n_train, n_eval = ((trainer.stats["train_steps"],
+                        trainer.stats["eval_steps"]) if fused
+                       else (st["train_steps"], 0))
+    losses = list(d.train_losses)
+    steps = losses[:STEP_CHECK]
+    tol = BF16_LOSS_RTOL if "bf16" in label else STEP_RTOL
+    step_err = max(abs(a - b) / abs(b) for a, b in zip(steps, cpu))
+    fin = sample_finals(sample, wf)
+    log(f"[samples:{label}] {card}: {json.dumps(fin)} (the reference's CPU "
+        f"{json.dumps(SAMPLE_REF_FINALS[sample])}); {n_train} train steps"
+        + (f" + {n_eval} eval steps" if fused else " (updates)")
+        + f" on {wf.device}; run() {wall:.2f}s, images/s="
+        f"{st['img_per_sec']:.1f} (warm {st['warm_img_per_sec']:.1f}); "
+        f"first {STEP_CHECK} train losses vs the port on the CPU: max rel "
+        f"{step_err:.3e} (tol {tol:g}); launches="
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if len(steps) != STEP_CHECK or len(cpu) != STEP_CHECK:
+        raise AssertionError(f"[samples:{label}] {len(steps)} steps on the "
+                             f"card, {len(cpu)} on the CPU")
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"[samples:{label}] non-finite loss")
+    if any(simple.values()):                    # C 8, 16 and 32
+        raise AssertionError(f"[samples:{label}] a simple bf16 kernel ran: "
+                             f"{simple}")
+    for name in ctrs:
+        per_train, per_eval = expect.get(name, (0, 0))
+        want = per_train * n_train + per_eval * n_eval
+        if launches[name] != want:
+            raise AssertionError(
+                f"[samples:{label}] {name}: {launches[name]} launches for "
+                f"{n_train} train + {n_eval} eval steps, expected {want}")
+    if step_err > tol:
+        raise AssertionError(f"[samples:{label}] the card leaves the CPU's "
+                             f"first {STEP_CHECK} steps: {step_err:.3e}")
+    del wf
+    torch.cuda.empty_cache()
+    return fin, launches
+
+
+def samples_phase(torch, card, rows):
+    """Phase 13: the host runtime; K2/K2b (float32 and bf16) at Kanji's and
+    YaleFaces' shapes, their rows under ``"kanji"`` and ``"yale"``; then
+    every run of :data:`SAMPLE_RUNS`, YaleFaces from PNG files written
+    into the temporary directory.  Returns {run: {kernel: launches}}."""
+    from znicz_torch.core.config import root
+
+    native_check(card)
+    names = ("bias_relu_fwd", "bias_relu_bwd", "bias_relu_bf16_fwd",
+             "bias_relu_bf16_bwd")
+    for tag, (batch, layers) in SAMPLE_SHAPES.items():
+        cifar_rows(torch, rows, {name: layers for name in names}, tag, batch)
+    torch.cuda.empty_cache()
+    base = os.path.join(root.common.dirs.snapshots, "yale_faces_data")
+    root.yale_faces.loader.data_dir = base
+    runs, finals = {}, {}
+    for label in SAMPLE_RUNS:
+        finals[label], runs[label] = sample_run(torch, card, label)
+        if label == "yale_faces:units":
+            pngs = sum(len(files) for _, _, files in os.walk(base))
+            log(f"[samples:yale_faces] {pngs} PNG files under {base} "
+                f"(decoded by FullBatchFileImageLoader)")
+    for sample in SAMPLE_REF_FINALS:
+        log(f"[samples:{sample}] finals "
+            + json.dumps({k: v for k, v in finals.items()
+                          if k.startswith(sample + ":")})
+            + f"; the reference's CPU {json.dumps(SAMPLE_REF_FINALS[sample])}")
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
                     help="comma-separated kernels: run phases 1-2 for them "
                          "alone; 'anchors': phases 7-8; 'units': phase 9; "
                          "'bf16': phase 10; 'mnist_ae', 'kohonen': phase "
-                         "11 for that sample; 'kinds': phase 12")
+                         "11 for that sample; 'kinds': phase 12; "
+                         "'samples': phase 13")
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -3046,9 +3262,11 @@ def run_phases(torch, args) -> int:
         names = args.only.split(",")
         anchors, units = "anchors" in names, "units" in names
         bf16, kinds = "bf16" in names, "kinds" in names
+        samples = "samples" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
-                 ("anchors", "units", "bf16", "kinds", *AE_SOM_RUNS)]
+                 ("anchors", "units", "bf16", "kinds", "samples",
+                  *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -3096,6 +3314,12 @@ def run_phases(torch, args) -> int:
                     if count:
                         rows.setdefault(name, {"name": name}).setdefault(
                             "launches_by_path", {})[f"kinds:{label}"] = count
+        if samples:
+            for label, launches in samples_phase(torch, card, rows).items():
+                for name, count in launches.items():
+                    if count:
+                        rows[name].setdefault("launches_by_path", {})[
+                            f"samples:{label}"] = count
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -3236,6 +3460,15 @@ def run_phases(torch, args) -> int:
                 by_path[name][f"kinds:{label}"] = count
 
     lap("phase 12")
+
+    # -- phase 13: Kanji, VideoAE, YaleFaces and the host runtime -----------
+    for label, launches in samples_phase(torch, card, rows).items():
+        for name, count in launches.items():
+            if SAMPLE_RUNS[label][3].get(name):
+                by_path[name][f"samples:{label}"] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 13")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

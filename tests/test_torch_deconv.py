@@ -562,18 +562,20 @@ def test_mse_standard_workflow_matches_reference(tmp_path):
     (``EvaluatorMSE`` on the loader's ``minibatch_targets``,
     ``DecisionMSE``) on a ``FullBatchLoaderMSE``, trained 2 epochs on the
     unit engine of each package from seed 1013: every train loss, the
-    epoch metrics and the final parameters within ``STEP_TOL``.  Asked
-    for the fused trainer, the port refuses the MSE loss (not ported)
-    and the error propagates; a ``depooling`` layer needs its pooling
-    unit, which a layer list cannot hold, in both packages."""
+    epoch metrics and the final parameters within ``STEP_TOL``.  The
+    graph is untied, so ``engine.train(fused=True)`` trains it on the
+    port's ``FusedTrainer`` with the MSE head, within ``STEP_TOL`` of the
+    reference's fused run from the same seed; a ``depooling`` layer
+    needs its pooling unit, which a layer list cannot hold, in both
+    packages."""
     from znicz_torch import engine
     from znicz_torch.core import prng as tprng
     from znicz_torch.core.config import root as troot
-    from znicz_torch.parallel.fused import FusedUnsupportedError
     from znicz_torch.standard_workflow import StandardWorkflow as TWorkflow
     from znicz_torch.weights import params_to_numpy
     from znicz_tpu.core import prng as jprng
     from znicz_tpu.core.config import root as jroot
+    from znicz_tpu.engine import train as jtrain
     from znicz_tpu.standard_workflow import StandardWorkflow as JWorkflow
 
     kw = {"loss_function": "mse", "decision_config": {"max_epochs": 2},
@@ -612,9 +614,29 @@ def test_mse_standard_workflow_matches_reference(tmp_path):
         for k, v in leaves.items():
             np.testing.assert_allclose(got[name][k], v,
                                        err_msg=f"{name}.{k}", **STEP_TOL)
-    with pytest.raises(ValueError, match="softmax") as exc:
-        engine.train(twf, fused=True)
-    assert exc.type is not FusedUnsupportedError
+    jprng.reset(1013)
+    jwf = JWorkflow(name="MseAE", loader=_mse_loader("znicz_tpu"),
+                    layers=MSE_LAYERS, **kw)
+    jwf.initialize(device=None)
+    j_losses = _record_train_losses(jwf.decision)
+    jroot.common.engine.fused = True
+    try:
+        jtrain(jwf)
+    finally:
+        jroot.common.engine.fused = False
+    tprng.reset(1013)
+    twf = TWorkflow(MSE_LAYERS, device="cpu", name="MseAE",
+                    loader=_mse_loader("znicz_torch"), **kw)
+    engine.train(twf, fused=True)
+    assert twf.trainer.loss_kind == "mse"
+    assert len(twf.decision.train_losses) == len(j_losses) == 4
+    np.testing.assert_allclose(twf.decision.train_losses, j_losses,
+                               **STEP_TOL)
+    got = params_to_numpy(twf)
+    for f in jwf.forwards:
+        for k, a in f.params().items():
+            np.testing.assert_allclose(got[f.name][k], np.array(a.map_read()),
+                                       err_msg=f"{f.name}.{k}", **STEP_TOL)
     depool = [MSE_LAYERS[0], MSE_LAYERS[1], {"type": "depooling"}]
     with pytest.raises(AssertionError, match="pooling_from"):
         JWorkflow(name="Depool", loader=_mse_loader("znicz_tpu"),

@@ -1,5 +1,7 @@
 """The port stands alone: no file of ``znicz_torch/`` and no line of
-``chip_smoke.py`` imports JAX or the JAX package; the port serves a batch
+``chip_smoke.py`` imports JAX or the JAX package, or names the
+reference's ``native/`` directory (the host runtime is built from the
+port's own copy of its source); the port serves a batch
 and trains (``python -m znicz_torch alexnet``'s ``main``) in a process
 where ``jax`` was never imported; and an entry point asked for the card
 on a machine without one raises instead of dropping to the CPU."""
@@ -42,7 +44,8 @@ def _imported_names(tree):
 def test_no_port_file_imports_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 15
-    for sample in ("alexnet", "mnist", "cifar"):
+    for sample in ("alexnet", "mnist", "cifar", "kanji", "video_ae",
+                   "yale_faces"):
         assert REPO / "znicz_torch" / "samples" / f"{sample}.py" in files
     offenders = []
     for path in files:
@@ -51,6 +54,33 @@ def test_no_port_file_imports_jax_or_the_reference():
             if name.split(".")[0] in FORBIDDEN:
                 offenders.append(f"{path.relative_to(REPO)}: {name}")
     assert not offenders, offenders
+
+
+def _native_dir_refs(tree):
+    """String constants of ``tree`` that name a ``native`` directory."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            parts = node.value.replace("\\", "/").split("/")
+            if "native" in parts:
+                yield node.value
+
+
+def test_no_port_file_reads_the_reference_native_dir():
+    from znicz_torch import native
+
+    assert native.SOURCE.is_relative_to(REPO / "znicz_torch" / "csrc")
+    assert native.SOURCE.is_file()
+    offenders = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        offenders += [f"{path.relative_to(REPO)}: {s!r}"
+                      for s in _native_dir_refs(tree)]
+    assert not offenders, offenders
+    tree = ast.parse("p = os.path.join(root, 'native', 'x.cpp')\n"
+                     "q = 'native/znicz_native.cpp'\n"
+                     "r = 'csrc/host/znicz_native.cpp'\n")
+    assert sorted(_native_dir_refs(tree)) == ["native",
+                                              "native/znicz_native.cpp"]
 
 
 def test_the_scan_sees_a_forbidden_import():
@@ -139,18 +169,23 @@ def test_training_entry_points_raise_without_a_card(monkeypatch):
     assert torch.backends.cudnn.deterministic
 
 
-@pytest.mark.parametrize("sample,cls", [("mnist", "MnistWorkflow"),
-                                        ("cifar", "CifarWorkflow")])
-def test_sample_entry_points_raise_without_a_card(sample, cls, monkeypatch):
+@pytest.mark.parametrize("sample,cls", [
+    ("mnist", "MnistWorkflow"), ("cifar", "CifarWorkflow"),
+    ("kanji", "KanjiWorkflow"), ("video_ae", "VideoAEWorkflow"),
+    ("yale_faces", "YaleFacesWorkflow")])
+def test_sample_entry_points_raise_without_a_card(sample, cls, monkeypatch,
+                                                  tmp_path):
     import importlib
 
     from znicz_torch.__main__ import main
 
     mod = importlib.import_module(f"znicz_torch.samples.{sample}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.run()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(mod, cls)()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([sample])
+    assert not list(tmp_path.iterdir())         # nothing written first

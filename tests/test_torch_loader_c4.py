@@ -11,10 +11,11 @@ now reads or refuses, against the reference on the CPU:
     the reference's index for index (after ``tests/test_loader.py:135``);
   - a normalizer's state round-trips through a port snapshot, and a
     reference snapshot's restores into the port;
-  - ``Loader(native_shuffle=True)`` and ``Snapshotter`` with another
-    ``compression``, ``format`` or ``sharded=True`` raise
-    ``NotImplementedError`` naming their ROADMAP item, and the
-    reference's defaults are accepted.
+  - ``Loader(native_shuffle=...)``: None and False shuffle with numpy,
+    True with the host runtime, each in the reference's order;
+  - ``Snapshotter`` with another ``compression``, ``format`` or
+    ``sharded=True`` raises ``NotImplementedError`` naming its ROADMAP
+    item, and the reference's defaults are accepted.
 """
 
 import numpy as np
@@ -240,17 +241,33 @@ def test_reference_normalizer_snapshot_restores_in_the_port(tmp_path):
     assert wf.loader.normalizer.interval == (-2.0, 3.0)
 
 
-@pytest.mark.parametrize("value,refused", [
+@pytest.mark.parametrize("value,native", [
     (None, False), (False, False), (True, True)])
-def test_native_shuffle_is_refused(value, refused):
+def test_native_shuffle_is_refused(value, native):
+    """``native_shuffle`` is ported: None and False shuffle with numpy's
+    ``loader`` stream, True with the host runtime's xorshift128+, each
+    giving the reference's order."""
+    from znicz_torch.core import prng as tprng
     from znicz_torch.loader.fullbatch import FullBatchLoader
+    from znicz_tpu.core import prng as jprng
+    from znicz_tpu.loader.fullbatch import FullBatchLoader as JLoader
 
-    if refused:
-        with pytest.raises(NotImplementedError, match=r"native_shuffle.*"
-                           r"ROADMAP queue A\.9"):
-            FullBatchLoader(native_shuffle=value)
-    else:
-        assert FullBatchLoader(native_shuffle=value).shuffle is True
+    data = _data(n=20).reshape(20, -1)
+    tprng.reset(1013)
+    tl = FullBatchLoader(minibatch_size=5, native_shuffle=value)
+    tl.original_data, tl.class_lengths = data.copy(), [0, 5, 15]
+    tl.initialize("cpu")
+    jprng.reset(1013)
+    jl = JLoader(name="loader", minibatch_size=5, native_shuffle=value)
+    jl.original_data.mem, jl.class_lengths = data.copy(), [0, 5, 15]
+    jl.initialize(device=None)
+    assert tl.shuffle is True and tl._use_native_shuffle() is native
+    for _ in range(8):                          # two epochs
+        tl.run()
+        jl.run()
+        np.testing.assert_array_equal(tl.minibatch_indices,
+                                      jl.minibatch_indices.mem)
+    assert (tl._native_rng is not None) is native
 
 
 @pytest.mark.parametrize("key,value,refused", [

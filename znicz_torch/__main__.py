@@ -1,7 +1,8 @@
 """Train a sample workflow (port of the sample-run path of
 ``znicz_tpu/launcher.py``):
 
-    python -m znicz_torch {alexnet,mnist,cifar,mnist_ae,kohonen,wine}
+    python -m znicz_torch {alexnet,mnist,cifar,mnist_ae,kohonen,wine,
+                           kanji,video_ae,yale_faces}
                           [root.x.y=value ...]
                           [--device cpu] [--seed N] [--fused]
                           [--snapshot PATH]
@@ -9,16 +10,19 @@
 Dotted overrides are applied to the port's config tree before the sample
 module is imported, so its defaults do not clobber them.  The sample's
 ``run(device)`` trains on ``cuda:0`` unless ``--device`` names another
-device; without a GPU it raises.  MNIST, CIFAR10 and Wine train on the
-unit engine unless ``--fused`` (``root.common.engine.fused``) asks for
-``FusedTrainer``; AlexNet trains on ``FusedTrainer``, as the reference's
-sample does; MnistAE (tied weights) and Kohonen (no GD chain) train on
-the unit engine always.  ``--snapshot`` resumes a sample that takes one
-(MNIST, CIFAR10, MnistAE, Wine) from a snapshot file.  The last line of the
-output is one JSON object with the run's finals under the names
+device; without a GPU it raises.  MNIST, CIFAR10, Wine, Kanji, VideoAE
+and YaleFaces train on the unit engine unless ``--fused``
+(``root.common.engine.fused``) asks for ``FusedTrainer``; AlexNet trains
+on ``FusedTrainer``, as the reference's sample does; MnistAE (tied
+weights) and Kohonen (no GD chain) train on the unit engine always.
+YaleFaces writes its PNG tree under ``root.yale_faces.loader.data_dir``
+first, unless it is there.  ``--snapshot`` resumes a sample that takes
+one (all but AlexNet and Kohonen) from a snapshot file.  The last line of
+the output is one JSON object with the run's finals under the names
 ``bench.py`` gives them: ``final_train_loss`` and ``valid_err_pct`` for
-the classifiers, ``final_train_mse`` and ``valid_mse`` for MnistAE,
-``final_qerror`` and ``first_qerror`` for Kohonen; ``compute_dtype`` is
+the classifiers, ``final_train_mse`` and ``valid_mse`` for the
+autoencoders (MnistAE, VideoAE), ``final_qerror`` and ``first_qerror``
+for Kohonen; ``compute_dtype`` is
 the dtype the train steps computed in.  The precision knobs are dotted
 overrides, as in the reference: ``root.common.engine.compute_dtype=bf16``
 (or ``precision``), ``state_dtype=bfloat16`` and
@@ -37,7 +41,10 @@ import sys
 from znicz_torch.core import prng
 from znicz_torch.core.config import apply_overrides, root
 
-SAMPLES = ("alexnet", "mnist", "cifar", "mnist_ae", "kohonen", "wine")
+SAMPLES = ("alexnet", "mnist", "cifar", "mnist_ae", "kohonen", "wine",
+           "kanji", "video_ae", "yale_faces")
+#: the samples trained on an MSE loss, whose finals are mean squared errors
+AUTOENCODERS = ("mnist_ae", "video_ae")
 
 
 def finals(sample: str, wf) -> dict:
@@ -48,7 +55,7 @@ def finals(sample: str, wf) -> dict:
                 "final_qerror": d.epoch_qerror[-1],
                 "first_qerror": d.epoch_qerror[0]}
     train, valid = d.epoch_metrics[2] or {}, d.epoch_metrics[1] or {}
-    if sample == "mnist_ae":
+    if sample in AUTOENCODERS:
         return {"epochs": int(d.epoch_number) + 1,
                 "final_train_mse": train.get("loss"),
                 "valid_mse": valid.get("loss")}

@@ -176,6 +176,7 @@ ENGINE_DEFAULTS = {
     "fused": False,               # FusedTrainer instead of the unit engine
     "pool_bwd": "sas",            # "mask": ties share a max pool's gradient
     "snapshot_min_interval_s": 0.0,   # least seconds between best saves
+    "native_shuffle": False,      # the host runtime's xorshift128+ shuffle
 }
 
 #: The reference's other ``root.common.engine.*`` knobs
@@ -191,8 +192,7 @@ UNPORTED_ENGINE_KNOBS = {
         ("scan_chunk", 8), ("pipeline_depth", 1), ("async_snapshot", True),
         ("snapshot_format", "pickle"), ("snapshot_sharded", False),
         ("prefetch_segments", 2), ("decode_workers", None),
-        ("stream_budget_mb", None), ("native_shuffle", False),
-        ("async_staging", True), ("staging_donate", True),
+        ("stream_budget_mb", None), ("async_staging", True), ("staging_donate", True),
         ("xla_latency_hiding", False), ("train_shard", False),
         ("mesh.data", 1), ("mesh.model", 1))},
     # A.7, the distributed training plane

@@ -8,7 +8,11 @@
     index row is padded with its last valid index;
   - only the TRAIN segment is reshuffled, once per epoch, from the seeded
     ``loader`` prng stream — the reference's stream, so the order is the
-    reference's bit for bit;
+    reference's bit for bit; with ``native_shuffle`` (the keyword, or
+    ``root.common.engine.native_shuffle`` when it is None) by the host
+    runtime's xorshift128+ Fisher-Yates shuffle instead
+    (``native.XorShift128P``), seeded once from the ``loader`` stream's
+    seed, as the reference seeds it;
   - with ``balance_classes`` each epoch's TRAIN segment is then
     resampled from the ``loader.balance`` stream so that every label
     gets an equal share of the slots (:meth:`Loader._balance_train`), for
@@ -22,8 +26,9 @@ Each ``run()`` advances to the next minibatch and, unless
 device (:meth:`fill_minibatch`).  ``minibatch_indices`` stays a numpy
 row.
 
-The reference's ``native_shuffle`` (its C++ xorshift128+ shuffler) is not
-ported: set to True it raises ``NotImplementedError`` (ROADMAP A.9).
+Unlike the reference, which shuffles with numpy when the host runtime
+does not build, a ``native_shuffle`` loader raises ``RuntimeError``
+then: the training order would otherwise change without a word.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from typing import List, Optional
 import numpy as np
 
 from znicz_torch.core import prng
-from znicz_torch.core.config import refuse_keyword
+from znicz_torch.core.config import root
 from znicz_torch.core.units import Unit
 from znicz_torch.memory import Array
 
@@ -46,11 +51,12 @@ class Loader(Unit):
                  balance_classes: bool = False, native_shuffle=None,
                  **kwargs):
         super().__init__(workflow=workflow, name=name, **kwargs)
-        refuse_keyword("Loader", "native_shuffle", native_shuffle,
-                       (None, False), "A.9")
         self.max_minibatch_size = int(minibatch_size)
         self.shuffle = bool(shuffle)
         self.balance_classes = bool(balance_classes)
+        #: True/False, or None to follow root.common.engine.native_shuffle
+        self.native_shuffle = native_shuffle
+        self._native_rng = None
         self.class_lengths: List[int] = [0, 0, 0]
         self.minibatch_data = Array()
         self.minibatch_labels = Array()
@@ -108,12 +114,27 @@ class Loader(Unit):
             arr.initialize(device)
         self._shuffle_train()
 
+    def _use_native_shuffle(self) -> bool:
+        if self.native_shuffle is not None:
+            return bool(self.native_shuffle)
+        return bool(root.common.engine.get("native_shuffle", False))
+
     def _shuffle_train(self) -> None:
         start = self.class_end_offsets[VALID]
         if self.shuffle:
             seg = self._shuffled_indices[start:]
-            perm = prng.get("loader").permutation(len(seg))
-            self._shuffled_indices[start:] = seg[perm]
+            if self._use_native_shuffle():
+                if self._native_rng is None:
+                    from znicz_torch import native
+
+                    self._native_rng = native.XorShift128P(
+                        prng.get("loader").seed)
+                seg = np.ascontiguousarray(seg)
+                self._native_rng.shuffle(seg)
+                self._shuffled_indices[start:] = seg
+            else:
+                perm = prng.get("loader").permutation(len(seg))
+                self._shuffled_indices[start:] = seg[perm]
         self._balance_train(start)
 
     def train_labels(self):

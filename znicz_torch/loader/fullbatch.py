@@ -10,7 +10,8 @@ shape before the first fill;
 :meth:`gather` takes a minibatch's rows there, as the reference's
 ``jnp.take`` does, and :meth:`fill_minibatch` puts them in the
 minibatch Arrays.  :class:`FullBatchLoaderMSE` adds per-sample regression
-targets (``original_targets``), gathered into ``minibatch_targets``; an
+targets (``original_targets``), gathered into ``minibatch_targets`` (and
+by :meth:`FullBatchLoaderMSE.gather_targets` for the fused trainer); an
 autoencoder's are its input data (``targets_from_data``).
 
 A ``normalizer`` (``znicz_torch.normalization``) is fitted on the TRAIN
@@ -119,11 +120,16 @@ class FullBatchLoaderMSE(FullBatchLoader):
                                                  np.float32))
                         .to(self.data.device))
 
+    def gather_targets(self, idx, rows: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """The target rows for the index row ``idx``: ``rows``, the data
+        rows just gathered for it, when the targets are the data."""
+        if self.targets is self.data and rows is not None:
+            return rows
+        idx = torch.as_tensor(np.asarray(idx, np.int64))
+        return self.targets.index_select(0, idx.to(self.targets.device))
+
     def fill_minibatch(self) -> None:
         super().fill_minibatch()
-        if self.targets is self.data:       # the rows just gathered
-            self.minibatch_targets.devmem = self.minibatch_data.devmem
-            return
-        idx = torch.as_tensor(np.asarray(self.minibatch_indices, np.int64))
-        self.minibatch_targets.devmem = self.targets.index_select(
-            0, idx.to(self.targets.device))
+        self.minibatch_targets.devmem = self.gather_targets(
+            self.minibatch_indices, self.minibatch_data.devmem)

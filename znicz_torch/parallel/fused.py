@@ -14,7 +14,12 @@ plus the bias+ReLU kernels (K2, K2b), each All2AllStrictRELU(+dropout)
 as the raw product plus the FC epilogue, and the loss as the fused
 softmax-CE head.  ``pallas_lrn`` sends the LRN modules through K3/K3b.
 A softmax head emits LOGITS.  The plans are read from the knobs on every
-call.
+call.  Under any evaluator but ``EvaluatorSoftmax`` the loss is the
+reference's MSE head: half the sum of squares of the last module's
+output less the loader's targets (``FullBatchLoaderMSE.gather_targets``)
+over the valid rows, over their count, in float32 and never through the
+fused softmax head; the Decision gets n_err and a confusion only if it
+has them (``DecisionMSE`` has not).
 
 A train step is one autograd pass over the loss, then ``sgd_update`` per
 parameter with the bias/weight hyperparameter split, as the reference's
@@ -143,10 +148,13 @@ class FusedTrainer:
                         f"({f.name}.{k} shares {seen[id(p)]})")
                 seen[id(p)] = f"{f.name}.{k}"
         ev = getattr(workflow, "evaluator", None)
-        if ev is not None and not isinstance(ev, EvaluatorSoftmax):
-            raise ValueError("only the softmax loss is ported")
+        #: the loss head: softmax-CE for a softmax evaluator, else the
+        #: half sum of squares against the loader's targets
+        self.loss_kind = ("mse" if ev is not None
+                          and not isinstance(ev, EvaluatorSoftmax)
+                          else "softmax")
         self.compute_confusion = (bool(ev.compute_confusion)
-                                  if ev is not None and ev.confusion_explicit
+                                  if getattr(ev, "confusion_explicit", False)
                                   else True)
         self._decode_params = (float(getattr(workflow, "scale", 1.0)),
                                float(getattr(workflow, "shift", 0.0)))
@@ -320,17 +328,29 @@ class FusedTrainer:
     def loss_and_metrics(self, data, target, batch_size: int, step: int,
                          train: bool):
         """``(loss, (loss, n_err, confusion))`` of a minibatch whose first
-        ``batch_size`` rows are valid; the loss is the mean softmax-CE of
-        those rows, through the fused head under ``fused_tail``.  The
-        forward runs in the compute dtype, the loss in float32."""
+        ``batch_size`` rows are valid.  A softmax head's loss is the mean
+        softmax-CE of those rows, through the fused head under
+        ``fused_tail``; an MSE head's is ``0.5 * sum((y - t)^2) / rows``
+        over them, with n_err 0 and a (1, 1) confusion.  The forward runs
+        in the compute dtype, the loss in float32."""
         cast = None if self.compute_dtype == torch.float32 else self._cast
         with self._compute_params():
             if cast is not None:
                 data = cast(data)
-            logits = self.forward_pass(data, train, step, cast).float()
-        n = logits.shape[0]
-        valid = torch.arange(n, device=logits.device) < batch_size
+            out = self.forward_pass(data, train, step, cast).float()
+        n = out.shape[0]
+        valid = torch.arange(n, device=out.device) < batch_size
         denom = max(int(batch_size), 1)
+        if self.loss_kind == "mse":
+            diff = (out.reshape(n, -1) - target.reshape(n, -1)) \
+                * valid[:, None]
+            loss = 0.5 * torch.sum(torch.square(diff)) / denom
+            return loss, (loss.detach(),
+                          torch.zeros((), dtype=torch.int64,
+                                      device=out.device),
+                          torch.zeros((1, 1), dtype=torch.int32,
+                                      device=out.device))
+        logits = out
         if bool(root.common.engine.get("fused_tail", False)):
             loss = fused_softmax_xent(logits, target, valid, denom)
         else:
@@ -344,7 +364,11 @@ class FusedTrainer:
         return loss, (loss.detach(), n_err, conf)
 
     def _minibatch(self, idx):
+        """(decoded data rows, target rows) of the index row ``idx``: the
+        labels for a softmax head, the loader's targets for an MSE one."""
         data, target = self.loader.gather(idx)
+        if self.loss_kind == "mse":
+            target = self.loader.gather_targets(idx, data)
         return self._decode(data), target
 
     def train_step(self, idx, batch_size: int, step: int):
@@ -390,8 +414,9 @@ class FusedTrainer:
         d.class_lengths = list(self.loader.class_lengths)
         d.minibatch_size = mb["size"]
         d.minibatch_loss = float(loss)
-        d.minibatch_n_err = int(n_err)
-        d.confusion_matrix = conf
+        if hasattr(d, "minibatch_n_err"):   # not DecisionMSE's
+            d.minibatch_n_err = int(n_err)
+            d.confusion_matrix = conf
         d.run()
 
     def _advance(self):

@@ -1,10 +1,11 @@
 """Sample models of the port: ``alexnet``, ``mnist``, ``cifar``,
-``mnist_ae``, ``kohonen`` and ``wine``, each with the reference sample's
-defaults and a ``run(device)`` that trains it as the reference's does:
-MNIST, CIFAR10 and Wine through ``engine.train`` (the unit graph unless
-``root.common.engine.fused``), AlexNet through ``FusedTrainer`` unless
-``run(fused=False)``, MnistAE and Kohonen on the unit graph, the only
-engine their graphs take."""
+``mnist_ae``, ``kohonen``, ``wine``, ``kanji``, ``video_ae`` and
+``yale_faces``, each with the reference sample's defaults and a
+``run(device)`` that trains it as the reference's does: MNIST, CIFAR10,
+Wine, Kanji, VideoAE and YaleFaces through ``engine.train`` (the unit
+graph unless ``root.common.engine.fused``), AlexNet through
+``FusedTrainer`` unless ``run(fused=False)``, MnistAE and Kohonen on the
+unit graph, the only engine their graphs take."""
 
 from __future__ import annotations
 
