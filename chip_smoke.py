@@ -173,7 +173,30 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      step under ``fused_tail`` (no simple bf16 kernel), no kernel
      elsewhere, every loss finite, the first 8 train losses within rtol
      1e-4 (5e-2 in bf16) of the port's CPU run on the same engine, the
-     finals beside the reference's CPU finals, images/s and wall time.
+     finals beside the reference's CPU finals, images/s and wall time;
+ 14. ``segments``, the segmented run (``FusedTrainer.run()``: segments of
+     up to ``scan_chunk`` steps, on the card each step a replay of a
+     captured CUDA graph) and the streaming path: full-width AlexNet
+     (1280 + 128 seeded 227x227 textures made on the card, uint8
+     resident and decoded in the step, batch 128, 1000 classes, 2 epochs:
+     a segment of 8, one of 1 and the tail an epoch) under ``fused`` in
+     float32 and in bf16, ``scan_chunk`` 8 against 1: losses, weights,
+     velocities and confusions bit-equal, the K1/K1b/K2/K2b launches
+     equal and 2/2/3/3 a train step with the replays counted, captured
+     and eager steps and images/s both ways; ``remat`` on against off,
+     bit-equal, with ``torch.cuda.max_memory_allocated`` of both; the same
+     rows host-staged (``stream_budget_mb`` 0: pinned segments copied
+     ahead on a copy stream by the ``DeviceStager``) against the resident
+     run, bit-equal, the stager's counts printed; 128 + 384 of the
+     textures written as PNG files and streamed through the
+     ``DecodePool`` for an epoch against the same rows resident,
+     bit-equal; CIFAR10 at its defaults under ``pallas_lrn`` +
+     ``fused_tail`` (K2/K2b/K3/K3b), ``scan_chunk`` 8 against 1
+     bit-equal, its finals in ``ANCHOR_BANDS`` under the ``DRIFTS`` rule,
+     its background snapshot against an in-line one of the same run
+     (arrays, loader, prng streams equal); phase 12's stochastic pooling
+     net at ``scan_chunk`` 8, uncaptured by rule, bit-equal to 1.  A
+     capture or replay error fails the run.
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
@@ -192,8 +215,8 @@ cases of each kernel named (``fused_block_fwd``, ``fused_block_bwd``,
 phases 7 and 8 for
 ``anchors``, phase 9 for ``units``, phase 10 for ``bf16``, phase 11
 for ``mnist_ae`` and ``kohonen`` (each alone or both), phase 12 for
-``kinds`` and phase 13 for ``samples``; it prints the ``kernels`` object
-and no ``ok`` line.
+``kinds``, phase 13 for ``samples`` and phase 14 for ``segments``; it
+prints the ``kernels`` object and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -396,12 +419,14 @@ BF16_KERNELS = ("fused_block_bf16_fwd", "bias_relu_bf16_fwd", "lrn_bf16_fwd",
 
 
 def counters():
-    """kernel name -> its wrapper (whose ``.launches`` counts it)."""
-    from znicz_torch import fused_block
-    from znicz_torch.ops import lrn
+    """kernel name -> its wrapper, whose ``.launches`` counts it: each call
+    that launches, and each replay of a captured step that holds it
+    (``znicz_torch/parallel/graphs.py`` adds a capture's launches per
+    replay)."""
+    from znicz_torch.parallel.graphs import counted
 
-    return {name: getattr(lrn if name.startswith("lrn") else fused_block,
-                          name) for name in KERNELS}
+    by_name = {fn.__name__: fn for fn in counted()}
+    return {name: by_name[name] for name in KERNELS}
 
 
 def _case(torch, name, x, b, gen, n, alpha, beta, k, pool):
@@ -3192,6 +3217,426 @@ def samples_phase(torch, card, rows):
     return runs
 
 
+# -- phase 14: the segmented run, CUDA graphs and the streaming path ---------
+
+#: phase 14's AlexNet: VALID and TRAIN rows of seeded textures (10 train
+#: minibatches an epoch: a segment of 8, one of 1 and the tail), epochs
+SEG_ROWS, SEG_EPOCHS = (128, 1280), 2
+#: the file-streamed run: VALID and TRAIN PNGs, 1 epoch
+SEG_FILE_ROWS = (128, 384)
+#: routing -> (knobs, {kernel: (launches a train step, an eval step)})
+SEG_ROUTINGS = {
+    "f32": (FUSED_KNOBS, TRAIN_ROUTINGS["fused"][1]),
+    "bf16": ({"compute_dtype": "bf16", **FUSED_KNOBS}, _BF16_FUSED_COUNTS),
+}
+SEG_CIFAR_KNOBS = {"pallas_lrn": True, "fused_tail": True}
+_SEG_UNSET = object()
+
+
+class engine_knobs:
+    """Set ``root.common.engine`` knobs within a ``with`` block and put
+    the old values back after it."""
+
+    def __init__(self, **knobs):
+        self.knobs, self.saved = knobs, []
+
+    def __enter__(self):
+        from znicz_torch.core.config import root
+
+        for key, val in self.knobs.items():
+            self.saved.append((key, root.common.engine.get(key, _SEG_UNSET)))
+            setattr(root.common.engine, key, val)
+
+    def __exit__(self, *exc):
+        from znicz_torch.core.config import root
+
+        for key, old in reversed(self.saved):
+            if old is _SEG_UNSET:
+                delattr(root.common.engine, key)
+            else:
+                setattr(root.common.engine, key, old)
+
+
+def seg_textures(torch, n, n_classes=1000):
+    """``n`` seeded 227x227x3 uint8 textures made on the card (15x15
+    noise upsampled bilinearly, half of it a tint of the image's class)
+    and their labels, on the host."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    labels = torch.randint(0, n_classes, (n,), generator=gen, device="cuda")
+    tint = torch.rand((n_classes, 3), generator=gen, device="cuda")
+    base = torch.rand((n, 3, 15, 15), generator=gen, device="cuda")
+    img = F.interpolate(base, size=(227, 227), mode="bilinear",
+                        align_corners=False).permute(0, 2, 3, 1)
+    img = 0.5 * img + 0.5 * tint[labels][:, None, None, :]
+    u8 = (img * 255.0).round().clamp(0, 255).to(torch.uint8).contiguous()
+    return u8.cpu().numpy(), labels.to(torch.int32).cpu().numpy()
+
+
+def seg_state(trainer):
+    """(losses, parameters, velocities, per-class confusions) of a run."""
+    d = trainer.decision
+    return (list(d.train_losses),
+            {n: {k: p.detach().clone() for k, p in leaves.items()}
+             for n, leaves in trainer.extract_params().items()},
+            {n: {k: v.clone() for k, v in leaves.items()}
+             for n, leaves in trainer.extract_velocities().items()},
+            [None if m is None or m.get("confusion") is None
+             else m["confusion"].clone() for m in d.epoch_metrics])
+
+
+def seg_differences(torch, a, b):
+    """Where two runs' states differ in a single bit: [] when nowhere."""
+    la, pa, va, ca = a
+    lb, pb, vb, cb = b
+    bad = [] if la == lb else ["losses"]
+    for what, ta, tb in (("params", pa, pb), ("velocities", va, vb)):
+        for name in ta:
+            for k in ta[name]:
+                if not torch.equal(ta[name][k], tb[name][k]):
+                    bad.append(f"{what}:{name}.{k}")
+    for klass, (x, y) in enumerate(zip(ca, cb)):
+        if (x is None) != (y is None) or (
+                x is not None and not torch.equal(x, y)):
+            bad.append(f"confusion:{klass}")
+    return bad
+
+
+def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
+            epochs=SEG_EPOCHS, remat=False):
+    """One ``FusedTrainer.run()`` of ``wf`` from ``start`` over
+    ``loader``, every named stream reset to SEED, under ``knobs``; the
+    launches held to ``expect`` (a train step recomputes its forward
+    under ``remat``).  Returns a record of the run."""
+    from znicz_torch.core import prng
+    from znicz_torch.decision import DecisionGD
+    from znicz_torch.parallel.fused import FusedTrainer
+
+    prng.reset(SEED)
+    loader.reset()
+    wf.loader = loader
+    with torch.no_grad():
+        for f in wf.forwards:
+            for k, p in FusedTrainer._params_of(f).items():
+                p.copy_(start[f.name][k])
+    for gd in wf.gds.values():
+        gd.velocities = {}
+    wf.decision = DecisionGD(max_epochs=epochs, fail_iterations=0)
+    ctrs = counters()
+    with engine_knobs(**knobs):
+        trainer = FusedTrainer(wf)
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+            if hasattr(fn, "simple_launches"):
+                fn.simple_launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in ctrs.items()}
+    simple = {name: fn.simple_launches for name, fn in ctrs.items()
+              if getattr(fn, "simple_launches", 0)}
+    st = trainer.stats
+    n_train, n_eval = st["train_steps"], st["eval_steps"]
+    log(f"[segments:{label}] {card}: scan_chunk {trainer.scan_chunk}, "
+        f"{n_train} train + {n_eval} eval steps, captured "
+        f"{st['captured_steps']} / eager {st['eager_steps']} (warm-ups "
+        f"{st['warmup_s']:.3f}s, captures {st['capture_s']:.3f}s of host "
+        f"time), segments {dict(sorted(trainer.segments.items()))}; run() "
+        f"{wall:.2f}s, "
+        f"images/s={st['img_per_sec']:.1f} (after the first interval of "
+        f"each kind {st['warm_img_per_sec']:.1f}); peak "
+        f"{peak / 2**30:.3f} GiB allocated; launches={launches}")
+    losses = list(trainer.train_losses)
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"[segments:{label}] non-finite loss: {losses}")
+    if simple:
+        raise AssertionError(f"[segments:{label}] simple kernels: {simple}")
+    if expect is not None:
+        for name, fn in ctrs.items():
+            per_train, per_eval = expect.get(name, (0, 0))
+            if remat and name.endswith("_fwd"):
+                per_train *= 2
+            want = per_train * n_train + per_eval * n_eval
+            if launches[name] != want:
+                raise AssertionError(
+                    f"[segments:{label}] {name}: {launches[name]} launches "
+                    f"for {n_train} train + {n_eval} eval steps, expected "
+                    f"{want}")
+    return {"state": seg_state(trainer), "launches": launches,
+            "stats": dict(st), "wall": wall, "peak": peak,
+            "trainer": trainer}
+
+
+def seg_same(torch, label, a, b, what):
+    bad = seg_differences(torch, a["state"], b["state"])
+    log(f"[segments:{label}] {what}: "
+        + ("bit-equal: losses, weights, velocities, confusions" if not bad
+           else f"DIFFER at {bad[:8]}"))
+    if bad:
+        raise AssertionError(f"[segments:{label}] {what} differ at {bad}")
+
+
+def seg_alexnet(torch, card, tmp):
+    """Phase 14's AlexNet runs: scan_chunk 8 (captured) against 1 in
+    float32 and bf16 under ``fused``, remat, the host-staged uint8 run and
+    the file-streamed run.  Returns {run: {kernel: launches}}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from znicz_torch.loader.streaming import (HostArraySource,
+                                              ImageFileSource,
+                                              StreamingLoader)
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.samples.alexnet import AlexNetWorkflow
+
+    t0 = time.perf_counter()
+    n_valid, n_train = SEG_ROWS
+    u8, labels = seg_textures(torch, n_valid + n_train)
+
+    def resident(rows, initialize=True):
+        ldr = StreamingLoader(source=HostArraySource(u8[:rows],
+                                                     labels[:rows]),
+                              class_lengths=[0, n_valid, rows - n_valid],
+                              minibatch_size=BATCH,
+                              device_budget_bytes=1 << 40)
+        if initialize:
+            ldr.initialize(device="cuda:0")
+        return ldr
+
+    main = resident(n_valid + n_train, initialize=False)   # the workflow's
+    wf = no_snapshots(AlexNetWorkflow(
+        sample_shape=(227, 227, 3), n_classes=1000, loader=main,
+        decision_config={"max_epochs": SEG_EPOCHS, "fail_iterations": 0}))
+    start = {f.name: {k: p.detach().clone()
+                      for k, p in FusedTrainer._params_of(f).items()}
+             for f in wf.forwards if f.has_weights}
+    log(f"[segments] AlexNet {n_train} + {n_valid} textures (uint8, "
+        f"resident, decoded in the step), batch {BATCH}, {SEG_EPOCHS} "
+        f"epochs; built in {time.perf_counter() - t0:.2f}s")
+    runs, out = {}, {}
+    for routing, (knobs, expect) in SEG_ROUTINGS.items():
+        for chunk in (8, 1):
+            label = f"{routing}:scan{chunk}"
+            runs[label] = seg_run(torch, card, label, wf, start, main,
+                                  {**knobs, "scan_chunk": chunk}, expect)
+        a, b = runs[f"{routing}:scan8"], runs[f"{routing}:scan1"]
+        if a["stats"]["captured_steps"] == 0 or \
+                b["stats"]["captured_steps"] != 0:
+            raise AssertionError(f"[segments:{routing}] captured steps "
+                                 f"{a['stats']['captured_steps']} / "
+                                 f"{b['stats']['captured_steps']}")
+        seg_same(torch, routing, a, b, "captured scan_chunk 8 vs 1")
+        if a["launches"] != b["launches"]:
+            raise AssertionError(f"[segments:{routing}] launches differ: "
+                                 f"{a['launches']} vs {b['launches']}")
+        log(f"[segments:{routing}] {card}: images/s captured "
+            f"{a['stats']['img_per_sec']:.1f} (warm "
+            f"{a['stats']['warm_img_per_sec']:.1f}) vs step at a time "
+            f"{b['stats']['img_per_sec']:.1f} (warm "
+            f"{b['stats']['warm_img_per_sec']:.1f})")
+    f32_knobs = SEG_ROUTINGS["f32"][0]
+    runs["f32:remat"] = seg_run(torch, card, "f32:remat", wf, start, main,
+                                {**f32_knobs, "remat": True},
+                                SEG_ROUTINGS["f32"][1], remat=True)
+    seg_same(torch, "f32:remat", runs["f32:remat"], runs["f32:scan8"],
+             "remat vs no remat")
+    log(f"[segments:f32:remat] {card}: max_memory_allocated "
+        f"{runs['f32:remat']['peak'] / 2**30:.3f} GiB with remat, "
+        f"{runs['f32:scan8']['peak'] / 2**30:.3f} GiB without")
+    # host-staged: the budget knob sends the same rows through pinned
+    # segments, copied ahead on the copy stream
+    with engine_knobs(stream_budget_mb=0):
+        staged = StreamingLoader(source=HostArraySource(u8, labels),
+                                 class_lengths=[0, n_valid, n_train],
+                                 minibatch_size=BATCH)
+        staged.initialize(device="cuda:0")
+    if staged.device_resident:
+        raise AssertionError("[segments:staged] the loader is resident")
+    runs["f32:staged"] = seg_run(torch, card, "f32:staged", wf, start,
+                                 staged, f32_knobs, SEG_ROUTINGS["f32"][1])
+    t = runs["f32:staged"]["trainer"]
+    log(f"[segments:f32:staged] {card}: staged segments "
+        f"{t.stats['staged_segments']}, stager {t.stager_stats}, host "
+        f"gathers {t.stats['stage_gather_s']:.3f}s, copies enqueued in "
+        f"{t.stats['stage_copy_s']:.3f}s, device buffers written again "
+        f"{t.staging_buffers.reused}")
+    if not t.stats["staged_segments"] or not t.stager_stats["stage_hits"]:
+        raise AssertionError("[segments:staged] nothing staged ahead")
+    seg_same(torch, "f32:staged", runs["f32:staged"], runs["f32:scan8"],
+             "host-staged vs resident")
+    # image files through the decode pool against the same rows resident
+    rows = sum(SEG_FILE_ROWS)
+    paths = [os.path.join(tmp, f"{i:04d}.png") for i in range(rows)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda i: Image.fromarray(u8[i]).save(
+            paths[i], compress_level=1), range(rows)))
+    log(f"[segments:files] {rows} PNGs of 227x227 written in "
+        f"{time.perf_counter() - t0:.2f}s")
+    files = StreamingLoader(
+        source=ImageFileSource(paths, labels[:rows], (227, 227)),
+        class_lengths=[0, *SEG_FILE_ROWS], minibatch_size=BATCH,
+        device_budget_bytes=0)
+    files.initialize(device="cuda:0")
+    runs["f32:files"] = seg_run(torch, card, "f32:files", wf, start, files,
+                                f32_knobs, SEG_ROUTINGS["f32"][1], epochs=1)
+    runs["f32:files_resident"] = seg_run(
+        torch, card, "f32:files_resident", wf, start, resident(rows),
+        f32_knobs, SEG_ROUTINGS["f32"][1], epochs=1)
+    pool = files.ingest_stats
+    log(f"[segments:files] {card}: decode pool "
+        f"{files.source.pool().workers} workers, {pool}; images/s files "
+        f"{runs['f32:files']['stats']['img_per_sec']:.1f} vs resident "
+        f"{runs['f32:files_resident']['stats']['img_per_sec']:.1f}")
+    if not pool["prefetch_hits"]:
+        raise AssertionError("[segments:files] no prefetched row")
+    seg_same(torch, "f32:files", runs["f32:files"],
+             runs["f32:files_resident"], "PNG files vs the rows resident")
+    wf.loader = main
+    for label, run in runs.items():
+        out[label] = run["launches"]
+    del runs, wf, main, staged, files
+    torch.cuda.empty_cache()
+    return out
+
+
+def seg_snapshot_differences(a, b):
+    bad = []
+    for group in ("units", "velocities"):
+        for name, leaves in a[group].items():
+            for k, x in leaves.items():
+                if not np.array_equal(x, b[group][name][k]):
+                    bad.append(f"{group}:{name}.{k}")
+    for key in ("epoch_number", "samples_served", "last_minibatch"):
+        if a["loader"][key] != b["loader"][key]:
+            bad.append(f"loader:{key}")
+    if not np.array_equal(a["loader"]["shuffled_indices"],
+                          b["loader"]["shuffled_indices"]):
+        bad.append("loader:shuffled_indices")
+    if repr(a["prng"]) != repr(b["prng"]):
+        bad.append("prng")
+    for key in ("epoch", "metric", "decision"):
+        if a[key] != b[key]:
+            bad.append(key)
+    return bad
+
+
+def seg_cifar(torch, card, tmp):
+    """CIFAR10 at its defaults under ``pallas_lrn`` + ``fused_tail``:
+    scan_chunk 8 (captured, snapshots in the background) against 1, and
+    against scan_chunk 8 with in-line snapshots."""
+    from znicz_torch.core import prng
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.snapshotter import Snapshotter
+
+    ctrs = counters()
+    expect = ANCHOR_RUNS["cifar:pallas_lrn"][3]
+    runs, out = {}, {}
+    for label, knobs in (("scan8", {"scan_chunk": 8}),
+                         ("scan1", {"scan_chunk": 1}),
+                         ("scan8:sync", {"scan_chunk": 8,
+                                         "async_snapshot": False})):
+        with engine_knobs(**SEG_CIFAR_KNOBS, **knobs):
+            prng.reset(ANCHOR_SEED)
+            wf = sample_workflow("cifar")
+            wf.snapshotter.directory = os.path.join(tmp, label)
+            trainer = FusedTrainer(wf)
+            for fn in ctrs.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            trainer.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        d, st = wf.decision, trainer.stats
+        launches = {name: fn.launches for name, fn in ctrs.items()}
+        n_train, n_eval = st["train_steps"], st["eval_steps"]
+        for name in ctrs:
+            per_train, per_eval = expect.get(name, (0, 0))
+            if launches[name] != per_train * n_train + per_eval * n_eval:
+                raise AssertionError(
+                    f"[segments:cifar:{label}] {name}: {launches[name]} "
+                    f"launches for {n_train} + {n_eval} steps")
+        finals = {"final_train_loss": d.epoch_metrics[2]["loss"],
+                  "valid_err_pct": d.epoch_metrics[1]["err_pct"]}
+        bands = {m: abs(finals[m] - c) <= h
+                 for m, (c, h) in ANCHOR_BANDS[1].items()}
+        log(f"[segments:cifar:{label}] {card}: {json.dumps(finals)} in "
+            f"band {bands}; {n_train} train + {n_eval} eval steps, captured "
+            f"{st['captured_steps']} / eager {st['eager_steps']} (warm-ups "
+            f"{st['warmup_s']:.3f}s, captures {st['capture_s']:.3f}s); run() "
+            f"{wall:.2f}s, images/s={st['img_per_sec']:.1f} (warm "
+            f"{st['warm_img_per_sec']:.1f}); async saves "
+            f"{wf.snapshotter.async_saves_written}; launches={launches}")
+        fatal = [m for m, ok in bands.items()
+                 if not ok and ("cifar", m) not in DRIFTS]
+        if fatal:
+            raise AssertionError(f"[segments:cifar:{label}] outside "
+                                 f"ANCHOR_BANDS[1]: {fatal}")
+        runs[label] = {"state": seg_state(trainer), "stats": dict(st),
+                       "snap": Snapshotter.load(wf.snapshotter.destination),
+                       "async": wf.snapshotter.async_saves_written}
+        out[f"cifar:{label}"] = launches
+        del wf, trainer
+    if not runs["scan8"]["stats"]["captured_steps"]:
+        raise AssertionError("[segments:cifar] nothing captured")
+    seg_same(torch, "cifar", runs["scan8"], runs["scan1"],
+             "captured scan_chunk 8 vs 1")
+    if not runs["scan8"]["async"] or runs["scan8:sync"]["async"]:
+        raise AssertionError("[segments:cifar] async saves "
+                             f"{runs['scan8']['async']} / "
+                             f"{runs['scan8:sync']['async']}")
+    bad = seg_snapshot_differences(runs["scan8"]["snap"],
+                                   runs["scan8:sync"]["snap"])
+    log("[segments:cifar] the async snapshot vs the in-line one: "
+        + ("arrays, loader, prng streams, epoch and metric equal"
+           if not bad else f"DIFFER at {bad}"))
+    if bad:
+        raise AssertionError(f"[segments:cifar] snapshots differ: {bad}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def seg_stochastic(torch, card):
+    """Phase 12's stochastic pooling net at scan_chunk 8 (uncaptured by
+    the rule) against 1, the default Philox sampler on the card."""
+    from znicz_torch.parallel.fused import FusedTrainer
+
+    runs = {}
+    for chunk in (8, 1):
+        with engine_knobs(scan_chunk=chunk):
+            wf = stochastic_workflow(None)
+            trainer = FusedTrainer(wf)
+            trainer.run()
+            torch.cuda.synchronize()
+        st = trainer.stats
+        log(f"[segments:stochastic:scan{chunk}] {card}: captured "
+            f"{st['captured_steps']} / eager {st['eager_steps']} "
+            f"(uncaptured: {trainer.uncaptured_reason}); segments "
+            f"{dict(sorted(trainer.segments.items()))}")
+        if st["captured_steps"] or not trainer.uncaptured_reason:
+            raise AssertionError("[segments:stochastic] a capture")
+        runs[chunk] = {"state": seg_state(trainer)}
+    seg_same(torch, "stochastic", runs[8], runs[1], "scan_chunk 8 vs 1")
+
+
+def segments_phase(torch, card):
+    """Phase 14.  Returns {run: {kernel: launches}}."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_segments_")
+    try:
+        out = seg_alexnet(torch, card, tmp)
+        out.update(seg_cifar(torch, card, tmp))
+        seg_stochastic(torch, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -3199,7 +3644,7 @@ def main(argv=None) -> int:
                          "alone; 'anchors': phases 7-8; 'units': phase 9; "
                          "'bf16': phase 10; 'mnist_ae', 'kohonen': phase "
                          "11 for that sample; 'kinds': phase 12; "
-                         "'samples': phase 13")
+                         "'samples': phase 13; 'segments': phase 14")
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -3262,11 +3707,11 @@ def run_phases(torch, args) -> int:
         names = args.only.split(",")
         anchors, units = "anchors" in names, "units" in names
         bf16, kinds = "bf16" in names, "kinds" in names
-        samples = "samples" in names
+        samples, segments = "samples" in names, "segments" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
-                  *AE_SOM_RUNS)]
+                  "segments", *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -3320,6 +3765,14 @@ def run_phases(torch, args) -> int:
                     if count:
                         rows[name].setdefault("launches_by_path", {})[
                             f"samples:{label}"] = count
+        if segments:
+            for label, launches in segments_phase(torch, card).items():
+                for name, count in launches.items():
+                    if count:
+                        rows.setdefault(name, {"name": name}).setdefault(
+                            "launches_by_path", {})[
+                                f"segments:{label}"] = count
+            lap("phase 14")
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -3469,6 +3922,16 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 13")
+
+    # -- phase 14: segments as CUDA-graph replays, remat, async snapshots,
+    # -- the staged and file-streamed data paths ---------------------------
+    for label, launches in segments_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][f"segments:{label}"] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 14")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

@@ -124,10 +124,10 @@ def test_composed_train_steps_under_mask_match_the_reference():
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("remat", True, "A.4"),
-    ("scan_chunk", 4, "A.4"),
+    ("mesh.model", 2, "A.4"),
+    ("train_shard", True, "A.4"),
     ("pipeline_depth", 2, "A.4"),
-    ("async_snapshot", False, "A.4"),
+    ("snapshot_sharded", True, "A.4"),
     ("snapshot_format", "orbax", "A.4"),
     ("mesh.data", 2, "A.4"),
     ("mode", "master", "A.7"),
@@ -153,6 +153,14 @@ def test_cli_refuses_an_unported_knob(knob, value, item, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
+#: the segmented run's and the streaming path's knobs, each set away from
+#: its default
+PORTED_A4 = {"remat": True, "scan_chunk": 4, "async_snapshot": False,
+             "prefetch_segments": 0, "decode_workers": 2,
+             "stream_budget_mb": 64, "async_staging": False,
+             "staging_donate": False}
+
+
 def test_defaults_and_ported_knobs_pass_the_check():
     """Every unported knob set to the reference's default, and every knob
     the port reads set away from its default, passes the check."""
@@ -167,9 +175,14 @@ def test_defaults_and_ported_knobs_pass_the_check():
             eng.set_by_path(key, default)
         eng.pool_bwd = "mask"
         eng.fused_tail = True
+        for key, value in PORTED_A4.items():
+            assert value != ENGINE_DEFAULTS[key], key
+            setattr(eng, key, value)
         check_engine_knobs()
     finally:
         for key in list(UNPORTED_ENGINE_KNOBS) + ["mesh"]:
             delattr(eng, key.split(".")[0])
+        for key in PORTED_A4:
+            delattr(eng, key)
         eng.pool_bwd = "sas"
         eng.fused_tail = False

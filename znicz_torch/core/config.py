@@ -177,6 +177,15 @@ ENGINE_DEFAULTS = {
     "pool_bwd": "sas",            # "mask": ties share a max pool's gradient
     "snapshot_min_interval_s": 0.0,   # least seconds between best saves
     "native_shuffle": False,      # the host runtime's xorshift128+ shuffle
+    # the segmented run (FusedTrainer) and the streaming data path
+    "remat": False,               # recompute the forward in the backward
+    "scan_chunk": 8,              # train/eval steps a segment; 1 = no scan
+    "async_snapshot": True,       # snapshots written by a background thread
+    "prefetch_segments": 2,       # segments of rows decoded ahead
+    "decode_workers": None,       # DecodePool threads (None: one a CPU)
+    "stream_budget_mb": None,     # device budget of a StreamingLoader
+    "async_staging": True,        # DeviceStager assembles segments ahead
+    "staging_donate": True,       # consumed staged buffers go back to it
 }
 
 #: The reference's other ``root.common.engine.*`` knobs
@@ -185,14 +194,11 @@ ENGINE_DEFAULTS = {
 #: the ROADMAP item that ports it).  :func:`check_engine_knobs` refuses
 #: each set away from its default.
 UNPORTED_ENGINE_KNOBS = {
-    # A.4, the train loop's speed levers: compiled steps, scans, the deep
-    # pipeline, remat, snapshots, loading and staging, sharding
+    # A.4, the train loop's speed levers still to port: the deep
+    # pipeline, snapshot formats, the compiler's options, sharding
     **{key: (default, "A.4") for key, default in (
-        ("backend", "auto"), ("fuse", True), ("remat", False),
-        ("scan_chunk", 8), ("pipeline_depth", 1), ("async_snapshot", True),
+        ("backend", "auto"), ("fuse", True), ("pipeline_depth", 1),
         ("snapshot_format", "pickle"), ("snapshot_sharded", False),
-        ("prefetch_segments", 2), ("decode_workers", None),
-        ("stream_budget_mb", None), ("async_staging", True), ("staging_donate", True),
         ("xla_latency_hiding", False), ("train_shard", False),
         ("mesh.data", 1), ("mesh.model", 1))},
     # A.7, the distributed training plane

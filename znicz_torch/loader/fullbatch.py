@@ -31,6 +31,14 @@ from znicz_torch.loader.base import Loader
 from znicz_torch.memory import Array
 
 
+def device_index(idx, device) -> torch.Tensor:
+    """The index row ``idx`` (numpy, a list or a tensor) as an int64
+    tensor on ``device``."""
+    if isinstance(idx, torch.Tensor):
+        return idx.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(idx, np.int64)).to(device)
+
+
 class FullBatchLoader(Loader):
     def __init__(self, workflow=None, name: str = "loader",
                  minibatch_size: int = 100, shuffle: bool = True,
@@ -75,8 +83,9 @@ class FullBatchLoader(Loader):
 
     def gather(self, idx) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(data rows, label rows) for the index row ``idx`` (numpy or a
-        tensor), on the data's device."""
-        idx = torch.as_tensor(np.asarray(idx, np.int64)).to(self.data.device)
+        tensor), on the data's device.  A tensor already there is used as
+        it is: no copy, no wait on the host."""
+        idx = device_index(idx, self.data.device)
         return (self.data.index_select(0, idx),
                 None if self.labels is None
                 else self.labels.index_select(0, idx))
@@ -126,8 +135,8 @@ class FullBatchLoaderMSE(FullBatchLoader):
         rows just gathered for it, when the targets are the data."""
         if self.targets is self.data and rows is not None:
             return rows
-        idx = torch.as_tensor(np.asarray(idx, np.int64))
-        return self.targets.index_select(0, idx.to(self.targets.device))
+        return self.targets.index_select(
+            0, device_index(idx, self.targets.device))
 
     def fill_minibatch(self) -> None:
         super().fill_minibatch()

@@ -36,12 +36,23 @@ from znicz_torch.memory import Array
 _F = np.float32
 
 
+def _scalar(x):
+    """A hyperparameter as the update multiplies by it: a 0-dim float32
+    tensor as it is (on the device, so a captured step reads the row of
+    its replay), anything else as the float of its float32 value."""
+    return x if isinstance(x, torch.Tensor) else float(_F(x))
+
+
 def _decay_grad(w, weights_decay, l1_vs_l2):
     """Regularisation gradient: ``wd * (l1_vs_l2/2 * sign(w) + (1 -
-    l1_vs_l2) * w)``."""
-    l1 = _F(l1_vs_l2)
-    return float(_F(weights_decay)) * (float(l1 * _F(0.5)) * torch.sign(w)
-                                       + float(_F(1.0) - l1) * w)
+    l1_vs_l2) * w)``, the factors rounded to float32 as the reference
+    rounds them (a tensor ``l1_vs_l2`` computes them in float32)."""
+    if isinstance(l1_vs_l2, torch.Tensor):
+        half, rest = l1_vs_l2 * 0.5, 1.0 - l1_vs_l2
+    else:
+        l1 = _F(l1_vs_l2)
+        half, rest = float(l1 * _F(0.5)), float(_F(1.0) - l1)
+    return _scalar(weights_decay) * (half * torch.sign(w) + rest * w)
 
 
 def state_dtype() -> torch.dtype:
@@ -66,12 +77,19 @@ def sgd_update(w, g, v, *, lr, weights_decay, l1_vs_l2, momentum, clip):
     returns ``(w_new, v_new)``.  Inputs are not modified.  ``v`` may be
     stored in a narrower dtype (:func:`state_dtype`): the arithmetic runs
     in ``w``'s dtype, the new weight takes the unrounded velocity, and the
-    new velocity is returned in ``v``'s own dtype."""
-    clip = _F(clip)
-    if clip > 0.0:
-        g = torch.clamp(g, -float(clip), float(clip))
+    new velocity is returned in ``v``'s own dtype.
+
+    Each hyperparameter is a number or a 0-dim float32 tensor (the fused
+    trainer's per-step rows on the device); both give the same bits.  A
+    tensor ``clip`` clamps where it is positive without asking the host."""
+    if isinstance(clip, torch.Tensor):
+        g = torch.where(clip > 0.0, torch.clamp(g, -clip, clip), g)
+    else:
+        clip = _F(clip)
+        if clip > 0.0:
+            g = torch.clamp(g, -float(clip), float(clip))
     g = g + _decay_grad(w, weights_decay, l1_vs_l2)
-    v_new = float(_F(momentum)) * v.to(w.dtype) - float(_F(lr)) * g
+    v_new = _scalar(momentum) * v.to(w.dtype) - _scalar(lr) * g
     return w + v_new, v_new.to(v.dtype)
 
 

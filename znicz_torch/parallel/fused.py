@@ -23,14 +23,54 @@ has them (``DecisionMSE`` has not).
 
 A train step is one autograd pass over the loss, then ``sgd_update`` per
 parameter with the bias/weight hyperparameter split, as the reference's
-``_update_core``.  :meth:`FusedTrainer.run` is a sequential loop — one
-dispatch per minibatch, no scans — with the reference's epoch-tail rule:
-on the last TRAIN minibatch of an epoch, an eval step replays the train
-forward with that step's dropout masks, the Decision rules on its
-metrics, and the update is applied only if ``gd_skip`` stays open.  A
-workflow's ``lr_adjust`` unit advances after each applied update, and at
-each epoch's end (after the tail's update) its ``snapshotter`` runs, as
-the reference's epoch hook runs it.
+``_update_core``; the parameters and velocities are updated in place.
+The hyperparameters of a step are its row of a (k, M, 8) float32 tensor
+on the device, one row of 8 for each of the M weighted modules
+(:meth:`FusedTrainer.tiled_hypers`, :meth:`FusedTrainer._hypers_rows`),
+with a workflow's ``lr_adjust`` advanced between rows as the reference
+advances it.  Under ``remat`` (``root.common.engine.remat``) the forward
+chain runs under ``torch.utils.checkpoint`` and is recomputed in the
+backward; the loss and the update are the same bits.
+
+**The segmented run** (:meth:`FusedTrainer.run`, the reference's
+``_run_segmented``).  Consecutive non-tail TRAIN minibatches form a
+segment of up to ``scan_chunk`` steps (``root.common.engine.scan_chunk``,
+default 8), consecutive TEST or VALID minibatches of one class an eval
+segment, and the epoch tail goes alone.  A segment's index rows reach the
+device as one (k, B) tensor, and its losses and error counts stay there
+as (k,) tensors until the next segment is queued (the one-deep flush);
+the confusion is summed on the device over the epoch and handed to the
+Decision at the tail.  The tail keeps its order: an eval step replays the
+train forward with the step's masks, the Decision rules on its metrics,
+and the update applies only if ``gd_skip`` stayed open.  At each epoch's
+end the workflow's ``snapshotter`` runs: on a background thread under
+``async_snapshot`` (device clones of the state handed to
+``Snapshotter.save_async``), else in line.  ``scan_chunk`` 1 is the
+step-at-a-time loop.
+
+**CUDA graphs.**  On the card, with ``scan_chunk`` above 1, each step of
+a segment is a replay of a captured step (``parallel/graphs.py``), one
+capture for each (kind, batch size, routing, dtype, inputs): the first
+step of a key runs eagerly on the capture stream, which builds the
+kernels, picks cuDNN's plans and sizes the workspaces, then the step is
+captured.  Before each replay the step's index row (or staged rows), its
+hyperparameter row and its dropout masks, drawn with the generator the
+eager step draws them with, are copied into the capture's buffers.  A
+net with stochastic pooling samples its offsets from probabilities
+computed inside the step, so it runs every segment uncaptured, by rule
+(``uncaptured_reason``); ``stats`` counts ``captured_steps`` and
+``eager_steps``.  A failed capture raises.
+
+**Streaming** (``loader/streaming.py``).  A ``StreamingLoader`` whose
+dataset is not resident is staged: each segment's rows are gathered on
+the host into pinned memory in their storage dtype, copied to the device
+on a copy stream and ordered by an event, and decoded in the step.  With
+``async_staging`` a ``DeviceStager`` assembles the predicted next
+segments while the current one runs; ``prefetch_segments`` segments of
+rows are submitted to an image source's ``DecodePool`` ahead.  Under
+``staging_donate`` a consumed segment's device buffers go back to the
+trainer's free list (released by an event after its last read) for a
+later segment of the same shape; off, they are freed by reference count.
 
 **Mixed precision** (the reference's ``compute_dtype``, ``master_dtype``
 and ``state_dtype`` knobs).  Under ``compute_dtype`` bf16 each step reads
@@ -68,23 +108,28 @@ this seam.
 from __future__ import annotations
 
 import contextlib
+import sys
+import threading
 import time
-from typing import Callable, Dict, Optional
+from collections import Counter, deque
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from znicz_torch.all2all import All2AllSoftmax
 from znicz_torch.core import prng
-from znicz_torch.core.config import check_engine_knobs, root
+from znicz_torch.core.config import ENGINE_DEFAULTS, check_engine_knobs, root
 from znicz_torch.dropout import DropoutForward
 from znicz_torch.evaluator import EvaluatorSoftmax, confusion
 from znicz_torch.fused_block import (fused_bias_relu, fused_block,
                                      fused_fc_epilogue, fused_softmax_xent,
                                      plan_fused_blocks, plan_fused_tail)
 from znicz_torch.loader.base import TRAIN
-from znicz_torch.nn_units import params_of, state_dtype
+from znicz_torch.nn_units import params_of, sgd_update, state_dtype
 from znicz_torch.ops.linear import linear
+from znicz_torch.parallel.graphs import StepGraph, capture_stream
 from znicz_torch.pooling import StochasticPoolingBase
 
 MaskFn = Callable[[int, int, tuple, float], torch.Tensor]
@@ -123,14 +168,117 @@ class FusedUnsupportedError(ValueError):
     engine instead; any other error propagates."""
 
 
+class StagedSegment:
+    """A staged segment on the trainer's device: ``data`` (k, B, ...) in
+    the storage dtype, ``target`` (k, B) labels or (k, B, ...) targets,
+    and ``ready``, the event of their copy (None on the CPU)."""
+
+    def __init__(self, data, target, ready=None):
+        self.data, self.target, self.ready = data, target, ready
+
+    def consume(self) -> Dict[str, torch.Tensor]:
+        """The segment's inputs, ordered after their copy on the current
+        stream, which the allocator is told reads them."""
+        if self.ready is not None:
+            stream = torch.cuda.current_stream(self.data.device)
+            stream.wait_event(self.ready)
+            self.data.record_stream(stream)
+            self.target.record_stream(stream)
+        return {"data": self.data, "target": self.target}
+
+
+class _Buffers:
+    """The free list of consumed staged buffers (``staging_donate``): a
+    buffer goes back with the event recorded after its last read (none
+    on the CPU), and the copy stream waits on that event before it writes
+    the buffer again."""
+
+    def __init__(self):
+        self._free: Dict[tuple, List[Tuple[torch.Tensor, object]]] = {}
+        self._lock = threading.Lock()
+        #: buffers written again instead of allocated
+        self.reused = 0
+
+    def give_back(self, *tensors) -> None:
+        event = None
+        if tensors[0].is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(tensors[0].device))
+        with self._lock:
+            for t in tensors:
+                key = (tuple(t.shape), t.dtype)
+                self._free.setdefault(key, []).append((t, event))
+
+    def take(self, shape, dtype, device, stream=None) -> torch.Tensor:
+        with self._lock:
+            free = self._free.get((tuple(shape), dtype))
+            if free:
+                t, event = free.pop()
+                self.reused += 1
+                if event is not None:
+                    stream.wait_event(event)
+                return t
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._free.clear()
+
+
+class _PinnedBuffers:
+    """Pinned host memory for staged segments: byte buffers, each handed
+    out as a view of the shape and dtype asked for and given back with the
+    event of the copy that reads it, then written again, for any shape
+    that fits, once that event has completed.  A run pays for pinning only
+    while every buffer is in flight."""
+
+    def __init__(self):
+        self._free: List[Tuple[torch.Tensor, object]] = []
+        self._lock = threading.Lock()
+
+    def take(self, shape, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the byte buffer, its view of ``shape`` and ``dtype``)."""
+        nbytes = int(np.prod(shape)) * torch.empty(
+            (), dtype=dtype).element_size()
+        buf = None
+        with self._lock:
+            for i, (b, event) in enumerate(self._free):
+                if b.numel() >= nbytes and event.query():
+                    buf = self._free.pop(i)[0]
+                    break
+        if buf is None:
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        return buf, buf[:nbytes].view(dtype).view(shape)
+
+    def give_back(self, event, *bufs) -> None:
+        with self._lock:
+            self._free.extend((b, event) for b in bufs)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._free.clear()
+
+
 class FusedTrainer:
     """Train and run a built ``StandardWorkflow`` (its ``forwards``,
     ``gds``, ``loader``, ``evaluator`` and ``decision``) on its device.  A
     workflow built without a loader can only run :meth:`forward_pass`
     (serving)."""
 
+    #: steps a segment, unless ``root.common.engine.scan_chunk`` names a
+    #: count; 1 runs step at a time, uncaptured
+    scan_chunk = 8
+
     def __init__(self, workflow, mask_fn: Optional[MaskFn] = None,
-                 offset_fn: Optional[OffsetFn] = None):
+                 offset_fn: Optional[OffsetFn] = None, remat=None):
+        if remat is None:
+            remat = bool(root.common.engine.get("remat", False))
+        self.remat = bool(remat)
+        self.scan_chunk = int(root.common.engine.get(
+            "scan_chunk", type(self).scan_chunk))
+        if self.scan_chunk < 1:
+            raise ValueError(f"root.common.engine.scan_chunk="
+                             f"{self.scan_chunk}: must be at least 1")
         self.workflow = workflow
         self.forwards = list(workflow.forwards)
         self.device = workflow.device
@@ -156,19 +304,50 @@ class FusedTrainer:
         self.compute_confusion = (bool(ev.compute_confusion)
                                   if getattr(ev, "confusion_explicit", False)
                                   else True)
-        self._decode_params = (float(getattr(workflow, "scale", 1.0)),
-                               float(getattr(workflow, "shift", 0.0)))
+        # uint8 rows decode as u8 * scale + shift: the loader's constants
+        # (a StreamingLoader), else the workflow's (served requests)
+        dec = self.loader if hasattr(self.loader, "scale") else workflow
+        self._decode_params = (float(getattr(dec, "scale", 1.0)),
+                               float(getattr(dec, "shift", 0.0)))
         self.mask_fn: MaskFn = mask_fn or self.default_mask
         self.offset_fn: OffsetFn = offset_fn or self.default_offsets
         self.lr_adjust = getattr(workflow, "lr_adjust", None)
         self.steps_done = 0
         #: ``img_per_sec`` counts every step; ``warm_*`` leave out the
-        #: first call of each kind (train, tail, eval), which pays the
-        #: kernel builds and cuDNN's algorithm search
+        #: first interval of each kind (train segments by length, tail,
+        #: eval), which pays the kernel builds, cuDNN's plan choice and
+        #: the captures.  ``captured_steps`` are graph replays,
+        #: ``eager_steps`` every other step (warm-ups, tails, and every
+        #: step of an uncaptured run).  Host seconds: ``warmup_s`` of the
+        #: steps run before a capture (to their end on the card),
+        #: ``capture_s`` of the captures; ``stage_gather_s`` of the host
+        #: gathers into pinned memory and ``stage_copy_s`` of enqueuing
+        #: the copies, summed over the threads that stage
         self.stats = {"train_steps": 0, "eval_steps": 0, "images": 0,
-                      "wall_s": 0.0, "img_per_sec": 0.0, "warm_images": 0, "warm_wall_s": 0.0,
-                      "warm_img_per_sec": 0.0}
-        self._seen_kinds = set()
+                      "wall_s": 0.0, "img_per_sec": 0.0, "warm_images": 0,
+                      "warm_wall_s": 0.0, "warm_img_per_sec": 0.0,
+                      "captured_steps": 0, "eager_steps": 0,
+                      "warmup_s": 0.0, "capture_s": 0.0,
+                      "staged_segments": 0, "stage_gather_s": 0.0,
+                      "stage_copy_s": 0.0}
+        self._stats_lock = threading.Lock()
+        #: (kind, length) -> segments dispatched
+        self.segments: Counter = Counter()
+        self._captures: Dict[tuple, StepGraph] = {}
+        #: why this net's segments run uncaptured on the card, or None
+        self.uncaptured_reason = (
+            "stochastic pooling samples its offsets inside the step"
+            if any(isinstance(f, StochasticPoolingBase)
+                   for f in self.forwards) else None)
+        #: the DeviceStager of a staged run while it runs, and its
+        #: counters when the run ended
+        self._stager = None
+        self.stager_stats: Optional[dict] = None
+        #: the free list of consumed staged buffers (``staging_donate``)
+        self.staging_buffers = _Buffers()
+        self._pinned = _PinnedBuffers()
+        self._copy_stream = None
+        self._reset_accounting()
         self.compute_dtype = compute_dtype()
         self.master_dtype = master_dtype()
         state_dtype()                       # a bad spelling raises here
@@ -178,6 +357,14 @@ class FusedTrainer:
     def train_losses(self):
         """Losses of every TRAIN minibatch fed to the Decision, in order."""
         return self.decision.train_losses
+
+    @property
+    def staging(self) -> bool:
+        """Whether each segment's rows are staged from the host: a
+        streaming loader whose dataset is not resident."""
+        ldr = self.loader
+        return (bool(getattr(ldr, "streaming", False))
+                and not ldr.device_resident)
 
     # -- state -----------------------------------------------------------------
 
@@ -204,6 +391,29 @@ class FusedTrainer:
         moment_bias, clip)}`` as float32."""
         return {f.name: self.gd_of[f.name].hypers()
                 for f in self._weighted() if f.name in self.gd_of}
+
+    def tiled_hypers(self, k: int) -> Dict[str, np.ndarray]:
+        """``{module name: (k, 8) float32}``: the rows of a k-step segment
+        whose hyperparameters do not change."""
+        return {name: np.tile(np.asarray(t, np.float32), (k, 1))
+                for name, t in self.hypers().items()}
+
+    def _hypers_rows(self, k: int) -> Dict[str, np.ndarray]:
+        """The rows of a k-step segment, ``lr_adjust`` advanced after each
+        row, as it advances after each applied update."""
+        if self.lr_adjust is None:
+            return self.tiled_hypers(k)
+        rows = []
+        for _ in range(k):
+            rows.append({name: np.asarray(t, np.float32)
+                         for name, t in self.hypers().items()})
+            self._advance_lr()
+        return {name: np.stack([r[name] for r in rows]) for name in rows[0]}
+
+    def _hyper_matrix(self, rows: Dict[str, np.ndarray]) -> np.ndarray:
+        """(k, M, 8) float32: the rows of the weighted modules in order."""
+        return np.ascontiguousarray(np.stack(
+            [rows[f.name] for f in self._weighted()], axis=1), np.float32)
 
     def _init_velocities(self) -> None:
         """Zero momentum (in :func:`state_dtype`) for every parameter that
@@ -269,11 +479,14 @@ class FusedTrainer:
         return data
 
     def forward_pass(self, x, train: bool = False, step: int = 0,
-                     cast: Optional[Callable] = None):
+                     cast: Optional[Callable] = None,
+                     mask_fn: Optional[MaskFn] = None):
         """The last module's output (LOGITS for a softmax head) for an
         NHWC batch ``x``; ``train`` applies the dropout masks of train
-        step ``step``; ``cast`` re-casts the activation entering every
-        module (mixed precision)."""
+        step ``step`` (from ``mask_fn``, default :attr:`mask_fn`);
+        ``cast`` re-casts the activation entering every module (mixed
+        precision)."""
+        masks = mask_fn or self.mask_fn
         plan = plan_fused_blocks(self.forwards)
         tail_plan = plan_fused_tail(self.forwards, plan)
         h = x
@@ -299,16 +512,15 @@ class FusedTrainer:
                     mask_of = None
                     if train and tl.dropout_index >= 0 and tl.ratio > 0.0:
                         def mask_of(shape=tuple(y.shape), tl=tl):
-                            return self.mask_fn(step, tl.dropout_index,
-                                                shape, tl.ratio)
+                            return masks(step, tl.dropout_index, shape,
+                                         tl.ratio)
                     h = fused_fc_epilogue(y, f.bias, mask_of).reshape(
                         (x.shape[0],) + f.output_sample_shape)
                 i += tl.span
                 continue
             if isinstance(f, DropoutForward):
                 if train:
-                    h = h * self.mask_fn(step, i, tuple(h.shape),
-                                         f.dropout_ratio)
+                    h = h * masks(step, i, tuple(h.shape), f.dropout_ratio)
             elif isinstance(f, StochasticPoolingBase) and train:
                 with torch.no_grad():
                     probs = f.probabilities(f.windows(h, f.PAD_VALUE))
@@ -326,18 +538,30 @@ class FusedTrainer:
     # -- loss, steps -----------------------------------------------------------
 
     def loss_and_metrics(self, data, target, batch_size: int, step: int,
-                         train: bool):
+                         train: bool, mask_fn: Optional[MaskFn] = None):
         """``(loss, (loss, n_err, confusion))`` of a minibatch whose first
         ``batch_size`` rows are valid.  A softmax head's loss is the mean
         softmax-CE of those rows, through the fused head under
         ``fused_tail``; an MSE head's is ``0.5 * sum((y - t)^2) / rows``
         over them, with n_err 0 and a (1, 1) confusion.  The forward runs
-        in the compute dtype, the loss in float32."""
+        in the compute dtype, the loss in float32; under :attr:`remat` a
+        train forward is recomputed in the backward."""
         cast = None if self.compute_dtype == torch.float32 else self._cast
-        with self._compute_params():
-            if cast is not None:
-                data = cast(data)
-            out = self.forward_pass(data, train, step, cast).float()
+
+        def forward(d):
+            with self._compute_params():
+                if cast is not None:
+                    d = cast(d)
+                return self.forward_pass(d, train, step, cast,
+                                         mask_fn).float()
+
+        if self.remat and train and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            out = checkpoint(forward, data, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            out = forward(data)
         n = out.shape[0]
         valid = torch.arange(n, device=out.device) < batch_size
         denom = max(int(batch_size), 1)
@@ -364,30 +588,76 @@ class FusedTrainer:
         return loss, (loss.detach(), n_err, conf)
 
     def _minibatch(self, idx):
-        """(decoded data rows, target rows) of the index row ``idx``: the
-        labels for a softmax head, the loader's targets for an MSE one."""
+        """(decoded data rows, target rows) of the index row ``idx``
+        (numpy or a tensor on the device): the labels for a softmax head,
+        the loader's targets for an MSE one."""
         data, target = self.loader.gather(idx)
         if self.loss_kind == "mse":
             target = self.loader.gather_targets(idx, data)
         return self._decode(data), target
 
-    def train_step(self, idx, batch_size: int, step: int):
-        """Forward, autograd, and the update of every parameter; returns
-        the step's metrics."""
-        self._init_velocities()
-        data, target = self._minibatch(idx)
-        tree = self.extract_params()
-        leaves = [(name, k, p) for name, ps in tree.items()
-                  for k, p in ps.items()]
-        loss, metrics = self.loss_and_metrics(data, target, batch_size,
-                                              step, train=True)
-        grads = torch.autograd.grad(loss, [p for _, _, p in leaves])
+    def _batch(self, inputs: Dict[str, torch.Tensor]):
+        """(decoded data, targets) of one step's inputs: an index row
+        (``idx``) into the resident dataset, or staged rows (``data``,
+        ``target``)."""
+        if "idx" in inputs:
+            return self._minibatch(inputs["idx"])
+        return self._decode(inputs["data"]), inputs["target"]
+
+    def _update(self, grads, hyp, clips) -> None:
+        """``sgd_update`` of every parameter in place, module ``m``'s
+        hyperparameters from ``hyp[m]`` (a (M, 8) float32 tensor on the
+        device); the clip, which decides a branch, from the host's
+        ``clips``."""
+        leaves = [(m, f.name, k, p) for m, f in enumerate(self._weighted())
+                  for k, p in self._params_of(f).items()]
         with torch.no_grad():
-            for (name, k, p), g in zip(leaves, grads):
+            for (m, name, k, p), g in zip(leaves, grads):
+                lr, lrb, wd, wdb, l1l2, mom, momb, _ = hyp[m].unbind()
+                is_bias = k == "bias"
+                v = self.gd_of[name].velocities[k]
                 # float32 arithmetic; a bf16-stored parameter is widened,
                 # updated and rounded back by the copy
                 w = p if self.master_dtype is None else p.float()
-                p.copy_(self.gd_of[name].update(k, w, g.float()))
+                w_new, v_new = sgd_update(
+                    w, g.float(), v, lr=lrb if is_bias else lr,
+                    weights_decay=wdb if is_bias else wd, l1_vs_l2=l1l2,
+                    momentum=momb if is_bias else mom, clip=clips[m])
+                p.copy_(w_new)
+                v.copy_(v_new)
+
+    def _step(self, kind: str, inputs, batch_size: int, step: int,
+              hyp=None, clips=(), mask_fn: Optional[MaskFn] = None):
+        """One step on ``inputs``: ``train`` (forward, autograd, the
+        update; the metrics), ``eval`` (metrics only) or ``tail`` (metrics
+        of the train forward with step ``step``'s masks)."""
+        data, target = self._batch(inputs)
+        if kind != "train":
+            with torch.no_grad():
+                _, metrics = self.loss_and_metrics(
+                    data, target, batch_size, step, kind == "tail", mask_fn)
+            return metrics
+        loss, metrics = self.loss_and_metrics(data, target, batch_size,
+                                              step, True, mask_fn)
+        params = [p for f in self._weighted()
+                  for p in self._params_of(f).values()]
+        self._update(torch.autograd.grad(loss, params), hyp, clips)
+        return metrics
+
+    def _host_row(self) -> Tuple[torch.Tensor, tuple]:
+        """The current hyperparameters as a (M, 8) row on the device, and
+        the clips."""
+        mat = self._hyper_matrix(self.tiled_hypers(1))[0]
+        return (torch.from_numpy(mat).to(self.device),
+                tuple(float(c) for c in mat[:, 7]))
+
+    def train_step(self, idx, batch_size: int, step: int):
+        """Forward, autograd, and the update of every parameter with the
+        current hyperparameters; returns the step's metrics."""
+        self._init_velocities()
+        hyp, clips = self._host_row()
+        metrics = self._step("train", {"idx": idx}, batch_size, step, hyp,
+                             clips)
         self.stats["train_steps"] += 1
         return metrics
 
@@ -395,12 +665,172 @@ class FusedTrainer:
                   train: bool = False):
         """Metrics only.  ``train`` replays the train forward with the
         dropout masks of ``step`` (the epoch tail)."""
-        data, target = self._minibatch(idx)
-        with torch.no_grad():
-            _, metrics = self.loss_and_metrics(data, target, batch_size,
-                                               step, train)
+        metrics = self._step("tail" if train else "eval", {"idx": idx},
+                             batch_size, step)
         self.stats["eval_steps"] += 1
         return metrics
+
+    # -- captured steps -------------------------------------------------------
+
+    def _captured(self) -> bool:
+        return (self.device.type == "cuda" and self.scan_chunk > 1
+                and self.uncaptured_reason is None)
+
+    def _capture_key(self, kind, inputs, batch_size, clips) -> tuple:
+        eng = root.common.engine
+        return (kind, int(batch_size), clips, self.remat,
+                tuple(repr(eng.get(k, None)) for k in ENGINE_DEFAULTS),
+                tuple((n, tuple(t.shape), t.dtype)
+                      for n, t in sorted(inputs.items())))
+
+    def _dispatch(self, kind: str, inputs, batch_size: int, step: int,
+                  hyp=None, clips=()):
+        """One train or eval step of a segment: a replay of its key's
+        capture; the key's first step runs eagerly on the capture stream
+        and is then captured.  Uncaptured (the CPU, ``scan_chunk`` 1, the
+        stochastic pooling rule) it runs as it is."""
+        if not self._captured():
+            self.stats["eager_steps"] += 1
+            return self._step(kind, inputs, batch_size, step, hyp, clips)
+        key = self._capture_key(kind, inputs, batch_size, clips)
+        cap = self._captures.get(key)
+        if cap is not None:
+            for name, t in inputs.items():
+                cap.inputs[name].copy_(t)
+            if hyp is not None:
+                cap.hyp.copy_(hyp)
+            for index, (buf, shape, ratio) in cap.masks.items():
+                buf.copy_(self.mask_fn(step, index, shape, ratio))
+            cap.replay()
+            self.stats["captured_steps"] += 1
+            return cap.outputs
+        masks = {}
+        t0 = time.perf_counter()
+
+        def record(step_, index, shape, ratio):
+            mask = self.mask_fn(step_, index, shape, ratio)
+            masks[index] = (torch.empty_like(mask, device=self.device),
+                            tuple(shape), ratio)
+            return mask
+
+        current = torch.cuda.current_stream(self.device)
+        stream = capture_stream(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            out = self._step(kind, inputs, batch_size, step, hyp, clips,
+                             record)
+        current.wait_stream(stream)
+        for t in out:
+            t.record_stream(current)
+        self.stats["eager_steps"] += 1
+        # nothing else may touch the card while it captures: the stager's
+        # assemblies and the snapshot writer finish first
+        if self._stager is not None:
+            self._stager.quiesce()
+        self._drain_snapshots(suppress=False)
+        torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        cap = StepGraph({n: torch.empty_like(t) for n, t in inputs.items()},
+                        None if hyp is None else torch.empty_like(hyp),
+                        masks)
+        cap.capture(lambda: self._step(kind, cap.inputs, batch_size, 0,
+                                       cap.hyp, clips, cap.mask), stream)
+        self._captures[key] = cap
+        self.stats["warmup_s"] += t1 - t0
+        self.stats["capture_s"] += time.perf_counter() - t1
+        return out
+
+    # -- segments -------------------------------------------------------------
+
+    def _segment(self, kind: str, inputs, sizes, step0: int = 0,
+                 hyp_rows=None):
+        """k ``train`` or ``eval`` steps on the segment's ``inputs`` (each
+        a (k, ...) tensor on the device), a train segment's
+        hyperparameters from ``hyp_rows`` ((k, M, 8) on the host, copied
+        once).  Returns the (k,) losses and n_err on the device and the
+        confusion summed over the segment."""
+        k = len(sizes)
+        hyp = (None if hyp_rows is None
+               else torch.from_numpy(hyp_rows).to(self.device))
+        losses = torch.empty(k, dtype=torch.float32, device=self.device)
+        n_errs = torch.empty(k, dtype=torch.int64, device=self.device)
+        conf = None
+        for i in range(k):
+            row, clips = ((None, ()) if hyp is None else
+                          (hyp[i], tuple(float(c) for c in hyp_rows[i, :, 7])))
+            loss, n_err, c = self._dispatch(
+                kind, {n: t[i] for n, t in inputs.items()}, sizes[i],
+                step0 + i, row, clips)
+            losses[i].copy_(loss)
+            n_errs[i].copy_(n_err)
+            conf = c.clone() if conf is None else conf.add_(c)
+            self.stats[f"{kind}_steps"] += 1
+        self.segments[(kind, k)] += 1
+        return losses, n_errs, conf
+
+    def _resident_inputs(self, seg) -> Dict[str, torch.Tensor]:
+        """A segment's index rows as one (k, B) tensor on the device."""
+        mat = np.stack([np.asarray(s["idx"], np.int64) for s in seg])
+        return {"idx": torch.from_numpy(mat).to(self.device)}
+
+    def _stage_direct(self, idx_rows) -> StagedSegment:
+        """Assemble one segment's rows (the single-process case): the
+        host gather in the storage dtype (into pinned memory on the
+        card), the copy to the device (on the copy stream, with its
+        event).  Under ``staging_donate`` the copy writes a buffer a
+        consumed segment gave back, where one of the shape is free."""
+        loader = self.loader
+        idx = np.stack([np.asarray(r, np.int32) for r in idx_rows])
+        k, batch = idx.shape
+        flat = idx.reshape(-1)
+        if self.loss_kind == "softmax":
+            tgt = loader.host_gather_labels(flat).astype(np.int64)
+            tgt = tgt.reshape(k, batch)
+        else:
+            tgt = loader.host_gather_targets(flat)
+            tgt = tgt.reshape((k, batch) + tgt.shape[1:])
+        shape = (k, batch) + loader.sample_shape
+        cuda = self.device.type == "cuda"
+        t0 = time.perf_counter()
+        if cuda:
+            dtype = torch.from_numpy(np.zeros(0, loader.source.dtype)).dtype
+            pin_d, host = self._pinned.take(shape, dtype)
+            loader.host_gather(flat, out=host.numpy().reshape(
+                (k * batch,) + loader.sample_shape))
+            pin_t, host_t = self._pinned.take(
+                tgt.shape, torch.from_numpy(tgt[:0]).dtype)
+            host_t.numpy()[...] = tgt
+        else:
+            host = torch.from_numpy(loader.host_gather(flat).reshape(shape))
+            host_t = torch.from_numpy(tgt)
+        t1 = time.perf_counter()
+        stream = self._copy_stream
+        donate = bool(root.common.engine.get("staging_donate", True))
+        with (torch.cuda.stream(stream) if cuda
+              else contextlib.nullcontext()):
+            bufs = []
+            for t in (host, host_t):
+                buf = (self.staging_buffers.take(t.shape, t.dtype,
+                                                 self.device, stream)
+                       if donate else
+                       torch.empty(t.shape, dtype=t.dtype, device=self.device))
+                buf.copy_(t, non_blocking=cuda)
+                bufs.append(buf)
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record(stream)
+                self._pinned.give_back(ready, pin_d, pin_t)
+        with self._stats_lock:
+            self.stats["stage_gather_s"] += t1 - t0
+            self.stats["stage_copy_s"] += time.perf_counter() - t1
+        return StagedSegment(bufs[0], bufs[1], ready)
+
+    def _consumed(self, seg: StagedSegment) -> None:
+        """A staged segment whose reads are all queued: its buffers go
+        back to the free list under ``staging_donate``."""
+        if bool(root.common.engine.get("staging_donate", True)):
+            self.staging_buffers.give_back(seg.data, seg.target)
 
     # -- the epoch loop --------------------------------------------------------
 
@@ -416,6 +846,8 @@ class FusedTrainer:
         d.minibatch_loss = float(loss)
         if hasattr(d, "minibatch_n_err"):   # not DecisionMSE's
             d.minibatch_n_err = int(n_err)
+            # None: summed on the device with the epoch, handed over at
+            # the tail (the Decision skips it)
             d.confusion_matrix = conf
         d.run()
 
@@ -428,70 +860,298 @@ class FusedTrainer:
                 "class_ended": ldr.class_ended,
                 "epoch_number": ldr.epoch_number}
 
+    def _reset_accounting(self) -> None:
+        self._acct_seen = set()
+        self._acct_last_end = None
+
     def _account(self, kind: str, images: int, t0: float) -> None:
-        dt = time.perf_counter() - t0
+        """Charge ``[max(t0, the last interval's end), now]``: with the
+        one-deep flush a segment is read back while the next iteration
+        runs, whose own ``t0`` came before, so plain ``now - t0``
+        intervals would overlap and count time twice."""
+        now = time.perf_counter()
+        start = t0 if self._acct_last_end is None \
+            else max(t0, self._acct_last_end)
+        dt = max(now - start, 1e-9)
+        self._acct_last_end = now
         st = self.stats
         st["wall_s"] += dt
         st["images"] += images
         st["img_per_sec"] = st["images"] / st["wall_s"]
-        if kind in self._seen_kinds:
+        if kind in self._acct_seen:
             st["warm_wall_s"] += dt
             st["warm_images"] += images
             if st["warm_wall_s"] > 0:
                 st["warm_img_per_sec"] = st["warm_images"] / st["warm_wall_s"]
-        self._seen_kinds.add(kind)
+        self._acct_seen.add(kind)
 
     def _advance_lr(self) -> None:
         if self.lr_adjust is not None:
             self.lr_adjust.run()
 
-    def _epoch_end(self) -> None:
-        """The workflow's snapshotter, unless it is gated off."""
+    def _async_snapshot_enabled(self, snap) -> bool:
+        return (snap is not None
+                and bool(root.common.engine.get("async_snapshot", True)))
+
+    def _drain_snapshots(self, suppress: bool) -> None:
+        """Wait until the queued background saves are written; with
+        ``suppress`` (an error already in flight) a writer's error is not
+        raised over it."""
         snap = getattr(self.workflow, "snapshotter", None)
-        if snap is not None and not bool(snap.gate_skip):
-            snap.epoch_number = self.decision.epoch_number
-            snap.improved = self.decision.improved
+        if snap is None or not hasattr(snap, "flush_async"):
+            return
+        try:
+            snap.flush_async()
+        except Exception:
+            if not suppress:
+                raise
+
+    def _epoch_end(self) -> None:
+        """The workflow's snapshotter, unless it is gated off: a due save
+        is queued for the background writer with device clones of the
+        state under ``async_snapshot``, else written in line."""
+        snap = getattr(self.workflow, "snapshotter", None)
+        if snap is None or bool(snap.gate_skip):
+            return
+        decision = self.decision
+        snap.epoch_number = decision.epoch_number
+        snap.improved = decision.improved
+        if not self._async_snapshot_enabled(snap):
             snap.run()
+            return
+        tags = snap.tags_for(decision.epoch_number, decision.improved)
+        if tags:
+            from znicz_torch import snapshotter as snap_mod
+
+            state = snap_mod.collect(self.workflow, device_copies=True)
+            state["config"] = root.to_dict()
+            ready = None
+            if self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+            snap.save_async(state, tags, ready)
 
     def run(self) -> None:
-        """Train until the Decision completes.  Every step reads its
-        metrics back to the host, which synchronises with the device, so
-        the stats' wall times are device-inclusive."""
+        """Train until the Decision completes (the reference's segmented
+        run).  The final background snapshot is written before it
+        returns."""
         if self.loader is None:
             raise ValueError("the workflow has no loader to train from")
+        if self.loss_kind != "softmax" and \
+                getattr(self.loader, "streaming", False) and \
+                self.loader.original_targets is None:
+            raise ValueError(
+                f"{self.loader.name}: a streaming loader under an MSE loss "
+                "needs regression targets (build its source with "
+                "targets=)")
         self._init_velocities()
+        self._reset_accounting()
         indices_only, self.loader.indices_only = self.loader.indices_only, True
         try:
-            self._run()
+            self._run_segmented()
         finally:
             self.loader.indices_only = indices_only
+            self._captures.clear()
+            self.staging_buffers.clear()
+            self._pinned.clear()
+            if self._stager is not None:
+                self.stager_stats = self._stager.stats()
+                self._stager.close()
+                self._stager = None
+            # an interrupted run still lands its queued saves, without a
+            # writer's error hiding the one in flight
+            self._drain_snapshots(suppress=sys.exc_info()[0] is not None)
 
-    def _run(self) -> None:
-        decision = self.decision
-        while not decision.complete:
-            mb = self._advance()
-            t0 = time.perf_counter()
+    def _run_segmented(self) -> None:
+        loader, decision = self.loader, self.decision
+        staging = self.staging
+        fifo = deque()              # advanced, not yet dispatched
+        inflight = None             # (segment, device metrics, t0)
+        epoch_conf = None           # the epoch's confusion, on the device
+        eng = root.common.engine
+        if staging and self.device.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        prefetch_segments = int(eng.get("prefetch_segments", 2))
+        can_prefetch = (staging and prefetch_segments > 0 and
+                        getattr(loader.source, "prefetch", None) is not None)
+        stager = None
+        if staging and bool(eng.get("async_staging", True)):
+            from znicz_torch.loader.ingest import DeviceStager
+
+            stager = self._stager = DeviceStager(self._stage_direct)
+        # the lookahead also feeds the stager's predictions for sources
+        # without a decode pool
+        look_mbs = max(prefetch_segments * self.scan_chunk
+                       if can_prefetch else 0,
+                       2 * self.scan_chunk if stager else 0)
+
+        def segment_inputs(seg):
+            """(the staged segment or None, the segment's (k, ...) inputs
+            on the device)."""
+            if not staging:
+                return None, self._resident_inputs(seg)
+            rows = [s["idx"] for s in seg]
+            self.stats["staged_segments"] += 1
+            staged = (stager.take(rows) if stager is not None
+                      else self._stage_direct(rows))
+            return staged, staged.consume()
+
+        def consumed(staged):
+            if staged is not None:
+                self._consumed(staged)
+
+        def upcoming_segments():
+            """The groups the loop will form from the fifo, by its rules,
+            up to the first whose end the fifo cannot show yet."""
+            groups, i, n = [], 0, len(fifo)
+            while i < n:
+                m = fifo[i]
+                if m["class"] == TRAIN and m["last_minibatch"]:
+                    groups.append([m])
+                    i += 1
+                    continue
+                is_train = m["class"] == TRAIN
+                seg = [m]
+                i += 1
+                while i < n and len(seg) < self.scan_chunk:
+                    nxt = fifo[i]
+                    same = (nxt["class"] == TRAIN
+                            and not nxt["last_minibatch"]
+                            if is_train else nxt["class"] == m["class"])
+                    if not same:
+                        break
+                    seg.append(nxt)
+                    i += 1
+                if len(seg) < self.scan_chunk and i >= n:
+                    break
+                groups.append(seg)
+            return groups
+
+        def submit_upcoming():
+            if stager is None:
+                return
+            for seg in upcoming_segments():
+                if stager.outstanding >= stager.depth:
+                    break
+                stager.submit([s["idx"] for s in seg])
+
+        def take_mb():
+            return fifo.popleft() if fifo else self._advance()
+
+        def extend_lookahead():
+            if not look_mbs:
+                return
+            if can_prefetch:
+                for m in fifo:
+                    if not m.get("pf"):
+                        loader.prefetch_rows(m["idx"])
+                        m["pf"] = True
+            # never past an epoch's tail: the snapshot at the epoch's end
+            # records the loader as the tail left it
+            while len(fifo) < look_mbs and \
+                    not (fifo and fifo[-1]["last_minibatch"]):
+                nxt = self._advance()
+                if can_prefetch:
+                    loader.prefetch_rows(nxt["idx"])
+                    nxt["pf"] = True
+                fifo.append(nxt)
+
+        def collect(first, same):
+            seg = [first]
+            while len(seg) < self.scan_chunk:
+                nxt = take_mb()
+                if not same(nxt):
+                    fifo.appendleft(nxt)
+                    break
+                seg.append(nxt)
+            return seg
+
+        def flush():
+            """Read back the in-flight train segment and feed its metrics,
+            after the next segment is queued; its confusion joins the
+            epoch's sum on the device."""
+            nonlocal inflight, epoch_conf
+            if inflight is None:
+                return
+            seg, (losses, n_errs, conf), t0 = inflight
+            inflight = None
+            epoch_conf = conf if epoch_conf is None else epoch_conf + conf
+            for s, loss, n_err in zip(seg, losses.tolist(), n_errs.tolist()):
+                self._feed_decision(s, (loss, n_err, None))
+            self._account(f"train_{len(seg)}",
+                          sum(s["size"] for s in seg), t0)
+
+        while not bool(decision.complete):
+            t_iter = time.perf_counter()
+            mb = take_mb()
             if mb["class"] == TRAIN and not mb["last_minibatch"]:
-                metrics = self.train_step(mb["idx"], mb["size"],
-                                          self.steps_done)
-                self._advance_lr()
-                self.steps_done += 1
-                self._feed_decision(mb, metrics)
-                self._account("train", mb["size"], t0)
+                seg = collect(mb, lambda m: m["class"] == TRAIN
+                              and not m["last_minibatch"])
+                extend_lookahead()
+                if stager is not None:
+                    # the upcoming segments assemble while the previous
+                    # one is read back
+                    submit_upcoming()
+                    flush()
+                hyp_rows = self._hyper_matrix(self._hypers_rows(len(seg)))
+                staged, inputs = segment_inputs(seg)
+                result = self._segment("train", inputs,
+                                       [s["size"] for s in seg],
+                                       self.steps_done, hyp_rows)
+                consumed(staged)
+                self.steps_done += len(seg)
+                submit_upcoming()
+                if stager is None:
+                    flush()
+                inflight = (seg, result, t_iter)
             elif mb["class"] == TRAIN:
-                # epoch tail: metrics first, the Decision rules, and the
-                # update applies only if gd_skip stayed open
-                metrics = self.eval_step(mb["idx"], mb["size"],
-                                         self.steps_done, train=True)
-                self._feed_decision(mb, metrics)
-                if not decision.gd_skip:
-                    self.train_step(mb["idx"], mb["size"], self.steps_done)
+                flush()
+                # the epoch tail: metrics, the Decision, then the update
+                # if gd_skip stayed open
+                staged, inputs = segment_inputs([mb])
+                inputs = {n: t[0] for n, t in inputs.items()}
+                loss, n_err, conf = self._step("tail", inputs, mb["size"],
+                                               self.steps_done)
+                self.stats["eval_steps"] += 1
+                self.stats["eager_steps"] += 1
+                if epoch_conf is not None:
+                    conf = epoch_conf + conf
+                    epoch_conf = None
+                self._feed_decision(mb, (loss, n_err, conf))
+                if not bool(decision.gd_skip):
+                    hyp, clips = self._host_row()
+                    self._step("train", inputs, mb["size"], self.steps_done,
+                               hyp, clips)
+                    self.stats["train_steps"] += 1
+                    self.stats["eager_steps"] += 1
                     self._advance_lr()
+                consumed(staged)
                 self.steps_done += 1
-                self._account("tail", mb["size"], t0)
+                self._account("tail", mb["size"], t_iter)
             else:
-                metrics = self.eval_step(mb["idx"], mb["size"])
-                self._feed_decision(mb, metrics)
-                self._account("eval", 0, t0)
+                flush()
+                # TEST or VALID: one class a segment, whose confusion
+                # goes to that class with its first minibatch
+                seg = collect(mb, lambda m: m["class"] == mb["class"])
+                extend_lookahead()
+                submit_upcoming()
+                staged, inputs = segment_inputs(seg)
+                losses, n_errs, conf = self._segment(
+                    "eval", inputs, [s["size"] for s in seg])
+                consumed(staged)
+                for i, (s, loss, n_err) in enumerate(
+                        zip(seg, losses.tolist(), n_errs.tolist())):
+                    self._feed_decision(s, (loss, n_err,
+                                            conf if i == 0 else None))
+                self._account(f"eval_{len(seg)}", 0, t_iter)
             if bool(decision.epoch_ended):
                 self._epoch_end()
+                # consumed here: the next iteration may feed the Decision
+                # nothing before this check comes round again
+                decision.epoch_ended.set(False)
+            if not bool(decision.complete):
+                # after the epoch's hook: a snapshot records the loader
+                # as the tail left it
+                extend_lookahead()
+                submit_upcoming()
+        flush()

@@ -19,10 +19,21 @@ reference snapshot saved under bf16 state holds ``ml_dtypes`` bf16
 arrays; :meth:`Snapshotter.load` reads them without that package, as
 float32 leaves of the same values.  A loader's ``normalizer`` state
 rides in ``snap["loader"]["normalizer"]``, as the reference's does.  The
-reference's async writer, its orbax format and multi-host saves are not
-ported (ROADMAP queues A.4, A.7): :class:`Snapshotter` refuses
+reference's orbax format and multi-host saves are not ported (ROADMAP
+queues A.4, A.7): :class:`Snapshotter` refuses
 ``compression`` other than "gz", ``format`` other than "pickle" and
 ``sharded=True``.
+
+**Asynchronous saves** (``FusedTrainer`` under
+``root.common.engine.async_snapshot``, on by default): at an epoch's end
+the trainer takes device clones of the parameters and velocities and the
+metadata as they stand (:func:`collect` with ``device_copies``) and hands
+them to :meth:`Snapshotter.save_async`; one background thread copies the
+clones to the host and writes the files while the next epoch runs.  A
+queued "best" save that has not started is dropped when a newer one
+arrives (``async_saves_coalesced``); interval saves are never dropped.
+:meth:`Snapshotter.flush_async` waits until every queued save is
+written, and raises a writer's error.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from __future__ import annotations
 import gzip
 import os
 import pickle
+import threading
 import time
 from typing import Dict, Optional
 
@@ -47,21 +59,24 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy().copy()
 
 
-def collect(workflow) -> Dict:
+def collect(workflow, device_copies: bool = False) -> Dict:
     """The snapshot dict of ``workflow``'s units: forward parameters,
     GD velocities (zeros before the first update), and
-    :func:`collect_meta`'s metadata."""
+    :func:`collect_meta`'s metadata.  With ``device_copies`` the array
+    leaves are clones on the device, in their live dtypes, for
+    :meth:`Snapshotter.save_async` to copy out later."""
     from znicz_torch.nn_units import ForwardBase, GradientDescentBase
 
+    leaf = (lambda t: t.detach().clone()) if device_copies else _numpy
     snap = collect_meta(workflow)
     for unit in workflow:
         if isinstance(unit, ForwardBase) and unit.has_weights:
-            snap["units"][unit.name] = {k: _numpy(p) for k, p
+            snap["units"][unit.name] = {k: leaf(p) for k, p
                                         in unit.params().items()}
         elif isinstance(unit, GradientDescentBase):
             unit.init_velocities()
             snap["velocities"][unit.name] = {
-                k: _numpy(v) for k, v in unit.velocities.items()}
+                k: leaf(v) for k, v in unit.velocities.items()}
     return snap
 
 
@@ -194,6 +209,15 @@ class Snapshotter(Unit):
         self.destination: Optional[str] = None     # the last path written
         self.improved = False                      # linked from decision
         self.epoch_number = 0                      # linked from decision
+        #: files the background writer wrote, and queued best saves a
+        #: newer one superseded before they started
+        self.async_saves_written = 0
+        self.async_saves_coalesced = 0
+        self._async_lock = threading.Condition()
+        self._async_pending: list = []
+        self._async_thread: Optional[threading.Thread] = None
+        self._async_busy = False
+        self._async_error: Optional[BaseException] = None
 
     def snapshot_path(self, tag: str) -> str:
         return os.path.join(self.directory, f"{self.prefix}_{tag}.pickle.gz")
@@ -217,6 +241,10 @@ class Snapshotter(Unit):
             time.time() - self._last_best_save_t
             >= self.min_save_interval_s)
 
+    def due(self, epoch: int, improved) -> bool:
+        """Whether :meth:`run` would write anything for this epoch."""
+        return self._best_due(improved) or self._interval_due(int(epoch))
+
     def run(self):
         if self._best_due(self.improved):
             self._last_best_save_t = time.time()
@@ -225,6 +253,90 @@ class Snapshotter(Unit):
         if self._interval_due(epoch):
             self.save(f"epoch_{epoch}")
             self._last_saved_epoch = epoch
+
+    # -- asynchronous saves ----------------------------------------------------
+
+    def tags_for(self, epoch: int, improved) -> list:
+        """The tags :meth:`run` would write for this epoch, its interval
+        and rate bookkeeping taken as :meth:`run` takes it."""
+        tags = []
+        if self._best_due(improved):
+            self._last_best_save_t = time.time()
+            tags.append("best")
+        epoch = int(epoch)
+        if self._interval_due(epoch):
+            tags.append(f"epoch_{epoch}")
+            self._last_saved_epoch = epoch
+        return tags
+
+    def save_async(self, snap: Dict, tags, ready=None) -> None:
+        """Queue ``snap`` (array leaves may be device tensors) to be
+        written under each of ``tags`` by the background writer.
+        ``ready``, a CUDA event recorded after the leaves were made, is
+        waited on before they are copied out.  A writer error from an
+        earlier save is raised here."""
+        with self._async_lock:
+            if self._async_error is not None:
+                err, self._async_error = self._async_error, None
+                raise err
+            if "best" in tags:
+                # a queued best that has not started is superseded: same
+                # file, older weights; its interval tags stay queued
+                kept = []
+                for snap_p, tags_p, ready_p in self._async_pending:
+                    rest = [t for t in tags_p if t != "best"]
+                    self.async_saves_coalesced += len(tags_p) - len(rest)
+                    if rest:
+                        kept.append((snap_p, rest, ready_p))
+                self._async_pending = kept
+            self._async_pending.append((snap, list(tags), ready))
+            if self._async_thread is None:
+                self._async_thread = threading.Thread(
+                    target=self._async_worker, daemon=True,
+                    name="znicz-snapshot")
+                self._async_thread.start()
+            self._async_lock.notify_all()
+
+    def _async_worker(self) -> None:
+        while True:
+            with self._async_lock:
+                while not self._async_pending:
+                    self._async_lock.wait()
+                snap, tags, ready = self._async_pending.pop(0)
+                self._async_busy = True
+            try:
+                if ready is not None:
+                    ready.synchronize()
+                for group in ("units", "velocities"):
+                    for leaves in snap.get(group, {}).values():
+                        for k, a in leaves.items():
+                            if isinstance(a, torch.Tensor):
+                                leaves[k] = _numpy(a)
+                os.makedirs(self.directory, exist_ok=True)
+                for tag in tags:
+                    path = self.snapshot_path(tag)
+                    write_host_pickle(path, snap)
+                    with self._async_lock:
+                        self.destination = path
+                        self.async_saves_written += 1
+                    self.info("snapshot (async) -> %s", path)
+            except BaseException as exc:     # raised by flush/next save
+                with self._async_lock:
+                    self._async_error = exc
+            finally:
+                with self._async_lock:
+                    self._async_busy = False
+                    self._async_lock.notify_all()
+
+    def flush_async(self) -> None:
+        """Wait until every queued save is written; raise a writer's
+        error."""
+        with self._async_lock:
+            while self._async_pending or self._async_busy:
+                self._async_lock.wait(timeout=0.5)
+            if self._async_error is not None:
+                err, self._async_error = self._async_error, None
+                raise err
 
     @staticmethod
     def load(path: str) -> Dict:
