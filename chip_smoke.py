@@ -196,12 +196,31 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      its background snapshot against an in-line one of the same run
      (arrays, loader, prng streams equal); phase 12's stochastic pooling
      net at ``scan_chunk`` 8, uncaptured by rule, bit-equal to 1.  A
-     capture or replay error fails the run.
+     capture or replay error fails the run;
+ 15. ``deep``, the deep pipeline (``pipeline_depth`` above 1: whole epochs
+     queued back to back, their metrics read late, several epochs in one
+     transfer): phase 14's AlexNet textures for 5 epochs under ``fused``
+     in float32 and bf16 (after a one-epoch warm-up run each),
+     ``pipeline_depth`` 2 against 1 at ``scan_chunk`` 8: losses, weights,
+     velocities, confusions, the Decision's epoch and best, ``steps_done``
+     and the loader bit-equal, the K1/K1b/K2/K2b launches equal and
+     2/2/3/3 a train step, each run's captured and eager steps, images/s
+     (warm: after the first epoch, on the device's clock for the deep
+     run), peak memory, epochs queued and flushed, pulls and the most in
+     flight; in float32 the snapshotter is active and the best snapshot
+     each run queues (held in memory, not written) is compared: arrays
+     bit for bit, the loader, the prng streams and the Decision exact.
+     CIFAR10 under ``pallas_lrn`` + ``fused_tail`` at ``learning_rate``
+     1e-4, ``fail_iterations`` 2 and ``max_epochs`` 50, ``pipeline_depth``
+     4 against 1: the stop found late and rolled back once, bit-equal to
+     the segmented run (weights, velocities, ``steps_done``, the loader,
+     the ``lr_adjust`` iteration), every queued step's K2/K2b/K3/K3b
+     launches counted, the rolled-back ones too.
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
-runs write none (their snapshotter is gated off: a full-width snapshot
-is 0.5 GB of gzip).  The last lines are the ``kernels`` JSON object and
+runs write none (their snapshotter is gated off, or in phase 15 its
+saves are held in memory: a full-width snapshot is 0.5 GB of gzip).  The last lines are the ``kernels`` JSON object and
 then ``{"ok": true, "device": {...}}``.  Without a CUDA device the
 script exits non-zero before printing any result.
 
@@ -215,8 +234,9 @@ cases of each kernel named (``fused_block_fwd``, ``fused_block_bwd``,
 phases 7 and 8 for
 ``anchors``, phase 9 for ``units``, phase 10 for ``bf16``, phase 11
 for ``mnist_ae`` and ``kohonen`` (each alone or both), phase 12 for
-``kinds``, phase 13 for ``samples`` and phase 14 for ``segments``; it
-prints the ``kernels`` object and no ``ok`` line.
+``kinds``, phase 13 for ``samples``, phase 14 for ``segments`` and
+phase 15 for ``deep``; it prints the ``kernels`` object and no ``ok``
+line.
 """
 
 from __future__ import annotations
@@ -3304,12 +3324,17 @@ def seg_differences(torch, a, b):
 
 
 def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
-            epochs=SEG_EPOCHS, remat=False):
+            epochs=SEG_EPOCHS, remat=False, tag="segments", snapshots=None):
     """One ``FusedTrainer.run()`` of ``wf`` from ``start`` over
     ``loader``, every named stream reset to SEED, under ``knobs``; the
     launches held to ``expect`` (a train step recomputes its forward
-    under ``remat``).  Returns a record of the run."""
+    under ``remat``; the deep pipeline's rolled-back steps launch too).
+    With ``snapshots`` (a dict) the snapshotter is active, wired to the
+    run's Decision, and each save it queues is kept there by tag, its
+    device clones and metadata, instead of written.  Returns a record of
+    the run."""
     from znicz_torch.core import prng
+    from znicz_torch.core.mutable import Bool
     from znicz_torch.decision import DecisionGD
     from znicz_torch.parallel.fused import FusedTrainer
 
@@ -3322,7 +3347,28 @@ def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
                 p.copy_(start[f.name][k])
     for gd in wf.gds.values():
         gd.velocities = {}
-    wf.decision = DecisionGD(max_epochs=epochs, fail_iterations=0)
+    decision = DecisionGD(max_epochs=epochs, fail_iterations=0)
+    if wf.decision in wf.units:
+        # in the old one's place: a snapshot records the workflow's
+        # Decision
+        wf.units[wf.units.index(wf.decision)] = decision
+        decision.workflow = wf
+    wf.decision = decision
+    snap = wf.snapshotter
+    snap.__dict__.pop("save_async", None)
+    if snapshots is None:
+        snap.gate_skip = Bool(True)
+    else:
+        snap.gate_skip = ~wf.decision.epoch_ended
+        snap._last_best_save_t = -1e18
+
+        def keep(state, tags, ready=None):
+            if ready is not None:
+                ready.synchronize()
+            for t in tags:
+                snapshots[t] = state
+
+        snap.save_async = keep
     ctrs = counters()
     with engine_knobs(**knobs):
         trainer = FusedTrainer(wf)
@@ -3341,8 +3387,9 @@ def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
     simple = {name: fn.simple_launches for name, fn in ctrs.items()
               if getattr(fn, "simple_launches", 0)}
     st = trainer.stats
-    n_train, n_eval = st["train_steps"], st["eval_steps"]
-    log(f"[segments:{label}] {card}: scan_chunk {trainer.scan_chunk}, "
+    n_train = st["train_steps"] + st["deep_discarded_train_steps"]
+    n_eval = st["eval_steps"] + st["deep_discarded_eval_steps"]
+    log(f"[{tag}:{label}] {card}: scan_chunk {trainer.scan_chunk}, "
         f"{n_train} train + {n_eval} eval steps, captured "
         f"{st['captured_steps']} / eager {st['eager_steps']} (warm-ups "
         f"{st['warmup_s']:.3f}s, captures {st['capture_s']:.3f}s of host "
@@ -3353,9 +3400,9 @@ def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
         f"{peak / 2**30:.3f} GiB allocated; launches={launches}")
     losses = list(trainer.train_losses)
     if not losses or not all(np.isfinite(losses)):
-        raise AssertionError(f"[segments:{label}] non-finite loss: {losses}")
+        raise AssertionError(f"[{tag}:{label}] non-finite loss: {losses}")
     if simple:
-        raise AssertionError(f"[segments:{label}] simple kernels: {simple}")
+        raise AssertionError(f"[{tag}:{label}] simple kernels: {simple}")
     if expect is not None:
         for name, fn in ctrs.items():
             per_train, per_eval = expect.get(name, (0, 0))
@@ -3364,7 +3411,7 @@ def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
             want = per_train * n_train + per_eval * n_eval
             if launches[name] != want:
                 raise AssertionError(
-                    f"[segments:{label}] {name}: {launches[name]} launches "
+                    f"[{tag}:{label}] {name}: {launches[name]} launches "
                     f"for {n_train} train + {n_eval} eval steps, expected "
                     f"{want}")
     return {"state": seg_state(trainer), "launches": launches,
@@ -3372,13 +3419,13 @@ def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
             "trainer": trainer}
 
 
-def seg_same(torch, label, a, b, what):
+def seg_same(torch, label, a, b, what, tag="segments"):
     bad = seg_differences(torch, a["state"], b["state"])
-    log(f"[segments:{label}] {what}: "
+    log(f"[{tag}:{label}] {what}: "
         + ("bit-equal: losses, weights, velocities, confusions" if not bad
            else f"DIFFER at {bad[:8]}"))
     if bad:
-        raise AssertionError(f"[segments:{label}] {what} differ at {bad}")
+        raise AssertionError(f"[{tag}:{label}] {what} differ at {bad}")
 
 
 def seg_alexnet(torch, card, tmp):
@@ -3637,6 +3684,251 @@ def segments_phase(torch, card):
     return out
 
 
+# -- phase 15: the deep pipeline ---------------------------------------------
+
+#: phase 15's AlexNet: phase 14's textures, epochs, the deep run's depth
+DEEP_EPOCHS, DEEP_DEPTH = 5, 2
+#: the rollback: CIFAR10 under pallas_lrn + fused_tail at a rate so small
+#: that validation stops improving, found up to 2 * depth epochs late
+DEEP_CIFAR = {"learning_rate": 1e-4, "decision.fail_iterations": 2,
+              "decision.max_epochs": 50}
+DEEP_CIFAR_DEPTH = 4
+
+
+def deep_extra(trainer):
+    """What a run leaves besides ``seg_state``: the Decision's epoch and
+    best, ``steps_done``, the loader's position and order, the
+    ``lr_adjust`` iteration."""
+    d, ldr = trainer.decision, trainer.loader
+    lr = trainer.lr_adjust
+    return {"epoch_number": int(d.epoch_number),
+            "best_metric": float(d.best_metric),
+            "steps_done": trainer.steps_done,
+            "loader": (int(ldr.epoch_number), int(ldr.samples_served),
+                       int(ldr._pos), bool(ldr.last_minibatch)),
+            "order": np.array(ldr._shuffled_indices),
+            "lr_iteration": None if lr is None else lr.iteration}
+
+
+def deep_extra_differences(a, b):
+    return [k for k in a if not (np.array_equal(a[k], b[k]) if k == "order"
+                                 else a[k] == b[k])]
+
+
+def deep_log(card, label, trainer):
+    st = trainer.stats
+    log(f"[deep:{label}] {card}: pipeline_depth {trainer.pipeline_depth}, "
+        f"epochs queued {st['deep_epochs']}, flushed "
+        f"{st['deep_flushes']}, pulls {st['deep_pulls']}, most in flight "
+        f"{st['deep_inflight_max']}, rollbacks {st['deep_rollbacks']} "
+        f"(discarded {st['deep_discarded_train_steps']} train + "
+        f"{st['deep_discarded_eval_steps']} eval steps); {st['train_steps']} "
+        f"train + {st['eval_steps']} eval steps kept, captured "
+        f"{st['captured_steps']} / eager {st['eager_steps']}; images/s "
+        f"{st['img_per_sec']:.1f} (warm {st['warm_img_per_sec']:.1f})")
+
+
+def host_snapshot(state):
+    """A queued snapshot with its device leaves copied to the host, as
+    the background writer copies them."""
+    return {**state, **{group: {name: {k: v.cpu().numpy()
+                                       for k, v in leaves.items()}
+                                for name, leaves in state[group].items()}
+                        for group in ("units", "velocities")}}
+
+
+def deep_alexnet(torch, card):
+    """Phase 15's AlexNet runs: ``fused`` in float32 and bf16, 5 epochs at
+    pipeline_depth 2 against 1 (scan_chunk 8), the float32 runs with an
+    active snapshotter whose queued saves are compared.  Returns {run:
+    {kernel: launches}}."""
+    from znicz_torch.loader.streaming import HostArraySource, StreamingLoader
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.samples.alexnet import AlexNetWorkflow
+
+    t0 = time.perf_counter()
+    n_valid, n_train = SEG_ROWS
+    u8, labels = seg_textures(torch, n_valid + n_train)
+    main = StreamingLoader(source=HostArraySource(u8, labels),
+                           class_lengths=[0, n_valid, n_train],
+                           minibatch_size=BATCH, device_budget_bytes=1 << 40)
+    wf = AlexNetWorkflow(sample_shape=(227, 227, 3), n_classes=1000,
+                         loader=main,
+                         decision_config={"max_epochs": DEEP_EPOCHS,
+                                          "fail_iterations": 0})
+    start = {f.name: {k: p.detach().clone()
+                      for k, p in FusedTrainer._params_of(f).items()}
+             for f in wf.forwards if f.has_weights}
+    log(f"[deep] AlexNet {n_train} + {n_valid} textures (uint8, resident), "
+        f"batch {BATCH}, {DEEP_EPOCHS} epochs, pipeline_depth {DEEP_DEPTH} "
+        f"against 1; built in {time.perf_counter() - t0:.2f}s")
+    out = {}
+    for routing in ("f32", "bf16"):
+        knobs, expect = SEG_ROUTINGS[routing]
+        # one epoch first, so that neither timed run pays the process's
+        # first cuDNN plans and allocations
+        seg_run(torch, card, f"{routing}:warm-up", wf, start, main,
+                {**knobs, "scan_chunk": 8}, expect, epochs=1, tag="deep")
+        runs = {}
+        for depth in (DEEP_DEPTH, 1):
+            label = f"{routing}:depth{depth}"
+            snaps = {} if routing == "f32" else None
+            run = seg_run(torch, card, label, wf, start, main,
+                          {**knobs, "scan_chunk": 8,
+                           "pipeline_depth": depth},
+                          expect, epochs=DEEP_EPOCHS, tag="deep",
+                          snapshots=snaps)
+            trainer = run.pop("trainer")
+            deep_log(card, label, trainer)
+            run.update(extra=deep_extra(trainer), snaps=snaps)
+            if (trainer.stats["deep_epochs"] != 0) != (depth > 1):
+                raise AssertionError(f"[deep:{label}] the deep pipeline "
+                                     f"ran: {trainer.stats['deep_epochs']}")
+            runs[depth] = run
+            out[label] = run["launches"]
+            del trainer
+        deep, seg = runs[DEEP_DEPTH], runs[1]
+        seg_same(torch, routing, deep, seg, f"pipeline_depth {DEEP_DEPTH} "
+                 "vs 1", tag="deep")
+        bad = deep_extra_differences(deep["extra"], seg["extra"])
+        log(f"[deep:{routing}] epoch, best metric, steps_done, loader, "
+            f"lr_adjust: " + ("equal" if not bad else f"DIFFER at {bad}")
+            + f" ({deep['extra']['epoch_number']}, "
+            f"{deep['extra']['best_metric']}, {deep['extra']['steps_done']}, "
+            f"{deep['extra']['loader']})")
+        if bad:
+            raise AssertionError(f"[deep:{routing}] differ at {bad}")
+        if deep["launches"] != seg["launches"]:
+            raise AssertionError(f"[deep:{routing}] launches differ: "
+                                 f"{deep['launches']} vs {seg['launches']}")
+        log(f"[deep:{routing}] {card}: images/s depth {DEEP_DEPTH} "
+            f"{deep['stats']['img_per_sec']:.1f} (warm "
+            f"{deep['stats']['warm_img_per_sec']:.1f}) vs 1 "
+            f"{seg['stats']['img_per_sec']:.1f} (warm "
+            f"{seg['stats']['warm_img_per_sec']:.1f}); max_memory_allocated "
+            f"{deep['peak'] / 2**30:.3f} vs {seg['peak'] / 2**30:.3f} GiB")
+        if routing == "f32":
+            # (c) the best snapshot each run queued
+            a, b = deep["snaps"].get("best"), seg["snaps"].get("best")
+            if a is None or b is None:
+                raise AssertionError("[deep:snapshot] no best snapshot")
+            bad = seg_snapshot_differences(host_snapshot(a),
+                                           host_snapshot(b))
+            log(f"[deep:snapshot] best of epoch {a['epoch']} at depth "
+                f"{DEEP_DEPTH} vs 1: " + (
+                    "arrays bit-equal; loader, prng streams and Decision "
+                    "equal" if not bad else f"DIFFER at {bad}"))
+            if bad:
+                raise AssertionError(f"[deep:snapshot] differ at {bad}")
+        del runs, deep, seg
+    wf.snapshotter.__dict__.pop("save_async", None)
+    del wf, main, start
+    torch.cuda.empty_cache()
+    return out
+
+
+class cifar_config:
+    """Set ``root.cifar`` keys (dotted below it) within a ``with`` block
+    and put the old values back after it."""
+
+    def __init__(self, values):
+        self.values, self.saved = values, []
+
+    def __enter__(self):
+        from znicz_torch.core.config import root
+
+        for key, val in self.values.items():
+            self.saved.append((key, root.cifar.get_by_path(key)))
+            root.cifar.set_by_path(key, val)
+
+    def __exit__(self, *exc):
+        from znicz_torch.core.config import root
+
+        for key, old in reversed(self.saved):
+            root.cifar.set_by_path(key, old)
+
+
+def deep_cifar(torch, card, tmp):
+    """(b) CIFAR10 under ``pallas_lrn`` + ``fused_tail`` at a rate that
+    fail-stops: pipeline_depth 4 (the stop found late, rolled back)
+    against the segmented run, bit for bit; the launches of every queued
+    step counted, the rolled-back ones too."""
+    from znicz_torch.core import prng
+    from znicz_torch.parallel.fused import FusedTrainer
+
+    ctrs = counters()
+    expect = ANCHOR_RUNS["cifar:pallas_lrn"][3]
+    runs, out = {}, {}
+    for depth in (DEEP_CIFAR_DEPTH, 1):
+        label = f"cifar:depth{depth}"
+        with engine_knobs(**SEG_CIFAR_KNOBS, scan_chunk=8,
+                          pipeline_depth=depth), cifar_config(DEEP_CIFAR):
+            prng.reset(ANCHOR_SEED)
+            wf = sample_workflow("cifar")
+            wf.snapshotter.directory = os.path.join(tmp, label)
+            trainer = FusedTrainer(wf)
+            for fn in ctrs.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            trainer.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        st = trainer.stats
+        launches = {name: fn.launches for name, fn in ctrs.items()}
+        n_train = st["train_steps"] + st["deep_discarded_train_steps"]
+        n_eval = st["eval_steps"] + st["deep_discarded_eval_steps"]
+        for name in ctrs:
+            per_train, per_eval = expect.get(name, (0, 0))
+            if launches[name] != per_train * n_train + per_eval * n_eval:
+                raise AssertionError(
+                    f"[deep:{label}] {name}: {launches[name]} launches for "
+                    f"{n_train} + {n_eval} queued steps")
+        losses = list(trainer.train_losses)
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"[deep:{label}] non-finite loss")
+        log(f"[deep:{label}] {card}: stopped at epoch "
+            f"{wf.decision.epoch_number} of {wf.decision.max_epochs} "
+            f"(fail_iterations {wf.decision.fail_iterations}); run() "
+            f"{wall:.2f}s; launches={launches}")
+        deep_log(card, label, trainer)
+        runs[depth] = {"state": seg_state(trainer),
+                       "extra": deep_extra(trainer), "stats": dict(st)}
+        out[label] = launches
+        del wf, trainer
+    deep, seg = runs[DEEP_CIFAR_DEPTH], runs[1]
+    if deep["stats"]["deep_rollbacks"] != 1 or \
+            deep["extra"]["epoch_number"] + 1 >= 50:
+        raise AssertionError(f"[deep:cifar] rollbacks "
+                             f"{deep['stats']['deep_rollbacks']}, stopped at "
+                             f"epoch {deep['extra']['epoch_number']}")
+    seg_same(torch, "cifar", deep, seg, f"pipeline_depth {DEEP_CIFAR_DEPTH} "
+             "(rolled back) vs 1", tag="deep")
+    bad = deep_extra_differences(deep["extra"], seg["extra"])
+    log(f"[deep:cifar] epoch, best metric, steps_done, loader, lr_adjust: "
+        + ("equal" if not bad else f"DIFFER at {bad}")
+        + f" ({deep['extra']['epoch_number']}, "
+        f"{deep['extra']['steps_done']}, {deep['extra']['loader']}, "
+        f"{deep['extra']['lr_iteration']})")
+    if bad:
+        raise AssertionError(f"[deep:cifar] differ at {bad}")
+    for key in ("train_steps", "eval_steps", "images"):
+        if deep["stats"][key] != seg["stats"][key]:
+            raise AssertionError(f"[deep:cifar] {key} differ")
+    torch.cuda.empty_cache()
+    return out
+
+
+def deep_phase(torch, card):
+    """Phase 15.  Returns {run: {kernel: launches}}."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deep_")
+    try:
+        out = deep_alexnet(torch, card)
+        out.update(deep_cifar(torch, card, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -3644,7 +3936,8 @@ def main(argv=None) -> int:
                          "alone; 'anchors': phases 7-8; 'units': phase 9; "
                          "'bf16': phase 10; 'mnist_ae', 'kohonen': phase "
                          "11 for that sample; 'kinds': phase 12; "
-                         "'samples': phase 13; 'segments': phase 14")
+                         "'samples': phase 13; 'segments': phase 14; "
+                         "'deep': phase 15")
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -3708,10 +4001,11 @@ def run_phases(torch, args) -> int:
         anchors, units = "anchors" in names, "units" in names
         bf16, kinds = "bf16" in names, "kinds" in names
         samples, segments = "samples" in names, "segments" in names
+        deep = "deep" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
-                  "segments", *AE_SOM_RUNS)]
+                  "segments", "deep", *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -3773,6 +4067,13 @@ def run_phases(torch, args) -> int:
                             "launches_by_path", {})[
                                 f"segments:{label}"] = count
             lap("phase 14")
+        if deep:
+            for label, launches in deep_phase(torch, card).items():
+                for name, count in launches.items():
+                    if count:
+                        rows.setdefault(name, {"name": name}).setdefault(
+                            "launches_by_path", {})[f"deep:{label}"] = count
+            lap("phase 15")
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -3932,6 +4233,16 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 14")
+
+    # -- phase 15: the deep pipeline: epochs queued back to back, metrics
+    # -- read late, the fail-stop rollback, snapshots at flushes ----------
+    for label, launches in deep_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][f"deep:{label}"] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 15")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

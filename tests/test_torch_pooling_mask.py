@@ -126,7 +126,7 @@ def test_composed_train_steps_under_mask_match_the_reference():
 @pytest.mark.parametrize("knob,value,item", [
     ("mesh.model", 2, "A.4"),
     ("train_shard", True, "A.4"),
-    ("pipeline_depth", 2, "A.4"),
+    ("slave_ttl", 30.0, "A.7"),
     ("snapshot_sharded", True, "A.4"),
     ("snapshot_format", "orbax", "A.4"),
     ("mesh.data", 2, "A.4"),
@@ -153,12 +153,13 @@ def test_cli_refuses_an_unported_knob(knob, value, item, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
-#: the segmented run's and the streaming path's knobs, each set away from
-#: its default
+#: the segmented run's, the streaming path's, the deep pipeline's and the
+#: compiler knobs, each set away from its default
 PORTED_A4 = {"remat": True, "scan_chunk": 4, "async_snapshot": False,
              "prefetch_segments": 0, "decode_workers": 2,
              "stream_budget_mb": 64, "async_staging": False,
-             "staging_donate": False}
+             "staging_donate": False, "pipeline_depth": 2, "backend": "cpu",
+             "fuse": False, "xla_latency_hiding": True}
 
 
 def test_defaults_and_ported_knobs_pass_the_check():

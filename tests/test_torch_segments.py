@@ -17,8 +17,8 @@ time.
     the reference's ``remat``;
   - the per-step hyperparameters as device rows: ``sgd_update`` with
     0-dim float32 tensors gives the bits of float hyperparameters;
-  - the eight knobs of this slice are read, and with the refused ones
-    they are the reference's 61.
+  - the eight knobs of this slice and the deep pipeline's four are read,
+    and with the 35 refused ones they are the reference's 61.
 """
 
 import contextlib
@@ -401,8 +401,9 @@ def test_hyper_rows_follow_the_reference(tmp_path):
 
 
 def test_the_slice_knobs_are_read():
-    """The eight knobs left ``UNPORTED_ENGINE_KNOBS`` for
-    ``ENGINE_DEFAULTS``; with the knobs still refused they are the
+    """The eight knobs of the segmented run and the four of the deep
+    pipeline and the compiler left ``UNPORTED_ENGINE_KNOBS`` for
+    ``ENGINE_DEFAULTS``; with the 35 knobs still refused they are the
     reference's 61."""
     from znicz_torch.core.config import ENGINE_DEFAULTS, UNPORTED_ENGINE_KNOBS
     from znicz_tpu.core.config import ENGINE_DEFAULTS as JDEFAULTS
@@ -419,8 +420,10 @@ def test_the_slice_knobs_are_read():
     ref = flat(JDEFAULTS)
     assert set(ENGINE_DEFAULTS) | set(UNPORTED_ENGINE_KNOBS) == set(ref)
     assert len(ref) == 61
+    assert len(UNPORTED_ENGINE_KNOBS) == 35
     for key in ("remat", "scan_chunk", "async_snapshot", "prefetch_segments",
                 "decode_workers", "stream_budget_mb", "async_staging",
-                "staging_donate"):
+                "staging_donate", "pipeline_depth", "backend", "fuse",
+                "xla_latency_hiding"):
         assert key in ENGINE_DEFAULTS and key not in UNPORTED_ENGINE_KNOBS
         assert ENGINE_DEFAULTS[key] == ref[key], key

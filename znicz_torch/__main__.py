@@ -103,13 +103,17 @@ def main(argv=None) -> int:
     stats = wf.train_stats
     # the fused trainer, when it ran (the SOM's own unit is named trainer
     # too, and has no compute_dtype)
-    dtype = getattr(getattr(wf, "trainer", None), "compute_dtype", None)
+    trainer = getattr(wf, "trainer", None)
+    dtype = getattr(trainer, "compute_dtype", None)
+    deep = trainer.stats["deep_epochs"] if dtype is not None else 0
     print(json.dumps({
         "workflow": args.workflow, "device": str(wf.device),
         **finals(args.workflow, wf),
         "train_steps": stats["train_steps"],
         "img_per_sec": stats["img_per_sec"],
         "warm_img_per_sec": stats["warm_img_per_sec"],
+        # the epochs the deep pipeline queued, when it ran
+        **({"deep_epochs": deep} if deep else {}),
         # the unit engine computes in float32 whatever compute_dtype says,
         # as the reference's does
         "compute_dtype": (str(dtype).split(".")[-1]

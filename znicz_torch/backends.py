@@ -1,10 +1,12 @@
 """Device resolution for the port.
 
-Every entry point takes a ``device`` argument.  ``None`` means the card,
-``cuda:0``; the CPU is used only when the caller names it
-(``device="cpu"``), as the tests do.  Without a GPU and without that
-argument, :func:`resolve_device` raises: nothing drops to the CPU on its
-own.
+Every entry point takes a ``device`` argument.  ``None`` means the device
+``root.common.engine.backend`` names: the card, ``cuda:0``, under "auto"
+(the default), "gpu" or "cuda"; the CPU under "cpu"; "tpu" and any other
+name raise ``ValueError``.  The CPU is used only when the caller names it
+(``device="cpu"`` or ``backend="cpu"``), as the tests do.  Without a GPU
+and without either, :func:`resolve_device` raises: "auto" never drops to
+the CPU on its own.
 
 Float32 parity: PyTorch runs float32 convolutions through cuDNN in TF32
 by default, which keeps about three decimal digits.  The reference
@@ -27,14 +29,30 @@ import torch
 DeviceLike = Union[None, str, torch.device]
 
 
+#: ``root.common.engine.backend`` -> the device ``None`` resolves to
+BACKENDS = {"auto": "cuda:0", "gpu": "cuda:0", "cuda": "cuda:0",
+            "cpu": "cpu"}
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``cuda:0`` for ``None``; the named device otherwise.  Raises when a
-    CUDA device is wanted and none is available."""
+    """The device of ``root.common.engine.backend`` (:data:`BACKENDS`;
+    "tpu" or any other name raises ``ValueError``) for ``None``; the named
+    device otherwise.  Raises when a CUDA device is wanted and none is
+    available."""
+    from znicz_torch.core.config import root
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.deterministic = True
-    dev = torch.device("cuda:0" if device is None else device)
+    if device is None:
+        backend = str(root.common.engine.get("backend", "auto"))
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"root.common.engine.backend={backend!r}: the port runs on "
+                f"{sorted(BACKENDS)} ('tpu' has no meaning under PyTorch)")
+        device = BACKENDS[backend]
+    dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

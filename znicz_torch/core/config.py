@@ -10,6 +10,7 @@ reference's: a knob set on one is not seen by the other.
 from __future__ import annotations
 
 import ast
+import sys
 from typing import Any, Dict, Iterator, Tuple
 
 
@@ -186,6 +187,11 @@ ENGINE_DEFAULTS = {
     "stream_budget_mb": None,     # device budget of a StreamingLoader
     "async_staging": True,        # DeviceStager assembles segments ahead
     "staging_donate": True,       # consumed staged buffers go back to it
+    # the deep pipeline (FusedTrainer) and the compiler knobs
+    "pipeline_depth": 1,          # epochs queued before their metrics are read
+    "backend": "auto",            # device None: the card, or "cpu"
+    "fuse": True,                 # accepted; read nowhere, as in the reference
+    "xla_latency_hiding": False,  # accepted; warns that it has no meaning
 }
 
 #: The reference's other ``root.common.engine.*`` knobs
@@ -194,13 +200,11 @@ ENGINE_DEFAULTS = {
 #: the ROADMAP item that ports it).  :func:`check_engine_knobs` refuses
 #: each set away from its default.
 UNPORTED_ENGINE_KNOBS = {
-    # A.4, the train loop's speed levers still to port: the deep
-    # pipeline, snapshot formats, the compiler's options, sharding
+    # A.4, the train loop's levers still to port: sharding and the
+    # snapshot formats
     **{key: (default, "A.4") for key, default in (
-        ("backend", "auto"), ("fuse", True), ("pipeline_depth", 1),
         ("snapshot_format", "pickle"), ("snapshot_sharded", False),
-        ("xla_latency_hiding", False), ("train_shard", False),
-        ("mesh.data", 1), ("mesh.model", 1))},
+        ("train_shard", False), ("mesh.data", 1), ("mesh.model", 1))},
     # A.7, the distributed training plane
     **{key: (default, "A.7") for key, default in (
         ("mode", ""), ("master_bind", "tcp://*:5570"), ("master_resume", ""),
@@ -221,13 +225,25 @@ UNPORTED_ENGINE_KNOBS = {
 }
 
 _UNSET = object()
+_warned_latency_hiding = False
 
 
 def check_engine_knobs() -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for the first
     knob of :data:`UNPORTED_ENGINE_KNOBS` set away from the reference's
-    default: the port would otherwise train as if it were unset."""
+    default: the port would otherwise train as if it were unset.  With
+    ``xla_latency_hiding`` on, warn once a process on stderr that the
+    flags it names belong to XLA's scheduler, which PyTorch does not
+    run."""
+    global _warned_latency_hiding
     eng = root.common.engine
+    if bool(eng.get("xla_latency_hiding", False)) \
+            and not _warned_latency_hiding:
+        _warned_latency_hiding = True
+        print("warning: root.common.engine.xla_latency_hiding has no "
+              "meaning under PyTorch (it sets XLA's latency-hiding "
+              "scheduler flags); the port runs as without it",
+              file=sys.stderr)
     for key, (default, item) in UNPORTED_ENGINE_KNOBS.items():
         value = eng.get_by_path(key, _UNSET)
         if value is not _UNSET and value != default:

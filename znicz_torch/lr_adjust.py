@@ -13,7 +13,8 @@ gated like the GD units, and on each run writes the scheduled rate of the
 current iteration into every bound GD unit's ``learning_rate`` and
 ``learning_rate_bias``, then counts the iteration.  ``FusedTrainer``
 steps the same unit after each update it applies, so both engines
-follow one schedule.
+follow one schedule; its deep pipeline rewinds the unit
+(``restore_iteration``) when it rolls back.
 """
 
 from __future__ import annotations
@@ -89,8 +90,24 @@ class LearningRateAdjust(Unit):
             (gd, float(gd.learning_rate), float(gd.learning_rate_bias),
              policy, bias_policy or policy))
 
-    def run(self):
+    def _apply(self, it: int) -> None:
         for gd, base, base_bias, pol, bias_pol in self._bindings:
-            gd.learning_rate = pol(base, self.iteration)
-            gd.learning_rate_bias = bias_pol(base_bias, self.iteration)
+            gd.learning_rate = pol(base, it)
+            gd.learning_rate_bias = bias_pol(base_bias, it)
+
+    def run(self):
+        self._apply(self.iteration)
         self.iteration += 1
+
+    def restore_iteration(self, iteration: int) -> None:
+        """Rewind to the state right after ``iteration`` runs (the fused
+        trainer's deep pipeline rolling back the epochs it speculated):
+        the counter, and the bound units' rates of iteration
+        ``iteration - 1``, or their bases at iteration 0."""
+        self.iteration = int(iteration)
+        if self.iteration > 0:
+            self._apply(self.iteration - 1)
+        else:
+            for gd, base, base_bias, _, _ in self._bindings:
+                gd.learning_rate = base
+                gd.learning_rate_bias = base_bias

@@ -48,6 +48,26 @@ end the workflow's ``snapshotter`` runs: on a background thread under
 ``Snapshotter.save_async``), else in line.  ``scan_chunk`` 1 is the
 step-at-a-time loop.
 
+**The deep pipeline** (``root.common.engine.pipeline_depth`` above 1, the
+reference's ``_run_deep``).  Whole epochs are queued back to back, each
+in the segmented run's segments and order, and the host reads nothing of
+an epoch when it queues it: its losses and error counts stay on the
+device, packed into one vector, its confusions stacked.  Once ``2 *
+pipeline_depth`` epochs are in flight the ``pipeline_depth`` oldest are
+flushed: their vectors are joined on the device, read in one transfer
+and fed to the Decision in loader order.  Each epoch's tail update is
+applied unless the tail reaches ``max_epochs``; a stop that a flush finds
+(``fail_iterations``) copies back the clone of the parameters and
+velocities taken before that tail's update, drops the epochs queued
+after it and rewinds ``steps_done``, the ``lr_adjust`` iteration, the
+prng streams and the loader to that tail, so the run stops in the
+segmented run's state, bit for bit.  A flushed epoch's snapshot holds
+its own post-epoch state (the next epoch's input clone) and the loader
+and streams of its tail.  Host-staged loaders, plotters, and an active
+snapshotter without ``async_snapshot`` keep the segmented run.  Host
+arrays reach the card through pinned memory without a wait
+(:meth:`FusedTrainer._put`).
+
 **CUDA graphs.**  On the card, with ``scan_chunk`` above 1, each step of
 a segment is a replay of a captured step (``parallel/graphs.py``), one
 capture for each (kind, batch size, routing, dtype, inputs): the first
@@ -108,6 +128,7 @@ this seam.
 from __future__ import annotations
 
 import contextlib
+import copy
 import sys
 import threading
 import time
@@ -121,6 +142,7 @@ from torch import nn
 from znicz_torch.all2all import All2AllSoftmax
 from znicz_torch.core import prng
 from znicz_torch.core.config import ENGINE_DEFAULTS, check_engine_knobs, root
+from znicz_torch.core.mutable import Bool
 from znicz_torch.dropout import DropoutForward
 from znicz_torch.evaluator import EvaluatorSoftmax, confusion
 from znicz_torch.fused_block import (fused_bias_relu, fused_block,
@@ -268,6 +290,10 @@ class FusedTrainer:
     #: steps a segment, unless ``root.common.engine.scan_chunk`` names a
     #: count; 1 runs step at a time, uncaptured
     scan_chunk = 8
+    #: epochs queued before their metrics are read, unless
+    #: ``root.common.engine.pipeline_depth`` names a depth; above 1 (and
+    #: :meth:`_deep_eligible`) :meth:`run` takes the deep pipeline
+    pipeline_depth = 1
 
     def __init__(self, workflow, mask_fn: Optional[MaskFn] = None,
                  offset_fn: Optional[OffsetFn] = None, remat=None):
@@ -279,6 +305,11 @@ class FusedTrainer:
         if self.scan_chunk < 1:
             raise ValueError(f"root.common.engine.scan_chunk="
                              f"{self.scan_chunk}: must be at least 1")
+        self.pipeline_depth = int(root.common.engine.get(
+            "pipeline_depth", type(self).pipeline_depth))
+        if self.pipeline_depth < 1:
+            raise ValueError(f"root.common.engine.pipeline_depth="
+                             f"{self.pipeline_depth}: must be at least 1")
         self.workflow = workflow
         self.forwards = list(workflow.forwards)
         self.device = workflow.device
@@ -322,14 +353,24 @@ class FusedTrainer:
         #: steps run before a capture (to their end on the card),
         #: ``capture_s`` of the captures; ``stage_gather_s`` of the host
         #: gathers into pinned memory and ``stage_copy_s`` of enqueuing
-        #: the copies, summed over the threads that stage
+        #: the copies, summed over the threads that stage.  The deep
+        #: pipeline's: ``deep_epochs`` queued, ``deep_flushes`` epochs
+        #: fed to the Decision, ``deep_pulls`` reads of their metrics
+        #: (one for several epochs), ``deep_rollbacks``, the most epochs
+        #: in flight, and the train and eval steps queued and then
+        #: rolled back (``train_steps`` and ``eval_steps`` count the
+        #: steps kept, as a segmented run does)
         self.stats = {"train_steps": 0, "eval_steps": 0, "images": 0,
                       "wall_s": 0.0, "img_per_sec": 0.0, "warm_images": 0,
                       "warm_wall_s": 0.0, "warm_img_per_sec": 0.0,
                       "captured_steps": 0, "eager_steps": 0,
                       "warmup_s": 0.0, "capture_s": 0.0,
                       "staged_segments": 0, "stage_gather_s": 0.0,
-                      "stage_copy_s": 0.0}
+                      "stage_copy_s": 0.0, "deep_epochs": 0,
+                      "deep_flushes": 0, "deep_pulls": 0,
+                      "deep_rollbacks": 0, "deep_inflight_max": 0,
+                      "deep_discarded_train_steps": 0,
+                      "deep_discarded_eval_steps": 0}
         self._stats_lock = threading.Lock()
         #: (kind, length) -> segments dispatched
         self.segments: Counter = Counter()
@@ -398,17 +439,25 @@ class FusedTrainer:
         return {name: np.tile(np.asarray(t, np.float32), (k, 1))
                 for name, t in self.hypers().items()}
 
-    def _hypers_rows(self, k: int) -> Dict[str, np.ndarray]:
+    def _hypers_rows(self, k: int,
+                     advance_last: bool = True) -> Dict[str, np.ndarray]:
         """The rows of a k-step segment, ``lr_adjust`` advanced after each
-        row, as it advances after each applied update."""
+        row, as it advances after each applied update; without
+        ``advance_last`` not after the last row (an epoch tail whose
+        update will not be applied)."""
         if self.lr_adjust is None:
             return self.tiled_hypers(k)
         rows = []
-        for _ in range(k):
+        for i in range(k):
             rows.append({name: np.asarray(t, np.float32)
                          for name, t in self.hypers().items()})
-            self._advance_lr()
+            if i < k - 1 or advance_last:
+                self._advance_lr()
         return {name: np.stack([r[name] for r in rows]) for name in rows[0]}
+
+    def _epoch_hypers(self, k: int, apply_tail: bool) -> Dict[str, np.ndarray]:
+        """The rows of an epoch's k + 1 train steps, its tail's last."""
+        return self._hypers_rows(k + 1, advance_last=apply_tail)
 
     def _hyper_matrix(self, rows: Dict[str, np.ndarray]) -> np.ndarray:
         """(k, M, 8) float32: the rows of the weighted modules in order."""
@@ -644,12 +693,21 @@ class FusedTrainer:
         self._update(torch.autograd.grad(loss, params), hyp, clips)
         return metrics
 
+    def _put(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the trainer's device, the host not waiting for
+        the card: on the card through pinned memory, the copy queued on
+        the current stream (the caching host allocator keeps the pinned
+        block until that copy has run)."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _host_row(self) -> Tuple[torch.Tensor, tuple]:
         """The current hyperparameters as a (M, 8) row on the device, and
         the clips."""
         mat = self._hyper_matrix(self.tiled_hypers(1))[0]
-        return (torch.from_numpy(mat).to(self.device),
-                tuple(float(c) for c in mat[:, 7]))
+        return self._put(mat), tuple(float(c) for c in mat[:, 7])
 
     def train_step(self, idx, batch_size: int, step: int):
         """Forward, autograd, and the update of every parameter with the
@@ -750,8 +808,7 @@ class FusedTrainer:
         once).  Returns the (k,) losses and n_err on the device and the
         confusion summed over the segment."""
         k = len(sizes)
-        hyp = (None if hyp_rows is None
-               else torch.from_numpy(hyp_rows).to(self.device))
+        hyp = None if hyp_rows is None else self._put(hyp_rows)
         losses = torch.empty(k, dtype=torch.float32, device=self.device)
         n_errs = torch.empty(k, dtype=torch.int64, device=self.device)
         conf = None
@@ -764,14 +821,13 @@ class FusedTrainer:
             losses[i].copy_(loss)
             n_errs[i].copy_(n_err)
             conf = c.clone() if conf is None else conf.add_(c)
-            self.stats[f"{kind}_steps"] += 1
         self.segments[(kind, k)] += 1
         return losses, n_errs, conf
 
     def _resident_inputs(self, seg) -> Dict[str, torch.Tensor]:
         """A segment's index rows as one (k, B) tensor on the device."""
         mat = np.stack([np.asarray(s["idx"], np.int64) for s in seg])
-        return {"idx": torch.from_numpy(mat).to(self.device)}
+        return {"idx": self._put(mat)}
 
     def _stage_direct(self, idx_rows) -> StagedSegment:
         """Assemble one segment's rows (the single-process case): the
@@ -864,11 +920,16 @@ class FusedTrainer:
         self._acct_seen = set()
         self._acct_last_end = None
 
-    def _account(self, kind: str, images: int, t0: float) -> None:
+    def _account(self, kind: str, images: int, t0: float,
+                 warm: Optional[Tuple[int, float]] = None) -> None:
         """Charge ``[max(t0, the last interval's end), now]``: with the
         one-deep flush a segment is read back while the next iteration
         runs, whose own ``t0`` came before, so plain ``now - t0``
-        intervals would overlap and count time twice."""
+        intervals would overlap and count time twice.  ``warm``, the deep
+        pipeline's (images, seconds) after its first epoch on the
+        device's clock, replaces the warm figures: the card runs queued
+        epochs while the host reads earlier ones, so a host interval would
+        be credited with work done in the one before."""
         now = time.perf_counter()
         start = t0 if self._acct_last_end is None \
             else max(t0, self._acct_last_end)
@@ -878,11 +939,13 @@ class FusedTrainer:
         st["wall_s"] += dt
         st["images"] += images
         st["img_per_sec"] = st["images"] / st["wall_s"]
-        if kind in self._acct_seen:
+        if warm is not None:
+            st["warm_images"], st["warm_wall_s"] = warm
+        elif kind in self._acct_seen:
             st["warm_wall_s"] += dt
             st["warm_images"] += images
-            if st["warm_wall_s"] > 0:
-                st["warm_img_per_sec"] = st["warm_images"] / st["warm_wall_s"]
+        if st["warm_wall_s"] > 0:
+            st["warm_img_per_sec"] = st["warm_images"] / st["warm_wall_s"]
         self._acct_seen.add(kind)
 
     def _advance_lr(self) -> None:
@@ -932,9 +995,10 @@ class FusedTrainer:
             snap.save_async(state, tags, ready)
 
     def run(self) -> None:
-        """Train until the Decision completes (the reference's segmented
-        run).  The final background snapshot is written before it
-        returns."""
+        """Train until the Decision completes: the deep pipeline under
+        ``pipeline_depth`` above 1 where :meth:`_deep_eligible`, else the
+        segmented run.  The final background snapshot is written before
+        it returns."""
         if self.loader is None:
             raise ValueError("the workflow has no loader to train from")
         if self.loss_kind != "softmax" and \
@@ -948,7 +1012,10 @@ class FusedTrainer:
         self._reset_accounting()
         indices_only, self.loader.indices_only = self.loader.indices_only, True
         try:
-            self._run_segmented()
+            if self.pipeline_depth > 1 and self._deep_eligible():
+                self._run_deep()
+            else:
+                self._run_segmented()
         finally:
             self.loader.indices_only = indices_only
             self._captures.clear()
@@ -1098,6 +1165,7 @@ class FusedTrainer:
                 result = self._segment("train", inputs,
                                        [s["size"] for s in seg],
                                        self.steps_done, hyp_rows)
+                self.stats["train_steps"] += len(seg)
                 consumed(staged)
                 self.steps_done += len(seg)
                 submit_upcoming()
@@ -1138,6 +1206,7 @@ class FusedTrainer:
                 staged, inputs = segment_inputs(seg)
                 losses, n_errs, conf = self._segment(
                     "eval", inputs, [s["size"] for s in seg])
+                self.stats["eval_steps"] += len(seg)
                 consumed(staged)
                 for i, (s, loss, n_err) in enumerate(
                         zip(seg, losses.tolist(), n_errs.tolist())):
@@ -1155,3 +1224,341 @@ class FusedTrainer:
                 extend_lookahead()
                 submit_upcoming()
         flush()
+
+    # -- the deep pipeline -----------------------------------------------------
+
+    @staticmethod
+    def _snapshotter_active(snap) -> bool:
+        """Whether ``snap`` may save: a plain gate set to True turns it
+        off; a derived one (``~decision.epoch_ended``) opens at each
+        epoch's end."""
+        if snap is None:
+            return False
+        gate = snap.gate_skip
+        return not bool(gate) or (isinstance(gate, Bool) and gate.derived)
+
+    def _deep_eligible(self) -> bool:
+        """Whether the deep pipeline may run: not on a host-staged loader
+        (the segmented run stages each segment, double-buffered), not with
+        plotters (they read each epoch as it ends), and with an active
+        snapshotter only under ``async_snapshot`` (a flushed epoch's own
+        state is queued for the background writer).  The reference's
+        orbax-format snapshotter also selects the segmented run; it has
+        no counterpart here, since the port's ``Snapshotter`` refuses
+        ``format="orbax"`` (ROADMAP A.4)."""
+        wf = self.workflow
+        if self.staging or getattr(wf, "plotters", None):
+            return False
+        snap = getattr(wf, "snapshotter", None)
+        return (not self._snapshotter_active(snap)
+                or self._async_snapshot_enabled(snap))
+
+    def _collect_epoch(self) -> dict:
+        """Drive the loader through one epoch: its eval classes in loader
+        order (``[(class, minibatches)]``) and its TRAIN minibatches,
+        the last of them the tail."""
+        evals, train = [], []
+        while True:
+            mb = self._advance()
+            if mb["class"] == TRAIN:
+                train.append(mb)
+                if mb["last_minibatch"]:
+                    break
+            elif train:
+                raise RuntimeError("the deep pipeline expects the eval "
+                                   "classes before TRAIN")
+            elif evals and evals[-1][0] == mb["class"]:
+                evals[-1][1].append(mb)
+            else:
+                evals.append((mb["class"], [mb]))
+        return {"evals": evals, "train": train,
+                "epoch_number": train[-1]["epoch_number"]}
+
+    def _state_trees(self):
+        """``({forward name: {param: tensor}}, {GD unit name: {param:
+        velocity}})``, the live tensors."""
+        weighted = self._weighted()
+        return ({f.name: dict(self._params_of(f)) for f in weighted},
+                {self.gd_of[f.name].name: dict(self.gd_of[f.name].velocities)
+                 for f in weighted})
+
+    def _cloned_state(self):
+        """Device clones of :meth:`_state_trees`, and the event recorded
+        after them (None on the CPU)."""
+        trees = tuple({n: {k: t.detach().clone() for k, t in leaves.items()}
+                       for n, leaves in tree.items()}
+                      for tree in self._state_trees())
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        return trees, ready
+
+    def _load_state(self, trees) -> None:
+        """Copy :meth:`_cloned_state`'s trees back into the live tensors
+        (whose addresses the captured steps hold)."""
+        with torch.no_grad():
+            for live, saved in zip(self._state_trees(), trees):
+                for n, leaves in live.items():
+                    for k, t in leaves.items():
+                        t.copy_(saved[n][k])
+
+    _LOADER_FIELDS = ("_pos", "epoch_number", "last_minibatch",
+                      "class_ended", "minibatch_size", "minibatch_class",
+                      "minibatch_indices", "samples_served")
+
+    def _loader_state(self) -> dict:
+        """The loader's position, TRAIN order, counts and native shuffle
+        stream, copied."""
+        ldr = self.loader
+        state = {k: getattr(ldr, k) for k in self._LOADER_FIELDS}
+        state["class_samples_served"] = list(ldr.class_samples_served)
+        state["shuffled_indices"] = np.array(ldr._shuffled_indices)
+        rng = getattr(ldr, "_native_rng", None)
+        state["native_rng"] = None if rng is None else rng.state.copy()
+        return state
+
+    def _restore_loader(self, state: dict) -> None:
+        ldr = self.loader
+        for k in self._LOADER_FIELDS:
+            setattr(ldr, k, state[k])
+        ldr.class_samples_served = list(state["class_samples_served"])
+        ldr._shuffled_indices = state["shuffled_indices"].copy()
+        if state["native_rng"] is not None:
+            ldr._native_rng.state[...] = state["native_rng"]
+
+    def _dispatch_epoch(self, keep_input: bool) -> dict:
+        """Advance the loader through one epoch and queue its steps in the
+        segmented run's order, reading nothing back: the eval classes as
+        eval segments, the non-tail train steps as train segments, the
+        tail's metrics, then the tail's update unless this epoch's tail
+        reaches ``max_epochs`` (a stop by ``fail_iterations`` is found at
+        the flush, and rolled back).  Returns the epoch's record: its
+        minibatches; ``scalars``, one float32 vector on the device laid
+        out as the reference's (per eval class its losses, then its
+        n_err; the train losses, the train n_err, the tail's loss and
+        n_err); ``confs``, its confusions stacked (one per eval class,
+        then TRAIN's with the tail's); and what a rollback or a snapshot
+        of it needs: the state before the tail's update, the loader, the
+        prng streams and the schedule at the tail, and with
+        ``keep_input`` the state the epoch started from."""
+        t0 = time.perf_counter()
+        lr_iter = 0 if self.lr_adjust is None else self.lr_adjust.iteration
+        rec = self._collect_epoch()
+        rec.update(t0=t0, lr_iter=lr_iter,
+                   state_in=self._cloned_state() if keep_input else None)
+        apply_tail = rec["epoch_number"] + 1 < int(self.decision.max_epochs)
+        chunk = self.scan_chunk
+
+        def segments(kind, mbs, step0=0, hyp_rows=None):
+            """(losses, n_err) as float32 and the summed confusion of the
+            segments of ``mbs``."""
+            losses, n_errs, conf = [], [], None
+            for i in range(0, len(mbs), chunk):
+                seg = mbs[i:i + chunk]
+                rows = None if hyp_rows is None else hyp_rows[i:i + len(seg)]
+                loss, n_err, c = self._segment(
+                    kind, self._resident_inputs(seg),
+                    [s["size"] for s in seg], step0 + i, rows)
+                losses.append(loss)
+                n_errs.append(n_err)
+                conf = c if conf is None else conf + c
+            if not losses:
+                empty = torch.zeros(0, dtype=torch.float32,
+                                    device=self.device)
+                return [empty, empty], conf
+            return [torch.cat(losses),
+                    torch.cat(n_errs).to(torch.float32)], conf
+
+        scalars, confs = [], []
+        for _, mbs in rec["evals"]:
+            vecs, conf = segments("eval", mbs)
+            scalars += vecs
+            confs.append(conf)
+        train = rec["train"]
+        k = len(train) - 1
+        hyp_rows = self._hyper_matrix(self._epoch_hypers(k, apply_tail))
+        step0 = self.steps_done
+        vecs, conf = segments("train", train[:k], step0, hyp_rows)
+        tail = train[k]
+        inputs = {n: t[0] for n, t in self._resident_inputs([tail]).items()}
+        loss, n_err, c = self._step("tail", inputs, tail["size"], step0 + k)
+        self.stats["eager_steps"] += 1
+        pre_tail = None
+        if apply_tail:
+            pre_tail = self._cloned_state()[0]
+            self._step("train", inputs, tail["size"], step0 + k,
+                       self._put(hyp_rows[k]),
+                       tuple(float(x) for x in hyp_rows[k, :, 7]))
+            self.stats["eager_steps"] += 1
+        self.steps_done = step0 + k + 1
+        scalars += vecs + [torch.stack([loss, n_err.to(torch.float32)])]
+        confs.append(c if conf is None else conf + c)
+        # the streams as a snapshot at this tail records them: those the
+        # steps made (the dropout masks' stream) too
+        rec.update(applied_tail=apply_tail, pre_tail=pre_tail,
+                   steps_end=self.steps_done, scalars=torch.cat(scalars),
+                   confs=torch.stack(confs), n_train=k + int(apply_tail),
+                   n_eval=sum(len(m) for _, m in rec["evals"]) + 1,
+                   loader=self._loader_state(), end=self._mark(),
+                   prng={name: copy.deepcopy(s.state.bit_generator.state)
+                         for name, s in prng._streams.items()})
+        self.stats["deep_epochs"] += 1
+        return rec
+
+    def _mark(self):
+        """Now on the device's clock: a timed event recorded on the
+        current stream, or the host's clock on the CPU."""
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    @staticmethod
+    def _seconds(a, b) -> float:
+        """Seconds from :meth:`_mark` ``a`` to ``b``, both reached."""
+        return b - a if isinstance(a, float) else a.elapsed_time(b) / 1e3
+
+    def _flush_epoch(self, rec: dict, vals: np.ndarray, inflight) -> int:
+        """Feed a flushed epoch's metrics (``vals``, its scalars read to
+        the host) to the Decision in loader order, roll back if it stopped
+        there, and queue its snapshot.  Returns its TRAIN images."""
+        decision, st = self.decision, self.stats
+        confs = rec["confs"]
+        off = 0
+        for ci, (_, mbs) in enumerate(rec["evals"]):
+            n = len(mbs)
+            for i, mb in enumerate(mbs):
+                self._feed_decision(mb, (vals[off + i], vals[off + n + i],
+                                         confs[ci] if i == 0 else None))
+            off += 2 * n
+        train = rec["train"]
+        k = len(train) - 1
+        for i, mb in enumerate(train[:k]):
+            self._feed_decision(mb, (vals[off + i], vals[off + k + i], None))
+        off += 2 * k
+        self._feed_decision(train[k], (vals[off], vals[off + 1], confs[-1]))
+        # read while the tail's epoch_ended holds: a gate wired to
+        # ~epoch_ended is open only until the flag is consumed below
+        snap = getattr(self.workflow, "snapshotter", None)
+        snap_open = snap is not None and not bool(snap.gate_skip)
+        decision.epoch_ended.set(False)
+        stopped = bool(decision.complete)
+        st["deep_flushes"] += 1
+        st["eval_steps"] += rec["n_eval"]
+        st["train_steps"] += k + int(rec["applied_tail"] and not stopped)
+        if stopped:
+            self._roll_back(rec, inflight)
+        if snap_open:
+            self._snapshot_epoch(snap, rec, inflight)
+        return sum(mb["size"] for mb in train)
+
+    def _roll_back(self, rec: dict, inflight) -> None:
+        """The Decision stopped at ``rec``'s tail: undo that tail's update
+        and drop the epochs queued after it, and rewind ``steps_done``,
+        the ``lr_adjust`` iteration, every prng stream and the loader to
+        where they stood at that tail, as the segmented run stops.  An
+        epoch whose tail was not applied is the last one queued."""
+        st = self.stats
+        if rec["applied_tail"]:
+            self._load_state(rec["pre_tail"])
+            st["deep_discarded_train_steps"] += 1
+            st["deep_rollbacks"] += 1
+        for later in inflight:
+            st["deep_discarded_train_steps"] += later["n_train"]
+            st["deep_discarded_eval_steps"] += later["n_eval"]
+        inflight.clear()
+        self.steps_done = rec["steps_end"]
+        if self.lr_adjust is not None:
+            self.lr_adjust.restore_iteration(
+                rec["lr_iter"] + len(rec["train"]) - 1)
+        for name, state in rec["prng"].items():
+            prng.get(name).state.bit_generator.state = state
+        self._restore_loader(rec["loader"])
+
+    def _snapshot_epoch(self, snap, rec: dict, inflight) -> None:
+        """The flushed epoch's snapshot, what :meth:`_epoch_end` would
+        queue in the segmented run: its post-epoch parameters and
+        velocities (the next queued epoch's input clone, else the live
+        state, cloned), the loader and prng streams as they stood at its
+        tail, and the Decision as it stands."""
+        from znicz_torch import snapshotter as snap_mod
+
+        decision = self.decision
+        snap.epoch_number = decision.epoch_number
+        snap.improved = decision.improved
+        tags = snap.tags_for(decision.epoch_number, decision.improved)
+        if not tags:
+            return
+        trees, ready = (inflight[0]["state_in"] if inflight
+                        else self._cloned_state())
+        state = snap_mod.snapshot_from_trees(self.workflow, *trees)
+        at_tail = rec["loader"]
+        state["loader"].update(
+            epoch_number=at_tail["epoch_number"],
+            samples_served=at_tail["samples_served"],
+            last_minibatch=bool(at_tail["last_minibatch"]),
+            shuffled_indices=at_tail["shuffled_indices"].copy())
+        state["prng"] = rec["prng"]
+        state["config"] = root.to_dict()
+        snap.save_async(state, tags, ready)
+
+    def _run_deep(self) -> None:
+        """The deep pipeline (the reference's ``_run_deep``): whole epochs
+        queued back to back (:meth:`_dispatch_epoch`), the host reading
+        nothing of them until ``2 * pipeline_depth`` are in flight; then
+        the ``pipeline_depth`` oldest are flushed, their scalar vectors
+        joined on the device and read in one transfer, and fed to the
+        Decision in loader order (:meth:`_flush_epoch`).  After the epoch
+        whose tail reaches ``max_epochs`` the rest are flushed in one
+        transfer.  A stop found late rolls back to the segmented run's
+        stopping state, bit for bit (:meth:`_roll_back`)."""
+        decision, st = self.decision, self.stats
+        keep_input = self._snapshotter_active(
+            getattr(self.workflow, "snapshotter", None))
+        inflight: deque = deque()
+        # the warm figures: the epochs after the first, from its end to
+        # the last flushed one's on the device's clock
+        first = {"end": None, "last": None, "images": 0}
+
+        def flush(n):
+            t0 = inflight[0]["t0"]
+            vals = torch.cat([inflight[i]["scalars"]
+                              for i in range(n)]).cpu().numpy()
+            st["deep_pulls"] += 1
+            images = off = 0
+            for _ in range(n):
+                rec = inflight.popleft()
+                size = rec["scalars"].shape[0]
+                got = self._flush_epoch(rec, vals[off:off + size], inflight)
+                images += got
+                off += size
+                if first["end"] is None:
+                    first["end"] = rec["end"]
+                else:
+                    first["last"] = rec["end"]
+                    first["images"] += got
+                if bool(decision.complete):
+                    break
+            warm = None
+            if first["last"] is not None:
+                warm = (first["images"],
+                        self._seconds(first["end"], first["last"]))
+            self._account("epoch", images, t0, warm)
+
+        final = False
+        while not bool(decision.complete):
+            if final:
+                if not inflight:
+                    raise RuntimeError("the Decision did not complete at "
+                                       "max_epochs")
+                flush(len(inflight))
+                continue
+            rec = self._dispatch_epoch(keep_input)
+            final = not rec["applied_tail"]
+            inflight.append(rec)
+            st["deep_inflight_max"] = max(st["deep_inflight_max"],
+                                          len(inflight))
+            if len(inflight) >= 2 * self.pipeline_depth:
+                flush(self.pipeline_depth)

@@ -29,7 +29,9 @@ queues A.4, A.7): :class:`Snapshotter` refuses
 the trainer takes device clones of the parameters and velocities and the
 metadata as they stand (:func:`collect` with ``device_copies``) and hands
 them to :meth:`Snapshotter.save_async`; one background thread copies the
-clones to the host and writes the files while the next epoch runs.  A
+clones to the host and writes the files while the next epoch runs.  The
+deep pipeline, whose live state has run epochs ahead, saves a flushed
+epoch's own state instead (:func:`snapshot_from_trees`).  A
 queued "best" save that has not started is dropped when a newer one
 arrives (``async_saves_coalesced``); interval saves are never dropped.
 :meth:`Snapshotter.flush_async` waits until every queued save is
@@ -77,6 +79,26 @@ def collect(workflow, device_copies: bool = False) -> Dict:
             unit.init_velocities()
             snap["velocities"][unit.name] = {
                 k: leaf(v) for k, v in unit.velocities.items()}
+    return snap
+
+
+def snapshot_from_trees(workflow, params: Dict, velocities: Dict) -> Dict:
+    """:func:`collect`'s dict with its array leaves taken from the given
+    trees instead of the live units: ``params`` ``{forward unit name:
+    {param: tensor}}``, ``velocities`` ``{GD unit name: {param:
+    tensor}}`` (a GD unit they do not name has no leaves: one whose
+    forward has no weights).  The leaves are kept as they are, for
+    :meth:`Snapshotter.save_async` to copy out; the metadata is
+    :func:`collect_meta`'s."""
+    from znicz_torch.nn_units import ForwardBase, GradientDescentBase
+
+    snap = collect_meta(workflow)
+    for unit in workflow:
+        if isinstance(unit, ForwardBase) and unit.has_weights:
+            snap["units"][unit.name] = dict(params[unit.name])
+        elif isinstance(unit, GradientDescentBase):
+            snap["velocities"][unit.name] = dict(velocities.get(unit.name,
+                                                                {}))
     return snap
 
 
