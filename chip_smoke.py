@@ -215,12 +215,40 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      4 against 1: the stop found late and rolled back once, bit-equal to
      the segmented run (weights, velocities, ``steps_done``, the loader,
      the ``lr_adjust`` iteration), every queued step's K2/K2b/K3/K3b
-     launches counted, the rolled-back ones too.
+     launches counted, the rolled-back ones too;
+ 16. ``shard``, the fused trainer on a mesh of ranks
+     (``parallel/mesh.py``): phase 14's AlexNet textures, float32
+     ``fused``, trained once in this process (2 epochs, captured), then
+     2 ranks spawned over a ``FileStore``, each joining a gloo group on
+     ``cuda:0`` (``distributed_init(..., backend="gloo")``); each rank
+     prints which collectives gloo takes on CUDA tensors and the time of
+     summing the 62.4 M-float gradient buffer, then trains (b) on mesh
+     (1, 2) (fc6 and fc7 split by rows; its best snapshot written by
+     rank 0 alone, in the background), (a) on mesh (2, 1) (64 rows a
+     rank, the gradients summed a step) and (c) on mesh (2, 1) at
+     ``pipeline_depth`` 2 and 1 for 3 epochs, all uncaptured.  Before
+     the ranks, K1/K1b/K2/K2b are held to their plain versions at the
+     64-row shapes a rank of (a) gives them.  Each run: the ranks
+     bit-equal (weights, velocities, losses, confusions); one train step
+     of (a) and of (b) within the cross-layout band of one process's
+     (loss rtol 1e-3, weights and velocities rtol 2e-3 / atol 2e-5) with
+     its error count and confusion equal; the whole of (a) and of (b)
+     held to one process's run: losses within rtol 1e-3, and weights,
+     velocities, confusions and error counts no further from it than
+     ``SHARD_DRIFT_FACTOR`` times (plus ``SHARD_SAMPLES`` samples) what a
+     one-process run from a start 1 ulp away drifts (the yardstick);
+     K1/K1b/K2/K2b 2/2/3/3 a train step on every rank; (c)'s two depths
+     bit-equal; steps, images/s, the seconds in collectives against the
+     seconds of steps, peak memory of each rank.  The snapshot is loaded
+     into this process's trainer.  A rank that fails or times out fails
+     the phase.
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
 runs write none (their snapshotter is gated off, or in phase 15 its
-saves are held in memory: a full-width snapshot is 0.5 GB of gzip).  The last lines are the ``kernels`` JSON object and
+saves are held in memory: a full-width snapshot is 0.5 GB of gzip) but
+phase 16's one best save.  The last lines are the ``kernels`` JSON
+object and
 then ``{"ok": true, "device": {...}}``.  Without a CUDA device the
 script exits non-zero before printing any result.
 
@@ -234,9 +262,9 @@ cases of each kernel named (``fused_block_fwd``, ``fused_block_bwd``,
 phases 7 and 8 for
 ``anchors``, phase 9 for ``units``, phase 10 for ``bf16``, phase 11
 for ``mnist_ae`` and ``kohonen`` (each alone or both), phase 12 for
-``kinds``, phase 13 for ``samples``, phase 14 for ``segments`` and
-phase 15 for ``deep``; it prints the ``kernels`` object and no ``ok``
-line.
+``kinds``, phase 13 for ``samples``, phase 14 for ``segments``,
+phase 15 for ``deep`` and phase 16 for ``shard``; it prints the
+``kernels`` object and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -3323,16 +3351,37 @@ def seg_differences(torch, a, b):
     return bad
 
 
+def load_start(torch, wf, start):
+    """Every weighted module's parameters set to ``start``, whole: a
+    module a meshed trainer split gets whole parameters again and loses
+    its placement."""
+    from torch import nn
+
+    from znicz_torch.parallel.fused import FusedTrainer
+
+    with torch.no_grad():
+        for f in wf.forwards:
+            if getattr(f, "mesh_placement", None) is not None:
+                for k in f.mesh_placement.specs:
+                    setattr(f, k, nn.Parameter(start[f.name][k].clone()))
+                del f.mesh_placement
+            for k, p in FusedTrainer._params_of(f).items():
+                p.copy_(start[f.name][k])
+
+
 def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
-            epochs=SEG_EPOCHS, remat=False, tag="segments", snapshots=None):
-    """One ``FusedTrainer.run()`` of ``wf`` from ``start`` over
-    ``loader``, every named stream reset to SEED, under ``knobs``; the
-    launches held to ``expect`` (a train step recomputes its forward
-    under ``remat``; the deep pipeline's rolled-back steps launch too).
-    With ``snapshots`` (a dict) the snapshotter is active, wired to the
-    run's Decision, and each save it queues is kept there by tag, its
-    device clones and metadata, instead of written.  Returns a record of
-    the run."""
+            epochs=SEG_EPOCHS, remat=False, tag="segments", snapshots=None,
+            mesh=None):
+    """One ``FusedTrainer.run()`` of ``wf`` (on ``mesh``, if given) from
+    ``start`` over ``loader``, every named stream reset to SEED, under
+    ``knobs``; the launches held to ``expect`` (a train step recomputes
+    its forward under ``remat``; the deep pipeline's rolled-back steps
+    launch too).  With ``snapshots`` (a dict) the snapshotter is active,
+    wired to the run's Decision, and each save it queues is kept there by
+    tag, its device clones and metadata, instead of written; with
+    ``snapshots="write"`` it writes them, its background writer left to
+    finish after the run (``flush_async`` waits for it).  Returns a record
+    of the run."""
     from znicz_torch.core import prng
     from znicz_torch.core.mutable import Bool
     from znicz_torch.decision import DecisionGD
@@ -3341,10 +3390,7 @@ def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
     prng.reset(SEED)
     loader.reset()
     wf.loader = loader
-    with torch.no_grad():
-        for f in wf.forwards:
-            for k, p in FusedTrainer._params_of(f).items():
-                p.copy_(start[f.name][k])
+    load_start(torch, wf, start)
     for gd in wf.gds.values():
         gd.velocities = {}
     decision = DecisionGD(max_epochs=epochs, fail_iterations=0)
@@ -3358,6 +3404,12 @@ def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
     snap.__dict__.pop("save_async", None)
     if snapshots is None:
         snap.gate_skip = Bool(True)
+    elif snapshots == "write":
+        snap.gate_skip = ~wf.decision.epoch_ended
+        snap._last_best_save_t = -1e18
+        # no run's end waits for the writer: the caller drops this and
+        # calls the real flush_async when it wants the file
+        snap.flush_async = lambda: None
     else:
         snap.gate_skip = ~wf.decision.epoch_ended
         snap._last_best_save_t = -1e18
@@ -3371,7 +3423,7 @@ def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
         snap.save_async = keep
     ctrs = counters()
     with engine_knobs(**knobs):
-        trainer = FusedTrainer(wf)
+        trainer = FusedTrainer(wf, mesh=mesh)
         for fn in ctrs.values():                # the main path starts here
             fn.launches = 0
             if hasattr(fn, "simple_launches"):
@@ -3929,6 +3981,544 @@ def deep_phase(torch, card):
     return out
 
 
+# -- phase 16: the fused trainer on a mesh of ranks ----------------------------
+
+#: phase 16's ranks (gloo, all on the one card) and the longest the parent
+#: waits for them
+SHARD_WORLD, SHARD_JOIN_S = 2, 420
+#: label -> (mesh (data, model), pipeline_depth, epochs, writes its best
+#: snapshot); run in this order in each rank
+SHARD_RUNS = {"model": ((1, 2), 1, SEG_EPOCHS, True),
+              "data": ((2, 1), 1, SEG_EPOCHS, False),
+              "deep2": ((2, 1), 2, 3, False),
+              "deep1": ((2, 1), 1, 3, False)}
+#: the cross-layout band (tests/test_shard_training.py:165-170)
+SHARD_LOSS_RTOL, SHARD_RTOL, SHARD_ATOL = 1e-3, 2e-3, 2e-5
+#: a whole meshed run against one process's: its weights' and
+#: velocities' drift (largest difference, and share of what the run moved
+#: them) at most this many times the yardstick's, and its confusions and
+#: error counts at most this many times as many samples off, plus
+#: SHARD_SAMPLES (the yardstick: one process from a start 1 ulp away)
+SHARD_DRIFT_FACTOR, SHARD_SAMPLES = 2.0, 2
+#: K1/K1b/K2/K2b at the rows a rank of mesh (2, 1) gives them
+SHARD_KERNEL_SHAPES = {
+    "fused_block_fwd": KERNELS["fused_block_fwd"][2],
+    "fused_block_bwd": KERNELS["fused_block_bwd"][2],
+    "bias_relu_fwd": {k: BIAS_RELU_LAYERS[k]
+                      for k in ("conv3", "conv4", "conv5")},
+    "bias_relu_bwd": {k: BIAS_RELU_LAYERS[k]
+                      for k in ("conv3", "conv4", "conv5")}}
+#: the column-sharded layers of AlexNet, and their whole shapes
+SHARD_FC = {"fwd_all2all_strict_relu_10": (4096, 9216),
+            "fwd_all2all_strict_relu_12": (4096, 4096)}
+#: the gradient buffer's bytes: AlexNet's 62.4 M float32 parameters
+SHARD_GRAD_FLOATS = 62_378_344
+
+
+def shard_state(torch, wf):
+    """(losses, {leaf: whole tensor on the card}, per-class confusions,
+    per-class error counts) of a run: parameters and velocities gathered
+    whole (a collective on a mesh)."""
+    from znicz_torch.snapshotter import collect
+
+    snap = collect(wf, device_copies=True)
+    leaves = {f"{group}:{name}.{k}": t for group in ("units", "velocities")
+              for name, tree in snap[group].items() for k, t in tree.items()}
+    d = wf.decision
+    return (list(d.train_losses), leaves,
+            [None if m is None or m.get("confusion") is None
+             else m["confusion"].cpu().numpy().tolist()
+             for m in d.epoch_metrics],
+            [None if m is None else m.get("err_pct")
+             for m in d.epoch_metrics])
+
+
+def shard_drift(torch, got, want, start):
+    """(max |w - w1|, the leaves outside the cross-layout band, the
+    largest of max |w - w1| / max |w1 - w0| over the parameters: the
+    meshed run's distance from the one-process run as a share of what
+    that run moved them) of whole leaves ``got`` against ``want``, both
+    from ``start``."""
+    worst, out, share = 0.0, [], 0.0
+    for key, w in want.items():
+        diff = (got[key].double() - w.double()).abs()
+        worst = max(worst, float(diff.max()))
+        if bool((diff > SHARD_ATOL + SHARD_RTOL * w.double().abs()).any()):
+            out.append(key)
+        if key in start:
+            moved = float((w.double() - start[key].double()).abs().max())
+            share = max(share, float(diff.max()) / max(moved, 1e-30))
+    return worst, out, share
+
+
+def shard_samples_off(got, want) -> int:
+    """The samples by which two runs' metrics differ: the larger of the
+    confusions' moves (half the sum of |a - b| over the cells of every
+    class) and the error counts' difference in any class.  ``got`` and
+    ``want`` are :func:`shard_state`'s (confusions, error percentages)."""
+    (cg, eg), (cw, ew) = got, want
+    sizes = (0,) + tuple(SEG_ROWS)              # test, valid, train
+    moved = 0
+    for a, b in zip(cg, cw):
+        if (a is None) != (b is None):
+            return 1 << 30
+        if a is not None:
+            moved = max(moved, int(np.abs(np.array(a) - np.array(b)).sum())
+                        // 2)
+    for n, pa, pb in zip(sizes, eg, ew):
+        if (pa is None) != (pb is None):
+            return 1 << 30
+        if pa is not None:
+            moved = max(moved, round(abs(pa - pb) * n / 100))
+    return moved
+
+
+def shard_band(torch, got, want, start):
+    """(max relative loss error, the first steps' relative loss errors,
+    :func:`shard_drift`, :func:`shard_samples_off`, the two runs'
+    per-class error percentages) of a meshed run ``got`` against the
+    one-process run ``want``."""
+    lg, wg, cg, eg = got
+    lw, ww, cw, ew = want
+    errs = np.abs(np.array(lg) - lw) / np.abs(lw)
+    return (float(errs.max()), [float(e) for e in errs[:4]],
+            shard_drift(torch, wg, ww, start),
+            shard_samples_off((cg, eg), (cw, ew)), [eg, ew])
+
+
+def shard_step(torch, wf, start, mesh=None):
+    """One ``FusedTrainer.train_step`` of ``wf`` (on ``mesh``) from
+    ``start`` on the first TRAIN minibatch with step 0's masks: (its
+    loss, its error count and confusion, the whole leaves after it)."""
+    from znicz_torch.core import prng
+    from znicz_torch.parallel.fused import FusedTrainer
+
+    prng.reset(SEED)
+    load_start(torch, wf, start)
+    for gd in wf.gds.values():
+        gd.velocities = {}
+    with engine_knobs(**SEG_ROUTINGS["f32"][0]):
+        trainer = FusedTrainer(wf, mesh=mesh)
+        idx = np.arange(SEG_ROWS[0], SEG_ROWS[0] + BATCH)
+        loss, n_err, conf = trainer.train_step(idx, BATCH, 0)
+    return (float(loss), int(n_err), conf.cpu().numpy().tolist(),
+            shard_state(torch, wf)[1])
+
+
+def start_leaves(start) -> dict:
+    """``start``'s parameters keyed as :func:`shard_state`'s leaves."""
+    return {f"units:{name}.{k}": t for name, leaves in start.items()
+            for k, t in leaves.items()}
+
+
+def shard_digest(torch, leaves) -> dict:
+    """A SHA-256 of each leaf's bytes: equal digests are equal bits."""
+    import hashlib
+
+    return {k: hashlib.sha256(t.contiguous().view(-1).view(torch.uint8)
+                              .cpu().numpy().tobytes()).hexdigest()
+            for k, t in leaves.items()}
+
+
+def gloo_cuda_collectives(torch) -> dict:
+    """Which collectives this build's gloo takes on CUDA tensors: "ok"
+    or the error's first line."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world = dist.get_world_size()
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(torch.ones(8, device=dev)),
+        "broadcast": lambda: dist.broadcast(torch.ones(8, device=dev), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty(8, device=dev) for _ in range(world)],
+            torch.ones(8, device=dev)),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * world, device=dev), torch.ones(8, device=dev)),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8, device=dev), torch.ones(8 * world, device=dev)),
+        "reduce": lambda: dist.reduce(torch.ones(8, device=dev), 0)}
+    out = {}
+    for name, fn in probes.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as exc:          # a refusal is the finding
+            out[name] = f"{type(exc).__name__}: " + \
+                (str(exc).splitlines() or [""])[0][:160]
+    return out
+
+
+def shard_rank(rank, world, store, tmp, card):
+    """One rank of phase 16 (a spawned process): joins the gloo group on
+    the card, probes gloo's CUDA collectives and times the gradient
+    buffer's sum, then runs ``SHARD_RUNS`` on phase 14's AlexNet from the
+    parent's start and holds each to the parent's one-process run.
+    Writes its results to ``tmp/rank<N>.json``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from znicz_torch.core import prng
+    from znicz_torch.core.config import root
+    from znicz_torch.loader.streaming import HostArraySource, StreamingLoader
+    from znicz_torch.parallel import mesh as mesh_mod
+    from znicz_torch.samples.alexnet import AlexNetWorkflow
+
+    mesh_mod.distributed_init(f"file://{store}", world, rank,
+                              backend="gloo")
+    out = {"rank": rank, "device": str(torch.device(
+        "cuda", torch.cuda.current_device())),
+        "gloo_cuda": gloo_cuda_collectives(torch)}
+    group = torch.distributed.group.WORLD
+    buf = torch.ones(SHARD_GRAD_FLOATS, device="cuda")
+    out["allreduce_s"] = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mesh_mod.all_reduce_(buf, group)
+        out["allreduce_s"].append(time.perf_counter() - t0)
+    del buf
+    ref = torch.load(os.path.join(tmp, "ref.pt"))
+    start = {n: {k: t.cuda() for k, t in leaves.items()}
+             for n, leaves in ref["start"].items()}
+    losses, leaves, confusions, errors = ref["single"]
+    one = (losses, {k: t.cuda() for k, t in leaves.items()}, confusions,
+           errors)
+    step_loss, step_err, step_conf, step_leaves = ref["step"]
+    step_leaves = {k: t.cuda() for k, t in step_leaves.items()}
+    del ref, leaves
+    w0 = start_leaves(start)
+    n_valid, n_train = SEG_ROWS
+    u8, labels = seg_textures(torch, n_valid + n_train)
+    main = StreamingLoader(source=HostArraySource(u8, labels),
+                           class_lengths=[0, n_valid, n_train],
+                           minibatch_size=BATCH, device_budget_bytes=1 << 40)
+    prng.reset(SEED)
+    wf = AlexNetWorkflow(sample_shape=(227, 227, 3), n_classes=1000,
+                         loader=main, decision_config={
+                             "max_epochs": SEG_EPOCHS, "fail_iterations": 0})
+    snapdir = os.path.join(tmp, f"snapshots{rank}")
+    root.common.dirs.snapshots = snapdir
+    wf.snapshotter.directory = snapdir
+    # one best save (the first epoch's): a full-width one is 0.5 GB of gzip
+    wf.snapshotter.min_save_interval_s = 3600.0
+    knobs, expect = SEG_ROUTINGS["f32"]
+    states, runs = {}, {}
+    # one step on each mesh against one process's
+    out["step"] = {}
+    for label, (shape, _, _, _) in list(SHARD_RUNS.items())[:2]:
+        loss, n_err, conf, leaves = shard_step(
+            torch, wf, start, mesh_mod.make_mesh(shape, ("data", "model")))
+        out["step"][label] = (abs(loss - step_loss) / abs(step_loss),
+                              shard_drift(torch, leaves, step_leaves, w0),
+                              n_err == step_err and conf == step_conf)
+        del leaves
+    for label, (shape, depth, epochs, write) in SHARD_RUNS.items():
+        mesh = mesh_mod.make_mesh(shape, ("data", "model"))
+        run = seg_run(torch, card, f"{label}:rank{rank}", wf, start, main,
+                      {**knobs, "scan_chunk": 8, "pipeline_depth": depth},
+                      expect, epochs=epochs, tag="shard",
+                      snapshots="write" if write else None, mesh=mesh)
+        trainer = run.pop("trainer")
+        state = shard_state(torch, wf)
+        st = trainer.stats
+        rec = {"mesh": trainer.mesh_shape, "depth": depth, "epochs": epochs,
+               "launches": run["launches"], "peak": run["peak"],
+               "wall": run["wall"], "losses": state[0],
+               "confusions": state[2], "err_pct": state[3],
+               "digest": shard_digest(torch, state[1]),
+               "steps_done": trainer.steps_done,
+               "uncaptured": trainer.uncaptured_reason,
+               "rows": trainer._local_idx(np.zeros((1, BATCH))).shape[1],
+               "shapes": {n: list(trainer._params_of(f)["weights"].shape)
+                          for f in trainer._weighted()
+                          for n in [f.name] if n in SHARD_FC},
+               "stats": {k: st[k] for k in (
+                   "train_steps", "eval_steps", "eager_steps",
+                   "captured_steps", "img_per_sec", "warm_img_per_sec",
+                   "wall_s", "collectives", "collective_bytes",
+                   "collective_s", "deep_epochs", "deep_pulls")}}
+        if epochs == SEG_EPOCHS:
+            rec["band"] = shard_band(torch, state, one, w0)
+        if label == "deep2":
+            states[label] = state
+        elif label == "deep1":
+            a = states.pop("deep2")
+            rec["deep_equal"] = (a[0] == state[0] and a[2] == state[2] and
+                                 all(torch.equal(a[1][k], state[1][k])
+                                     for k in state[1]))
+            rec["deep_steps"] = runs["deep2"]["steps_done"]
+        runs[label] = rec
+        del trainer, state
+        torch.cuda.empty_cache()
+    # the model run's best save, written in the background meanwhile
+    t0 = time.perf_counter()
+    wf.snapshotter.__dict__.pop("flush_async", None)
+    wf.snapshotter.flush_async()
+    out["snapshot_wait_s"] = time.perf_counter() - t0
+    out["snapshot_files"] = sorted(os.listdir(snapdir)) \
+        if os.path.isdir(snapdir) else []
+    out["snapshots_written"] = wf.snapshotter.async_saves_written
+    out["destination"] = wf.snapshotter.destination
+    out["runs"] = runs
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def shard_phase(torch, card, rows):
+    """Phase 16: K1/K1b/K2/K2b at a rank's 64-row shapes against their
+    plain versions (their rows under ``"shard"`` in ``rows``); the
+    one-process runs the meshes are held to, on the card; then
+    ``SHARD_WORLD`` gloo ranks spawned over a ``FileStore``, all on
+    ``cuda:0``, each running ``SHARD_RUNS``; the ranks' results checked
+    and printed, and the best snapshot rank 0 wrote loaded into a
+    one-process trainer.  Returns {run: {kernel: launches}} (rank 0's)."""
+    import multiprocessing as mp
+
+    from znicz_torch.core import prng
+    from znicz_torch.loader.streaming import HostArraySource, StreamingLoader
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.samples.alexnet import AlexNetWorkflow
+    from znicz_torch.snapshotter import Snapshotter, restore
+
+    cifar_rows(torch, rows, SHARD_KERNEL_SHAPES, tag="shard",
+               batch=BATCH // 2)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        t0 = time.perf_counter()
+        n_valid, n_train = SEG_ROWS
+        u8, labels = seg_textures(torch, n_valid + n_train)
+        main = StreamingLoader(source=HostArraySource(u8, labels),
+                               class_lengths=[0, n_valid, n_train],
+                               minibatch_size=BATCH,
+                               device_budget_bytes=1 << 40)
+        prng.reset(SEED)
+        wf = no_snapshots(AlexNetWorkflow(
+            sample_shape=(227, 227, 3), n_classes=1000, loader=main,
+            decision_config={"max_epochs": SEG_EPOCHS,
+                             "fail_iterations": 0}))
+        start = {f.name: {k: p.detach().clone()
+                          for k, p in FusedTrainer._params_of(f).items()}
+                 for f in wf.forwards if f.has_weights}
+        knobs, expect = SEG_ROUTINGS["f32"]
+        step_loss, step_err, step_conf, step_leaves = shard_step(
+            torch, wf, start)
+        # the one-process run (2 epochs, captured) that the data and the
+        # model runs are held to
+        one = seg_run(torch, card, "one-process", wf, start, main,
+                      {**knobs, "scan_chunk": 8}, expect, tag="shard")
+        state = shard_state(torch, wf)
+        single = (state[0], {k: t.cpu() for k, t in state[1].items()},
+                  state[2], state[3])
+        torch.save({"start": {n: {k: t.cpu() for k, t in leaves.items()}
+                              for n, leaves in start.items()},
+                    "single": single,
+                    "step": (step_loss, step_err, step_conf,
+                             {k: t.cpu() for k, t in step_leaves.items()})},
+                   os.path.join(tmp, "ref.pt"))
+        del step_leaves
+        # the yardstick of the run's sensitivity: one process again from
+        # a start one ulp away in a single weight
+        w0 = start_leaves(start)
+        nudged = {n: dict(leaves) for n, leaves in start.items()}
+        first = next(iter(nudged))
+        w = nudged[first]["weights"].clone()
+        w.view(-1)[0] = torch.nextafter(w.view(-1)[0],
+                                        torch.tensor(np.inf, device=w.device))
+        nudged[first]["weights"] = w
+        seg_run(torch, card, "one-process-nudged", wf, nudged, main,
+                {**knobs, "scan_chunk": 8}, expect, tag="shard")
+        nudge = shard_state(torch, wf)
+        loss_err = float(np.max(np.abs(np.array(nudge[0]) - single[0])
+                                / np.abs(single[0])))
+        worst, outside, share = shard_drift(
+            torch, nudge[1], {k: t.cuda() for k, t in single[1].items()},
+            w0)
+        samples = shard_samples_off(nudge[2:], single[2:])
+        yard = (worst, share, samples)
+        log(f"[shard:yardstick] one process from a start 1 ulp away in "
+            f"{first}.weights[0]: losses within {loss_err:.3g}, weights "
+            f"and velocities within {worst:.3g}, at most {share:.3g} of "
+            f"what the run moved them ({len(outside)} leaves outside the "
+            f"band {SHARD_RTOL} / {SHARD_ATOL}), confusions and errors "
+            f"{samples} sample(s) off")
+        del nudge, nudged, w0
+        log(f"[shard:one-process] {card}: AlexNet f32 `fused` "
+            f"{SEG_EPOCHS} epochs, batch {BATCH}, mesh None: "
+            f"{one['wall']:.2f}s, images/s {one['stats']['img_per_sec']:.1f}"
+            f" (warm {one['stats']['warm_img_per_sec']:.1f}), peak "
+            f"{one['peak'] / 2**30:.3f} GiB; references written in "
+            f"{time.perf_counter() - t0:.2f}s")
+        del one, state
+        torch.cuda.empty_cache()
+        # the ranks
+        t1 = time.perf_counter()
+        store = os.path.join(tmp, "store")
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=shard_rank,
+                             args=(rank, SHARD_WORLD, store, tmp, card))
+                 for rank in range(SHARD_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARD_JOIN_S
+        try:
+            for p in procs:
+                p.join(max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * SHARD_WORLD:
+            raise AssertionError(f"[shard] ranks exited {codes}")
+        ranks = []
+        for rank in range(SHARD_WORLD):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+        log(f"[shard] {SHARD_WORLD} gloo ranks on {ranks[0]['device']} "
+            f"(FileStore), spawned and joined in "
+            f"{time.perf_counter() - t1:.2f}s")
+        log(f"[shard:gloo] CUDA tensors: " + ", ".join(
+            f"{k} {v}" for k, v in ranks[0]["gloo_cuda"].items()))
+        for r in ranks:
+            log(f"[shard:gloo] rank {r['rank']}: all_reduce of "
+                f"{SHARD_GRAD_FLOATS} float32 on the card ("
+                f"{SHARD_GRAD_FLOATS * 4 / 1e6:.1f} MB): " + ", ".join(
+                    f"{t:.3f}s" for t in r["allreduce_s"]))
+        bad = []
+        out = {}
+        for label in SHARD_RUNS:
+            recs = [r["runs"][label] for r in ranks]
+            for rec, r in zip(recs, ranks):
+                st = rec["stats"]
+                log(f"[shard:{label}] {card} rank {r['rank']}: mesh "
+                    f"{rec['mesh']}, pipeline_depth {rec['depth']}, "
+                    f"{rec['rows']} rows a step, {st['train_steps']} train "
+                    f"+ {st['eval_steps']} eval steps (eager "
+                    f"{st['eager_steps']}, captured {st['captured_steps']}); "
+                    f"run() {rec['wall']:.2f}s, images/s "
+                    f"{st['img_per_sec']:.1f} (warm "
+                    f"{st['warm_img_per_sec']:.1f}); collectives "
+                    f"{st['collectives']} moving "
+                    f"{st['collective_bytes'] / 1e9:.3f} GB in "
+                    f"{st['collective_s']:.2f}s of {st['wall_s']:.2f}s of "
+                    f"steps; peak {rec['peak'] / 2**30:.3f} GiB allocated; "
+                    f"fc6/fc7 held as {rec['shapes']}; "
+                    f"launches={rec['launches']}")
+                if rec["uncaptured"] is None or st["captured_steps"]:
+                    bad.append(f"{label}: captured")
+            differ = sorted({k for r in recs[1:] for k in r["digest"]
+                             if r["digest"][k] != recs[0]["digest"][k]})
+            if any(r["losses"] != recs[0]["losses"] or
+                   r["confusions"] != recs[0]["confusions"]
+                   for r in recs[1:]):
+                differ.append("metrics")
+            log(f"[shard:{label}] ranks' weights, velocities, losses and "
+                f"confusions: " + ("bit-equal" if not differ
+                                   else f"DIFFER at {differ[:4]}"))
+            if differ:
+                bad.append(f"{label}: ranks differ at {differ[:4]}")
+            rec = recs[0]
+            if label in ranks[0]["step"]:
+                loss_err, (worst, outside, share), metrics_equal = \
+                    ranks[0]["step"][label]
+                log(f"[shard:{label}] one train step against one "
+                    f"process's: loss within {loss_err:.3g}, error count "
+                    f"and confusion " + ("equal" if metrics_equal
+                                         else "DIFFER")
+                    + f", weights and velocities within {worst:.3g} "
+                    f"({len(outside)} leaves outside the band {SHARD_RTOL} "
+                    f"/ {SHARD_ATOL}), at most {share:.3g} of the step's "
+                    f"own update")
+                if loss_err > SHARD_LOSS_RTOL or outside or \
+                        not metrics_equal:
+                    bad.append(f"{label}: one step {outside[:4]}")
+            if "band" in rec:
+                loss_err, first, (worst, outside, share), samples, \
+                    errors = rec["band"]
+                # a one-ulp difference drifts as far over the run as the
+                # cross-layout band (ROADMAP C.5), so the whole run's
+                # weights and metrics are held to the yardstick's drift
+                limits = (SHARD_DRIFT_FACTOR * yard[0],
+                          SHARD_DRIFT_FACTOR * yard[1],
+                          int(SHARD_DRIFT_FACTOR * yard[2]) + SHARD_SAMPLES)
+                log(f"[shard:{label}] against one process: losses within "
+                    f"{loss_err:.3g} (rtol {SHARD_LOSS_RTOL}; first steps "
+                    f"{', '.join(f'{e:.2g}' for e in first)}); after the "
+                    f"run weights and velocities within {worst:.3g} "
+                    f"(limit {limits[0]:.3g}), at most {share:.3g} of what "
+                    f"the run moved them (limit {limits[1]:.3g}; band "
+                    f"{SHARD_RTOL} / {SHARD_ATOL}: {len(outside)} leaves "
+                    f"outside: {outside[:3]}), confusions and errors "
+                    f"{samples} sample(s) off (limit {limits[2]}; err % by "
+                    f"class {errors[0]} against {errors[1]})")
+                if loss_err > SHARD_LOSS_RTOL:
+                    bad.append(f"{label}: losses")
+                if worst > limits[0] or share > limits[1] or \
+                        samples > limits[2]:
+                    bad.append(f"{label}: the run drifts past the "
+                               f"yardstick's {SHARD_DRIFT_FACTOR}x")
+            n_train = rec["stats"]["train_steps"]
+            n_eval = rec["stats"]["eval_steps"]
+            for name, (per_train, per_eval) in expect.items():
+                want = per_train * n_train + per_eval * n_eval
+                if any(r["launches"][name] != want for r in recs):
+                    bad.append(f"{label}: {name} launches")
+            if rec["rows"] != BATCH // rec["mesh"]["data"]:
+                bad.append(f"{label}: {rec['rows']} rows a rank")
+            mp_ = rec["mesh"]["model"]
+            for name, (rows, cols) in SHARD_FC.items():
+                if rec["shapes"][name] != [rows // mp_, cols]:
+                    bad.append(f"{label}: {name} held as "
+                               f"{rec['shapes'][name]}")
+            out[label] = rec["launches"]
+        deep1 = [r["runs"]["deep1"] for r in ranks]
+        ok = all(r["deep_equal"] and r["deep_steps"] == r["steps_done"]
+                 for r in deep1) and all(
+            r["runs"]["deep2"]["stats"]["deep_epochs"] == 3 and
+            r["runs"]["deep1"]["stats"]["deep_epochs"] == 0 for r in ranks)
+        log(f"[shard:deep] mesh (2, 1), pipeline_depth 2 against 1, 3 "
+            f"epochs: losses, weights, velocities, confusions, steps_done "
+            + ("bit-equal" if ok else "DIFFER") + " on every rank")
+        if not ok:
+            bad.append("deep: differ")
+        # the best snapshot of the model run: rank 0's file alone
+        files = [r["snapshot_files"] for r in ranks]
+        dest = [r["destination"] for r in ranks]
+        log(f"[shard:snapshot] files by rank {files}, written "
+            f"{[r['snapshots_written'] for r in ranks]}, rank 0 waited "
+            f"{ranks[0]['snapshot_wait_s']:.2f}s for its writer at the end; "
+            f"destinations {[os.path.basename(d or '') for d in dest]}")
+        if files[0] != [os.path.basename(dest[0] or "")] or \
+                any(files[1:]) or len({os.path.basename(d or "")
+                                       for d in dest}) != 1:
+            bad.append(f"snapshot files {files}")
+        t2 = time.perf_counter()
+        snap = Snapshotter.load(dest[0])
+        shapes = {n: snap["units"][n]["weights"].shape for n in SHARD_FC}
+        restore(wf, snap)
+        restored = all(np.array_equal(
+            FusedTrainer._params_of(f)[k].detach().cpu().numpy(),
+            snap["units"][f.name][k])
+            for f in wf.forwards if f.has_weights
+            for k in FusedTrainer._params_of(f))
+        log(f"[shard:snapshot] rank 0's best (epoch {snap['epoch']}) holds "
+            f"{shapes}; loaded into a one-process trainer in "
+            f"{time.perf_counter() - t2:.2f}s: "
+            + ("every parameter the file's" if restored else "DIFFERS"))
+        if not restored or any(shapes[n] != SHARD_FC[n] for n in SHARD_FC):
+            bad.append("snapshot restore")
+        if bad:
+            raise AssertionError(f"[shard] {bad}")
+        del wf, main, start, single, snap
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -3937,7 +4527,7 @@ def main(argv=None) -> int:
                          "'bf16': phase 10; 'mnist_ae', 'kohonen': phase "
                          "11 for that sample; 'kinds': phase 12; "
                          "'samples': phase 13; 'segments': phase 14; "
-                         "'deep': phase 15")
+                         "'deep': phase 15; 'shard': phase 16")
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -4001,11 +4591,11 @@ def run_phases(torch, args) -> int:
         anchors, units = "anchors" in names, "units" in names
         bf16, kinds = "bf16" in names, "kinds" in names
         samples, segments = "samples" in names, "segments" in names
-        deep = "deep" in names
+        deep, shard = "deep" in names, "shard" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
-                  "segments", "deep", *AE_SOM_RUNS)]
+                  "segments", "deep", "shard", *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -4074,6 +4664,13 @@ def run_phases(torch, args) -> int:
                         rows.setdefault(name, {"name": name}).setdefault(
                             "launches_by_path", {})[f"deep:{label}"] = count
             lap("phase 15")
+        if shard:
+            for label, launches in shard_phase(torch, card, rows).items():
+                for name, count in launches.items():
+                    if count:
+                        rows.setdefault(name, {"name": name}).setdefault(
+                            "launches_by_path", {})[f"shard:{label}"] = count
+            lap("phase 16")
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -4243,6 +4840,16 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 15")
+
+    # -- phase 16: the fused trainer on a mesh of gloo ranks on the card:
+    # -- data sharding, column-sharded fc6/fc7, the deep pipeline -------
+    for label, launches in shard_phase(torch, card, rows).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][f"shard:{label}"] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 16")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

@@ -186,7 +186,8 @@ def test_alexnet_run_is_fused_unless_asked(fused, monkeypatch):
 
     seen = []
     monkeypatch.setattr(engine, "train",
-                        lambda wf, fused=None: seen.append(fused) or
+                        lambda wf, fused=None, mesh=None:
+                        seen.append(fused) or
                         {"train_steps": 0, "img_per_sec": 0.0,
                          "warm_img_per_sec": 0.0})
     with sample_config("alexnet", loader__image_size=67, loader__n_train=4,

@@ -124,12 +124,12 @@ def test_composed_train_steps_under_mask_match_the_reference():
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("mesh.model", 2, "A.4"),
-    ("train_shard", True, "A.4"),
+    ("job_segment", 2, "A.7"),
+    ("wire_dtype", "bfloat16", "A.7"),
     ("slave_ttl", 30.0, "A.7"),
     ("snapshot_sharded", True, "A.4"),
     ("snapshot_format", "orbax", "A.4"),
-    ("mesh.data", 2, "A.4"),
+    ("tree_fanout", 4, "A.7"),
     ("mode", "master", "A.7"),
     ("master_bind", "tcp://*:5571", "A.7"),
     ("seq_parallel", 2, "A.8"),
@@ -153,13 +153,13 @@ def test_cli_refuses_an_unported_knob(knob, value, item, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
-#: the segmented run's, the streaming path's, the deep pipeline's and the
-#: compiler knobs, each set away from its default
+#: the segmented run's, the streaming path's, the deep pipeline's, the
+#: compiler and the mesh's gate knobs, each set away from its default
 PORTED_A4 = {"remat": True, "scan_chunk": 4, "async_snapshot": False,
              "prefetch_segments": 0, "decode_workers": 2,
              "stream_budget_mb": 64, "async_staging": False,
              "staging_donate": False, "pipeline_depth": 2, "backend": "cpu",
-             "fuse": False, "xla_latency_hiding": True}
+             "fuse": False, "xla_latency_hiding": True, "train_shard": True}
 
 
 def test_defaults_and_ported_knobs_pass_the_check():

@@ -401,9 +401,11 @@ def test_hyper_rows_follow_the_reference(tmp_path):
 
 
 def test_the_slice_knobs_are_read():
-    """The eight knobs of the segmented run and the four of the deep
-    pipeline and the compiler left ``UNPORTED_ENGINE_KNOBS`` for
-    ``ENGINE_DEFAULTS``; with the 35 knobs still refused they are the
+    """The eight knobs of the segmented run, the four of the deep
+    pipeline and the compiler and the three of the training mesh
+    (``train_shard``, ``mesh.data``, ``mesh.model``) left
+    ``UNPORTED_ENGINE_KNOBS`` for ``ENGINE_DEFAULTS`` (nested as the
+    reference's); with the 32 knobs still refused they are the
     reference's 61."""
     from znicz_torch.core.config import ENGINE_DEFAULTS, UNPORTED_ENGINE_KNOBS
     from znicz_tpu.core.config import ENGINE_DEFAULTS as JDEFAULTS
@@ -417,13 +419,15 @@ def test_the_slice_knobs_are_read():
                 out[prefix + key] = val
         return out
 
-    ref = flat(JDEFAULTS)
-    assert set(ENGINE_DEFAULTS) | set(UNPORTED_ENGINE_KNOBS) == set(ref)
+    ref, read = flat(JDEFAULTS), flat(ENGINE_DEFAULTS)
+    assert set(read) | set(UNPORTED_ENGINE_KNOBS) == set(ref)
+    assert not set(read) & set(UNPORTED_ENGINE_KNOBS)
     assert len(ref) == 61
-    assert len(UNPORTED_ENGINE_KNOBS) == 35
+    assert len(UNPORTED_ENGINE_KNOBS) == 32 and len(read) == 29
     for key in ("remat", "scan_chunk", "async_snapshot", "prefetch_segments",
                 "decode_workers", "stream_budget_mb", "async_staging",
                 "staging_donate", "pipeline_depth", "backend", "fuse",
-                "xla_latency_hiding"):
-        assert key in ENGINE_DEFAULTS and key not in UNPORTED_ENGINE_KNOBS
-        assert ENGINE_DEFAULTS[key] == ref[key], key
+                "xla_latency_hiding", "train_shard", "mesh.data",
+                "mesh.model"):
+        assert key in read and key not in UNPORTED_ENGINE_KNOBS
+        assert read[key] == ref[key], key

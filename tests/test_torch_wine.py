@@ -15,6 +15,10 @@ from test_torch_layers import sample_config
 
 #: the port's losses against the reference's, step for step
 LOSS_TOL = {"rtol": 1e-4}
+#: the ``root.wine`` keys the asserts depend on, at the sample's defaults,
+#: set in both packages' trees for each run (another test may have left
+#: other values there)
+WINE = {"decision__max_epochs": 20, "decision__fail_iterations": 0}
 
 
 @pytest.fixture(scope="module")
@@ -27,12 +31,13 @@ def reference(tmp_path_factory):
     from znicz_tpu.samples.wine import WineWorkflow
 
     root.common.dirs.snapshots = str(tmp_path_factory.mktemp("ref"))
-    prng.reset(1013)
-    wf = WineWorkflow()
-    wf.initialize(device=None)
-    data = np.array(wf.loader.original_data.mem)
-    losses = _record_train_losses(wf.decision)
-    train(wf)
+    with sample_config("wine", **WINE):
+        prng.reset(1013)
+        wf = WineWorkflow()
+        wf.initialize(device=None)
+        data = np.array(wf.loader.original_data.mem)
+        losses = _record_train_losses(wf.decision)
+        train(wf)
     d = wf.decision
     return data, losses, {k: d.epoch_metrics[k]["err_pct"] for k in (1, 2)}
 
@@ -43,10 +48,11 @@ def _port_run(tmp_path, fused):
     from znicz_torch.samples import wine
 
     root.common.dirs.snapshots = str(tmp_path)
-    prng.reset(1013)
-    wf = wine.WineWorkflow(device="cpu")
-    data = wf.loader.data.numpy().copy()
-    wine.train(wf, "wine", fused=fused)
+    with sample_config("wine", **WINE):
+        prng.reset(1013)
+        wf = wine.WineWorkflow(device="cpu")
+        data = wf.loader.data.numpy().copy()
+        wine.train(wf, "wine", fused=fused)
     return wf, data
 
 

@@ -6,7 +6,10 @@ Every entry point takes a ``device`` argument.  ``None`` means the device
 name raise ``ValueError``.  The CPU is used only when the caller names it
 (``device="cpu"`` or ``backend="cpu"``), as the tests do.  Without a GPU
 and without either, :func:`resolve_device` raises: "auto" never drops to
-the CPU on its own.
+the CPU on its own.  In a process that :func:`znicz_torch.parallel.mesh.
+distributed_init` joined to a group of ranks, ``None`` means that rank's
+device instead (:func:`set_process_device`), unless the backend names
+the CPU.
 
 Float32 parity: PyTorch runs float32 convolutions through cuDNN in TF32
 by default, which keeps about three decimal digits.  The reference
@@ -22,7 +25,7 @@ float32 and round once.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -33,12 +36,27 @@ DeviceLike = Union[None, str, torch.device]
 BACKENDS = {"auto": "cuda:0", "gpu": "cuda:0", "cuda": "cuda:0",
             "cpu": "cpu"}
 
+#: the device of this process's rank, once it joined a group
+_process_device: Optional[torch.device] = None
+
+
+def set_process_device(device: DeviceLike) -> None:
+    """Make ``device`` the one ``None`` resolves to in this process (a
+    rank's device); None forgets it."""
+    global _process_device
+    _process_device = None if device is None else torch.device(device)
+
+
+def process_device() -> Optional[torch.device]:
+    """The rank's device :func:`set_process_device` set, or None."""
+    return _process_device
+
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device of ``root.common.engine.backend`` (:data:`BACKENDS`;
-    "tpu" or any other name raises ``ValueError``) for ``None``; the named
-    device otherwise.  Raises when a CUDA device is wanted and none is
-    available."""
+    "tpu" or any other name raises ``ValueError``), or the rank's device
+    (:func:`process_device`), for ``None``; the named device otherwise.
+    Raises when a CUDA device is wanted and none is available."""
     from znicz_torch.core.config import root
 
     torch.backends.cudnn.allow_tf32 = False
@@ -52,6 +70,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 f"root.common.engine.backend={backend!r}: the port runs on "
                 f"{sorted(BACKENDS)} ('tpu' has no meaning under PyTorch)")
         device = BACKENDS[backend]
+        if backend != "cpu" and _process_device is not None:
+            device = _process_device
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -192,6 +192,13 @@ ENGINE_DEFAULTS = {
     "backend": "auto",            # device None: the card, or "cpu"
     "fuse": True,                 # accepted; read nowhere, as in the reference
     "xla_latency_hiding": False,  # accepted; warns that it has no meaning
+    # the training mesh (parallel/mesh.py): ranks of torch.distributed
+    "train_shard": False,         # gate; off = single device whatever the
+    #                               mesh knobs say
+    "mesh": {                     # the training mesh (train_shard on):
+        "data": 1,                # batch sharding, gradients summed
+        "model": 1,               # column-sharded wide FC weights
+    },
 }
 
 #: The reference's other ``root.common.engine.*`` knobs
@@ -200,11 +207,9 @@ ENGINE_DEFAULTS = {
 #: the ROADMAP item that ports it).  :func:`check_engine_knobs` refuses
 #: each set away from its default.
 UNPORTED_ENGINE_KNOBS = {
-    # A.4, the train loop's levers still to port: sharding and the
-    # snapshot formats
+    # A.4, the train loop's levers still to port: the snapshot formats
     **{key: (default, "A.4") for key, default in (
-        ("snapshot_format", "pickle"), ("snapshot_sharded", False),
-        ("train_shard", False), ("mesh.data", 1), ("mesh.model", 1))},
+        ("snapshot_format", "pickle"), ("snapshot_sharded", False))},
     # A.7, the distributed training plane
     **{key: (default, "A.7") for key, default in (
         ("mode", ""), ("master_bind", "tcp://*:5570"), ("master_resume", ""),

@@ -43,24 +43,35 @@ def _fused_capable(workflow, fused: bool) -> bool:
                          for a in ("forwards", "gds", "loader", "decision"))
 
 
-def train(workflow, fused: Optional[bool] = None):
+def train(workflow, fused: Optional[bool] = None, mesh=None):
     """Train ``workflow`` until its Decision completes, with
     ``FusedTrainer`` when ``fused`` (default: :func:`wants_fused`) and
-    the graph allows it, else with the unit graph.  Returns the stats
-    dict also kept as ``workflow.train_stats``.  A reference knob the
-    port does not read yet, such as the master and slave roles
-    (``root.common.engine.mode``), raises (:func:`check_engine_knobs`)."""
+    the graph allows it, else with the unit graph.  The fused trainer
+    runs on ``mesh``, by default the training mesh of the config
+    (``parallel.mesh.train_mesh_from_config``, None unless
+    ``root.common.engine.train_shard``); the unit graph refuses a mesh.
+    Returns the stats dict also kept as ``workflow.train_stats``.  A
+    reference knob the port does not read yet, such as the master and
+    slave roles (``root.common.engine.mode``), raises
+    (:func:`check_engine_knobs`)."""
+    from znicz_torch.parallel.mesh import train_mesh_from_config
+
     check_engine_knobs()
+    if mesh is None:
+        mesh = train_mesh_from_config()
     trainer = None
     if _fused_capable(workflow, wants_fused() if fused is None else fused):
         from znicz_torch.parallel.fused import (FusedTrainer,
                                                 FusedUnsupportedError)
 
         try:
-            trainer = FusedTrainer(workflow)
+            trainer = FusedTrainer(workflow, mesh=mesh)
         except FusedUnsupportedError as exc:
             log.warning("the fused trainer cannot run %s (%s); training on "
                         "the unit engine", workflow.name, exc)
+    if trainer is None and mesh is not None:
+        raise ValueError(f"{workflow.name}: the unit engine trains on one "
+                         "device; a mesh needs the fused trainer")
     if trainer is not None:
         trainer.run()
         workflow.trainer = trainer

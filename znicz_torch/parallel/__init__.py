@@ -1,1 +1,4 @@
-"""The fused forward pass (the eval half of the reference's trainer)."""
+"""The fused trainer (``parallel/fused.py``) and the training mesh of
+ranks (``parallel/mesh.py``)."""
+
+from znicz_torch.parallel.mesh import make_mesh  # noqa: F401

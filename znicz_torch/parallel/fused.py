@@ -106,6 +106,23 @@ in float32; under ``state_dtype`` "bfloat16" the velocities are
 serving stays float32.  No ``torch.autocast``: its per-op lists keep some
 ops in float32 where the reference does not.
 
+**On a mesh** (``FusedTrainer(wf, mesh=make_mesh(...))``, one process a
+rank; ``parallel/mesh.py``).  Rank (d, m) takes rows ``[d·n, (d+1)·n)`` of
+each minibatch's index row, ``n = ceil(B / dp)`` (rows past B are
+padding), gathers or stages only those, and counts a row valid when its
+global position is below the minibatch's size; the loss divides by that
+global size.  The gradients are summed over the ``data`` group in one
+collective before the update, so every rank applies the same update to
+its own shards.  Wide FC layers (:meth:`FusedTrainer.place_state`)
+hold only their rows of the ``model`` coordinate: the input enters
+through ``copy_to_model``, the local rows go through the activation or
+the FC epilogue, and the columns are gathered.  Dropout masks and
+stochastic pooling's offsets are drawn at the global shape and each
+rank takes its rows (and columns), so a meshed run draws one process's.
+The metrics are summed over ``data`` on the device before any host read
+(the deep pipeline's epoch vector once).  A meshed run is not captured
+(``uncaptured_reason``).  A 1 × 1 mesh is None: the single-device path.
+
 **Dropout masks.**  ``mask_fn(step, index, shape, ratio)`` supplies the
 mask of forwards index ``index`` at train step ``step``; by default it
 draws :meth:`DropoutForward.make_mask` from the ``fused_trainer`` stream's
@@ -139,7 +156,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from znicz_torch.all2all import All2AllSoftmax
+from znicz_torch.all2all import All2All, All2AllSoftmax
 from znicz_torch.core import prng
 from znicz_torch.core.config import ENGINE_DEFAULTS, check_engine_knobs, root
 from znicz_torch.core.mutable import Bool
@@ -151,6 +168,7 @@ from znicz_torch.fused_block import (fused_bias_relu, fused_block,
 from znicz_torch.loader.base import TRAIN
 from znicz_torch.nn_units import params_of, sgd_update, state_dtype
 from znicz_torch.ops.linear import linear
+from znicz_torch.parallel import mesh as mesh_mod
 from znicz_torch.parallel.graphs import StepGraph, capture_stream
 from znicz_torch.pooling import StochasticPoolingBase
 
@@ -295,8 +313,13 @@ class FusedTrainer:
     #: :meth:`_deep_eligible`) :meth:`run` takes the deep pipeline
     pipeline_depth = 1
 
+    #: FC layers at least this wide are column-sharded over the mesh's
+    #: ``model`` axis (AlexNet's 4096-wide fc6/fc7)
+    tp_threshold = 1024
+
     def __init__(self, workflow, mask_fn: Optional[MaskFn] = None,
-                 offset_fn: Optional[OffsetFn] = None, remat=None):
+                 offset_fn: Optional[OffsetFn] = None, remat=None,
+                 mesh=None):
         if remat is None:
             remat = bool(root.common.engine.get("remat", False))
         self.remat = bool(remat)
@@ -359,7 +382,9 @@ class FusedTrainer:
         #: (one for several epochs), ``deep_rollbacks``, the most epochs
         #: in flight, and the train and eval steps queued and then
         #: rolled back (``train_steps`` and ``eval_steps`` count the
-        #: steps kept, as a segmented run does)
+        #: steps kept, as a segmented run does).  On a mesh: the
+        #: ``collectives`` of a run, their ``collective_bytes`` and their
+        #: host seconds ``collective_s`` (``parallel/mesh.STATS``)
         self.stats = {"train_steps": 0, "eval_steps": 0, "images": 0,
                       "wall_s": 0.0, "img_per_sec": 0.0, "warm_images": 0,
                       "warm_wall_s": 0.0, "warm_img_per_sec": 0.0,
@@ -370,7 +395,8 @@ class FusedTrainer:
                       "deep_flushes": 0, "deep_pulls": 0,
                       "deep_rollbacks": 0, "deep_inflight_max": 0,
                       "deep_discarded_train_steps": 0,
-                      "deep_discarded_eval_steps": 0}
+                      "deep_discarded_eval_steps": 0, "collectives": 0,
+                      "collective_bytes": 0, "collective_s": 0.0}
         self._stats_lock = threading.Lock()
         #: (kind, length) -> segments dispatched
         self.segments: Counter = Counter()
@@ -380,6 +406,19 @@ class FusedTrainer:
             "stochastic pooling samples its offsets inside the step"
             if any(isinstance(f, StochasticPoolingBase)
                    for f in self.forwards) else None)
+        #: the mesh of ranks (None: one device), this rank's data
+        #: coordinate, the groups of its data and model lines (None for an
+        #: axis of one rank)
+        self.mesh = mesh
+        self._dp = mesh_mod.axis_size(mesh, "data")
+        self._d = mesh_mod.axis_index(mesh, "data")
+        self._data_group = mesh_mod.axis_group(mesh, "data")
+        #: the global rows of the index rows last split over ``data``
+        self._global_batch: Optional[int] = None
+        if mesh is not None:
+            self.uncaptured_reason = (
+                "a meshed run's collectives are not captured (gloo's "
+                "cannot be; NCCL's across cards are untested)")
         #: the DeviceStager of a staged run while it runs, and its
         #: counters when the run ended
         self._stager = None
@@ -393,6 +432,8 @@ class FusedTrainer:
         self.master_dtype = master_dtype()
         state_dtype()                       # a bad spelling raises here
         check_engine_knobs()
+        if mesh is not None:
+            self.place_state()
 
     @property
     def train_losses(self):
@@ -416,9 +457,84 @@ class FusedTrainer:
     def _params_of(f) -> Dict[str, torch.Tensor]:
         return params_of(f)
 
+    # -- the mesh -------------------------------------------------------------
+
+    @property
+    def mesh_shape(self) -> Optional[Dict[str, int]]:
+        """``{"data": dp, "model": mp}``, None on one device."""
+        return mesh_mod.mesh_shape_dict(self.mesh)
+
+    def place_state(self) -> None:
+        """Each column-sharded parameter and its velocity replaced by this
+        rank's rows (``parallel/mesh.tree_shardings`` and ``place_tree``),
+        and the module marked with its ``mesh_placement``; the rest stays
+        whole.  The rule is offered the FC modules stored (out, in) alone:
+        the forward splits those by columns, and no other layer.  Once a
+        module."""
+        fcs = {f.name: f for f in self._weighted()
+               if isinstance(f, All2All) and not f.weights_transposed
+               and mesh_mod.placement_of(f) is None}
+        params = {name: {k: p.detach()
+                         for k, p in self._params_of(f).items()}
+                  for name, f in fcs.items()}
+        specs = mesh_mod.tree_shardings(self.mesh, params, self.tp_threshold)
+        local = mesh_mod.place_tree(self.mesh, params, specs)
+        for name, f in fcs.items():
+            split = {k: spec for k, spec in specs[name].items() if spec}
+            if not split:
+                continue
+            for k in split:
+                setattr(f, k, nn.Parameter(
+                    local[name][k],
+                    requires_grad=self._params_of(f)[k].requires_grad))
+            gd = self.gd_of.get(name)
+            if gd is not None:
+                gd.velocities.update(mesh_mod.place_tree(
+                    self.mesh, {name: gd.velocities}, specs)[name])
+            f.mesh_placement = mesh_mod.Placement(self.mesh, split)
+
+    def _local_idx(self, mat: np.ndarray) -> np.ndarray:
+        """The (k, n) columns of the (k, B) index matrix that this rank's
+        data coordinate takes (the matrix itself off a mesh)."""
+        if self._dp == 1:
+            return mat
+        self._global_batch = int(np.shape(mat)[1])
+        return mesh_mod.shard_index_rows(mat, self._dp, self._d)
+
+    def _local_row(self, idx):
+        """This rank's part of one index row (numpy or a tensor)."""
+        if self._dp == 1:
+            return idx
+        if isinstance(idx, torch.Tensor):
+            return torch.from_numpy(self._local_idx(
+                idx.cpu().numpy()[None])[0]).to(idx.device)
+        return self._local_idx(np.asarray(idx)[None])[0]
+
+    def _own_rows(self, t: torch.Tensor, n: int, fill=1) -> torch.Tensor:
+        """Rows ``[d·n, (d+1)·n)`` of a tensor drawn at the global batch,
+        padded with ``fill`` past its end."""
+        row0 = self._d * n
+        part = t[row0:row0 + n]
+        if part.shape[0] < n:
+            pad = torch.full((n - part.shape[0],) + tuple(t.shape[1:]), fill,
+                             dtype=t.dtype, device=t.device)
+            part = torch.cat([part, pad])
+        return part
+
+    def _global_rows(self, n: int) -> int:
+        return (self._global_batch if self._global_batch is not None
+                else self._dp * n)
+
+    def _sum_over_data(self, *tensors) -> list:
+        """The tensors summed over the ``data`` group (as they are off a
+        mesh)."""
+        return mesh_mod.sum_over(tensors, self._data_group)
+
     def extract_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """``{module name: {"weights": tensor, "bias": tensor}}``, the live
-        parameters (the reference's tree layout)."""
+        parameters (the reference's tree layout); on a mesh, this rank's
+        rows of a column-sharded one (``snapshotter.collect`` gathers
+        them whole)."""
         return {f.name: self._params_of(f) for f in self._weighted()}
 
     def extract_velocities(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -536,6 +652,8 @@ class FusedTrainer:
         ``cast`` re-casts the activation entering every module (mixed
         precision)."""
         masks = mask_fn or self.mask_fn
+        if self.mesh is not None:
+            masks = self._rank_masks(masks)
         plan = plan_fused_blocks(self.forwards)
         tail_plan = plan_fused_tail(self.forwards, plan)
         h = x
@@ -556,15 +674,23 @@ class FusedTrainer:
                 if tl.kind == "conv_bias_relu":
                     h = fused_bias_relu(f.apply_linear(h), f.bias)
                 else:                               # fc_epilogue
+                    place = mesh_mod.placement_of(f)
+                    if place is not None:
+                        h = mesh_mod.copy_to_model(h, self.mesh)
                     y = linear(h, f.weights,
                                weights_transposed=f.weights_transposed)
                     mask_of = None
                     if train and tl.dropout_index >= 0 and tl.ratio > 0.0:
-                        def mask_of(shape=tuple(y.shape), tl=tl):
+                        extra = {} if place is None else {
+                            "cols": self._own_cols(y.shape[1])}
+
+                        def mask_of(shape=tuple(y.shape), tl=tl, kw=extra):
                             return masks(step, tl.dropout_index, shape,
-                                         tl.ratio)
-                    h = fused_fc_epilogue(y, f.bias, mask_of).reshape(
-                        (x.shape[0],) + f.output_sample_shape)
+                                         tl.ratio, **kw)
+                    h = fused_fc_epilogue(y, f.bias, mask_of)
+                    if place is not None:
+                        h = mesh_mod.gather_columns(h, self.mesh)
+                    h = h.reshape((x.shape[0],) + f.output_sample_shape)
                 i += tl.span
                 continue
             if isinstance(f, DropoutForward):
@@ -573,8 +699,15 @@ class FusedTrainer:
             elif isinstance(f, StochasticPoolingBase) and train:
                 with torch.no_grad():
                     probs = f.probabilities(f.windows(h, f.PAD_VALUE))
-                off = self.offset_fn(step, i, probs)
+                if self._dp > 1:
+                    off = self._own_rows(self.offset_fn(
+                        step, i, self._at_global_rows(probs)),
+                        probs.shape[0], fill=0)
+                else:
+                    off = self.offset_fn(step, i, probs)
                 h = f.select_sampled(h, off.to(h.device))
+            elif mesh_mod.placement_of(f) is not None:
+                h = self._sharded_fc(f, h, logits=f is last)
             elif f is last and isinstance(f, All2AllSoftmax):
                 h = linear(h, f.weights, f.bias,
                            weights_transposed=f.weights_transposed)
@@ -583,6 +716,50 @@ class FusedTrainer:
                 h = f(h)
             i += 1
         return h
+
+    def _rank_masks(self, masks: MaskFn):
+        """``masks`` drawn at the global batch (and, with ``cols``, at a
+        column-sharded layer's whole width), cut to this rank's rows (and
+        ``cols`` = (first, end, width) columns)."""
+        def rank_mask(step, index, shape, ratio, cols=None):
+            n = shape[0]
+            rest = tuple(shape[1:]) if cols is None else (cols[2],)
+            m = self._own_rows(
+                masks(step, index, (self._global_rows(n),) + rest, ratio), n)
+            return m if cols is None else m[:, cols[0]:cols[1]]
+        return rank_mask
+
+    def _own_cols(self, cols: int) -> Tuple[int, int, int]:
+        """(first, end, whole width) of this rank's ``cols`` columns of a
+        column-sharded layer."""
+        r = mesh_mod.axis_index(self.mesh, "model")
+        mp = mesh_mod.axis_size(self.mesh, "model")
+        return r * cols, (r + 1) * cols, mp * cols
+
+    def _at_global_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``t`` placed at their global positions of a
+        tensor of ones (what a draw at the global shape reads)."""
+        n = t.shape[0]
+        g = torch.ones((self._global_rows(n),) + tuple(t.shape[1:]),
+                       dtype=t.dtype, device=t.device)
+        row0 = self._d * n
+        real = max(0, min(n, g.shape[0] - row0))
+        g[row0:row0 + real] = t[:real]
+        return g
+
+    def _sharded_fc(self, f, h, logits: bool):
+        """A column-sharded FC module: its input through
+        ``copy_to_model``, this rank's rows of the product, their
+        activation, the columns gathered; a softmax activates the whole,
+        and as the head (``logits``) not at all."""
+        softmax = isinstance(f, All2AllSoftmax)
+        y = linear(mesh_mod.copy_to_model(h, self.mesh), f.weights, f.bias)
+        if not softmax:
+            y = type(f).ACTIVATION(y)
+        y = mesh_mod.gather_columns(y, self.mesh)
+        if softmax and not logits:
+            y = type(f).ACTIVATION(y)
+        return y.reshape((h.shape[0],) + f.output_sample_shape)
 
     # -- loss, steps -----------------------------------------------------------
 
@@ -612,7 +789,9 @@ class FusedTrainer:
         else:
             out = forward(data)
         n = out.shape[0]
-        valid = torch.arange(n, device=out.device) < batch_size
+        # on a mesh, the global position of each of this rank's rows
+        valid = torch.arange(self._d * n, self._d * n + n,
+                             device=out.device) < batch_size
         denom = max(int(batch_size), 1)
         if self.loss_kind == "mse":
             diff = (out.reshape(n, -1) - target.reshape(n, -1)) \
@@ -690,7 +869,9 @@ class FusedTrainer:
                                               step, True, mask_fn)
         params = [p for f in self._weighted()
                   for p in self._params_of(f).values()]
-        self._update(torch.autograd.grad(loss, params), hyp, clips)
+        grads = mesh_mod.sum_gradients(torch.autograd.grad(loss, params),
+                                       self._data_group)
+        self._update(grads, hyp, clips)
         return metrics
 
     def _put(self, array: np.ndarray) -> torch.Tensor:
@@ -714,19 +895,19 @@ class FusedTrainer:
         current hyperparameters; returns the step's metrics."""
         self._init_velocities()
         hyp, clips = self._host_row()
-        metrics = self._step("train", {"idx": idx}, batch_size, step, hyp,
-                             clips)
+        metrics = self._step("train", {"idx": self._local_row(idx)},
+                             batch_size, step, hyp, clips)
         self.stats["train_steps"] += 1
-        return metrics
+        return tuple(self._sum_over_data(*metrics))
 
     def eval_step(self, idx, batch_size: int, step: int = 0,
                   train: bool = False):
         """Metrics only.  ``train`` replays the train forward with the
         dropout masks of ``step`` (the epoch tail)."""
-        metrics = self._step("tail" if train else "eval", {"idx": idx},
-                             batch_size, step)
+        metrics = self._step("tail" if train else "eval",
+                             {"idx": self._local_row(idx)}, batch_size, step)
         self.stats["eval_steps"] += 1
-        return metrics
+        return tuple(self._sum_over_data(*metrics))
 
     # -- captured steps -------------------------------------------------------
 
@@ -825,18 +1006,21 @@ class FusedTrainer:
         return losses, n_errs, conf
 
     def _resident_inputs(self, seg) -> Dict[str, torch.Tensor]:
-        """A segment's index rows as one (k, B) tensor on the device."""
+        """A segment's index rows as one (k, B) tensor on the device (on a
+        mesh, this rank's (k, n) columns)."""
         mat = np.stack([np.asarray(s["idx"], np.int64) for s in seg])
-        return {"idx": self._put(mat)}
+        return {"idx": self._put(self._local_idx(mat))}
 
     def _stage_direct(self, idx_rows) -> StagedSegment:
-        """Assemble one segment's rows (the single-process case): the
-        host gather in the storage dtype (into pinned memory on the
-        card), the copy to the device (on the copy stream, with its
-        event).  Under ``staging_donate`` the copy writes a buffer a
-        consumed segment gave back, where one of the shape is free."""
+        """Assemble one segment's rows: the host gather in the storage
+        dtype (into pinned memory on the card) of this rank's rows only
+        on a mesh (:meth:`_local_idx`), the copy to the device (on the
+        copy stream, with its event).  Under ``staging_donate`` the copy
+        writes a buffer a consumed segment gave back, where one of the
+        shape is free."""
         loader = self.loader
-        idx = np.stack([np.asarray(r, np.int32) for r in idx_rows])
+        idx = self._local_idx(
+            np.stack([np.asarray(r, np.int32) for r in idx_rows]))
         k, batch = idx.shape
         flat = idx.reshape(-1)
         if self.loss_kind == "softmax":
@@ -1010,6 +1194,7 @@ class FusedTrainer:
                 "targets=)")
         self._init_velocities()
         self._reset_accounting()
+        coll0 = dict(mesh_mod.STATS)
         indices_only, self.loader.indices_only = self.loader.indices_only, True
         try:
             if self.pipeline_depth > 1 and self._deep_eligible():
@@ -1028,6 +1213,10 @@ class FusedTrainer:
             # an interrupted run still lands its queued saves, without a
             # writer's error hiding the one in flight
             self._drain_snapshots(suppress=sys.exc_info()[0] is not None)
+            for key, stat in (("collectives", "calls"),
+                              ("collective_bytes", "bytes"),
+                              ("collective_s", "seconds")):
+                self.stats[key] += mesh_mod.STATS[stat] - coll0[stat]
 
     def _run_segmented(self) -> None:
         loader, decision = self.loader, self.decision
@@ -1111,7 +1300,7 @@ class FusedTrainer:
             if can_prefetch:
                 for m in fifo:
                     if not m.get("pf"):
-                        loader.prefetch_rows(m["idx"])
+                        loader.prefetch_rows(self._local_row(m["idx"]))
                         m["pf"] = True
             # never past an epoch's tail: the snapshot at the epoch's end
             # records the loader as the tail left it
@@ -1119,7 +1308,7 @@ class FusedTrainer:
                     not (fifo and fifo[-1]["last_minibatch"]):
                 nxt = self._advance()
                 if can_prefetch:
-                    loader.prefetch_rows(nxt["idx"])
+                    loader.prefetch_rows(self._local_row(nxt["idx"]))
                     nxt["pf"] = True
                 fifo.append(nxt)
 
@@ -1140,8 +1329,9 @@ class FusedTrainer:
             nonlocal inflight, epoch_conf
             if inflight is None:
                 return
-            seg, (losses, n_errs, conf), t0 = inflight
+            seg, result, t0 = inflight
             inflight = None
+            losses, n_errs, conf = self._sum_over_data(*result)
             epoch_conf = conf if epoch_conf is None else epoch_conf + conf
             for s, loss, n_err in zip(seg, losses.tolist(), n_errs.tolist()):
                 self._feed_decision(s, (loss, n_err, None))
@@ -1178,8 +1368,8 @@ class FusedTrainer:
                 # if gd_skip stayed open
                 staged, inputs = segment_inputs([mb])
                 inputs = {n: t[0] for n, t in inputs.items()}
-                loss, n_err, conf = self._step("tail", inputs, mb["size"],
-                                               self.steps_done)
+                loss, n_err, conf = self._sum_over_data(*self._step(
+                    "tail", inputs, mb["size"], self.steps_done))
                 self.stats["eval_steps"] += 1
                 self.stats["eager_steps"] += 1
                 if epoch_conf is not None:
@@ -1204,8 +1394,8 @@ class FusedTrainer:
                 extend_lookahead()
                 submit_upcoming()
                 staged, inputs = segment_inputs(seg)
-                losses, n_errs, conf = self._segment(
-                    "eval", inputs, [s["size"] for s in seg])
+                losses, n_errs, conf = self._sum_over_data(*self._segment(
+                    "eval", inputs, [s["size"] for s in seg]))
                 self.stats["eval_steps"] += len(seg)
                 consumed(staged)
                 for i, (s, loss, n_err) in enumerate(
@@ -1394,11 +1584,14 @@ class FusedTrainer:
         self.steps_done = step0 + k + 1
         scalars += vecs + [torch.stack([loss, n_err.to(torch.float32)])]
         confs.append(c if conf is None else conf + c)
+        # the epoch's metrics summed over the data ranks, once
+        scalars, confs = self._sum_over_data(torch.cat(scalars),
+                                             torch.stack(confs))
         # the streams as a snapshot at this tail records them: those the
         # steps made (the dropout masks' stream) too
         rec.update(applied_tail=apply_tail, pre_tail=pre_tail,
-                   steps_end=self.steps_done, scalars=torch.cat(scalars),
-                   confs=torch.stack(confs), n_train=k + int(apply_tail),
+                   steps_end=self.steps_done, scalars=scalars,
+                   confs=confs, n_train=k + int(apply_tail),
                    n_eval=sum(len(m) for _, m in rec["evals"]) + 1,
                    loader=self._loader_state(), end=self._mark(),
                    prng={name: copy.deepcopy(s.state.bit_generator.state)

@@ -13,14 +13,15 @@ import logging
 from typing import Optional
 
 
-def train(wf, sample: str, fused: Optional[bool] = None):
+def train(wf, sample: str, fused: Optional[bool] = None, mesh=None):
     """Train the built workflow ``wf`` with ``engine.train`` until its
-    Decision completes (``fused`` as there), log its unit timing and
-    speed, and return ``wf``; the stats are kept as ``wf.train_stats``,
-    the fused trainer, when it ran, as ``wf.trainer``."""
+    Decision completes (``fused`` and ``mesh`` as there), log its unit
+    timing and speed, and return ``wf``; the stats are kept as
+    ``wf.train_stats``, the fused trainer, when it ran, as
+    ``wf.trainer``."""
     from znicz_torch import engine
 
-    stats = engine.train(wf, fused)
+    stats = engine.train(wf, fused, mesh=mesh)
     wf.print_stats()
     logging.getLogger(f"znicz_torch.{sample}").info(
         "trained %d steps, %.1f images/s (%.1f warm)",

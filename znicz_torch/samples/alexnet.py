@@ -143,8 +143,12 @@ def training_workflow(device: DeviceLike = None) -> AlexNetWorkflow:
             "interval": int(cfg.snapshotter.get("interval", 0))})
 
 
-def run(device: DeviceLike = None, fused: bool = True) -> AlexNetWorkflow:
+def run(device: DeviceLike = None, fused: bool = True,
+        mesh=None) -> AlexNetWorkflow:
     """Build :func:`training_workflow` on ``device`` and train it until
-    the Decision completes: with ``FusedTrainer``, or with the unit
-    engine when ``fused`` is False."""
-    return train(training_workflow(device), "alexnet", fused=fused)
+    the Decision completes: with ``FusedTrainer`` on ``mesh`` (a
+    ``parallel.mesh.make_mesh`` of this process's group; by default the
+    config's training mesh), or with the unit engine when ``fused`` is
+    False."""
+    return train(training_workflow(device), "alexnet", fused=fused,
+                 mesh=mesh)

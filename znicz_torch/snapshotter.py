@@ -19,10 +19,20 @@ reference snapshot saved under bf16 state holds ``ml_dtypes`` bf16
 arrays; :meth:`Snapshotter.load` reads them without that package, as
 float32 leaves of the same values.  A loader's ``normalizer`` state
 rides in ``snap["loader"]["normalizer"]``, as the reference's does.  The
-reference's orbax format and multi-host saves are not ported (ROADMAP
-queues A.4, A.7): :class:`Snapshotter` refuses
-``compression`` other than "gz", ``format`` other than "pickle" and
-``sharded=True``.
+reference's orbax format is not ported (ROADMAP A.4): :class:`Snapshotter`
+refuses ``compression`` other than "gz", ``format`` other than "pickle"
+and ``sharded=True``.
+
+**On a mesh of ranks** (``parallel/mesh.py``) a snapshot still holds
+whole arrays: :func:`collect` and :func:`snapshot_from_trees` gather each
+column-sharded leaf over the ``model`` axis (a collective every rank
+joins, on the main thread, in the units' order), and only rank 0 writes
+(:meth:`Snapshotter.save`, :meth:`Snapshotter.save_async`); the other
+ranks set ``destination`` to the path rank 0 writes.  The reference
+refuses a host-format save of state sharded across processes; the port
+gathers it.  :func:`restore` gives each rank its rows of such a leaf, so
+a meshed run's snapshot loads into one process and a single process's
+into a mesh.
 
 **Asynchronous saves** (``FusedTrainer`` under
 ``root.common.engine.async_snapshot``, on by default): at an epoch's end
@@ -52,6 +62,7 @@ import torch
 
 from znicz_torch.core.config import refuse_keyword, root
 from znicz_torch.core.units import Unit
+from znicz_torch.parallel import mesh as mesh_mod
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -61,24 +72,42 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy().copy()
 
 
+def _placement(unit) -> Optional[mesh_mod.Placement]:
+    """The mesh placement of a forward unit's module, or of a GD unit's
+    forward's; None off a mesh."""
+    fwd = getattr(unit, "forward", unit)
+    return mesh_mod.placement_of(getattr(fwd, "module", fwd))
+
+
+def _whole(unit, leaves: Dict) -> Dict:
+    """``leaves`` with each column-sharded one gathered whole over the
+    mesh's ``model`` axis (a collective)."""
+    place = _placement(unit)
+    if place is None:
+        return dict(leaves)
+    return {k: place.full(k, t) for k, t in leaves.items()}
+
+
 def collect(workflow, device_copies: bool = False) -> Dict:
     """The snapshot dict of ``workflow``'s units: forward parameters,
     GD velocities (zeros before the first update), and
     :func:`collect_meta`'s metadata.  With ``device_copies`` the array
     leaves are clones on the device, in their live dtypes, for
-    :meth:`Snapshotter.save_async` to copy out later."""
+    :meth:`Snapshotter.save_async` to copy out later.  On a mesh the
+    column-sharded leaves are gathered whole."""
     from znicz_torch.nn_units import ForwardBase, GradientDescentBase
 
     leaf = (lambda t: t.detach().clone()) if device_copies else _numpy
     snap = collect_meta(workflow)
     for unit in workflow:
         if isinstance(unit, ForwardBase) and unit.has_weights:
-            snap["units"][unit.name] = {k: leaf(p) for k, p
-                                        in unit.params().items()}
+            snap["units"][unit.name] = {
+                k: leaf(p) for k, p in _whole(unit, unit.params()).items()}
         elif isinstance(unit, GradientDescentBase):
             unit.init_velocities()
             snap["velocities"][unit.name] = {
-                k: leaf(v) for k, v in unit.velocities.items()}
+                k: leaf(v)
+                for k, v in _whole(unit, unit.velocities).items()}
     return snap
 
 
@@ -88,17 +117,17 @@ def snapshot_from_trees(workflow, params: Dict, velocities: Dict) -> Dict:
     {param: tensor}}``, ``velocities`` ``{GD unit name: {param:
     tensor}}`` (a GD unit they do not name has no leaves: one whose
     forward has no weights).  The leaves are kept as they are, for
-    :meth:`Snapshotter.save_async` to copy out; the metadata is
-    :func:`collect_meta`'s."""
+    :meth:`Snapshotter.save_async` to copy out, a column-sharded one
+    gathered whole on a mesh; the metadata is :func:`collect_meta`'s."""
     from znicz_torch.nn_units import ForwardBase, GradientDescentBase
 
     snap = collect_meta(workflow)
     for unit in workflow:
         if isinstance(unit, ForwardBase) and unit.has_weights:
-            snap["units"][unit.name] = dict(params[unit.name])
+            snap["units"][unit.name] = _whole(unit, params[unit.name])
         elif isinstance(unit, GradientDescentBase):
-            snap["velocities"][unit.name] = dict(velocities.get(unit.name,
-                                                                {}))
+            snap["velocities"][unit.name] = _whole(
+                unit, velocities.get(unit.name, {}))
     return snap
 
 
@@ -137,12 +166,16 @@ def collect_meta(workflow) -> Dict:
     return snap
 
 
-def _assign(param: torch.Tensor, value) -> None:
+def _assign(param: torch.Tensor, value, place=None, key="") -> None:
     """Copy a snapshot leaf into ``param``, cast to the live dtype (a
     float32 leaf into a bf16 velocity rounds to nearest even), as the
-    reference's restore casts it."""
+    reference's restore casts it; with a mesh ``place``ment, this rank's
+    rows of a column-sharded leaf."""
+    value = np.array(value, np.float32)
+    if place is not None:
+        value = place.local(key, value)
     with torch.no_grad():
-        param.copy_(torch.from_numpy(np.array(value, np.float32)))
+        param.copy_(torch.from_numpy(value))
 
 
 def restore(workflow, snap: Dict) -> None:
@@ -155,12 +188,13 @@ def restore(workflow, snap: Dict) -> None:
     for unit in workflow:
         if isinstance(unit, ForwardBase) and unit.name in snap["units"]:
             for k, p in unit.params().items():
-                _assign(p, snap["units"][unit.name][k])
+                _assign(p, snap["units"][unit.name][k], _placement(unit), k)
         elif isinstance(unit, GradientDescentBase) and \
                 unit.name in snap.get("velocities", {}):
             unit.init_velocities()
             for k, v in unit.velocities.items():
-                _assign(v, snap["velocities"][unit.name][k])
+                _assign(v, snap["velocities"][unit.name][k],
+                        _placement(unit), k)
         elif isinstance(unit, Loader) and snap.get("loader"):
             unit.epoch_number = snap["loader"]["epoch_number"]
             unit.samples_served = snap["loader"].get("samples_served", 0)
@@ -194,7 +228,7 @@ def restore_inference(workflow, snap: Dict) -> None:
 
     for f in workflow.forwards:
         for k, p in params_of(f).items():
-            _assign(p, units[f.name][k])
+            _assign(p, units[f.name][k], mesh_mod.placement_of(f), k)
 
 
 class Snapshotter(Unit):
@@ -245,9 +279,14 @@ class Snapshotter(Unit):
         return os.path.join(self.directory, f"{self.prefix}_{tag}.pickle.gz")
 
     def save(self, tag: str) -> str:
-        os.makedirs(self.directory, exist_ok=True)
+        """Collect the workflow (every rank of a mesh joins) and write it
+        under ``tag``: on rank 0 only."""
         path = self.snapshot_path(tag)
         snap = collect(self.workflow)
+        if mesh_mod.process_index() != 0:
+            self.destination = path
+            return path
+        os.makedirs(self.directory, exist_ok=True)
         snap["config"] = root.to_dict()
         write_host_pickle(path, snap)
         self.destination = path
@@ -259,9 +298,13 @@ class Snapshotter(Unit):
                     (epoch + 1) % self.interval == 0)
 
     def _best_due(self, improved) -> bool:
-        return bool(improved) and (
-            time.time() - self._last_best_save_t
-            >= self.min_save_interval_s)
+        """Whether a best save is due; across ranks rank 0's clock decides
+        (a save is a collective on a mesh)."""
+        if not improved:
+            return False
+        due = time.time() - self._last_best_save_t >= self.min_save_interval_s
+        return bool(mesh_mod.agree(due) if self.min_save_interval_s > 0
+                    else due)
 
     def due(self, epoch: int, improved) -> bool:
         """Whether :meth:`run` would write anything for this epoch."""
@@ -296,7 +339,12 @@ class Snapshotter(Unit):
         written under each of ``tags`` by the background writer.
         ``ready``, a CUDA event recorded after the leaves were made, is
         waited on before they are copied out.  A writer error from an
-        earlier save is raised here."""
+        earlier save is raised here.  A rank other than 0 writes nothing
+        and sets ``destination`` to the path rank 0 writes last."""
+        if mesh_mod.process_index() != 0:
+            if tags:
+                self.destination = self.snapshot_path(tags[-1])
+            return
         with self._async_lock:
             if self._async_error is not None:
                 err, self._async_error = self._async_error, None
