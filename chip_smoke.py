@@ -183,8 +183,10 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      float32 and in bf16, ``scan_chunk`` 8 against 1: losses, weights,
      velocities and confusions bit-equal, the K1/K1b/K2/K2b launches
      equal and 2/2/3/3 a train step with the replays counted, captured
-     and eager steps and images/s both ways; ``remat`` on against off,
-     bit-equal, with ``torch.cuda.max_memory_allocated`` of both; the same
+     and eager steps and images/s both ways; ``remat`` (one checkpoint a
+     block) on against off, captured and at ``scan_chunk`` 1, bit-equal,
+     ``torch.cuda.max_memory_allocated`` of each from the same start
+     (every run's state kept on the host), ``remat``'s lower; the same
      rows host-staged (``stream_budget_mb`` 0: pinned segments copied
      ahead on a copy stream by the ``DeviceStager``) against the resident
      run, bit-equal, the stager's counts printed; 128 + 384 of the
@@ -232,8 +234,13 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      bit-equal (weights, velocities, losses, confusions); one train step
      of (a) and of (b) within the cross-layout band of one process's
      (loss rtol 1e-3, weights and velocities rtol 2e-3 / atol 2e-5) with
-     its error count and confusion equal; the whole of (a) and of (b)
-     held to one process's run: losses within rtol 1e-3, and weights,
+     its error count and confusion equal; the short run (ROADMAP C.5): N,
+     the most train steps up to ``SHARD_SHORT_MAX`` over which one
+     process from a start 1 ulp away stays in that band step by step
+     (error counts and confusions equal), found first, then (a) and (b)
+     over N steps held to the same band at every step; the whole of (a)
+     and of (b) held to one process's run: losses within rtol 1e-3, and
+     weights,
      velocities, confusions and error counts no further from it than
      ``SHARD_DRIFT_FACTOR`` times (plus ``SHARD_SAMPLES`` samples) what a
      one-process run from a start 1 ulp away drifts (the yardstick);
@@ -241,15 +248,28 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      bit-equal; steps, images/s, the seconds in collectives against the
      seconds of steps, peak memory of each rank.  The snapshot is loaded
      into this process's trainer.  A rank that fails or times out fails
-     the phase.
+     the phase;
+ 17. ``snapshots``, the snapshot formats and the served swap: 2 gloo ranks
+     on the card train phase 14's AlexNet under ``fused`` for an epoch on
+     mesh (1, 2) and save a sharded orbax snapshot (``format="orbax"``,
+     ``sharded``: each rank writes its rows of fc6/fc7), twice; a fresh
+     trainer on (2, 1) restores it (``restore_sharded``), and so does one
+     process here: every leaf bit-equal to the saving run's whole arrays,
+     the save's, the restores' seconds and the size on disk printed.
+     Then an ``InferenceServer`` under ``fused`` (generation 1: a fresh
+     random AlexNet) serves phase 3's 64 requests four times: before a
+     swap, while ``swap_async`` moves it to the snapshot (generation 2),
+     after the flip, and after ``rollback``; every reply within
+     ``SERVE_TOL`` of the composed forward of the generation stamped on
+     it, K1/K2 2/3 a dispatch (the swap's warm dispatches too).
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
 runs write none (their snapshotter is gated off, or in phase 15 its
 saves are held in memory: a full-width snapshot is 0.5 GB of gzip) but
-phase 16's one best save.  The last lines are the ``kernels`` JSON
-object and
-then ``{"ok": true, "device": {...}}``.  Without a CUDA device the
+phase 16's one best save and phase 17's orbax directory.  The last
+lines are the ``kernels`` JSON object and then ``{"ok": true,
+"device": {...}}``.  Without a CUDA device the
 script exits non-zero before printing any result.
 
     python3 chip_smoke.py --only fused_block_fwd[,...]
@@ -263,13 +283,14 @@ phases 7 and 8 for
 ``anchors``, phase 9 for ``units``, phase 10 for ``bf16``, phase 11
 for ``mnist_ae`` and ``kohonen`` (each alone or both), phase 12 for
 ``kinds``, phase 13 for ``samples``, phase 14 for ``segments``,
-phase 15 for ``deep`` and phase 16 for ``shard``; it prints the
-``kernels`` object and no ``ok`` line.
+phase 15 for ``deep``, phase 16 for ``shard`` and phase 17 for
+``snapshots``; it prints the ``kernels`` object and no ``ok`` line.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -3323,15 +3344,17 @@ def seg_textures(torch, n, n_classes=1000):
 
 
 def seg_state(trainer):
-    """(losses, parameters, velocities, per-class confusions) of a run."""
+    """(losses, parameters, velocities, per-class confusions) of a run,
+    copied to the host: a kept state holds no device memory, so every
+    run's peak starts from the same allocation."""
     d = trainer.decision
     return (list(d.train_losses),
-            {n: {k: p.detach().clone() for k, p in leaves.items()}
+            {n: {k: p.detach().cpu() for k, p in leaves.items()}
              for n, leaves in trainer.extract_params().items()},
-            {n: {k: v.clone() for k, v in leaves.items()}
+            {n: {k: v.cpu() for k, v in leaves.items()}
              for n, leaves in trainer.extract_velocities().items()},
             [None if m is None or m.get("confusion") is None
-             else m["confusion"].clone() for m in d.epoch_metrics])
+             else m["confusion"].cpu() for m in d.epoch_metrics])
 
 
 def seg_differences(torch, a, b):
@@ -3422,6 +3445,7 @@ def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
 
         snap.save_async = keep
     ctrs = counters()
+    gc.collect()                  # an earlier run's captures let go
     with engine_knobs(**knobs):
         trainer = FusedTrainer(wf, mesh=mesh)
         for fn in ctrs.values():                # the main path starts here
@@ -3430,6 +3454,7 @@ def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
                 fn.simple_launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         trainer.run()
         torch.cuda.synchronize()
@@ -3449,7 +3474,8 @@ def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
         f"{wall:.2f}s, "
         f"images/s={st['img_per_sec']:.1f} (after the first interval of "
         f"each kind {st['warm_img_per_sec']:.1f}); peak "
-        f"{peak / 2**30:.3f} GiB allocated; launches={launches}")
+        f"{peak / 2**30:.3f} GiB allocated (from {base / 2**30:.3f} at "
+        f"the start); launches={launches}")
     losses = list(trainer.train_losses)
     if not losses or not all(np.isfinite(losses)):
         raise AssertionError(f"[{tag}:{label}] non-finite loss: {losses}")
@@ -3467,7 +3493,7 @@ def seg_run(torch, card, label, wf, start, loader, knobs, expect=None,
                     f"for {n_train} train + {n_eval} eval steps, expected "
                     f"{want}")
     return {"state": seg_state(trainer), "launches": launches,
-            "stats": dict(st), "wall": wall, "peak": peak,
+            "stats": dict(st), "wall": wall, "peak": peak, "base": base,
             "trainer": trainer}
 
 
@@ -3524,6 +3550,7 @@ def seg_alexnet(torch, card, tmp):
             label = f"{routing}:scan{chunk}"
             runs[label] = seg_run(torch, card, label, wf, start, main,
                                   {**knobs, "scan_chunk": chunk}, expect)
+            del runs[label]["trainer"]
         a, b = runs[f"{routing}:scan8"], runs[f"{routing}:scan1"]
         if a["stats"]["captured_steps"] == 0 or \
                 b["stats"]["captured_steps"] != 0:
@@ -3540,14 +3567,28 @@ def seg_alexnet(torch, card, tmp):
             f"{b['stats']['img_per_sec']:.1f} (warm "
             f"{b['stats']['warm_img_per_sec']:.1f})")
     f32_knobs = SEG_ROUTINGS["f32"][0]
-    runs["f32:remat"] = seg_run(torch, card, "f32:remat", wf, start, main,
-                                {**f32_knobs, "remat": True},
-                                SEG_ROUTINGS["f32"][1], remat=True)
-    seg_same(torch, "f32:remat", runs["f32:remat"], runs["f32:scan8"],
-             "remat vs no remat")
-    log(f"[segments:f32:remat] {card}: max_memory_allocated "
-        f"{runs['f32:remat']['peak'] / 2**30:.3f} GiB with remat, "
-        f"{runs['f32:scan8']['peak'] / 2**30:.3f} GiB without")
+    # remat checkpoints each block (ROADMAP C.7): its peak below the run
+    # without it, captured and step at a time, from the same start
+    higher = []
+    for chunk in (8, 1):
+        label = f"f32:remat:scan{chunk}"
+        runs[label] = seg_run(torch, card, label, wf, start, main,
+                              {**f32_knobs, "remat": True,
+                               "scan_chunk": chunk},
+                              SEG_ROUTINGS["f32"][1], remat=True)
+        del runs[label]["trainer"]
+        plain = runs[f"f32:scan{chunk}"]
+        seg_same(torch, label, runs[label], plain, "remat vs no remat")
+        got, want = runs[label]["peak"], plain["peak"]
+        log(f"[segments:{label}] {card}: max_memory_allocated "
+            f"{got / 2**30:.3f} GiB with remat, {want / 2**30:.3f} GiB "
+            f"without ({(got - want) / 2**30:+.3f} GiB; from "
+            f"{runs[label]['base'] / 2**30:.3f} and "
+            f"{plain['base'] / 2**30:.3f} GiB at their starts)")
+        if got >= want:
+            higher.append(f"{label}: {got} B, not below {want} B")
+    if higher:
+        raise AssertionError(f"[segments] remat's peak {higher}")
     # host-staged: the budget knob sends the same rows through pinned
     # segments, copied ahead on the copy stream
     with engine_knobs(stream_budget_mb=0):
@@ -4000,6 +4041,9 @@ SHARD_LOSS_RTOL, SHARD_RTOL, SHARD_ATOL = 1e-3, 2e-3, 2e-5
 #: error counts at most this many times as many samples off, plus
 #: SHARD_SAMPLES (the yardstick: one process from a start 1 ulp away)
 SHARD_DRIFT_FACTOR, SHARD_SAMPLES = 2.0, 2
+#: C.5's closing check: the short run is the largest count of train
+#: steps up to this one at which the 1-ulp nudged run stays in the band
+SHARD_SHORT_MAX = 20
 #: K1/K1b/K2/K2b at the rows a rank of mesh (2, 1) gives them
 SHARD_KERNEL_SHAPES = {
     "fused_block_fwd": KERNELS["fused_block_fwd"][2],
@@ -4086,10 +4130,11 @@ def shard_band(torch, got, want, start):
             shard_samples_off((cg, eg), (cw, ew)), [eg, ew])
 
 
-def shard_step(torch, wf, start, mesh=None):
-    """One ``FusedTrainer.train_step`` of ``wf`` (on ``mesh``) from
-    ``start`` on the first TRAIN minibatch with step 0's masks: (its
-    loss, its error count and confusion, the whole leaves after it)."""
+def shard_steps(torch, wf, start, n, mesh=None, each=None):
+    """``n`` train steps (``FusedTrainer.train_step``) of ``wf`` (on
+    ``mesh``) from ``start``, step s on the TRAIN minibatches in order
+    with step s's masks: each step's (loss, error count, confusion);
+    ``each(s, that step's triple)`` is called after step s."""
     from znicz_torch.core import prng
     from znicz_torch.parallel.fused import FusedTrainer
 
@@ -4097,12 +4142,62 @@ def shard_step(torch, wf, start, mesh=None):
     load_start(torch, wf, start)
     for gd in wf.gds.values():
         gd.velocities = {}
+    out = []
     with engine_knobs(**SEG_ROUTINGS["f32"][0]):
         trainer = FusedTrainer(wf, mesh=mesh)
-        idx = np.arange(SEG_ROWS[0], SEG_ROWS[0] + BATCH)
-        loss, n_err, conf = trainer.train_step(idx, BATCH, 0)
-    return (float(loss), int(n_err), conf.cpu().numpy().tolist(),
-            shard_state(torch, wf)[1])
+        for step in range(n):
+            row0 = SEG_ROWS[0] + step % (SEG_ROWS[1] // BATCH) * BATCH
+            loss, n_err, conf = trainer.train_step(
+                np.arange(row0, row0 + BATCH), BATCH, step)
+            out.append((float(loss), int(n_err),
+                        conf.cpu().numpy().tolist()))
+            if each is not None:
+                each(step, out[-1])
+    return out
+
+
+def shard_step(torch, wf, start, mesh=None):
+    """One train step (:func:`shard_steps`): (its loss, its error count
+    and confusion, the whole leaves after it)."""
+    (loss, n_err, conf), = shard_steps(torch, wf, start, 1, mesh)
+    return loss, n_err, conf, shard_state(torch, wf)[1]
+
+
+def shard_in_band(torch, got, want, leaves, want_leaves, w0):
+    """(loss error, leaves outside the cross-layout band, error count and
+    confusion equal) of a train step's (loss, n_err, confusion) ``got``
+    and the whole ``leaves`` after it, against ``want`` and
+    ``want_leaves``."""
+    _, outside, _ = shard_drift(torch, leaves, want_leaves, w0)
+    return (abs(got[0] - want[0]) / abs(want[0]), outside,
+            tuple(got[1:]) == tuple(want[1:]))
+
+
+def shard_short_n(torch, wf, start, nudged, w0):
+    """C.5's closing check, its length: one process from ``start`` and
+    from ``nudged`` (1 ulp away) for ``SHARD_SHORT_MAX`` train steps;
+    N is the largest count whose every step of the nudged run stayed in
+    the band (loss within ``SHARD_LOSS_RTOL``, weights and velocities
+    within ``SHARD_RTOL`` / ``SHARD_ATOL``, error count and confusion
+    equal).  Returns (N, the one-process run's first N steps, its whole
+    leaves after step N on the host, the nudged run's per-step (loss
+    error, leaves outside, metrics equal))."""
+    states = []
+    ref = shard_steps(torch, wf, start, SHARD_SHORT_MAX,
+                      each=lambda s, m: states.append(
+                          shard_state(torch, wf)[1]))
+    marks = []
+    shard_steps(torch, wf, nudged, SHARD_SHORT_MAX,
+                each=lambda s, m: marks.append(shard_in_band(
+                    torch, m, ref[s], shard_state(torch, wf)[1], states[s],
+                    w0)))
+    n = 0
+    for loss_err, outside, equal in marks:
+        if loss_err > SHARD_LOSS_RTOL or outside or not equal:
+            break
+        n += 1
+    leaves = {} if n == 0 else {k: t.cpu() for k, t in states[n - 1].items()}
+    return n, ref[:n], leaves, [(e, len(o), q) for e, o, q in marks]
 
 
 def start_leaves(start) -> dict:
@@ -4213,6 +4308,22 @@ def shard_rank(rank, world, store, tmp, card):
                               shard_drift(torch, leaves, step_leaves, w0),
                               n_err == step_err and conf == step_conf)
         del leaves
+    # C.5's closing check: the meshes over the short run, step by step
+    short = torch.load(os.path.join(tmp, "short.pt"))
+    short_leaves = {k: t.cuda() for k, t in short["leaves"].items()}
+    out["short"] = {}
+    for label, (shape, _, _, _) in list(SHARD_RUNS.items())[:2]:
+        got = shard_steps(torch, wf, start, short["n"],
+                          mesh_mod.make_mesh(shape, ("data", "model")))
+        worst, outside, share = shard_drift(
+            torch, shard_state(torch, wf)[1], short_leaves, w0)
+        out["short"][label] = (
+            max(abs(g[0] - w[0]) / abs(w[0])
+                for g, w in zip(got, short["steps"])),
+            all(tuple(g[1:]) == tuple(w[1:])
+                for g, w in zip(got, short["steps"])),
+            worst, outside, share)
+    del short, short_leaves
     for label, (shape, depth, epochs, write) in SHARD_RUNS.items():
         mesh = mesh_mod.make_mesh(shape, ("data", "model"))
         run = seg_run(torch, card, f"{label}:rank{rank}", wf, start, main,
@@ -4343,7 +4454,26 @@ def shard_phase(torch, card, rows):
             f"what the run moved them ({len(outside)} leaves outside the "
             f"band {SHARD_RTOL} / {SHARD_ATOL}), confusions and errors "
             f"{samples} sample(s) off")
-        del nudge, nudged, w0
+        del nudge
+        # C.5's closing check: the longest run the nudge itself keeps in
+        # the band, found before any mesh is compared
+        t1 = time.perf_counter()
+        short_n, short_ref, short_leaves, marks = shard_short_n(
+            torch, wf, start, nudged, w0)
+        log(f"[shard:short] one process against itself 1 ulp away, "
+            f"train step by train step (loss error, leaves outside the "
+            f"band, error count and confusion equal): "
+            + ", ".join(f"{i + 1}: ({e:.2g}, {o}, {q})"
+                        for i, (e, o, q) in enumerate(marks))
+            + f"; N = {short_n} of at most {SHARD_SHORT_MAX} "
+            f"({time.perf_counter() - t1:.2f}s)")
+        if short_n == 0:
+            raise AssertionError("[shard:short] the nudged run leaves the "
+                                 "band at its first step")
+        torch.save({"n": short_n, "steps": short_ref,
+                    "leaves": short_leaves},
+                   os.path.join(tmp, "short.pt"))
+        del nudged, w0, short_leaves
         log(f"[shard:one-process] {card}: AlexNet f32 `fused` "
             f"{SEG_EPOCHS} epochs, batch {BATCH}, mesh None: "
             f"{one['wall']:.2f}s, images/s {one['stats']['img_per_sec']:.1f}"
@@ -4435,6 +4565,20 @@ def shard_phase(torch, card, rows):
                 if loss_err > SHARD_LOSS_RTOL or outside or \
                         not metrics_equal:
                     bad.append(f"{label}: one step {outside[:4]}")
+            if label in ranks[0]["short"]:
+                loss_err, equal, worst, outside, share = \
+                    ranks[0]["short"][label]
+                log(f"[shard:{label}] the short run (C.5), {short_n} train "
+                    f"steps against one process's: losses within "
+                    f"{loss_err:.3g} (rtol {SHARD_LOSS_RTOL}), error counts "
+                    f"and confusions " + ("equal at every step" if equal
+                                          else "DIFFER")
+                    + f", weights and velocities within {worst:.3g} "
+                    f"({len(outside)} leaves outside the band {SHARD_RTOL} "
+                    f"/ {SHARD_ATOL}: {outside[:3]}), at most {share:.3g} of "
+                    f"what the run moved them")
+                if loss_err > SHARD_LOSS_RTOL or outside or not equal:
+                    bad.append(f"{label}: the short run leaves the band")
             if "band" in rec:
                 loss_err, first, (worst, outside, share), samples, \
                     errors = rec["band"]
@@ -4519,6 +4663,282 @@ def shard_phase(torch, card, rows):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: phase 17: the mesh that trains and saves, the mesh that restores, the
+#: epochs trained, and the passes of phase 3's requests served around the
+#: swap (one before it, one while it runs, one after the flip, one after
+#: the rollback)
+SNAP_SAVE_MESH, SNAP_RESTORE_MESH, SNAP_EPOCHS = (1, 2), (2, 1), 1
+
+
+def snapshot_digests(torch, wf):
+    """:func:`shard_digest` of ``wf``'s whole parameters and velocities
+    (gathered: a collective on a mesh)."""
+    return shard_digest(torch, shard_state(torch, wf)[1])
+
+
+def snapshots_rank(rank, world, store, tmp, card):
+    """One rank of phase 17 (a spawned process): full-width AlexNet under
+    ``fused`` trains on mesh ``SNAP_SAVE_MESH`` and saves a sharded
+    orbax snapshot into ``tmp/alexnet_p17.orbax`` (every rank its rows);
+    a fresh trainer on ``SNAP_RESTORE_MESH`` restores it with
+    ``restore_sharded``.  Writes the whole leaves' digests of both, the
+    save's and the restore's seconds and the launches to
+    ``tmp/rank<N>.json``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from znicz_torch.core import prng
+    from znicz_torch.loader.streaming import HostArraySource, StreamingLoader
+    from znicz_torch.parallel import mesh as mesh_mod
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.samples.alexnet import AlexNetWorkflow
+
+    mesh_mod.distributed_init(f"file://{store}", world, rank,
+                              backend="gloo")
+    n_valid, n_train = SEG_ROWS
+    u8, labels = seg_textures(torch, n_valid + n_train)
+    main = StreamingLoader(source=HostArraySource(u8, labels),
+                           class_lengths=[0, n_valid, n_train],
+                           minibatch_size=BATCH, device_budget_bytes=1 << 40)
+    prng.reset(SEED)
+    wf = no_snapshots(AlexNetWorkflow(
+        sample_shape=(227, 227, 3), n_classes=1000, loader=main,
+        decision_config={"max_epochs": SNAP_EPOCHS, "fail_iterations": 0}))
+    start = {f.name: {k: p.detach().clone()
+                      for k, p in FusedTrainer._params_of(f).items()}
+             for f in wf.forwards if f.has_weights}
+    knobs, expect = SEG_ROUTINGS["f32"]
+    run = seg_run(torch, card, f"train:rank{rank}", wf, start, main,
+                  {**knobs, "scan_chunk": 8},
+                  expect, epochs=SNAP_EPOCHS, tag="snapshots",
+                  mesh=mesh_mod.make_mesh(SNAP_SAVE_MESH, ("data", "model")))
+    trainer = run.pop("trainer")
+    out = {"rank": rank, "launches": run["launches"],
+           "stats": {k: trainer.stats[k] for k in ("train_steps",
+                                                   "eval_steps")},
+           "shapes": {n: list(trainer._params_of(f)["weights"].shape)
+                      for f in trainer._weighted()
+                      for n in [f.name] if n in SHARD_FC}}
+    snap = wf.snapshotter
+    snap.directory, snap.prefix = tmp, "alexnet"
+    snap.format, snap.sharded = "orbax", True
+    out["save_s"] = []
+    for _ in range(2):              # the first in a process, then again
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["path"] = snap.save("p17")
+        out["save_s"].append(time.perf_counter() - t0)
+    out["saved"] = snapshot_digests(torch, wf)
+    del trainer
+    # a fresh trainer on the other mesh shape: the modules whole again
+    load_start(torch, wf, start)
+    for gd in wf.gds.values():
+        gd.velocities = {}
+    restorer = FusedTrainer(wf, mesh=mesh_mod.make_mesh(SNAP_RESTORE_MESH,
+                                                        ("data", "model")))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = restorer.restore_sharded(out["path"])
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    out["restored"] = snapshot_digests(torch, wf)
+    out["epoch"] = meta["epoch"]
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def snapshots_phase(torch, card):
+    """Phase 17: the sharded snapshot and the served swap at full width.
+    ``SHARD_WORLD`` gloo ranks on the card train AlexNet on mesh (1, 2)
+    and save a sharded orbax snapshot, which they restore on (2, 1), and
+    this process restores on one device: every restored leaf bit-equal to
+    the saving run's whole arrays.  Then an ``InferenceServer`` under
+    ``fused`` serves phase 3's requests in four passes: generation 1
+    (random weights), a pass while ``swap_async`` moves it to the
+    snapshot, one after the flip, one after ``rollback``; every reply
+    within ``SERVE_TOL`` of the composed forward of the generation
+    stamped on it.  Returns {path: {kernel: launches}}."""
+    import multiprocessing as mp
+
+    from znicz_torch.core import prng
+    from znicz_torch.loader.streaming import HostArraySource, StreamingLoader
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.samples.alexnet import AlexNetWorkflow
+    from znicz_torch.serving.batcher import Request
+    from znicz_torch.serving.frontend import InferenceServer
+    from znicz_torch.serving.model import ModelRunner
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_snapshots_")
+    try:
+        t0 = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        store = os.path.join(tmp, "store")
+        procs = [ctx.Process(target=snapshots_rank,
+                             args=(rank, SHARD_WORLD, store, tmp, card))
+                 for rank in range(SHARD_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARD_JOIN_S
+        try:
+            for p in procs:
+                p.join(max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * SHARD_WORLD:
+            raise AssertionError(f"[snapshots] ranks exited {codes}")
+        ranks = []
+        for rank in range(SHARD_WORLD):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+        path = ranks[0]["path"]
+        size = sum(os.path.getsize(os.path.join(d, name))
+                   for d, _, names in os.walk(path) for name in names)
+        files = sorted(os.listdir(os.path.join(path, "arrays")))
+        bad = []
+        expect = SEG_ROUTINGS["f32"][1]
+        for r in ranks:
+            n_train, n_eval = (r["stats"]["train_steps"],
+                               r["stats"]["eval_steps"])
+            log(f"[snapshots:rank{r['rank']}] {card}: AlexNet f32 `fused` "
+                f"on mesh {SNAP_SAVE_MESH}, {n_train} train + {n_eval} eval "
+                f"steps, fc6/fc7 held as {r['shapes']}; sharded orbax save "
+                f"{r['save_s'][0]:.3f}s (the process's first), "
+                f"{r['save_s'][1]:.3f}s (again); restored on mesh "
+                f"{SNAP_RESTORE_MESH} in {r['restore_s']:.3f}s (epoch "
+                f"{r['epoch']}); launches={r['launches']}")
+            for name, (per_train, per_eval) in expect.items():
+                if r["launches"][name] != per_train * n_train \
+                        + per_eval * n_eval:
+                    bad.append(f"rank {r['rank']}: {name} launches")
+            if r["restored"] != r["saved"] or r["saved"] != ranks[0]["saved"]:
+                bad.append(f"rank {r['rank']}: restored leaves differ")
+        log(f"[snapshots] {os.path.basename(path)}: {size / 1e6:.1f} MB on "
+            f"disk, arrays/ {files}; ranks spawned, trained, saved and "
+            f"restored in {time.perf_counter() - t0:.2f}s; on mesh "
+            f"{SNAP_RESTORE_MESH} every leaf "
+            + ("bit-equal to the saving run's whole arrays"
+               if not bad else "DIFFERS"))
+        # one process restores the same directory
+        n_valid, n_train = SEG_ROWS
+        u8, labels = seg_textures(torch, n_valid + n_train)
+        prng.reset(SEED)
+        wf = no_snapshots(AlexNetWorkflow(
+            sample_shape=(227, 227, 3), n_classes=1000,
+            loader=StreamingLoader(source=HostArraySource(u8, labels),
+                                   class_lengths=[0, n_valid, n_train],
+                                   minibatch_size=BATCH,
+                                   device_budget_bytes=1 << 40),
+            decision_config={"max_epochs": SNAP_EPOCHS,
+                             "fail_iterations": 0}))
+        del u8, labels
+        restorer, restore_s = FusedTrainer(wf), []
+        for _ in range(2):          # the first in this process, then again
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            meta = restorer.restore_sharded(path)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t1)
+        one = snapshot_digests(torch, wf)
+        same = one == ranks[0]["saved"]
+        log(f"[snapshots:one-process] {card}: restore_sharded "
+            f"{restore_s[0]:.3f}s (the process's first), {restore_s[1]:.3f}s "
+            f"(again) (epoch {meta['epoch']}): every leaf "
+            + ("bit-equal to the saving run's" if same else "DIFFERS"))
+        if not same:
+            bad.append("one process: restored leaves differ")
+        # the served swap: generation 1 is a fresh random AlexNet
+        requests = make_requests()
+        prng.reset(SEED + 1)
+        served = AlexNetWorkflow(sample_shape=(227, 227, 3), n_classes=1000)
+        refs = {1: [ModelRunner(served).infer(x) for x in requests],
+                2: [ModelRunner(wf).infer(x) for x in requests]}
+        del wf
+        ctrs = {name: fn for name, fn in counters().items()
+                if name in ("fused_block_fwd", "bias_relu_fwd")}
+        with engine_knobs(**FUSED_KNOBS):
+            srv = InferenceServer(served, max_batch=BATCH, max_delay_ms=5.0,
+                                  queue_bound=4096).start()
+            for fn in ctrs.values():           # the main path starts here
+                fn.launches = 0
+            srv.runner.dispatches = 0
+            stamps = []
+
+            def serve_pass():
+                futures = [Future() for _ in requests]
+                for i, x in enumerate(requests):
+                    srv.submit(Request(x, x.shape[0], reply_to=futures[i],
+                                       req_id=i))
+                return [f.result(timeout=600) for f in futures]
+
+            passes = {"before": serve_pass()}
+            t1 = time.perf_counter()
+            swap = srv.swap_async(path)
+            passes["during"] = serve_pass()
+            swap.join(600)
+            swap_s = time.perf_counter() - t1
+            st = srv.stats()
+            passes["after"] = serve_pass()
+            rolled = srv.runner.rollback()
+            passes["rolled_back"] = serve_pass()
+            launches = {name: fn.launches for name, fn in ctrs.items()}
+            dispatches = srv.runner.dispatches
+            stats = srv.stats()
+            srv.stop()
+        if srv.error is not None:
+            raise RuntimeError("[snapshots] compute loop died") \
+                from srv.error
+        worst = {1: 0.0, 2: 0.0}
+        for label, got in passes.items():
+            for i, rep in enumerate(got):
+                if not rep["ok"]:
+                    raise AssertionError(f"[snapshots:{label}] request {i}: "
+                                         f"{rep}")
+                ref = refs[rep["gen"]][i]
+                if rep["y"].shape != ref.shape or \
+                        not np.isfinite(rep["y"]).all():
+                    raise AssertionError(f"[snapshots:{label}] request {i}: "
+                                         f"shape or non-finite")
+                worst[rep["gen"]] = max(worst[rep["gen"]], float(
+                    np.abs(rep["y"] - ref).max()
+                    / max(np.abs(ref).max(), 1e-30)))
+            stamps.append(sorted({rep["gen"] for rep in got}))
+        log(f"[snapshots:serve] {card}: swap_async to the snapshot "
+            f"{swap_s:.3f}s (load, warm of {len(srv.batcher.ladder.rungs)} "
+            f"rungs, flip) while a pass was served; generations by pass "
+            f"{dict(zip(passes, stamps))}; rollback to {rolled}; replies "
+            f"vs the composed forward of their generation: max|d|/max|ref| "
+            f"{worst[1]:.3e} (gen 1), {worst[2]:.3e} (gen 2) (tol "
+            f"{SERVE_TOL:g}); {dispatches} dispatches, launches={launches};"
+            f" swaps {stats['swaps']}, failures {stats['swap_failures']}, "
+            f"rollbacks {stats['rollbacks']}")
+        if stamps[0] != [1] or stamps[2] != [2] or stamps[3] != [1] or \
+                st["generation"] != 2 or rolled != 1:
+            bad.append(f"generations {stamps}, {st['generation']}, {rolled}")
+        if max(worst.values()) > SERVE_TOL:
+            bad.append(f"replies disagree: {worst}")
+        if stats["swaps"] != 1 or stats["swap_failures"] or \
+                stats["rollbacks"] != 1:
+            bad.append(f"swap counts {stats}")
+        per = {"fused_block_fwd": 2, "bias_relu_fwd": 3}
+        for name, n in per.items():
+            if launches[name] != n * dispatches or not dispatches:
+                bad.append(f"serve: {name} {launches[name]} launches for "
+                           f"{dispatches} dispatches")
+        if bad:
+            raise AssertionError(f"[snapshots] {bad}")
+        out = {"train": ranks[0]["launches"], "serve": launches}
+        del served, refs, passes
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -4527,7 +4947,8 @@ def main(argv=None) -> int:
                          "'bf16': phase 10; 'mnist_ae', 'kohonen': phase "
                          "11 for that sample; 'kinds': phase 12; "
                          "'samples': phase 13; 'segments': phase 14; "
-                         "'deep': phase 15; 'shard': phase 16")
+                         "'deep': phase 15; 'shard': phase 16; "
+                         "'snapshots': phase 17")
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -4592,10 +5013,11 @@ def run_phases(torch, args) -> int:
         bf16, kinds = "bf16" in names, "kinds" in names
         samples, segments = "samples" in names, "segments" in names
         deep, shard = "deep" in names, "shard" in names
+        snapshots = "snapshots" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
-                  "segments", "deep", "shard", *AE_SOM_RUNS)]
+                  "segments", "deep", "shard", "snapshots", *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -4671,6 +5093,14 @@ def run_phases(torch, args) -> int:
                         rows.setdefault(name, {"name": name}).setdefault(
                             "launches_by_path", {})[f"shard:{label}"] = count
             lap("phase 16")
+        if snapshots:
+            for label, launches in snapshots_phase(torch, card).items():
+                for name, count in launches.items():
+                    if count:
+                        rows.setdefault(name, {"name": name}).setdefault(
+                            "launches_by_path", {})[
+                                f"snapshots:{label}"] = count
+            lap("phase 17")
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -4850,6 +5280,16 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 16")
+
+    # -- phase 17: a sharded orbax snapshot across mesh shapes, and the
+    # -- served swap to it and the rollback ----------------------------
+    for label, launches in snapshots_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][f"snapshots:{label}"] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 17")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

@@ -13,9 +13,8 @@ now reads or refuses, against the reference on the CPU:
     reference snapshot's restores into the port;
   - ``Loader(native_shuffle=...)``: None and False shuffle with numpy,
     True with the host runtime, each in the reference's order;
-  - ``Snapshotter`` with another ``compression``, ``format`` or
-    ``sharded=True`` raises ``NotImplementedError`` naming its ROADMAP
-    item, and the reference's defaults are accepted.
+  - ``Snapshotter`` reads the reference's ``compression``, ``format``
+    and ``sharded`` keywords: their paths and flags, defaults and others.
 """
 
 import numpy as np
@@ -276,12 +275,23 @@ def test_native_shuffle_is_refused(value, native):
     ("format", "orbax", True), ("sharded", False, False),
     ("sharded", True, True)])
 def test_snapshotter_keywords_are_refused(key, value, refused, tmp_path):
+    """Each keyword, at the reference's default or another value
+    (``refused`` names the values an earlier slice refused), is read as
+    the reference reads it: "gz" writes ``.pickle.gz`` and any other
+    compression ``.pickle``; "orbax" a ``.orbax`` directory; ``sharded``
+    is kept.  The reference's snapshotter gives the same paths."""
     from znicz_torch.snapshotter import Snapshotter
+    from znicz_tpu.snapshotter import Snapshotter as JSnapshotter
 
-    if refused:
-        with pytest.raises(NotImplementedError,
-                           match=rf"Snapshotter\({key}=.*ROADMAP queue A\.4"):
-            Snapshotter(directory=str(tmp_path), **{key: value})
-    else:
-        snap = Snapshotter(directory=str(tmp_path), **{key: value})
-        assert snap.snapshot_path("best").endswith("wf_best.pickle.gz")
+    snap = Snapshotter(directory=str(tmp_path), **{key: value})
+    jsnap = JSnapshotter(directory=str(tmp_path), **{key: value})
+    want = {("compression", "gz"): "wf_best.pickle.gz",
+            ("compression", "none"): "wf_best.pickle",
+            ("compression", ""): "wf_best.pickle",
+            ("format", "orbax"): "wf_best.orbax"}.get((key, value),
+                                                       "wf_best.pickle.gz")
+    assert snap.snapshot_path("best").endswith(want)
+    assert snap.snapshot_path("best") == jsnap.snapshot_path("best")
+    assert getattr(snap, key) == getattr(jsnap, key) == value
+    assert (value != {"compression": "gz", "format": "pickle",
+                      "sharded": False}[key]) == refused

@@ -20,7 +20,12 @@ timeout of at most 120 s and kills them on failure.  The counterparts of
     fc6/fc7 split by rows, the dropout masks one process's; CIFAR10
     under ``pallas_lrn`` on two data ranks;
   - a meshed snapshot loads into one process and into the reference, and
-    a single process's loads into a mesh.
+    a single process's loads into a mesh;
+  - the sharded orbax snapshots of (1, 2) and (2, 1) (each rank writing
+    its own rows, each row once) restore with ``restore_sharded`` onto a
+    fresh pair of either shape and onto one process, and finish within
+    the band of the saving pair's losses; the reference's own orbax
+    directory restores onto (1, 2).
 
 Run as a script, this file is the rank worker:
 ``python test_torch_multiprocess.py RANK WORLD STORE OUTDIR SCENARIOS``.
@@ -314,6 +319,45 @@ def run_restore(mesh_shape, snapdir, path):
                        for f in trainer._weighted()}}
 
 
+#: the sharded checkpoint runs (``tests/test_multihost_checkpoint.py``):
+#: 4 epochs, an orbax snapshot at the end of epoch 1 (``interval`` 2)
+CKPT = dict(MNIST, decision__max_epochs=4)
+
+
+def run_sharded_save(mesh_shape, snapdir, ckpt, sharded=True):
+    """MNIST for 4 epochs on the mesh, the snapshotter in the orbax
+    format (each rank writing its own rows under ``sharded``) writing
+    ``mnist_epoch_1.orbax`` and its best saves into ``ckpt``, the
+    directory every rank shares; the run goes on to its end."""
+    from znicz_torch.parallel.fused import FusedTrainer
+
+    with port_config("mnist", CKPT, snapshot_format="orbax",
+                     snapshot_sharded=sharded):
+        wf = _mnist_workflow(ckpt)
+        wf.snapshotter.interval = 2
+        trainer = FusedTrainer(wf, mesh=_mesh(mesh_shape))
+        trainer.run()
+        return _record(wf, trainer, ckpt)
+
+
+def run_sharded_restore(mesh_shape, snapdir, path):
+    """A fresh MNIST workflow on the mesh (or one process), the orbax
+    snapshot at ``path`` restored by ``restore_sharded``, then run to the
+    end: the whole leaves as restored, and the run's record."""
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.snapshotter import collect
+
+    with port_config("mnist", CKPT):
+        wf = _mnist_workflow(snapdir)
+        trainer = FusedTrainer(wf, mesh=_mesh(mesh_shape))
+        meta = trainer.restore_sharded(path)
+        restored = collect(wf)
+        trainer.run()
+        return dict(_record(wf, trainer, snapdir), meta_epoch=meta["epoch"],
+                    restored={g: restored[g]
+                              for g in ("units", "velocities")})
+
+
 def run_refusals(mesh_shape, snapdir):
     """The mesh refusals inside a group: a mesh larger and one smaller
     than the world."""
@@ -331,7 +375,9 @@ def run_refusals(mesh_shape, snapdir):
 
 SCENARIOS = {"mnist": run_mnist, "config": run_config_mesh,
              "staged": run_staged, "alexnet": run_alexnet, "cifar": run_cifar,
-             "restore": run_restore, "refusals": run_refusals}
+             "restore": run_restore, "refusals": run_refusals,
+             "sharded_save": run_sharded_save,
+             "sharded_restore": run_sharded_restore}
 
 
 def worker(rank: int, world: int, store: str, outdir: str,
@@ -421,12 +467,47 @@ def single(tmp_path_factory, images):
             "snapshot": str(tmp / "mnist" / "mnist_best.pickle.gz")}
 
 
+#: the sharded saves: label -> (mesh shape, sharded)
+CKPT_SAVES = {"save_m2": ([1, 2], True), "save_d2": ([2, 1], True),
+              "save_whole": ([1, 2], False)}
+#: the restores of a save's epoch-1 directory: label -> (save, mesh shape)
+CKPT_RESUMES = {"resume_m2": ("save_m2", [1, 2]),
+                "resume_m2_on_d2": ("save_m2", [2, 1]),
+                "resume_d2": ("save_d2", [2, 1]),
+                "resume_d2_on_m2": ("save_d2", [1, 2])}
+
+
 @pytest.fixture(scope="module")
-def two_ranks(tmp_path_factory, single, images):
+def ckpt_dir(tmp_path_factory):
+    """The sharded saves' directories, and the reference's own orbax
+    directory of the seeded, untrained reduced MNIST (``ref.orbax``)."""
+    from test_torch_layers import jax_sample, sample_config
+
+    base = tmp_path_factory.mktemp("ckpt")
+    with sample_config("mnist", **CKPT):
+        jwf = jax_sample("mnist", base / "jax")
+        jwf.snapshotter.format = "orbax"
+        jwf.snapshotter.directory = str(base)
+        jwf.snapshotter.prefix = "ref"
+        jwf.snapshotter.save("start")
+    return base
+
+
+def _epoch1(ckpt_dir, save):
+    return str(ckpt_dir / save / "mnist_epoch_1.orbax")
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory, single, images, ckpt_dir):
     """Every two-rank scenario, in two groups (each joined within
-    ``JOIN_S``): [rank 0's, rank 1's]."""
+    ``JOIN_S``): [rank 0's, rank 1's].  The second group's fresh pairs
+    restore the first group's sharded snapshots."""
     groups = [
-        [("d2", "mnist", {"mesh_shape": [2, 1]}),
+        [*[(label, "sharded_save", {"mesh_shape": shape,
+                                    "ckpt": str(ckpt_dir / label),
+                                    "sharded": sharded})
+           for label, (shape, sharded) in CKPT_SAVES.items()],
+         ("d2", "mnist", {"mesh_shape": [2, 1]}),
          ("m2", "mnist", {"mesh_shape": [1, 2]}),
          ("config", "config", {"mesh_shape": [1, 2]}),
          ("restore", "restore", {"mesh_shape": [1, 2],
@@ -439,7 +520,13 @@ def two_ranks(tmp_path_factory, single, images):
         [("staged", "staged", {"mesh_shape": [2, 1]}),
          ("images", "staged", {"mesh_shape": [2, 1], "images": images}),
          ("alexnet_m2", "alexnet", {"mesh_shape": [1, 2]}),
-         ("cifar", "cifar", {"mesh_shape": [2, 1]})]]
+         ("cifar", "cifar", {"mesh_shape": [2, 1]}),
+         *[(label, "sharded_restore", {"mesh_shape": shape,
+                                       "path": _epoch1(ckpt_dir, save)})
+           for label, (save, shape) in CKPT_RESUMES.items()],
+         ("resume_ref_on_m2", "sharded_restore", {
+             "mesh_shape": [1, 2],
+             "path": str(ckpt_dir / "ref_start.orbax")})]]
     ranks = [{}, {}]
     for scenarios in groups:
         for rank, got in enumerate(
@@ -702,6 +789,112 @@ def test_meshed_snapshot_loads_anywhere(two_ranks, single, tmp_path):
             for name, leaves in one[group].items():
                 for k, a in leaves.items():
                     np.testing.assert_array_equal(got[group][name][k], a)
+
+
+def _chunks(path):
+    """{leaf: [(first row, rows, file)]} of the orbax directory's
+    ``arrays/``, as ``torch.distributed.checkpoint`` stored them."""
+    from torch.distributed.checkpoint import FileSystemReader
+    from torch.distributed.checkpoint.metadata import MetadataIndex
+
+    md = FileSystemReader(os.path.join(path, "arrays")).read_metadata()
+    out = {}
+    for fqn, leaf in md.state_dict_metadata.items():
+        out[fqn] = sorted(
+            (int(c.offsets[0]), int(c.sizes[0]), md.storage_data[
+                MetadataIndex(fqn, c.offsets)].relative_path)
+            for c in leaf.chunks)
+    return out
+
+
+def test_sharded_snapshot_writes_each_row_once(two_ranks, ckpt_dir):
+    """Reduced MNIST on (1, 2) and (2, 1) saves sharded orbax snapshots
+    (``tests/test_multihost_checkpoint.py:128``), every rank into one
+    directory: on (1, 2) each rank wrote its 512 rows of the hidden
+    layer and its velocity, and the replicated leaves were written once;
+    on (2, 1) and unsharded every leaf is one whole chunk, written once;
+    the ranks trained to the same bits; the directory holds the
+    snapshot's arrays and metadata."""
+    from znicz_torch.snapshotter import Snapshotter
+
+    for label in CKPT_SAVES:
+        recs = [r[label] for r in two_ranks]
+        assert_ranks_equal(recs)
+        assert recs[0]["files"] == ["mnist_best.orbax",
+                                    "mnist_epoch_1.orbax",
+                                    "mnist_epoch_3.orbax"]
+        assert len(recs[0]["losses"]) == 8
+        chunks = _chunks(_epoch1(ckpt_dir, label))
+        split = label == "save_m2"
+        for fqn, got in chunks.items():
+            if split and fqn.endswith(("fwd0.weights", "fwd0.bias",
+                                       "gd0.weights", "gd0.bias")):
+                assert [c[:2] for c in got] == [(0, 512), (512, 512)], fqn
+                assert got[0][2] != got[1][2], fqn
+            else:
+                assert len(got) == 1 and got[0][0] == 0, (fqn, got)
+        snap = Snapshotter.load(_epoch1(ckpt_dir, label))
+        assert snap["epoch"] == 1
+        assert snap["units"]["fwd0"]["weights"].shape == (1024, 784)
+        assert snap["velocities"]["gd0"]["weights"].shape == (1024, 784)
+
+
+@pytest.mark.parametrize("label", list(CKPT_RESUMES))
+def test_sharded_snapshot_restores_on_any_mesh(label, two_ranks, ckpt_dir,
+                                              tmp_path):
+    """A fresh pair restores the epoch-1 snapshot with
+    ``restore_sharded``, on the mesh that saved it and on the other
+    shape: every leaf as restored (gathered whole) is the file's, each
+    rank holds its own rows, the ranks stay bit-equal, and the run's
+    last two epochs are the saving pair's within ``LOSS_RTOL``.  One
+    process restores the same directory and finishes within the same
+    band."""
+    from znicz_torch.snapshotter import Snapshotter
+
+    save, shape = CKPT_RESUMES[label]
+    path = _epoch1(ckpt_dir, save)
+    snap = Snapshotter.load(path)
+    want = two_ranks[0][save]["losses"][4:]
+    recs = [r[label] for r in two_ranks]
+    assert_ranks_equal(recs)
+    for rec in recs:
+        assert rec["meta_epoch"] == 1
+        assert rec["mesh_shape"] == {"data": shape[0], "model": shape[1]}
+        assert rec["shapes"]["fwd0"]["weights"] == (1024 // shape[1], 784)
+        for group in ("units", "velocities"):
+            for name, leaves in snap[group].items():
+                for k, a in leaves.items():
+                    np.testing.assert_array_equal(
+                        rec["restored"][group][name][k], a)
+    np.testing.assert_allclose(recs[0]["losses"], want, rtol=LOSS_RTOL)
+    one = run_sharded_restore(None, str(tmp_path), path)
+    np.testing.assert_allclose(one["losses"], want, rtol=LOSS_RTOL)
+    for name, leaves in snap["units"].items():
+        for k, a in leaves.items():
+            np.testing.assert_array_equal(one["restored"]["units"][name][k],
+                                          a)
+
+
+def test_reference_orbax_directory_restores_on_a_mesh(two_ranks, ckpt_dir):
+    """The reference's orbax directory (OCDBT + zarr, read through
+    ``tensorstore``) restores with ``restore_sharded`` onto (1, 2): each
+    rank holds its 512 rows, every leaf gathered back is the reference's
+    own load's, and the pair trains on from it, bit-equal across ranks."""
+    from znicz_tpu.snapshotter import Snapshotter as JSnapshotter
+
+    want = JSnapshotter.load(str(ckpt_dir / "ref_start.orbax"))
+    recs = [r["resume_ref_on_m2"] for r in two_ranks]
+    assert_ranks_equal(recs)
+    for rec in recs:
+        assert rec["shapes"]["fwd0"]["weights"] == (512, 784)
+        for group in ("units", "velocities"):
+            for name, leaves in want[group].items():
+                for k, a in leaves.items():
+                    np.testing.assert_array_equal(
+                        rec["restored"][group][name][k], np.asarray(a))
+    losses = recs[0]["losses"]
+    assert len(losses) == 8 and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
 
 
 def test_mesh_refusals_inside_a_group(two_ranks):

@@ -127,8 +127,8 @@ def test_composed_train_steps_under_mask_match_the_reference():
     ("job_segment", 2, "A.7"),
     ("wire_dtype", "bfloat16", "A.7"),
     ("slave_ttl", 30.0, "A.7"),
-    ("snapshot_sharded", True, "A.4"),
-    ("snapshot_format", "orbax", "A.4"),
+    ("job_prefetch", False, "A.7"),
+    ("staleness_bound", 2, "A.7"),
     ("tree_fanout", 4, "A.7"),
     ("mode", "master", "A.7"),
     ("master_bind", "tcp://*:5571", "A.7"),
@@ -154,12 +154,14 @@ def test_cli_refuses_an_unported_knob(knob, value, item, tmp_path):
 
 
 #: the segmented run's, the streaming path's, the deep pipeline's, the
-#: compiler and the mesh's gate knobs, each set away from its default
+#: compiler, the mesh's gate and the snapshot formats' knobs, each set
+#: away from its default
 PORTED_A4 = {"remat": True, "scan_chunk": 4, "async_snapshot": False,
              "prefetch_segments": 0, "decode_workers": 2,
              "stream_budget_mb": 64, "async_staging": False,
              "staging_donate": False, "pipeline_depth": 2, "backend": "cpu",
-             "fuse": False, "xla_latency_hiding": True, "train_shard": True}
+             "fuse": False, "xla_latency_hiding": True, "train_shard": True,
+             "snapshot_format": "orbax", "snapshot_sharded": True}
 
 
 def test_defaults_and_ported_knobs_pass_the_check():

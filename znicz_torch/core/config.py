@@ -199,6 +199,10 @@ ENGINE_DEFAULTS = {
         "data": 1,                # batch sharding, gradients summed
         "model": 1,               # column-sharded wide FC weights
     },
+    # the snapshot formats (snapshotter.py)
+    "snapshot_format": "pickle",  # "orbax": a directory, arrays written
+    #                               with torch.distributed.checkpoint
+    "snapshot_sharded": False,    # orbax: each rank writes its own rows
 }
 
 #: The reference's other ``root.common.engine.*`` knobs
@@ -207,9 +211,6 @@ ENGINE_DEFAULTS = {
 #: the ROADMAP item that ports it).  :func:`check_engine_knobs` refuses
 #: each set away from its default.
 UNPORTED_ENGINE_KNOBS = {
-    # A.4, the train loop's levers still to port: the snapshot formats
-    **{key: (default, "A.4") for key, default in (
-        ("snapshot_format", "pickle"), ("snapshot_sharded", False))},
     # A.7, the distributed training plane
     **{key: (default, "A.7") for key, default in (
         ("mode", ""), ("master_bind", "tcp://*:5570"), ("master_resume", ""),

@@ -28,9 +28,15 @@ The hyperparameters of a step are its row of a (k, M, 8) float32 tensor
 on the device, one row of 8 for each of the M weighted modules
 (:meth:`FusedTrainer.tiled_hypers`, :meth:`FusedTrainer._hypers_rows`),
 with a workflow's ``lr_adjust`` advanced between rows as the reference
-advances it.  Under ``remat`` (``root.common.engine.remat``) the forward
-chain runs under ``torch.utils.checkpoint`` and is recomputed in the
-backward; the loss and the update are the same bits.
+advances it.  Under ``remat`` (``root.common.engine.remat``) each block
+of the forward chain (a module with weights and the modules without
+weights after it: a convolution with its activation, LRN and pool, an
+FC layer with its dropout) runs under its own non-reentrant
+``torch.utils.checkpoint`` and is recomputed in the backward one block
+at a time, so only the blocks' inputs stay live between the passes;
+the loss head stays outside, and the loss and the update are the same
+bits.  The masks and offsets are keyed by (step, index), so a recompute
+draws the ones the forward drew.
 
 **The segmented run** (:meth:`FusedTrainer.run`, the reference's
 ``_run_segmented``).  Consecutive non-tail TRAIN minibatches form a
@@ -493,6 +499,49 @@ class FusedTrainer:
                     self.mesh, {name: gd.velocities}, specs)[name])
             f.mesh_placement = mesh_mod.Placement(self.mesh, split)
 
+    def restore_sharded(self, path: str) -> Dict:
+        """Resume from the orbax directory ``path``, saved under any mesh
+        shape or on one process: every parameter and velocity read
+        straight into this trainer's placement (a leaf split over
+        ``model`` reads only this rank's rows; without a mesh, whole
+        tensors on :attr:`device`) and cast to its live dtype, so a
+        float32 snapshot restores under bf16 state and the reverse.  The
+        loader, decision and prng metadata are applied as
+        ``snapshotter.restore`` applies them.  A collective on a mesh.
+        Returns the metadata."""
+        from znicz_torch import snapshotter as snap_mod
+
+        self._init_velocities()
+
+        def target(f, k, live):
+            place = mesh_mod.placement_of(f)
+            t = torch.empty_like(live.detach())
+            return t if place is None else place.dtensor(k, t)
+
+        units = {f.name: {k: target(f, k, p)
+                          for k, p in self._params_of(f).items()}
+                 for f in self._weighted()}
+        vels = {self.gd_of[f.name].name: {
+            k: target(f, k, v)
+            for k, v in self.gd_of[f.name].velocities.items()}
+            for f in self._weighted() if f.name in self.gd_of}
+        arrays = snap_mod.load_orbax_arrays(
+            path, {"units": units, "velocities": vels})
+        with torch.no_grad():
+            for f in self._weighted():
+                for k, p in self._params_of(f).items():
+                    p.copy_(snap_mod.local_tensor(
+                        arrays["units"][f.name][k]))
+                gd = self.gd_of.get(f.name)
+                if gd is not None:
+                    for k, v in gd.velocities.items():
+                        v.copy_(snap_mod.local_tensor(
+                            arrays["velocities"][gd.name][k]))
+        meta = snap_mod.load_orbax_meta(path)
+        snap_mod.restore(self.workflow,
+                         {**meta, "units": {}, "velocities": {}})
+        return meta
+
     def _local_idx(self, mat: np.ndarray) -> np.ndarray:
         """The (k, n) columns of the (k, B) index matrix that this rank's
         data coordinate takes (the matrix itself off a mesh)."""
@@ -605,15 +654,16 @@ class FusedTrainer:
         return t.to(self.compute_dtype) if t.dtype == torch.float32 else t
 
     @contextlib.contextmanager
-    def _compute_params(self):
-        """Within it, each parameter stored in another dtype than the
-        compute dtype reads as its cast to it (the reference's
-        ``cparams``; under float32 compute, bf16-stored parameters widen as
-        jax promotes them), autograd reaching the stored one through the
-        cast."""
+    def _compute_params(self, modules=None):
+        """Within it, each parameter of ``modules`` (default every
+        weighted module) stored in another dtype than the compute dtype
+        reads as its cast to it (the reference's ``cparams``; under
+        float32 compute, bf16-stored parameters widen as jax promotes
+        them), autograd reaching the stored one through the cast."""
         swapped = []
         try:
-            for f in self._weighted():
+            for f in (self._weighted() if modules is None
+                      else [m for m in modules if m.has_weights]):
                 for k, p in self._params_of(f).items():
                     if p.dtype != self.compute_dtype:
                         f._parameters[k] = p.to(self.compute_dtype)
@@ -645,77 +695,118 @@ class FusedTrainer:
 
     def forward_pass(self, x, train: bool = False, step: int = 0,
                      cast: Optional[Callable] = None,
-                     mask_fn: Optional[MaskFn] = None):
+                     mask_fn: Optional[MaskFn] = None,
+                     remat: bool = False):
         """The last module's output (LOGITS for a softmax head) for an
         NHWC batch ``x``; ``train`` applies the dropout masks of train
         step ``step`` (from ``mask_fn``, default :attr:`mask_fn`);
         ``cast`` re-casts the activation entering every module (mixed
-        precision)."""
+        precision).  With ``remat`` each block of :meth:`blocks` runs
+        under its own non-reentrant ``torch.utils.checkpoint`` and reads
+        its parameters in the compute dtype inside it, so the backward
+        keeps only the blocks' inputs and recomputes one block at a
+        time."""
         masks = mask_fn or self.mask_fn
         if self.mesh is not None:
             masks = self._rank_masks(masks)
         plan = plan_fused_blocks(self.forwards)
         tail_plan = plan_fused_tail(self.forwards, plan)
+
+        def run(lo, hi, h):
+            i = lo
+            while i < hi:
+                h, i = self._layer(i, h, x.shape[0], train, step, cast,
+                                   masks, plan, tail_plan)
+            return h
+
+        def run_remat(lo, hi, h):
+            with self._compute_params(self.forwards[lo:hi]):
+                return run(lo, hi, h)
+
+        if not remat:
+            return run(0, len(self.forwards), x)
+        from torch.utils.checkpoint import checkpoint
+
         h = x
-        last = self.forwards[-1]
+        for lo, hi in self.blocks(plan, tail_plan):
+            h = checkpoint(run_remat, lo, hi, h, use_reentrant=False,
+                           preserve_rng_state=False)
+        return h
+
+    def blocks(self, plan=None, tail_plan=None) -> List[Tuple[int, int]]:
+        """The forwards as ``[(first, end)]`` blocks, the pieces ``remat``
+        checkpoints one by one: a block starts at each module with
+        weights and takes the modules without weights after it (a
+        convolution with its activation, LRN and pool; an FC layer with
+        its dropout); a fused span never straddles two blocks."""
+        if plan is None:
+            plan = plan_fused_blocks(self.forwards)
+        if tail_plan is None:
+            tail_plan = plan_fused_tail(self.forwards, plan)
+        out: List[Tuple[int, int]] = []
         i = 0
         while i < len(self.forwards):
-            f = self.forwards[i]
-            if cast is not None:
-                h = cast(h)
-            blk = plan.get(i)
-            if blk is not None:
-                h = fused_block(f.apply_linear(h), f.bias, blk.n, blk.alpha,
-                                blk.beta, blk.k, blk.pool)
-                i += blk.span
-                continue
-            tl = tail_plan.get(i)
-            if tl is not None:
-                if tl.kind == "conv_bias_relu":
-                    h = fused_bias_relu(f.apply_linear(h), f.bias)
-                else:                               # fc_epilogue
-                    place = mesh_mod.placement_of(f)
-                    if place is not None:
-                        h = mesh_mod.copy_to_model(h, self.mesh)
-                    y = linear(h, f.weights,
-                               weights_transposed=f.weights_transposed)
-                    mask_of = None
-                    if train and tl.dropout_index >= 0 and tl.ratio > 0.0:
-                        extra = {} if place is None else {
-                            "cols": self._own_cols(y.shape[1])}
-
-                        def mask_of(shape=tuple(y.shape), tl=tl, kw=extra):
-                            return masks(step, tl.dropout_index, shape,
-                                         tl.ratio, **kw)
-                    h = fused_fc_epilogue(y, f.bias, mask_of)
-                    if place is not None:
-                        h = mesh_mod.gather_columns(h, self.mesh)
-                    h = h.reshape((x.shape[0],) + f.output_sample_shape)
-                i += tl.span
-                continue
-            if isinstance(f, DropoutForward):
-                if train:
-                    h = h * masks(step, i, tuple(h.shape), f.dropout_ratio)
-            elif isinstance(f, StochasticPoolingBase) and train:
-                with torch.no_grad():
-                    probs = f.probabilities(f.windows(h, f.PAD_VALUE))
-                if self._dp > 1:
-                    off = self._own_rows(self.offset_fn(
-                        step, i, self._at_global_rows(probs)),
-                        probs.shape[0], fill=0)
-                else:
-                    off = self.offset_fn(step, i, probs)
-                h = f.select_sampled(h, off.to(h.device))
-            elif mesh_mod.placement_of(f) is not None:
-                h = self._sharded_fc(f, h, logits=f is last)
-            elif f is last and isinstance(f, All2AllSoftmax):
-                h = linear(h, f.weights, f.bias,
-                           weights_transposed=f.weights_transposed)
-                h = h.reshape((x.shape[0],) + f.output_sample_shape)
+            span = (plan[i].span if i in plan
+                    else tail_plan[i].span if i in tail_plan else 1)
+            if not out or self.forwards[i].has_weights:
+                out.append((i, i + span))
             else:
-                h = f(h)
-            i += 1
-        return h
+                out[-1] = (out[-1][0], i + span)
+            i += span
+        return out
+
+    def _layer(self, i, h, rows, train, step, cast, masks, plan, tail_plan):
+        """Module ``i`` (or the fused span starting there) applied to
+        ``h``: (its output, the index after the span)."""
+        f = self.forwards[i]
+        if cast is not None:
+            h = cast(h)
+        blk = plan.get(i)
+        if blk is not None:
+            return (fused_block(f.apply_linear(h), f.bias, blk.n, blk.alpha,
+                                blk.beta, blk.k, blk.pool), i + blk.span)
+        tl = tail_plan.get(i)
+        if tl is not None:
+            if tl.kind == "conv_bias_relu":
+                return fused_bias_relu(f.apply_linear(h), f.bias), i + tl.span
+            place = mesh_mod.placement_of(f)                # fc_epilogue
+            if place is not None:
+                h = mesh_mod.copy_to_model(h, self.mesh)
+            y = linear(h, f.weights, weights_transposed=f.weights_transposed)
+            mask_of = None
+            if train and tl.dropout_index >= 0 and tl.ratio > 0.0:
+                extra = {} if place is None else {
+                    "cols": self._own_cols(y.shape[1])}
+
+                def mask_of(shape=tuple(y.shape), tl=tl, kw=extra):
+                    return masks(step, tl.dropout_index, shape, tl.ratio,
+                                 **kw)
+            h = fused_fc_epilogue(y, f.bias, mask_of)
+            if place is not None:
+                h = mesh_mod.gather_columns(h, self.mesh)
+            return h.reshape((rows,) + f.output_sample_shape), i + tl.span
+        if isinstance(f, DropoutForward):
+            if train:
+                h = h * masks(step, i, tuple(h.shape), f.dropout_ratio)
+        elif isinstance(f, StochasticPoolingBase) and train:
+            with torch.no_grad():
+                probs = f.probabilities(f.windows(h, f.PAD_VALUE))
+            if self._dp > 1:
+                off = self._own_rows(self.offset_fn(
+                    step, i, self._at_global_rows(probs)),
+                    probs.shape[0], fill=0)
+            else:
+                off = self.offset_fn(step, i, probs)
+            h = f.select_sampled(h, off.to(h.device))
+        elif mesh_mod.placement_of(f) is not None:
+            h = self._sharded_fc(f, h, logits=f is self.forwards[-1])
+        elif f is self.forwards[-1] and isinstance(f, All2AllSoftmax):
+            h = linear(h, f.weights, f.bias,
+                       weights_transposed=f.weights_transposed)
+            h = h.reshape((rows,) + f.output_sample_shape)
+        else:
+            h = f(h)
+        return h, i + 1
 
     def _rank_masks(self, masks: MaskFn):
         """``masks`` drawn at the global batch (and, with ``cols``, at a
@@ -771,23 +862,19 @@ class FusedTrainer:
         ``fused_tail``; an MSE head's is ``0.5 * sum((y - t)^2) / rows``
         over them, with n_err 0 and a (1, 1) confusion.  The forward runs
         in the compute dtype, the loss in float32; under :attr:`remat` a
-        train forward is recomputed in the backward."""
+        train forward is recomputed in the backward, block by block
+        (:meth:`blocks`)."""
         cast = None if self.compute_dtype == torch.float32 else self._cast
 
-        def forward(d):
-            with self._compute_params():
-                if cast is not None:
-                    d = cast(d)
-                return self.forward_pass(d, train, step, cast,
-                                         mask_fn).float()
-
+        if cast is not None:
+            data = cast(data)
         if self.remat and train and torch.is_grad_enabled():
-            from torch.utils.checkpoint import checkpoint
-
-            out = checkpoint(forward, data, use_reentrant=False,
-                             preserve_rng_state=False)
+            out = self.forward_pass(data, train, step, cast, mask_fn,
+                                    remat=True).float()
         else:
-            out = forward(data)
+            with self._compute_params():
+                out = self.forward_pass(data, train, step, cast,
+                                        mask_fn).float()
         n = out.shape[0]
         # on a mesh, the global position of each of this rank's rows
         valid = torch.arange(self._d * n, self._d * n + n,
@@ -1137,7 +1224,10 @@ class FusedTrainer:
             self.lr_adjust.run()
 
     def _async_snapshot_enabled(self, snap) -> bool:
-        return (snap is not None
+        """Whether ``snap`` saves on its background writer: a host-format
+        snapshotter under ``async_snapshot``; an orbax save is a
+        collective and stays synchronous."""
+        return (snap is not None and snap.format != "orbax"
                 and bool(root.common.engine.get("async_snapshot", True)))
 
     def _drain_snapshots(self, suppress: bool) -> None:
@@ -1431,11 +1521,11 @@ class FusedTrainer:
         """Whether the deep pipeline may run: not on a host-staged loader
         (the segmented run stages each segment, double-buffered), not with
         plotters (they read each epoch as it ends), and with an active
-        snapshotter only under ``async_snapshot`` (a flushed epoch's own
-        state is queued for the background writer).  The reference's
-        orbax-format snapshotter also selects the segmented run; it has
-        no counterpart here, since the port's ``Snapshotter`` refuses
-        ``format="orbax"`` (ROADMAP A.4)."""
+        snapshotter only when it saves in the background (a flushed
+        epoch's own state is queued for its writer): an orbax-format
+        snapshotter, whose save is a synchronous collective, or
+        ``async_snapshot`` off, keeps the segmented run, as in the
+        reference."""
         wf = self.workflow
         if self.staging or getattr(wf, "plotters", None):
             return False

@@ -257,6 +257,24 @@ class Placement(NamedTuple):
             return t
         return gather_rows(t, axis_group(self.mesh, "model"))
 
+    def dtensor(self, key: str, t: torch.Tensor):
+        """This rank's part ``t`` of ``key`` as a ``DTensor`` of the
+        whole leaf on the mesh (rows sharded over ``model``, replicated
+        over every other axis); ``t`` itself where ``key`` is not
+        split."""
+        if not self.specs.get(key):
+            return t
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        placements = [Shard(0) if name == "model" else Replicate()
+                      for name in self.mesh.mesh_dim_names]
+        mp = axis_size(self.mesh, "model")
+        shape = (mp * t.shape[0],) + tuple(t.shape[1:])
+        return DTensor.from_local(t, self.mesh, placements, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=torch.empty(shape,
+                                                     device="meta").stride())
+
 
 def placement_of(module) -> Optional[Placement]:
     """The :class:`Placement` a meshed trainer gave ``module``, or None."""
@@ -398,6 +416,22 @@ def gather_columns(y: torch.Tensor, mesh) -> torch.Tensor:
         return y
     return _GatherColumns.apply(y.reshape(y.shape[0], -1), group,
                                 axis_index(mesh, "model"))
+
+
+def raise_anywhere(error: Optional[BaseException], what: str) -> None:
+    """Raise on every rank of the world when ``error`` is set on any
+    (itself without a group): a collective, so that no rank goes on
+    after another's step failed."""
+    if world_size() == 1:
+        if error is not None:
+            raise error
+        return
+    errors = [None] * world_size()
+    dist.all_gather_object(errors, None if error is None else repr(error))
+    failed = {r: e for r, e in enumerate(errors) if e is not None}
+    if failed:
+        raise RuntimeError(f"{what} failed on rank(s) {sorted(failed)}: "
+                           f"{failed}") from error
 
 
 def agree(value):

@@ -17,9 +17,15 @@ and stages what is already queued as batch N+1, and only then reads
 batch N's result.  Pad rows never leave the server: each reply is a copy
 of its own rows.
 
+``InferenceServer(workflow, snapshot=path)`` serves the snapshot's
+parameters from the start.  :meth:`InferenceServer.swap_async` moves
+the service to another snapshot on a background thread
+(``ModelRunner.swap``): the old generation serves until the warmed flip,
+and a failed swap is logged and counted while it serves on.  Each reply
+carries the generation (``"gen"``) whose parameters computed it.
+
 The ZMQ ROUTER with the wire-v3 codec, the CLI ``--serve`` flag,
-deadlines, admission control, snapshot swap and generation come in later
-slices.
+deadlines and admission control come in later slices.
 """
 
 from __future__ import annotations
@@ -69,9 +75,9 @@ class InferenceServer:
                  max_delay_ms: Optional[float] = None,
                  queue_bound: Optional[int] = None,
                  ladder: Optional[BucketLadder] = None,
-                 warmup: bool = True):
+                 warmup: bool = True, snapshot: str = ""):
         self.log = logging.getLogger("znicz_torch.serving")
-        self.runner = ModelRunner(workflow)
+        self.runner = ModelRunner(workflow, snapshot=snapshot)
         max_batch = int(_cfg("max_batch", max_batch))
         self.batcher = DynamicBatcher(
             max_batch=max_batch,
@@ -87,6 +93,8 @@ class InferenceServer:
         self.refused = 0
         #: the exception that ended the compute loop, if one did
         self.error: Optional[BaseException] = None
+        self._swap_gate = threading.Lock()
+        self._swap_thread: Optional[threading.Thread] = None
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -111,6 +119,35 @@ class InferenceServer:
                 raise RuntimeError("compute thread did not stop within "
                                    f"{timeout}s")
             self._thread = None
+
+    # -- snapshot rollover -----------------------------------------------------
+
+    def swap_async(self, path: str) -> threading.Thread:
+        """Start moving the service to the snapshot at ``path`` on a
+        background thread (``ModelRunner.swap`` through every rung of the
+        ladder); the old generation serves until the warmed flip.  Raises
+        ``RuntimeError`` while another swap runs."""
+        with self._swap_gate:
+            if (self._swap_thread is not None
+                    and self._swap_thread.is_alive()):
+                raise RuntimeError("swap already in progress")
+            t = threading.Thread(target=self._swap, args=(path,),
+                                 daemon=True, name="znicz-swap")
+            self._swap_thread = t
+            t.start()
+        return t
+
+    def _swap(self, path: str) -> None:
+        try:
+            meta = self.runner.swap(path, self.batcher.ladder)
+            self.log.info("snapshot rollover -> generation %d (%s, epoch "
+                          "%s)", self.runner.generation, path,
+                          meta.get("epoch"))
+        except Exception:
+            # counted by the runner (swap_failures); the old generation
+            # serves on
+            self.log.exception("snapshot swap from %r failed; generation "
+                               "%d unchanged", path, self.runner.generation)
 
     # -- producer side ---------------------------------------------------------
 
@@ -219,6 +256,6 @@ class InferenceServer:
         with self._lock:
             out = {"served": self.served, "refused": self.refused}
         out.update(self.latency_quantiles())
-        out["dispatches"] = self.runner.dispatches
+        out.update(self.runner.stats())
         out["batcher"] = self.batcher.stats()
         return out

@@ -1,10 +1,13 @@
-"""Snapshotter: best-on-validation and periodic checkpoints, host-pickle
-format (port of ``znicz_tpu/snapshotter.py``'s ``collect``,
-``collect_meta``, ``restore``, ``restore_inference``, ``Snapshotter``,
-``write_host_pickle`` and ``atomic_write_bytes``).
+"""Snapshotter: best-on-validation and periodic checkpoints (port of
+``znicz_tpu/snapshotter.py``: ``collect``, ``collect_meta``, ``restore``,
+``restore_inference``, ``load_inference``, ``Snapshotter``, the host
+pickle and the orbax directory format, ``load_orbax_meta``,
+``load_orbax_arrays``).
 
-A snapshot is the reference's plain dict, gzip-pickled, with numpy
-leaves and no torch object::
+A host-format snapshot is the reference's plain dict, pickled (gzip under
+``compression="gz"``, the default: ``<prefix>_<tag>.pickle.gz``; any
+other value writes a plain ``<prefix>_<tag>.pickle``), with numpy leaves
+and no torch object::
 
     {"units": {forward unit: {"weights": ndarray, "bias": ndarray}},
      "velocities": {GD unit name: {param: ndarray}},
@@ -18,15 +21,36 @@ under ``master_dtype``) and cast to the live dtype on restore.  A
 reference snapshot saved under bf16 state holds ``ml_dtypes`` bf16
 arrays; :meth:`Snapshotter.load` reads them without that package, as
 float32 leaves of the same values.  A loader's ``normalizer`` state
-rides in ``snap["loader"]["normalizer"]``, as the reference's does.  The
-reference's orbax format is not ported (ROADMAP A.4): :class:`Snapshotter`
-refuses ``compression`` other than "gz", ``format`` other than "pickle"
-and ``sharded=True``.
+rides in ``snap["loader"]["normalizer"]``, as the reference's does.
 
-**On a mesh of ranks** (``parallel/mesh.py``) a snapshot still holds
-whole arrays: :func:`collect` and :func:`snapshot_from_trees` gather each
-column-sharded leaf over the ``model`` axis (a collective every rank
-joins, on the main thread, in the units' order), and only rank 0 writes
+**The orbax format** (``format="orbax"``, or
+``root.common.engine.snapshot_format``) writes the directory
+``<prefix>_<tag>.orbax/``, the reference's layout: ``meta.json`` holds
+everything but the arrays (:func:`_jsonify`: numpy arrays round-trip
+exactly), ``arrays/`` the ``{"units", "velocities"}`` tree, written with
+``torch.distributed.checkpoint`` (the reference writes it with orbax,
+which the port cannot import: the reference cannot read the port's
+``arrays/``, the port reads the reference's through ``tensorstore``).
+The save is a collective every rank calls: rank 0 resets the directory
+before any rank writes, each rank writes its part, rank 0 writes
+``meta.json``, and it returns once all of it is on disk; an error on any
+rank raises on every rank.  It is synchronous: ``save_async`` takes the
+host format only.  With ``sharded`` (``snapshot_sharded``) the live
+state is saved as it is placed: a leaf split over a mesh's ``model``
+axis is a ``DTensor`` of each rank's rows, so each rank writes only its
+own rows; without, the split leaves are gathered whole first.  A leaf
+that several ranks hold (the replicated ones, and every leaf across the
+``data`` axis) is written once.  :func:`load_orbax_arrays` with a
+template of target tensors (a ``DTensor`` for a split leaf) reads only
+each rank's rows, so a snapshot saved under one mesh restores under
+another or onto one process (``FusedTrainer.restore_sharded``), with
+no whole-array round trip through the host.
+
+**On a mesh of ranks** (``parallel/mesh.py``) a host-format snapshot
+holds whole arrays: :func:`collect` and :func:`snapshot_from_trees`
+gather each column-sharded leaf over the ``model`` axis (a collective
+every rank joins, on the main thread, in the units' order), and only
+rank 0 writes
 (:meth:`Snapshotter.save`, :meth:`Snapshotter.save_async`); the other
 ranks set ``destination`` to the path rank 0 writes.  The reference
 refuses a host-format save of state sharded across processes; the port
@@ -51,16 +75,19 @@ written, and raises a writer's error.
 from __future__ import annotations
 
 import gzip
+import json
 import os
 import pickle
+import shutil
 import threading
 import time
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from znicz_torch.core.config import refuse_keyword, root
+from znicz_torch.core.config import root
 from znicz_torch.core.units import Unit
 from znicz_torch.parallel import mesh as mesh_mod
 
@@ -88,26 +115,41 @@ def _whole(unit, leaves: Dict) -> Dict:
     return {k: place.full(k, t) for k, t in leaves.items()}
 
 
-def collect(workflow, device_copies: bool = False) -> Dict:
+def _as_placed(unit, leaves: Dict) -> Dict:
+    """``leaves`` as they are placed: each column-sharded one a
+    ``DTensor`` of this rank's rows (``Placement.dtensor``)."""
+    place = _placement(unit)
+    if place is None:
+        return {k: t.detach() for k, t in leaves.items()}
+    return {k: place.dtensor(k, t.detach()) for k, t in leaves.items()}
+
+
+def collect(workflow, device_copies: bool = False,
+            placed: bool = False) -> Dict:
     """The snapshot dict of ``workflow``'s units: forward parameters,
     GD velocities (zeros before the first update), and
     :func:`collect_meta`'s metadata.  With ``device_copies`` the array
     leaves are clones on the device, in their live dtypes, for
     :meth:`Snapshotter.save_async` to copy out later.  On a mesh the
-    column-sharded leaves are gathered whole."""
+    column-sharded leaves are gathered whole, unless ``placed``: then
+    every leaf is the live tensor, in its live dtype, a column-sharded
+    one a ``DTensor`` of this rank's rows (a sharded orbax save)."""
     from znicz_torch.nn_units import ForwardBase, GradientDescentBase
 
-    leaf = (lambda t: t.detach().clone()) if device_copies else _numpy
+    if placed:
+        arrays = _as_placed
+    else:
+        leaf = (lambda t: t.detach().clone()) if device_copies else _numpy
+
+        def arrays(unit, leaves):
+            return {k: leaf(t) for k, t in _whole(unit, leaves).items()}
     snap = collect_meta(workflow)
     for unit in workflow:
         if isinstance(unit, ForwardBase) and unit.has_weights:
-            snap["units"][unit.name] = {
-                k: leaf(p) for k, p in _whole(unit, unit.params()).items()}
+            snap["units"][unit.name] = arrays(unit, unit.params())
         elif isinstance(unit, GradientDescentBase):
             unit.init_velocities()
-            snap["velocities"][unit.name] = {
-                k: leaf(v)
-                for k, v in _whole(unit, unit.velocities).items()}
+            snap["velocities"][unit.name] = arrays(unit, unit.velocities)
     return snap
 
 
@@ -214,9 +256,10 @@ def restore(workflow, snap: Dict) -> None:
         prng.get(name).state.bit_generator.state = state
 
 
-def restore_inference(workflow, snap: Dict) -> None:
-    """Apply only the forward parameters (the serving load).  Raises when
-    the snapshot does not cover every forward module with weights."""
+def _covering_units(workflow, snap: Dict) -> Dict:
+    """``snap["units"]``; raises ``ValueError`` when it does not cover
+    every forward module with weights (serving half a model would answer
+    garbage)."""
     units = snap.get("units") or {}
     missing = [f.name for f in workflow.forwards
                if f.has_weights and f.name not in units]
@@ -224,11 +267,52 @@ def restore_inference(workflow, snap: Dict) -> None:
         raise ValueError(
             f"snapshot has no params for weighted forward(s) {missing}; "
             f"it covers {sorted(units)}")
+    return units
+
+
+def restore_inference(workflow, snap: Dict) -> None:
+    """Apply only the forward parameters (the serving load).  Raises when
+    the snapshot does not cover every forward module with weights."""
     from znicz_torch.nn_units import params_of
 
+    units = _covering_units(workflow, snap)
     for f in workflow.forwards:
         for k, p in params_of(f).items():
             _assign(p, units[f.name][k], mesh_mod.placement_of(f), k)
+
+
+def inference_params(workflow, snap: Dict) -> Dict:
+    """The forward parameters of ``snap`` as a new ``{module: {param:
+    tensor}}`` tree on the workflow's device, each in its live
+    parameter's dtype and shape, leaving the modules untouched (a
+    served swap).  Raises as :func:`restore_inference` does, and on a
+    leaf of another shape."""
+    from znicz_torch.nn_units import params_of
+
+    units = _covering_units(workflow, snap)
+    tree = {}
+    for f in workflow.forwards:
+        leaves = {}
+        for k, p in params_of(f).items():
+            value = np.asarray(units[f.name][k], np.float32)
+            if value.shape != tuple(p.shape):
+                raise ValueError(f"snapshot {f.name}.{k} is {value.shape}, "
+                                 f"the model's {tuple(p.shape)}")
+            leaves[k] = torch.from_numpy(value).to(p.device, p.dtype)
+        if leaves:
+            tree[f.name] = leaves
+    return tree
+
+
+def load_inference(workflow, path: str) -> Dict:
+    """Load ``path`` (a host-format file or an orbax directory) and
+    :func:`restore_inference` it; returns the snapshot's metadata
+    (epoch, metric, config: what a server shows of its live checkpoint)
+    without the arrays."""
+    snap = Snapshotter.load(path)
+    restore_inference(workflow, snap)
+    return {k: v for k, v in snap.items()
+            if k not in ("units", "velocities")}
 
 
 class Snapshotter(Unit):
@@ -239,19 +323,30 @@ class Snapshotter(Unit):
       - validation improved      -> ``<prefix>_best`` (at most once in
         ``min_save_interval_s`` seconds);
       - every ``interval`` epochs -> ``<prefix>_epoch_<N>`` (0 = off).
+
+    ``format`` ("pickle" or "orbax") and ``sharded`` default to
+    ``root.common.engine.snapshot_format`` and ``snapshot_sharded``.
     """
+
+    FORMATS = ("pickle", "orbax")
 
     def __init__(self, workflow=None, name: str = "snapshotter",
                  prefix: str = "wf", directory: Optional[str] = None,
                  interval: int = 0,
                  min_save_interval_s: Optional[float] = None,
-                 compression: str = "gz", format: str = "pickle",
-                 sharded: bool = False, **kwargs):
+                 compression: str = "gz", format: Optional[str] = None,
+                 sharded: Optional[bool] = None, **kwargs):
         super().__init__(workflow=workflow, name=name, **kwargs)
-        for key, value, accepted in (("compression", compression, ("gz",)),
-                                     ("format", format, ("pickle",)),
-                                     ("sharded", sharded, (False,))):
-            refuse_keyword("Snapshotter", key, value, accepted, "A.4")
+        eng = root.common.engine
+        self.compression = compression
+        self.format = (format if format is not None
+                       else eng.get("snapshot_format", "pickle"))
+        if self.format not in self.FORMATS:
+            raise ValueError(f"Snapshotter(format={self.format!r}): one of "
+                             f"{self.FORMATS}")
+        #: orbax only: save the live state as placed, each rank its rows
+        self.sharded = bool(sharded if sharded is not None
+                            else eng.get("snapshot_sharded", False))
         self.prefix = prefix
         self.directory = (directory if directory is not None
                           else root.common.dirs.get("snapshots",
@@ -276,19 +371,31 @@ class Snapshotter(Unit):
         self._async_error: Optional[BaseException] = None
 
     def snapshot_path(self, tag: str) -> str:
-        return os.path.join(self.directory, f"{self.prefix}_{tag}.pickle.gz")
+        if self.format == "orbax":
+            return os.path.join(self.directory, f"{self.prefix}_{tag}.orbax")
+        ext = ".pickle.gz" if self.compression == "gz" else ".pickle"
+        return os.path.join(self.directory, f"{self.prefix}_{tag}{ext}")
 
     def save(self, tag: str) -> str:
         """Collect the workflow (every rank of a mesh joins) and write it
-        under ``tag``: on rank 0 only."""
+        under ``tag``: a host-format file on rank 0 only; an orbax
+        directory with every rank writing its part (:func:`save_orbax`)."""
         path = self.snapshot_path(tag)
+        if self.format == "orbax":
+            snap = collect(self.workflow, device_copies=not self.sharded,
+                           placed=self.sharded)
+            snap["config"] = root.to_dict()
+            save_orbax(path, snap)
+            self.destination = path
+            self.info("snapshot -> %s", path)
+            return path
         snap = collect(self.workflow)
         if mesh_mod.process_index() != 0:
             self.destination = path
             return path
         os.makedirs(self.directory, exist_ok=True)
         snap["config"] = root.to_dict()
-        write_host_pickle(path, snap)
+        write_host_pickle(path, snap, self.compression)
         self.destination = path
         self.info("snapshot -> %s", path)
         return path
@@ -340,7 +447,11 @@ class Snapshotter(Unit):
         ``ready``, a CUDA event recorded after the leaves were made, is
         waited on before they are copied out.  A writer error from an
         earlier save is raised here.  A rank other than 0 writes nothing
-        and sets ``destination`` to the path rank 0 writes last."""
+        and sets ``destination`` to the path rank 0 writes last.  The
+        host format only: an orbax save is a synchronous collective."""
+        if self.format != "pickle":
+            raise ValueError(f"save_async writes the host format; "
+                             f"format={self.format!r} saves with save()")
         if mesh_mod.process_index() != 0:
             if tags:
                 self.destination = self.snapshot_path(tags[-1])
@@ -385,7 +496,7 @@ class Snapshotter(Unit):
                 os.makedirs(self.directory, exist_ok=True)
                 for tag in tags:
                     path = self.snapshot_path(tag)
-                    write_host_pickle(path, snap)
+                    write_host_pickle(path, snap, self.compression)
                     with self._async_lock:
                         self.destination = path
                         self.async_saves_written += 1
@@ -410,10 +521,13 @@ class Snapshotter(Unit):
 
     @staticmethod
     def load(path: str) -> Dict:
-        """The snapshot at ``path``; ``ml_dtypes`` bf16 leaves (the
-        reference's velocities under bf16 state) come back as float32
-        leaves of the same values, whether that package is installed or
-        not."""
+        """The snapshot at ``path``, a host-format file or an orbax
+        directory (the port's or the reference's), with numpy leaves;
+        bf16 leaves (the reference's velocities under bf16 state, as
+        ``ml_dtypes`` arrays in a pickle) come back as float32 leaves of
+        the same values, whether ``ml_dtypes`` is installed or not."""
+        if path.rstrip("/").endswith(".orbax") or os.path.isdir(path):
+            return _load_orbax(path.rstrip("/"))
         opener = gzip.open if path.endswith(".gz") else open
         with opener(path, "rb") as f:
             unpickler = _Unpickler(f)
@@ -443,8 +557,12 @@ def _widen_bf16(tree):
     if isinstance(tree, dict):
         return {k: _widen_bf16(v) for k, v in tree.items()}
     if isinstance(tree, np.ndarray) and tree.dtype == np.uint16:
-        return (tree.astype(np.uint32) << 16).view(np.float32)
+        return _bf16_bits_to_f32(tree)
     return tree
+
+
+def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << 16).view(np.float32)
 
 
 def write_host_pickle(path: str, snap: Dict, compression: str = "gz") -> None:
@@ -472,3 +590,207 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+# -- the orbax directory format ------------------------------------------------
+
+
+def _jsonify(obj):
+    """JSON for ``meta.json`` in which numpy arrays round-trip exactly
+    (the reference's encoding): an array of more than 1024 elements as
+    base64 bytes with its dtype and shape, a smaller one as a list with
+    its dtype; numpy scalars as Python numbers."""
+    if isinstance(obj, np.ndarray):
+        if obj.size > 1024:
+            import base64
+
+            return {"__ndarray_b64__":
+                    base64.b64encode(np.ascontiguousarray(obj)
+                                     .tobytes()).decode("ascii"),
+                    "__dtype__": str(obj.dtype),
+                    "__shape__": list(obj.shape)}
+        return {"__ndarray__": obj.tolist(), "__dtype__": str(obj.dtype)}
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    if isinstance(obj, dict):
+        return {str(k): _jsonify(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonify(v) for v in obj]
+    return obj
+
+
+def _dejsonify(obj):
+    """The inverse of :func:`_jsonify`."""
+    if isinstance(obj, dict):
+        if set(obj) == {"__ndarray__", "__dtype__"}:
+            return np.asarray(obj["__ndarray__"], dtype=obj["__dtype__"])
+        if set(obj) == {"__ndarray_b64__", "__dtype__", "__shape__"}:
+            import base64
+
+            return np.frombuffer(
+                base64.b64decode(obj["__ndarray_b64__"]),
+                dtype=obj["__dtype__"]).reshape(obj["__shape__"]).copy()
+        return {k: _dejsonify(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_dejsonify(v) for v in obj]
+    return obj
+
+
+def _dcp():
+    import torch.distributed.checkpoint as dcp
+
+    return dcp
+
+
+def _distributed() -> bool:
+    return mesh_mod.world_size() > 1
+
+
+def save_orbax(path: str, snap: Dict) -> None:
+    """Write ``snap`` as the orbax directory ``path``: ``arrays/`` (its
+    ``units`` and ``velocities``, tensors or ``DTensor``s, through
+    ``torch.distributed.checkpoint``) and ``meta.json`` (the rest).  A
+    collective: every rank calls it.  Rank 0 resets the directory, and
+    no rank writes before it has; each rank writes its own part of the
+    arrays (a leaf several ranks hold is written once); rank 0 writes
+    ``meta.json``; every rank returns once all of it is on disk.  An
+    error on any rank raises on every rank."""
+    path = os.path.abspath(path)
+    rank0 = mesh_mod.process_index() == 0
+    error = None
+    if rank0:
+        try:
+            if os.path.exists(path):
+                shutil.rmtree(path)
+            os.makedirs(path)
+        except OSError as exc:
+            error = exc
+    mesh_mod.raise_anywhere(error, f"resetting {path}")
+    arrays = {"units": snap["units"], "velocities": snap["velocities"]}
+    with warnings.catch_warnings():
+        # one process: the checkpoint says it saves without a group
+        warnings.simplefilter("ignore", UserWarning)
+        _dcp().save(arrays, checkpoint_id=os.path.join(path, "arrays"),
+                    no_dist=not _distributed())
+    error = None
+    if rank0:
+        try:
+            meta = {k: v for k, v in snap.items()
+                    if k not in ("units", "velocities")}
+            atomic_write_bytes(os.path.join(path, "meta.json"), json.dumps(
+                _jsonify(meta), default=repr).encode())
+        except Exception as exc:      # raised on every rank just below
+            error = exc
+    mesh_mod.raise_anywhere(error, f"writing {path}/meta.json")
+
+
+def load_orbax_meta(path: str) -> Dict:
+    """The metadata of the orbax directory ``path``: the snapshot but
+    its arrays."""
+    with open(os.path.join(os.path.abspath(path), "meta.json")) as f:
+        return _dejsonify(json.load(f))
+
+
+def load_orbax_arrays(path: str, template: Optional[Dict] = None) -> Dict:
+    """The ``{"units", "velocities"}`` tree of the orbax directory
+    ``path``.  Without ``template``: whole numpy leaves, bf16 ones
+    widened to float32.  With ``template`` (the same tree of target
+    tensors, each in the dtype and on the device wanted; a ``DTensor``
+    for a leaf split over a mesh): each target filled in place, cast to
+    its dtype, a ``DTensor`` with only this rank's rows read, and the
+    template returned; a collective when the world has several ranks.
+    Reads the port's directories (``torch.distributed.checkpoint``) and
+    the reference's (orbax's OCDBT + zarr, through ``tensorstore``)."""
+    arrays = os.path.join(os.path.abspath(path), "arrays")
+    if not os.path.exists(os.path.join(arrays, ".metadata")):
+        return _reference_arrays(arrays, template)
+    if template is not None:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            _dcp().load(template, checkpoint_id=arrays,
+                        no_dist=not _distributed())
+        return template
+    from torch.distributed.checkpoint import FileSystemReader
+
+    md = FileSystemReader(arrays).read_metadata()
+    tree: Dict = {"units": {}, "velocities": {}}
+    for fqn, leaf in md.state_dict_metadata.items():
+        group, name, key = _leaf_path(md, fqn)
+        tree.setdefault(group, {}).setdefault(name, {})[key] = torch.empty(
+            tuple(leaf.size), dtype=leaf.properties.dtype)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        _dcp().load(tree, checkpoint_id=arrays, no_dist=True)
+    return {group: {name: {k: _numpy(t) if t.dtype == torch.bfloat16
+                           else t.numpy() for k, t in leaves.items()}
+                    for name, leaves in names.items()}
+            for group, names in tree.items()}
+
+
+def _leaf_path(md, fqn: str):
+    """(group, unit, param) of the flattened key ``fqn``."""
+    path = (md.planner_data or {}).get(fqn)
+    return tuple(path) if path else tuple(fqn.split(".", 2))
+
+
+def _reference_arrays(arrays: str, template: Optional[Dict]) -> Dict:
+    """The reference's orbax ``arrays/`` (OCDBT with a zarr array a
+    leaf, named in ``_METADATA``), read with ``tensorstore``: whole
+    numpy leaves, or each ``template`` leaf filled with them (a
+    ``DTensor`` with this rank's rows)."""
+    try:
+        import tensorstore as ts
+    except ImportError as exc:
+        raise RuntimeError(
+            f"{arrays} is an orbax directory of the reference (OCDBT + "
+            "zarr); reading it needs the tensorstore package, which does "
+            "not import here") from exc
+    with open(os.path.join(arrays, "_METADATA")) as f:
+        tree_md = json.load(f)["tree_metadata"]
+    base = {"driver": "ocdbt", "base": f"file://{arrays}"}
+    tree: Dict = {"units": {}, "velocities": {}}
+    for entry in tree_md.values():
+        group, name, key = (k["key"] for k in entry["key_metadata"])
+        store = ts.open({"driver": "zarr", "kvstore": dict(
+            base, path=f"{group}.{name}.{key}/")}, open=True).result()
+        a = np.asarray(store.read().result())
+        if a.dtype.name == "bfloat16":
+            a = _bf16_bits_to_f32(a.view(np.uint16))
+        tree.setdefault(group, {}).setdefault(name, {})[key] = a
+    if template is None:
+        return tree
+    for group, names in template.items():
+        for name, leaves in names.items():
+            for key, target in leaves.items():
+                value = torch.from_numpy(np.ascontiguousarray(
+                    tree[group][name][key]))
+                with torch.no_grad():
+                    local_tensor(target).copy_(_own_part(target, value))
+    return template
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local part; any other tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _own_part(target: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's part of ``whole`` for ``target``: ``whole`` itself,
+    or a ``DTensor`` target's rows (its ``Shard`` placements, even
+    splits)."""
+    if not hasattr(target, "to_local"):
+        return whole
+    coord = target.device_mesh.get_coordinate()
+    for dim, placement in enumerate(target.placements):
+        if placement.is_shard():
+            n = target.device_mesh.size(dim)
+            whole = whole.chunk(n, dim=placement.dim)[coord[dim]]
+    return whole
+
+
+def _load_orbax(path: str) -> Dict:
+    """The snapshot dict of the orbax directory ``path``: its metadata
+    and whole numpy leaves."""
+    return {**load_orbax_meta(path), **load_orbax_arrays(path)}
