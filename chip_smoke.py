@@ -261,7 +261,28 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      swap, while ``swap_async`` moves it to the snapshot (generation 2),
      after the flip, and after ``rollback``; every reply within
      ``SERVE_TOL`` of the composed forward of the generation stamped on
-     it, K1/K2 2/3 a dispatch (the swap's warm dispatches too).
+     it, K1/K2 2/3 a dispatch (the swap's warm dispatches too);
+ 18. ``zmq``, the served path over ZMQ: full-width AlexNet (phase 3's
+     configuration, seeded again) behind ``InferenceServer`` bound to
+     ``tcp://127.0.0.1:*``, under ``fused`` and then ``pallas_lrn``:
+     phase 3's 64 requests in process (4 threads), then from 4
+     ``InferenceClient``s (one a thread, up to 8 requests in flight
+     each): every reply within ``SERVE_TOL`` of the composed forward,
+     K1/K2 2/3 (K3/K2 2/5) launches a dispatch, images/s and p50/p99 on
+     the client's and the server's clock and the codec's bytes in and out
+     printed for each pass.  On the ``fused`` server: a rate limit (burst
+     128 rows, 1e-3 rows/s) that one flooding client crosses and gets only
+     ``rate_limited`` refusals while three others get every reply;
+     ``deadline_ms=0`` refused ``deadline`` at ingress; a garbage frame
+     answered and counted, the next request served; ping, stats; ``swap``
+     over the wire to a host snapshot this phase writes (every leaf moved)
+     and ``rollback``, each reply within ``SERVE_TOL`` of its generation's
+     composed forward.  Then ``python -m znicz_torch alexnet --serve
+     tcp://127.0.0.1:* --snapshot`` that snapshot (``fused``, max_batch
+     128, ``max_requests`` 16) as a subprocess on the card: the endpoint
+     read from its output, 16 requests over ZMQ, each reply within
+     ``SERVE_TOL`` of the snapshot's composed forward, exit 0 within
+     ``CLI_TIMEOUT_S``.
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
@@ -283,8 +304,9 @@ phases 7 and 8 for
 ``anchors``, phase 9 for ``units``, phase 10 for ``bf16``, phase 11
 for ``mnist_ae`` and ``kohonen`` (each alone or both), phase 12 for
 ``kinds``, phase 13 for ``samples``, phase 14 for ``segments``,
-phase 15 for ``deep``, phase 16 for ``shard`` and phase 17 for
-``snapshots``; it prints the ``kernels`` object and no ``ok`` line.
+phase 15 for ``deep``, phase 16 for ``shard``, phase 17 for
+``snapshots`` and phase 18 for ``zmq``; it prints the ``kernels`` object
+and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -4939,6 +4961,396 @@ def snapshots_phase(torch, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: phase 18: routing -> (knobs, {kernel: launches per dispatch})
+ZMQ_ROUTINGS = {
+    "fused": ({"fused_elementwise": True, "fused_tail": True},
+              {"fused_block_fwd": 2, "bias_relu_fwd": 3, "lrn_fwd": 0}),
+    "pallas_lrn": ({"pallas_lrn": True, "fused_tail": True},
+                   {"fused_block_fwd": 0, "bias_relu_fwd": 5, "lrn_fwd": 2}),
+}
+#: phase 18: ZMQ clients and the requests each keeps in flight
+ZMQ_CLIENTS, ZMQ_IN_FLIGHT = 4, 8
+#: phase 18: the ``--serve`` subprocess's requests and its time limit (s):
+#: start, the snapshot's load, the warm of 8 rungs, 16 replies, exit
+CLI_REQUESTS, CLI_TIMEOUT_S = 16, 600
+
+
+def quantiles(lat_s) -> str:
+    a = np.asarray(lat_s) * 1e3
+    return (f"p50_ms={np.percentile(a, 50):.2f} "
+            f"p99_ms={np.percentile(a, 99):.2f}")
+
+
+def zmq_clients(endpoint, requests, assignment=None, client_ids=None,
+                in_flight=ZMQ_IN_FLIGHT):
+    """``requests`` over ZMQ from InferenceClients, one a thread: client
+    c sends the requests ``assignment[c]`` lists (default: request i from
+    client i % ``ZMQ_CLIENTS``), each keeping up to ``in_flight`` out.
+    Returns (replies in request order, each request's submit-to-reply
+    seconds on the client's clock, wall s)."""
+    from znicz_torch.serving import InferenceClient
+
+    if assignment is None:
+        assignment = [list(range(c, len(requests), ZMQ_CLIENTS))
+                      for c in range(ZMQ_CLIENTS)]
+    replies = [None] * len(requests)
+    lat = [None] * len(requests)
+    errors = []
+
+    def run(tid):
+        try:
+            cli = InferenceClient(
+                endpoint, timeout=600, resend_after_s=600,
+                client_id=None if client_ids is None else client_ids[tid])
+            try:
+                todo = list(assignment[tid])
+                sent = {}
+                while todo or sent:
+                    while todo and len(sent) < in_flight:
+                        i = todo.pop(0)
+                        sent[cli.submit(requests[i])] = (
+                            i, time.perf_counter())
+                    for rep in cli.collect(0.05):
+                        i, t0 = sent.pop(rep["req_id"])
+                        lat[i] = time.perf_counter() - t0
+                        replies[i] = rep
+            finally:
+                cli.close()
+        except Exception as exc:       # raised in the caller below
+            errors.append(exc)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(t,))
+               for t in range(len(assignment))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    sent = sorted(i for a in assignment for i in a)
+    if any(t.is_alive() for t in threads) or \
+            any(replies[i] is None for i in sent):
+        raise AssertionError("a ZMQ client did not finish")
+    return replies, lat, wall
+
+
+def zmq_routing(torch, card, label, wf, requests, refs):
+    """One routing of phase 18 (its knobs set by the caller): an
+    ``InferenceServer`` bound to ``tcp://127.0.0.1:*`` serves ``requests``
+    in process (phase 3's drive: 4 threads, Futures) and then over ZMQ
+    (``zmq_clients``), each pass's replies within ``SERVE_TOL`` of
+    ``refs`` and its launches checked per dispatch.  Returns (the server,
+    still running; {kernel: ZMQ-pass launches})."""
+    from znicz_torch.serving.batcher import Request
+    from znicz_torch.serving.frontend import InferenceServer
+
+    expect = ZMQ_ROUTINGS[label][1]
+    ctrs = {name: fn for name, fn in counters().items() if name in expect}
+    srv = InferenceServer(wf, bind="tcp://127.0.0.1:*", max_batch=BATCH,
+                          max_delay_ms=5.0, queue_bound=4096,
+                          request_ttl_s=600.0)
+    t0 = time.perf_counter()
+    srv.start()
+    log(f"[zmq:{label}] serving at {srv.endpoint}; warmup of "
+        f"{len(srv.batcher.ladder.rungs)} rungs "
+        f"{time.perf_counter() - t0:.2f}s")
+    rows = sum(x.shape[0] for x in requests)
+    out = {}
+    for how in ("in-process", "zmq"):
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+        srv.runner.dispatches = 0
+        with srv._lock:
+            srv._latencies.clear()
+        bytes_in, bytes_out = srv.codec.bytes_in, srv.codec.bytes_out
+        if how == "zmq":
+            replies, lat, wall = zmq_clients(srv.endpoint, requests)
+        else:
+            futures = [Future() for _ in requests]
+
+            def client(tid):
+                for i in range(tid, len(requests), 4):
+                    srv.submit(Request(requests[i], requests[i].shape[0],
+                                       reply_to=futures[i], req_id=i))
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60)
+            replies = [f.result(timeout=600) for f in futures]
+            wall = time.perf_counter() - t0
+            lat = None
+        launches = {name: fn.launches for name, fn in ctrs.items()}
+        dispatches = srv.runner.dispatches
+        bad = [r for r in replies if not r["ok"]]
+        if bad:
+            raise AssertionError(f"[zmq:{label}:{how}] {len(bad)} refused "
+                                 f"replies: {bad[0]}")
+        check_replies(f"zmq:{label}:{how}", replies, refs)
+        for name, per in expect.items():
+            if launches[name] != per * dispatches or not dispatches:
+                raise AssertionError(
+                    f"[zmq:{label}:{how}] {name}: {launches[name]} launches "
+                    f"for {dispatches} dispatches, expected {per} each")
+        server = srv.latency_quantiles()
+        log(f"[zmq:{label}:{how}] {card}: {len(requests)} requests, {rows} "
+            f"images in {wall:.3f}s: images/s={rows / wall:.1f}; "
+            + (f"client clock {quantiles(lat)}; " if lat else "")
+            + f"server clock p50_ms={server['p50_ms']:.2f} "
+            f"p99_ms={server['p99_ms']:.2f}; {dispatches} dispatches, "
+            f"launches={launches}; wire bytes in "
+            f"{srv.codec.bytes_in - bytes_in}, out "
+            f"{srv.codec.bytes_out - bytes_out}")
+        out[how] = launches
+    return srv, out["zmq"]
+
+
+def zmq_admission(torch, card, srv, requests, refs, path, refs2):
+    """Phase 18's admission, robustness and control steps on the running
+    ``fused`` server: a rate limit that one flooding client crosses,
+    ``deadline_ms=0``, a garbage frame, ping and stats, and a swap to the
+    snapshot at ``path`` and the rollback, each reply within
+    ``SERVE_TOL`` of its generation's composed forward (``refs``,
+    ``refs2``)."""
+    import zmq
+
+    from znicz_torch.parallel import wire
+    from znicz_torch.serving import AdmissionPolicy, InferenceClient
+
+    # a burst of 128 rows a client, nothing refilled within the phase
+    # (1e-3 rows/s): the flooding client sends all 64 requests (~530
+    # rows), the other three 4 requests each (at most 64 rows)
+    srv.batcher.set_admission(AdmissionPolicy(rate_limit=1e-3,
+                                              rate_burst=128.0))
+    n = len(requests)
+    assignment = [list(range(n)), list(range(4)), list(range(4, 8)),
+                  list(range(8, 12))]
+    ids = ["flood", "good-1", "good-2", "good-3"]
+    flood_reps, _, wall = zmq_clients(srv.endpoint, requests,
+                                      assignment[:1], ids[:1])
+    others, _, _ = zmq_clients(srv.endpoint, requests, assignment[1:],
+                               ids[1:])
+    others = others[:12]
+    refused = [r for r in flood_reps if not r["ok"]]
+    if not refused or {r.get("policy") for r in refused} != {"rate_limited"}:
+        raise AssertionError(f"[zmq:admission] the flooding client's "
+                             f"refusals: {[r.get('policy') for r in refused]}")
+    if any(not r["ok"] for r in others):
+        raise AssertionError("[zmq:admission] a client within its rate was "
+                             "refused")
+    check_replies("zmq:admission", others, refs[:12])
+    served = [(r, ref) for r, ref in zip(flood_reps, refs) if r["ok"]]
+    check_replies("zmq:admission flood", *zip(*served))
+    adm = srv.batcher.admission_stats()
+    log(f"[zmq:admission] {card}: flood {len(served)} served, "
+        f"{len(refused)} rate_limited in {wall:.3f}s; the other 3 clients "
+        f"{len(others)} served; clients "
+        f"{ {k: v['rate_limited'] for k, v in adm['clients'].items()} }")
+    srv.batcher.set_admission(AdmissionPolicy())
+    sock = zmq.Context.instance().socket(zmq.DEALER)
+    sock.setsockopt(zmq.LINGER, 0)
+    sock.connect(srv.endpoint)
+    cli = InferenceClient(srv.endpoint, timeout=600, resend_after_s=600)
+    try:
+        def ask(frames):
+            sock.send_multipart(frames)
+            if not sock.poll(600_000):
+                raise AssertionError("[zmq:control] no reply")
+            raw = sock.recv_multipart()
+            return wire.decode_message(wire.split_envelope(raw)[1]
+                                       or raw)[0]
+
+        rep = ask([b""] + wire.encode_message(
+            {"cmd": "infer", "req_id": 1, "x": requests[0],
+             "deadline_ms": 0})[0])
+        if rep.get("policy") != "deadline" or not rep.get("timed_out"):
+            raise AssertionError(f"[zmq:control] deadline 0: {rep}")
+        before = srv.bad_frames
+        rep = ask([b"\xff garbage \x00"])
+        if not rep.get("bad_frame") or srv.bad_frames != before + 1:
+            raise AssertionError(f"[zmq:control] garbage frame: {rep}")
+        check_replies("zmq:after-garbage", [cli.result(cli.submit(
+            requests[1]))], refs[1:2])
+        if not cli.ping()["pong"]:
+            raise AssertionError("[zmq:control] ping")
+        st = cli.stats()
+        if st["bad_frames"] != srv.bad_frames or st["generation"] != 1:
+            raise AssertionError(f"[zmq:control] stats {st}")
+        t0 = time.perf_counter()
+        ack = cli.swap(path)
+        while cli.stats()["generation"] != 2:
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("[zmq:control] the swap did not flip")
+            time.sleep(0.05)
+        swap_s = time.perf_counter() - t0
+        gen2 = [cli.result(cli.submit(x)) for x in requests[:8]]
+        back = cli.rollback()
+        gen1 = [cli.result(cli.submit(x)) for x in requests[:8]]
+        if not ack["swap_started"] or back["generation"] != 1 or \
+                {r["gen"] for r in gen2} != {2} or \
+                {r["gen"] for r in gen1} != {1}:
+            raise AssertionError(f"[zmq:control] generations: {ack}, "
+                                 f"{back}")
+        check_replies("zmq:swap gen 2", gen2, refs2[:8])
+        check_replies("zmq:rollback gen 1", gen1, refs[:8])
+        st = cli.stats()
+        log(f"[zmq:control] {card}: deadline 0 refused at ingress; garbage "
+            f"frame answered (bad_frames {st['bad_frames']}); ping, stats; "
+            f"swap over the wire flipped in {swap_s:.3f}s, rollback to "
+            f"{back['generation']}; timed_out {st['timed_out']}, rejected "
+            f"{st['rejected']}, expired_results {st['expired_results']}")
+    finally:
+        cli.close()
+        sock.close(0)
+
+
+def zmq_cli(torch, card, path, requests, refs2):
+    """Phase 18's real entry point: ``python -m znicz_torch alexnet --serve
+    tcp://127.0.0.1:* --snapshot path`` on the card under ``fused``; the
+    endpoint read from its output, ``CLI_REQUESTS`` requests, each reply
+    within ``SERVE_TOL`` of the snapshot's composed forward; exit 0 within
+    ``CLI_TIMEOUT_S``."""
+    import queue as queue_mod
+
+    from znicz_torch.serving import InferenceClient
+
+    cmd = [sys.executable, "-m", "znicz_torch", "alexnet", "--serve",
+           "tcp://127.0.0.1:*", "--snapshot", path, "--replica-id", "cli",
+           "root.alexnet.loader.n_classes=1000",
+           "root.common.engine.fused_elementwise=True",
+           "root.common.engine.fused_tail=True",
+           f"root.common.serving.max_batch={BATCH}",
+           f"root.common.serving.max_requests={CLI_REQUESTS}"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(
+        os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, stdin=subprocess.DEVNULL, text=True)
+    lines: "queue_mod.Queue" = queue_mod.Queue()
+    err = []
+    reader = threading.Thread(target=lambda: [lines.put(ln)
+                                              for ln in proc.stdout],
+                              daemon=True)
+    err_reader = threading.Thread(target=lambda: err.extend(proc.stderr),
+                                  daemon=True)
+    reader.start()
+    err_reader.start()
+    try:
+        try:
+            line = lines.get(timeout=CLI_TIMEOUT_S)
+        except queue_mod.Empty:
+            raise AssertionError("[zmq:cli] no serving line") from None
+        if not line.startswith("serving alexnet at tcp://127.0.0.1:"):
+            proc.wait(60)
+            raise AssertionError(f"[zmq:cli] {line!r}; stderr: "
+                                 f"{''.join(err)[-3000:]}")
+        endpoint = line.split(" at ")[1].split()[0]
+        up = time.perf_counter() - t0
+        reqs = requests[:CLI_REQUESTS]
+        replies, lat, wall = zmq_clients(endpoint, reqs)
+        if any(not r["ok"] or r["replica_id"] != "cli" for r in replies):
+            raise AssertionError(f"[zmq:cli] refusals: {replies[0]}")
+        check_replies("zmq:cli", replies, refs2[:CLI_REQUESTS])
+        rc = proc.wait(CLI_TIMEOUT_S)
+        reader.join(60)
+        tail = []
+        while not lines.empty():
+            tail.append(lines.get())
+        if rc != 0:
+            raise AssertionError(f"[zmq:cli] exit {rc}; stderr: "
+                                 f"{''.join(err)[-3000:]}")
+        rows = sum(x.shape[0] for x in reqs)
+        log(f"[zmq:cli] {card}: up in {up:.2f}s ({line.strip()}); "
+            f"{len(reqs)} requests, {rows} images in {wall:.3f}s "
+            f"(images/s={rows / wall:.1f}, client clock {quantiles(lat)}); "
+            f"exit 0 {time.perf_counter() - t0:.2f}s after the start; "
+            f"{tail[-1].strip() if tail else ''}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+
+
+def zmq_phase(torch, card):
+    """Phase 18: full-width AlexNet (phase 3's configuration) served over
+    ZMQ.  Under ``fused`` and under ``pallas_lrn``: an ``InferenceServer``
+    on ``tcp://127.0.0.1:*`` serves phase 3's 64 requests in process and
+    then from ``ZMQ_CLIENTS`` InferenceClients with ``ZMQ_IN_FLIGHT`` in
+    flight each, every reply within ``SERVE_TOL`` of the composed
+    forward, K1/K2 2/3 (K3/K2 2/5) launches a dispatch, images/s and
+    p50/p99 on both clocks and the wire bytes printed.  Then, on the
+    ``fused`` server: admission (``zmq_admission``) and the swap to a
+    host snapshot this phase saves and the rollback; then the ``--serve``
+    subprocess from that snapshot (``zmq_cli``).  Returns {path: {kernel:
+    launches}}."""
+    from znicz_torch.core import prng
+    from znicz_torch.samples.alexnet import AlexNetWorkflow
+    from znicz_torch.serving.model import ModelRunner
+    from znicz_torch.snapshotter import write_host_pickle
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zmq_")
+    out = {}
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        prng.reset(SEED)
+        wf = AlexNetWorkflow(sample_shape=(227, 227, 3), n_classes=1000)
+        with torch.no_grad():
+            for f in wf.forwards:
+                if f.bias is not None:
+                    f.bias.normal_(0.0, 0.05, generator=gen)
+        requests = make_requests()
+        runner = ModelRunner(wf)
+        refs = [runner.infer(x) for x in requests]
+        # the second generation: every leaf moved, saved uncompressed
+        rng = np.random.default_rng(SEED + 1)
+        tree = {name: {k: (0.5 * t.cpu().numpy() + 0.01 * rng.standard_normal(
+            tuple(t.shape), dtype=np.float32)).astype(np.float32)
+            for k, t in leaves.items()}
+            for name, leaves in runner._active[0].items()}
+        path = os.path.join(tmp, "alexnet_gen2.pickle")
+        t0 = time.perf_counter()
+        write_host_pickle(path, {"units": tree, "velocities": {},
+                                 "epoch": 2}, compression="none")
+        log(f"[zmq] snapshot of generation 2 written in "
+            f"{time.perf_counter() - t0:.2f}s "
+            f"({os.path.getsize(path) / 2**20:.1f} MiB)")
+        del tree, runner
+        runner2 = ModelRunner(AlexNetWorkflow(sample_shape=(227, 227, 3),
+                                              n_classes=1000),
+                              snapshot=path)
+        refs2 = [runner2.infer(x) for x in requests]
+        del runner2
+        worst = max(float(np.abs(a - b).max() / np.abs(b).max())
+                    for a, b in zip(refs, refs2))
+        if not worst > 100 * SERVE_TOL:
+            raise AssertionError(f"generation 2 too close: {worst}")
+        torch.cuda.empty_cache()
+        for label, (knobs, _) in ZMQ_ROUTINGS.items():
+            with engine_knobs(**knobs):
+                srv, launches = zmq_routing(torch, card, label, wf,
+                                            requests, refs)
+                try:
+                    if label == "fused":
+                        zmq_admission(torch, card, srv, requests, refs,
+                                      path, refs2)
+                finally:
+                    srv.stop()
+            if srv.error is not None:
+                raise RuntimeError(f"[zmq:{label}] compute loop died") \
+                    from srv.error
+            out[f"zmq:{label}"] = launches
+        del wf
+        torch.cuda.empty_cache()
+        zmq_cli(torch, card, path, requests, refs2)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -4948,7 +5360,7 @@ def main(argv=None) -> int:
                          "11 for that sample; 'kinds': phase 12; "
                          "'samples': phase 13; 'segments': phase 14; "
                          "'deep': phase 15; 'shard': phase 16; "
-                         "'snapshots': phase 17")
+                         "'snapshots': phase 17; 'zmq': phase 18")
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -5013,11 +5425,12 @@ def run_phases(torch, args) -> int:
         bf16, kinds = "bf16" in names, "kinds" in names
         samples, segments = "samples" in names, "segments" in names
         deep, shard = "deep" in names, "shard" in names
-        snapshots = "snapshots" in names
+        snapshots, zmq = "snapshots" in names, "zmq" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
-                  "segments", "deep", "shard", "snapshots", *AE_SOM_RUNS)]
+                  "segments", "deep", "shard", "snapshots", "zmq",
+                  *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -5101,6 +5514,13 @@ def run_phases(torch, args) -> int:
                             "launches_by_path", {})[
                                 f"snapshots:{label}"] = count
             lap("phase 17")
+        if zmq:
+            for label, launches in zmq_phase(torch, card).items():
+                for name, count in launches.items():
+                    if count:
+                        rows.setdefault(name, {"name": name}).setdefault(
+                            "launches_by_path", {})[label] = count
+            lap("phase 18")
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -5290,6 +5710,16 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 17")
+
+    # -- phase 18: the served path over ZMQ: the ROUTER frontend and the
+    # -- clients, admission and control, the --serve entry point -------
+    for label, launches in zmq_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][label] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 18")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

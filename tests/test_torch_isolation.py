@@ -1,10 +1,11 @@
 """The port stands alone: no file of ``znicz_torch/`` and no line of
 ``chip_smoke.py`` imports JAX or the JAX package, or names the
 reference's ``native/`` directory (the host runtime is built from the
-port's own copy of its source); the port serves a batch
-and trains (``python -m znicz_torch alexnet``'s ``main``) in a process
-where ``jax`` was never imported; and an entry point asked for the card
-on a machine without one raises instead of dropping to the CPU."""
+port's own copy of its source); the port serves a batch (in process
+and over ZMQ) and trains (``python -m znicz_torch alexnet``'s ``main``)
+in a process where ``jax`` was never imported; and an entry point asked
+for the card on a machine without one raises instead of dropping to the
+CPU."""
 
 import ast
 import json
@@ -111,6 +112,36 @@ def test_port_serves_without_jax_in_the_process():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "served"
+
+
+def test_port_serves_over_zmq_without_jax_in_the_process():
+    """A full ZMQ round trip (the ROUTER frontend, the wire-v3 codec, the
+    DEALER client) in a process where jax was never imported."""
+    code = (
+        "import sys, numpy as np\n"
+        "from znicz_torch.core.config import root\n"
+        "from znicz_torch.samples.alexnet import AlexNetWorkflow\n"
+        "from znicz_torch.serving import InferenceClient, InferenceServer\n"
+        "root.common.engine.fused_elementwise = True\n"
+        "root.common.engine.fused_tail = True\n"
+        "wf = AlexNetWorkflow(sample_shape=(67, 67, 3), n_classes=10,"
+        " device='cpu')\n"
+        "srv = InferenceServer(wf, bind='tcp://127.0.0.1:*', max_batch=2)"
+        ".start()\n"
+        "cli = InferenceClient(srv.endpoint, timeout=120)\n"
+        "y = cli.infer(np.ones((2, 67, 67, 3), np.float32))\n"
+        "assert y.shape == (2, 10) and np.isfinite(y).all()\n"
+        "assert cli.ping()['pong']\n"
+        "cli.close()\n"
+        "srv.stop()\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'znicz_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('served over zmq')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "served over zmq"
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

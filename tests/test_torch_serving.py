@@ -153,7 +153,7 @@ def test_server_refuses_at_the_bounds(reference):
     assert got[0]["policy"] == "shed"
     srv.stop()
     assert srv.submit(Request(_batch(1), 1)).policy == "draining"
-    assert srv.stats()["refused"] == 4
+    assert srv.stats()["rejected"] == 4
 
 
 def test_batcher_coalesces_like_the_reference():

@@ -259,6 +259,63 @@ def check_engine_knobs() -> None:
                 f"{default!r}")
 
 
+#: The reference's ``root.common.serving.*`` keys
+#: (``znicz_tpu/serving/frontend.py`` DEFAULTS) that the port does not read
+#: yet: key (dotted below ``serving``) -> (the reference's default, the
+#: ROADMAP item that ports it).  ``serving/frontend.DEFAULTS`` names the
+#: keys the port reads; :func:`check_serving_keys` refuses each of these
+#: set away from its default.
+UNPORTED_SERVING_KEYS = {
+    "web_port": (None, "A.9"),
+    # A.8, sequence and generation serving
+    "seq.max_len": (0, "A.8"), "seq.rungs": (None, "A.8"),
+    **{f"generate.{key}": (default, "A.8") for key, default in (
+        ("enabled", False), ("max_new_tokens", 256), ("page_size", 16),
+        ("num_pages", 0), ("prefill_chunk", 0), ("prefix_cache", True),
+        ("on_device_sampling", True), ("slots", 8),
+        ("decode_tick_ms", 0.0), ("pending_bound", 64))},
+    # A.6, the serving mesh, the AOT cache and the replica balancer
+    "mesh.data": (1, "A.6"), "mesh.model": (1, "A.6"),
+    "aot_cache.enabled": (False, "A.6"), "aot_cache.dir": ("", "A.6"),
+    **{f"balance.{key}": (default, "A.6") for key, default in (
+        ("heartbeat_s", 0.25), ("replica_ttl_s", 1.5), ("min_replicas", 1),
+        ("hedge", True), ("hedge_floor_s", 0.05), ("hedge_cap_s", 2.0),
+        ("hedge_p99_mult", 1.5), ("failover_timeout_s", 1.0),
+        ("failover_tries", 3), ("park_bound", 256),
+        ("canary_fraction", 0.34), ("canary_requests", 30),
+        ("canary_p99_mult", 3.0), ("canary_timeout_s", 30.0),
+        ("parity_every", 4), ("heal_backoff_s", 30.0),
+        ("autoscale", False), ("autoscale_max", 8),
+        ("autoscale_high_load", 4.0), ("autoscale_low_load", 0.5),
+        ("autoscale_up_after", 2), ("autoscale_down_after", 8),
+        ("autoscale_eval_s", 0.5), ("autoscale_cooldown_s", 5.0),
+        ("autoscale_drain_timeout_s", 10.0),
+        ("autoscale_boot_deadline_s", 60.0))},
+    # A.9, telemetry: exemplars, heartbeat metrics, SLOs
+    **{f"obs.{key}": (default, "A.9") for key, default in (
+        ("exemplars", 8), ("exemplar_window_s", 60.0),
+        ("metrics_every_beats", 8), ("slo_availability", 0.999),
+        ("slo_p99_ms", 250.0), ("slo_ttft_ms", 500.0),
+        ("slo_inter_token_ms", 100.0), ("slo_fast_window_s", 60.0),
+        ("slo_slow_window_s", 600.0))},
+}
+
+
+def check_serving_keys() -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP item for the first
+    key of :data:`UNPORTED_SERVING_KEYS` set away from the reference's
+    default, as :func:`check_engine_knobs` refuses an engine knob: the
+    service would otherwise run as if it were unset."""
+    serving = root.common.serving
+    for key, (default, item) in UNPORTED_SERVING_KEYS.items():
+        value = serving.get_by_path(key, _UNSET)
+        if value is not _UNSET and value != default:
+            raise NotImplementedError(
+                f"root.common.serving.{key}={value!r} is not ported yet "
+                f"(ROADMAP queue {item}); the service runs as at its "
+                f"default {default!r}")
+
+
 def refuse_keyword(owner: str, key: str, value, accepted, item: str) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP item ``item`` when the
     reference keyword ``key`` of ``owner`` is set to a value outside

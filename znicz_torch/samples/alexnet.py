@@ -123,6 +123,17 @@ class AlexNetWorkflow(StandardWorkflow):
                          snapshotter_config=snapshotter_config)
 
 
+def serving_workflow(device: DeviceLike = None) -> AlexNetWorkflow:
+    """The AlexNet ``python -m znicz_torch alexnet --serve`` serves: no
+    loader, its sample shape and class count from the loader config
+    (``image_size``, ``n_classes``)."""
+    cfg = root.alexnet.loader
+    size = int(cfg.get("image_size", 227))
+    return AlexNetWorkflow(sample_shape=(size, size, 3),
+                           n_classes=int(cfg.get("n_classes", 100)),
+                           device=device)
+
+
 def training_workflow(device: DeviceLike = None) -> AlexNetWorkflow:
     """The trainable AlexNet of the ``root.alexnet`` config: its loader
     (data resident on ``device``), sample shape and class count from the

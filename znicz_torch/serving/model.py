@@ -33,8 +33,9 @@ concurrent swap, a snapshot that does not cover the model, or a failed
 warm raises, is counted in ``swap_failures``, and leaves the live
 generation serving.
 
-The mesh, AOT executables, chaos hooks and generation serving come in
-later slices.
+CUDA-graph capture per ladder rung, the serving mesh, the chaos hooks
+and the AOT executable cache wait for the rest of ROADMAP A.6,
+generation serving for A.8.
 """
 
 from __future__ import annotations
