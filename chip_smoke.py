@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      s^-beta;
   3. full-width AlexNet (227x227x3, 96/256/384/384/256/4096/4096, 1000
      classes, seeded random weights) behind ``InferenceServer``
-     (max_batch 128) with ``fused_elementwise`` and ``fused_tail`` on:
+     (max_batch 128; each rung a captured CUDA graph, as every served
+     phase's server; the references are eager runners) with
+     ``fused_elementwise`` and ``fused_tail`` on:
      64 requests of 1-16 rows from 4 threads; every reply checked against
      the same rows through the composed forward (knobs off); the kernel
      counts must show 2 block launches and 3 bias+ReLU launches per
@@ -282,7 +284,39 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      128, ``max_requests`` 16) as a subprocess on the card: the endpoint
      read from its output, 16 requests over ZMQ, each reply within
      ``SERVE_TOL`` of the snapshot's composed forward, exit 0 within
-     ``CLI_TIMEOUT_S``.
+     ``CLI_TIMEOUT_S``;
+ 19. ``graphs``, each ladder rung a captured CUDA graph: full-width
+     AlexNet (phase 3's configuration) behind an ``InferenceServer``
+     eager (``capture=False``) and then captured, under ``fused`` and
+     under ``pallas_lrn``: ``compiles == graph_cache_size() == 8`` after
+     the warm; a 128-row slice at every rung through each server's runner,
+     captured against eager bit for bit; phase 3's 64 requests from 4
+     threads, every reply within ``SERVE_TOL`` of the composed forward and
+     bit-equal to the eager forward of the rung it rode, no capture under
+     traffic, K1/K2 2/3 (K3/K2 2/5) launches a dispatch counted through
+     the replays, images/s and p50/p99 both ways, the memory of a family
+     (``memory_allocated`` and ``memory_reserved`` before and after its
+     captures).  On the ``fused`` server: a swap under traffic captures
+     exactly 8 graphs (its time, its family's memory), the rollback
+     captures none and its rungs are generation 1's bits again; then the
+     chaos harness: ``FaultSchedule`` stalls of every dispatch, counted; a
+     ``ChaosProxy`` (drop, corrupt, duplicate, delay) between two
+     ``InferenceClient``s and the server, every request answered once or
+     refused readably, the proxy's counts against its log and the
+     server's ``bad_frames``; a second server with a rate limit flooded by
+     a ``FloodProcess`` at 10x it, only ``rate_limited`` refusals, while a
+     paced client gets its replies;
+ 20. ``serve_mesh``, the serving mesh: K1 and K2 against their plain
+     versions at a rank's 64-row shapes (rows under ``"serve_mesh"``);
+     one process serves phase 3's requests captured under ``fused`` at
+     generations 1 and 2; then 2 gloo ranks on ``cuda:0`` (rank 0 the
+     ``InferenceServer``, rank 1 ``ModelRunner.follow()``) serve them on
+     meshes (2, 1) and (1, 2) (``root.common.serving.mesh``): the rungs
+     snapped to multiples of dp, every reply within the cross-layout band
+     (rtol 2e-3, atol 2e-5) of one process's, a swap and a rollback that
+     keep both ranks on one generation (rank 1's steps recorded), equal
+     dispatch counts, K1/K2 2/3 launches a dispatch on each rank, the
+     service's images/s and a rank's beside one process's.
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
@@ -305,8 +339,9 @@ phases 7 and 8 for
 for ``mnist_ae`` and ``kohonen`` (each alone or both), phase 12 for
 ``kinds``, phase 13 for ``samples``, phase 14 for ``segments``,
 phase 15 for ``deep``, phase 16 for ``shard``, phase 17 for
-``snapshots`` and phase 18 for ``zmq``; it prints the ``kernels`` object
-and no ``ok`` line.
+``snapshots``, phase 18 for ``zmq``, phase 19 for ``graphs`` and phase
+20 for ``serve_mesh``; it prints the ``kernels`` object and no ``ok``
+line.
 """
 
 from __future__ import annotations
@@ -4877,8 +4912,10 @@ def snapshots_phase(torch, card):
         requests = make_requests()
         prng.reset(SEED + 1)
         served = AlexNetWorkflow(sample_shape=(227, 227, 3), n_classes=1000)
-        refs = {1: [ModelRunner(served).infer(x) for x in requests],
-                2: [ModelRunner(wf).infer(x) for x in requests]}
+        refs = {1: [ModelRunner(served, capture=False).infer(x)
+                    for x in requests],
+                2: [ModelRunner(wf, capture=False).infer(x)
+                    for x in requests]}
         del wf
         ctrs = {name: fn for name, fn in counters().items()
                 if name in ("fused_block_fwd", "bias_relu_fwd")}
@@ -5303,7 +5340,7 @@ def zmq_phase(torch, card):
                 if f.bias is not None:
                     f.bias.normal_(0.0, 0.05, generator=gen)
         requests = make_requests()
-        runner = ModelRunner(wf)
+        runner = ModelRunner(wf, capture=False)
         refs = [runner.infer(x) for x in requests]
         # the second generation: every leaf moved, saved uncompressed
         rng = np.random.default_rng(SEED + 1)
@@ -5321,7 +5358,7 @@ def zmq_phase(torch, card):
         del tree, runner
         runner2 = ModelRunner(AlexNetWorkflow(sample_shape=(227, 227, 3),
                                               n_classes=1000),
-                              snapshot=path)
+                              snapshot=path, capture=False)
         refs2 = [runner2.infer(x) for x in requests]
         del runner2
         worst = max(float(np.abs(a - b).max() / np.abs(b).max())
@@ -5351,6 +5388,698 @@ def zmq_phase(torch, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: phase 19: the chaos steps: the compute stall (seed, probability,
+#: seconds), the proxy's wire faults and seed, the flood's per-client rate
+#: limit (rows/s, its burst) and rows a flood request, the requests each
+GRAPH_STALL = (99, 1.0, (0.02, 0.02))
+GRAPH_PROXY_SEED = 2024
+GRAPH_PROXY = {"drop": 0.05, "corrupt": 0.06, "duplicate": 0.04,
+               "delay": 0.05, "delay_s": (0.01, 0.05)}
+GRAPH_FLOOD_RATE, GRAPH_FLOOD_BURST, GRAPH_FLOOD_ROWS = 16.0, 16.0, 4
+GRAPH_CHAOS_REQUESTS = 16
+
+
+def alexnet_served(torch):
+    """Phase 3's full-width AlexNet: seeded weights and biases."""
+    from znicz_torch.core import prng
+    from znicz_torch.samples.alexnet import AlexNetWorkflow
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prng.reset(SEED)
+    wf = AlexNetWorkflow(sample_shape=(227, 227, 3), n_classes=1000)
+    with torch.no_grad():
+        for f in wf.forwards:
+            if f.bias is not None:
+                f.bias.normal_(0.0, 0.05, generator=gen)
+    return wf
+
+
+def gen2_snapshot(runner, path):
+    """Generation 2 of ``runner``'s live tree (every leaf moved), written
+    uncompressed to ``path`` as phase 18 writes it."""
+    from znicz_torch.snapshotter import write_host_pickle
+
+    rng = np.random.default_rng(SEED + 1)
+    tree = {name: {k: (0.5 * t.cpu().numpy() + 0.01 * rng.standard_normal(
+        tuple(t.shape), dtype=np.float32)).astype(np.float32)
+        for k, t in leaves.items()}
+        for name, leaves in runner._active.tree.items()}
+    write_host_pickle(path, {"units": tree, "velocities": {}, "epoch": 2},
+                      compression="none")
+    return path
+
+
+def serve_pass(srv, requests, n_threads=4):
+    """``requests`` submitted from ``n_threads`` threads as phase 3 does;
+    (replies in order, wall s, each request's submit-to-reply s)."""
+    from znicz_torch.serving.batcher import Request
+
+    futures = [Future() for _ in requests]
+    lat = [None] * len(requests)
+
+    def done(i, t0):
+        def cb(_fut):
+            lat[i] = time.perf_counter() - t0
+        return cb
+
+    def client(tid):
+        for i in range(tid, len(requests), n_threads):
+            futures[i].add_done_callback(done(i, time.perf_counter()))
+            srv.submit(Request(requests[i], requests[i].shape[0],
+                               reply_to=futures[i], req_id=i))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    replies = [f.result(timeout=600) for f in futures]
+    wall = time.perf_counter() - t0
+    bad = [r for r in replies if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} refused/failed replies: {bad[0]}")
+    return replies, wall, lat
+
+
+def memory(torch):
+    """(allocated, reserved) bytes on the card after a sync."""
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def _mib(n) -> str:
+    return f"{n / 2**20:.1f} MiB"
+
+
+#: phase 19: the order of the timed passes of the eager (E) and the
+#: captured (C) server, in turns; each server's first is the main path
+GRAPH_TURNS = "ECCEEC"
+
+
+def graphs_routing(torch, card, label, wf, requests, refs, eager_ref):
+    """One routing of phase 19 (its knobs set by the caller): the same
+    requests through an eager and a captured ``InferenceServer``, both
+    running.  Each server's runner dispatches a 128-row slice at every
+    rung (captured against eager, bit-equal); then the 64 requests are
+    served in ``GRAPH_TURNS`` passes.  Each server's first pass is the
+    main path: its replies held to the composed forward (``SERVE_TOL``)
+    and, bit for bit, to the eager forward of the rung each rode, no
+    capture under traffic, the kernels launched (through the replays)
+    as many times a dispatch as ``ZMQ_ROUTINGS`` says.  Returns (the
+    captured server, still running; its main pass's launches; {"eager" /
+    "captured": numbers}; the captured rung outputs)."""
+    from znicz_torch.serving.frontend import InferenceServer
+
+    expect = ZMQ_ROUTINGS[label][1]
+    ctrs = {name: fn for name, fn in counters().items() if name in expect}
+    rows_x = np.concatenate(requests)[:BATCH]
+    n_images = sum(x.shape[0] for x in requests)
+    servers, numbers, rung_y, replies_of = {}, {}, {}, {}
+    try:
+        for how in ("eager", "captured"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            m0 = memory(torch)
+            t0 = time.perf_counter()
+            srv = servers[how] = InferenceServer(
+                wf, max_batch=BATCH, max_delay_ms=5.0, queue_bound=4096,
+                request_ttl_s=600.0, capture=how == "captured")
+            srv.start()                        # warms (captures) 8 rungs
+            warm_s = time.perf_counter() - t0
+            m1 = memory(torch)
+            runner, rungs = srv.runner, srv.batcher.ladder.rungs
+            if runner.capture != (how == "captured") or not \
+                    runner.compiles == runner.graph_cache_size() \
+                    == len(rungs):
+                raise AssertionError(
+                    f"[graphs:{label}:{how}] capture {runner.capture}, "
+                    f"compiles {runner.compiles}, graph_cache_size "
+                    f"{runner.graph_cache_size()} after the warm of {rungs}")
+            rung_y[how] = {r: torch.from_numpy(runner.infer(rows_x[:r]))
+                           for r in rungs}
+            numbers[how] = {"warm_s": warm_s, "capture_s": runner.capture_s,
+                            "allocated": m1[0] - m0[0],
+                            "reserved": m1[1] - m0[1], "images_per_s": []}
+        launches = None
+        for turn in GRAPH_TURNS:
+            how = "eager" if turn == "E" else "captured"
+            srv, runner = servers[how], servers[how].runner
+            first = how not in replies_of
+            if first:
+                for fn in ctrs.values():       # the main path starts here
+                    fn.launches = 0
+                runner.dispatches = 0
+                compiles = runner.compiles
+                with srv._lock:
+                    srv._latencies.clear()
+            replies, wall, _ = serve_pass(srv, requests)
+            numbers[how]["images_per_s"].append(n_images / wall)
+            if not first:
+                continue
+            replies_of[how] = replies
+            got = {name: fn.launches for name, fn in ctrs.items()}
+            dispatches = runner.dispatches
+            check_replies(f"graphs:{label}:{how}", replies, refs)
+            for name, per in expect.items():
+                if got[name] != per * dispatches or not dispatches:
+                    raise AssertionError(
+                        f"[graphs:{label}:{how}] {name}: {got[name]} "
+                        f"launches for {dispatches} dispatches, expected "
+                        f"{per}")
+            if runner.compiles != compiles:
+                raise AssertionError(f"[graphs:{label}:{how}] "
+                                     f"{runner.compiles - compiles} "
+                                     f"captures under traffic")
+            numbers[how].update(dispatches=dispatches, launches=got)
+            if how == "captured":
+                launches = got
+        for how, srv in servers.items():
+            nb = numbers[how]
+            nb.update(srv.latency_quantiles())
+            log(f"[graphs:{label}:{how}] {card}: warm of "
+                f"{len(srv.batcher.ladder.rungs)} rungs {nb['warm_s']:.3f}s "
+                f"(captures {nb['capture_s']:.3f}s), memory allocated "
+                f"+{_mib(nb['allocated'])}, reserved "
+                f"+{_mib(nb['reserved'])}; {len(requests)} requests, "
+                f"{n_images} images a pass, passes in turns "
+                f"{GRAPH_TURNS}: images/s "
+                + ", ".join(f"{r:.1f}" for r in nb["images_per_s"])
+                + f"; server clock over the passes p50_ms="
+                f"{nb['p50_ms']:.2f} p99_ms={nb['p99_ms']:.2f}; the main "
+                f"pass: {nb['dispatches']} dispatches, 0 captures, "
+                f"launches={nb['launches']}")
+        # every rung, captured against eager, bit for bit
+        differ = [r for r in rung_y["eager"]
+                  if not same_bits(torch, rung_y["eager"][r],
+                                   rung_y["captured"][r])]
+        # every reply bit-equal to the eager forward of the rung it rode
+        # (the two servers may coalesce a request into other rungs)
+        ladder, off_rung = servers["captured"].batcher.ladder, []
+        for i, x in enumerate(requests):
+            a = replies_of["captured"][i]["y"]
+            if np.array_equal(a, replies_of["eager"][i]["y"]):
+                continue
+            rides = [eager_ref.infer(eager_ref.pad(x, b))[:len(x)]
+                     for b in ladder.rungs if b >= len(x)]
+            if not any(np.array_equal(a, y) for y in rides):
+                off_rung.append(i)
+        rate = {how: float(np.median(nb["images_per_s"]))
+                for how, nb in numbers.items()}
+        log(f"[graphs:{label}] captured against eager: "
+            f"{len(rung_y['eager'])} rungs "
+            + ("bit-equal" if not differ else f"DIFFER at {differ}")
+            + f"; {len(requests)} replies "
+            + ("bit-equal to the eager forward of their rung"
+               if not off_rung else f"DIFFER: requests {off_rung}")
+            + f"; median images/s captured {rate['captured']:.1f} against "
+            f"eager {rate['eager']:.1f}")
+        if differ or off_rung:
+            raise AssertionError(f"[graphs:{label}] captured replies "
+                                 f"differ from eager: rungs {differ}, "
+                                 f"requests {off_rung}")
+        eager = servers.pop("eager")
+        eager.stop()
+        if eager.error is not None:
+            raise RuntimeError(f"[graphs:{label}] eager compute loop "
+                               f"died") from eager.error
+        return servers.pop("captured"), launches, numbers, \
+            rung_y["captured"]
+    finally:
+        for srv in servers.values():
+            srv.stop()
+
+
+def graphs_swap(torch, card, srv, requests, path, refs2):
+    """Phase 19's swap on the running captured ``fused`` server: a swap
+    under traffic captures exactly the ladder's rungs for generation 2
+    (its replies within ``SERVE_TOL`` of generation 2's composed
+    forward); the rollback captures none and serves generation 1's
+    bits again (the caller compares them)."""
+    runner = srv.runner
+    rungs = len(srv.batcher.ladder.rungs)
+    c0, cap0 = runner.compiles, runner.capture_s
+    m0 = memory(torch)
+    t0 = time.perf_counter()
+    swap = srv.swap_async(path)
+    during, _, _ = serve_pass(srv, requests)
+    swap.join(600)
+    swap_s = time.perf_counter() - t0
+    m1 = memory(torch)
+    captured, capture_s = runner.compiles - c0, runner.capture_s - cap0
+    if swap.is_alive() or runner.generation != 2 or captured != rungs \
+            or runner.graph_cache_size() != rungs:
+        raise AssertionError(f"[graphs:swap] generation "
+                             f"{runner.generation}, {captured} captures, "
+                             f"family {runner.graph_cache_size()}")
+    after, _, _ = serve_pass(srv, requests)
+    check_replies("graphs:swap:after", after, refs2)
+    gens = sorted({r["gen"] for r in during})
+    c1 = runner.compiles
+    rolled = runner.rollback()
+    m2 = memory(torch)
+    if rolled != 1 or runner.compiles != c1:
+        raise AssertionError(f"[graphs:rollback] to {rolled}, "
+                             f"{runner.compiles - c1} captures")
+    log(f"[graphs:swap] {card}: swap_async under traffic {swap_s:.3f}s "
+        f"(load, {captured} captures in {capture_s:.3f}s, flip); "
+        f"generation 2's family allocated +{_mib(m1[0] - m0[0])}, reserved "
+        f"+{_mib(m1[1] - m0[1])}; generations while swapping {gens}; "
+        f"rollback to {rolled}: 0 captures, allocated "
+        f"{_mib(m2[0] - m1[0])} (the rolled-away family freed)")
+    return {"swap_s": swap_s, "capture_s": capture_s,
+            "family_allocated": m1[0] - m0[0],
+            "family_reserved": m1[1] - m0[1]}
+
+
+def graphs_chaos(torch, card, wf, srv, requests, refs):
+    """Phase 19's chaos on the running captured ``fused`` server: compute
+    stalls on every dispatch, counted; a ``ChaosProxy`` between two
+    ``InferenceClient``s and the server, every request answered once or
+    refused readably and the counts balanced; then a second server with a
+    rate limit, flooded by a ``FloodProcess`` at ten times it (only
+    ``rate_limited`` refusals) while a paced client gets every reply."""
+    from znicz_torch.parallel.chaos import (ChaosProxy, FaultSchedule,
+                                            FloodProcess)
+    from znicz_torch.serving import (AdmissionPolicy, InferenceClient,
+                                     InferenceError, InferenceServer)
+
+    runner = srv.runner
+    reqs = requests[:GRAPH_CHAOS_REQUESTS]
+    seed, p, span = GRAPH_STALL
+    runner.inject_compute_faults(FaultSchedule(seed, stall=p, stall_s=span))
+    d0, s0 = runner.dispatches, runner.stalls
+    replies, wall, lat = serve_pass(srv, reqs)
+    runner.inject_compute_faults(None)
+    made, stalls = runner.dispatches - d0, runner.stalls - s0
+    check_replies("graphs:stall", replies, refs[:len(reqs)])
+    log(f"[graphs:stall] {card}: FaultSchedule({seed}, stall={p}, "
+        f"stall_s={span}): {made} dispatches, {stalls} stalls "
+        f"(stats {srv.stats()['stalls']}); {len(reqs)} requests in "
+        f"{wall:.3f}s, submit-to-reply {quantiles(lat)}")
+    if not made or stalls != made:
+        raise AssertionError(f"[graphs:stall] {stalls} stalls for {made} "
+                             f"dispatches")
+
+    proxy = ChaosProxy("tcp://127.0.0.1:*", srv.endpoint,
+                       FaultSchedule(GRAPH_PROXY_SEED, **GRAPH_PROXY)).start()
+    bad0 = srv.bad_frames
+    outcomes = [None] * len(reqs)
+    errors = []
+
+    def client(tid):
+        cli = InferenceClient(proxy.front_endpoint, timeout=300,
+                              resend_after_s=2.0, max_resends=100)
+        try:
+            for i in range(tid, len(reqs), 2):
+                try:
+                    outcomes[i] = cli.result(cli.submit(reqs[i]))
+                except InferenceError as exc:   # a readable refusal
+                    outcomes[i] = exc.reply
+        except Exception as exc:                # raised below
+            errors.append(exc)
+        finally:
+            cli.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    proxy.stop()
+    c = proxy.counters
+    if errors or any(t.is_alive() for t in threads) or None in outcomes:
+        raise AssertionError(f"[graphs:proxy] unanswered: {errors}")
+    ok = [i for i, r in enumerate(outcomes) if r.get("ok")]
+    refused = [r for r in outcomes if not r.get("ok")]
+    check_replies("graphs:proxy", [outcomes[i] for i in ok],
+                  [refs[i] for i in ok])
+    bad_frames = srv.bad_frames - bad0
+    log(f"[graphs:proxy] {card}: {len(reqs)} requests through the proxy in "
+        f"{wall:.3f}s: {len(ok)} answered, {len(refused)} refused "
+        f"({sorted({r.get('policy') for r in refused})}); proxy counts "
+        f"{c}; server bad_frames +{bad_frames}")
+    if any("policy" not in r and "error" not in r for r in refused) or \
+            len(proxy.log) != sum(n for d in c.values() for n in d.values()) \
+            or bad_frames != c["req"]["corrupt"] or not proxy.total_faults():
+        raise AssertionError(f"[graphs:proxy] counts do not balance: {c}, "
+                             f"bad_frames {bad_frames}")
+
+    flood_srv = InferenceServer(
+        wf, max_batch=BATCH, max_delay_ms=5.0, queue_bound=4096,
+        request_ttl_s=600.0,
+        admission=AdmissionPolicy(rate_limit=GRAPH_FLOOD_RATE,
+                                  rate_burst=GRAPH_FLOOD_BURST)).start()
+    flood = cli = None
+    try:
+        flood = FloodProcess(flood_srv.endpoint,
+                             flood_srv.runner.sample_shape,
+                             GRAPH_FLOOD_RATE, factor=10.0,
+                             rows=GRAPH_FLOOD_ROWS)
+        cli = InferenceClient(flood_srv.endpoint, timeout=300)
+        flood.start_flood()
+        t0 = time.perf_counter()
+        while flood_srv.batcher.stats()["rate_limited"] == 0:
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("[graphs:flood] never rate limited")
+            time.sleep(0.01)
+        paced = []
+        for x in requests[:4]:
+            t1 = time.perf_counter()
+            y = cli.infer(x[:1])
+            paced.append(time.perf_counter() - t1)
+            if y.shape != refs[0][:1].shape or not np.isfinite(y).all():
+                raise AssertionError(f"[graphs:flood] paced reply {y.shape}")
+            time.sleep(0.25)
+        stats = flood.stop_flood()
+        log(f"[graphs:flood] {card}: FloodProcess at 10x {GRAPH_FLOOD_RATE:g} "
+            f"rows/s ({GRAPH_FLOOD_ROWS}-row requests): {stats}; a paced "
+            f"client's 4 replies in {quantiles(paced)}")
+        if set(stats["refusals"]) != {"rate_limited"} or \
+                not stats["accepted"]:
+            raise AssertionError(f"[graphs:flood] {stats}")
+    finally:
+        if cli is not None:
+            cli.close()
+        if flood is not None:
+            flood.close()
+        flood_srv.stop()
+    return {"stalls": stalls, "proxy": c, "flood": stats}
+
+
+def graphs_phase(torch, card):
+    """Phase 19: full-width AlexNet (phase 3's configuration) served as one
+    captured CUDA graph a ladder rung, against the same server eager
+    (``capture=False``), under ``fused`` and ``pallas_lrn``
+    (``graphs_routing``); on the ``fused`` server a swap under traffic
+    and the rollback (``graphs_swap``) and the chaos harness
+    (``graphs_chaos``).  Returns {path: {kernel: launches}}."""
+    from znicz_torch.serving.model import ModelRunner
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_graphs_")
+    out = {}
+    try:
+        wf = alexnet_served(torch)
+        requests = make_requests()
+        eager_ref = ModelRunner(wf, capture=False)
+        refs = [eager_ref.infer(x) for x in requests]     # composed
+        path = gen2_snapshot(eager_ref, os.path.join(tmp, "gen2.pickle"))
+        eager_ref.swap(path)
+        refs2 = [eager_ref.infer(x) for x in requests]
+        eager_ref.rollback()
+        numbers = {}
+        for label, (knobs, _) in ZMQ_ROUTINGS.items():
+            with engine_knobs(**knobs):
+                srv, launches, numbers[label], rung_y = graphs_routing(
+                    torch, card, label, wf, requests, refs, eager_ref)
+                try:
+                    if label == "fused":
+                        numbers["swap"] = graphs_swap(torch, card, srv,
+                                                      requests, path, refs2)
+                        back = [r for r in rung_y if not same_bits(
+                            torch, rung_y[r], torch.from_numpy(
+                                srv.runner.infer(np.concatenate(
+                                    requests)[:r])))]
+                        if back:
+                            raise AssertionError(f"[graphs:rollback] rungs "
+                                                 f"{back} differ")
+                        log(f"[graphs:rollback] {len(rung_y)} rungs "
+                            f"bit-equal to generation 1's before the swap")
+                        numbers["chaos"] = graphs_chaos(
+                            torch, card, wf, srv, requests, refs)
+                finally:
+                    srv.stop()
+                if srv.error is not None:
+                    raise RuntimeError(f"[graphs:{label}] compute loop "
+                                       f"died") from srv.error
+                out[f"graphs:{label}"] = launches
+                del srv
+        log(f"[graphs] {card}: " + json.dumps(
+            {k: v for k, v in numbers.items() if k != "chaos"},
+            default=float))
+        del wf, eager_ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: phase 20: the serving meshes (data, model) the ranks serve on, in order
+SERVE_MESHES = ((2, 1), (1, 2))
+#: phase 20: K1 and K2 at the rows a rank of mesh (2, 1) gives them
+SERVE_MESH_KERNEL_SHAPES = {
+    name: SHARD_KERNEL_SHAPES[name]
+    for name in ("fused_block_fwd", "bias_relu_fwd")}
+
+
+def serve_mesh_lead(torch, wf, requests, path, ctrs):
+    """Rank 0 of phase 20: the ``InferenceServer`` on the serving mesh of
+    ``root.common.serving.mesh``: the requests at generation 1, a swap to
+    ``path``, the requests at generation 2, the rollback, some requests
+    at generation 1 again."""
+    from znicz_torch.serving.frontend import InferenceServer
+
+    t0 = time.perf_counter()
+    srv = InferenceServer(wf, max_batch=BATCH, max_delay_ms=5.0,
+                          queue_bound=4096, request_ttl_s=600.0).start()
+    runner = srv.runner
+    rec = {"warm_s": time.perf_counter() - t0,
+           "rungs": list(srv.batcher.ladder.rungs),
+           "mesh": runner.mesh_shape, "capture": runner.capture,
+           "compiles": runner.compiles}
+    try:
+        for fn in ctrs.values():               # the main path starts here
+            fn.launches = 0
+        d0 = runner.dispatches
+        replies, wall, lat = serve_pass(srv, requests)
+        rec["launches"] = {name: fn.launches for name, fn in ctrs.items()}
+        rec["pass_dispatches"] = runner.dispatches - d0
+        server = srv.latency_quantiles()
+        rec.update(images_per_s=sum(x.shape[0] for x in requests) / wall,
+                   p50_ms=server["p50_ms"], p99_ms=server["p99_ms"],
+                   client=quantiles(lat))
+        rec["passes"] = [[(r["gen"], r["y"]) for r in replies]]
+        t0 = time.perf_counter()
+        runner.swap(path, srv.batcher.ladder)
+        rec["swap_s"] = time.perf_counter() - t0
+        rec["passes"].append([(r["gen"], r["y"])
+                              for r in serve_pass(srv, requests)[0]])
+        rec["rollback"] = runner.rollback()
+        rec["passes"].append([(r["gen"], r["y"]) for r in serve_pass(
+            srv, requests[:GRAPH_CHAOS_REQUESTS])[0]])
+    finally:
+        srv.stop()
+    if srv.error is not None:
+        raise RuntimeError("[serve_mesh] compute loop died") from srv.error
+    rec.update(generation=runner.generation, dispatches=runner.dispatches,
+               swaps=runner.swaps, rollbacks=runner.rollbacks)
+    return rec
+
+
+def serve_mesh_follow(torch, wf, ctrs):
+    """A rank other than 0 of phase 20: ``ModelRunner.follow()``, each
+    generation step it takes recorded."""
+    from znicz_torch.serving.model import ModelRunner
+
+    runner = ModelRunner(wf)
+    for fn in ctrs.values():
+        fn.launches = 0
+    history = []
+    flip, roll_back = runner._flip, runner._roll_back
+
+    def flip_(gen):
+        history.append(("flip", gen))
+        return flip(gen)
+
+    def roll_back_():
+        out = roll_back()
+        history.append(("rollback", out[0]))
+        return out
+
+    runner._flip, runner._roll_back = flip_, roll_back_
+    runner.follow()
+    return {"history": history, "generation": runner.generation,
+            "dispatches": runner.dispatches, "mesh": runner.mesh_shape,
+            "capture": runner.capture,
+            "launches": {name: fn.launches for name, fn in ctrs.items()}}
+
+
+def serve_mesh_rank(rank, world, store, tmp, card):
+    """One rank of phase 20 (a spawned process): joins the gloo group on
+    the card and serves full-width AlexNet under ``fused`` on each of
+    ``SERVE_MESHES`` (rank 0 leads, the others follow).  Writes its
+    records to ``tmp/rank<N>.pkl``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import pickle
+
+    import torch
+
+    from znicz_torch.core.config import root
+    from znicz_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.distributed_init(f"file://{store}", world, rank,
+                              backend="gloo")
+    requests = make_requests() if rank == 0 else None
+    ctrs = {name: fn for name, fn in counters().items()
+            if name in ("fused_block_fwd", "bias_relu_fwd")}
+    out = {"rank": rank}
+    with engine_knobs(**FUSED_KNOBS):
+        for dp, mp in SERVE_MESHES:
+            root.common.serving.mesh.data = dp
+            root.common.serving.mesh.model = mp
+            wf = alexnet_served(torch)
+            if rank == 0:
+                out[dp, mp] = serve_mesh_lead(
+                    torch, wf, requests, os.path.join(tmp, "gen2.pickle"),
+                    ctrs)
+            else:
+                out[dp, mp] = serve_mesh_follow(torch, wf, ctrs)
+            del wf
+            gc.collect()
+            torch.cuda.empty_cache()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def serve_mesh_phase(torch, card, rows):
+    """Phase 20: K1 and K2 at a rank's 64-row shapes against their plain
+    versions (rows under ``"serve_mesh"``); one process serves phase 3's
+    requests captured under ``fused`` at generations 1 and 2 (the
+    yardstick); then ``SHARD_WORLD`` gloo ranks on the card serve them on
+    each of ``SERVE_MESHES`` (``serve_mesh_rank``): the rungs snapped to
+    dp, every reply within the cross-layout band of one process's, a
+    swap and a rollback keeping every rank on one generation, K1/K2 2/3 a
+    dispatch on every rank, images/s a rank beside one process's.
+    Returns {path: {kernel: launches}} (rank 0's)."""
+    import multiprocessing as mp
+    import pickle
+
+    from znicz_torch.serving.batcher import BucketLadder
+    from znicz_torch.serving.frontend import InferenceServer
+
+    cifar_rows(torch, rows, SERVE_MESH_KERNEL_SHAPES, tag="serve_mesh",
+               batch=BATCH // 2)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_mesh_")
+    try:
+        requests = make_requests()
+        n_images = sum(x.shape[0] for x in requests)
+        with engine_knobs(**FUSED_KNOBS):
+            wf = alexnet_served(torch)
+            srv = InferenceServer(wf, max_batch=BATCH, max_delay_ms=5.0,
+                                  queue_bound=4096,
+                                  request_ttl_s=600.0).start()
+            try:
+                replies, wall, _ = serve_pass(srv, requests)
+                one = {1: [r["y"] for r in replies]}
+                one_rate = n_images / wall
+                path = gen2_snapshot(srv.runner,
+                                     os.path.join(tmp, "gen2.pickle"))
+                srv.runner.swap(path, srv.batcher.ladder)
+                one[2] = [r["y"] for r in serve_pass(srv, requests)[0]]
+            finally:
+                srv.stop()
+            del srv, wf
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        store = os.path.join(tmp, "store")
+        procs = [ctx.Process(target=serve_mesh_rank,
+                             args=(rank, SHARD_WORLD, store, tmp, card))
+                 for rank in range(SHARD_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARD_JOIN_S
+        try:
+            for p in procs:
+                p.join(max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * SHARD_WORLD:
+            raise AssertionError(f"[serve_mesh] ranks exited {codes}")
+        ranks = []
+        for rank in range(SHARD_WORLD):
+            with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        log(f"[serve_mesh] ranks spawned and served {len(SERVE_MESHES)} "
+            f"meshes in {time.perf_counter() - t0:.2f}s; one process "
+            f"(captured) images/s={one_rate:.1f}")
+        bad, out = [], {}
+        per = {name: n for name, n in ZMQ_ROUTINGS["fused"][1].items() if n}
+        for dp, mp_ in SERVE_MESHES:
+            lead = ranks[0][dp, mp_]
+            tag = f"serve_mesh:{dp}x{mp_}"
+            worst, outside = 0.0, 0
+            for gen, got in zip((1, 2, 1), lead["passes"]):
+                for i, (stamp, y) in enumerate(got):
+                    want = one[gen][i]
+                    if stamp != gen or y.shape != want.shape or \
+                            not np.isfinite(y).all():
+                        bad.append(f"{tag}: request {i} stamped {stamp}, "
+                                   f"shape {y.shape}")
+                        continue
+                    d = np.abs(y - want)
+                    worst = max(worst, float(d.max()))
+                    outside += int((d > SHARD_ATOL + SHARD_RTOL
+                                    * np.abs(want)).sum())
+            if lead["rungs"] != BucketLadder(BATCH, dp=dp).rungs or \
+                    any(r % dp for r in lead["rungs"]):
+                bad.append(f"{tag}: rungs {lead['rungs']}")
+            if outside:
+                bad.append(f"{tag}: {outside} logits outside the band")
+            for r in ranks[1:]:
+                rec = r[dp, mp_]
+                if rec["history"] != [("flip", 2), ("rollback", 1)] or \
+                        rec["generation"] != lead["generation"] or \
+                        lead["generation"] != 1 or \
+                        rec["dispatches"] != lead["dispatches"] or \
+                        rec["capture"] or rec["mesh"] != lead["mesh"]:
+                    bad.append(f"{tag}: rank {r['rank']} {rec['history']}, "
+                               f"generation {rec['generation']}, "
+                               f"{rec['dispatches']} dispatches against "
+                               f"{lead['dispatches']}")
+                for name, n in per.items():
+                    if rec["launches"][name] != n * rec["dispatches"]:
+                        bad.append(f"{tag}: rank {r['rank']} {name} "
+                                   f"{rec['launches'][name]} launches for "
+                                   f"{rec['dispatches']} dispatches")
+            for name, n in per.items():
+                if lead["launches"][name] != n * lead["pass_dispatches"] \
+                        or not lead["pass_dispatches"]:
+                    bad.append(f"{tag}: rank 0 {name} launches "
+                               f"{lead['launches'][name]}")
+            log(f"[{tag}] {card}: mesh {lead['mesh']}, uncaptured, rungs "
+                f"{lead['rungs']} (warm {lead['warm_s']:.2f}s); "
+                f"{len(requests)} requests on {SHARD_WORLD} ranks: "
+                f"images/s={lead['images_per_s']:.1f}, a rank "
+                f"{lead['images_per_s'] / dp:.1f} (one process "
+                f"{one_rate:.1f}), server clock "
+                f"p50_ms={lead['p50_ms']:.2f} p99_ms={lead['p99_ms']:.2f}, "
+                f"submit-to-reply {lead['client']}; "
+                f"{lead['pass_dispatches']} dispatches, rank 0 "
+                f"launches={lead['launches']}; replies against one "
+                f"process's: max|d| {worst:.3e}, {outside} outside rtol "
+                f"{SHARD_RTOL:g} / atol {SHARD_ATOL:g}; swap "
+                f"{lead['swap_s']:.3f}s, rollback to {lead['rollback']}; "
+                f"rank 1 took {[r[dp, mp_]['history'] for r in ranks[1:]]}, "
+                f"{lead['dispatches']} dispatches on every rank")
+            out[tag] = lead["launches"]
+        if bad:
+            raise AssertionError(f"[serve_mesh] {bad}")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -5360,7 +6089,8 @@ def main(argv=None) -> int:
                          "11 for that sample; 'kinds': phase 12; "
                          "'samples': phase 13; 'segments': phase 14; "
                          "'deep': phase 15; 'shard': phase 16; "
-                         "'snapshots': phase 17; 'zmq': phase 18")
+                         "'snapshots': phase 17; 'zmq': phase 18; "
+                         "'graphs': phase 19; 'serve_mesh': phase 20")
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -5426,11 +6156,12 @@ def run_phases(torch, args) -> int:
         samples, segments = "samples" in names, "segments" in names
         deep, shard = "deep" in names, "shard" in names
         snapshots, zmq = "snapshots" in names, "zmq" in names
+        graphs, serve_mesh = "graphs" in names, "serve_mesh" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
                   "segments", "deep", "shard", "snapshots", "zmq",
-                  *AE_SOM_RUNS)]
+                  "graphs", "serve_mesh", *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -5521,6 +6252,21 @@ def run_phases(torch, args) -> int:
                         rows.setdefault(name, {"name": name}).setdefault(
                             "launches_by_path", {})[label] = count
             lap("phase 18")
+        if graphs:
+            for label, launches in graphs_phase(torch, card).items():
+                for name, count in launches.items():
+                    if count:
+                        rows.setdefault(name, {"name": name}).setdefault(
+                            "launches_by_path", {})[label] = count
+            lap("phase 19")
+        if serve_mesh:
+            for label, launches in serve_mesh_phase(torch, card,
+                                                    rows).items():
+                for name, count in launches.items():
+                    if count:
+                        rows.setdefault(name, {"name": name}).setdefault(
+                            "launches_by_path", {})[label] = count
+            lap("phase 20")
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -5551,7 +6297,7 @@ def run_phases(torch, args) -> int:
     requests = make_requests()
 
     # references: the same rows through the composed forward (knobs off)
-    ref_runner = ModelRunner(wf)
+    ref_runner = ModelRunner(wf, capture=False)
     t0 = time.perf_counter()
     refs = [ref_runner.infer(x) for x in requests]
     log(f"[reference] {len(refs)} requests composed "
@@ -5720,6 +6466,25 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 18")
+
+    # -- phase 19: each ladder rung a captured CUDA graph, against eager;
+    # -- a swap and a rollback of graph families; the chaos harness -----
+    for label, launches in graphs_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][label] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 19")
+
+    # -- phase 20: the serving mesh: two gloo ranks on the card ---------
+    for label, launches in serve_mesh_phase(torch, card, rows).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][label] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 20")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

@@ -274,8 +274,7 @@ UNPORTED_SERVING_KEYS = {
         ("num_pages", 0), ("prefill_chunk", 0), ("prefix_cache", True),
         ("on_device_sampling", True), ("slots", 8),
         ("decode_tick_ms", 0.0), ("pending_bound", 64))},
-    # A.6, the serving mesh, the AOT cache and the replica balancer
-    "mesh.data": (1, "A.6"), "mesh.model": (1, "A.6"),
+    # A.6, the replica balancer and the AOT cache
     "aot_cache.enabled": (False, "A.6"), "aot_cache.dir": ("", "A.6"),
     **{f"balance.{key}": (default, "A.6") for key, default in (
         ("heartbeat_s", 0.25), ("replica_ttl_s", 1.5), ("min_replicas", 1),

@@ -1,6 +1,8 @@
 """CUDA-graph capture of one train or eval step (the port's counterpart of
 the reference's ``make_train_scan`` / ``make_eval_scan``: a segment of k
-steps is k replays of one captured step).
+steps is k replays of one captured step), and of one served forward a
+ladder rung (``serving/model.py``: the counterpart of the reference's
+bucketed jit cache; a generation's rungs share one memory pool).
 
 A :class:`StepGraph` owns the static buffers a step reads (its index row
 or staged rows, its hyperparameter row, its dropout masks), the captured
@@ -94,14 +96,18 @@ class StepGraph:
                              f"{tuple(shape)}")
         return buf
 
-    def capture(self, body: Callable, stream: "torch.cuda.Stream") -> None:
+    def capture(self, body: Callable, stream: "torch.cuda.Stream",
+                pool=None) -> None:
         """Capture ``body()`` (which reads the static buffers) on
-        ``stream``; its return value becomes :attr:`outputs`."""
+        ``stream``, its memory from ``pool`` (a
+        ``torch.cuda.graph_pool_handle()`` shared with other captures;
+        None: a private pool of its own); its return value becomes
+        :attr:`outputs`."""
         from znicz_torch import fused_block
 
         before = _read()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream,
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
                               capture_error_mode="thread_local"):
             self.outputs = body()
         after = _read()
@@ -116,3 +122,13 @@ class StepGraph:
     def replay(self) -> None:
         self.graph.replay()
         _add(self.launches)
+
+    def release(self) -> None:
+        """Free the graph and drop its buffers (its pool's blocks go back
+        to the caching allocator once no graph holds the pool)."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+        self.outputs = None
+        self.inputs = {}
+        self.keep = []

@@ -17,7 +17,10 @@ named dims, each rank holding its own device.
 
 Start one process a rank, call :func:`distributed_init` in each, then
 :func:`make_mesh`.  A 1 × 1 mesh is None (:func:`mesh_from_axes`): the
-single-device path, bit for bit.  This module is the one home of the
+single-device path, bit for bit.  The serving mesh
+(:func:`serving_mesh_from_config`, :func:`require_batch_divisible`) is
+the same kind of mesh; the served batch's scatter and the logits' gather
+are ``serving/model.py``'s.  This module is the one home of the
 placement rule, the per-rank row selection and the collectives the
 trainer and the snapshotter call.
 
@@ -160,6 +163,28 @@ def train_mesh_from_config():
         return None
     mc = root.common.engine.mesh
     return mesh_from_axes(mc.get("data", 1), mc.get("model", 1), "training")
+
+
+def serving_mesh_from_config():
+    """The serving mesh of ``root.common.serving.mesh.{data,model}``, or
+    None for the 1 × 1 default (the single-device path)."""
+    from znicz_torch.core.config import root
+
+    mc = root.common.serving.mesh
+    return mesh_from_axes(mc.get("data", 1), mc.get("model", 1), "serving")
+
+
+def require_batch_divisible(rows: int, mesh) -> int:
+    """The refusal of a batch that does not split evenly over the mesh's
+    ``data`` axis (a served batch is never padded per rank); returns
+    dp."""
+    dp = axis_size(mesh, "data")
+    if int(rows) % dp:
+        raise ValueError(
+            f"batch of {rows} rows does not divide across the mesh's data "
+            f"axis (dp={dp}); pad to a ladder rung (rungs are snapped to "
+            f"multiples of dp)")
+    return dp
 
 
 def axis_size(mesh, axis: str) -> int:

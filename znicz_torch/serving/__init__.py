@@ -5,8 +5,11 @@ ROUTER, the wire-v3 codec, the compute loop) -> ``DynamicBatcher``
 ``InferenceClient`` (client) is the DEALER peer.
 
 Config home: ``root.common.serving.{max_batch, max_delay_ms, queue_bound,
-request_ttl_s, max_requests}`` + ``root.common.serving.admission.*``;
-CLI: ``python -m znicz_torch <sample> --serve [BIND] --snapshot FILE``.
+request_ttl_s, max_requests}`` + ``root.common.serving.admission.*`` +
+``root.common.serving.mesh.{data,model}``; CLI: ``python -m znicz_torch
+<sample> --serve [BIND] --snapshot FILE``.  The seeded chaos harness
+(``FaultSchedule``, ``ChaosProxy``, ``FloodProcess``) is
+``znicz_torch.parallel.chaos``.
 """
 
 from .batcher import (AdmissionPolicy, BucketLadder,        # noqa: F401

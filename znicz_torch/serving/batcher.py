@@ -5,7 +5,8 @@
     ``(max_batch, max_delay_ms)`` — a batch closes once it holds
     ``max_batch`` rows, or ``max_delay_ms`` after its first row was taken.
   - **Bucket ladder**: each batch is padded up to the next rung of a fixed
-    ladder (powers of two up to ``max_batch``), so the model sees at most
+    ladder (powers of two up to ``max_batch``, snapped to multiples of
+    the serving mesh's ``data`` axis), so the model sees at most
     ``len(ladder)`` batch shapes.
   - **Backpressure**: the queue is bounded in rows; a submit past
     ``queue_bound`` is refused at once with a :class:`Refusal`.
@@ -20,8 +21,7 @@
     refused it.  Config home: ``root.common.serving.admission.*``.
 
 The 2-D sequence ladder and continuous batching for generation come with
-sequence workloads (ROADMAP A.8), the ladder's mesh snapping with the
-serving mesh (A.6).
+sequence workloads (ROADMAP A.8).
 
 Threading: ``submit`` may be called from any thread, ``next_batch`` from
 the one compute thread; one condition variable guards the queues and the
@@ -44,13 +44,28 @@ __all__ = ["AdmissionPolicy", "BucketLadder", "DynamicBatcher", "Refusal",
 class BucketLadder:
     """The fixed ladder of padded batch sizes: the powers of two below
     ``max_batch`` plus ``max_batch`` itself, or explicit ``rungs`` ending
-    at ``max_batch``."""
+    at ``max_batch``.
+
+    ``dp`` is the serving mesh's ``data`` axis size: every rung must
+    split evenly across it, so the default rungs are snapped up to the
+    next multiple of ``dp`` (then deduplicated), and explicit rungs that
+    do not divide are refused here, readably, rather than at the first
+    request."""
 
     def __init__(self, max_batch: int,
-                 rungs: Optional[Sequence[int]] = None):
+                 rungs: Optional[Sequence[int]] = None, dp: int = 1):
         self.max_batch = int(max_batch)
+        self.dp = int(dp)
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if self.dp < 1:
+            raise ValueError(f"dp must be >= 1, got {dp}")
+        if self.max_batch % self.dp:
+            raise ValueError(
+                f"max_batch={self.max_batch} does not divide across the "
+                f"mesh's data axis (dp={self.dp}); pick a max_batch that "
+                f"is a multiple of dp")
+        snapped = rungs is None
         if rungs is None:
             rungs = []
             r = 1
@@ -58,11 +73,20 @@ class BucketLadder:
                 rungs.append(r)
                 r *= 2
             rungs.append(self.max_batch)
+            rungs = [-(-r // self.dp) * self.dp for r in rungs]
         rungs = sorted(set(int(r) for r in rungs))
         if not rungs or rungs[0] < 1 or rungs[-1] != self.max_batch:
             raise ValueError(
                 f"bucket ladder {rungs} must be positive and end at "
                 f"max_batch={self.max_batch}")
+        if not snapped:
+            bad = [r for r in rungs if r % self.dp]
+            if bad:
+                raise ValueError(
+                    f"bucket ladder rungs {bad} do not divide across the "
+                    f"mesh's data axis (dp={self.dp}); every rung must be "
+                    f"a multiple of dp so each rank holds exactly rows/dp "
+                    f"rows")
         self.rungs: List[int] = rungs
 
     def bucket_for(self, n: int) -> int:

@@ -48,9 +48,18 @@ dropped (``expired_results``), never shipped.  Pad rows never leave the
 server: each reply owns a copy of its rows.  ``max_requests`` ends the
 serve loop once that many requests were answered.
 
-The fleet heartbeat (``announce``), the serving mesh and the AOT proof
-come with the rest of ROADMAP A.6, sequence and generation serving with
-A.8, exemplars and SLOs with telemetry (A.9).
+The runner captures one CUDA graph a ladder rung on the card
+(``capture``; see ``serving/model.py``).  On a serving mesh
+(``root.common.serving.mesh.{data,model}``, one process a rank) this
+server runs on rank 0 and the other ranks call ``ModelRunner.follow()``;
+the ladder's rungs are snapped to multiples of the ``data`` axis, and
+stopping the server stops the other ranks.  The seeded chaos harness
+(``parallel/chaos.py``: ``ChaosProxy``, ``FloodProcess``, compute stalls
+through ``runner.inject_compute_faults``) can be put in front of it.
+
+The fleet heartbeat (``announce``) and the replica balancer, then the AOT
+executable cache, come with the rest of ROADMAP A.6, sequence and
+generation serving with A.8, exemplars and SLOs with telemetry (A.9).
 """
 
 from __future__ import annotations
@@ -79,7 +88,8 @@ DEFAULTS = {"max_batch": 32, "max_delay_ms": 5.0, "queue_bound": 256,
             "request_ttl_s": 5.0, "max_requests": None,
             "admission": {"enabled": True, "rate_limit": 0.0,
                           "rate_burst": 0.0, "fair": True, "quantum": 0,
-                          "client_queue_bound": 0}}
+                          "client_queue_bound": 0},
+            "mesh": {"data": 1, "model": 1}}
 
 
 def _cfg(name: str, override):
@@ -136,7 +146,8 @@ class InferenceServer:
                  ladder: Optional[BucketLadder] = None,
                  max_requests: Optional[int] = None,
                  admission: Optional[AdmissionPolicy] = None,
-                 warmup: bool = True, replica_id: Optional[str] = None):
+                 warmup: bool = True, replica_id: Optional[str] = None,
+                 capture: Optional[bool] = None):
         import uuid
 
         from znicz_torch.parallel import wire
@@ -146,13 +157,25 @@ class InferenceServer:
         self.bind = bind
         self.replica_id = replica_id or f"replica-{uuid.uuid4().hex[:6]}"
         self.endpoint: Optional[str] = None      # resolved at serve()
-        self.runner = ModelRunner(workflow, snapshot=snapshot)
+        self.runner = ModelRunner(workflow, snapshot=snapshot,
+                                  capture=capture)
+        if self.runner.rank != 0:
+            raise RuntimeError(
+                f"rank {self.runner.rank} of a serving mesh does not "
+                f"serve: call ModelRunner(workflow).follow() there")
         max_batch = int(_cfg("max_batch", max_batch))
+        # every rung splits evenly over the mesh's data axis: an explicit
+        # ladder that cannot is refused here, not at the first request
+        dp = self.runner.data_parallel
+        if ladder is None:
+            ladder = BucketLadder(max_batch, dp=dp)
+        elif dp > 1 and ladder.dp != dp:
+            ladder = BucketLadder(ladder.max_batch, ladder.rungs, dp=dp)
         self.batcher = DynamicBatcher(
             max_batch=max_batch,
             max_delay_ms=float(_cfg("max_delay_ms", max_delay_ms)),
             queue_bound=int(_cfg("queue_bound", queue_bound)),
-            ladder=ladder or BucketLadder(max_batch),
+            ladder=ladder,
             admission=admission or _admission_from_config())
         self.request_ttl_s = float(_cfg("request_ttl_s", request_ttl_s))
         self.max_requests = None if max_requests is None \
@@ -358,6 +381,7 @@ class InferenceServer:
             if sock is not None:
                 self._drain_outbound(sock)  # the final replies
             loop.close(linger_ms=self.CLOSE_LINGER_MS)
+            self.runner.close()             # a mesh's other ranks stop
 
     def _answered(self) -> int:
         with self._lock:

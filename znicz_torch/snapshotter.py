@@ -285,16 +285,21 @@ def inference_params(workflow, snap: Dict) -> Dict:
     """The forward parameters of ``snap`` as a new ``{module: {param:
     tensor}}`` tree on the workflow's device, each in its live
     parameter's dtype and shape, leaving the modules untouched (a
-    served swap).  Raises as :func:`restore_inference` does, and on a
-    leaf of another shape."""
+    served swap).  A module a meshed trainer split takes this rank's
+    part of each whole leaf.  Raises as :func:`restore_inference` does,
+    and on a leaf of another shape."""
     from znicz_torch.nn_units import params_of
+    from znicz_torch.parallel.mesh import placement_of
 
     units = _covering_units(workflow, snap)
     tree = {}
     for f in workflow.forwards:
         leaves = {}
+        place = placement_of(f)
         for k, p in params_of(f).items():
             value = np.asarray(units[f.name][k], np.float32)
+            if place is not None:
+                value = place.local(k, value)
             if value.shape != tuple(p.shape):
                 raise ValueError(f"snapshot {f.name}.{k} is {value.shape}, "
                                  f"the model's {tuple(p.shape)}")
