@@ -316,7 +316,26 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      (rtol 2e-3, atol 2e-5) of one process's, a swap and a rollback that
      keep both ranks on one generation (rank 1's steps recorded), equal
      dispatch counts, K1/K2 2/3 launches a dispatch on each rank, the
-     service's images/s and a rank's beside one process's.
+     service's images/s and a rank's beside one process's;
+ 21. ``fleet``, the replica fleet: a ``ReplicaBalancer`` on
+     ``tcp://127.0.0.1:*`` in front of two full-width AlexNet replicas
+     (``fused``, captured rungs, ``announce``; ids ``r0``, ``r1``), each
+     under a ``ReplicaHarness``, sharing the card in this process: phase
+     3's 64 requests from 4 clients through the balancer (every reply
+     stamped ``lb``, ``r0`` or ``r1`` and generation 1, within
+     ``SERVE_TOL`` of the composed forward, both replicas serving, the
+     ledger balanced, K1/K2 2/3 launches a dispatch in total and in each
+     replica's 8 captured rungs) against one replica served directly over
+     ZMQ, in turns (images/s, the client's p50/p99, ``memory_allocated``
+     with both up); the pass again with ``r0`` killed at a third and restarted at
+     two thirds (each request answered once); whether one request's rows
+     are bit-equal at rungs 16 and 128; a ``swap`` wave to a second
+     snapshot of the same weights promoted (parity probed when they are,
+     else ``parity: false``; the canary's warm and the wave's time); a
+     wave to a third with the canary's every dispatch stalled
+     (``runner.inject_compute_faults``) rolled back on its p99; ``r1``
+     restarted with its boot snapshot and healed onto the fleet path, its
+     replies then at generation 2 within ``SERVE_TOL``.
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
@@ -339,9 +358,9 @@ phases 7 and 8 for
 for ``mnist_ae`` and ``kohonen`` (each alone or both), phase 12 for
 ``kinds``, phase 13 for ``samples``, phase 14 for ``segments``,
 phase 15 for ``deep``, phase 16 for ``shard``, phase 17 for
-``snapshots``, phase 18 for ``zmq``, phase 19 for ``graphs`` and phase
-20 for ``serve_mesh``; it prints the ``kernels`` object and no ``ok``
-line.
+``snapshots``, phase 18 for ``zmq``, phase 19 for ``graphs``, phase
+20 for ``serve_mesh`` and phase 21 for ``fleet``; it prints the
+``kernels`` object and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -6080,6 +6099,441 @@ def serve_mesh_phase(torch, card, rows):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 21: the replica fleet ----------------------------------------------
+
+#: phase 21: the balancer's knobs: the TTL, failover and hedge clocks
+#: above a loaded host's heartbeat jitter and a full pass's queueing (32
+#: requests in flight wait 0.2-0.5 s), the canary judged on 8 replies
+#: with a parity probe every 2nd old dispatch
+FLEET_BALANCE = {"replica_ttl_s": 5.0, "failover_timeout_s": 5.0,
+                 "hedge_floor_s": 1.0, "canary_requests": 8,
+                 "canary_timeout_s": 120.0, "parity_every": 2}
+#: phase 21: the stall the rolled-back wave's canary takes on every
+#: dispatch (seed, probability, seconds): far above 3x the old
+#: generation's p99 of one request at a time
+FLEET_STALL = (21, 1.0, (0.5, 0.5))
+#: phase 21: the rungs one request's rows are compared at
+FLEET_PARITY_RUNGS = (16, BATCH)
+#: phase 21: requests in flight while the promoted wave is judged.  Its
+#: verdict compares the p99 of 8 canary replies (their max) with the old
+#: replica's at 3x: one request at a time (~25 ms) a single host hiccup
+#: on the canary's side trips it (one run: a 114-ms reply among 8); with
+#: 8 in flight both sides queue (~100-300 ms)
+FLEET_PROMOTE_IN_FLIGHT = 8
+#: phase 21: the most any state the phase waits for may take (s)
+FLEET_WAIT_S = 300.0
+
+
+def fleet_wait(pred, what, budget=FLEET_WAIT_S) -> float:
+    """Poll ``pred()`` until true; the seconds it took.  Raises past
+    ``budget``."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > budget:
+            raise AssertionError(f"[fleet] never {what} within {budget}s")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def fleet_member(bal, rid):
+    """``rid``'s row of the balancer's stats (None: not a member)."""
+    rows = [m for m in bal.stats()["replicas"] if m["replica_id"] == rid]
+    return rows[0] if rows else None
+
+
+def fleet_drive(cli, requests, refs, pred, what, label, in_flight=1,
+                on_reply=None):
+    """Requests of ``requests`` (in turn) through ``cli``, ``in_flight``
+    at a time, until ``pred()``: each reply ok, stamped ``lb``, within
+    ``SERVE_TOL`` of its composed forward.  Returns [(request index,
+    reply, submit-to-reply s)] in reply order."""
+    out, sent = [], {}
+    n = 0
+    t0 = time.perf_counter()
+    while sent or not pred():
+        if time.perf_counter() - t0 > FLEET_WAIT_S:
+            raise AssertionError(f"[{label}] never {what}")
+        while len(sent) < in_flight and not pred():
+            i = n % len(requests)
+            n += 1
+            sent[cli.submit(requests[i])] = (i, time.perf_counter())
+        for rep in cli.collect(0.05):
+            i, t_sent = sent.pop(rep["req_id"])
+            if not rep.get("ok") or rep.get("lb") is not True:
+                raise AssertionError(f"[{label}] reply {rep}")
+            out.append((i, rep, time.perf_counter() - t_sent))
+            if on_reply is not None:
+                on_reply(rep)
+    check_replies(label, [r for _, r, _ in out], [refs[i] for i, _, _ in out])
+    return out
+
+
+def slowest(served, k=3) -> str:
+    """The ``k`` slowest replies of a :func:`fleet_drive`: replica,
+    generation and ms on the client's clock."""
+    rows = sorted(served, key=lambda t: -t[2])[:k]
+    return ", ".join(f"{r['replica_id']}@{r['gen']} {s * 1e3:.1f}"
+                     for _, r, s in rows)
+
+
+def family_launches(runner):
+    """{kernel: launches} of one replay of each rung of ``runner``'s live
+    family (a capture records its launches)."""
+    from znicz_torch.parallel.graphs import counted
+
+    names = [fn.__name__ for fn in counted()]
+    return [{n: k for n, (k, _) in zip(names, g.launches)}
+            for g in runner._active.family.graphs.values()]
+
+
+def fleet_phase(torch, card):
+    """Phase 21: a ``ReplicaBalancer`` in front of two full-width AlexNet
+    replicas (``fused``, captured rungs, ``announce``), each under a
+    ``ReplicaHarness``, sharing the card in this process.  Serve phase
+    3's 64 requests from ``ZMQ_CLIENTS`` clients through the balancer (the
+    main path) and directly to one replica; a kill and restart of ``r0``
+    mid-pass; a canary wave promoted (parity probed when one request's
+    rows are bit-equal at rungs 16 and 128, else ``parity: false``); a
+    stalled canary rolled back; ``r1`` restarted and healed onto the
+    fleet path.  Returns {path: {kernel: launches}}."""
+    from znicz_torch.parallel.chaos import ReplicaHarness
+    from znicz_torch.serving import (InferenceClient, InferenceServer,
+                                     ReplicaBalancer)
+    from znicz_torch.serving.model import ModelRunner
+    from znicz_torch.snapshotter import write_host_pickle
+
+    expect = ZMQ_ROUTINGS["fused"][1]
+    ctrs = {name: fn for name, fn in counters().items() if name in expect}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    bal, harnesses, cli = None, [], None
+    # the waves' verdicts compare two replicas' latencies inside this
+    # interpreter: the earlier phases' objects are frozen out of the
+    # collector, so a full collection does not rescan them mid-wave
+    gc.collect()
+    gc.freeze()
+    try:
+        t_phase = time.perf_counter()
+        requests = make_requests()
+        n_images = sum(x.shape[0] for x in requests)
+        wfs = [alexnet_served(torch) for _ in range(2)]
+        eager_ref = ModelRunner(wfs[0], capture=False)
+        refs = [eager_ref.infer(x) for x in requests]     # composed
+        # the waves' snapshots: generation 1's weights at new paths
+        tree = {name: {k: t.cpu().numpy() for k, t in leaves.items()}
+                for name, leaves in eager_ref._active.tree.items()}
+        paths = [os.path.join(tmp, f"fleet_{tag}.pickle")
+                 for tag in ("promote", "rollback")]
+        write_host_pickle(paths[0], {"units": tree, "velocities": {},
+                                     "epoch": 1}, compression="none")
+        shutil.copyfile(paths[0], paths[1])
+        del tree, eager_ref
+        with engine_knobs(**FUSED_KNOBS):
+            bal = ReplicaBalancer("tcp://127.0.0.1:*",
+                                  **FLEET_BALANCE).start()
+
+            def harness(rid, wf):
+                return ReplicaHarness(lambda: InferenceServer(
+                    wf, bind="tcp://127.0.0.1:*", max_batch=BATCH,
+                    max_delay_ms=5.0, queue_bound=4096,
+                    request_ttl_s=600.0, announce=bal.endpoint,
+                    replica_id=rid))
+
+            harnesses = [harness(f"r{i}", wf) for i, wf in enumerate(wfs)]
+            t0 = time.perf_counter()
+            for h in harnesses:
+                h.start()
+            fleet_wait(lambda: bal.ready_count() == 2, "two ready")
+            log(f"[fleet] balancer at {bal.endpoint}; replicas "
+                f"{[h.server.endpoint for h in harnesses]} up in "
+                f"{time.perf_counter() - t0:.2f}s (8 captures each)")
+            launches = fleet_serve(torch, card, bal, harnesses, requests,
+                                   refs, ctrs, expect, n_images)
+            fleet_failover(card, bal, harnesses, requests, refs, n_images)
+            cli = InferenceClient(bal.endpoint, timeout=600,
+                                  resend_after_s=600, breaker_failures=0)
+            fleet_waves(torch, card, bal, harnesses, cli, requests, refs,
+                        paths)
+            fleet_heal(card, bal, harnesses, cli, requests, refs, paths[0])
+        if not bal.ledger()["balanced"]:
+            raise AssertionError(f"[fleet] ledger {bal.ledger()}")
+        log(f"[fleet] {card}: ledger {bal.ledger()}; counters "
+            + json.dumps({k: getattr(bal, k) for k in bal.COUNTERS})
+            + f"; phase {time.perf_counter() - t_phase:.1f}s")
+        return {"fleet:fused": launches}
+    finally:
+        if cli is not None:
+            cli.close()
+        if bal is not None:
+            bal.stop()
+        for h in harnesses:
+            if h.server is not None:
+                h.server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.unfreeze()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+#: phase 21: the order of the timed passes to one replica directly (D)
+#: and through the balancer (F); the first F is the main path
+FLEET_TURNS = "DFFD"
+
+
+def fleet_serve(torch, card, bal, harnesses, requests, refs, ctrs, expect,
+                n_images):
+    """Phase 21's serve, in ``FLEET_TURNS``: one replica directly over ZMQ
+    and the fleet through the balancer.  The first pass through the
+    balancer is the main path (its launches counted): every reply within
+    ``SERVE_TOL`` of the composed forward, stamped ``lb``, ``r0`` or
+    ``r1`` and generation 1, both replicas serving, K1/K2 2/3 a dispatch
+    in total and in each replica's captured family.  Returns {kernel:
+    launches}."""
+    runners = [h.server.runner for h in harnesses]
+    rates = {"D": [], "F": []}
+    launches = None
+    for turn in FLEET_TURNS:
+        main = turn == "F" and launches is None
+        if main:
+            for fn in ctrs.values():            # the main path starts here
+                fn.launches = 0
+        d0 = [r.dispatches for r in runners]
+        led0 = bal.ledger()
+        endpoint = bal.endpoint if turn == "F" \
+            else harnesses[0].server.endpoint
+        replies, lat, wall = zmq_clients(endpoint, requests)
+        made = [r.dispatches - d for r, d in zip(runners, d0)]
+        rates[turn].append(n_images / wall)
+        check_replies("fleet:serve" if turn == "F" else "fleet:direct",
+                      replies, refs)
+        if turn == "D":
+            log(f"[fleet:direct] {card}: one replica over ZMQ, "
+                f"{len(requests)} requests, {n_images} images in "
+                f"{wall:.3f}s: images/s={rates['D'][-1]:.1f}; client clock "
+                f"{quantiles(lat)}")
+            continue
+        led = bal.ledger()
+        bad = [r for r in replies if r.get("lb") is not True
+               or r.get("replica_id") not in ("r0", "r1")
+               or r.get("gen") != 1]
+        by = {rid: sum(1 for r in replies if r["replica_id"] == rid)
+              for rid in ("r0", "r1")}
+        if bad or not all(by.values()) or not all(made) or \
+                not led["balanced"] or \
+                led["accepted"] - led0["accepted"] != len(requests):
+            raise AssertionError(f"[fleet:serve] replies by replica {by}, "
+                                 f"dispatches {made}, ledger {led}, "
+                                 f"{len(bad)} bad: {bad[:1]}")
+        if main:
+            launches = {name: fn.launches for name, fn in ctrs.items()}
+            alloc, reserved = memory(torch)
+            for name, per in expect.items():
+                if launches[name] != per * sum(made):
+                    raise AssertionError(
+                        f"[fleet:serve] {name}: {launches[name]} launches "
+                        f"for {made} dispatches, expected {per} each")
+            for rid, h in zip(("r0", "r1"), harnesses):
+                fam = family_launches(h.server.runner)
+                if len(fam) != len(h.server.batcher.ladder.rungs) or any(
+                        f[name] != per for f in fam
+                        for name, per in expect.items()):
+                    raise AssertionError(f"[fleet:serve] {rid}'s rungs "
+                                         f"launch {fam}")
+        log(f"[fleet:serve] {card}: {len(requests)} requests, {n_images} "
+            f"images through the balancer in {wall:.3f}s: "
+            f"images/s={rates['F'][-1]:.1f}; client clock "
+            f"{quantiles(lat)}; replies by replica {by}, dispatches "
+            f"{dict(zip(('r0', 'r1'), made))}"
+            + (f", launches={launches} (each replica's rungs {expect})"
+               if main else "")
+            + f"; hedges {bal.hedges} (won {bal.hedge_wins}), failovers "
+            f"{bal.failovers}; ledger {led}")
+    log(f"[fleet:serve] {card}: images/s through the balancer "
+        f"{[round(r, 1) for r in rates['F']]} against one replica direct "
+        f"{[round(r, 1) for r in rates['D']]} (turns {FLEET_TURNS}): "
+        f"median {np.median(rates['F']) / np.median(rates['D']):.1%}")
+    log(f"[fleet:memory] {card}: two replicas up: memory_allocated "
+        f"{_mib(alloc)}, memory_reserved {_mib(reserved)}")
+    return launches
+
+
+def fleet_failover(card, bal, harnesses, requests, refs, n_images):
+    """Phase 21's failover: the pass again, ``r0`` killed once a third of
+    it is answered and restarted (a wildcard bind: a new endpoint) once
+    two thirds are; every request answered exactly once, within
+    ``SERVE_TOL``, the ledger balanced."""
+    led0 = bal.ledger()
+    c0 = {k: getattr(bal, k) for k in ("failovers", "replicas_lost",
+                                       "hedges", "hedge_wins")}
+    events, errors = {}, []
+
+    def chaos():
+        try:
+            n = len(requests)
+            fleet_wait(lambda: bal.replied - led0["replied"] >= n // 3,
+                       "a third answered")
+            t0 = time.perf_counter()
+            harnesses[0].kill()
+            events["kill_s"] = time.perf_counter() - t0
+            fleet_wait(lambda: bal.replied - led0["replied"]
+                       >= 2 * n // 3, "two thirds answered")
+            t0 = time.perf_counter()
+            harnesses[0].restart()
+            events["restart_s"] = time.perf_counter() - t0
+        except Exception as exc:               # raised below
+            errors.append(exc)
+
+    monitor = threading.Thread(target=chaos)
+    monitor.start()
+    replies, lat, wall = zmq_clients(bal.endpoint, requests)
+    monitor.join(FLEET_WAIT_S)
+    if errors or monitor.is_alive():
+        raise AssertionError(f"[fleet:failover] {errors or 'hung'}")
+    endpoint = harnesses[0].server.endpoint
+    back = fleet_wait(lambda: (fleet_member(bal, "r0") or {}).get(
+        "endpoint") == endpoint and bal.ready_count() == 2,
+        "r0 back at its new endpoint")
+    check_replies("fleet:failover", replies, refs)
+    led = bal.ledger()
+    got = {k: led[k] - led0[k] for k in ("accepted", "replied", "refused")}
+    if got != {"accepted": len(requests), "replied": len(requests),
+               "refused": 0} or not led["balanced"] or led["in_flight"]:
+        raise AssertionError(f"[fleet:failover] not exactly once: {got}, "
+                             f"ledger {led}")
+    c = {k: getattr(bal, k) - v for k, v in c0.items()}
+    log(f"[fleet:failover] {card}: r0 killed at 1/3 ({events['kill_s']:.2f}s"
+        f" to stop) and restarted at 2/3 ({events['restart_s']:.2f}s, 8 "
+        f"captures; a member again {back:.2f}s later): {len(requests)} "
+        f"requests, {n_images} images in {wall:.3f}s, each answered once "
+        f"({got}); client clock {quantiles(lat)}; {c}; ledger {led}")
+
+
+def rung_parity(torch, runner, x):
+    """Whether ``x``'s rows come out bit-equal at each rung of
+    ``FLEET_PARITY_RUNGS`` (the served forward, replayed); (equal, max|d|
+    / max|y|)."""
+    n = x.shape[0]
+    ys = [runner.infer(runner.pad(x, r))[:n] for r in FLEET_PARITY_RUNGS]
+    equal = all(same_bits(torch, torch.from_numpy(ys[0]),
+                          torch.from_numpy(y)) for y in ys[1:])
+    worst = max(float(np.abs(y - ys[0]).max() / np.abs(ys[0]).max())
+                for y in ys[1:])
+    return equal, worst
+
+
+def fleet_waves(torch, card, bal, harnesses, cli, requests, refs, paths):
+    """Phase 21's canary waves: a swap to ``paths[0]`` (the same weights)
+    promoted, both heartbeats on it; then a swap to ``paths[1]`` with the
+    canary stalled on every dispatch (``FLEET_STALL``), rolled back on its
+    p99, the fleet left on ``paths[0]``."""
+    from znicz_torch.parallel.chaos import FaultSchedule
+
+    canary = harnesses[0].server.runner
+    x = next(r for r in requests if r.shape[0] <= FLEET_PARITY_RUNGS[0])
+    parity, worst = rung_parity(torch, canary, x)
+    log(f"[fleet:rung_parity] {card}: a {x.shape[0]}-row request at rungs "
+        f"{FLEET_PARITY_RUNGS}: "
+        + ("bit-equal" if parity else f"not bit-equal (max|d|/max|y| "
+           f"{worst:.3e}): the promote wave runs with parity: false "
+           f"(ROADMAP C.9)"))
+    t0 = time.perf_counter()
+    rep = cli.result(cli._send({"cmd": "swap", "path": paths[0],
+                                "parity": parity}))
+    if not rep.get("ok") or rep.get("canary") != ["r0"]:
+        raise AssertionError(f"[fleet:promote] {rep}")
+    warm = []
+
+    def promoted():
+        roll = bal.stats()["rollover"]
+        if not warm and (roll is None or roll["phase"] != "warm_canary"):
+            warm.append(time.perf_counter() - t0)
+        return bal.rollovers == 1
+
+    served = fleet_drive(cli, requests, refs, promoted, "promoted",
+                         "fleet:promote", in_flight=FLEET_PROMOTE_IN_FLIGHT)
+    record = bal.rollover_history[-1]
+    on_path = fleet_wait(lambda: all(
+        m["snapshot_path"] == paths[0] and m["gen"] == 2
+        for m in bal.stats()["replicas"]) and bal.member_count() == 2,
+        "both heartbeats on the promoted path")
+    if record["result"] != "promoted":
+        raise AssertionError(f"[fleet:promote] {record}")
+    log(f"[fleet:promote] {card}: parity {parity} "
+        f"({bal.parity_checks} probes compared, {bal.parity_mismatches} "
+        f"mismatched); canary warm {warm[0]:.3f}s (the load and 8 "
+        f"captures, confirmed by heartbeat); wave {record['elapsed_s']}s; "
+        f"both heartbeats on the path {on_path:.2f}s later; "
+        f"{len(served)} requests served during it, "
+        f"{FLEET_PROMOTE_IN_FLIGHT} in flight (slowest, ms on the client's "
+        f"clock: {slowest(served)}); record {record}")
+
+    with bal._lock:                 # the stalled canary must not be raced
+        hedge = bal.knobs["hedge"]
+        bal.knobs["hedge"] = False
+    seed, p, span = FLEET_STALL
+    canary.inject_compute_faults(FaultSchedule(seed, stall=p, stall_s=span))
+    try:
+        rep = cli.result(cli._send({"cmd": "swap", "path": paths[1],
+                                    "parity": False}))
+        if not rep.get("ok") or rep.get("canary") != ["r0"]:
+            raise AssertionError(f"[fleet:rollback] {rep}")
+        served = fleet_drive(cli, requests, refs, lambda: bal.rollbacks == 1,
+                             "rolled back", "fleet:rollback")
+    finally:
+        canary.inject_compute_faults(None)
+        with bal._lock:
+            bal.knobs["hedge"] = hedge
+    record = bal.rollover_history[-1]
+    if record["result"] != "rolled_back" or "p99" not in record["reason"] \
+            or record["canary_p99_ms"] is None:
+        raise AssertionError(f"[fleet:rollback] {record}")
+    fleet_wait(lambda: all(m["snapshot_path"] == paths[0] and m["gen"] == 2
+                           for m in bal.stats()["replicas"])
+               and bal.stats()["fleet_path"] == paths[0],
+               "the fleet back on the promoted path")
+    log(f"[fleet:rollback] {card}: canary stalled {span[0]:g}s a dispatch "
+        f"({canary.stalls} stalls): {record['result']} after "
+        f"{record['elapsed_s']}s: {record['reason']}; canary p99 "
+        f"{record['canary_p99_ms']} ms over {record['canary_samples']} "
+        f"replies against {record['old_p99_ms']} ms over "
+        f"{record['old_samples']}; {len(served)} requests served during it, "
+        f"one at a time (slowest {slowest(served)}); the fleet on "
+        f"{os.path.basename(paths[0])}, generation 2")
+
+
+def fleet_heal(card, bal, harnesses, cli, requests, refs, path):
+    """Phase 21's heal: ``r1`` killed and restarted with its boot snapshot
+    (a fresh init: generation 1's weights, path ""); the balancer swaps it
+    onto the fleet path (``heals`` >= 1), and its replies then match the
+    promoted generation's forward."""
+    heals = bal.heals
+    t0 = time.perf_counter()
+    harnesses[1].kill()
+    harnesses[1].restart()
+    boot = time.perf_counter() - t0
+    endpoint = harnesses[1].server.endpoint
+
+    def healed():
+        m = fleet_member(bal, "r1")
+        return m is not None and m["endpoint"] == endpoint and \
+            m["snapshot_path"] == path and m["ready"] and \
+            not m["swapping"] and bal.heals > heals
+
+    took = fleet_wait(healed, "r1 healed")
+    from_r1 = []
+    fleet_drive(cli, requests, refs, lambda: len(from_r1) >= 4,
+                "4 replies from r1", "fleet:heal",
+                on_reply=lambda rep: from_r1.append(rep)
+                if rep["replica_id"] == "r1" else None)
+    gens = {rep["gen"] for rep in from_r1}
+    if gens != {2}:
+        raise AssertionError(f"[fleet:heal] r1 replied at generations "
+                             f"{gens}")
+    log(f"[fleet:heal] {card}: r1 restarted with its boot snapshot in "
+        f"{boot:.2f}s (8 captures), healed onto "
+        f"{os.path.basename(path)} {took:.2f}s later (heals "
+        f"{bal.heals}); its replies at generation 2 within SERVE_TOL")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -6090,7 +6544,8 @@ def main(argv=None) -> int:
                          "'samples': phase 13; 'segments': phase 14; "
                          "'deep': phase 15; 'shard': phase 16; "
                          "'snapshots': phase 17; 'zmq': phase 18; "
-                         "'graphs': phase 19; 'serve_mesh': phase 20")
+                         "'graphs': phase 19; 'serve_mesh': phase 20; "
+                         "'fleet': phase 21")
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -6157,11 +6612,12 @@ def run_phases(torch, args) -> int:
         deep, shard = "deep" in names, "shard" in names
         snapshots, zmq = "snapshots" in names, "zmq" in names
         graphs, serve_mesh = "graphs" in names, "serve_mesh" in names
+        fleet = "fleet" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
                   "segments", "deep", "shard", "snapshots", "zmq",
-                  "graphs", "serve_mesh", *AE_SOM_RUNS)]
+                  "graphs", "serve_mesh", "fleet", *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -6267,6 +6723,13 @@ def run_phases(torch, args) -> int:
                         rows.setdefault(name, {"name": name}).setdefault(
                             "launches_by_path", {})[label] = count
             lap("phase 20")
+        if fleet:
+            for label, launches in fleet_phase(torch, card).items():
+                for name, count in launches.items():
+                    if count:
+                        rows.setdefault(name, {"name": name}).setdefault(
+                            "launches_by_path", {})[label] = count
+            lap("phase 21")
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -6485,6 +6948,16 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 20")
+
+    # -- phase 21: the replica fleet: a balancer in front of two replicas;
+    # -- failover, canary waves, healing ------------------------------
+    for label, launches in fleet_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][label] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 21")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

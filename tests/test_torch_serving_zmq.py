@@ -615,20 +615,21 @@ def test_every_reference_serving_key_is_read_or_refused():
     ref, read = _flat(JDEFAULTS), _flat(DEFAULTS)
     assert set(read) | set(UNPORTED_SERVING_KEYS) == set(ref)
     assert not set(read) & set(UNPORTED_SERVING_KEYS)
+    balance = {key for key in ref if key.startswith("balance.")}
+    assert len(balance) == 26
     assert set(read) == {"max_batch", "max_delay_ms", "queue_bound",
                          "request_ttl_s", "max_requests",
                          "admission.enabled", "admission.rate_limit",
                          "admission.rate_burst", "admission.fair",
                          "admission.quantum",
                          "admission.client_queue_bound", "mesh.data",
-                         "mesh.model"}
+                         "mesh.model"} | balance
     for key, val in read.items():
         assert val == ref[key], key
     for key, (default, item) in UNPORTED_SERVING_KEYS.items():
         assert default == ref[key], key
         want = {"seq": "A.8", "generate": "A.8", "aot_cache": "A.6",
-                "balance": "A.6", "obs": "A.9",
-                "web_port": "A.9"}[key.split(".")[0]]
+                "obs": "A.9", "web_port": "A.9"}[key.split(".")[0]]
         assert item == want, key
 
 
@@ -639,10 +640,15 @@ def test_every_reference_serving_key_is_read_or_refused():
     pytest.param("mesh.data", 2, None, id="mesh.data-2-A.6"),
     ("generate.enabled", True, "A.8"),
     ("obs.exemplars", 4, "A.9"), ("web_port", 8080, "A.9"),
-    ("seq.max_len", 16, "A.8"), ("balance.hedge", False, "A.6")])
+    ("seq.max_len", 16, "A.8"),
+    # the replica fleet's keys are read since the balancer was ported
+    # (the first under its old id)
+    pytest.param("balance.hedge", False, None, id="balance.hedge-False-A.6"),
+    ("balance.hedge_floor_s", 0.2, None),
+    ("balance.heartbeat_s", 0.1, None)])
 def test_a_refused_serving_key_raises_by_name(mnist_pair, key, value, item):
     from znicz_torch.core.config import root
-    from znicz_torch.serving import InferenceServer
+    from znicz_torch.serving import InferenceServer, ReplicaBalancer
 
     from znicz_torch.core.config import UNPORTED_SERVING_KEYS
     from znicz_torch.serving.frontend import DEFAULTS
@@ -655,6 +661,14 @@ def test_a_refused_serving_key_raises_by_name(mnist_pair, key, value, item):
         if item is None and key.startswith("mesh."):
             with pytest.raises(ValueError, match="distributed_init"):
                 InferenceServer(twf, warmup=False)
+            return
+        if item is None and key.startswith("balance."):
+            # read: the server starts, the balancer takes the value
+            srv = InferenceServer(twf, warmup=False)
+            assert ReplicaBalancer().knobs[key[len("balance."):]] == value
+            assert srv.heartbeat_s == (value if key.endswith("heartbeat_s")
+                                       else DEFAULTS["balance"]
+                                       ["heartbeat_s"])
             return
         if item is None:                      # read: the server takes it
             srv = InferenceServer(twf, warmup=False)

@@ -7,6 +7,10 @@ paths of ``znicz_tpu/launcher.py``):
                           [--device cpu] [--seed N] [--fused]
                           [--snapshot PATH]
                           [--serve [BIND]] [--replica-id ID]
+                          [--announce EP]
+    python -m znicz_torch --balance [BIND] [--replicas EP[,EP]]
+                          [--min-replicas N] [--autoscale-max N
+                          --spawn-cmd CMD] [root.x.y=value ...]
 
 Dotted overrides are applied to the port's config tree before the sample
 module is imported, so its defaults do not clobber them.  The sample's
@@ -37,8 +41,22 @@ reply is stamped with, ``root.common.serving.*`` the service's knobs, and
 ``root.common.serving.max_requests`` ends the run (exit 0) once that many
 requests were answered.  It prints ``serving <workflow> at <endpoint>``
 with the resolved endpoint (so a wildcard port can be found); SIGHUP
-starts a rollover to the ``--snapshot`` file.  ``--fused`` is a training
-flag: with ``--serve`` the run exits 2.
+starts a rollover to the ``--snapshot`` file.  ``--announce EP``
+heartbeats the replica into the balancer at ``EP``.  ``--fused`` is a
+training flag: with ``--serve`` the run exits 2.
+
+``--balance [BIND]`` (default ``tcp://*:5590``) runs the replica balancer
+(``serving.ReplicaBalancer``) and builds no workflow: a workflow argument
+exits 2, as ``--serve`` or ``--fused`` beside it does.  ``--replicas``
+lists static replica endpoints to pre-connect (membership still comes
+from heartbeats), ``--min-replicas`` is the readiness quorum
+(``root.common.serving.balance.min_replicas``), and ``--autoscale-max N``
+with ``--spawn-cmd CMD`` arms the autoscaler, which starts replica
+processes with ``CMD`` (``{announce}`` and ``{replica_id}`` substituted)
+and ends the ones it started.  It prints ``balancing at <endpoint> ...``
+with the resolved endpoint, and ends (exit 0) once
+``root.common.serving.max_requests`` requests were answered, with one
+JSON line of the balancer's ledger and counters.
 """
 
 from __future__ import annotations
@@ -82,7 +100,9 @@ def finals(sample: str, wf) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m znicz_torch",
                                  description=__doc__.split("\n\n")[0])
-    ap.add_argument("workflow", choices=SAMPLES)
+    ap.add_argument("workflow", nargs="?",
+                    help=f"the sample: one of {', '.join(SAMPLES)} (none "
+                         f"with --balance)")
     ap.add_argument("overrides", nargs="*",
                     help="config overrides, root.a.b=value")
     ap.add_argument("--device", default=None,
@@ -102,15 +122,48 @@ def main(argv=None) -> int:
                          "of training (default bind tcp://*:5580)")
     ap.add_argument("--replica-id", default=None,
                     help="with --serve: the id stamped on every reply")
+    ap.add_argument("--announce", default=None, metavar="EP",
+                    help="with --serve: heartbeat this replica into the "
+                         "balancer at EP")
+    ap.add_argument("--balance", nargs="?", const="tcp://*:5590",
+                    default=None, metavar="BIND",
+                    help="run the replica balancer at BIND (default "
+                         "tcp://*:5590) over the replicas that --announce "
+                         "into it; takes no workflow argument")
+    ap.add_argument("--replicas", default="", metavar="EP[,EP]",
+                    help="with --balance: static replica endpoints to "
+                         "pre-connect")
+    ap.add_argument("--min-replicas", type=int, default=None, metavar="N",
+                    help="with --balance: the readiness quorum "
+                         "(root.common.serving.balance.min_replicas)")
+    ap.add_argument("--autoscale-max", type=int, default=None, metavar="N",
+                    help="with --balance and --spawn-cmd: arm the "
+                         "autoscaler, never past N replicas")
+    ap.add_argument("--spawn-cmd", default="", metavar="CMD",
+                    help="with --autoscale-max: a command that starts one "
+                         "replica announcing to this balancer; {announce} "
+                         "and {replica_id} are substituted")
     # intermixed: overrides may follow the options on every Python 3.12
     # (older argparse leaves a "*" positional empty once an option has
     # come between it and the sample's name)
     args = ap.parse_intermixed_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
+    if args.balance is not None:
+        if args.serve is not None or args.fused:
+            print("error: --balance is exclusive of --serve and of the "
+                  "training flag --fused", file=sys.stderr)
+            return 2
+        return balance(args)
+    if args.workflow not in SAMPLES:
+        ap.error(f"the sample must be one of {', '.join(SAMPLES)}; got "
+                 f"{args.workflow!r}")
     if args.serve is not None and args.fused:
         print("error: --serve is exclusive of the training flag --fused",
               file=sys.stderr)
+        return 2
+    if args.announce and args.serve is None:
+        print("error: --announce needs --serve", file=sys.stderr)
         return 2
     if args.overrides:
         apply_overrides(root, args.overrides)
@@ -176,7 +229,7 @@ def serve(mod, args) -> int:
     server = InferenceServer(
         wf, bind=args.serve, snapshot=args.snapshot,
         max_requests=None if max_requests is None else int(max_requests),
-        replica_id=args.replica_id)
+        replica_id=args.replica_id, announce=args.announce)
     server.start()
     print(f"serving {args.workflow} at {server.endpoint} (snapshot: "
           f"{args.snapshot or 'fresh init'}, device {wf.device})",
@@ -210,6 +263,97 @@ def serve(mod, args) -> int:
                       **{k: stats[k] for k in (
                           "requests_in", "served", "rejected", "timed_out",
                           "bad_frames", "generation")}}), flush=True)
+    return 0
+
+
+def balance(args) -> int:
+    """``--balance``: run the replica balancer until interrupted or until
+    ``root.common.serving.max_requests`` requests were answered.  No
+    workflow is built: the balancer moves frames, never arrays."""
+    import shlex
+    import subprocess
+    import time
+
+    from znicz_torch.serving import ReplicaBalancer
+
+    # with no workflow, dotted overrides land in the workflow's slot too
+    args_in = ([args.workflow] if args.workflow else []) \
+        + list(args.overrides)
+    stray = [a for a in args_in if "=" not in a]
+    if stray:
+        print(f"error: --balance takes no workflow argument (got "
+              f"{stray})", file=sys.stderr)
+        return 2
+    if args_in:
+        apply_overrides(root, args_in)
+    if args.min_replicas is not None:
+        root.common.serving.balance.min_replicas = int(args.min_replicas)
+    replicas = tuple(ep.strip() for ep in args.replicas.split(",")
+                     if ep.strip())
+    max_requests = root.common.serving.get("max_requests", None)
+    balancer = ReplicaBalancer(
+        bind=args.balance, replicas=replicas,
+        max_requests=None if max_requests is None else int(max_requests))
+    balancer.start()
+    static = ", ".join(replicas) if replicas \
+        else "none — awaiting --announce heartbeats"
+    print(f"balancing at {balancer.endpoint} (static replicas: {static}; "
+          f"quorum {balancer.min_replicas})", flush=True)
+    # the autoscaler starts and ends replica processes with --spawn-cmd;
+    # it ends only the processes it started (the initial fleet is the
+    # operator's)
+    procs = {}
+    plock = threading.Lock()
+    if args.autoscale_max is not None and args.spawn_cmd:
+        seq = [0]
+
+        def spawn() -> None:
+            with plock:
+                seq[0] += 1
+                rid = f"scale-{seq[0]}"
+            cmd = args.spawn_cmd.format(announce=balancer.endpoint,
+                                        replica_id=rid)
+            proc = subprocess.Popen(shlex.split(cmd))
+            with plock:
+                procs[rid] = proc
+            print(f"autoscale: spawned {rid} (pid {proc.pid})", flush=True)
+
+        def retire(replica_id: str) -> None:
+            with plock:
+                proc = procs.pop(replica_id, None)
+            if proc is None:
+                print(f"autoscale: {replica_id} was not spawned here — "
+                      f"drained only, not ended", flush=True)
+                return
+            proc.terminate()
+            proc.wait(60)
+            print(f"autoscale: retired {replica_id}", flush=True)
+
+        balancer.enable_autoscale(spawn, retire,
+                                  autoscale_max=int(args.autoscale_max))
+        print(f"autoscaling up to {int(args.autoscale_max)} replicas via: "
+              f"{args.spawn_cmd}", flush=True)
+    try:
+        while balancer.alive():
+            if balancer.max_requests is not None and \
+                    balancer.replied + balancer.refused \
+                    >= balancer.max_requests:
+                break
+            time.sleep(0.05)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        balancer.stop()
+        with plock:
+            spawned = list(procs.values())
+        for proc in spawned:            # spawned replicas end with us
+            proc.terminate()
+            proc.wait(60)
+    stats = balancer.stats()
+    print(json.dumps({"endpoint": balancer.endpoint,
+                      "ledger": stats["ledger"],
+                      **{k: stats[k] for k in ReplicaBalancer.COUNTERS}}),
+          flush=True)
     return 0
 
 

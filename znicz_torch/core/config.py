@@ -274,22 +274,8 @@ UNPORTED_SERVING_KEYS = {
         ("num_pages", 0), ("prefill_chunk", 0), ("prefix_cache", True),
         ("on_device_sampling", True), ("slots", 8),
         ("decode_tick_ms", 0.0), ("pending_bound", 64))},
-    # A.6, the replica balancer and the AOT cache
+    # A.6, the AOT executable cache
     "aot_cache.enabled": (False, "A.6"), "aot_cache.dir": ("", "A.6"),
-    **{f"balance.{key}": (default, "A.6") for key, default in (
-        ("heartbeat_s", 0.25), ("replica_ttl_s", 1.5), ("min_replicas", 1),
-        ("hedge", True), ("hedge_floor_s", 0.05), ("hedge_cap_s", 2.0),
-        ("hedge_p99_mult", 1.5), ("failover_timeout_s", 1.0),
-        ("failover_tries", 3), ("park_bound", 256),
-        ("canary_fraction", 0.34), ("canary_requests", 30),
-        ("canary_p99_mult", 3.0), ("canary_timeout_s", 30.0),
-        ("parity_every", 4), ("heal_backoff_s", 30.0),
-        ("autoscale", False), ("autoscale_max", 8),
-        ("autoscale_high_load", 4.0), ("autoscale_low_load", 0.5),
-        ("autoscale_up_after", 2), ("autoscale_down_after", 8),
-        ("autoscale_eval_s", 0.5), ("autoscale_cooldown_s", 5.0),
-        ("autoscale_drain_timeout_s", 10.0),
-        ("autoscale_boot_deadline_s", 60.0))},
     # A.9, telemetry: exemplars, heartbeat metrics, SLOs
     **{f"obs.{key}": (default, "A.9") for key, default in (
         ("exemplars", 8), ("exemplar_window_s", 60.0),

@@ -21,11 +21,16 @@ of ``znicz_tpu/parallel/chaos.py``).
     per-client rate limit, counting every accepted reply and every
     refusal by the ``policy`` that refused it; :class:`FloodProcess`
     runs it in a separate interpreter (``python -m
-    znicz_torch.parallel.chaos --flood ...``).
+    znicz_torch.parallel.chaos --flood ...``);
+  - the replica-fleet harnesses: :class:`ReplicaHarness` (kill and restart
+    an ``InferenceServer`` behind the balancer), :class:`ScriptedReplica`
+    (a model-free replica that speaks the balancer's protocol, with
+    scripted stalls, blackholes and refusals) and :class:`FleetScaler`
+    (the autoscaler's in-process spawn and retire).
 
-The fleet and training-plane harnesses of the reference's module
-(replica, scaler, relay, master and preemption drivers) are not here.
-Everything is CPU-only, in process and seeded.
+The training-plane harnesses of the reference's module (relay, master
+and preemption harnesses) come with ROADMAP A.7.  Everything is CPU-only,
+in process and seeded.
 """
 
 from __future__ import annotations
@@ -481,6 +486,319 @@ class FloodProcess:
             self._proc.kill()
             self._proc.wait()
             raise
+
+
+# -- replica-fleet harnesses --------------------------------------------------
+
+
+class ReplicaHarness:
+    """Kill/restart harness for a serving replica behind the balancer:
+    ``make_server`` builds a fresh ``InferenceServer`` each (re)start.  At
+    the same bind, the balancer's data DEALER reconnects into the
+    restarted replica; at a wildcard bind the restarted replica announces
+    a new endpoint and the balancer follows it.  ``kill()`` is a replica
+    crash as the balancer sees it: its heartbeats stop, and the retained
+    previous generation dies with it; the restarted replica announces its
+    boot snapshot and the balancer heals it back onto the fleet path."""
+
+    def __init__(self, make_server):
+        self.make_server = make_server
+        self.server = None
+        self.kills = 0
+
+    def start(self):
+        self.server = self.make_server()
+        return self.server.start()
+
+    def kill(self) -> None:
+        self.server.stop()
+        self.kills += 1
+
+    def restart(self):
+        """A fresh replica at the bind ``make_server`` gives."""
+        return self.start()
+
+
+class ScriptedReplica:
+    """Model-free fake replica: speaks the replica side of the balancer
+    protocol (a ROUTER bind for data traffic, DEALER heartbeats with
+    readiness, queue depth and p99) with a scripted forward ``y = x *
+    scale`` instead of a model, so fleet failover, hedging and rollback
+    tests pay no warmup.  numpy and zmq only.
+
+    ``snapshots`` maps swap paths to the scale each "generation" computes
+    with, or to a dict ``{"scale": s, "stall_s": t}`` for a generation
+    that is also slow (the scripted p99-regression canary); ``swap`` to an
+    unknown path is refused like a broken snapshot, and ``rollback``
+    restores the kept previous (scale, stall, generation, path) as
+    ``ModelRunner.rollback`` does.  Faults: ``stall_every``/``stall_s``
+    sleeps before every Nth reply (the tail the hedger races),
+    ``blackhole`` accepts requests and never answers (the failover path),
+    ``refuse`` answers every infer with that ``(policy, scope)`` refusal.
+    ``kill()`` stops the thread mid-everything; ``restart()`` comes back
+    at the same bind with boot state (generation 1, the boot scale and
+    path): a restarted process remembers nothing, which is what the
+    balancer's healing is for.  The scripted state is lock-guarded: tests
+    read counters while the serve thread mutates them."""
+
+    def __init__(self, announce: str, replica_id: str,
+                 bind: str = "tcp://127.0.0.1:*",
+                 snapshots: Optional[Dict[str, float]] = None,
+                 boot_path: str = "boot", boot_scale: float = 1.0,
+                 heartbeat_s: float = 0.05, stall_s: float = 0.0,
+                 stall_every: int = 0, blackhole: bool = False,
+                 refuse: Optional[Tuple[str, str]] = None):
+        self.announce = announce
+        self.replica_id = replica_id
+        self.bind = bind
+        self.endpoint: Optional[str] = None
+        self.snapshots = dict(snapshots or {})
+        self.boot_path = boot_path
+        self.boot_scale = float(boot_scale)
+        self.heartbeat_s = float(heartbeat_s)
+        self.stall_s = float(stall_s)
+        self.stall_every = int(stall_every)
+        self.blackhole = blackhole
+        self.refuse = refuse
+        self._lock = threading.Lock()
+        self._reset_state()
+        self.served = 0
+        self.swallowed = 0                  # blackholed requests
+        self.kills = 0
+        self._stop = threading.Event()
+        self._ready = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def _reset_state(self) -> None:
+        """Boot state: what a restarted process remembers (nothing)."""
+        self.gen = 1
+        self._hwm = 1
+        self.scale = self.boot_scale
+        self.gen_stall_s = 0.0
+        self.path = self.boot_path
+        self._previous: Optional[Tuple[float, float, int, str]] = None
+
+    def start(self) -> "ScriptedReplica":
+        self._stop = threading.Event()
+        self._ready.clear()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name=f"fake-{self.replica_id}")
+        self._thread.start()
+        if not self._ready.wait(timeout=10):
+            raise RuntimeError(f"scripted replica {self.replica_id} "
+                               f"failed to bind {self.bind}")
+        return self
+
+    def kill(self, timeout: float = 10.0) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout)
+            self._thread = None
+        with self._lock:
+            self.kills += 1
+
+    def restart(self) -> "ScriptedReplica":
+        """Back at the same bind with boot state (a fresh process)."""
+        if self._thread is not None:
+            self.kill()
+        with self._lock:
+            self._reset_state()
+        self.bind = self.endpoint or self.bind
+        return self.start()
+
+    def _heartbeat(self) -> Dict:
+        with self._lock:
+            return {"cmd": "heartbeat", "replica_id": self.replica_id,
+                    "endpoint": self.endpoint, "ready": True,
+                    "draining": False, "swapping": False,
+                    "gen": self.gen, "snapshot_path": self.path,
+                    "queue_depth": 0, "served": self.served,
+                    # a scripted replica has no executables: its boot is
+                    # instant, as the fleet autoscale tests want
+                    "warm_source": "scripted", "warm_hits": 0,
+                    "warm_misses": 0, "boot_s": 0.0,
+                    "p99_ms_by_bucket": {}}
+
+    def _answer(self, req: Dict) -> Optional[Dict]:
+        """One scripted reply (None: swallow it), state under the lock."""
+        cmd = req.get("cmd")
+        rid = req.get("req_id")
+        base = {"req_id": rid, "replica_id": self.replica_id}
+        if cmd == "ping":
+            return dict(base, ok=True, pong=True)
+        if cmd == "swap":
+            path = req.get("path")
+            with self._lock:
+                if path not in self.snapshots:
+                    return dict(base, ok=False,
+                                error=f"unknown snapshot {path!r}")
+                val = self.snapshots[path]
+                if not isinstance(val, dict):
+                    val = {"scale": float(val)}
+                self._previous = (self.scale, self.gen_stall_s,
+                                  self.gen, self.path)
+                self._hwm += 1
+                self.gen = self._hwm
+                self.scale = float(val.get("scale", 1.0))
+                self.gen_stall_s = float(val.get("stall_s", 0.0))
+                self.path = path
+                return dict(base, ok=True, swap_started=True,
+                            generation=self.gen)
+        if cmd == "rollback":
+            with self._lock:
+                if self._previous is None:
+                    return dict(base, ok=False,
+                                error="no previous generation retained")
+                (self.scale, self.gen_stall_s, self.gen,
+                 self.path) = self._previous
+                self._previous = None
+                return dict(base, ok=True, rolled_back=True,
+                            generation=self.gen)
+        if cmd != "infer":
+            return dict(base, ok=False, error=f"unknown cmd {cmd!r}")
+        with self._lock:
+            self.served += 1
+            n = self.served
+            scale, gen = self.scale, self.gen
+        if self.refuse is not None:
+            policy, scope = self.refuse
+            return dict(base, ok=False, rejected=True, policy=policy,
+                        scope=scope, error=f"scripted {policy} refusal")
+        if self.blackhole:
+            with self._lock:
+                self.swallowed += 1
+            return None
+        if self.stall_every and n % self.stall_every == 0:
+            time.sleep(self.stall_s)
+        if self.gen_stall_s:
+            time.sleep(self.gen_stall_s)    # a slow generation (the
+            # scripted p99-regression canary)
+        x = np.asarray(req.get("x"), np.float32)
+        return dict(base, ok=True, gen=gen,
+                    y=(x * np.float32(scale)).astype(np.float32))
+
+    def _loop(self) -> None:
+        from znicz_torch.parallel import wire
+        from znicz_torch.transport import TransportLoop, bad_frame_reply
+
+        loop = TransportLoop("scripted_replica", stop=self._stop,
+                             instance=self.replica_id)
+        next_hb = [0.0]
+        try:
+            sock = loop.bind_router(self.bind)
+            with self._lock:
+                self.endpoint = loop.resolved_endpoint(sock)
+            hb = loop.connect_dealer(self.announce)
+
+            def on_data(raw: List[bytes]) -> None:
+                envelope, payload = wire.split_envelope(raw)
+                try:
+                    req, _ = wire.decode_message(payload or raw)
+                except wire.WireError as exc:
+                    bad, _ = wire.encode_message(dict(
+                        bad_frame_reply(exc),
+                        replica_id=self.replica_id, error=str(exc)))
+                    sock.send_multipart(list(envelope) + bad)
+                    return
+                rep = self._answer(req)
+                if rep is None:
+                    return                  # blackholed
+                out, _ = wire.encode_message(rep)
+                sock.send_multipart(list(envelope) + out, copy=False)
+
+            def beat() -> None:
+                now = time.time()
+                if now >= next_hb[0]:
+                    next_hb[0] = now + self.heartbeat_s
+                    frames, _ = wire.encode_message(self._heartbeat())
+                    hb.send_multipart([b""] + frames)
+
+            loop.register(sock, on_data, drain=True)
+            loop.register(hb, lambda _frames: None,  # acks discarded
+                          drain=True)
+            loop.add_tick(beat)
+            beat()                          # the first heartbeat, pre-poll
+            self._ready.set()
+            loop.run(poll_ms=5)
+        finally:
+            loop.close()
+
+
+class FleetScaler:
+    """In-process spawn/retire harness for the balancer's autoscaler:
+    ``factory(i)`` builds a startable replica (a :class:`ScriptedReplica`,
+    or an ``InferenceServer`` harness) for fleet index ``i``.  ``spawn()``
+    boots the next index on a daemon thread (the balancer calls it outside
+    its lock, and a model replica's warmup must not stall the caller
+    either); ``retire(replica_id)`` kills the matching handle.  Replicas
+    started elsewhere join through :meth:`adopt`, so the autoscaler can
+    retire the initial fleet too."""
+
+    def __init__(self, factory):
+        import logging
+
+        self.factory = factory
+        self.log = logging.getLogger("znicz_torch.chaos")
+        self._lock = threading.Lock()
+        self._handles: Dict[str, object] = {}
+        self._next = 0
+        self._n = {"spawned": 0, "retired": 0, "spawn_failures": 0}
+
+    def adopt(self, replica) -> None:
+        """Track an already-running replica (the pre-autoscale fleet)."""
+        with self._lock:
+            self._handles[replica.replica_id] = replica
+
+    def spawn(self) -> None:
+        with self._lock:
+            i = self._next
+            self._next += 1
+
+        def boot() -> None:
+            try:
+                rep = self.factory(i)
+                rep.start()
+                with self._lock:
+                    self._handles[rep.replica_id] = rep
+                    self._n["spawned"] += 1
+            except Exception:
+                with self._lock:
+                    self._n["spawn_failures"] += 1
+                self.log.exception("fleet scaler: spawn %d failed", i)
+
+        threading.Thread(target=boot, daemon=True,
+                         name=f"fleet-spawn-{i}").start()
+
+    def retire(self, replica_id: str) -> None:
+        with self._lock:
+            rep = self._handles.pop(replica_id, None)
+        if rep is None:
+            self.log.warning("fleet scaler: retire(%s) — no handle "
+                             "(already gone?)", replica_id)
+            return
+        rep.kill()
+        with self._lock:
+            self._n["retired"] += 1
+
+    def replica_ids(self) -> List[str]:
+        with self._lock:
+            return sorted(self._handles)
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._n)
+
+    def stop_all(self) -> None:
+        """Teardown: kill every tracked replica."""
+        with self._lock:
+            handles = list(self._handles.values())
+            self._handles.clear()
+        for rep in handles:
+            try:
+                rep.kill()
+            except Exception:           # a teardown race: keep going
+                self.log.exception("fleet scaler: kill failed")
 
 
 def _flood_main(argv: List[str]) -> None:

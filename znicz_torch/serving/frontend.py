@@ -57,13 +57,22 @@ stopping the server stops the other ranks.  The seeded chaos harness
 (``parallel/chaos.py``: ``ChaosProxy``, ``FloodProcess``, compute stalls
 through ``runner.inject_compute_faults``) can be put in front of it.
 
-The fleet heartbeat (``announce``) and the replica balancer, then the AOT
-executable cache, come with the rest of ROADMAP A.6, sequence and
-generation serving with A.8, exemplars and SLOs with telemetry (A.9).
+Fleet membership: with ``announce`` (a ``ReplicaBalancer`` endpoint,
+``serving/balancer.py``) the ROUTER thread owns one DEALER onto the
+balancer and sends :meth:`InferenceServer.heartbeat_payload` on it every
+``root.common.serving.balance.heartbeat_s`` (the first beat before the
+first poll): readiness, queue depth, generation, snapshot path, capacity
+and the per-rung p99 the balancer's dispatch and hedging read.  On a
+serving mesh only rank 0 serves, so only rank 0 beats.
+
+The AOT executable cache comes with the rest of ROADMAP A.6, sequence and
+generation serving with A.8, exemplars, SLOs and the heartbeat's fleet
+trace, event and metric keys with telemetry (A.9).
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import math
 import queue
@@ -89,7 +98,30 @@ DEFAULTS = {"max_batch": 32, "max_delay_ms": 5.0, "queue_bound": 256,
             "admission": {"enabled": True, "rate_limit": 0.0,
                           "rate_burst": 0.0, "fair": True, "quantum": 0,
                           "client_queue_bound": 0},
-            "mesh": {"data": 1, "model": 1}}
+            "mesh": {"data": 1, "model": 1},
+            # the replica fleet (serving/balancer.py reads them through a
+            # local alias): heartbeat cadence and TTL'd membership,
+            # hedged-retry timing, exactly-once failover budgets, the
+            # canary rollover's verdict thresholds and the autoscaler's
+            # load band
+            "balance": {"heartbeat_s": 0.25, "replica_ttl_s": 1.5,
+                        "min_replicas": 1, "hedge": True,
+                        "hedge_floor_s": 0.05, "hedge_cap_s": 2.0,
+                        "hedge_p99_mult": 1.5,
+                        "failover_timeout_s": 1.0, "failover_tries": 3,
+                        "park_bound": 256, "canary_fraction": 0.34,
+                        "canary_requests": 30, "canary_p99_mult": 3.0,
+                        "canary_timeout_s": 30.0, "parity_every": 4,
+                        "heal_backoff_s": 30.0,
+                        "autoscale": False, "autoscale_max": 8,
+                        "autoscale_high_load": 4.0,
+                        "autoscale_low_load": 0.5,
+                        "autoscale_up_after": 2,
+                        "autoscale_down_after": 8,
+                        "autoscale_eval_s": 0.5,
+                        "autoscale_cooldown_s": 5.0,
+                        "autoscale_drain_timeout_s": 10.0,
+                        "autoscale_boot_deadline_s": 60.0}}
 
 
 def _cfg(name: str, override):
@@ -119,7 +151,9 @@ class InferenceServer:
     address is in ``endpoint`` once serving starts.  Drive it blocking
     (:meth:`serve`) or on a background thread (:meth:`start` /
     :meth:`stop`).  ``max_requests`` makes the serve loop return after
-    answering that many requests."""
+    answering that many requests.  ``announce`` (a balancer endpoint)
+    makes the ROUTER thread heartbeat this replica into that fleet;
+    ``replica_id`` is the id every reply and heartbeat carries."""
 
     #: serving counters: name -> meaning
     COUNTERS = {
@@ -130,10 +164,14 @@ class InferenceServer:
         "expired_results": "computed results dropped: deadline passed "
                            "post-compute",
         "serve_errors": "fatal serve-loop failures surfaced to start()",
+        "heartbeats_out": "fleet heartbeats sent to the balancer",
     }
 
     #: latency samples kept for the quantiles
     LATENCY_WINDOW = 8192
+
+    #: latency samples kept a ladder rung, for the heartbeat's p99s
+    BUCKET_WINDOW = 512
 
     #: how long the final replies may take to leave once serving ends
     CLOSE_LINGER_MS = 2000
@@ -147,7 +185,8 @@ class InferenceServer:
                  max_requests: Optional[int] = None,
                  admission: Optional[AdmissionPolicy] = None,
                  warmup: bool = True, replica_id: Optional[str] = None,
-                 capture: Optional[bool] = None):
+                 capture: Optional[bool] = None,
+                 announce: Optional[str] = None):
         import uuid
 
         from znicz_torch.parallel import wire
@@ -155,6 +194,8 @@ class InferenceServer:
         check_serving_keys()
         self.log = logging.getLogger("znicz_torch.serving")
         self.bind = bind
+        #: the balancer endpoint this replica heartbeats into (None: none)
+        self.announce = announce
         self.replica_id = replica_id or f"replica-{uuid.uuid4().hex[:6]}"
         self.endpoint: Optional[str] = None      # resolved at serve()
         self.runner = ModelRunner(workflow, snapshot=snapshot,
@@ -185,7 +226,16 @@ class InferenceServer:
         self._lock = threading.Lock()
         self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
         self._latencies: List[float] = []
+        #: per ladder rung, recent enqueue -> compute-done latencies (s)
+        self._lat_bucket = {r: collections.deque(maxlen=self.BUCKET_WINDOW)
+                            for r in self.batcher.ladder}
+        d_bal = DEFAULTS["balance"]
+        bal = root.common.serving.balance
+        self.heartbeat_s = float(bal.get("heartbeat_s",
+                                         d_bal["heartbeat_s"]))
         self.started_at: Optional[float] = None
+        #: serve() entry -> ready, warmup included (s)
+        self.boot_to_ready_s: Optional[float] = None
         #: an object with ``decide_transport(i)`` and ``seed``: the serve
         #: loop's ingress fault hook (TransportLoop.inject_faults)
         self.transport_chaos = None
@@ -340,17 +390,23 @@ class InferenceServer:
     def _serve(self) -> None:
         from znicz_torch.transport import TransportLoop
 
+        t_boot = time.perf_counter()
         loop = self._transport = TransportLoop(
             "serving", stop=self._stop, instance=self.replica_id)
         if self.transport_chaos is not None:
             loop.inject_faults(self.transport_chaos)
         sock = None
+        next_hb = [0.0]
         try:
             sock = loop.bind_router(self.bind)
             self.endpoint = loop.resolved_endpoint(sock)
             # the compute thread pokes this pair when it queues replies,
             # so they ship on the next wake, not after the poll timeout
             wake_r = loop.bind_pull(self._wake_addr)
+            # fleet membership: a DEALER onto the balancer, owned by this
+            # thread like the codec; its acks are drained and discarded
+            hb = loop.connect_dealer(self.announce) if self.announce \
+                else None
             if self.warmup:
                 # every rung before the first request: cuDNN's choices,
                 # kernel builds and allocator growth happen here
@@ -363,15 +419,26 @@ class InferenceServer:
                           lambda frames: self._handle(sock, frames),
                           drain=True)
             loop.register(wake_r, lambda _token: None, drain=True)
+            if hb is not None:
+                loop.register(hb, lambda _ack: None, drain=True)
 
             def tick() -> None:
                 self._drain_outbound(sock)
                 if self.max_requests is not None and self._answered() \
                         >= self.max_requests:
                     loop.stop()
+                    return
+                now = time.perf_counter()
+                if hb is not None and now >= next_hb[0]:
+                    next_hb[0] = now + self.heartbeat_s
+                    beat = self.codec.encode(self.heartbeat_payload())
+                    hb.send_multipart([b""] + beat, copy=False)
+                    self._inc("heartbeats_out")
 
             loop.add_tick(tick)
+            self.boot_to_ready_s = time.perf_counter() - t_boot
             self._ready.set()
+            tick()                      # the first heartbeat, pre-poll
             loop.run(poll_ms=5)
         finally:
             self._stop.set()
@@ -591,6 +658,9 @@ class InferenceServer:
     def _finish(self, live: List[Request], y_dev, gen: int) -> None:
         y = y_dev.cpu().numpy()             # the sync point
         now = time.perf_counter()
+        # the batch's ladder rung: its ring feeds the heartbeat's p99s
+        ring = self._lat_bucket[self.batcher.ladder.bucket_for(
+            sum(r.n for r in live))]
         off = 0
         lat = []
         for r in live:
@@ -609,6 +679,7 @@ class InferenceServer:
             lat.append(now - r.t_enqueued)
             off += r.n
         with self._lock:
+            ring.extend(now - r.t_enqueued for r in live)
             self._counts["served"] += len(lat)
             self._latencies.extend(lat)
             del self._latencies[:-self.LATENCY_WINDOW]
@@ -693,6 +764,44 @@ class InferenceServer:
                 "p99_ms": float(np.percentile(a, 99)),
                 "mean_ms": float(np.mean(a))}
 
+    def p99_ms_by_bucket(self) -> Dict[int, float]:
+        """``{ladder rung: p99 ms}`` over each rung's recent window (the
+        per-rung latency the heartbeat carries)."""
+        with self._lock:
+            rings = {r: np.asarray(ring) for r, ring in
+                     self._lat_bucket.items() if ring}
+        return {r: round(float(np.percentile(w, 99)) * 1e3, 3)
+                for r, w in rings.items()}
+
+    def heartbeat_payload(self) -> Dict:
+        """One fleet heartbeat: the replica's identity and endpoint, its
+        readiness, queue depth, generation and snapshot path, its capacity
+        (``device_count``: dp x mp on a serving mesh, else 1) and per-rung
+        p99.  The warm keys are the reference's with its AOT cache off
+        (``ModelRunner.warm_source``: ``"compiled"`` once warmup compiled
+        a rung, else None; no cache hits or misses).  The reference's
+        fleet-observability keys (``origin``, ``spans``, ``events``,
+        ``metrics``) are not sent: a balancer ignores keys a beat lacks."""
+        mesh = self.runner.mesh_shape
+        return {"cmd": "heartbeat",
+                "replica_id": self.replica_id,
+                "endpoint": self.endpoint,
+                "ready": self.ready(),
+                "draining": self.draining,
+                "swapping": self.runner.swapping,
+                "gen": self.runner.generation,
+                "snapshot_path": self.runner.snapshot_path,
+                "queue_depth": self.batcher.queue_depth,
+                "served": self.served,
+                "device_count": (int(np.prod(list(mesh.values())))
+                                 if mesh else 1),
+                "mesh": mesh,
+                "warm_source": "compiled" if self.runner.compiles else None,
+                "warm_hits": 0,
+                "warm_misses": 0,
+                "boot_s": self.boot_to_ready_s,
+                "p99_ms_by_bucket": self.p99_ms_by_bucket()}
+
     def stats(self) -> Dict:
         with self._lock:
             out = dict(self._counts)
@@ -705,6 +814,9 @@ class InferenceServer:
                    bytes_out=self.codec.bytes_out,
                    qps=None if qps is None else round(qps, 2))
         out.update(self.latency_quantiles())
+        out.update(p99_ms_by_bucket=self.p99_ms_by_bucket(),
+                   announce=self.announce,
+                   boot_to_ready_s=self.boot_to_ready_s)
         out.update(self.runner.stats())
         out["batcher"] = self.batcher.stats()
         return out
