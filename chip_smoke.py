@@ -330,12 +330,38 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      with both up); the pass again with ``r0`` killed at a third and restarted at
      two thirds (each request answered once); whether one request's rows
      are bit-equal at rungs 16 and 128; a ``swap`` wave to a second
-     snapshot of the same weights promoted (parity probed when they are,
-     else ``parity: false``; the canary's warm and the wave's time); a
-     wave to a third with the canary's every dispatch stalled
+     snapshot of the same weights promoted (the canary's warm and the
+     wave's time); a wave to weights scaled by 0.75 rolled back for
+     reply parity; a wave to a third with the canary's every dispatch
+     stalled
      (``runner.inject_compute_faults``) rolled back on its p99; ``r1``
      restarted with its boot snapshot and healed onto the fleet path, its
-     replies then at generation 2 within ``SERVE_TOL``.
+     replies then at generation 2 within ``SERVE_TOL``.  Every wave but
+     the stalled one runs under ``parity: true`` with 8 requests in
+     flight: the same weights promote (each parity probe and its primary
+     served alone, at ``bucket_for`` its rows, as the replicas' batchers
+     record), weights scaled by 0.75 roll back for reply parity;
+ 22. ``aot``, the build cache: a full-width AlexNet snapshot, then four
+     boots of it under ``fused``, each in a child process
+     (``--aot-child``) whose kernel build directory starts empty, with
+     ``aot_cache/`` beside the snapshot: cold (``nvcc`` builds the
+     libraries the forward asks for, which are stored), warm (every
+     library loaded from the cache, zero ``nvcc`` runs, ``warm_source``
+     ``cache_hit``, the warm proof holding with 8 captures, the answers
+     to 4 batches bit-equal to the cold boot's, a swap with no ``nvcc``),
+     refused (an entry cut short: refused, rebuilt, stored over) and
+     healed (every library from the cache again); each boot's
+     process-start-to-ready and serve-to-ready seconds;
+ 23. ``master``, the master/slave star on ``tcp://127.0.0.1:*``: a
+     ``Server`` and one ``FusedClient`` slave on full-width AlexNet
+     (float32, ``fused``, no prefetch, single-minibatch jobs) for an
+     epoch, the master's tree within ``STAR_RTOL`` of one
+     ``FusedTrainer`` taking the same 4 steps, K1/K1b/K2/K2b 2/2/3/3 a
+     train job, the seconds a job, the bytes an update each way and the
+     master's apply time; two ``FusedClient`` slaves and one that takes a
+     job and dies behind a quorum of 3, the lost job re-queued and done
+     once; CIFAR10 on a unit-engine ``Client`` under ``pallas_lrn``, K3
+     and K3b counted against the jobs.
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
@@ -359,13 +385,15 @@ for ``mnist_ae`` and ``kohonen`` (each alone or both), phase 12 for
 ``kinds``, phase 13 for ``samples``, phase 14 for ``segments``,
 phase 15 for ``deep``, phase 16 for ``shard``, phase 17 for
 ``snapshots``, phase 18 for ``zmq``, phase 19 for ``graphs``, phase
-20 for ``serve_mesh`` and phase 21 for ``fleet``; it prints the
-``kernels`` object and no ``ok`` line.
+20 for ``serve_mesh``, phase 21 for ``fleet``, phase 22 for ``aot``
+and phase 23 for ``master``; it prints the ``kernels`` object and no
+``ok`` line.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import os
@@ -6144,9 +6172,10 @@ def fleet_member(bal, rid):
 def fleet_drive(cli, requests, refs, pred, what, label, in_flight=1,
                 on_reply=None):
     """Requests of ``requests`` (in turn) through ``cli``, ``in_flight``
-    at a time, until ``pred()``: each reply ok, stamped ``lb``, within
-    ``SERVE_TOL`` of its composed forward.  Returns [(request index,
-    reply, submit-to-reply s)] in reply order."""
+    at a time, until ``pred()``: each reply ok, stamped ``lb``, and, with
+    ``refs``, within ``SERVE_TOL`` of its composed forward (None: a wave
+    of other weights, whose canary's replies differ).  Returns [(request
+    index, reply, submit-to-reply s)] in reply order."""
     out, sent = [], {}
     n = 0
     t0 = time.perf_counter()
@@ -6164,7 +6193,9 @@ def fleet_drive(cli, requests, refs, pred, what, label, in_flight=1,
             out.append((i, rep, time.perf_counter() - t_sent))
             if on_reply is not None:
                 on_reply(rep)
-    check_replies(label, [r for _, r, _ in out], [refs[i] for i, _, _ in out])
+    if refs is not None:
+        check_replies(label, [r for _, r, _ in out],
+                      [refs[i] for i, _, _ in out])
     return out
 
 
@@ -6192,10 +6223,12 @@ def fleet_phase(torch, card):
     ``ReplicaHarness``, sharing the card in this process.  Serve phase
     3's 64 requests from ``ZMQ_CLIENTS`` clients through the balancer (the
     main path) and directly to one replica; a kill and restart of ``r0``
-    mid-pass; a canary wave promoted (parity probed when one request's
-    rows are bit-equal at rungs 16 and 128, else ``parity: false``); a
-    stalled canary rolled back; ``r1`` restarted and healed onto the
-    fleet path.  Returns {path: {kernel: launches}}."""
+    mid-pass; a canary wave of the same weights promoted under ``parity:
+    true`` (each probe and its primary served alone, at the rung of its
+    rows: ROADMAP C.9), a wave of other weights rolled back for reply
+    parity, and a stalled canary rolled back on its p99; ``r1``
+    restarted and healed onto the fleet path.  Returns {path: {kernel:
+    launches}}."""
     from znicz_torch.parallel.chaos import ReplicaHarness
     from znicz_torch.serving import (InferenceClient, InferenceServer,
                                      ReplicaBalancer)
@@ -6222,10 +6255,16 @@ def fleet_phase(torch, card):
         tree = {name: {k: t.cpu().numpy() for k, t in leaves.items()}
                 for name, leaves in eager_ref._active.tree.items()}
         paths = [os.path.join(tmp, f"fleet_{tag}.pickle")
-                 for tag in ("promote", "rollback")]
+                 for tag in ("promote", "rollback", "changed")]
         write_host_pickle(paths[0], {"units": tree, "velocities": {},
                                      "epoch": 1}, compression="none")
         shutil.copyfile(paths[0], paths[1])
+        # other weights for the parity wave: each leaf scaled by 0.75
+        write_host_pickle(paths[2], {
+            "units": {name: {k: (a * np.float32(0.75)).astype(a.dtype)
+                             for k, a in leaves.items()}
+                      for name, leaves in tree.items()},
+            "velocities": {}, "epoch": 1}, compression="none")
         del tree, eager_ref
         with engine_knobs(**FUSED_KNOBS):
             bal = ReplicaBalancer("tcp://127.0.0.1:*",
@@ -6420,11 +6459,29 @@ def rung_parity(torch, runner, x):
     return equal, worst
 
 
+def solo_rungs(harnesses):
+    """Each replica's solo batches (req_id, rows, rung) since its batcher
+    began; raises unless each rode the smallest rung of its rows."""
+    out = []
+    for h in harnesses:
+        b = h.server.batcher
+        for rid, rows, rung in b.solo_rungs:
+            if rung != b.ladder.bucket_for(rows):
+                raise AssertionError(f"[fleet:solo] {h.server.replica_id}: "
+                                     f"{rows} rows served at rung {rung}")
+            out.append((rid, rows, rung))
+    return out
+
+
 def fleet_waves(torch, card, bal, harnesses, cli, requests, refs, paths):
-    """Phase 21's canary waves: a swap to ``paths[0]`` (the same weights)
-    promoted, both heartbeats on it; then a swap to ``paths[1]`` with the
-    canary stalled on every dispatch (``FLEET_STALL``), rolled back on its
-    p99, the fleet left on ``paths[0]``."""
+    """Phase 21's canary waves, all but the last under ``parity: true``
+    with ``FLEET_PROMOTE_IN_FLIGHT`` requests in flight: a swap to
+    ``paths[0]`` (the same weights) promoted, both heartbeats on it, every
+    parity probe and its primary served alone at the rung of its rows; a
+    swap to ``paths[2]`` (other weights) rolled back for reply parity;
+    then a swap to ``paths[1]`` with the canary stalled on every dispatch
+    (``FLEET_STALL``), rolled back on its p99, the fleet left on
+    ``paths[0]``."""
     from znicz_torch.parallel.chaos import FaultSchedule
 
     canary = harnesses[0].server.runner
@@ -6433,11 +6490,12 @@ def fleet_waves(torch, card, bal, harnesses, cli, requests, refs, paths):
     log(f"[fleet:rung_parity] {card}: a {x.shape[0]}-row request at rungs "
         f"{FLEET_PARITY_RUNGS}: "
         + ("bit-equal" if parity else f"not bit-equal (max|d|/max|y| "
-           f"{worst:.3e}): the promote wave runs with parity: false "
-           f"(ROADMAP C.9)"))
+           f"{worst:.3e}): parity probes are served alone at the rung of "
+           f"their rows (ROADMAP C.9)"))
+    solo0 = len(solo_rungs(harnesses))
     t0 = time.perf_counter()
     rep = cli.result(cli._send({"cmd": "swap", "path": paths[0],
-                                "parity": parity}))
+                                "parity": True}))
     if not rep.get("ok") or rep.get("canary") != ["r0"]:
         raise AssertionError(f"[fleet:promote] {rep}")
     warm = []
@@ -6455,16 +6513,49 @@ def fleet_waves(torch, card, bal, harnesses, cli, requests, refs, paths):
         m["snapshot_path"] == paths[0] and m["gen"] == 2
         for m in bal.stats()["replicas"]) and bal.member_count() == 2,
         "both heartbeats on the promoted path")
-    if record["result"] != "promoted":
-        raise AssertionError(f"[fleet:promote] {record}")
-    log(f"[fleet:promote] {card}: parity {parity} "
-        f"({bal.parity_checks} probes compared, {bal.parity_mismatches} "
-        f"mismatched); canary warm {warm[0]:.3f}s (the load and 8 "
-        f"captures, confirmed by heartbeat); wave {record['elapsed_s']}s; "
-        f"both heartbeats on the path {on_path:.2f}s later; "
-        f"{len(served)} requests served during it, "
+    if record["result"] != "promoted" or not bal.parity_checks \
+            or bal.parity_mismatches:
+        raise AssertionError(f"[fleet:promote] {record}; parity checks "
+                             f"{bal.parity_checks}, mismatches "
+                             f"{bal.parity_mismatches}")
+    solo = solo_rungs(harnesses)[solo0:]
+    if len(solo) < 2 * bal.parity_checks:
+        raise AssertionError(f"[fleet:solo] {len(solo)} solo batches for "
+                             f"{bal.parity_checks} parity checks")
+    rungs = collections.Counter(r for _, _, r in solo)
+    log(f"[fleet:promote] {card}: parity true ({bal.parity_checks} probes "
+        f"compared, {bal.parity_mismatches} mismatched; {len(solo)} solo "
+        f"batches, each at bucket_for(its rows), by rung "
+        f"{dict(sorted(rungs.items()))}); canary warm {warm[0]:.3f}s (the "
+        f"load and 8 captures, confirmed by heartbeat); wave "
+        f"{record['elapsed_s']}s; both heartbeats on the path "
+        f"{on_path:.2f}s later; {len(served)} requests served during it, "
         f"{FLEET_PROMOTE_IN_FLIGHT} in flight (slowest, ms on the client's "
         f"clock: {slowest(served)}); record {record}")
+
+    # other weights under parity: the probes mismatch, the wave rolls back
+    rollbacks, checks = bal.rollbacks, bal.parity_checks
+    rep = cli.result(cli._send({"cmd": "swap", "path": paths[2],
+                                "parity": True}))
+    if not rep.get("ok") or rep.get("canary") != ["r0"]:
+        raise AssertionError(f"[fleet:parity] {rep}")
+    served = fleet_drive(cli, requests, None,
+                         lambda: bal.rollbacks == rollbacks + 1,
+                         "rolled back for parity", "fleet:parity",
+                         in_flight=FLEET_PROMOTE_IN_FLIGHT)
+    record = bal.rollover_history[-1]
+    if record["result"] != "rolled_back" \
+            or "reply parity broken" not in record["reason"]:
+        raise AssertionError(f"[fleet:parity] {record}")
+    fleet_wait(lambda: all(m["snapshot_path"] == paths[0]
+                           for m in bal.stats()["replicas"])
+               and bal.stats()["fleet_path"] == paths[0],
+               "the fleet back on the promoted path after the parity wave")
+    log(f"[fleet:parity] {card}: weights x0.75 under parity true: "
+        f"{record['result']} after {record['elapsed_s']}s: "
+        f"{record['reason']}; {bal.parity_checks - checks} probes compared "
+        f"in the wave, {record['parity_mismatches']} mismatched; "
+        f"{len(served)} requests served during it")
 
     with bal._lock:                 # the stalled canary must not be raced
         hedge = bal.knobs["hedge"]
@@ -6476,7 +6567,9 @@ def fleet_waves(torch, card, bal, harnesses, cli, requests, refs, paths):
                                     "parity": False}))
         if not rep.get("ok") or rep.get("canary") != ["r0"]:
             raise AssertionError(f"[fleet:rollback] {rep}")
-        served = fleet_drive(cli, requests, refs, lambda: bal.rollbacks == 1,
+        rollbacks = bal.rollbacks
+        served = fleet_drive(cli, requests, refs,
+                             lambda: bal.rollbacks == rollbacks + 1,
                              "rolled back", "fleet:rollback")
     finally:
         canary.inject_compute_faults(None)
@@ -6534,6 +6627,465 @@ def fleet_heal(card, bal, harnesses, cli, requests, refs, path):
         f"{bal.heals}); its replies at generation 2 within SERVE_TOL")
 
 
+# -- phase 22: the build cache: cold, warm, refused and healed boots ----------
+
+#: phase 22: the rows of the batches each boot answers (each at its rung)
+AOT_ROWS = (1, 5, 16, 128)
+#: phase 22: the most one boot's child process may take (s)
+AOT_CHILD_TIMEOUT_S = 400
+#: phase 22: the sample shape and classes of the served AlexNet
+AOT_SHAPE, AOT_CLASSES = (227, 227, 3), 1000
+#: phase 22: the library whose entry the refusal boot finds truncated
+AOT_TRUNCATED = "bias_relu"
+
+
+def aot_child(spec: dict) -> dict:
+    """One boot of phase 22, in a process of its own: full-width AlexNet
+    under ``fused`` served from ``spec["snapshot"]`` by an
+    ``InferenceServer`` with the build cache on (``spec["aot_dir"]``),
+    its kernel libraries built into the empty ``spec["build_dir"]``;
+    the batches of ``AOT_ROWS`` answered at their rungs and saved to
+    ``spec["out"]``; with ``spec["swap"]`` a swap to that snapshot after.
+    Returns what the parent checks."""
+    from pathlib import Path
+
+    import torch
+
+    from znicz_torch import _build
+    from znicz_torch.core.config import root
+    from znicz_torch.samples.alexnet import AlexNetWorkflow
+    from znicz_torch.serving import InferenceServer
+
+    _build.BUILD_DIR = Path(spec["build_dir"])
+    root.common.engine.fused_elementwise = True
+    root.common.engine.fused_tail = True
+    root.common.serving.aot_cache.enabled = True
+    root.common.serving.aot_cache.dir = spec["aot_dir"]
+    ctrs = counters()
+    wf = AlexNetWorkflow(sample_shape=AOT_SHAPE, n_classes=AOT_CLASSES,
+                         device=spec.get("device"))
+    srv = InferenceServer(wf, snapshot=spec["snapshot"], max_batch=BATCH,
+                          max_delay_ms=1.0).start()
+    ready_s = time.time() - spec["t_spawn"]
+    runner, ladder = srv.runner, srv.batcher.ladder
+    launches = {n: fn.launches for n, fn in ctrs.items() if fn.launches}
+    rng = np.random.default_rng(SEED)
+    ys = []
+    for n in AOT_ROWS:
+        x = rng.normal(size=(n,) + AOT_SHAPE).astype(np.float32)
+        ys.append(runner.infer(runner.pad(x, ladder.bucket_for(n)))[:n])
+    compiles = runner.compiles
+    out = {"ready_s": ready_s, "boot_to_ready_s": srv.boot_to_ready_s,
+           "report": srv.warm_report, "nvcc_runs": _build.nvcc_runs,
+           "origins": dict(_build.origins),
+           "cache": runner._aot_cache.stats(),
+           "entries": {n: runner._aot_cache.path(_build.library_entry(n))
+                       for n in runner.kernels},
+           "heartbeat": {k: srv.heartbeat_payload()[k] for k in
+                         ("warm_source", "warm_hits", "warm_misses")},
+           "launches": launches, "traffic_compiles": compiles
+           - srv.warm_report["compiles"]}
+    if spec.get("swap"):
+        n0 = _build.nvcc_runs
+        t0 = time.perf_counter()
+        runner.swap(spec["swap"], ladder)
+        out["swap"] = {"s": time.perf_counter() - t0,
+                       "nvcc_runs": _build.nvcc_runs - n0,
+                       "generation": runner.generation,
+                       "graphs": runner.graph_cache_size()}
+    srv.stop()
+    np.savez(spec["out"], *ys)
+    torch.cuda.synchronize()
+    return out
+
+
+def aot_boot(tag: str, spec: dict) -> dict:
+    """Run :func:`aot_child` for ``spec`` as ``python3 chip_smoke.py
+    --aot-child``; its result, with the boot's batches as ``ys``."""
+    spec = dict(spec, out=spec["out"] + f"_{tag}.npz",
+                build_dir=spec["build_dir"] + f"_{tag}", t_spawn=time.time())
+    os.makedirs(spec["build_dir"])
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--aot-child",
+         json.dumps(spec)], capture_output=True, text=True,
+        timeout=AOT_CHILD_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"[aot:{tag}] boot failed (rc "
+                             f"{proc.returncode}): {proc.stderr[-3000:]}")
+    out = json.loads(lines[-1])
+    with np.load(spec["out"]) as z:
+        out["ys"] = [z[f"arr_{i}"] for i in range(len(AOT_ROWS))]
+    return out
+
+
+def aot_phase(torch, card):
+    """Phase 22: the build cache (``serving/aot_cache.py``).  A full-width
+    AlexNet snapshot is saved; four boots follow, each in a child process
+    whose kernel build directory starts empty, each serving it under
+    ``fused`` with ``aot_cache/`` beside the snapshot: cold (the
+    libraries built by ``nvcc`` and stored), warm (every library loaded
+    from the cache, zero ``nvcc`` runs, ``warm_source`` ``cache_hit``,
+    the proof holding with 8 captures, the batches' answers bit-equal to
+    the cold boot's, and a swap that runs no ``nvcc``), refused (the
+    ``AOT_TRUNCATED`` entry cut short: refused, rebuilt and stored over)
+    and healed (every library from the cache again).  Returns {path:
+    {kernel: launches}} of the warm boot's warmup."""
+    from znicz_torch.serving.model import ModelRunner
+    from znicz_torch.snapshotter import write_host_pickle
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_aot_")
+    try:
+        t_phase = time.perf_counter()
+        wf = alexnet_served(torch)
+        tree = {name: {k: t.cpu().numpy() for k, t in leaves.items()}
+                for name, leaves in
+                ModelRunner(wf, capture=False)._active.tree.items()}
+        snaps = os.path.join(tmp, "snapshots")
+        os.makedirs(snaps)
+        paths = [os.path.join(snaps, f"alexnet_{tag}.pickle")
+                 for tag in ("served", "swapped")]
+        for path in paths:
+            write_host_pickle(path, {"units": tree, "velocities": {},
+                                     "epoch": 1}, compression="none")
+        del wf, tree
+        torch.cuda.empty_cache()
+        spec = {"snapshot": paths[0], "aot_dir":
+                os.path.join(snaps, "aot_cache"),
+                "build_dir": os.path.join(tmp, "kernels"),
+                "out": os.path.join(tmp, "ys")}
+        cold = aot_boot("cold", spec)
+        n_libs = len(cold["report"]["kernels"])
+        rungs = cold["report"]["expected"]
+        if not (cold["report"]["ok"] and n_libs >= 2
+                and cold["nvcc_runs"] == n_libs
+                and cold["cache"]["stores"] == n_libs
+                and cold["report"]["warm_source"] == "compiled"
+                and cold["report"]["compiles"] == rungs):
+            raise AssertionError(f"[aot:cold] {cold['report']}, nvcc "
+                                 f"{cold['nvcc_runs']}, {cold['cache']}")
+        warm = aot_boot("warm", dict(spec, swap=paths[1]))
+        rep = warm["report"]
+        if not (rep["ok"] and warm["nvcc_runs"] == 0
+                and rep["warm_source"] == "cache_hit"
+                and rep["cache_hits"] == n_libs
+                and rep["compiles"] == rep["graph_cache_size"] == rungs
+                and warm["traffic_compiles"] == 0
+                and warm["swap"]["nvcc_runs"] == 0
+                and warm["heartbeat"]["warm_source"] == "cache_hit"):
+            raise AssertionError(f"[aot:warm] {rep}, nvcc "
+                                 f"{warm['nvcc_runs']}, swap "
+                                 f"{warm['swap']}, {warm['heartbeat']}")
+        for n, a, b in zip(AOT_ROWS, cold["ys"], warm["ys"]):
+            if not same_bits(torch, torch.from_numpy(a), torch.from_numpy(b)):
+                raise AssertionError(f"[aot:warm] the {n}-row batch's "
+                                     f"answer differs from the cold boot's")
+        entry = cold["entries"][AOT_TRUNCATED]
+        with open(entry, "rb") as f:
+            data = f.read()
+        with open(entry, "wb") as f:
+            f.write(data[:len(data) // 2])
+        refused = aot_boot("refused", spec)
+        rep = refused["report"]
+        if not (rep["ok"] and rep["cache_refusals"] == 1
+                and refused["nvcc_runs"] == 1
+                and refused["origins"].get(AOT_TRUNCATED) == "nvcc"
+                and rep["warm_source"] == "mixed"
+                and os.path.getsize(entry) == len(data)):
+            raise AssertionError(f"[aot:refused] {rep}, nvcc "
+                                 f"{refused['nvcc_runs']}, "
+                                 f"{refused['origins']}")
+        healed = aot_boot("healed", spec)
+        rep = healed["report"]
+        if not (rep["ok"] and healed["nvcc_runs"] == 0
+                and rep["warm_source"] == "cache_hit"):
+            raise AssertionError(f"[aot:healed] {rep}")
+        for tag, boot in (("refused", refused), ("healed", healed)):
+            for n, a, b in zip(AOT_ROWS, cold["ys"], boot["ys"]):
+                if not same_bits(torch, torch.from_numpy(a),
+                                 torch.from_numpy(b)):
+                    raise AssertionError(f"[aot:{tag}] the {n}-row batch "
+                                         f"differs from the cold boot's")
+        for tag, boot in (("cold", cold), ("warm", warm),
+                          ("refused", refused), ("healed", healed)):
+            rep = boot["report"]
+            log(f"[aot:{tag}] {card}: process start to ready "
+                f"{boot['ready_s']:.3f}s, serve() to ready "
+                f"{boot['boot_to_ready_s']:.3f}s; libraries "
+                f"{boot['origins']}; nvcc runs {boot['nvcc_runs']}; "
+                f"warm_source {rep['warm_source']}; hits "
+                f"{rep['cache_hits']} misses {rep['cache_misses']} "
+                f"refusals {rep['cache_refusals']}; {rep['compiles']} "
+                f"captures (graph family {rep['graph_cache_size']}); proof "
+                f"ok {rep['ok']}; warmup launches {boot['launches']}")
+        log(f"[aot:warm] swap to a second snapshot: {warm['swap']}; the "
+            f"{len(AOT_ROWS)} batches ({AOT_ROWS} rows) bit-equal across "
+            f"the four boots; phase {time.perf_counter() - t_phase:.1f}s")
+        return {"aot:warm_boot": warm["launches"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- phase 23: the master/slave star ----------------------------------------
+
+#: phase 23: full-width AlexNet under ``fused``: 4 train minibatches of
+#: 128 (the last the epoch tail) and one valid minibatch, one epoch
+STAR_CFG = {"minibatch_size": BATCH, "n_train": 4 * BATCH,
+            "n_valid": BATCH, "n_test": 0, "n_classes": 1000,
+            "image_size": 227}
+#: phase 23: the jobs of an epoch (one eval job, 4 train jobs)
+STAR_JOBS = 5
+#: phase 23 (a): the master's tree after the slave's 4 train jobs against
+#: one FusedTrainer's 4 steps: per leaf, max|d| <= STAR_RTOL * max|w|
+#: (float32: the delta's round trip through the wire and the master's add)
+STAR_RTOL = 1e-6
+#: phase 23 (b, c): the reap timeout (s): past the slowest job (its
+#: first, which captures), so only the dead slave's job is reaped
+STAR_JOB_TIMEOUT_S = 10.0
+#: phase 23 (d): CIFAR10 on the unit engine under ``pallas_lrn``
+STAR_CIFAR = {"n_train": 200, "n_valid": 100, "n_test": 0,
+              "minibatch_size": 100}
+#: phase 23: the most any state the phase waits for may take (s)
+STAR_WAIT_S = 300.0
+
+
+def star_workflow(torch):
+    """Phase 23's AlexNet (``STAR_CFG``), its streams reset to ``SEED``:
+    every call gives the same weights and data."""
+    from znicz_torch.core import prng
+    from znicz_torch.core.config import root
+    from znicz_torch.samples.alexnet import training_workflow
+
+    root.alexnet.loader.update(STAR_CFG)
+    root.alexnet.decision.max_epochs = 1
+    prng.reset(SEED)
+    return no_snapshots(training_workflow())
+
+
+def star_run(server, slaves, doomed=None):
+    """Run ``slaves`` on threads against the started ``server`` (after a
+    slave of ``doomed``'s workflow took a job and died, when given), and
+    join them all; returns the dead slave's job id."""
+    from znicz_torch.parallel.chaos import take_job_and_die
+
+    errors = []
+
+    def work(s):
+        try:
+            s.run()
+        except BaseException as exc:
+            errors.append(repr(exc))
+            raise
+
+    threads = [threading.Thread(target=work, args=(s,), daemon=True)
+               for s in slaves]
+    for t in threads:
+        t.start()
+    jid = None
+    if doomed is not None:
+        jid = take_job_and_die(server.endpoint, doomed, "doomed")
+    if not server.join(STAR_WAIT_S):
+        raise AssertionError("[master] the master never finished")
+    for t in threads:
+        t.join(STAR_WAIT_S)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"[master] slaves failed: {errors}")
+    return jid
+
+
+def star_tree(wf):
+    from znicz_torch.weights import params_to_numpy
+
+    return params_to_numpy(wf)
+
+
+def master_phase(torch, card):
+    """Phase 23: the master/slave star (``server.Server``,
+    ``client.FusedClient``/``Client``) on the card, every socket on
+    ``tcp://127.0.0.1:*``: :func:`star_one_slave`, :func:`star_two_slaves`
+    and :func:`star_lrn`.  Returns {path: {kernel: launches}}."""
+    t_phase = time.perf_counter()
+    out = {"master:fused": star_one_slave(torch, card)}
+    torch.cuda.empty_cache()
+    star_two_slaves(torch, card)
+    torch.cuda.empty_cache()
+    out["master:units_pallas_lrn"] = star_lrn(torch, card)
+    log(f"[master] phase {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def star_one_slave(torch, card):
+    """Phase 23 (a): a master and one ``FusedClient`` slave on full-width
+    AlexNet (float32, ``fused``, ``job_prefetch`` off, ``job_segment`` 1,
+    a float32 wire) for an epoch: its 4 train jobs leave the master's
+    tree within ``STAR_RTOL`` of one ``FusedTrainer`` taking the same 4
+    steps on the same minibatches, K1/K1b/K2/K2b launched 2/2/3/3 a train
+    job and 2/0/3/0 an eval job; the seconds a job, the bytes an update
+    each way and the master's apply time logged.  Returns {kernel:
+    launches}."""
+    from znicz_torch.client import FusedClient
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.server import Server
+
+    ctrs = counters()
+    with engine_knobs(**FUSED_KNOBS, job_prefetch=False, job_segment=1,
+                      wire_dtype="float32"):
+        master_wf, slave_wf, ref_wf = (star_workflow(torch)
+                                       for _ in range(3))
+        server = Server(master_wf, job_timeout=STAR_WAIT_S)
+        jobs = []
+        handle = server._handle
+
+        def logged(req):
+            rep = handle(req)
+            if "job" in rep:
+                jobs.append(rep["job"])
+            return rep
+
+        server._handle = logged
+        applies = []
+        apply = server.apply_deltas
+
+        def timed(deltas, scale=1.0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            apply(deltas, scale)
+            torch.cuda.synchronize()
+            applies.append(time.perf_counter() - t0)
+
+        server.apply_deltas = timed
+        slave = FusedClient(slave_wf, endpoint="", slave_id="s0")
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+        server.start()
+        slave.endpoint = server.endpoint
+        star_run(server, [slave])
+        launches = {n: fn.launches for n, fn in ctrs.items()}
+        train_jobs = [j for j in jobs if j["class"] == 2]
+        n_train = len(train_jobs)
+        if n_train != 4 or len(jobs) != STAR_JOBS \
+                or not bool(master_wf.decision.complete):
+            raise AssertionError(f"[master:a] {len(jobs)} jobs, "
+                                 f"{n_train} train")
+        want = {"fused_block_fwd": 2 * STAR_JOBS,
+                "fused_block_bwd": 2 * n_train,
+                "bias_relu_fwd": 3 * STAR_JOBS,
+                "bias_relu_bwd": 3 * n_train}
+        got = {n: launches[n] for n in want}
+        if got != want:
+            raise AssertionError(f"[master:a] launches {got}, want {want}")
+        ref = FusedTrainer(ref_wf)
+        for step, job in enumerate(train_jobs):
+            ref.train_step(np.asarray(job["indices"]), int(job["size"]),
+                           step)
+        got_tree, want_tree = star_tree(master_wf), star_tree(ref_wf)
+        worst, where = 0.0, ""
+        for name, leaves in want_tree.items():
+            for k, w in leaves.items():
+                e = float(np.abs(got_tree[name][k] - w).max()
+                          / max(np.abs(w).max(), 1e-30))
+                if e >= worst:
+                    worst, where = e, f"{name}.{k}"
+        if worst > STAR_RTOL:
+            raise AssertionError(f"[master:a] the master's tree is "
+                                 f"{worst:.3e} from one process's at "
+                                 f"{where} (tol {STAR_RTOL:g})")
+        updates = server.updates_received
+        log(f"[master:a] {card}: one FusedClient slave, {len(jobs)} jobs "
+            f"({n_train} train): the master's tree vs one FusedTrainer's "
+            f"{n_train} steps max|d|/max|w| {worst:.3e} at {where} (tol "
+            f"{STAR_RTOL:g}); launches {got} (2/2/3/3 a train job, 2/0/3/0 "
+            f"an eval job); seconds a job "
+            f"{['%.4f' % s for s in slave.job_seconds]}; bytes an update "
+            f"in {server.update_bytes_in / max(updates, 1):.0f} (message), "
+            f"params out a job "
+            f"{server.tensor_bytes_wire_out / max(len(jobs), 1):.0f} "
+            f"(tensor frames); the master's apply "
+            f"{['%.4f' % s for s in applies]} s")
+    return launches
+
+
+def star_two_slaves(torch, card):
+    """Phase 23 (b, c): two ``FusedClient`` slaves and a slave that takes
+    a job and dies (``take_job_and_die``) finish an epoch behind a quorum
+    of 3: both slaves took jobs, ``jobs_done == sum(jobs_by_slave) ==
+    STAR_JOBS``, the dead slave's job re-queued and done once, the ledger
+    balanced."""
+    from znicz_torch.client import FusedClient
+    from znicz_torch.server import Server
+
+    with engine_knobs(**FUSED_KNOBS, min_slaves=3):
+        master_wf = star_workflow(torch)
+        server = Server(master_wf, job_timeout=STAR_JOB_TIMEOUT_S)
+        slaves = [FusedClient(star_workflow(torch), endpoint="",
+                              slave_id=f"s{i}") for i in range(2)]
+        server.start()
+        for s in slaves:
+            s.endpoint = server.endpoint
+        t0 = time.perf_counter()
+        jid = star_run(server, slaves, doomed=master_wf)
+        wall = time.perf_counter() - t0
+        ledger = server.jobs_ledger()
+        by_slave = dict(server.jobs_by_slave)
+        if not (jid is not None and jid not in server._inflight
+                and server.jobs_requeued >= 1
+                and by_slave.get("doomed", 0) == 0
+                and all(by_slave.get(f"s{i}", 0) > 0 for i in range(2))
+                and server.jobs_done == sum(by_slave.values()) == STAR_JOBS
+                and ledger["balanced"]
+                and bool(master_wf.decision.complete)):
+            raise AssertionError(f"[master:b] jobs by slave {by_slave}, "
+                                 f"requeued {server.jobs_requeued}, "
+                                 f"ledger {ledger}")
+        log(f"[master:b] {card}: two FusedClient slaves and one that took "
+            f"job {jid} and died: jobs by slave {by_slave}, the lost job "
+            f"re-queued ({server.jobs_requeued}) and done once; ledger "
+            f"{ledger}; the epoch in {wall:.2f}s (a reap window of "
+            f"{STAR_JOB_TIMEOUT_S:g}s)")
+
+
+def star_lrn(torch, card):
+    """Phase 23 (d): CIFAR10 on the unit engine under ``pallas_lrn``: a
+    master and a ``Client`` slave for an epoch, K3 launched twice a train
+    job and once an eval job, K3b once a train job.  Returns {kernel:
+    launches}."""
+    from znicz_torch.client import Client
+    from znicz_torch.core import prng
+    from znicz_torch.core.config import root
+    from znicz_torch.samples import cifar
+    from znicz_torch.server import Server
+
+    ctrs = counters()
+    root.cifar.loader.update(STAR_CIFAR)
+    root.cifar.decision.max_epochs = 1
+    with engine_knobs(pallas_lrn=True):
+        prng.reset(SEED)
+        master_wf = cifar.CifarWorkflow()
+        prng.reset(SEED)
+        slave = Client(cifar.CifarWorkflow(), endpoint="", slave_id="u0")
+        server = Server(master_wf, job_timeout=STAR_WAIT_S)
+        for fn in ctrs.values():
+            fn.launches = 0
+        server.start()
+        slave.endpoint = server.endpoint
+        star_run(server, [slave])
+        launches = {n: fn.launches for n, fn in ctrs.items()}
+        n_train = STAR_CIFAR["n_train"] // STAR_CIFAR["minibatch_size"]
+        n_eval = STAR_CIFAR["n_valid"] // STAR_CIFAR["minibatch_size"]
+        want = {"lrn_fwd": 2 * n_train + n_eval, "lrn_bwd": n_train}
+        if {n: launches[n] for n in want} != want \
+                or server.jobs_done != n_train + n_eval:
+            raise AssertionError(f"[master:d] launches {launches}, jobs "
+                                 f"{server.jobs_done}, want {want}")
+        log(f"[master:d] {card}: CIFAR10 on a unit-engine Client under "
+            f"pallas_lrn: {server.jobs_done} jobs, K3/K3b launches {want}; "
+            f"seconds a job {['%.4f' % s for s in slave.job_seconds]}; "
+            f"valid err% "
+            f"{master_wf.decision.epoch_metrics[1]['err_pct']:.2f}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -6545,7 +7097,9 @@ def main(argv=None) -> int:
                          "'deep': phase 15; 'shard': phase 16; "
                          "'snapshots': phase 17; 'zmq': phase 18; "
                          "'graphs': phase 19; 'serve_mesh': phase 20; "
-                         "'fleet': phase 21")
+                         "'fleet': phase 21; 'aot': phase 22; 'master': "
+                         "phase 23")
+    ap.add_argument("--aot-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -6561,6 +7115,10 @@ def main(argv=None) -> int:
     snapshots = tempfile.mkdtemp(prefix="chip_smoke_snapshots_")
     root.common.dirs.snapshots = snapshots
     try:
+        if args.aot_child:
+            print(json.dumps(aot_child(json.loads(args.aot_child))),
+                  flush=True)
+            return 0
         return run_phases(torch, args)
     finally:
         shutil.rmtree(snapshots, ignore_errors=True)
@@ -6613,11 +7171,13 @@ def run_phases(torch, args) -> int:
         snapshots, zmq = "snapshots" in names, "zmq" in names
         graphs, serve_mesh = "graphs" in names, "serve_mesh" in names
         fleet = "fleet" in names
+        aot, master = "aot" in names, "master" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
                   "segments", "deep", "shard", "snapshots", "zmq",
-                  "graphs", "serve_mesh", "fleet", *AE_SOM_RUNS)]
+                  "graphs", "serve_mesh", "fleet", "aot", "master",
+                  *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -6730,6 +7290,16 @@ def run_phases(torch, args) -> int:
                         rows.setdefault(name, {"name": name}).setdefault(
                             "launches_by_path", {})[label] = count
             lap("phase 21")
+        for flag, phase, tag in ((aot, aot_phase, "phase 22"),
+                                 (master, master_phase, "phase 23")):
+            if not flag:
+                continue
+            for label, launches in phase(torch, card).items():
+                for name, count in launches.items():
+                    if count:
+                        rows.setdefault(name, {"name": name}).setdefault(
+                            "launches_by_path", {})[label] = count
+            lap(tag)
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -6958,6 +7528,26 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 21")
+
+    # -- phase 22: the build cache: cold, warm, refused and healed boots
+    # -- in child processes with empty build directories ----------------
+    for label, launches in aot_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][label] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 22")
+
+    # -- phase 23: the master/slave star: one slave against one process,
+    # -- two slaves and a lost job, the LRN kernels on a unit slave -----
+    for label, launches in master_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][label] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 23")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

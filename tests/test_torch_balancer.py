@@ -683,6 +683,107 @@ def test_a_starved_canary_rolls_back_in_both():
     assert verdict[0] is False and "starved" in verdict[1]
 
 
+# -- C.9: parity probes ride one rung ----------------------------------------------
+
+
+def test_solo_requests_close_their_own_batch_at_their_rung():
+    """A solo request (a parity-sampled primary or its probe) is a batch
+    alone, at the smallest rung that holds its rows, and never joins
+    another's; the batcher records the rung it used."""
+    from znicz_torch.serving.batcher import (AdmissionPolicy,
+                                             DynamicBatcher, Request)
+
+    for fair in (False, True):
+        b = DynamicBatcher(max_batch=16, max_delay_ms=0.0,
+                           admission=AdmissionPolicy(fair=fair))
+        ladder = b.ladder
+        plan = [(1, 2, False, "a"), (2, 3, True, "b"), (3, 1, False, "a"),
+                (4, 5, True, "b"), (5, 2, False, "c"), (6, 6, False, "a")]
+        for rid, n, solo, client in plan:
+            assert b.submit(Request(np.zeros((n, 4), np.float32), n,
+                                    req_id=rid, client=client,
+                                    solo=solo)) is None
+        batches = []
+        while b.queue_depth:
+            batches.append([r.req_id for r in
+                            b.next_batch(timeout=0.0, wait_fill=False)])
+        solos = {rid for rid, _, solo, _ in plan if solo}
+        for batch in batches:
+            assert not (set(batch) & solos) or len(batch) == 1, batches
+        assert sorted(sum(batches, [])) == [1, 2, 3, 4, 5, 6]
+        assert list(b.solo_rungs) == [(2, 3, ladder.bucket_for(3)),
+                                      (4, 5, ladder.bucket_for(5))]
+        assert b.stats()["solo_batches"] == 2
+
+
+def _in_flight(cli, x, n=8):
+    """``n`` requests in flight at once; their replies."""
+    return [cli.result(r, timeout=BUDGET)
+            for r in [cli.submit(x) for _ in range(n)]]
+
+
+def test_parity_probes_are_served_solo_and_judge_a_wave(tmp_path):
+    """Two CPU replicas of the tiny AlexNet-shaped net behind the
+    balancer, 8 requests in flight throughout: with ``parity: true`` a
+    wave of unchanged weights under a new path promotes (every probe and
+    its primary served alone, each at ``bucket_for`` its rows, as the
+    replicas' batchers record), and a wave of changed weights is rolled
+    back for reply parity."""
+    from test_torch_serving_swap import _fresh, _second, _snapshot
+    from znicz_torch.serving import (InferenceClient, InferenceServer,
+                                     ReplicaBalancer)
+    from znicz_torch.weights import params_to_numpy
+
+    tree = params_to_numpy(_fresh())
+    boot = _snapshot(tmp_path / "boot.pickle.gz", tree)
+    same = _snapshot(tmp_path / "same.pickle.gz", tree)
+    diff = _snapshot(tmp_path / "diff.pickle.gz", _second(tree))
+    bal = ReplicaBalancer(**dict(FLEET_KNOBS, parity_every=1,
+                                 canary_requests=8)).start()
+    reps = [InferenceServer(_fresh(), snapshot=boot, max_batch=8,
+                            max_delay_ms=2.0, announce=bal.endpoint,
+                            replica_id=f"r{i}").start() for i in range(2)]
+    cli = _client(bal)
+    x = np.random.default_rng(5).normal(
+        size=(2,) + tuple(reps[0].runner.sample_shape)).astype(np.float32)
+    try:
+        _wait(lambda: bal.ready_count() == 2, "a ready fleet")
+        _in_flight(cli, x)
+        rep = cli.result(cli._send({"cmd": "swap", "path": same,
+                                    "parity": True}))
+        assert rep["ok"] and rep["swap_started"]
+        t0 = time.perf_counter()
+        while bal.rollovers < 1:
+            assert time.perf_counter() - t0 < BUDGET, "never promoted"
+            assert bal.rollbacks == 0, bal.rollover_history
+            _in_flight(cli, x)
+        record = bal.rollover_history[-1]
+        assert record["result"] == "promoted", record
+        assert bal.parity_checks > 0 and bal.parity_mismatches == 0
+        solo = [s for r in reps for s in r.batcher.solo_rungs]
+        assert len(solo) >= 2 * bal.parity_checks
+        for r in reps:
+            for _, rows, rung in r.batcher.solo_rungs:
+                assert rung == r.batcher.ladder.bucket_for(rows)
+        rep = cli.result(cli._send({"cmd": "swap", "path": diff,
+                                    "parity": True}))
+        assert rep["ok"]
+        t0 = time.perf_counter()
+        while bal.rollbacks < 1:
+            assert time.perf_counter() - t0 < BUDGET, "never rolled back"
+            _in_flight(cli, x)
+        record = bal.rollover_history[-1]
+        assert record["result"] == "rolled_back"
+        assert "parity" in record["reason"], record
+        assert record["parity_mismatches"] >= 1
+        assert bal.ledger()["balanced"]
+    finally:
+        cli.close()
+        bal.stop()
+        for r in reps:
+            r.stop()
+
+
 # -- a real replica on the CPU ----------------------------------------------------
 
 
@@ -738,8 +839,12 @@ def test_real_cpu_alexnet_replica_through_the_balancer(alexnet_pair):
             stats = srv.stats()
             assert stats["announce"] == bal.endpoint
             assert stats["heartbeats_out"] == srv.heartbeats_out
-            _wait(lambda: bal.stats()["replicas"][0]["p99_ms_by_bucket"],
-                  "per-rung p99 on a heartbeat")
+            # a beat sent before the last reply carries an older rung
+            # set: wait for one sent after it
+            _wait(lambda: set(bal.stats()["replicas"][0]
+                              ["p99_ms_by_bucket"])
+                  == set(srv.p99_ms_by_bucket()),
+                  "the latest per-rung p99 on a heartbeat")
             member = bal.stats()["replicas"][0]
             assert member["replica_id"] == "cpu-0"
             assert set(member["p99_ms_by_bucket"]) <= set(ladder.rungs)

@@ -29,6 +29,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -200,18 +201,50 @@ def test_alexnet_run_is_fused_unless_asked(fused, monkeypatch):
 
 @pytest.mark.parametrize("mode", ["master", "slave"])
 def test_master_and_slave_are_not_ported(mode, tmp_path):
+    """The roles are ported: under ``mode`` ``engine.train`` serves the
+    job stream (master) or works for a master (slave), the other role
+    played by the port's ``Server`` or ``Client``; the slave's own loader
+    never advances (the master owns the stream)."""
+    import threading
+
     from znicz_torch import engine
+    from znicz_torch.client import Client
     from znicz_torch.core.config import root as troot
+    from znicz_torch.server import Server
 
     with sample_config("mnist", **REDUCED["mnist"]):
-        wf = port_sample("mnist", tmp_path)
+        wf = port_sample("mnist", tmp_path / "wf")
+        peer_wf = port_sample("mnist", tmp_path / "peer")
     troot.common.engine.mode = mode
+    troot.common.engine.master_bind = "tcp://127.0.0.1:*"
     try:
-        with pytest.raises(NotImplementedError, match="A.7"):
-            engine.train(wf)
+        if mode == "master":
+            result = {}
+            thread = threading.Thread(
+                target=lambda: result.update(engine.train(wf)),
+                daemon=True)
+            thread.start()
+            t0 = time.perf_counter()
+            while getattr(getattr(wf, "server", None), "endpoint",
+                          "*").endswith("*"):
+                assert time.perf_counter() - t0 < 120, "never bound"
+                time.sleep(0.02)
+            Client(peer_wf, endpoint=wf.server.endpoint).run()
+            thread.join(120)
+            assert result["train_steps"] == wf.server.jobs_done > 0
+            assert bool(wf.decision.complete)
+        else:
+            server = Server(peer_wf).start()
+            troot.common.engine.slave_endpoint = server.endpoint
+            stats = engine.train(wf)
+            assert server.join(120)
+            assert stats["train_steps"] == wf.client.jobs_done \
+                == server.jobs_done > 0
+            assert wf.loader.samples_served == 0
     finally:
         troot.common.engine.mode = ""
-    assert wf.loader.samples_served == 0
+        troot.common.engine.master_bind = "tcp://*:5570"
+        troot.common.engine.slave_endpoint = None
 
 
 def _assert_same_state(jwf, twf):

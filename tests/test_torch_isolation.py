@@ -144,6 +144,40 @@ def test_port_serves_over_zmq_without_jax_in_the_process():
     assert out.stdout.strip() == "served over zmq"
 
 
+def test_the_star_trains_without_jax_in_the_process(tmp_path):
+    """A port master and a fused port slave train reduced MNIST over ZMQ
+    in a process where jax was never imported; the star's modules are
+    among the files checked above."""
+    for rel in ("server.py", "client.py", "distributable.py",
+                "loader/zmq_loader.py", "serving/aot_cache.py"):
+        assert REPO / "znicz_torch" / rel in _port_files()
+    code = (
+        "import sys\n"
+        "from znicz_torch.core import prng\n"
+        "from znicz_torch.core.config import root\n"
+        "from znicz_torch.client import FusedClient\n"
+        "from znicz_torch.server import Server\n"
+        "from znicz_torch.samples import mnist\n"
+        "root.mnist.loader.n_train = 120\n"
+        "root.mnist.loader.n_valid = 60\n"
+        "root.mnist.decision.max_epochs = 1\n"
+        f"root.common.dirs.snapshots = {str(tmp_path)!r}\n"
+        "def wf():\n"
+        "    prng.reset(1013)\n"
+        "    return mnist.MnistWorkflow(device='cpu')\n"
+        "srv = Server(wf(), job_timeout=60.0).start()\n"
+        "done = FusedClient(wf(), endpoint=srv.endpoint).run()\n"
+        "assert srv.join(120) and done == srv.jobs_done > 0\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'znicz_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('trained through the star')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "trained through the star"
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     from znicz_torch.backends import resolve_device
     from znicz_torch.samples.alexnet import AlexNetWorkflow

@@ -123,28 +123,51 @@ def test_composed_train_steps_under_mask_match_the_reference():
                                        err_msg=f"{name}.{k}")
 
 
+def _star_knob(knob, value):
+    """A knob of the master/slave star, read since it was ported (the
+    case keeps the id it had while refused)."""
+    return pytest.param(knob, value, None, id=f"{knob}-{value}-A.7")
+
+
 @pytest.mark.parametrize("knob,value,item", [
-    ("job_segment", 2, "A.7"),
-    ("wire_dtype", "bfloat16", "A.7"),
-    ("slave_ttl", 30.0, "A.7"),
-    ("job_prefetch", False, "A.7"),
-    ("staleness_bound", 2, "A.7"),
+    _star_knob("job_segment", 2),
+    _star_knob("wire_dtype", "bfloat16"),
+    _star_knob("slave_ttl", 30.0),
+    _star_knob("job_prefetch", False),
+    _star_knob("staleness_bound", 2),
     ("tree_fanout", 4, "A.7"),
-    ("mode", "master", "A.7"),
-    ("master_bind", "tcp://*:5571", "A.7"),
+    _star_knob("mode", "master"),
+    _star_knob("master_bind", "tcp://*:5571"),
     ("seq_parallel", 2, "A.8"),
 ])
 def test_cli_refuses_an_unported_knob(knob, value, item, tmp_path):
     """``python -m znicz_torch mnist root.common.engine.<knob>=<value>``
     exits non-zero with a ``NotImplementedError`` naming the knob and its
-    ROADMAP item, and writes no snapshot: nothing trained."""
+    ROADMAP item, and writes no snapshot: nothing trained.  A knob of the
+    star (``item`` None) is read: the local run trains with it (the star's
+    knobs act in the master and slave roles), and ``mode=master`` makes
+    the CLI serve as the master."""
     over = [f"root.mnist.{k.replace('__', '.')}={v}"
             for k, v in REDUCED["mnist"].items()]
     cmd = [sys.executable, "-m", "znicz_torch", "mnist", "--device", "cpu",
            f"root.common.dirs.snapshots={tmp_path}", *over,
            f"root.common.engine.{knob}={value!r}"]
+    if knob == "mode":
+        cmd.append("root.common.engine.master_bind='tcp://127.0.0.1:*'")
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.DEVNULL, text=True)
+        try:
+            assert "master serving" in proc.stdout.readline()
+        finally:
+            proc.kill()
+            proc.wait()
+        return
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                          timeout=300)
+    if item is None:
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert list(tmp_path.iterdir())
+        return
     assert out.returncode != 0
     last = out.stderr.strip().splitlines()[-1]
     assert last.startswith("NotImplementedError"), out.stderr[-2000:]

@@ -526,11 +526,11 @@ def test_hyper_rows_follow_the_reference(tmp_path):
 def test_the_slice_knobs_are_read():
     """The eight knobs of the segmented run, the four of the deep
     pipeline and the compiler, the three of the training mesh
-    (``train_shard``, ``mesh.data``, ``mesh.model``) and the two of the
-    snapshot formats (``snapshot_format``, ``snapshot_sharded``) left
-    ``UNPORTED_ENGINE_KNOBS`` for ``ENGINE_DEFAULTS`` (nested as the
-    reference's); with the 30 knobs still refused they are the
-    reference's 61."""
+    (``train_shard``, ``mesh.data``, ``mesh.model``), the two of the
+    snapshot formats (``snapshot_format``, ``snapshot_sharded``) and the
+    22 of the master/slave star left ``UNPORTED_ENGINE_KNOBS`` for
+    ``ENGINE_DEFAULTS`` (nested as the reference's); with the 8 knobs
+    still refused they are the reference's 61."""
     from znicz_torch.core.config import ENGINE_DEFAULTS, UNPORTED_ENGINE_KNOBS
     from znicz_tpu.core.config import ENGINE_DEFAULTS as JDEFAULTS
 
@@ -547,11 +547,19 @@ def test_the_slice_knobs_are_read():
     assert set(read) | set(UNPORTED_ENGINE_KNOBS) == set(ref)
     assert not set(read) & set(UNPORTED_ENGINE_KNOBS)
     assert len(ref) == 61
-    assert len(UNPORTED_ENGINE_KNOBS) == 30 and len(read) == 31
+    assert len(UNPORTED_ENGINE_KNOBS) == 8 and len(read) == 53
     for key in ("remat", "scan_chunk", "async_snapshot", "prefetch_segments",
                 "decode_workers", "stream_budget_mb", "async_staging",
                 "staging_donate", "pipeline_depth", "backend", "fuse",
                 "xla_latency_hiding", "train_shard", "mesh.data",
-                "mesh.model", "snapshot_format", "snapshot_sharded"):
+                "mesh.model", "snapshot_format", "snapshot_sharded",
+                "mode", "master_bind", "master_resume", "slave_endpoint",
+                "job_segment", "job_prefetch", "job_timeout_mult",
+                "job_deadline", "slave_ttl", "slave_reconnects",
+                "slave_backoff_base", "slave_backoff_cap",
+                "slave_breaker_failures", "ingress_rate_limit",
+                "ingress_rate_burst", "quarantine_norm_mult",
+                "master_snapshot_s", "wire_dtype", "wire_compress",
+                "min_slaves", "staleness_bound", "staleness_weight"):
         assert key in read and key not in UNPORTED_ENGINE_KNOBS
         assert read[key] == ref[key], key

@@ -623,13 +623,14 @@ def test_every_reference_serving_key_is_read_or_refused():
                          "admission.rate_burst", "admission.fair",
                          "admission.quantum",
                          "admission.client_queue_bound", "mesh.data",
-                         "mesh.model"} | balance
+                         "mesh.model", "aot_cache.enabled",
+                         "aot_cache.dir"} | balance
     for key, val in read.items():
         assert val == ref[key], key
     for key, (default, item) in UNPORTED_SERVING_KEYS.items():
         assert default == ref[key], key
-        want = {"seq": "A.8", "generate": "A.8", "aot_cache": "A.6",
-                "obs": "A.9", "web_port": "A.9"}[key.split(".")[0]]
+        want = {"seq": "A.8", "generate": "A.8", "obs": "A.9",
+                "web_port": "A.9"}[key.split(".")[0]]
         assert item == want, key
 
 

@@ -7,7 +7,9 @@ paths of ``znicz_tpu/launcher.py``):
                           [--device cpu] [--seed N] [--fused]
                           [--snapshot PATH]
                           [--serve [BIND]] [--replica-id ID]
-                          [--announce EP]
+                          [--announce EP] [--aot-cache [DIR]]
+                          [--master [BIND]] [--master-resume FILE]
+                          [--min-slaves N] [--slave EP]
     python -m znicz_torch --balance [BIND] [--replicas EP[,EP]]
                           [--min-replicas N] [--autoscale-max N
                           --spawn-cmd CMD] [root.x.y=value ...]
@@ -44,6 +46,23 @@ with the resolved endpoint (so a wildcard port can be found); SIGHUP
 starts a rollover to the ``--snapshot`` file.  ``--announce EP``
 heartbeats the replica into the balancer at ``EP``.  ``--fused`` is a
 training flag: with ``--serve`` the run exits 2.
+
+``--aot-cache [DIR]`` (with ``--serve``) arms the kernel-library cache
+(``root.common.serving.aot_cache.enabled``; ``DIR`` sets its ``dir``,
+default ``aot_cache/`` beside the ``--snapshot``): a restarted replica
+loads its kernel libraries instead of compiling them
+(``serving/aot_cache.py``).
+
+``--master [BIND]`` (default ``tcp://127.0.0.1:*``) serves the sample's
+job stream as the asynchronous parameter-server master
+(``server.Server``) instead of training locally and prints ``master
+serving <workflow> at <endpoint>``; ``--master-resume FILE`` implies it
+and keeps a crash-resume file, restored when it exists; ``--min-slaves
+N`` is its quorum.  ``--slave EP`` works for the master at ``EP``: with
+``--fused`` (AlexNet: always) on ``FusedTrainer`` (``client.FusedClient``),
+else on the unit engine (``client.Client``).  ``--master`` and
+``--slave`` exclude each other, ``--serve`` and ``--balance``; a
+``--slave`` with ``--master-resume`` exits 2.
 
 ``--balance [BIND]`` (default ``tcp://*:5590``) runs the replica balancer
 (``serving.ReplicaBalancer``) and builds no workflow: a workflow argument
@@ -125,6 +144,26 @@ def main(argv=None) -> int:
     ap.add_argument("--announce", default=None, metavar="EP",
                     help="with --serve: heartbeat this replica into the "
                          "balancer at EP")
+    ap.add_argument("--aot-cache", nargs="?", const="auto", default=None,
+                    metavar="DIR",
+                    help="with --serve: load the kernel libraries from the "
+                         "cache in DIR (default aot_cache/ beside the "
+                         "snapshot) and store the ones built")
+    ap.add_argument("--master", nargs="?", const="tcp://127.0.0.1:*",
+                    default=None, metavar="BIND",
+                    help="serve this workflow as the asynchronous "
+                         "parameter-server master instead of training "
+                         "locally (default bind tcp://127.0.0.1:*)")
+    ap.add_argument("--slave", default=None, metavar="EP",
+                    help="work for the master at EP")
+    ap.add_argument("--master-resume", default="", metavar="FILE",
+                    help="the master's crash-resume file: restored when it "
+                         "exists, kept up to date while serving (implies "
+                         "--master)")
+    ap.add_argument("--min-slaves", type=int, default=None, metavar="N",
+                    help="the master's quorum (root.common.engine."
+                         "min_slaves): below N live slaves dispatch "
+                         "pauses")
     ap.add_argument("--balance", nargs="?", const="tcp://*:5590",
                     default=None, metavar="BIND",
                     help="run the replica balancer at BIND (default "
@@ -149,10 +188,13 @@ def main(argv=None) -> int:
     args = ap.parse_intermixed_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
+    training_role = (args.master is not None or args.slave is not None
+                     or bool(args.master_resume))
     if args.balance is not None:
-        if args.serve is not None or args.fused:
-            print("error: --balance is exclusive of --serve and of the "
-                  "training flag --fused", file=sys.stderr)
+        if args.serve is not None or args.fused or training_role:
+            print("error: --balance is exclusive of --serve, of the "
+                  "master/slave roles and of the training flag --fused",
+                  file=sys.stderr)
             return 2
         return balance(args)
     if args.workflow not in SAMPLES:
@@ -165,6 +207,37 @@ def main(argv=None) -> int:
     if args.announce and args.serve is None:
         print("error: --announce needs --serve", file=sys.stderr)
         return 2
+    if args.aot_cache is not None and args.serve is None:
+        print("error: --aot-cache needs --serve", file=sys.stderr)
+        return 2
+    if args.master is not None and args.slave is not None:
+        print("error: --master and --slave are mutually exclusive",
+              file=sys.stderr)
+        return 2
+    if args.serve is not None and training_role:
+        print("error: --serve is mutually exclusive with the master/slave "
+              "training roles", file=sys.stderr)
+        return 2
+    if args.master_resume:
+        if args.slave is not None:
+            print("error: --master-resume applies to the master role",
+                  file=sys.stderr)
+            return 2
+        root.common.engine.master_resume = args.master_resume
+        if args.master is None:
+            args.master = "tcp://127.0.0.1:*"       # implies --master
+    if args.master is not None:
+        root.common.engine.mode = "master"
+        root.common.engine.master_bind = args.master
+    elif args.slave is not None:
+        root.common.engine.mode = "slave"
+        root.common.engine.slave_endpoint = args.slave
+    if args.min_slaves is not None:
+        root.common.engine.min_slaves = int(args.min_slaves)
+    if args.aot_cache is not None:
+        root.common.serving.aot_cache.enabled = True
+        if args.aot_cache != "auto":
+            root.common.serving.aot_cache.dir = str(args.aot_cache)
     if args.overrides:
         apply_overrides(root, args.overrides)
     if args.fused:

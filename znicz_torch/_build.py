@@ -10,6 +10,13 @@ on a machine with no ``nvcc``.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on anything but 0.
+
+A serving runner may arm a library cache (:func:`set_library_cache`,
+``serving/aot_cache.py``): a missing library is then fetched from it
+before ``nvcc`` runs, only the library asked for is built, and every
+library built is offered to it.  :data:`nvcc_runs`, :data:`origins` and
+:data:`touched` tell what the process built, where each library came
+from and which libraries were asked for.
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -95,6 +103,40 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: per library: nvcc's output ("" for a library found already built)
 build_logs: Dict[str, str] = {}
+#: ``nvcc`` processes this process started
+nvcc_runs = 0
+#: per library loaded: where this process got it: "nvcc" (built here),
+#: "cache" (the armed library cache) or "disk" (found in BUILD_DIR)
+origins: Dict[str, str] = {}
+#: per library: :func:`entry` and :func:`device_limits` calls
+touched: Counter = Counter()
+#: the armed library cache (``fetch(name, target) -> bool`` and
+#: ``keep(name, path)``), or None
+_library_cache = None
+
+
+def set_library_cache(cache) -> None:
+    """Arm (or with None disarm) the process's library cache."""
+    global _library_cache
+    _library_cache = cache
+
+
+def nvcc_version() -> str:
+    """``nvcc --version``'s last line ("" where there is no nvcc)."""
+    global _nvcc_version
+    if _nvcc_version is None:
+        try:
+            out = subprocess.run([_nvcc(), "--version"],
+                                 capture_output=True, text=True,
+                                 timeout=60).stdout
+            _nvcc_version = out.strip().splitlines()[-1] if out.strip() \
+                else ""
+        except (RuntimeError, OSError, subprocess.SubprocessError):
+            _nvcc_version = ""
+    return _nvcc_version
+
+
+_nvcc_version: Optional[str] = None
 
 
 def _nvcc() -> str:
@@ -118,11 +160,47 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+def library_entry(name: str) -> Dict[str, str]:
+    """A library's cache entry: its name, the digest of its source, the
+    shared headers and the flags (the one its file name carries), and
+    the flags."""
+    return {"kind": "kernel_library", "library": name,
+            "source": _target(name).stem.rsplit("-", 1)[1],
+            "flags": " ".join(NVCC_FLAGS)}
+
+
+def library_symbols(name: str) -> List[str]:
+    """The C functions a valid build of library ``name`` exports."""
+    return list(SIGNATURES[name]) + ["znicz_error_string"]
+
+
 def build_all() -> Dict[str, str]:
     """Compile every library that is missing, one ``nvcc`` per source, all
     started together; load them all.  Returns :data:`build_logs`."""
+    return build(SOURCES)
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Load the libraries ``names``: each already built is loaded, each
+    the armed cache holds is taken from it, and the rest are compiled,
+    one ``nvcc`` per source, all started together.  Returns
+    :data:`build_logs`."""
+    global nvcc_runs
+    names = list(names)
     with _lock:
-        missing = [n for n in SOURCES if not _target(n).exists()]
+        cache = _library_cache
+        if cache is not None:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        missing = []
+        for n in names:
+            if n in _libs:
+                continue
+            if _target(n).exists():
+                origins.setdefault(n, "disk")
+            elif cache is not None and cache.fetch(n, _target(n)):
+                origins[n] = "cache"
+            else:
+                missing.append(n)
         if missing:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             nvcc = _nvcc()
@@ -134,6 +212,7 @@ def build_all() -> Dict[str, str]:
                 procs[name] = (tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True))
+                nvcc_runs += 1
             failed = []
             for name, (tmp, proc) in procs.items():
                 log, _ = proc.communicate()
@@ -142,9 +221,12 @@ def build_all() -> Dict[str, str]:
                     failed.append(f"{name} (rc {proc.returncode}):\n{log}")
                 else:
                     os.replace(tmp, _target(name))
+                    origins[name] = "nvcc"
+                    if cache is not None:
+                        cache.keep(name, _target(name))
             if failed:
                 raise RuntimeError("nvcc failed: " + "\n".join(failed))
-        for name in SOURCES:
+        for name in names:
             if name not in _libs:
                 lib = ctypes.CDLL(str(_target(name)))
                 for fn_name, argtypes in SIGNATURES[name].items():
@@ -160,9 +242,14 @@ def build_all() -> Dict[str, str]:
 
 def entry(name: str, fn_name: str = ""):
     """C function ``fn_name`` of library ``name`` (its first function by
-    default), built on first use."""
+    default), built on first use: with every other missing library, or,
+    under an armed library cache, alone."""
+    touched[name] += 1
     if name not in _libs:
-        build_all()
+        if _library_cache is None:
+            build_all()
+        else:
+            build([name])
     return getattr(_libs[name], fn_name or next(iter(SIGNATURES[name])))
 
 
@@ -187,10 +274,16 @@ def resident_blocks(threads: int, smem: int, smem_limit: int) -> int:
                (smem_limit + SMEM_RESERVED) // (smem + SMEM_RESERVED))
 
 
-@functools.lru_cache(maxsize=None)
 def device_limits(dev: int) -> Tuple[int, int]:
     """(one block's opt-in shared memory in bytes, SMs) of CUDA device
-    ``dev``: what the kernels' planners size their launches by."""
+    ``dev``: what the kernels' planners size their launches by (asked of
+    the ``fused_block`` library once a device)."""
+    touched["fused_block"] += 1
+    return _device_limits(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(dev: int) -> Tuple[int, int]:
     import torch
 
     smem = entry("fused_block", "znicz_fused_block_smem_limit")(dev)

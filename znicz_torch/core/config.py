@@ -203,6 +203,30 @@ ENGINE_DEFAULTS = {
     "snapshot_format": "pickle",  # "orbax": a directory, arrays written
     #                               with torch.distributed.checkpoint
     "snapshot_sharded": False,    # orbax: each rank writes its own rows
+    # the master/slave star (server.py, client.py)
+    "mode": "",                   # "master" | "slave" (--master/--slave)
+    "master_bind": "tcp://*:5570",    # the reference's; --master with no
+    #                                   BIND binds tcp://127.0.0.1:*
+    "master_resume": "",          # the crash-resume file (--master-resume)
+    "slave_endpoint": None,       # the master a slave works for (--slave)
+    "job_segment": 1,             # non-tail TRAIN minibatches a job
+    "job_prefetch": True,         # a slave fetches job N+1 during job N
+    "job_timeout_mult": 8.0,      # reap after this x the median round trip
+    "job_deadline": True,         # jobs carry their reap window as a budget
+    "slave_ttl": 60.0,            # evict a slave silent this long (s)
+    "slave_reconnects": 8,        # consecutive reconnects before giving up
+    "slave_backoff_base": 0.25,   # reconnect backoff: base (s) ...
+    "slave_backoff_cap": 5.0,     # ... doubling to this cap (s)
+    "slave_breaker_failures": 4,  # consecutive failures open the breaker
+    "ingress_rate_limit": 0.0,    # job requests a second a slave (0: off)
+    "ingress_rate_burst": 0.0,    # its bucket's burst
+    "quarantine_norm_mult": 25.0,     # refuse deltas this x the median norm
+    "master_snapshot_s": 10.0,    # the crash-resume file's period (s)
+    "wire_dtype": "float32",      # deltas on the wire: bf16 / int8
+    "wire_compress": "none",      # the params broadcast: zlib / lz4
+    "min_slaves": 0,              # the quorum (0: no gate)
+    "staleness_bound": 0,         # refuse deltas this many applies old
+    "staleness_weight": False,    # scale a late delta by 1 / (1 + s)
 }
 
 #: The reference's other ``root.common.engine.*`` knobs
@@ -211,21 +235,14 @@ ENGINE_DEFAULTS = {
 #: the ROADMAP item that ports it).  :func:`check_engine_knobs` refuses
 #: each set away from its default.
 UNPORTED_ENGINE_KNOBS = {
-    # A.7, the distributed training plane
+    # A.7, the aggregation tree of the distributed training plane
     **{key: (default, "A.7") for key, default in (
-        ("mode", ""), ("master_bind", "tcp://*:5570"), ("master_resume", ""),
-        ("slave_endpoint", None), ("job_segment", 1), ("job_prefetch", True),
-        ("job_timeout_mult", 8.0), ("slave_ttl", 60.0),
-        ("slave_reconnects", 8), ("slave_backoff_base", 0.25),
-        ("slave_backoff_cap", 5.0), ("slave_breaker_failures", 4),
-        ("ingress_rate_limit", 0.0), ("ingress_rate_burst", 0.0),
-        ("job_deadline", True), ("obs_slo_apply_progress", 0.99),
-        ("obs_slo_fast_window_s", 60.0), ("obs_slo_slow_window_s", 600.0),
-        ("quarantine_norm_mult", 25.0), ("master_snapshot_s", 10.0),
-        ("wire_dtype", "float32"), ("wire_compress", "none"),
-        ("tree_fanout", 2), ("relay_flush_s", 0.05), ("relay_child_ttl", 30.0),
-        ("min_slaves", 0), ("staleness_bound", 0),
-        ("staleness_weight", False), ("elastic_rehome", False))},
+        ("tree_fanout", 2), ("relay_flush_s", 0.05),
+        ("relay_child_ttl", 30.0), ("elastic_rehome", False))},
+    # A.9, telemetry: the training plane's SLO
+    **{key: (default, "A.9") for key, default in (
+        ("obs_slo_apply_progress", 0.99), ("obs_slo_fast_window_s", 60.0),
+        ("obs_slo_slow_window_s", 600.0))},
     # A.8, sequence workloads
     "seq_parallel": (0, "A.8"),
 }
@@ -274,8 +291,6 @@ UNPORTED_SERVING_KEYS = {
         ("num_pages", 0), ("prefill_chunk", 0), ("prefix_cache", True),
         ("on_device_sampling", True), ("slots", 8),
         ("decode_tick_ms", 0.0), ("pending_bound", 64))},
-    # A.6, the AOT executable cache
-    "aot_cache.enabled": (False, "A.6"), "aot_cache.dir": ("", "A.6"),
     # A.9, telemetry: exemplars, heartbeat metrics, SLOs
     **{f"obs.{key}": (default, "A.9") for key, default in (
         ("exemplars", 8), ("exemplar_window_s", 60.0),

@@ -16,6 +16,15 @@ graph wired by hand (MnistAE's ``gd_deconv``, the SOM's trainer).
 A graph the fused trainer cannot run (tied weights:
 ``FusedUnsupportedError``) trains on the unit engine on the same device,
 with a warning, as the reference's does; any other error propagates.
+
+``root.common.engine.mode`` (``--master``/``--slave``) takes the
+asynchronous parameter-server roles instead of local training: ``master``
+serves the workflow's job stream (``server.Server`` at ``master_bind``,
+resuming from ``master_resume`` when that file exists) and prints
+``master serving <workflow> at <endpoint>``; ``slave`` works for the
+master at ``slave_endpoint`` with a ``client.FusedClient`` when the fused
+trainer applies, else the unit-engine ``client.Client``.  The server or
+client is kept as ``workflow.server`` / ``workflow.client``.
 """
 
 from __future__ import annotations
@@ -57,6 +66,12 @@ def train(workflow, fused: Optional[bool] = None, mesh=None):
     from znicz_torch.parallel.mesh import train_mesh_from_config
 
     check_engine_knobs()
+    mode = root.common.engine.get("mode", "")
+    if mode in ("master", "slave"):
+        stats = _distributed(workflow, mode, wants_fused()
+                             if fused is None else fused)
+        workflow.train_stats = stats
+        return stats
     if mesh is None:
         mesh = train_mesh_from_config()
     trainer = None
@@ -81,6 +96,60 @@ def train(workflow, fused: Optional[bool] = None, mesh=None):
         stats = _run_units(workflow)
     workflow.train_stats = stats
     return stats
+
+
+def _distributed(workflow, mode: str, fused: bool) -> dict:
+    """The master or the slave role (module docstring); the stats of
+    :func:`train`, with the jobs done as ``train_steps``."""
+    missing = [a for a in ("forwards", "loader", "decision")
+               if getattr(workflow, a, None) is None]
+    if missing:
+        raise ValueError(f"--{mode} needs a StandardWorkflow-shaped graph; "
+                         f"{workflow.name} lacks {missing}")
+    eng = root.common.engine
+    if mode == "slave" and bool(eng.get("train_shard", False)):
+        raise NotImplementedError(
+            "a meshed slave (root.common.engine.train_shard) is not ported "
+            "yet (ROADMAP queue A.7)")
+    t0 = time.perf_counter()
+    if mode == "master":
+        from znicz_torch.server import Server
+
+        server = Server(workflow,
+                        endpoint=eng.get("master_bind", "tcp://*:5570"),
+                        resume_path=eng.get("master_resume", ""))
+        workflow.server = server
+        server.start()
+        print(f"master serving {workflow.name} at {server.endpoint}",
+              flush=True)
+        server.join()
+        steps = server.jobs_done
+        images = workflow.loader.class_samples_served[TRAIN]
+    else:
+        from znicz_torch.client import Client, FusedClient
+
+        endpoint = eng.get("slave_endpoint", None)
+        if not endpoint:
+            raise ValueError("--slave needs the master's endpoint "
+                             "(root.common.engine.slave_endpoint)")
+        client = None
+        if _fused_capable(workflow, fused):
+            from znicz_torch.parallel.fused import FusedUnsupportedError
+
+            try:
+                client = FusedClient(workflow, endpoint=endpoint)
+            except FusedUnsupportedError as exc:
+                log.warning("fused slave unavailable (%s); falling back to "
+                            "the unit-engine slave", exc)
+        if client is None:
+            client = Client(workflow, endpoint=endpoint)
+        workflow.client = client
+        client.run()
+        steps = client.jobs_done
+        images = 0
+    wall = time.perf_counter() - t0
+    return {"train_steps": steps, "img_per_sec": images / max(wall, 1e-9),
+            "warm_img_per_sec": 0.0}
 
 
 def update_unit(workflow):

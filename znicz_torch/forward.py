@@ -27,9 +27,10 @@ import torch
 from torch import nn
 
 from znicz_torch.core import prng
+from znicz_torch.distributable import Distributable
 
 
-class ForwardModule(nn.Module):
+class ForwardModule(nn.Module, Distributable):
     has_weights = False
 
     def __init__(self, name: Optional[str] = None, include_bias: bool = True,

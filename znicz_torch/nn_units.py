@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from znicz_torch.core.units import Unit
+from znicz_torch.distributable import Distributable
 from znicz_torch.memory import Array
 
 _F = np.float32
@@ -93,7 +94,7 @@ def sgd_update(w, g, v, *, lr, weights_decay, l1_vs_l2, momentum, clip):
     return w + v_new, v_new.to(v.dtype)
 
 
-class GradientDescent:
+class GradientDescent(Distributable):
     """The GD hyperparameters of one weighted module, with the
     reference's names and defaults: ``learning_rate_bias`` and
     ``gradient_moment_bias`` default to their weight counterparts, the
@@ -119,6 +120,15 @@ class GradientDescent:
                                      else gradient_moment_bias)
         self.gradient_clip = gradient_clip
         self.velocities: Dict[str, torch.Tensor] = {}
+        #: the hyperparameters as configured (the workflow digest's; a
+        #: ``lr_adjust`` schedule rewrites the live ones)
+        self.initial_hypers: Tuple[float, ...] = tuple(
+            float(v) for v in self.hypers())
+
+    def _payload_tensors(self) -> Dict[str, torch.Tensor]:
+        """A GD unit's distributable state is its momentum (the forward
+        owns the weights)."""
+        return dict(self.velocities)
 
     def hypers(self) -> Tuple[np.float32, ...]:
         """(lr, lr_bias, wd, wd_bias, l1_vs_l2, moment, moment_bias, clip),

@@ -28,9 +28,13 @@ of ``znicz_tpu/parallel/chaos.py``).
     scripted stalls, blackholes and refusals) and :class:`FleetScaler`
     (the autoscaler's in-process spawn and retire).
 
-The training-plane harnesses of the reference's module (relay, master
-and preemption harnesses) come with ROADMAP A.7.  Everything is CPU-only,
-in process and seeded.
+  - the master/slave star's harnesses: :func:`take_job_and_die` (a
+    slave that takes one job and vanishes) and :class:`MasterHarness`
+    (kill and restart a ``Server`` from its crash-resume file).
+
+The aggregation tree's harnesses (``RelayHarness``, ``SubtreePreempter``)
+come with the rest of ROADMAP A.7.  Everything is CPU-only, in process
+and seeded.
 """
 
 from __future__ import annotations
@@ -799,6 +803,98 @@ class FleetScaler:
                 rep.kill()
             except Exception:           # a teardown race: keep going
                 self.log.exception("fleet scaler: kill failed")
+
+
+def take_job_and_die(endpoint: str, workflow, slave_id: str = "doomed",
+                     timeout_ms: int = 10_000,
+                     attempts: int = 40) -> Optional[int]:
+    """The mid-job slave death: register, take one job, vanish without
+    replying.  Returns the job id the master now holds in flight (the
+    reaper must bring it back), or None if training already ended.  It
+    rides transport faults as a slave does (a fresh socket and a new
+    register after a timeout, a corrupted reply or a ``bad_frame``
+    refusal), at most ``attempts`` cycles."""
+    from znicz_torch.network_common import handshake_request
+    from znicz_torch.transport import Endpoint, TransportFault
+
+    ep = Endpoint(endpoint, recv_timeout_s=timeout_ms / 1000.0)
+    last: Optional[BaseException] = None
+
+    def rpc(msg: dict) -> dict:
+        return ep.rpc_message(dict(msg, id=slave_id))
+
+    try:
+        for _ in range(attempts):
+            try:
+                rep = rpc(handshake_request(workflow))
+                if rep.get("bad_frame"):
+                    ep.reset()
+                    continue
+                if not rep.get("ok"):
+                    raise RuntimeError(
+                        f"registration refused: {rep.get('error')}")
+                while True:
+                    rep = rpc({"cmd": "job"})
+                    if "job" in rep:
+                        return rep["job_id"]
+                    if rep.get("done"):
+                        return None
+                    if rep.get("unregistered"):
+                        ep.reset()
+                        break
+                    time.sleep(0.05)
+            except TransportFault as exc:
+                last = exc
+    finally:
+        ep.close()              # died mid-job, the update never sent
+    raise RuntimeError(
+        f"doomed slave never reached a job through the chaos ({attempts} "
+        f"attempts; last fault: {last!r})")
+
+
+class MasterHarness:
+    """Kill and restart the master of the star.  :meth:`start` builds a
+    fresh workflow and ``Server`` (restored from ``resume_path`` when the
+    file exists, as a restarted ``--master-resume`` process is) and serves
+    it on a thread; :meth:`kill` is a crash: serving stops at the next
+    tick with no final snapshot.  ``endpoint`` may use a wildcard port:
+    the first start resolves it and every restart binds the same
+    address."""
+
+    def __init__(self, make_workflow, endpoint: str, resume_path: str,
+                 snapshot_every_s: float = 0.3, linger: float = 3.0,
+                 **server_kwargs):
+        self.make_workflow = make_workflow
+        self.endpoint = endpoint
+        self.resume_path = resume_path
+        self.snapshot_every_s = snapshot_every_s
+        self.linger = linger
+        self.server_kwargs = server_kwargs
+        self.server = None
+        self.workflow = None
+        self.kills = 0
+
+    def start(self):
+        from znicz_torch.server import Server
+
+        self.workflow = self.make_workflow()
+        self.server = Server(self.workflow, endpoint=self.endpoint,
+                             resume_path=self.resume_path,
+                             snapshot_every_s=self.snapshot_every_s,
+                             **self.server_kwargs).start(linger=self.linger)
+        self.endpoint = self.server.endpoint
+        return self.server
+
+    def kill(self, timeout: float = 30.0) -> None:
+        """A master crash mid-epoch (no final snapshot)."""
+        self.server.stop()
+        if not self.server.join(timeout):
+            raise RuntimeError("master thread did not stop")
+        self.kills += 1
+
+    def wait(self, timeout: float = 120.0) -> bool:
+        """Join the serving thread; True once it exited."""
+        return self.server.join(timeout)
 
 
 def _flood_main(argv: List[str]) -> None:

@@ -65,6 +65,13 @@ Deliberate differences from the reference:
     frontend keeps its own; there is no telemetry registry or gauge;
   - each reference ``telemetry.emit(event, ...)`` is a ``logging`` record
     under the same event name (logger ``znicz_torch.balancer``);
+  - a parity-sampled primary and its probe carry ``"solo": true``: each
+    replica serves such a request alone, at the smallest ladder rung
+    that holds its rows (``DynamicBatcher.next_batch``), so the two
+    halves compared bit for bit ride the same rung.  The reference
+    co-batches the primary; on the card cuDNN and cuBLAS choose kernels
+    by batch size, and rows served at two rungs differ in their last
+    bits (ROADMAP C.9);
   - fleet trace, event and metric ingestion (a heartbeat's ``spans``,
     ``events`` and ``metrics``, a reply's span summary) and the
     balancer's own spans are left out (ROADMAP A.9): such keys are
@@ -664,6 +671,8 @@ class ReplicaBalancer:
     def _dispatch(self, entry: _Entry, exclude=(), pool=None) -> bool:
         """Send an entry to the best candidate (optionally restricted to
         ``pool``); False when nobody is ready (lock held)."""
+        from znicz_torch.parallel import wire
+
         with self._lock:
             roll = self._rollover
             if (pool is None and entry.kind == "infer" and roll is not None
@@ -688,6 +697,24 @@ class ReplicaBalancer:
             if not cands:
                 return False
             target = cands[0]
+            # the canary phase: parity-probe a sample of old-generation
+            # traffic.  A sampled primary is marked solo before it ships,
+            # and its probe copies the mark: each is served alone at the
+            # smallest rung that holds its rows, so both halves ride the
+            # same rung (cuDNN and cuBLAS choose kernels by batch size)
+            roll = self._rollover
+            probe = False
+            if (roll is not None and roll["phase"] == "canary"
+                    and entry.kind == "infer" and roll["parity"]
+                    and target not in roll["canary"]):
+                roll["old_dispatches"] += 1
+                probe = (roll["old_dispatches"] % int(
+                    self.knobs["parity_every"]) == 0
+                    and entry.probe_rid is None
+                    and bool(self._probe_pool()))
+                if probe:
+                    entry.frames = wire.restamp_message(entry.frames,
+                                                        solo=True)
             if not self._send_to(target, entry.frames):
                 return False
             entry.targets.append(target)
@@ -702,16 +729,8 @@ class ReplicaBalancer:
                     self._dispatch_counts.get(target, 0) + 1
                 entry.held.add(target)
                 self._inflight[entry.rid] = entry
-            # the canary phase: parity-probe a sample of old-generation
-            # traffic
-            roll = self._rollover
-            if (roll is not None and roll["phase"] == "canary"
-                    and entry.kind == "infer" and roll["parity"]
-                    and target not in roll["canary"]):
-                roll["old_dispatches"] += 1
-                if roll["old_dispatches"] % int(
-                        self.knobs["parity_every"]) == 0:
-                    self._spawn_probe(entry)
+            if probe:
+                self._spawn_probe(entry)
             return True
 
     def _release(self, entry: _Entry) -> None:
@@ -724,14 +743,17 @@ class ReplicaBalancer:
                 self._dispatch_counts[target] = n - 1
         entry.held = set()
 
+    def _probe_pool(self) -> List[str]:
+        """The ready canaries a parity probe may go to (lock held)."""
+        return [r for r in self._rollover["canary"] if r in self._members
+                and self._members[r]["ready"]]
+
     def _spawn_probe(self, primary: _Entry) -> None:
         """Duplicate a request to a canary replica as a shadow parity
         probe, never forwarded to the client (lock held)."""
         from znicz_torch.parallel import wire
 
-        roll = self._rollover
-        pool = [r for r in roll["canary"] if r in self._members
-                and self._members[r]["ready"]]
+        pool = self._probe_pool()
         if not pool or primary.probe_rid is not None:
             return
         self._rid += 1

@@ -171,19 +171,23 @@ class Request:
     bucket key).  ``deadline_s`` is the relative budget from now: it
     becomes the absolute ``t_deadline``, checked at assemble time and
     again after the compute (None = no deadline).  ``t_enqueued`` feeds
-    the latency stats."""
+    the latency stats.  A ``solo`` request (a balancer's parity-sampled
+    primary or its probe) closes a batch of its own, at the smallest
+    ladder rung that holds its rows."""
 
     __slots__ = ("x", "n", "reply_to", "req_id", "trace_id", "client",
-                 "t_enqueued", "t_deadline")
+                 "t_enqueued", "t_deadline", "solo")
 
     def __init__(self, x, n: int, reply_to=None, req_id=None,
-                 trace_id=None, client=None, deadline_s=None):
+                 trace_id=None, client=None, deadline_s=None,
+                 solo: bool = False):
         self.x = x
         self.n = int(n)
         self.reply_to = reply_to
         self.req_id = req_id
         self.trace_id = trace_id
         self.client = client
+        self.solo = bool(solo)
         self.t_enqueued = time.perf_counter()
         self.t_deadline = (None if deadline_s is None
                            else self.t_enqueued + float(deadline_s))
@@ -205,7 +209,11 @@ class DynamicBatcher:
         "batched_requests": "requests inside closed batches",
         "batched_rows": "real rows inside closed batches",
         "padded_rows": "pad rows added by the ladder",
+        "solo_batches": "batches of one solo request",
     }
+
+    #: solo batches remembered as (req_id, rows, rung), newest last
+    SOLO_WINDOW = 256
 
     #: per-client accounting table bound (client ids are ephemeral)
     MAX_CLIENT_STATS = 32
@@ -241,6 +249,9 @@ class DynamicBatcher:
             self.ladder.rungs, 0)
         self._real_rows = dict.fromkeys(self.ladder.rungs, 0)
         self._pad_rows = dict.fromkeys(self.ladder.rungs, 0)
+        #: the rung each solo request was served at: (req_id, rows, rung)
+        self.solo_rungs: collections.deque = collections.deque(
+            maxlen=self.SOLO_WINDOW)
         self.set_admission(admission or AdmissionPolicy())
 
     # -- counters --------------------------------------------------------------
@@ -400,22 +411,28 @@ class DynamicBatcher:
             self._client_rows[key] -= req.n
         return req
 
-    def _take_one(self, space: int) -> Optional[Request]:
+    def _take_one(self, space: int,
+                  solo_ok: bool = True) -> Optional[Request]:
         """One request under deficit round robin, or None when no queued
         head fits ``space`` rows (requests are never split; cond held).
-        A visited client banks ``quantum`` rows once a visit and keeps
-        its turn while its deficit covers its head; a client whose queue
-        empties is retired."""
+        A solo head fits only when ``solo_ok`` (it opens a batch, never
+        joins one).  A visited client banks ``quantum`` rows once a visit
+        and keeps its turn while its deficit covers its head; a client
+        whose queue empties is retired."""
         rr = self._rr
         if self._rows == 0 or not rr:
             return None
+
+        def fits(q) -> bool:
+            return bool(q) and q[0].n <= space and (solo_ok
+                                                    or not q[0].solo)
+
         if len(rr) == 1:
             # one subqueue: plain FIFO, no deficit bookkeeping
-            q = self._queues[rr[0]]
-            if q and q[0].n <= space:
+            if fits(self._queues[rr[0]]):
                 return self._pop(rr[0])
             return None
-        if not any(q and q[0].n <= space for q in self._queues.values()):
+        if not any(fits(q) for q in self._queues.values()):
             return None                     # nothing fits: close batch
         cap = float(max(self._quantum, self.max_batch))
         while True:
@@ -433,7 +450,7 @@ class DynamicBatcher:
                 self._visiting = key
                 self._deficit[key] = min(
                     self._deficit.get(key, 0.0) + self._quantum, cap)
-            if q[0].n <= space and self._deficit.get(key, 0.0) >= q[0].n:
+            if fits(q) and self._deficit.get(key, 0.0) >= q[0].n:
                 self._deficit[key] -= q[0].n
                 return self._pop(key)
             # the head does not fit, or its deficit is not yet banked:
@@ -450,7 +467,8 @@ class DynamicBatcher:
         does not fit stays queued (requests are never split).
         ``wait_fill=False`` skips the window and takes only what is
         already queued — the pipelined grab while the previous batch is
-        on the device."""
+        on the device.  A solo request is a batch alone: it closes at
+        once when it comes first, and stays queued otherwise."""
         with self._cond:
             deadline = time.perf_counter() + max(timeout, 0.0)
             while self._rows == 0:
@@ -466,8 +484,8 @@ class DynamicBatcher:
             batch = [first]
             rows = first.n
             flush_at = time.perf_counter() + self.max_delay_s
-            while rows < self.max_batch:
-                req = self._take_one(self.max_batch - rows)
+            while rows < self.max_batch and not first.solo:
+                req = self._take_one(self.max_batch - rows, solo_ok=False)
                 if req is not None:
                     batch.append(req)
                     rows += req.n
@@ -486,6 +504,9 @@ class DynamicBatcher:
             self._bucket_hits[bucket] += 1
             self._real_rows[bucket] += rows
             self._pad_rows[bucket] += bucket - rows
+            if first.solo:
+                self._counts["solo_batches"] += 1
+                self.solo_rungs.append((first.req_id, rows, bucket))
         return batch
 
     # -- stats -----------------------------------------------------------------

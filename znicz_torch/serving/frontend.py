@@ -65,9 +65,15 @@ first poll): readiness, queue depth, generation, snapshot path, capacity
 and the per-rung p99 the balancer's dispatch and hedging read.  On a
 serving mesh only rank 0 serves, so only rank 0 beats.
 
-The AOT executable cache comes with the rest of ROADMAP A.6, sequence and
-generation serving with A.8, exemplars, SLOs and the heartbeat's fleet
-trace, event and metric keys with telemetry (A.9).
+The build cache (``root.common.serving.aot_cache.{enabled,dir}``,
+``serving/aot_cache.py``) is armed before the warmup: the kernel
+libraries come from ``aot_cache/`` next to the snapshot (or ``dir``)
+where it holds them, and the warm proof (``ModelRunner.warm_proof``,
+kept as ``warm_report``) must hold before the server becomes ready; a
+failed proof fails ``start()``.  The heartbeat carries ``warm_source``,
+``warm_hits`` and ``warm_misses``.  Sequence and generation serving come
+with A.8, exemplars, SLOs and the heartbeat's fleet trace, event and
+metric keys with telemetry (A.9).
 """
 
 from __future__ import annotations
@@ -99,6 +105,9 @@ DEFAULTS = {"max_batch": 32, "max_delay_ms": 5.0, "queue_bound": 256,
                           "rate_burst": 0.0, "fair": True, "quantum": 0,
                           "client_queue_bound": 0},
             "mesh": {"data": 1, "model": 1},
+            # the build cache (serving/aot_cache.py): kernel libraries
+            # kept next to the snapshot (``dir`` overrides the place)
+            "aot_cache": {"enabled": False, "dir": ""},
             # the replica fleet (serving/balancer.py reads them through a
             # local alias): heartbeat cadence and TTL'd membership,
             # hedged-retry timing, exactly-once failover budgets, the
@@ -222,6 +231,13 @@ class InferenceServer:
         self.max_requests = None if max_requests is None \
             else int(max_requests)
         self.warmup = bool(warmup)
+        d_aot = DEFAULTS["aot_cache"]
+        aot = root.common.serving.aot_cache
+        self._aot_enabled = bool(aot.get("enabled", d_aot["enabled"]))
+        self._aot_dir = str(aot.get("dir", d_aot["dir"]) or "")
+        #: the boot's warm proof (ModelRunner.warm_proof), recorded once
+        #: the warmup finished; in cache mode readiness waits on it
+        self.warm_report: Optional[Dict] = None
         self.codec = wire.Codec(owner="serving")    # router thread only
         self._lock = threading.Lock()
         self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
@@ -407,10 +423,22 @@ class InferenceServer:
             # thread like the codec; its acks are drained and discarded
             hb = loop.connect_dealer(self.announce) if self.announce \
                 else None
+            if self._aot_enabled:
+                # armed before any warm dispatch: the warmup loads the
+                # kernel libraries the cache holds and stores the others
+                self.runner.enable_aot_cache(self._aot_dir)
             if self.warmup:
                 # every rung before the first request: cuDNN's choices,
                 # kernel builds and allocator growth happen here
                 self.runner.warmup(self.batcher.ladder)
+                self.warm_report = self.runner.warm_proof(
+                    len(self.batcher.ladder.buckets()))
+                if self.runner.aot_enabled and not self.warm_report["ok"]:
+                    # lands in _serve_error: ready() stays False and
+                    # start() raises the cause
+                    raise RuntimeError(
+                        f"AOT warmup proof failed — refusing to become "
+                        f"ready on a partial family: {self.warm_report}")
             self.started_at = time.perf_counter()
             self._compute_thread = threading.Thread(
                 target=self._compute_loop, daemon=True, name="znicz-infer")
@@ -579,7 +607,7 @@ class InferenceServer:
         reason = self.batcher.submit(
             Request(x, x.shape[0], reply_to=list(envelope), req_id=rid,
                     trace_id=req.get("trace_id"), client=client,
-                    deadline_s=deadline_s))
+                    deadline_s=deadline_s, solo=bool(req.get("solo"))))
         if reason is not None:
             self._inc("rejected")
             self._reply(sock, envelope,
@@ -777,10 +805,9 @@ class InferenceServer:
         """One fleet heartbeat: the replica's identity and endpoint, its
         readiness, queue depth, generation and snapshot path, its capacity
         (``device_count``: dp x mp on a serving mesh, else 1) and per-rung
-        p99.  The warm keys are the reference's with its AOT cache off
-        (``ModelRunner.warm_source``: ``"compiled"`` once warmup compiled
-        a rung, else None; no cache hits or misses).  The reference's
-        fleet-observability keys (``origin``, ``spans``, ``events``,
+        p99, and where its kernel libraries came from
+        (``ModelRunner.warm_source`` and the cache's hits and misses).
+        The reference's fleet-observability keys (``origin``, ``spans``, ``events``,
         ``metrics``) are not sent: a balancer ignores keys a beat lacks."""
         mesh = self.runner.mesh_shape
         return {"cmd": "heartbeat",
@@ -796,9 +823,9 @@ class InferenceServer:
                 "device_count": (int(np.prod(list(mesh.values())))
                                  if mesh else 1),
                 "mesh": mesh,
-                "warm_source": "compiled" if self.runner.compiles else None,
-                "warm_hits": 0,
-                "warm_misses": 0,
+                "warm_source": self.runner.warm_source,
+                "warm_hits": int(self.runner._warm["hits"]),
+                "warm_misses": int(self.runner._warm["misses"]),
                 "boot_s": self.boot_to_ready_s,
                 "p99_ms_by_bucket": self.p99_ms_by_bucket()}
 
@@ -818,6 +845,7 @@ class InferenceServer:
                    announce=self.announce,
                    boot_to_ready_s=self.boot_to_ready_s)
         out.update(self.runner.stats())
+        out["warm_report"] = self.warm_report
         out["batcher"] = self.batcher.stats()
         return out
 

@@ -95,8 +95,12 @@ a swap's load holds the dispatches (each rank loads in its exchange
 loop), and the rungs must divide by dp (``BucketLadder(dp=...)``).
 Meshed dispatches are not captured, for the training mesh's reason.
 
-The AOT executable cache waits for the rest of ROADMAP A.6 (after the
-balancer), generation serving for A.8.
+**The build cache** (:meth:`ModelRunner.enable_aot_cache`,
+``serving/aot_cache.py``): the kernel libraries the forward launches are
+loaded from a cache next to the snapshot instead of built, and each rung
+is captured again at every boot (a graph cannot be written to disk).
+:meth:`ModelRunner.warm_proof` is the boot's proof, which the frontend
+gates readiness on in cache mode.  Generation serving waits for A.8.
 """
 
 from __future__ import annotations
@@ -215,6 +219,11 @@ class ModelRunner:
         self._chaos = None
         self._dispatch_no = 0
         self.stalls = 0
+        #: the armed build cache (None: off), and the kernel libraries
+        #: the warmup asked for, each with where the process got it
+        self._aot_cache = None
+        self.kernels: Dict[str, str] = {}
+        self._warm = {"hits": 0, "misses": 0}
         #: per-sample input shape the service accepts
         self.sample_shape: Tuple[int, ...] = tuple(workflow.sample_shape)
         #: staging dtype (uint8 stays 1 byte on the wire; decoded on device)
@@ -642,8 +651,105 @@ class ModelRunner:
         finally:
             self._swap_lock.release()
 
+    # -- the build cache ------------------------------------------------------
+
+    def enable_aot_cache(self, directory: str = "") -> bool:
+        """Arm the build cache (``serving/aot_cache.py``) for this process
+        before the warmup: a kernel library the forward asks for is
+        loaded from it where it holds one, and one built is stored in it.
+        ``directory`` defaults to ``aot_cache/`` next to this runner's
+        snapshot.  Returns True (the cache is always available)."""
+        from znicz_torch import _build
+        from znicz_torch.serving import aot_cache
+
+        if not directory:
+            if not self.snapshot_path:
+                raise ValueError(
+                    "enable_aot_cache needs an explicit directory when the "
+                    "runner was not booted from a snapshot")
+            directory = aot_cache.dir_for_snapshot(self.snapshot_path)
+        self._aot_cache = aot_cache.ExecutableCache(
+            directory, aot_cache.family_key(self))
+        _build.set_library_cache(self._aot_cache)
+        return True
+
+    @property
+    def aot_enabled(self) -> bool:
+        return self._aot_cache is not None
+
+    def _settle_kernels(self, before: Dict[str, int]) -> None:
+        """Count the libraries the warmup asked for (``_build.touched``
+        rose since ``before``) by where the process got them, and store
+        each that did not come from the cache."""
+        from znicz_torch import _build
+
+        cache = self._aot_cache
+        for name in sorted(_build.touched):
+            if _build.touched[name] <= before.get(name, 0) \
+                    or name in self.kernels:
+                continue
+            origin = _build.origins.get(name, "disk")
+            self.kernels[name] = origin
+            hit = origin == "cache"
+            self._warm["hits" if hit else "misses"] += 1
+            if cache is None:
+                continue
+            if hit:
+                cache.hit()
+            else:
+                cache.miss()
+                if not cache.holds(_build.library_entry(name)):
+                    cache.keep(name, _build._target(name))
+
+    @property
+    def warm_source(self) -> Optional[str]:
+        """Where this boot's kernel libraries came from: ``cache_hit``
+        (all from the cache), ``compiled`` (none; or no library but rungs
+        captured), ``mixed``, or None before any warmup."""
+        h, m = self._warm["hits"], self._warm["misses"]
+        if h and m:
+            return "mixed"
+        if h:
+            return "cache_hit"
+        if m or self.compiles:
+            return "compiled"
+        return None
+
+    def warm_proof(self, expected: int) -> Dict:
+        """The boot's proof of a whole family (the reference's): every
+        rung captured once, none since (``compiles ==
+        graph_cache_size() == expected``).  In cache mode also: every
+        kernel library the warmup asked for is in the cache (loaded from
+        it, or built and stored), and ``nvcc`` ran only for the libraries
+        it missed.  A boot that hit everything shows ``warm_source ==
+        "cache_hit"`` and ``nvcc_runs == 0``."""
+        from znicz_torch import _build
+
+        graphs = self.graph_cache_size()
+        ok = self.compiles == int(expected) == graphs
+        cache = self._aot_cache
+        if cache is not None:
+            built = sum(1 for o in self.kernels.values() if o == "nvcc")
+            ok = ok and _build.nvcc_runs <= built and all(
+                cache.holds(_build.library_entry(n)) for n in self.kernels)
+        return {"mode": "aot" if cache is not None else "jit",
+                "expected": int(expected), "compiles": int(self.compiles),
+                "graph_cache_size": int(graphs),
+                "kernels": dict(self.kernels),
+                "nvcc_runs": int(_build.nvcc_runs),
+                "cache_hits": int(self._warm["hits"]),
+                "cache_misses": int(self._warm["misses"]),
+                "cache_refusals": int(cache.counts["refusals"])
+                if cache is not None else 0,
+                "warm_source": self.warm_source, "ok": bool(ok)}
+
     def stats(self) -> Dict:
-        return {"generation": self.generation, "swapping": self.swapping,
+        return {"aot_enabled": self.aot_enabled,
+                "warm_source": self.warm_source,
+                "warm_hits": int(self._warm["hits"]),
+                "warm_misses": int(self._warm["misses"]),
+                "kernels": dict(self.kernels),
+                "generation": self.generation, "swapping": self.swapping,
                 "snapshot_path": self.snapshot_path,
                 "swaps": self.swaps, "swap_failures": self.swap_failures,
                 "rollbacks": self.rollbacks, "dispatches": self.dispatches,
@@ -675,8 +781,13 @@ class ModelRunner:
 
     def warmup(self, ladder) -> int:
         """Run every ladder rung once (its capture, cuDNN's algorithm
-        choice, the kernel builds and allocator growth happen here, not
-        under traffic); returns ``compiles`` afterwards."""
+        choice, the kernel builds or cache loads and allocator growth
+        happen here, not under traffic); returns ``compiles``
+        afterwards."""
+        from znicz_torch import _build
+
+        before = dict(_build.touched)
         for bucket in ladder.buckets():
             self.infer(np.zeros(self.bucket_shape(bucket), self.dtype))
+        self._settle_kernels(before)
         return self.compiles
