@@ -361,7 +361,24 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      master's apply time; two ``FusedClient`` slaves and one that takes a
      job and dies behind a quorum of 3, the lost job re-queued and done
      once; CIFAR10 on a unit-engine ``Client`` under ``pallas_lrn``, K3
-     and K3b counted against the jobs.
+     and K3b counted against the jobs;
+ 24. ``tree``, the relay tree and the meshed slave on
+     ``tcp://127.0.0.1:*``: phase 23's one-slave epoch with a ``Relay``
+     (fanout 1, float32 wire) between the master and the ``FusedClient``,
+     the master's tree within ``STAR_RTOL`` of one ``FusedTrainer``'s,
+     the bytes into the master and through the relay; two
+     ``FusedClient`` slaves behind a relay of fanout 2 for an epoch
+     (aggregated updates, fewer update messages than jobs, the books on
+     the leaf ids, the master's update bytes against phase 23's star),
+     then the same under a ``RelayHarness`` killed once a job is done
+     (the children fall back to the master, the reaper re-queues, the
+     epoch completes, the ledger balances); a meshed ``FusedClient`` of
+     two gloo ranks spawned on ``cuda:0`` (``TREE_MESH_SHAPE``) for an
+     epoch of 2 train jobs: ``slave_meshes`` records its shape and the
+     master's tree lies within phase 16's cross-layout band of one
+     ``FusedTrainer``'s; K1/K1b/K2/K2b 2/2/3/3 a train job and 2/0/3/0 an
+     eval job on every slave and rank; each meshed job's broadcast and
+     gather seconds.
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
@@ -385,9 +402,9 @@ for ``mnist_ae`` and ``kohonen`` (each alone or both), phase 12 for
 ``kinds``, phase 13 for ``samples``, phase 14 for ``segments``,
 phase 15 for ``deep``, phase 16 for ``shard``, phase 17 for
 ``snapshots``, phase 18 for ``zmq``, phase 19 for ``graphs``, phase
-20 for ``serve_mesh``, phase 21 for ``fleet``, phase 22 for ``aot``
-and phase 23 for ``master``; it prints the ``kernels`` object and no
-``ok`` line.
+20 for ``serve_mesh``, phase 21 for ``fleet``, phase 22 for ``aot``,
+phase 23 for ``master`` and phase 24 for ``tree``; it prints the
+``kernels`` object and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -1504,6 +1521,9 @@ def serve_phase(torch, label, wf, requests, knobs, expect):
 def check_replies(label, replies, refs):
     worst = 0.0
     for i, (rep, ref) in enumerate(zip(replies, refs)):
+        if "y" not in rep:
+            raise AssertionError(f"[{label}] request {i} was not answered: "
+                                 f"{rep}")
         y = rep["y"]
         if y.shape != ref.shape or not np.isfinite(y).all():
             raise AssertionError(f"[{label}] request {i}: shape {y.shape} "
@@ -5817,15 +5837,51 @@ def graphs_chaos(torch, card, wf, srv, requests, refs):
     return {"stalls": stalls, "proxy": c, "flood": stats}
 
 
+def capture_stream_check(torch, card) -> None:
+    """ROADMAP C.11: the capture stream is a CUDA stream of its own: none
+    of 96 streams PyTorch's pool hands out (32 a priority, round robin)
+    is it, it is non-blocking (no implicit sync with the legacy
+    stream), and it was made in its device's primary context."""
+    import ctypes
+
+    from znicz_torch.parallel.graphs import capturing
+
+    with capturing(torch.device("cuda", 0)) as stream:
+        handle = stream.cuda_stream
+    pooled = {torch.cuda.Stream(device=0).cuda_stream for _ in range(96)}
+    cuda = ctypes.CDLL("libcuda.so.1")
+    flags = ctypes.c_uint()
+    rc = cuda.cuStreamGetFlags(ctypes.c_void_p(handle), ctypes.byref(flags))
+    # the stream lives in device 0's primary context
+    ctx, primary, dev = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_int()
+    rc_ctx = (cuda.cuStreamGetCtx(ctypes.c_void_p(handle), ctypes.byref(ctx))
+              or cuda.cuDeviceGet(ctypes.byref(dev), 0)
+              or cuda.cuDevicePrimaryCtxRetain(ctypes.byref(primary), dev))
+    if not rc_ctx:
+        cuda.cuDevicePrimaryCtxRelease(dev)
+    if (handle in pooled or rc != 0 or flags.value != 1 or rc_ctx != 0
+            or ctx.value != primary.value):
+        raise AssertionError(f"[graphs:stream] the capture stream "
+                             f"{handle:#x} is pooled ({handle in pooled}), "
+                             f"not non-blocking (rc {rc}, flags "
+                             f"{flags.value}) or outside device 0's primary "
+                             f"context (rc {rc_ctx})")
+    log(f"[graphs:stream] {card}: the capture stream {handle:#x} is none of "
+        f"{len(pooled)} pooled streams, non-blocking (flags "
+        f"{flags.value}) and in device 0's primary context")
+
+
 def graphs_phase(torch, card):
-    """Phase 19: full-width AlexNet (phase 3's configuration) served as one
-    captured CUDA graph a ladder rung, against the same server eager
-    (``capture=False``), under ``fused`` and ``pallas_lrn``
-    (``graphs_routing``); on the ``fused`` server a swap under traffic
-    and the rollback (``graphs_swap``) and the chaos harness
-    (``graphs_chaos``).  Returns {path: {kernel: launches}}."""
+    """Phase 19: the capture stream apart from PyTorch's pool
+    (``capture_stream_check``); full-width AlexNet (phase 3's
+    configuration) served as one captured CUDA graph a ladder rung,
+    against the same server eager (``capture=False``), under ``fused``
+    and ``pallas_lrn`` (``graphs_routing``); on the ``fused`` server a
+    swap under traffic and the rollback (``graphs_swap``) and the chaos
+    harness (``graphs_chaos``).  Returns {path: {kernel: launches}}."""
     from znicz_torch.serving.model import ModelRunner
 
+    capture_stream_check(torch, card)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_graphs_")
     out = {}
     try:
@@ -6850,14 +6906,45 @@ STAR_CIFAR = {"n_train": 200, "n_valid": 100, "n_test": 0,
 STAR_WAIT_S = 300.0
 
 
-def star_workflow(torch):
-    """Phase 23's AlexNet (``STAR_CFG``), its streams reset to ``SEED``:
-    every call gives the same weights and data."""
+#: phases 23-24: the images :func:`star_workflow`'s loaders read, drawn
+#: once a process: {"dir": the directory, (n, size): .npz path}
+_STAR_DATA: dict = {"dir": None}
+
+
+def star_dataset(cfg) -> str:
+    """The .npz of ``cfg``'s images and labels, drawn from ``SEED`` as
+    the loader draws them, once a process: the AlexNet builds of phases
+    23 and 24 read it (the loader's ``data_path``) instead of drawing the
+    textures again, seconds of host time a build."""
+    from znicz_torch import datasets
+    from znicz_torch.core import prng
+
+    key = (cfg["n_train"] + cfg["n_valid"] + cfg["n_test"],
+           cfg["image_size"])
+    if key not in _STAR_DATA:
+        if _STAR_DATA["dir"] is None:
+            _STAR_DATA["dir"] = tempfile.mkdtemp(prefix="chip_smoke_data_")
+        prng.reset(SEED)
+        data, labels = datasets.tinyimages(key[0], size=key[1])
+        path = os.path.join(_STAR_DATA["dir"], f"{key[0]}x{key[1]}.npz")
+        np.savez(path, data=data, labels=labels)
+        _STAR_DATA[key] = path
+    return _STAR_DATA[key]
+
+
+def star_workflow(torch, cfg=None):
+    """Phase 23's AlexNet (``cfg``, default ``STAR_CFG``), its streams
+    reset to ``SEED``: every call gives the same weights and data (the
+    images from :func:`star_dataset`, unless ``cfg`` names a
+    ``data_path``)."""
     from znicz_torch.core import prng
     from znicz_torch.core.config import root
     from znicz_torch.samples.alexnet import training_workflow
 
-    root.alexnet.loader.update(STAR_CFG)
+    cfg = dict(cfg or STAR_CFG)
+    if not cfg.get("data_path"):
+        cfg["data_path"] = star_dataset(cfg)
+    root.alexnet.loader.update(cfg)
     root.alexnet.decision.max_epochs = 1
     prng.reset(SEED)
     return no_snapshots(training_workflow())
@@ -7038,6 +7125,9 @@ def star_two_slaves(torch, card):
             raise AssertionError(f"[master:b] jobs by slave {by_slave}, "
                                  f"requeued {server.jobs_requeued}, "
                                  f"ledger {ledger}")
+        STAR_BYTES.update(update_bytes_in=server.update_bytes_in,
+                          updates=server.updates_received,
+                          jobs=server.jobs_done)
         log(f"[master:b] {card}: two FusedClient slaves and one that took "
             f"job {jid} and died: jobs by slave {by_slave}, the lost job "
             f"re-queued ({server.jobs_requeued}) and done once; ledger "
@@ -7086,6 +7176,450 @@ def star_lrn(torch, card):
     return launches
 
 
+# -- phase 24: the relay tree and the meshed slave ---------------------------
+
+#: phase 24 (c): the meshed slave's epoch: 2 train minibatches of 128 (the
+#: second the tail) and one valid minibatch, within phase 16's short run
+TREE_MESH_CFG = dict(STAR_CFG, n_train=2 * BATCH)
+#: phase 24 (c): the meshed slave's (data, model) shape: two gloo ranks
+TREE_MESH_SHAPE = (2, 1)
+#: phase 24 (c): the most the meshed tree's distance from one trainer's
+#: may be, as a share of what that trainer moved the leaves (phase 16's
+#: short runs read at most 0.06 on an H100; a zero delta reads 1)
+TREE_MESH_SHARE = 0.2
+#: phase 24 (b): the children's link to the relay killed mid-epoch: a
+#: 4-s receive, one reconnect, then the fallback to the master
+TREE_FALLBACK = dict(recv_timeout=4.0, max_reconnects=1, backoff_base=0.05,
+                     backoff_cap=0.2)
+#: phase 24 (b): the reap window (s) of the epoch whose relay is killed:
+#: past the slowest job through the relay (two first jobs capturing in
+#: turns), so the reaper takes back the jobs the dead relay held
+TREE_REAP_S = 6.0
+#: phase 24 (b): the relay's flush window (s).  Slaves of one process take
+#: the card in turns, so a sibling's update comes a job's steps later
+#: than the first's: the window waits for it
+TREE_FLUSH_S = 2.0
+#: phase 23 (b)'s star, for phase 24 (b)'s bytes into the master
+STAR_BYTES: dict = {}
+
+
+def tree_master(torch, cfg, **kw):
+    """A ``Server`` on phase 23's AlexNet (``cfg``) whose dispatched jobs
+    are logged in order; returns (server, jobs)."""
+    from znicz_torch.server import Server
+
+    server = Server(star_workflow(torch, cfg), **kw)
+    jobs = []
+    handle = server._handle
+
+    def logged(req):
+        rep = handle(req)
+        jobs.extend(e["job"] for e in rep.get("jobs", ()))
+        if "job" in rep:
+            jobs.append(rep["job"])
+        return rep
+
+    server._handle = logged
+    return server, jobs
+
+
+def tree_reference(torch, jobs, cfg):
+    """The tree of one ``FusedTrainer`` taking the train ``jobs`` in order
+    from phase 23's start (``cfg``)."""
+    from znicz_torch.parallel.fused import FusedTrainer
+
+    wf = star_workflow(torch, cfg)
+    ref = FusedTrainer(wf)
+    for step, job in enumerate(j for j in jobs if j["class"] == 2):
+        ref.train_step(np.asarray(job["indices"]), int(job["size"]), step)
+    return star_tree(wf)
+
+
+def tree_launches(launches, jobs, what, factor=1):
+    """K1/K1b/K2/K2b against 2/2/3/3 a train job and 2/0/3/0 an eval job
+    (times ``factor`` ranks or slaves that each ran every job); returns
+    the four counts."""
+    n_train = sum(1 for j in jobs if j["class"] == 2)
+    want = {"fused_block_fwd": 2 * len(jobs) * factor,
+            "fused_block_bwd": 2 * n_train * factor,
+            "bias_relu_fwd": 3 * len(jobs) * factor,
+            "bias_relu_bwd": 3 * n_train * factor}
+    got = {n: launches[n] for n in want}
+    if got != want:
+        raise AssertionError(f"[tree:{what}] launches {got}, want {want}")
+    return got
+
+
+def tree_phase(torch, card):
+    """Phase 24: the relay tree (``parallel/relay.py``) and the meshed
+    slave on the card, every socket on ``tcp://127.0.0.1:*``:
+    :func:`tree_one_slave`, :func:`tree_two_slaves`,
+    :func:`tree_relay_kill` and :func:`tree_meshed`.  Returns {path:
+    {kernel: launches}}."""
+    t_phase = time.perf_counter()
+    # the slaves' workflows serve (a), (b) and the kill in turn: a job
+    # overwrites every parameter from the master's payload, and (a), which
+    # needs the velocities zero, comes first
+    slave_wfs = [star_workflow(torch) for _ in range(2)]
+    out = {"tree:one": tree_one_slave(torch, card, slave_wfs[0])}
+    torch.cuda.empty_cache()
+    out["tree:two"] = tree_two_slaves(torch, card, slave_wfs)
+    torch.cuda.empty_cache()
+    out["tree:kill"] = tree_relay_kill(torch, card, slave_wfs)
+    del slave_wfs
+    torch.cuda.empty_cache()
+    out["tree:mesh"] = tree_meshed(torch, card)
+    torch.cuda.empty_cache()
+    log(f"[tree] phase {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def tree_one_slave(torch, card, slave_wf):
+    """Phase 24 (a): phase 23 (a) with a ``Relay`` between the master and
+    the ``FusedClient`` (float32 wire, fanout 1: a job a fetch, a flush an
+    update): the master's tree within ``STAR_RTOL`` of one
+    ``FusedTrainer`` taking the same 4 steps (one contribution passes the
+    relay byte for byte), K1/K1b/K2/K2b 2/2/3/3 a train job; the bytes
+    into the master and through the relay.  Returns {kernel: launches}."""
+    from znicz_torch.client import FusedClient
+    from znicz_torch.parallel.relay import Relay
+
+    ctrs = counters()
+    with engine_knobs(**FUSED_KNOBS, job_prefetch=False, job_segment=1,
+                      wire_dtype="float32"):
+        server, jobs = tree_master(torch, STAR_CFG, job_timeout=STAR_WAIT_S)
+        slave = FusedClient(slave_wf, endpoint="", slave_id="s0")
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+        server.start()
+        relay = Relay(server.endpoint, "tcp://127.0.0.1:*", relay_id="r0",
+                      fanout=1).start()
+        slave.endpoint = relay.endpoint
+        try:
+            star_run(server, [slave])
+        finally:
+            relay.stop()
+        launches = {n: fn.launches for n, fn in ctrs.items()}
+        if len(jobs) != STAR_JOBS or not bool(server.decision.complete) \
+                or server.aggregated_updates != STAR_JOBS \
+                or server.jobs_by_slave != {"s0": STAR_JOBS}:
+            raise AssertionError(f"[tree:a] {len(jobs)} jobs, aggregated "
+                                 f"{server.aggregated_updates}, by slave "
+                                 f"{server.jobs_by_slave}")
+        got = tree_launches(launches, jobs, "a")
+        want_tree = tree_reference(torch, jobs, STAR_CFG)
+        got_tree = star_tree(server.workflow)
+        worst, where = 0.0, ""
+        for name, leaves in want_tree.items():
+            for k, w in leaves.items():
+                e = float(np.abs(got_tree[name][k] - w).max()
+                          / max(np.abs(w).max(), 1e-30))
+                if e >= worst:
+                    worst, where = e, f"{name}.{k}"
+        if worst > STAR_RTOL:
+            raise AssertionError(f"[tree:a] the master's tree is "
+                                 f"{worst:.3e} from one process's at "
+                                 f"{where} (tol {STAR_RTOL:g})")
+        st = relay.stats()
+        log(f"[tree:a] {card}: one FusedClient behind a relay (fanout 1, "
+            f"float32 wire), {len(jobs)} jobs: the master's tree vs one "
+            f"FusedTrainer's max|d|/max|w| {worst:.3e} at {where} (tol "
+            f"{STAR_RTOL:g}); launches {got}; seconds a job "
+            f"{['%.4f' % s for s in slave.job_seconds]}; the master's "
+            f"bytes_in {server.bytes_in} (updates {server.update_bytes_in} "
+            f"in {server.updates_received} messages), bytes_out "
+            f"{server.bytes_out}; the relay's bytes_in {st['bytes_in']}, "
+            f"bytes_out {st['bytes_out']}, flushes {st['flushes']}")
+    return launches
+
+
+def tree_two_slaves(torch, card, slave_wfs):
+    """Phase 24 (b): two ``FusedClient`` slaves behind one relay (fanout
+    2) for an epoch: the master applied aggregated updates (fewer update
+    messages than jobs), ``jobs_by_slave`` holds the leaf ids alone, the
+    ledger balanced; the master's update bytes against phase 23 (b)'s
+    two-slave star.  Returns {kernel: launches}."""
+    from znicz_torch.client import FusedClient
+    from znicz_torch.parallel.relay import Relay
+
+    ctrs = counters()
+    with engine_knobs(**FUSED_KNOBS):
+        server, jobs = tree_master(torch, STAR_CFG, job_timeout=STAR_WAIT_S)
+        slaves = [FusedClient(wf, endpoint="", slave_id=f"s{i}")
+                  for i, wf in enumerate(slave_wfs)]
+        for fn in ctrs.values():
+            fn.launches = 0
+        server.start()
+        relay = Relay(server.endpoint, "tcp://127.0.0.1:*", relay_id="r0",
+                      fanout=2, flush_s=TREE_FLUSH_S).start()
+        for s in slaves:
+            s.endpoint = relay.endpoint
+        t0 = time.perf_counter()
+        try:
+            star_run(server, slaves)
+        finally:
+            relay.stop()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in ctrs.items()}
+        ledger = server.jobs_ledger()
+        by_slave = dict(server.jobs_by_slave)
+        if not (server.aggregated_updates >= 1
+                and server.updates_received < server.jobs_done
+                and set(by_slave) <= {"s0", "s1"}
+                and server.jobs_done == sum(by_slave.values()) == STAR_JOBS
+                and ledger["balanced"]
+                and bool(server.decision.complete)):
+            raise AssertionError(f"[tree:b] aggregated "
+                                 f"{server.aggregated_updates}, updates "
+                                 f"{server.updates_received}, jobs by slave "
+                                 f"{by_slave}, ledger {ledger}")
+        got = tree_launches(launches, jobs, "b")
+        star = (f"{STAR_BYTES['update_bytes_in']} B in "
+                f"{STAR_BYTES['updates']} messages for "
+                f"{STAR_BYTES['jobs']} jobs" if STAR_BYTES
+                else "not run in this call")
+        st = relay.stats()
+        log(f"[tree:b] {card}: two FusedClient slaves behind a relay "
+            f"(fanout 2): jobs by slave {by_slave}, {server.jobs_done} jobs "
+            f"in {server.updates_received} update messages "
+            f"({server.aggregated_updates} aggregated); the master's update "
+            f"bytes {server.update_bytes_in} against phase 23 (b)'s star "
+            f"{star}; the relay's bytes_in {st['bytes_in']}, bytes_out "
+            f"{st['bytes_out']}, flushes {st['flushes']}, contributions "
+            f"{st['contributions']}; launches {got}; ledger {ledger}; the "
+            f"epoch in {wall:.2f}s")
+    return launches
+
+
+def tree_relay_kill(torch, card, slave_wfs):
+    """Phase 24 (b), the kill: the same slaves behind a ``RelayHarness`` of
+    fanout 3, killed while it holds a fetched job no child took: the
+    children fall back to the master it advertised (two receives of
+    ``TREE_FALLBACK``) and re-send their updates there, the reaper
+    re-queues the lost job (``TREE_REAP_S``), the epoch completes and the
+    ledger balances.  Returns {kernel: launches}."""
+    from znicz_torch.client import FusedClient
+    from znicz_torch.parallel.chaos import RelayHarness
+
+    ctrs = counters()
+    with engine_knobs(**FUSED_KNOBS):
+        server, _ = tree_master(torch, STAR_CFG, job_timeout=TREE_REAP_S)
+        slaves = [FusedClient(wf, endpoint="", slave_id=f"k{i}")
+                  for i, wf in enumerate(slave_wfs)]
+        for fn in ctrs.values():
+            fn.launches = 0
+        server.start()
+        # fanout 3 with two children: each fetch leaves a job queued
+        harness = RelayHarness(server.endpoint, "tcp://127.0.0.1:*",
+                               relay_id="doomed", fanout=3,
+                               flush_s=TREE_FLUSH_S)
+        harness.start()
+        for s in slaves:
+            s.endpoint = harness.endpoint
+        errors = []
+
+        def work(s):
+            try:
+                s.run(**TREE_FALLBACK)
+            except BaseException as exc:
+                errors.append(repr(exc))
+                raise
+
+        threads = [threading.Thread(target=work, args=(s,), daemon=True)
+                   for s in slaves]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        # the kill comes while the relay holds a fetched job no child has
+        # taken: that job dies with it, and the reaper must bring it back
+        # (the jobs the children compute come back as their updates,
+        # re-sent to the master after the fallback)
+        t_kill = fleet_wait(lambda: harness.relay.queue_depth >= 1,
+                            "[tree:kill] a job queued at the relay",
+                            STAR_WAIT_S)
+        done_at_kill = server.jobs_done
+        harness.kill()
+        if not server.join(STAR_WAIT_S):
+            raise AssertionError("[tree:kill] the master never finished")
+        for t in threads:
+            t.join(STAR_WAIT_S)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"[tree:kill] slaves failed: {errors}")
+        launches = {n: fn.launches for n, fn in ctrs.items()}
+        ledger = server.jobs_ledger()
+        by_slave = dict(server.jobs_by_slave)
+        if not (all(s.endpoint == server.endpoint for s in slaves)
+                and server.jobs_requeued >= 1
+                and set(by_slave) <= {"k0", "k1"}
+                and server.jobs_done == sum(by_slave.values()) == STAR_JOBS
+                and ledger["balanced"]
+                and bool(server.decision.complete)):
+            raise AssertionError(f"[tree:kill] endpoints "
+                                 f"{[s.endpoint for s in slaves]}, "
+                                 f"requeued {server.jobs_requeued}, by slave "
+                                 f"{by_slave}, ledger {ledger}")
+        log(f"[tree:kill] {card}: the relay (fanout 3) killed {t_kill:.2f}s "
+            f"in, a job queued, {done_at_kill} done: both children fell back "
+            f"to the master "
+            f"(reconnects {[s.reconnects for s in slaves]}), re-queued "
+            f"{server.jobs_requeued}, jobs by slave {by_slave}, "
+            f"{server.aggregated_updates} aggregated and "
+            f"{server.updates_received - server.aggregated_updates} direct "
+            f"updates; ledger {ledger}; the epoch in {wall:.2f}s (receive "
+            f"{TREE_FALLBACK['recv_timeout']:g}s, reap window "
+            f"{TREE_REAP_S:g}s); launches "
+            f"{ {n: launches[n] for n in KERNELS if launches[n]} }")
+    return launches
+
+
+def tree_mesh_rank(rank, world, store, tmp, endpoint, cfg):
+    """One rank of phase 24 (c) (a spawned process): joins the gloo group
+    on the card, builds phase 23's AlexNet of ``cfg`` (``TREE_MESH_CFG``,
+    its images read from the parent's ``data_path``) and a meshed
+    ``FusedClient`` on ``TREE_MESH_SHAPE``, works for the master at
+    ``endpoint``; writes its launches, seconds and shape to
+    ``tmp/rank<N>.json``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from znicz_torch.client import FusedClient
+    from znicz_torch.core.config import root
+    from znicz_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.distributed_init(f"file://{store}", world, rank,
+                              backend="gloo")
+    root.common.dirs.snapshots = os.path.join(tmp, f"snapshots{rank}")
+    dp, mp = TREE_MESH_SHAPE
+    for key, val in dict(FUSED_KNOBS, job_prefetch=False, job_segment=1,
+                         wire_dtype="float32", train_shard=True,
+                         **{"mesh.data": dp, "mesh.model": mp}).items():
+        root.common.engine.set_by_path(key, val)
+    client = FusedClient(star_workflow(torch, cfg), endpoint=endpoint,
+                         slave_id="m0")
+    ctrs = counters()
+    for fn in ctrs.values():
+        fn.launches = 0
+    coll0 = dict(mesh_mod.STATS)
+    client.run()
+    torch.cuda.synchronize()
+    out = {"rank": client.rank, "mesh": client.mesh_shape,
+           "launches": {n: fn.launches for n, fn in ctrs.items()},
+           "jobs": client.jobs_done, "job_seconds": client.job_seconds,
+           "mesh_seconds": client.mesh_seconds,
+           "collectives": {k: mesh_mod.STATS[k] - coll0[k]
+                           for k in ("calls", "bytes", "seconds")},
+           "device": str(client._trainer.device)}
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def tree_meshed(torch, card):
+    """Phase 24 (c): a meshed ``FusedClient`` of ``TREE_MESH_SHAPE``: two
+    gloo ranks spawned on ``cuda:0`` over a ``FileStore`` (as phase 16
+    starts them), rank 0 working for a master in this process for an
+    epoch of ``TREE_MESH_CFG`` (2 train jobs and an eval job): the
+    master's ``slave_meshes`` records the shape, its tree lies within
+    phase 16's cross-layout band of one ``FusedTrainer`` taking the same
+    steps, and each rank launched K1/K1b/K2/K2b 2/2/3/3 a train job;
+    each job's broadcast and gather seconds.  Returns {kernel: launches}
+    summed over the ranks."""
+    import multiprocessing as mp
+
+    world = TREE_MESH_SHAPE[0] * TREE_MESH_SHAPE[1]
+    # the ranks read the images this process draws
+    cfg = dict(TREE_MESH_CFG, data_path=star_dataset(TREE_MESH_CFG))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tree_")
+    try:
+        with engine_knobs(**FUSED_KNOBS):
+            server, jobs = tree_master(torch, cfg, job_timeout=STAR_WAIT_S)
+        start_tree = star_tree(server.workflow)
+        server.start()
+        t0 = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=tree_mesh_rank,
+                             args=(rank, world, os.path.join(tmp, "store"),
+                                   tmp, server.endpoint, cfg))
+                 for rank in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + STAR_WAIT_S
+        try:
+            for p in procs:
+                p.join(max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"[tree:c] ranks exited {codes}")
+        if not server.join(STAR_WAIT_S):
+            raise AssertionError("[tree:c] the master never finished")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+        shape = {"data": TREE_MESH_SHAPE[0], "model": TREE_MESH_SHAPE[1]}
+        if server.slave_meshes != {"m0": shape} \
+                or server.jobs_by_slave != {"m0": len(jobs)} \
+                or not bool(server.decision.complete) \
+                or any(r["mesh"] != shape for r in ranks):
+            raise AssertionError(f"[tree:c] slave_meshes "
+                                 f"{server.slave_meshes}, by slave "
+                                 f"{server.jobs_by_slave}, rank meshes "
+                                 f"{[r['mesh'] for r in ranks]}")
+        got = {}
+        for r in ranks:
+            got[r["rank"]] = tree_launches(r["launches"], jobs,
+                                           f"c:rank{r['rank']}")
+        def flat(tree):
+            return {f"{name}.{k}": torch.from_numpy(np.asarray(a))
+                    for name, leaves in tree.items() for k, a in leaves.items()}
+
+        want, start = flat(tree_reference(torch, jobs, cfg)), flat(start_tree)
+        worst, outside, share = shard_drift(
+            torch, flat(star_tree(server.workflow)), want, start)
+        # the band is loose on a short run (ROADMAP C.5): the reference
+        # must have left it, and the meshed run's distance from the
+        # reference must be a small share of what the reference moved
+        _, moved_out, _ = shard_drift(torch, start, want, start)
+        moved = max(float((want[k].double() - start[k].double()).abs().max())
+                    for k in want)
+        if outside or not moved_out or share > TREE_MESH_SHARE:
+            raise AssertionError(
+                f"[tree:c] leaves outside the band {SHARD_RTOL} / "
+                f"{SHARD_ATOL}: {outside}; the reference moved "
+                f"{len(moved_out)} leaves out of it from the start; max|d| "
+                f"{worst:.3g} is {share:.3g} of the move (limit "
+                f"{TREE_MESH_SHARE})")
+        r0 = ranks[0]
+        log(f"[tree:c] {card}: a meshed FusedClient {shape} of {world} gloo "
+            f"ranks on {r0['device']}, {len(jobs)} jobs "
+            f"({sum(1 for j in jobs if j['class'] == 2)} train): "
+            f"slave_meshes {server.slave_meshes}; the master's tree vs one "
+            f"FusedTrainer's within the band {SHARD_RTOL} / {SHARD_ATOL}: "
+            f"max|d| {worst:.3g}, at most {share:.3g} of what the reference "
+            f"moved the leaves (limit {TREE_MESH_SHARE}; max|w1 - w0| "
+            f"{moved:.3g}, {len(moved_out)} of {len(want)} leaves moved out "
+            f"of the band); launches by rank "
+            f"{got}; rank 0's seconds a job "
+            f"{['%.4f' % s for s in r0['job_seconds']]}; broadcast s "
+            + "; ".join(f"rank {r['rank']} "
+                        f"{['%.4f' % s for s in r['mesh_seconds']['broadcast']]}"
+                        for r in ranks)
+            + f"; gather s {['%.4f' % s for s in r0['mesh_seconds']['gather']]}"
+            f"; collectives by rank "
+            f"{[r['collectives'] for r in ranks]}; spawned, trained and "
+            f"joined in {wall:.2f}s")
+        return {n: sum(r["launches"][n] for r in ranks) for n in KERNELS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -7098,7 +7632,7 @@ def main(argv=None) -> int:
                          "'snapshots': phase 17; 'zmq': phase 18; "
                          "'graphs': phase 19; 'serve_mesh': phase 20; "
                          "'fleet': phase 21; 'aot': phase 22; 'master': "
-                         "phase 23")
+                         "phase 23; 'tree': phase 24")
     ap.add_argument("--aot-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
@@ -7122,6 +7656,8 @@ def main(argv=None) -> int:
         return run_phases(torch, args)
     finally:
         shutil.rmtree(snapshots, ignore_errors=True)
+        if _STAR_DATA["dir"] is not None:
+            shutil.rmtree(_STAR_DATA["dir"], ignore_errors=True)
 
 
 def run_phases(torch, args) -> int:
@@ -7172,11 +7708,12 @@ def run_phases(torch, args) -> int:
         graphs, serve_mesh = "graphs" in names, "serve_mesh" in names
         fleet = "fleet" in names
         aot, master = "aot" in names, "master" in names
+        tree = "tree" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
                   "segments", "deep", "shard", "snapshots", "zmq",
-                  "graphs", "serve_mesh", "fleet", "aot", "master",
+                  "graphs", "serve_mesh", "fleet", "aot", "master", "tree",
                   *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
@@ -7291,7 +7828,8 @@ def run_phases(torch, args) -> int:
                             "launches_by_path", {})[label] = count
             lap("phase 21")
         for flag, phase, tag in ((aot, aot_phase, "phase 22"),
-                                 (master, master_phase, "phase 23")):
+                                 (master, master_phase, "phase 23"),
+                                 (tree, tree_phase, "phase 24")):
             if not flag:
                 continue
             for label, launches in phase(torch, card).items():
@@ -7548,6 +8086,16 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 23")
+
+    # -- phase 24: the relay tree: one slave behind a relay against one
+    # -- process, two slaves and a relay killed, the meshed slave ------
+    for label, launches in tree_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][label] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 24")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

@@ -300,6 +300,31 @@ def test_rollover_refused_below_health_floor():
         bal.stop()
 
 
+def test_a_draining_replicas_refusal_is_retried_on_another():
+    """A replica stopped between the balancer's dispatch and the request's
+    arrival answers a service-scoped ``draining`` refusal: the balancer
+    retries the same bytes on another replica (ROADMAP C.10), so every
+    request is answered once and the ledger balances."""
+    from znicz_torch.parallel.chaos import ScriptedReplica
+
+    bal, reps = _fleet(1, bal_kwargs={"hedge": False})
+    sick = ScriptedReplica(bal.endpoint, "sick",
+                           refuse=("draining", "service")).start()
+    reps.append(sick)
+    _wait(lambda: bal.ready_count() >= 2, "a ready fleet")
+    cli = _client(bal)
+    try:
+        for _ in range(16):
+            rep = cli.result(cli.submit(X1), timeout=BUDGET)
+            assert np.array_equal(rep["y"], X1) and rep["replica_id"] == "r0"
+        assert bal.sheds_retried >= 1
+        ledger = bal.ledger()
+        assert ledger["balanced"] and ledger["refused"] == 0, ledger
+        assert ledger["replied"] == 16
+    finally:
+        _teardown(bal, reps, cli)
+
+
 # -- the per-endpoint client breaker ----------------------------------------------
 
 

@@ -178,6 +178,73 @@ def test_the_star_trains_without_jax_in_the_process(tmp_path):
     assert out.stdout.strip() == "trained through the star"
 
 
+def test_the_relay_tree_trains_without_jax_in_the_process(tmp_path):
+    """A port master, a relay and a meshless fused slave behind it train
+    reduced MNIST over ZMQ in a process where jax was never imported;
+    the tree's modules are among the files checked above."""
+    for rel in ("parallel/relay.py", "parallel/chaos.py", "server.py",
+                "client.py", "__main__.py"):
+        assert REPO / "znicz_torch" / rel in _port_files()
+    code = (
+        "import sys\n"
+        "from znicz_torch.core import prng\n"
+        "from znicz_torch.core.config import root\n"
+        "from znicz_torch.client import FusedClient\n"
+        "from znicz_torch.parallel.chaos import RelayHarness\n"
+        "from znicz_torch.server import Server\n"
+        "from znicz_torch.samples import mnist\n"
+        "root.mnist.loader.n_train = 120\n"
+        "root.mnist.loader.n_valid = 60\n"
+        "root.mnist.decision.max_epochs = 1\n"
+        f"root.common.dirs.snapshots = {str(tmp_path)!r}\n"
+        "def wf():\n"
+        "    prng.reset(1013)\n"
+        "    return mnist.MnistWorkflow(device='cpu')\n"
+        "srv = Server(wf(), job_timeout=60.0).start()\n"
+        "relay = RelayHarness(srv.endpoint, 'tcp://127.0.0.1:*')\n"
+        "relay.start()\n"
+        "done = FusedClient(wf(), endpoint=relay.endpoint).run()\n"
+        "assert srv.join(120) and done == srv.jobs_done > 0\n"
+        "assert srv.aggregated_updates == srv.updates_received > 0\n"
+        "relay.kill()\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'znicz_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('trained through a relay')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "trained through a relay"
+
+
+def test_a_relay_process_runs_without_jax(tmp_path):
+    """``python -m znicz_torch --relay`` (no workflow) serves and ends in
+    a process where jax was never imported: it prints its endpoint, and
+    exits 0 once stopped."""
+    code = (
+        "import sys, threading\n"
+        "from znicz_torch import __main__ as cli\n"
+        "from znicz_torch.parallel import relay as relay_mod\n"
+        "made = []\n"
+        "class Stopped(relay_mod.Relay):\n"
+        "    def start(self, linger=3.0):\n"
+        "        made.append(self)\n"
+        "        super().start(linger)\n"
+        "        threading.Timer(0.5, self.stop).start()\n"
+        "        return self\n"
+        "relay_mod.Relay = Stopped\n"
+        "assert cli.main(['--relay', 'tcp://127.0.0.1:1:tcp://127.0.0.1:*'"
+        "]) == 0\n"
+        "assert made and made[0].endpoint != 'tcp://127.0.0.1:*'\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'znicz_tpu')]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "children at tcp://127.0.0.1:" in out.stdout
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     from znicz_torch.backends import resolve_device
     from znicz_torch.samples.alexnet import AlexNetWorkflow

@@ -22,6 +22,7 @@ reference's own master and slave:
 Every socket binds ``tcp://127.0.0.1:*``; tests wait by polling state
 with generous budgets, never on a wall-clock bound."""
 
+import contextlib
 import os
 import pathlib
 import pickle
@@ -54,26 +55,59 @@ def _wait(pred, what, budget=BUDGET):
         time.sleep(0.02)
 
 
+@contextlib.contextmanager
+def _restored(keys):
+    """``keys`` (dotted paths) in both config trees put back on exit.  A
+    key that was unset is deleted again: put back as None it would read
+    as off (``job_prefetch``) in every later test of the process."""
+    from znicz_torch.core.config import root as troot
+    from znicz_tpu.core.config import root as jroot
+
+    unset = object()
+    saved = [(tree, k, tree.get_by_path(k, unset))
+             for tree in (troot, jroot) for k in keys]
+    try:
+        yield
+    finally:
+        for tree, k, v in saved:
+            if v is unset:
+                head, _, leaf = k.rpartition(".")
+                node = tree.get_by_path(head)
+                if node is not None:
+                    delattr(node, leaf)
+            else:
+                tree.set_by_path(k, v)
+
+
 @pytest.fixture(autouse=True)
 def _mnist_config():
     """The reduced MNIST of the reference's tests in both config trees,
     put back after each test; the star's engine knobs too."""
     import znicz_torch.samples.mnist  # noqa: F401  (its defaults)
     import znicz_tpu.samples.mnist  # noqa: F401
-    from znicz_torch.core.config import root as troot
+
+    with _restored(("mnist.loader.n_train", "mnist.loader.n_valid",
+                    "mnist.loader.minibatch_size",
+                    "mnist.decision.max_epochs", "common.dirs.snapshots",
+                    "common.engine.job_prefetch", "common.engine.mode",
+                    "common.engine.train_shard")):
+        yield
+
+
+def test_an_unset_knob_is_unset_again():
+    """ROADMAP C.12: the config fixture deletes a knob that was unset
+    before the test (put back as None, ``job_prefetch`` would turn the
+    reference client's prefetch off in every later test of the
+    worker)."""
     from znicz_tpu.core.config import root as jroot
 
-    keys = ("mnist.loader.n_train", "mnist.loader.n_valid",
-            "mnist.loader.minibatch_size", "mnist.decision.max_epochs",
-            "common.dirs.snapshots", "common.engine.job_prefetch",
-            "common.engine.mode", "common.engine.train_shard")
-    saved = [(tree, k, tree.get_by_path(k)) for tree in (troot, jroot)
-             for k in keys]
-    try:
-        yield
-    finally:
-        for tree, k, v in saved:
-            tree.set_by_path(k, v)
+    eng = jroot.common.engine
+    if "job_prefetch" in eng:
+        delattr(eng, "job_prefetch")
+    with _restored(("common.engine.job_prefetch",)):
+        eng.job_prefetch = False
+    assert "job_prefetch" not in eng
+    assert bool(eng.get("job_prefetch", True))
 
 
 def _configure(tree, tmp_path, max_epochs, n_train):
@@ -818,9 +852,9 @@ def test_staleness_boundary_star_and_weighting(tmp_path):
 
 
 def test_quorum_gate_waits_below_min_slaves(tmp_path):
-    """Below ``min_slaves`` job requests wait (degraded); a second slave
-    lifts the gate.  A relay's registration and the tree's members are
-    refused by name (the tree waits for the rest of A.7)."""
+    """Below ``min_slaves`` job requests wait (degraded); a relay's
+    ``leaves`` report counts through the tree and lifts the gate, and the
+    re-plan of its join names it."""
     from znicz_torch.server import Server
 
     wf = _make_workflow(tmp_path / "m")
@@ -830,21 +864,18 @@ def test_quorum_gate_waits_below_min_slaves(tmp_path):
     assert server._handle({"cmd": "job", "id": "s1"}) == {
         "wait": True, "degraded": True, "members": 1, "min_slaves": 2}
     assert server.degraded() and not server.quorum_met()
-    rep = server._handle({"cmd": "register", "id": "r1", "relay": True,
-                          "bind": "tcp://127.0.0.1:9",
-                          **_handshake_fields(wf)})
-    assert rep["ok"] is False and "A.7" in rep["error"]
-    assert server._handle({"cmd": "register", "id": "s2",
+    assert server.tree_plan is None
+    assert server._handle({"cmd": "register", "id": "r1", "relay": True,
+                           "bind": "tcp://127.0.0.1:9",
                            **_handshake_fields(wf)})["ok"]
-    assert "job" in server._handle({"cmd": "job", "id": "s2"})
+    assert server.member_count() == 1           # no leaves reported yet
+    rep = server._handle({"cmd": "job", "id": "r1", "count": 2,
+                          "leaves": 1})
+    assert "jobs" in rep                        # 1 direct + 1 leaf = 2
     assert server.member_count() == 2 and not server.degraded()
-    rep = server._handle({"cmd": "update", "id": "s2", "contributors": [],
-                          "deltas": None})
-    assert rep["ok"] is False and "A.7" in rep["error"]
-    with pytest.raises(NotImplementedError, match="A.7"):
-        server.tree_plan
-    with pytest.raises(NotImplementedError, match="A.7"):
-        Server(wf, elastic_rehome=True)
+    assert server.tree_plan["relays"][0]["id"] == "r1"
+    assert server.tree_plan["relays"][0]["bind"] == "tcp://127.0.0.1:9"
+    assert server.replans == 1
 
 
 def test_elastic_counters_resume_roundtrip(tmp_path):
@@ -1119,13 +1150,27 @@ def test_zmq_loader_pulls_minibatches_from_a_feeder():
 
 
 def test_meshed_fused_slave_waits_for_a7(tmp_path):
-    from znicz_torch.client import FusedClient
-    from znicz_torch.core.config import root
+    """The meshed slave builds (two gloo ranks on the CPU, one a process)
+    and advertises its shape: the handshake carries ``{"data": 2,
+    "model": 1}`` with the digest of a single-device slave, and a master
+    that takes rank 0's register records it in ``slave_meshes``.  The
+    meshed slave's training is ``test_torch_meshed_slave.py``'s."""
+    from test_torch_meshed_slave import _mnist_master_start, spawn
 
-    wf = _make_workflow(tmp_path / "s")
-    root.common.engine.train_shard = True
-    with pytest.raises(NotImplementedError, match="A.7"):
-        FusedClient(wf, endpoint="tcp://127.0.0.1:1")
+    from znicz_torch.network_common import handshake_request
+    from znicz_torch.server import Server
+
+    wf = _mnist_master_start(tmp_path)
+    ranks = spawn(tmp_path, (2, 1), "tcp://127.0.0.1:1", "pod",
+                  build_only=True)
+    want = {"data": 2, "model": 1}
+    for r in ranks:
+        assert r["mesh_shape"] == want and r["handshake"]["mesh"] == want
+        assert r["handshake"]["workflow_digest"] == handshake_request(
+            wf)["workflow_digest"]
+    server = Server(wf)
+    assert server._handle(dict(ranks[0]["handshake"], id="pod"))["ok"]
+    assert server.slave_meshes == {"pod": want}
 
 
 MNIST_TINY = ["root.mnist.loader.n_train=300", "root.mnist.loader.n_valid=60",

@@ -124,8 +124,8 @@ def test_composed_train_steps_under_mask_match_the_reference():
 
 
 def _star_knob(knob, value):
-    """A knob of the master/slave star, read since it was ported (the
-    case keeps the id it had while refused)."""
+    """A knob of the master/slave star or its relay tree, read since it
+    was ported (the case keeps the id it had while refused)."""
     return pytest.param(knob, value, None, id=f"{knob}-{value}-A.7")
 
 
@@ -135,7 +135,7 @@ def _star_knob(knob, value):
     _star_knob("slave_ttl", 30.0),
     _star_knob("job_prefetch", False),
     _star_knob("staleness_bound", 2),
-    ("tree_fanout", 4, "A.7"),
+    _star_knob("tree_fanout", 4),
     _star_knob("mode", "master"),
     _star_knob("master_bind", "tcp://*:5571"),
     ("seq_parallel", 2, "A.8"),
@@ -144,9 +144,9 @@ def test_cli_refuses_an_unported_knob(knob, value, item, tmp_path):
     """``python -m znicz_torch mnist root.common.engine.<knob>=<value>``
     exits non-zero with a ``NotImplementedError`` naming the knob and its
     ROADMAP item, and writes no snapshot: nothing trained.  A knob of the
-    star (``item`` None) is read: the local run trains with it (the star's
-    knobs act in the master and slave roles), and ``mode=master`` makes
-    the CLI serve as the master."""
+    star or the tree (``item`` None) is read: the local run trains with it
+    (those knobs act in the master, slave and relay roles), and
+    ``mode=master`` makes the CLI serve as the master."""
     over = [f"root.mnist.{k.replace('__', '.')}={v}"
             for k, v in REDUCED["mnist"].items()]
     cmd = [sys.executable, "-m", "znicz_torch", "mnist", "--device", "cpu",

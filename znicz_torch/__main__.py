@@ -9,10 +9,14 @@ paths of ``znicz_tpu/launcher.py``):
                           [--serve [BIND]] [--replica-id ID]
                           [--announce EP] [--aot-cache [DIR]]
                           [--master [BIND]] [--master-resume FILE]
-                          [--min-slaves N] [--slave EP]
+                          [--min-slaves N] [--staleness-bound S]
+                          [--slave EP] [--mesh-data N] [--mesh-model N]
     python -m znicz_torch --balance [BIND] [--replicas EP[,EP]]
                           [--min-replicas N] [--autoscale-max N
                           --spawn-cmd CMD] [root.x.y=value ...]
+    python -m znicz_torch --relay UPSTREAM[:BIND] [--tree-fanout N]
+                          [root.x.y=value ...]
+    python -m znicz_torch --plan-tree N [--tree-fanout N] [--master EP]
 
 Dotted overrides are applied to the port's config tree before the sample
 module is imported, so its defaults do not clobber them.  The sample's
@@ -64,6 +68,33 @@ else on the unit engine (``client.Client``).  ``--master`` and
 ``--slave`` exclude each other, ``--serve`` and ``--balance``; a
 ``--slave`` with ``--master-resume`` exits 2.
 
+``--relay UPSTREAM[:BIND]`` runs one relay of the aggregation tree
+(``parallel.relay.Relay``) and builds no workflow: it accepts slaves and
+lower relays at BIND (default ``tcp://*:5571``; a bare port means
+``tcp://*:PORT``), checks and sums their deltas and sends one combined
+update to UPSTREAM, until the upstream reports training done.  It prints
+``relay <id>: children at <endpoint> -> upstream <UPSTREAM> ...`` with
+the resolved endpoint.  ``--tree-fanout N``
+(``root.common.engine.tree_fanout``) is its flush threshold and job-batch
+factor.  ``--plan-tree N`` prints, as one JSON document, the relay tiers
+a fleet of N slaves needs at the fanout (``parallel.relay.plan_tree``):
+the relays top tier first, each slave's endpoint and ``relay_args``, the
+``--relay`` spec of each relay; the master is ``--master EP`` (default
+``root.common.engine.master_bind`` on 127.0.0.1).  ``--relay`` excludes
+``--master``, ``--slave``, ``--serve`` and ``--balance``.
+``--staleness-bound S`` (``root.common.engine.staleness_bound``) makes
+the master refuse and re-queue a delta more than S applies old.
+
+``--mesh-data N`` and ``--mesh-model M`` make the ``--slave`` a meshed
+slave (``root.common.engine.train_shard`` and ``mesh.data``/``model``)
+and the ``--serve`` replica a serving mesh (``root.common.serving.mesh``).
+A mesh of more than one rank runs one process a rank under ``torchrun``
+(``torchrun --nproc-per-node N*M -m znicz_torch ...``): each rank joins
+its group from ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and
+``RANK`` (``parallel.mesh.distributed_init``; gloo on the CPU and where
+ranks share a card); started without them the run exits 2.  Rank 0 talks
+to the master (or serves), and the other ranks follow it.
+
 ``--balance [BIND]`` (default ``tcp://*:5590``) runs the replica balancer
 (``serving.ReplicaBalancer``) and builds no workflow: a workflow argument
 exits 2, as ``--serve`` or ``--fused`` beside it does.  ``--replicas``
@@ -85,6 +116,8 @@ import importlib
 import inspect
 import json
 import logging
+import os
+import re
 import signal
 import sys
 import threading
@@ -164,6 +197,36 @@ def main(argv=None) -> int:
                     help="the master's quorum (root.common.engine."
                          "min_slaves): below N live slaves dispatch "
                          "pauses")
+    ap.add_argument("--staleness-bound", type=int, default=None,
+                    metavar="S",
+                    help="the master's bounded staleness (root.common."
+                         "engine.staleness_bound): refuse and re-queue a "
+                         "delta more than S applies old; 0: unbounded")
+    ap.add_argument("--relay", default=None, metavar="UPSTREAM[:BIND]",
+                    help="run a relay of the aggregation tree: accept "
+                         "slaves and relays at BIND (default tcp://*:5571; "
+                         "a bare port means tcp://*:PORT), sum their deltas "
+                         "and send one update to UPSTREAM; takes no "
+                         "workflow argument")
+    ap.add_argument("--tree-fanout", type=int, default=None, metavar="N",
+                    help="children per relay (root.common.engine."
+                         "tree_fanout, default 2): the flush threshold and "
+                         "the job-batch factor")
+    ap.add_argument("--plan-tree", type=int, default=None,
+                    metavar="N_SLAVES",
+                    help="print the relay tree N_SLAVES slaves need at "
+                         "--tree-fanout (relays, endpoints, --relay specs) "
+                         "and exit")
+    ap.add_argument("--mesh-data", type=int, default=None, metavar="N",
+                    help="with --slave: a meshed slave's data axis "
+                         "(root.common.engine.mesh.data, train_shard on); "
+                         "with --serve: the serving mesh's "
+                         "(root.common.serving.mesh.data); one process a "
+                         "rank under torchrun")
+    ap.add_argument("--mesh-model", type=int, default=None, metavar="N",
+                    help="the mesh's model axis (engine.mesh.model with "
+                         "--slave, serving.mesh.model with --serve): wide "
+                         "FC layers split by rows over N ranks")
     ap.add_argument("--balance", nargs="?", const="tcp://*:5590",
                     default=None, metavar="BIND",
                     help="run the replica balancer at BIND (default "
@@ -190,13 +253,27 @@ def main(argv=None) -> int:
                         format="%(asctime)s %(name)s %(message)s")
     training_role = (args.master is not None or args.slave is not None
                      or bool(args.master_resume))
+    if args.tree_fanout is not None:
+        root.common.engine.tree_fanout = int(args.tree_fanout)
+    if args.staleness_bound is not None:
+        root.common.engine.staleness_bound = int(args.staleness_bound)
+    if args.plan_tree is not None:
+        return plan(args)
     if args.balance is not None:
-        if args.serve is not None or args.fused or training_role:
-            print("error: --balance is exclusive of --serve, of the "
-                  "master/slave roles and of the training flag --fused",
+        if args.serve is not None or args.fused or training_role \
+                or args.relay is not None:
+            print("error: --balance is exclusive of --serve, --relay, of "
+                  "the master/slave roles and of the training flag --fused",
                   file=sys.stderr)
             return 2
         return balance(args)
+    if args.relay is not None:
+        if args.serve is not None or args.fused or training_role:
+            print("error: --relay is mutually exclusive with the "
+                  "master/slave/serve roles and the training flag --fused",
+                  file=sys.stderr)
+            return 2
+        return relay(args)
     if args.workflow not in SAMPLES:
         ap.error(f"the sample must be one of {', '.join(SAMPLES)}; got "
                  f"{args.workflow!r}")
@@ -234,6 +311,20 @@ def main(argv=None) -> int:
         root.common.engine.slave_endpoint = args.slave
     if args.min_slaves is not None:
         root.common.engine.min_slaves = int(args.min_slaves)
+    meshed = args.mesh_data is not None or args.mesh_model is not None
+    if meshed and args.slave is None and args.serve is None:
+        print("error: --mesh-data and --mesh-model apply to --slave and "
+              "--serve", file=sys.stderr)
+        return 2
+    if meshed:
+        tree = (root.common.engine.mesh if args.slave is not None
+                else root.common.serving.mesh)
+        if args.slave is not None:
+            root.common.engine.train_shard = True
+        if args.mesh_data is not None:
+            tree.data = int(args.mesh_data)
+        if args.mesh_model is not None:
+            tree.model = int(args.mesh_model)
     if args.aot_cache is not None:
         root.common.serving.aot_cache.enabled = True
         if args.aot_cache != "auto":
@@ -244,6 +335,13 @@ def main(argv=None) -> int:
         root.common.engine.fused = True
     if args.seed is not None:
         prng.seed_all(args.seed)
+    if meshed:
+        tree = (root.common.engine.mesh if args.slave is not None
+                else root.common.serving.mesh)
+        code = join_group(int(tree.get("data", 1)) * int(tree.get("model", 1)),
+                          args.device)
+        if code:
+            return code
     mod = importlib.import_module(f"znicz_torch.samples.{args.workflow}")
     if args.serve is not None:
         return serve(mod, args)
@@ -274,6 +372,107 @@ def main(argv=None) -> int:
     return 0
 
 
+#: what a rank of a mesh reads from ``torchrun``'s environment
+TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+
+
+def join_group(world: int, device) -> int:
+    """Join this process to a mesh of ``world`` ranks from ``torchrun``'s
+    environment (``parallel.mesh.distributed_init``); 0 when joined or
+    when one rank needs no group, 2 with a message when the environment
+    is missing or names another world size.  Ranks on the CPU, or more
+    ranks than cards, take gloo."""
+    if world <= 1:
+        return 0
+    missing = [k for k in TORCHRUN_ENV if k not in os.environ]
+    if missing or int(os.environ["WORLD_SIZE"]) != world:
+        print(f"error: a mesh of {world} ranks runs one process a rank "
+              f"under torchrun (torchrun --nproc-per-node {world} -m "
+              f"znicz_torch ...), which sets {', '.join(TORCHRUN_ENV)}; "
+              + (f"missing {', '.join(missing)}" if missing else
+                 f"WORLD_SIZE is {os.environ['WORLD_SIZE']}"),
+              file=sys.stderr)
+        return 2
+    import torch
+
+    from znicz_torch.parallel.mesh import distributed_init
+
+    cpu = device is not None and torch.device(device).type == "cpu"
+    shared = cpu or world > max(torch.cuda.device_count(), 1)
+    distributed_init(f"{os.environ['MASTER_ADDR']}:"
+                     f"{os.environ['MASTER_PORT']}", world,
+                     int(os.environ["RANK"]),
+                     backend="gloo" if shared else None,
+                     device="cpu" if cpu else device)
+    return 0
+
+
+def plan(args) -> int:
+    """``--plan-tree N``: print the relay tiers a fleet of N slaves needs
+    at the fanout, as one JSON document: the relays (top tier first, so
+    starting them in order brings the tree up parents first), each
+    slave's endpoint, and ``relay_args``, the ``--relay`` spec of each
+    relay."""
+    from znicz_torch.parallel.relay import plan_tree
+
+    master = args.master or str(root.common.engine.get("master_bind",
+                                                       "tcp://*:5570"))
+    m = re.match(r"^(\w+)://([^:/]+):(\d+)$", master)
+    if m is None:
+        print(f"error: --plan-tree needs the master's endpoint with its "
+              f"port (--master tcp://HOST:PORT), not {master!r}",
+              file=sys.stderr)
+        return 2
+    if m.group(2) == "*":
+        master = f"{m.group(1)}://127.0.0.1:{m.group(3)}"
+    try:
+        tree = plan_tree(int(args.plan_tree),
+                         int(root.common.engine.get("tree_fanout", 2)),
+                         master)
+    except ValueError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    tree["master"] = master
+    tree["relay_args"] = [f"{r['upstream']}:{r['bind']}"
+                          for r in tree["relays"]]
+    print(json.dumps(tree, indent=2), flush=True)
+    return 0
+
+
+def relay(args) -> int:
+    """``--relay UPSTREAM[:BIND]``: run one relay until its upstream
+    reports training done, or until interrupted.  No workflow is built:
+    the relay checks its children by passing the first handshake
+    upstream."""
+    from znicz_torch.parallel.relay import Relay, parse_relay_spec
+
+    args_in = ([args.workflow] if args.workflow else []) \
+        + list(args.overrides)
+    stray = [a for a in args_in if "=" not in a]
+    if stray:
+        print(f"error: --relay takes no workflow argument (got {stray})",
+              file=sys.stderr)
+        return 2
+    if args_in:
+        apply_overrides(root, args_in)
+    try:
+        upstream, bind = parse_relay_spec(args.relay)
+    except ValueError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    node = Relay(upstream, bind).start()
+    print(f"relay {node.relay_id}: children at {node.endpoint} -> upstream "
+          f"{upstream} (fanout {node.fanout}, wire {node.wire_dtype})",
+          flush=True)
+    try:
+        node.join()
+    except KeyboardInterrupt:
+        node.stop()
+    print(json.dumps({k: v for k, v in node.stats().items()
+                      if k != "children"}), flush=True)
+    return 0
+
+
 def serving_workflow(mod, device):
     """The sample module's workflow, built for serving and not trained:
     its ``serving_workflow(device)`` where it has one, else the one
@@ -295,9 +494,15 @@ def serving_workflow(mod, device):
 def serve(mod, args) -> int:
     """``--serve``: serve the sample's forward until interrupted or until
     ``root.common.serving.max_requests`` requests were answered."""
+    from znicz_torch.parallel.mesh import process_index
     from znicz_torch.serving import InferenceServer
+    from znicz_torch.serving.model import ModelRunner
 
     wf = serving_workflow(mod, args.device)
+    if process_index() != 0:
+        # a rank of a serving mesh other than 0 takes rank 0's steps
+        ModelRunner(wf, snapshot=args.snapshot).follow()
+        return 0
     max_requests = root.common.serving.get("max_requests", None)
     server = InferenceServer(
         wf, bind=args.serve, snapshot=args.snapshot,

@@ -25,8 +25,24 @@ Two slaves: :class:`Client` runs a job on the unit engine (the forward
 units, the evaluator and the GD chain, one minibatch at a time);
 :class:`FusedClient` runs it on ``FusedTrainer`` (a segment of k
 minibatches as k captured steps on the card).  The master cannot tell
-them apart but by speed.  A meshed slave (``train_shard``) waits for the
-rest of ROADMAP A.7.
+them apart but by speed.
+
+The tree (``parallel/relay.py``): a slave may work for a relay, which
+speaks the master's protocol.  A relay's register reply names its own
+upstream, which the slave keeps as its fallback: once its reconnect
+budget against a dead relay is spent, it switches there and registers
+again.  A master with ``elastic_rehome`` may answer a register with a
+``rehome`` endpoint (a live relay); the slave moves there and keeps the
+endpoint it left as its fallback.
+
+A meshed slave (``FusedClient`` under ``train_shard``) is one slave made
+of a group of processes, one a rank (``parallel/mesh.py``): rank 0 talks
+to the master and the others follow (:meth:`FusedClient.run`).  For each
+job rank 0 broadcasts a header (the job and whether it trains) and the
+master's parameters; every rank steps on its own rows, and rank 0 forms
+the delta from the leaves gathered whole.  When the master says done, or
+rank 0 gives up, every rank leaves at once.  Its handshake carries the
+mesh's shape.
 
 Deliberate differences from the reference: the counters are plain
 integers under a lock, and spans and fleet-observability payloads are
@@ -199,6 +215,10 @@ class Client:
         self._breaker: Optional[CircuitBreaker] = None
         #: seconds each computed job took (compute only), in order
         self.job_seconds: List[float] = []
+        #: the upstream a relay advertised in its register reply (the
+        #: master advertises none): where the slave goes once its
+        #: reconnect budget against the relay is spent
+        self._fallback_endpoint: Optional[str] = None
 
     def _inc(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -211,7 +231,8 @@ class Client:
 
     @property
     def mesh_shape(self):
-        """A meshed slave's shape; None (meshed slaves wait for A.7)."""
+        """``{"data": dp, "model": mp}`` of a meshed slave (the register
+        handshake carries it), else None."""
         return None
 
     def preempt(self) -> None:
@@ -368,9 +389,17 @@ class Client:
                         "giving up", self.slave_id, refusals)
             return True
 
+        def retire_prefetcher() -> None:
+            """Stop the prefetcher, whose socket dials the endpoint being
+            left; the next real job starts a new one."""
+            nonlocal prefetcher
+            if prefetcher is not None:
+                prefetcher.stop()
+                prefetcher = None
+
         def reconnect(exc) -> bool:
             """Backoff before a fresh socket; False when the budget is
-            spent."""
+            spent and there is no fallback to switch to."""
             nonlocal registered, failures
             if isinstance(exc, BadReply):
                 self._inc("bad_replies")
@@ -383,10 +412,23 @@ class Client:
                         f"(python -m znicz_torch <sample> --master)?") \
                         from None
             elif failures > max_reconnects:
-                log.warning("%s: giving up after %d consecutive reconnects "
-                            "(master gone for good?)", self.slave_id,
-                            failures - 1)
-                return False
+                fallback = self._fallback_endpoint
+                if not fallback or fallback == self.endpoint:
+                    log.warning("%s: giving up after %d consecutive "
+                                "reconnects (master gone for good?)",
+                                self.slave_id, failures - 1)
+                    return False
+                # the relay is gone: its advertised upstream, one hop a
+                # spent budget; the next register records that peer's
+                # advertisement
+                log.warning("%s: relay at %s gone after %d consecutive "
+                            "reconnects — falling back to its upstream %s",
+                            self.slave_id, self.endpoint, failures - 1,
+                            fallback)
+                self.endpoint = ep.endpoint = fallback
+                self._fallback_endpoint = None
+                retire_prefetcher()
+                failures = 1
             self._inc("reconnects")
             registered = False
             ep.backoff(failures)
@@ -421,7 +463,21 @@ class Client:
                     if not rep.get("ok"):
                         raise RuntimeError(f"master refused registration: "
                                            f"{rep.get('error')}")
+                    self._fallback_endpoint = rep.get("upstream")
                     registered = ever_registered = True
+                    rehome = rep.get("rehome")
+                    if rehome and rehome != self.endpoint:
+                        # the master re-homed this orphan behind a live
+                        # relay; the endpoint left is the fallback, so a
+                        # dead target costs one more backoff window
+                        log.info("%s: master re-homed us to %s",
+                                 self.slave_id, rehome)
+                        self._fallback_endpoint = self.endpoint
+                        self.endpoint = rehome
+                        registered = False
+                        ep.reset()
+                        ep.endpoint = rehome
+                        retire_prefetcher()
                     continue
                 if update_frames is not None:
                     try:
@@ -537,7 +593,12 @@ class FusedClient(Client):
     unit slave's GD units' do.  Slaves of one process take the device in
     turns (:attr:`TURNS`): their steps warm up and capture on the one
     capture stream a device has (``parallel/graphs.capture_stream``),
-    which holds one capture at a time."""
+    which holds one capture at a time.
+
+    Under ``root.common.engine.train_shard`` the trainer runs on
+    ``parallel.mesh.train_mesh_from_config()``, and the slave is a group
+    of ranks: every rank builds its workflow and a ``FusedClient`` and
+    calls :meth:`run` (module docstring)."""
 
     #: held while a job's steps run
     TURNS = threading.Lock()
@@ -546,25 +607,182 @@ class FusedClient(Client):
                  slave_id: Optional[str] = None):
         super().__init__(workflow, endpoint=endpoint, slave_id=slave_id)
         from znicz_torch.parallel.fused import FusedTrainer
+        from znicz_torch.parallel.mesh import train_mesh_from_config
 
-        if bool(root.common.engine.get("train_shard", False)):
-            raise NotImplementedError(
-                "a meshed slave (root.common.engine.train_shard) is not "
-                "ported yet (ROADMAP queue A.7)")
         # built now, so a graph the fused trainer refuses raises here,
         # where the caller can take the unit Client
-        self._trainer = FusedTrainer(workflow)
+        self._trainer = FusedTrainer(workflow, mesh=train_mesh_from_config())
         if self._trainer.staging:
             raise FusedStagingUnsupportedError(
                 "FusedClient needs a device-resident loader (host-staged "
                 "streaming slaves are not supported)")
+        #: rank 0 of a mesh: the job's parameters until they are broadcast
+        self._mesh_params: Optional[Dict] = None
+        #: the ranks left together after a failed job (no stop to send)
+        self._left = False
+        #: a meshed slave's host seconds a job: the parameters' broadcast,
+        #: and (train jobs) the gather of the split leaves
+        self.mesh_seconds: Dict[str, List[float]] = {"broadcast": [],
+                                                     "gather": []}
 
     def engine_name(self) -> str:
         return "fused"
 
+    @property
+    def mesh_shape(self):
+        return self._trainer.mesh_shape
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the slave's group (0 off a mesh)."""
+        from znicz_torch.parallel.mesh import process_index
+
+        return 0 if self._trainer.mesh is None else process_index()
+
+    def run(self, *args, **kwargs) -> int:
+        """:meth:`Client.run`.  On a mesh, rank 0 runs it and the other
+        ranks follow rank 0's jobs until it stops; they return the jobs
+        they stepped.  When rank 0's run ends, or raises, every rank
+        leaves (a rank 0 failure raises on every rank)."""
+        if self._trainer.mesh is None:
+            return super().run(*args, **kwargs)
+        if self.rank != 0:
+            return self._follow()
+        try:
+            done = super().run(*args, **kwargs)
+        except BaseException as exc:
+            self._release(exc)
+            raise
+        self._release(None)
+        return done
+
+    # -- the meshed slave ----------------------------------------------------------
+
+    def _release(self, error: Optional[BaseException]) -> None:
+        """Rank 0: tell the other ranks to leave (with rank 0's error)."""
+        from znicz_torch.parallel.mesh import agree
+
+        if not self._left:
+            self._left = True
+            agree(("stop", None if error is None else repr(error)))
+
+    def _follow(self) -> int:
+        """A rank other than 0: step on rank 0's jobs until it stops."""
+        from znicz_torch.parallel.mesh import agree
+
+        while True:
+            head = agree(None)
+            if head[0] == "stop":
+                if head[1] is not None:
+                    raise RuntimeError(f"rank 0 of the meshed slave failed: "
+                                       f"{head[1]}")
+                return self.jobs_done
+            _, job, train = head
+            self._mesh_job(job, train, None)
+            if train:
+                self._whole_params()
+            self._inc("jobs_done")
+
+    def _leaves(self) -> list:
+        """(module, key, whole shape) of every parameter leaf, in order."""
+        from znicz_torch.network_common import whole_shape
+        from znicz_torch.nn_units import params_of
+
+        return [(f, k, whole_shape(f, k, t))
+                for f in self.workflow.forwards if f.has_weights
+                for k, t in params_of(f).items()]
+
+    def _mesh_job(self, job: dict, train: bool, params: Optional[Dict]):
+        """Every rank: rank 0's ``params`` (None elsewhere) broadcast as
+        one float32 buffer, this rank's part of each leaf written to its
+        module, the job's steps on this rank's rows; a failure on any rank
+        raises on every rank (``mesh.raise_anywhere``)."""
+        import torch.distributed as dist
+
+        from znicz_torch.nn_units import params_of
+        from znicz_torch.parallel import mesh as mesh_mod
+
+        leaves = self._leaves()
+        t0 = time.perf_counter()
+        # gloo broadcasts host tensors; NCCL device ones
+        dev = ("cpu" if dist.get_backend() == "gloo"
+               else self._trainer.device)
+        if params is not None:
+            flat = torch.from_numpy(np.concatenate(
+                [np.asarray(params[f.name][k], np.float32).ravel()
+                 for f, k, _ in leaves])).to(dev)
+        else:
+            flat = torch.empty(sum(int(np.prod(s)) for _, _, s in leaves),
+                               dtype=torch.float32, device=dev)
+        mesh_mod._collective(lambda: dist.broadcast(flat, 0), flat, None)
+        self.mesh_seconds["broadcast"].append(time.perf_counter() - t0)
+        error, out = None, None
+        try:
+            off = 0
+            with torch.no_grad():
+                for f, k, shape in leaves:
+                    n = int(np.prod(shape))
+                    whole = flat[off:off + n].view(shape)
+                    off += n
+                    place = mesh_mod.placement_of(f)
+                    part = whole if place is None else place.local(k, whole)
+                    t = params_of(f)[k]
+                    t.copy_(part.to(t.device, t.dtype))
+            del flat
+            with self.TURNS:
+                out = self._run_job(job, train)
+        except BaseException as exc:
+            error = exc
+        try:
+            mesh_mod.raise_anywhere(error, "a meshed slave's job")
+        except BaseException:
+            self._left = True           # every rank raises: none waits
+            raise
+        return out
+
+    def _whole_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Every rank: the live parameters with each column-sharded leaf
+        gathered whole over ``model`` (``snapshotter._whole``'s rule; a
+        collective on each model line)."""
+        from znicz_torch.nn_units import params_of
+        from znicz_torch.parallel import mesh as mesh_mod
+
+        t0 = time.perf_counter()
+        out = {}
+        for f in self.workflow.forwards:
+            if not f.has_weights:
+                continue
+            place = mesh_mod.placement_of(f)
+            out[f.name] = {k: t.detach() if place is None
+                           else place.full(k, t.detach())
+                           for k, t in params_of(f).items()}
+        self.mesh_seconds["gather"].append(time.perf_counter() - t0)
+        return out
+
+    # -- the job -------------------------------------------------------------------
+
+    def _apply_params(self, params: Dict) -> None:
+        if self._trainer.mesh is None:
+            super()._apply_params(params)
+        else:
+            self._mesh_params = params      # broadcast with the job
+
+    def _deltas_since(self, before: Dict) -> Dict:
+        if self._trainer.mesh is None:
+            return super()._deltas_since(before)
+        return {name: {k: t.float().cpu().numpy() - before[name][k]
+                       for k, t in leaves.items()}
+                for name, leaves in self._whole_params().items()}
+
     def _run_minibatch(self, job: dict, train: bool):
-        with self.TURNS:
-            return self._run_job(job, train)
+        if self._trainer.mesh is None:
+            with self.TURNS:
+                return self._run_job(job, train)
+        from znicz_torch.parallel.mesh import agree
+
+        agree(("job", job, bool(train)))
+        params, self._mesh_params = self._mesh_params, None
+        return self._mesh_job(job, train, params)
 
     def _run_job(self, job: dict, train: bool):
         t = self._trainer
@@ -585,6 +803,8 @@ class FusedClient(Client):
                 hyp_rows=t._hyper_matrix(rows))
             t.steps_done += k
             t.stats["train_steps"] += k
+        # a rank's metrics are its rows' (no-op off a mesh)
+        losses, n_errs, conf = t._sum_over_data(losses, n_errs, conf)
         vals = torch.stack([losses.double(), n_errs.double()]).cpu().numpy()
         conf = conf.cpu().numpy() if conf is not None else None
         metrics = []

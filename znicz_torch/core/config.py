@@ -227,6 +227,11 @@ ENGINE_DEFAULTS = {
     "min_slaves": 0,              # the quorum (0: no gate)
     "staleness_bound": 0,         # refuse deltas this many applies old
     "staleness_weight": False,    # scale a late delta by 1 / (1 + s)
+    # the relay tree (parallel/relay.py)
+    "tree_fanout": 2,             # children per relay; job-batch factor
+    "relay_flush_s": 0.05,        # a partial flush after this long (s)
+    "relay_child_ttl": 30.0,      # a relay drops a child silent this long
+    "elastic_rehome": False,      # hand orphan leaves a live relay
 }
 
 #: The reference's other ``root.common.engine.*`` knobs
@@ -235,10 +240,6 @@ ENGINE_DEFAULTS = {
 #: the ROADMAP item that ports it).  :func:`check_engine_knobs` refuses
 #: each set away from its default.
 UNPORTED_ENGINE_KNOBS = {
-    # A.7, the aggregation tree of the distributed training plane
-    **{key: (default, "A.7") for key, default in (
-        ("tree_fanout", 2), ("relay_flush_s", 0.05),
-        ("relay_child_ttl", 30.0), ("elastic_rehome", False))},
     # A.9, telemetry: the training plane's SLO
     **{key: (default, "A.9") for key, default in (
         ("obs_slo_apply_progress", 0.99), ("obs_slo_fast_window_s", 60.0),

@@ -22,9 +22,12 @@ asynchronous parameter-server roles instead of local training: ``master``
 serves the workflow's job stream (``server.Server`` at ``master_bind``,
 resuming from ``master_resume`` when that file exists) and prints
 ``master serving <workflow> at <endpoint>``; ``slave`` works for the
-master at ``slave_endpoint`` with a ``client.FusedClient`` when the fused
-trainer applies, else the unit-engine ``client.Client``.  The server or
-client is kept as ``workflow.server`` / ``workflow.client``.
+master (or a relay of its tree) at ``slave_endpoint`` with a
+``client.FusedClient`` when the fused trainer applies, else the
+unit-engine ``client.Client``.  Under ``train_shard`` the slave is a
+meshed ``FusedClient`` of this process's group (every rank calls
+:func:`train`; rank 0 talks to the master).  The server or client is
+kept as ``workflow.server`` / ``workflow.client``.
 """
 
 from __future__ import annotations
@@ -60,9 +63,8 @@ def train(workflow, fused: Optional[bool] = None, mesh=None):
     (``parallel.mesh.train_mesh_from_config``, None unless
     ``root.common.engine.train_shard``); the unit graph refuses a mesh.
     Returns the stats dict also kept as ``workflow.train_stats``.  A
-    reference knob the port does not read yet, such as the master and
-    slave roles (``root.common.engine.mode``), raises
-    (:func:`check_engine_knobs`)."""
+    reference knob the port does not read yet, such as ``seq_parallel``,
+    raises (:func:`check_engine_knobs`)."""
     from znicz_torch.parallel.mesh import train_mesh_from_config
 
     check_engine_knobs()
@@ -107,10 +109,6 @@ def _distributed(workflow, mode: str, fused: bool) -> dict:
         raise ValueError(f"--{mode} needs a StandardWorkflow-shaped graph; "
                          f"{workflow.name} lacks {missing}")
     eng = root.common.engine
-    if mode == "slave" and bool(eng.get("train_shard", False)):
-        raise NotImplementedError(
-            "a meshed slave (root.common.engine.train_shard) is not ported "
-            "yet (ROADMAP queue A.7)")
     t0 = time.perf_counter()
     if mode == "master":
         from znicz_torch.server import Server
@@ -142,6 +140,9 @@ def _distributed(workflow, mode: str, fused: bool) -> dict:
                 log.warning("fused slave unavailable (%s); falling back to "
                             "the unit-engine slave", exc)
         if client is None:
+            if bool(eng.get("train_shard", False)):
+                raise ValueError(f"{workflow.name}: a meshed slave needs the "
+                                 "fused trainer (--fused)")
             client = Client(workflow, endpoint=endpoint)
         workflow.client = client
         client.run()

@@ -13,7 +13,11 @@ coherent:
     device when the host is newer);
   - assigning ``devmem`` adopts a computed tensor as the newer half.
 
-The reference's cross-host sharded arrays are not ported (queue A.7).
+The reference's cross-host sharded arrays have no counterpart: a mesh
+here is a group of processes, each holding its own rows
+(``parallel/mesh.py``), and a sharded snapshot agrees across the ranks
+through ``mesh.raise_anywhere`` (ROADMAP, "pruned": A.7's multi-host
+snapshots).
 """
 
 from __future__ import annotations

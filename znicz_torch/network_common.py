@@ -29,11 +29,25 @@ _UNIT_STRUCT_ATTRS = ("kx", "ky", "sliding", "padding", "n_kernels",
                       "weights_transposed")
 
 
+def whole_shape(f, key: str, t) -> tuple:
+    """The whole shape of parameter ``key`` of module ``f``: on a mesh, a
+    column-sharded leaf holds its rank's rows, ``1 / mp`` of them."""
+    from znicz_torch.parallel import mesh as mesh_mod
+
+    shape = tuple(t.shape)
+    place = mesh_mod.placement_of(f)
+    if place is not None and place.specs.get(key):
+        shape = (shape[0] * mesh_mod.axis_size(place.mesh, "model"),) \
+            + shape[1:]
+    return shape
+
+
 def _unit_fingerprint(f, batch: int) -> list:
     """A forward module's computational identity: its name and class, its
     input and output shapes at ``batch`` rows (the reference's unit
     Arrays carry the loader's minibatch rows), its structural attributes
-    and, for a weighted module, its parameter shapes."""
+    and, for a weighted module, its parameter shapes (whole on a mesh, as
+    the reference's sharded arrays have their global shapes)."""
     from znicz_torch.nn_units import params_of
 
     attrs = []
@@ -42,7 +56,8 @@ def _unit_fingerprint(f, batch: int) -> list:
         if v is not None:
             attrs.append([a, list(v) if isinstance(v, (tuple, list))
                           else v])
-    shapes = sorted((k, list(t.shape)) for k, t in params_of(f).items())
+    shapes = sorted((k, list(whole_shape(f, k, t)))
+                    for k, t in params_of(f).items())
     io = None
     if f.in_shape:
         out = f.output_shape_for(f.in_shape)

@@ -30,11 +30,13 @@ of ``znicz_tpu/parallel/chaos.py``).
 
   - the master/slave star's harnesses: :func:`take_job_and_die` (a
     slave that takes one job and vanishes) and :class:`MasterHarness`
-    (kill and restart a ``Server`` from its crash-resume file).
+    (kill and restart a ``Server`` from its crash-resume file);
+  - the relay tree's harnesses: :class:`RelayHarness` (kill and restart
+    a ``Relay``) and :class:`SubtreePreempter` (kill and restart whole
+    subtrees on the seeded :meth:`~FaultSchedule.decide_preempt`
+    timetable).
 
-The aggregation tree's harnesses (``RelayHarness``, ``SubtreePreempter``)
-come with the rest of ROADMAP A.7.  Everything is CPU-only, in process
-and seeded.
+Everything is CPU-only, in process and seeded.
 """
 
 from __future__ import annotations
@@ -895,6 +897,132 @@ class MasterHarness:
     def wait(self, timeout: float = 120.0) -> bool:
         """Join the serving thread; True once it exited."""
         return self.server.join(timeout)
+
+
+class SubtreePreempter:
+    """Kill and restart whole subtrees of the relay tree on a seeded
+    timetable.  Each target is ``(name, kill_fn, restart_fn)``, typically
+    closures over a :class:`RelayHarness` and ``Client.preempt()`` calls
+    for its slaves; target i is killed ``decide_preempt(i)[0]`` seconds
+    after :meth:`start` and restarted after its ``down`` seconds.  Every
+    executed action is recorded with its wall time, so a check can hold
+    progress counters to the kill window (:meth:`window`).  The recorded
+    state is read under a lock while the timetable's thread writes it."""
+
+    def __init__(self, schedule: FaultSchedule, targets,
+                 kill_s: Tuple[float, float] = (0.5, 2.0),
+                 down_s: Tuple[float, float] = (1.0, 3.0)):
+        self.schedule = schedule
+        self.targets = list(targets)
+        self.timetable: List[tuple] = []    # (at_s, idx, action, fn, name)
+        for i, (name, kill_fn, restart_fn) in enumerate(self.targets):
+            kill_at, down = schedule.decide_preempt(i, kill_s, down_s)
+            self.timetable.append((kill_at, i, "kill", kill_fn, name))
+            self.timetable.append((kill_at + down, i, "restart",
+                                   restart_fn, name))
+        self.timetable.sort(key=lambda t: (t[0], t[1], t[2]))
+        self._lock = threading.Lock()
+        self._events: List[Tuple[float, str, str]] = []  # (wall, name, act)
+        self._preempted = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def events(self) -> List[Tuple[float, str, str]]:
+        with self._lock:
+            return list(self._events)
+
+    @property
+    def preemptions(self) -> int:
+        with self._lock:
+            return self._preempted
+
+    def window(self) -> Optional[Tuple[float, float]]:
+        """(first kill, last restart) wall times of what has run so far
+        (the last restart is now while a target is down); None before the
+        first kill."""
+        with self._lock:
+            kills = [t for t, _, a in self._events if a == "kill"]
+            rests = [t for t, _, a in self._events if a == "restart"]
+        if not kills:
+            return None
+        return min(kills), max(rests) if rests else time.time()
+
+    def start(self) -> "SubtreePreempter":
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="chaos-preempter")
+        self._thread.start()
+        return self
+
+    def join(self, timeout: float = 120.0) -> bool:
+        """Wait for the whole timetable; True once it ran."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+            return not self._thread.is_alive()
+        return True
+
+    def stop(self, timeout: float = 30.0) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout)
+            self._thread = None
+
+    def _loop(self) -> None:
+        t0 = time.time()
+        for at, _, action, fn, name in self.timetable:
+            while time.time() - t0 < at:
+                if self._stop.wait(min(0.02, max(0.001,
+                                                 at - (time.time() - t0)))):
+                    return
+            if self._stop.is_set():
+                return
+            fn()
+            with self._lock:
+                self._events.append((time.time(), name, action))
+                if action == "kill":
+                    self._preempted += 1
+
+
+class RelayHarness:
+    """Kill and restart a relay of the tree.  :meth:`start` builds a fresh
+    ``Relay`` and serves it on a thread; :meth:`kill` stops it mid-run:
+    its queued jobs and buffered contributions are lost, as a crashed
+    relay's are; the master's reaper brings the jobs back, and the
+    children either ride out a :meth:`restart` at the same address or
+    fall back to the relay's advertised upstream once their budget is
+    spent.  ``bind`` may use a wildcard port: the first start resolves
+    it and every restart binds the same address."""
+
+    def __init__(self, upstream: str, bind: str, **relay_kwargs):
+        self.upstream = upstream
+        self.bind = bind
+        self.relay_kwargs = relay_kwargs
+        self.relay = None
+        self.kills = 0
+
+    @property
+    def endpoint(self) -> str:
+        """The address the children dial (resolved once started)."""
+        return self.bind
+
+    def start(self):
+        from znicz_torch.parallel.relay import Relay
+
+        self.relay = Relay(self.upstream, self.bind,
+                           **self.relay_kwargs).start()
+        self.bind = self.relay.endpoint
+        return self.relay
+
+    def kill(self, timeout: float = 30.0) -> None:
+        """A relay crash: its buffered state dies with it."""
+        self.relay.stop(timeout)
+        self.kills += 1
+
+    def restart(self):
+        """A fresh relay at the same address (the children reconnect into
+        it and register again)."""
+        self.kill()
+        return self.start()
 
 
 def _flood_main(argv: List[str]) -> None:

@@ -175,7 +175,7 @@ from znicz_torch.loader.base import TRAIN
 from znicz_torch.nn_units import params_of, sgd_update, state_dtype
 from znicz_torch.ops.linear import linear
 from znicz_torch.parallel import mesh as mesh_mod
-from znicz_torch.parallel.graphs import StepGraph, capture_stream
+from znicz_torch.parallel.graphs import StepGraph, capturing
 from znicz_torch.pooling import StochasticPoolingBase
 
 MaskFn = Callable[[int, int, tuple, float], torch.Tensor]
@@ -1040,27 +1040,28 @@ class FusedTrainer:
             return mask
 
         current = torch.cuda.current_stream(self.device)
-        stream = capture_stream(self.device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            out = self._step(kind, inputs, batch_size, step, hyp, clips,
-                             record)
-        current.wait_stream(stream)
-        for t in out:
-            t.record_stream(current)
-        self.stats["eager_steps"] += 1
-        # nothing else may touch the card while it captures: the stager's
-        # assemblies and the snapshot writer finish first
-        if self._stager is not None:
-            self._stager.quiesce()
-        self._drain_snapshots(suppress=False)
-        torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        cap = StepGraph({n: torch.empty_like(t) for n, t in inputs.items()},
-                        None if hyp is None else torch.empty_like(hyp),
-                        masks)
-        cap.capture(lambda: self._step(kind, cap.inputs, batch_size, 0,
-                                       cap.hyp, clips, cap.mask), stream)
+        with capturing(self.device) as stream:
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                out = self._step(kind, inputs, batch_size, step, hyp, clips,
+                                 record)
+            current.wait_stream(stream)
+            for t in out:
+                t.record_stream(current)
+            self.stats["eager_steps"] += 1
+            # nothing else may touch the card while it captures: the
+            # stager's assemblies and the snapshot writer finish first
+            if self._stager is not None:
+                self._stager.quiesce()
+            self._drain_snapshots(suppress=False)
+            torch.cuda.synchronize(self.device)
+            t1 = time.perf_counter()
+            cap = StepGraph({n: torch.empty_like(t)
+                             for n, t in inputs.items()},
+                            None if hyp is None else torch.empty_like(hyp),
+                            masks)
+            cap.capture(lambda: self._step(kind, cap.inputs, batch_size, 0,
+                                           cap.hyp, clips, cap.mask), stream)
         self._captures[key] = cap
         self.stats["warmup_s"] += t1 - t0
         self.stats["capture_s"] += time.perf_counter() - t1

@@ -20,16 +20,28 @@ counters stay the number of kernels the card ran.
 A capture runs on :func:`capture_stream`, one side stream a device, in
 the ``thread_local`` error mode: a call that is illegal under capture (a
 synchronisation, a pageable copy) made by the capturing thread raises
-there, and the trainer lets it raise.
+there, and the trainer lets it raise.  The capture stream is a CUDA
+stream of its own, not one of PyTorch's pooled streams: ``torch.cuda.
+Stream()`` hands the pool's 32 streams out round robin, so another
+thread's copy stream could be the capturing stream, its work captured
+into the graph and its events never fired (ROADMAP C.11).  A warm-up and
+capture hold :func:`capturing`: one thread of the process at a time
+queues work on the capture stream.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+import contextlib
+import threading
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 _STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+#: held while a thread warms up and captures on a capture stream
+_CAPTURE_LOCK = threading.Lock()
+#: ``CU_STREAM_NON_BLOCKING``: no implicit sync with the legacy stream
+_NON_BLOCKING = 1
 
 
 def counted() -> Tuple:
@@ -57,14 +69,45 @@ def _add(counts: List[Tuple[int, int]], sign: int = 1) -> None:
             w.simple_launches += sign * simple
 
 
+def _own_stream(index: int) -> "torch.cuda.Stream":
+    """A non-blocking CUDA stream on device ``index`` that no other caller
+    is handed (made through the CUDA driver API, outside PyTorch's stream
+    pool)."""
+    import ctypes
+
+    handle = ctypes.c_void_p()
+    # the stream is made in the current context: the device's primary
+    # one, bound to this thread until the block leaves (a bare
+    # synchronize(index) would switch back to the caller's device first)
+    with torch.cuda.device(index):
+        torch.cuda.synchronize()
+        rc = ctypes.CDLL("libcuda.so.1").cuStreamCreate(
+            ctypes.byref(handle), ctypes.c_uint(_NON_BLOCKING))
+    if rc != 0:
+        raise RuntimeError(f"cuStreamCreate failed on cuda:{index} "
+                           f"(CUresult {rc})")
+    return torch.cuda.ExternalStream(handle.value,
+                                     device=torch.device("cuda", index))
+
+
 def capture_stream(device: torch.device) -> "torch.cuda.Stream":
-    """The side stream on which the trainer warms up and captures its
-    steps on ``device``."""
+    """The side stream on which the trainer and the served runners warm up
+    and capture on ``device`` (module docstring); take it through
+    :func:`capturing`."""
     index = torch.device(device).index or 0
     stream = _STREAMS.get(index)
     if stream is None:
-        stream = _STREAMS[index] = torch.cuda.Stream(device=index)
+        stream = _STREAMS[index] = _own_stream(index)
     return stream
+
+
+@contextlib.contextmanager
+def capturing(device: torch.device) -> Iterator["torch.cuda.Stream"]:
+    """``device``'s capture stream, held by this thread for one warm-up
+    and capture: a second thread's work queued on it meanwhile would be
+    captured into the first's graph."""
+    with _CAPTURE_LOCK:
+        yield capture_stream(device)
 
 
 class StepGraph:

@@ -62,11 +62,16 @@ Deliberate differences from the reference:
     name (logger ``znicz_torch.master``);
   - the default bind is ``tcp://127.0.0.1:*``: the port is chosen when
     the socket binds, and :attr:`Server.endpoint` is the resolved
-    address once :meth:`Server.start` returns;
-  - the aggregation tree (relays, ``_replan``, ``tree_plan``,
-    ``_rehome_target``, ``_handle_aggregated``, ``elastic_rehome``) waits
-    for the rest of ROADMAP A.7: a relay's registration is refused by
-    name, and those members raise ``NotImplementedError``.
+    address once :meth:`Server.start` returns.
+
+The relay tree (``parallel/relay.py``) rides the same protocol: a relay
+registers as one member marked ``relay``, reports its subtree's live
+leaves on each job request (the quorum counts them), fetches ``count``
+jobs under one params broadcast, and sends one aggregated update a flush
+(:meth:`Server._handle_aggregated`), whose manifest keeps the books per
+leaf.  A relay joining or evicted re-plans the tree (:attr:`tree_plan`);
+with ``elastic_rehome`` a leaf that registers here while live relays
+exist is handed one of their endpoints (``rehome``).
 """
 
 from __future__ import annotations
@@ -85,10 +90,6 @@ from znicz_torch.core.config import root
 from znicz_torch.loader.base import TRAIN
 
 log = logging.getLogger("znicz_torch.master")
-
-#: what the tree parts of the reference's Server refuse with
-TREE_ITEM = ("the aggregation tree (relays, re-planning, rehoming) is not "
-             "ported yet (ROADMAP queue A.7)")
 
 #: staleness observations kept a leaf
 STALE_WINDOW = 256
@@ -165,8 +166,6 @@ class Server:
         from znicz_torch.transport import AdmissionTable
 
         check_engine_knobs()
-        if elastic_rehome:
-            raise NotImplementedError(f"elastic_rehome: {TREE_ITEM}")
         self.workflow = workflow
         self.endpoint = endpoint
         #: the bind asked for (``endpoint`` is resolved when it binds)
@@ -181,6 +180,9 @@ class Server:
         self.registered: set = set()                # handshake-passed ids
         self.dead_slaves: Dict[str, float] = {}     # evicted id -> last seen
         self._ever_registered: set = set()
+        #: ids that registered with ``relay: True``: members that are
+        #: relays of the aggregation tree, not leaves
+        self.relays: set = set()
         #: meshed slaves' advertised {"data": dp, "model": mp}
         self.slave_meshes: Dict[str, dict] = {}
         self._lock = threading.Lock()
@@ -223,7 +225,10 @@ class Server:
         #: scale a late delta by 1 / (1 + s)
         self.staleness_weight = bool(_engine("staleness_weight", False,
                                              staleness_weight))
-        self.elastic_rehome = False
+        #: hand a leaf that registers here while live relays exist a
+        #: relay's endpoint (``rehome``): an orphan goes back under the tree
+        self.elastic_rehome = bool(_engine("elastic_rehome", False,
+                                           elastic_rehome))
         #: the apply counter, the staleness clock
         self._apply_step = 0
         #: per-slave job-request admission (0: off)
@@ -232,6 +237,12 @@ class Server:
             burst=float(_engine("ingress_rate_burst", 0.0)))
         #: stamp every job with its reap window as a deadline budget
         self.job_deadline = bool(_engine("job_deadline", True))
+        #: relay id -> the subtree leaves it last reported (``leaves``)
+        self._relay_leaves: Dict[str, int] = {}
+        #: relay id -> the endpoint it serves its children at
+        self.relay_binds: Dict[str, str] = {}
+        self._tree_plan: Optional[dict] = None
+        self._rehome_rr = 0
         #: per-leaf staleness observations: sid -> {"count", "window"}
         self._stale_hist: Dict[str, dict] = {}
         # LR schedules: the master owns the train-iteration clock
@@ -350,6 +361,11 @@ class Server:
                 self._inc("preemptions_ridden")
                 log.info("preemption: slave=%s ttl_s=%s members=%d", sid,
                          self.slave_ttl, self.member_count())
+            if sid in self.relays:
+                # a relay's eviction changes the tree: re-plan, so that
+                # rehome targets drop the dead subtree at once
+                self._relay_leaves.pop(sid, None)
+                self._replan(f"relay {sid} evicted")
             log.info("slave %s evicted (silent for %.0fs)", sid,
                      self.slave_ttl)
 
@@ -456,9 +472,14 @@ class Server:
         return out
 
     def member_count(self) -> int:
-        """Live training members, the quorum's count: the registered
-        slaves seen within their TTL (relays wait, see TREE_ITEM)."""
-        return len(self.slaves)
+        """Live training members, the quorum's count: the direct slaves
+        seen within their TTL that are not relays, plus the leaves each
+        live relay last reported on a job request (``leaves``)."""
+        slaves = dict(self.slaves)
+        n = sum(1 for sid in slaves if sid not in self.relays)
+        n += sum(int(self._relay_leaves.get(sid, 0))
+                 for sid in slaves if sid in self.relays)
+        return n
 
     def quorum_met(self) -> bool:
         return self.min_slaves <= 0 or self.member_count() >= \
@@ -480,20 +501,46 @@ class Server:
                  self.member_count(), self.min_slaves)
         self._quorum_degraded = deg
 
-    # -- the aggregation tree (ROADMAP A.7) ------------------------------------
+    # -- the aggregation tree --------------------------------------------------
 
     def _replan(self, why: str) -> None:
-        raise NotImplementedError(f"Server._replan: {TREE_ITEM}")
+        """Recompute the master's view of the tree (the live relays, their
+        endpoints and reported leaves) when relay membership changes: a
+        relay joins, or TTL eviction removes one.  Orphaned children
+        re-home through the register path and lost jobs come back through
+        the reaper, so a re-plan never loses or double-applies work."""
+        slaves = dict(self.slaves)
+        live = [{"id": sid, "bind": self.relay_binds.get(sid),
+                 "leaves": int(self._relay_leaves.get(sid, 0))}
+                for sid in sorted(slaves) if sid in self.relays]
+        self._tree_plan = {"relays": live, "reason": why,
+                           "members": self.member_count()}
+        self._inc("replans")
+        log.info("replan: tree re-planned (%s): %d live relays, %d members",
+                 why, len(live), self._tree_plan["members"])
 
     @property
     def tree_plan(self) -> Optional[dict]:
-        raise NotImplementedError(f"Server.tree_plan: {TREE_ITEM}")
+        """The last re-plan: ``{"relays": [{"id", "bind", "leaves"}],
+        "reason", "members"}``; None before a relay joined."""
+        plan = self._tree_plan
+        return None if plan is None else dict(plan)
 
     def _rehome_target(self) -> Optional[str]:
-        raise NotImplementedError(f"Server._rehome_target: {TREE_ITEM}")
-
-    def _handle_aggregated(self, req: dict, sid: str) -> dict:
-        raise NotImplementedError(f"Server._handle_aggregated: {TREE_ITEM}")
+        """A live relay's endpoint for an orphaned leaf, round-robin over
+        the relays seen recently (within ``min(slave_ttl, 10)`` s: a
+        healthy relay polls sub-second, so one silent for seconds is not a
+        safe target even before its eviction)."""
+        now = time.time()
+        window = min(self.slave_ttl, 10.0) if self.slave_ttl > 0 else 10.0
+        targets = [self.relay_binds[sid]
+                   for sid, seen in sorted(dict(self.slaves).items())
+                   if sid in self.relays and sid in self.relay_binds
+                   and now - seen <= window]
+        if not targets:
+            return None
+        self._rehome_rr = (self._rehome_rr + 1) % (1 << 30)
+        return targets[self._rehome_rr % len(targets)]
 
     # -- the books -------------------------------------------------------------
 
@@ -872,8 +919,6 @@ class Server:
         from znicz_torch.network_common import (PROTOCOL_VERSION,
                                                 check_handshake)
 
-        if req.get("relay"):
-            return {"ok": False, "error": f"relay registration: {TREE_ITEM}"}
         refusal = check_handshake(req, self.workflow)
         if refusal:
             self.slaves.pop(sid, None)
@@ -886,6 +931,13 @@ class Server:
             self._inc("reregistrations")
         self._ever_registered.add(sid)
         self.registered.add(sid)
+        newly_live = sid not in self.slaves
+        if req.get("relay"):
+            # a relay of the tree: a member (TTL, eviction and the reaper
+            # apply), marked so that its leaves count through it
+            self.relays.add(sid)
+            if req.get("bind"):
+                self.relay_binds[sid] = str(req["bind"])
         mesh = req.get("mesh")
         if isinstance(mesh, dict) and mesh:
             self.slave_meshes[sid] = {str(k): int(v)
@@ -893,14 +945,31 @@ class Server:
         else:
             self.slave_meshes.pop(sid, None)
         self.slaves[sid] = time.time()
-        return {"ok": True, "version": PROTOCOL_VERSION,
-                "class_lengths": list(self.loader.class_lengths),
-                "resumed": self.resumed,
-                "epoch": int(self.loader.epoch_number)}
+        if req.get("relay") and newly_live:
+            self._replan(f"relay {sid} joined")
+        rep = {"ok": True, "version": PROTOCOL_VERSION,
+               "class_lengths": list(self.loader.class_lengths),
+               "resumed": self.resumed,
+               "epoch": int(self.loader.epoch_number)}
+        if self.elastic_rehome and not req.get("relay"):
+            # a leaf registering here while live relays exist is an
+            # orphan (its relay died and it fell back): steer it back
+            # under the tree; it keeps this endpoint as its fallback
+            target = self._rehome_target()
+            if target:
+                rep["rehome"] = target
+        return rep
 
     def _job(self, req: dict, sid: str) -> dict:
         if bool(self.decision.complete):
             return {"done": True}
+        if sid in self.relays and req.get("leaves") is not None:
+            # read before the rate limit: a throttled relay's requests
+            # still refresh its subtree's leaf count
+            try:
+                self._relay_leaves[sid] = max(0, int(req["leaves"]))
+            except (TypeError, ValueError):
+                pass
         if not self._ingress.try_take(sid):
             # never fatal, never a strike: the slave's poll path waits
             self._inc("rate_limited_ingress")
@@ -946,8 +1015,7 @@ class Server:
 
     def _update(self, req: dict, sid: str) -> dict:
         if "contributors" in req:
-            return {"ok": False,
-                    "error": f"aggregated update: {TREE_ITEM}"}
+            return self._handle_aggregated(req, sid)
         jid = req.get("job_id")
         entry = self._inflight.pop(jid, None)
         if entry is None:
@@ -993,6 +1061,145 @@ class Server:
         self._inc("jobs_done")
         self.jobs_by_slave[sid] = self.jobs_by_slave.get(sid, 0) + 1
         return {"ok": True, "complete": bool(self.decision.complete)}
+
+    def _handle_aggregated(self, req: dict, sid: str) -> dict:
+        """A relay's aggregated update: one summed delta and a manifest of
+        its contributors.  The books are kept per contributor, as if each
+        update had come alone: a stale job is dropped and counted, an edge
+        refusal counted as quarantined and re-queued, malformed metrics
+        refused under ``MAX_BAD_REPLIES``, round trips fed to the adaptive
+        reaper, staleness observed per leaf from each entry's ``step``,
+        the Decision fed per minibatch in manifest order and ``jobs_done``
+        credited to the leaf ids.  The summed delta passes the quarantine
+        (its norm per contributing delta) and is applied once.
+
+        The sum is indivisible: when it is refused, every fresh
+        contributor's job is re-queued; when a contributor with a delta
+        is malformed or past ``staleness_bound``, the whole aggregate is
+        refused (the star refuses before it applies, and a gradient cannot
+        be taken out of a sum), that contributor takes its refusal and
+        the innocent ones are re-queued with no strike.  A relay resends
+        the same flush after a lost reply; on the second delivery every
+        contributor pops as stale, and the sum is dropped.
+
+        A contributor reaped while its delta sat in a relay's flush buffer
+        is dropped from the books while its share of the sum lands: bounded
+        by the flush window, far inside the reap timeout."""
+        contributors = req.get("contributors")
+        if not isinstance(contributors, (list, tuple)) or not all(
+                isinstance(c, dict) for c in contributors):
+            # a bad-frame refusal: nothing has left _inflight yet
+            raise ValueError("contributors manifest is not a list of "
+                             "dicts")
+        now = time.time()
+        n_delta = sum(1 for c in contributors if c.get("delta"))
+        fresh: List[tuple] = []         # (contributor, job, staleness)
+        malformed: List[tuple] = []     # (contributor, job, why)
+        outcomes: Dict = {}
+        for c in contributors:
+            jid = c.get("job_id")
+            entry = self._inflight.pop(jid, None)
+            if entry is None:
+                self._inc("stale_updates")
+                outcomes[jid] = "stale"
+                continue
+            job, t_issued, _ = entry
+            self._durations.append(now - t_issued)
+            cid = str(c.get("id", sid))
+            s = self._staleness(c.get("step"), cid)
+            if c.get("refused"):
+                self._refuse_update(
+                    job, cid, f"delta quarantined at relay {sid!r}: "
+                              f"{c['refused']}",
+                    counter="quarantined_updates", quarantined=True)
+                outcomes[jid] = "quarantined"
+                continue
+            metrics = c.get("metrics")
+            why = None
+            if "minibatches" in job:
+                ms = metrics or []
+                if not isinstance(ms, (list, tuple)) \
+                        or len(ms) != len(job["minibatches"]) \
+                        or not all(m is None or isinstance(m, dict)
+                                   for m in ms):
+                    n = len(ms) if hasattr(ms, "__len__") else type(ms)
+                    why = (f"segment metrics length {n!r} != "
+                           f"{len(job['minibatches'])}")
+            elif not (metrics is None or isinstance(metrics, dict)):
+                why = f"metrics payload is {type(metrics).__name__}, not a dict"
+            if why is not None:
+                malformed.append((c, job, why))
+                outcomes[jid] = "refused"
+                continue
+            fresh.append((c, job, s))
+        deltas = req.get("deltas")
+
+        def refuse_all(refused, refuse, **rep):
+            """Refuse the whole aggregate: ``refuse`` each of ``refused``,
+            re-queue every other fresh contributor with no strike."""
+            for c, job, what in refused:
+                refuse(job, str(c.get("id", sid)), what)
+            for c, job, _ in fresh:
+                self._pending.append(job)
+                self._inc("jobs_requeued")
+                outcomes[c.get("job_id")] = "requeued"
+            return dict(rep, ok=False, outcomes=outcomes)
+
+        if malformed and deltas and any(c.get("delta")
+                                        for c, _, _ in malformed):
+            return refuse_all(
+                malformed, self._refuse_update,
+                error="aggregate refused: " + "; ".join(
+                    w for _, _, w in malformed))
+        for c, job, why in malformed:
+            # a delta-less malformed reply (eval metrics) has nothing in
+            # the sum: refused alone, as in the star
+            self._refuse_update(job, str(c.get("id", sid)), why)
+        if deltas and self.staleness_bound > 0:
+            over = [t for t in fresh
+                    if t[0].get("delta") and t[2] > self.staleness_bound]
+            if over:
+                fresh = [t for t in fresh if t not in over]
+                for c, _, _ in over:
+                    outcomes[c.get("job_id")] = "stale_refused"
+                return refuse_all(
+                    over, self._refuse_stale, stale_refused=True,
+                    error=f"aggregate refused: {len(over)} contributor "
+                          f"delta(s) beyond the staleness bound")
+        # the apply needs a fresh contributor with a delta: a resent flush
+        # finds them all stale, and its sum must not land twice
+        if deltas and any(c.get("delta") for c, _, _ in fresh):
+            reason = self._quarantine_reason(deltas,
+                                             n_contrib=max(1, n_delta))
+            if reason:
+                for c, job, _ in fresh:
+                    self._refuse_update(
+                        job, str(c.get("id", sid)),
+                        f"aggregated delta quarantined: {reason}",
+                        counter="quarantined_updates", quarantined=True)
+                return {"ok": False, "quarantined": True,
+                        "error": f"delta quarantined: {reason}",
+                        "outcomes": outcomes}
+            # one scale for the indivisible sum: its contributors' mean
+            # staleness
+            stales = [s for c, _, s in fresh if c.get("delta")]
+            self.apply_deltas(deltas, scale=self._stale_scale(
+                float(np.mean(stales)) if stales else 0.0))
+        for c, job, _ in fresh:
+            if not bool(self.decision.complete):
+                if "minibatches" in job:
+                    for mb, m in zip(job["minibatches"],
+                                     c.get("metrics") or []):
+                        self._feed_decision(mb, m or {})
+                else:
+                    self._feed_decision(job, c.get("metrics") or {})
+            cid = str(c.get("id", sid))
+            self._inc("jobs_done")
+            self.jobs_by_slave[cid] = self.jobs_by_slave.get(cid, 0) + 1
+            outcomes[c.get("job_id")] = "ok"
+        self._inc("aggregated_updates")
+        return {"ok": True, "complete": bool(self.decision.complete),
+                "outcomes": outcomes}
 
 
 def _counter_property(name: str):

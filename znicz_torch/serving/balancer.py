@@ -72,6 +72,12 @@ Deliberate differences from the reference:
     co-batches the primary; on the card cuDNN and cuBLAS choose kernels
     by batch size, and rows served at two rungs differ in their last
     bits (ROADMAP C.9);
+  - a replica's service-scoped ``draining`` refusal (it was stopped
+    between the dispatch and the request's arrival) is retried on another
+    replica, as a service-scoped shed is, and counted in
+    ``sheds_retried``; the reference forwards it to the client, so a
+    replica stopped under traffic could refuse a request the fleet could
+    answer (ROADMAP C.10);
   - fleet trace, event and metric ingestion (a heartbeat's ``spans``,
     ``events`` and ``metrics``, a reply's span summary) and the
     balancer's own spans are left out (ROADMAP A.9): such keys are
@@ -809,15 +815,16 @@ class ReplicaBalancer:
             ok = bool(skel.get("ok"))
             policy = skel.get("policy")
             scope = skel.get("scope", "service")
-            retryable = ((not ok and policy == "shed"
+            retryable = ((not ok and policy in ("shed", "draining")
                           and scope == "service")
                          or bool(skel.get("bad_frame")))
             if retryable and entry.tries < int(
                     self.knobs["failover_tries"]) \
                     and time.perf_counter() < entry.deadline:
-                # a service-scoped shed (or a bad frame with our rid) from
-                # one replica is not the fleet's answer: the same bytes to
-                # another replica
+                # a service-scoped shed, a draining replica's refusal (it
+                # was stopped between our dispatch and its arrival), or a
+                # bad frame with our rid from one replica is not the
+                # fleet's answer: the same bytes to another replica
                 self._inc("sheds_retried")
                 replica = str(skel.get("replica_id") or "")
                 self._inflight.pop(rid)

@@ -116,7 +116,7 @@ import torch
 from znicz_torch.core.config import ENGINE_DEFAULTS, root
 from znicz_torch.parallel import mesh as mesh_mod
 from znicz_torch.parallel.fused import FusedTrainer
-from znicz_torch.parallel.graphs import StepGraph, capture_stream
+from znicz_torch.parallel.graphs import StepGraph, capturing
 
 
 class Staged(NamedTuple):
@@ -484,18 +484,18 @@ class ModelRunner:
         returns the eager result."""
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
-        stream = capture_stream(self.device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            y = self._eager(g, x)
-        current.wait_stream(stream)
-        y.record_stream(current)
-        torch.cuda.synchronize(self.device)
-        cap = StepGraph({"x": torch.empty_like(x)}, None, {})
-        with self._bound(g.tree), torch.inference_mode():
-            cap.capture(lambda: self._trainer.forward_pass(
-                self._trainer._decode(cap.inputs["x"])), stream,
-                pool=g.family.pool)
+        with capturing(self.device) as stream:
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                y = self._eager(g, x)
+            current.wait_stream(stream)
+            y.record_stream(current)
+            torch.cuda.synchronize(self.device)
+            cap = StepGraph({"x": torch.empty_like(x)}, None, {})
+            with self._bound(g.tree), torch.inference_mode():
+                cap.capture(lambda: self._trainer.forward_pass(
+                    self._trainer._decode(cap.inputs["x"])), stream,
+                    pool=g.family.pool)
         g.family.graphs[key] = cap
         self.compiles += 1
         self.capture_s += time.perf_counter() - t0
