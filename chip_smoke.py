@@ -378,7 +378,22 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      master's tree lies within phase 16's cross-layout band of one
      ``FusedTrainer``'s; K1/K1b/K2/K2b 2/2/3/3 a train job and 2/0/3/0 an
      eval job on every slave and rank; each meshed job's broadcast and
-     gather seconds.
+     gather seconds;
+ 25. ``charlm``, the sequence model at the sample's own defaults (vocab
+     32, embed 32, 2 heads, FFN 64, seq_len 64, minibatch 32, 384 train
+     and 96 valid windows, 8 epochs): trained under ``fused``, ``fused``
+     + ``fused_tail`` and on the unit engine from seed 1013, each run's
+     first 8 train losses against the same run on the CPU (the band
+     printed, held to ``STEP_RTOL``), the ``fused`` run's VALID token
+     error under ``CHARLM_VALID_ERR``, epoch seconds and warm steps a
+     second; no kernel launched on this path (every counter 0).  Then
+     the ``fused`` run's snapshot served in process on the 2-D ladder
+     (``max_batch`` 8: 4 rows rungs x 7 seq rungs, 28 captured buckets):
+     a stream of ``CHARLM_STREAM`` requests of lengths 1-64, each reply
+     ``(n, len, 32)`` and bit-equal to the eager forward of the padded
+     bucket it rode, no capture after the warmup, pad tokens changed
+     under probes changing no bit of the real positions, and the served
+     rows a second at each seq rung.
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
@@ -403,7 +418,8 @@ for ``mnist_ae`` and ``kohonen`` (each alone or both), phase 12 for
 phase 15 for ``deep``, phase 16 for ``shard``, phase 17 for
 ``snapshots``, phase 18 for ``zmq``, phase 19 for ``graphs``, phase
 20 for ``serve_mesh``, phase 21 for ``fleet``, phase 22 for ``aot``,
-phase 23 for ``master`` and phase 24 for ``tree``; it prints the
+phase 23 for ``master``, phase 24 for ``tree`` and phase 25 for
+``charlm``; it prints the
 ``kernels`` object and no ``ok`` line.
 """
 
@@ -1668,7 +1684,8 @@ ANCHOR_WORKFLOWS = {"mnist": "MnistWorkflow", "cifar": "CifarWorkflow",
                     "mnist_ae": "MnistAEWorkflow",
                     "kohonen": "KohonenWorkflow", "kanji": "KanjiWorkflow",
                     "video_ae": "VideoAEWorkflow",
-                    "yale_faces": "YaleFacesWorkflow"}
+                    "yale_faces": "YaleFacesWorkflow",
+                    "charlm": "CharLMWorkflow"}
 
 
 def sample_workflow(sample, device=None):
@@ -7620,6 +7637,245 @@ def tree_meshed(torch, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 25: charlm, the sequence model ---------------------------------------
+
+#: phase 25's training runs: label -> (on FusedTrainer, knobs); no kernel
+#: lies on charlm's path (the attention ops, the seq epilogue and the loss
+#: head are PyTorch ops, as the reference's are XLA ops)
+CHARLM_RUNS = {"charlm:fused": (True, {}),
+               "charlm:fused_tail": (True, {"fused_tail": True}),
+               "charlm:units": (False, {})}
+#: the ``fused`` run's VALID token error must be under this (%), the
+#: reference's own band (tests/test_charlm.py)
+CHARLM_VALID_ERR = 50.0
+#: the served ladder's rows, and the mixed-length stream's requests
+CHARLM_MAX_BATCH = 8
+CHARLM_STREAM = 192
+#: requests of CHARLM_MAX_BATCH rows a seq rung for its rows a second
+CHARLM_RATE_REQUESTS = 64
+#: served requests whose pad tokens are changed under the captured runner
+CHARLM_PAD_PROBES = 8
+
+
+def charlm_train(torch, card, label):
+    """One run of :data:`CHARLM_RUNS` at the sample's defaults after
+    ``prng.reset(ANCHOR_SEED)``: every loss finite, the first STEP_CHECK
+    train losses within STEP_RTOL of the same run on the CPU, no kernel
+    launched.  Returns (workflow, finals, {kernel: launches})."""
+    from znicz_torch.__main__ import finals as sample_finals
+    from znicz_torch.core import prng
+    from znicz_torch.samples import train
+
+    fused, knobs = CHARLM_RUNS[label]
+    ctrs = counters()
+    reset = set_knobs(knobs)
+    try:
+        prng.reset(ANCHOR_SEED)
+        wf = sample_workflow("charlm")
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+        t0 = time.perf_counter()
+        train(wf, "charlm", fused=fused)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in ctrs.items()}
+        cpu = (cpu_steps if fused else cpu_unit_steps)("charlm", STEP_CHECK)
+    finally:
+        reset()
+    losses = list(wf.decision.train_losses)
+    steps = losses[:STEP_CHECK]
+    band = max(abs(a - b) / abs(b) for a, b in zip(steps, cpu))
+    fin = sample_finals("charlm", wf)
+    st = wf.train_stats
+    batch = wf.loader.max_minibatch_size
+    trainer = getattr(wf, "trainer", None)
+    captured = (f", {trainer.stats['captured_steps']} captured and "
+                f"{trainer.stats['eager_steps']} eager steps"
+                if fused else "")
+    log(f"[charlm:{label[7:]}] {card}: {json.dumps(fin)}; run() "
+        f"{wall:.2f}s, {wall / fin['epochs']:.3f}s an epoch, "
+        f"{st['train_steps']} train steps, warm steps/s "
+        f"{st['warm_img_per_sec'] / batch:.1f} (images/s "
+        f"{st['img_per_sec']:.1f}, warm {st['warm_img_per_sec']:.1f})"
+        f"{captured} on {wf.device}; first {STEP_CHECK} train losses vs "
+        f"the port on the CPU: band {band:.3e} (tol {STEP_RTOL:g})")
+    if len(steps) != STEP_CHECK or len(cpu) != STEP_CHECK:
+        raise AssertionError(f"[{label}] {len(steps)} steps on the card, "
+                             f"{len(cpu)} on the CPU")
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"[{label}] non-finite loss")
+    if any(launches.values()):
+        raise AssertionError(f"[{label}] a kernel launched on charlm's "
+                             f"path: {launches}")
+    if band > STEP_RTOL:
+        raise AssertionError(f"[{label}] the card leaves the CPU's first "
+                             f"{STEP_CHECK} steps: {band:.3e}")
+    if label == "charlm:fused" and \
+            not fin["valid_token_err_pct"] < CHARLM_VALID_ERR:
+        raise AssertionError(f"[{label}] VALID token error "
+                             f"{fin['valid_token_err_pct']:.2f}% is not "
+                             f"under {CHARLM_VALID_ERR}%")
+    return wf, fin, launches
+
+
+def seq_pass(srv, requests):
+    """``requests`` ((n, len) id arrays) submitted in process as one
+    stream; (replies in order, wall s)."""
+    from znicz_torch.serving.batcher import Request
+
+    futures = [Future() for _ in requests]
+    t0 = time.perf_counter()
+    for i, x in enumerate(requests):
+        srv.submit(Request(x, x.shape[0], reply_to=futures[i], req_id=i,
+                           seq_len=x.shape[1]))
+    replies = [f.result(timeout=600) for f in futures]
+    wall = time.perf_counter() - t0
+    bad = [r for r in replies if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} refused/failed replies: {bad[0]}")
+    return replies, wall
+
+
+def charlm_serve(torch, card, path):
+    """Phase 25's serving half: the snapshot at ``path`` served in process
+    on the 2-D ladder, each (rows, seq) bucket one captured graph.
+    Returns {kernel: launches} of the mixed-length stream."""
+    from znicz_torch.core import prng
+    from znicz_torch.serving.frontend import InferenceServer
+    from znicz_torch.serving.model import ModelRunner
+
+    ctrs = counters()
+    prng.reset(ANCHOR_SEED)
+    wf = sample_workflow("charlm")
+    vocab, seq_len = wf.output_sample_shape[-1], wf.serving_seq_len
+    eager = ModelRunner(sample_workflow("charlm"), snapshot=path,
+                        capture=False)
+    t0 = time.perf_counter()
+    srv = InferenceServer(wf, snapshot=path, max_batch=CHARLM_MAX_BATCH,
+                          max_delay_ms=2.0, queue_bound=4096,
+                          request_ttl_s=600.0).start()
+    warm_s = time.perf_counter() - t0
+    try:
+        runner, lad = srv.runner, srv.batcher.ladder
+        buckets = lad.buckets()
+        log(f"[charlm:serve] {card}: ladder {lad}, {len(buckets)} buckets; "
+            f"warmup {warm_s:.3f}s to ready ({runner.compiles} captures, "
+            f"{runner.capture_s:.3f}s in them); warm proof "
+            f"{srv.warm_report['ok']}")
+        if not (runner.capture and len(buckets) == 28
+                and runner.compiles == runner.graph_cache_size()
+                == len(buckets) and srv.warm_report["ok"]):
+            raise AssertionError(
+                f"[charlm:serve] capture {runner.capture}, compiles "
+                f"{runner.compiles}, graph_cache_size "
+                f"{runner.graph_cache_size()} for {len(buckets)} buckets, "
+                f"warm report {srv.warm_report}")
+        compiles = runner.compiles
+        rng = np.random.default_rng(SEED)
+        lengths = [1, seq_len] + [int(v) for v in rng.integers(
+            1, seq_len + 1, size=CHARLM_STREAM - 2)]
+        requests = [rng.integers(1, vocab, size=(int(rng.integers(1, 3)),
+                                                 L)).astype(np.uint8)
+                    for L in lengths]
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+        replies, wall = seq_pass(srv, requests)
+        launches = {name: fn.launches for name, fn in ctrs.items()}
+        if runner.compiles != compiles:
+            raise AssertionError(f"[charlm:serve] {runner.compiles - compiles}"
+                                 f" captures after the warmup")
+        # each reply: its shape, and bit for bit the eager forward of the
+        # padded bucket it rode (its rows rung depends on its neighbours)
+        off, cache = [], {}
+        for i, x in enumerate(requests):
+            n, L = x.shape
+            y = replies[i]["y"]
+            if y.shape != (n, L, vocab) or not np.isfinite(y).all():
+                raise AssertionError(f"[charlm:serve] request {i}: reply "
+                                     f"{y.shape} for {x.shape}")
+            s = lad.seq_bucket_for(L)
+            rides = []
+            for b in (r for r in lad.rungs if r >= n):
+                xb = np.zeros((b, s), np.uint8)
+                xb[:n, :L] = x
+                key = (b, s, x.tobytes())
+                if key not in cache:
+                    cache[key] = eager.infer(xb)[:n, :L]
+                rides.append(cache[key])
+            if not any(np.array_equal(y, r) for r in rides):
+                off.append(i)
+        # pad tokens changed under the captured runner: no bit of the real
+        # positions moves
+        moved = []
+        for i in range(CHARLM_PAD_PROBES):
+            x = requests[2 + i]
+            n, L = x.shape
+            xb = np.zeros((lad.bucket_for(n), lad.seq_bucket_for(L)),
+                          np.uint8)
+            xb[:n, :L] = x
+            base = runner.infer(xb)[:n, :L]
+            xb[:, L:] = rng.integers(0, vocab, size=xb[:, L:].shape)
+            xb[n:] = rng.integers(0, vocab, size=xb[n:].shape)
+            if not np.array_equal(base, runner.infer(xb)[:n, :L]):
+                moved.append(i)
+        if runner.compiles != compiles:
+            raise AssertionError("[charlm:serve] the pad probes captured")
+        rows = sum(x.shape[0] for x in requests)
+        tokens = sum(x.size for x in requests)
+        st = srv.batcher.stats()
+        log(f"[charlm:serve] {card}: {len(requests)} requests of lengths "
+            f"1-{seq_len} ({rows} rows, {tokens} tokens) in {wall:.3f}s, "
+            f"{st['batches']} batches, real cells {st['real_cells']}, pad "
+            f"cells {st['padded_cells']}; 0 captures after the warmup; "
+            f"replies (n, len, {vocab}) and bit-equal to the eager forward "
+            f"of their bucket: "
+            + ("all" if not off else f"DIFFER at {off}")
+            + f"; pad tokens changed under {CHARLM_PAD_PROBES} probes: "
+            + ("no bit moved" if not moved else f"MOVED at {moved}")
+            + f"; launches={ {k: v for k, v in launches.items() if v} }")
+        if off or moved:
+            raise AssertionError(f"[charlm:serve] replies off their "
+                                 f"buckets {off}, pad visible {moved}")
+        if any(launches.values()):
+            raise AssertionError(f"[charlm:serve] a kernel launched: "
+                                 f"{launches}")
+        # the served rows a second at each seq rung: requests of
+        # CHARLM_MAX_BATCH rows, one rows rung, every batch full
+        rates = {}
+        for s in lad.seq_rungs:
+            batch = [rng.integers(1, vocab, size=(CHARLM_MAX_BATCH, s))
+                     .astype(np.uint8) for _ in range(CHARLM_RATE_REQUESTS)]
+            _, wall = seq_pass(srv, batch)
+            rates[s] = CHARLM_MAX_BATCH * CHARLM_RATE_REQUESTS / wall
+        if runner.compiles != compiles:
+            raise AssertionError("[charlm:serve] the rate passes captured")
+        log(f"[charlm:serve] {card}: served rows/s by seq rung "
+            + ", ".join(f"{s}: {r:.1f}" for s, r in rates.items())
+            + f" ({CHARLM_RATE_REQUESTS} requests of {CHARLM_MAX_BATCH} "
+            f"rows a rung, in process)")
+    finally:
+        srv.stop()
+    if srv.error is not None:
+        raise RuntimeError("[charlm:serve] the compute loop died") \
+            from srv.error
+    return launches
+
+
+def charlm_phase(torch, card):
+    """Phase 25: the three :data:`CHARLM_RUNS`, then the ``fused`` run's
+    snapshot served on the 2-D ladder.  Returns {run: {kernel:
+    launches}}."""
+    runs, path = {}, None
+    for label in CHARLM_RUNS:
+        wf, _, runs[label] = charlm_train(torch, card, label)
+        if label == "charlm:fused":
+            path = wf.snapshotter.save("charlm_phase25")
+        del wf
+        torch.cuda.empty_cache()
+    runs["charlm:serve"] = charlm_serve(torch, card, path)
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -7632,7 +7888,7 @@ def main(argv=None) -> int:
                          "'snapshots': phase 17; 'zmq': phase 18; "
                          "'graphs': phase 19; 'serve_mesh': phase 20; "
                          "'fleet': phase 21; 'aot': phase 22; 'master': "
-                         "phase 23; 'tree': phase 24")
+                         "phase 23; 'tree': phase 24; 'charlm': phase 25")
     ap.add_argument("--aot-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
@@ -7708,13 +7964,13 @@ def run_phases(torch, args) -> int:
         graphs, serve_mesh = "graphs" in names, "serve_mesh" in names
         fleet = "fleet" in names
         aot, master = "aot" in names, "master" in names
-        tree = "tree" in names
+        tree, charlm = "tree" in names, "charlm" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
                   "segments", "deep", "shard", "snapshots", "zmq",
                   "graphs", "serve_mesh", "fleet", "aot", "master", "tree",
-                  *AE_SOM_RUNS)]
+                  "charlm", *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -7829,7 +8085,8 @@ def run_phases(torch, args) -> int:
             lap("phase 21")
         for flag, phase, tag in ((aot, aot_phase, "phase 22"),
                                  (master, master_phase, "phase 23"),
-                                 (tree, tree_phase, "phase 24")):
+                                 (tree, tree_phase, "phase 24"),
+                                 (charlm, charlm_phase, "phase 25")):
             if not flag:
                 continue
             for label, launches in phase(torch, card).items():
@@ -8096,6 +8353,16 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 24")
+
+    # -- phase 25: the sequence model: charlm trained on both engines, then
+    # -- served on the 2-D (rows x seq) ladder of captured buckets ------
+    for label, launches in charlm_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][label] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 25")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` imports JAX or the JAX package, or names the
 reference's ``native/`` directory (the host runtime is built from the
 port's own copy of its source); the port serves a batch (in process
-and over ZMQ) and trains (``python -m znicz_torch alexnet``'s ``main``)
+and over ZMQ, charlm's variable-length requests too) and trains
+(``python -m znicz_torch alexnet``'s ``main``)
 in a process where ``jax`` was never imported; and an entry point asked
 for the card on a machine without one raises instead of dropping to the
 CPU."""
@@ -46,8 +47,10 @@ def test_no_port_file_imports_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 15
     for sample in ("alexnet", "mnist", "cifar", "kanji", "video_ae",
-                   "yale_faces"):
+                   "yale_faces", "charlm"):
         assert REPO / "znicz_torch" / "samples" / f"{sample}.py" in files
+    for module in ("attention.py", "ops/attention.py"):
+        assert REPO / "znicz_torch" / module in files
     offenders = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -142,6 +145,36 @@ def test_port_serves_over_zmq_without_jax_in_the_process():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "served over zmq"
+
+
+def test_charlm_serves_variable_length_without_jax_in_the_process():
+    """The sequence model on the 2-D ladder over ZMQ (the attention ops
+    and modules, the charlm sample, the seq batcher) in a process where
+    jax was never imported."""
+    code = (
+        "import sys, numpy as np\n"
+        "from znicz_torch.core.config import root\n"
+        "from znicz_torch.samples.charlm import CharLMWorkflow\n"
+        "from znicz_torch.serving import InferenceClient, InferenceServer\n"
+        "root.charlm.loader.update({'n_train': 32, 'n_valid': 16,"
+        " 'seq_len': 8, 'minibatch_size': 16})\n"
+        "wf = CharLMWorkflow(device='cpu')\n"
+        "srv = InferenceServer(wf, bind='tcp://127.0.0.1:*', max_batch=2)"
+        ".start()\n"
+        "assert srv.batcher.ladder.seq_rungs == [1, 2, 4, 8]\n"
+        "cli = InferenceClient(srv.endpoint, timeout=120)\n"
+        "y = cli.infer(np.ones((2, 5), np.uint8))\n"
+        "assert y.shape == (2, 5, 32) and np.isfinite(y).all()\n"
+        "cli.close()\n"
+        "srv.stop()\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'znicz_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('served charlm')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "served charlm"
 
 
 def test_the_star_trains_without_jax_in_the_process(tmp_path):
@@ -304,7 +337,7 @@ def test_training_entry_points_raise_without_a_card(monkeypatch):
 @pytest.mark.parametrize("sample,cls", [
     ("mnist", "MnistWorkflow"), ("cifar", "CifarWorkflow"),
     ("kanji", "KanjiWorkflow"), ("video_ae", "VideoAEWorkflow"),
-    ("yale_faces", "YaleFacesWorkflow")])
+    ("yale_faces", "YaleFacesWorkflow"), ("charlm", "CharLMWorkflow")])
 def test_sample_entry_points_raise_without_a_card(sample, cls, monkeypatch,
                                                   tmp_path):
     import importlib

@@ -12,7 +12,11 @@
     cross-layout band (``BAND``, ROADMAP C.5) of one process's; a swap,
     a rollback and two failed swaps (a missing file; a load that fails on
     rank 1 alone) keep both ranks on one generation, and the ranks
-    dispatch alike.
+    dispatch alike;
+  - the same two ranks on (2, 1) serve the reduced charlm on the 2-D
+    (rows x seq) ladder: the rows snapped to dp, each (rows, seq) bucket
+    scattered by rows, every variable-length reply within ``BAND`` of
+    one process's forward of its padded bucket.
 
 Run as a script, this file is the rank worker:
 ``python test_torch_serving_mesh.py RANK WORLD STORE OUTDIR``.
@@ -171,6 +175,44 @@ def _follow(spec):
             "mesh": runner.mesh_shape, "capture": runner.capture}
 
 
+#: the reduced charlm of the 2-D case, and its requests' (rows, length)
+CHARLM = {"n_train": 32, "n_valid": 16, "seq_len": 16, "minibatch_size": 16}
+SEQ_SIZES = ((1, 3), (2, 16), (3, 5), (1, 9), (4, 1), (2, 7))
+
+
+def _charlm():
+    from znicz_torch.core import prng
+    from znicz_torch.core.config import root
+    from znicz_torch.samples.charlm import CharLMWorkflow
+
+    root.charlm.loader.update(CHARLM)
+    prng.reset(SEED)
+    return CharLMWorkflow(device="cpu")
+
+
+def _charlm_ranks(rank, requests):
+    """Rank 0 serves the requests on the (2, 1) mesh; rank 1 follows."""
+    from znicz_torch.core.config import root
+    from znicz_torch.serving import InferenceServer, ModelRunner, Request
+
+    root.common.serving.mesh.data = 2
+    root.common.serving.mesh.model = 1
+    if rank:
+        ModelRunner(_charlm()).follow()
+        return {}
+    srv = InferenceServer(_charlm(), max_batch=4, max_delay_ms=1.0).start()
+    try:
+        futs = [Future() for _ in requests]
+        for i, x in enumerate(requests):
+            srv.submit(Request(x, x.shape[0], reply_to=futs[i], req_id=i,
+                               seq_len=x.shape[1]))
+        replies = [f.result(120) for f in futs]
+    finally:
+        srv.stop()
+    return {"buckets": srv.batcher.ladder.buckets(), "replies": replies,
+            "compiles": srv.runner.compiles}
+
+
 def worker(rank: int, world: int, store: str, outdir: str) -> None:
     import torch
 
@@ -184,14 +226,19 @@ def worker(rank: int, world: int, store: str, outdir: str) -> None:
         spec = json.load(f)
     data = np.load(spec["requests"])
     requests = [data[f"r{i}"] for i in range(len(data.files))]
-    out = {}
-    for dp, mp in SHAPES:
-        root.common.serving.mesh.data = dp
-        root.common.serving.mesh.model = mp
-        out[dp, mp] = (_lead(requests, spec) if rank == 0
-                       else _follow(spec))
+    if spec.get("sample") == "charlm":
+        out = _charlm_ranks(rank, requests)
+    else:
+        out = {}
+        for dp, mp in SHAPES:
+            root.common.serving.mesh.data = dp
+            root.common.serving.mesh.model = mp
+            out[dp, mp] = (_lead(requests, spec) if rank == 0
+                           else _follow(spec))
     with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+    # the group's threads end here, not in the interpreter's teardown
+    torch.distributed.destroy_process_group()
 
 
 # -- the parent ---------------------------------------------------------------
@@ -278,6 +325,35 @@ def test_two_ranks_serve_alexnet_as_one_process(tmp_path):
         assert len(rec["failed_swaps"]) == 2
         assert "rank(s) [1]" in rec["failed_swaps"][1]
         assert rec["dispatches"] == frec["dispatches"] > 0
+
+
+def test_two_ranks_serve_charlm_on_the_2d_ladder(tmp_path):
+    from test_torch_layers import sample_config
+    from znicz_torch.serving import BucketLadder, ModelRunner
+
+    rng = np.random.default_rng(14)
+    requests = [rng.integers(1, 32, size=(n, L)).astype(np.uint8)
+                for n, L in SEQ_SIZES]
+    np.savez(tmp_path / "requests.npz",
+             **{f"r{i}": x for i, x in enumerate(requests)})
+    with open(tmp_path / "spec.json", "w") as f:
+        json.dump({"requests": str(tmp_path / "requests.npz"),
+                   "sample": "charlm"}, f)
+    with sample_config("charlm", **{f"loader__{k}": v
+                                    for k, v in CHARLM.items()}):
+        one = ModelRunner(_charlm())
+    ladder = BucketLadder(4, dp=2, max_len=16)
+    lead, _ = _spawn(tmp_path)
+    assert lead["buckets"] == ladder.buckets()
+    assert lead["buckets"][0] == (2, 1)
+    assert lead["compiles"] == len(ladder.buckets())
+    for x, rep in zip(requests, lead["replies"]):
+        n, L = x.shape
+        xb = np.zeros((ladder.bucket_for(n), ladder.seq_bucket_for(L)),
+                      np.uint8)
+        xb[:n, :L] = x
+        assert rep["ok"] and rep["y"].shape == (n, L, 32), rep
+        np.testing.assert_allclose(rep["y"], one.infer(xb)[:n, :L], **BAND)
 
 
 if __name__ == "__main__":

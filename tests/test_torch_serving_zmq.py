@@ -624,12 +624,13 @@ def test_every_reference_serving_key_is_read_or_refused():
                          "admission.quantum",
                          "admission.client_queue_bound", "mesh.data",
                          "mesh.model", "aot_cache.enabled",
-                         "aot_cache.dir"} | balance
+                         "aot_cache.dir", "seq.max_len",
+                         "seq.rungs"} | balance
     for key, val in read.items():
         assert val == ref[key], key
     for key, (default, item) in UNPORTED_SERVING_KEYS.items():
         assert default == ref[key], key
-        want = {"seq": "A.8", "generate": "A.8", "obs": "A.9",
+        want = {"generate": "A.8 (generation serving)", "obs": "A.9",
                 "web_port": "A.9"}[key.split(".")[0]]
         assert item == want, key
 
@@ -641,7 +642,8 @@ def test_every_reference_serving_key_is_read_or_refused():
     pytest.param("mesh.data", 2, None, id="mesh.data-2-A.6"),
     ("generate.enabled", True, "A.8"),
     ("obs.exemplars", 4, "A.9"), ("web_port", 8080, "A.9"),
-    ("seq.max_len", 16, "A.8"),
+    # the seq axis is read since sequences were ported (under its old id)
+    pytest.param("seq.max_len", 16, None, id="seq.max_len-16-A.8"),
     # the replica fleet's keys are read since the balancer was ported
     # (the first under its old id)
     pytest.param("balance.hedge", False, None, id="balance.hedge-False-A.6"),
@@ -671,6 +673,12 @@ def test_a_refused_serving_key_raises_by_name(mnist_pair, key, value, item):
                                        else DEFAULTS["balance"]
                                        ["heartbeat_s"])
             return
+        if item is None and key.startswith("seq."):
+            # read: a 2-D ladder up to max_len
+            srv = InferenceServer(twf, warmup=False)
+            assert srv.seq_max_len == srv.batcher.ladder.max_len == value
+            assert srv.batcher.ladder.seq_rungs[-1] == value
+            return
         if item is None:                      # read: the server takes it
             srv = InferenceServer(twf, warmup=False)
             assert srv.batcher.admission.rate_limit == 20.0
@@ -679,4 +687,9 @@ def test_a_refused_serving_key_raises_by_name(mnist_pair, key, value, item):
                            match=f"root.common.serving.{key}=.*{item}"):
             InferenceServer(twf, warmup=False)
     finally:
-        root.common.serving.set_by_path(key, default)
+        if key.startswith("seq."):
+            # unset: an explicit 0 would force fixed-shape serving on a
+            # sequence sample served later in this process
+            delattr(root.common.serving.seq, key.split(".")[1])
+        else:
+            root.common.serving.set_by_path(key, default)

@@ -2,7 +2,7 @@
 paths of ``znicz_tpu/launcher.py``):
 
     python -m znicz_torch {alexnet,mnist,cifar,mnist_ae,kohonen,wine,
-                           kanji,video_ae,yale_faces}
+                           kanji,video_ae,yale_faces,charlm}
                           [root.x.y=value ...]
                           [--device cpu] [--seed N] [--fused]
                           [--snapshot PATH]
@@ -21,8 +21,8 @@ paths of ``znicz_tpu/launcher.py``):
 Dotted overrides are applied to the port's config tree before the sample
 module is imported, so its defaults do not clobber them.  The sample's
 ``run(device)`` trains on ``cuda:0`` unless ``--device`` names another
-device; without a GPU it raises.  MNIST, CIFAR10, Wine, Kanji, VideoAE
-and YaleFaces train on the unit engine unless ``--fused``
+device; without a GPU it raises.  MNIST, CIFAR10, Wine, Kanji, VideoAE,
+YaleFaces and charlm train on the unit engine unless ``--fused``
 (``root.common.engine.fused``) asks for ``FusedTrainer``; AlexNet trains
 on ``FusedTrainer``, as the reference's sample does; MnistAE (tied
 weights) and Kohonen (no GD chain) train on the unit engine always.
@@ -31,7 +31,8 @@ first, unless it is there.  ``--snapshot`` resumes a sample that takes
 one (all but AlexNet and Kohonen) from a snapshot file.  The last line of
 the output is one JSON object with the run's finals under the names
 ``bench.py`` gives them: ``final_train_loss`` and ``valid_err_pct`` for
-the classifiers, ``final_train_mse`` and ``valid_mse`` for the
+the classifiers (charlm adds ``valid_token_err_pct``, the VALID error
+over tokens), ``final_train_mse`` and ``valid_mse`` for the
 autoencoders (MnistAE, VideoAE), ``final_qerror`` and ``first_qerror``
 for Kohonen; ``compute_dtype`` is
 the dtype the train steps computed in.  The precision knobs are dotted
@@ -126,7 +127,7 @@ from znicz_torch.core import prng
 from znicz_torch.core.config import apply_overrides, root
 
 SAMPLES = ("alexnet", "mnist", "cifar", "mnist_ae", "kohonen", "wine",
-           "kanji", "video_ae", "yale_faces")
+           "kanji", "video_ae", "yale_faces", "charlm")
 #: the samples trained on an MSE loss, whose finals are mean squared errors
 AUTOENCODERS = ("mnist_ae", "video_ae")
 
@@ -143,10 +144,18 @@ def finals(sample: str, wf) -> dict:
         return {"epochs": int(d.epoch_number) + 1,
                 "final_train_mse": train.get("loss"),
                 "valid_mse": valid.get("loss")}
-    return {"epochs": int(d.epoch_number) + 1,
-            "valid_err_pct": valid.get("err_pct"),
-            "train_loss": train.get("loss"),
-            "final_train_loss": train.get("loss")}
+    out = {"epochs": int(d.epoch_number) + 1,
+           "valid_err_pct": valid.get("err_pct"),
+           "train_loss": train.get("loss"),
+           "final_train_loss": train.get("loss")}
+    if sample == "charlm":
+        # the Decision counts wrong TOKENS against samples: the token
+        # error is over the VALID samples' tokens
+        tokens = wf.loader.class_lengths[1] * wf.sample_shape[0]
+        out["valid_token_err_pct"] = (
+            None if not valid or not tokens
+            else 100.0 * valid["n_err"] / tokens)
+    return out
 
 
 def main(argv=None) -> int:

@@ -244,8 +244,8 @@ UNPORTED_ENGINE_KNOBS = {
     **{key: (default, "A.9") for key, default in (
         ("obs_slo_apply_progress", 0.99), ("obs_slo_fast_window_s", 60.0),
         ("obs_slo_slow_window_s", 600.0))},
-    # A.8, sequence workloads
-    "seq_parallel": (0, "A.8"),
+    # A.8 (seq_parallel): ring attention over the sequence axis
+    "seq_parallel": (0, "A.8 (seq_parallel)"),
 }
 
 _UNSET = object()
@@ -285,9 +285,9 @@ def check_engine_knobs() -> None:
 #: set away from its default.
 UNPORTED_SERVING_KEYS = {
     "web_port": (None, "A.9"),
-    # A.8, sequence and generation serving
-    "seq.max_len": (0, "A.8"), "seq.rungs": (None, "A.8"),
-    **{f"generate.{key}": (default, "A.8") for key, default in (
+    # A.8 (generation serving): prefill/decode over a paged cache
+    **{f"generate.{key}": (default, "A.8 (generation serving)")
+       for key, default in (
         ("enabled", False), ("max_new_tokens", 256), ("page_size", 16),
         ("num_pages", 0), ("prefill_chunk", 0), ("prefix_cache", True),
         ("on_device_sampling", True), ("slots", 8),

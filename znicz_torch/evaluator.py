@@ -1,5 +1,5 @@
-"""The evaluators (port of ``EvaluatorSoftmax`` and ``EvaluatorMSE`` in
-``znicz_tpu/evaluator.py``).
+"""The evaluators (port of ``EvaluatorSoftmax``, ``EvaluatorSeqSoftmax``
+and ``EvaluatorMSE`` in ``znicz_tpu/evaluator.py``).
 
 As a unit of the unit engine it reads the softmax head's ``output``
 (probabilities), the minibatch ``labels`` and ``batch_size`` (the count
@@ -74,16 +74,17 @@ class EvaluatorSoftmax(EvaluatorBase):
         super().initialize(device=device, **kwargs)
         self.confusion_matrix.initialize(device)
 
-    def run(self):
-        probs = self.output.devmem
-        labels = self.labels.devmem.long()
-        n_classes = self.n_classes or int(probs.shape[-1])
-        if self.compute_confusion is None:
-            self.compute_confusion = n_classes <= self.CONFUSION_AUTO_LIMIT
-        bs = int(self.batch_size)
-        denom = max(bs, 1)
+    @staticmethod
+    def compute(probs, labels, batch_size: int, n_classes: int,
+                with_confusion: bool):
+        """``(err_output, n_err, loss, confusion, max_err_output_sum)`` of
+        (n, C) probabilities and (n,) int64 labels whose first
+        ``batch_size`` rows are valid, the three scalars as 0-dim
+        tensors."""
+        denom = max(int(batch_size), 1)
         with torch.no_grad():
-            valid = torch.arange(probs.shape[0], device=probs.device) < bs
+            valid = torch.arange(probs.shape[0],
+                                 device=probs.device) < batch_size
             onehot = F.one_hot(labels, n_classes).to(probs.dtype)
             err = (probs - onehot) * valid[:, None] / denom
             pred = torch.argmax(probs, dim=-1)
@@ -93,14 +94,49 @@ class EvaluatorSoftmax(EvaluatorBase):
                 torch.gather(probs, 1, labels[:, None])[:, 0], tiny))
             loss = torch.sum(torch.where(valid, ce, 0.0)) / denom
             conf = confusion(pred, labels, valid,
-                             n_classes if self.compute_confusion else 0)
+                             n_classes if with_confusion else 0)
             mes = torch.max(torch.sum(torch.abs(err), dim=-1))
+        return err, n_err, loss, conf, mes
+
+    def _compute(self, probs, labels, n_classes: int):
+        return self.compute(probs, labels, int(self.batch_size), n_classes,
+                            bool(self.compute_confusion))
+
+    def run(self):
+        probs = self.output.devmem
+        n_classes = self.n_classes or int(probs.shape[-1])
+        if self.compute_confusion is None:
+            self.compute_confusion = n_classes <= self.CONFUSION_AUTO_LIMIT
+        err, n_err, loss, conf, mes = self._compute(
+            probs, self.labels.devmem.long(), n_classes)
         self.err_output.devmem = err
         self.confusion_matrix.devmem = conf
         loss, n_err, mes = torch.stack(
             [loss.double(), n_err.double(), mes.double()]).tolist()
         self.loss, self.n_err = loss, int(n_err)
         self.max_err_output_sum = mes
+
+
+class EvaluatorSeqSoftmax(EvaluatorSoftmax):
+    """Per-token softmax-CE over a sequence head: probabilities (batch,
+    seq, vocab), labels (batch, seq).  Tokens are flattened into the batch
+    axis and :meth:`EvaluatorSoftmax.compute` applies as it is, with
+    ``batch_size * seq`` valid rows and that denominator, so ``n_err``
+    counts wrong tokens and ``loss`` is the mean per token.  The fused
+    trainer's loss head flattens the same way.  The confusion matrix is
+    off unless asked for."""
+
+    def __init__(self, workflow=None, name: str = "evaluator", **kwargs):
+        kwargs.setdefault("compute_confusion", False)
+        super().__init__(workflow=workflow, name=name, **kwargs)
+
+    def _compute(self, probs, labels, n_classes: int):
+        n, t = probs.shape[0], probs.shape[1]
+        err, *rest = self.compute(
+            probs.reshape(n * t, probs.shape[-1]), labels.reshape(n * t),
+            int(self.batch_size) * t, n_classes,
+            bool(self.compute_confusion))
+        return (err.reshape(probs.shape), *rest)
 
 
 class EvaluatorMSE(EvaluatorBase):

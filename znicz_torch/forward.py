@@ -32,6 +32,9 @@ from znicz_torch.distributable import Distributable
 
 class ForwardModule(nn.Module, Distributable):
     has_weights = False
+    #: the parameter leaves of a module whose parameters are not
+    #: ``weights``/``bias`` (``nn_units.params_of``); None: those two
+    PARAM_NAMES = None
 
     def __init__(self, name: Optional[str] = None, include_bias: bool = True,
                  weights_transposed: bool = False,

@@ -35,8 +35,10 @@ gradient comes out of a kernel in float32, and ``fused_block_bwd`` and
 The planners decide where the fused stages engage, on the same knobs as
 the reference: ``root.common.engine.fused_elementwise`` (blocks; stepped
 aside for by the LRN-formulation knobs ``lrn_pow``/``lrn_autodiff``/
-``pallas_lrn``) and ``fused_tail`` (conv bias+ReLU, FC epilogues and the
-loss head).  Both are off by default.
+``pallas_lrn``) and ``fused_tail`` (conv bias+ReLU, FC epilogues, the
+position-wise FFN's epilogue (``seq_epilogue``: the FC epilogue on a
+per-token product, no dropout) and the loss head).  Both are off by
+default.
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ class FusedBlockSpec(NamedTuple):
 class FusedTailSpec(NamedTuple):
     """One matched tail-stage occurrence in a forwards list."""
 
-    kind: str                  # "conv_bias_relu" | "fc_epilogue"
+    kind: str    # "conv_bias_relu" | "fc_epilogue" | "seq_epilogue"
     span: int                  # modules consumed
     ratio: float = 0.0         # dropout ratio (fc_epilogue only)
     dropout_index: int = -1    # forwards index of the absorbed dropout
@@ -1233,6 +1235,23 @@ def match_fc_epilogue(forwards: Sequence, i: int) -> Optional[FusedTailSpec]:
     return FusedTailSpec("fc_epilogue", 1)
 
 
+def match_seq_epilogue(forwards: Sequence, i: int) \
+        -> Optional[FusedTailSpec]:
+    """SeqAll2AllStrictRELU(+bias), the position-wise FFN (span 1): the
+    raw per-token product, then the FC epilogue with no dropout.  The
+    softmax head is not matched."""
+    from znicz_torch.attention import SeqAll2All, SeqAll2AllSoftmax
+    from znicz_torch.ops import activations
+
+    f = forwards[i]
+    if not isinstance(f, SeqAll2All) or isinstance(f, SeqAll2AllSoftmax):
+        return None
+    if type(f).ACTIVATION is not activations.strict_relu \
+            or not f.include_bias:
+        return None
+    return FusedTailSpec("seq_epilogue", 1)
+
+
 def plan_fused_tail(forwards: Sequence,
                     block_plan: Optional[Dict[int, FusedBlockSpec]] = None
                     ) -> Dict[int, FusedTailSpec]:
@@ -1251,7 +1270,8 @@ def plan_fused_tail(forwards: Sequence,
             i += 1
             continue
         spec = match_conv_bias_relu(forwards, i) \
-            or match_fc_epilogue(forwards, i)
+            or match_fc_epilogue(forwards, i) \
+            or match_seq_epilogue(forwards, i)
         if spec is not None:
             plan[i] = spec
             i += spec.span

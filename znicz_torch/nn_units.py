@@ -153,9 +153,14 @@ class GradientDescent(Distributable):
 
 def params_of(module) -> Dict[str, torch.Tensor]:
     """``{"weights": ..., "bias": ...}`` of a module with weights (no
-    bias leaf without ``include_bias``); ``{}`` for one without."""
+    bias leaf without ``include_bias``), or the leaves its
+    ``PARAM_NAMES`` lists (the attention modules' projections and
+    tables); ``{}`` for one without weights."""
     if not module.has_weights:
         return {}
+    names = getattr(module, "PARAM_NAMES", None)
+    if names:
+        return {k: getattr(module, k) for k in names}
     out = {"weights": module.weights}
     if module.include_bias:
         out["bias"] = module.bias

@@ -16,3 +16,12 @@ def linear(x, w, b=None, *, weights_transposed: bool = False):
     if b is not None:
         y = y + b
     return y
+
+
+def seq_linear(x, w, b=None, *, weights_transposed: bool = False):
+    """Position-wise dense: ``y = x @ W^T + b`` over the last axis only,
+    the leading (batch, seq) axes kept — what a sequence input needs
+    where :func:`linear` would flatten it.  The same weight layout and
+    bias convention as :func:`linear`."""
+    y = x @ (w if weights_transposed else w.t())
+    return y if b is None else y + b

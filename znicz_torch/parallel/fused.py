@@ -11,9 +11,12 @@ block kernels (K1 forward, K1b backward); with ``fused_tail`` each
 remaining ConvStrictRELU (or Conv + StrictRELU layer) runs as the raw
 convolution
 plus the bias+ReLU kernels (K2, K2b), each All2AllStrictRELU(+dropout)
-as the raw product plus the FC epilogue, and the loss as the fused
+as the raw product plus the FC epilogue, each SeqAll2AllStrictRELU as
+the per-token product plus the same epilogue, and the loss as the fused
 softmax-CE head.  ``pallas_lrn`` sends the LRN modules through K3/K3b.
-A softmax head emits LOGITS.  The plans are read from the knobs on every
+A softmax head emits LOGITS, a sequence head (``SeqAll2AllSoftmax``)
+(batch, seq, vocab) logits, which the loss head flattens into
+``batch * seq`` token rows.  The plans are read from the knobs on every
 call.  Under any evaluator but ``EvaluatorSoftmax`` the loss is the
 reference's MSE head: half the sum of squares of the last module's
 output less the loader's targets (``FullBatchLoaderMSE.gather_targets``)
@@ -163,6 +166,7 @@ import torch
 from torch import nn
 
 from znicz_torch.all2all import All2All, All2AllSoftmax
+from znicz_torch.attention import SeqAll2AllSoftmax
 from znicz_torch.core import prng
 from znicz_torch.core.config import ENGINE_DEFAULTS, check_engine_knobs, root
 from znicz_torch.core.mutable import Bool
@@ -173,7 +177,7 @@ from znicz_torch.fused_block import (fused_bias_relu, fused_block,
                                      plan_fused_blocks, plan_fused_tail)
 from znicz_torch.loader.base import TRAIN
 from znicz_torch.nn_units import params_of, sgd_update, state_dtype
-from znicz_torch.ops.linear import linear
+from znicz_torch.ops.linear import linear, seq_linear
 from znicz_torch.parallel import mesh as mesh_mod
 from znicz_torch.parallel.graphs import StepGraph, capturing
 from znicz_torch.pooling import StochasticPoolingBase
@@ -769,6 +773,10 @@ class FusedTrainer:
         if tl is not None:
             if tl.kind == "conv_bias_relu":
                 return fused_bias_relu(f.apply_linear(h), f.bias), i + tl.span
+            if tl.kind == "seq_epilogue":
+                y = seq_linear(h, f.weights,
+                               weights_transposed=f.weights_transposed)
+                return fused_fc_epilogue(y, f.bias), i + tl.span
             place = mesh_mod.placement_of(f)                # fc_epilogue
             if place is not None:
                 h = mesh_mod.copy_to_model(h, self.mesh)
@@ -804,6 +812,9 @@ class FusedTrainer:
             h = linear(h, f.weights, f.bias,
                        weights_transposed=f.weights_transposed)
             h = h.reshape((rows,) + f.output_sample_shape)
+        elif f is self.forwards[-1] and isinstance(f, SeqAll2AllSoftmax):
+            h = seq_linear(h, f.weights, f.bias,
+                           weights_transposed=f.weights_transposed)
         else:
             h = f(h)
         return h, i + 1
@@ -890,6 +901,15 @@ class FusedTrainer:
                           torch.zeros((1, 1), dtype=torch.int32,
                                       device=out.device))
         logits = out
+        if logits.ndim == 3:
+            # a sequence head: every token of a valid row is one
+            # classification, the loss a mean per token
+            # (EvaluatorSeqSoftmax flattens the same way)
+            t = logits.shape[1]
+            logits = logits.reshape(n * t, logits.shape[-1])
+            target = target.reshape(n * t)
+            valid = valid.repeat_interleave(t)
+            denom = max(int(batch_size) * t, 1)
         if bool(root.common.engine.get("fused_tail", False)):
             loss = fused_softmax_xent(logits, target, valid, denom)
         else:

@@ -7,7 +7,12 @@
   - **Bucket ladder**: each batch is padded up to the next rung of a fixed
     ladder (powers of two up to ``max_batch``, snapped to multiples of
     the serving mesh's ``data`` axis), so the model sees at most
-    ``len(ladder)`` batch shapes.
+    ``len(ladder)`` batch shapes.  With ``max_len`` the ladder has a
+    second axis of sequence rungs (powers of two up to ``max_len``, or
+    explicit ones ending at it): a request of ``len`` tokens lands on
+    ``seq_bucket_for(len)``, a function of its own length only, batches
+    coalesce only requests of one seq rung, and the model sees at most
+    ``len(rungs) * len(seq_rungs)`` (rows, seq) shapes.
   - **Backpressure**: the queue is bounded in rows; a submit past
     ``queue_bound`` is refused at once with a :class:`Refusal`.
   - **Admission control**: per-client token-bucket rate limits and
@@ -20,8 +25,8 @@
     / ``draining``) and the ``scope`` (``client`` or ``service``) that
     refused it.  Config home: ``root.common.serving.admission.*``.
 
-The 2-D sequence ladder and continuous batching for generation come with
-sequence workloads (ROADMAP A.8).
+Continuous batching for generation comes with ROADMAP A.8 (generation
+serving).
 
 Threading: ``submit`` may be called from any thread, ``next_batch`` from
 the one compute thread; one condition variable guards the queues and the
@@ -50,10 +55,18 @@ class BucketLadder:
     split evenly across it, so the default rungs are snapped up to the
     next multiple of ``dp`` (then deduplicated), and explicit rungs that
     do not divide are refused here, readably, rather than at the first
-    request."""
+    request.
+
+    With ``max_len > 0`` the ladder is 2-D: ``seq_rungs`` are the powers
+    of two below ``max_len`` plus ``max_len`` (or explicit rungs ending
+    at it), and :meth:`buckets` is the (rows, seq) product.  The snapping
+    to ``dp`` applies to the rows only (ranks split rows, never
+    tokens)."""
 
     def __init__(self, max_batch: int,
-                 rungs: Optional[Sequence[int]] = None, dp: int = 1):
+                 rungs: Optional[Sequence[int]] = None, dp: int = 1,
+                 max_len: int = 0,
+                 seq_rungs: Optional[Sequence[int]] = None):
         self.max_batch = int(max_batch)
         self.dp = int(dp)
         if self.max_batch < 1:
@@ -88,6 +101,31 @@ class BucketLadder:
                     f"a multiple of dp so each rank holds exactly rows/dp "
                     f"rows")
         self.rungs: List[int] = rungs
+        self.max_len = int(max_len)
+        if self.max_len < 0:
+            raise ValueError(f"max_len must be >= 0, got {max_len}")
+        self.seq_rungs: Optional[List[int]] = None
+        if self.max_len == 0:
+            if seq_rungs:
+                raise ValueError(
+                    "seq_rungs given without max_len — set "
+                    "root.common.serving.seq.max_len to enable the 2-D "
+                    "ladder")
+            return
+        if seq_rungs is None:
+            seq_rungs = []
+            s = 1
+            while s < self.max_len:
+                seq_rungs.append(s)
+                s *= 2
+            seq_rungs.append(self.max_len)
+        seq_rungs = sorted(set(int(s) for s in seq_rungs))
+        if not seq_rungs or seq_rungs[0] < 1 \
+                or seq_rungs[-1] != self.max_len:
+            raise ValueError(
+                f"seq ladder {seq_rungs} must be positive and end at "
+                f"max_len={self.max_len}")
+        self.seq_rungs = seq_rungs
 
     def bucket_for(self, n: int) -> int:
         """Smallest rung >= n."""
@@ -97,14 +135,41 @@ class BucketLadder:
         raise ValueError(f"{n} rows exceed the ladder's top rung "
                          f"{self.rungs[-1]}")
 
-    def buckets(self) -> List[int]:
-        """Every batch shape the model may see (the warmup set)."""
-        return list(self.rungs)
+    def seq_bucket_for(self, n: int) -> int:
+        """Smallest seq rung >= n (2-D ladders only): a function of the
+        request's own length, never of its neighbours'."""
+        if self.seq_rungs is None:
+            raise ValueError("ladder has no seq axis (max_len unset)")
+        for s in self.seq_rungs:
+            if n <= s:
+                return s
+        raise ValueError(f"sequence of {n} tokens exceeds the ladder's "
+                         f"top seq rung {self.seq_rungs[-1]}")
+
+    def buckets(self) -> List:
+        """Every input shape the model may see (the warmup set): the
+        rungs, or on a 2-D ladder every (rows, seq) pair."""
+        if self.seq_rungs is None:
+            return list(self.rungs)
+        return [(r, s) for r in self.rungs for s in self.seq_rungs]
+
+    @staticmethod
+    def bucket_key(rows: int, seq: Optional[int] = None):
+        """A bucket's stats key: the rung (1-D) or ``"RxS"`` (2-D, a
+        string, so it stays a JSON key as it is)."""
+        return int(rows) if seq is None else f"{int(rows)}x{int(seq)}"
+
+    def keys(self) -> List:
+        """:meth:`bucket_key` of every bucket."""
+        return [self.bucket_key(*b) if isinstance(b, tuple)
+                else self.bucket_key(b) for b in self.buckets()]
 
     def __iter__(self):
         return iter(self.rungs)
 
     def __repr__(self):
+        if self.seq_rungs is not None:
+            return f"BucketLadder({self.rungs} x seq{self.seq_rungs})"
         return f"BucketLadder({self.rungs})"
 
 
@@ -173,16 +238,20 @@ class Request:
     again after the compute (None = no deadline).  ``t_enqueued`` feeds
     the latency stats.  A ``solo`` request (a balancer's parity-sampled
     primary or its probe) closes a batch of its own, at the smallest
-    ladder rung that holds its rows."""
+    ladder rung that holds its rows.  On a 2-D ladder ``seq_len`` is the
+    request's own unpadded length (its reply is cut back to it), and
+    ``seq_rung`` the seq rung the batcher gives it at submit."""
 
     __slots__ = ("x", "n", "reply_to", "req_id", "trace_id", "client",
-                 "t_enqueued", "t_deadline", "solo")
+                 "t_enqueued", "t_deadline", "solo", "seq_len", "seq_rung")
 
     def __init__(self, x, n: int, reply_to=None, req_id=None,
                  trace_id=None, client=None, deadline_s=None,
-                 solo: bool = False):
+                 solo: bool = False, seq_len: Optional[int] = None):
         self.x = x
         self.n = int(n)
+        self.seq_len = None if seq_len is None else int(seq_len)
+        self.seq_rung: Optional[int] = None
         self.reply_to = reply_to
         self.req_id = req_id
         self.trace_id = trace_id
@@ -209,6 +278,10 @@ class DynamicBatcher:
         "batched_requests": "requests inside closed batches",
         "batched_rows": "real rows inside closed batches",
         "padded_rows": "pad rows added by the ladder",
+        "real_cells": "real cells (rows x own tokens) inside closed "
+                      "batches",
+        "padded_cells": "pad cells the (2-D) ladder added: bucket area "
+                        "less real cells",
         "solo_batches": "batches of one solo request",
     }
 
@@ -245,10 +318,10 @@ class DynamicBatcher:
         self._cond = threading.Condition()
         self._closed = False
         self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
-        self._bucket_hits: Dict[int, int] = dict.fromkeys(
-            self.ladder.rungs, 0)
-        self._real_rows = dict.fromkeys(self.ladder.rungs, 0)
-        self._pad_rows = dict.fromkeys(self.ladder.rungs, 0)
+        keys = self.ladder.keys()
+        self._bucket_hits: Dict = dict.fromkeys(keys, 0)
+        self._real_cells = dict.fromkeys(keys, 0)
+        self._pad_cells = dict.fromkeys(keys, 0)
         #: the rung each solo request was served at: (req_id, rows, rung)
         self.solo_rungs: collections.deque = collections.deque(
             maxlen=self.SOLO_WINDOW)
@@ -257,16 +330,17 @@ class DynamicBatcher:
     # -- counters --------------------------------------------------------------
 
     @property
-    def bucket_hits(self) -> Dict[int, int]:
-        """{rung: batches closed at that rung}."""
+    def bucket_hits(self) -> Dict:
+        """{bucket key: batches closed at that bucket}."""
         with self._cond:
             return dict(self._bucket_hits)
 
-    def pad_ratio(self) -> Dict[int, float]:
-        """{rung: pad rows / real rows} of the batches each rung closed;
-        rungs that closed none are left out."""
+    def pad_ratio(self) -> Dict:
+        """{bucket key: pad cells / real cells} of the batches each
+        bucket closed (a cell is a row, or a row's token on a 2-D
+        ladder); buckets that closed none are left out."""
         with self._cond:
-            real, pad = dict(self._real_rows), dict(self._pad_rows)
+            real, pad = dict(self._real_cells), dict(self._pad_cells)
         return {r: round(pad[r] / n, 4) for r, n in real.items() if n}
 
     # -- admission -------------------------------------------------------------
@@ -322,6 +396,7 @@ class DynamicBatcher:
 
     def submit(self, req: Request) -> Optional[Refusal]:
         adm = self.admission
+        lad = self.ladder
         with self._cond:
             if req.n < 1 or req.n > self.max_batch:
                 self._counts["oversized"] += 1
@@ -330,6 +405,15 @@ class DynamicBatcher:
                     f"request of {req.n} rows exceeds max_batch="
                     f"{self.max_batch} (split it client-side)",
                     scope="client")
+            if lad.seq_rungs is not None:
+                if req.seq_len is None or not 1 <= req.seq_len \
+                        <= lad.max_len:
+                    self._counts["oversized"] += 1
+                    return Refusal(
+                        "oversized",
+                        f"sequence length {req.seq_len} outside the seq "
+                        f"ladder (1..{lad.max_len})", scope="client")
+                req.seq_rung = lad.seq_bucket_for(req.seq_len)
             if self._closed:
                 return Refusal("draining", "service is shutting down")
             key = None
@@ -403,36 +487,58 @@ class DynamicBatcher:
 
     # -- consumer side ---------------------------------------------------------
 
-    def _pop(self, key) -> Request:
-        """Dequeue the head of ``key``'s subqueue (cond held)."""
-        req = self._queues[key].popleft()
+    def _pop(self, key, idx: int = 0) -> Request:
+        """Dequeue entry ``idx`` (default the head) of ``key``'s subqueue
+        (cond held)."""
+        q = self._queues[key]
+        if idx:
+            q.rotate(-idx)
+            req = q.popleft()
+            q.rotate(idx)
+        else:
+            req = q.popleft()
         self._rows -= req.n
         if key in self._client_rows:
             self._client_rows[key] -= req.n
         return req
 
-    def _take_one(self, space: int,
-                  solo_ok: bool = True) -> Optional[Request]:
-        """One request under deficit round robin, or None when no queued
-        head fits ``space`` rows (requests are never split; cond held).
-        A solo head fits only when ``solo_ok`` (it opens a batch, never
-        joins one).  A visited client banks ``quantum`` rows once a visit
-        and keeps its turn while its deficit covers its head; a client
-        whose queue empties is retired."""
+    @staticmethod
+    def _match(q, space: int, solo_ok: bool, seq_rung) -> int:
+        """Index of the request of subqueue ``q`` to take, or -1.  With no
+        pinned ``seq_rung`` only the head is considered (FIFO); with one
+        (a 2-D batch being built) the scan reaches past requests of other
+        seq rungs only, and the first of the rung is taken if it fits
+        ``space`` rows (and, when solo, ``solo_ok``), else the scan ends:
+        one rung drains in arrival order."""
+        for idx, req in enumerate(q):
+            if seq_rung is not None and req.seq_rung != seq_rung:
+                continue
+            ok = req.n <= space and (solo_ok or not req.solo)
+            return idx if ok else -1
+        return -1
+
+    def _take_one(self, space: int, solo_ok: bool = True,
+                  seq_rung: Optional[int] = None) -> Optional[Request]:
+        """One request under deficit round robin, or None when nothing
+        queued fits ``space`` rows (requests are never split; cond held).
+        A solo request fits only when ``solo_ok`` (it opens a batch,
+        never joins one); with ``seq_rung`` only requests of that seq
+        rung fit (:meth:`_match`).  A visited client banks ``quantum``
+        rows once a visit and keeps its turn while its deficit covers the
+        request; a client whose queue empties is retired."""
         rr = self._rr
         if self._rows == 0 or not rr:
             return None
-
-        def fits(q) -> bool:
-            return bool(q) and q[0].n <= space and (solo_ok
-                                                    or not q[0].solo)
-
         if len(rr) == 1:
             # one subqueue: plain FIFO, no deficit bookkeeping
-            if fits(self._queues[rr[0]]):
-                return self._pop(rr[0])
-            return None
-        if not any(fits(q) for q in self._queues.values()):
+            idx = self._match(self._queues[rr[0]], space, solo_ok, seq_rung)
+            return self._pop(rr[0], idx) if idx >= 0 else None
+        # one scan a take: the queues do not change under the lock until
+        # _pop, so each client's matched index holds through the rotation
+        matches = {key: idx for key, q in self._queues.items() if q
+                   for idx in (self._match(q, space, solo_ok, seq_rung),)
+                   if idx >= 0}
+        if not matches:
             return None                     # nothing fits: close batch
         cap = float(max(self._quantum, self.max_batch))
         while True:
@@ -450,11 +556,12 @@ class DynamicBatcher:
                 self._visiting = key
                 self._deficit[key] = min(
                     self._deficit.get(key, 0.0) + self._quantum, cap)
-            if fits(q) and self._deficit.get(key, 0.0) >= q[0].n:
-                self._deficit[key] -= q[0].n
-                return self._pop(key)
-            # the head does not fit, or its deficit is not yet banked:
-            # this visit ends, the next client's turn
+            idx = matches.get(key, -1)
+            if idx >= 0 and self._deficit.get(key, 0.0) >= q[idx].n:
+                self._deficit[key] -= q[idx].n
+                return self._pop(key, idx)
+            # nothing fits (space, rung), or its deficit is not yet
+            # banked: this visit ends, the next client's turn
             rr.rotate(-1)
             self._visiting = _NO_VISIT
 
@@ -468,7 +575,9 @@ class DynamicBatcher:
         ``wait_fill=False`` skips the window and takes only what is
         already queued — the pipelined grab while the previous batch is
         on the device.  A solo request is a batch alone: it closes at
-        once when it comes first, and stays queued otherwise."""
+        once when it comes first, and stays queued otherwise.  On a 2-D
+        ladder the first request pins the batch's seq rung, and only
+        requests of that rung join it."""
         with self._cond:
             deadline = time.perf_counter() + max(timeout, 0.0)
             while self._rows == 0:
@@ -483,9 +592,11 @@ class DynamicBatcher:
                 return None
             batch = [first]
             rows = first.n
+            seq_rung = first.seq_rung
             flush_at = time.perf_counter() + self.max_delay_s
             while rows < self.max_batch and not first.solo:
-                req = self._take_one(self.max_batch - rows, solo_ok=False)
+                req = self._take_one(self.max_batch - rows, solo_ok=False,
+                                     seq_rung=seq_rung)
                 if req is not None:
                     batch.append(req)
                     rows += req.n
@@ -497,13 +608,22 @@ class DynamicBatcher:
                     break
                 self._cond.wait(remaining)
             bucket = self.ladder.bucket_for(rows)
+            if seq_rung is None:
+                key, real, area = self.ladder.bucket_key(bucket), rows, \
+                    bucket
+            else:
+                key = self.ladder.bucket_key(bucket, seq_rung)
+                real = sum(r.n * r.seq_len for r in batch)
+                area = bucket * seq_rung
             self._counts["batches"] += 1
             self._counts["batched_requests"] += len(batch)
             self._counts["batched_rows"] += rows
             self._counts["padded_rows"] += bucket - rows
-            self._bucket_hits[bucket] += 1
-            self._real_rows[bucket] += rows
-            self._pad_rows[bucket] += bucket - rows
+            self._counts["real_cells"] += real
+            self._counts["padded_cells"] += area - real
+            self._bucket_hits[key] += 1
+            self._real_cells[key] += real
+            self._pad_cells[key] += area - real
             if first.solo:
                 self._counts["solo_batches"] += 1
                 self.solo_rungs.append((first.req_id, rows, bucket))
@@ -530,6 +650,8 @@ class DynamicBatcher:
                    max_delay_ms=self.max_delay_s * 1e3,
                    queue_bound=self.queue_bound,
                    pad_ratio=self.pad_ratio(),
+                   seq_rungs=(None if self.ladder.seq_rungs is None
+                              else list(self.ladder.seq_rungs)),
                    mean_occupancy=None if occ is None else round(occ, 4),
                    admission=self.admission_stats())
         return out

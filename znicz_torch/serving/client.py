@@ -27,8 +27,9 @@ balancer's ``lb`` stamp files its outcome into the window of the
 ``replica_id`` stamped on it (``replica_breakers()``), not into the
 whole-service breaker.
 
-The generation API (``submit_generate``/``generate``) comes with
-sequence workloads (ROADMAP A.8).
+A sequence service takes ``(n, len)`` requests as they are and answers
+``(n, len, ...)``.  The generation API (``submit_generate``/``generate``)
+comes with ROADMAP A.8 (generation serving).
 """
 
 from __future__ import annotations

@@ -71,9 +71,20 @@ libraries come from ``aot_cache/`` next to the snapshot (or ``dir``)
 where it holds them, and the warm proof (``ModelRunner.warm_proof``,
 kept as ``warm_report``) must hold before the server becomes ready; a
 failed proof fails ``start()``.  The heartbeat carries ``warm_source``,
-``warm_hits`` and ``warm_misses``.  Sequence and generation serving come
-with A.8, exemplars, SLOs and the heartbeat's fleet trace, event and
-metric keys with telemetry (A.9).
+``warm_hits`` and ``warm_misses``.  Generation serving comes with A.8
+(generation serving), exemplars, SLOs and the heartbeat's fleet trace,
+event and metric keys with telemetry (A.9).
+
+**Variable-length requests** (``root.common.serving.seq.{max_len,
+rungs}``; ``max_len`` defaults to the workflow's ``serving_seq_len``,
+charlm's trained window).  With a ``max_len`` the ladder is 2-D: a
+request ``x`` is ``(n, len, *sample[1:])`` with ``1 <= len <= max_len``
+(a bare ``(len,)`` is one row), the batcher coalesces only requests of
+one seq rung, ``_assemble`` pads each request on the right with pad id 0
+up to the rung, and its reply (the model's output keeps the seq axis)
+is cut back to ``(n, len, ...)``.  A ``max_len`` past the trained
+length, and non-causal attention (pad keys would take probability mass
+from real positions), are refused when the server is built.
 """
 
 from __future__ import annotations
@@ -105,6 +116,10 @@ DEFAULTS = {"max_batch": 32, "max_delay_ms": 5.0, "queue_bound": 256,
                           "rate_burst": 0.0, "fair": True, "quantum": 0,
                           "client_queue_bound": 0},
             "mesh": {"data": 1, "model": 1},
+            # variable-length requests: with max_len > 0 the ladder has
+            # a seq axis (powers of two up to max_len, or ``rungs``
+            # ending at it); a sequence sample declares its window
+            "seq": {"max_len": 0, "rungs": None},
             # the build cache (serving/aot_cache.py): kernel libraries
             # kept next to the snapshot (``dir`` overrides the place)
             "aot_cache": {"enabled": False, "dir": ""},
@@ -217,10 +232,25 @@ class InferenceServer:
         # every rung splits evenly over the mesh's data axis: an explicit
         # ladder that cannot is refused here, not at the first request
         dp = self.runner.data_parallel
+        # the seq axis: the config's max_len (an explicit 0 forces
+        # fixed-shape serving), else the window the workflow declares
+        d_seq = DEFAULTS["seq"]
+        sq = root.common.serving.seq
+        declared = int(getattr(workflow, "serving_seq_len", 0) or 0)
+        seq_max_len = int(sq.get("max_len", declared or d_seq["max_len"])
+                          or 0)
+        seq_rungs = sq.get("rungs", d_seq["rungs"])
         if ladder is None:
-            ladder = BucketLadder(max_batch, dp=dp)
+            ladder = BucketLadder(max_batch, dp=dp, max_len=seq_max_len,
+                                  seq_rungs=seq_rungs)
         elif dp > 1 and ladder.dp != dp:
-            ladder = BucketLadder(ladder.max_batch, ladder.rungs, dp=dp)
+            ladder = BucketLadder(ladder.max_batch, ladder.rungs, dp=dp,
+                                  max_len=ladder.max_len,
+                                  seq_rungs=ladder.seq_rungs)
+        #: the longest request (None: fixed-shape requests)
+        self.seq_max_len: Optional[int] = ladder.max_len or None
+        if self.seq_max_len is not None:
+            self._check_seq_model(workflow)
         self.batcher = DynamicBatcher(
             max_batch=max_batch,
             max_delay_ms=float(_cfg("max_delay_ms", max_delay_ms)),
@@ -267,6 +297,30 @@ class InferenceServer:
         self._compute_thread: Optional[threading.Thread] = None
         self._swap_gate = threading.Lock()
         self._swap_thread: Optional[threading.Thread] = None
+
+    def _check_seq_model(self, workflow) -> None:
+        """Refuse a ``max_len`` past the trained length (positions there
+        have no embedding) and non-causal attention (pad keys would take
+        probability mass from the real positions, so a reply would
+        depend on its rung)."""
+        from znicz_torch.attention import MultiHeadAttention
+
+        trained = int(self.runner.sample_shape[0]) \
+            if self.runner.sample_shape else 0
+        if trained and self.seq_max_len > trained:
+            raise ValueError(
+                f"root.common.serving.seq.max_len={self.seq_max_len} "
+                f"exceeds the model's trained sequence length {trained} "
+                f"(positions past the trained window have no embedding)")
+        non_causal = [f.name for f in workflow.forwards
+                      if isinstance(f, MultiHeadAttention) and not f.causal]
+        if non_causal:
+            raise ValueError(
+                f"variable-length serving needs causal attention, but "
+                f"unit(s) {non_causal} attend bidirectionally — padded "
+                f"tails would leak probability mass into real positions. "
+                f"Make the unit causal, or serve fixed-shape "
+                f"(root.common.serving.seq.max_len=0)")
 
     def _inc(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -573,7 +627,20 @@ class InferenceServer:
             return
         if x.ndim == len(self.runner.sample_shape):
             x = x[None]                     # a single sample
-        if tuple(x.shape[1:]) != self.runner.sample_shape:
+        seq_len = None
+        if self.seq_max_len is not None:
+            # axis 1 is the request's own length (1..max_len: a longer
+            # one gets the batcher's oversized refusal)
+            if x.ndim != 1 + len(self.runner.sample_shape) or \
+                    tuple(x.shape[2:]) != self.runner.sample_shape[1:]:
+                self._reply(sock, envelope, {
+                    "ok": False, "req_id": rid,
+                    "error": f"sequence request shape {x.shape} does not "
+                             f"match (n, len<= {self.seq_max_len}, "
+                             f"*{self.runner.sample_shape[1:]})"})
+                return
+            seq_len = int(x.shape[1])
+        elif tuple(x.shape[1:]) != self.runner.sample_shape:
             self._reply(sock, envelope,
                         {"ok": False, "req_id": rid,
                          "error": f"sample shape {tuple(x.shape[1:])} != "
@@ -607,7 +674,8 @@ class InferenceServer:
         reason = self.batcher.submit(
             Request(x, x.shape[0], reply_to=list(envelope), req_id=rid,
                     trace_id=req.get("trace_id"), client=client,
-                    deadline_s=deadline_s, solo=bool(req.get("solo"))))
+                    deadline_s=deadline_s, solo=bool(req.get("solo")),
+                    seq_len=seq_len))
         if reason is not None:
             self._inc("rejected")
             self._reply(sock, envelope,
@@ -656,8 +724,10 @@ class InferenceServer:
     def _assemble(self, batch: List[Request]):
         """Coalesced requests -> (live requests, their batch staged for
         the device: their rows in order, zero pad rows up to the ladder
-        rung).  Requests past their deadline are answered ``timed_out``
-        here, never computed; None when the whole batch expired."""
+        rung; on a 2-D ladder each row padded on the right with pad id 0
+        up to the batch's seq rung).  Requests past their deadline are
+        answered ``timed_out`` here, never computed; None when the whole
+        batch expired."""
         now = time.perf_counter()
         live = []
         for r in batch:
@@ -671,14 +741,23 @@ class InferenceServer:
             return None
         rows = sum(r.n for r in live)
         bucket = self.batcher.ladder.bucket_for(rows)
-        buf = self.runner.host_buffer(self.runner.bucket_shape(bucket))
+        seq = live[0].seq_rung
+        buf = self.runner.host_buffer(self.runner.bucket_shape(
+            bucket if seq is None else (bucket, seq)))
         x = buf.numpy()
+        tail = self.runner.sample_shape[1:]
         off = 0
         for r in live:
             # a copy into the pinned buffer: a request's rows may be a
             # read-only view of its ZMQ frame
-            x[off:off + r.n] = np.asarray(r.x, self.runner.dtype).reshape(
-                (r.n,) + self.runner.sample_shape)
+            rx = np.asarray(r.x, self.runner.dtype)
+            if seq is None:
+                x[off:off + r.n] = rx.reshape((r.n,)
+                                              + self.runner.sample_shape)
+            else:
+                x[off:off + r.n, :r.seq_len] = rx.reshape(
+                    (r.n, r.seq_len) + tail)
+                x[off:off + r.n, r.seq_len:] = 0
             off += r.n
         x[off:] = 0
         return live, self.runner.stage(buf)
@@ -699,11 +778,14 @@ class InferenceServer:
                 off += r.n
                 continue
             # each reply owns a copy of its rows (its frames go out with
-            # copy=False): pad rows stay here
+            # copy=False): pad rows stay here, and pad tokens too
+            yr = y[off:off + r.n]
+            if r.seq_rung is not None:
+                yr = yr[:, :r.seq_len]
             self._deliver(r, {"ok": True, "req_id": r.req_id,
                               "trace_id": r.trace_id, "gen": gen,
                               "replica_id": self.replica_id,
-                              "y": np.array(y[off:off + r.n])})
+                              "y": np.array(yr)})
             lat.append(now - r.t_enqueued)
             off += r.n
         with self._lock:

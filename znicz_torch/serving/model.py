@@ -19,7 +19,8 @@ its eager result.  Every later dispatch of the shape copies its input
 into the graph's static input and replays.  ``compiles`` counts the
 captures (on an uncaptured runner, the first dispatch of each shape), and
 ``graph_cache_size()`` the live generation's family: after
-``warmup(ladder)`` both equal ``len(ladder.rungs)``, and traffic adds
+``warmup(ladder)`` both equal ``len(ladder.buckets())`` (the rungs, or on
+a 2-D ladder every (rows, seq) bucket, each one graph), and traffic adds
 none.  A capture that fails raises: there is no fall back to eager.
 ``capture`` (default: on a CUDA device with no ``uncaptured_reason`` of
 the trainer's) may be False to serve eagerly; True where the device or
@@ -100,7 +101,13 @@ Meshed dispatches are not captured, for the training mesh's reason.
 loaded from a cache next to the snapshot instead of built, and each rung
 is captured again at every boot (a graph cannot be written to disk).
 :meth:`ModelRunner.warm_proof` is the boot's proof, which the frontend
-gates readiness on in cache mode.  Generation serving waits for A.8.
+gates readiness on in cache mode.  Generation serving waits for ROADMAP
+A.8 (generation serving).
+
+**Sequences** (a 2-D ladder): a bucket ``(rows, seq)`` is staged as
+``(rows, seq, *sample[1:])`` (:meth:`ModelRunner.bucket_shape`); the
+sequence modules take their positions and causal masks from the input's
+own length, so each bucket is one shape, one key and one graph.
 """
 
 from __future__ import annotations
@@ -268,23 +275,36 @@ class ModelRunner:
         """``{"data": dp, "model": mp}``, None on one device."""
         return mesh_mod.mesh_shape_dict(self.mesh)
 
-    def _exchange(self, op: int = 0, rows: int = 0,
-                  gen: int = 0) -> Tuple[int, int, int]:
-        """Rank 0's header (op, rows, generation) on every rank."""
+    def _exchange(self, op: int = 0, rows: int = 0, gen: int = 0,
+                  seq: int = 0) -> Tuple[int, int, int, int]:
+        """Rank 0's header (op, rows, generation, seq) on every rank; seq
+        is a 2-D bucket's sequence rung, 0 for a batch of whole
+        samples."""
         import torch.distributed as dist
 
-        hdr = torch.tensor([op, rows, gen], dtype=torch.int64,
+        hdr = torch.tensor([op, rows, gen, seq], dtype=torch.int64,
                            device=self._wire)
         dist.broadcast(hdr, src=0)
         return tuple(int(v) for v in hdr.tolist())
 
-    def _scatter(self, x: Optional[torch.Tensor], rows: int) -> torch.Tensor:
+    def _row_shape(self, seq: int) -> Tuple[int, ...]:
+        """One row's shape: the sample's, or ``(seq, *sample[1:])``."""
+        return (seq,) + self.sample_shape[1:] if seq else self.sample_shape
+
+    def _seq_of(self, x) -> int:
+        """The seq rung of a staged batch: 0 when its rows are whole
+        samples."""
+        return 0 if tuple(x.shape[1:]) == self.sample_shape \
+            else int(x.shape[1])
+
+    def _scatter(self, x: Optional[torch.Tensor], rows: int,
+                 seq: int = 0) -> torch.Tensor:
         """This rank's ``rows / dp`` rows of rank 0's host batch ``x``."""
         import torch.distributed as dist
 
         n = rows // self._dp
-        out = torch.empty((n,) + self.sample_shape, dtype=self._torch_dtype,
-                          device=self._wire)
+        out = torch.empty((n,) + self._row_shape(seq),
+                          dtype=self._torch_dtype, device=self._wire)
         parts = None
         if self.rank == 0:
             parts = [x[d * n:(d + 1) * n].to(self._wire).contiguous()
@@ -309,12 +329,12 @@ class ModelRunner:
             first.setdefault(d, r)
         return torch.cat([parts[first[d]] for d in range(self._dp)])
 
-    def _mesh_infer(self, g: Generation, x, rows: int) -> Optional[
-            torch.Tensor]:
+    def _mesh_infer(self, g: Generation, x, rows: int,
+                    seq: int = 0) -> Optional[torch.Tensor]:
         """One meshed dispatch of ``rows`` rows on this rank (rank 0 holds
         the host batch ``x``); the caller holds the dispatch lock."""
-        local = self._scatter(x, rows)
-        y = self._forward(g, local, self._key((rows,) + self.sample_shape))
+        local = self._scatter(x, rows, seq)
+        y = self._forward(g, local, self._key((rows,) + self._row_shape(seq)))
         return self._gather(y)
 
     def follow(self) -> None:
@@ -324,7 +344,7 @@ class ModelRunner:
             raise RuntimeError("follow() is for the ranks other than 0 of "
                                "a serving mesh")
         while True:
-            op, rows, gen = self._exchange()
+            op, rows, gen, seq = self._exchange()
             if op == STOP:
                 return
             with self._dispatch_lock:
@@ -336,7 +356,7 @@ class ModelRunner:
                             f"rank {self.rank}: rank 0 dispatched "
                             f"generation {gen}; this rank serves "
                             f"{self._active.gen}")
-                    self._mesh_infer(g, None, rows)
+                    self._mesh_infer(g, None, rows, seq)
                     self.dispatches += 1
                 elif op == LOAD:
                     try:
@@ -442,8 +462,9 @@ class ModelRunner:
             else:
                 if self._closed:
                     raise RuntimeError("the serving mesh was closed")
-                self._exchange(INFER, x.shape[0], g.gen)
-                y = self._mesh_infer(g, x, x.shape[0])
+                seq = self._seq_of(x)
+                self._exchange(INFER, x.shape[0], g.gen, seq)
+                y = self._mesh_infer(g, x, x.shape[0], seq)
             self.dispatches += 1
         return y, g.gen
 
@@ -776,7 +797,13 @@ class ModelRunner:
         out[:n] = x
         return out
 
-    def bucket_shape(self, bucket: int) -> Tuple[int, ...]:
+    def bucket_shape(self, bucket) -> Tuple[int, ...]:
+        """The staged input shape of a ladder bucket: ``(rung, *sample)``,
+        or ``(rows, seq, *sample[1:])`` for a 2-D ``(rows, seq)`` bucket
+        (the seq axis takes the trained length's place)."""
+        if isinstance(bucket, tuple):
+            rows, seq = bucket
+            return (int(rows), int(seq)) + self.sample_shape[1:]
         return (int(bucket),) + self.sample_shape
 
     def warmup(self, ladder) -> int:

@@ -9,12 +9,13 @@ Builds the forward modules from the reference's ``layers`` list::
 descent hyperparameters of that layer.  Module ``i`` is named
 ``fwd_{type}_{i}`` (:meth:`StandardWorkflowBase.module_name`), as the
 reference names its units, so parameter trees carry over by name.  Every
-kind of the reference's registry is ported but ``attention`` (ROADMAP
-A.8): the fully-connected and convolution kinds with their activations,
+kind of the reference's registry is ported: the fully-connected and
+convolution kinds with their activations,
 ``resizable_all2all``, max, max-abs, average and stochastic pooling
 (plain and abs), LRN, dropout, ``cutter``, the seven standalone
 ``activation_*`` kinds, and MnistAE's deconvolutions (plain, tanh,
-sigmoid) and depooling.
+sigmoid) and depooling, and ``attention`` (``attention.
+MultiHeadAttention`` on a (seq, embed) sample).
 
 ``loss_function`` is ``"softmax"`` (``EvaluatorSoftmax`` on the loader's
 labels, ``DecisionGD``) or ``"mse"`` (``EvaluatorMSE`` on its
@@ -58,7 +59,7 @@ from znicz_torch.snapshotter import Snapshotter
 def _registry() -> Dict[str, Tuple[Type, Type, Type]]:
     """kind -> (module class, forward unit class, GD unit class)."""
     from znicz_torch import activation as act
-    from znicz_torch import (all2all, conv, cutter, deconv, depooling,
+    from znicz_torch import (all2all, attention, conv, cutter, deconv, depooling,
                              dropout, gd, gd_conv, gd_deconv, gd_pooling,
                              lrn, pooling, resizable_all2all)
     from znicz_torch.nn_units import ForwardBase as unit
@@ -109,6 +110,8 @@ def _registry() -> Dict[str, Tuple[Type, Type, Type]]:
         "resizable_all2all": (resizable_all2all.ResizableAll2All,
                               resizable_all2all.ResizableAll2AllUnit,
                               gd.GradientDescent),
+        "attention": (attention.MultiHeadAttention, unit,
+                      attention.GDMultiHeadAttention),
     }
 
 
