@@ -418,8 +418,8 @@ for ``mnist_ae`` and ``kohonen`` (each alone or both), phase 12 for
 phase 15 for ``deep``, phase 16 for ``shard``, phase 17 for
 ``snapshots``, phase 18 for ``zmq``, phase 19 for ``graphs``, phase
 20 for ``serve_mesh``, phase 21 for ``fleet``, phase 22 for ``aot``,
-phase 23 for ``master``, phase 24 for ``tree`` and phase 25 for
-``charlm``; it prints the
+phase 23 for ``master``, phase 24 for ``tree``, phase 25 for
+``charlm`` and phase 26 for ``generate``; it prints the
 ``kernels`` object and no ``ok`` line.
 """
 
@@ -5330,16 +5330,69 @@ def zmq_admission(torch, card, srv, requests, refs, path, refs2):
         sock.close(0)
 
 
+class ServingProcess:
+    """``python -m znicz_torch ... --serve`` in a subprocess from the repo's
+    root: its output read on threads, ``endpoint`` taken from its
+    ``serving <sample> at EP`` line (``up`` s after the start).  Raises
+    when the line does not come within ``timeout``; :meth:`finish` waits
+    for the exit and raises unless it is 0; :meth:`kill` ends it."""
+
+    def __init__(self, cmd, sample: str, label: str, timeout: float):
+        import queue as queue_mod
+
+        self.label, self.t0 = label, time.perf_counter()
+        self.proc = subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            stdin=subprocess.DEVNULL, text=True)
+        self.lines: "queue_mod.Queue" = queue_mod.Queue()
+        self.err: list = []
+        self.reader = threading.Thread(
+            target=lambda: [self.lines.put(ln) for ln in self.proc.stdout],
+            daemon=True)
+        threading.Thread(target=lambda: self.err.extend(self.proc.stderr),
+                         daemon=True).start()
+        self.reader.start()
+        try:
+            try:
+                self.line = self.lines.get(timeout=timeout)
+            except queue_mod.Empty:
+                raise AssertionError(f"[{label}] no serving line") from None
+            if not self.line.startswith(f"serving {sample} at "
+                                        f"tcp://127.0.0.1:"):
+                self.proc.wait(60)
+                raise AssertionError(f"[{label}] {self.line!r}; stderr: "
+                                     f"{''.join(self.err)[-3000:]}")
+        except BaseException:
+            self.kill()
+            raise
+        self.endpoint = self.line.split(" at ")[1].split()[0]
+        self.up = time.perf_counter() - self.t0
+
+    def finish(self, timeout: float) -> str:
+        """Wait for the exit (raising unless 0); returns its last line."""
+        rc = self.proc.wait(timeout)
+        self.reader.join(60)
+        tail = []
+        while not self.lines.empty():
+            tail.append(self.lines.get())
+        if rc != 0:
+            raise AssertionError(f"[{self.label}] exit {rc}; stderr: "
+                                 f"{''.join(self.err)[-3000:]}")
+        return tail[-1].strip() if tail else ""
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(60)
+
+
 def zmq_cli(torch, card, path, requests, refs2):
     """Phase 18's real entry point: ``python -m znicz_torch alexnet --serve
     tcp://127.0.0.1:* --snapshot path`` on the card under ``fused``; the
     endpoint read from its output, ``CLI_REQUESTS`` requests, each reply
     within ``SERVE_TOL`` of the snapshot's composed forward; exit 0 within
     ``CLI_TIMEOUT_S``."""
-    import queue as queue_mod
-
-    from znicz_torch.serving import InferenceClient
-
     cmd = [sys.executable, "-m", "znicz_torch", "alexnet", "--serve",
            "tcp://127.0.0.1:*", "--snapshot", path, "--replica-id", "cli",
            "root.alexnet.loader.n_classes=1000",
@@ -5347,53 +5400,23 @@ def zmq_cli(torch, card, path, requests, refs2):
            "root.common.engine.fused_tail=True",
            f"root.common.serving.max_batch={BATCH}",
            f"root.common.serving.max_requests={CLI_REQUESTS}"]
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=os.path.dirname(
-        os.path.abspath(__file__)), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, stdin=subprocess.DEVNULL, text=True)
-    lines: "queue_mod.Queue" = queue_mod.Queue()
-    err = []
-    reader = threading.Thread(target=lambda: [lines.put(ln)
-                                              for ln in proc.stdout],
-                              daemon=True)
-    err_reader = threading.Thread(target=lambda: err.extend(proc.stderr),
-                                  daemon=True)
-    reader.start()
-    err_reader.start()
+    served = ServingProcess(cmd, "alexnet", "zmq:cli", CLI_TIMEOUT_S)
     try:
-        try:
-            line = lines.get(timeout=CLI_TIMEOUT_S)
-        except queue_mod.Empty:
-            raise AssertionError("[zmq:cli] no serving line") from None
-        if not line.startswith("serving alexnet at tcp://127.0.0.1:"):
-            proc.wait(60)
-            raise AssertionError(f"[zmq:cli] {line!r}; stderr: "
-                                 f"{''.join(err)[-3000:]}")
-        endpoint = line.split(" at ")[1].split()[0]
-        up = time.perf_counter() - t0
         reqs = requests[:CLI_REQUESTS]
-        replies, lat, wall = zmq_clients(endpoint, reqs)
+        replies, lat, wall = zmq_clients(served.endpoint, reqs)
         if any(not r["ok"] or r["replica_id"] != "cli" for r in replies):
             raise AssertionError(f"[zmq:cli] refusals: {replies[0]}")
         check_replies("zmq:cli", replies, refs2[:CLI_REQUESTS])
-        rc = proc.wait(CLI_TIMEOUT_S)
-        reader.join(60)
-        tail = []
-        while not lines.empty():
-            tail.append(lines.get())
-        if rc != 0:
-            raise AssertionError(f"[zmq:cli] exit {rc}; stderr: "
-                                 f"{''.join(err)[-3000:]}")
+        last = served.finish(CLI_TIMEOUT_S)
         rows = sum(x.shape[0] for x in reqs)
-        log(f"[zmq:cli] {card}: up in {up:.2f}s ({line.strip()}); "
-            f"{len(reqs)} requests, {rows} images in {wall:.3f}s "
-            f"(images/s={rows / wall:.1f}, client clock {quantiles(lat)}); "
-            f"exit 0 {time.perf_counter() - t0:.2f}s after the start; "
-            f"{tail[-1].strip() if tail else ''}")
+        log(f"[zmq:cli] {card}: up in {served.up:.2f}s "
+            f"({served.line.strip()}); {len(reqs)} requests, {rows} images "
+            f"in {wall:.3f}s (images/s={rows / wall:.1f}, client clock "
+            f"{quantiles(lat)}); exit 0 "
+            f"{time.perf_counter() - served.t0:.2f}s after the start; "
+            f"{last}")
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(60)
+        served.kill()
 
 
 def zmq_phase(torch, card):
@@ -7869,11 +7892,754 @@ def charlm_phase(torch, card):
     for label in CHARLM_RUNS:
         wf, _, runs[label] = charlm_train(torch, card, label)
         if label == "charlm:fused":
-            path = wf.snapshotter.save("charlm_phase25")
+            path = _CHARLM_SNAPSHOT["path"] = wf.snapshotter.save(
+                "charlm_phase25")
         del wf
         torch.cuda.empty_cache()
     runs["charlm:serve"] = charlm_serve(torch, card, path)
     return runs
+
+
+# -- phase 26: charlm generating on the card ------------------------------------
+
+#: the generation plane at the reference's serving defaults for charlm
+#: (max_len 64): pages of 16, 8 slots, 8 x 4 pages, chunks of a page
+GEN_DEFAULTS = {"page_size": 16, "num_pages": 32, "slots": 8,
+                "prefill_chunk": 16}
+#: (prefill rungs 3 + decode rungs 4) x page rungs 3 + the copy
+GEN_EXECUTABLES = 22
+#: paged compute against the full forward: the reference's band
+#: (tests/test_generate.py)
+GEN_BAND = {"rtol": 1e-5, "atol": 1e-6}
+#: (seed, position) pairs whose bits the card and the CPU must share
+GEN_SAMPLER_PAIRS = 512
+#: the noise's band, in ulp of max(|noise|, 1) (tests/test_torch_random.py)
+GEN_GUMBEL_ULPS = 4
+#: sampled draws on identical logits: 4 (temp, top_k) pairs x 1024 rows
+GEN_DRAW_ROWS = 1024
+GEN_DRAW_KNOBS = ((0.5, 0), (0.5, 5), (1.0, 0), (1.0, 5))
+#: a draw whose top two perturbed scores on the CPU lie within this many
+#: ulp may pick the other on the card
+GEN_TIE_ULPS = 8
+#: the service's stream: requests, client threads, streamed ones, ones
+#: sharing a GEN_PREFIX-token prefix, in flight a client
+GEN_REQUESTS = 64
+GEN_THREADS = 4
+GEN_STREAMED = 8
+GEN_SHARED = 16
+GEN_PREFIX = 32
+GEN_IN_FLIGHT = 4
+#: scoring requests interleaved with the generations
+GEN_SCORING = 96
+#: timed dispatches a decode rung, and replays of one decode graph
+GEN_RATE_STEPS = 200
+GEN_REPLAYS = 200
+#: ``--serve --generate`` subprocess budget (s)
+GEN_CLI_TIMEOUT_S = 300
+#: phase 25's fused snapshot, reused by phase 26 when both run
+_CHARLM_SNAPSHOT: dict = {"path": None}
+
+
+def gen_in_band(got, want) -> float:
+    """max(|got - want| - (atol + rtol |want|)) under :data:`GEN_BAND`:
+    <= 0 inside it."""
+    return float(np.max(np.abs(got - want) - (
+        GEN_BAND["atol"] + GEN_BAND["rtol"] * np.abs(want))))
+
+
+def gen_by_hand(g, prompt, n_new, pages=None, greedy=True):
+    """One request through the paged runner by hand: its prompt in
+    chunks of ``prefill_chunk`` from the first uncached position, then
+    greedy decode.  Returns (tokens, the logits row of each, pages)."""
+    ps, c = g.page_size, g.prefill_chunk
+    pages = [] if pages is None else pages
+    t0 = min(len(pages) * ps, len(prompt) - 1)
+    while t0 < len(prompt):
+        n = min(c, len(prompt) - t0)
+        while len(pages) < -(-(t0 + n) // ps):
+            pages.append(g.alloc_page())
+        x = np.zeros((1, c), np.uint8)
+        x[0, :n] = prompt[t0:t0 + n]
+        tok, _, logits, _ = g.prefill(x, [t0], [n], [pages], [0.0], [0], [0])
+        t0 += n
+    toks, rows = [int(tok[0])], [logits[0]]
+    t = len(prompt)
+    for _ in range(n_new - 1):
+        if t % ps == 0:
+            pages.append(g.alloc_page())
+        tok, _, logits, _ = g.decode([pages], [toks[-1]], [t], [0.0], [0],
+                                     [0])
+        toks.append(int(tok[0]))
+        rows.append(logits[0])
+        t += 1
+    return toks, rows, pages
+
+
+def sampler_replay_ms(torch, b, vocab, device) -> float:
+    """Device ms of one replay of ``_sample_tokens`` alone at (b, vocab),
+    captured on its own and replayed back to back under CUDA events: the
+    sampler's share of a decode replay."""
+    from znicz_torch.parallel.graphs import capturing
+    from znicz_torch.serving.model import _sample_tokens
+
+    args = (torch.zeros((b, vocab), device=device),
+            torch.full((b,), 0.8, device=device),
+            torch.zeros(b, dtype=torch.int64, device=device),
+            torch.arange(b, device=device), torch.arange(b, device=device))
+    graph = torch.cuda.CUDAGraph()
+    with capturing(device) as stream:
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            _sample_tokens(*args)
+        torch.cuda.synchronize(device)
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            _sample_tokens(*args)
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    graph.replay()
+    start.record()
+    for _ in range(GEN_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / GEN_REPLAYS
+    graph.reset()
+    return ms
+
+
+def gen_host_ms(torch, g, sched_cls, seq_cls, vocab):
+    """A scheduler's decode ticks over ``slots`` greedy one-token prompts
+    on ``g``: (median tick wall ms, device ms of one replay of the tick's
+    decode graph, back to back under CUDA events, the graph's key)."""
+    sched = sched_cls(g, max_new_cap=64)
+    rng = np.random.default_rng(SEED + 1)
+    # prompts past two pages: every decode tick rides the top page rung
+    n = 2 * g.page_size + 1
+    for i in range(g.slots):
+        sched.submit(seq_cls(rng.integers(1, vocab, size=n), g.max_ctx - n,
+                             req_id=i))
+    ticks = []
+    while sched.work_available():
+        t0 = time.perf_counter()
+        sched.step()
+        ticks.append(time.perf_counter() - t0)
+    tick_ms = float(np.median(ticks[4:-4])) * 1e3
+    key = ("decode", g.decode_rungs[-1], g.page_rungs[-1])
+    cap = g.runner._active.family.graphs[key]
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    cap.replay()
+    start.record()
+    for _ in range(GEN_REPLAYS):
+        cap.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return tick_ms, start.elapsed_time(end) / GEN_REPLAYS, key
+
+
+def gen_parity(g, eager, rng):
+    """Greedy paged decode on ``g`` from a 5-token prompt across three
+    page boundaries, and a 24-token prompt in three 8-token chunks,
+    against ``eager``'s full forward of the same positions.  Returns
+    (decode rows, their full-forward rows, the decode's tokens, pages
+    crossed, the last chunk's logits row, its full-forward row)."""
+    vocab = eager.workflow.output_sample_shape[-1]
+    ps = g.page_size
+    prompt = rng.integers(1, vocab, size=5).astype(np.uint8)
+    toks, rows, pages = gen_by_hand(g, prompt, 3 * ps + 2 - 5 + 1)
+    seq = np.asarray(list(prompt) + toks[:-1], np.uint8)[None]
+    full = eager.infer(seq)[0, 4:4 + len(rows)]
+    crossed = len(pages) - 1
+    g.release_pages(pages)
+    p24 = rng.integers(1, vocab, size=24).astype(np.uint8)
+    pages = []
+    for i in range(3):
+        while len(pages) < -(-(8 * i + 8) // ps):
+            pages.append(g.alloc_page())
+        x = np.zeros((1, g.prefill_chunk), np.uint8)
+        x[0, :8] = p24[8 * i:8 * i + 8]
+        _, _, logits, _ = g.prefill(x, [8 * i], [8], [pages], [0.0], [0],
+                                    [0])
+    chunk_full = eager.infer(p24[None])[0, 23]
+    g.release_pages(pages)
+    return (np.stack(rows), full, toks, seq, crossed, logits[0],
+            chunk_full)
+
+
+def cpu_forwards(torch, path, seq):
+    """The snapshot's full forward of ``seq`` on the CPU, in float32 and
+    in float64 (the port's modules on float64 copies of the tree)."""
+    from znicz_torch.core import prng
+    from znicz_torch.serving.model import ModelRunner
+
+    prng.reset(ANCHOR_SEED)
+    r = ModelRunner(sample_workflow("charlm", "cpu"), snapshot=path,
+                    capture=False)
+    tree = {n: {k: t.double() for k, t in leaves.items()}
+            for n, leaves in r._active.tree.items()}
+    with torch.inference_mode(), r._bound(tree):
+        h = r._trainer._decode(torch.from_numpy(seq))
+        f64 = r._trainer.forward_pass(h).numpy()
+    return r.infer(seq), f64
+
+
+def gen_runner_checks(torch, card, path):
+    """Phase 26 (a): ``enable_generation`` at the defaults.  On charlm's
+    seeded init (the model the reference's test holds to GEN_BAND):
+    greedy paged decode across three page boundaries and a 24-token
+    prompt in three chunks within GEN_BAND of the full forward.  On the
+    snapshot at ``path``: each graph's first replay bit-equal to its
+    eager dispatch; the same decode's tokens equal to the full forward's
+    argmax at every step, its distance to the full forward and to a
+    float64 forward printed beside the full forward's own; a prefix hit
+    bit-equal to a cold prefill; copy-on-write leaving the shared page's
+    bytes; greedy tokens equal with ``on_device_sampling`` on and off; no
+    page leaked.  Prints the dispatch times."""
+    from znicz_torch.core import prng
+    from znicz_torch.serving.batcher import GenerationScheduler, GenSeq
+    from znicz_torch.serving.model import ModelRunner
+
+    # the reference's band on the seeded init (tests/test_generate.py
+    # holds it on a fresh charlm)
+    runners = []
+    for capture in (None, False):
+        prng.reset(ANCHOR_SEED)
+        runners.append(ModelRunner(sample_workflow("charlm"),
+                                   capture=capture))
+    init_g = runners[0].enable_generation(**GEN_DEFAULTS)
+    rows, full, _, _, crossed, last, chunk_full = gen_parity(
+        init_g, runners[1], np.random.default_rng(SEED))
+    band = {"decode": gen_in_band(rows, full),
+            "chunks": gen_in_band(last, chunk_full)}
+    errs = {"decode": float(np.abs(rows - full).max()),
+            "chunks": float(np.abs(last - chunk_full).max())}
+    log(f"[generate:runner] {card}: seeded init, against the full "
+        f"forward: greedy decode across {crossed} page boundaries max "
+        f"|err| {errs['decode']:.3e}, 24 tokens in 3 chunks max |err| "
+        f"{errs['chunks']:.3e}: "
+        + ("both inside" if max(band.values()) <= 0 else "OUTSIDE")
+        + f" rtol {GEN_BAND['rtol']:g} atol {GEN_BAND['atol']:g}")
+    if max(band.values()) > 0 or crossed != 3:
+        raise AssertionError(f"[generate:runner] the reference's band: "
+                             f"{band}, {crossed} boundaries")
+    del runners, init_g
+    prng.reset(ANCHOR_SEED)
+    runner = ModelRunner(sample_workflow("charlm"), snapshot=path)
+    eager = ModelRunner(sample_workflow("charlm"), snapshot=path,
+                        capture=False)
+    vocab = runner.workflow.output_sample_shape[-1]
+    g = runner.enable_generation(**GEN_DEFAULTS)
+    if not runner.capture or g.executables() != GEN_EXECUTABLES:
+        raise AssertionError(f"[generate:runner] capture {runner.capture}, "
+                             f"{g.executables()} executables")
+    # each graph: its first dispatch eager (and captured), its second a
+    # replay of the same inputs
+    t0 = time.perf_counter()
+    differ = []
+    for key in g.keys():
+        first = g.warm_one(key)
+        again = g.warm_one(key)
+        if first is not None and not all(
+                np.array_equal(a, b) for a, b in zip(first, again)):
+            differ.append(key)
+    warm_s = time.perf_counter() - t0
+    if differ or runner.compiles != GEN_EXECUTABLES \
+            or g.graph_cache_size() != GEN_EXECUTABLES:
+        raise AssertionError(f"[generate:runner] replays differ from eager "
+                             f"at {differ}; {runner.compiles} captures")
+    rng = np.random.default_rng(SEED)
+    ps = g.page_size
+    # the trained snapshot: tokens against the full forward's argmax,
+    # the distances against a float64 forward
+    rows, full, toks, seq, _, last, chunk_full = gen_parity(g, eager, rng)
+    f32, f64 = (f[0, 4:4 + len(rows)]
+                for f in cpu_forwards(torch, path, seq))
+    argmax_same = [int(t) for t in full.argmax(-1)] == toks and int(
+        np.argmax(last)) == int(np.argmax(chunk_full))
+    snap = {"decode vs full": float(np.abs(rows - full).max()),
+            "decode vs float64": float(np.abs(rows - f64).max()),
+            "full vs float64": float(np.abs(full - f64).max()),
+            "CPU full vs float64": float(np.abs(f32 - f64).max()),
+            "chunks vs full": float(np.abs(last - chunk_full).max())}
+    snap_band = max(gen_in_band(rows, full), gen_in_band(last, chunk_full))
+    # a prefix hit against the cold prefill, bit for bit
+    p40 = rng.integers(1, vocab, size=2 * ps + 8).astype(np.uint8)
+    cold_t, cold_r, cold_p = gen_by_hand(g, p40, 7)
+    g.prefix.register(p40, cold_p)
+    g.release_pages(cold_p)
+    held, covered = g.prefix.lookup(p40)
+    hit_t, hit_r, hit_p = gen_by_hand(g, p40, 7, pages=held)
+    g.release_pages(hit_p)
+    hit_same = covered == 2 * ps and hit_t == cold_t and all(
+        np.array_equal(a, b) for a, b in zip(cold_r, hit_r))
+    # copy-on-write: a full hit's last-token write lands in a copy
+    p16 = rng.integers(1, vocab, size=ps).astype(np.uint8)
+    toks_a, _, pages_a = gen_by_hand(g, p16, 4)
+    g.prefix.register(p16, pages_a)
+    shared = pages_a[0]
+    before = {n: (g.pk[n][shared].clone(), g.pv[n][shared].clone())
+              for n in g.pk}
+    pages_b, covered = g.prefix.lookup(p16)
+    fresh = g.alloc_page()
+    g.copy_page(shared, fresh)
+    copied = all(torch.equal(g.pk[n][fresh], g.pk[n][shared])
+                 and torch.equal(g.pv[n][fresh], g.pv[n][shared])
+                 for n in g.pk)
+    g.decref(shared)
+    pages_b[0] = fresh
+    toks_b, _, pages_b = gen_by_hand(g, p16, 4, pages=pages_b)
+    untouched = all(torch.equal(g.pk[n][shared], k)
+                    and torch.equal(g.pv[n][shared], v)
+                    for n, (k, v) in before.items())
+    g.release_pages(pages_a)
+    g.release_pages(pages_b)
+    # greedy tokens with in-graph sampling on and off
+    prompts = [rng.integers(1, vocab, size=int(n)).astype(np.uint8)
+               for n in rng.integers(1, ps, size=6)]
+    streams = {}
+    for on in (True, False):
+        sched = GenerationScheduler(g, max_new_cap=64, on_device_sampling=on)
+        for i, p in enumerate(prompts):
+            sched.submit(GenSeq(p, 12, req_id=i))
+        finals = {}
+        while sched.work_available():
+            for _, rep in sched.step()[1]:
+                finals[rep["req_id"]] = rep["tokens"]
+        streams[on] = [finals[i] for i in range(len(prompts))]
+    knob_same = all(np.array_equal(a, b)
+                    for a, b in zip(streams[True], streams[False]))
+    log(f"[generate:runner] {card}: snapshot: {GEN_EXECUTABLES} graphs "
+        f"captured in {warm_s:.3f}s ({runner.capture_s:.3f}s in the "
+        f"captures), each first replay bit-equal to its eager dispatch; "
+        f"decode and chunk tokens against the full forward's argmax: "
+        + ("equal" if argmax_same else "DIFFER")
+        + "; max |err| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in snap.items())
+        + f" (logits up to {np.abs(full).max():.2f}; the reference's band "
+        + ("met" if snap_band <= 0 else f"exceeded by {snap_band:.3e}")
+        + ", C.13); prefix hit vs cold prefill: "
+        + ("bit-equal" if hit_same else "DIFFERS")
+        + "; copy-on-write: shared page "
+        + ("untouched" if untouched else "WRITTEN")
+        + f", copy {'bit-equal' if copied else 'DIFFERS'}, tokens "
+        + ("equal" if toks_a == toks_b else "DIFFER")
+        + "; greedy on/off in-graph sampling: "
+        + ("bit-identical" if knob_same else "DIFFER"))
+    if not argmax_same or not hit_same or not untouched or not copied \
+            or toks_a != toks_b or not knob_same:
+        raise AssertionError("[generate:runner] a check failed (above)")
+    # the dispatch times, host clock around each fetch
+    rates = {}
+    width = g.page_rungs[-1]
+    for b in g.decode_rungs:
+        pages = [[g.scratch] * width] * b
+        z = np.zeros(b, np.int64)
+        g.decode(pages, z, z, np.zeros(b, np.float32), z, z)
+        t0 = time.perf_counter()
+        for _ in range(GEN_RATE_STEPS):
+            g.decode(pages, z, z, np.zeros(b, np.float32), z, z)
+        rates[b] = (time.perf_counter() - t0) / GEN_RATE_STEPS
+    x = np.zeros((1, g.prefill_chunk), np.uint8)
+    t0 = time.perf_counter()
+    for _ in range(GEN_RATE_STEPS):
+        g.prefill(x, [0], [g.prefill_chunk], [[g.scratch] * width], [0.0],
+                  [0], [0])
+    chunk_ms = (time.perf_counter() - t0) / GEN_RATE_STEPS * 1e3
+    tick_ms, replay_ms, key = gen_host_ms(torch, g, GenerationScheduler,
+                                          GenSeq, vocab)
+    sampler_ms = sampler_replay_ms(torch, key[1], vocab, runner.device)
+    log(f"[generate:runner] {card}: a decode dispatch with its fetch "
+        f"(pages rung {width}): "
+        + ", ".join(f"rung {b}: {s * 1e3:.3f} ms, {b / s:.0f} tokens/s"
+                    for b, s in rates.items())
+        + f"; one prefill chunk ({g.prefill_chunk} tokens, rung 1) "
+        f"{chunk_ms:.3f} ms; a scheduler decode tick of {g.slots} "
+        f"sequences {tick_ms:.3f} ms, of which one {key} replay "
+        f"{replay_ms:.4f} ms on the device (back to back; the sampler "
+        f"alone {sampler_ms:.4f} ms): host {tick_ms - replay_ms:.3f} ms a "
+        f"tick ({(tick_ms - replay_ms) / tick_ms:.1%})")
+    if g.pages_leaked():
+        raise AssertionError(f"[generate:runner] {g.pages_leaked()} pages "
+                             f"leaked")
+    del runner, eager, g
+
+
+def gen_sampler_checks(torch, card):
+    """Phase 26 (b): the threefry bits on the card equal the CPU's over
+    GEN_SAMPLER_PAIRS (seed, position) pairs, the noise within
+    GEN_GUMBEL_ULPS; on identical logits, 4096 draws give the CPU's
+    tokens, a draw whose top two perturbed CPU scores lie within
+    GEN_TIE_ULPS excepted (counted)."""
+    from znicz_torch.ops import random as rnd
+    from znicz_torch.serving.model import _sample_tokens
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 2)
+    seeds = np.concatenate([[0, 1, 2**31, 2**32 - 1], rng.integers(
+        0, 2**32, GEN_SAMPLER_PAIRS - 4, dtype=np.int64)])
+    pos = rng.integers(0, 4096, GEN_SAMPLER_PAIRS)
+    s_t, p_t = torch.from_numpy(seeds), torch.from_numpy(pos)
+    vocab = 32
+    bits_cpu = rnd.bits(rnd.fold_in(s_t, p_t), vocab)
+    bits_card = rnd.bits(rnd.fold_in(s_t.to(dev), p_t.to(dev)), vocab).cpu()
+    g_cpu = rnd.gumbel(rnd.fold_in(s_t, p_t), vocab).numpy()
+    g_card = rnd.gumbel(rnd.fold_in(s_t.to(dev), p_t.to(dev)),
+                        vocab).cpu().numpy()
+    ulps = float((np.abs(g_card - g_cpu) / np.spacing(np.maximum(
+        np.abs(g_cpu), 1).astype(np.float32))).max())
+    bits_same = torch.equal(bits_cpu, bits_card)
+    differ = ties = 0
+    for temp, top_k in GEN_DRAW_KNOBS:
+        logits = (rng.normal(size=(GEN_DRAW_ROWS, vocab)) * 3).astype(
+            np.float32)
+        args = [torch.from_numpy(logits),
+                torch.full((GEN_DRAW_ROWS,), temp, dtype=torch.float32),
+                torch.full((GEN_DRAW_ROWS,), top_k, dtype=torch.int64),
+                torch.from_numpy(rng.integers(0, 2**32, GEN_DRAW_ROWS,
+                                              dtype=np.int64)),
+                torch.from_numpy(rng.integers(0, 64, GEN_DRAW_ROWS))]
+        cpu, _ = _sample_tokens(*args)
+        on_card, _ = _sample_tokens(*[a.to(dev) for a in args])
+        off = np.nonzero(cpu.numpy() != on_card.cpu().numpy())[0]
+        if off.size:
+            # the CPU's perturbed scores of the rows that differ
+            z = logits / temp
+            if top_k:
+                kth = np.sort(z, -1)[:, -top_k][:, None]
+                z = np.where(z < kth, -np.inf, z)
+            z = z + rnd.gumbel(rnd.fold_in(args[3], args[4]),
+                               vocab).numpy()
+            top2 = np.sort(z[off], -1)[:, -2:]
+            near = (top2[:, 1] - top2[:, 0]) <= GEN_TIE_ULPS * np.spacing(
+                np.abs(top2[:, 1]))
+            ties += int(near.sum())
+            differ += int((~near).sum())
+    draws = GEN_DRAW_ROWS * len(GEN_DRAW_KNOBS)
+    log(f"[generate:sampler] {card}: threefry bits over "
+        f"{GEN_SAMPLER_PAIRS} (seed, position) pairs x {vocab}: "
+        + ("equal to the CPU's" if bits_same else "DIFFER")
+        + f"; gumbel noise within {ulps:.1f} ulp (band {GEN_GUMBEL_ULPS}); "
+        f"{draws} draws on identical logits (temp, top_k) in "
+        f"{list(GEN_DRAW_KNOBS)}: {draws - differ - ties} equal, {ties} "
+        f"near-ties (top two perturbed scores within {GEN_TIE_ULPS} ulp), "
+        f"{differ} differ")
+    if not bits_same or ulps > GEN_GUMBEL_ULPS or differ:
+        raise AssertionError("[generate:sampler] the card's sampler leaves "
+                             "the CPU's")
+
+
+def gen_requests(vocab):
+    """Phase 26's stream: (prompt, max_new_tokens, options) of
+    GEN_REQUESTS requests, lengths 1-48 and 1-16 new tokens, half greedy
+    and half seeded sampled, GEN_STREAMED streamed, the first GEN_SHARED
+    sharing a GEN_PREFIX-token prefix (every fourth of those the prefix
+    alone: its last token's write copies a shared page); and the
+    prefix."""
+    rng = np.random.default_rng(SEED + 26)
+    prefix = rng.integers(1, vocab, size=GEN_PREFIX).astype(np.uint8)
+    reqs = []
+    for i in range(GEN_REQUESTS):
+        if i < GEN_SHARED:
+            tail = 0 if i % 4 == 0 else int(rng.integers(1, 17))
+            prompt = np.concatenate([prefix, rng.integers(
+                1, vocab, size=tail).astype(np.uint8)])
+        else:
+            prompt = rng.integers(1, vocab, size=int(rng.integers(1, 49))
+                                  ).astype(np.uint8)
+        sampled = i % 2 == 1
+        opts = {"temperature": 0.8 if sampled else 0.0,
+                "top_k": 5 if i % 4 == 3 else 0,
+                "seed": 9000 + i if sampled else None,
+                "stream": i % (GEN_REQUESTS // GEN_STREAMED) == 2,
+                "return_logits": True}
+        reqs.append((prompt, int(rng.integers(1, 17)), opts))
+    return reqs, prefix
+
+
+def gen_clients(endpoint, reqs):
+    """``reqs`` over ZMQ from GEN_THREADS InferenceClients, one a thread,
+    each keeping GEN_IN_FLIGHT out.  Returns (finals in request order,
+    the streamed partials (i, token) of each, wall s)."""
+    from znicz_torch.serving import InferenceClient
+
+    finals = [None] * len(reqs)
+    parts = [[] for _ in reqs]
+    errors = []
+
+    def run(tid):
+        try:
+            cli = InferenceClient(endpoint, timeout=600, resend_after_s=600)
+            try:
+                todo = list(range(tid, len(reqs), GEN_THREADS))
+                sent = {}
+                while todo or sent:
+                    while todo and len(sent) < GEN_IN_FLIGHT:
+                        i = todo.pop(0)
+                        prompt, n_new, opts = reqs[i]
+                        on_token = None
+                        if opts["stream"]:
+                            def on_token(t, j, out=parts[i]):
+                                out.append((j, t))
+                        rid = cli.submit_generate(prompt, n_new,
+                                                  on_token=on_token, **opts)
+                        sent[rid] = i
+                    for rep in cli.collect(0.05):
+                        finals[sent.pop(rep["req_id"])] = rep
+            finally:
+                cli.close()
+        except Exception as exc:       # raised in the caller below
+            errors.append(exc)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(t,))
+               for t in range(GEN_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads) or any(f is None for f in finals):
+        raise AssertionError("a generate client did not finish")
+    return finals, parts, wall
+
+
+def gen_departs(got, want, opts, prompt_len):
+    """Where two replies' tokens part: None when equal, "tie" when they
+    part where ``want``'s logits (the reference of the two) have a
+    near-tie inside GEN_BAND's reach (greedy: the top two logits;
+    sampled: the top two perturbed scores), else "differ"."""
+    from znicz_torch.ops import random as rnd
+
+    import torch
+
+    a, b = list(got["tokens"]), list(want["tokens"])
+    if a == b:
+        return None
+    j = next(k for k in range(min(len(a), len(b))) if a[k] != b[k])
+    row = want["logits"][j].astype(np.float64)
+    reach = 2 * (GEN_BAND["atol"] + GEN_BAND["rtol"] * np.abs(row).max())
+    if opts["temperature"] > 0:
+        z = row / opts["temperature"]
+        reach /= opts["temperature"]
+        if opts["top_k"]:
+            z = np.where(z < np.sort(z)[-opts["top_k"]], -np.inf, z)
+        t = torch.tensor([prompt_len - 1 + j])
+        z = z + rnd.gumbel(rnd.fold_in(torch.tensor([opts["seed"]]), t),
+                           len(row)).numpy()[0]
+        row = z
+    top2 = np.sort(row)[-2:]
+    return "tie" if top2[1] - top2[0] <= reach else "differ"
+
+
+def gen_service_checks(torch, card, path):
+    """Phase 26 (c): the snapshot at ``path`` served in process with
+    generation on: 50 captures at warm-up and none after; the
+    GEN_REQUESTS stream from GEN_THREADS clients with phase 25's scoring
+    stream beside it; each greedy reply equal to the same request alone,
+    each sampled reply to its resend (a near-tie across rungs counted,
+    not raised), streamed partials in order and equal to the final,
+    prefix hits and copies, no page leaked after the drain.  Returns
+    (a short greedy prompt, its tokens alone) for (d)."""
+    from znicz_torch.core import prng
+    from znicz_torch.core.config import root
+    from znicz_torch.serving import InferenceClient
+    from znicz_torch.serving.frontend import InferenceServer
+
+    prng.reset(ANCHOR_SEED)
+    wf = sample_workflow("charlm")
+    vocab, seq_len = wf.output_sample_shape[-1], wf.serving_seq_len
+    root.common.serving.generate.enabled = True
+    try:
+        t0 = time.perf_counter()
+        srv = InferenceServer(wf, snapshot=path, max_batch=CHARLM_MAX_BATCH,
+                              max_delay_ms=2.0, queue_bound=4096,
+                              request_ttl_s=600.0)
+    finally:
+        del root.common.serving.generate.enabled
+    srv.start()
+    warm_s = time.perf_counter() - t0
+    try:
+        runner, gen = srv.runner, srv.gen_sched.gen
+        expected = len(srv.batcher.ladder.buckets()) + gen.executables()
+        log(f"[generate:serve] {card}: warm-up {warm_s:.3f}s to ready, "
+            f"{runner.compiles} captures ({len(srv.batcher.ladder.buckets())}"
+            f" ladder buckets + {gen.executables()} generation graphs, "
+            f"{runner.capture_s:.3f}s in them); warm proof "
+            f"{srv.warm_report['ok']}")
+        if not (runner.compiles == runner.graph_cache_size() == expected
+                == 28 + GEN_EXECUTABLES and srv.warm_report["ok"]):
+            raise AssertionError(f"[generate:serve] {runner.compiles} "
+                                 f"captures, warm report {srv.warm_report}")
+        compiles = runner.compiles
+        reqs, prefix = gen_requests(vocab)
+        cli = InferenceClient(srv.endpoint, timeout=600, resend_after_s=600)
+        try:
+            # the prefix indexed first, so the shared requests hit
+            cli.generate(np.concatenate([prefix, prefix[:1]]), 1)
+            rng = np.random.default_rng(SEED + 25)
+            scoring = [rng.integers(1, vocab, size=(int(rng.integers(1, 3)),
+                                                    int(L))).astype(np.uint8)
+                       for L in rng.integers(1, seq_len + 1,
+                                             size=GEN_SCORING)]
+            scored = {}
+            side = threading.Thread(target=lambda: scored.update(
+                zip(("replies", "wall"), seq_pass(srv, scoring))))
+            st0 = srv.gen_sched.stats()
+            side.start()
+            finals, parts, wall = gen_clients(srv.endpoint, reqs)
+            side.join(900)
+            st = srv.gen_sched.stats()
+            if "replies" not in scored or any(
+                    r["y"].shape != x.shape + (vocab,)
+                    for r, x in zip(scored["replies"], scoring)):
+                raise AssertionError("[generate:serve] the scoring stream "
+                                     "failed")
+            bad = [r for r in finals if not r["ok"]]
+            if bad:
+                raise AssertionError(f"[generate:serve] {len(bad)} refused "
+                                     f"or failed: {bad[0]}")
+            tokens = sum(len(r["tokens"]) for r in finals)
+            short = [i for i, (_, n, _) in enumerate(reqs)
+                     if len(finals[i]["tokens"]) != n]
+            streamed = [i for i, (_, _, o) in enumerate(reqs) if o["stream"]]
+            order = [i for i in streamed
+                     if [j for j, _ in parts[i]] != list(range(
+                         len(finals[i]["tokens"])))
+                     or [t for _, t in parts[i]]
+                     != list(finals[i]["tokens"])]
+            # each request again, alone: greedy ones against the alone
+            # run, sampled ones against their resend
+            ties, differ = 0, []
+            alone = {}
+            for i, (prompt, n_new, opts) in enumerate(reqs):
+                again = cli.generate(prompt, n_new, **dict(opts,
+                                                           stream=False))
+                alone[i] = again
+                how = gen_departs(finals[i], again, opts, len(prompt))
+                if how == "tie":
+                    ties += 1
+                elif how == "differ":
+                    differ.append(i)
+        finally:
+            cli.close()
+        gst = srv.stats()["generate"]
+        if runner.compiles != compiles:
+            raise AssertionError(f"[generate:serve] "
+                                 f"{runner.compiles - compiles} captures "
+                                 f"after the warm-up")
+        decoded = st["decode_tokens"] - st0["decode_tokens"]
+        log(f"[generate:serve] {card}: {len(reqs)} generate requests from "
+            f"{GEN_THREADS} clients ({GEN_STREAMED} streamed, {GEN_SHARED} "
+            f"on a {GEN_PREFIX}-token prefix) beside {len(scoring)} scoring "
+            f"requests: {tokens} tokens in {wall:.3f}s ({tokens / wall:.1f} "
+            f"tokens/s; {st['decode_batches'] - st0['decode_batches']} "
+            f"decode ticks for {decoded} tokens, "
+            f"{st['prefill_batches'] - st0['prefill_batches']} prefill "
+            f"chunks for {st['prefill_tokens'] - st0['prefill_tokens']} "
+            f"prompt tokens); TTFT p50 {gst['ttft_p50_ms']} ms p99 "
+            f"{gst['ttft_p99_ms']} ms (queue wait p50 "
+            f"{gst['queue_wait_p50_ms']} ms), inter-token p50 "
+            f"{gst['inter_token_p50_ms']} ms p99 {gst['inter_token_p99_ms']}"
+            f" ms; prefix hits {gst['prefix_hits']}, copies "
+            f"{gst['cow_copies']}, fetch bytes {gst['fetch_bytes']}; "
+            f"0 captures after the warm-up; streamed partials in order and "
+            f"equal to the final: "
+            + ("all" if not order else f"NOT at {order}")
+            + f"; against the request alone (greedy) or resent (sampled): "
+            f"{len(reqs) - ties - len(differ)} equal, {ties} part at a "
+            f"near-tie inside the band, "
+            + (f"{len(differ)} DIFFER at {differ}" if differ else
+               "none differ"))
+        if short or order or differ or not gst["prefix_hits"] \
+                or not gst["cow_copies"]:
+            raise AssertionError(f"[generate:serve] short {short}, order "
+                                 f"{order}, differ {differ} (C.13), hits "
+                                 f"{gst['prefix_hits']}, copies "
+                                 f"{gst['cow_copies']}")
+        probe = next(i for i, (p, n, o) in enumerate(reqs)
+                     if o["temperature"] == 0 and len(p) < gen.page_size
+                     and n > 4)
+    finally:
+        srv.stop()
+    if srv.error is not None:
+        raise RuntimeError("[generate:serve] the compute loop died") \
+            from srv.error
+    if gen.pages_leaked() or gen.pages_active() != len(gen.prefix):
+        raise AssertionError(f"[generate:serve] after the drain "
+                             f"{gen.pages_leaked()} pages leaked, "
+                             f"{gen.pages_active()} active for "
+                             f"{len(gen.prefix)} indexed")
+    log(f"[generate:serve] {card}: after the drain 0 pages leaked, "
+        f"{gen.pages_active()} held by the prefix index")
+    prompt, n_new, _ = reqs[probe]
+    return prompt, n_new, list(alone[probe]["tokens"])
+
+
+def gen_cli(torch, card, path, probe):
+    """Phase 26 (d): ``python -m znicz_torch charlm --serve
+    tcp://127.0.0.1:* --snapshot path --generate`` in a subprocess on the
+    card: one greedy request, not streamed and streamed, equal to (c)'s
+    tokens of it alone; exit 0 at ``max_requests``."""
+    from znicz_torch.serving import InferenceClient
+
+    prompt, n_new, want = probe
+    cmd = [sys.executable, "-m", "znicz_torch", "charlm", "--serve",
+           "tcp://127.0.0.1:*", "--snapshot", path, "--generate",
+           "root.common.serving.max_requests=2"]
+    served = ServingProcess(cmd, "charlm", "generate:cli", GEN_CLI_TIMEOUT_S)
+    try:
+        cli = InferenceClient(served.endpoint, timeout=GEN_CLI_TIMEOUT_S)
+        try:
+            whole = list(cli.generate(prompt, n_new)["tokens"])
+            got = []
+            fin = cli.generate(prompt, n_new, stream=True,
+                               on_token=lambda t, i: got.append(t))
+        finally:
+            cli.close()
+        last = served.finish(GEN_CLI_TIMEOUT_S)
+        same = whole == want == got == list(fin["tokens"])
+        log(f"[generate:cli] {card}: up in {served.up:.2f}s; a greedy "
+            f"request of {len(prompt)} tokens for {n_new}: not streamed and "
+            f"streamed "
+            + ("equal to the in-process tokens" if same else
+               f"DIFFER: {whole} / {got} against {want}")
+            + f"; exit 0 {time.perf_counter() - served.t0:.2f}s after the "
+            f"start; {last}")
+        if not same:
+            raise AssertionError("[generate:cli] the ZMQ tokens differ")
+    finally:
+        served.kill()
+
+
+def generate_phase(torch, card):
+    """Phase 26: charlm generating on the card from phase 25's ``fused``
+    snapshot (trained here when phase 25 did not run): (a) the runner,
+    (b) the sampler, (c) the service, (d) ``--serve --generate`` over
+    ZMQ.  No kernel lies on this path (the attention ops, the paged ops
+    and the sampler are PyTorch ops, as the reference's are XLA ops):
+    the counts stay 0.  Returns {label: {kernel: launches}}."""
+    path = _CHARLM_SNAPSHOT["path"]
+    if path is None:
+        wf, _, _ = charlm_train(torch, card, "charlm:fused")
+        path = _CHARLM_SNAPSHOT["path"] = wf.snapshotter.save(
+            "charlm_phase26")
+        del wf
+        torch.cuda.empty_cache()
+    ctrs = counters()
+    for fn in ctrs.values():                # the main path starts here
+        fn.launches = 0
+    gen_runner_checks(torch, card, path)
+    torch.cuda.empty_cache()
+    gen_sampler_checks(torch, card)
+    probe = gen_service_checks(torch, card, path)
+    torch.cuda.empty_cache()
+    gen_cli(torch, card, path, probe)
+    launches = {name: fn.launches for name, fn in ctrs.items()}
+    if any(launches.values()):
+        raise AssertionError(f"[generate] a kernel launched on the "
+                             f"generation path: {launches}")
+    return {"generate": launches}
 
 
 def main(argv=None) -> int:
@@ -7888,7 +8654,8 @@ def main(argv=None) -> int:
                          "'snapshots': phase 17; 'zmq': phase 18; "
                          "'graphs': phase 19; 'serve_mesh': phase 20; "
                          "'fleet': phase 21; 'aot': phase 22; 'master': "
-                         "phase 23; 'tree': phase 24; 'charlm': phase 25")
+                         "phase 23; 'tree': phase 24; 'charlm': phase 25; "
+                         "'generate': phase 26")
     ap.add_argument("--aot-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
@@ -7965,12 +8732,13 @@ def run_phases(torch, args) -> int:
         fleet = "fleet" in names
         aot, master = "aot" in names, "master" in names
         tree, charlm = "tree" in names, "charlm" in names
+        generate = "generate" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
                   "segments", "deep", "shard", "snapshots", "zmq",
                   "graphs", "serve_mesh", "fleet", "aot", "master", "tree",
-                  "charlm", *AE_SOM_RUNS)]
+                  "charlm", "generate", *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -8086,7 +8854,8 @@ def run_phases(torch, args) -> int:
         for flag, phase, tag in ((aot, aot_phase, "phase 22"),
                                  (master, master_phase, "phase 23"),
                                  (tree, tree_phase, "phase 24"),
-                                 (charlm, charlm_phase, "phase 25")):
+                                 (charlm, charlm_phase, "phase 25"),
+                                 (generate, generate_phase, "phase 26")):
             if not flag:
                 continue
             for label, launches in phase(torch, card).items():
@@ -8363,6 +9132,16 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 25")
+
+    # -- phase 26: charlm generating: the paged runner, the sampler, the
+    # -- service under mixed traffic, --serve --generate over ZMQ -------
+    for label, launches in generate_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][label] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 26")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

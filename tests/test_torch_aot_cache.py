@@ -17,6 +17,8 @@ its hooks in ``_build.py``, ``ModelRunner.enable_aot_cache`` /
     workflow, and new weights do not change it;
   - the warm proof in jit and cache mode on a CPU runner, and a runner
     whose warmup asked for cached libraries proving ``cache_hit``;
+  - a second boot of the generation family from the cache: nothing
+    built, the family entered again, the same tokens;
   - a server that refuses readiness on a failed proof, the heartbeat's
     warm keys, and ``--serve --aot-cache``.
 """
@@ -291,6 +293,68 @@ def test_warm_proof_jit_and_cache_modes_on_a_cpu_runner(tmp_path):
         # a rung captured under traffic breaks the proof
         aot.infer(np.zeros((3,) + SAMPLE, np.float32))
         assert not aot.warm_proof(n)["ok"]
+    finally:
+        _disarm()
+
+
+def test_generation_family_roundtrip_and_parity(tmp_path):
+    """The generation family (prefill and decode a (batch rung, page
+    rung), the copy) on a second boot from the same cache: no library
+    built, the family entered again in full (a graph cannot be written to
+    disk: ``compiles == executables()``, the proof holds), and the same
+    tokens bit for bit, across a page-rung step (1 -> 2 pages) and a copy
+    (the reference's case, whose second boot loads its executables)."""
+    from test_torch_serving_seq import VOCAB, _charlm_wf
+    from znicz_torch import _build
+    from znicz_torch.serving.model import ModelRunner
+
+    def boot():
+        r = ModelRunner(_charlm_wf(32))
+        assert r.enable_aot_cache(str(tmp_path / "aot"))
+        g = r.enable_generation(page_size=8, num_pages=8, slots=2,
+                                prefill_chunk=8, prefix_cache=False,
+                                prefill_rungs=[1], decode_rungs=[1])
+        runs = _build.nvcc_runs
+        assert g.warmup() == g.executables()
+        return g, _build.nvcc_runs - runs
+
+    def drive(g):
+        rng = np.random.default_rng(17)
+        prompt = rng.integers(1, VOCAB, size=5).astype(np.uint8)
+        pages = [g.alloc_page()]
+        x = np.zeros((1, 8), np.uint8)
+        x[0, :5] = prompt
+        tok, _, logits, _ = g.prefill(x, [0], [5], [pages], [0.0], [0], [0])
+        toks, rows = [int(tok[0])], [logits]
+        t = 5
+        for _ in range(6):                      # crosses a page boundary
+            if t % g.page_size == 0:
+                pages.append(g.alloc_page())
+            tok, _, logits, _ = g.decode([pages], [toks[-1]], [t], [0.0],
+                                         [0], [0])
+            toks.append(int(tok[0]))
+            rows.append(logits)
+            t += 1
+        dst = g.alloc_page()                    # the copy executable too
+        g.copy_page(pages[0], dst)
+        g.release_pages(pages + [dst])
+        return toks, rows
+
+    try:
+        cold, _ = boot()
+        fam = cold.executables()
+        assert fam == (1 + 1) * len(cold.page_rungs) + 1
+        ref, ref_rows = drive(cold)
+        assert cold.runner.compiles == fam
+        warm, built = boot()
+        toks, rows = drive(warm)
+        assert toks == ref
+        for a, b in zip(rows, ref_rows):
+            np.testing.assert_array_equal(a, b)
+        proof = warm.runner.warm_proof(fam)
+        assert built == 0 and proof["ok"] and proof["mode"] == "aot"
+        assert warm.runner.compiles == fam == warm.graph_cache_size()
+        assert warm.pages_active() == 0 and warm.pages_leaked() == 0
     finally:
         _disarm()
 

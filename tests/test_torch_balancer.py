@@ -20,6 +20,8 @@ reference's ``tests/test_balancer.py`` and the reference's balancer.
   - a reduced AlexNet replica on the CPU behind the port's balancer, each
     reply the runner's own forward bit for bit and within ``REPLY_RTOL``
     of the reference's forward of the same weights;
+  - a generating charlm replica behind it: a relayed ``generate`` equals
+    the direct reply, a streamed one is refused;
   - the CLI: ``--balance`` in front of a ``--serve --announce`` replica,
     and the exit-2 refusals.
 
@@ -898,6 +900,44 @@ def test_real_cpu_alexnet_replica_through_the_balancer(alexnet_pair):
             cli.close()
             srv.stop()
             bal.stop()
+
+
+def test_generate_through_the_balancer_to_a_generating_replica():
+    """A charlm replica on the CPU with generation on, behind the port's
+    balancer: a non-streamed ``generate`` through the balancer equals the
+    direct reply (tokens and the sampled stream of a seed), and a
+    streamed one is refused with the balancer's own message."""
+    from test_torch_generate import _generate_config
+    from test_torch_serving_seq import VOCAB, _charlm_wf
+    from znicz_torch.serving import (InferenceClient, InferenceError,
+                                     InferenceServer, ReplicaBalancer)
+
+    bal = ReplicaBalancer(replica_ttl_s=30.0).start()
+    with _generate_config():
+        srv = InferenceServer(_charlm_wf(32), max_batch=4, max_delay_ms=1.0,
+                              warmup=False, announce=bal.endpoint,
+                              replica_id="gen-0").start()
+    cli = InferenceClient(bal.endpoint, timeout=120.0, breaker_failures=0,
+                          resend_after_s=120.0)
+    direct = InferenceClient(srv.endpoint, timeout=120.0)
+    try:
+        _wait(lambda: bal.ready_count() == 1, "the replica joined")
+        prompt = np.random.default_rng(3).integers(
+            1, VOCAB, size=9).astype(np.uint8)
+        for kw in ({}, {"temperature": 0.9, "top_k": 6, "seed": 11}):
+            got = cli.generate(prompt, 7, **kw)
+            want = direct.generate(prompt, 7, **kw)
+            assert got["lb"] is True and got["replica_id"] == "gen-0"
+            np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        with pytest.raises(InferenceError,
+                           match="balancer cannot relay streamed "
+                                 "generation"):
+            cli.generate(prompt, 3, stream=True)
+    finally:
+        cli.close()
+        direct.close()
+        srv.stop()
+        bal.stop()
 
 
 # -- the CLI ----------------------------------------------------------------------

@@ -2,9 +2,9 @@
 ``chip_smoke.py`` imports JAX or the JAX package, or names the
 reference's ``native/`` directory (the host runtime is built from the
 port's own copy of its source); the port serves a batch (in process
-and over ZMQ, charlm's variable-length requests too) and trains
-(``python -m znicz_torch alexnet``'s ``main``)
-in a process where ``jax`` was never imported; and an entry point asked
+and over ZMQ, charlm's variable-length requests and its generations
+too) and trains (``python -m znicz_torch alexnet``'s ``main``) in a
+process where ``jax`` was never imported; and an entry point asked
 for the card on a machine without one raises instead of dropping to the
 CPU."""
 
@@ -49,7 +49,9 @@ def test_no_port_file_imports_jax_or_the_reference():
     for sample in ("alexnet", "mnist", "cifar", "kanji", "video_ae",
                    "yale_faces", "charlm"):
         assert REPO / "znicz_torch" / "samples" / f"{sample}.py" in files
-    for module in ("attention.py", "ops/attention.py"):
+    for module in ("attention.py", "ops/attention.py", "ops/random.py",
+                   "serving/model.py", "serving/batcher.py",
+                   "serving/frontend.py", "serving/client.py"):
         assert REPO / "znicz_torch" / module in files
     offenders = []
     for path in files:
@@ -175,6 +177,42 @@ def test_charlm_serves_variable_length_without_jax_in_the_process():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "served charlm"
+
+
+def test_charlm_generates_without_jax_in_the_process():
+    """Generation serving over ZMQ (the threefry sampler, the paged
+    runner, the scheduler, the client's generate API, streamed and not)
+    in a process where jax was never imported."""
+    code = (
+        "import sys, numpy as np\n"
+        "from znicz_torch.core.config import root\n"
+        "from znicz_torch.samples.charlm import CharLMWorkflow\n"
+        "from znicz_torch.serving import InferenceClient, InferenceServer\n"
+        "root.charlm.loader.update({'n_train': 32, 'n_valid': 16,"
+        " 'seq_len': 16, 'minibatch_size': 16})\n"
+        "root.common.serving.generate.update({'enabled': True,"
+        " 'page_size': 4, 'slots': 2})\n"
+        "wf = CharLMWorkflow(device='cpu')\n"
+        "srv = InferenceServer(wf, bind='tcp://127.0.0.1:*', max_batch=2)"
+        ".start()\n"
+        "assert srv.warm_report['ok'], srv.warm_report\n"
+        "cli = InferenceClient(srv.endpoint, timeout=120)\n"
+        "p = np.arange(1, 7, dtype=np.uint8)\n"
+        "a = cli.generate(p, 5, temperature=0.8, seed=3)\n"
+        "got = []\n"
+        "b = cli.generate(p, 5, temperature=0.8, seed=3, stream=True,"
+        " on_token=lambda t, i: got.append(t))\n"
+        "assert list(a['tokens']) == list(b['tokens']) == got, (a, b, got)\n"
+        "cli.close()\n"
+        "srv.stop()\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'znicz_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('generated charlm')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "generated charlm"
 
 
 def test_the_star_trains_without_jax_in_the_process(tmp_path):

@@ -625,13 +625,18 @@ def test_every_reference_serving_key_is_read_or_refused():
                          "admission.client_queue_bound", "mesh.data",
                          "mesh.model", "aot_cache.enabled",
                          "aot_cache.dir", "seq.max_len",
-                         "seq.rungs"} | balance
+                         "seq.rungs"} | balance | {
+                             f"generate.{key}" for key in (
+                                 "enabled", "max_new_tokens", "page_size",
+                                 "num_pages", "prefill_chunk",
+                                 "prefix_cache", "on_device_sampling",
+                                 "slots", "decode_tick_ms",
+                                 "pending_bound")}
     for key, val in read.items():
         assert val == ref[key], key
     for key, (default, item) in UNPORTED_SERVING_KEYS.items():
         assert default == ref[key], key
-        want = {"generate": "A.8 (generation serving)", "obs": "A.9",
-                "web_port": "A.9"}[key.split(".")[0]]
+        want = {"obs": "A.9", "web_port": "A.9"}[key.split(".")[0]]
         assert item == want, key
 
 
@@ -640,7 +645,10 @@ def test_every_reference_serving_key_is_read_or_refused():
     # the serving mesh is read since it was ported (under its old id):
     # one process cannot hold a 2-rank mesh, and says how to start one
     pytest.param("mesh.data", 2, None, id="mesh.data-2-A.6"),
-    ("generate.enabled", True, "A.8"),
+    # generation is read since it was ported (under its old id): a server
+    # of fixed-shape samples refuses it by the reference's reason
+    pytest.param("generate.enabled", True, None,
+                 id="generate.enabled-True-A.8"),
     ("obs.exemplars", 4, "A.9"), ("web_port", 8080, "A.9"),
     # the seq axis is read since sequences were ported (under its old id)
     pytest.param("seq.max_len", 16, None, id="seq.max_len-16-A.8"),
@@ -661,6 +669,11 @@ def test_a_refused_serving_key_raises_by_name(mnist_pair, key, value, item):
         _flat(DEFAULTS)[key]
     root.common.serving.set_by_path(key, value)
     try:
+        if item is None and key.startswith("generate."):
+            with pytest.raises(ValueError, match="generation serving rides "
+                               "the variable-length plane"):
+                InferenceServer(twf, warmup=False)
+            return
         if item is None and key.startswith("mesh."):
             with pytest.raises(ValueError, match="distributed_init"):
                 InferenceServer(twf, warmup=False)
@@ -687,9 +700,11 @@ def test_a_refused_serving_key_raises_by_name(mnist_pair, key, value, item):
                            match=f"root.common.serving.{key}=.*{item}"):
             InferenceServer(twf, warmup=False)
     finally:
-        if key.startswith("seq."):
+        if key.startswith(("seq.", "generate.")):
             # unset: an explicit 0 would force fixed-shape serving on a
-            # sequence sample served later in this process
-            delattr(root.common.serving.seq, key.split(".")[1])
+            # sequence sample served later in this process, and a left
+            # generate key would turn generation on for it
+            tree, leaf = key.split(".")
+            delattr(getattr(root.common.serving, tree), leaf)
         else:
             root.common.serving.set_by_path(key, default)

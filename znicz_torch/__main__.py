@@ -7,7 +7,7 @@ paths of ``znicz_tpu/launcher.py``):
                           [--device cpu] [--seed N] [--fused]
                           [--snapshot PATH]
                           [--serve [BIND]] [--replica-id ID]
-                          [--announce EP] [--aot-cache [DIR]]
+                          [--announce EP] [--aot-cache [DIR]] [--generate]
                           [--master [BIND]] [--master-resume FILE]
                           [--min-slaves N] [--staleness-bound S]
                           [--slave EP] [--mesh-data N] [--mesh-model N]
@@ -57,6 +57,12 @@ training flag: with ``--serve`` the run exits 2.
 default ``aot_cache/`` beside the ``--snapshot``): a restarted replica
 loads its kernel libraries instead of compiling them
 (``serving/aot_cache.py``).
+
+``--generate`` (with ``--serve``) also speaks the ``generate`` request
+kind (``root.common.serving.generate.enabled``): autoregressive
+generation over a paged KV pool with prefix reuse, chunked prefill and
+in-graph sampling, for a sequence sample (charlm); its knobs are
+``root.common.serving.generate.*``.
 
 ``--master [BIND]`` (default ``tcp://127.0.0.1:*``) serves the sample's
 job stream as the asynchronous parameter-server master
@@ -191,6 +197,10 @@ def main(argv=None) -> int:
                     help="with --serve: load the kernel libraries from the "
                          "cache in DIR (default aot_cache/ beside the "
                          "snapshot) and store the ones built")
+    ap.add_argument("--generate", action="store_true",
+                    help="with --serve: also speak the 'generate' request "
+                         "kind (root.common.serving.generate.enabled; "
+                         "knobs: root.common.serving.generate.*)")
     ap.add_argument("--master", nargs="?", const="tcp://127.0.0.1:*",
                     default=None, metavar="BIND",
                     help="serve this workflow as the asynchronous "
@@ -296,6 +306,9 @@ def main(argv=None) -> int:
     if args.aot_cache is not None and args.serve is None:
         print("error: --aot-cache needs --serve", file=sys.stderr)
         return 2
+    if args.generate and args.serve is None:
+        print("error: --generate needs --serve", file=sys.stderr)
+        return 2
     if args.master is not None and args.slave is not None:
         print("error: --master and --slave are mutually exclusive",
               file=sys.stderr)
@@ -338,6 +351,8 @@ def main(argv=None) -> int:
         root.common.serving.aot_cache.enabled = True
         if args.aot_cache != "auto":
             root.common.serving.aot_cache.dir = str(args.aot_cache)
+    if args.generate:
+        root.common.serving.generate.enabled = True
     if args.overrides:
         apply_overrides(root, args.overrides)
     if args.fused:

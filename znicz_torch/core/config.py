@@ -285,13 +285,6 @@ def check_engine_knobs() -> None:
 #: set away from its default.
 UNPORTED_SERVING_KEYS = {
     "web_port": (None, "A.9"),
-    # A.8 (generation serving): prefill/decode over a paged cache
-    **{f"generate.{key}": (default, "A.8 (generation serving)")
-       for key, default in (
-        ("enabled", False), ("max_new_tokens", 256), ("page_size", 16),
-        ("num_pages", 0), ("prefill_chunk", 0), ("prefix_cache", True),
-        ("on_device_sampling", True), ("slots", 8),
-        ("decode_tick_ms", 0.0), ("pending_bound", 64))},
     # A.9, telemetry: exemplars, heartbeat metrics, SLOs
     **{f"obs.{key}": (default, "A.9") for key, default in (
         ("exemplars", 8), ("exemplar_window_s", 60.0),

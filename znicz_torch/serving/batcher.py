@@ -25,8 +25,12 @@
     / ``draining``) and the ``scope`` (``client`` or ``service``) that
     refused it.  Config home: ``root.common.serving.admission.*``.
 
-Continuous batching for generation comes with ROADMAP A.8 (generation
-serving).
+**Continuous batching for generation** (:class:`GenerationScheduler`
+over a paged ``GenerationRunner``): each :class:`GenSeq` is admitted into
+a ``slots`` bound with a prefix-cache lookup, prefilled in bounded chunks
+between decode ticks, decoded one token a tick grouped by page rung, and
+released the tick it finishes; a shared page is copied before its first
+divergent append.
 
 Threading: ``submit`` may be called from any thread, ``next_batch`` from
 the one compute thread; one condition variable guards the queues and the
@@ -36,14 +40,18 @@ counters.
 from __future__ import annotations
 
 import collections
+import logging
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
+
 from znicz_torch.transport.admission import AdmissionTable, TokenBucket
 
-__all__ = ["AdmissionPolicy", "BucketLadder", "DynamicBatcher", "Refusal",
-           "Request", "TokenBucket"]
+__all__ = ["AdmissionPolicy", "BucketLadder", "DynamicBatcher",
+           "GenSeq", "GenerationScheduler", "Refusal", "Request",
+           "TokenBucket"]
 
 
 class BucketLadder:
@@ -317,6 +325,7 @@ class DynamicBatcher:
         self._rows = 0                      # rows currently queued
         self._cond = threading.Condition()
         self._closed = False
+        self._wakes = 0                     # wake() calls: end a wait
         self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
         keys = self.ladder.keys()
         self._bucket_hits: Dict = dict.fromkeys(keys, 0)
@@ -485,6 +494,14 @@ class DynamicBatcher:
             self._closed = True
             self._cond.notify_all()
 
+    def wake(self) -> None:
+        """End a ``next_batch`` wait for its first request at once: it
+        returns None (the compute loop's cue that another plane, the
+        generation scheduler, has work)."""
+        with self._cond:
+            self._wakes += 1
+            self._cond.notify_all()
+
     # -- consumer side ---------------------------------------------------------
 
     def _pop(self, key, idx: int = 0) -> Request:
@@ -577,11 +594,13 @@ class DynamicBatcher:
         on the device.  A solo request is a batch alone: it closes at
         once when it comes first, and stays queued otherwise.  On a 2-D
         ladder the first request pins the batch's seq rung, and only
-        requests of that rung join it."""
+        requests of that rung join it; :meth:`wake` ends the wait for the
+        first request (None)."""
         with self._cond:
             deadline = time.perf_counter() + max(timeout, 0.0)
+            wakes = self._wakes
             while self._rows == 0:
-                if self._closed:
+                if self._closed or self._wakes != wakes:
                     return None
                 remaining = deadline - time.perf_counter()
                 if remaining <= 0:
@@ -667,4 +686,662 @@ def _counter_property(name: str):
 
 for _name in DynamicBatcher.COUNTERS:
     setattr(DynamicBatcher, _name, _counter_property(_name))
+del _name
+
+
+# -- generation ---------------------------------------------------------------
+
+_log = logging.getLogger("znicz_torch.serving")
+
+
+class GenSeq:
+    """One generation request through its life: pending (its prompt
+    queued), active (holding a page table; prefilling in
+    ``prefill_chunk`` token chunks, then decoding a token a tick),
+    finished.  ``prefilled`` counts the prompt positions whose keys and
+    values are cached (a prefix hit starts it above 0); ``t`` is the
+    cache fill once decoding starts; ``pages`` is the request's page
+    table, host ints.
+
+    Sampling is per sequence and seeded on both paths: the in-graph
+    sampler keys on ``seed_val``, the host path on a seeded
+    ``np.random.Generator``; neighbours share nothing."""
+
+    __slots__ = ("prompt", "prompt_len", "max_new", "temperature",
+                 "top_k", "rng", "seed_val", "stream", "return_logits",
+                 "return_logprobs", "reply_to", "req_id", "trace_id",
+                 "client", "t_enqueued", "t_deadline", "pages",
+                 "prefilled", "t", "tokens", "logits", "logprobs",
+                 "gen", "t_last", "order", "t_admitted", "t_first")
+
+    def __init__(self, prompt, max_new: int, temperature: float = 0.0,
+                 top_k: int = 0, seed=None, stream: bool = False,
+                 return_logits: bool = False,
+                 return_logprobs: bool = False, reply_to=None,
+                 req_id=None, trace_id=None, client=None,
+                 deadline_s=None):
+        self.prompt = np.asarray(prompt).reshape(-1)
+        self.prompt_len = int(self.prompt.shape[0])
+        self.max_new = int(max_new)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.rng = (np.random.default_rng(seed)
+                    if self.temperature > 0 else None)
+        self.seed_val = (int(seed) & 0xFFFFFFFF if seed is not None
+                         else int(np.random.default_rng()
+                                  .integers(0, 2**32)))
+        self.stream = bool(stream)
+        self.return_logits = bool(return_logits)
+        self.return_logprobs = bool(return_logprobs)
+        self.reply_to = reply_to
+        self.req_id = req_id
+        self.trace_id = trace_id
+        self.client = client
+        self.t_enqueued = time.perf_counter()
+        self.t_deadline = (None if deadline_s is None
+                           else self.t_enqueued + float(deadline_s))
+        self.pages: List[int] = []      # the request's page table
+        self.prefilled = 0              # prompt positions cached so far
+        self.t = 0                      # cache fill (positions written)
+        self.tokens: List[int] = []     # emitted so far
+        self.logits = [] if return_logits else None
+        self.logprobs = [] if return_logprobs else None
+        self.gen = None                 # generation stamp
+        self.t_last = None              # last emit (inter-token)
+        self.order = 0                  # arrival index (FIFO grouping)
+        self.t_admitted = None          # admission (queue wait's end)
+        self.t_first = None             # first token (TTFT's end)
+
+    def sample(self, row) -> int:
+        """The next token from one (vocab,) logits row on the host
+        (``on_device_sampling`` off): the argmax at temperature 0 (a tie
+        to the lowest id, the in-graph argmax's choice), else seeded
+        softmax sampling over the optional top-k cut."""
+        if self.temperature <= 0:
+            return int(np.argmax(row))
+        z = row.astype(np.float64) / self.temperature
+        if self.top_k > 0 and self.top_k < z.shape[0]:
+            cut = np.partition(z, -self.top_k)[-self.top_k]
+            z = np.where(z >= cut, z, -np.inf)
+        z -= z.max()
+        p = np.exp(z)
+        p /= p.sum()
+        return int(self.rng.choice(z.shape[0], p=p))
+
+
+def _host_logp(row, token: int) -> float:
+    """log p(token) under one (vocab,) logits row in float64 on the host:
+    ``return_logprobs`` when the logits were fetched anyway."""
+    z = row.astype(np.float64)
+    z -= z.max()
+    return float(z[token] - np.log(np.exp(z).sum()))
+
+
+class GenerationScheduler:
+    """Continuous batching over a paged ``GenerationRunner``.  ``submit``
+    queues from the router thread; ``step`` (the frontend's compute loop)
+    runs one round on the compute thread:
+
+      1. expire pending and active sequences past their deadline (the
+         tokens so far ship in the ``deadline`` reply);
+      2. admit pending requests into the ``slots`` bound, each with a
+         prefix-cache lookup: a prompt sharing indexed full pages starts
+         with them claimed (read-only, refcounted) and only its tail to
+         prefill;
+      3. one decode tick: every prefilled sequence's next token, grouped
+         by page rung in FIFO chunks of the top decode rung; a sequence
+         that finishes releases its pages in the round, one at the
+         context window finishes ``truncated``;
+      4. one prefill batch: up to a prefill rung of prefilling sequences
+         each advance ``prefill_chunk`` tokens, so a long prompt costs a
+         bounded chunk between decode ticks.  Pages are allocated (and a
+         shared page about to be appended into copied) here on the host;
+         a dry pool stalls a row a tick, never the batch.
+
+    Fetches follow ``on_device_sampling``: on, a tick fetches (b,)
+    sampled tokens (and log-probabilities when asked); off, (b, vocab)
+    logits sampled on the host.  The executables are the same either
+    way, so greedy tokens are bit-identical across the knob.
+
+    ``step`` returns the replies to ship: streamed partials (opt-in) and
+    finals.  A resent request matching an in-flight ``(client, req_id)``
+    is absorbed: the original generation answers it.  The counters of
+    :data:`COUNTERS` read as attributes of the same names."""
+
+    COUNTERS = {
+        "gen_submitted": "accepted generate requests",
+        "gen_refused": "refused generate requests (policy in the reply)",
+        "gen_dedup": "resent generate requests matched to an in-flight "
+                     "generation (answered by the original)",
+        "prefill_batches": "prefill chunk dispatches",
+        "prefill_seqs": "sequences whose prefill completed",
+        "prefill_tokens": "prompt tokens computed by prefill chunks "
+                          "(prefix-cache hits skip theirs)",
+        "decode_batches": "decode tick dispatches",
+        "decode_tokens": "tokens emitted by decode ticks",
+        "generated_tokens": "tokens emitted in all (prefill's first and "
+                            "every decode's)",
+        "cow_copies": "shared prefix pages copied at the first divergent "
+                      "append",
+        "fetch_bytes": "bytes fetched device -> host by generation ticks "
+                       "(tokens or logits)",
+        "gen_finished": "generations completed to max_new_tokens",
+        "gen_truncated": "generations finished at the context window",
+        "gen_timed_out": "generations abandoned at their deadline "
+                         "(partial tokens shipped)",
+    }
+
+    #: samples kept a latency window (inter-token, and TTFT with its
+    #: queue-wait and compute parts)
+    INTER_TOKEN_WINDOW = 8192
+    TTFT_WINDOW = 2048
+
+    def __init__(self, gen_runner, max_new_cap: int = 256,
+                 pending_bound: int = 64, decode_tick_ms: float = 0.0,
+                 on_device_sampling: bool = True, replica_id: str = ""):
+        self.gen = gen_runner
+        self.max_new_cap = int(max_new_cap)
+        self.pending_bound = int(pending_bound)
+        self.decode_tick_s = float(decode_tick_ms) / 1e3
+        self.on_device = bool(on_device_sampling)
+        self.replica_id = replica_id
+        self._lock = threading.Lock()
+        self._pending: collections.deque = collections.deque()
+        self._active: List[GenSeq] = []
+        #: in-flight (client, req_id) pairs: the resend dedup set
+        self._inflight = set()
+        self._closed = False
+        self._order = 0
+        self._next_tick = 0.0
+        self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
+        #: latency windows (s): name -> bounded deque
+        self._windows = {
+            "inter_token": collections.deque(maxlen=self.INTER_TOKEN_WINDOW),
+            "ttft": collections.deque(maxlen=self.TTFT_WINDOW),
+            "queue_wait": collections.deque(maxlen=self.TTFT_WINDOW),
+            "compute": collections.deque(maxlen=self.TTFT_WINDOW)}
+        #: page-pressure episode latch: log the transition once
+        self._page_pressure = False
+        self._t_shed_log = 0.0          # queue-shed log rate limit
+
+    def _inc(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[name] += int(n)
+
+    def _observe(self, window: str, seconds: float) -> None:
+        with self._lock:
+            self._windows[window].append(seconds)
+
+    # -- producer side (router thread) ------------------------------------------
+
+    def submit(self, seq: GenSeq) -> Optional[Refusal]:
+        """Queue one generation, or refuse it readably.  A resend of an
+        in-flight (client, req_id) is absorbed (None: the original
+        answers it)."""
+        if seq.prompt_len < 1 or seq.prompt_len > self.gen.max_ctx:
+            self._inc("gen_refused")
+            return Refusal(
+                "oversized",
+                f"prompt of {seq.prompt_len} tokens outside the context "
+                f"window (1..{self.gen.max_ctx})", scope="client")
+        if seq.max_new < 1 or seq.max_new > self.max_new_cap:
+            self._inc("gen_refused")
+            return Refusal(
+                "oversized",
+                f"max_new_tokens={seq.max_new} outside 1.."
+                f"{self.max_new_cap} "
+                f"(root.common.serving.generate.max_new_tokens)",
+                scope="client")
+        key = (seq.client, seq.req_id)
+        with self._lock:
+            if self._closed:
+                return Refusal("draining", "service is shutting down")
+            if seq.req_id is not None and key in self._inflight:
+                self._counts["gen_dedup"] += 1
+                return None
+            if len(self._pending) >= self.pending_bound:
+                self._counts["gen_refused"] += 1
+                now = time.perf_counter()
+                if now - self._t_shed_log > 1.0:
+                    # the shed episode, at most once a second
+                    self._t_shed_log = now
+                    _log.warning(
+                        "page_shed reason=queue_bound replica=%s pending=%d "
+                        "bound=%d active=%d", self.replica_id,
+                        len(self._pending), self.pending_bound,
+                        len(self._active))
+                return Refusal(
+                    "shed",
+                    f"generation queue at bound ({len(self._pending)} "
+                    f"pending, bound {self.pending_bound}) — shed")
+            seq.order = self._order
+            self._order += 1
+            self._pending.append(seq)
+            self._inflight.add(key)
+            self._counts["gen_submitted"] += 1
+            return None
+
+    def in_flight(self, client, req_id) -> bool:
+        """Is this (client, req_id) queued or generating?  The frontend
+        answers a resend of one with a heartbeat partial, so the client's
+        resend timer refreshes and nothing runs twice."""
+        with self._lock:
+            return (client, req_id) in self._inflight
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+
+    # -- consumer side (compute thread) -----------------------------------------
+
+    def work_available(self) -> bool:
+        return bool(self._pending or self._active)
+
+    def work_ready(self, now: Optional[float] = None) -> bool:
+        """True when :meth:`step` would dispatch now (admissions pending,
+        sequences mid-prefill, or the decode tick due): the compute loop's
+        busy/idle hint."""
+        if self._pending:
+            return True
+        if not self._active:
+            return False
+        if any(s.prefilled < s.prompt_len for s in self._active):
+            return True
+        now = time.perf_counter() if now is None else now
+        return now >= self._next_tick
+
+    def _retire(self, seq: GenSeq) -> None:
+        """Drop a sequence from the live sets (its pages are the
+        caller's: the compute thread owns the pool)."""
+        with self._lock:
+            if seq in self._active:
+                self._active.remove(seq)
+            self._inflight.discard((seq.client, seq.req_id))
+
+    def _release(self, seq: GenSeq) -> None:
+        """Return every page reference the request holds; shared prefix
+        pages survive on the index's own."""
+        if seq.pages:
+            self.gen.release_pages(seq.pages)
+            seq.pages = []
+
+    def _final(self, seq: GenSeq, replies, truncated: Optional[str] = None,
+               counter: str = "gen_finished") -> None:
+        self._release(seq)
+        self._retire(seq)
+        self._inc(counter)
+        rep = {"ok": True, "req_id": seq.req_id,
+               "replica_id": self.replica_id,
+               "tokens": np.asarray(seq.tokens, np.int32),
+               "gen": seq.gen, "prompt_len": seq.prompt_len,
+               "trace_id": seq.trace_id,
+               "timing_ms": self._timing_ms(seq)}
+        if truncated:
+            rep["truncated"] = truncated
+        if seq.logits is not None:
+            rep["logits"] = (np.stack(seq.logits) if seq.logits
+                             else np.zeros((0, 0), np.float32))
+        if seq.logprobs is not None:
+            rep["logprobs"] = np.asarray(seq.logprobs, np.float32)
+        replies.append((seq.reply_to, rep))
+
+    @staticmethod
+    def _timing_ms(seq: GenSeq) -> Dict[str, Optional[float]]:
+        """Where the request's wall time went, ms (None where a phase
+        never happened)."""
+        def ms(a, b):
+            return None if a is None or b is None \
+                else round((b - a) * 1e3, 3)
+
+        return {"queue_wait": ms(seq.t_enqueued, seq.t_admitted),
+                "ttft": ms(seq.t_enqueued, seq.t_first),
+                "compute": ms(seq.t_admitted, seq.t_first),
+                "total": ms(seq.t_enqueued, seq.t_last)}
+
+    def _expire(self, seq: GenSeq, replies) -> None:
+        self._release(seq)
+        self._retire(seq)
+        self._inc("gen_timed_out")
+        replies.append((seq.reply_to, {
+            "ok": False, "timed_out": True, "req_id": seq.req_id,
+            "replica_id": self.replica_id, "policy": "deadline",
+            "tokens": np.asarray(seq.tokens, np.int32),
+            "gen": seq.gen, "trace_id": seq.trace_id,
+            "error": "deadline expired mid-generation "
+                     f"({len(seq.tokens)} of {seq.max_new} tokens "
+                     "emitted — shipped partial)"}))
+
+    def _emit(self, seq: GenSeq, token: int, row, logp, now: float,
+              replies) -> None:
+        seq.tokens.append(int(token))
+        if seq.logits is not None:
+            seq.logits.append(row.copy())
+        if seq.logprobs is not None:
+            seq.logprobs.append(logp)
+        if seq.t_last is not None:
+            self._observe("inter_token", now - seq.t_last)
+        else:
+            # the first token: TTFT and its queue-wait / compute split
+            seq.t_first = now
+            self._observe("ttft", now - seq.t_enqueued)
+            self._observe("compute", now - (seq.t_admitted
+                                            if seq.t_admitted is not None
+                                            else seq.t_enqueued))
+        seq.t_last = now
+        self._inc("generated_tokens")
+        if seq.stream and seq.reply_to is not None:
+            replies.append((seq.reply_to, {
+                "ok": True, "partial": True, "req_id": seq.req_id,
+                "replica_id": self.replica_id, "token": int(token),
+                "i": len(seq.tokens) - 1, "trace_id": seq.trace_id}))
+
+    # -- page bookkeeping ---------------------------------------------------------
+
+    def _page_writable(self, seq: GenSeq, idx: int) -> bool:
+        """Make slot ``idx`` of the request's page table privately
+        writable: allocate at the boundary, copy a shared (refcount > 1)
+        page.  False under allocation pressure: the caller stalls the row
+        a tick (its pages are kept, it retries next round)."""
+        if idx == len(seq.pages):
+            page = self.gen.alloc_page()
+            if page is None:
+                return False
+            seq.pages.append(page)
+            return True
+        page = seq.pages[idx]
+        if self.gen.page_ref[page] > 1:
+            fresh = self.gen.alloc_page()
+            if fresh is None:
+                return False
+            self.gen.copy_page(page, fresh)
+            self.gen.decref(page)
+            seq.pages[idx] = fresh
+            self._inc("cow_copies")
+        return True
+
+    def _ensure_chunk(self, seq: GenSeq) -> bool:
+        """Make every page the next prefill chunk writes writable."""
+        ps = self.gen.page_size
+        t0 = seq.prefilled
+        end = min(t0 + self.gen.prefill_chunk, seq.prompt_len)
+        for idx in range(t0 // ps, -(-end // ps)):
+            if not self._page_writable(seq, idx):
+                return False
+        return True
+
+    # -- fetches ------------------------------------------------------------------
+
+    def _fetch(self, chunk, out):
+        """One dispatch's device -> host transfer under
+        ``on_device_sampling``: tokens (and log-probabilities when a row
+        asks) on, logits off or when a row asks for them.
+        ``fetch_bytes`` counts the padded transfer.  Returns host
+        ``(tokens, logps, logits)`` of the real rows (None where not
+        fetched)."""
+        tok_dev, logp_dev, logits_dev, _ = out
+        n = len(chunk)
+        need_logits = ((not self.on_device)
+                       or any(s.return_logits for s in chunk))
+        need_logp = (self.on_device
+                     and any(s.return_logprobs for s in chunk))
+        toks = logps = logits = None
+        if self.on_device:
+            full = tok_dev.cpu().numpy()
+            self._inc("fetch_bytes", full.nbytes)
+            toks = full[:n]
+        if need_logp:
+            full = logp_dev.cpu().numpy()
+            self._inc("fetch_bytes", full.nbytes)
+            logps = full[:n]
+        if need_logits:
+            full = logits_dev.cpu().numpy()
+            self._inc("fetch_bytes", full.nbytes)
+            logits = full[:n]
+        return toks, logps, logits
+
+    def _emit_row(self, seq: GenSeq, i: int, fetched, now: float,
+                  replies) -> None:
+        """Emit row ``i`` of a fetched dispatch (sampled on the host when
+        the device's tokens were not fetched)."""
+        toks, logps, logits = fetched
+        row = None if logits is None else logits[i]
+        token = int(toks[i]) if toks is not None else seq.sample(row)
+        logp = None
+        if seq.return_logprobs:
+            logp = (float(logps[i]) if logps is not None
+                    else _host_logp(row, token))
+        self._emit(seq, token, row, logp, now, replies)
+
+    def step(self):
+        """One scheduling round (class docstring).  Returns ``(worked,
+        replies)``: whether anything was dispatched, and the
+        ``(reply_to, payload)`` pairs to ship."""
+        replies: List = []
+        worked = False
+        now = time.perf_counter()
+        # 1. deadlines, pending first (never prefill doomed work)
+        with self._lock:
+            doomed_p = [s for s in self._pending
+                        if s.t_deadline is not None and now > s.t_deadline]
+            for s in doomed_p:
+                self._pending.remove(s)
+            doomed_a = [s for s in self._active
+                        if s.t_deadline is not None and now > s.t_deadline]
+        for s in doomed_p + doomed_a:
+            self._expire(s, replies)
+        # 2. admission into the slots; the prefix lookup claims shared
+        # full pages, so a hit starts with only its tail to prefill
+        admitted: List[GenSeq] = []
+        with self._lock:
+            while (self._pending
+                   and len(self._active) + len(admitted) < self.gen.slots):
+                admitted.append(self._pending.popleft())
+            self._active.extend(admitted)
+        for seq in admitted:
+            seq.t_admitted = now
+            self._observe("queue_wait", now - seq.t_enqueued)
+            if self.gen.prefix is not None:
+                pages, covered = self.gen.prefix.lookup(seq.prompt)
+                seq.pages = pages
+                # full coverage still recomputes the last prompt token (a
+                # 1-token chunk): the continuation needs its logits, and
+                # that write copies the shared page
+                seq.prefilled = min(covered, seq.prompt_len - 1)
+        # 3. one decode tick over the prefilled sequences, grouped by page
+        # rung: dispatched here, fetched after the prefill dispatch
+        chunks = []
+        stalled = 0             # rows page pressure held back this round
+        if self._active and now >= self._next_tick:
+            groups: Dict[int, List[GenSeq]] = {}
+            ticked = False
+            for seq in sorted([s for s in self._active
+                               if s.prefilled >= s.prompt_len],
+                              key=lambda s: s.order):
+                ticked = True
+                if seq.t >= self.gen.max_ctx:
+                    self._final(seq, replies, truncated="context window "
+                                "exhausted", counter="gen_truncated")
+                    continue
+                if not self._page_writable(seq, seq.t
+                                           // self.gen.page_size):
+                    stalled += 1
+                    continue            # page pressure: stall a tick
+                groups.setdefault(
+                    self.gen._page_rung(max(len(seq.pages), 1)),
+                    []).append(seq)
+            # every chunk of the tick is dispatched before any is fetched:
+            # chunk N computes while chunk N-1 is emitted
+            chunk_max = self.gen.decode_rungs[-1]
+            for rung in sorted(groups):
+                grp = groups[rung]
+                for lo in range(0, len(grp), chunk_max):
+                    chunk = grp[lo:lo + chunk_max]
+                    out = self.gen.decode_async(
+                        [s.pages for s in chunk],
+                        [s.tokens[-1] for s in chunk],
+                        [s.t for s in chunk],
+                        [s.temperature for s in chunk],
+                        [s.top_k for s in chunk],
+                        [s.seed_val for s in chunk])
+                    chunks.append((chunk, out))
+                    self._inc("decode_batches")
+                    self._inc("decode_tokens", len(chunk))
+                    worked = True
+            if ticked and self.decode_tick_s > 0:
+                self._next_tick = now + self.decode_tick_s
+        # 4. one prefill batch: up to a prefill rung of prefilling
+        # sequences advance one bounded chunk, dispatched between the
+        # decode dispatches and their fetches
+        batch: List[GenSeq] = []
+        for seq in sorted([s for s in self._active
+                           if s.prefilled < s.prompt_len],
+                          key=lambda s: s.order):
+            if len(batch) >= self.gen.prefill_rungs[-1]:
+                break
+            if self._ensure_chunk(seq):
+                batch.append(seq)
+            else:
+                stalled += 1
+        pf = None
+        t0s: List[int] = []
+        nn: List[int] = []
+        if batch:
+            c = self.gen.prefill_chunk
+            x = np.zeros((len(batch), c), np.int64)
+            for i, seq in enumerate(batch):
+                t0 = seq.prefilled
+                n_new = min(c, seq.prompt_len - t0)
+                x[i, :n_new] = seq.prompt[t0:t0 + n_new]
+                t0s.append(t0)
+                nn.append(n_new)
+            pf = self.gen.prefill_async(
+                x, t0s, nn, [s.pages for s in batch],
+                [s.temperature for s in batch],
+                [s.top_k for s in batch],
+                [s.seed_val for s in batch])
+            self._inc("prefill_batches")
+            self._inc("prefill_tokens", sum(nn))
+            worked = True
+        # fetch and emit: the decode chunks first (the oldest dispatches),
+        # then the prefill batch's completions
+        for chunk, out in chunks:
+            fetched = self._fetch(chunk, out)
+            t_emit = time.perf_counter()
+            for i, seq in enumerate(chunk):
+                seq.t += 1
+                seq.gen = out[3]
+                self._emit_row(seq, i, fetched, t_emit, replies)
+                if len(seq.tokens) >= seq.max_new:
+                    self._final(seq, replies)
+        if pf is not None:
+            fetched = self._fetch(batch, pf)
+            t_emit = time.perf_counter()
+            for i, seq in enumerate(batch):
+                seq.prefilled = t0s[i] + nn[i]
+                if seq.prefilled < seq.prompt_len:
+                    continue        # a mid-prompt chunk: sample discarded
+                seq.t = seq.prompt_len
+                seq.gen = pf[3]
+                if self.gen.prefix is not None:
+                    self.gen.prefix.register(seq.prompt, seq.pages)
+                self._inc("prefill_seqs")
+                self._emit_row(seq, i, fetched, t_emit, replies)
+                if len(seq.tokens) >= seq.max_new:
+                    self._final(seq, replies)
+        self._note_page_pressure(stalled)
+        return worked, replies
+
+    def _note_page_pressure(self, stalled: int) -> None:
+        """Log the page-pressure transition: the first round whose
+        allocations held rows back after a clean round, once an
+        episode."""
+        if stalled and not self._page_pressure:
+            _log.warning("page_shed reason=page_pressure replica=%s "
+                         "stalled_rows=%d kv_occupancy=%.4f active=%d",
+                         self.replica_id, stalled, self.gen.occupancy(),
+                         len(self._active))
+        self._page_pressure = bool(stalled)
+
+    def _abandon(self, reply) -> List:
+        """Retire every queued and live generation, its pages released,
+        each answered with ``reply(seq)``."""
+        replies: List = []
+        with self._lock:
+            pending = list(self._pending)
+            self._pending.clear()
+            active = list(self._active)
+        for seq in pending + active:
+            self._release(seq)
+            self._retire(seq)
+            replies.append((seq.reply_to, reply(seq)))
+        return replies
+
+    def drain(self) -> List:
+        """Abandon every queued and live generation (service shutdown):
+        a readable ``draining`` reply each, pages released."""
+        def reply(seq):
+            self._inc("gen_refused")
+            return {"ok": False, "rejected": True, "req_id": seq.req_id,
+                    "replica_id": self.replica_id, "policy": "draining",
+                    "trace_id": seq.trace_id,
+                    "error": "service is shutting down — generation "
+                             "abandoned"}
+
+        return self._abandon(reply)
+
+    def fail(self, exc: BaseException) -> List:
+        """Close the scheduler and answer every queued and live generation
+        with the failure that ended the compute loop."""
+        self.close()
+        return self._abandon(lambda seq: {
+            "ok": False, "req_id": seq.req_id, "replica_id": self.replica_id,
+            "policy": "error", "trace_id": seq.trace_id,
+            "error": f"compute loop died: {exc!r}"})
+
+    # -- stats --------------------------------------------------------------------
+
+    def _quantiles(self, window: str) -> Dict[str, Optional[float]]:
+        with self._lock:
+            w = np.asarray(self._windows[window])
+        return {f"{window}_p{q}_ms": (None if w.size == 0 else
+                                      round(float(np.percentile(w, q)) * 1e3,
+                                            3))
+                for q in (50, 99)}
+
+    def inter_token_quantiles(self) -> Dict[str, Optional[float]]:
+        return self._quantiles("inter_token")
+
+    def ttft_quantiles(self) -> Dict[str, Optional[float]]:
+        """TTFT and its queue-wait / compute split, p50 and p99 in ms
+        (None on an empty window)."""
+        out: Dict[str, Optional[float]] = {}
+        for window in ("ttft", "queue_wait", "compute"):
+            out.update(self._quantiles(window))
+        return out
+
+    def stats(self) -> Dict:
+        with self._lock:
+            out = {"pending": len(self._pending),
+                   "active": len(self._active)}
+            out.update(self._counts)
+        out.update({"max_new_tokens": self.max_new_cap,
+                    "pending_bound": self.pending_bound,
+                    "decode_tick_ms": self.decode_tick_s * 1e3,
+                    "on_device_sampling": self.on_device})
+        out.update(self.inter_token_quantiles())
+        out.update(self.ttft_quantiles())
+        out.update(self.gen.stats())
+        return out
+
+
+def _gen_counter_property(name: str):
+    def get(self) -> int:
+        with self._lock:
+            return self._counts[name]
+
+    return property(get, doc=GenerationScheduler.COUNTERS[name])
+
+
+for _name in GenerationScheduler.COUNTERS:
+    setattr(GenerationScheduler, _name, _gen_counter_property(_name))
 del _name

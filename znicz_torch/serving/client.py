@@ -28,8 +28,12 @@ balancer's ``lb`` stamp files its outcome into the window of the
 whole-service breaker.
 
 A sequence service takes ``(n, len)`` requests as they are and answers
-``(n, len, ...)``.  The generation API (``submit_generate``/``generate``)
-comes with ROADMAP A.8 (generation serving).
+``(n, len, ...)``.  A generating one (``--generate``) also takes
+``submit_generate``/``generate``: a 1-D prompt in, its tokens out; with
+``stream`` each token arrives as a partial reply and ``on_token(token,
+i)`` fires for it.  A partial (a token, or the heartbeat a resend of an
+in-flight generation is answered with) refreshes the request's resend
+timer: the service is working on it.
 """
 
 from __future__ import annotations
@@ -121,6 +125,8 @@ class InferenceClient:
         #: req_id -> [frames, t_last_sent, resends]
         self._pending: Dict[int, List] = {}
         self._results: Dict[int, dict] = {}
+        #: req_id -> on_token callback of a streamed generation
+        self._on_token: Dict[int, object] = {}
         self._sock = zmq.Context.instance().socket(zmq.DEALER)
         self._sock.setsockopt(zmq.LINGER, 0)
         self._sock.connect(endpoint)
@@ -191,8 +197,13 @@ class InferenceClient:
         ship none, the server's TTL governs).  Raises
         :class:`CircuitOpenError` without touching the wire while the
         breaker is open."""
+        return self._submit({"cmd": "infer", "x": np.ascontiguousarray(x)},
+                            deadline_s)
+
+    def _submit(self, msg: dict, deadline_s: Optional[float]) -> int:
+        """Send a data-plane request through the breaker with its
+        deadline budget; returns its req_id."""
         self._breaker.admit()
-        msg = {"cmd": "infer", "x": np.ascontiguousarray(x)}
         budget = self.deadline_s if deadline_s is None else float(deadline_s)
         if budget > 0:
             msg["deadline_ms"] = budget * 1e3
@@ -252,8 +263,22 @@ class InferenceClient:
                 self._inc("bad_replies")
                 continue
             rid = rep.get("req_id")
+            if rep.get("partial"):
+                # a streamed token or a dedup heartbeat: progress, not the
+                # answer; the resend timer restarts (re-sending the prompt
+                # would only cost dedup work) and a token goes to the
+                # caller's callback
+                entry = self._pending.get(rid)
+                if entry is not None:
+                    entry[1] = time.perf_counter()
+                    entry[2] = 0
+                    cb = self._on_token.get(rid)
+                    if cb is not None and "token" in rep:
+                        cb(rep.get("token"), rep.get("i"))
+                continue
             if rid in self._pending:
                 del self._pending[rid]
+                self._on_token.pop(rid, None)
                 self._results[rid] = rep
                 # breaker failures: service-scoped sheds and a balancer's
                 # failover give-up; ok replies and per-client refusals
@@ -291,6 +316,7 @@ class InferenceClient:
                 # request's own reply (raising here would pin it on
                 # whichever request's result() is pumping)
                 del self._pending[rid]
+                self._on_token.pop(rid, None)
                 self._inc("give_ups")
                 self._breaker.record(rid, False)
                 waited = now - t_sent + n * self.resend_after_s
@@ -316,6 +342,7 @@ class InferenceClient:
         while req_id not in self._results:
             if time.perf_counter() > deadline:
                 self._pending.pop(req_id, None)
+                self._on_token.pop(req_id, None)
                 self._inc("give_ups")
                 self._breaker.record(req_id, False)
                 raise TimeoutError(f"req {req_id}: no reply within "
@@ -351,6 +378,63 @@ class InferenceClient:
         *sample) input (a bare sample comes back with its 1-row axis)."""
         return self.result(self.submit(x, deadline_s=deadline_s),
                            timeout=timeout)["y"]
+
+    # -- generation ------------------------------------------------------------
+
+    def submit_generate(self, prompt: np.ndarray, max_new_tokens: int,
+                        temperature: float = 0.0, top_k: int = 0,
+                        seed: Optional[int] = None, stream: bool = False,
+                        return_logits: bool = False,
+                        return_logprobs: bool = False,
+                        deadline_s: Optional[float] = None,
+                        on_token=None) -> int:
+        """Send one ``generate`` request; returns its ``req_id``.  With
+        ``stream`` the service ships each token as it lands and
+        ``on_token(token, i)`` fires from whichever pump drains it; the
+        final reply (the whole token array) still comes through
+        :meth:`result`.  ``return_logprobs`` asks for each token's
+        log-probability, ``return_logits`` for its logits row.  Send a
+        ``seed`` with ``temperature > 0`` when a resend must give the
+        same tokens (sampling is seeded a sequence)."""
+        msg = {"cmd": "generate",
+               "x": np.ascontiguousarray(np.asarray(prompt).reshape(-1)),
+               "max_new_tokens": int(max_new_tokens)}
+        if temperature:
+            msg["temperature"] = float(temperature)
+        if top_k:
+            msg["top_k"] = int(top_k)
+        if seed is not None:
+            msg["seed"] = int(seed)
+        if stream:
+            msg["stream"] = True
+        if return_logits:
+            msg["return_logits"] = True
+        if return_logprobs:
+            msg["return_logprobs"] = True
+        rid = self._submit(msg, deadline_s)
+        if on_token is not None:
+            self._on_token[rid] = on_token
+        return rid
+
+    def generate(self, prompt: np.ndarray, max_new_tokens: int,
+                 temperature: float = 0.0, top_k: int = 0,
+                 seed: Optional[int] = None, stream: bool = False,
+                 return_logits: bool = False,
+                 return_logprobs: bool = False,
+                 timeout: Optional[float] = None,
+                 deadline_s: Optional[float] = None, on_token=None) -> dict:
+        """One generation, synchronously: the final reply, with
+        ``tokens`` (int32), ``gen`` (the generation that produced them),
+        ``prompt_len``, ``timing_ms``, and ``logits`` / ``logprobs`` when
+        asked.  Size ``timeout`` to the whole generation."""
+        return self.result(
+            self.submit_generate(prompt, max_new_tokens,
+                                 temperature=temperature, top_k=top_k,
+                                 seed=seed, stream=stream,
+                                 return_logits=return_logits,
+                                 return_logprobs=return_logprobs,
+                                 deadline_s=deadline_s, on_token=on_token),
+            timeout=timeout)
 
     def close(self) -> None:
         self._sock.close(0)

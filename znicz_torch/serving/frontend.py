@@ -18,6 +18,24 @@ Control commands: ``ping``, ``stats``, ``swap`` (a snapshot ``path``:
 the rollover runs on a background thread and the reply acknowledges the
 start) and ``rollback``; an unknown command is answered with an error.
 
+Generation (``root.common.serving.generate.enabled``)::
+
+    {"cmd": "generate", "x": (len,) token ids, "max_new_tokens",
+     "temperature", "top_k", "seed", "stream", "return_logits",
+     "return_logprobs", "req_id", "client", "deadline_ms", "trace_id"}
+    -> {"ok": True, "partial": True, "token", "i", ...}   (``stream``)
+    -> {"ok": True, "tokens": (n,) int32, "gen", "prompt_len",
+        "timing_ms", ["truncated"], ["logits"], ["logprobs"], ...}
+
+runs on the continuous-batching ``GenerationScheduler`` over the
+runner's paged ``GenerationRunner``, driven by the same compute thread
+as scoring: with generation work ready the scoring queue is polled
+without a wait, an accepted generation ends an idle wait on it
+(``DynamicBatcher.wake``; the reference lets the 50-ms poll run out),
+and each round's replies are shipped by the ROUTER thread.  A resend of
+an in-flight generation is answered with a heartbeat partial (no
+token), so the client's resend timer refreshes.
+
 In-process callers keep :meth:`InferenceServer.submit` of a
 :class:`~.batcher.Request` whose ``reply_to`` is a callable or a
 ``concurrent.futures.Future``: its reply is delivered to it, not to the
@@ -71,9 +89,11 @@ libraries come from ``aot_cache/`` next to the snapshot (or ``dir``)
 where it holds them, and the warm proof (``ModelRunner.warm_proof``,
 kept as ``warm_report``) must hold before the server becomes ready; a
 failed proof fails ``start()``.  The heartbeat carries ``warm_source``,
-``warm_hits`` and ``warm_misses``.  Generation serving comes with A.8
-(generation serving), exemplars, SLOs and the heartbeat's fleet trace,
-event and metric keys with telemetry (A.9).
+``warm_hits`` and ``warm_misses``.  With generation the warmup also
+enters the generation family, and the proof expects
+``len(ladder.buckets()) + executables()``.  Exemplars, SLOs and the
+heartbeat's fleet trace, event and metric keys come with telemetry
+(A.9).
 
 **Variable-length requests** (``root.common.serving.seq.{max_len,
 rungs}``; ``max_len`` defaults to the workflow's ``serving_seq_len``,
@@ -104,7 +124,7 @@ import numpy as np
 from znicz_torch.core.config import check_serving_keys, root
 
 from .batcher import (AdmissionPolicy, BucketLadder, DynamicBatcher,
-                      Refusal, Request)
+                      GenerationScheduler, GenSeq, Refusal, Request)
 from .model import ModelRunner
 
 #: the serving keys the port reads (``root.common.serving.*``), with the
@@ -120,6 +140,18 @@ DEFAULTS = {"max_batch": 32, "max_delay_ms": 5.0, "queue_bound": 256,
             # a seq axis (powers of two up to max_len, or ``rungs``
             # ending at it); a sequence sample declares its window
             "seq": {"max_len": 0, "rungs": None},
+            # generation over a paged KV pool (off by default): the decode
+            # budget cap, the page (tokens; the sharing granularity), the
+            # pool (0: slots x pages a full context), the prompt tokens a
+            # tick prefills a request (0: page_size, which makes prefix
+            # hits bit-exact), prefix sharing, in-graph sampling, the
+            # concurrency bound, the decode pacing (0: free-running) and
+            # the pending queue's bound
+            "generate": {"enabled": False, "max_new_tokens": 256,
+                         "page_size": 16, "num_pages": 0,
+                         "prefill_chunk": 0, "prefix_cache": True,
+                         "on_device_sampling": True, "slots": 8,
+                         "decode_tick_ms": 0.0, "pending_bound": 64},
             # the build cache (serving/aot_cache.py): kernel libraries
             # kept next to the snapshot (``dir`` overrides the place)
             "aot_cache": {"enabled": False, "dir": ""},
@@ -258,6 +290,9 @@ class InferenceServer:
             ladder=ladder,
             admission=admission or _admission_from_config())
         self.request_ttl_s = float(_cfg("request_ttl_s", request_ttl_s))
+        #: the generation plane (None: generation disabled)
+        self.gen_sched: Optional[GenerationScheduler] = \
+            self._generation_from_config()
         self.max_requests = None if max_requests is None \
             else int(max_requests)
         self.warmup = bool(warmup)
@@ -297,6 +332,48 @@ class InferenceServer:
         self._compute_thread: Optional[threading.Thread] = None
         self._swap_gate = threading.Lock()
         self._swap_thread: Optional[threading.Thread] = None
+
+    def _generation_from_config(self) -> Optional[GenerationScheduler]:
+        """``root.common.serving.generate``: a paged ``GenerationRunner``
+        (the pool sized for every slot to hold a full context unless
+        ``num_pages`` says otherwise, the prefill chunk a page unless
+        ``prefill_chunk`` says otherwise) under a
+        :class:`GenerationScheduler`; None when disabled."""
+        d_gen = DEFAULTS["generate"]
+        gn = root.common.serving.generate
+
+        def knob(name):
+            return gn.get(name, d_gen[name])
+
+        if not bool(knob("enabled")):
+            return None
+        if self.seq_max_len is None:
+            raise ValueError(
+                "generation serving rides the variable-length plane (the "
+                "context window IS the seq window) — set root.common."
+                "serving.seq.max_len alongside root.common.serving."
+                "generate.enabled")
+        page_size = int(knob("page_size"))
+        slots = int(knob("slots"))
+        num_pages = int(knob("num_pages"))
+        if num_pages <= 0:
+            # every slot can hold a full context: admission and
+            # allocation cannot deadlock
+            num_pages = slots * (-(-self.seq_max_len // page_size))
+        chunk = int(knob("prefill_chunk"))
+        if chunk <= 0:
+            # chunks aligned with pages: a prefix hit replays the grid a
+            # cold prefill runs (bit-exact reuse)
+            chunk = page_size
+        gr = self.runner.enable_generation(
+            page_size=page_size, num_pages=num_pages, slots=slots,
+            prefill_chunk=chunk, prefix_cache=bool(knob("prefix_cache")))
+        return GenerationScheduler(
+            gr, max_new_cap=int(knob("max_new_tokens")),
+            pending_bound=int(knob("pending_bound")),
+            decode_tick_ms=float(knob("decode_tick_ms")),
+            on_device_sampling=bool(knob("on_device_sampling")),
+            replica_id=self.replica_id)
 
     def _check_seq_model(self, workflow) -> None:
         """Refuse a ``max_len`` past the trained length (positions there
@@ -357,6 +434,8 @@ class InferenceServer:
         """Refuse new work, drain what is queued, join the threads."""
         self._stop.set()
         self.batcher.close()
+        if self.gen_sched is not None:
+            self.gen_sched.close()
         if self._thread is not None:
             self._thread.join(timeout)
             if self._thread.is_alive():
@@ -485,8 +564,12 @@ class InferenceServer:
                 # every rung before the first request: cuDNN's choices,
                 # kernel builds and allocator growth happen here
                 self.runner.warmup(self.batcher.ladder)
-                self.warm_report = self.runner.warm_proof(
-                    len(self.batcher.ladder.buckets()))
+                expected = len(self.batcher.ladder.buckets())
+                if self.gen_sched is not None:
+                    # the generation family after the ladder
+                    self.gen_sched.gen.warmup()
+                    expected += self.gen_sched.gen.executables()
+                self.warm_report = self.runner.warm_proof(expected)
                 if self.runner.aot_enabled and not self.warm_report["ok"]:
                     # lands in _serve_error: ready() stays False and
                     # start() raises the cause
@@ -525,6 +608,8 @@ class InferenceServer:
         finally:
             self._stop.set()
             self.batcher.close()
+            if self.gen_sched is not None:
+                self.gen_sched.close()
             if self._compute_thread is not None:
                 self._compute_thread.join(timeout=60)
             if sock is not None:
@@ -614,6 +699,9 @@ class InferenceServer:
                         {"ok": True, "rolled_back": True, "req_id": rid,
                          "generation": gen})
             return
+        if cmd == "generate":
+            self._handle_generate(sock, envelope, req, rid)
+            return
         if cmd != "infer":
             self._reply(sock, envelope,
                         {"ok": False, "req_id": rid,
@@ -683,6 +771,76 @@ class InferenceServer:
                          "policy": reason.policy, "scope": reason.scope,
                          "trace_id": req.get("trace_id"),
                          "error": str(reason)})
+
+    def _handle_generate(self, sock, envelope, req, rid) -> None:
+        """The ``generate`` request kind: a 1-D token prompt in,
+        ``max_new_tokens`` tokens out, streamed a token at a time
+        (``stream``) or whole; queued on the scheduler, answered from the
+        compute loop."""
+        if self.gen_sched is None:
+            self._reply(sock, envelope, {
+                "ok": False, "req_id": rid,
+                "error": "generation serving is disabled — start the "
+                         "service with root.common.serving.generate."
+                         "enabled=True"})
+            return
+        x = req.get("x")
+        if not isinstance(x, np.ndarray) or x.ndim != 1 or x.size < 1 \
+                or not np.issubdtype(x.dtype, np.number):
+            self._reply(sock, envelope, {
+                "ok": False, "req_id": rid,
+                "error": "generate request needs a non-empty 1-D numeric "
+                         "token prompt 'x'"})
+            return
+        self._inc("requests_in")
+        deadline_s = self._deadline_s(req)
+        if deadline_s <= 0:
+            self._inc("timed_out")
+            self._reply(sock, envelope, {
+                "ok": False, "timed_out": True, "req_id": rid,
+                "policy": "deadline", "trace_id": req.get("trace_id"),
+                "error": f"deadline budget {req.get('deadline_ms')}ms "
+                         f"already expended — refused at ingress"})
+            return
+        client = self._client_id(req, envelope)
+        dup = rid is not None and self.gen_sched.in_flight(client, rid)
+        try:
+            seq = GenSeq(
+                x, max_new=int(req.get("max_new_tokens", 0) or 0),
+                temperature=float(req.get("temperature", 0.0) or 0.0),
+                top_k=int(req.get("top_k", 0) or 0),
+                seed=req.get("seed"),
+                stream=bool(req.get("stream", False)),
+                return_logits=bool(req.get("return_logits", False)),
+                return_logprobs=bool(req.get("return_logprobs", False)),
+                reply_to=list(envelope), req_id=rid,
+                trace_id=req.get("trace_id"), client=client,
+                deadline_s=deadline_s)
+        except (TypeError, ValueError) as exc:
+            self._reply(sock, envelope, {
+                "ok": False, "req_id": rid,
+                "error": f"bad generate parameters: {exc}"})
+            return
+        reason = self.gen_sched.submit(seq)
+        if reason is None and not dup:
+            # an idle compute loop waits on the scoring queue: end the wait
+            # so the generation is admitted now, not at the poll's end
+            self.batcher.wake()
+        if reason is None and dup:
+            # a resend of an in-flight generation: a heartbeat partial
+            # refreshes the client's resend timer (a generation outlives
+            # the resend window routinely)
+            self._reply(sock, envelope, {
+                "ok": True, "partial": True, "heartbeat": True,
+                "req_id": rid, "trace_id": req.get("trace_id")})
+            return
+        if reason is not None:
+            self._inc("rejected")
+            self._reply(sock, envelope, {
+                "ok": False, "rejected": True, "req_id": rid,
+                "policy": reason.policy, "scope": reason.scope,
+                "trace_id": req.get("trace_id"), "error": str(reason)})
+        # accepted: the tokens come from the compute loop's rounds
 
     def _client_id(self, req, envelope) -> str:
         """Admission identity: the ``client`` metadata when the peer
@@ -813,15 +971,34 @@ class InferenceServer:
             except zmq.Again:           # the router has wakes queued
                 pass
 
+        gs = self.gen_sched
+
+        def gen_step() -> bool:
+            # one continuous-batching round; its replies go to the router
+            worked, replies = gs.step()
+            self._ship_gen(replies, poke)
+            return worked or bool(replies)
+
         staged = None                    # (live, staged batch) to dispatch
         live: List[Request] = []         # dispatched, unanswered
         try:
             while True:
                 if staged is None:
-                    batch = self.batcher.next_batch(timeout=0.05)
+                    # with generation work ready the scoring queue gets a
+                    # zero-wait poll: the decode cadence does not wait out
+                    # the coalescing window
+                    timeout = 0.0 if (gs is not None
+                                      and gs.work_ready()) else 0.05
+                    batch = self.batcher.next_batch(timeout=timeout)
                     if batch is None:
                         if self._stop.is_set():
+                            if gs is not None:
+                                self._ship_gen(gs.drain(), poke)
                             return
+                        if gs is not None and not gen_step() \
+                                and timeout == 0.0:
+                            # ready but stalled: do not spin on the pool
+                            time.sleep(0.001)
                         continue
                     staged = self._assemble(batch)
                     if staged is None:
@@ -839,11 +1016,15 @@ class InferenceServer:
                 self._finish(live, y_dev, gen)
                 live = []
                 poke()
+                if gs is not None and gs.work_ready():
+                    gen_step()          # interleaved under mixed traffic
         except Exception as exc:     # the thread's boundary: record, answer
             self.log.exception("inference compute loop died")
             self.error = exc
             self._stop.set()
             self.batcher.close()
+            if gs is not None:
+                self._ship_gen(gs.fail(exc))
             self._fail(live + (staged[0] if staged else []), exc)
             while True:
                 batch = self.batcher.next_batch(timeout=0.0)
@@ -853,6 +1034,24 @@ class InferenceServer:
             poke()
         finally:
             wake.close(0)
+
+    def _ship_gen(self, replies, poke=None) -> None:
+        """Queue generation replies for the router thread.  Finals count
+        into ``served`` / ``timed_out`` / ``rejected`` (so toward
+        ``max_requests``); streamed partials are progress, not answers."""
+        for env, rep in replies:
+            if env is None:
+                continue
+            if not rep.get("partial"):
+                if rep.get("ok"):
+                    self._inc("served")
+                elif rep.get("timed_out"):
+                    self._inc("timed_out")
+                else:
+                    self._inc("rejected")
+            self._outbound.put((env, rep))
+        if replies and poke is not None:
+            poke()
 
     # -- stats -----------------------------------------------------------------
 
@@ -929,6 +1128,8 @@ class InferenceServer:
         out.update(self.runner.stats())
         out["warm_report"] = self.warm_report
         out["batcher"] = self.batcher.stats()
+        if self.gen_sched is not None:
+            out["generate"] = self.gen_sched.stats()
         return out
 
 

@@ -101,8 +101,16 @@ Meshed dispatches are not captured, for the training mesh's reason.
 loaded from a cache next to the snapshot instead of built, and each rung
 is captured again at every boot (a graph cannot be written to disk).
 :meth:`ModelRunner.warm_proof` is the boot's proof, which the frontend
-gates readiness on in cache mode.  Generation serving waits for ROADMAP
-A.8 (generation serving).
+gates readiness on in cache mode.
+
+**Generation** (:meth:`ModelRunner.enable_generation`,
+:class:`GenerationRunner`): prefill and decode over a block-paged KV pool
+with prefix reuse and in-graph sampling.  Its executables are graphs of
+the live generation's family beside the ladder rungs, keyed
+``("prefill", rows, pages)``, ``("decode", rows, pages)`` and
+``("copy",)``; a swap captures them again for the new tree (the
+reference's jit executables take the parameters as arguments, so its
+swap recompiles nothing).
 
 **Sequences** (a 2-D ladder): a bucket ``(rows, seq)`` is staged as
 ``(rows, seq, *sample[1:])`` (:meth:`ModelRunner.bucket_shape`); the
@@ -113,6 +121,7 @@ own length, so each bucket is one shape, one key and one graph.
 from __future__ import annotations
 
 import contextlib
+import logging
 import threading
 import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -120,10 +129,17 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from znicz_torch.attention import (CharEmbedding, MultiHeadAttention,
+                                   SeqAll2All, SeqAll2AllSoftmax)
 from znicz_torch.core.config import ENGINE_DEFAULTS, root
+from znicz_torch.dropout import DropoutForward
+from znicz_torch.ops.attention import paged_gather
+from znicz_torch.ops.linear import seq_linear
 from znicz_torch.parallel import mesh as mesh_mod
 from znicz_torch.parallel.fused import FusedTrainer
 from znicz_torch.parallel.graphs import StepGraph, capturing
+
+_log = logging.getLogger("znicz_torch.serving")
 
 
 class Staged(NamedTuple):
@@ -231,6 +247,8 @@ class ModelRunner:
         self._aot_cache = None
         self.kernels: Dict[str, str] = {}
         self._warm = {"hits": 0, "misses": 0}
+        #: the generation plane (enable_generation), None until enabled
+        self.gen_runner: Optional["GenerationRunner"] = None
         #: per-sample input shape the service accepts
         self.sample_shape: Tuple[int, ...] = tuple(workflow.sample_shape)
         #: staging dtype (uint8 stays 1 byte on the wire; decoded on device)
@@ -627,6 +645,10 @@ class ModelRunner:
                         x = np.zeros(self.bucket_shape(bucket), self.dtype)
                         y, _ = self.infer_staged(self.stage(x), pending)
                         y.cpu()
+                    if self.gen_runner is not None:
+                        # the new tree's generation graphs, beside its
+                        # rungs; the pools stay where they are
+                        self.gen_runner.warmup(pending)
                 except BaseException:
                     with self._dispatch_lock:
                         if self.mesh is not None:
@@ -671,6 +693,23 @@ class ModelRunner:
             return gen
         finally:
             self._swap_lock.release()
+
+    def enable_generation(self, page_size: int, num_pages: int,
+                          slots: int, prefill_chunk: int,
+                          prefix_cache: bool = True,
+                          prefill_rungs=None, decode_rungs=None
+                          ) -> "GenerationRunner":
+        """Build the generation plane (:class:`GenerationRunner`: the paged
+        KV pool, the prefix cache, the prefill, decode and copy
+        executables over this runner's live tree).  Idempotent; returns
+        the :class:`GenerationRunner`."""
+        if self.gen_runner is None:
+            self.gen_runner = GenerationRunner(
+                self, page_size=page_size, num_pages=num_pages,
+                slots=slots, prefill_chunk=prefill_chunk,
+                prefix_cache=prefix_cache, prefill_rungs=prefill_rungs,
+                decode_rungs=decode_rungs)
+        return self.gen_runner
 
     # -- the build cache ------------------------------------------------------
 
@@ -818,3 +857,694 @@ class ModelRunner:
             self.infer(np.zeros(self.bucket_shape(bucket), self.dtype))
         self._settle_kernels(before)
         return self.compiles
+
+
+# -- generation ---------------------------------------------------------------
+
+
+def batch_rungs(max_batch: int) -> Tuple[int, ...]:
+    """Power-of-two batch rungs up to and including ``max_batch``: the
+    default prefill and decode coalescing ladder."""
+    n = int(max_batch)
+    rungs = []
+    r = 1
+    while r < n:
+        rungs.append(r)
+        r *= 2
+    rungs.append(n)
+    return tuple(rungs)
+
+
+def _sample_tokens(logits, temp, top_k, seeds, t):
+    """In-graph sampling: greedy argmax where ``temp <= 0`` (a tie goes to
+    the lowest id, as the host sampler's), else the seeded gumbel-max over
+    the optional per-row top-k cut.  ``seeds`` and ``t`` are (b,) int64
+    holding uint32 values; row ``i``'s noise is
+    ``gumbel(fold_in(seed_i, t_i))`` (``ops/random.py``), a function of
+    its own request's seed and position only.  Returns ((b,) int64
+    tokens, (b,) float32 log-probabilities of them under the raw
+    logits)."""
+    from znicz_torch.ops import random as rnd
+
+    b, v = logits.shape
+    logits = logits.to(torch.float32)
+    rows = torch.arange(b, device=logits.device)
+    greedy = torch.argmax(logits, dim=-1)
+    z = logits / torch.clamp_min(temp, 1e-20)[:, None]
+    srt = torch.sort(z, dim=-1).values                  # ascending
+    kk = torch.clamp(torch.where(top_k > 0, top_k, v), 1, v)
+    kth = srt[rows, v - kk]                             # k-th largest
+    z = torch.where(z < kth[:, None], -torch.inf, z)
+    noise = rnd.gumbel(rnd.fold_in(seeds, t), v)
+    sampled = torch.argmax(z + noise, dim=-1)
+    tok = torch.where(temp > 0, sampled, greedy)
+    logp = torch.log_softmax(logits, dim=-1)[rows, tok]
+    return tok, logp
+
+
+#: the prefix cache's counters: name -> meaning
+PREFIX_COUNTERS = {
+    "hits": "prompt prefix lookups that matched (>= 1 full page shared)",
+    "misses": "prompt prefix lookups that matched nothing",
+    "evictions": "indexed prefix pages evicted under allocation pressure "
+                 "(LRU, idle entries only)",
+    "tokens_avoided": "prompt tokens not prefilled thanks to prefix-page "
+                      "hits",
+    "flops_avoided": "prefill flops avoided by prefix reuse "
+                     "(tokens_avoided x ~2 flops a weight)",
+}
+
+
+class PrefixCache:
+    """A content-addressed index of full KV pages.
+
+    Page ``i`` of a prompt is keyed by a chain hash of (the hash of pages
+    ``[0, i)``, its own tokens), so a lookup matches a page only when its
+    whole preceding context matches too.  The index holds one reference
+    on every page it lists; a request that hits shares the page read-only
+    (one more reference), and its first divergent append copies the page
+    (the scheduler's copy-on-write, :meth:`GenerationRunner.copy_page`).
+    Eviction takes the least recently used entry only the index holds
+    (refcount 1), and only when the pool runs dry.
+
+    With ``prefill_chunk == page_size`` a hit replays the same prefill
+    grid a cold prompt runs (registration indexes only pages computed on
+    that grid: a copied page's hash is already indexed), so a hit decodes
+    bit-identically to a cold prefill."""
+
+    def __init__(self, gen: "GenerationRunner"):
+        import collections
+
+        self.gen = gen
+        #: chain hash -> page id, least recently used first
+        self._index: "collections.OrderedDict[bytes, int]" = \
+            collections.OrderedDict()
+        self._by_page: Dict[int, bytes] = {}
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    def _hashes(self, prompt) -> List[bytes]:
+        """Chain hashes of every full page of ``prompt``."""
+        import hashlib
+
+        ps = self.gen.page_size
+        out = []
+        h = b"znicz-prefix-v1"
+        for i in range(len(prompt) // ps):
+            h = hashlib.blake2b(
+                h + np.asarray(prompt[i * ps:(i + 1) * ps],
+                               np.int32).tobytes(),
+                digest_size=16).digest()
+            out.append(h)
+        return out
+
+    def lookup(self, prompt) -> Tuple[List[int], int]:
+        """Claim the longest indexed run of ``prompt``'s full pages:
+        ``(pages, covered tokens)``, one reference taken on each page for
+        the request (dropped by ``release_pages``)."""
+        pages = []
+        for h in self._hashes(prompt):
+            page = self._index.get(h)
+            if page is None:
+                break
+            self._index.move_to_end(h)
+            self.gen.addref(page)
+            pages.append(page)
+        covered = len(pages) * self.gen.page_size
+        if pages:
+            self.gen._count("hits")
+            self.gen._count("tokens_avoided", covered)
+            self.gen._count("flops_avoided",
+                            covered * self.gen.flops_per_token)
+        else:
+            self.gen._count("misses")
+        return pages, covered
+
+    def register(self, prompt, pages) -> None:
+        """Index ``prompt``'s full pages once its prefill completed: a
+        hash already indexed keeps its page (the first writer wins), a
+        new one takes an index-owned reference on the request's page."""
+        for i, h in enumerate(self._hashes(prompt)):
+            if h in self._index or pages[i] in self._by_page:
+                continue
+            self.gen.addref(pages[i])
+            self._index[h] = pages[i]
+            self._by_page[pages[i]] = h
+
+    def evict_one(self) -> bool:
+        """Drop the least recently used entry whose page only the index
+        holds, freeing exactly one page; False when every indexed page is
+        shared with a live request.  Each eviction is a ``prefix_evict``
+        log record with the pressure numbers."""
+        for h, page in self._index.items():
+            if self.gen.page_ref[page] == 1:
+                del self._index[h]
+                del self._by_page[page]
+                self.gen.decref(page)
+                self.gen._count("evictions")
+                _log.info("prefix_evict page=%d indexed=%d "
+                          "kv_occupancy=%.4f", page, len(self._index),
+                          self.gen.occupancy())
+                return True
+        return False
+
+
+class GenerationRunner:
+    """The generation plane of a :class:`ModelRunner`: block-paged KV
+    cache, prefix reuse, chunked prefill, decode and in-graph sampling.
+
+    **The pool**: per attention layer one ``(num_pages + 1, page_size,
+    heads, head_dim)`` float32 tensor for keys and one for values, made
+    once on the runner's device and written in place, never reallocated.
+    Page ``num_pages`` is scratch: pad rows read and write it, so a pad
+    row never touches a real page.  A request's cache is a host list of
+    pages; a dispatch carries it as a (rows, P) page table padded to a
+    power-of-two page rung ``P``.
+
+    **Executables** (each one graph of the live generation's family, its
+    first dispatch eager, as a ladder rung's):
+
+      - prefill, one a (prefill rung x page rung): one ``prefill_chunk``
+        token chunk a row at per-row offsets ``t0`` through the stack
+        (``apply_offset``, ``apply_prefill_chunk`` over the gathered
+        pages, the position-wise layers, the head); the chunk's keys and
+        values go into the pool in place at ``(table[i, (t0 + j) //
+        page_size], (t0 + j) % page_size)``, pad tokens to scratch; each
+        row's logits at ``n_new - 1`` are sampled at ``t0 + n_new - 1``;
+      - decode, one a (decode rung x page rung): ``apply_decode`` of each
+        row's token at its own depth ``t``, its key and value appended in
+        place, sampled at ``t``;
+      - copy: one whole page from ``src`` to ``dst`` across every layer
+        (the copy-on-write move).
+
+    Each returns ``(tokens, logprobs, logits)``; the inputs are two
+    packed buffers (the integers: page table, tokens, offsets, top-k,
+    seeds; the floats: temperatures) copied into the graph's static
+    buffers before each replay.  Sampling lives in the executables, so
+    the scheduler fetches (b,) tokens a tick instead of (b, vocab)
+    logits when ``on_device_sampling`` is on.
+
+    One device only (a serving mesh refuses generation).  The page
+    bookkeeping belongs to the compute thread; dispatches take the
+    runner's dispatch lock, as its forwards do."""
+
+    def __init__(self, runner: ModelRunner, page_size: int,
+                 num_pages: int, slots: int, prefill_chunk: int,
+                 prefix_cache: bool = True, prefill_rungs=None,
+                 decode_rungs=None):
+        if runner.mesh is not None:
+            raise ValueError(
+                "generation serving is single-device for now (the KV-cache "
+                "pool does not shard); drop root.common.serving.mesh for "
+                "this replica")
+        self.runner = runner
+        forwards = runner.workflow.forwards
+        if not forwards or not isinstance(forwards[0], CharEmbedding):
+            raise ValueError(
+                "generation serving needs a CharEmbedding first unit "
+                "(token ids in, one position per token)")
+        last = forwards[-1]
+        if not isinstance(last, SeqAll2AllSoftmax):
+            raise ValueError(
+                "generation serving needs a per-position softmax head "
+                "(SeqAll2AllSoftmax) as the last unit")
+        self._attn = []
+        for f in forwards[1:-1]:
+            if isinstance(f, MultiHeadAttention):
+                if not f.causal:
+                    raise ValueError(
+                        f"{f.name}: generation requires causal attention "
+                        f"(a KV cache IS the causal prefix)")
+                self._attn.append(f)
+            elif not isinstance(f, (SeqAll2All, DropoutForward)):
+                raise ValueError(
+                    f"{f.name}: unit {type(f).__name__} has no decode form "
+                    f"— generation serves CharEmbedding + causal "
+                    f"MultiHeadAttention + SeqAll2All* stacks")
+        if not self._attn:
+            raise ValueError("generation serving needs at least one "
+                             "MultiHeadAttention unit (nothing to cache)")
+        self._forwards = forwards
+        self.max_len = int(forwards[0].max_len)
+        self.page_size = int(page_size)
+        if self.page_size < 2:
+            raise ValueError(f"page_size must be >= 2, got {page_size}")
+        self.num_pages = int(num_pages)
+        pages_per_seq = -(-self.max_len // self.page_size)
+        if self.num_pages < pages_per_seq:
+            raise ValueError(
+                f"num_pages={num_pages} cannot hold one full context "
+                f"window ({pages_per_seq} pages of {self.page_size} for "
+                f"max_len={self.max_len})")
+        #: the pad rows' page, never allocated
+        self.scratch = self.num_pages
+        rungs = []
+        r = 1
+        while r < pages_per_seq:
+            rungs.append(r)
+            r *= 2
+        rungs.append(r)
+        #: page-table width rungs: powers of two up to a full context's
+        #: page count, the executables' second axis
+        self.page_rungs = tuple(rungs)
+        #: positions [0, max_ctx) are the most one request (prompt and
+        #: generated tokens) may occupy
+        self.max_ctx = self.max_len
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        self.slots = int(slots)
+        if self.slots < 1:
+            raise ValueError("generation needs >= 1 concurrency slot")
+        self.prefill_rungs = tuple(prefill_rungs) if prefill_rungs \
+            else batch_rungs(4)
+        self.decode_rungs = tuple(decode_rungs) if decode_rungs \
+            else batch_rungs(self.slots)
+        shape = (self.num_pages + 1, self.page_size)
+        dev = runner.device
+        #: the pool: {layer: (num_pages + 1, page_size, heads, head_dim)},
+        #: keys and values
+        self.pk = {f.name: torch.zeros(shape + (f.heads, f.head_dim),
+                                       dtype=torch.float32, device=dev)
+                   for f in self._attn}
+        self.pv = {f.name: torch.zeros(shape + (f.heads, f.head_dim),
+                                       dtype=torch.float32, device=dev)
+                   for f in self._attn}
+        #: the host page allocator (compute thread only): a free stack and
+        #: a refcount a page
+        self._free_pages = list(range(self.num_pages))
+        self.page_ref = np.zeros(self.num_pages, np.int32)
+        #: ~2 flops a weight a token: the flops_avoided counter's rate
+        self.flops_per_token = 2 * sum(
+            int(p.numel()) for f in forwards
+            for p in FusedTrainer._params_of(f).values())
+        self._lock = threading.Lock()
+        self._counts: Dict[str, int] = dict.fromkeys(PREFIX_COUNTERS, 0)
+        self.prefix = PrefixCache(self) if prefix_cache else None
+
+    # -- counters -------------------------------------------------------------
+
+    def _count(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[name] += int(n)
+
+    def prefix_counts(self) -> Dict[str, int]:
+        """The :data:`PREFIX_COUNTERS` by name."""
+        with self._lock:
+            return dict(self._counts)
+
+    # -- page bookkeeping (compute thread only) --------------------------------
+
+    def _page_rung(self, n_pages: int) -> int:
+        """The smallest page rung holding ``n_pages`` pages."""
+        for r in self.page_rungs:
+            if r >= n_pages:
+                return r
+        raise ValueError(
+            f"{n_pages} pages exceed the top rung {self.page_rungs[-1]} — "
+            f"the context window bounds this")
+
+    def alloc_page(self) -> Optional[int]:
+        """Claim one free page (refcount 1); under pressure evict an idle
+        prefix page first; None when every page is held by a live request
+        (the scheduler stalls that row a tick)."""
+        if not self._free_pages and self.prefix is not None:
+            self.prefix.evict_one()
+        if not self._free_pages:
+            return None
+        page = self._free_pages.pop()
+        self.page_ref[page] = 1
+        return page
+
+    def addref(self, page: int) -> None:
+        """One more holder of a shared (read-only) page."""
+        self.page_ref[page] += 1
+
+    def decref(self, page: int) -> None:
+        """Drop one reference; the page frees at zero."""
+        self.page_ref[page] -= 1
+        assert self.page_ref[page] >= 0, f"page {page} over-released"
+        if self.page_ref[page] == 0:
+            self._free_pages.append(page)
+
+    def release_pages(self, pages) -> None:
+        """Return a finished or failed request's references at once:
+        pages the index or other requests share survive on their
+        references, private ones are free this very tick."""
+        for page in pages:
+            self.decref(page)
+
+    def pages_active(self) -> int:
+        return self.num_pages - len(self._free_pages)
+
+    def pages_leaked(self) -> int:
+        """The invariant probe (must be 0): pages neither free nor
+        referenced are lost to the allocator."""
+        return int(self.num_pages - len(self._free_pages)
+                   - int((self.page_ref > 0).sum()))
+
+    def occupancy(self) -> float:
+        """Allocated pages over pool pages, the KV-pool pressure gauge."""
+        return self.pages_active() / float(self.num_pages)
+
+    # -- the executables --------------------------------------------------------
+
+    def _stack(self, toks, t, gathered, attend):
+        """The forward of every layer after the embedding ``toks`` at
+        offsets ``t``: each attention layer through ``attend(f, h, k, v,
+        t)`` over its gathered pages; the new rows by layer."""
+        last = self._forwards[-1]
+        h = toks
+        rows = {}
+        for f in self._forwards[1:]:
+            if isinstance(f, MultiHeadAttention):
+                k, v = gathered(f.name)
+                h, k_rows, v_rows = attend(f, h, k, v, t)
+                rows[f.name] = (k_rows, v_rows)
+            elif f is last:
+                h = seq_linear(h, f.weights, f.bias,
+                               weights_transposed=f.weights_transposed)
+            elif not isinstance(f, DropoutForward):     # eval: identity
+                h = f(h)
+        return h, rows
+
+    def _gathered(self, table):
+        return lambda name: (paged_gather(self.pk[name], table),
+                             paged_gather(self.pv[name], table))
+
+    def _tokens(self, ids) -> torch.Tensor:
+        """Token ids (int64) as the model's input: the staging dtype,
+        decoded."""
+        return self.runner._trainer._decode(
+            ids.to(self.runner._torch_dtype))
+
+    def _prefill_body(self, b: int, width: int, ints, temp):
+        c, ps = self.prefill_chunk, self.page_size
+        table, x, t0, n_new, top_k, seeds = torch.split(
+            ints, [b * width, b * c, b, b, b, b])
+        table, x = table.view(b, width), x.view(b, c)
+        dev = ints.device
+        h = self._forwards[0].apply_offset(self._tokens(x), t0)
+        h, rows = self._stack(
+            h, t0, self._gathered(table),
+            lambda f, h, k, v, t: f.apply_prefill_chunk(h, k, v, t))
+        ar = torch.arange(b, device=dev)
+        logits = h[ar, n_new - 1]
+        # token j of row i lands on page table[i, (t0 + j) // ps] at
+        # offset (t0 + j) % ps; pad tokens (j >= n_new) on scratch
+        j = torch.arange(c, device=dev)
+        pos = t0[:, None] + j
+        page = table[ar[:, None], torch.clamp(pos // ps, 0, width - 1)]
+        page = torch.where(j[None, :] < n_new[:, None], page, self.scratch)
+        off = pos % ps
+        for name, (k_rows, v_rows) in rows.items():
+            self.pk[name].index_put_((page, off), k_rows)
+            self.pv[name].index_put_((page, off), v_rows)
+        tok, logp = _sample_tokens(logits, temp, top_k, seeds,
+                                   t0 + n_new - 1)
+        return tok, logp, logits
+
+    def _decode_body(self, b: int, width: int, ints, temp):
+        ps = self.page_size
+        table, tokens, t, top_k, seeds = torch.split(
+            ints, [b * width, b, b, b, b])
+        table = table.view(b, width)
+        h = self._forwards[0].apply_decode(self._tokens(tokens), t)
+        h, rows = self._stack(
+            h, t, self._gathered(table),
+            lambda f, h, k, v, t: f.apply_decode(h, k, v, t))
+        logits = h[:, 0]
+        ar = torch.arange(b, device=ints.device)
+        page = table[ar, torch.clamp(t // ps, 0, width - 1)]
+        for name, (k_row, v_row) in rows.items():
+            self.pk[name].index_put_((page, t % ps), k_row)
+            self.pv[name].index_put_((page, t % ps), v_row)
+        tok, logp = _sample_tokens(logits, temp, top_k, seeds, t)
+        return tok, logp, logits
+
+    def _copy_body(self, ints, temp):
+        src, dst = ints[0:1], ints[1:2]
+        for pool in (*self.pk.values(), *self.pv.values()):
+            pool.index_copy_(0, dst, pool.index_select(0, src))
+        return ()
+
+    def _host(self, arr: np.ndarray) -> torch.Tensor:
+        """A packed input on the host: pinned on a GPU, so its copy to the
+        device does not wait on the host."""
+        t = torch.from_numpy(arr)
+        if not self.runner._cuda:
+            return t
+        pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        pinned.copy_(t)
+        return pinned
+
+    def _dispatch(self, key: tuple, ints: np.ndarray, temp: np.ndarray,
+                  generation: Optional[Generation] = None):
+        """One generation dispatch of ``key`` on the live generation (or
+        ``generation``, a swap's warm): a replay of the key's graph, else
+        its capture (eager on the first dispatch, as a ladder rung's).
+        Returns (the outputs on the device, generation id)."""
+        r = self.runner
+        kind = key[0]
+        if kind == "copy":
+            body = self._copy_body
+        else:
+            fn = self._prefill_body if kind == "prefill" else \
+                self._decode_body
+
+            def body(i, f, fn=fn, b=key[1], width=key[2]):
+                return fn(b, width, i, f)
+        r._maybe_stall()
+        ints_h, temp_h = self._host(ints), self._host(temp)
+        with r._dispatch_lock:
+            g = r._active if generation is None else generation
+            graphs = g.family.graphs
+            if not r.capture:
+                with r._bound(g.tree), torch.inference_mode():
+                    out = body(ints_h.to(r.device, non_blocking=True),
+                               temp_h.to(r.device, non_blocking=True))
+                if key not in graphs:
+                    graphs[key] = None
+                    r.compiles += 1
+                return out, g.gen
+            cap = graphs.get(key)
+            if cap is None:
+                return self._capture(g, key, body, ints_h, temp_h), g.gen
+            with torch.inference_mode():
+                cap.inputs["ints"].copy_(ints_h, non_blocking=True)
+                cap.inputs["temp"].copy_(temp_h, non_blocking=True)
+                cap.replay()
+                return tuple(o.clone() for o in cap.outputs), g.gen
+
+    def _capture(self, g: Generation, key: tuple, body, ints_h, temp_h):
+        """``key``'s first dispatch: eager on the capture stream from the
+        graph's static inputs, then the device synchronised and the body
+        captured into ``g``'s family; returns the eager outputs."""
+        r = self.runner
+        t0 = time.perf_counter()
+        current = torch.cuda.current_stream(r.device)
+        cap = StepGraph({"ints": torch.empty(ints_h.shape, dtype=ints_h.dtype,
+                                             device=r.device),
+                         "temp": torch.empty(temp_h.shape, dtype=temp_h.dtype,
+                                             device=r.device)}, None, {})
+
+        def run():
+            return body(cap.inputs["ints"], cap.inputs["temp"])
+
+        with capturing(r.device) as stream:
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream), r._bound(g.tree), \
+                    torch.inference_mode():
+                cap.inputs["ints"].copy_(ints_h, non_blocking=True)
+                cap.inputs["temp"].copy_(temp_h, non_blocking=True)
+                out = run()
+            current.wait_stream(stream)
+            for o in out:
+                o.record_stream(current)
+            torch.cuda.synchronize(r.device)
+            with r._bound(g.tree), torch.inference_mode():
+                cap.capture(run, stream, pool=g.family.pool)
+        g.family.graphs[key] = cap
+        r.compiles += 1
+        r.capture_s += time.perf_counter() - t0
+        return out
+
+    # -- dispatches -------------------------------------------------------------
+
+    def _batch_rung(self, rungs, n: int) -> int:
+        for r in rungs:
+            if r >= n:
+                return r
+        raise ValueError(f"batch of {n} exceeds top rung {rungs[-1]} — the "
+                         f"scheduler chunks above this")
+
+    def _table(self, page_lists, b: int) -> np.ndarray:
+        """Per-row page lists padded into the (b, P) dispatch table: P is
+        the page rung over the widest row, unused entries point at
+        scratch (their positions lie past every row's fill, so the masks
+        never let them matter)."""
+        width = self._page_rung(max([len(p) for p in page_lists] + [1]))
+        tbl = np.full((b, width), self.scratch, np.int64)
+        for i, pages in enumerate(page_lists):
+            tbl[i, :len(pages)] = pages
+        return tbl
+
+    @staticmethod
+    def _sampling_args(b, temps, top_ks, seeds):
+        """(temperatures (b,) float32, top-k (b,) int64, seeds (b,) int64
+        of uint32 values), pad rows greedy."""
+        tp = np.zeros((b,), np.float32)
+        tp[:len(temps)] = temps
+        tk = np.zeros((b,), np.int64)
+        tk[:len(top_ks)] = top_ks
+        sd = np.zeros((b,), np.int64)
+        sd[:len(seeds)] = np.asarray(seeds, np.int64) & 0xFFFFFFFF
+        return tp, tk, sd
+
+    def prefill_async(self, x: np.ndarray, t0s, n_new, page_lists, temps,
+                      top_ks, seeds, generation: Optional[Generation] = None):
+        """Dispatch one prefill chunk over co-batched rows without
+        fetching: row ``i`` holds prompt tokens ``x[i, :n_new[i]]`` at
+        global positions from ``t0s[i]``, its cache (covering ``[0, t0 +
+        n_new)``) listed in ``page_lists[i]``.  Returns ((b,) device
+        tokens, (b,) device log-probabilities, (b, vocab) device logits,
+        generation id).  Rows pad to a prefill rung against scratch; the
+        sampled token is the row's next token only when the chunk ends
+        its prompt."""
+        n, c = x.shape
+        if c != self.prefill_chunk:
+            raise ValueError(f"chunk width {c} != prefill_chunk "
+                             f"{self.prefill_chunk}")
+        b = self._batch_rung(self.prefill_rungs, n)
+        xb = np.zeros((b, c), np.int64)
+        xb[:n] = x
+        t0 = np.zeros((b,), np.int64)
+        t0[:n] = t0s
+        nn = np.ones((b,), np.int64)
+        nn[:n] = n_new
+        tbl = self._table(list(page_lists) + [[]] * (b - n), b)
+        tp, tk, sd = self._sampling_args(b, temps, top_ks, seeds)
+        ints = np.concatenate([tbl.reshape(-1), xb.reshape(-1), t0, nn, tk,
+                               sd])
+        (tok, logp, logits), gen = self._dispatch(
+            ("prefill", b, tbl.shape[1]), ints, tp, generation)
+        return tok, logp, logits, gen
+
+    def prefill(self, x: np.ndarray, t0s, n_new, page_lists, temps, top_ks,
+                seeds):
+        """:meth:`prefill_async` fetched: host arrays of the real rows."""
+        tok, logp, logits, gen = self.prefill_async(
+            x, t0s, n_new, page_lists, temps, top_ks, seeds)
+        n = len(page_lists)
+        return (tok.cpu().numpy()[:n], logp.cpu().numpy()[:n],
+                logits.cpu().numpy()[:n], gen)
+
+    def decode_async(self, page_lists, tokens, ts, temps, top_ks, seeds,
+                     generation: Optional[Generation] = None):
+        """Dispatch one decode step over co-batched requests without
+        fetching: row ``i`` feeds ``tokens[i]`` at its own depth ``ts[i]``
+        and appends its key and value to its paged cache.  Returns as
+        :meth:`prefill_async`.  The scheduler dispatches every chunk of a
+        tick before it fetches any."""
+        n = len(page_lists)
+        b = self._batch_rung(self.decode_rungs, n)
+        tbl = self._table(list(page_lists) + [[]] * (b - n), b)
+        tk_in = np.zeros((b,), np.int64)
+        tk_in[:n] = tokens
+        tt = np.zeros((b,), np.int64)
+        tt[:n] = ts
+        tp, tk, sd = self._sampling_args(b, temps, top_ks, seeds)
+        ints = np.concatenate([tbl.reshape(-1), tk_in, tt, tk, sd])
+        (tok, logp, logits), gen = self._dispatch(
+            ("decode", b, tbl.shape[1]), ints, tp, generation)
+        return tok, logp, logits, gen
+
+    def decode(self, page_lists, tokens, ts, temps, top_ks, seeds):
+        """:meth:`decode_async` fetched: host arrays of the real rows."""
+        tok, logp, logits, gen = self.decode_async(
+            page_lists, tokens, ts, temps, top_ks, seeds)
+        n = len(page_lists)
+        return (tok.cpu().numpy()[:n], logp.cpu().numpy()[:n],
+                logits.cpu().numpy()[:n], gen)
+
+    def copy_page(self, src: int, dst: int,
+                  generation: Optional[Generation] = None) -> None:
+        """Copy page ``src`` into ``dst`` across every layer's keys and
+        values (the copy-on-write move); the references are the
+        caller's."""
+        self._dispatch(("copy",), np.asarray([src, dst], np.int64),
+                       np.zeros((1,), np.float32), generation)
+
+    # -- the family ---------------------------------------------------------------
+
+    def executables(self) -> int:
+        """The generation family's size: the warm proof's share of the
+        expected count."""
+        return ((len(self.prefill_rungs) + len(self.decode_rungs))
+                * len(self.page_rungs) + 1)
+
+    def keys(self) -> List[tuple]:
+        """The family's keys in warm-up order."""
+        return ([("prefill", b, w) for b in self.prefill_rungs
+                 for w in self.page_rungs]
+                + [("decode", b, w) for b in self.decode_rungs
+                   for w in self.page_rungs] + [("copy",)])
+
+    def warm_one(self, key: tuple, generation: Optional[Generation] = None):
+        """One dispatch of ``key`` with every row against the scratch page
+        (no real page is touched) at position 0, greedy; returns the host
+        (tokens, logprobs, logits), or None for the copy."""
+        if key[0] == "copy":
+            self.copy_page(self.scratch, self.scratch, generation)
+            return None
+        kind, b, width = key
+        z = np.zeros(b, np.int64)
+        zf = np.zeros(b, np.float32)
+        pages = [[self.scratch] * width] * b
+        if kind == "prefill":
+            out = self.prefill_async(
+                np.zeros((b, self.prefill_chunk), np.int64), z,
+                np.ones(b, np.int64), pages, zf, z, z, generation)
+        else:
+            out = self.decode_async(pages, z, z, zf, z, z, generation)
+        return tuple(o.cpu().numpy() for o in out[:3])
+
+    def warmup(self, generation: Optional[Generation] = None) -> int:
+        """Enter the whole family up front (the captures on the card);
+        ``generation`` is a swap's pending tree.  Returns the runner's
+        ``compiles`` afterwards."""
+        for key in self.keys():
+            self.warm_one(key, generation)
+        return self.runner.compiles
+
+    def graph_cache_size(self) -> int:
+        """The generation keys of the live family: after warmup it equals
+        :meth:`executables`."""
+        return sum(1 for k in self.runner._active.family.graphs
+                   if k[0] in ("prefill", "decode", "copy"))
+
+    def stats(self) -> Dict:
+        counts = self.prefix_counts()
+        return {"page_size": self.page_size,
+                "num_pages": self.num_pages,
+                "page_rungs": list(self.page_rungs),
+                "prefill_chunk": self.prefill_chunk,
+                "max_ctx": self.max_ctx,
+                "slots": self.slots,
+                "prefill_rungs": list(self.prefill_rungs),
+                "decode_rungs": list(self.decode_rungs),
+                "pages_active": self.pages_active(),
+                "pages_free": len(self._free_pages),
+                "pages_shared": int((self.page_ref > 1).sum()),
+                "pages_leaked": self.pages_leaked(),
+                "prefix_enabled": self.prefix is not None,
+                "prefix_pages": (len(self.prefix)
+                                 if self.prefix is not None else 0),
+                "prefix_hits": counts["hits"],
+                "prefix_misses": counts["misses"],
+                "prefix_evictions": counts["evictions"],
+                "prefix_tokens_avoided": counts["tokens_avoided"],
+                "occupancy": self.occupancy(),
+                "executables": self.executables(),
+                "graph_cache_size": self.graph_cache_size()}
