@@ -394,6 +394,28 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      bucket it rode, no capture after the warmup, pad tokens changed
      under probes changing no bit of the real positions, and the served
      rows a second at each seq rung.
+ 26. charlm generating from that snapshot: the paged runner's captured
+     graphs, the sampler against the CPU, the service under mixed
+     traffic, ``--serve --generate`` over ZMQ;
+ 27. ``seq_parallel``: spawns of 2 and of 4 gloo ranks on the card, each
+     running (a) ``ring_attention`` over its ranks, causal and not, at
+     charlm's attention shapes (batch 32, T 64, 2 heads of 16) and at a
+     long context (batch 4, T 4096), outputs and q/k/v gradients against
+     the dense core within the reference's tolerances, ms a call of ring
+     and dense, the ring's P2P calls, bytes and host seconds; and (b)
+     charlm at its defaults on ``FusedTrainer`` with ``seq_parallel`` 2
+     on (1, 2), then (2, 2): the attention bound to the trainer's mesh,
+     the ranks of a data row bit-equal, the first 8 TRAIN losses in the
+     cross-layout band of one unmeshed run from the same seed, all the
+     losses and the final tree within phase 16's multiple of the drift of
+     that run from a start one ulp away, VALID token error under 50%,
+     warm steps a second, each rank ringing over its data row's model
+     ranks; beside the unmeshed run, charlm's embedding backward timed
+     both ways (the sum in index order against ``index_add_``'s atomics).
+     Then (c) in this process: the genetic search over ``python -m
+     znicz_torch mnist --fitness`` runs on the card, ``DeviceBenchmark``
+     (cuda faster than cpu), CD-1 steps of an RBM on MNIST rows.  No
+     kernel lies on this path.
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
@@ -419,8 +441,8 @@ phase 15 for ``deep``, phase 16 for ``shard``, phase 17 for
 ``snapshots``, phase 18 for ``zmq``, phase 19 for ``graphs``, phase
 20 for ``serve_mesh``, phase 21 for ``fleet``, phase 22 for ``aot``,
 phase 23 for ``master``, phase 24 for ``tree``, phase 25 for
-``charlm`` and phase 26 for ``generate``; it prints the
-``kernels`` object and no ``ok`` line.
+``charlm``, phase 26 for ``generate`` and phase 27 for
+``seq_parallel``; it prints the ``kernels`` object and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -1534,8 +1556,15 @@ def serve_phase(torch, label, wf, requests, knobs, expect):
     return replies, launches, {"images_per_s": rows / wall, **stats}
 
 
+def _rel_err(y, ref) -> float:
+    return float(np.abs(y - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
 def check_replies(label, replies, refs):
-    worst = 0.0
+    """Each reply within ``SERVE_TOL`` of its composed forward; on a
+    failure the bad replies are named (their place, error, the reply's
+    stamps, and the other requests whose forward they match)."""
+    errs = []
     for i, (rep, ref) in enumerate(zip(replies, refs)):
         if "y" not in rep:
             raise AssertionError(f"[{label}] request {i} was not answered: "
@@ -1544,12 +1573,22 @@ def check_replies(label, replies, refs):
         if y.shape != ref.shape or not np.isfinite(y).all():
             raise AssertionError(f"[{label}] request {i}: shape {y.shape} "
                                  f"vs {ref.shape} or non-finite")
-        worst = max(worst, float(np.abs(y - ref).max()
-                                 / max(np.abs(ref).max(), 1e-30)))
+        errs.append(_rel_err(y, ref))
+    worst = max(errs, default=0.0)
     log(f"[{label}] replies vs composed forward: max|d|/max|ref| = "
         f"{worst:.3e} (tol {SERVE_TOL:g})")
     if worst > SERVE_TOL:
-        raise AssertionError(f"[{label}] replies disagree: {worst:.3e}")
+        bad = [i for i, e in enumerate(errs) if e > SERVE_TOL]
+        for i in bad[:5]:
+            y = replies[i]["y"]
+            like = [j for j, r in enumerate(refs) if r.shape == y.shape
+                    and _rel_err(y, r) <= SERVE_TOL]
+            log(f"[{label}] bad reply {i} of {len(replies)}: "
+                f"{errs[i]:.3e}, stamps "
+                f"{ {k: v for k, v in replies[i].items() if k != 'y'} }, "
+                f"matches the forward of requests {like[:5]}")
+        raise AssertionError(f"[{label}] replies disagree: {worst:.3e} "
+                             f"({len(bad)} of {len(replies)} replies)")
 
 
 #: routing -> (knobs, {kernel: (launches per train step, per eval step)})
@@ -8642,6 +8681,557 @@ def generate_phase(torch, card):
     return {"generate": launches}
 
 
+# -- phase 27: seq_parallel, then the tuning units ------------------------------
+
+#: (a)'s ring cases: label -> (batch, T, heads, head_dim): charlm's
+#: attention at the sample's defaults, and one long context
+SEQPAR_RING = {"charlm": (32, 64, 2, 16), "long": (4, 4096, 2, 16)}
+#: the reference's tolerances (tests/test_attention.py): outputs, then
+#: gradients, as (rtol, atol)
+SEQPAR_FWD_TOL, SEQPAR_GRAD_TOL = (2e-4, 1e-5), (2e-4, 1e-6)
+#: ranks of each spawn -> the mesh (data, model) charlm trains on there
+SEQPAR_MESHES = {2: (1, 2), 4: (2, 2)}
+#: root.common.engine.seq_parallel for charlm's runs
+SEQPAR_SP = 2
+#: charlm's embedding lookup at the sample's defaults: (ids, vocab,
+#: embed), and the calls timed each way
+SEQPAR_LOOKUP, SEQPAR_LOOKUP_ITERS = (32 * 64, 32, 32), 200
+#: calls timed a case, and the longest the parent waits for its ranks
+SEQPAR_ITERS, SEQPAR_JOIN_S = 5, 420
+#: the rank processes' device: the card (a CPU rehearsal sets "cpu")
+SEQPAR_DEVICE = None
+#: (c): the GA over MNIST at its defaults on ``FusedTrainer``, two epochs
+#: a run (an epoch's VALID pass comes before its TRAIN pass, so the first
+#: epoch's fitness is the untrained model's, the same for every one)
+GA_GENERATIONS, GA_POPULATION = 2, 4
+GA_EPOCHS = 2
+GA_OVERRIDES = ["--fused", f"root.mnist.decision.max_epochs={GA_EPOCHS}"]
+GA_TIMEOUT_S = 300.0
+#: (c): CD-1 on MNIST rows: rows, hidden width, steps, learning rate, and
+#: the share of the first reconstruction error the last must be under
+RBM_ROWS, RBM_HIDDEN, RBM_STEPS, RBM_LR, RBM_DROP = 1000, 256, 30, 0.1, 0.7
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _host_ms(torch, dev, fn, iters=SEQPAR_ITERS) -> float:
+    """Host milliseconds a call of ``fn`` (a warm-up first; the device
+    synchronised around the calls: the ring waits on the host anyway)."""
+    fn()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync(torch, dev)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def seqpar_ring(torch, world, rank, dev):
+    """(a) in one rank: for each :data:`SEQPAR_RING` case, causal and not,
+    this rank's blocks of seeded q, k, v through ``ring_attention`` over
+    the world, output and q/k/v gradients against the dense core over the
+    whole sequence (computed in each rank), the ring's ms a call forward
+    and forward + backward, its P2P calls, bytes and host seconds; rank 0
+    times the dense core alone, the others waiting.  {case: record}."""
+    import torch.distributed as dist
+
+    from znicz_torch.ops.attention import attention, ring_attention
+    from znicz_torch.parallel import mesh as mesh_mod
+
+    group, out = dist.group.WORLD, {}
+    for label, (b, t, h, d) in SEQPAR_RING.items():
+        for causal in (False, True):
+            gen = torch.Generator(device=dev).manual_seed(SEED + t + causal)
+            q, k, v, cot = (torch.randn((b, t, h, d), generator=gen,
+                                        device=dev) for _ in range(4))
+            n = t // world
+            blk = slice(rank * n, (rank + 1) * n)
+            whole = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            y = attention(*whole, causal=causal)
+            y.backward(cot)
+            want = [y.detach()[:, blk]] + [x.grad[:, blk] for x in whole]
+            del y, whole
+
+            def ring(grad=True):
+                ls = [x[:, blk].clone().requires_grad_(grad)
+                      for x in (q, k, v)]
+                o = ring_attention(*ls, group, causal=causal)
+                if grad:
+                    o.backward(cot[:, blk].contiguous())
+                return [o.detach()] + [x.grad for x in ls]
+
+            c0 = dict(mesh_mod.STATS)
+            got = ring()
+            _sync(torch, dev)
+            p2p = {key: mesh_mod.STATS[key] - c0[key]
+                   for key in ("calls", "bytes", "seconds")}
+            errs, ok = [], True
+            for i, (g, w) in enumerate(zip(got, want)):
+                rtol, atol = SEQPAR_GRAD_TOL if i else SEQPAR_FWD_TOL
+                errs.append(float((g - w).abs().max()))
+                ok = ok and bool(torch.allclose(g, w, rtol=rtol, atol=atol))
+            rec = {"ok": ok, "max_abs_err": errs, "p2p": p2p,
+                   "ring_fwd_ms": _host_ms(
+                       torch, dev, lambda: ring(False)),
+                   "ring_fwd_bwd_ms": _host_ms(torch, dev, ring)}
+            if rank == 0:
+                def dense(grad=True):
+                    ls = [x.clone().requires_grad_(grad) for x in (q, k, v)]
+                    o = attention(*ls, causal=causal)
+                    if grad:
+                        o.backward(cot)
+
+                rec["dense_fwd_ms"] = _host_ms(
+                    torch, dev, lambda: dense(False))
+                rec["dense_fwd_bwd_ms"] = _host_ms(torch, dev, dense)
+            dist.barrier()
+            out[f"{label}:{'causal' if causal else 'full'}"] = rec
+            del q, k, v, cot, want, got
+    return out
+
+
+def seqpar_charlm(torch, world, rank, dev, tmp):
+    """(b) in one rank: charlm at ``root.charlm``'s defaults from
+    ``ANCHOR_SEED`` on ``FusedTrainer`` on :data:`SEQPAR_MESHES`'s mesh
+    with ``seq_parallel`` :data:`SEQPAR_SP`: whether the attention bound
+    to the mesh, the TRAIN losses, the finals, the parameters (an .npz in
+    ``tmp``), warm steps a second, the collectives and the launches."""
+    from znicz_torch.__main__ import finals as sample_finals
+    from znicz_torch.attention import MultiHeadAttention
+    from znicz_torch.core import prng
+    from znicz_torch.parallel import mesh as mesh_mod
+    from znicz_torch.samples import train
+    from znicz_torch.weights import params_to_numpy
+
+    shape = SEQPAR_MESHES[world]
+    ctrs = counters()
+    with engine_knobs(seq_parallel=SEQPAR_SP):
+        prng.reset(ANCHOR_SEED)
+        wf = sample_workflow("charlm", dev)
+        mesh = mesh_mod.make_mesh(shape, ("data", "model"))
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+        c0 = dict(mesh_mod.STATS)
+        t0 = time.perf_counter()
+        train(wf, "charlm", fused=True, mesh=mesh)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+    mha = [f for f in wf.trainer.forwards if isinstance(f, MultiHeadAttention)]
+    rings = [torch.distributed.get_process_group_ranks(
+        mesh_mod.axis_group(m._sp_mesh, m._seq_axis)) for m in mha]
+    np.savez(os.path.join(tmp, f"charlm{world}_{rank}.npz"),
+             **{f"{name}.{k}": a for name, leaves in
+                params_to_numpy(wf).items() for k, a in leaves.items()})
+    return {"bound": [m._sp_mesh is mesh for m in mha],
+            "ring_ranks": rings,
+            "data": mesh_mod.axis_index(mesh, "data"),
+            "losses": [float(x) for x in wf.decision.train_losses],
+            "finals": sample_finals("charlm", wf), "wall_s": wall,
+            "steps_per_s": (wf.train_stats["warm_img_per_sec"]
+                            / wf.loader.max_minibatch_size),
+            "uncaptured": wf.trainer.uncaptured_reason,
+            "collectives": {key: mesh_mod.STATS[key] - c0[key]
+                            for key in ("calls", "bytes", "seconds")},
+            "launches": {n: fn.launches for n, fn in ctrs.items()}}
+
+
+def seqpar_rank(rank, world, store, tmp, device=None):
+    """One rank of phase 27 (a) and (b) (a spawned process): joins the
+    gloo group of ``world`` ranks on ``device`` (the card by default),
+    runs :func:`seqpar_ring` and :func:`seqpar_charlm`, and writes their
+    records to ``tmp/seqpar<world>_<rank>.json``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from znicz_torch import backends
+    from znicz_torch.core.config import root
+    from znicz_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.distributed_init(f"file://{store}", world, rank,
+                              backend="gloo", device=device)
+    dev = backends.process_device()
+    root.common.dirs.snapshots = os.path.join(tmp, f"snapshots{world}_{rank}")
+    out = {"ring": seqpar_ring(torch, world, rank, dev),
+           "charlm": seqpar_charlm(torch, world, rank, dev, tmp)}
+    with open(os.path.join(tmp, f"seqpar{world}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def seqpar_spawn(world, tmp):
+    """:func:`seqpar_rank` on ``world`` spawned ranks; their records."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    store = os.path.join(tmp, f"store{world}")
+    procs = [ctx.Process(target=seqpar_rank,
+                         args=(rank, world, store, tmp, SEQPAR_DEVICE))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SEQPAR_JOIN_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"[seq_parallel] {world} ranks exited {codes}")
+    recs = []
+    for rank in range(world):
+        with open(os.path.join(tmp, f"seqpar{world}_{rank}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def seqpar_reference(torch, card, dev):
+    """charlm at its defaults from ``ANCHOR_SEED`` on one unmeshed
+    ``FusedTrainer`` (``seq_parallel`` off), then again from a start one
+    ulp away in one weight, the yardstick of how far rounding alone
+    drifts over the run (phase 16's; ``mha.wq[0, 0]``: the embedding's
+    first row is the pad id's, which the corpus never holds): (TRAIN
+    losses, finals, {leaf:
+    start tensor}, {leaf: final tensor}, warm steps a second, the
+    yardstick's (max loss error, max|d|, share of the move))."""
+    from znicz_torch.__main__ import finals as sample_finals
+    from znicz_torch.core import prng
+    from znicz_torch.nn_units import params_of
+    from znicz_torch.samples import train
+    from znicz_torch.weights import params_to_numpy
+
+    def flat(wf):
+        return {f"{name}.{k}": torch.from_numpy(a)
+                for name, leaves in params_to_numpy(wf).items()
+                for k, a in leaves.items()}
+
+    runs = []
+    for nudge in (False, True):
+        prng.reset(ANCHOR_SEED)
+        wf = sample_workflow("charlm", dev)
+        if nudge:                       # the attention's first weight
+            w = next(params_of(f)["wq"] for f in wf.forwards
+                     if f.name == "mha")
+            with torch.no_grad():
+                w.view(-1)[0] = torch.nextafter(
+                    w.view(-1)[0], torch.tensor(np.inf, device=w.device))
+        else:
+            start = flat(wf)
+        train(wf, "charlm", fused=True)
+        runs.append(([float(x) for x in wf.decision.train_losses],
+                     sample_finals("charlm", wf), flat(wf),
+                     wf.train_stats["warm_img_per_sec"]
+                     / wf.loader.max_minibatch_size))
+        del wf
+    (losses, fin, final, rate), (n_losses, _, n_final, _) = runs
+    loss_err = float(np.max(np.abs(np.array(n_losses) - losses)
+                            / np.abs(losses)))
+    worst, outside, share = shard_drift(torch, n_final, final, start)
+    log(f"[seq_parallel:yardstick] {card}: charlm unmeshed from a start 1 "
+        f"ulp away in mha.wq[0, 0]: losses within {loss_err:.3g}, the "
+        f"final tree within {worst:.3g} ({len(outside)} leaves outside the "
+        f"band {SHARD_RTOL} / {SHARD_ATOL}), at most {share:.3g} of the "
+        f"move")
+    return losses, fin, start, final, rate, (loss_err, worst, share)
+
+
+def seqpar_lookup_cost(torch, card, dev, rate):
+    """The cost of summing the embedding's gradient in index order
+    (``attention._Lookup``: a stable sort and one pass on the card)
+    against ``index_select``'s own backward (``index_add_``'s atomics,
+    whose order two ranks of one ring may not share), at charlm's lookup
+    (:data:`SEQPAR_LOOKUP`): ms of one eager forward + backward each way
+    (CUDA events around the calls on the card, host-paced at this size),
+    timed in the order sorted, atomic, atomic, sorted, beside one
+    unmeshed step (1 / ``rate``).  The two sums agree within
+    float32 and the sorted one gives the same bits twice."""
+    from znicz_torch.attention import _Lookup
+
+    n, vocab, embed = SEQPAR_LOOKUP
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    idx = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+    g = torch.randn((n, embed), generator=gen, device=dev)
+    table = torch.randn((vocab, embed), generator=gen,
+                        device=dev).requires_grad_(True)
+
+    def sorted_sum():
+        table.grad = None
+        _Lookup.apply(table, idx).backward(g)
+        return table.grad
+
+    def atomic_sum():
+        table.grad = None
+        torch.index_select(table, 0, idx).backward(g)
+        return table.grad
+
+    a, b, c = sorted_sum().clone(), sorted_sum().clone(), atomic_sum()
+    if not torch.equal(a, b) or not torch.allclose(a, c, rtol=1e-5,
+                                                   atol=1e-5):
+        raise AssertionError(
+            f"[seq_parallel:lookup] the sorted sum is not reproducible or "
+            f"leaves the atomic one: {float((a - b).abs().max())}, "
+            f"{float((a - c).abs().max())}")
+
+    def timed(fn):
+        if dev.type == "cuda":
+            return cuda_ms(torch, fn, SEQPAR_LOOKUP_ITERS)
+        return _host_ms(torch, dev, fn, SEQPAR_LOOKUP_ITERS)
+
+    ms = [timed(fn) for fn in (sorted_sum, atomic_sum, atomic_sum,
+                               sorted_sum)]
+    sorted_ms, atomic_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+    step_ms = 1e3 / rate
+    log(f"[seq_parallel:lookup] {card}: charlm's embedding lookup "
+        f"({n} ids into ({vocab}, {embed})), forward + backward: sorted "
+        f"sum {sorted_ms:.4f} ms, index_add_'s atomics {atomic_ms:.4f} ms "
+        f"(runs {[round(x, 4) for x in ms]}); the difference "
+        f"{sorted_ms - atomic_ms:.4f} ms against an unmeshed step's "
+        f"{step_ms:.4f} ms ({(sorted_ms - atomic_ms) / step_ms:.2%}); "
+        f"sorted max|d| to the atomic {float((a - c).abs().max()):.3g}, "
+        f"the same bits twice")
+
+
+def seqpar_ring_log(card, world, recs):
+    """Check and print (a)'s records of one spawn."""
+    for case in recs[0]["ring"]:
+        rows = [r["ring"][case] for r in recs]
+        bad = [i for i, r in enumerate(rows) if not r["ok"]]
+        worst = [max(r["max_abs_err"][i] for r in rows) for i in range(4)]
+        r0 = rows[0]
+        log(f"[seq_parallel:a] {card}: ring over {world} gloo ranks, "
+            f"{case} {SEQPAR_RING[case.split(':')[0]]}: ring "
+            f"{r0['ring_fwd_ms']:.3f} ms forward, "
+            f"{r0['ring_fwd_bwd_ms']:.3f} ms forward + backward a call; "
+            f"dense core (rank 0 alone) {r0['dense_fwd_ms']:.3f} / "
+            f"{r0['dense_fwd_bwd_ms']:.3f} ms; max|d| against the dense "
+            f"core y {worst[0]:.3g} dq {worst[1]:.3g} dk {worst[2]:.3g} "
+            f"dv {worst[3]:.3g} (tol {SEQPAR_FWD_TOL} / {SEQPAR_GRAD_TOL}); "
+            f"P2P a rank for one forward + backward: "
+            f"{r0['p2p']['calls']} calls, {r0['p2p']['bytes']} bytes, "
+            f"{r0['p2p']['seconds'] * 1e3:.3f} ms of host time")
+        if bad:
+            raise AssertionError(f"[seq_parallel:a] {world} ranks, {case}: "
+                                 f"ranks {bad} outside the tolerances")
+        if r0["p2p"]["calls"] != 2 * (world - 1):
+            raise AssertionError(f"[seq_parallel:a] {case}: "
+                                 f"{r0['p2p']['calls']} P2P calls, not "
+                                 f"{2 * (world - 1)}")
+
+
+def seqpar_charlm_log(torch, card, world, recs, ref, tmp):
+    """Check and print (b)'s records of one spawn against the unmeshed
+    run ``ref`` (:func:`seqpar_reference`)."""
+    want_losses, want_fin, start, want, want_rate, yard = ref
+    # a one-ulp difference drifts over the whole run (ROADMAP C.5): the
+    # run is held to phase 16's multiple of the yardstick's drift
+    limits = (max(SHARD_LOSS_RTOL, SHARD_DRIFT_FACTOR * yard[0]),
+              SHARD_DRIFT_FACTOR * yard[1], SHARD_DRIFT_FACTOR * yard[2])
+    shape = SEQPAR_MESHES[world]
+    trees = []
+    for rank in range(world):
+        with np.load(os.path.join(tmp, f"charlm{world}_{rank}.npz")) as z:
+            trees.append({k: torch.from_numpy(z[k]) for k in z.files})
+    # each rank rings over the model ranks of its own data row
+    rows = [[[r["charlm"]["data"] * shape[1] + j for j in range(shape[1])]]
+            for r in recs]
+    first, unequal = {}, []                 # data row -> its first rank
+    for rank, r in enumerate(recs):
+        r0 = first.setdefault(r["charlm"]["data"], rank)
+        if any(not torch.equal(trees[rank][k], trees[r0][k])
+               for k in trees[rank]):
+            unequal.append(rank)
+    rec = recs[0]["charlm"]
+    worst, outside, share = shard_drift(torch, trees[0], want, start)
+    _, moved_out, _ = shard_drift(torch, start, want, start)
+    errs = (np.abs(np.array(rec["losses"]) - want_losses)
+            / np.abs(want_losses))
+    fin = rec["finals"]
+    log(f"[seq_parallel:b] {card}: charlm (root.charlm defaults) on "
+        f"FusedTrainer on {shape} of {world} gloo ranks, seq_parallel "
+        f"{SEQPAR_SP}: attention bound {[r['charlm']['bound'] for r in recs]}"
+        f" ring ranks {[r['charlm']['ring_ranks'] for r in recs]}; "
+        f"{json.dumps(fin)}; warm steps/s "
+        f"{rec['steps_per_s']:.1f} (one unmeshed FusedTrainer "
+        f"{want_rate:.1f}, its VALID token error "
+        f"{want_fin['valid_token_err_pct']:.2f}%); run() {rec['wall_s']:.2f}s;"
+        f" TRAIN losses against the unmeshed run: first {STEP_CHECK} max "
+        f"rel {float(errs[:STEP_CHECK].max()):.3g} (rtol {SHARD_LOSS_RTOL}), "
+        f"all {len(errs)} max rel {float(errs.max()):.3g} (limit "
+        f"{limits[0]:.3g}); final tree max|d| {worst:.3g} (limit "
+        f"{limits[1]:.3g}), at most {share:.3g} of the move (limit "
+        f"{limits[2]:.3g}; {len(outside)} leaves outside the band "
+        f"{SHARD_RTOL} / {SHARD_ATOL}, the unmeshed run moved "
+        f"{len(moved_out)} of {len(want)} out of it); rank 0's collectives "
+        f"{rec['collectives']}; ranks unequal within their data row "
+        f"{unequal}")
+    if not all(all(r["charlm"]["bound"]) and r["charlm"]["bound"]
+               for r in recs) \
+            or [r["charlm"]["ring_ranks"] for r in recs] != rows \
+            or not rec["uncaptured"]:
+        raise AssertionError(
+            f"[seq_parallel:b] {shape}: the attention did not bind to its "
+            f"data row's model ranks {rows}: "
+            f"{[r['charlm']['ring_ranks'] for r in recs]}, "
+            f"{rec['uncaptured']}")
+    if unequal:
+        raise AssertionError(f"[seq_parallel:b] {shape}: ranks {unequal} "
+                             f"differ from their data row's")
+    if len(errs) != len(want_losses) or \
+            float(errs[:STEP_CHECK].max()) > SHARD_LOSS_RTOL or \
+            float(errs.max()) > limits[0]:
+        raise AssertionError(f"[seq_parallel:b] {shape}: TRAIN losses leave "
+                             f"the band: {errs}")
+    if worst > limits[1] or share > limits[2]:
+        raise AssertionError(f"[seq_parallel:b] {shape}: the final tree "
+                             f"drifts {worst:.3g} / {share:.3g}, past "
+                             f"{limits[1:]}")
+    if not fin["valid_token_err_pct"] < CHARLM_VALID_ERR:
+        raise AssertionError(f"[seq_parallel:b] {shape}: VALID token error "
+                             f"{fin['valid_token_err_pct']:.2f}% is not "
+                             f"under {CHARLM_VALID_ERR}%")
+    if any(any(r["charlm"]["launches"].values()) for r in recs):
+        raise AssertionError(f"[seq_parallel:b] a kernel launched: "
+                             f"{[r['charlm']['launches'] for r in recs]}")
+
+
+def seqpar_tuning(torch, card, dev, tmp):
+    """(c): the genetic search on the card (``GeneticsOptimizer`` with
+    ``SubprocessEvaluator(workers=1)`` over ``python -m znicz_torch mnist
+    --fused ... --fitness``, tuning ``root.mnist.learning_rate`` in [0.01, 1.0]:
+    :data:`GA_GENERATIONS` generations of :data:`GA_POPULATION`, every
+    individual a finite fitness); ``DeviceBenchmark`` (cuda faster than
+    cpu); CD-1 on MNIST rows (the reconstruction error down to
+    :data:`RBM_DROP` of its first).  Cut from the defaults: MNIST trains
+    :data:`GA_EPOCHS` epochs a run, not 5; the GA runs 2 generations of
+    4, not 5 of 8."""
+    from znicz_torch import datasets
+    from znicz_torch.accelerated_units import DeviceBenchmark
+    from znicz_torch.all2all import All2AllSigmoid
+    from znicz_torch.core import prng
+    from znicz_torch.core.config import root
+    from znicz_torch.core.workflow import Workflow
+    from znicz_torch.genetics import (GeneticsOptimizer, SubprocessEvaluator,
+                                      Tune)
+    from znicz_torch.memory import Array
+    from znicz_torch.nn_units import ForwardBase
+    from znicz_torch.rbm import GradientRBM
+
+    prng.reset(ANCHOR_SEED)
+    cfg = root.ga_chip_smoke
+    cfg.learning_rate = Tune(float(root.mnist.get("learning_rate", 0.1)),
+                             0.01, 1.0)
+    extra = ([] if SEQPAR_DEVICE is None else ["--device", SEQPAR_DEVICE])
+    evaluator = SubprocessEvaluator(
+        "mnist", overrides=GA_OVERRIDES + extra + [
+            f"root.common.dirs.snapshots={os.path.join(tmp, 'ga')}"],
+        prefix="root.mnist", timeout=GA_TIMEOUT_S)
+    runs, launch, read = [], evaluator.launch, evaluator.fitness_from
+
+    def timed_launch(assignments):
+        proc = launch(assignments)
+        proc.started, proc.lr = time.perf_counter(), assignments
+        return proc
+
+    def recorded(proc):
+        fit = read(proc)
+        runs.append((proc.lr["learning_rate"], fit,
+                     time.perf_counter() - proc.started))
+        return fit
+
+    evaluator.launch, evaluator.fitness_from = timed_launch, recorded
+    opt = GeneticsOptimizer(config_root=cfg, generations=GA_GENERATIONS,
+                            population=GA_POPULATION, workers=1,
+                            subprocess_evaluator=evaluator)
+    t0 = time.perf_counter()
+    best, fitness = opt.run()
+    wall = time.perf_counter() - t0
+    log(f"[seq_parallel:c] {card}: GA over python -m znicz_torch mnist "
+        f"--fused --fitness ({GA_GENERATIONS} generations of {GA_POPULATION}, "
+        f"{GA_EPOCHS} epochs a run, workers 1): {len(runs)} runs (lr, valid "
+        f"error, s) "
+        + ", ".join(f"({lr:.4f}, {fit:.4f}, {s:.2f})" for lr, fit, s in runs)
+        + f"; best lr {best[0]:.4f} fitness {fitness:.4f}, history "
+        f"{opt.history}; {wall:.2f}s")
+    if len(runs) != GA_POPULATION + (GA_GENERATIONS - 1) * (
+            GA_POPULATION - 1) or not all(np.isfinite(f) for _, f, _ in runs):
+        raise AssertionError(f"[seq_parallel:c] GA runs {runs}")
+
+    bench = DeviceBenchmark()
+    results = bench.run()
+    log(f"[seq_parallel:c] {card}: DeviceBenchmark (matmul + tanh forward, "
+        f"backward and update at {bench.size}) s a step "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in results.items())
+        + f"; best {bench.best()}")
+    if SEQPAR_DEVICE is None and bench.best() != "cuda":
+        raise AssertionError(f"[seq_parallel:c] DeviceBenchmark best "
+                             f"{bench.best()}: {results}")
+
+    rows = datasets.digits(RBM_ROWS, stream="dataset.rbm")[0].reshape(
+        RBM_ROWS, -1).astype(np.float32)
+    wf = Workflow(name="rbm")
+    hidden = All2AllSigmoid(name="rbm_h", output_sample_shape=(RBM_HIDDEN,))
+    hidden.build(rows.shape, dev)
+    rbm = GradientRBM(wf, name="rbm_gd",
+                      hidden=ForwardBase(wf, module=hidden),
+                      learning_rate=RBM_LR)
+    rbm.input = Array(rows)
+    rbm.input.initialize(dev)
+    rbm.batch_size = RBM_ROWS
+    rbm.initialize(device=dev)
+    errs = []
+    t0 = time.perf_counter()
+    for _ in range(RBM_STEPS):
+        rbm.run()
+        errs.append(rbm.reconstruction_error)
+    wall = time.perf_counter() - t0
+    log(f"[seq_parallel:c] {card}: RBM CD-1 on {RBM_ROWS} MNIST rows, "
+        f"784 -> {RBM_HIDDEN}, lr {RBM_LR}: reconstruction error "
+        f"{errs[0]:.4f} -> {errs[-1]:.4f} in {RBM_STEPS} steps, "
+        f"{wall * 1e3 / RBM_STEPS:.3f} ms a step (host, the error read "
+        f"each step)")
+    if not errs[-1] < RBM_DROP * errs[0]:
+        raise AssertionError(f"[seq_parallel:c] the RBM's reconstruction "
+                             f"error {errs[0]} -> {errs[-1]}")
+
+
+def seq_parallel_phase(torch, card):
+    """Phase 27: (a) and (b) on spawns of 2 and of 4 gloo ranks on the
+    card, then (c) in this process.  No kernel lies on this path (the
+    ring is PyTorch ops and gloo P2P, as the reference's is XLA ops and
+    ``ppermute``): every count stays 0.  Returns {label: {kernel:
+    launches}}."""
+    from znicz_torch import backends
+
+    dev = backends.resolve_device(SEQPAR_DEVICE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seqpar_")
+    ctrs = counters()
+    try:
+        ref = seqpar_reference(torch, card, dev)
+        seqpar_lookup_cost(torch, card, dev, ref[4])
+        for fn in ctrs.values():                # the main path starts here
+            fn.launches = 0
+        for world in SEQPAR_MESHES:
+            t0 = time.perf_counter()
+            recs = seqpar_spawn(world, tmp)
+            log(f"[seq_parallel] {world} ranks spawned, run and joined in "
+                f"{time.perf_counter() - t0:.2f}s")
+            seqpar_ring_log(card, world, recs)
+            seqpar_charlm_log(torch, card, world, recs, ref, tmp)
+        seqpar_tuning(torch, card, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {name: fn.launches for name, fn in ctrs.items()}
+    if any(launches.values()):
+        raise AssertionError(f"[seq_parallel] a kernel launched: {launches}")
+    return {"seq_parallel": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -8655,7 +9245,7 @@ def main(argv=None) -> int:
                          "'graphs': phase 19; 'serve_mesh': phase 20; "
                          "'fleet': phase 21; 'aot': phase 22; 'master': "
                          "phase 23; 'tree': phase 24; 'charlm': phase 25; "
-                         "'generate': phase 26")
+                         "'generate': phase 26; 'seq_parallel': phase 27")
     ap.add_argument("--aot-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
@@ -8732,13 +9322,13 @@ def run_phases(torch, args) -> int:
         fleet = "fleet" in names
         aot, master = "aot" in names, "master" in names
         tree, charlm = "tree" in names, "charlm" in names
-        generate = "generate" in names
+        generate, seq_parallel = "generate" in names, "seq_parallel" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
                   "segments", "deep", "shard", "snapshots", "zmq",
                   "graphs", "serve_mesh", "fleet", "aot", "master", "tree",
-                  "charlm", "generate", *AE_SOM_RUNS)]
+                  "charlm", "generate", "seq_parallel", *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -8855,7 +9445,9 @@ def run_phases(torch, args) -> int:
                                  (master, master_phase, "phase 23"),
                                  (tree, tree_phase, "phase 24"),
                                  (charlm, charlm_phase, "phase 25"),
-                                 (generate, generate_phase, "phase 26")):
+                                 (generate, generate_phase, "phase 26"),
+                                 (seq_parallel, seq_parallel_phase,
+                                  "phase 27")):
             if not flag:
                 continue
             for label, launches in phase(torch, card).items():
@@ -9142,6 +9734,16 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 26")
+
+    # -- phase 27: ring attention over gloo ranks on the card, charlm on a
+    # -- sequence mesh, the genetic search, the device benchmark, an RBM
+    for label, launches in seq_parallel_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][label] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 27")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

@@ -279,10 +279,22 @@ def test_char_embedding_refuses_a_long_sequence_and_clips_ids():
 
 
 def test_mha_refuses_the_sequence_parallel_core():
+    """``sp_axis``, once refused, is accepted since seq_parallel was
+    ported: the module keeps the group it names (rings over real groups
+    are ``tests/test_torch_seq_parallel.py``'s) and builds the weights it
+    builds without one."""
     from znicz_torch.attention import MultiHeadAttention
+    from znicz_torch.core import prng
 
-    with pytest.raises(NotImplementedError, match=r"A\.8 \(seq_parallel\)"):
-        MultiHeadAttention(name="m", sp_axis="sp")
+    mods = []
+    for sp_axis in ("sp", None):
+        prng.reset(1013)
+        mods.append(MultiHeadAttention(name="m", sp_axis=sp_axis))
+        mods[-1].build((2, 4, 8), CPU)
+    assert mods[0].sp_axis == "sp" and mods[0]._sp_mesh is None
+    for k in ("wq", "wk", "wv", "wo"):
+        np.testing.assert_array_equal(_np(getattr(mods[0], k)),
+                                      _np(getattr(mods[1], k)))
 
 
 def _serving_pair(seed=71):

@@ -51,7 +51,9 @@ def test_no_port_file_imports_jax_or_the_reference():
         assert REPO / "znicz_torch" / "samples" / f"{sample}.py" in files
     for module in ("attention.py", "ops/attention.py", "ops/random.py",
                    "serving/model.py", "serving/batcher.py",
-                   "serving/frontend.py", "serving/client.py"):
+                   "serving/frontend.py", "serving/client.py", "rbm.py",
+                   "misc_units.py", "ensemble.py", "accelerated_units.py",
+                   "genetics.py"):
         assert REPO / "znicz_torch" / module in files
     offenders = []
     for path in files:
@@ -213,6 +215,50 @@ def test_charlm_generates_without_jax_in_the_process():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "generated charlm"
+
+
+def test_the_tuning_units_run_without_jax_in_the_process():
+    """The RBM, the misc units, an ensemble's vote, the device benchmark
+    and the genetic search (in process) where jax was never imported."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from znicz_torch.accelerated_units import DeviceBenchmark\n"
+        "from znicz_torch.all2all import All2AllSigmoid\n"
+        "from znicz_torch.core.config import Config\n"
+        "from znicz_torch.ensemble import EnsembleEvaluator\n"
+        "from znicz_torch.genetics import GeneticsOptimizer, Tune\n"
+        "from znicz_torch.memory import Array\n"
+        "from znicz_torch.misc_units import MeanDispForward\n"
+        "from znicz_torch.rbm import GradientRBM\n"
+        "v = (np.arange(64 * 16).reshape(64, 16) % 3 == 0)"
+        ".astype(np.float32)\n"
+        "h = All2AllSigmoid(name='h', output_sample_shape=(8,))\n"
+        "h.build(v.shape, torch.device('cpu'))\n"
+        "rbm = GradientRBM(name='rbm', hidden=h)\n"
+        "rbm.input, rbm.batch_size = Array(v), 64\n"
+        "rbm.initialize(device='cpu')\n"
+        "rbm.run()\n"
+        "assert np.isfinite(rbm.reconstruction_error)\n"
+        "md = MeanDispForward(name='md')\n"
+        "md.set_stats(v.mean(0), np.ones(16), 'cpu')\n"
+        "p = EnsembleEvaluator.pure_forward([md, h], v)\n"
+        "assert tuple(p.shape) == (64, 8)\n"
+        "bench = DeviceBenchmark(size=32, repeats=1)\n"
+        "times = bench.run()\n"
+        "assert 'cpu' in times\n"
+        "assert bench.best() == min(times, key=times.get)\n"
+        "cfg = Config('g')\n"
+        "cfg.x = Tune(1.0, -2.0, 2.0)\n"
+        "best, fit = GeneticsOptimizer(lambda: cfg.get('x') ** 2, cfg,"
+        " generations=2, population=4).run()\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'znicz_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('tuned')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "tuned"
 
 
 def test_the_star_trains_without_jax_in_the_process(tmp_path):

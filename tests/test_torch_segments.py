@@ -528,10 +528,10 @@ def test_the_slice_knobs_are_read():
     pipeline and the compiler, the three of the training mesh
     (``train_shard``, ``mesh.data``, ``mesh.model``), the two of the
     snapshot formats (``snapshot_format``, ``snapshot_sharded``), the 22
-    of the master/slave star and the 4 of its relay tree left
-    ``UNPORTED_ENGINE_KNOBS`` for ``ENGINE_DEFAULTS`` (nested as the
-    reference's); with the 4 knobs still refused they are the
-    reference's 61."""
+    of the master/slave star, the 4 of its relay tree and
+    ``seq_parallel`` left ``UNPORTED_ENGINE_KNOBS`` for
+    ``ENGINE_DEFAULTS`` (nested as the reference's); with the 3 knobs
+    still refused they are the reference's 61."""
     from znicz_torch.core.config import ENGINE_DEFAULTS, UNPORTED_ENGINE_KNOBS
     from znicz_tpu.core.config import ENGINE_DEFAULTS as JDEFAULTS
 
@@ -548,7 +548,7 @@ def test_the_slice_knobs_are_read():
     assert set(read) | set(UNPORTED_ENGINE_KNOBS) == set(ref)
     assert not set(read) & set(UNPORTED_ENGINE_KNOBS)
     assert len(ref) == 61
-    assert len(UNPORTED_ENGINE_KNOBS) == 4 and len(read) == 57
+    assert len(UNPORTED_ENGINE_KNOBS) == 3 and len(read) == 58
     for key in ("remat", "scan_chunk", "async_snapshot", "prefetch_segments",
                 "decode_workers", "stream_budget_mb", "async_staging",
                 "staging_donate", "pipeline_depth", "backend", "fuse",
@@ -563,6 +563,6 @@ def test_the_slice_knobs_are_read():
                 "master_snapshot_s", "wire_dtype", "wire_compress",
                 "min_slaves", "staleness_bound", "staleness_weight",
                 "tree_fanout", "relay_flush_s", "relay_child_ttl",
-                "elastic_rehome"):
+                "elastic_rehome", "seq_parallel"):
         assert key in read and key not in UNPORTED_ENGINE_KNOBS
         assert read[key] == ref[key], key

@@ -4,7 +4,7 @@ paths of ``znicz_tpu/launcher.py``):
     python -m znicz_torch {alexnet,mnist,cifar,mnist_ae,kohonen,wine,
                            kanji,video_ae,yale_faces,charlm}
                           [root.x.y=value ...]
-                          [--device cpu] [--seed N] [--fused]
+                          [--device cpu] [--seed N] [--fused] [--fitness]
                           [--snapshot PATH]
                           [--serve [BIND]] [--replica-id ID]
                           [--announce EP] [--aot-cache [DIR]] [--generate]
@@ -35,7 +35,11 @@ the classifiers (charlm adds ``valid_token_err_pct``, the VALID error
 over tokens), ``final_train_mse`` and ``valid_mse`` for the
 autoencoders (MnistAE, VideoAE), ``final_qerror`` and ``first_qerror``
 for Kohonen; ``compute_dtype`` is
-the dtype the train steps computed in.  The precision knobs are dotted
+the dtype the train steps computed in.  ``--fitness`` adds one JSON line
+after it, ``{"genetics_fitness": x}`` (the Decision's best metric, or
+Kohonen's last quantisation error), the line the genetic search's
+``genetics.SubprocessEvaluator`` reads; a run with no finite fitness
+exits 3.  The precision knobs are dotted
 overrides, as in the reference: ``root.common.engine.compute_dtype=bf16``
 (or ``precision``), ``state_dtype=bfloat16`` and
 ``master_dtype=bfloat16`` (``FusedTrainer`` only).
@@ -123,6 +127,7 @@ import importlib
 import inspect
 import json
 import logging
+import math
 import os
 import re
 import signal
@@ -264,6 +269,9 @@ def main(argv=None) -> int:
                     help="with --autoscale-max: a command that starts one "
                          "replica announcing to this balancer; {announce} "
                          "and {replica_id} are substituted")
+    ap.add_argument("--fitness", action="store_true",
+                    help="after the run, print a last JSON line with its "
+                         "fitness (genetics.SubprocessEvaluator reads it)")
     # intermixed: overrides may follow the options on every Python 3.12
     # (older argparse leaves a "*" positional empty once an option has
     # come between it and the sample's name)
@@ -393,6 +401,25 @@ def main(argv=None) -> int:
         # as the reference's does
         "compute_dtype": (str(dtype).split(".")[-1]
                           if dtype is not None else "float32")}))
+    if args.fitness:
+        return print_fitness(wf)
+    return 0
+
+
+def print_fitness(wf) -> int:
+    """``--fitness``: print ``{"genetics_fitness": x}``, x the Decision's
+    ``best_metric`` or else its last ``epoch_qerror``, and return 0; with
+    no finite fitness (no epoch ever improved) write why on stderr and
+    return 3, printing no fitness (JSON has no Infinity)."""
+    decision = getattr(wf, "decision", None)
+    fit = getattr(decision, "best_metric", None)
+    if fit is None and getattr(decision, "epoch_qerror", None):
+        fit = decision.epoch_qerror[-1]
+    if fit is None or not math.isfinite(float(fit)):
+        print("error: workflow exposes no finite fitness "
+              "(decision.best_metric / epoch_qerror)", file=sys.stderr)
+        return 3
+    print(json.dumps({"genetics_fitness": float(fit)}), flush=True)
     return 0
 
 

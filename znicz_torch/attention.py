@@ -9,8 +9,17 @@ each with its GD twin.  Inputs and outputs are (batch, seq, width).
     the forward, the serving forms :meth:`~MultiHeadAttention.apply_prefill`,
     :meth:`~MultiHeadAttention.apply_prefill_chunk` and
     :meth:`~MultiHeadAttention.apply_decode`.  The sequence-parallel
-    (ring) core, ``sp_axis`` and ``bind_sequence_mesh`` come with ROADMAP
-    A.8 (seq_parallel);
+    (ring) core runs in three ways, as the reference's does: ``sp_axis``
+    names a process group whose ranks hold consecutive sequence blocks
+    (the caller passes this rank's block: the counterpart of a call
+    already inside a ``shard_map``);
+    :meth:`~MultiHeadAttention.bind_sequence_mesh` rings over a meshed
+    trainer's ``model`` axis; and ``root.common.engine.seq_parallel = N
+    > 1``, where nothing is bound by the first forward, rings over an
+    ``("sp",)`` mesh of the whole initialised world, which must be N
+    ranks (:func:`seq_parallel_size`).  The last two take this rank's
+    block of the whole q/k/v, ring, and gather the output again: each
+    rank of the ring must hold the same whole input;
   - :class:`CharEmbedding` — (batch, seq) token ids to token plus
     position embeddings, tables ``embed`` (vocab, embed) and ``pos``
     (max_len, embed).  Ids arrive as uint8 or as the floats of the u8
@@ -40,18 +49,44 @@ import numpy as np
 import torch
 from torch import nn
 
-from znicz_torch.core.config import refuse_keyword
 from znicz_torch.forward import ForwardModule
 from znicz_torch.nn_units import GradientDescentBase
 from znicz_torch.ops import activations
 from znicz_torch.ops.attention import (attention, cache_append,
-                                       decode_attention)
+                                       decode_attention, ring_attention)
 from znicz_torch.ops.linear import seq_linear
+from znicz_torch.parallel import mesh as mesh_mod
 
 
 def _parameter(array: np.ndarray, device) -> nn.Parameter:
     return nn.Parameter(torch.from_numpy(array).to(device),
                         requires_grad=False)
+
+
+def seq_parallel_size() -> int:
+    """The ``root.common.engine.seq_parallel`` knob: the ranks of the
+    ``("sp",)`` mesh a MultiHeadAttention rings over (0 or 1: off, the
+    dense core)."""
+    from znicz_torch.core.config import root
+
+    return int(root.common.engine.get("seq_parallel", 0))
+
+
+def _ring_mesh(name: str, sp: int):
+    """The ``("sp",)`` mesh of the whole initialised world, which must be
+    ``sp`` ranks: the reference's ranks are virtual devices of one
+    process, the port's are processes, each holding the whole input."""
+    world = mesh_mod.world_size()
+    if world != sp:
+        raise RuntimeError(
+            f"{name}: root.common.engine.seq_parallel={sp} rings the "
+            f"sequence over {sp} ranks, one a process, but this process's "
+            f"world has {world}: start {sp} processes (torchrun "
+            f"--nproc-per-node {sp} ...) and join each with "
+            f"znicz_torch.parallel.mesh.distributed_init before the "
+            f"first forward, or bind a trainer's mesh "
+            f"(bind_sequence_mesh)")
+    return mesh_mod.make_mesh((sp,), ("sp",))
 
 
 class MultiHeadAttention(ForwardModule):
@@ -61,13 +96,36 @@ class MultiHeadAttention(ForwardModule):
     def __init__(self, name=None, heads=4, head_dim=None, causal=False,
                  sp_axis=None, residual=False, **kwargs):
         super().__init__(name=name, **kwargs)
-        refuse_keyword(type(self).__name__, "sp_axis", sp_axis, (None,),
-                       "A.8 (seq_parallel)")
         self.heads = int(heads)
         self.head_dim = None if head_dim is None else int(head_dim)
         self.causal = bool(causal)
         self.residual = bool(residual)
+        #: a process group whose ranks hold consecutive sequence blocks:
+        #: the forward's input is this rank's block, and the core rings
+        self.sp_axis = sp_axis
+        #: the mesh the core rings over when the input is whole: a
+        #: trainer's mesh (:meth:`bind_sequence_mesh`), or the private
+        #: ("sp",) mesh of the knob, taken at the first forward
+        self._sp_mesh = None
+        #: that mesh's sequence axis
+        self._seq_axis = "sp"
+        #: the knob's ring size as ``build`` read it (0: none)
+        self._sp_size = 0
         self.wq = self.wk = self.wv = self.wo = None
+
+    def bind_sequence_mesh(self, mesh, batch_axis="data",
+                           seq_axis="model") -> bool:
+        """Ring over ``mesh``'s ``seq_axis`` (a meshed trainer's) instead
+        of a private ("sp",) mesh; sticky.  False, and nothing bound, for
+        None or a mesh without a ``seq_axis`` of at least 2 ranks.  The
+        trainer gives each rank its rows of ``batch_axis`` before the
+        module sees them, so only the sequence is split here and
+        ``batch_axis`` is not kept."""
+        if mesh_mod.axis_size(mesh, seq_axis) < 2:
+            return False
+        self._sp_mesh = mesh
+        self._seq_axis = seq_axis
+        return True
 
     def output_shape_for(self, in_shape):
         return tuple(in_shape)
@@ -75,7 +133,11 @@ class MultiHeadAttention(ForwardModule):
     def build(self, in_shape, device):
         """The four projections for a (batch, seq, embed) input, each
         uniform over ±stddev·√3 with stddev 1/√(its first axis) unless
-        ``weights_stddev`` is given, drawn wq, wk, wv, wo."""
+        ``weights_stddev`` is given, drawn wq, wk, wv, wo.  With
+        ``seq_parallel`` N > 1 (and neither ``sp_axis`` nor a bound mesh)
+        a sequence length N does not divide raises ``ValueError``; the
+        ring of N ranks is taken at the first forward unless a mesh is
+        bound by then (:func:`_ring_mesh`)."""
         self.in_shape = tuple(int(d) for d in in_shape)
         e = self.in_shape[-1]
         if self.head_dim is None:
@@ -83,6 +145,15 @@ class MultiHeadAttention(ForwardModule):
                 raise ValueError(f"{self.name}: embed {e} not divisible by "
                                  f"heads {self.heads}")
             self.head_dim = e // self.heads
+        sp = seq_parallel_size()
+        if sp > 1 and self.sp_axis is None and self._sp_mesh is None:
+            t = self.in_shape[1]
+            if t % sp:
+                raise ValueError(
+                    f"{self.name}: root.common.engine.seq_parallel={sp} "
+                    f"cannot split sequence length {t}; pick a seq length "
+                    f"divisible by the sp mesh size")
+            self._sp_size = sp
         hd = self.heads * self.head_dim
         for key, shape in (("wq", (e, hd)), ("wk", (e, hd)),
                            ("wv", (e, hd)), ("wo", (hd, e))):
@@ -103,9 +174,28 @@ class MultiHeadAttention(ForwardModule):
         y = o.reshape(o.shape[0], o.shape[1], -1) @ self.wo
         return x + y if self.residual else y
 
+    def _core(self, q, k, v):
+        """The attention of the projections: the ring over ``sp_axis``
+        on this rank's block; over the bound mesh's sequence group when
+        it divides the length (this rank's block of the whole q/k/v,
+        the output blocks gathered); else the dense core, as the
+        reference takes it for a short serving bucket."""
+        if self.sp_axis is not None:
+            return ring_attention(q, k, v, self.sp_axis, causal=self.causal)
+        if self._sp_mesh is None and self._sp_size > 1:
+            self._sp_mesh = _ring_mesh(self.name, self._sp_size)
+        group = mesh_mod.axis_group(self._sp_mesh, self._seq_axis)
+        if group is None \
+                or q.shape[1] % torch.distributed.get_world_size(group):
+            return attention(q, k, v, causal=self.causal)
+        qb, kb, vb = mesh_mod.seq_block(torch.stack([q, k, v], 2),
+                                        group).unbind(2)
+        return mesh_mod.seq_gather(
+            ring_attention(qb, kb, vb, group, causal=self.causal), group)
+
     def forward(self, x):
         q, k, v = self._project(x)
-        return self._out(x, attention(q, k, v, causal=self.causal))
+        return self._out(x, self._core(q, k, v))
 
     def apply_prefill(self, x):
         """The forward that also returns the keys and values it computed,
@@ -157,6 +247,29 @@ class GDMultiHeadAttention(GradientDescentBase):
     usual."""
 
 
+class _Lookup(torch.autograd.Function):
+    """``table[idx]`` forward; backward, the rows' gradients summed into
+    a zero table in ``idx`` order, as the reference's scatter-add sums
+    them: ``index_add_`` on the CPU, ``index_put_(accumulate=True)`` (a
+    stable sort, then one pass) on the card, where ``index_add_`` adds
+    with atomics in an order that differs run to run, and two ranks
+    holding one replicated table would part."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = tuple(table.shape)
+        return torch.index_select(table, 0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        grad = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        if g.is_cuda:
+            return grad.index_put_((idx,), g, accumulate=True), None
+        return grad.index_add_(0, idx, g), None
+
+
 class CharEmbedding(ForwardModule):
     has_weights = True
     PARAM_NAMES = ("embed", "pos")
@@ -198,9 +311,9 @@ class CharEmbedding(ForwardModule):
         return torch.clamp(x.to(torch.int32), 0, self.vocab - 1).long()
 
     def _lookup(self, table, idx):
-        """``table`` rows at ``idx`` (any shape); its gradient is an
-        ``index_add_``, as ``jnp.take``'s is a scatter-add."""
-        rows = torch.index_select(table, 0, idx.reshape(-1))
+        """``table`` rows at ``idx`` (any shape); its gradient is a
+        scatter-add, as ``jnp.take``'s is (:class:`_Lookup`)."""
+        rows = _Lookup.apply(table, idx.reshape(-1))
         return rows.reshape(tuple(idx.shape) + (table.shape[1],))
 
     def forward(self, x):

@@ -199,6 +199,8 @@ ENGINE_DEFAULTS = {
         "data": 1,                # batch sharding, gradients summed
         "model": 1,               # column-sharded wide FC weights
     },
+    # ring attention over the sequence axis (attention.py)
+    "seq_parallel": 0,            # ranks of the ("sp",) mesh; 0/1 = off
     # the snapshot formats (snapshotter.py)
     "snapshot_format": "pickle",  # "orbax": a directory, arrays written
     #                               with torch.distributed.checkpoint
@@ -244,8 +246,6 @@ UNPORTED_ENGINE_KNOBS = {
     **{key: (default, "A.9") for key, default in (
         ("obs_slo_apply_progress", 0.99), ("obs_slo_fast_window_s", 60.0),
         ("obs_slo_slow_window_s", 600.0))},
-    # A.8 (seq_parallel): ring attention over the sequence axis
-    "seq_parallel": (0, "A.8 (seq_parallel)"),
 }
 
 _UNSET = object()
@@ -308,15 +308,3 @@ def check_serving_keys() -> None:
                 f"root.common.serving.{key}={value!r} is not ported yet "
                 f"(ROADMAP queue {item}); the service runs as at its "
                 f"default {default!r}")
-
-
-def refuse_keyword(owner: str, key: str, value, accepted, item: str) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP item ``item`` when the
-    reference keyword ``key`` of ``owner`` is set to a value outside
-    ``accepted`` (the reference's default and the values that behave as
-    it), as :func:`check_engine_knobs` refuses an engine knob: the port
-    would otherwise run as if it were unset."""
-    if value not in accepted:
-        raise NotImplementedError(
-            f"{owner}({key}={value!r}) is not ported yet (ROADMAP queue "
-            f"{item}); the port runs as at {accepted[0]!r}")

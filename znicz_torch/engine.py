@@ -63,8 +63,8 @@ def train(workflow, fused: Optional[bool] = None, mesh=None):
     (``parallel.mesh.train_mesh_from_config``, None unless
     ``root.common.engine.train_shard``); the unit graph refuses a mesh.
     Returns the stats dict also kept as ``workflow.train_stats``.  A
-    reference knob the port does not read yet, such as ``seq_parallel``,
-    raises (:func:`check_engine_knobs`)."""
+    reference knob the port does not read yet, such as
+    ``obs_slo_apply_progress``, raises (:func:`check_engine_knobs`)."""
     from znicz_torch.parallel.mesh import train_mesh_from_config
 
     check_engine_knobs()

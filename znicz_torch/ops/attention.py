@@ -1,6 +1,4 @@
-"""Attention ops (port of ``znicz_tpu/ops/attention.py``, the dense core
-and the decode forms; ``ring_attention`` comes with ``seq_parallel``,
-ROADMAP A.8 (seq_parallel)).
+"""Attention ops (port of ``znicz_tpu/ops/attention.py``).
 
   - :func:`attention` — exact scaled-dot-product attention with optional
     causal masking at global positions (scalar or per-row offsets) and a
@@ -11,7 +9,12 @@ ROADMAP A.8 (seq_parallel)).
     :func:`paged_decode_attention` — the same over a block-paged pool
     ``(num_pages + 1, page_size, heads, dim)`` whose last page is pad
     scratch, rows addressed through a (batch, P) page table at GLOBAL
-    positions.
+    positions;
+  - :func:`ring_attention` — exact attention over a sequence split in
+    consecutive blocks across the ranks of a process group: each rank
+    attends its query block to one key/value block a step, folds it into
+    flash-style float32 accumulators and passes the block to the next
+    rank (``parallel/mesh.ring_shift``), n steps for n ranks.
 
 The arithmetic is the reference's, in its order: the score einsum over
 ``sqrt(d)``, masked scores filled with ``finfo(dtype).min`` (never
@@ -126,3 +129,55 @@ def paged_decode_attention(q1, k_pool, v_pool, table, t):
     ``[0..t]``."""
     return decode_attention(q1, paged_gather(k_pool, table),
                             paged_gather(v_pool, table), t)
+
+
+def ring_attention(q, k, v, group, causal: bool = False):
+    """Exact attention of this rank's (batch, T/n, heads, dim) query block
+    over the whole sequence, whose n consecutive blocks lie on the ranks
+    of ``group`` in rank order (None: one rank, the whole sequence).  The
+    reference's loop in its order and constants: at step ``i`` the block
+    held came from rank ``(my - i) % n``; causal scores past the query's
+    global position take ``finfo(float32).min`` and their probabilities
+    are zeroed; the running max ``m``, denominator ``l`` and accumulator
+    are float32, rescaled by ``exp(m - m_new)``; the output divides by
+    ``max(l, 1e-30)``.  The keys and values travel as one stacked tensor,
+    and the last step sends nothing (the reference's last ``ppermute``
+    feeds no later step).  Autograd through the shifts gives the
+    reference's gradient."""
+    from znicz_torch.parallel.mesh import ring_shift
+
+    n = 1 if group is None else torch.distributed.get_world_size(group)
+    my = 0 if group is None else torch.distributed.get_rank(group)
+    b, t, h, d = q.shape
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+    neg = torch.finfo(torch.float32).min
+    qpos = my * t + torch.arange(t, device=dev)       # global q positions
+    m = torch.full((b, h, t), neg, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, t), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=dev)
+    kv = torch.stack([k, v])
+    for i in range(n):
+        src = (my - i) % n                             # who produced kv
+        k_blk, v_blk = kv[0], kv[1]
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k_blk) * scale
+        kmask = None
+        if causal:
+            kpos = src * t + torch.arange(t, device=dev)
+            kmask = kpos[None, None, None, :] > qpos[None, None, :, None]
+            s = torch.where(kmask, neg, s)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        if kmask is not None:
+            # a wholly masked block leaves m_new at neg, where exp(0) = 1
+            # would leak mass
+            p = torch.where(kmask, 0.0, p)
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p, v_blk.to(p.dtype))
+        m = m_new
+        if i + 1 < n:
+            kv = ring_shift(kv, group)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]  # (b, h, q, d)
+    return out.transpose(1, 2)                        # (b, q, h, d)

@@ -86,7 +86,8 @@ captured.  Before each replay the step's index row (or staged rows), its
 hyperparameter row and its dropout masks, drawn with the generator the
 eager step draws them with, are copied into the capture's buffers.  A
 net with stochastic pooling samples its offsets from probabilities
-computed inside the step, so it runs every segment uncaptured, by rule
+computed inside the step, so it runs every segment uncaptured, by rule,
+as does a net whose attention rings over host-staged sends and receives
 (``uncaptured_reason``); ``stats`` counts ``captured_steps`` and
 ``eager_steps``.  A failed capture raises.
 
@@ -128,9 +129,17 @@ through ``copy_to_model``, the local rows go through the activation or
 the FC epilogue, and the columns are gathered.  Dropout masks and
 stochastic pooling's offsets are drawn at the global shape and each
 rank takes its rows (and columns), so a meshed run draws one process's.
+With ``root.common.engine.seq_parallel`` above 1, every
+``MultiHeadAttention`` is bound to the mesh (``bind_sequence_mesh``):
+its core rings over the ``model`` group, each rank of it attending its
+block of the sequence.  A mesh whose ``model`` axis is 1 is refused
+with ``ValueError``: its ranks hold different rows, and a ring over
+them would join blocks of different samples.
 The metrics are summed over ``data`` on the device before any host read
 (the deep pipeline's epoch vector once).  A meshed run is not captured
-(``uncaptured_reason``).  A 1 × 1 mesh is None: the single-device path.
+(``uncaptured_reason``): neither gloo's collectives nor the ring's
+host-staged sends and receives can live in a CUDA graph.  A 1 × 1 mesh
+is None: the single-device path.
 
 **Dropout masks.**  ``mask_fn(step, index, shape, ratio)`` supplies the
 mask of forwards index ``index`` at train step ``step``; by default it
@@ -166,7 +175,8 @@ import torch
 from torch import nn
 
 from znicz_torch.all2all import All2All, All2AllSoftmax
-from znicz_torch.attention import SeqAll2AllSoftmax
+from znicz_torch.attention import (MultiHeadAttention, SeqAll2AllSoftmax,
+                                   seq_parallel_size)
 from znicz_torch.core import prng
 from znicz_torch.core.config import ENGINE_DEFAULTS, check_engine_knobs, root
 from znicz_torch.core.mutable import Bool
@@ -429,6 +439,31 @@ class FusedTrainer:
             self.uncaptured_reason = (
                 "a meshed run's collectives are not captured (gloo's "
                 "cannot be; NCCL's across cards are untested)")
+        # seq_parallel on a mesh: every attention layer rings over the
+        # trainer's ``model`` axis, as the reference binds it.  A mesh
+        # with no such axis is refused: the layer's own ring would take
+        # data ranks, which hold other rows.  Unmeshed, the layer's own
+        # ring (every rank the whole input) is host-staged P2P, which no
+        # CUDA graph can hold
+        mhas = [f for f in self.forwards if isinstance(f, MultiHeadAttention)]
+        sp = seq_parallel_size()
+        if mesh is not None and mhas and sp > 1:
+            if mesh_mod.axis_size(mesh, "model") < 2:
+                shape = {a: mesh_mod.axis_size(mesh, a)
+                         for a in mesh.mesh_dim_names}
+                raise ValueError(
+                    f"root.common.engine.seq_parallel={sp} rings attention "
+                    f"over the mesh's 'model' axis, and the mesh {shape} "
+                    f"has no model axis of 2 or more ranks; its data ranks "
+                    f"hold different rows, so no ring can join their "
+                    f"blocks: use a mesh with model >= 2 or seq_parallel 0")
+            for f in mhas:
+                f.bind_sequence_mesh(mesh)
+        elif mesh is None and any(f._sp_size > 1 or f.sp_axis is not None
+                                  for f in mhas):
+            self.uncaptured_reason = (
+                "ring attention's sends and receives are staged through "
+                "the host and cannot be captured")
         #: the DeviceStager of a staged run while it runs, and its
         #: counters when the run ended
         self._stager = None

@@ -24,6 +24,12 @@ are ``serving/model.py``'s.  This module is the one home of the
 placement rule, the per-rank row selection and the collectives the
 trainer and the snapshotter call.
 
+The sequence axis (ring attention, ``ops/attention.ring_attention``):
+:func:`ring_shift` passes a block to the next rank of a group (its
+gradient back to the previous one), :func:`seq_block` takes a rank's
+block along T of a tensor every rank holds whole and :func:`seq_gather`
+joins the blocks again.
+
 Every collective a meshed run makes goes through :func:`_collective`,
 which counts its calls, bytes and host seconds in :data:`STATS`.  On a
 CUDA tensor under gloo (which copies through the host, so it waits for
@@ -332,16 +338,18 @@ def shard_index_rows(mat: np.ndarray, dp: int, d: int) -> np.ndarray:
 # -- collectives ---------------------------------------------------------------
 
 
-def _collective(fn: Callable, t: torch.Tensor, group) -> None:
-    """Run the collective ``fn()`` on ``t``, counted in :data:`STATS`."""
+def _collective(fn: Callable, t: torch.Tensor, group):
+    """Run the collective ``fn()`` on ``t``, counted in :data:`STATS`;
+    ``fn``'s result."""
     if t.is_cuda and dist.get_backend(group) == "gloo":
         torch.cuda.current_stream(t.device).synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
-        fn()
+        out = fn()
     STATS["seconds"] += time.perf_counter() - t0
     STATS["calls"] += 1
     STATS["bytes"] += t.numel() * t.element_size()
+    return out
 
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
@@ -441,6 +449,114 @@ def gather_columns(y: torch.Tensor, mesh) -> torch.Tensor:
         return y
     return _GatherColumns.apply(y.reshape(y.shape[0], -1), group,
                                 axis_index(mesh, "model"))
+
+
+# -- the sequence axis ---------------------------------------------------------
+
+
+def _ring_p2p(t: torch.Tensor, group, step: int) -> torch.Tensor:
+    """``t`` sent ``step`` ranks on along ``group`` (1: to the next),
+    the tensor of the rank ``step`` behind received in its place; counted
+    in :data:`STATS`.  Both operations are posted in one
+    ``batch_isend_irecv``, so two ranks, each the other's next and
+    previous, do not wait on each other.  gloo sends no CUDA tensor, so
+    on the card a block is staged through host memory (the stream
+    synchronised first, as :func:`_collective` does)."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + step) % n)
+    src = dist.get_global_rank(group, (me - step) % n)
+    t = t.detach().contiguous()
+    staged = t.is_cuda and dist.get_backend(group) == "gloo"
+
+    def shift():
+        send = t.cpu() if staged else t
+        recv = torch.empty_like(send)
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, send, dst, group),
+                dist.P2POp(dist.irecv, recv, src, group)]):
+            req.wait()
+        return recv.to(t.device) if staged else recv
+
+    return _collective(shift, t, group)
+
+
+class _RingShift(torch.autograd.Function):
+    """Each rank's tensor to the next rank of ``group`` forward; the
+    gradient to the previous one backward, the transpose JAX takes of
+    ``ppermute``."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _ring_p2p(t, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring_p2p(g, ctx.group, -1), None
+
+
+def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
+    """The previous rank's ``t`` on each rank of ``group`` (the ring
+    hop of the reference's ``ppermute`` with ``perm = [(j, j + 1)]``);
+    gradients travel back the other way."""
+    return _RingShift.apply(t, group)
+
+
+def _gather_seq(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' (b, T/n, ...) blocks of ``group`` joined along dim 1
+    in rank order: (b, T, ...)."""
+    stacked = gather_rows(t.contiguous(), group)    # (n·b, T/n, ...)
+    n = stacked.shape[0] // t.shape[0]
+    return stacked.reshape((n,) + tuple(t.shape)).transpose(0, 1).reshape(
+        (t.shape[0], n * t.shape[1]) + tuple(t.shape[2:]))
+
+
+def _own_block(t: torch.Tensor, group) -> torch.Tensor:
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    size = t.shape[1] // n
+    return t[:, r * size:(r + 1) * size]
+
+
+class _SeqBlock(torch.autograd.Function):
+    """This rank's block along dim 1 of a tensor every rank of ``group``
+    holds whole forward; the blocks' gradients gathered backward, so the
+    whole tensor's gradient is the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _own_block(t, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.group), None
+
+
+class _SeqGather(torch.autograd.Function):
+    """The ranks' blocks joined along dim 1 forward; this rank's own
+    block of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _gather_seq(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_block(g, ctx.group).contiguous(), None
+
+
+def seq_block(t: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of the (b, T, ...) tensor ``t`` along T, rank
+    ``r`` of ``group`` taking positions ``[r·T/n, (r+1)·T/n)``; ``t``
+    itself without a group."""
+    return t if group is None else _SeqBlock.apply(t, group)
+
+
+def seq_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """The (b, T/n, ...) blocks of ``group``'s ranks as one (b, T, ...)
+    tensor on every rank; ``t`` itself without a group."""
+    return t if group is None else _SeqGather.apply(t, group)
 
 
 def raise_anywhere(error: Optional[BaseException], what: str) -> None:

@@ -18,7 +18,10 @@ The trees cover every unit with parameters, by unit name: a
 ``StandardWorkflow``'s forward units and the units of a graph wired by
 hand, such as MnistAE's ``conv`` and ``deconv``, whose ``weights`` are
 one tensor (both leaves load into it, and must agree), and the SOM's
-``trainer``.
+``trainer``.  A unit that keeps state of its own beside a layer's
+(``state_tensors()``: ``GradientRBM``'s ``vbias``,
+``MeanDispNormalizerUnit``'s ``mean`` and ``disp``) is covered under its
+own name with those leaves.
 """
 
 from __future__ import annotations
@@ -42,7 +45,9 @@ def _targets(workflow, velocities: bool):
              if isinstance(u, GradientDescentBase)}
     out = {}
     for unit in workflow:
-        leaves = unit.params() if hasattr(unit, "params") else {}
+        leaves = dict(unit.params() if hasattr(unit, "params") else {})
+        if not velocities and hasattr(unit, "state_tensors"):
+            leaves.update(unit.state_tensors())
         if not leaves:
             continue
         if velocities:
