@@ -317,7 +317,13 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      keep both ranks on one generation (rank 1's steps recorded), equal
      dispatch counts, K1/K2 2/3 launches a dispatch on each rank, the
      service's images/s and a rank's beside one process's;
- 21. ``fleet``, the replica fleet: a ``ReplicaBalancer`` on
+ 21. ``fleet``, the replica fleet: first C.16's race in two child
+     processes (``[fleet:race]``: a matmul of fc6's, fc7's and fc8's
+     shapes at 16 rows captured on the capture stream by a thread that
+     exits, replayed 2000 times while a new thread multiplies on that
+     stream; the port's captures must replay the same bits, the bare
+     ``torch.cuda.graph`` capture's count is printed); then a
+     ``ReplicaBalancer`` on
      ``tcp://127.0.0.1:*`` in front of two full-width AlexNet replicas
      (``fused``, captured rungs, ``announce``; ids ``r0``, ``r1``), each
      under a ``ReplicaHarness``, sharing the card in this process: phase
@@ -415,7 +421,27 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      Then (c) in this process: the genetic search over ``python -m
      znicz_torch mnist --fitness`` runs on the card, ``DeviceBenchmark``
      (cuda faster than cpu), CD-1 steps of an RBM on MNIST rows.  No
-     kernel lies on this path.
+     kernel lies on this path;
+ 28. telemetry on the main paths, full-width AlexNet under ``fused``:
+     (a) phase 3's 64 requests from 4 threads into an ``InferenceServer``
+     with the dashboard (``web_port``) up and a thread scraping
+     ``/metrics`` and ``/trace.json`` every 50 ms: every reply within
+     ``SERVE_TOL``, K1/K2 2/3 a dispatch, the served, latency, batch and
+     row series equal to the server's counts, a ``reply`` span for each
+     request's trace id, images/s with telemetry on and off in
+     interleaved windows (printed, not gated); (b) one epoch of 4 TRAIN
+     minibatches (a captured segment of 3 steps and the tail) under
+     ``--profile-dir``'s code path, then uncaptured (``scan_chunk`` 1):
+     the trace parses, one ``train_step#<step>`` range a train dispatch,
+     K1/K1b/K2/K2b 2/2/3/3 a train step and named in the trace, the
+     trainer's ``train_steps`` and ``images`` counters equal to the
+     minibatches and images run; (c) a balancer with two in-process
+     replicas (rungs up to 16) and the dashboard: the requests through
+     it within ``SERVE_TOL``, one request's trace across at least three
+     origins on ``/trace.json?fleet=1``, ``/fleet.json`` summing its
+     members, ``replica_joined`` of both on ``/events.json?fleet=1`` and
+     the serving objectives on ``/slo.json``.  A bad reply anywhere
+     prints every span of its trace id (ROADMAP C.16).
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
@@ -441,8 +467,9 @@ phase 15 for ``deep``, phase 16 for ``shard``, phase 17 for
 ``snapshots``, phase 18 for ``zmq``, phase 19 for ``graphs``, phase
 20 for ``serve_mesh``, phase 21 for ``fleet``, phase 22 for ``aot``,
 phase 23 for ``master``, phase 24 for ``tree``, phase 25 for
-``charlm``, phase 26 for ``generate`` and phase 27 for
-``seq_parallel``; it prints the ``kernels`` object and no ``ok`` line.
+``charlm``, phase 26 for ``generate``, phase 27 for
+``seq_parallel`` and phase 28 for ``telemetry``; it prints the
+``kernels`` object and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -452,6 +479,7 @@ import collections
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1560,10 +1588,47 @@ def _rel_err(y, ref) -> float:
     return float(np.abs(y - ref).max() / max(np.abs(ref).max(), 1e-30))
 
 
+def trace_spans(trace_id):
+    """Every span this process holds of ``trace_id``: the fleet trace
+    store's (stitched from heartbeats and the balancer's self-ingest) and
+    the span ring's not drained yet, as (origin, cat, name, args) in
+    time order, each once."""
+    from znicz_torch import telemetry
+
+    seen, out = set(), []
+    for origin, s in telemetry.fleet_trace().spans():
+        args = s.get("args") or {}
+        if args.get("trace_id") != trace_id:
+            continue
+        key = (s.get("cat"), s.get("name"), s.get("ts"))
+        if key not in seen:
+            seen.add(key)
+            out.append((s.get("ts", 0), origin, s.get("cat"),
+                        s.get("name"), args))
+    offset = (time.time() - time.perf_counter()) * 1e6
+    for cat, name, ts, _, _, args in telemetry.tracer().events():
+        if args and args.get("trace_id") == trace_id:
+            out.append((int(ts + offset), "(this process, undrained)", cat,
+                        name, args))
+    out.sort(key=lambda t: t[0])
+    return [(origin, cat, name, args) for _, origin, cat, name, args in out]
+
+
+#: the span arguments that name a dispatch in C.16's diagnostics
+DISPATCH_KEYS = ("replica", "batch", "rung", "gen", "solo", "offset",
+                 "rows", "batch_requests", "req_id", "lb_rid", "probe_rid",
+                 "primary_rid", "targets", "tries", "ok")
+
+
 def check_replies(label, replies, refs):
     """Each reply within ``SERVE_TOL`` of its composed forward; on a
     failure the bad replies are named (their place, error, the reply's
-    stamps, and the other requests whose forward they match)."""
+    stamps, and the other requests whose forward they match), with every
+    span of the bad reply's ``trace_id`` the process holds: the
+    balancer's hop and probe (the replicas it went to, the answering one
+    and generation, the solo mark) and each replica's dispatch of it
+    (replica, batch number, rung, generation, solo mark, its rows' place
+    in the batch) -- ROADMAP C.16."""
     errs = []
     for i, (rep, ref) in enumerate(zip(replies, refs)):
         if "y" not in rep:
@@ -1587,6 +1652,14 @@ def check_replies(label, replies, refs):
                 f"{errs[i]:.3e}, stamps "
                 f"{ {k: v for k, v in replies[i].items() if k != 'y'} }, "
                 f"matches the forward of requests {like[:5]}")
+            tid = replies[i].get("trace_id")
+            spans = trace_spans(tid) if tid else []
+            log(f"[{label}] bad reply {i}: trace {tid}, {len(spans)} "
+                f"spans")
+            for origin, cat, name, args in spans:
+                log(f"[{label}]   {origin} {cat}/{name} "
+                    + json.dumps({k: args[k] for k in DISPATCH_KEYS
+                                  if k in args}))
         raise AssertionError(f"[{label}] replies disagree: {worst:.3e} "
                              f"({len(bad)} of {len(replies)} replies)")
 
@@ -5135,6 +5208,18 @@ ZMQ_CLIENTS, ZMQ_IN_FLIGHT = 4, 8
 CLI_REQUESTS, CLI_TIMEOUT_S = 16, 600
 
 
+def fresh_latency_window(srv) -> None:
+    """Give ``srv`` an empty request-latency ring, so that its quantiles
+    describe the pass that follows alone (the ring keeps the last
+    8192 requests of the server's life)."""
+    from znicz_torch import telemetry
+
+    srv._m_latency = telemetry.scope("serving").histogram(
+        "request_latency_seconds",
+        "e2e request latency (enqueue -> reply handoff)",
+        size=srv.LATENCY_WINDOW)
+
+
 def quantiles(lat_s) -> str:
     a = np.asarray(lat_s) * 1e3
     return (f"p50_ms={np.percentile(a, 50):.2f} "
@@ -5222,8 +5307,7 @@ def zmq_routing(torch, card, label, wf, requests, refs):
         for fn in ctrs.values():                # the main path starts here
             fn.launches = 0
         srv.runner.dispatches = 0
-        with srv._lock:
-            srv._latencies.clear()
+        fresh_latency_window(srv)
         bytes_in, bytes_out = srv.codec.bytes_in, srv.codec.bytes_out
         if how == "zmq":
             replies, lat, wall = zmq_clients(srv.endpoint, requests)
@@ -5678,8 +5762,7 @@ def graphs_routing(torch, card, label, wf, requests, refs, eager_ref):
                     fn.launches = 0
                 runner.dispatches = 0
                 compiles = runner.compiles
-                with srv._lock:
-                    srv._latencies.clear()
+                fresh_latency_window(srv)
             replies, wall, _ = serve_pass(srv, requests)
             numbers[how]["images_per_s"].append(n_images / wall)
             if not first:
@@ -6287,6 +6370,119 @@ FLEET_PROMOTE_IN_FLIGHT = 8
 FLEET_WAIT_S = 300.0
 
 
+#: phase 21: the race of C.16: the served forward's matmul shapes at a
+#: 16-row rung (fc6, fc7, fc8 of full-width AlexNet) and the replays each
+#: is checked over while another thread multiplies on the capture stream
+RACE_SHAPES = ((16, 9216, 4096), (16, 4096, 4096), (16, 4096, 1000))
+RACE_REPLAYS = 2000
+#: phase 21: the most one race child may take (s)
+RACE_TIMEOUT_S = 120
+
+
+def race_child(mode: str) -> dict:
+    """One run of C.16's race, in a process of its own (an illegal address
+    poisons the CUDA context): for each of :data:`RACE_SHAPES`, a thread
+    warms a matmul on the capture stream and captures it there, then
+    exits; its graph is replayed :data:`RACE_REPLAYS` times on this
+    thread's stream while a new thread (handed the exited thread's cuBLAS
+    handle) multiplies other rows on the capture stream; each replay's
+    output is held to the first replay's bits.  ``mode`` "port" captures
+    through ``StepGraph.capture``, "bare" through ``torch.cuda.graph`` as
+    the port did before.  Returns {shape: [replays that differed, the
+    largest max|d|/max|ref| among them]}."""
+    import torch
+
+    from znicz_torch.parallel.graphs import StepGraph, capture_stream
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    stream = capture_stream(dev)
+    out = {}
+    for m, k, n in RACE_SHAPES:
+        w = torch.randn(k, n, device=dev, generator=gen)
+        xs = torch.randn(m, k, device=dev, generator=gen)
+        x2 = torch.randn(m, k, device=dev, generator=gen)
+        box = {}
+
+        def capture():
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                xs @ w                  # the warm-up
+            torch.cuda.synchronize(dev)
+            cap = StepGraph({"x": xs}, None, {})
+            if mode == "port":
+                cap.capture(lambda: cap.inputs["x"] @ w, stream)
+            else:
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    cap.outputs = xs @ w
+                cap.graph = g
+            box["cap"] = cap
+
+        t = threading.Thread(target=capture)
+        t.start()
+        t.join()
+        cap = box["cap"]
+        cap.replay()
+        torch.cuda.synchronize(dev)
+        ref = cap.outputs.clone()
+        stop = threading.Event()
+
+        def hammer():
+            with torch.cuda.stream(stream):
+                while not stop.is_set():
+                    x2 @ w
+
+        h = threading.Thread(target=hammer)
+        h.start()
+        bad, worst = 0, 0.0
+        try:
+            for _ in range(RACE_REPLAYS):
+                cap.replay()
+                if not torch.equal(cap.outputs, ref):
+                    bad += 1
+                    worst = max(worst, float(
+                        (cap.outputs - ref).abs().max() / ref.abs().max()))
+        finally:
+            stop.set()
+            h.join()
+        torch.cuda.synchronize(dev)
+        out["x".join(map(str, (m, k, n)))] = [bad, worst]
+    return out
+
+
+def fleet_race(card) -> None:
+    """Phase 21's check of C.16's cause in child processes: graphs the
+    port captures (``StepGraph.capture``) replay the same bits while
+    another thread multiplies on the capture stream, and no child fails;
+    the bare capture's count is printed, not gated (a race, or an illegal
+    address that ends its child)."""
+    res = {}
+    for mode in ("port", "bare"):
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--race-child",
+                 mode], capture_output=True, text=True,
+                timeout=RACE_TIMEOUT_S,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            lines = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("{")]
+            res[mode] = (json.loads(lines[-1]) if proc.returncode == 0
+                         and lines else f"rc {proc.returncode}: " + " ".join(
+                             proc.stderr.strip().splitlines()[-2:])[-300:])
+        except subprocess.TimeoutExpired:
+            res[mode] = f"timed out after {RACE_TIMEOUT_S}s"
+        log(f"[fleet:race] {card}: {mode} capture, {RACE_REPLAYS} replays "
+            f"a shape racing matmuls on the capture stream: replays that "
+            f"differed {res[mode]} ({time.perf_counter() - t0:.1f}s)")
+    if not isinstance(res["port"], dict) or any(
+            bad for bad, _ in res["port"].values()):
+        raise AssertionError(f"[fleet:race] the port's captures raced: "
+                             f"{res['port']}")
+
+
 def fleet_wait(pred, what, budget=FLEET_WAIT_S) -> float:
     """Poll ``pred()`` until true; the seconds it took.  Raises past
     ``budget``."""
@@ -6381,6 +6577,7 @@ def fleet_phase(torch, card):
     gc.freeze()
     try:
         t_phase = time.perf_counter()
+        fleet_race(card)
         requests = make_requests()
         n_images = sum(x.shape[0] for x in requests)
         wfs = [alexnet_served(torch) for _ in range(2)]
@@ -9232,6 +9429,462 @@ def seq_parallel_phase(torch, card):
     return {"seq_parallel": launches}
 
 
+# -- phase 28: telemetry on the main paths -------------------------------------
+
+#: phase 28: the train run's loader (4 TRAIN minibatches: a captured
+#: segment of 3 steps and the tail, whose update the last epoch skips)
+#: and its one epoch; its images drawn anew, not read from the
+#: ``data_path`` phases 23 and 24 leave set
+TEL_TRAIN_CFG = dict(TRAIN_CFG, n_train=4 * BATCH, n_valid=BATCH,
+                     data_path="")
+#: phase 28: the scrape period of the serving pass's scraper thread (s)
+TEL_SCRAPE_S = 0.05
+#: phase 28: telemetry on/off windows of the served pass, interleaved
+TEL_WINDOWS = "oNoN"
+#: phase 28: the fleet's replicas' largest rung (5 captures a replica)
+TEL_FLEET_BATCH = 16
+#: phase 28: the kernel names in a torch.profiler trace, by counter
+TEL_KERNEL_NAMES = {"fused_block_fwd": r"fused_block_fwd_kernel",
+                    "fused_block_bwd": r"fused_block_bwd_kernel",
+                    "bias_relu_fwd": r"bias_relu_(vec4|scalar)_kernel",
+                    "bias_relu_bwd": r"bias_relu_bwd_kernel"}
+
+
+def scrape(url: str, timeout: float = 30.0) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
+def exposition(text: str, series: str) -> float:
+    """The value of the exposition line ``series`` (name and labels)."""
+    m = re.search(rf"^{re.escape(series)} (\S+)$", text, re.M)
+    if m is None:
+        raise AssertionError(f"[telemetry] no series {series} on /metrics")
+    return float(m.group(1))
+
+
+def tel_pass(srv, requests, tag, n_threads=4):
+    """``requests`` from ``n_threads`` threads into ``srv`` in process,
+    each with the trace id ``<tag>-<i>``; (replies in order, wall s)."""
+    from znicz_torch.serving.batcher import Request
+
+    futures = [Future() for _ in requests]
+
+    def client(tid):
+        for i in range(tid, len(requests), n_threads):
+            srv.submit(Request(requests[i], requests[i].shape[0],
+                               reply_to=futures[i], req_id=i,
+                               trace_id=f"{tag}-{i}"))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    replies = [f.result(timeout=600) for f in futures]
+    wall = time.perf_counter() - t0
+    bad = [r for r in replies if not r["ok"]]
+    if bad:
+        raise AssertionError(f"[{tag}] {len(bad)} refused/failed replies: "
+                             f"{bad[0]}")
+    return replies, wall
+
+
+def telemetry_serve(torch, card, wf, requests, refs, ctrs):
+    """Phase 28 (a): phase 3's pass under ``fused`` with the dashboard up
+    and a thread scraping ``/metrics`` and ``/trace.json`` every
+    ``TEL_SCRAPE_S``: every reply within ``SERVE_TOL``, K1/K2 2/3 a
+    dispatch, ``/metrics`` holding the server's counts, a ``reply`` span
+    for each request's trace id; then images/s with telemetry on and off
+    in ``TEL_WINDOWS``.  Returns {kernel: launches}."""
+    from znicz_torch import telemetry
+    from znicz_torch.__main__ import start_web_status
+    from znicz_torch.core.config import root
+    from znicz_torch.serving.frontend import InferenceServer
+
+    expect = ZMQ_ROUTINGS["fused"][1]
+    root.common.serving.web_port = 0
+    status = srv = None
+    stop = threading.Event()
+    scrapes, errors = collections.Counter(), []
+    try:
+        with engine_knobs(**FUSED_KNOBS):
+            srv = InferenceServer(wf, max_batch=BATCH, max_delay_ms=5.0,
+                                  queue_bound=4096, replica_id="tel-0")
+            status = start_web_status()
+            status.register(wf)
+            status.register_inference(srv)
+            base = f"http://127.0.0.1:{status.port}"
+            t0 = time.perf_counter()
+            srv.start()
+            log(f"[telemetry:serve] dashboard {base}; warmup of "
+                f"{len(srv.batcher.ladder.rungs)} rungs "
+                f"{time.perf_counter() - t0:.2f}s")
+
+            def scraper():
+                while not stop.is_set():
+                    for path in ("/metrics", "/trace.json"):
+                        try:
+                            scrape(base + path)
+                            scrapes[path] += 1
+                        except Exception as exc:       # raised below
+                            errors.append(f"{path}: {exc!r}")
+                    stop.wait(TEL_SCRAPE_S)
+
+            thread = threading.Thread(target=scraper, daemon=True)
+            thread.start()
+            for fn in ctrs.values():            # the main path starts here
+                fn.launches = 0
+            d0 = srv.runner.dispatches
+            replies, wall = tel_pass(srv, requests, "tel")
+            launches = {name: fn.launches for name, fn in ctrs.items()}
+            dispatches = srv.runner.dispatches - d0
+            check_replies("telemetry:serve", replies, refs)
+            for name, per in expect.items():
+                if launches[name] != per * dispatches or not dispatches:
+                    raise AssertionError(
+                        f"[telemetry:serve] {name}: {launches[name]} "
+                        f"launches for {dispatches} dispatches, expected "
+                        f"{per} each")
+            n_images = sum(x.shape[0] for x in requests)
+            rates = {"o": [n_images / wall], "N": []}
+            for w in TEL_WINDOWS:
+                telemetry.set_enabled(w == "o")
+                try:
+                    _, wall = tel_pass(srv, requests, f"tel{w}")
+                finally:
+                    telemetry.set_enabled(True)
+                rates[w].append(n_images / wall)
+            stop.set()
+            thread.join(30)
+            if errors or not scrapes["/metrics"]:
+                raise AssertionError(f"[telemetry:serve] scrapes "
+                                     f"{dict(scrapes)}, errors {errors[:3]}")
+            text = scrape(base + "/metrics").decode()
+            n_req = len(requests) * (1 + len(TEL_WINDOWS))
+            sv, bt = '{component="serving"}', '{component="batcher"}'
+            got = {"served": exposition(text, f"znicz_served_total{sv}"),
+                   "latency_count": exposition(
+                       text, f"znicz_request_latency_seconds_count{sv}"),
+                   "batches": exposition(text, f"znicz_batches_total{bt}"),
+                   "rows": exposition(text,
+                                      f"znicz_batched_rows_total{bt}")}
+            want = {"served": srv.served, "latency_count": n_req,
+                    "batches": srv.batcher.batches,
+                    "rows": n_images * (1 + len(TEL_WINDOWS))}
+            if got != want or srv.served != n_req:
+                raise AssertionError(f"[telemetry:serve] /metrics {got} "
+                                     f"against the server's {want}")
+            tids = {e[5]["trace_id"] for e in telemetry.tracer().events()
+                    if e[0] == "serving" and e[1] == "reply" and e[5]
+                    and e[5].get("replica") == "tel-0"}
+            missing = [i for i in range(len(requests))
+                       if f"tel-{i}" not in tids
+                       and f"telo-{i}" not in tids]
+            chrome = json.loads(scrape(base + "/trace.json"))
+            if missing or not chrome["traceEvents"]:
+                raise AssertionError(f"[telemetry:serve] no reply span for "
+                                     f"requests {missing[:5]}")
+        log(f"[telemetry:serve] {card}: {len(requests)} requests, "
+            f"{n_images} images, {dispatches} dispatches, "
+            f"launches={launches}; /metrics {got} equal the server's; "
+            f"{scrapes['/metrics']} /metrics and {scrapes['/trace.json']} "
+            f"/trace.json scrapes during the passes; images/s telemetry on "
+            f"{[round(r, 1) for r in rates['o']]}, off "
+            f"{[round(r, 1) for r in rates['N']]} (windows "
+            f"o{TEL_WINDOWS}): off/on median "
+            f"{np.median(rates['N']) / np.median(rates['o']):.3f}")
+        return launches
+    finally:
+        stop.set()
+        del root.common.serving.web_port
+        if srv is not None:
+            srv.stop()
+        if status is not None:
+            status.stop()
+
+
+def telemetry_train(torch, card, ctrs):
+    """Phase 28 (b): full-width AlexNet under ``fused`` for one epoch of
+    4 TRAIN minibatches (a segment of 3 steps, captured, and the tail)
+    under ``--profile-dir``'s code path, then again at ``scan_chunk`` 1
+    (uncaptured): the trace parses and holds one ``train_step#<step>``
+    range a train dispatch, K1/K1b/K2/K2b launch 2/2/3/3 a train step,
+    the kernels are named in the trace (inside the replays if the
+    profiler sees them there), and the trainer's ``train_steps`` and
+    ``images`` counters equal the minibatches and images run, which
+    shows that no observation was captured into a graph.  Returns
+    {kernel: launches} of the captured run."""
+    from znicz_torch.__main__ import profiled
+    from znicz_torch.core import prng
+    from znicz_torch.core.config import root
+    from znicz_torch.decision import DecisionGD
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.samples.alexnet import training_workflow
+
+    data_path = root.alexnet.loader.get("data_path", "")
+    root.alexnet.loader.update(TEL_TRAIN_CFG)
+    root.alexnet.decision.max_epochs = 1
+    prng.reset(SEED)
+    wf = no_snapshots(training_workflow())
+    root.alexnet.loader.update(dict(TRAIN_CFG, data_path=data_path))
+    root.alexnet.decision.max_epochs = TRAIN_EPOCHS
+    n_train = wf.loader.class_lengths[2] // BATCH
+    expect = TRAIN_ROUTINGS["fused"][1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    out = {}
+    try:
+        for label, chunk in (("captured", None), ("scan_chunk_1", 1)):
+            knobs = dict(FUSED_KNOBS, **({} if chunk is None
+                                         else {"scan_chunk": chunk}))
+            prng.reset(SEED)
+            wf.loader.reset()
+            wf.decision = DecisionGD(max_epochs=1, fail_iterations=0)
+            with engine_knobs(**knobs):
+                trainer = FusedTrainer(wf)
+                for fn in ctrs.values():        # the main path starts here
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                with profiled(os.path.join(tmp, label)) as path:
+                    trainer.run()
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in ctrs.items()}
+            st = trainer.stats
+            for name, (per_train, per_eval) in expect.items():
+                want = per_train * st["train_steps"] \
+                    + per_eval * st["eval_steps"]
+                if launches[name] != want:
+                    raise AssertionError(
+                        f"[telemetry:train:{label}] {name}: "
+                        f"{launches[name]} launches, expected {want}")
+            t1 = time.perf_counter()
+            size = os.path.getsize(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            # the host's ranges; the card's copies of them
+            # (``gpu_user_annotation``) are counted apart
+            ranges = [e["name"] for e in events
+                      if str(e.get("name", "")).startswith("train_step#")
+                      and e.get("cat") == "user_annotation"]
+            gpu_ranges = sum(
+                1 for e in events if e.get("cat") == "gpu_user_annotation"
+                and str(e.get("name", "")).startswith("train_step#"))
+            dispatches = sum(n for (kind, _), n in trainer.segments.items()
+                             if kind == "train")
+            named = {name: sum(1 for e in events if e.get("cat") == "kernel"
+                               and re.search(pat, str(e.get("name", ""))))
+                     for name, pat in TEL_KERNEL_NAMES.items()}
+            counted = {"train_steps": trainer._m_train_steps.value,
+                       "images": trainer._m_images.value}
+            want = {"train_steps": n_train, "images": n_train * BATCH}
+            if len(ranges) != dispatches or counted != want:
+                raise AssertionError(
+                    f"[telemetry:train:{label}] {len(ranges)} train_step "
+                    f"ranges for {dispatches} train dispatches; counters "
+                    f"{counted}, expected {want}")
+            log(f"[telemetry:train:{label}] {card}: {st['train_steps']} "
+                f"train + {st['eval_steps']} eval steps ({st['captured_steps']}"
+                f" replays, {st['eager_steps']} eager) in {wall:.2f}s under "
+                f"the profiler; launches={launches}; trace "
+                f"{size / 2**20:.1f} MiB, {len(events)} events, parsed in "
+                f"{time.perf_counter() - t1:.2f}s: ranges {ranges} (and "
+                f"{gpu_ranges} on the card's timeline), kernels "
+                f"by name {named} (launch counters "
+                f"{ {n: launches[n] for n in named} }); trainer counters "
+                f"{counted} = the minibatches and images run")
+            out[label] = (launches, named)
+        launches, named = out["scan_chunk_1"]
+        if named != {n: launches[n] for n in named}:
+            raise AssertionError(f"[telemetry:train] the uncaptured trace "
+                                 f"names {named}, the counters say "
+                                 f"{ {n: launches[n] for n in named} }")
+        # the host cost of the trainer's telemetry a train segment (the
+        # range, two spans, a histogram observation, two counters), on
+        # objects of its own, against one train step on the card
+        from znicz_torch import telemetry
+
+        ring = telemetry.TraceRing(capacity=16384)
+        reg = telemetry.MetricsRegistry()
+        hist = reg.scope("t").histogram("step_seconds", size=4096)
+        steps_c, images_c = reg.scope("t").counter("a"), \
+            reg.scope("t").counter("b")
+        n = 20000
+        t0 = time.perf_counter()
+        for i in range(n):
+            with telemetry.step_annotation(i):
+                pass
+            ring.add("train", "dispatch:scan", t0, 1e-3,
+                     {"steps": 3, "step0": i})
+            ring.add("train", "flush", t0, 1e-3, {"steps": 3})
+            hist.observe(1e-2)
+            steps_c.inc(3)
+            images_c.inc(3 * BATCH)
+        seg_us = (time.perf_counter() - t0) / n * 1e6
+        idx = np.arange(BATCH)
+        with engine_knobs(**FUSED_KNOBS):
+            step_ms = cuda_ms(torch,
+                              lambda: trainer.train_step(idx, BATCH, 0),
+                              iters=5, warmup=1)
+        log(f"[telemetry:train] {card}: telemetry's host cost a train "
+            f"segment {seg_us:.2f} us (the range off, two spans, one "
+            f"observation, two counters); one train step {step_ms:.3f} ms "
+            f"on the device: {seg_us / (3 * step_ms * 1e3):.2e} of a "
+            f"3-step segment")
+        captured, cnamed = out["captured"]
+        log(f"[telemetry:train] {card}: kernels inside graph replays "
+            + ("are named in the trace" if cnamed == {
+                n: captured[n] for n in cnamed} else
+               f"are not all named in the trace ({cnamed} of "
+               f"{ {n: captured[n] for n in cnamed} }): shown by name from "
+               f"the scan_chunk 1 run"))
+        return captured
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def telemetry_fleet(torch, card, requests, refs, ctrs):
+    """Phase 28 (c): a balancer with two in-process full-width AlexNet
+    replicas (``fused``, rungs up to ``TEL_FLEET_BATCH``) and the
+    dashboard on the balancer: phase 3's requests of up to 16 rows
+    through it, 8 in flight, each within ``SERVE_TOL``; one request's
+    trace on ``/trace.json?fleet=1`` spans at least 3 origins;
+    ``/fleet.json`` sums the members; ``/events.json`` holds both
+    ``replica_joined``; ``/slo.json`` states the serving objectives.
+    Returns {kernel: launches}."""
+    from znicz_torch import telemetry
+    from znicz_torch.serving import (InferenceClient, InferenceServer,
+                                     ReplicaBalancer)
+    from znicz_torch.web_status import WebStatus
+
+    expect = ZMQ_ROUTINGS["fused"][1]
+    bal, srvs, cli, status = None, [], None, None
+    try:
+        with engine_knobs(**FUSED_KNOBS):
+            bal = ReplicaBalancer("tcp://127.0.0.1:*", replica_ttl_s=10.0,
+                                  failover_timeout_s=30.0,
+                                  hedge=False).start()
+            status = WebStatus(port=0).start()
+            status.register_balancer(bal)
+            base = f"http://127.0.0.1:{status.port}"
+            t0 = time.perf_counter()
+            srvs = [InferenceServer(alexnet_served(torch),
+                                    bind="tcp://127.0.0.1:*",
+                                    max_batch=TEL_FLEET_BATCH,
+                                    max_delay_ms=5.0, queue_bound=4096,
+                                    request_ttl_s=600.0,
+                                    announce=bal.endpoint,
+                                    replica_id=f"tel-r{i}").start()
+                    for i in range(2)]
+            fleet_wait(lambda: bal.ready_count() == 2, "two ready",
+                       budget=120)
+            boot = time.perf_counter() - t0
+            cli = InferenceClient(bal.endpoint, timeout=600,
+                                  resend_after_s=600, breaker_failures=0)
+            for fn in ctrs.values():            # the main path starts here
+                fn.launches = 0
+            d0 = [s.runner.dispatches for s in srvs]
+            got = []
+            served = fleet_drive(cli, requests, refs,
+                                 lambda: len(got) >= len(requests),
+                                 "served", "telemetry:fleet", in_flight=8,
+                                 on_reply=got.append)
+            launches = {name: fn.launches for name, fn in ctrs.items()}
+            made = sum(s.runner.dispatches - d for s, d in zip(srvs, d0))
+            for name, per in expect.items():
+                if launches[name] != per * made or not made:
+                    raise AssertionError(
+                        f"[telemetry:fleet] {name}: {launches[name]} "
+                        f"launches for {made} dispatches")
+            best = {"origins": []}
+
+            def stitched():
+                for _, rep, _ in served:
+                    origins = telemetry.fleet_trace().trace_origins(
+                        rep["trace_id"])
+                    if len(origins) >= 3:
+                        best.update(tid=rep["trace_id"], origins=origins)
+                        return True
+                return False
+
+            fleet_wait(stitched, "a request's trace across 3 origins",
+                       budget=30)
+            chrome = json.loads(scrape(
+                f"{base}/trace.json?fleet=1&trace_id={best['tid']}"))
+            fleet_wait(lambda: telemetry.fleet_metrics().members(),
+                       "a member's registry snapshot", budget=30)
+            roll = json.loads(scrape(f"{base}/fleet.json"))
+            sums = [name for name, fam in roll["metrics"]["families"].items()
+                    if fam["kind"] == "counter"
+                    and fam["total"] != sum(fam["members"].values())]
+            events = json.loads(scrape(f"{base}/events.json?fleet=1"))
+            joined = {e.get("replica") for e in events["events"]
+                      if e["kind"] == "replica_joined"}
+            slo = json.loads(scrape(f"{base}/slo.json"))
+            objectives = slo["planes"].get("serving", {}).get(
+                "objectives", {})
+            text = scrape(f"{base}/metrics").decode()
+            if len(chrome["fleet"]["origins"]) < 3 or sums \
+                    or not roll["metrics"]["members"] \
+                    or not {"tel-r0", "tel-r1"} <= joined \
+                    or not {"availability", "latency_p99"} <= set(objectives) \
+                    or 'member="' not in text:
+                raise AssertionError(
+                    f"[telemetry:fleet] origins {chrome['fleet']['origins']}"
+                    f", unsummed {sums}, members "
+                    f"{list(roll['metrics']['members'])}, joined {joined}, "
+                    f"objectives {list(objectives)}")
+        log(f"[telemetry:fleet] {card}: two replicas up in {boot:.2f}s; "
+            f"{len(served)} requests through the balancer, {made} "
+            f"dispatches, launches={launches}; trace {best['tid']} across "
+            f"{chrome['fleet']['origins']} ({chrome['fleet']['spans']} "
+            f"spans); /fleet.json members {list(roll['metrics']['members'])}"
+            f", every counter the sum of its members'; replica_joined "
+            f"{sorted(joined)}; /slo.json serving "
+            + json.dumps({k: (o["state"], o["good"], o["bad"])
+                          for k, o in objectives.items()}))
+        return launches
+    finally:
+        if cli is not None:
+            cli.close()
+        if status is not None:
+            status.stop()
+        if bal is not None:
+            bal.stop()
+        for s in srvs:
+            s.stop()
+
+
+def telemetry_phase(torch, card):
+    """Phase 28: (a) served, (b) trained and (c) a fleet, full-width
+    AlexNet with telemetry on; see each part.  Returns {path: {kernel:
+    launches}}."""
+    from znicz_torch.serving.model import ModelRunner
+
+    t_phase = time.perf_counter()
+    ctrs = {name: fn for name, fn in counters().items()
+            if name in ("fused_block_fwd", "fused_block_bwd",
+                        "bias_relu_fwd", "bias_relu_bwd", "lrn_fwd",
+                        "lrn_bwd")}
+    requests = make_requests()
+    wf = alexnet_served(torch)
+    refs = [ModelRunner(wf, capture=False).infer(x) for x in requests]
+    out = {"telemetry:serve": telemetry_serve(torch, card, wf, requests,
+                                              refs, ctrs)}
+    del wf
+    torch.cuda.empty_cache()
+    out["telemetry:train"] = telemetry_train(torch, card, ctrs)
+    torch.cuda.empty_cache()
+    out["telemetry:fleet"] = telemetry_fleet(torch, card, requests, refs,
+                                             ctrs)
+    log(f"[telemetry] {card}: phase {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -9245,8 +9898,10 @@ def main(argv=None) -> int:
                          "'graphs': phase 19; 'serve_mesh': phase 20; "
                          "'fleet': phase 21; 'aot': phase 22; 'master': "
                          "phase 23; 'tree': phase 24; 'charlm': phase 25; "
-                         "'generate': phase 26; 'seq_parallel': phase 27")
+                         "'generate': phase 26; 'seq_parallel': phase 27; "
+                         "'telemetry': phase 28")
     ap.add_argument("--aot-child", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--race-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--trace", default="",
                     help="write the anchor runs' per-step losses and "
                          "per-epoch metrics to this JSON file")
@@ -9265,6 +9920,9 @@ def main(argv=None) -> int:
         if args.aot_child:
             print(json.dumps(aot_child(json.loads(args.aot_child))),
                   flush=True)
+            return 0
+        if args.race_child:
+            print(json.dumps(race_child(args.race_child)), flush=True)
             return 0
         return run_phases(torch, args)
     finally:
@@ -9323,12 +9981,14 @@ def run_phases(torch, args) -> int:
         aot, master = "aot" in names, "master" in names
         tree, charlm = "tree" in names, "charlm" in names
         generate, seq_parallel = "generate" in names, "seq_parallel" in names
+        telemetry = "telemetry" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
                   "segments", "deep", "shard", "snapshots", "zmq",
                   "graphs", "serve_mesh", "fleet", "aot", "master", "tree",
-                  "charlm", "generate", "seq_parallel", *AE_SOM_RUNS)]
+                  "charlm", "generate", "seq_parallel", "telemetry",
+                  *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -9447,7 +10107,8 @@ def run_phases(torch, args) -> int:
                                  (charlm, charlm_phase, "phase 25"),
                                  (generate, generate_phase, "phase 26"),
                                  (seq_parallel, seq_parallel_phase,
-                                  "phase 27")):
+                                  "phase 27"),
+                                 (telemetry, telemetry_phase, "phase 28")):
             if not flag:
                 continue
             for label, launches in phase(torch, card).items():
@@ -9744,6 +10405,17 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 27")
+
+    # -- phase 28: telemetry on the served, trained and fleet paths: the
+    # -- dashboard scraped under load, a profiled train run, a stitched
+    # -- trace across the balancer and its replicas --------------------
+    for label, launches in telemetry_phase(torch, card).items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][label] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 28")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

@@ -415,7 +415,10 @@ def test_heartbeat_carries_the_warm_keys(aot_config):
         assert aot_config.is_dir()
         jsrv = JServer(jax_workflow(tiny_layers()), max_batch=4,
                        warmup=False)
-        assert set(beat) == set(jsrv._heartbeat_base())
+        assert set(srv._heartbeat_base()) == set(jsrv._heartbeat_base())
+        assert "origin" in beat and set(beat) - set(
+            jsrv._heartbeat_base()) <= {"origin", "spans", "events",
+                                        "metrics"}
     finally:
         srv.stop()
 

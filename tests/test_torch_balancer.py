@@ -879,12 +879,17 @@ def test_real_cpu_alexnet_replica_through_the_balancer(alexnet_pair):
                 set(stats["p99_ms_by_bucket"])
             assert member["warm_source"] == "compiled"
             assert member["device_count"] == 1
-            # the beat carries the reference's base keys, no more
+            # the beat carries the reference's base keys and its fleet
+            # observability keys (origin always; spans, events and the
+            # registry's snapshot when there is something to ship)
             from znicz_tpu.serving import InferenceServer as JServer
 
             jsrv = JServer(jwf, max_batch=4, warmup=False)
-            assert set(srv.heartbeat_payload()) == \
-                set(jsrv._heartbeat_base())
+            beat = srv.heartbeat_payload()
+            assert set(srv._heartbeat_base()) == set(jsrv._heartbeat_base())
+            assert "origin" in beat and set(beat) - set(
+                jsrv._heartbeat_base()) <= {"origin", "spans", "events",
+                                            "metrics"}
             # rollback is the replica's command (the balancer's waves send
             # it over the data plane); with nothing kept it is refused
             direct = InferenceClient(srv.endpoint, timeout=30.0,

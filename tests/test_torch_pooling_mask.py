@@ -187,11 +187,17 @@ PORTED_A4 = {"remat": True, "scan_chunk": 4, "async_snapshot": False,
              "staging_donate": False, "pipeline_depth": 2, "backend": "cpu",
              "fuse": False, "xla_latency_hiding": True, "train_shard": True,
              "snapshot_format": "orbax", "snapshot_sharded": True}
+#: the training SLO's knobs, read by the master since telemetry was ported
+PORTED_OBS_SLO = {"obs_slo_apply_progress": 0.9,
+                  "obs_slo_fast_window_s": 30.0,
+                  "obs_slo_slow_window_s": 300.0}
 
 
 def test_defaults_and_ported_knobs_pass_the_check():
     """Every unported knob set to the reference's default, and every knob
-    the port reads set away from its default, passes the check."""
+    the port reads set away from its default (the training SLO's
+    ``obs_slo_*`` too, read since telemetry was ported), passes the
+    check."""
     from znicz_torch.core.config import (ENGINE_DEFAULTS,
                                          UNPORTED_ENGINE_KNOBS,
                                          check_engine_knobs, root)
@@ -206,11 +212,14 @@ def test_defaults_and_ported_knobs_pass_the_check():
         for key, value in PORTED_A4.items():
             assert value != ENGINE_DEFAULTS[key], key
             setattr(eng, key, value)
+        for key, value in PORTED_OBS_SLO.items():
+            assert value != ENGINE_DEFAULTS[key], key
+            setattr(eng, key, value)
         check_engine_knobs()
     finally:
         for key in list(UNPORTED_ENGINE_KNOBS) + ["mesh"]:
             delattr(eng, key.split(".")[0])
-        for key in PORTED_A4:
+        for key in list(PORTED_A4) + list(PORTED_OBS_SLO):
             delattr(eng, key)
         eng.pool_bwd = "sas"
         eng.fused_tail = False

@@ -530,8 +530,9 @@ def test_the_slice_knobs_are_read():
     snapshot formats (``snapshot_format``, ``snapshot_sharded``), the 22
     of the master/slave star, the 4 of its relay tree and
     ``seq_parallel`` left ``UNPORTED_ENGINE_KNOBS`` for
-    ``ENGINE_DEFAULTS`` (nested as the reference's); with the 3 knobs
-    still refused they are the reference's 61."""
+    ``ENGINE_DEFAULTS`` (nested as the reference's), and with telemetry
+    the training SLO's 3 ``obs_slo_*``: the port reads all the
+    reference's 61, and refuses none."""
     from znicz_torch.core.config import ENGINE_DEFAULTS, UNPORTED_ENGINE_KNOBS
     from znicz_tpu.core.config import ENGINE_DEFAULTS as JDEFAULTS
 
@@ -548,7 +549,7 @@ def test_the_slice_knobs_are_read():
     assert set(read) | set(UNPORTED_ENGINE_KNOBS) == set(ref)
     assert not set(read) & set(UNPORTED_ENGINE_KNOBS)
     assert len(ref) == 61
-    assert len(UNPORTED_ENGINE_KNOBS) == 3 and len(read) == 58
+    assert len(UNPORTED_ENGINE_KNOBS) == 0 and len(read) == 61
     for key in ("remat", "scan_chunk", "async_snapshot", "prefetch_segments",
                 "decode_workers", "stream_budget_mb", "async_staging",
                 "staging_donate", "pipeline_depth", "backend", "fuse",
@@ -563,6 +564,7 @@ def test_the_slice_knobs_are_read():
                 "master_snapshot_s", "wire_dtype", "wire_compress",
                 "min_slaves", "staleness_bound", "staleness_weight",
                 "tree_fanout", "relay_flush_s", "relay_child_ttl",
-                "elastic_rehome", "seq_parallel"):
+                "elastic_rehome", "seq_parallel", "obs_slo_apply_progress",
+                "obs_slo_fast_window_s", "obs_slo_slow_window_s"):
         assert key in read and key not in UNPORTED_ENGINE_KNOBS
         assert read[key] == ref[key], key

@@ -625,7 +625,13 @@ def test_every_reference_serving_key_is_read_or_refused():
                          "admission.client_queue_bound", "mesh.data",
                          "mesh.model", "aot_cache.enabled",
                          "aot_cache.dir", "seq.max_len",
-                         "seq.rungs"} | balance | {
+                         "seq.rungs", "web_port"} | balance | {
+                             f"obs.{key}" for key in (
+                                 "exemplars", "exemplar_window_s",
+                                 "metrics_every_beats", "slo_availability",
+                                 "slo_p99_ms", "slo_ttft_ms",
+                                 "slo_inter_token_ms", "slo_fast_window_s",
+                                 "slo_slow_window_s")} | {
                              f"generate.{key}" for key in (
                                  "enabled", "max_new_tokens", "page_size",
                                  "num_pages", "prefill_chunk",
@@ -649,7 +655,11 @@ def test_every_reference_serving_key_is_read_or_refused():
     # of fixed-shape samples refuses it by the reference's reason
     pytest.param("generate.enabled", True, None,
                  id="generate.enabled-True-A.8"),
-    ("obs.exemplars", 4, "A.9"), ("web_port", 8080, "A.9"),
+    # telemetry's keys are read since it was ported (under their old
+    # ids): the exemplar window by the server, the dashboard's port by
+    # the launcher
+    pytest.param("obs.exemplars", 4, None, id="obs.exemplars-4-A.9"),
+    pytest.param("web_port", 8080, None, id="web_port-8080-A.9"),
     # the seq axis is read since sequences were ported (under its old id)
     pytest.param("seq.max_len", 16, None, id="seq.max_len-16-A.8"),
     # the replica fleet's keys are read since the balancer was ported
@@ -691,6 +701,16 @@ def test_a_refused_serving_key_raises_by_name(mnist_pair, key, value, item):
             srv = InferenceServer(twf, warmup=False)
             assert srv.seq_max_len == srv.batcher.ladder.max_len == value
             assert srv.batcher.ladder.seq_rungs[-1] == value
+            return
+        if item is None and key.startswith("obs."):
+            srv = InferenceServer(twf, warmup=False)
+            assert srv._exemplar_cap == value
+            return
+        if item is None and key == "web_port":
+            from znicz_torch.__main__ import serving_web_port
+
+            InferenceServer(twf, warmup=False)
+            assert serving_web_port() == value
             return
         if item is None:                      # read: the server takes it
             srv = InferenceServer(twf, warmup=False)

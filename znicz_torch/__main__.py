@@ -5,7 +5,7 @@ paths of ``znicz_tpu/launcher.py``):
                            kanji,video_ae,yale_faces,charlm}
                           [root.x.y=value ...]
                           [--device cpu] [--seed N] [--fused] [--fitness]
-                          [--snapshot PATH]
+                          [--snapshot PATH] [--profile DIR | --profile-dir DIR]
                           [--serve [BIND]] [--replica-id ID]
                           [--announce EP] [--aot-cache [DIR]] [--generate]
                           [--master [BIND]] [--master-resume FILE]
@@ -43,6 +43,21 @@ exits 3.  The precision knobs are dotted
 overrides, as in the reference: ``root.common.engine.compute_dtype=bf16``
 (or ``precision``), ``state_dtype=bfloat16`` and
 ``master_dtype=bfloat16`` (``FusedTrainer`` only).
+
+``--profile DIR`` captures a ``torch.profiler`` trace of the whole run,
+the card's kernels with the host's calls (CUDA activity on the card),
+and writes it into DIR as Chrome trace-event JSON
+(``trace_<pid>.json``: open it in Perfetto or ``chrome://tracing``).
+``--profile-dir DIR`` does the same and also arms the telemetry's step
+annotations: each fused train segment's dispatch is one named range
+``train_step#<first step>`` in the trace (``telemetry.step_annotation``);
+it wins over ``--profile`` when both are given.
+
+``root.common.serving.web_port`` starts a ``web_status.WebStatus`` (on
+127.0.0.1; 0 picks a free port) beside ``--serve`` and ``--balance``:
+``/metrics``, ``/trace.json``, ``/events.json``, ``/slo.json``,
+``/fleet.json``, ``/status.json``, ``/healthz`` and ``/readyz``; the
+run prints ``status dashboard -> http://127.0.0.1:<port>/``.
 
 ``--serve [BIND]`` (default ``tcp://*:5580``) builds the sample's
 workflow without training it (AlexNet's ``serving_workflow``: no
@@ -123,6 +138,7 @@ JSON line of the balancer's ledger and counters.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import inspect
 import json
@@ -141,6 +157,58 @@ SAMPLES = ("alexnet", "mnist", "cifar", "mnist_ae", "kohonen", "wine",
            "kanji", "video_ae", "yale_faces", "charlm")
 #: the samples trained on an MSE loss, whose finals are mean squared errors
 AUTOENCODERS = ("mnist_ae", "video_ae")
+
+
+def serving_web_port():
+    """``root.common.serving.web_port`` as an int, or None: no
+    dashboard."""
+    port = root.common.serving.get("web_port", None)
+    return None if port is None else int(port)
+
+
+@contextlib.contextmanager
+def profiled(directory: str, device=None, steps: bool = True):
+    """``torch.profiler.profile`` around the block, its trace written into
+    ``directory`` as Chrome trace-event JSON on exit; the trace's path is
+    yielded.  CUDA activity is recorded unless ``device`` is the CPU (by
+    default: when CUDA is there).  ``steps`` arms the telemetry's step
+    annotations (``--profile-dir``) for the block."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from znicz_torch import telemetry
+
+    on_card = (torch.device(device).type == "cuda" if device is not None
+               else torch.cuda.is_available())
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"trace_{os.getpid()}.json")
+    if steps:
+        telemetry.set_profile_steps(True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield path
+    finally:
+        if steps:
+            telemetry.set_profile_steps(False)
+        # written also when the run failed, unless the profiler cannot
+        # stop (then its own error propagates)
+        prof.stop()
+        prof.export_chrome_trace(path)
+
+
+def start_web_status():
+    """A ``WebStatus`` on ``root.common.serving.web_port`` (None: not
+    configured), started."""
+    port = serving_web_port()
+    if port is None:
+        return None
+    from znicz_torch.web_status import WebStatus
+
+    return WebStatus(port=port).start()
 
 
 def finals(sample: str, wf) -> dict:
@@ -269,6 +337,13 @@ def main(argv=None) -> int:
                     help="with --autoscale-max: a command that starts one "
                          "replica announcing to this balancer; {announce} "
                          "and {replica_id} are substituted")
+    ap.add_argument("--profile", default="", metavar="DIR",
+                    help="capture a torch.profiler trace of the whole run "
+                         "into DIR (Chrome trace-event JSON)")
+    ap.add_argument("--profile-dir", default="", metavar="DIR",
+                    help="as --profile, with each fused train segment's "
+                         "dispatch a named range train_step#<step> in "
+                         "the trace (wins over --profile)")
     ap.add_argument("--fitness", action="store_true",
                     help="after the run, print a last JSON line with its "
                          "fitness (genetics.SubprocessEvaluator reads it)")
@@ -382,7 +457,14 @@ def main(argv=None) -> int:
         if "snapshot" not in inspect.signature(mod.run).parameters:
             ap.error(f"{args.workflow} does not resume from a snapshot")
         kwargs["snapshot"] = args.snapshot
-    wf = mod.run(device=args.device, **kwargs)
+    profile_dir = args.profile_dir or args.profile
+    if profile_dir:
+        with profiled(profile_dir, args.device,
+                      steps=bool(args.profile_dir)) as path:
+            wf = mod.run(device=args.device, **kwargs)
+        print(f"profiler trace -> {path}", flush=True)
+    else:
+        wf = mod.run(device=args.device, **kwargs)
     stats = wf.train_stats
     # the fused trainer, when it ran (the SOM's own unit is named trainer
     # too, and has no compute_dtype)
@@ -559,6 +641,12 @@ def serve(mod, args) -> int:
         wf, bind=args.serve, snapshot=args.snapshot,
         max_requests=None if max_requests is None else int(max_requests),
         replica_id=args.replica_id, announce=args.announce)
+    status = start_web_status()
+    if status is not None:
+        status.register(wf)
+        status.register_inference(server)
+        print(f"status dashboard -> http://127.0.0.1:{status.port}/",
+              flush=True)
     server.start()
     print(f"serving {args.workflow} at {server.endpoint} (snapshot: "
           f"{args.snapshot or 'fresh init'}, device {wf.device})",
@@ -582,6 +670,8 @@ def serve(mod, args) -> int:
         pass
     finally:
         server.stop()
+        if status is not None:
+            status.stop()
     if server.error is not None:
         print(f"error: the compute loop died: {server.error!r}",
               file=sys.stderr)
@@ -623,6 +713,11 @@ def balance(args) -> int:
     balancer = ReplicaBalancer(
         bind=args.balance, replicas=replicas,
         max_requests=None if max_requests is None else int(max_requests))
+    status = start_web_status()
+    if status is not None:
+        status.register_balancer(balancer)
+        print(f"status dashboard -> http://127.0.0.1:{status.port}/",
+              flush=True)
     balancer.start()
     static = ", ".join(replicas) if replicas \
         else "none — awaiting --announce heartbeats"
@@ -673,6 +768,8 @@ def balance(args) -> int:
         pass
     finally:
         balancer.stop()
+        if status is not None:
+            status.stop()
         with plock:
             spawned = list(procs.values())
         for proc in spawned:            # spawned replicas end with us

@@ -44,9 +44,12 @@ the delta from the leaves gathered whole.  When the master says done, or
 rank 0 gives up, every rank leaves at once.  Its handshake carries the
 mesh's shape.
 
-Deliberate differences from the reference: the counters are plain
-integers under a lock, and spans and fleet-observability payloads are
-left out (ROADMAP A.9).
+Telemetry: the counters are the ``slave`` scope's registry counters,
+read through attributes of the same names; each job is a ``slave/job``
+span carrying the job's ``trace_id``.  The client names itself
+``slave-<id>`` in the fleet, and each update carries a bounded batch of
+its exported spans and fresh journal events (:meth:`Client._obs_payload`)
+to the master, or to a relay, which forwards them upstream.
 """
 
 from __future__ import annotations
@@ -58,6 +61,9 @@ import uuid
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from znicz_torch import telemetry
+from znicz_torch.telemetry.metrics import registered_property
 import torch
 
 from znicz_torch.core.config import root
@@ -205,7 +211,15 @@ class Client:
         self.endpoint = endpoint
         self.slave_id = slave_id or uuid.uuid4().hex[:8]
         self._lock = threading.Lock()
-        self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
+        _sc = telemetry.scope("slave")
+        self._m = {name: _sc.counter(name, help)
+                   for name, help in self.COUNTERS.items()}
+        self._tracer = telemetry.tracer()
+        # this slave's fleet identity and span exporter: its spans and
+        # journal events ride its updates upstream
+        telemetry.set_identity(f"slave-{self.slave_id}")
+        self._exporter = telemetry.exporter()
+        self._obs_ev_seq = 0            # the journal's piggyback cursor
         self.wire_dtype = "float32"     # from the config in run()
         self._delta_encoder = None
         #: a simulated preemption: run() exits at its next loop top with
@@ -221,8 +235,25 @@ class Client:
         self._fallback_endpoint: Optional[str] = None
 
     def _inc(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[name] += n
+        self._m[name].inc(n)
+
+    def _obs_payload(self) -> Dict:
+        """The fleet observability piggyback of one update: a bounded
+        batch of this slave's exported spans and its fresh journal
+        events, under its fleet origin; empty when there is nothing to
+        ship."""
+        out: Dict = {}
+        spans = self._exporter.drain(telemetry.span_export_batch())
+        if spans:
+            out["spans"] = spans
+        ev = telemetry.journal().since(
+            self._obs_ev_seq, limit=telemetry.span_export_batch())
+        if ev:
+            self._obs_ev_seq = ev[-1]["seq"]
+            out["events"] = ev
+        if out:
+            out["origin"] = telemetry.identity()
+        return out
 
     @property
     def breaker(self) -> Optional[CircuitBreaker]:
@@ -563,8 +594,12 @@ class Client:
                           for name, layer in params.items()}
                 train = bool(rep.get("train"))
                 t0 = time.perf_counter()
-                metrics = self._run_minibatch(job, train)
-                deltas = self._deltas_since(before) if train else None
+                # a span correlated to the master's job by trace_id
+                with self._tracer.span(
+                        "slave", "job", job_id=rep.get("job_id"),
+                        trace_id=rep.get("trace_id"), train=train):
+                    metrics = self._run_minibatch(job, train)
+                    deltas = self._deltas_since(before) if train else None
                 self.job_seconds.append(time.perf_counter() - t0)
                 update_frames, _ = wire.encode_message(
                     {"cmd": "update", "id": self.slave_id,
@@ -572,7 +607,8 @@ class Client:
                      "trace_id": rep.get("trace_id"),
                      "step": rep.get("step"),
                      "deltas": self._delta_encoder.encode(deltas),
-                     "metrics": metrics})
+                     "metrics": metrics,
+                     **self._obs_payload()})
         finally:
             if prefetcher is not None:
                 prefetcher.stop()
@@ -821,14 +857,6 @@ class FusedClient(Client):
         return metrics if "minibatches" in job else metrics[0]
 
 
-def _counter_property(name: str):
-    def get(self) -> int:
-        with self._lock:
-            return self._counts[name]
-
-    return property(get, doc=Client.COUNTERS[name])
-
-
-for _name in Client.COUNTERS:
-    setattr(Client, _name, _counter_property(_name))
-del _name
+for _name, _help in Client.COUNTERS.items():
+    setattr(Client, _name, registered_property(_name, _help))
+del _name, _help

@@ -222,6 +222,12 @@ ENGINE_DEFAULTS = {
     "slave_breaker_failures": 4,  # consecutive failures open the breaker
     "ingress_rate_limit": 0.0,    # job requests a second a slave (0: off)
     "ingress_rate_burst": 0.0,    # its bucket's burst
+    # the training plane's SLO: apply progress (accepted delta applies
+    # against refused, stale and quarantined ones), advisory burn rates
+    # on /slo.json, never a readiness gate
+    "obs_slo_apply_progress": 0.99,
+    "obs_slo_fast_window_s": 60.0,
+    "obs_slo_slow_window_s": 600.0,
     "quarantine_norm_mult": 25.0,     # refuse deltas this x the median norm
     "master_snapshot_s": 10.0,    # the crash-resume file's period (s)
     "wire_dtype": "float32",      # deltas on the wire: bf16 / int8
@@ -240,13 +246,9 @@ ENGINE_DEFAULTS = {
 #: (``znicz_tpu/core/config.py`` ENGINE_DEFAULTS), which the port does not
 #: read yet: knob (dotted below the engine) -> (the reference's default,
 #: the ROADMAP item that ports it).  :func:`check_engine_knobs` refuses
-#: each set away from its default.
-UNPORTED_ENGINE_KNOBS = {
-    # A.9, telemetry: the training plane's SLO
-    **{key: (default, "A.9") for key, default in (
-        ("obs_slo_apply_progress", 0.99), ("obs_slo_fast_window_s", 60.0),
-        ("obs_slo_slow_window_s", 600.0))},
-}
+#: each set away from its default.  Empty since the telemetry port read
+#: the last of them (``obs_slo_*``); the check stays for the next.
+UNPORTED_ENGINE_KNOBS: Dict[str, Tuple[Any, str]] = {}
 
 _UNSET = object()
 _warned_latency_hiding = False
@@ -282,17 +284,9 @@ def check_engine_knobs() -> None:
 #: yet: key (dotted below ``serving``) -> (the reference's default, the
 #: ROADMAP item that ports it).  ``serving/frontend.DEFAULTS`` names the
 #: keys the port reads; :func:`check_serving_keys` refuses each of these
-#: set away from its default.
-UNPORTED_SERVING_KEYS = {
-    "web_port": (None, "A.9"),
-    # A.9, telemetry: exemplars, heartbeat metrics, SLOs
-    **{f"obs.{key}": (default, "A.9") for key, default in (
-        ("exemplars", 8), ("exemplar_window_s", 60.0),
-        ("metrics_every_beats", 8), ("slo_availability", 0.999),
-        ("slo_p99_ms", 250.0), ("slo_ttft_ms", 500.0),
-        ("slo_inter_token_ms", 100.0), ("slo_fast_window_s", 60.0),
-        ("slo_slow_window_s", 600.0))},
-}
+#: set away from its default.  Empty since the telemetry port read the
+#: last of them (``web_port`` and ``obs.*``).
+UNPORTED_SERVING_KEYS: Dict[str, Tuple[Any, str]] = {}
 
 
 def check_serving_keys() -> None:

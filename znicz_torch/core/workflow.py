@@ -4,8 +4,8 @@
 ``StartPoint`` fires first; a unit fires when all its control
 predecessors fired in the wave, a ``Repeater`` when any did (it closes
 the training loop); ``EndPoint`` stops the workflow.  The loop is a
-deterministic single-threaded queue.  The reference's telemetry span per
-unit firing is not ported yet.
+deterministic single-threaded queue.  Each unit firing is a ``unit``
+span named after the unit (its timing reused: no extra clock reads).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import time
 from collections import deque
 from typing import List, Optional
 
+from znicz_torch import telemetry
 from znicz_torch.core.mutable import Bool
 from znicz_torch.core.units import TrivialUnit, Unit
 
@@ -98,6 +99,7 @@ class Workflow(Unit):
         self.stopped.set(False)
         for unit in self.units:
             unit.reset_links()
+        tracer = telemetry.tracer()
         started_run = time.perf_counter()
         queue: deque = deque([self.start_point])
         queued = {self.start_point}
@@ -109,8 +111,11 @@ class Workflow(Unit):
             if not bool(unit.gate_skip):
                 started = time.perf_counter()
                 unit.run()
-                unit.run_time += time.perf_counter() - started
+                elapsed = time.perf_counter() - started
+                unit.run_time += elapsed
                 unit.run_count += 1
+                if tracer.enabled:
+                    tracer.add("unit", unit.name, started, elapsed)
             for target in unit.links_to:
                 target.links_from[unit] = True
                 fire = (any(target.links_from.values()) if target.gate_any

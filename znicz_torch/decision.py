@@ -1,6 +1,7 @@
 """Training control (port of ``DecisionBase``, ``DecisionGD`` and
-``DecisionMSE`` in ``znicz_tpu/decision.py``; its telemetry gauges wait
-for the telemetry port).
+``DecisionMSE`` in ``znicz_tpu/decision.py``, with its telemetry gauges:
+the ``decision`` scope's ``epoch_number``, ``best_metric`` and
+``train_complete``, sampled at collect time).
 
 A unit run once per minibatch, after the evaluator.  Its inputs are
 linked from the loader (``minibatch_class``, ``last_minibatch``,
@@ -26,6 +27,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from znicz_torch import telemetry
 from znicz_torch.core.mutable import Bool
 from znicz_torch.core.units import Unit
 from znicz_torch.loader.base import TEST, TRAIN, VALID
@@ -61,6 +63,19 @@ class DecisionBase(Unit):
         self._fails = 0
         self.on_epoch_end: List[Callable] = []    # callbacks(decision)
         self.train_losses: List[float] = []
+        # the decision loop's live state as collect-time gauges: no
+        # hot-path writes; weak_fn, so the process-wide registry does not
+        # pin the decision (and the workflow behind it) after the run
+        _sc = telemetry.scope("decision")
+        _sc.gauge("epoch_number", "current epoch",
+                  fn=telemetry.weak_fn(
+                      self, lambda d: float(d.epoch_number)))
+        _sc.gauge("best_metric", "best validation metric so far",
+                  fn=telemetry.weak_fn(
+                      self, lambda d: float(d.best_metric)))
+        _sc.gauge("train_complete", "1 once training stopped",
+                  fn=telemetry.weak_fn(
+                      self, lambda d: float(bool(d.complete))))
 
     def _accumulate(self, klass: int) -> None:
         self._acc_loss[klass] += float(self.minibatch_loss)

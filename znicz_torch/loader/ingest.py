@@ -141,27 +141,50 @@ class DeviceStager:
     ``submit(idx_rows)`` starts ``assemble(idx_rows)`` for a segment the
     trainer expects (False when it is pending already or ``depth`` are
     outstanding).  ``take(idx_rows)`` returns the staged segment of
-    exactly these rows: a pending one is a hit (the wait for it is kept
-    in ``waits_ms``), anything else is assembled inline, a miss.  A
+    exactly these rows: a pending one is a hit (the wait for it is
+    observed), anything else is assembled inline, a miss.  A
     prediction still pending from one miss to the next is stale and is
     dropped (an eviction); a single miss drops nothing, since at a cold
     start the right predictions wait behind it.  The key of a segment is
     its stacked index rows, so a wrong prediction is dropped, never
-    served."""
+    served.
+
+    Telemetry (the ``ingest`` scope): the hits, misses and evictions are
+    ``stage_hits``, ``stage_misses`` and ``stage_evictions``, the waits
+    and assemblies the ``ingest_wait_ms`` and ``h2d_copy_ms`` rings,
+    ``staging_occupancy`` the segments pending; each assembly is an
+    ``ingest/stage`` span and each wait an ``ingest/wait`` span."""
 
     def __init__(self, assemble: Callable[[List[np.ndarray]], object],
                  depth: int = 2):
+        from znicz_torch import telemetry
+
         self._assemble = assemble
         self.depth = max(1, int(depth))
         self._ex: Optional[ThreadPoolExecutor] = None
         self._pending: Dict[bytes, object] = {}
         self._stale: set = set()
-        self.counts = {"stage_hits": 0, "stage_misses": 0,
-                       "stage_evictions": 0}
+        _sc = telemetry.scope("ingest")
+        self._tracer = telemetry.tracer()
+        self._m = {name: _sc.counter(name, help) for name, help in (
+            ("stage_hits", "take() segments served by a background-staged "
+                           "future"),
+            ("stage_misses", "take() segments assembled inline (not "
+                             "predicted, or capacity-dropped)"),
+            ("stage_evictions", "pending predictions dropped on a take() "
+                                "miss (stale: their slot and buffers are "
+                                "reclaimed)"))}
         #: the training thread's wait per hit and the assembly time per
         #: segment (host gather to the copy's launch), in ms
-        self.waits_ms: List[float] = []
-        self.assemble_ms: List[float] = []
+        self._m_wait_ms = _sc.histogram(
+            "ingest_wait_ms", "training-thread wait per staged segment "
+            "(ms)", size=2048)
+        self._m_h2d_ms = _sc.histogram(
+            "h2d_copy_ms", "host gather + copy launch per staged segment "
+            "(ms), measured on the stager thread", size=2048)
+        self._m_occupancy = _sc.gauge(
+            "staging_occupancy", "staged segments in flight or ready "
+            "(the ping-pong bound: depth)")
 
     @staticmethod
     def key_of(idx_rows) -> bytes:
@@ -179,7 +202,11 @@ class DeviceStager:
     def _timed_assemble(self, idx_rows):
         t0 = time.perf_counter()
         out = self._assemble(idx_rows)
-        self.assemble_ms.append((time.perf_counter() - t0) * 1e3)
+        dt = time.perf_counter() - t0
+        self._m_h2d_ms.observe(dt * 1e3)
+        if self._tracer.enabled:
+            self._tracer.add("ingest", "stage", t0, dt,
+                             {"steps": len(idx_rows)})
         return out
 
     def submit(self, idx_rows) -> bool:
@@ -188,6 +215,7 @@ class DeviceStager:
             return False
         self._pending[key] = self._executor().submit(self._timed_assemble,
                                                      list(idx_rows))
+        self._m_occupancy.set(len(self._pending))
         return True
 
     def take(self, idx_rows):
@@ -197,15 +225,22 @@ class DeviceStager:
             stale = self._stale & set(self._pending)
             for k in stale:
                 del self._pending[k]
-            self.counts["stage_evictions"] += len(stale)
+            if stale:
+                self._m["stage_evictions"].inc(len(stale))
             self._stale = set(self._pending)
-            self.counts["stage_misses"] += 1
+            self._m_occupancy.set(len(self._pending))
+            self._m["stage_misses"].inc()
             return self._timed_assemble(list(idx_rows))
         self._stale.discard(key)
-        self.counts["stage_hits"] += 1
+        self._m_occupancy.set(len(self._pending))
+        self._m["stage_hits"].inc()
         t0 = time.perf_counter()
         out = fut.result()
-        self.waits_ms.append((time.perf_counter() - t0) * 1e3)
+        dt = time.perf_counter() - t0
+        self._m_wait_ms.observe(dt * 1e3)
+        if self._tracer.enabled:
+            self._tracer.add("ingest", "wait", t0, dt,
+                             {"steps": len(idx_rows)})
         return out
 
     @property
@@ -219,13 +254,15 @@ class DeviceStager:
             fut.exception()
 
     def stats(self) -> Dict[str, object]:
-        return {**self.counts, "outstanding": len(self._pending),
-                "wait_ms_p50": (float(np.median(self.waits_ms))
-                                if self.waits_ms else None),
-                "wait_ms_max": (float(np.max(self.waits_ms))
-                                if self.waits_ms else None),
-                "assemble_ms_p50": (float(np.median(self.assemble_ms))
-                                    if self.assemble_ms else None)}
+        waits, assembles = self._m_wait_ms.window(), self._m_h2d_ms.window()
+        return {**{name: int(m.value) for name, m in self._m.items()},
+                "outstanding": len(self._pending),
+                "wait_ms_p50": (float(np.median(waits))
+                                if waits.size else None),
+                "wait_ms_max": (float(np.max(waits))
+                                if waits.size else None),
+                "assemble_ms_p50": (float(np.median(assembles))
+                                    if assembles.size else None)}
 
     def close(self) -> None:
         """Drop pending work; a running assembly finishes on its thread

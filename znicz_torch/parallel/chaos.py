@@ -229,14 +229,22 @@ class ChaosProxy:
     relays to the server's ROUTER at ``back_endpoint``.  Messages are
     numbered in arrival order across both directions and each takes one
     :class:`FaultSchedule` decision.  :attr:`counters` and :attr:`log`
-    (``(message_no, direction, action)``) record every decision."""
+    (``(message_no, direction, action)``) record every decision; the
+    counts are the ``chaos`` scope's ``faults`` family, labelled by
+    ``direction`` and ``action``."""
 
     def __init__(self, front_endpoint: str, back_endpoint: str,
                  schedule: FaultSchedule):
+        from znicz_torch import telemetry
+
         self.front_endpoint = front_endpoint
         self.back_endpoint = back_endpoint
         self.schedule = schedule
-        self._counts = {(d, a): 0 for d in ("req", "rep") for a in ACTIONS}
+        _sc = telemetry.scope("chaos")
+        self._fault_counters = {
+            (d, a): _sc.counter("faults", "injected proxy fault decisions",
+                                direction=d, action=a)
+            for d in ("req", "rep") for a in ACTIONS}
         self._lock = threading.Lock()
         self.log: List[Tuple[int, str, str]] = []
         self._frame_no = 0
@@ -249,9 +257,8 @@ class ChaosProxy:
     @property
     def counters(self) -> Dict[str, Dict[str, int]]:
         """``{direction: {action: count}}``."""
-        with self._lock:
-            return {d: {a: self._counts[(d, a)] for a in ACTIONS}
-                    for d in ("req", "rep")}
+        return {d: {a: self._fault_counters[(d, a)].value for a in ACTIONS}
+                for d in ("req", "rep")}
 
     def faults_toward(self, direction: str) -> int:
         """Faults a peer in ``direction``'s receive path sees as a timeout
@@ -291,8 +298,8 @@ class ChaosProxy:
                                (self.schedule.seed, int(frame_no), 0xC0))
 
     def _count(self, fno: int, direction: str, action: str) -> None:
+        self._fault_counters[(direction, action)].inc()
         with self._lock:
-            self._counts[(direction, action)] += 1
             self.log.append((fno, direction, action))
 
     def _relay(self, frames: List[bytes], direction: str, out,

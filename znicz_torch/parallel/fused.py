@@ -158,6 +158,17 @@ gradient is scattered back to those positions
 a mask of that (step, index).  In evaluation, and in serving, the module
 outputs its expectation.  Tests pass the reference's offsets through
 this seam.
+
+**Telemetry** (the ``trainer`` scope).  ``train_steps`` counts the TRAIN
+minibatches run (the tail's included, as the reference counts it),
+``images`` their images, and ``step_seconds`` (while telemetry is
+enabled) each accounted interval over its steps.  Spans: ``dispatch``
+around each train segment's dispatch, ``flush`` around its read-back,
+``tail`` and ``eval``.  Under ``--profile-dir`` each train segment's
+dispatch is one ``torch.profiler`` range ``train_step#<first step>``
+(``telemetry.step_annotation``).  All of it happens on the host around
+the dispatches: a replay runs no Python, so nothing is observed inside
+a captured step.
 """
 
 from __future__ import annotations
@@ -174,6 +185,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from znicz_torch import telemetry
 from znicz_torch.all2all import All2All, All2AllSoftmax
 from znicz_torch.attention import (MultiHeadAttention, SeqAll2AllSoftmax,
                                    seq_parallel_size)
@@ -418,6 +430,17 @@ class FusedTrainer:
                       "deep_discarded_eval_steps": 0, "collectives": 0,
                       "collective_bytes": 0, "collective_s": 0.0}
         self._stats_lock = threading.Lock()
+        # hot-loop metrics and spans: the progress counters always count
+        # (a dashboard must never read a live run as stalled); the step
+        # histogram and the spans only while telemetry is enabled
+        self._tracer = telemetry.tracer()
+        _sc = telemetry.scope("trainer")
+        self._m_train_steps = _sc.counter("train_steps",
+                                          "fused train steps dispatched")
+        self._m_images = _sc.counter("images", "training images consumed")
+        self._m_step_seconds = _sc.histogram(
+            "step_seconds", "per-step wall time (pipelined intervals)",
+            size=4096)
         #: (kind, length) -> segments dispatched
         self.segments: Counter = Counter()
         self._captures: Dict[tuple, StepGraph] = {}
@@ -1248,7 +1271,8 @@ class FusedTrainer:
         self._acct_last_end = None
 
     def _account(self, kind: str, images: int, t0: float,
-                 warm: Optional[Tuple[int, float]] = None) -> None:
+                 warm: Optional[Tuple[int, float]] = None,
+                 steps: int = 1, train_steps: int = 0) -> None:
         """Charge ``[max(t0, the last interval's end), now]``: with the
         one-deep flush a segment is read back while the next iteration
         runs, whose own ``t0`` came before, so plain ``now - t0``
@@ -1256,12 +1280,19 @@ class FusedTrainer:
         pipeline's (images, seconds) after its first epoch on the
         device's clock, replaces the warm figures: the card runs queued
         epochs while the host reads earlier ones, so a host interval would
-        be credited with work done in the one before."""
+        be credited with work done in the one before.  ``steps`` of the
+        interval (``train_steps`` of them TRAIN minibatches, whose images
+        are ``images``) feed the trainer's telemetry."""
         now = time.perf_counter()
         start = t0 if self._acct_last_end is None \
             else max(t0, self._acct_last_end)
         dt = max(now - start, 1e-9)
         self._acct_last_end = now
+        if self._tracer.enabled:
+            self._m_step_seconds.observe(dt / max(steps, 1))
+        if train_steps:
+            self._m_train_steps.inc(train_steps)
+            self._m_images.inc(images)
         st = self.stats
         st["wall_s"] += dt
         st["images"] += images
@@ -1477,12 +1508,21 @@ class FusedTrainer:
                 return
             seg, result, t0 = inflight
             inflight = None
+            t_flush = time.perf_counter()
             losses, n_errs, conf = self._sum_over_data(*result)
             epoch_conf = conf if epoch_conf is None else epoch_conf + conf
-            for s, loss, n_err in zip(seg, losses.tolist(), n_errs.tolist()):
+            losses, n_errs = losses.tolist(), n_errs.tolist()
+            if self._tracer.enabled:
+                # the host sync: waiting out the segment's device work and
+                # reading its metrics
+                self._tracer.add("train", "flush", t_flush,
+                                 time.perf_counter() - t_flush,
+                                 {"steps": len(seg)})
+            for s, loss, n_err in zip(seg, losses, n_errs):
                 self._feed_decision(s, (loss, n_err, None))
             self._account(f"train_{len(seg)}",
-                          sum(s["size"] for s in seg), t0)
+                          sum(s["size"] for s in seg), t0,
+                          steps=len(seg), train_steps=len(seg))
 
         while not bool(decision.complete):
             t_iter = time.perf_counter()
@@ -1498,9 +1538,21 @@ class FusedTrainer:
                     flush()
                 hyp_rows = self._hyper_matrix(self._hypers_rows(len(seg)))
                 staged, inputs = segment_inputs(seg)
-                result = self._segment("train", inputs,
-                                       [s["size"] for s in seg],
-                                       self.steps_done, hyp_rows)
+                # a named profiler range and a dispatch span around the
+                # segment's dispatch (host time: the device's lands in
+                # the flush)
+                t_disp = time.perf_counter()
+                step0 = self.steps_done
+                with telemetry.step_annotation(step0):
+                    result = self._segment("train", inputs,
+                                           [s["size"] for s in seg],
+                                           step0, hyp_rows)
+                if self._tracer.enabled:
+                    self._tracer.add(
+                        "train", "dispatch:scan" if len(seg) > 1
+                        else "dispatch:single", t_disp,
+                        time.perf_counter() - t_disp,
+                        {"steps": len(seg), "step0": step0})
                 self.stats["train_steps"] += len(seg)
                 consumed(staged)
                 self.steps_done += len(seg)
@@ -1524,14 +1576,19 @@ class FusedTrainer:
                 self._feed_decision(mb, (loss, n_err, conf))
                 if not bool(decision.gd_skip):
                     hyp, clips = self._host_row()
-                    self._step("train", inputs, mb["size"], self.steps_done,
-                               hyp, clips)
+                    with telemetry.step_annotation(self.steps_done):
+                        self._step("train", inputs, mb["size"],
+                                   self.steps_done, hyp, clips)
                     self.stats["train_steps"] += 1
                     self.stats["eager_steps"] += 1
                     self._advance_lr()
                 consumed(staged)
                 self.steps_done += 1
-                self._account("tail", mb["size"], t_iter)
+                if self._tracer.enabled:
+                    self._tracer.add("train", "tail", t_iter,
+                                     time.perf_counter() - t_iter,
+                                     {"epoch": int(mb["epoch_number"])})
+                self._account("tail", mb["size"], t_iter, train_steps=1)
             else:
                 flush()
                 # TEST or VALID: one class a segment, whose confusion
@@ -1548,7 +1605,13 @@ class FusedTrainer:
                         zip(seg, losses.tolist(), n_errs.tolist())):
                     self._feed_decision(s, (loss, n_err,
                                             conf if i == 0 else None))
-                self._account(f"eval_{len(seg)}", 0, t_iter)
+                if self._tracer.enabled:
+                    self._tracer.add("train", "eval", t_iter,
+                                     time.perf_counter() - t_iter,
+                                     {"steps": len(seg),
+                                      "class": int(mb["class"])})
+                self._account(f"eval_{len(seg)}", 0, t_iter,
+                              steps=len(seg))
             if bool(decision.epoch_ended):
                 self._epoch_end()
                 # consumed here: the next iteration may feed the Decision
@@ -1693,9 +1756,11 @@ class FusedTrainer:
             for i in range(0, len(mbs), chunk):
                 seg = mbs[i:i + chunk]
                 rows = None if hyp_rows is None else hyp_rows[i:i + len(seg)]
-                loss, n_err, c = self._segment(
-                    kind, self._resident_inputs(seg),
-                    [s["size"] for s in seg], step0 + i, rows)
+                with (telemetry.step_annotation(step0 + i)
+                      if kind == "train" else contextlib.nullcontext()):
+                    loss, n_err, c = self._segment(
+                        kind, self._resident_inputs(seg),
+                        [s["size"] for s in seg], step0 + i, rows)
                 losses.append(loss)
                 n_errs.append(n_err)
                 conf = c if conf is None else conf + c
@@ -1723,9 +1788,10 @@ class FusedTrainer:
         pre_tail = None
         if apply_tail:
             pre_tail = self._cloned_state()[0]
-            self._step("train", inputs, tail["size"], step0 + k,
-                       self._put(hyp_rows[k]),
-                       tuple(float(x) for x in hyp_rows[k, :, 7]))
+            with telemetry.step_annotation(step0 + k):
+                self._step("train", inputs, tail["size"], step0 + k,
+                           self._put(hyp_rows[k]),
+                           tuple(float(x) for x in hyp_rows[k, :, 7]))
             self.stats["eager_steps"] += 1
         self.steps_done = step0 + k + 1
         scalars += vecs + [torch.stack([loss, n_err.to(torch.float32)])]
@@ -1866,13 +1932,15 @@ class FusedTrainer:
             vals = torch.cat([inflight[i]["scalars"]
                               for i in range(n)]).cpu().numpy()
             st["deep_pulls"] += 1
-            images = off = 0
+            images = off = steps = train_steps = 0
             for _ in range(n):
                 rec = inflight.popleft()
                 size = rec["scalars"].shape[0]
                 got = self._flush_epoch(rec, vals[off:off + size], inflight)
                 images += got
                 off += size
+                train_steps += len(rec["train"])
+                steps += len(rec["train"]) + rec["n_eval"] - 1
                 if first["end"] is None:
                     first["end"] = rec["end"]
                 else:
@@ -1884,7 +1952,8 @@ class FusedTrainer:
             if first["last"] is not None:
                 warm = (first["images"],
                         self._seconds(first["end"], first["last"]))
-            self._account("epoch", images, t0, warm)
+            self._account("epoch", images, t0, warm, steps=steps,
+                          train_steps=train_steps)
 
         final = False
         while not bool(decision.complete):

@@ -27,6 +27,19 @@ thread's copy stream could be the capturing stream, its work captured
 into the graph and its events never fired (ROADMAP C.11).  A warm-up and
 capture hold :func:`capturing`: one thread of the process at a time
 queues work on the capture stream.
+
+cuBLAS workspaces.  PyTorch keeps one cuBLAS workspace for each (handle,
+stream) pair and hands a thread's handle to the next thread once it
+exits; a captured matmul bakes its workspace's address into the graph.
+Left alone, a graph captured on the capture stream would keep using the
+workspace that later eager matmuls on that stream (the next capture's
+warm-up, by any thread that gets the same handle) also use: a replay on
+another stream racing such a warm-up corrupts the product, or the
+kernel's own bookkeeping in the workspace (ROADMAP C.16).
+:meth:`StepGraph.capture` therefore drops the cached workspaces before
+and after each capture, as PyTorch's own graph trees do: the capture
+takes a workspace from its graph's memory pool, which no eager call ever
+gets.
 """
 
 from __future__ import annotations
@@ -150,9 +163,16 @@ class StepGraph:
 
         before = _read()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            self.outputs = body()
+        # the capture's matmuls take a workspace of the graph's pool, and
+        # no eager matmul on the capture stream is handed it afterwards
+        # (module docstring)
+        torch._C._cuda_clearCublasWorkspaces()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.outputs = body()
+        finally:
+            torch._C._cuda_clearCublasWorkspaces()
         after = _read()
         self.launches = [(a - b, sa - sb) for (a, sa), (b, sb)
                          in zip(after, before)]

@@ -31,13 +31,17 @@ register reply.  A relay whose upstream is gone re-homes to that
 upstream's own advertised upstream (one rung up the tree), and goes
 silent when there is none.
 
-Deliberate differences from the reference: the counters (``COUNTERS``,
-the reference's names and help) are integers under the relay's lock,
-read as attributes without the ``relay_`` prefix; the reference's
-telemetry events are ``logging`` records (logger
-``znicz_torch.relay``); spans, and the fleet-observability payloads that
-children piggyback on their updates, are dropped at the relay (ROADMAP
-A.9).  A bind of ``tcp://127.0.0.1:*`` picks its port when it binds;
+Telemetry: the counters (``COUNTERS``, the reference's names and help)
+are the ``relay`` scope's registry counters (labelled by ``bind``), read
+as attributes without the ``relay_`` prefix, with the ``relay_children``
+and ``relay_queue_depth`` gauges; each child message is a
+``relay/handle:<cmd>`` span and each delivered flush a ``relay/flush``
+span naming its contributors' trace ids.  The relay names itself in the
+fleet, and each flush carries its own spans and journal events upstream,
+and, under ``fwd_obs``, those its children piggybacked on their updates
+(each under the child's origin, a bounded drop-oldest buffer between
+flushes), so a leaf two hops down reaches the master's stores as itself.
+A bind of ``tcp://127.0.0.1:*`` picks its port when it binds;
 :attr:`Relay.endpoint` is the resolved address once :meth:`Relay.start`
 returns, and is what the relay advertises upstream as its ``bind``.
 """
@@ -54,7 +58,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from znicz_torch import telemetry
 from znicz_torch.core.config import root
+from znicz_torch.telemetry.metrics import registered_property
 
 log = logging.getLogger("znicz_torch.relay")
 
@@ -197,7 +203,21 @@ class Relay:
         #: one lock for every field the serve thread writes and the
         #: introspection reads
         self._lock = threading.Lock()
-        self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
+        sc = telemetry.scope("relay", bind=str(bind))
+        self._m = {name: sc.counter(name, help)
+                   for name, help in self.COUNTERS.items()}
+        sc.gauge("relay_children", "children registered at this relay",
+                 fn=telemetry.weak_fn(self, lambda r: len(r._children)))
+        sc.gauge("relay_queue_depth", "jobs queued for children",
+                 fn=telemetry.weak_fn(self, lambda r: len(r._jobq)))
+        self._tracer = telemetry.tracer()
+        # the relay's spans and events ride its flushes upstream; the
+        # master ingests them under this origin
+        telemetry.set_identity(self.relay_id)
+        self._exporter = telemetry.exporter()
+        self._obs_ev_seq = 0
+        #: children's piggybacked obs payloads awaiting the next flush
+        self._obs_fwd: List[dict] = []
         self._children: Dict[str, float] = {}       # id -> last seen
         self._cred: Optional[Tuple[Any, Any]] = None  # (version, digest)
         self._cred_reply: Dict = {}                 # the kept ok register
@@ -242,8 +262,7 @@ class Relay:
             count_in=lambda n: self._inc("relay_bytes_in", n))
 
     def _inc(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[name] += int(n)
+        self._m[name].inc(int(n))
 
     # -- introspection -----------------------------------------------------------
 
@@ -277,8 +296,8 @@ class Relay:
                 "complete": self._done,
                 "leaves": sum(int(self._child_leaves.get(sid, 1))
                               for sid in self._children)}
-            out.update({name[len("relay_"):]: n
-                        for name, n in self._counts.items()})
+            out.update({name[len("relay_"):]: m.value
+                        for name, m in self._m.items()})
         return out
 
     # -- the edge check (the master's quarantine, at the relay) ----------------
@@ -472,6 +491,7 @@ class Relay:
         return {"jobs": [e for e, _ in take], "params": take[-1][1]}
 
     def _child_update(self, req: dict, sid: str) -> dict:
+        self._buffer_child_obs(req, sid)
         deltas = req.get("deltas")
         contributors = req.get("contributors")
         if contributors is not None:
@@ -503,8 +523,8 @@ class Relay:
                     self._buffer_msgs += 1
                     if self._sum_t0 is None:
                         self._sum_t0 = time.time()
-                    self._counts["relay_refusals"] += len(refused)
-                    self._counts["relay_contributions"] += len(passed)
+                self._inc("relay_refusals", len(refused))
+                self._inc("relay_contributions", len(passed))
                 self._maybe_flush()
                 return {"ok": False, "quarantined": True,
                         "error": f"delta quarantined: {reason}"}
@@ -514,8 +534,8 @@ class Relay:
             self._buffer_msgs += 1
             if self._sum_t0 is None:
                 self._sum_t0 = time.time()
-            self._counts["relay_contributions"] += len(entries)
             done = self._done
+        self._inc("relay_contributions", len(entries))
         self._maybe_flush()
         return {"ok": True, "complete": done}
 
@@ -591,7 +611,18 @@ class Relay:
             self._buffer_msgs = 0
             summed, self._sum = self._sum, {}
             self._sum_t0 = None
-        frames, _ = wire.encode_message(self._flush_message(entries, summed))
+        t0 = time.perf_counter() if self._tracer.enabled else None
+        msg = self._flush_message(entries, summed)
+        # the relay's own spans and events, and its children's, ride the
+        # flush (added here: _flush_message's output stays the
+        # deterministic message shape, and the exporter's drain is
+        # one-shot)
+        msg.update(self._obs_payload())
+        with self._lock:
+            fwd, self._obs_fwd = self._obs_fwd, []
+        if fwd:
+            msg["fwd_obs"] = fwd
+        frames, _ = wire.encode_message(msg)
         rep = self._upstream_rpc(frames=frames, one_shot=final)
         if rep is not None:
             # only a delivered flush counts; an undelivered one's jobs
@@ -600,6 +631,48 @@ class Relay:
             if rep.get("complete"):
                 with self._lock:
                     self._done = True
+        if t0 is not None:
+            self._tracer.add("relay", "flush", t0, time.perf_counter() - t0,
+                             {"contributors": len(entries),
+                              "trace_ids": [e.get("trace_id")
+                                            for e in entries
+                                            if e.get("trace_id")][:8],
+                              "delivered": rep is not None})
+
+    def _buffer_child_obs(self, req: dict, sid: str) -> None:
+        """Hold a child's piggybacked spans and events (and what a lower
+        relay forwarded) for the next flush, each under its leaf's
+        origin; bounded drop-oldest, so a flush-starved window sheds
+        telemetry, never deltas."""
+        fwd = []
+        if req.get("spans") or req.get("events"):
+            fwd.append({"origin": str(req.get("origin") or sid),
+                        "spans": req.get("spans") or [],
+                        "events": req.get("events") or []})
+        fwd.extend(f for f in (req.get("fwd_obs") or [])
+                   if isinstance(f, dict))
+        if not fwd:
+            return
+        with self._lock:
+            self._obs_fwd.extend(fwd)
+            del self._obs_fwd[:-32]
+
+    def _obs_payload(self) -> dict:
+        """This relay's piggyback for one flush: a bounded batch of its
+        exported spans and its fresh journal events, under its fleet
+        origin; empty when there is nothing to ship."""
+        out: dict = {}
+        spans = self._exporter.drain(telemetry.span_export_batch())
+        if spans:
+            out["spans"] = spans
+        ev = telemetry.journal().since(
+            self._obs_ev_seq, limit=telemetry.span_export_batch())
+        if ev:
+            self._obs_ev_seq = ev[-1]["seq"]
+            out["events"] = ev
+        if out:
+            out["origin"] = telemetry.identity()
+        return out
 
     # -- the upstream link -------------------------------------------------------
 
@@ -717,12 +790,13 @@ class Relay:
                     f"decodes to {type(req).__name__}, not a request dict")
         except Exception as exc:
             out = [pickle.dumps(bad_frame_reply(exc))]
-            with self._lock:
-                self._counts["relay_bad_frames"] += 1
-                self._counts["relay_bytes_out"] += len(out[0])
+            self._inc("relay_bad_frames")
+            self._inc("relay_bytes_out", len(out[0]))
             return out
         try:
-            rep = self._handle(req)
+            with self._tracer.span("relay", f"handle:{req.get('cmd')}",
+                                   bind=self.bind, child=req.get("id")):
+                rep = self._handle(req)
         except Exception as exc:
             self._inc("relay_bad_frames")
             log.exception("%s: refused malformed request %r", self.relay_id,
@@ -817,14 +891,7 @@ class Relay:
             self._thread = None
 
 
-def _counter_property(name: str) -> property:
-    def get(self) -> int:
-        with self._lock:
-            return self._counts[name]
-
-    return property(get, doc=Relay.COUNTERS[name])
-
-
-for _name in Relay.COUNTERS:
-    setattr(Relay, _name[len("relay_"):], _counter_property(_name))
-del _name
+for _name, _help in Relay.COUNTERS.items():
+    setattr(Relay, _name[len("relay_"):],
+            registered_property(_name, _help))
+del _name, _help

@@ -39,11 +39,13 @@ from __future__ import annotations
 
 import io
 import pickle
-import threading
+import time
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from znicz_torch.telemetry.metrics import registered_property
 
 #: v3 metadata-frame magic; a frame without it is legacy (v2) pickle
 MAGIC = b"ZNW3"
@@ -452,9 +454,12 @@ def restamp_message(frames: List[bytes], **keys) -> List[bytes]:
 class Codec:
     """Stateful message codec: the v3 encode/decode pair plus the byte and
     tensor accounting every peer keeps (the frames equal those of
-    :func:`encode_message`).  The counters of :data:`COUNTERS` are plain
-    integers under one lock, readable and writable by name.  One thread
-    owns a codec's sockets (the serving frontend's router thread)."""
+    :func:`encode_message`).  The counters of :data:`COUNTERS` are
+    registry counters of the ``owner`` scope (``master``, ``serving``,
+    ``balancer``...), readable and writable by name; with telemetry on,
+    each decode and encode is a ``wire`` span carrying the message's
+    ``trace_id``.  One thread owns a codec's sockets (the serving
+    frontend's router thread)."""
 
     #: the counters each codec keeps: name -> meaning
     COUNTERS = {
@@ -471,15 +476,18 @@ class Codec:
 
     def __init__(self, compress: Optional[str] = None, owner: str = "wire"):
         #: per-tensor compression applied by :meth:`encode` (None = off)
+        from znicz_torch import telemetry
+
         self.compress = None if compress in (None, "", "none") else compress
         self.owner = owner
-        self._lock = threading.Lock()
-        self._counts = dict.fromkeys(self.COUNTERS, 0)
+        sc = telemetry.scope(owner)
+        self._m = {name: sc.counter(name, help)
+                   for name, help in self.COUNTERS.items()}
+        self._tracer = telemetry.tracer()
 
     def _inc(self, **deltas) -> None:
-        with self._lock:
-            for name, n in deltas.items():
-                self._counts[name] += int(n)
+        for name, n in deltas.items():
+            self._m[name].inc(int(n))
 
     @staticmethod
     def frames_bytes(frames: List) -> int:
@@ -492,7 +500,15 @@ class Codec:
         function does."""
         n = self.frames_bytes(frames)
         self._inc(bytes_in=n)
-        msg, info = decode_message(frames)
+        if self._tracer.enabled:
+            t0 = time.perf_counter()
+            msg, info = decode_message(frames)
+            self._tracer.add("wire", "decode", t0, time.perf_counter() - t0,
+                             {"bytes": n, "tensors": info.get("tensors", 0),
+                              "trace_id": msg.get("trace_id")
+                              if isinstance(msg, dict) else None})
+        else:                   # the disabled hot path reads no clock
+            msg, info = decode_message(frames)
         info["message_bytes"] = n
         self._inc(messages_in=1,
                   tensor_bytes_raw_in=info.get("raw_bytes", 0),
@@ -502,13 +518,20 @@ class Codec:
     def encode(self, msg: Any, legacy: bool = False) -> List[Any]:
         """Message -> frames plus outbound accounting.  ``legacy``
         answers a v2-framed peer in kind: one pickled frame."""
+        t0 = time.perf_counter() if self._tracer.enabled else None
         if legacy:
             frames = [pickle.dumps(msg)]
         else:
             frames, enc = encode_message(msg, compress=self.compress)
             self._inc(tensor_bytes_raw_out=enc["raw_bytes"],
                       tensor_bytes_wire_out=enc["wire_bytes"])
-        self._inc(bytes_out=self.frames_bytes(frames), messages_out=1)
+        n = self.frames_bytes(frames)
+        if t0 is not None:
+            self._tracer.add("wire", "encode", t0, time.perf_counter() - t0,
+                             {"bytes": n, "legacy": legacy,
+                              "trace_id": msg.get("trace_id")
+                              if isinstance(msg, dict) else None})
+        self._inc(bytes_out=n, messages_out=1)
         return frames
 
     def count_message_in(self, frames: List) -> None:
@@ -546,21 +569,9 @@ class Codec:
         return raw / cooked
 
 
-def _counter_property(name: str):
-    def get(self) -> int:
-        with self._lock:
-            return self._counts[name]
-
-    def set(self, value) -> None:
-        with self._lock:
-            self._counts[name] = int(value)
-
-    return property(get, set, doc=Codec.COUNTERS[name])
-
-
-for _name in Codec.COUNTERS:
-    setattr(Codec, _name, _counter_property(_name))
-del _name
+for _name, _help in Codec.COUNTERS.items():
+    setattr(Codec, _name, registered_property(_name, _help))
+del _name, _help
 
 
 def split_envelope(frames: List[bytes]

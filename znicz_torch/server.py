@@ -51,15 +51,22 @@ The master's job stream is the reference's:
     training state, outstanding jobs included, written periodically and
     restored by a Server built while the file exists.
 
+**Telemetry**: the counters are the ``master`` scope's registry counters
+(read and written through properties of the same names: a resume
+restores them), with the ``quorum_members`` and ``quorum_degraded``
+gauges and one ``update_staleness`` histogram a leaf.  Preemptions,
+quorum flips and re-plans are journal events; each request is a
+``master/handle:<cmd>`` span carrying its job's ``trace_id``, and each
+contributor of a relay's aggregate a ``master/aggregate_contrib`` span
+with the leaf's.  The server names itself ``master`` in the fleet:
+updates carry their sender's spans and events (and a relay's, its
+leaves' under their own origins) into the process's fleet stores, which
+the master's own join every 0.25 s.  The training ``SloTracker``
+(``apply_progress``: accepted applies against refused, stale and
+quarantined ones; ``root.common.engine.obs_slo_*``) is advisory.
+
 Deliberate differences from the reference:
 
-  - the counters (``COUNTERS``, the reference's names and help) are
-    plain integers under the server's lock, read and written through
-    properties of the same names; there is no telemetry registry,
-    staleness histograms are bounded windows, and the training SLO is
-    left out (its ``obs_slo_*`` knobs wait for ROADMAP A.9);
-  - each ``telemetry.emit`` is a ``logging`` record under the same event
-    name (logger ``znicz_torch.master``);
   - the default bind is ``tcp://127.0.0.1:*``: the port is chosen when
     the socket binds, and :attr:`Server.endpoint` is the resolved
     address once :meth:`Server.start` returns.
@@ -86,8 +93,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from znicz_torch import telemetry
 from znicz_torch.core.config import root
 from znicz_torch.loader.base import TRAIN
+from znicz_torch.telemetry.metrics import registered_property
 
 log = logging.getLogger("znicz_torch.master")
 
@@ -186,7 +195,28 @@ class Server:
         #: meshed slaves' advertised {"data": dp, "model": mp}
         self.slave_meshes: Dict[str, dict] = {}
         self._lock = threading.Lock()
-        self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
+        _sc = telemetry.scope("master")
+        self._m = {name: _sc.counter(name, help)
+                   for name, help in self.COUNTERS.items()}
+        self._tracer = telemetry.tracer()
+        # the training plane's coordinator: slave and relay updates
+        # carry spans and journal events into the fleet stores
+        telemetry.set_identity("master")
+        self._t_obs_drain = 0.0         # the self-ingest's rate limit (s)
+        #: the training plane's SLO (advisory burn rates on /slo.json,
+        #: never a readiness gate): accepted delta applies against
+        #: refused, stale and quarantined updates
+        self.slo = telemetry.register_slo(telemetry.SloTracker(
+            "training",
+            window_fast_s=float(_engine("obs_slo_fast_window_s", 60.0)),
+            window_slow_s=float(_engine("obs_slo_slow_window_s", 600.0))))
+        self.slo.add_objective("apply_progress", target=float(
+            _engine("obs_slo_apply_progress", 0.99)))
+        _sc.gauge("quorum_members", "live training members (quorum view)",
+                  fn=telemetry.weak_fn(self, lambda s: s.member_count()))
+        _sc.gauge("quorum_degraded", "1 while below the min_slaves gate",
+                  fn=telemetry.weak_fn(
+                      self, lambda s: 1.0 if s.degraded() else 0.0))
         self._quorum_degraded = False
         #: tags job trace ids, so two masters' ids never collide
         self._run_tag = uuid.uuid4().hex[:6]
@@ -243,8 +273,9 @@ class Server:
         self.relay_binds: Dict[str, str] = {}
         self._tree_plan: Optional[dict] = None
         self._rehome_rr = 0
-        #: per-leaf staleness observations: sid -> {"count", "window"}
-        self._stale_hist: Dict[str, dict] = {}
+        #: per-leaf staleness histograms (the ``update_staleness``
+        #: family labelled by leaf), made at a leaf's first update
+        self._stale_hist: Dict[str, object] = {}
         # LR schedules: the master owns the train-iteration clock
         self._lr_bindings = []
         for u in workflow:
@@ -264,8 +295,7 @@ class Server:
     # -- counters --------------------------------------------------------------
 
     def _inc(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[name] += n
+        self._m[name].inc(n)
 
     bytes_in = _codec_counter("bytes_in", "wire bytes received (all frames)")
     bytes_out = _codec_counter("bytes_out", "wire bytes sent (all frames)")
@@ -359,8 +389,9 @@ class Server:
             self.slave_meshes.pop(sid, None)
             if not bool(self.decision.complete):
                 self._inc("preemptions_ridden")
-                log.info("preemption: slave=%s ttl_s=%s members=%d", sid,
-                         self.slave_ttl, self.member_count())
+                telemetry.emit("preemption", "training", slave=sid,
+                               ttl_s=self.slave_ttl,
+                               members=self.member_count())
             if sid in self.relays:
                 # a relay's eviction changes the tree: re-plan, so that
                 # rehome targets drop the dead subtree at once
@@ -425,11 +456,14 @@ class Server:
             s = max(0, self._apply_step - int(step))
         except (TypeError, ValueError):
             return 0
-        hist = self._stale_hist.setdefault(
-            sid, {"count": 0,
-                  "window": collections.deque(maxlen=STALE_WINDOW)})
-        hist["count"] += 1
-        hist["window"].append(s)
+        hist = self._stale_hist.get(sid)
+        if hist is None:
+            hist = self._stale_hist[sid] = telemetry.scope(
+                "master").histogram(
+                    "update_staleness",
+                    "delta staleness in applies, at arrival",
+                    size=STALE_WINDOW, leaf=str(sid))
+        hist.observe(s)
         return s
 
     def _stale_scale(self, s) -> float:
@@ -447,6 +481,7 @@ class Server:
         the job re-queued without a bad-reply strike, on a budget of its
         own (``MAX_BAD_REPLIES`` stale refusals drop a non-tail job)."""
         self._inc("stale_refused")
+        self.slo.record("apply_progress", False)
         job["_stale_refusals"] = job.get("_stale_refusals", 0) + 1
         requeue = (bool(job.get("last_minibatch"))
                    or job["_stale_refusals"] < self.MAX_BAD_REPLIES)
@@ -464,9 +499,9 @@ class Server:
         """Per leaf: observations, p50 and max over the recent window."""
         out = {}
         for sid, h in sorted(dict(self._stale_hist).items()):
-            data = np.asarray(h["window"])
+            data = h.window()
             if data.size:
-                out[sid] = {"count": int(h["count"]),
+                out[sid] = {"count": int(h.count),
                             "p50": float(np.median(data)),
                             "max": int(data.max())}
         return out
@@ -490,15 +525,15 @@ class Server:
         return not self.quorum_met() and not bool(self.decision.complete)
 
     def _note_quorum(self) -> None:
-        """Log the quorum's transitions, once an episode."""
+        """Journal the quorum's transitions, once an episode."""
         if self.min_slaves <= 0:
             return
         deg = self.degraded()
         if deg == self._quorum_degraded:
             return
-        log.info("%s: members=%d min_slaves=%d",
-                 "quorum_degraded" if deg else "quorum_restored",
-                 self.member_count(), self.min_slaves)
+        telemetry.emit("quorum_degraded" if deg else "quorum_restored",
+                       "training", members=self.member_count(),
+                       min_slaves=self.min_slaves)
         self._quorum_degraded = deg
 
     # -- the aggregation tree --------------------------------------------------
@@ -516,6 +551,8 @@ class Server:
         self._tree_plan = {"relays": live, "reason": why,
                            "members": self.member_count()}
         self._inc("replans")
+        telemetry.emit("replan", "training", why=why, relays=len(live),
+                       members=self._tree_plan["members"])
         log.info("replan: tree re-planned (%s): %d live relays, %d members",
                  why, len(live), self._tree_plan["members"])
 
@@ -646,6 +683,7 @@ class Server:
         ``counter`` and the job re-queued, at most ``MAX_BAD_REPLIES``
         times for a non-tail one (a tail is always re-queued)."""
         self._inc(counter)
+        self.slo.record("apply_progress", False)
         job["_bad_replies"] = job.get("_bad_replies", 0) + 1
         requeue = (bool(job.get("last_minibatch"))
                    or job["_bad_replies"] < self.MAX_BAD_REPLIES)
@@ -837,6 +875,13 @@ class Server:
                 return
             self._evict_dead_slaves()
             self._note_quorum()
+            t = time.time()
+            if t - self._t_obs_drain > 0.25:
+                # the master's own spans and events join the fleet stores
+                # it coordinates (rate-limited)
+                self._t_obs_drain = t
+                telemetry.drain_own_spans()
+                telemetry.drain_own_events()
             self._maybe_save_resume()
 
         try:
@@ -889,7 +934,13 @@ class Server:
             self._inc("updates_received")
             self._inc("update_bytes_in", int(info["message_bytes"]))
         try:
-            rep = self._handle(req)
+            # a span around the handling, correlated by the job's trace_id
+            # (the request echoes the id its job carried)
+            with self._tracer.span(
+                    "master", f"handle:{req.get('cmd')}",
+                    job_id=req.get("job_id"),
+                    trace_id=req.get("trace_id"), slave=req.get("id")):
+                rep = self._handle(req)
         except Exception as exc:
             self.codec.count_bad_frame()
             log.exception("refused malformed request %r", req.get("cmd"))
@@ -1014,6 +1065,23 @@ class Server:
         return {"jobs": entries, "params": params}
 
     def _update(self, req: dict, sid: str) -> dict:
+        # the fleet observability piggyback: a slave's or relay's spans
+        # and journal events, and those a relay forwards for its leaves
+        # under each leaf's own origin
+        if req.get("spans") or req.get("events") or req.get("fwd_obs"):
+            origin = str(req.get("origin") or sid)
+            if req.get("spans"):
+                telemetry.fleet_trace().ingest(origin, req["spans"])
+            if req.get("events"):
+                telemetry.fleet_events().ingest(origin, req["events"])
+            for fwd in req.get("fwd_obs") or []:
+                if not isinstance(fwd, dict):
+                    continue
+                fo = str(fwd.get("origin") or sid)
+                if fwd.get("spans"):
+                    telemetry.fleet_trace().ingest(fo, fwd["spans"])
+                if fwd.get("events"):
+                    telemetry.fleet_events().ingest(fo, fwd["events"])
         if "contributors" in req:
             return self._handle_aggregated(req, sid)
         jid = req.get("job_id")
@@ -1059,6 +1127,7 @@ class Server:
             else:
                 self._feed_decision(job, req.get("metrics") or {})
         self._inc("jobs_done")
+        self.slo.record("apply_progress", True)
         self.jobs_by_slave[sid] = self.jobs_by_slave.get(sid, 0) + 1
         return {"ok": True, "complete": bool(self.decision.complete)}
 
@@ -1092,6 +1161,17 @@ class Server:
             raise ValueError("contributors manifest is not a list of "
                              "dicts")
         now = time.time()
+        if self._tracer.enabled:
+            # each contributor's trace_id reaches the master's timeline: a
+            # leaf's trace stitches through the relay hop
+            t0 = time.perf_counter()
+            for c in contributors:
+                if c.get("trace_id"):
+                    self._tracer.add(
+                        "master", "aggregate_contrib", t0, 0.0,
+                        {"trace_id": c.get("trace_id"),
+                         "job_id": c.get("job_id"),
+                         "leaf": str(c.get("id", sid)), "relay": sid})
         n_delta = sum(1 for c in contributors if c.get("delta"))
         fresh: List[tuple] = []         # (contributor, job, staleness)
         malformed: List[tuple] = []     # (contributor, job, why)
@@ -1195,6 +1275,7 @@ class Server:
                     self._feed_decision(job, c.get("metrics") or {})
             cid = str(c.get("id", sid))
             self._inc("jobs_done")
+            self.slo.record("apply_progress", True)
             self.jobs_by_slave[cid] = self.jobs_by_slave.get(cid, 0) + 1
             outcomes[c.get("job_id")] = "ok"
         self._inc("aggregated_updates")
@@ -1202,18 +1283,6 @@ class Server:
                 "outcomes": outcomes}
 
 
-def _counter_property(name: str):
-    def get(self) -> int:
-        with self._lock:
-            return self._counts[name]
-
-    def set_(self, value) -> None:
-        with self._lock:
-            self._counts[name] = int(value)
-
-    return property(get, set_, doc=Server.COUNTERS[name])
-
-
-for _name in Server.COUNTERS:
-    setattr(Server, _name, _counter_property(_name))
-del _name
+for _name, _help in Server.COUNTERS.items():
+    setattr(Server, _name, registered_property(_name, _help))
+del _name, _help

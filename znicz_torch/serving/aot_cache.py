@@ -36,8 +36,10 @@ counted, logged with its reason, removed, and the library is built and
 stored again.  The cache is advisory, never trusted.
 
 **Counting.**  The counters are the reference's
-``warmup_cache_{hits,misses,stores,refusals,store_failures}``, plain
-integers under a lock.  A library is loaded once a process, and every
+``warmup_cache_{hits,misses,stores,refusals,store_failures}``, the
+``warmup`` scope's registry counters (process-wide, the latest cache
+wins), beside each cache's own tallies under a lock, which the proofs
+read.  A library is loaded once a process, and every
 runner in it shares it: each runner counts the libraries its own warmup
 asked for by where the process got them (the cache: a hit; ``nvcc`` or
 the build directory: a miss), so two replicas in one process both count
@@ -134,10 +136,19 @@ class ExecutableCache:
         os.makedirs(self.directory, exist_ok=True)
         self.family = family
         self._lock = threading.Lock()
+        # the process-wide counters of the ``warmup`` scope (latest
+        # cache wins), beside this cache's own tallies, which the proofs
+        # read
+        from znicz_torch import telemetry
+
+        _sc = telemetry.scope("warmup")
+        self._m = {name: _sc.counter(name, help)
+                   for name, help in self.COUNTERS.items()}
         self._n = {"hits": 0, "misses": 0, "stores": 0, "refusals": 0,
                    "store_failures": 0}
 
     def _inc(self, name: str) -> None:
+        self._m[f"warmup_cache_{name}"].inc()
         with self._lock:
             self._n[name] += 1
 

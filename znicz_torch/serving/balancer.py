@@ -58,13 +58,23 @@ fleet's path, so the balancer swaps it back off-rotation.
 drain-then-retire against a capacity-weighted load band with hysteresis,
 never below ``min_replicas`` nor past ``autoscale_max``.
 
+**Fleet observability**: the balancer is the serving fleet's
+coordinator.  Its counters are the ``balancer`` scope's registry counters
+(with the ``ready_replicas`` and ``in_flight`` gauges), its state
+transitions journal events (``replica_joined``, ``replica_lost``,
+``failover``, ``heal``, ``autoscale_up``/``_down``, ``swap_begin``,
+``swap_phase``, ``swap_done``, ``rollback``), and it names itself
+``balancer`` in the fleet.  A heartbeat's ``spans``, ``events`` and
+``metrics`` go into the process's fleet trace, event and metric stores
+(``/trace.json?fleet=1``, ``/events.json?fleet=1``, the merged
+``/metrics``), a reply's span summary into the trace store, and the
+balancer's own spans and events join them every 0.25 s.  Each answered
+request is a ``balancer/request`` span carrying its ``trace_id``, the
+replicas it was sent to, the replica and generation that answered, its
+parity probe and whether it was served solo.
+
 Deliberate differences from the reference:
 
-  - the counters (``COUNTERS``, the reference's names and help) are plain
-    integers under the balancer's lock, read through properties, as the
-    frontend keeps its own; there is no telemetry registry or gauge;
-  - each reference ``telemetry.emit(event, ...)`` is a ``logging`` record
-    under the same event name (logger ``znicz_torch.balancer``);
   - a parity-sampled primary and its probe carry ``"solo": true``: each
     replica serves such a request alone, at the smallest ladder rung
     that holds its rows (``DynamicBatcher.next_batch``), so the two
@@ -78,10 +88,9 @@ Deliberate differences from the reference:
     ``sheds_retried``; the reference forwards it to the client, so a
     replica stopped under traffic could refuse a request the fleet could
     answer (ROADMAP C.10);
-  - fleet trace, event and metric ingestion (a heartbeat's ``spans``,
-    ``events`` and ``metrics``, a reply's span summary) and the
-    balancer's own spans are left out (ROADMAP A.9): such keys are
-    ignored.
+  - the ``request`` span also names every replica the request went to,
+    the answering generation, its probe and its solo mark: what a
+    stitched trace of one reply must say.
 
 Config home: ``root.common.serving.balance.*`` (declared in the serving
 DEFAULTS, read through a local alias); CLI: ``python -m znicz_torch
@@ -97,7 +106,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from znicz_torch import telemetry
 from znicz_torch.core.config import check_serving_keys, root
+from znicz_torch.telemetry.metrics import registered_property
 
 from .frontend import DEFAULTS
 
@@ -109,10 +120,10 @@ class _Entry:
     __slots__ = ("rid", "client_rid", "envelope", "frames", "t_accept",
                  "deadline", "t_sent", "targets", "tries", "hedged",
                  "hedge_target", "held", "probe_rid", "kind",
-                 "primary_rid")
+                 "primary_rid", "trace_id", "solo")
 
     def __init__(self, rid: int, client_rid, envelope, frames,
-                 deadline: float, kind: str = "infer"):
+                 deadline: float, kind: str = "infer", trace_id=None):
         self.rid = rid
         self.client_rid = client_rid
         self.envelope = envelope
@@ -131,6 +142,10 @@ class _Entry:
         self.probe_rid: Optional[int] = None    # parity probe spawned
         self.primary_rid: Optional[int] = None  # set on probe entries
         self.kind = kind                    # "infer" | "probe"
+        #: the client's correlation id (peeked at accept): the key of the
+        #: request's stitched fleet trace
+        self.trace_id = trace_id
+        self.solo = False                   # marked for a parity probe
 
 
 def _cfg_balance() -> Dict:
@@ -200,11 +215,22 @@ class ReplicaBalancer:
         if min_replicas is not None:
             self.knobs["min_replicas"] = int(min_replicas)
         self.codec = wire.Codec(owner="balancer")   # serve-thread only
+        _sc = telemetry.scope("balancer")
+        self._m = {name: _sc.counter(name, help)
+                   for name, help in self.COUNTERS.items()}
+        _sc.gauge("ready_replicas", "heartbeat-live, ready members",
+                  fn=telemetry.weak_fn(self, lambda b: b.ready_count()))
+        _sc.gauge("in_flight", "ledger entries awaiting a reply",
+                  fn=telemetry.weak_fn(self, lambda b: b.in_flight))
+        # the fleet coordinator: heartbeats and replies carry the fleet's
+        # spans, events and metric snapshots into the process's stores
+        self._tracer = telemetry.tracer()
+        telemetry.set_identity("balancer")
+        self._t_obs_drain = 0.0         # the self-ingest's rate limit (s)
         # state below is serve-thread-written and stats()-read: every
         # mutation happens under _lock (reentrant: helpers lock their own
         # bodies and are also called under the serve loop's hold)
         self._lock = threading.RLock()
-        self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
         #: replica_id -> heartbeat view (endpoint, last_seen, ready, gen,
         #: queue_depth, p99_ms_by_bucket, swapping, snapshot_path, ...)
         self._members: Dict[str, Dict] = {}
@@ -243,8 +269,7 @@ class ReplicaBalancer:
         self.log = logging.getLogger("znicz_torch.balancer")
 
     def _inc(self, name: str) -> None:
-        with self._lock:
-            self._counts[name] += 1
+        self._m[name].inc()
 
     # -- membership views ----------------------------------------------------
 
@@ -275,9 +300,9 @@ class ReplicaBalancer:
         commands are tracked apart and never enter it)."""
         with self._lock:
             in_flight = len(self._inflight) + len(self._parked)
-            accepted = self._counts["accepted"]
-            replied = self._counts["replied"]
-            refused = self._counts["refused"]
+            accepted = self.accepted
+            replied = self.replied
+            refused = self.refused
         return {"accepted": accepted, "replied": replied,
                 "refused": refused, "in_flight": in_flight,
                 "balanced": accepted == replied + refused + in_flight}
@@ -323,7 +348,7 @@ class ReplicaBalancer:
                         "canary_samples": len(r["lat_new"]),
                         "old_samples": len(r["lat_old"])}
             history = list(self.rollover_history)
-            counts = dict(self._counts)
+            counts = {name: m.value for name, m in self._m.items()}
             hedge_ms = round(self._hedge_delay() * 1e3, 2)
         ready = sum(1 for m in members if m["ready"])
         out = {"endpoint": self.endpoint,
@@ -436,8 +461,7 @@ class ReplicaBalancer:
 
             def tick() -> None:
                 with self._lock:
-                    answered = (self._counts["replied"]
-                                + self._counts["refused"])
+                    answered = self.replied + self.refused
                 if self.max_requests is not None and \
                         answered >= self.max_requests:
                     loop.stop()
@@ -450,6 +474,14 @@ class ReplicaBalancer:
                 # lock but runs spawn/retire callbacks unlocked (a process
                 # spawn may block for seconds; the ledger keeps ticking)
                 self._tick_autoscale()
+                # the fleet self-ingest: the balancer's own spans and
+                # events join the stores it coordinates (rate-limited;
+                # the stores lock internally)
+                t = time.perf_counter()
+                if t - self._t_obs_drain > 0.25:
+                    self._t_obs_drain = t
+                    telemetry.drain_own_spans()
+                    telemetry.drain_own_events()
 
             loop.add_tick(tick)
             self._ready.set()
@@ -541,8 +573,10 @@ class ReplicaBalancer:
             self._rid += 1
             lb_rid = self._rid
             rewritten = wire.restamp_message(payload, req_id=lb_rid)
+            tid = skel.get("trace_id")
             entry = _Entry(lb_rid, rid, list(envelope), rewritten,
-                           time.perf_counter() + deadline_s)
+                           time.perf_counter() + deadline_s,
+                           trace_id=None if tid is None else str(tid))
             self._inc("accepted")
             if not self._dispatch(entry):
                 if len(self._parked) >= int(self.knobs["park_bound"]):
@@ -586,8 +620,9 @@ class ReplicaBalancer:
                 "boot_s": skel.get("boot_s"),
             }
             if prev is None:
-                self.log.info("replica_joined: %s at %s (%d members)",
-                              replica_id, endpoint, len(self._members))
+                telemetry.emit("replica_joined", "serving",
+                               replica=replica_id, endpoint=endpoint,
+                               members=len(self._members))
             if prev is not None and prev["endpoint"] != endpoint:
                 # an in-place endpoint change (a wildcard-bind restart
                 # faster than the TTL): reap the old endpoint's socket
@@ -595,6 +630,15 @@ class ReplicaBalancer:
                 self._drop_unused_data_socks(
                     {m["endpoint"] for m in self._members.values()})
             self._maybe_heal(replica_id)
+        # the fleet observability piggyback, ingested outside the
+        # membership lock (the fleet stores lock internally)
+        origin = str(skel.get("origin") or replica_id)
+        if skel.get("spans"):
+            telemetry.fleet_trace().ingest(origin, skel["spans"])
+        if skel.get("events"):
+            telemetry.fleet_events().ingest(origin, skel["events"])
+        if skel.get("metrics"):
+            telemetry.fleet_metrics().update(origin, skel["metrics"])
 
     def _maybe_heal(self, replica_id: str) -> None:
         """A replica whose snapshot disagrees with the promoted fleet path
@@ -618,6 +662,8 @@ class ReplicaBalancer:
             return
         self._healing[replica_id] = now
         self._inc("heals")
+        telemetry.emit("heal", "serving", replica=replica_id,
+                       snapshot=m["snapshot_path"], fleet=self._fleet_path)
         self.log.info("heal: %s snapshot %r != fleet %r", replica_id,
                       m["snapshot_path"], self._fleet_path)
         self._send_ctrl(replica_id, {"cmd": "swap",
@@ -721,6 +767,7 @@ class ReplicaBalancer:
                 if probe:
                     entry.frames = wire.restamp_message(entry.frames,
                                                         solo=True)
+                    entry.solo = True
             if not self._send_to(target, entry.frames):
                 return False
             entry.targets.append(target)
@@ -766,7 +813,9 @@ class ReplicaBalancer:
         probe_rid = self._rid
         frames = wire.restamp_message(primary.frames, req_id=probe_rid)
         probe = _Entry(probe_rid, None, [], frames,
-                       primary.deadline, kind="probe")
+                       primary.deadline, kind="probe",
+                       trace_id=primary.trace_id)
+        probe.solo = True
         probe.primary_rid = primary.rid
         if self._dispatch(probe, pool=pool):
             primary.probe_rid = probe_rid
@@ -850,6 +899,22 @@ class ReplicaBalancer:
             self._send_front(entry.envelope, out)
             self._inc("replied" if ok else "refused")
             replica = str(skel.get("replica_id") or "")
+            if self._tracer.enabled and entry.trace_id:
+                # the balancer's hop in the stitched fleet timeline
+                self._tracer.add(
+                    "balancer", "request", entry.t_accept,
+                    time.perf_counter() - entry.t_accept,
+                    {"trace_id": entry.trace_id,
+                     "req_id": entry.client_rid, "lb_rid": entry.rid,
+                     "replica": replica, "targets": list(entry.targets),
+                     "tries": entry.tries, "gen": skel.get("gen"),
+                     "solo": entry.solo, "probe_rid": entry.probe_rid,
+                     "ok": ok})
+            if skel.get("spans") and skel.get("origin"):
+                # a generation final carries the replica's span summary:
+                # stitched now (before its next heartbeat)
+                telemetry.fleet_trace().ingest(str(skel["origin"]),
+                                               skel["spans"])
             if entry.hedge_target is not None \
                     and replica == entry.hedge_target:
                 self._inc("hedge_wins")
@@ -874,6 +939,17 @@ class ReplicaBalancer:
     def _finish_probe(self, probe: _Entry, skel: Dict,
                       payload: List[bytes]) -> None:
         self._release(probe)
+        if self._tracer.enabled and probe.trace_id:
+            # the shadow half of a parity pair: same trace_id as its
+            # primary, never forwarded
+            self._tracer.add(
+                "balancer", "probe", probe.t_accept,
+                time.perf_counter() - probe.t_accept,
+                {"trace_id": probe.trace_id, "lb_rid": probe.rid,
+                 "primary_rid": probe.primary_rid,
+                 "replica": str(skel.get("replica_id") or ""),
+                 "targets": list(probe.targets), "gen": skel.get("gen"),
+                 "solo": True, "ok": bool(skel.get("ok"))})
         buf = self._parity_buf.get(probe.rid)
         if buf is None:
             return
@@ -944,6 +1020,8 @@ class ReplicaBalancer:
             self.log.warning("replica_lost: %s evicted (%s); failing over "
                              "its in-flight requests (%d members)", rid,
                              why, len(self._members))
+            telemetry.emit("replica_lost", "serving", replica=rid,
+                           why=why, members=len(self._members))
             for entry in list(self._inflight.values()):
                 if entry.targets and entry.targets[-1] == rid:
                     self._failover(entry, exclude={rid})
@@ -966,8 +1044,9 @@ class ReplicaBalancer:
                     f"(replicas tried: {entry.targets}) — giving up")
                 return
             self._inc("failovers")
-            self.log.info("failover: req_id %r after %d tries on %s",
-                          entry.client_rid, entry.tries, entry.targets)
+            telemetry.emit("failover", "serving",
+                           req_id=entry.client_rid, tries=entry.tries,
+                           targets=list(entry.targets))
             # exclude every replica already tried (primary, hedge, earlier
             # failovers): the try budget spreads across the fleet, and
             # parking is the fallback when nobody untried is ready
@@ -1150,6 +1229,13 @@ class ReplicaBalancer:
                         "autoscale_up: load %.2f, %d parked, %d members, "
                         "%d pending", load, len(self._parked),
                         len(self._members), len(self._scale_pending))
+                    telemetry.emit(
+                        "autoscale_up", "serving",
+                        load=round(load, 3) if np.isfinite(load)
+                        else "inf",
+                        parked=len(self._parked),
+                        members=len(self._members),
+                        pending=len(self._scale_pending))
                     actions.append(("spawn", None))
                 elif (self._scale_streak["low"]
                         >= int(self.knobs["autoscale_down_after"])
@@ -1169,6 +1255,9 @@ class ReplicaBalancer:
                     self.log.info(
                         "autoscale_down: draining %s (load %.2f, %d "
                         "servable)", victim, load, len(servable))
+                    telemetry.emit(
+                        "autoscale_down", "serving", victim=victim,
+                        load=round(load, 3), servable=len(servable))
         for kind, arg in actions:
             # unlocked on purpose: a process's start or end may block,
             # and the serve loop's ledger must keep ticking meanwhile
@@ -1266,6 +1355,8 @@ class ReplicaBalancer:
             self.log.info("swap_begin: rollover to %r, canary %s (of %d "
                           "ready), parity %s", path, canary, len(ready),
                           parity)
+            telemetry.emit("swap_begin", "serving", path=path,
+                           canary=list(canary), ready=len(ready))
             self._send_front(envelope, self.codec.encode(
                 {"ok": True, "swap_started": True, "req_id": rid,
                  "lb": True, "canary": canary, "generation": old_gen}))
@@ -1326,16 +1417,16 @@ class ReplicaBalancer:
         if result == "promoted":
             self._fleet_path = roll["path"]
             self._inc("rollovers")
-            self.log.info("swap_done: fleet on %r (generation %s) after "
-                          "%gs", roll["path"], roll["new_gen"],
-                          record["elapsed_s"])
+            telemetry.emit("swap_done", "serving", path=roll["path"],
+                           new_gen=roll["new_gen"],
+                           elapsed_s=record["elapsed_s"])
         elif result == "rolled_back":
             # the fleet's intended path is the pre-wave one: pinning it
             # arms the heal loop against rollback stragglers too
             self._fleet_path = roll["old_path"]
             self._inc("rollbacks")
-            self.log.info("rollback: wave to %r after %gs (%s)",
-                          roll["path"], record["elapsed_s"], reason)
+            telemetry.emit("rollback", "serving", path=roll["path"],
+                           reason=reason, elapsed_s=record["elapsed_s"])
         self.log.warning("rollover to %r %s: %s", roll["path"], result,
                          reason)
 
@@ -1346,13 +1437,15 @@ class ReplicaBalancer:
         roll["sent"], roll["warming"] = set(), set()
         roll["done"] = set()
         roll["t_phase"] = time.perf_counter()
-        self.log.info("swap_phase: %s (%r)", phase, roll["path"])
+        telemetry.emit("swap_phase", "serving", phase=phase,
+                       path=roll["path"])
 
     def _abort_to_rollback(self, roll: Dict, reason: str) -> None:
         """A warm-phase abort: whatever already flipped rolls back, then
         the wave finishes rolled_back (lock held)."""
         flipped = list(roll["done"])
-        self.log.info("rollback: %s (%d flipped)", reason, len(flipped))
+        telemetry.emit("rollback", "serving", path=roll["path"],
+                       reason=reason, flipped=len(flipped))
         roll["reason"] = reason
         roll["canary"] = flipped            # only these need undoing
         if not flipped:
@@ -1492,14 +1585,6 @@ class ReplicaBalancer:
         return None
 
 
-def _counter_property(name: str):
-    def get(self) -> int:
-        with self._lock:
-            return self._counts[name]
-
-    return property(get, doc=ReplicaBalancer.COUNTERS[name])
-
-
-for _name in ReplicaBalancer.COUNTERS:
-    setattr(ReplicaBalancer, _name, _counter_property(_name))
-del _name
+for _name, _help in ReplicaBalancer.COUNTERS.items():
+    setattr(ReplicaBalancer, _name, registered_property(_name, _help))
+del _name, _help

@@ -33,20 +33,31 @@ released the tick it finishes; a shared page is copied before its first
 divergent append.
 
 Threading: ``submit`` may be called from any thread, ``next_batch`` from
-the one compute thread; one condition variable guards the queues and the
-counters.
+the one compute thread; one condition variable guards the queues.
+
+Telemetry: the counters live in the process registry (the ``batcher``
+and ``generate`` scopes, with per-bucket ``bucket_hits``,
+``bucket_real_cells`` and ``bucket_padded_cells`` children and the
+``queue_depth``, ``kv_occupancy``, ``active`` and ``pending`` gauges),
+read through attributes of the same names; the generation latencies are
+ring histograms (``inter_token_seconds``, ``ttft_seconds``,
+``gen_queue_wait_seconds``, ``gen_compute_seconds``); a prefill chunk, a
+decode tick and a sequence's lifetime are spans carrying the request's
+``trace_id``; a shed or page-pressure episode is a ``page_shed``
+journal event.
 """
 
 from __future__ import annotations
 
 import collections
-import logging
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from znicz_torch import telemetry
+from znicz_torch.telemetry.metrics import registered_property
 from znicz_torch.transport.admission import AdmissionTable, TokenBucket
 
 __all__ = ["AdmissionPolicy", "BucketLadder", "DynamicBatcher",
@@ -326,11 +337,27 @@ class DynamicBatcher:
         self._cond = threading.Condition()
         self._closed = False
         self._wakes = 0                     # wake() calls: end a wait
-        self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
-        keys = self.ladder.keys()
-        self._bucket_hits: Dict = dict.fromkeys(keys, 0)
-        self._real_cells = dict.fromkeys(keys, 0)
-        self._pad_cells = dict.fromkeys(keys, 0)
+        _sc = telemetry.scope("batcher")
+        self._m = {name: _sc.counter(name, help)
+                   for name, help in self.COUNTERS.items()}
+        # per-bucket families: plain rung keys on a 1-D ladder, "RxS" on
+        # a 2-D one; padded and real cells a bucket make pad_ratio
+        self._m_bucket_hits, self._m_real_cells, self._m_pad_cells = \
+            {}, {}, {}
+        for key in self.ladder.keys():
+            self._m_bucket_hits[key] = _sc.counter(
+                "bucket_hits", "batches closed per ladder bucket",
+                bucket=str(key))
+            self._m_real_cells[key] = _sc.counter(
+                "bucket_real_cells",
+                "real cells (rows x own tokens) per ladder bucket",
+                bucket=str(key))
+            self._m_pad_cells[key] = _sc.counter(
+                "bucket_padded_cells",
+                "pad cells (bucket area - real) per ladder bucket",
+                bucket=str(key))
+        _sc.gauge("queue_depth", "rows queued, not yet batched",
+                  fn=telemetry.weak_fn(self, lambda b: b._rows))
         #: the rung each solo request was served at: (req_id, rows, rung)
         self.solo_rungs: collections.deque = collections.deque(
             maxlen=self.SOLO_WINDOW)
@@ -341,16 +368,15 @@ class DynamicBatcher:
     @property
     def bucket_hits(self) -> Dict:
         """{bucket key: batches closed at that bucket}."""
-        with self._cond:
-            return dict(self._bucket_hits)
+        return {r: c.value for r, c in self._m_bucket_hits.items()}
 
     def pad_ratio(self) -> Dict:
         """{bucket key: pad cells / real cells} of the batches each
         bucket closed (a cell is a row, or a row's token on a 2-D
         ladder); buckets that closed none are left out."""
-        with self._cond:
-            real, pad = dict(self._real_cells), dict(self._pad_cells)
-        return {r: round(pad[r] / n, 4) for r, n in real.items() if n}
+        real = {r: c.value for r, c in self._m_real_cells.items()}
+        return {r: round(self._m_pad_cells[r].value / n, 4)
+                for r, n in real.items() if n}
 
     # -- admission -------------------------------------------------------------
 
@@ -388,7 +414,7 @@ class DynamicBatcher:
         with self._cond:
             active = sum(1 for q in self._queues.values() if q)
             clients = {k: dict(v) for k, v in self.clients.items()}
-            rate_limited = self._counts["rate_limited"]
+            rate_limited = self._m["rate_limited"].value
         return {
             "enabled": adm.enabled,
             "fair": adm.fair,
@@ -408,7 +434,7 @@ class DynamicBatcher:
         lad = self.ladder
         with self._cond:
             if req.n < 1 or req.n > self.max_batch:
-                self._counts["oversized"] += 1
+                self._m["oversized"].inc()
                 return Refusal(
                     "oversized",
                     f"request of {req.n} rows exceeds max_batch="
@@ -417,7 +443,7 @@ class DynamicBatcher:
             if lad.seq_rungs is not None:
                 if req.seq_len is None or not 1 <= req.seq_len \
                         <= lad.max_len:
-                    self._counts["oversized"] += 1
+                    self._m["oversized"].inc()
                     return Refusal(
                         "oversized",
                         f"sequence length {req.seq_len} outside the seq "
@@ -433,7 +459,7 @@ class DynamicBatcher:
                 st["rows"] += req.n
                 if adm.rate_limit > 0:
                     if not self._table.try_take(req.client, req.n):
-                        self._counts["rate_limited"] += 1
+                        self._m["rate_limited"].inc()
                         st["rate_limited"] += 1
                         return Refusal(
                             "rate_limited",
@@ -449,7 +475,7 @@ class DynamicBatcher:
                     if (adm.client_queue_bound > 0
                             and self._client_rows.get(key, 0) + req.n
                             > self._client_bound):
-                        self._counts["shed"] += 1
+                        self._m["shed"].inc()
                         st["shed"] += 1
                         if took:
                             self._table.refund(req.client, took)
@@ -460,7 +486,7 @@ class DynamicBatcher:
                             f"queued, bound {self._client_bound}) — shed",
                             scope="client")
             if self._rows + req.n > self.queue_bound:
-                self._counts["shed"] += 1
+                self._m["shed"].inc()
                 if adm.enabled:
                     st["shed"] += 1
                 if took:
@@ -478,7 +504,7 @@ class DynamicBatcher:
             self._client_rows[key] = self._client_rows.get(key, 0) + req.n
             if adm.enabled:
                 st["accepted"] += 1
-            self._counts["submitted"] += 1
+            self._m["submitted"].inc()
             self._cond.notify()
             return None
 
@@ -634,17 +660,17 @@ class DynamicBatcher:
                 key = self.ladder.bucket_key(bucket, seq_rung)
                 real = sum(r.n * r.seq_len for r in batch)
                 area = bucket * seq_rung
-            self._counts["batches"] += 1
-            self._counts["batched_requests"] += len(batch)
-            self._counts["batched_rows"] += rows
-            self._counts["padded_rows"] += bucket - rows
-            self._counts["real_cells"] += real
-            self._counts["padded_cells"] += area - real
-            self._bucket_hits[key] += 1
-            self._real_cells[key] += real
-            self._pad_cells[key] += area - real
+            self._m["batches"].inc()
+            self._m["batched_requests"].inc(len(batch))
+            self._m["batched_rows"].inc(rows)
+            self._m["padded_rows"].inc(bucket - rows)
+            self._m["real_cells"].inc(real)
+            self._m["padded_cells"].inc(area - real)
+            self._m_bucket_hits[key].inc()
+            self._m_real_cells[key].inc(real)
+            self._m_pad_cells[key].inc(area - real)
             if first.solo:
-                self._counts["solo_batches"] += 1
+                self._m["solo_batches"].inc()
                 self.solo_rungs.append((first.req_id, rows, bucket))
         return batch
 
@@ -654,15 +680,15 @@ class DynamicBatcher:
         """Mean real rows per closed batch / max_batch (None before the
         first batch); 1.0 means every batch left full."""
         with self._cond:
-            b, rows = self._counts["batches"], self._counts["batched_rows"]
+            b, rows = self._m["batches"].value, self._m["batched_rows"].value
         if not b:
             return None
         return rows / (b * self.max_batch)
 
     def stats(self) -> Dict:
+        out = {name: m.value for name, m in self._m.items()}
+        out["bucket_hits"] = self.bucket_hits
         with self._cond:
-            out = dict(self._counts)
-            out["bucket_hits"] = dict(self._bucket_hits)
             out["queue_depth"] = self._rows
         occ = self.occupancy()
         out.update(max_batch=self.max_batch,
@@ -676,22 +702,12 @@ class DynamicBatcher:
         return out
 
 
-def _counter_property(name: str):
-    def get(self) -> int:
-        with self._cond:
-            return self._counts[name]
-
-    return property(get, doc=DynamicBatcher.COUNTERS[name])
-
-
-for _name in DynamicBatcher.COUNTERS:
-    setattr(DynamicBatcher, _name, _counter_property(_name))
-del _name
+for _name, _help in DynamicBatcher.COUNTERS.items():
+    setattr(DynamicBatcher, _name, registered_property(_name, _help))
+del _name, _help
 
 
 # -- generation ---------------------------------------------------------------
-
-_log = logging.getLogger("znicz_torch.serving")
 
 
 class GenSeq:
@@ -853,24 +869,47 @@ class GenerationScheduler:
         self._closed = False
         self._order = 0
         self._next_tick = 0.0
-        self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
-        #: latency windows (s): name -> bounded deque
+        _sc = telemetry.scope("generate")
+        self._m = {name: _sc.counter(name, help)
+                   for name, help in self.COUNTERS.items()}
+        #: latency rings (s), by window name: inter-token, and TTFT with
+        #: its queue-wait / compute split
         self._windows = {
-            "inter_token": collections.deque(maxlen=self.INTER_TOKEN_WINDOW),
-            "ttft": collections.deque(maxlen=self.TTFT_WINDOW),
-            "queue_wait": collections.deque(maxlen=self.TTFT_WINDOW),
-            "compute": collections.deque(maxlen=self.TTFT_WINDOW)}
-        #: page-pressure episode latch: log the transition once
+            "inter_token": _sc.histogram(
+                "inter_token_seconds",
+                "gap between consecutive emitted tokens of one sequence",
+                size=self.INTER_TOKEN_WINDOW),
+            "ttft": _sc.histogram(
+                "ttft_seconds",
+                "time to first token (enqueue -> first emitted token)",
+                size=self.TTFT_WINDOW),
+            "queue_wait": _sc.histogram(
+                "gen_queue_wait_seconds",
+                "pending-queue wait (enqueue -> admission to a KV slot)",
+                size=self.TTFT_WINDOW),
+            "compute": _sc.histogram(
+                "gen_compute_seconds",
+                "admission -> first token (prefill compute + tick pacing)",
+                size=self.TTFT_WINDOW)}
+        _sc.gauge("kv_occupancy", "allocated KV pages / pool pages",
+                  fn=telemetry.weak_fn(self, lambda s: s.gen.occupancy()))
+        _sc.gauge("active", "generations holding KV pages",
+                  fn=telemetry.weak_fn(self, lambda s: len(s._active)))
+        _sc.gauge("pending", "generations queued for admission",
+                  fn=telemetry.weak_fn(self, lambda s: len(s._pending)))
+        #: scheduler spans carry each request's trace_id, so the fleet
+        #: exporter stitches prefill chunks and decode ticks into the
+        #: request's cross-process timeline
+        self._tracer = telemetry.tracer()
+        #: page-pressure episode latch: journal the transition once
         self._page_pressure = False
-        self._t_shed_log = 0.0          # queue-shed log rate limit
+        self._t_shed_emit = 0.0         # queue-shed journal rate limit
 
     def _inc(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[name] += int(n)
+        self._m[name].inc(int(n))
 
     def _observe(self, window: str, seconds: float) -> None:
-        with self._lock:
-            self._windows[window].append(seconds)
+        self._windows[window].observe(seconds)
 
     # -- producer side (router thread) ------------------------------------------
 
@@ -897,19 +936,21 @@ class GenerationScheduler:
             if self._closed:
                 return Refusal("draining", "service is shutting down")
             if seq.req_id is not None and key in self._inflight:
-                self._counts["gen_dedup"] += 1
+                self._m["gen_dedup"].inc()
                 return None
             if len(self._pending) >= self.pending_bound:
-                self._counts["gen_refused"] += 1
+                self._m["gen_refused"].inc()
                 now = time.perf_counter()
-                if now - self._t_shed_log > 1.0:
-                    # the shed episode, at most once a second
-                    self._t_shed_log = now
-                    _log.warning(
-                        "page_shed reason=queue_bound replica=%s pending=%d "
-                        "bound=%d active=%d", self.replica_id,
-                        len(self._pending), self.pending_bound,
-                        len(self._active))
+                if now - self._t_shed_emit > 1.0:
+                    # the shed episode, at most once a second: a flood
+                    # must not wash the journal's ring
+                    self._t_shed_emit = now
+                    telemetry.emit(
+                        "page_shed", "serving", reason="queue_bound",
+                        replica=self.replica_id,
+                        pending=len(self._pending),
+                        bound=self.pending_bound,
+                        active=len(self._active))
                 return Refusal(
                     "shed",
                     f"generation queue at bound ({len(self._pending)} "
@@ -918,7 +959,7 @@ class GenerationScheduler:
             self._order += 1
             self._pending.append(seq)
             self._inflight.add(key)
-            self._counts["gen_submitted"] += 1
+            self._m["gen_submitted"].inc()
             return None
 
     def in_flight(self, client, req_id) -> bool:
@@ -970,6 +1011,16 @@ class GenerationScheduler:
         self._release(seq)
         self._retire(seq)
         self._inc(counter)
+        if self._tracer.enabled and seq.trace_id:
+            # the whole admitted lifetime, tagged for fleet stitching
+            t0 = seq.t_admitted if seq.t_admitted is not None \
+                else seq.t_enqueued
+            t1 = seq.t_last if seq.t_last is not None \
+                else time.perf_counter()
+            self._tracer.add("generate", "sequence", t0, max(t1 - t0, 0.0),
+                             {"trace_id": seq.trace_id,
+                              "req_id": seq.req_id,
+                              "tokens": len(seq.tokens)})
         rep = {"ok": True, "req_id": seq.req_id,
                "replica_id": self.replica_id,
                "tokens": np.asarray(seq.tokens, np.int32),
@@ -1227,6 +1278,10 @@ class GenerationScheduler:
         for chunk, out in chunks:
             fetched = self._fetch(chunk, out)
             t_emit = time.perf_counter()
+            if self._tracer.enabled:
+                self._tracer.add(
+                    "generate", "decode_tick", now, t_emit - now,
+                    {"trace_id": chunk[0].trace_id, "rows": len(chunk)})
             for i, seq in enumerate(chunk):
                 seq.t += 1
                 seq.gen = out[3]
@@ -1236,6 +1291,11 @@ class GenerationScheduler:
         if pf is not None:
             fetched = self._fetch(batch, pf)
             t_emit = time.perf_counter()
+            if self._tracer.enabled:
+                self._tracer.add(
+                    "generate", "prefill_chunk", now, t_emit - now,
+                    {"trace_id": batch[0].trace_id, "rows": len(batch),
+                     "tokens": sum(nn)})
             for i, seq in enumerate(batch):
                 seq.prefilled = t0s[i] + nn[i]
                 if seq.prefilled < seq.prompt_len:
@@ -1252,14 +1312,15 @@ class GenerationScheduler:
         return worked, replies
 
     def _note_page_pressure(self, stalled: int) -> None:
-        """Log the page-pressure transition: the first round whose
+        """Journal the page-pressure transition: the first round whose
         allocations held rows back after a clean round, once an
         episode."""
         if stalled and not self._page_pressure:
-            _log.warning("page_shed reason=page_pressure replica=%s "
-                         "stalled_rows=%d kv_occupancy=%.4f active=%d",
-                         self.replica_id, stalled, self.gen.occupancy(),
-                         len(self._active))
+            telemetry.emit(
+                "page_shed", "serving", reason="page_pressure",
+                replica=self.replica_id, stalled_rows=stalled,
+                kv_occupancy=round(self.gen.occupancy(), 4),
+                active=len(self._active))
         self._page_pressure = bool(stalled)
 
     def _abandon(self, reply) -> List:
@@ -1301,8 +1362,7 @@ class GenerationScheduler:
     # -- stats --------------------------------------------------------------------
 
     def _quantiles(self, window: str) -> Dict[str, Optional[float]]:
-        with self._lock:
-            w = np.asarray(self._windows[window])
+        w = self._windows[window].window()
         return {f"{window}_p{q}_ms": (None if w.size == 0 else
                                       round(float(np.percentile(w, q)) * 1e3,
                                             3))
@@ -1323,7 +1383,7 @@ class GenerationScheduler:
         with self._lock:
             out = {"pending": len(self._pending),
                    "active": len(self._active)}
-            out.update(self._counts)
+        out.update({name: m.value for name, m in self._m.items()})
         out.update({"max_new_tokens": self.max_new_cap,
                     "pending_bound": self.pending_bound,
                     "decode_tick_ms": self.decode_tick_s * 1e3,
@@ -1334,14 +1394,6 @@ class GenerationScheduler:
         return out
 
 
-def _gen_counter_property(name: str):
-    def get(self) -> int:
-        with self._lock:
-            return self._counts[name]
-
-    return property(get, doc=GenerationScheduler.COUNTERS[name])
-
-
-for _name in GenerationScheduler.COUNTERS:
-    setattr(GenerationScheduler, _name, _gen_counter_property(_name))
-del _name
+for _name, _help in GenerationScheduler.COUNTERS.items():
+    setattr(GenerationScheduler, _name, registered_property(_name, _help))
+del _name, _help

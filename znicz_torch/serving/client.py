@@ -27,6 +27,12 @@ balancer's ``lb`` stamp files its outcome into the window of the
 ``replica_id`` stamped on it (``replica_breakers()``), not into the
 whole-service breaker.
 
+Telemetry: the counters are the ``serving_client`` scope's (with the
+``breaker_open`` gauge); each answered request is a ``client/request``
+span carrying its ``trace_id``, and a reply that carries the replica's
+span summary (``spans`` with its ``origin``) is ingested into the
+process's fleet trace store.
+
 A sequence service takes ``(n, len)`` requests as they are and answers
 ``(n, len, ...)``.  A generating one (``--generate``) also takes
 ``submit_generate``/``generate``: a 1-D prompt in, its tokens out; with
@@ -46,7 +52,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from znicz_torch import telemetry
 from znicz_torch.parallel import wire
+from znicz_torch.telemetry.metrics import registered_property
 from znicz_torch.transport import (CircuitBreaker,            # noqa: F401
                                    CircuitOpenError, RetryPolicy)
 
@@ -106,7 +114,9 @@ class InferenceClient:
         #: default (past it the answer is worthless anyway)
         self.deadline_s = (float(timeout) if deadline_s is None
                            else float(deadline_s))
-        self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
+        _sc = telemetry.scope("serving_client")
+        self._m = {name: _sc.counter(name, help)
+                   for name, help in self.COUNTERS.items()}
         events = {"open": "breaker_opens",
                   "short_circuit": "breaker_short_circuits",
                   "probe": "breaker_probes"}
@@ -121,6 +131,16 @@ class InferenceClient:
         self._brk_replicas: "collections.OrderedDict[str, collections.deque]" \
             = collections.OrderedDict()
         self._brk_replica_open: Dict[str, bool] = {}
+        _sc.gauge("breaker_open",
+                  "circuit breaker state (0 closed, 0.5 half-open, 1 open)",
+                  fn=telemetry.weak_fn(
+                      self, lambda c: {"closed": 0.0, "half_open": 0.5,
+                                       "open": 1.0}[c._breaker.state]))
+        self._tracer = telemetry.tracer()
+        #: req_id -> (trace_id, t_submitted) of the client-side request
+        #: span; popped where _pending is, so bounded by the requests in
+        #: flight
+        self._obs_req: Dict[int, tuple] = {}
         self._ids = itertools.count(1)
         #: req_id -> [frames, t_last_sent, resends]
         self._pending: Dict[int, List] = {}
@@ -132,7 +152,7 @@ class InferenceClient:
         self._sock.connect(endpoint)
 
     def _inc(self, name: str, n: int = 1) -> None:
-        self._counts[name] += n
+        self._m[name].inc(n)
 
     # -- pipelined API ---------------------------------------------------------
 
@@ -149,7 +169,26 @@ class InferenceClient:
         frames = [b""] + payload
         self._sock.send_multipart(frames, copy=False)
         self._pending[rid] = [frames, time.perf_counter(), 0]
+        if self._tracer.enabled:
+            self._obs_req[rid] = (msg["trace_id"], time.perf_counter())
         return rid
+
+    def _note_reply(self, rid, rep: dict) -> None:
+        """Close one request's client-side observation: a
+        ``client/request`` span over submit -> reply, and the replica's
+        span summary the reply may carry ingested into this process's
+        fleet trace store."""
+        tid, t0 = self._obs_req.pop(rid, (None, None))
+        if not self._tracer.enabled:
+            return
+        if tid is not None and t0 is not None:
+            self._tracer.add("client", "request", t0,
+                             time.perf_counter() - t0,
+                             {"trace_id": tid, "req_id": rid,
+                              "ok": bool(rep.get("ok"))})
+        if rep.get("spans") and rep.get("origin"):
+            telemetry.fleet_trace().ingest(str(rep["origin"]),
+                                           rep["spans"])
 
     # -- circuit breaker -------------------------------------------------------
 
@@ -280,6 +319,7 @@ class InferenceClient:
                 del self._pending[rid]
                 self._on_token.pop(rid, None)
                 self._results[rid] = rep
+                self._note_reply(rid, rep)
                 # breaker failures: service-scoped sheds and a balancer's
                 # failover give-up; ok replies and per-client refusals
                 # are healthy
@@ -326,6 +366,7 @@ class InferenceClient:
                              f"over {waited:.1f}s — giving up (max_resends="
                              f"{self.max_resends}); service at "
                              f"{self.endpoint} unreachable?"}
+                self._note_reply(rid, self._results[rid])
                 continue
             # the same encoded frames: bytes, not a re-encode
             self._sock.send_multipart(frames, copy=False)
@@ -343,6 +384,7 @@ class InferenceClient:
             if time.perf_counter() > deadline:
                 self._pending.pop(req_id, None)
                 self._on_token.pop(req_id, None)
+                self._obs_req.pop(req_id, None)
                 self._inc("give_ups")
                 self._breaker.record(req_id, False)
                 raise TimeoutError(f"req {req_id}: no reply within "
@@ -440,11 +482,6 @@ class InferenceClient:
         self._sock.close(0)
 
 
-def _counter_property(name: str):
-    return property(lambda self: self._counts[name],
-                    doc=InferenceClient.COUNTERS[name])
-
-
-for _name in InferenceClient.COUNTERS:
-    setattr(InferenceClient, _name, _counter_property(_name))
-del _name
+for _name, _help in InferenceClient.COUNTERS.items():
+    setattr(InferenceClient, _name, registered_property(_name, _help))
+del _name, _help

@@ -91,9 +91,25 @@ kept as ``warm_report``) must hold before the server becomes ready; a
 failed proof fails ``start()``.  The heartbeat carries ``warm_source``,
 ``warm_hits`` and ``warm_misses``.  With generation the warmup also
 enters the generation family, and the proof expects
-``len(ladder.buckets()) + executables()``.  Exemplars, SLOs and the
-heartbeat's fleet trace, event and metric keys come with telemetry
-(A.9).
+``len(ladder.buckets()) + executables()``.
+
+**Telemetry and fleet observability** (``root.common.serving.obs``,
+read through a local alias like the admission subtree).  The counters
+are the ``serving`` scope's registry counters (read through attributes
+of the same names), the request latency the ``request_latency_seconds``
+ring, each rung's the ``bucket_latency_seconds`` ring (the heartbeat's
+p99 by rung) and the boot ``warmup_boot_to_ready_seconds``.  The server
+names itself ``replica_id`` in the fleet (``telemetry.set_identity``).
+Each beat carries ``origin``, a bounded batch of exported ``spans`` and
+the journal's fresh ``events``, and every ``metrics_every_beats``-th the
+registry's ``metrics`` snapshot.  The ``exemplars`` slowest requests of
+the last ``exemplar_window_s`` are kept with their trace ids
+(``slow_requests`` in ``stats()``), and the serving ``SloTracker``
+(availability, latency p99, TTFT, inter-token; ``slo_*``) is advisory.
+Spans: ``assemble`` and ``batch_compute`` a batch, ``reply`` a request
+(its replica, batch number, rung, generation and solo flag), all
+recorded on the host around the dispatch, never inside a captured
+graph.
 
 **Variable-length requests** (``root.common.serving.seq.{max_len,
 rungs}``; ``max_len`` defaults to the workflow's ``serving_seq_len``,
@@ -109,7 +125,6 @@ from real positions), are refused when the server is built.
 
 from __future__ import annotations
 
-import collections
 import logging
 import math
 import queue
@@ -121,7 +136,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from znicz_torch import telemetry
 from znicz_torch.core.config import check_serving_keys, root
+from znicz_torch.telemetry.metrics import registered_property
 
 from .batcher import (AdmissionPolicy, BucketLadder, DynamicBatcher,
                       GenerationScheduler, GenSeq, Refusal, Request)
@@ -132,6 +149,9 @@ from .model import ModelRunner
 #: the reference's others
 DEFAULTS = {"max_batch": 32, "max_delay_ms": 5.0, "queue_bound": 256,
             "request_ttl_s": 5.0, "max_requests": None,
+            # the launcher's WebStatus port under --serve and --balance
+            # (None: no dashboard)
+            "web_port": None,
             "admission": {"enabled": True, "rate_limit": 0.0,
                           "rate_burst": 0.0, "fair": True, "quantum": 0,
                           "client_queue_bound": 0},
@@ -155,6 +175,15 @@ DEFAULTS = {"max_batch": 32, "max_delay_ms": 5.0, "queue_bound": 256,
             # the build cache (serving/aot_cache.py): kernel libraries
             # kept next to the snapshot (``dir`` overrides the place)
             "aot_cache": {"enabled": False, "dir": ""},
+            # fleet observability: the slow-request exemplar window, the
+            # heartbeat's metrics cadence, and the serving SLOs (advisory
+            # burn rates: /readyz reports them, never gates on them)
+            "obs": {"exemplars": 8, "exemplar_window_s": 60.0,
+                    "metrics_every_beats": 8,
+                    "slo_availability": 0.999, "slo_p99_ms": 250.0,
+                    "slo_ttft_ms": 500.0, "slo_inter_token_ms": 100.0,
+                    "slo_fast_window_s": 60.0,
+                    "slo_slow_window_s": 600.0},
             # the replica fleet (serving/balancer.py reads them through a
             # local alias): heartbeat cadence and TTL'd membership,
             # hedged-retry timing, exactly-once failover budgets, the
@@ -304,16 +333,70 @@ class InferenceServer:
         #: the warmup finished; in cache mode readiness waits on it
         self.warm_report: Optional[Dict] = None
         self.codec = wire.Codec(owner="serving")    # router thread only
-        self._lock = threading.Lock()
-        self._counts: Dict[str, int] = dict.fromkeys(self.COUNTERS, 0)
-        self._latencies: List[float] = []
-        #: per ladder rung, recent enqueue -> compute-done latencies (s)
-        self._lat_bucket = {r: collections.deque(maxlen=self.BUCKET_WINDOW)
-                            for r in self.batcher.ladder}
+        _sc = telemetry.scope("serving")
+        self._m = {name: _sc.counter(name, help)
+                   for name, help in self.COUNTERS.items()}
+        #: serve() entry -> ready: cold builds and cache-warm loads land
+        #: in visibly different places here
+        self._m_boot = telemetry.scope("warmup").histogram(
+            "warmup_boot_to_ready_seconds",
+            "serve() entry -> /readyz true (warmup included)", size=64)
+        self._m_latency = _sc.histogram(
+            "request_latency_seconds",
+            "e2e request latency (enqueue -> reply handoff)",
+            size=self.LATENCY_WINDOW)
+        #: per ladder rung, enqueue -> compute-done latencies: the
+        #: heartbeat's p99-by-rung
+        self._m_lat_bucket = {
+            r: _sc.histogram("bucket_latency_seconds",
+                             "request latency per ladder rung "
+                             "(enqueue -> compute done)",
+                             size=self.BUCKET_WINDOW, bucket=str(r))
+            for r in self.batcher.ladder}
         d_bal = DEFAULTS["balance"]
         bal = root.common.serving.balance
         self.heartbeat_s = float(bal.get("heartbeat_s",
                                          d_bal["heartbeat_s"]))
+        self._tracer = telemetry.tracer()
+        self._batch_no = 0          # batches dispatched (compute thread)
+        # fleet observability: this replica's fleet identity, the span
+        # exporter the heartbeat drains, the exemplar window and the
+        # serving SLO tracker
+        d_obs = DEFAULTS["obs"]
+        obs = root.common.serving.obs
+        telemetry.set_identity(self.replica_id)
+        self._exporter = telemetry.exporter()
+        self._exemplar_cap = int(obs.get("exemplars", d_obs["exemplars"]))
+        self._exemplar_window_s = float(obs.get(
+            "exemplar_window_s", d_obs["exemplar_window_s"]))
+        self._metrics_every = max(1, int(obs.get(
+            "metrics_every_beats", d_obs["metrics_every_beats"])))
+        self._exemplars: List[Dict] = []    # the N slowest, newest window
+        self._exemplar_lock = threading.Lock()
+        self._hb_beats = 0
+        self._hb_ev_seq = 0                 # the journal's piggyback cursor
+        self.slo = telemetry.register_slo(telemetry.SloTracker(
+            "serving",
+            window_fast_s=float(obs.get("slo_fast_window_s",
+                                        d_obs["slo_fast_window_s"])),
+            window_slow_s=float(obs.get("slo_slow_window_s",
+                                        d_obs["slo_slow_window_s"]))))
+        self.slo.add_objective(
+            "availability",
+            target=float(obs.get("slo_availability",
+                                 d_obs["slo_availability"])))
+        self.slo.add_objective(
+            "latency_p99", target=0.99, unit="s",
+            threshold=float(obs.get("slo_p99_ms",
+                                    d_obs["slo_p99_ms"])) / 1e3)
+        self.slo.add_objective(
+            "ttft", target=0.99, unit="s",
+            threshold=float(obs.get("slo_ttft_ms",
+                                    d_obs["slo_ttft_ms"])) / 1e3)
+        self.slo.add_objective(
+            "inter_token", target=0.99, unit="s",
+            threshold=float(obs.get("slo_inter_token_ms",
+                                    d_obs["slo_inter_token_ms"])) / 1e3)
         self.started_at: Optional[float] = None
         #: serve() entry -> ready, warmup included (s)
         self.boot_to_ready_s: Optional[float] = None
@@ -400,8 +483,7 @@ class InferenceServer:
                 f"(root.common.serving.seq.max_len=0)")
 
     def _inc(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[name] += n
+        self._m[name].inc(n)
 
     @property
     def bad_frames(self) -> int:
@@ -602,6 +684,7 @@ class InferenceServer:
 
             loop.add_tick(tick)
             self.boot_to_ready_s = time.perf_counter() - t_boot
+            self._m_boot.observe(self.boot_to_ready_s)
             self._ready.set()
             tick()                      # the first heartbeat, pre-poll
             loop.run(poll_ms=5)
@@ -618,9 +701,7 @@ class InferenceServer:
             self.runner.close()             # a mesh's other ranks stop
 
     def _answered(self) -> int:
-        with self._lock:
-            return (self._counts["served"] + self._counts["timed_out"]
-                    + self._counts["rejected"])
+        return self.served + self.timed_out + self.rejected
 
     def _drain_outbound(self, sock) -> None:
         while True:
@@ -869,7 +950,8 @@ class InferenceServer:
 
     # -- the compute thread ----------------------------------------------------
 
-    def _expire(self, r: Request, error: str, expired: bool) -> None:
+    def _expire(self, r: Request, error: str, expired: bool,
+                 bucket=None) -> None:
         """Answer ``r`` timed_out (compute thread)."""
         self._inc("timed_out")
         if expired:
@@ -878,6 +960,8 @@ class InferenceServer:
                           "req_id": r.req_id, "replica_id": self.replica_id,
                           "policy": "deadline", "trace_id": r.trace_id,
                           "error": error})
+        self._note_request(False, time.perf_counter() - r.t_enqueued,
+                           r.req_id, r.trace_id, bucket=bucket)
 
     def _assemble(self, batch: List[Request]):
         """Coalesced requests -> (live requests, their batch staged for
@@ -900,6 +984,7 @@ class InferenceServer:
         rows = sum(r.n for r in live)
         bucket = self.batcher.ladder.bucket_for(rows)
         seq = live[0].seq_rung
+        t0 = time.perf_counter()
         buf = self.runner.host_buffer(self.runner.bucket_shape(
             bucket if seq is None else (bucket, seq)))
         x = buf.numpy()
@@ -918,21 +1003,38 @@ class InferenceServer:
                 x[off:off + r.n, r.seq_len:] = 0
             off += r.n
         x[off:] = 0
-        return live, self.runner.stage(buf)
+        staged = self.runner.stage(buf)
+        if self._tracer.enabled:
+            self._tracer.add("serving", "assemble", t0,
+                             time.perf_counter() - t0,
+                             {"rows": rows, "bucket": bucket,
+                              "requests": len(live), "seq": seq or 0})
+        return live, staged
 
-    def _finish(self, live: List[Request], y_dev, gen: int) -> None:
+    def _finish(self, live: List[Request], y_dev, gen: int,
+                t_dispatch: Optional[float] = None,
+                batch_no: int = 0) -> None:
         y = y_dev.cpu().numpy()             # the sync point
         now = time.perf_counter()
+        rows = sum(r.n for r in live)
+        rung = self.batcher.ladder.bucket_for(rows)
+        tracing = self._tracer.enabled
+        if t_dispatch is not None and tracing:
+            # dispatch -> read back: the batch's device span (the staging
+            # of batch N+1 overlaps inside it by design)
+            self._tracer.add(
+                "serving", "batch_compute", t_dispatch, now - t_dispatch,
+                {"rows": rows, "requests": len(live),
+                 "trace_id": live[0].trace_id if live else None})
         # the batch's ladder rung: its ring feeds the heartbeat's p99s
-        ring = self._lat_bucket[self.batcher.ladder.bucket_for(
-            sum(r.n for r in live))]
+        ring = self._m_lat_bucket[rung]
         off = 0
-        lat = []
         for r in live:
+            ring.observe(now - r.t_enqueued)
             if r.t_deadline is not None and now > r.t_deadline:
                 # a late result is dropped, never shipped
                 self._expire(r, "result ready past the deadline — dropped, "
-                                "not shipped", True)
+                                "not shipped", True, bucket=rung)
                 off += r.n
                 continue
             # each reply owns a copy of its rows (its frames go out with
@@ -944,13 +1046,21 @@ class InferenceServer:
                               "trace_id": r.trace_id, "gen": gen,
                               "replica_id": self.replica_id,
                               "y": np.array(yr)})
-            lat.append(now - r.t_enqueued)
+            if tracing and r.trace_id:
+                # which dispatch answered this request: what a stitched
+                # trace of one reply names
+                self._tracer.add(
+                    "serving", "reply", r.t_enqueued, now - r.t_enqueued,
+                    {"trace_id": r.trace_id, "req_id": r.req_id,
+                     "replica": self.replica_id, "batch": batch_no,
+                     "rung": rung, "gen": gen, "solo": bool(r.solo),
+                     "rows": r.n, "offset": off,
+                     "batch_requests": len(live)})
             off += r.n
-        with self._lock:
-            ring.extend(now - r.t_enqueued for r in live)
-            self._counts["served"] += len(lat)
-            self._latencies.extend(lat)
-            del self._latencies[:-self.LATENCY_WINDOW]
+            self._inc("served")
+            self._m_latency.observe(now - r.t_enqueued)
+            self._note_request(True, now - r.t_enqueued, r.req_id,
+                               r.trace_id, bucket=rung)
 
     def _fail(self, live: List[Request], exc: BaseException) -> None:
         for r in live:
@@ -1006,14 +1116,17 @@ class InferenceServer:
                         continue
                 live, x_dev = staged
                 staged = None
+                t_dispatch = time.perf_counter()
                 y_dev, gen = self.runner.infer_staged(x_dev)
+                self._batch_no += 1
+                batch_no = self._batch_no
                 # while the device computes batch N, stage what is already
                 # queued as N+1 (no coalescing window here: it would hold
                 # N's finished replies hostage)
                 nxt = self.batcher.next_batch(timeout=0.0, wait_fill=False)
                 if nxt is not None:
                     staged = self._assemble(nxt)
-                self._finish(live, y_dev, gen)
+                self._finish(live, y_dev, gen, t_dispatch, batch_no)
                 live = []
                 poke()
                 if gs is not None and gs.work_ready():
@@ -1049,6 +1162,7 @@ class InferenceServer:
                     self._inc("timed_out")
                 else:
                     self._inc("rejected")
+                self._note_gen_final(rep)
             self._outbound.put((env, rep))
         if replies and poke is not None:
             poke()
@@ -1064,8 +1178,7 @@ class InferenceServer:
     def latency_quantiles(self) -> Dict[str, Optional[float]]:
         """p50/p99/mean request latency (enqueue -> result on the host),
         ms, over the last ``LATENCY_WINDOW`` requests."""
-        with self._lock:
-            lat = np.asarray(self._latencies)
+        lat = self._m_latency.window()
         if not lat.size:
             return {"p50_ms": None, "p99_ms": None, "mean_ms": None}
         a = lat * 1e3
@@ -1076,11 +1189,9 @@ class InferenceServer:
     def p99_ms_by_bucket(self) -> Dict[int, float]:
         """``{ladder rung: p99 ms}`` over each rung's recent window (the
         per-rung latency the heartbeat carries)."""
-        with self._lock:
-            rings = {r: np.asarray(ring) for r, ring in
-                     self._lat_bucket.items() if ring}
+        rings = {r: hist.window() for r, hist in self._m_lat_bucket.items()}
         return {r: round(float(np.percentile(w, 99)) * 1e3, 3)
-                for r, w in rings.items()}
+                for r, w in rings.items() if w.size}
 
     def heartbeat_payload(self) -> Dict:
         """One fleet heartbeat: the replica's identity and endpoint, its
@@ -1088,9 +1199,30 @@ class InferenceServer:
         (``device_count``: dp x mp on a serving mesh, else 1) and per-rung
         p99, and where its kernel libraries came from
         (``ModelRunner.warm_source`` and the cache's hits and misses).
-        The reference's fleet-observability keys (``origin``, ``spans``, ``events``,
-        ``metrics``) are not sent: a balancer ignores keys a beat lacks."""
-        mesh = self.runner.mesh_shape
+
+        Fleet observability rides the same beat: ``origin``, a bounded
+        batch of exported spans and the journal's fresh events on every
+        beat, and the registry's snapshot every ``metrics_every_beats``-th
+        (the first beat included); the balancer merges them into its
+        fleet stores."""
+        hb = self._heartbeat_base()
+        hb["origin"] = telemetry.identity()
+        spans = self._exporter.drain(telemetry.span_export_batch())
+        if spans:
+            hb["spans"] = spans
+        ev = telemetry.journal().since(self._hb_ev_seq,
+                                       limit=telemetry.span_export_batch())
+        if ev:
+            self._hb_ev_seq = ev[-1]["seq"]
+            hb["events"] = ev
+        self._hb_beats += 1
+        if self._hb_beats % self._metrics_every == 1 \
+                or self._metrics_every == 1:
+            hb["metrics"] = telemetry.registry_snapshot(
+                telemetry.registry())
+        return hb
+
+    def _heartbeat_base(self) -> Dict:
         return {"cmd": "heartbeat",
                 "replica_id": self.replica_id,
                 "endpoint": self.endpoint,
@@ -1101,18 +1233,90 @@ class InferenceServer:
                 "snapshot_path": self.runner.snapshot_path,
                 "queue_depth": self.batcher.queue_depth,
                 "served": self.served,
-                "device_count": (int(np.prod(list(mesh.values())))
-                                 if mesh else 1),
-                "mesh": mesh,
+                "device_count": self.runner.device_count,
+                "mesh": self.runner.mesh_shape,
                 "warm_source": self.runner.warm_source,
                 "warm_hits": int(self.runner._warm["hits"]),
                 "warm_misses": int(self.runner._warm["misses"]),
                 "boot_s": self.boot_to_ready_s,
                 "p99_ms_by_bucket": self.p99_ms_by_bucket()}
 
+    def _note_request(self, ok: bool, latency_s: float, req_id, trace_id,
+                      bucket=None, kind: str = "infer",
+                      breakdown: Optional[Dict] = None) -> None:
+        """Feed one finished request into the SLO tracker and, when it
+        ranks, the slow-request exemplar window.  The exporter is peeked
+        only for a request slow enough to keep."""
+        self.slo.record("availability", ok)
+        self.slo.record_latency("latency_p99", latency_s)
+        latency_ms = round(latency_s * 1e3, 3)
+        with self._exemplar_lock:
+            now = time.time()
+            horizon = now - self._exemplar_window_s
+            self._exemplars = [e for e in self._exemplars
+                               if e["t"] >= horizon]
+            if len(self._exemplars) >= self._exemplar_cap \
+                    and latency_ms <= self._exemplars[-1]["latency_ms"]:
+                return
+            ex = {"req_id": req_id, "trace_id": trace_id,
+                  "latency_ms": latency_ms, "bucket": bucket,
+                  "kind": kind, "ok": ok, "t": now}
+            if breakdown:
+                ex["breakdown_ms"] = dict(breakdown)
+            if trace_id and self._tracer.enabled:
+                spans = self._exporter.peek_trace(str(trace_id), limit=8)
+                if spans:
+                    ex["spans"] = [{"cat": s.get("cat"),
+                                    "name": s.get("name"),
+                                    "dur_ms": round(
+                                        s.get("dur", 0) / 1e3, 3)}
+                                   for s in spans]
+            self._exemplars.append(ex)
+            self._exemplars.sort(key=lambda e: -e["latency_ms"])
+            del self._exemplars[self._exemplar_cap:]
+
+    def _note_gen_final(self, rep) -> None:
+        """A generation final's bookkeeping: the SLO feeds
+        (availability, TTFT and inter-token from the scheduler's timing),
+        the exemplar window, and the replica's spans of the trace on the
+        reply, so the client or balancer stitches without waiting for
+        the next heartbeat.  Finals only: partials never pay this."""
+        if rep.get("rejected"):
+            return              # an intentional refusal: not a miss
+        ok = bool(rep.get("ok"))
+        t = rep.get("timing_ms") or {}
+        total = t.get("total")
+        if total is not None:
+            self._note_request(ok, total / 1e3, rep.get("req_id"),
+                               rep.get("trace_id"), kind="generate",
+                               breakdown=t)
+        else:
+            self.slo.record("availability", ok)
+        if ok:
+            ttft = t.get("ttft")
+            if ttft is not None:
+                self.slo.record_latency("ttft", ttft / 1e3)
+                toks = rep.get("tokens")
+                n = int(getattr(toks, "size", 0) or 0)
+                if n > 1 and total is not None and total > ttft:
+                    self.slo.record_latency(
+                        "inter_token", (total - ttft) / 1e3 / (n - 1))
+        tid = rep.get("trace_id")
+        if ok and tid and self._tracer.enabled:
+            spans = self._exporter.peek_trace(str(tid))
+            if spans:
+                rep["spans"] = spans
+                rep["origin"] = telemetry.identity()
+
+    def slow_requests(self) -> List[Dict]:
+        """The exemplar window, slowest first."""
+        horizon = time.time() - self._exemplar_window_s
+        with self._exemplar_lock:
+            return [dict(e) for e in self._exemplars
+                    if e["t"] >= horizon]
+
     def stats(self) -> Dict:
-        with self._lock:
-            out = dict(self._counts)
+        out = {name: m.value for name, m in self._m.items()}
         qps = self.qps()
         out.update(endpoint=self.endpoint, replica_id=self.replica_id,
                    ready=self.ready(), draining=self.draining,
@@ -1127,20 +1331,13 @@ class InferenceServer:
                    boot_to_ready_s=self.boot_to_ready_s)
         out.update(self.runner.stats())
         out["warm_report"] = self.warm_report
+        out["slow_requests"] = self.slow_requests()
         out["batcher"] = self.batcher.stats()
         if self.gen_sched is not None:
             out["generate"] = self.gen_sched.stats()
         return out
 
 
-def _counter_property(name: str):
-    def get(self) -> int:
-        with self._lock:
-            return self._counts[name]
-
-    return property(get, doc=InferenceServer.COUNTERS[name])
-
-
-for _name in InferenceServer.COUNTERS:
-    setattr(InferenceServer, _name, _counter_property(_name))
-del _name
+for _name, _help in InferenceServer.COUNTERS.items():
+    setattr(InferenceServer, _name, registered_property(_name, _help))
+del _name, _help

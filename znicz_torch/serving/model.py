@@ -77,7 +77,16 @@ cover the model, or a failed warm raises, is counted in
 ``FaultSchedule``; every dispatch, the warm's included, takes one
 ``decide_compute`` decision (the cursor advances under the dispatch
 lock), and a ``stall`` sleeps on the host before the dispatch; stalls
-count in ``stats()["stalls"]``.
+count in ``stats()["stalls"]`` and in the ``chaos`` scope's ``faults``
+series (``direction="compute"``, ``action="stall"``).
+
+**Telemetry.**  The runner's counters (``compiles``, ``swaps``,
+``swap_failures``, ``rollbacks``, ``stage_copies``) are registry counters
+of the ``model`` scope, read through properties of the same names, with
+the ``generation``, ``mesh_devices`` and ``jit_cache_size`` (the live
+family's size) gauges; the prefix cache's are the ``prefix_cache``
+scope's, and an eviction is a ``prefix_evict`` journal event.  Nothing
+is observed inside a captured forward: a replay runs no Python.
 
 **The serving mesh** (``root.common.serving.mesh.{data,model}``).  A mesh is a group of processes, one a rank
 (``parallel/mesh.py``).  Every rank builds the workflow and a
@@ -121,7 +130,6 @@ own length, so each bucket is one shape, one key and one graph.
 from __future__ import annotations
 
 import contextlib
-import logging
 import threading
 import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -129,6 +137,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from znicz_torch import telemetry
 from znicz_torch.attention import (CharEmbedding, MultiHeadAttention,
                                    SeqAll2All, SeqAll2AllSoftmax)
 from znicz_torch.core.config import ENGINE_DEFAULTS, root
@@ -138,8 +147,7 @@ from znicz_torch.ops.linear import seq_linear
 from znicz_torch.parallel import mesh as mesh_mod
 from znicz_torch.parallel.fused import FusedTrainer
 from znicz_torch.parallel.graphs import StepGraph, capturing
-
-_log = logging.getLogger("znicz_torch.serving")
+from znicz_torch.telemetry.metrics import registered_property
 
 
 class Staged(NamedTuple):
@@ -191,6 +199,19 @@ class ModelRunner:
     forward on the workflow's device (see the module docstring for
     ``capture`` and ``mesh``)."""
 
+    #: the runner's registry counters (``model`` scope): name -> HELP
+    COUNTERS = {
+        "compiles": "captures of the served forward == family entries",
+        "swaps": "completed snapshot rollovers",
+        "swap_failures": "rollovers refused/failed (old generation kept "
+                         "serving)",
+        "rollbacks": "retained-previous generation restored (fleet canary "
+                     "auto-rollback path)",
+        "stage_copies": "host batches copied before staging (unpinned or "
+                        "wrong-dtype input; the frontend's assemble path "
+                        "never pays this)",
+    }
+
     def __init__(self, workflow, snapshot: str = "",
                  capture: Optional[bool] = None):
         if snapshot:
@@ -231,12 +252,25 @@ class ModelRunner:
         self._dispatch_lock = threading.Lock()      # one bound tree at a time
         #: True while swap() loads and warms
         self.swapping = False
-        self.swaps = 0
-        self.swap_failures = 0
-        self.rollbacks = 0
-        #: captures made (uncaptured: first dispatches of a shape), and
-        #: their host seconds (the eager dispatch, the sync, the capture)
-        self.compiles = 0
+        _sc = telemetry.scope("model")
+        #: the registry counters behind the properties of the same names;
+        #: ``compiles`` counts captures (uncaptured: first dispatches of
+        #: a shape)
+        self._m = {name: _sc.counter(name, help)
+                   for name, help in self.COUNTERS.items()}
+        _sc.gauge("generation", "live snapshot generation id",
+                  fn=telemetry.weak_fn(self, lambda r: r.generation))
+        _sc.gauge("mesh_devices", "devices in the serving mesh (1 = "
+                  "single-device)",
+                  fn=telemetry.weak_fn(self, lambda r: r.device_count))
+        _sc.gauge("jit_cache_size", "captured rungs of the live "
+                  "generation's family",
+                  fn=telemetry.weak_fn(self,
+                                       lambda r: r.graph_cache_size()))
+        self._m_stalls = None
+        self._tracer = telemetry.tracer()
+        #: the captures' host seconds (the eager dispatch, the sync, the
+        #: capture)
         self.capture_s = 0.0
         #: the compute-fault hook: a FaultSchedule, its cursor, the stalls
         self._chaos = None
@@ -292,6 +326,13 @@ class ModelRunner:
     def mesh_shape(self) -> Optional[Dict[str, int]]:
         """``{"data": dp, "model": mp}``, None on one device."""
         return mesh_mod.mesh_shape_dict(self.mesh)
+
+    @property
+    def device_count(self) -> int:
+        """The ranks serving (dp x mp on a mesh, else 1): the capacity the
+        heartbeat advertises."""
+        shape = self.mesh_shape
+        return int(np.prod(list(shape.values()))) if shape else 1
 
     def _exchange(self, op: int = 0, rows: int = 0, gen: int = 0,
                   seq: int = 0) -> Tuple[int, int, int, int]:
@@ -421,11 +462,17 @@ class ModelRunner:
             raise TypeError(f"staged batch is {x.dtype}, the service "
                             f"stages {self._torch_dtype}")
         if self.mesh is not None:
-            mesh_mod.require_batch_divisible(x.shape[0], self.mesh)
+            dp = mesh_mod.require_batch_divisible(x.shape[0], self.mesh)
+            # the rows stay on the host: rank 0 scatters each data
+            # coordinate its shard at the dispatch
+            self._tracer.instant("model", "stage_sharded",
+                                 rows=int(x.shape[0]), shards=dp,
+                                 rows_per_shard=int(x.shape[0]) // dp)
             return Staged(x, None, None)
         if not self._cuda:
             return Staged(x, None, None)
         if not x.is_pinned():
+            self._m["stage_copies"].inc()
             pinned = self.host_buffer(x.shape)
             pinned.copy_(x)
             x = pinned
@@ -453,12 +500,18 @@ class ModelRunner:
             action, seconds = chaos.decide_compute(no)
             if action == "stall":
                 self.stalls += 1
+                self._m_stalls.inc()
         if action == "stall":
             time.sleep(seconds)
 
     def inject_compute_faults(self, schedule) -> None:
         """Arm the compute-fault hook with ``schedule`` (a chaos
-        ``FaultSchedule``; None disarms it)."""
+        ``FaultSchedule``; None disarms it); stalls count in the chaos
+        fault family, like the proxy's wire faults."""
+        if self._m_stalls is None:
+            self._m_stalls = telemetry.scope("chaos").counter(
+                "faults", "injected proxy fault decisions",
+                direction="compute", action="stall")
         self._chaos = schedule
 
     def infer_staged(self, staged: Staged,
@@ -506,7 +559,7 @@ class ModelRunner:
             y = self._eager(g, x)
             if key not in graphs:
                 graphs[key] = None
-                self.compiles += 1
+                self._m["compiles"].inc()
             return y
         cap = graphs.get(key)
         if cap is None:
@@ -536,7 +589,7 @@ class ModelRunner:
                     self._trainer._decode(cap.inputs["x"])), stream,
                     pool=g.family.pool)
         g.family.graphs[key] = cap
-        self.compiles += 1
+        self._m["compiles"].inc()
         self.capture_s += time.perf_counter() - t0
         return y
 
@@ -627,7 +680,7 @@ class ModelRunner:
         the snapshot's metadata.  On a mesh, rank 0 calls it and every
         rank takes its steps."""
         if not self._swap_lock.acquire(blocking=False):
-            self.swap_failures += 1
+            self._m["swap_failures"].inc()
             raise RuntimeError("swap already in progress")
         try:
             self.swapping = True
@@ -662,11 +715,11 @@ class ModelRunner:
                         self._exchange(FLIP, 0, self._gen_hwm)
                     dropped = self._flip(self._gen_hwm)
                 self._free(dropped)
-                self.swaps += 1
+                self._m["swaps"].inc()
                 return {k: v for k, v in snap.items()
                         if k not in ("units", "velocities")}
             except Exception:
-                self.swap_failures += 1
+                self._m["swap_failures"].inc()
                 raise
         finally:
             self.swapping = False
@@ -689,7 +742,7 @@ class ModelRunner:
                     self._exchange(ROLLBACK)
                 gen, dropped = self._roll_back()
             self._free(dropped)
-            self.rollbacks += 1
+            self._m["rollbacks"].inc()
             return gen
         finally:
             self._swap_lock.release()
@@ -859,6 +912,11 @@ class ModelRunner:
         return self.compiles
 
 
+for _name, _help in ModelRunner.COUNTERS.items():
+    setattr(ModelRunner, _name, registered_property(_name, _help))
+del _name, _help
+
+
 # -- generation ---------------------------------------------------------------
 
 
@@ -996,16 +1054,17 @@ class PrefixCache:
         """Drop the least recently used entry whose page only the index
         holds, freeing exactly one page; False when every indexed page is
         shared with a live request.  Each eviction is a ``prefix_evict``
-        log record with the pressure numbers."""
+        journal event with the pressure numbers."""
         for h, page in self._index.items():
             if self.gen.page_ref[page] == 1:
                 del self._index[h]
                 del self._by_page[page]
                 self.gen.decref(page)
                 self.gen._count("evictions")
-                _log.info("prefix_evict page=%d indexed=%d "
-                          "kv_occupancy=%.4f", page, len(self._index),
-                          self.gen.occupancy())
+                telemetry.emit(
+                    "prefix_evict", "serving", page=int(page),
+                    indexed=len(self._index),
+                    kv_occupancy=round(self.gen.occupancy(), 4))
                 return True
         return False
 
@@ -1139,20 +1198,28 @@ class GenerationRunner:
         self.flops_per_token = 2 * sum(
             int(p.numel()) for f in forwards
             for p in FusedTrainer._params_of(f).values())
-        self._lock = threading.Lock()
-        self._counts: Dict[str, int] = dict.fromkeys(PREFIX_COUNTERS, 0)
+        _pc = telemetry.scope("prefix_cache")
+        self._pm = {name: _pc.counter(name, help)
+                    for name, help in PREFIX_COUNTERS.items()}
+        _pc.gauge("indexed_pages", "pages held by the prefix index",
+                  fn=telemetry.weak_fn(
+                      self, lambda s: float(len(s.prefix))
+                      if s.prefix is not None else 0.0))
+        _pc.gauge("shared_pages", "pages referenced by > 1 holder",
+                  fn=telemetry.weak_fn(
+                      self, lambda s: float((s.page_ref > 1).sum())))
+        _pc.gauge("page_occupancy", "allocated pages / pool pages",
+                  fn=telemetry.weak_fn(self, lambda s: s.occupancy()))
         self.prefix = PrefixCache(self) if prefix_cache else None
 
     # -- counters -------------------------------------------------------------
 
     def _count(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[name] += int(n)
+        self._pm[name].inc(int(n))
 
     def prefix_counts(self) -> Dict[str, int]:
         """The :data:`PREFIX_COUNTERS` by name."""
-        with self._lock:
-            return dict(self._counts)
+        return {name: m.value for name, m in self._pm.items()}
 
     # -- page bookkeeping (compute thread only) --------------------------------
 

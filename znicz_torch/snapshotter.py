@@ -70,6 +70,12 @@ queued "best" save that has not started is dropped when a newer one
 arrives (``async_saves_coalesced``); interval saves are never dropped.
 :meth:`Snapshotter.flush_async` waits until every queued save is
 written, and raises a writer's error.
+
+Telemetry: ``async_saves_written`` and ``async_saves_coalesced`` are the
+``snapshotter`` scope's registry counters; the background device-to-host
+pull is a ``snapshot/pull`` span and every host-format write (the
+Snapshotter's and the master's crash-resume file) a ``snapshot/write``
+span.
 """
 
 from __future__ import annotations
@@ -87,9 +93,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from znicz_torch import telemetry
 from znicz_torch.core.config import root
 from znicz_torch.core.units import Unit
 from znicz_torch.parallel import mesh as mesh_mod
+from znicz_torch.telemetry.metrics import registered_property
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -335,6 +343,13 @@ class Snapshotter(Unit):
 
     FORMATS = ("pickle", "orbax")
 
+    #: the writer's registry counters (``snapshotter`` scope): name ->
+    #: HELP
+    COUNTERS = {
+        "async_saves_written": "files written by the async worker",
+        "async_saves_coalesced": "superseded queued jobs dropped",
+    }
+
     def __init__(self, workflow=None, name: str = "snapshotter",
                  prefix: str = "wf", directory: Optional[str] = None,
                  interval: int = 0,
@@ -367,8 +382,9 @@ class Snapshotter(Unit):
         self.epoch_number = 0                      # linked from decision
         #: files the background writer wrote, and queued best saves a
         #: newer one superseded before they started
-        self.async_saves_written = 0
-        self.async_saves_coalesced = 0
+        _sc = telemetry.scope("snapshotter")
+        self._m = {name: _sc.counter(name, help)
+                   for name, help in self.COUNTERS.items()}
         self._async_lock = threading.Condition()
         self._async_pending: list = []
         self._async_thread: Optional[threading.Thread] = None
@@ -471,7 +487,8 @@ class Snapshotter(Unit):
                 kept = []
                 for snap_p, tags_p, ready_p in self._async_pending:
                     rest = [t for t in tags_p if t != "best"]
-                    self.async_saves_coalesced += len(tags_p) - len(rest)
+                    self._m["async_saves_coalesced"].inc(
+                        len(tags_p) - len(rest))
                     if rest:
                         kept.append((snap_p, rest, ready_p))
                 self._async_pending = kept
@@ -491,20 +508,23 @@ class Snapshotter(Unit):
                 snap, tags, ready = self._async_pending.pop(0)
                 self._async_busy = True
             try:
-                if ready is not None:
-                    ready.synchronize()
-                for group in ("units", "velocities"):
-                    for leaves in snap.get(group, {}).values():
-                        for k, a in leaves.items():
-                            if isinstance(a, torch.Tensor):
-                                leaves[k] = _numpy(a)
+                # the device -> host pull happens here, off the training
+                # thread
+                with telemetry.span("snapshot", "pull", tags=list(tags)):
+                    if ready is not None:
+                        ready.synchronize()
+                    for group in ("units", "velocities"):
+                        for leaves in snap.get(group, {}).values():
+                            for k, a in leaves.items():
+                                if isinstance(a, torch.Tensor):
+                                    leaves[k] = _numpy(a)
                 os.makedirs(self.directory, exist_ok=True)
                 for tag in tags:
                     path = self.snapshot_path(tag)
                     write_host_pickle(path, snap, self.compression)
                     with self._async_lock:
                         self.destination = path
-                        self.async_saves_written += 1
+                    self._m["async_saves_written"].inc()
                     self.info("snapshot (async) -> %s", path)
             except BaseException as exc:     # raised by flush/next save
                 with self._async_lock:
@@ -570,15 +590,24 @@ def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
     return (bits.astype(np.uint32) << 16).view(np.float32)
 
 
+for _name, _help in Snapshotter.COUNTERS.items():
+    setattr(Snapshotter, _name, registered_property(_name, _help))
+del _name, _help
+
+
 def write_host_pickle(path: str, snap: Dict, compression: str = "gz") -> None:
     """Write ``snap`` to a temporary file and rename it over ``path``, so a
     crash mid-write never truncates the previous checkpoint."""
     tmp = path + ".tmp"
     opener = gzip.open if compression == "gz" else open
     try:
-        with opener(tmp, "wb") as f:
-            pickle.dump(snap, f, protocol=pickle.HIGHEST_PROTOCOL)
-        os.replace(tmp, path)
+        # the span of every host-format write: the Snapshotter's sync and
+        # async saves and the master's crash-resume file
+        with telemetry.span("snapshot", "write", path=path,
+                            compression=compression):
+            with opener(tmp, "wb") as f:
+                pickle.dump(snap, f, protocol=pickle.HIGHEST_PROTOCOL)
+            os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)

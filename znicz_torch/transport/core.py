@@ -16,6 +16,11 @@ payload frame (never the routing envelope) so the plane's own refusal
 path answers.  On a lockstep REP socket a drop would wedge the state
 machine, so drops become corrupts there.  Faults are counted per action
 (:meth:`TransportLoop.fault_counts`).
+
+Telemetry: the message and fault counts are the ``transport`` scope's
+``transport_messages`` and ``transport_faults`` series, labelled by
+``plane`` (and ``instance``: a bind, endpoint or replica id, so two
+loops of one plane in one process do not shadow each other's series).
 """
 
 from __future__ import annotations
@@ -104,8 +109,21 @@ class TransportLoop:
         self._seq = 0
         self._chaos = None
         self._chaos_no = 0
-        self._messages = 0
-        self._faults: Dict[str, int] = {"drop": 0, "corrupt": 0}
+        from znicz_torch import telemetry
+
+        labels = {"plane": self.plane}
+        if instance:
+            labels["instance"] = self.instance
+        _sc = telemetry.scope("transport")
+        self._m_messages = _sc.counter(
+            "transport_messages",
+            "messages dispatched by the transport loop", **labels)
+        self._m_faults: Dict[str, object] = {
+            action: _sc.counter(
+                "transport_faults", "ingress faults injected by the "
+                "transport loop's built-in hook", action=action,
+                **labels)
+            for action in ("drop", "corrupt")}
 
     # -- socket factories ------------------------------------------------------
 
@@ -205,11 +223,12 @@ class TransportLoop:
     @property
     def messages(self) -> int:
         """Messages dispatched by this loop."""
-        return self._messages
+        return int(self._m_messages.value)
 
     def fault_counts(self) -> Dict[str, int]:
         """{action: count} injected by the hook on this loop."""
-        return dict(self._faults)
+        return {action: int(c.value)
+                for action, c in self._m_faults.items()}
 
     def _apply_chaos(self, frames: List[bytes],
                      entry: _Entry) -> Optional[List[bytes]]:
@@ -222,10 +241,10 @@ class TransportLoop:
         if action == "drop" and entry.reply:
             action = "corrupt"          # a REP drop would wedge lockstep
         if action == "drop":
-            self._faults["drop"] += 1
+            self._m_faults["drop"].inc()
             return None
         if action == "corrupt":
-            self._faults["corrupt"] += 1
+            self._m_faults["corrupt"].inc()
             return corrupt_message(frames,
                                    (self._chaos.seed, i, 0xC0DE))
         return frames
@@ -279,12 +298,12 @@ class TransportLoop:
     def _dispatch_rep(self, entry: _Entry) -> None:
         """REP lockstep: recv one message, send the handler's reply."""
         frames = entry.sock.recv_multipart()
-        self._messages += 1
+        self._m_messages.inc()
         frames = self._apply_chaos(frames, entry)
         entry.sock.send_multipart(entry.handler(frames), copy=False)
 
     def _dispatch(self, entry: _Entry, frames: List[bytes]) -> None:
-        self._messages += 1
+        self._m_messages.inc()
         frames = self._apply_chaos(frames, entry)
         if frames is not None:
             entry.handler(frames)

@@ -246,6 +246,15 @@ class CircuitBreaker:
         self._until = time.perf_counter() + self.backoff.delay(
             self._opens)
         self._on_event("open")
+        # the journal's breaker_open transition with the numbers that
+        # drove it (on_event above only counts)
+        from znicz_torch import telemetry
+
+        telemetry.emit(
+            "breaker_open", "transport", peer=self.peer,
+            failures=self._outcomes.count(False),
+            window=len(self._outcomes), opens=self._opens,
+            backoff_s=round(self._until - time.perf_counter(), 3))
 
     def record(self, token, ok: bool) -> None:
         """File one outcome.  The armed probe's outcome closes (window
