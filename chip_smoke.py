@@ -441,7 +441,23 @@ Phases (any failure exits non-zero; nothing is caught and forgotten):
      origins on ``/trace.json?fleet=1``, ``/fleet.json`` summing its
      members, ``replica_joined`` of both on ``/events.json?fleet=1`` and
      the serving objectives on ``/slo.json``.  A bad reply anywhere
-     prints every span of its trace id (ROADMAP C.16).
+     prints every span of its trace id (ROADMAP C.16);
+ 29. the reference's last edges: whether matplotlib imports (without it
+     the offline PNGs, the image saver's flush and the PDF are not run,
+     and the phase says so); K1, K1b, K2 and K2b against their plain
+     versions at AlexNet's shapes; ``python -m znicz_torch <workflow
+     file> <config file> --fused --workflow-graph FILE`` through
+     ``__main__.main`` in this process: full-width AlexNet with
+     ``plotters=True`` (phase 6's loader, 2 epochs, ``fused``), a
+     ``GraphicsServer`` up and a raw SUB socket on it: exit 0, the graph
+     file the workflow's, K1/K1b/K2/K2b 2/2/3/3 a train step, one error
+     point an epoch, each epoch's ``plot_weights`` payload bit-equal to
+     conv1's weights pulled after that epoch's write-back; the Markdown
+     and HTML reports with the run's metrics and train stats; the trained
+     workflow packed once (its bytes and seconds printed) and downloaded
+     through ``Forge`` and, after an upload, ``RemoteForge`` on loopback,
+     every leaf bit-equal to the card's; MNIST on the unit engine with
+     ``image_saver_config`` through ``python -m znicz_torch``.
 
 A ``[clock]`` line after each phase gives the seconds since the start.
 Snapshots go to a temporary directory, removed at the end; the AlexNet
@@ -468,8 +484,8 @@ phase 15 for ``deep``, phase 16 for ``shard``, phase 17 for
 20 for ``serve_mesh``, phase 21 for ``fleet``, phase 22 for ``aot``,
 phase 23 for ``master``, phase 24 for ``tree``, phase 25 for
 ``charlm``, phase 26 for ``generate``, phase 27 for
-``seq_parallel`` and phase 28 for ``telemetry``; it prints the
-``kernels`` object and no ``ok`` line.
+``seq_parallel``, phase 28 for ``telemetry`` and phase 29 for
+``edges``; it prints the ``kernels`` object and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -4627,7 +4643,10 @@ def shard_rank(rank, world, store, tmp, card):
     out["runs"] = runs
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
-    torch.distributed.destroy_process_group()
+    # the groups are freed here, not in the interpreter's teardown (C.17)
+    from znicz_torch.parallel.mesh import distributed_shutdown
+
+    distributed_shutdown()
 
 
 def shard_phase(torch, card, rows):
@@ -4998,7 +5017,10 @@ def snapshots_rank(rank, world, store, tmp, card):
     out["epoch"] = meta["epoch"]
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
-    torch.distributed.destroy_process_group()
+    # the groups are freed here, not in the interpreter's teardown (C.17)
+    from znicz_torch.parallel.mesh import distributed_shutdown
+
+    distributed_shutdown()
 
 
 def snapshots_phase(torch, card):
@@ -6208,7 +6230,10 @@ def serve_mesh_rank(rank, world, store, tmp, card):
             torch.cuda.empty_cache()
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
-    torch.distributed.destroy_process_group()
+    # the groups are freed here, not in the interpreter's teardown (C.17)
+    from znicz_torch.parallel.mesh import distributed_shutdown
+
+    distributed_shutdown()
 
 
 def serve_mesh_phase(torch, card, rows):
@@ -7788,7 +7813,10 @@ def tree_mesh_rank(rank, world, store, tmp, endpoint, cfg):
            "device": str(client._trainer.device)}
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
-    torch.distributed.destroy_process_group()
+    # the groups are freed here, not in the interpreter's teardown (C.17)
+    from znicz_torch.parallel.mesh import distributed_shutdown
+
+    distributed_shutdown()
 
 
 def tree_meshed(torch, card):
@@ -9055,7 +9083,10 @@ def seqpar_rank(rank, world, store, tmp, device=None):
            "charlm": seqpar_charlm(torch, world, rank, dev, tmp)}
     with open(os.path.join(tmp, f"seqpar{world}_{rank}.json"), "w") as f:
         json.dump(out, f)
-    torch.distributed.destroy_process_group()
+    # the groups are freed here, not in the interpreter's teardown (C.17)
+    from znicz_torch.parallel.mesh import distributed_shutdown
+
+    distributed_shutdown()
 
 
 def seqpar_spawn(world, tmp):
@@ -9885,6 +9916,419 @@ def telemetry_phase(torch, card):
     return out
 
 
+# -- phase 29: the launcher's edges, the observers and the services ------------
+
+#: phase 29: the kernels of the ``fused`` AlexNet path, held against their
+#: plain versions at its batch-128 shapes
+EDGE_KERNELS = ("fused_block_fwd", "fused_block_bwd", "bias_relu_fwd",
+                "bias_relu_bwd")
+#: phase 29: the AlexNet run's loader (phase 6's: 256 TRAIN and 128 VALID
+#: images, 2 epochs), drawn anew, not read from the ``data_path`` phases
+#: 23 and 24 leave set
+EDGE_LOADER = dict(TRAIN_CFG, data_path="")
+#: phase 29: the config file of the AlexNet run, with the ``fused``
+#: routing
+EDGE_CONFIG = """
+from znicz_torch.core.config import root
+root.alexnet.loader.update({loader!r})
+root.alexnet.decision.max_epochs = {epochs}
+root.common.engine.fused_elementwise = True
+root.common.engine.fused_tail = True
+root.common.dirs.plots = {plots!r}
+"""
+#: phase 29: the workflow file: full-width AlexNet with its plotters, its
+#: snapshotter gated off (the forge packs the trained state instead)
+EDGE_WORKFLOW = """
+from znicz_torch.core.mutable import Bool
+from znicz_torch.samples import train
+from znicz_torch.samples.alexnet import training_workflow
+
+#: the workflow run() built last
+LAST = None
+
+
+def run(device=None):
+    global LAST
+    wf = training_workflow(device, plotters=True)
+    wf.snapshotter.gate_skip = Bool(True)
+    LAST = wf
+    return train(wf, "alexnet")
+"""
+#: phase 29: MNIST on the unit engine with the image saver, as a workflow
+#: file for ``python -m znicz_torch``
+EDGE_MNIST = """
+from znicz_torch.core.config import root
+from znicz_torch.engine import train
+from znicz_torch.samples.mnist import MnistLoader, make_layers
+from znicz_torch.standard_workflow import StandardWorkflow
+
+
+def run(device=None):
+    cfg = root.mnist
+    wf = StandardWorkflow(
+        make_layers(), name="MnistImages", device=device,
+        loader=MnistLoader(minibatch_size=int(cfg.loader.minibatch_size)),
+        decision_config={{"max_epochs": int(cfg.decision.max_epochs)}},
+        image_saver_config={{"limit": {limit}}})
+    train(wf, fused=False)
+    return wf
+"""
+#: phase 29: the MNIST run's overrides
+EDGE_MNIST_ARGS = ("root.mnist.loader.n_train=1200",
+                   "root.mnist.loader.n_valid=240",
+                   "root.mnist.decision.max_epochs=2")
+#: phase 29: seconds the MNIST subprocess is given (a hang guard)
+EDGE_MNIST_TIMEOUT_S = 300
+
+
+def _edge_graph(path):
+    """The (nodes, edges) of a ``generate_graph`` dot file."""
+    with open(path) as f:
+        text = f.read()
+    return (set(re.findall(r'^\s*"([^"]+)" \[', text, re.M)),
+            set(re.findall(r'"([^"]+)" -> "([^"]+)"', text)))
+
+
+def _edge_state(torch, wf):
+    """{forward unit: {leaf: host array}} and {GD unit: {leaf: host
+    array}}: the trained state pulled from the card."""
+    from znicz_torch.nn_units import ForwardBase, GradientDescentBase
+
+    params, velocities = {}, {}
+    for u in wf.units:
+        if isinstance(u, ForwardBase) and u.has_weights:
+            params[u.name] = {k: t.detach().cpu().numpy()
+                              for k, t in u.params().items()}
+        elif isinstance(u, GradientDescentBase) and u.velocities:
+            velocities[u.name] = {k: t.detach().cpu().numpy()
+                                  for k, t in u.velocities.items()}
+    return params, velocities
+
+
+def _edge_same_state(label, snap, params, velocities) -> None:
+    """Every leaf of the downloaded ``snap`` bit-equal to the card's."""
+    for tree, want in (("units", params), ("velocities", velocities)):
+        have = {name: leaves for name, leaves in snap[tree].items()
+                if leaves}
+        if set(have) != set(want):
+            raise AssertionError(f"[edges:forge] {label}: {tree} "
+                                 f"{sorted(have)} != {sorted(want)}")
+        for name, leaves in want.items():
+            for k, v in leaves.items():
+                got = have[name][k]
+                if got.dtype != v.dtype or not np.array_equal(got, v):
+                    raise AssertionError(f"[edges:forge] {label}: "
+                                         f"{tree}/{name}/{k} differs")
+
+
+def edges_phase(torch, card):
+    """Phase 29: the reference's last edges on the card.  matplotlib is
+    probed first; where it does not import, the offline PNG render, the
+    image saver's flush and the PDF are not run (and said so).  K1, K1b,
+    K2 and K2b against their plain versions at AlexNet's shapes; then
+    ``python -m znicz_torch <workflow file> <config file> --fused
+    --workflow-graph FILE`` through ``__main__.main`` in this process:
+    full-width AlexNet with ``plotters=True``, 256 TRAIN and 128 VALID
+    images, 2 epochs, under ``fused``, with a ``GraphicsServer`` up and a
+    raw SUB socket on it.  Checked: exit 0, K1/K1b/K2/K2b 2/2/3/3 a train
+    step (forward only an eval step), the graph file's nodes and edges
+    the workflow's, one error point an epoch, and each epoch's
+    ``plot_weights`` payload bit-equal to conv1's weights pulled after
+    that epoch's write-back (the second after a replayed step, unequal to
+    the first).  Then the Markdown and HTML reports carry the run's
+    metrics and train stats; the trained workflow is packed once and
+    downloaded from a ``Forge`` and, uploaded, from a ``RemoteForge`` on
+    loopback, every leaf bit-equal to the card's; and MNIST trains on the
+    unit engine with ``image_saver_config`` through ``python -m
+    znicz_torch``.  Returns the kernels' JSON rows of the check and
+    {path: {kernel: launches}}."""
+    import contextlib
+    import io
+    import pickle
+
+    import zmq
+
+    from znicz_torch import backends, plotting_units
+    from znicz_torch.__main__ import main as cli
+    from znicz_torch.core.config import root
+    from znicz_torch.forge import Forge, ForgeServer, RemoteForge, pack
+    from znicz_torch.graphics import GraphicsServer
+    from znicz_torch.parallel.fused import FusedTrainer
+    from znicz_torch.publishing import gather_report, publish
+
+    t_phase = time.perf_counter()
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot  # noqa: F401
+        mpl = matplotlib.__version__
+        log(f"[edges] matplotlib {mpl} imports on this machine (Agg)")
+    except ImportError as exc:
+        mpl = None
+        log(f"[edges] matplotlib does not import on this machine ({exc}): "
+            f"the offline PNG render, the image saver's flush and the PDF "
+            f"report are not run")
+    rows = check_kernels(torch, EDGE_KERNELS)
+    ctrs = {name: fn for name, fn in counters().items()
+            if name in EDGE_KERNELS}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_edges_")
+    plots = os.path.join(tmp, "plots")
+    wf_path, cfg_path = (os.path.join(tmp, "alexnet_wf.py"),
+                         os.path.join(tmp, "alexnet_cfg.py"))
+    with open(wf_path, "w") as f:
+        f.write(EDGE_WORKFLOW)
+    with open(cfg_path, "w") as f:
+        f.write(EDGE_CONFIG.format(loader=EDGE_LOADER, epochs=TRAIN_EPOCHS,
+                                   plots=plots))
+    graph = os.path.join(tmp, "alexnet.dot")
+    old_loader = root.alexnet.loader.to_dict()
+    old_epochs = root.alexnet.decision.get("max_epochs")
+    old_plots = root.common.dirs.get("plots", "plots")
+    pulled, epoch_s = [], []
+    writeback, epoch_end = FusedTrainer.writeback, FusedTrainer._epoch_end
+
+    def recording_writeback(self):
+        # conv1's weights as the host reads them after the write-back
+        t0 = time.perf_counter()
+        writeback(self)
+        w = self.workflow.forward_units[0].params()["weights"]
+        pulled.append((w.detach().cpu().numpy().copy(),
+                       time.perf_counter() - t0))
+
+    def timed_epoch_end(self):
+        t0 = time.perf_counter()
+        epoch_end(self)
+        epoch_s.append(time.perf_counter() - t0)
+
+    server = GraphicsServer.start("tcp://127.0.0.1:*")
+    sub = zmq.Context.instance().socket(zmq.SUB)
+    out = {}
+    try:
+        sub.connect(server.endpoint)
+        sub.setsockopt(zmq.SUBSCRIBE, b"")
+        if not server.wait_for_subscribers(1, timeout=30.0):
+            raise AssertionError("[edges] the SUB socket did not join")
+        FusedTrainer.writeback = recording_writeback
+        FusedTrainer._epoch_end = timed_epoch_end
+        stdout = io.StringIO()
+        with engine_knobs(fused=False, fused_elementwise=False,
+                          fused_tail=False):
+            for fn in ctrs.values():        # the main path starts here
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout):
+                rc = cli([wf_path, cfg_path, "--fused", "--workflow-graph",
+                          graph])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in ctrs.items()}
+        FusedTrainer.writeback, FusedTrainer._epoch_end = writeback, \
+            epoch_end
+        lines = stdout.getvalue().strip().splitlines()
+        for line in lines:
+            log(f"[edges:cli] {line}")
+        if rc != 0:
+            raise AssertionError(f"[edges:cli] exit {rc}")
+        wf = sys.modules["znicz_torch._user_workflow"].LAST
+        finals = json.loads(lines[-1])
+        trainer, st = wf.trainer, wf.trainer.stats
+        for name, (per_train, per_eval) in \
+                TRAIN_ROUTINGS["fused"][1].items():
+            want = per_train * st["train_steps"] \
+                + per_eval * st["eval_steps"]
+            if launches[name] != want or not want:
+                raise AssertionError(f"[edges:cli] {name}: {launches[name]}"
+                                     f" launches, expected {want}")
+        if not st["captured_steps"]:
+            raise AssertionError("[edges:cli] no step was a replay")
+        nodes, edges = _edge_graph(graph)
+        if edges != {(u.name, t.name) for u in wf.units
+                     for t in u.links_to} or \
+                not {"plot_err", "plot_weights", "plot_confusion"} <= nodes:
+            raise AssertionError(f"[edges:cli] the graph file is not the "
+                                 f"workflow's: {sorted(nodes)}")
+        errs = wf.plotters[0].values
+        if len(errs) != TRAIN_EPOCHS or finals["epochs"] != TRAIN_EPOCHS:
+            raise AssertionError(f"[edges:cli] {len(errs)} error points "
+                                 f"for {finals['epochs']} epochs")
+        log(f"[edges:cli] {card}: exit 0 in {wall:.2f}s; "
+            f"{st['train_steps']} train + {st['eval_steps']} eval steps "
+            f"({st['captured_steps']} replays, {st['eager_steps']} eager, "
+            f"capture {st['capture_s']:.2f}s, warm-up {st['warmup_s']:.2f}s)"
+            f", trainer wall {st['wall_s']:.2f}s, warm img/s "
+            f"{st['warm_img_per_sec']:.1f}; launches={launches}; graph "
+            f"{len(nodes)} nodes, {len(edges)} edges; valid err% by epoch "
+            f"{errs}; epoch ends {[round(s, 4) for s in epoch_s]}s, "
+            f"write-back and conv1 pull "
+            f"{[round(s, 4) for _, s in pulled]}s")
+        out["edges:alexnet"] = launches
+        # the live path: each epoch's payloads on the raw SUB socket
+        payloads = []
+        while sub.poll(5000, zmq.POLLIN):
+            payloads.append(pickle.loads(sub.recv()))
+            if len(payloads) == len(wf.plotters) * TRAIN_EPOCHS:
+                break
+        tiles = [p["data"]["weights"] for p in payloads
+                 if p["name"] == "plot_weights"]
+        if len(payloads) != len(wf.plotters) * TRAIN_EPOCHS \
+                or len(tiles) != TRAIN_EPOCHS or len(pulled) != len(tiles):
+            raise AssertionError(f"[edges:live] {len(payloads)} payloads, "
+                                 f"{len(tiles)} weight tiles, {len(pulled)} "
+                                 f"write-backs")
+        limit = wf.plotters[1].limit
+        for epoch, (tile, (w, _)) in enumerate(zip(tiles, pulled)):
+            want = w.reshape(w.shape[0], -1)[:limit]
+            if tile.dtype != want.dtype or not np.array_equal(tile, want):
+                raise AssertionError(f"[edges:live] epoch {epoch}'s "
+                                     f"plot_weights is not conv1's weights")
+        final = wf.forward_units[0].params()["weights"].detach().cpu()
+        if not np.array_equal(tiles[-1], final.numpy().reshape(
+                final.shape[0], -1)[:limit]) or \
+                np.array_equal(tiles[0], tiles[-1]):
+            raise AssertionError("[edges:live] the last tile is not the "
+                                 "trained conv1, or the epochs' tiles are "
+                                 "equal")
+        log(f"[edges:live] {card}: {len(payloads)} payloads on a raw SUB "
+            f"socket ({[p['name'] for p in payloads]}); each epoch's "
+            f"plot_weights {tiles[0].shape} bit-equal to conv1's weights "
+            f"pulled after its write-back; epochs 1 and 2 differ by up to "
+            f"{float(np.abs(tiles[1] - tiles[0]).max()):.3e}")
+        if mpl is not None:
+            t0 = time.perf_counter()
+            os.makedirs(plots, exist_ok=True)
+            for p in payloads[-len(wf.plotters):]:
+                cls = getattr(plotting_units, p["cls"])
+                cls.render_png(p["data"], os.path.join(plots,
+                                                       f"{p['name']}.png"))
+            pngs = sorted(os.listdir(plots))
+            if len(pngs) != len(wf.plotters):
+                raise AssertionError(f"[edges:render] {pngs}")
+            log(f"[edges:render] {card}: {pngs} rendered offline from the "
+                f"last epoch's payloads in {time.perf_counter() - t0:.2f}s")
+    finally:
+        FusedTrainer.writeback, FusedTrainer._epoch_end = writeback, \
+            epoch_end
+        sub.close(linger=0)
+        GraphicsServer.stop()
+        root.alexnet.loader.update(old_loader)
+        root.alexnet.decision.max_epochs = old_epochs
+        root.common.dirs.plots = old_plots
+    try:
+        # the reports, with the plots the offline render wrote
+        root.common.dirs.plots = plots
+        rep_dir = os.path.join(tmp, "reports")
+        t0 = time.perf_counter()
+        md, html = (publish(wf, "markdown", rep_dir),
+                    publish(wf, "html", rep_dir))
+        rep_s = time.perf_counter() - t0
+        metrics = gather_report(wf)["metrics"]
+        with open(md) as f:
+            md_text = f.read()
+        with open(html) as f:
+            html_text = f.read()
+        for key in ("fused_img_per_sec", "fused_train_steps", "train_steps",
+                    "img_per_sec", "warm_img_per_sec", "best_metric",
+                    "valid", "train"):
+            if f"**{key}**" not in md_text or key not in html_text:
+                raise AssertionError(f"[edges:report] {key} missing")
+        if metrics["valid"]["err_pct"] != \
+                wf.decision.epoch_metrics[1]["err_pct"] or \
+                metrics["train_steps"] != wf.train_stats["train_steps"]:
+            raise AssertionError(f"[edges:report] {metrics}")
+        pdf_note = "not run (no matplotlib)"
+        if mpl is not None:
+            t0 = time.perf_counter()
+            pdf = publish(wf, "pdf", rep_dir)
+            with open(pdf, "rb") as f:
+                blob = f.read()
+            if not blob.startswith(b"%PDF-") or \
+                    blob.count(b"/Type /Page") < 2 + len(wf.plotters):
+                raise AssertionError("[edges:report] a bad PDF")
+            pdf_note = (f"{len(blob)} bytes, {blob.count(b'/Type /Page')} "
+                        f"pages in {time.perf_counter() - t0:.2f}s")
+        log(f"[edges:report] {card}: Markdown {os.path.getsize(md)} and "
+            f"HTML {os.path.getsize(html)} bytes in {rep_s:.3f}s with valid "
+            f"err% {metrics['valid']['err_pct']}, train_steps "
+            f"{metrics['train_steps']}, img/s {metrics['img_per_sec']:.1f}; "
+            f"PDF {pdf_note}")
+        # the forge: one pack, a local and a remote round trip
+        params, velocities = _edge_state(torch, wf)
+        raw = sum(v.nbytes for tree in (params, velocities)
+                  for leaves in tree.values() for v in leaves.values())
+        t0 = time.perf_counter()
+        blob, manifest = pack(wf, "alexnet-edges", {"card": card})
+        pack_s = time.perf_counter() - t0
+        forge = Forge(os.path.join(tmp, "registry"))
+        forge.put_package("alexnet-edges", blob, manifest)
+        t0 = time.perf_counter()
+        snap = forge.download("alexnet-edges")
+        local_s = time.perf_counter() - t0
+        _edge_same_state("local", snap, params, velocities)
+        del snap
+        srv = ForgeServer(os.path.join(tmp, "served")).start()
+        try:
+            remote = RemoteForge(srv.url)
+            t0 = time.perf_counter()
+            remote.put_package("alexnet-edges", blob, manifest)
+            up_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            snap = remote.download("alexnet-edges")
+            down_s = time.perf_counter() - t0
+            listed = [m["name"] for m in remote.list()]
+        finally:
+            srv.stop()
+        _edge_same_state("remote", snap, params, velocities)
+        if listed != ["alexnet-edges"]:
+            raise AssertionError(f"[edges:forge] listed {listed}")
+        log(f"[edges:forge] {card}: {raw} bytes of parameters and "
+            f"velocities packed into a {len(blob)}-byte blob "
+            f"({len(blob) / raw:.4f} of them) in {pack_s:.2f}s (gzip level "
+            f"9, {raw / pack_s / 2**20:.1f} MiB/s); local download "
+            f"{local_s:.2f}s; upload to a ForgeServer on {srv.url} "
+            f"{up_s:.2f}s, download {down_s:.2f}s; every leaf bit-equal "
+            f"to the card's")
+        del snap, blob, wf
+        sys.modules["znicz_torch._user_workflow"].LAST = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        # MNIST on the unit engine with the image saver, a process of its own
+        mnist_path = os.path.join(tmp, "mnist_wf.py")
+        with open(mnist_path, "w") as f:
+            f.write(EDGE_MNIST.format(limit=8 if mpl is not None else 0))
+        imgs = os.path.join(tmp, "images")
+        cmd = [sys.executable, "-m", "znicz_torch", mnist_path,
+               *EDGE_MNIST_ARGS, f"root.common.dirs.image_saver={imgs}",
+               f"root.common.dirs.snapshots={os.path.join(tmp, 'mnist')}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+            __file__)), capture_output=True, text=True,
+            timeout=EDGE_MNIST_TIMEOUT_S)
+        mnist_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[edges:mnist] exit {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        saved = {d: len(os.listdir(os.path.join(imgs, d)))
+                 for d in sorted(os.listdir(imgs))} \
+            if os.path.isdir(imgs) else {}
+        if line["epochs"] != 2 or \
+                line["device"] != str(backends.resolve_device(None)) or \
+                (mpl is not None and (len(saved) != 2
+                                      or not all(saved.values()))) or \
+                (mpl is None and saved):
+            raise AssertionError(f"[edges:mnist] {line}; saved {saved}")
+        log(f"[edges:mnist] {card}: python -m znicz_torch <workflow file> "
+            f"on the unit engine: exit 0 in {mnist_s:.2f}s, valid err% "
+            f"{line['valid_err_pct']}, {line['train_steps']} updates; "
+            f"misclassified images saved {saved or 'none (no matplotlib)'}")
+    finally:
+        root.common.dirs.plots = old_plots
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[edges] {card}: phase {time.perf_counter() - t_phase:.1f}s")
+    return rows, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="",
@@ -9899,7 +10343,7 @@ def main(argv=None) -> int:
                          "'fleet': phase 21; 'aot': phase 22; 'master': "
                          "phase 23; 'tree': phase 24; 'charlm': phase 25; "
                          "'generate': phase 26; 'seq_parallel': phase 27; "
-                         "'telemetry': phase 28")
+                         "'telemetry': phase 28; 'edges': phase 29")
     ap.add_argument("--aot-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--race-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--trace", default="",
@@ -9981,14 +10425,14 @@ def run_phases(torch, args) -> int:
         aot, master = "aot" in names, "master" in names
         tree, charlm = "tree" in names, "charlm" in names
         generate, seq_parallel = "generate" in names, "seq_parallel" in names
-        telemetry = "telemetry" in names
+        telemetry, edges = "telemetry" in names, "edges" in names
         ae_som = [name for name in names if name in AE_SOM_RUNS]
         names = [name for name in names if name not in
                  ("anchors", "units", "bf16", "kinds", "samples",
                   "segments", "deep", "shard", "snapshots", "zmq",
                   "graphs", "serve_mesh", "fleet", "aot", "master", "tree",
                   "charlm", "generate", "seq_parallel", "telemetry",
-                  *AE_SOM_RUNS)]
+                  "edges", *AE_SOM_RUNS)]
         if units:
             names += [n for n in ("lrn_fwd", "lrn_bwd") if n not in names]
         rows = check_kernels(torch, names)
@@ -10117,6 +10561,16 @@ def run_phases(torch, args) -> int:
                         rows.setdefault(name, {"name": name}).setdefault(
                             "launches_by_path", {})[label] = count
             lap(tag)
+        if edges:
+            edge_rows, runs = edges_phase(torch, card)
+            for name, row in edge_rows.items():
+                rows.setdefault(name, row)
+            for label, launches in runs.items():
+                for name, count in launches.items():
+                    if count:
+                        rows[name].setdefault("launches_by_path", {})[
+                            label] = count
+            lap("phase 29")
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         return 0
 
@@ -10416,6 +10870,17 @@ def run_phases(torch, args) -> int:
     torch.cuda.empty_cache()
 
     lap("phase 28")
+
+    # -- phase 29: the launcher's CLI, the plotters live and offline, the
+    # -- reports, the forge and the image saver on the main paths ------
+    _, runs = edges_phase(torch, card)
+    for label, launches in runs.items():
+        for name, count in launches.items():
+            if count:
+                by_path[name][label] = count
+    torch.cuda.empty_cache()
+
+    lap("phase 29")
 
     for name, row in rows.items():
         if not by_path[name] or not all(by_path[name].values()):

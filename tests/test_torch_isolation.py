@@ -3,8 +3,9 @@
 reference's ``native/`` directory (the host runtime is built from the
 port's own copy of its source); the port serves a batch (in process
 and over ZMQ, charlm's variable-length requests and its generations
-too) and trains (``python -m znicz_torch alexnet``'s ``main``) in a
-process where ``jax`` was never imported; and an entry point asked
+too), trains (``python -m znicz_torch alexnet``'s ``main``), lists its
+samples, runs a workflow file with its observers, reports and forges
+in a process where ``jax`` was never imported; and an entry point asked
 for the card on a machine without one raises instead of dropping to the
 CPU."""
 
@@ -53,7 +54,9 @@ def test_no_port_file_imports_jax_or_the_reference():
                    "serving/model.py", "serving/batcher.py",
                    "serving/frontend.py", "serving/client.py", "rbm.py",
                    "misc_units.py", "ensemble.py", "accelerated_units.py",
-                   "genetics.py"):
+                   "genetics.py", "core/logger.py", "plotting_units.py",
+                   "graphics.py", "image_saver.py", "publishing.py",
+                   "forge.py", "interaction.py"):
         assert REPO / "znicz_torch" / module in files
     offenders = []
     for path in files:
@@ -259,6 +262,85 @@ def test_the_tuning_units_run_without_jax_in_the_process():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "tuned"
+
+
+#: a workflow file and a config file for the port's launcher
+LAUNCHER_WORKFLOW = """
+from znicz_torch.engine import train
+from znicz_torch.samples.mnist import MnistLoader
+from znicz_torch.standard_workflow import StandardWorkflow
+
+
+def run(device=None):
+    gd = {"learning_rate": 0.1, "gradient_moment": 0.9}
+    wf = StandardWorkflow(
+        [{"type": "all2all_tanh", "->": {"output_sample_shape": 20},
+          "<-": dict(gd)},
+         {"type": "softmax", "->": {"output_sample_shape": 10},
+          "<-": dict(gd)}],
+        name="FileWorkflow", device=device,
+        loader=MnistLoader(name="loader", minibatch_size=60),
+        decision_config={"max_epochs": 2}, plotters=True,
+        image_saver_config={"limit": 4})
+    train(wf)
+    return wf
+"""
+LAUNCHER_CONFIG = """
+from znicz_torch.core.config import root
+root.mnist.loader.n_train = 120
+root.mnist.loader.n_valid = 60
+root.common.dirs.snapshots = {out!r}
+root.common.dirs.plots = {out!r} + "/plots"
+root.common.dirs.image_saver = {out!r} + "/imgs"
+"""
+
+
+def test_the_launcher_and_the_observers_run_without_jax(tmp_path):
+    """``--list``; a workflow file with a config file, plotters, the image
+    saver and ``--workflow-graph``; its reports, a forge round trip over
+    HTTP and the shell, in a process where jax was never imported."""
+    (tmp_path / "wf.py").write_text(LAUNCHER_WORKFLOW)
+    (tmp_path / "cfg.py").write_text(
+        LAUNCHER_CONFIG.format(out=str(tmp_path)))
+    code = (
+        "import os, sys\n"
+        "import numpy as np\n"
+        "from znicz_torch.__main__ import main, load_module\n"
+        "assert main(['--list']) == 0\n"
+        f"out = {str(tmp_path)!r}\n"
+        "assert main([out + '/wf.py', out + '/cfg.py', '--device', 'cpu',"
+        " '--workflow-graph', out + '/g.dot']) == 0\n"
+        "wf = sys.modules['znicz_torch._user_workflow'].run('cpu')\n"
+        "assert open(out + '/g.dot').read().count('plot_weights') == 3\n"
+        "assert {'plot_err.png', 'plot_weights.png', 'plot_confusion.png'}"
+        " <= set(os.listdir(out + '/plots'))\n"
+        "assert os.listdir(out + '/imgs')\n"
+        "from znicz_torch.publishing import publish\n"
+        "for backend in ('markdown', 'html', 'pdf'):\n"
+        "    assert os.path.getsize(publish(wf, backend, out + '/rep'))\n"
+        "from znicz_torch.forge import ForgeServer, RemoteForge\n"
+        "srv = ForgeServer(registry=out + '/reg').start()\n"
+        "RemoteForge(srv.url).upload(wf, 'm')\n"
+        "snap = RemoteForge(srv.url).download('m')\n"
+        "srv.stop()\n"
+        "w = wf.forward_units[0].params()['weights'].detach().numpy()\n"
+        "assert np.array_equal(snap['units'][wf.forward_units[0].name]"
+        "['weights'], w)\n"
+        "from znicz_torch.interaction import Shell\n"
+        "sh = Shell(name='s', interactive=False)\n"
+        "sh.run()\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'znicz_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('edges ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("bundled samples: mnist, cifar")
+    assert lines[-1] == "edges ok"
+    finals = [json.loads(x) for x in lines if x.startswith("{")]
+    assert finals[0]["epochs"] == 2 and finals[0]["device"] == "cpu"
 
 
 def test_the_star_trains_without_jax_in_the_process(tmp_path):

@@ -16,7 +16,11 @@
   - the same two ranks on (2, 1) serve the reduced charlm on the 2-D
     (rows x seq) ladder: the rows snapped to dp, each (rows, seq) bucket
     scattered by rows, every variable-length reply within ``BAND`` of
-    one process's forward of its padded bucket.
+    one process's forward of its padded bucket;
+  - every rank ends with ``mesh.distributed_shutdown``, which frees its
+    groups before the interpreter's teardown and leaves no gloo thread
+    (ROADMAP C.17: a group a trainer's cycle held was freed in the
+    teardown and aborted a rank now and then).
 
 Run as a script, this file is the rank worker:
 ``python test_torch_serving_mesh.py RANK WORLD STORE OUTDIR``.
@@ -217,7 +221,8 @@ def worker(rank: int, world: int, store: str, outdir: str) -> None:
     import torch
 
     from znicz_torch.core.config import root
-    from znicz_torch.parallel.mesh import distributed_init
+    from znicz_torch.parallel.mesh import (distributed_init,
+                                           distributed_shutdown)
 
     torch.set_num_threads(1)
     distributed_init(f"file://{store}", world, rank, backend="gloo",
@@ -235,10 +240,12 @@ def worker(rank: int, world: int, store: str, outdir: str) -> None:
             root.common.serving.mesh.model = mp
             out[dp, mp] = (_lead(requests, spec) if rank == 0
                            else _follow(spec))
+    # the groups and their threads end here, not in the interpreter's
+    # teardown, where freeing them could abort the rank (C.17); the gloo
+    # threads still alive go to the parent, which wants none
+    out = {"result": out, "gloo_threads_left": distributed_shutdown()}
     with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
-    # the group's threads end here, not in the interpreter's teardown
-    torch.distributed.destroy_process_group()
 
 
 # -- the parent ---------------------------------------------------------------
@@ -268,8 +275,57 @@ def _spawn(outdir: pathlib.Path, world: int = 2) -> list:
     out = []
     for rank in range(world):
         with open(outdir / f"rank{rank}.pkl", "rb") as f:
-            out.append(pickle.load(f))
+            rec = pickle.load(f)
+        assert rec["gloo_threads_left"] == [], (rank, rec)
+        out.append(rec["result"])
     return out
+
+
+#: one gloo rank whose group a reference cycle holds, as a trainer holds
+#: its ``DeviceMesh``: the gloo threads alive once they all run, after
+#: ``destroy_process_group`` and after ``distributed_shutdown``, as one
+#: JSON line.  The collector runs only when called, as when no allocation
+#: happens to trigger it before the interpreter's teardown; a thread
+#: names itself once it runs, so the rank waits for the names first
+_CYCLE_RANK = """
+import gc, json, sys, time
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from znicz_torch.parallel import mesh
+gc.disable()
+torch.distributed.init_process_group("gloo", init_method="file://"
+                                     + sys.argv[1], world_size=1, rank=0)
+holder = {"mesh": DeviceMesh("cpu", [0], mesh_dim_names=("data",))}
+holder["self"] = holder
+deadline = time.monotonic() + 60
+while set(mesh.gloo_threads()) != {"gloo_tcp_loop", "pt_gloo_runloop"} \
+        and time.monotonic() < deadline:
+    time.sleep(0.01)
+running = mesh.gloo_threads()
+del holder
+torch.distributed.destroy_process_group()
+after_destroy = mesh.gloo_threads()
+print(json.dumps([running, after_destroy, mesh.distributed_shutdown()]))
+"""
+
+
+def test_shutdown_frees_the_groups_a_cycle_holds(tmp_path):
+    """C.17: ``destroy_process_group`` leaves a group that a reference
+    cycle holds alive, its gloo threads running into the interpreter's
+    teardown; ``distributed_shutdown`` frees it before it returns (and
+    ``distributed_init`` registers it to run at a rank's exit)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", _CYCLE_RANK, str(tmp_path / "store")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=JOIN_S)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    running, after_destroy, after_shutdown = json.loads(
+        proc.stdout.strip().splitlines()[-1])
+    # the group's loop and workers, all still there after the destroy
+    assert set(running) == set(after_destroy) == {"gloo_tcp_loop",
+                                                  "pt_gloo_runloop"}
+    assert after_shutdown == []
 
 
 def test_two_ranks_serve_alexnet_as_one_process(tmp_path):

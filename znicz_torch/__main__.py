@@ -1,10 +1,8 @@
-"""Train or serve a sample workflow (port of the sample-run and serving
-paths of ``znicz_tpu/launcher.py``):
+"""Train or serve a workflow: the port's launcher (``znicz_tpu/launcher.py``):
 
-    python -m znicz_torch {alexnet,mnist,cifar,mnist_ae,kohonen,wine,
-                           kanji,video_ae,yale_faces,charlm}
-                          [root.x.y=value ...]
-                          [--device cpu] [--seed N] [--fused] [--fitness]
+    python -m znicz_torch WORKFLOW [CONFIG.py] [root.x.y=value ...]
+                          [--device cpu | --backend NAME] [--seed N]
+                          [--fused] [--fitness] [--workflow-graph FILE]
                           [--snapshot PATH] [--profile DIR | --profile-dir DIR]
                           [--serve [BIND]] [--replica-id ID]
                           [--announce EP] [--aot-cache [DIR]] [--generate]
@@ -17,11 +15,26 @@ paths of ``znicz_tpu/launcher.py``):
     python -m znicz_torch --relay UPSTREAM[:BIND] [--tree-fanout N]
                           [root.x.y=value ...]
     python -m znicz_torch --plan-tree N [--tree-fanout N] [--master EP]
+    python -m znicz_torch --list
 
-Dotted overrides are applied to the port's config tree before the sample
-module is imported, so its defaults do not clobber them.  The sample's
-``run(device)`` trains on ``cuda:0`` unless ``--device`` names another
-device; without a GPU it raises.  MNIST, CIFAR10, Wine, Kanji, VideoAE,
+WORKFLOW is a bundled sample (``--list`` prints them, in the reference's
+order: mnist, cifar, mnist_ae, kohonen, alexnet, wine, yale_faces,
+kanji, video_ae, charlm), a ``.py`` file or a module path; the run
+loads it and calls its ``run()`` with the keywords its signature takes
+(``device``, ``snapshot``), and ``run()`` returns the trained workflow.
+CONFIG.py is a Python file that sets ``znicz_torch.core.config.root``;
+it runs before the dotted overrides (a first positional holding ``=`` is
+an override), and both before the workflow module is imported, so its
+defaults do not clobber them.  With no workflow (and no ``--balance``,
+``--relay`` or ``--plan-tree``) the run prints the samples and exits 0.
+``--workflow-graph FILE`` writes the trained workflow's control graph
+(``Workflow.generate_graph``, graphviz dot) after the run.
+
+A run trains on ``cuda:0`` unless ``--device`` names another device;
+without a GPU it raises.  ``--backend NAME`` sets
+``root.common.engine.backend`` ("auto", "gpu", "cuda", "cpu"), the device
+a workflow built with ``device=None`` resolves to; ``--backend cpu`` also
+means ``--device cpu``.  MNIST, CIFAR10, Wine, Kanji, VideoAE,
 YaleFaces and charlm train on the unit engine unless ``--fused``
 (``root.common.engine.fused``) asks for ``FusedTrainer``; AlexNet trains
 on ``FusedTrainer``, as the reference's sample does; MnistAE (tied
@@ -35,7 +48,9 @@ the classifiers (charlm adds ``valid_token_err_pct``, the VALID error
 over tokens), ``final_train_mse`` and ``valid_mse`` for the
 autoencoders (MnistAE, VideoAE), ``final_qerror`` and ``first_qerror``
 for Kohonen; ``compute_dtype`` is
-the dtype the train steps computed in.  ``--fitness`` adds one JSON line
+the dtype the train steps computed in.  A workflow that is not a sample
+gets the finals its Decision keeps (Kohonen's, an MSE loss's or a
+classifier's).  ``--fitness`` adds one JSON line
 after it, ``{"genetics_fitness": x}`` (the Decision's best metric, or
 Kohonen's last quantisation error), the line the genetic search's
 ``genetics.SubprocessEvaluator`` reads; a run with no finite fitness
@@ -140,9 +155,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import importlib
+import importlib.util
 import inspect
 import json
-import logging
 import math
 import os
 import re
@@ -152,11 +167,37 @@ import threading
 
 from znicz_torch.core import prng
 from znicz_torch.core.config import apply_overrides, root
+from znicz_torch.core.logger import setup_logging
 
-SAMPLES = ("alexnet", "mnist", "cifar", "mnist_ae", "kohonen", "wine",
-           "kanji", "video_ae", "yale_faces", "charlm")
+#: the bundled samples, in the reference's order (``--list``)
+SAMPLES = ("mnist", "cifar", "mnist_ae", "kohonen", "alexnet", "wine",
+           "yale_faces", "kanji", "video_ae", "charlm")
 #: the samples trained on an MSE loss, whose finals are mean squared errors
 AUTOENCODERS = ("mnist_ae", "video_ae")
+
+
+def load_module(spec: str, tag: str):
+    """The module of ``spec``: a Python file, loaded under the name
+    ``tag``, or a module path, imported."""
+    if os.path.exists(spec):
+        mod_spec = importlib.util.spec_from_file_location(tag, spec)
+        mod = importlib.util.module_from_spec(mod_spec)
+        sys.modules[tag] = mod
+        mod_spec.loader.exec_module(mod)
+        return mod
+    return importlib.import_module(spec)
+
+
+def run_kwargs(run, device, snapshot: str) -> dict:
+    """The keywords of ``run``'s signature the command line can give:
+    ``device`` (when named) and ``snapshot`` (when given)."""
+    params = inspect.signature(run).parameters
+    kwargs = {}
+    if "device" in params and device is not None:
+        kwargs["device"] = device
+    if "snapshot" in params and snapshot:
+        kwargs["snapshot"] = snapshot
+    return kwargs
 
 
 def serving_web_port():
@@ -212,14 +253,23 @@ def start_web_status():
 
 
 def finals(sample: str, wf) -> dict:
-    """The run's last-epoch finals, as ``bench.py`` names them."""
-    d = wf.decision
-    if sample == "kohonen":
+    """The run's last-epoch finals, as ``bench.py`` names them; a
+    workflow that is not a sample gets its Decision's kind's (none
+    without a Decision)."""
+    d = getattr(wf, "decision", None)
+    if d is None:
+        return {}
+    if sample == "kohonen" or (sample not in SAMPLES
+                               and hasattr(d, "epoch_qerror")):
+        if not d.epoch_qerror:
+            return {"epochs": 0}
         return {"epochs": len(d.epoch_qerror),
                 "final_qerror": d.epoch_qerror[-1],
                 "first_qerror": d.epoch_qerror[0]}
     train, valid = d.epoch_metrics[2] or {}, d.epoch_metrics[1] or {}
-    if sample in AUTOENCODERS:
+    if sample in AUTOENCODERS or (
+            sample not in SAMPLES
+            and getattr(wf, "loss_function", "softmax") == "mse"):
         return {"epochs": int(d.epoch_number) + 1,
                 "final_train_mse": train.get("loss"),
                 "valid_mse": valid.get("loss")}
@@ -241,13 +291,25 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m znicz_torch",
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("workflow", nargs="?",
-                    help=f"the sample: one of {', '.join(SAMPLES)} (none "
-                         f"with --balance)")
+                    help=f"a workflow .py file, a module path or a bundled "
+                         f"sample ({', '.join(SAMPLES)}); none with "
+                         f"--balance, --relay, --plan-tree")
+    ap.add_argument("config", nargs="?",
+                    help="a config .py file that sets root (applied before "
+                         "the overrides)")
     ap.add_argument("overrides", nargs="*",
                     help="config overrides, root.a.b=value")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda:0; 'cpu' to run on "
                          "the CPU)")
+    ap.add_argument("--backend", default=None,
+                    help="root.common.engine.backend: auto, gpu, cuda or "
+                         "cpu (cpu also means --device cpu)")
+    ap.add_argument("--workflow-graph", default="", metavar="FILE",
+                    help="after the run, write the workflow's control "
+                         "graph as graphviz dot")
+    ap.add_argument("--list", action="store_true",
+                    help="list the bundled samples and exit")
     ap.add_argument("--seed", type=int, default=None,
                     help="global seed of the named random streams")
     ap.add_argument("--fused", action="store_true",
@@ -351,8 +413,16 @@ def main(argv=None) -> int:
     # (older argparse leaves a "*" positional empty once an option has
     # come between it and the sample's name)
     args = ap.parse_intermixed_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
+    setup_logging()
+    # argparse cannot tell a config file from the first dotted override
+    # (or, with no workflow, a workflow from one): the "=" tells
+    if args.workflow and "=" in args.workflow:
+        args.overrides = [a for a in (args.workflow, args.config) if a] \
+            + list(args.overrides)
+        args.workflow = args.config = None
+    elif args.config and "=" in args.config:
+        args.overrides = [args.config] + list(args.overrides)
+        args.config = None
     training_role = (args.master is not None or args.slave is not None
                      or bool(args.master_resume))
     if args.tree_fanout is not None:
@@ -376,9 +446,13 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
         return relay(args)
-    if args.workflow not in SAMPLES:
-        ap.error(f"the sample must be one of {', '.join(SAMPLES)}; got "
-                 f"{args.workflow!r}")
+    if args.list or not args.workflow:
+        print("bundled samples:", ", ".join(SAMPLES))
+        return 0
+    if args.backend:
+        root.common.engine.backend = args.backend
+        if args.backend == "cpu" and args.device is None:
+            args.device = "cpu"
     if args.serve is not None and args.fused:
         print("error: --serve is exclusive of the training flag --fused",
               file=sys.stderr)
@@ -436,6 +510,8 @@ def main(argv=None) -> int:
             root.common.serving.aot_cache.dir = str(args.aot_cache)
     if args.generate:
         root.common.serving.generate.enabled = True
+    if args.config:
+        load_module(args.config, "znicz_torch._user_config")
     if args.overrides:
         apply_overrides(root, args.overrides)
     if args.fused:
@@ -449,23 +525,34 @@ def main(argv=None) -> int:
                           args.device)
         if code:
             return code
-    mod = importlib.import_module(f"znicz_torch.samples.{args.workflow}")
+    spec = args.workflow
+    if spec in SAMPLES:
+        spec = f"znicz_torch.samples.{spec}"
+    mod = load_module(spec, "znicz_torch._user_workflow")
     if args.serve is not None:
         return serve(mod, args)
-    kwargs = {}
-    if args.snapshot:
-        if "snapshot" not in inspect.signature(mod.run).parameters:
-            ap.error(f"{args.workflow} does not resume from a snapshot")
-        kwargs["snapshot"] = args.snapshot
+    if not hasattr(mod, "run"):
+        print(f"error: {spec} does not expose run()", file=sys.stderr)
+        return 2
+    if args.snapshot and \
+            "snapshot" not in inspect.signature(mod.run).parameters:
+        ap.error(f"{args.workflow} does not resume from a snapshot")
+    kwargs = run_kwargs(mod.run, args.device, args.snapshot)
     profile_dir = args.profile_dir or args.profile
     if profile_dir:
         with profiled(profile_dir, args.device,
                       steps=bool(args.profile_dir)) as path:
-            wf = mod.run(device=args.device, **kwargs)
+            wf = mod.run(**kwargs)
         print(f"profiler trace -> {path}", flush=True)
     else:
-        wf = mod.run(device=args.device, **kwargs)
-    stats = wf.train_stats
+        wf = mod.run(**kwargs)
+    if wf is None:
+        return 0
+    if args.workflow_graph:
+        with open(args.workflow_graph, "w") as f:
+            f.write(wf.generate_graph())
+        print(f"workflow graph -> {args.workflow_graph}", flush=True)
+    stats = getattr(wf, "train_stats", None) or {}
     # the fused trainer, when it ran (the SOM's own unit is named trainer
     # too, and has no compute_dtype)
     trainer = getattr(wf, "trainer", None)
@@ -474,9 +561,8 @@ def main(argv=None) -> int:
     print(json.dumps({
         "workflow": args.workflow, "device": str(wf.device),
         **finals(args.workflow, wf),
-        "train_steps": stats["train_steps"],
-        "img_per_sec": stats["img_per_sec"],
-        "warm_img_per_sec": stats["warm_img_per_sec"],
+        **{k: stats[k] for k in ("train_steps", "img_per_sec",
+                                 "warm_img_per_sec") if k in stats},
         # the epochs the deep pipeline queued, when it ran
         **({"deep_epochs": deep} if deep else {}),
         # the unit engine computes in float32 whatever compute_dtype says,
@@ -579,7 +665,7 @@ def relay(args) -> int:
     upstream."""
     from znicz_torch.parallel.relay import Relay, parse_relay_spec
 
-    args_in = ([args.workflow] if args.workflow else []) \
+    args_in = [a for a in (args.workflow, args.config) if a] \
         + list(args.overrides)
     stray = [a for a in args_in if "=" not in a]
     if stray:
@@ -695,8 +781,7 @@ def balance(args) -> int:
 
     from znicz_torch.serving import ReplicaBalancer
 
-    # with no workflow, dotted overrides land in the workflow's slot too
-    args_in = ([args.workflow] if args.workflow else []) \
+    args_in = [a for a in (args.workflow, args.config) if a] \
         + list(args.overrides)
     stray = [a for a in args_in if "=" not in a]
     if stray:

@@ -1,6 +1,5 @@
 """Unit: the node of the dataflow graph (the port's own copy of
-``znicz_tpu/core/units.py`` and of the part of ``core/logger.py`` its
-units use).
+``znicz_tpu/core/units.py``; its logging mixin is ``core/logger.py``'s).
 
   - control edges by ``link_from``: a unit fires once every unit it is
     linked from has fired in the current wave;
@@ -17,24 +16,12 @@ Execution is the deterministic single-threaded wave of
 
 from __future__ import annotations
 
-import logging
 from typing import Any, Dict, List, Optional, Tuple, Union
 
+from znicz_torch.core.logger import Logger
 from znicz_torch.core.mutable import Bool, LinkableAttribute
 
 AttrLink = Union[str, Tuple[str, str]]
-
-
-class Logger:
-    """A logger named after the unit (``znicz_torch.<name>``)."""
-
-    @property
-    def logger(self) -> logging.Logger:
-        name = getattr(self, "name", None) or type(self).__name__
-        return logging.getLogger(f"znicz_torch.{name}")
-
-    def info(self, msg: str, *args) -> None:
-        self.logger.info(msg, *args)
 
 
 class Unit(Logger):

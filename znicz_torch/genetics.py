@@ -67,18 +67,20 @@ def find_tunes(cfg: Config, prefix: str = "") -> List[Tuple[str, Tune]]:
 
 class SubprocessEvaluator:
     """Scores one chromosome as a run of ``python -m znicz_torch
-    <workflow>`` with the chromosome as dotted overrides (``prefix``
-    maps the optimizer's paths onto the global tree, e.g.
-    ``"root.mnist"``) and ``--fitness``; ``overrides`` are passed before
-    them (flags too, such as ``--device cpu``).  ``cwd`` defaults to the
+    <workflow> [config]`` with the chromosome as dotted overrides
+    (``prefix`` maps the optimizer's paths onto the global tree, e.g.
+    ``"root.mnist"``) and ``--fitness``; ``config`` is a config file the
+    run applies first, ``overrides`` are passed before the chromosome
+    (flags too, such as ``--device cpu``).  ``cwd`` defaults to the
     directory that holds the ``znicz_torch`` package; a run has
     ``timeout`` seconds from its launch."""
 
-    def __init__(self, workflow: str, overrides: Sequence[str] = (),
-                 prefix: str = "root",
+    def __init__(self, workflow: str, config: str = "",
+                 overrides: Sequence[str] = (), prefix: str = "root",
                  env: Optional[Dict[str, str]] = None,
                  cwd: Optional[str] = None, timeout: float = 3600.0):
         self.workflow = workflow
+        self.config = config
         self.overrides = list(overrides)
         self.prefix = prefix.rstrip(".")
         self.env = env
@@ -92,6 +94,7 @@ class SubprocessEvaluator:
 
     def command(self, assignments: Dict[str, float]) -> List[str]:
         return ([sys.executable, "-m", "znicz_torch", self.workflow]
+                + ([self.config] if self.config else [])
                 + self.overrides
                 + [f"{self.prefix}.{path}={value!r}"
                    for path, value in assignments.items()]

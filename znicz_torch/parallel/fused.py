@@ -429,6 +429,9 @@ class FusedTrainer:
                       "deep_discarded_train_steps": 0,
                       "deep_discarded_eval_steps": 0, "collectives": 0,
                       "collective_bytes": 0, "collective_s": 0.0}
+        # the reference's name for them on the workflow (web_status and
+        # publishing read it)
+        workflow.fused_stats = self.stats
         self._stats_lock = threading.Lock()
         # hot-loop metrics and spans: the progress counters always count
         # (a dashboard must never read a live run as stalled); the step
@@ -1331,6 +1334,26 @@ class FusedTrainer:
                 raise
 
     def _epoch_end(self) -> None:
+        """The workflow's snapshotter (:meth:`_snapshot_epoch_end`), then
+        its plotters, after a :meth:`writeback`: each reads the epoch's
+        last parameters."""
+        self._snapshot_epoch_end()
+        plotters = list(getattr(self.workflow, "plotters", None) or [])
+        if plotters:
+            self.writeback()
+            for plotter in plotters:
+                plotter.run()
+
+    def writeback(self) -> None:
+        """Make the parameters readable as the last step left them.  The
+        modules the units hold are the trainer's state (a step updates
+        them in place, a graph replay writes the tensors it captured), so
+        nothing is copied: the host only waits out the work queued on
+        the card, on every stream, before a reader pulls a parameter."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _snapshot_epoch_end(self) -> None:
         """The workflow's snapshotter, unless it is gated off: a due save
         is queued for the background writer with device clones of the
         state under ``async_snapshot``, else written in line."""

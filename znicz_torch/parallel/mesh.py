@@ -50,6 +50,9 @@ import torch.distributed as dist
 
 #: seconds a collective waits for a lost rank before it raises
 TIMEOUT_S = 120
+#: seconds :func:`distributed_shutdown` waits for the freed groups' gloo
+#: threads to end (a busy host can take a while to reap one)
+SHUTDOWN_WAIT_S = 10.0
 
 #: what a spec says of a leaf: ``("model", None)`` rows of a 2-D weight
 #: split over ``model``, ``("model",)`` a 1-D bias split, ``()``
@@ -73,7 +76,11 @@ def distributed_init(coordinator: Optional[str] = None,
     raises (pass ``device="cpu"``).  ``backend`` is "nccl" on the card
     and "gloo" on the CPU unless named ("gloo" on the card lets ranks
     share one card).  Afterwards ``backends.resolve_device(None)`` is the
-    rank's device.  A collective waits at most :data:`TIMEOUT_S`."""
+    rank's device.  A collective waits at most :data:`TIMEOUT_S`.  The
+    process frees its groups when it exits, before the interpreter's
+    teardown (:func:`distributed_shutdown`, registered with ``atexit``)."""
+    import atexit
+
     from znicz_torch import backends
 
     if not num_processes or int(num_processes) <= 1:
@@ -100,6 +107,57 @@ def distributed_init(coordinator: Optional[str] = None,
                             rank=rank,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S))
     backends.set_process_device(dev)
+    atexit.unregister(distributed_shutdown)     # once a process
+    atexit.register(distributed_shutdown)
+
+
+def gloo_threads() -> list:
+    """The names of this process's live gloo threads (``pt_gloo_*``,
+    ``gloo_*``), read from ``/proc/self/task``; empty where there is no
+    ``/proc``."""
+    import os
+
+    names = []
+    try:
+        tasks = os.listdir("/proc/self/task")
+    except OSError:
+        return names
+    for tid in tasks:
+        try:
+            with open(f"/proc/self/task/{tid}/comm") as f:
+                name = f.read().strip()
+        except OSError:         # the thread ended meanwhile
+            continue
+        if "gloo" in name:
+            names.append(name)
+    return sorted(names)
+
+
+def distributed_shutdown() -> list:
+    """Destroy this rank's process groups and free them here, in the
+    calling thread; returns the gloo threads still alive after
+    :data:`SHUTDOWN_WAIT_S` (none, once every group is freed).
+
+    ``destroy_process_group`` only unregisters the groups.  A group that
+    something still holds, as a ``DeviceMesh`` kept by a trainer in a
+    reference cycle is, keeps its worker threads until the cyclic
+    collector frees it, and in a process about to exit that is the
+    interpreter's teardown, where freeing it may abort the process
+    ("terminate called without an active exception", ROADMAP C.17).  So
+    the cycles are collected, and the threads waited out, before this
+    returns.  A thread names itself once it runs, so one just started
+    may not be counted yet."""
+    import gc
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    gc.collect()
+    deadline = time.monotonic() + SHUTDOWN_WAIT_S
+    left = gloo_threads()
+    while left and time.monotonic() < deadline:
+        time.sleep(0.01)
+        left = gloo_threads()
+    return left
 
 
 def world_size() -> int:

@@ -108,19 +108,21 @@ class AlexNetWorkflow(StandardWorkflow):
     """AlexNet's modules for ``sample_shape`` (default 227x227x3) and
     ``n_classes`` (default ``root.alexnet.loader.n_classes``), on
     ``device`` (``cuda:0`` unless ``"cpu"`` is asked for).  ``loader``
-    and ``decision_config`` make it trainable."""
+    and ``decision_config`` make it trainable; the other keywords
+    (``plotters``, ``image_saver_config``, ``lr_adjust_config``) go to
+    ``StandardWorkflow``."""
 
     def __init__(self, sample_shape: Optional[Sequence[int]] = (227, 227, 3),
                  n_classes: Optional[int] = None, device: DeviceLike = None,
                  loader=None, decision_config: Optional[dict] = None,
-                 snapshotter_config: Optional[dict] = None):
+                 snapshotter_config: Optional[dict] = None, **kwargs):
         if n_classes is None:
             n_classes = int(root.alexnet.loader.get("n_classes", 100))
         super().__init__(make_layers(int(n_classes)), sample_shape,
                          device=device, name="AlexNetWorkflow", loader=loader,
                          loss_function="softmax",
                          decision_config=decision_config,
-                         snapshotter_config=snapshotter_config)
+                         snapshotter_config=snapshotter_config, **kwargs)
 
 
 def serving_workflow(device: DeviceLike = None) -> AlexNetWorkflow:
@@ -134,11 +136,13 @@ def serving_workflow(device: DeviceLike = None) -> AlexNetWorkflow:
                            device=device)
 
 
-def training_workflow(device: DeviceLike = None) -> AlexNetWorkflow:
+def training_workflow(device: DeviceLike = None,
+                      **kwargs) -> AlexNetWorkflow:
     """The trainable AlexNet of the ``root.alexnet`` config: its loader
     (data resident on ``device``), sample shape and class count from the
     loader config, the Decision's ``max_epochs``/``fail_iterations`` and
-    the snapshotter's ``prefix``/``interval``."""
+    the snapshotter's ``prefix``/``interval``; ``kwargs`` go to
+    :class:`AlexNetWorkflow` (``plotters=True``, ...)."""
     cfg = root.alexnet
     size = int(cfg.loader.get("image_size", 227))
     return AlexNetWorkflow(
@@ -151,7 +155,8 @@ def training_workflow(device: DeviceLike = None) -> AlexNetWorkflow:
             "fail_iterations": int(cfg.decision.get("fail_iterations"))},
         snapshotter_config={
             "prefix": cfg.snapshotter.get("prefix"),
-            "interval": int(cfg.snapshotter.get("interval", 0))})
+            "interval": int(cfg.snapshotter.get("interval", 0))},
+        **kwargs)
 
 
 def run(device: DeviceLike = None, fused: bool = True,

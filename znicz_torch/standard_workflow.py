@@ -41,6 +41,17 @@ is linked as the reference links it (:meth:`StandardWorkflow.link_graph`):
 end point; dropout and stochastic pooling units get the loader's
 ``minibatch_class``.  A
 workflow built without a loader serves only.
+
+The observers, as the reference wires them (:meth:`StandardWorkflow.
+link_observers`): ``plotters=True`` chains ``plot_err`` (the VALID
+metric an epoch: err% under softmax, the loss under MSE),
+``plot_weights`` (the first weighted module's live weights, read at each
+snapshot) and, under softmax, ``plot_confusion`` after the snapshotter,
+each gated to epoch ends; the end point waits on the chain, and the
+repeater is blocked once training completed.  ``FusedTrainer`` runs the
+same plotters at its epoch ends.  ``image_saver_config`` (a dict such as
+``{"limit": 32}``) links an ``image_saver.ImageSaver`` after the
+evaluator of a softmax workflow (the unit engine only).
 """
 
 from __future__ import annotations
@@ -139,13 +150,19 @@ class StandardWorkflowBase(Workflow):
                  loss_function: str = "softmax",
                  decision_config: Optional[dict] = None,
                  snapshotter_config: Optional[dict] = None,
-                 lr_adjust_config: Optional[dict] = None):
+                 lr_adjust_config: Optional[dict] = None,
+                 image_saver_config: Optional[dict] = None,
+                 plotters: bool = False):
         super().__init__(name=name)
         self.device = resolve_device(device)
         if loss_function not in ("softmax", "mse"):
             raise ValueError(f"unknown loss {loss_function!r} ('softmax' "
                              f"or 'mse')")
         self.loss_function = loss_function
+        self.image_saver_config = image_saver_config
+        self.want_plotters = bool(plotters)
+        self.image_saver = None
+        self.plotters = []
         self.loader = loader
         if loader is not None:
             self.add_unit(loader)
@@ -241,6 +258,7 @@ class StandardWorkflow(StandardWorkflowBase):
         self.link_snapshotter()
         self.link_gds()
         self.link_lr_adjust()
+        self.link_observers()
         self.link_loop_and_end()
 
     def link_repeater(self):
@@ -303,7 +321,74 @@ class StandardWorkflow(StandardWorkflowBase):
             self.lr_adjust.link_from(self.gd_units[-1])
             self.lr_adjust.gate_skip = self.decision.gd_skip
 
+    def link_observers(self):
+        """The optional side units: the image saver and the plotters."""
+        if self.image_saver_config is not None and \
+                self.loss_function == "softmax":
+            from znicz_torch.image_saver import ImageSaver
+
+            sv = ImageSaver(self, name="image_saver",
+                            **self.image_saver_config)
+            sv.link_from(self.evaluator)
+            sv.link_attrs(self.loader, ("input", "minibatch_data"),
+                          ("labels", "minibatch_labels"),
+                          ("batch_size", "minibatch_size"),
+                          "epoch_number", "last_minibatch")
+            sv.link_attrs(self.forward_units[-1], "output")
+            self.image_saver = sv
+        if not self.want_plotters:
+            return
+        from znicz_torch.plotting_units import (AccumulatingPlotter,
+                                                MatrixPlotter, Weights2D)
+
+        dec = self.decision
+
+        def valid_metric():
+            # VALID's metrics when there is a VALID split, else TRAIN's;
+            # the key follows the Decision's kind
+            m = dec.epoch_metrics[1] or dec.epoch_metrics[2] or {}
+            for key in ("err_pct", "mse", "loss"):
+                if key in m:
+                    return float(m[key])
+            return 0.0
+
+        plots = [AccumulatingPlotter(
+            self, name="plot_err",
+            ylabel=("valid err %" if self.loss_function == "softmax"
+                    else "valid loss"),
+            fetch=valid_metric)]
+        first = next((u for u in self.forward_units if u.has_weights), None)
+        if first is not None:
+            def first_weights():
+                # the live tensor at each snapshot: a trainer may replace
+                # the parameter (a stored dtype, a mesh placement)
+                leaves = first.params()
+                return leaves.get("weights", next(iter(leaves.values())))
+
+            plots.append(Weights2D(self, name="plot_weights",
+                                   source=first_weights))
+        if self.loss_function == "softmax":
+            def valid_confusion():
+                conf = (dec.epoch_metrics[1] or {}).get("confusion")
+                return np.asarray([[0]]) if conf is None else conf
+
+            plots.append(MatrixPlotter(self, name="plot_confusion",
+                                       fetch=valid_confusion))
+        prev = self.snapshotter
+        for p in plots:
+            p.link_from(prev)
+            p.gate_skip = ~dec.epoch_ended        # at epoch ends only
+            prev = p
+        self.plotters = plots
+
     def link_loop_and_end(self):
         self.repeater.link_from(self.lr_adjust or self.gd_units[-1])
         self.end_point.link_from(self.decision)
+        if self.plotters:
+            # the last epoch's plots render before the run stops: the end
+            # point waits on the plot chain too, so the stop lap reaches
+            # the repeater first, which is blocked once training completed
+            # (the loader must not advance past the end of training)
+            self.end_point.link_from(self.plotters[-1])
+            self.repeater.gate_block = self.decision.complete
         self.end_point.gate_block = ~self.decision.complete
